@@ -1,0 +1,140 @@
+"""DASE base classes — the engine-author SDK.
+
+Counterpart of ``predictionio_tpu/controller/base.py``.  Where the
+reference's :class:`RuntimeContext` carries a JAX device mesh, the port's
+carries the ``torch.device`` its models serve on (see
+:func:`predictionio_tpu_torch.device.device`).
+"""
+
+from __future__ import annotations
+
+import abc
+import dataclasses
+from typing import Any, Generic, List, Optional, Sequence, Tuple, TypeVar
+
+import torch
+
+from predictionio_tpu_torch.controller.params import EmptyParams, Params
+
+__all__ = [
+    "RuntimeContext",
+    "DataSource",
+    "Preparator",
+    "IdentityPreparator",
+    "Algorithm",
+    "Serving",
+    "FirstServing",
+    "PersistentModel",
+]
+
+TD = TypeVar("TD")   # training data
+PD = TypeVar("PD")   # prepared data
+M = TypeVar("M")     # model
+Q = TypeVar("Q")     # query
+P = TypeVar("P")     # predicted result
+A = TypeVar("A")     # actual result
+EI = TypeVar("EI")   # evaluation info
+
+
+@dataclasses.dataclass
+class RuntimeContext:
+    """What a DASE role gets instead of the reference's SparkContext.
+
+    - ``storage``: the port's :class:`~predictionio_tpu_torch.data.storage.Storage`
+    - ``device``: the ``torch.device`` models stage their tensors on
+
+    The event store, the run seed and the workflow params join it with
+    the training slice.
+    """
+
+    storage: Any = None
+    device: Optional[torch.device] = None
+
+    @staticmethod
+    def create(storage=None, device=None) -> "RuntimeContext":
+        """Build the run context.  ``device`` goes through
+        :func:`~predictionio_tpu_torch.device.device`: the CUDA card
+        unless ``"cpu"`` is asked for, raising when CUDA is absent."""
+        from predictionio_tpu_torch.data.storage import get_storage
+        from predictionio_tpu_torch.device import device as resolve_device
+
+        return RuntimeContext(storage=storage or get_storage(),
+                              device=resolve_device(device))
+
+
+class _HasParams:
+    """Every DASE role is constructed with its Params (reference: Doer)."""
+
+    params_class: type = EmptyParams
+
+    def __init__(self, params: Optional[Params] = None):
+        self.params = params if params is not None else self.params_class()
+
+
+class DataSource(_HasParams, Generic[TD, EI, Q, A], abc.ABC):
+    """Reference: PDataSource/LDataSource — reads training and eval data."""
+
+    @abc.abstractmethod
+    def read_training(self, ctx: RuntimeContext) -> TD: ...
+
+
+class Preparator(_HasParams, Generic[TD, PD], abc.ABC):
+    """Reference: PPreparator/LPreparator."""
+
+    @abc.abstractmethod
+    def prepare(self, ctx: RuntimeContext, training_data: TD) -> PD: ...
+
+
+class IdentityPreparator(Preparator[TD, TD]):
+    """Reference: IdentityPreparator — passes training data through."""
+
+    def prepare(self, ctx: RuntimeContext, training_data: TD) -> TD:
+        return training_data
+
+
+class Algorithm(_HasParams, Generic[PD, M, Q, P], abc.ABC):
+    """Reference: PAlgorithm/P2LAlgorithm/LAlgorithm."""
+
+    @abc.abstractmethod
+    def train(self, ctx: RuntimeContext, prepared_data: PD) -> M: ...
+
+    @abc.abstractmethod
+    def predict(self, model: M, query: Q) -> P: ...
+
+    def batch_predict(self, model: M, queries: Sequence[Tuple[int, Q]]) -> List[Tuple[int, P]]:
+        """Reference: PAlgorithm.batchPredict.  Default maps
+        :meth:`predict`; algorithms override with a vectorized path."""
+        return [(i, self.predict(model, q)) for i, q in queries]
+
+
+class Serving(_HasParams, Generic[Q, P], abc.ABC):
+    """Reference: LServing — combine predictions of all algorithms."""
+
+    @abc.abstractmethod
+    def serve(self, query: Q, predictions: Sequence[P]) -> P: ...
+
+    def supplement(self, query: Q) -> Q:
+        """Reference: LServing.supplement hook — enrich query pre-predict."""
+        return query
+
+
+class FirstServing(Serving[Q, P]):
+    """Reference: FirstServing — returns the first algorithm's prediction."""
+
+    def serve(self, query: Q, predictions: Sequence[P]) -> P:
+        return predictions[0]
+
+
+class PersistentModel(abc.ABC):
+    """Opt-in custom model persistence (reference: PersistentModel +
+    PersistentModelLoader).  Models that don't implement this are
+    pickled into the MODELDATA blob store keyed by engine-instance id."""
+
+    @abc.abstractmethod
+    def save(self, instance_id: str, ctx: RuntimeContext) -> bool:
+        """Persist under ``instance_id``; return False to fall back to pickle."""
+
+    @classmethod
+    @abc.abstractmethod
+    def load(cls, instance_id: str, params: Params, ctx: RuntimeContext) -> "PersistentModel":
+        ...

@@ -1,0 +1,27 @@
+from predictionio_tpu_torch.templates.recommendation.engine import (
+    ALSAlgorithm,
+    ALSAlgorithmParams,
+    ALSModelWrapper,
+    DataSourceParams,
+    ItemScore,
+    PredictedResult,
+    Query,
+    RecommendationDataSource,
+    RecommendationPreparator,
+    engine,
+    wrapper_from_numpy,
+)
+
+__all__ = [
+    "ALSAlgorithm",
+    "ALSAlgorithmParams",
+    "ALSModelWrapper",
+    "DataSourceParams",
+    "ItemScore",
+    "PredictedResult",
+    "Query",
+    "RecommendationDataSource",
+    "RecommendationPreparator",
+    "engine",
+    "wrapper_from_numpy",
+]
