@@ -2,7 +2,7 @@
 
 Counterpart of ``predictionio_tpu/controller/base.py``.  Where the
 reference's :class:`RuntimeContext` carries a JAX device mesh, the port's
-carries the ``torch.device`` its models serve on (see
+carries the ``torch.device`` its models train and serve on (see
 :func:`predictionio_tpu_torch.device.device`).
 """
 
@@ -41,25 +41,31 @@ class RuntimeContext:
     """What a DASE role gets instead of the reference's SparkContext.
 
     - ``storage``: the port's :class:`~predictionio_tpu_torch.data.storage.Storage`
-    - ``device``: the ``torch.device`` models stage their tensors on
-
-    The event store, the run seed and the workflow params join it with
-    the training slice.
+    - ``event_store``: name-resolving read API
+      (:class:`~predictionio_tpu_torch.data.store.EventStore`)
+    - ``device``: the ``torch.device`` models train on and stage their
+      tensors on
+    - ``seed``: base RNG seed for the run (reproducible training)
     """
 
     storage: Any = None
+    event_store: Any = None
     device: Optional[torch.device] = None
+    seed: int = 0
 
     @staticmethod
-    def create(storage=None, device=None) -> "RuntimeContext":
+    def create(storage=None, device=None, seed: int = 0) -> "RuntimeContext":
         """Build the run context.  ``device`` goes through
         :func:`~predictionio_tpu_torch.device.device`: the CUDA card
         unless ``"cpu"`` is asked for, raising when CUDA is absent."""
         from predictionio_tpu_torch.data.storage import get_storage
+        from predictionio_tpu_torch.data.store import EventStore
         from predictionio_tpu_torch.device import device as resolve_device
 
-        return RuntimeContext(storage=storage or get_storage(),
-                              device=resolve_device(device))
+        storage = storage or get_storage()
+        return RuntimeContext(storage=storage,
+                              event_store=EventStore(storage),
+                              device=resolve_device(device), seed=seed)
 
 
 class _HasParams:

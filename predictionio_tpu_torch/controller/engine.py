@@ -9,8 +9,8 @@ schema is the reference's, verbatim::
      "algorithms": [{"name": ..., "params": {...}}, ...],
      "serving": {"params": {...}}}
 
-The train and eval drives arrive with the training slice; serving needs
-only binding and instantiation.
+:meth:`Engine.train` drives DataSource → Preparator → each Algorithm;
+the eval drive arrives with the evaluation slice.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from predictionio_tpu_torch.controller.base import (
     FirstServing,
     IdentityPreparator,
     Preparator,
+    RuntimeContext,
     Serving,
 )
 from predictionio_tpu_torch.controller.params import (
@@ -122,6 +123,25 @@ class Engine:
 
     def make_serving(self, engine_params: EngineParams) -> Serving:
         return self.serving_class(engine_params.serving_params)
+
+    def train(self, ctx: RuntimeContext,
+              engine_params: EngineParams) -> List[Any]:
+        """Run DataSource → Preparator → each Algorithm.train; returns the
+        models (reference: Engine.train).  Each stage's wall time lands
+        in ``pio_train_phase_ms{phase}``."""
+        from predictionio_tpu_torch.obs import phase
+
+        datasource = self.datasource_class(engine_params.datasource_params)
+        preparator = self.preparator_class(engine_params.preparator_params)
+        with phase("train.datasource"):
+            td = datasource.read_training(ctx)
+        with phase("train.prepare"):
+            pd = preparator.prepare(ctx, td)
+        models = []
+        for algo in self.make_algorithms(engine_params):
+            with phase("train.algorithm"):
+                models.append(algo.train(ctx, pd))
+        return models
 
 
 @dataclasses.dataclass

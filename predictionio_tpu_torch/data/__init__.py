@@ -1,2 +1,2 @@
-"""Data layer of the port: entity indexing and the storage needed to
-deploy a trained generation."""
+"""Data layer of the port: the event model, the in-memory event store,
+its columnar decoding, and the storage that training and deploy share."""

@@ -1,11 +1,13 @@
-"""Storage for deploy: engine-instance rows and model blobs.
+"""Storage for training and deploy: apps, events, engine-instance rows
+and model blobs.
 
-Port of the deploy half of ``predictionio_tpu/data/storage``.  A
-:class:`Storage` holds its engine-instance rows in memory and writes
-model blobs under ``<home>/storage/models`` (``home`` defaults to
-``PIO_HOME``, else ``~/.predictionio_tpu``).  There is no process-wide
-singleton: the caller creates one Storage and hands the same object to
-the workflow that persists an instance and to the server that loads it.
+Port of ``predictionio_tpu/data/storage`` with its in-memory backends.
+A :class:`Storage` holds its apps, events and engine-instance rows in
+memory and writes model blobs under ``<home>/storage/models`` (``home``
+defaults to ``PIO_HOME``, else ``~/.predictionio_tpu``).  There is no
+process-wide singleton: the caller creates one Storage and hands the
+same object to whatever inserts events, to ``run_train`` and to the
+server that loads the instance.  Nothing here needs ``pyarrow``.
 """
 
 from __future__ import annotations
@@ -15,19 +17,29 @@ from pathlib import Path
 from typing import Optional, Union
 
 from predictionio_tpu_torch.data.storage.base import (
+    App,
+    Apps,
     EngineInstance,
     EngineInstances,
+    Events,
     Model,
     Models,
     StorageError,
 )
 from predictionio_tpu_torch.data.storage.localfs_models import LocalFSModels
-from predictionio_tpu_torch.data.storage.memory import MemoryEngineInstances
+from predictionio_tpu_torch.data.storage.memory import (
+    MemoryApps,
+    MemoryEngineInstances,
+    MemoryEvents,
+)
 
 __all__ = [
     "Storage",
     "get_storage",
     "pio_home",
+    "App",
+    "Apps",
+    "Events",
     "EngineInstance",
     "EngineInstances",
     "Model",
@@ -45,13 +57,21 @@ def pio_home() -> Path:
 
 class Storage:
     """Typed repository getters (reference: ``Storage.getMetaData*`` /
-    ``getModelDataModels``) over an in-memory METADATA store and a
-    localfs MODELDATA store."""
+    ``getLEvents`` / ``getModelDataModels``) over in-memory METADATA and
+    EVENTDATA stores and a localfs MODELDATA store."""
 
     def __init__(self, home: Union[str, Path]):
         self.home = Path(home)
+        self._apps = MemoryApps()
+        self._events = MemoryEvents()
         self._instances = MemoryEngineInstances()
         self._models = LocalFSModels(str(self.home / "storage" / "models"))
+
+    def get_apps(self) -> Apps:
+        return self._apps
+
+    def get_events(self) -> Events:
+        return self._events
 
     def get_engine_instances(self) -> EngineInstances:
         return self._instances

@@ -6,6 +6,7 @@ from predictionio_tpu_torch.templates.recommendation.engine import (
     ItemScore,
     PredictedResult,
     Query,
+    Ratings,
     RecommendationDataSource,
     RecommendationPreparator,
     engine,
@@ -20,6 +21,7 @@ __all__ = [
     "ItemScore",
     "PredictedResult",
     "Query",
+    "Ratings",
     "RecommendationDataSource",
     "RecommendationPreparator",
     "engine",

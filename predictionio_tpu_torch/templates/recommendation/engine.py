@@ -1,25 +1,32 @@
-"""Recommendation template — ALS personal recommendations, serving half.
+"""Recommendation template — ALS personal recommendations.
 
 Port of ``predictionio_tpu/templates/recommendation/engine.py``.  The
-JSON contract is the reference's:
+contract is the reference's:
 
+- events: ``rate`` (user→item, properties.rating) and ``buy`` (user→item,
+  implicit, trained as ``buyRating``)
 - query JSON: ``{"user": "u1", "num": 4}``
 - result JSON: ``{"itemScores": [{"item": "i1", "score": 1.2}, ...]}``
 - algorithm params: rank / numIterations / lambda / alpha /
   implicitPrefs / seed — the MLlib ``ALS.train`` knob set
 
 The reference template imports jax at module level, so the port copies
-its types instead of importing them.  Serving goes through the port's
+its types instead of importing them.  Training runs the port's ALS
+sweep (kernels K1 and K2 on the card); serving goes through the port's
 retrieval facade (host, device and chunked rungs; the chunked rung runs
-the fused top-k kernel).  Training — the datasource read and
-``ALSAlgorithm.train`` — arrives with the training slice; until then a
-generation is carried over with :func:`wrapper_from_numpy` and persisted
-with :func:`predictionio_tpu_torch.workflow.core_workflow.persist_instance`.
+the fused top-k kernel K3).  A generation trained elsewhere can still be
+carried in with :func:`wrapper_from_numpy` and persisted with
+:func:`predictionio_tpu_torch.workflow.core_workflow.persist_instance`.
+Not ported yet: ``read_eval``, ``warm_start``, the quality and recall
+scorecards, serve-time fold-in, and the IVF/PQ structures (a train whose
+policy would build them raises).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
+import os
 import weakref
 from typing import Any, List, Optional, Sequence, Tuple, Union
 
@@ -47,6 +54,7 @@ __all__ = [
     "Query",
     "ItemScore",
     "PredictedResult",
+    "Ratings",
     "DataSourceParams",
     "RecommendationDataSource",
     "RecommendationPreparator",
@@ -78,6 +86,22 @@ class PredictedResult:
 
 # -- training data ----------------------------------------------------------
 
+@dataclasses.dataclass
+class Ratings:
+    """COO ratings plus the string↔int entity indexes (reference: the
+    template's ``TrainingData``), with the fold-in context the trained
+    wrapper keeps."""
+
+    user_ids: np.ndarray
+    item_ids: np.ndarray
+    ratings: np.ndarray
+    user_index: BiMap
+    item_index: BiMap
+    app_name: Optional[str] = None
+    event_names: Sequence[str] = ()
+    buy_rating: float = 4.0
+
+
 @dataclasses.dataclass(frozen=True)
 class DataSourceParams(Params):
     appName: str  # noqa: N815 — engine.json key parity
@@ -89,20 +113,60 @@ class DataSourceParams(Params):
 
 
 class RecommendationDataSource(DataSource):
-    """Reads rate/buy events into COO ratings (reference: DataSource.scala).
-    The event store is ported with the training slice."""
+    """Reads rate/buy events into COO ratings (reference: DataSource.scala)."""
 
     params_class = DataSourceParams
 
-    def read_training(self, ctx: RuntimeContext):
-        raise NotImplementedError(
-            "reading training events is ported with the ALS training slice")
+    def read_training(self, ctx: RuntimeContext) -> Ratings:
+        from predictionio_tpu_torch.data.columnar import (
+            encode_ids,
+            event_mask,
+            numeric_property,
+        )
+
+        p: DataSourceParams = self.params
+        table = ctx.event_store.find_columnar(
+            p.appName,
+            entity_type="user",
+            target_entity_type="item",
+            event_names=list(p.eventNames),
+            # training is order-independent, and only these columns
+            # feed the COO
+            ordered=False,
+            columns=["event", "entity_id", "target_entity_id", "properties"],
+        )
+        user_ids, user_index = encode_ids(table["entity_id"])
+        item_ids, item_index = encode_ids(table["target_entity_id"])
+        is_rate = event_mask(table, ["rate"])
+        raw = numeric_property(table, "rating", default=np.nan)
+        ratings = np.where(is_rate, raw, p.buyRating).astype(np.float32)
+        # Decided semantic (PARITY.md): a `rate` event with no numeric
+        # `rating` property is DROPPED with a warning — never trained as
+        # rating 0.0, a strong negative signal in explicit ALS.
+        bad = is_rate & ~np.isfinite(ratings)
+        if bad.any():
+            logging.getLogger(__name__).warning(
+                "dropping %d rate event(s) without a numeric 'rating' "
+                "property", int(bad.sum()))
+            keep = ~bad
+            user_ids, item_ids = user_ids[keep], item_ids[keep]
+            ratings = ratings[keep]
+        return Ratings(
+            user_ids=user_ids,
+            item_ids=item_ids,
+            ratings=ratings,
+            user_index=user_index,
+            item_index=item_index,
+            app_name=p.appName,
+            event_names=tuple(p.eventNames),
+            buy_rating=p.buyRating,
+        )
 
 
 class RecommendationPreparator(Preparator):
     """Reference: Preparator.scala — identity over the ratings."""
 
-    def prepare(self, ctx: RuntimeContext, training_data):
+    def prepare(self, ctx: RuntimeContext, training_data: Ratings) -> Ratings:
         return training_data
 
 
@@ -133,9 +197,9 @@ class ALSModelWrapper:
     corpus lives in the weak-keyed retriever cache and dies with the
     wrapper.  ``ivf``/``pq`` exist for parity with the reference's
     pickle: a generation that carries either is refused until the IVF
-    and PQ rungs are ported.  The fold-in fields keep their defaults:
-    serve-time fold-in is ported later, and until then an unseen user
-    gets the cold-start (empty) answer.
+    and PQ rungs are ported.  Training fills the fold-in fields as the
+    reference does, but serve-time fold-in is ported later: until then
+    an unseen user gets the cold-start (empty) answer.
     """
 
     model: als_lib.ALSModel
@@ -217,11 +281,80 @@ def wrapper_from_numpy(user_factors, item_factors, user_ids, item_ids, *,
                            item_index=item_index)
 
 
+def _env_int(key: str, default: int) -> int:
+    try:
+        return int(os.environ.get(key, str(default)) or default)
+    except ValueError:
+        return default
+
+
+def _refuse_unported_structures(n_items: int) -> None:
+    """Raise where the reference's train-time policy would build an IVF
+    index or PQ codes for this corpus (``retrieval.build_train_index``
+    with ``require_explicit``, ``retrieval.pq.pq_build_config``): those
+    structures and their rungs arrive with the IVF/PQ slice, and a train
+    must not quietly skip them."""
+    off = ("off", "0", "false", "no")
+    ivf = os.environ.get("PIO_IVF", "auto").strip().lower() or "auto"
+    if ivf in ("on", "1", "true", "yes") \
+            and n_items >= _env_int("PIO_IVF_MIN_ITEMS", 50_000):
+        raise NotImplementedError(
+            f"PIO_IVF={ivf} asks for an IVF index over {n_items} items; "
+            "the IVF/PQ slice of the port is not ported yet (unset "
+            "PIO_IVF to train for exact serving)")
+    pq = os.environ.get("PIO_PQ", "auto").strip().lower() or "auto"
+    if pq not in off and n_items >= _env_int("PIO_PQ_MIN_ITEMS", 200_000):
+        raise NotImplementedError(
+            f"the PQ policy (PIO_PQ={pq}, PIO_PQ_MIN_ITEMS) would build PQ "
+            f"codes for {n_items} items; the IVF/PQ slice of the port is "
+            "not ported yet (set PIO_PQ=off to train for exact serving)")
+
+
 class ALSAlgorithm(Algorithm):
     params_class = ALSAlgorithmParams
 
-    def train(self, ctx: RuntimeContext, prepared_data) -> ALSModelWrapper:
-        raise NotImplementedError("ALS training is ported in the next slice")
+    def train(self, ctx: RuntimeContext,
+              prepared_data: Ratings) -> ALSModelWrapper:
+        """Train on ``ctx.device`` (reference: ``ALSAlgorithm.train``);
+        the quality and recall scorecards are not ported yet."""
+        p: ALSAlgorithmParams = self.params
+        if len(prepared_data.user_ids) == 0:
+            raise ValueError(
+                "No rating events found — check appName/eventNames "
+                "(reference template raises the same assertion).")
+        n_items = len(prepared_data.item_index)
+        _refuse_unported_structures(n_items)
+        cfg = als_lib.ALSConfig(
+            rank=p.rank,
+            iterations=p.numIterations,
+            reg=p.lambda_,
+            alpha=p.alpha,
+            implicit=p.implicitPrefs,
+            max_degree=p.maxDegree,
+            seed=p.seed if p.seed is not None else ctx.seed,
+            factor_sharding=p.factorSharding,
+            gather_window=p.gatherWindow,
+        )
+        model = als_lib.train_als(
+            prepared_data.user_ids,
+            prepared_data.item_ids,
+            prepared_data.ratings,
+            n_users=len(prepared_data.user_index),
+            n_items=n_items,
+            config=cfg,
+            device=ctx.device,
+        )
+        return ALSModelWrapper(
+            model=model,
+            user_index=prepared_data.user_index,
+            item_index=prepared_data.item_index,
+            app_name=prepared_data.app_name,
+            fold_event_names=tuple(prepared_data.event_names or ()),
+            buy_rating=float(prepared_data.buy_rating),
+            reg=float(p.lambda_),
+            alpha=float(p.alpha),
+            n_examples=len(prepared_data.ratings),
+        )
 
     def predict(self, model: ALSModelWrapper, query: Query) -> PredictedResult:
         # One query = a batch of one: the same facade routing applies.

@@ -13,11 +13,19 @@ import pytest
 import torch
 
 from predictionio_tpu_torch import device as port_device
+from predictionio_tpu_torch.models import als as port_als
+from predictionio_tpu_torch.ops import fused_gram as fg
 from predictionio_tpu_torch.ops import fused_topk as ft
+from predictionio_tpu_torch.ops import ridge_solve as rs
 from predictionio_tpu_torch.ops.topk import topk_mismatch
 
 RTOL = 1e-5   # float32 sums in another order: a few ulps of the score
 ATOL = 1e-5
+GRAM_RTOL = 1e-5   # K1: float32 sums of the same products in another
+GRAM_SIGMAS = 5.0  # order; atol: 5·√L·2^-24·Σ|terms| per entry, five
+                   # standard deviations of a float32 sum of L terms
+SOLVE_RTOL = 1e-4  # K2/K4: float32 elimination vs the same elimination
+SOLVE_ATOL = 1e-5  # in batched steps (FMA contraction differs); × max |x|
 
 
 @pytest.fixture()
@@ -102,3 +110,94 @@ def test_fused_topk_dispatcher_on_card(cuda_dev):
         ft.fused_topk(qt, it.cpu(), 10)
     with pytest.raises(TypeError, match="float32"):
         ft.fused_topk(qt.double(), it.double(), 10)
+
+
+def _gram_inputs(r, l, k, n, seed, dtype):
+    rng = np.random.default_rng(seed)
+    factors = torch.from_numpy(
+        rng.standard_normal((n, k)).astype(np.float32)).to(dtype)
+    idx = rng.integers(0, n, (r, l)).astype(np.int32)
+    w = np.abs(rng.standard_normal((r, l))).astype(np.float32)
+    c = rng.standard_normal((r, l)).astype(np.float32)
+    tail = np.arange(l)[None, :] >= rng.integers(1, l + 1, r)[:, None]
+    idx[tail], w[tail], c[tail] = 0, 0.0, 0.0
+    return factors, torch.from_numpy(idx), torch.from_numpy(w), \
+        torch.from_numpy(c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,l,k", [(1, 8, 3), (8, 8, 10), (8, 64, 64),
+                                   (37, 1000, 64), (8, 4096, 128),
+                                   (300, 200, 17), (5, 33, 100),
+                                   (16, 1000, 129), (7, 300, 200),
+                                   (3, 64, 256)])
+def test_fused_gram_matches_reference(cuda_dev, r, l, k, dtype):
+    args = [t.to(cuda_dev) for t in _gram_inputs(r, l, k, 3000, r + l + k,
+                                                 dtype)]
+    before = fg.LAUNCHES
+    a, b = fg.fused_gram_vector(*args)
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES == before + 1
+    ra, rb = fg.fused_gram_vector_reference(*args)
+    fac, idx, w, c = args
+    abs_a, abs_b = fg.fused_gram_vector_reference(fac.abs(), idx, w.abs(),
+                                                  c.abs())
+    sigma = GRAM_SIGMAS * l ** 0.5 * 2.0 ** -24
+    assert bool(((a - ra).abs() <= sigma * abs_a + GRAM_RTOL * ra.abs())
+                .all())
+    assert bool(((b - rb).abs() <= sigma * abs_b + GRAM_RTOL * rb.abs())
+                .all())
+
+
+def _spd(b, k, seed, dev):
+    rng = np.random.default_rng(seed)
+    y = rng.standard_normal((b, 2 * k, k)).astype(np.float32)
+    a = torch.from_numpy(np.einsum("blk,blm->bkm", y, y).astype(np.float32))
+    rhs = torch.from_numpy(rng.standard_normal((b, k)).astype(np.float32))
+    reg = torch.from_numpy((0.05 * rng.integers(1, 40, b)).astype(np.float32))
+    return a.to(dev), rhs.to(dev), reg.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["lu", "gj"])
+@pytest.mark.parametrize("b,k", [(1, 10), (127, 64), (128, 8), (131, 128),
+                                 (5000, 64), (3, 33)])
+def test_ridge_solve_matches_reference(cuda_dev, method, b, k):
+    a, rhs, reg = _spd(b, k, b + k, cuda_dev)
+    plain = rs.ridge_solve_lu_reference if method == "lu" \
+        else rs.ridge_solve_gj_reference
+    before = (rs.LU_LAUNCHES, rs.GJ_LAUNCHES)
+    x = rs.ridge_solve_cuda(a, rhs, reg, method)
+    torch.cuda.synchronize()
+    after = (rs.LU_LAUNCHES, rs.GJ_LAUNCHES)
+    assert after == ((before[0] + 1, before[1]) if method == "lu"
+                     else (before[0], before[1] + 1))
+    want = plain(a, rhs, reg)
+    torch.testing.assert_close(x, want, rtol=SOLVE_RTOL,
+                               atol=SOLVE_ATOL * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_training_on_the_card_launches_k1_k2_and_matches_plain(cuda_dev):
+    rng = np.random.default_rng(0)
+    n_users, n_items, n = 500, 300, 20_000
+    users = rng.integers(0, n_users, n)
+    items = (rng.zipf(1.25, n) % n_items).astype(np.int64)
+    ratings = (rng.integers(1, 11, n) * 0.5).astype(np.float32)
+    cfg = port_als.ALSConfig(rank=16, iterations=2, split_above=256)
+    before = (fg.LAUNCHES, rs.LU_LAUNCHES)
+    got = port_als.train_als(users, items, ratings, n_users, n_items, cfg,
+                             device=cuda_dev)
+    assert fg.LAUNCHES > before[0] and rs.LU_LAUNCHES > before[1]
+    with pytest.raises(ValueError, match="use_pallas=False"):
+        port_als.train_als(users, items, ratings, n_users, n_items,
+                           port_als.ALSConfig(rank=16, use_pallas=False),
+                           device=cuda_dev)
+    # the plain versions run on the CPU (and Cholesky solves there)
+    plain = port_als.train_als(users, items, ratings, n_users, n_items, cfg,
+                               device="cpu")
+    np.testing.assert_allclose(got.user_factors, plain.user_factors,
+                               rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(got.item_factors, plain.item_factors,
+                               rtol=1e-3, atol=1e-4)

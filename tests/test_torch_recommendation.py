@@ -36,6 +36,7 @@ from predictionio_tpu_torch.controller import (
     RuntimeContext,
     load_engine_factory,
 )
+from predictionio_tpu_torch.data.storage import App as PortApp
 from predictionio_tpu_torch.data.storage import get_storage
 from predictionio_tpu_torch.models import als as port_als
 from predictionio_tpu_torch.server.engine_server import EngineServer
@@ -272,7 +273,7 @@ def test_model_functions_match_jax(servers):
         assert (np.sort(gi.numpy(), 1) == np.sort(np.asarray(wi), 1)).all()
 
 
-def test_engine_json_binds_and_training_waits():
+def test_engine_json_binds_and_training_waits(tmp_path):
     variant = EngineVariant.from_file(ENGINE_JSON)
     assert variant.engine_factory == \
         "predictionio_tpu_torch.templates.recommendation:engine"
@@ -280,10 +281,18 @@ def test_engine_json_binds_and_training_waits():
     params = eng.bind_engine_params(variant.raw)
     assert params.algorithms_params[0][0] == "als"
     assert eng.query_class is Query
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ALSAlgorithm().train(None, None)
-    with pytest.raises(NotImplementedError):
-        eng.datasource_class(params.datasource_params).read_training(None)
+    # training now runs; it waits for events: an app with none is refused
+    storage = get_storage(tmp_path)
+    ctx = RuntimeContext.create(storage=storage, device="cpu")
+    with pytest.raises(Exception, match="does not exist"):
+        eng.datasource_class(params.datasource_params).read_training(ctx)
+    storage.get_apps().insert(PortApp(id=None, name="MyApp1"))
+    storage.get_events().init(storage.get_apps().get_by_name("MyApp1").id)
+    ratings = eng.datasource_class(params.datasource_params).read_training(
+        ctx)
+    assert len(ratings.user_ids) == 0
+    with pytest.raises(ValueError, match="No rating events"):
+        ALSAlgorithm().train(ctx, ratings)
 
 
 def test_unported_structures_refused_at_load():
