@@ -40,7 +40,26 @@ cannot be imported, or when any phase fails.  Phases, in order:
    COMPLETED instance deployed on an EngineServer → 16 /queries.json,
    each held against the plain top-k of the trained factors; K1, K2 and
    K3 must have launched.
-8. report  — one JSON line of per-kernel numbers, the card's name and
+8. kernel  — the PQ scan kernel (K5) against its plain version over a
+   grid of B, S (tables), N, k and n_valid, then timed at N = 1,048,576,
+   S = 17, k = 40 (B = 1 and 64) beside its plain version, a library
+   yardstick (torch.topk over the decoded corpus) and its bound.
+9. kernel  — the gather experiments' kernels, T1 (gather + weighted
+   Gram) and T2 (gather + sum), against their plain versions at the
+   tools' shape, timed likewise, then driven through the tools' own
+   entry points (exp_gram, exp_gather2), which must launch them.
+10. pq     — a 1,048,576-item catalog (rank 64): an IVF index
+   (PIO_IVF=on) and PQ codes on top of it (the default policy: M = 16)
+   built as ALSAlgorithm.train builds them, persisted, deployed; 16
+   /queries.json and a 64-user query_batch under
+   PIO_RETRIEVAL_RUNG=pq_flat (K5 once per request), a 64-user
+   query_batch under auto routing (ivf_pq), every answer held against the
+   port's host search over the same structures.
+11. dase+pq — phase 7's events trained again with PIO_PQ_MIN_ITEMS=5000,
+   so the template's own policy builds PQ codes; deployed; 16
+   /queries.json on the device pq_flat rung, each held against the host
+   PQ search of the trained factors; K1, K2 and K5 must have launched.
+12. report — one JSON line of per-kernel numbers, the card's name and
    power limit, and the final status line.
 """
 
@@ -86,7 +105,19 @@ GRAM_TIMED = ((4096, 64, 64), (4096, 1000, 64), (4096, 64, 256))  # (R, L, K)
 SOLVE_TIMED = 131_072                      # B at rank 64
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
+SMEM_BANKS = 32             # 4-byte shared-memory banks per SM, one access
+                            # each per clock (CUDA programming guide)
 SPIN_CYCLES = 4_000_000     # ~2 ms of device spin: covers any host enqueue
+# Phase 8 grid (K5): queries, tables S = 1 + M, items, k (k <= N), plus
+# cases with n_valid < N; then the timed shape.
+PQ_BATCHES, PQ_TABLES = (1, 3, 8, 64), (1, 5, 17, 33, 65)
+PQ_ITEMS_GRID, PQ_KS = (1, 511, 100_003, 1_048_576), (1, 10, 40, 1000, 4000)
+PQ_N_VALID = ((8, 17, 100_003, 40, 50_000), (3, 5, 511, 10, 300),
+              (64, 65, 1_048_576, 1000, 1_048_576 - 777),
+              (1, 1, 100_003, 4000, 4000))        # (B, S, N, k, n_valid)
+PQ_TIMED = (1_048_576, 17, 40)                     # (N, S, k) at B 1 and 64
+PQ_ITEMS = 1_048_576        # phase 10: 5x PIO_PQ_MIN_ITEMS, the 1e6 scale
+PQ_USERS = 1024
 
 
 def log(msg: str) -> None:
@@ -580,9 +611,10 @@ def train_phase(dev, seed: int, als, fg, rs, card: str) -> dict:
             "err": max(err_plain, err_gj)}
 
 
-def dase_phase(dev, seed: int, home: str, mods: dict, card: str) -> int:
+def dase_phase(dev, seed: int, home: str, mods: dict, card: str) -> dict:
     """Phase 7: events → run_train → deploy → /queries.json on the card.
-    Returns the K3 launches of the phase."""
+    Returns the K3 launches of the phase, and the storage, engine variant
+    and engine that phase 11 trains again."""
     import numpy as np
     import torch
 
@@ -676,7 +708,444 @@ def dase_phase(dev, seed: int, home: str, mods: dict, card: str) -> int:
         f"items); 16 /queries.json p50 {sorted(lats)[8] * 1e3:.2f} ms, each "
         f"held against the plain top-k of the trained factors, max |score "
         f"err| {err:.3g}; launches {json.dumps(counts)}; card {card}")
-    return counts["fused_topk"]
+    return {"fused_topk": counts["fused_topk"], "storage": storage,
+            "variant": variant, "engine": eng}
+
+
+class env_vars:
+    """Within the block, the environment variables given are set (a value
+    of None unsets one); the previous values come back afterwards."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        for k, v in self.values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def smem_lookups_per_s() -> tuple:
+    """Shared-memory lookups per second of this card: SMs x 32 banks x
+    the maximum SM clock (nvidia-smi clocks.max.sm), one 4-byte access
+    per bank per clock.  Returns (rate, how it was derived)."""
+    import torch
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = sms * SMEM_BANKS * mhz * 1e6
+    return rate, (f"{sms} SMs x {SMEM_BANKS} banks x {mhz:.0f} MHz "
+                  f"(nvidia-smi clocks.max.sm) = {rate:.4g} lookups/s")
+
+
+def pq_bound(b: int, s: int, n: int, k: int, smem_rate: float):
+    """Least time for K5: the bytes (codes S*N, tables 4*B*S*256, output
+    8*B*k) over the memory rate, or the B*S*N table lookups over the
+    shared-memory rate, whichever is larger.  Returns (ms, by)."""
+    t_bytes = (s * n + 4 * b * s * 256 + 8 * b * k) / HBM_BYTES_PER_S
+    t_ops = b * s * n / smem_rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def pq_kernel_phase(dev, seed: int, pqs, tpq, topk_mismatch, card: str):
+    """Phase 8: K5 against its plain version over the grid, then timed.
+    Returns (largest score error, {B: timing row})."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 8)
+    codes_all = torch.randint(0, 256, (max(PQ_TABLES), max(PQ_ITEMS_GRID)),
+                              generator=gen, device=dev, dtype=torch.uint8)
+    luts_all = torch.randn((max(PQ_BATCHES), max(PQ_TABLES), 256),
+                           generator=gen, device=dev)
+    cases = [(b, t, n, k, None) for b in PQ_BATCHES for t in PQ_TABLES
+             for n in PQ_ITEMS_GRID for k in PQ_KS if k <= n]
+    cases += list(PQ_N_VALID)
+    err = 0.0
+    for b, t, n, k, n_valid in cases:
+        luts = luts_all[:b, :t].contiguous()
+        codes = codes_all[:t, :n].contiguous()
+        got_s, got_i = pqs.pq_scan_cuda(luts, codes, k, n_valid=n_valid)
+        torch.cuda.synchronize()
+        n_real = n if n_valid is None else n_valid
+        ref_s, ref_i = pqs.pq_scan_reference(luts, codes, min(k + 1, n_real),
+                                             n_valid=n_valid)
+        next_s = ref_s[:, k].cpu().numpy() if ref_s.shape[1] > k else None
+        got_s, got_i = got_s.cpu().numpy(), got_i.cpu().numpy()
+        ref_s = ref_s[:, :k].cpu().numpy()
+        why = topk_mismatch(got_s, got_i, ref_s, ref_i[:, :k].cpu().numpy(),
+                            next_s, rtol=RTOL, atol=ATOL)
+        if why is None and int(got_i.max()) >= n_real:
+            why = f"id {int(got_i.max())} at or past n_valid {n_real}"
+        if why is not None:
+            die(f"pq_scan B={b} S={t} N={n} k={k} n_valid={n_valid}: {why}")
+        err = max(err, float(abs(got_s - ref_s).max()))
+    del luts_all
+    torch.cuda.empty_cache()
+    log(f"phase 8 kernel: pq_scan matches its plain version in {len(cases)} "
+        f"cases (B in {PQ_BATCHES}, S in {PQ_TABLES}, N in {PQ_ITEMS_GRID}, "
+        f"k in {PQ_KS} with k <= N, and (B, S, N, k, n_valid) in "
+        f"{PQ_N_VALID}; S = 1 is the tie case: ids compared only above the "
+        f"k-th score); max |score err| {err:.3g} (rtol {RTOL}, atol {ATOL})")
+
+    # Timed on a real codebook's tables, so that one library call computes
+    # the same function: sum_t lut[t, code_t] = q . decode(n).
+    n, t, k = PQ_TIMED
+    m = t - 1
+    coarse = torch.randn((256, RANK), generator=gen, device=dev) / 8
+    books = torch.randn((m, 256, RANK // m), generator=gen, device=dev) / 8
+    codes = codes_all[:t].contiguous()
+    del codes_all
+    decoded = coarse[codes[0].long()] + torch.cat(
+        [books[j][codes[1 + j].long()] for j in range(m)], dim=1)
+    queries = torch.randn((64, RANK), generator=gen, device=dev) / 8
+    smem_rate, rate_note = smem_lookups_per_s()
+    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows = {}
+    for b in (1, 64):
+        q = queries[:b].contiguous()
+        luts = tpq.device_luts(q, coarse, books)
+        fns = {"": lambda: pqs.pq_scan_cuda(luts, codes, k),
+               "plain_": lambda: pqs.pq_scan_reference(luts, codes, k),
+               "library_": lambda: torch.topk(q @ decoded.T, k)}
+        row = {}
+        for _ in range(2):   # kernel, plain, library; twice, in turns
+            for tag, fn in fns.items():
+                row.setdefault(f"{tag}ms", []).append(time_single(fn, 20))
+        row = {name: min(v) for name, v in row.items()}
+        row["ms_cold"] = time_single(fns[""], 20, flush=flush_buf.zero_)
+        row["bound_ms"], row["bound_by"] = pq_bound(b, t, n, k, smem_rate)
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        rows[b] = row
+        log("phase 8 timing: " + json.dumps(
+            {"kernel": "pq_scan", "B": b, "S": t, "N": n, "k": k,
+             "library": "torch.topk(q @ decoded.T, k), decode not timed",
+             "card": card, **row}))
+    log(f"phase 8 bound: bytes S*N + 4*B*S*256 + 8*B*k at "
+        f"{HBM_BYTES_PER_S:.4g} B/s, or B*S*N lookups at {rate_note}")
+    del flush_buf, decoded, codes
+    torch.cuda.empty_cache()
+    return err, rows
+
+
+def gather_kernels_phase(dev, seed: int, mods, card: str):
+    """Phase 9: T1 and T2 against their plain versions at the tools'
+    shape, timed, then driven through the tools' entry points.  Returns
+    {kernel name: report fields}."""
+    import torch
+
+    fg, gt = mods["fg"], mods["gt"]
+    exp_gram, exp_gather2 = mods["exp_gram"], mods["exp_gather2"]
+    t = exp_gram.make_inputs(dev, seed)
+    y, idx, w = t["y"], t["idx"], t["w"]
+    r, l = idx.shape
+    i_rows, k = y.shape
+    k1_before = fg.LAUNCHES
+    a = fg.gather_gram_cuda(y, idx, w)
+    torch.cuda.synchronize()
+    if fg.LAUNCHES != k1_before:
+        die("gather_gram counted as a fused_gram (K1) launch")
+    want = fg.gather_gram_reference(y, idx, w)
+    abs_a = fg.gather_gram_reference(y.abs(), idx, w)
+    err_t1 = assert_close(a, want, GRAM_RTOL, gram_atol(l, abs_a),
+                          f"gather_gram R={r} L={l} K={k}")
+    del a, want, abs_a
+    out = gt.gather_sum_cuda(y, idx)
+    torch.cuda.synchronize()
+    want = gt.gather_sum_reference(y, idx)
+    abs_s = gt.gather_sum_reference(y.abs(), idx)
+    err_t2 = assert_close(out, want, 0.0, gram_atol(l, abs_s),
+                          f"gather_sum R={r} L={l} K={k}")
+    del out, want, abs_s
+    log(f"phase 9 kernel: gather_gram (T1) and gather_sum (T2) match their "
+        f"plain versions at I {i_rows}, K {k}, R {r}, L {l} (Zipf(1.25) "
+        f"indices, seed {seed}); max |err| T1 {err_t1:.3g} (rtol "
+        f"{GRAM_RTOL} + {GRAM_SIGMAS}·√L·2^-24·Σ|terms|), T2 {err_t2:.3g} "
+        f"({GRAM_SIGMAS}·√L·2^-24·Σ|terms|)")
+
+    f = y.index_select(0, idx.reshape(-1).long()).reshape(r, l, k)
+    fw = f * w[..., None]
+    idx64 = idx.long()
+    rows = {}
+    specs = {
+        "gather_gram": (
+            lambda: fg.gather_gram_cuda(y, idx, w),
+            lambda: fg.gather_gram_reference(y, idx, w),
+            lambda: torch.bmm(fw.mT, f),
+            "torch.bmm(fw^T, f) on the pre-gathered block, gather not timed",
+            Bound().add(r * l * 8 + i_rows * k * 4 + r * k * k * 4,
+                        float(r * l * (k * (k + 1) + k))), err_t1),
+        "gather_sum": (
+            lambda: gt.gather_sum_cuda(y, idx),
+            lambda: gt.gather_sum_reference(y, idx),
+            lambda: torch.nn.functional.embedding_bag(idx64, y, mode="sum"),
+            "torch.nn.functional.embedding_bag(idx, y, mode='sum')",
+            Bound().add(r * l * 4 + i_rows * k * 4 + r * k * 4,
+                        float(r * l * k)), err_t2),
+    }
+    for name, (kern, plain, lib, lib_note, bnd, err) in specs.items():
+        row = {"ms": [], "plain_ms": [], "library_ms": []}
+        for _ in range(2):   # kernel, plain, library; twice, in turns
+            row["ms"].append(time_single(kern, 10))
+            row["plain_ms"].append(time_single(plain, 5))
+            row["library_ms"].append(time_single(lib, 10))
+        row = {n_: min(v) for n_, v in row.items()}
+        row.update(bound_ms=bnd.ms, bound_by=bnd.by,
+                   share_of_bound=bnd.ms / row["ms"], max_abs_err=err)
+        rows[name] = row
+        log("phase 9 timing: " + json.dumps(
+            {"kernel": name, "I": i_rows, "K": k, "R": r, "L": l,
+             "library": lib_note, "card": card, **row}))
+    del f, fw, idx64, t, y, idx, w
+    torch.cuda.empty_cache()
+
+    fg.GATHER_GRAM_LAUNCHES = 0             # main path (T1) starts here
+    exp_gram.main(["pallas"])
+    rows["gather_gram"]["launches"] = fg.GATHER_GRAM_LAUNCHES  # and ends
+    gt.LAUNCHES = 0                         # main path (T2) starts here
+    exp_gather2.main(["take"])
+    rows["gather_sum"]["launches"] = gt.LAUNCHES               # and ends
+    for name, row in rows.items():
+        if row["launches"] == 0:
+            die(f"the tool's entry point never launched {name}")
+    log(f"phase 9 tools: exp_gram pallas launched gather_gram "
+        f"{rows['gather_gram']['launches']} times, exp_gather2 take "
+        f"launched gather_sum {rows['gather_sum']['launches']} times")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def pq_answers_agree(answers, host_s, host_i, what: str, topk_mismatch,
+                     num: int = 10) -> float:
+    """Hold served answers against a host search that returned num + 1
+    columns (the extra one is the next score, for ties); returns the
+    largest score error."""
+    import numpy as np
+
+    err = 0.0
+    for row, ans in enumerate(answers):
+        s, i = answer_arrays(ans, num)
+        why = topk_mismatch(s, i, host_s[row:row + 1, :num],
+                            host_i[row:row + 1, :num], host_s[row:row + 1, num],
+                            rtol=RTOL, atol=ATOL)
+        if why is not None:
+            die(f"{what} row {row}: {why}")
+        err = max(err, float(np.max(np.abs(np.asarray(s)
+                                           - host_s[row:row + 1, :num]))))
+    return err
+
+
+def pq_serve_phase(seed: int, home: str, users_np, mods, card: str) -> dict:
+    """Phase 10: a 1,048,576-item catalog with an IVF index and PQ codes,
+    served on pq_flat (K5) and ivf_pq.  Returns K5's launches and the
+    answers' largest score error."""
+    import numpy as np
+
+    pqs, tpq = mods["pqs"], mods["tpq"]
+    retrieval = mods["retrieval"]
+    rng = np.random.default_rng(seed + 10)
+    t0 = time.perf_counter()
+    items = rng.standard_normal((PQ_ITEMS, RANK), np.float32) \
+        / np.float32(np.sqrt(RANK))
+    gen_s = time.perf_counter() - t0
+    with env_vars(PIO_IVF="on", PIO_IVF_MIN_ITEMS=None, PIO_IVF_NLIST=None,
+                  PIO_PQ=None, PIO_PQ_M=None, PIO_PQ_MIN_ITEMS=None):
+        t0 = time.perf_counter()
+        ivf = retrieval.build_train_index(items, name="als", seed=seed,
+                                          require_explicit=True)
+        ivf_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pq = retrieval.build_train_pq(items, name="als", ivf=ivf, seed=seed)
+        pq_s = time.perf_counter() - t0
+    if ivf is None or pq is None or pq.n_tables != 17:
+        die(f"phase 10: the train policy built ivf={ivf is not None}, "
+            f"pq={pq is not None and pq.n_tables}")
+    log(f"phase 10 build: {PQ_ITEMS} x {RANK} items made in {gen_s:.1f} s; "
+        f"IVF (PIO_IVF=on) nlist {ivf.nlist}, pad_len {ivf.pad_len}, built "
+        f"in {ivf_s:.2f} s; PQ (default policy) M {pq.m}, "
+        f"{pq.bytes_per_item()} B/item, built in {pq_s:.2f} s (host, numpy)")
+    eng = mods["engine"]()
+    spec = json.loads((mods["csrc"].parent / "templates" / "recommendation"
+                       / "engine.json").read_text())
+    spec["algorithms"][0]["params"]["rank"] = RANK
+    variant = mods["EngineVariant"].from_dict(spec)
+    storage = mods["get_storage"](os.path.join(home, "pq"))
+    wrapper = mods["wrapper_from_numpy"](
+        users_np[:PQ_USERS], items, [f"u{j}" for j in range(PQ_USERS)],
+        [f"i{j}" for j in range(PQ_ITEMS)], rank=RANK, ivf=ivf, pq=pq)
+    t0 = time.perf_counter()
+    mods["persist_instance"](eng, variant, [wrapper], storage)
+    persist_s = time.perf_counter() - t0
+    del wrapper
+    server = None
+    try:
+        with env_vars(PIO_RETRIEVAL_RUNG="pq_flat", PIO_SERVE_HOST_MACS="0",
+                      PIO_PQ_RERANK=None, PIO_IVF_NPROBE=None,
+                      PIO_CORPUS_DTYPE=None):
+            t0 = time.perf_counter()
+            server = mods["EngineServer"](eng, variant, storage,
+                                          host="127.0.0.1", port=0)
+            server.start()
+            load_s = time.perf_counter() - t0
+            base = f"http://127.0.0.1:{server.port}"
+            loaded = server._models[0]
+            users = rng.choice(PQ_USERS, size=16 + 64 + 64, replace=False)
+            one_u, flat_u, auto_u = users[:16], users[16:80], users[80:]
+            pqs.LAUNCHES = 0                  # main path starts here
+            lats, answers = [], []
+            for u in one_u:
+                t0 = time.perf_counter()
+                ans, _ = post_json(f"{base}/queries.json",
+                                   {"user": f"u{u}", "num": 10})
+                lats.append(time.perf_counter() - t0)
+                answers.append(ans)
+            t0 = time.perf_counter()
+            flat = server.query_batch([{"user": f"u{u}", "num": 10}
+                                       for u in flat_u])
+            flat_s = time.perf_counter() - t0
+            flat_launches = pqs.LAUNCHES
+            plan_flat = loaded.retriever().plan(64, 10)
+            with env_vars(PIO_RETRIEVAL_RUNG=None):
+                plan_auto = loaded.retriever().plan(64, 10)
+                t0 = time.perf_counter()
+                auto = server.query_batch([{"user": f"u{u}", "num": 10}
+                                           for u in auto_u])
+                auto_s = time.perf_counter() - t0
+            launches = pqs.LAUNCHES           # main path ends here
+            with urllib.request.urlopen(f"{base}/metrics", timeout=60) as r:
+                metrics = r.read().decode()
+    finally:
+        if server is not None:
+            server.stop()
+    if flat_launches != 17 or launches != 17:
+        die(f"phase 10: pq_scan launched {flat_launches} times for 17 "
+            f"pq_flat requests and {launches - flat_launches} times for the "
+            "ivf_pq batch")
+    if plan_flat.rung != "pq_flat" or plan_auto.rung != "ivf_pq":
+        die(f"phase 10: planned {plan_flat} forced and {plan_auto} auto")
+    lines = [ln for ln in metrics.splitlines()
+             if ln.startswith("pio_retrieval_requests_total{")]
+    if not any('rung="ivf_pq"' in ln for ln in lines) \
+            or not any('rung="pq_flat"' in ln for ln in lines):
+        die(f"phase 10: /metrics lacks the PQ rungs: {lines}")
+    topk_mismatch = mods["topk_mismatch"]
+    uf = users_np[:PQ_USERS]
+    t0 = time.perf_counter()
+    err = 0.0
+    hs, hi, _ = tpq.search_pq_host(pq, items, uf[one_u], 11,
+                                   plan_flat.rerank)
+    err = max(err, pq_answers_agree(answers, hs, hi, "pq_flat /queries.json",
+                                    topk_mismatch))
+    hs, hi, _ = tpq.search_pq_host(pq, items, uf[flat_u], 11,
+                                   plan_flat.rerank)
+    err = max(err, pq_answers_agree(flat, hs, hi, "pq_flat query_batch",
+                                    topk_mismatch))
+    hs, hi, _ = tpq.search_ivf_pq_host(ivf, pq, items, uf[auto_u], 11,
+                                       plan_auto.nprobe, plan_auto.rerank)
+    err = max(err, pq_answers_agree(auto, hs, hi, "ivf_pq query_batch",
+                                    topk_mismatch))
+    check_s = time.perf_counter() - t0
+    log(f"phase 10 pq: persisted in {persist_s:.2f} s, deployed in "
+        f"{load_s:.2f} s; pq_flat (rerank {plan_flat.rerank}): 16 "
+        f"/queries.json p50 {sorted(lats)[8] * 1e3:.2f} ms (first "
+        f"{lats[0] * 1e3:.2f} ms, max {max(lats) * 1e3:.2f} ms), "
+        f"query_batch of 64 in {flat_s * 1e3:.2f} ms; auto -> ivf_pq "
+        f"(nprobe {plan_auto.nprobe}, rerank {plan_auto.rerank}): "
+        f"query_batch of 64 in {auto_s * 1e3:.2f} ms; pq_scan launches "
+        f"{launches}; every answer equals the host search on the same "
+        f"structures (checked in {check_s:.1f} s), max |score err| "
+        f"{err:.3g}; {' '.join(lines)}; card {card}")
+    return {"launches": launches, "err": err}
+
+
+def pq_dase_phase(dase, mods, card: str) -> dict:
+    """Phase 11: phase 7's events trained again with PIO_PQ_MIN_ITEMS=5000
+    (the template builds codes), deployed, 16 /queries.json on pq_flat."""
+    import numpy as np
+
+    fg, rs, pqs, tpq = mods["fg"], mods["rs"], mods["pqs"], mods["tpq"]
+    storage, variant, eng = dase["storage"], dase["variant"], dase["engine"]
+    server = None
+    try:
+        with env_vars(PIO_PQ_MIN_ITEMS="5000", PIO_SERVE_HOST_MACS="0",
+                      PIO_IVF=None, PIO_PQ=None, PIO_PQ_M=None,
+                      PIO_RETRIEVAL_RUNG=None, PIO_PQ_RERANK=None):
+            ctx = mods["RuntimeContext"].create(storage=storage)  # the card
+            fg.LAUNCHES = 0                     # main path starts here
+            rs.LU_LAUNCHES = 0
+            pqs.LAUNCHES = 0
+            t0 = time.perf_counter()
+            iid = mods["run_train"](eng, variant, ctx)
+            train_s = time.perf_counter() - t0
+            server = mods["EngineServer"](eng, variant, storage,
+                                          host="127.0.0.1", port=0)
+            server.start()
+            base = f"http://127.0.0.1:{server.port}"
+            wrapper = server._models[0]
+            names = list(wrapper.user_index.keys())
+            rng = np.random.default_rng(len(names))
+            asked = [names[j] for j in rng.choice(len(names), 16,
+                                                  replace=False)]
+            answers, lats = [], []
+            for user in asked:
+                t0 = time.perf_counter()
+                ans, _ = post_json(f"{base}/queries.json",
+                                   {"user": user, "num": 10})
+                lats.append(time.perf_counter() - t0)
+                answers.append(ans)
+            counts = {"fused_gram": fg.LAUNCHES,
+                      "ridge_solve_lu": rs.LU_LAUNCHES,
+                      "pq_scan": pqs.LAUNCHES}    # main path ends here
+            plan = wrapper.retriever().plan(1, 10)
+    finally:
+        if server is not None:
+            server.stop()
+    status = storage.get_engine_instances().get(iid).status
+    if status != "COMPLETED":
+        die(f"phase 11: instance {iid} is {status}")
+    if not isinstance(wrapper.pq, tpq.PQCodebook) or wrapper.ivf is not None:
+        die(f"phase 11: the generation carries pq={type(wrapper.pq)}, "
+            f"ivf={type(wrapper.ivf)}")
+    for name, n in counts.items():
+        if n == 0:
+            die(f"phase 11: {name} never launched")
+    if counts["pq_scan"] != 16 or plan.rung != "pq_flat":
+        die(f"phase 11: pq_scan launched {counts['pq_scan']} times for 16 "
+            f"queries on the {plan.rung} rung")
+    uf, itf = wrapper.host_factors()
+    q = uf[[wrapper.user_index[u] for u in asked]]
+    hs, hi, _ = tpq.search_pq_host(wrapper.pq, itf, q, 11, plan.rerank)
+    rows = wrapper.item_index      # answer_arrays reads "i<row>"
+    answers = [{"itemScores": [{"item": f"i{rows[h['item']]}",
+                                "score": h["score"]}
+                               for h in a["itemScores"]]} for a in answers]
+    err = pq_answers_agree(answers, hs, hi, "DASE+PQ /queries.json",
+                           mods["topk_mismatch"])
+    log(f"phase 11 dase+pq: run_train with PIO_PQ_MIN_ITEMS=5000 COMPLETED "
+        f"in {train_s:.2f} s ({len(wrapper.user_index)} users x "
+        f"{len(wrapper.item_index)} items; codes M {wrapper.pq.m}, "
+        f"{wrapper.pq.bytes_per_item()} B/item); 16 /queries.json on "
+        f"{plan.rung} (rerank {plan.rerank}) p50 "
+        f"{sorted(lats)[8] * 1e3:.2f} ms, each equal to the host PQ search "
+        f"of the trained factors, max |score err| {err:.3g}; launches "
+        f"{json.dumps(counts)}; card {card}")
+    return {"launches": counts["pq_scan"], "err": err}
 
 
 def post_json(url: str, obj):
@@ -719,11 +1188,16 @@ def main() -> int:
         from predictionio_tpu_torch.ops import _build
         from predictionio_tpu_torch.ops import fused_gram as fg
         from predictionio_tpu_torch.ops import fused_topk as ft
+        from predictionio_tpu_torch.ops import gather as gt
+        from predictionio_tpu_torch.ops import pq_scan as pqs
         from predictionio_tpu_torch.ops import ridge_solve as rs
         from predictionio_tpu_torch.ops.topk import topk_mismatch
+        from predictionio_tpu_torch import retrieval
+        from predictionio_tpu_torch.retrieval import pq as tpq
         from predictionio_tpu_torch.server.engine_server import EngineServer
         from predictionio_tpu_torch.templates.recommendation import (
             engine, wrapper_from_numpy)
+        from predictionio_tpu_torch.tools import exp_gather2, exp_gram
         from predictionio_tpu_torch.workflow.core_workflow import (
             persist_instance, run_train)
     except ImportError as e:
@@ -947,21 +1421,42 @@ def main() -> int:
     train = train_phase(dev, args.seed, als, fg, rs, card)
     torch.cuda.empty_cache()
 
-    # -- phase 7: events → run_train → deploy → /queries.json -------------
+    mods = {
+        "fg": fg, "rs": rs, "ft": ft, "gt": gt, "pqs": pqs, "tpq": tpq,
+        "retrieval": retrieval, "exp_gram": exp_gram,
+        "exp_gather2": exp_gather2, "get_storage": get_storage, "App": App,
+        "Event": Event, "DataMap": DataMap, "csrc": _build.CSRC_DIR,
+        "EngineVariant": EngineVariant, "engine": engine,
+        "RuntimeContext": RuntimeContext, "run_train": run_train,
+        "EngineServer": EngineServer, "topk_mismatch": topk_mismatch,
+        "get_registry": get_registry, "wrapper_from_numpy": wrapper_from_numpy,
+        "persist_instance": persist_instance,
+    }
     home = tempfile.mkdtemp(prefix="pio_chip_smoke_")
     try:
-        dase_topk = dase_phase(dev, args.seed, home, {
-            "fg": fg, "rs": rs, "ft": ft, "get_storage": get_storage,
-            "App": App, "Event": Event, "DataMap": DataMap,
-            "csrc": _build.CSRC_DIR, "EngineVariant": EngineVariant,
-            "engine": engine, "RuntimeContext": RuntimeContext,
-            "run_train": run_train, "EngineServer": EngineServer,
-            "topk_mismatch": topk_mismatch, "get_registry": get_registry,
-        }, card)
+        # -- phase 7: events → run_train → deploy → /queries.json ---------
+        dase = dase_phase(dev, args.seed, home, mods, card)
+        dase_topk = dase["fused_topk"]
+        torch.cuda.empty_cache()
+
+        # -- phase 8: the PQ scan kernel vs its plain version --------------
+        pq_err, pq_rows = pq_kernel_phase(dev, args.seed, pqs, tpq,
+                                          topk_mismatch, card)
+
+        # -- phase 9: the gather experiments' kernels ----------------------
+        gather_rows = gather_kernels_phase(dev, args.seed, mods, card)
+
+        # -- phase 10: a 1,048,576-item catalog on the PQ rungs ------------
+        pq_serve = pq_serve_phase(args.seed, home, users_np, mods, card)
+        torch.cuda.empty_cache()
+
+        # -- phase 11: phase 7's events trained again with PQ codes --------
+        pq_dase = pq_dase_phase(dase, mods, card)
+        del dase
     finally:
         shutil.rmtree(home, ignore_errors=True)
 
-    # -- phase 8: report ---------------------------------------------------
+    # -- phase 12: report --------------------------------------------------
     main_shape = timings[(ML25M_ITEMS, 1, 10)]
     kernels = [{
         "name": "fused_topk",
@@ -996,6 +1491,41 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
         })
+    pq_main = pq_rows[1]     # B = 1: the shape of one pq_flat request
+    kernels.append({
+        "name": "pq_scan",
+        "route": "cuda",
+        "source": "predictionio_tpu_torch/csrc/pq_scan.cu",
+        "replaces": "predictionio_tpu/ops/pallas_kernels.py:592",
+        "launches": pq_serve["launches"] + pq_dase["launches"],
+        "max_abs_err": pq_err,
+        "ms": pq_main["ms"],
+        "plain_ms": pq_main["plain_ms"],
+        "bound_ms": pq_main["bound_ms"],
+        "bound_by": pq_main["bound_by"],
+        "library_ms": pq_main["library_ms"],
+    })
+    for name, source, where in (
+            ("gather_gram", "fused_gram.cu", "tools/exp_gram.py:90"),
+            ("gather_sum", "gather_sum.cu", "tools/exp_gather2.py:69")):
+        row = gather_rows[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "predictionio_tpu_torch/csrc/" + source,
+            "replaces": where,
+            "launches": row["launches"],
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+        })
+    log(f"launches: pq_scan {pq_serve['launches']} on the PQ serve path "
+        f"(phase 10) + {pq_dase['launches']} on the DASE+PQ path (phase "
+        f"11), timed at B = 1 (one pq_flat request's shape); gather_gram "
+        f"and gather_sum per their tools' entry points (phase 9)")
     log(f"launches: fused_topk {main_launches} on the serve path, "
         f"{dase_topk} on the DASE path; training kernels per the train "
         f"run (fused_gram, ridge_solve_lu) and the solver='gj' run "

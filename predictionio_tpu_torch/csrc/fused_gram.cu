@@ -39,6 +39,16 @@
 // shared-memory reads (float4 where TM allows).  Threads t < KP also
 // accumulate b.  Every accumulation is float32.
 //
+// The same source also holds kernel T1, the port of
+// pallas_vmem_gather_gram in tools/exp_gram.py: A[r] = sum_l w[r,l] *
+// f_l f_l^T with Y resident, i.e. exactly this kernel's A without b.  It
+// is this kernel compiled with WITH_B = false (no c reads, no b
+// accumulation), behind its own entry point pio_gather_gram: the
+// gather-inside design T1 experimented with on the TPU is the one K1
+// already runs and is tested with.  The same bound holds: at the tool's
+// shape (R 20,000, L 256, K 64) 2.2e10 flops against 0.4 GB of reads
+// and A writes, so the float32 FMA rate bounds T1 too.
+//
 // Plain C interface, built with nvcc and loaded with ctypes; the wrapper
 // (predictionio_tpu_torch/ops/fused_gram.py) checks shapes and types,
 // allocates A and b, and passes PyTorch's current stream.
@@ -77,7 +87,7 @@ __device__ __forceinline__ void load_row(float (&dst)[N], const float* src) {
   }
 }
 
-template <typename T, int TM>
+template <typename T, int TM, bool WITH_B>
 __global__ void __launch_bounds__(kThreads)
     gram_kernel(const T* __restrict__ factors, const int* __restrict__ idx,
                 const float* __restrict__ w, const float* __restrict__ c,
@@ -95,7 +105,7 @@ __global__ void __launch_bounds__(kThreads)
   const int ci = (blockIdx.y / n_tiles) * KP;      // A's rows (w*f columns)
   const int cj = (blockIdx.y % n_tiles) * KP;      // A's columns (f columns)
   const bool diag = ci == cj;                      // one gather serves both
-  const bool with_b = ci == 0;                     // b's slice cj..cj+KP
+  const bool with_b = WITH_B && ci == 0;           // b's slice cj..cj+KP
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
   float acc[TM][TM];
@@ -112,7 +122,7 @@ __global__ void __launch_bounds__(kThreads)
       const bool live = s < n;
       is[s] = live ? idx[row + l0 + s] : 0;
       ws[s] = live ? w[row + l0 + s] : 0.f;
-      cs[s] = live ? c[row + l0 + s] : 0.f;
+      if constexpr (WITH_B) cs[s] = live ? c[row + l0 + s] : 0.f;
     }
     __syncthreads();
     for (int e = threadIdx.x; e < kTile * KP; e += kThreads) {
@@ -159,7 +169,7 @@ __global__ void __launch_bounds__(kThreads)
     bvec[static_cast<size_t>(blockIdx.x) * K + cj + threadIdx.x] = bacc;
 }
 
-template <typename T>
+template <typename T, bool WITH_B>
 cudaError_t launch(const void* factors, const int* idx, const float* w,
                    const float* c, int R, int L, int K, float* A, float* b,
                    cudaStream_t st) {
@@ -167,13 +177,13 @@ cudaError_t launch(const void* factors, const int* idx, const float* w,
   const int n_tiles = (K + kTileK - 1) / kTileK;   // A tiles a side (TM = 8)
   const dim3 grid(R, n_tiles * n_tiles);
   if (K <= 16)
-    gram_kernel<T, 1><<<grid, kThreads, 0, st>>>(f, idx, w, c, L, K, A, b);
+    gram_kernel<T, 1, WITH_B><<<grid, kThreads, 0, st>>>(f, idx, w, c, L, K, A, b);
   else if (K <= 32)
-    gram_kernel<T, 2><<<grid, kThreads, 0, st>>>(f, idx, w, c, L, K, A, b);
+    gram_kernel<T, 2, WITH_B><<<grid, kThreads, 0, st>>>(f, idx, w, c, L, K, A, b);
   else if (K <= 64)
-    gram_kernel<T, 4><<<grid, kThreads, 0, st>>>(f, idx, w, c, L, K, A, b);
+    gram_kernel<T, 4, WITH_B><<<grid, kThreads, 0, st>>>(f, idx, w, c, L, K, A, b);
   else
-    gram_kernel<T, 8><<<grid, kThreads, 0, st>>>(f, idx, w, c, L, K, A, b);
+    gram_kernel<T, 8, WITH_B><<<grid, kThreads, 0, st>>>(f, idx, w, c, L, K, A, b);
   return cudaGetLastError();
 }
 
@@ -191,8 +201,27 @@ extern "C" int pio_fused_gram(const void* factors, int bf16, const int* idx,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      bf16 ? launch<__nv_bfloat16>(factors, idx, w, c, R, L, K, A, b, st)
-           : launch<float>(factors, idx, w, c, R, L, K, A, b, st);
+      bf16 ? launch<__nv_bfloat16, true>(factors, idx, w, c, R, L, K, A, b, st)
+           : launch<float, true>(factors, idx, w, c, R, L, K, A, b, st);
+  return static_cast<int>(err);
+}
+
+// Kernel T1, the weighted Gram of gathered rows without b:
+// A [R,K,K] float32 from factors [N,K] (float32 when bf16 == 0, bfloat16
+// when bf16 == 1), idx [R,L] int32 in [0, N) and w [R,L] float32, all
+// contiguous, on `stream`.  The same kernel as pio_fused_gram with b
+// compiled out.  Returns cudaGetLastError() after the launch.
+extern "C" int pio_gather_gram(const void* factors, int bf16, const int* idx,
+                               const float* w, int R, int L, int K, float* A,
+                               void* stream) {
+  if (R < 1 || L < 1 || K < 1 || K > kMaxK || (bf16 != 0 && bf16 != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      bf16 ? launch<__nv_bfloat16, false>(factors, idx, w, nullptr, R, L, K,
+                                          A, nullptr, st)
+           : launch<float, false>(factors, idx, w, nullptr, R, L, K, A,
+                                  nullptr, st);
   return static_cast<int>(err);
 }
 

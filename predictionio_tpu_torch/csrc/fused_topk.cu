@@ -44,67 +44,14 @@
 // every output and scratch tensor, and passes PyTorch's current stream.
 
 #include <cuda_runtime.h>
-#include <limits.h>
-#include <math.h>
+
+#include "topk_select.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;         // threads per block = rows per tile
 constexpr int kMaxQ = 8;              // queries per score-pass block
-constexpr int kFillerId = INT_MAX;    // empty slot; sorts after every item
-constexpr float kNegInf = -3.4e38f;   // ops.topk.NEG_INF
-
-struct Cand {
-  float s;
-  int id;
-};
-
-// Ranking order: higher score first, lower id first among equal scores.
-__device__ __forceinline__ bool better(float as, int ai, float bs, int bi) {
-  return as > bs || (as == bs && ai < bi);
-}
-
-// Sort the first nq rows of buf (row stride S = 1 << log_s) best-first
-// and keep the k best at the front of each row.  Row q holds its running
-// top-k in [0, k) and cnt[q] fresh candidates in [k, k + cnt[q]); the
-// rest is filled with empty slots before the bitonic sort.  Resets the
-// counts and publishes each row's k-th best as the new threshold.
-// Every thread of the block must call it, after a barrier.
-__device__ void merge_rows(Cand* buf, int nq, int S, int log_s, int k,
-                           int* cnt, float* thr_s, int* thr_i) {
-  const int total = nq << log_s;
-  for (int t = threadIdx.x; t < total; t += blockDim.x) {
-    const int q = t >> log_s;
-    if ((t & (S - 1)) >= k + cnt[q]) buf[t] = Cand{-INFINITY, kFillerId};
-  }
-  __syncthreads();
-  const int half_mask = (S >> 1) - 1;
-  for (int size = 2; size <= S; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = threadIdx.x; t < (total >> 1); t += blockDim.x) {
-        Cand* row = buf + ((t >> (log_s - 1)) << log_s);
-        const int j = t & half_mask;
-        const int i = ((j & ~(stride - 1)) << 1) | (j & (stride - 1));
-        const Cand a = row[i];
-        const Cand c = row[i + stride];
-        const bool best_first = (i & size) == 0;
-        if (best_first ? better(c.s, c.id, a.s, a.id)
-                       : better(a.s, a.id, c.s, c.id)) {
-          row[i] = c;
-          row[i + stride] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
-  if (threadIdx.x < nq) {
-    const Cand kth = buf[(threadIdx.x << log_s) + k - 1];
-    cnt[threadIdx.x] = 0;
-    thr_s[threadIdx.x] = kth.s;
-    thr_i[threadIdx.x] = kth.id;
-  }
-  __syncthreads();
-}
+static_assert(kThreads == kMergeThreads, "one tile width for both passes");
 
 __global__ void __launch_bounds__(kThreads)
 topk_score_pass(const float* __restrict__ queries,
@@ -127,13 +74,7 @@ topk_score_pass(const float* __restrict__ queries,
 
   for (int t = threadIdx.x; t < nq * D; t += blockDim.x)
     qs[t] = queries[static_cast<size_t>(q0) * D + t];
-  for (int t = threadIdx.x; t < (nq << log_s); t += blockDim.x)
-    buf[t] = Cand{-INFINITY, kFillerId};
-  if (threadIdx.x < kMaxQ) {
-    cnt[threadIdx.x] = 0;
-    thr_s[threadIdx.x] = -INFINITY;
-    thr_i[threadIdx.x] = kFillerId;
-  }
+  init_rows(buf, nq, log_s, kMaxQ, cnt, thr_s, thr_i);
   __syncthreads();
 
   const int limit = S - k - kThreads;  // counts above this may overflow
@@ -174,72 +115,13 @@ topk_score_pass(const float* __restrict__ queries,
         }
       }
 #pragma unroll
-      for (int q = 0; q < kMaxQ; ++q) {
-        if (q < nq && better(acc[q], i, thr_s[q], thr_i[q])) {
-          const int p = atomicAdd(&cnt[q], 1);
-          buf[(q << log_s) + k + p] = Cand{acc[q], i};
-        }
-      }
+      for (int q = 0; q < kMaxQ; ++q)
+        if (q < nq) offer(buf, q, log_s, k, cnt, thr_s, thr_i, acc[q], i);
     }
     __syncthreads();
   }
   merge_rows(buf, nq, S, log_s, k, cnt, thr_s, thr_i);
-
-  for (int t = threadIdx.x; t < nq * k; t += blockDim.x) {
-    const int q = t / k;
-    const int j = t - q * k;
-    const Cand c = buf[(q << log_s) + j];
-    const size_t o = (static_cast<size_t>(q0 + q) * n_chunks + chunk) * k + j;
-    part_s[o] = c.s;
-    part_i[o] = c.id;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-topk_merge_pass(const float* __restrict__ part_s,
-                const int* __restrict__ part_i, int c, int k, int S,
-                int log_s, float* __restrict__ out_s,
-                int* __restrict__ out_i) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  Cand* buf = reinterpret_cast<Cand*>(smem);                  // [S]
-  __shared__ int cnt[1];
-  __shared__ float thr_s[1];
-  __shared__ int thr_i[1];
-
-  const size_t b = blockIdx.x;
-  const float* ps = part_s + b * c;
-  const int* pi = part_i + b * c;
-  for (int t = threadIdx.x; t < S; t += blockDim.x)
-    buf[t] = Cand{-INFINITY, kFillerId};
-  if (threadIdx.x == 0) {
-    cnt[0] = 0;
-    thr_s[0] = -INFINITY;
-    thr_i[0] = kFillerId;
-  }
-  __syncthreads();
-
-  const int limit = S - k - kThreads;
-  for (int base = 0; base < c; base += kThreads) {
-    if (__syncthreads_or(cnt[0] > limit)) merge_rows(buf, 1, S, log_s, k, cnt, thr_s, thr_i);
-    const int j = base + threadIdx.x;
-    if (j < c) {
-      const int id = pi[j];
-      const float s = ps[j];
-      if (id != kFillerId && better(s, id, thr_s[0], thr_i[0])) {
-        const int p = atomicAdd(&cnt[0], 1);
-        buf[k + p] = Cand{s, id};
-      }
-    }
-    __syncthreads();
-  }
-  merge_rows(buf, 1, S, log_s, k, cnt, thr_s, thr_i);
-
-  for (int j = threadIdx.x; j < k; j += blockDim.x) {
-    const Cand x = buf[j];
-    const bool empty = x.id == kFillerId;
-    out_s[b * k + j] = empty ? kNegInf : x.s;
-    out_i[b * k + j] = empty ? -1 : x.id;
-  }
+  write_partial(buf, nq, log_s, k, q0, n_chunks, chunk, part_s, part_i);
 }
 
 }  // namespace
@@ -255,9 +137,8 @@ extern "C" int pio_fused_topk(const float* queries, const float* items,
                               int rows, int n_chunks, int vec4,
                               float* part_s, int* part_i, float* out_s,
                               int* out_i, void* stream) {
-  int log_s = 1;
-  while ((1 << log_s) < S) ++log_s;
-  if ((1 << log_s) != S || S < k + kThreads || k < 1 || qb < 1 ||
+  const int log_s = log2_exact(S);
+  if (log_s < 0 || S < k + kThreads || k < 1 || qb < 1 ||
       qb > kMaxQ || rows < 1 || n_chunks < 1 || B < 1 || D < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem1 = sizeof(Cand) * qb * S + sizeof(float) * qb * D;

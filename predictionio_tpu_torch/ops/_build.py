@@ -3,8 +3,9 @@
 Each ``predictionio_tpu_torch/csrc/<name>.cu`` has a plain C interface and
 compiles with ``nvcc`` for ``sm_90a`` into its own shared library under
 ``build/torch_kernels/`` at the repository root (git-ignored).  The
-library's file name carries a digest of the source and the flags, so an
-edited source rebuilds and an unchanged one is reused.  A build takes
+library's file name carries a digest of the source, of the ``csrc/``
+headers it includes (``topk_select.cuh``) and of the flags, so an edited
+source or header rebuilds and an unchanged one is reused.  A build takes
 seconds: no source includes PyTorch's headers.  Each build also keeps
 ``nvcc``'s ``-Xptxas -v`` report (registers, shared memory, spills) next
 to the library as ``<library>.log``.
@@ -15,12 +16,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "sources", "library_path",
            "build", "load"]
@@ -35,7 +37,7 @@ _LOCK = threading.Lock()
 
 
 def sources() -> Dict[str, Path]:
-    """Every kernel source in the package, by name."""
+    """Every kernel source in the package (``csrc/*.cu``), by name."""
     return {p.stem: p for p in sorted(CSRC_DIR.glob("*.cu"))}
 
 
@@ -51,11 +53,33 @@ def _nvcc() -> str:
                        "first use")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _local_headers(src: Path) -> List[Path]:
+    """The headers under ``csrc/`` that ``src`` includes (``#include
+    "..."``), directly or through another such header, in include order."""
+    found: List[Path] = []
+    todo = [src]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop().read_bytes()):
+            path = CSRC_DIR / name.decode()
+            if path.exists() and path not in found:
+                found.append(path)
+                todo.append(path)
+    return found
+
+
 def library_path(name: str) -> Path:
+    """Where the library of source ``name`` lives: its file name carries a
+    digest of the source, every local header it includes, and the
+    flags, so an edited header rebuilds each source that uses it."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha1(src.read_bytes())
+    for header in _local_headers(src):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:

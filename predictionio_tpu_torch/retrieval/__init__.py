@@ -1,25 +1,37 @@
 """Retrieval subsystem — THE way serving reaches an item corpus.
 
-Port of ``predictionio_tpu/retrieval/__init__.py`` with its exact rungs
-(``retrieval/exact.py``): ``host`` (numpy), ``device`` (one matmul +
-top-k on the card) and ``chunked`` (the fused top-k kernel, K3).  The
-routing is the reference's, knob for knob:
+Port of ``predictionio_tpu/retrieval/__init__.py``.  The rungs:
 
-- ``PIO_RETRIEVAL_RUNG`` — auto|host|device|chunked (force); the rungs
-  not ported yet (``sharded``, ``ivf``, ``ivf_pq``, ``pq_flat``) warn and
-  route automatically, exactly as the reference does when the structure
-  a forced rung needs is missing
-- ``PIO_SERVE_HOST_MACS`` — host fast path when B·N·D is at or below
-  this (default 2e8)
+1. **Exact** (``retrieval/exact.py``): ``host`` (numpy), ``device`` (one
+   matmul + top-k on the card) and ``chunked`` (the fused top-k kernel,
+   K3).
+2. **IVF** (``retrieval/ivf.py``): a train-time k-means coarse index,
+   versioned with the generation by a corpus fingerprint (an index that
+   does not match the served vectors is dropped and counted).
+3. **PQ** (``retrieval/pq.py``): train-time residual product
+   quantization; ``ivf_pq`` prunes by cell first, ``pq_flat`` scans every
+   code column with the PQ scan kernel (K5); both re-rank a
+   ``PIO_PQ_RERANK`` shortlist against the exact embeddings.  Codebooks
+   carry the same fingerprint tripwire.
+
+The routing is the reference's, knob for knob:
+
+- ``PIO_RETRIEVAL_RUNG`` — auto|host|device|chunked|sharded|ivf|ivf_pq|
+  pq_flat (force); ``sharded`` is not ported yet and serves exact-device,
+  as the reference does for a corpus that is not mesh-sharded
+- ``PIO_SERVE_HOST_MACS`` — host fast path when B·N·D (IVF/PQ: the rows
+  or code lookups actually scored) is at or below this (default 2e8)
 - ``PIO_SERVE_CHUNK_ABOVE`` — chunked rung above this many items
   (default 2,000,000)
-
-A corpus that carries an IVF index or PQ codes is refused: those rungs
-(and kernel K5) arrive with a later slice.
+- ``PIO_IVF_NPROBE`` — IVF lists probed per query
+- ``PIO_PQ_RERANK`` — exact-re-rank shortlist size (default 4·k)
+- ``PIO_CORPUS_DTYPE`` — f32|bf16|int8 staged re-rank corpus
 
 Observability: ``pio_retrieval_requests_total{rung,corpus}``,
-``pio_retrieval_candidates_total{rung,corpus}`` (rows actually scored)
-and ``pio_retrieval_ms{rung}`` — the reference's family and label names.
+``pio_retrieval_candidates_total{rung,corpus}`` (rows actually scored),
+``pio_retrieval_ms{rung}``, ``pio_retrieval_ivf_rejected_total{corpus}``
+and ``pio_retrieval_pq_rejected_total{corpus}`` — the reference's family
+and label names.  The recall hook arrives with the observability slice.
 """
 
 from __future__ import annotations
@@ -38,11 +50,31 @@ import torch
 from predictionio_tpu_torch.device import device as resolve_device
 from predictionio_tpu_torch.obs import get_registry
 from predictionio_tpu_torch.retrieval import exact as _exact
+from predictionio_tpu_torch.retrieval.ivf import (
+    IVFIndex,
+    build_ivf,
+    corpus_fingerprint,
+    ivf_build_config,
+    search_ivf_device,
+    search_ivf_host,
+)
+from predictionio_tpu_torch.retrieval.pq import (
+    PQCodebook,
+    build_pq,
+    pq_build_config,
+    quantize_int8,
+    search_ivf_pq_device,
+    search_ivf_pq_host,
+    search_pq_device,
+    search_pq_host,
+)
 
 logger = logging.getLogger(__name__)
 
 __all__ = ["Retriever", "Plan", "cached_retriever", "arm_on_create",
-           "iter_hits", "menu_k", "K_MENU", "RUNGS", "EXCLUDE_RUNGS"]
+           "iter_hits", "build_train_index", "build_train_pq", "IVFIndex",
+           "PQCodebook", "build_ivf", "build_pq", "corpus_fingerprint",
+           "menu_k", "K_MENU", "RUNGS", "EXCLUDE_RUNGS"]
 
 # K pads up to a short menu so varying ``num`` values share a handful
 # of shapes (the reference's compiled-program menu).
@@ -51,10 +83,11 @@ _NEG_SENTINEL = -1e37  # scores at/below this are padding, never results
 
 RUNGS = ("host", "device", "chunked", "sharded", "ivf", "ivf_pq",
          "pq_flat")
-# Rungs that honor a per-request exclude mask.
+# Rungs that honor a per-request exclude mask (everything else pins the
+# query to an exact rung — a blacklisted id must never be returned).
 EXCLUDE_RUNGS = ("host", "device", "chunked")
 # Rungs of the reference that this port does not have yet.
-_UNPORTED_RUNGS = ("sharded", "ivf", "ivf_pq", "pq_flat")
+_UNPORTED_RUNGS = ("sharded",)
 
 
 def _env_int(name: str, default: int) -> int:
@@ -79,24 +112,22 @@ class Plan:
 
 
 class Retriever:
-    """Facade over the exact retrieval rungs for ONE item corpus.
+    """Facade over the retrieval rungs for ONE item corpus.
 
     ``item_vecs`` is the host numpy corpus (possibly carrying padding
-    rows past ``n_items``).  The retriever stages a host copy and one
-    device copy lazily — at most one of each, built under a lock.
+    rows past ``n_items``); ``ivf`` and ``pq`` are the generation's
+    optional IVF index and PQ codebook.  The retriever stages what its
+    rungs need (a host copy, the device corpus, the index and codebook
+    constants, the re-rank corpus) lazily, at most one of each.
     ``device`` is where the device rungs run (default: the CUDA card,
     raising when there is none; see
     :func:`~predictionio_tpu_torch.device.device`).
     """
 
     def __init__(self, item_vecs, *, n_items: Optional[int] = None,
-                 ivf=None, pq=None, name: str = "default", host_fn=None,
-                 device=None):
-        if ivf is not None or pq is not None:
-            raise NotImplementedError(
-                f"corpus {name!r} carries an "
-                f"{'IVF index' if ivf is not None else 'PQ codebook'}: the "
-                "IVF/PQ retrieval rungs are not yet ported to PyTorch")
+                 ivf: Optional[IVFIndex] = None,
+                 pq: Optional[PQCodebook] = None, name: str = "default",
+                 host_fn=None, device=None):
         self._vecs = item_vecs
         self.n_items = int(n_items if n_items is not None
                            else item_vecs.shape[0])
@@ -107,7 +138,20 @@ class Retriever:
         self._host: Optional[np.ndarray] = None
         self._dev: Optional[torch.Tensor] = None
         self._cache: Dict = {}
-        self._lock = threading.Lock()
+        # RLock: ivf_index()/pq_codebook() validate fingerprints under
+        # the lock and that validation stages host_vecs(), which locks
+        # again.
+        self._lock = threading.RLock()
+        self._ivf_raw = ivf
+        self._ivf: Optional[IVFIndex] = None
+        self._ivf_checked = False
+        self._ivf_dev: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._pq_raw = pq
+        self._pq: Optional[PQCodebook] = None
+        self._pq_checked = False
+        self._pq_dev: Optional[Tuple[torch.Tensor, ...]] = None
+        self._rerank_dev: Dict = {}
+        self._fp: Optional[str] = None
         reg = get_registry()
         self._m_requests = reg.counter(
             "pio_retrieval_requests_total",
@@ -117,6 +161,14 @@ class Retriever:
             "Candidate item rows actually scored.", ("rung", "corpus"))
         self._m_latency = reg.histogram(
             "pio_retrieval_ms", "Retrieval latency per rung.", ("rung",))
+        self._m_ivf_rejected = reg.counter(
+            "pio_retrieval_ivf_rejected_total",
+            "IVF indexes dropped for a fingerprint mismatch with the "
+            "served corpus.", ("corpus",))
+        self._m_pq_rejected = reg.counter(
+            "pio_retrieval_pq_rejected_total",
+            "PQ codebooks dropped for a fingerprint mismatch with the "
+            "served corpus.", ("corpus",))
 
     # -- corpus staging -----------------------------------------------------
 
@@ -142,6 +194,142 @@ class Retriever:
                         device=self.device)
         return self._dev
 
+    # -- IVF / PQ lifecycle --------------------------------------------------
+
+    def _corpus_fp(self) -> str:
+        """SHA-1 of the served corpus — computed once, shared by the IVF
+        and PQ tripwires."""
+        if self._fp is None:
+            with self._lock:
+                if self._fp is None:
+                    self._fp = corpus_fingerprint(self.host_vecs())
+        return self._fp
+
+    def ivf_index(self) -> Optional[IVFIndex]:
+        """The generation's IVF index, fingerprint-validated ONCE against
+        the corpus actually being served.  A mismatch (index from another
+        generation next to these vectors) drops the index and counts —
+        exact serving continues, recall never silently collapses."""
+        if self._ivf_checked:
+            return self._ivf
+        with self._lock:
+            if self._ivf_checked:
+                return self._ivf
+            idx = self._ivf_raw
+            if idx is not None:
+                if (idx.n_items != self.n_items or idx.dim != self.dim
+                        or idx.fingerprint != self._corpus_fp()):
+                    logger.error(
+                        "IVF index fingerprint mismatch for corpus %r "
+                        "(index n=%d/d=%d vs corpus n=%d/d=%d) — dropping "
+                        "the index; serving stays exact", self.name,
+                        idx.n_items, idx.dim, self.n_items, self.dim)
+                    self._m_ivf_rejected.inc(corpus=self.name)
+                    idx = None
+            self._ivf = idx
+            self._ivf_checked = True
+        return self._ivf
+
+    def ivf_device_arrays(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Centroids ``[C, D]`` + padded lists ``[C, L]`` staged on the
+        device ONCE per generation — index constants, never re-uploaded
+        per request."""
+        if self._ivf_dev is None:
+            idx = self.ivf_index()   # locks self._lock: before the cache lock
+            with _exact.SERVE_CACHE_LOCK:
+                if self._ivf_dev is None:
+                    self._ivf_dev = (
+                        torch.as_tensor(idx.centroids, device=self.device),
+                        torch.as_tensor(idx.lists, device=self.device))
+        return self._ivf_dev
+
+    def pq_codebook(self) -> Optional[PQCodebook]:
+        """The generation's PQ codebook, fingerprint-validated ONCE
+        against the served corpus.  A mismatched codebook (codes from
+        another generation next to these vectors) is dropped loudly —
+        exact serving continues, results are never silently wrong."""
+        if self._pq_checked:
+            return self._pq
+        with self._lock:
+            if self._pq_checked:
+                return self._pq
+            pq = self._pq_raw
+            if pq is not None:
+                if (pq.n_items != self.n_items or pq.dim != self.dim
+                        or pq.fingerprint != self._corpus_fp()):
+                    logger.error(
+                        "PQ codebook fingerprint mismatch for corpus %r "
+                        "(codes n=%d/d=%d vs corpus n=%d/d=%d) — "
+                        "dropping the codebook; serving stays exact",
+                        self.name, pq.n_items, pq.dim, self.n_items,
+                        self.dim)
+                    self._m_pq_rejected.inc(corpus=self.name)
+                    pq = None
+            self._pq = pq
+            self._pq_checked = True
+        return self._pq
+
+    def pq_device_arrays(self) -> Tuple[torch.Tensor, ...]:
+        """Coarse book [256, D] + codebooks [M, 256, D/M] + the packed
+        code matrix TRANSPOSED to scan layout [1+M, N] uint8 — staged on
+        the device ONCE per generation (the code matrix IS the resident
+        quantized corpus)."""
+        if self._pq_dev is None:
+            pq = self.pq_codebook()  # locks self._lock: before the cache lock
+            with _exact.SERVE_CACHE_LOCK:
+                if self._pq_dev is None:
+                    self._pq_dev = tuple(
+                        torch.as_tensor(a, device=self.device) for a in (
+                            pq.coarse, pq.codebooks,
+                            np.ascontiguousarray(pq.codes.T)))
+        return self._pq_dev
+
+    def rerank_arrays(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The staged exact re-rank corpus under ``PIO_CORPUS_DTYPE``:
+        ``(vectors, None)`` for f32/bf16 or ``(int8, row_scales)`` —
+        per-dtype copies staged once, so a live retune of the env never
+        re-uploads on the hot path.  f32 reuses the exact rungs' staged
+        device copy outright."""
+        raw = os.environ.get("PIO_CORPUS_DTYPE", "f32").strip().lower() \
+            or "f32"
+        dtype = {"f32": "f32", "float32": "f32", "bf16": "bf16",
+                 "bfloat16": "bf16", "int8": "int8"}.get(raw)
+        if dtype is None:
+            logger.warning("PIO_CORPUS_DTYPE=%r is not one of "
+                           "f32|bf16|int8; staging f32", raw)
+            dtype = "f32"
+        staged = self._rerank_dev.get(dtype)
+        if staged is not None:
+            return staged
+        if dtype == "f32" and self.n_items * self.dim * 4 > 1 << 28:
+            # Above ~256 MB the f32 default re-stages the very residency
+            # PQ exists to remove — say so once, with the fix.
+            logger.warning(
+                "PQ re-rank corpus %r stages %.0f MB of fp32 on device "
+                "(PIO_CORPUS_DTYPE=f32 default); set "
+                "PIO_CORPUS_DTYPE=bf16 or int8 to shrink the resident "
+                "re-rank copy 2-4x", self.name,
+                self.n_items * self.dim * 4 / 2 ** 20)
+        if dtype == "f32":
+            # device_vecs() takes SERVE_CACHE_LOCK itself — stage it
+            # BEFORE acquiring the lock here (non-reentrant).
+            staged = (self.device_vecs(), None)
+            self._rerank_dev[dtype] = staged
+            return staged
+        host = self.host_vecs()      # locks self._lock: before the cache lock
+        with _exact.SERVE_CACHE_LOCK:
+            staged = self._rerank_dev.get(dtype)
+            if staged is None:
+                if dtype == "bf16":
+                    staged = (torch.as_tensor(host, device=self.device)
+                              .to(torch.bfloat16), None)
+                else:
+                    q8, sc = quantize_int8(host)
+                    staged = (torch.as_tensor(q8, device=self.device),
+                              torch.as_tensor(sc, device=self.device))
+                self._rerank_dev[dtype] = staged
+        return staged
+
     # -- routing ------------------------------------------------------------
 
     def plan(self, b: int, num: int, *, has_exclude: bool = False) -> Plan:
@@ -154,32 +342,94 @@ class Retriever:
                            "auto routing", forced, ("auto",) + RUNGS)
         if forced in RUNGS:
             if has_exclude and forced not in EXCLUDE_RUNGS:
+                # The sharded/IVF/PQ executors take no per-request mask —
+                # honoring the exclusion beats honoring the forcing.
                 logger.warning(
                     "PIO_RETRIEVAL_RUNG=%s cannot honor a per-request "
                     "exclude mask for corpus %r; serving exact", forced,
                     self.name)
                 forced = "auto"
-            if forced == "sharded":
+            if forced in _UNPORTED_RUNGS:
                 # The reference serves a corpus that is not mesh-sharded
                 # exact-device; the port has no sharded corpora yet.
                 logger.warning("PIO_RETRIEVAL_RUNG=sharded but corpus %r "
                                "is not mesh-sharded; serving exact-device",
                                self.name)
                 forced = "device"
-            if forced in _UNPORTED_RUNGS:
-                logger.warning("PIO_RETRIEVAL_RUNG=%s but corpus %r has no "
-                               "%s structure; serving exact", forced,
-                               self.name,
-                               "IVF" if forced == "ivf" else "PQ")
+            if forced == "ivf" and self.ivf_index() is None:
+                logger.warning("PIO_RETRIEVAL_RUNG=ivf but corpus %r has "
+                               "no valid index; serving exact", self.name)
                 forced = "auto"
+            if forced in ("ivf_pq", "pq_flat") \
+                    and self.pq_codebook() is None:
+                logger.warning("PIO_RETRIEVAL_RUNG=%s but corpus %r has "
+                               "no valid PQ codebook; serving exact",
+                               forced, self.name)
+                forced = "auto"
+            if forced == "ivf_pq" and self.ivf_index() is None:
+                logger.warning("PIO_RETRIEVAL_RUNG=ivf_pq but corpus %r "
+                               "has no valid IVF index; serving pq_flat",
+                               self.name)
+                forced = "pq_flat"
             if forced in RUNGS:
-                return Plan(rung=forced, k=k)
+                return self._finish_plan(forced, b, k)
         work = b * self.n_items * self.dim
-        if work <= _env_int("PIO_SERVE_HOST_MACS", 2 * 10 ** 8):
-            return Plan(rung="host", k=k)
+        host_macs = _env_int("PIO_SERVE_HOST_MACS", 2 * 10 ** 8)
+        if has_exclude:
+            # Per-request [B, N] masks ride the exact rungs only (an
+            # excluded id must never cost recall the way an unprobed IVF
+            # cell or a quantized shortlist would).
+            if work <= host_macs:
+                return self._finish_plan("host", b, k)
+            if self.n_items > _env_int("PIO_SERVE_CHUNK_ABOVE", 2_000_000):
+                return self._finish_plan("chunked", b, k)
+            return self._finish_plan("device", b, k)
+        if self.pq_codebook() is not None:
+            # Quantized serving when the generation carries codes:
+            # IVF-pruned with a valid index, the full LUT scan otherwise —
+            # the exact re-rank holds recall either way.
+            if self.ivf_index() is not None:
+                return self._finish_plan("ivf_pq", b, k)
+            return self._finish_plan("pq_flat", b, k)
+        if self.ivf_index() is not None:
+            return self._finish_plan("ivf", b, k)
+        if work <= host_macs:
+            return self._finish_plan("host", b, k)
         if self.n_items > _env_int("PIO_SERVE_CHUNK_ABOVE", 2_000_000):
-            return Plan(rung="chunked", k=k)
-        return Plan(rung="device", k=k)
+            return self._finish_plan("chunked", b, k)
+        return self._finish_plan("device", b, k)
+
+    def _rerank_count(self, k: int) -> int:
+        """PQ shortlist size: ``PIO_PQ_RERANK`` (absolute), default 4·k —
+        clamped to [k, n_items].  The top-k the caller sees is always
+        computed from exact scores over this many candidates."""
+        raw = os.environ.get("PIO_PQ_RERANK", "").strip()
+        r = 0
+        if raw:
+            try:
+                r = int(raw)
+            except ValueError:
+                logger.warning("PIO_PQ_RERANK=%r is not an integer; "
+                               "using the 4·k default", raw)
+        if r <= 0:
+            r = 4 * k
+        return min(self.n_items, max(r, k))
+
+    def _finish_plan(self, rung: str, b: int, k: int) -> Plan:
+        if rung == "pq_flat":
+            return Plan(rung=rung, k=k, rerank=self._rerank_count(k))
+        if rung not in ("ivf", "ivf_pq"):
+            return Plan(rung=rung, k=k)
+        idx = self.ivf_index()
+        # Static-shape guard: the probed lists must reach k (or, with a
+        # PQ shortlist, rerank) REAL candidates even for the query
+        # landing on the shortest lists.
+        reach = self._rerank_count(k) if rung == "ivf_pq" else k
+        nprobe = min(idx.nlist,
+                     max(idx.default_nprobe(), idx.min_nprobe_for(reach)))
+        if rung == "ivf_pq":
+            return Plan(rung=rung, k=k, nprobe=nprobe, rerank=reach)
+        return Plan(rung="ivf", k=k, nprobe=nprobe)
 
     # -- the one entry point ------------------------------------------------
 
@@ -213,6 +463,22 @@ class Retriever:
             s, i = _exact.exact_host(q, self.host_vecs(), p.k,
                                      exclude=exclude)
             return s, i, b * self.n_items
+        if p.rung in ("pq_flat", "ivf_pq"):
+            return self._execute_pq(q, p)
+        if p.rung == "ivf":
+            idx = self.ivf_index()
+            # The sub-linear scan keeps the same host-vs-device economics
+            # as the exact rungs, judged on the rows actually scored.
+            est = b * p.nprobe * idx.pad_len * self.dim
+            if est <= _env_int("PIO_SERVE_HOST_MACS", 2 * 10 ** 8):
+                return search_ivf_host(idx, self.host_vecs(), q, p.k,
+                                       p.nprobe)
+            qp = _pow2_pad(q)
+            s, i, scanned = search_ivf_device(
+                idx, self.device_vecs(), qp, p.k, p.nprobe,
+                jit_cache=self._cache, consts=self.ivf_device_arrays())
+            # scanned counts the padded batch's probes; rescale to real.
+            return s[:b], i[:b], int(scanned * b / max(len(qp), 1))
         qp = _pow2_pad(q)
         if exclude is not None and len(qp) > b:
             # The pow2 pad added all-zero query rows; give them
@@ -228,6 +494,38 @@ class Retriever:
                                        self.n_items, p.k,
                                        cache=self._cache, exclude=exclude)
         return s[:b], i[:b], b * self.n_items
+
+    def _execute_pq(self, q: np.ndarray, p: Plan):
+        """Quantized rungs: LUT scan (IVF-pruned or full) → exact
+        re-rank.  Same host-vs-device economics as the other rungs,
+        judged on code lookups (≈ 1 MAC each) plus the re-rank matmul."""
+        b = q.shape[0]
+        pq = self.pq_codebook()
+        host_macs = _env_int("PIO_SERVE_HOST_MACS", 2 * 10 ** 8)
+        rerank_macs = b * p.rerank * self.dim
+        if p.rung == "pq_flat":
+            est = b * self.n_items * pq.n_tables + rerank_macs
+            if est <= host_macs:
+                return search_pq_host(pq, self.host_vecs(), q, p.k,
+                                      p.rerank)
+            qp = _pow2_pad(q)
+            s, i, scanned = search_pq_device(
+                pq, qp, p.k, p.rerank, consts=self.pq_device_arrays(),
+                rerank_consts=self.rerank_arrays())
+            return s[:b], i[:b], int(scanned * b / max(len(qp), 1))
+        idx = self.ivf_index()
+        est = b * p.nprobe * idx.pad_len * pq.n_tables + rerank_macs
+        if est <= host_macs:
+            return search_ivf_pq_host(idx, pq, self.host_vecs(), q, p.k,
+                                      p.nprobe, p.rerank)
+        qp = _pow2_pad(q)
+        s, i, scanned = search_ivf_pq_device(
+            idx, pq, qp, p.k, p.nprobe, p.rerank,
+            ivf_consts=self.ivf_device_arrays(),
+            pq_consts=self.pq_device_arrays(),
+            rerank_consts=self.rerank_arrays())
+        # scanned counts the padded batch's probes; rescale to real.
+        return s[:b], i[:b], int(scanned * b / max(len(qp), 1))
 
 
 def _pow2_pad(q: np.ndarray) -> np.ndarray:
@@ -293,3 +591,62 @@ def arm_on_create(owner, fn) -> None:
             _PENDING_ARM[owner] = fn
             return
     fn(r)
+
+
+def build_train_index(item_vecs: np.ndarray, *, name: str,
+                      seed: Optional[int] = None,
+                      require_explicit: bool = False
+                      ) -> Optional[IVFIndex]:
+    """Train-time IVF build under the env policy (``PIO_IVF`` /
+    ``PIO_IVF_NLIST`` / ``PIO_IVF_MIN_ITEMS``) — called by a template's
+    ``train()`` so the index is pickled inside the same model artifact.
+
+    ``require_explicit`` is for norm-variant corpora (raw ALS factors,
+    popularity-scaled norms): k-means cells partition by direction, so a
+    high-norm item in an unprobed cell is an unrecoverable miss — the
+    index builds only under an explicit ``PIO_IVF=on``, never ``auto``.
+    """
+    if require_explicit:
+        mode = os.environ.get("PIO_IVF", "auto").strip().lower() or "auto"
+        if mode not in ("on", "1", "true", "yes"):
+            logger.debug("IVF build skipped for %r: norm-variant corpus "
+                         "needs explicit PIO_IVF=on (got %r)", name, mode)
+            return None
+    build, nlist, min_items = ivf_build_config(len(item_vecs))
+    if not build:
+        logger.debug("IVF build skipped for %r (n=%d < min=%d or PIO_IVF "
+                     "off)", name, len(item_vecs), min_items)
+        return None
+    t0 = time.perf_counter()
+    # seed=None pins to 0: two trains over identical data build identical
+    # indexes.
+    idx = build_ivf(np.asarray(item_vecs, dtype=np.float32), nlist=nlist,
+                    seed=0 if seed is None else seed, force=True)
+    logger.info("IVF index for %r built in %.1fs (nlist=%d)", name,
+                time.perf_counter() - t0, idx.nlist if idx else -1)
+    return idx
+
+
+def build_train_pq(item_vecs: np.ndarray, *, name: str,
+                   ivf: Optional[IVFIndex] = None,
+                   seed: Optional[int] = None) -> Optional[PQCodebook]:
+    """Train-time residual-PQ build under the env policy (``PIO_PQ`` /
+    ``PIO_PQ_M`` / ``PIO_PQ_MIN_ITEMS``) — called by a template's
+    ``train()`` AFTER the IVF build, so the residual coarse book can ride
+    the same cells, and pickled inside the same model artifact.
+
+    Unlike IVF, PQ needs no norm-variance opt-in: the exact re-rank
+    re-scores every returned candidate against the true embeddings.
+    """
+    vecs = np.asarray(item_vecs, dtype=np.float32)
+    build, m, min_items = pq_build_config(len(vecs), vecs.shape[1])
+    if not build:
+        logger.debug("PQ build skipped for %r (n=%d < min=%d or PIO_PQ "
+                     "off)", name, len(vecs), min_items)
+        return None
+    t0 = time.perf_counter()
+    # seed=None pins to 0 like build_train_index.
+    pq = build_pq(vecs, m=m, ivf=ivf, seed=0 if seed is None else seed)
+    logger.info("PQ codebook for %r built in %.1fs (M=%d, %d B/item)",
+                name, time.perf_counter() - t0, pq.m, pq.bytes_per_item())
+    return pq

@@ -53,9 +53,9 @@ def _cached(cache: Dict, key, build):
     return value
 
 
-def _to_host(s: torch.Tensor, i: torch.Tensor
-             ) -> Tuple[np.ndarray, np.ndarray]:
-    return s.cpu().numpy(), i.cpu().numpy()
+def _to_host(*ts: torch.Tensor) -> Tuple[np.ndarray, ...]:
+    """Each tensor as a host numpy array."""
+    return tuple(t.cpu().numpy() for t in ts)
 
 
 def _exclude_on(exclude: np.ndarray, n: int, dev: torch.device

@@ -12,23 +12,25 @@ contract is the reference's:
 
 The reference template imports jax at module level, so the port copies
 its types instead of importing them.  Training runs the port's ALS
-sweep (kernels K1 and K2 on the card); serving goes through the port's
-retrieval facade (host, device and chunked rungs; the chunked rung runs
-the fused top-k kernel K3).  A generation trained elsewhere can still be
-carried in with :func:`wrapper_from_numpy` and persisted with
+sweep (kernels K1 and K2 on the card), then builds the reference's
+train-time retrieval structures on the host: an IVF index under an
+explicit ``PIO_IVF=on``, and residual PQ codes under the ``PIO_PQ``
+policy on top of it.  Serving goes through the port's retrieval facade
+(exact rungs, the chunked one on the fused top-k kernel K3; the IVF and
+PQ rungs, ``pq_flat`` on the PQ scan kernel K5).  A generation trained
+elsewhere can still be carried in with :func:`wrapper_from_numpy` and
+persisted with
 :func:`predictionio_tpu_torch.workflow.core_workflow.persist_instance`.
 Not ported yet: ``read_eval``, ``warm_start``, the quality and recall
-scorecards, serve-time fold-in, and the IVF/PQ structures (a train whose
-policy would build them raises).
+scorecards, and serve-time fold-in.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
-import os
 import weakref
-from typing import Any, List, Optional, Sequence, Tuple, Union
+from typing import Any, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -44,7 +46,11 @@ from predictionio_tpu_torch.controller.params import Params
 from predictionio_tpu_torch.data.event import BiMap
 from predictionio_tpu_torch.models import als as als_lib
 from predictionio_tpu_torch.retrieval import (
+    IVFIndex,
+    PQCodebook,
     Retriever,
+    build_train_index,
+    build_train_pq,
     cached_retriever,
     iter_hits,
 )
@@ -193,20 +199,20 @@ class ALSAlgorithmParams(Params):
 class ALSModelWrapper:
     """Trained factors + indexes (reference: template ALSModel).
 
-    Everything pickled is numpy or plain Python; the CUDA copy of the
-    corpus lives in the weak-keyed retriever cache and dies with the
-    wrapper.  ``ivf``/``pq`` exist for parity with the reference's
-    pickle: a generation that carries either is refused until the IVF
-    and PQ rungs are ported.  Training fills the fold-in fields as the
-    reference does, but serve-time fold-in is ported later: until then
-    an unseen user gets the cold-start (empty) answer.
+    Everything pickled is numpy or plain Python; the CUDA copies of the
+    corpus, index and codes live in the weak-keyed retriever cache and
+    die with the wrapper.  ``ivf``/``pq`` are the generation's optional
+    IVF index and PQ codebook, pickled with it so a generation swap moves
+    model, index and codes together.  Training fills the fold-in fields
+    as the reference does, but serve-time fold-in is ported later: until
+    then an unseen user gets the cold-start (empty) answer.
     """
 
     model: als_lib.ALSModel
     user_index: BiMap
     item_index: BiMap
-    ivf: Any = None
-    pq: Any = None
+    ivf: Optional[IVFIndex] = None
+    pq: Optional[PQCodebook] = None
     app_name: Optional[str] = None
     fold_event_names: Sequence[str] = ()
     buy_rating: float = 4.0
@@ -215,14 +221,7 @@ class ALSModelWrapper:
     n_examples: int = 0
 
     def __post_init__(self):
-        self._check_ported()
         self._device = None
-
-    def _check_ported(self) -> None:
-        if self.ivf is not None or self.pq is not None:
-            raise NotImplementedError(
-                "this ALS generation carries an IVF index or PQ codes; the "
-                "IVF/PQ retrieval rungs are not yet ported to PyTorch")
 
     def __getstate__(self):
         d = self.__dict__.copy()
@@ -231,7 +230,6 @@ class ALSModelWrapper:
 
     def __setstate__(self, d):
         self.__dict__.update(d)
-        self._check_ported()
         self._device = None
 
     def post_load(self, ctx: RuntimeContext) -> None:
@@ -248,6 +246,8 @@ class ALSModelWrapper:
         return cached_retriever(self, lambda: Retriever(
             self.model.item_factors,
             n_items=len(self.item_index),
+            ivf=self.ivf,
+            pq=self.pq,
             name="als",
             host_fn=lambda: ref().host_factors()[1],
             device=self._device))
@@ -267,9 +267,16 @@ class ALSModelWrapper:
 
 
 def wrapper_from_numpy(user_factors, item_factors, user_ids, item_ids, *,
-                       rank: int, implicit: bool = False) -> ALSModelWrapper:
+                       rank: int, implicit: bool = False,
+                       ivf: Union[IVFIndex, Mapping[str, Any], None] = None,
+                       pq: Union[PQCodebook, Mapping[str, Any], None] = None
+                       ) -> ALSModelWrapper:
     """Carry a trained ALS generation into the port: factor arrays plus
-    the user and item id strings of their rows, in row order."""
+    the user and item id strings of their rows, in row order, and
+    optionally its IVF index and PQ codebook — each an :class:`IVFIndex`
+    / :class:`PQCodebook` or a mapping of the reference's fields (numpy
+    arrays and plain values, e.g. ``dataclasses.asdict`` of the
+    reference's structure)."""
     model = als_lib.als_model_from_numpy(user_factors, item_factors,
                                          rank=rank, implicit=implicit)
     user_index = BiMap({str(u): i for i, u in enumerate(user_ids)})
@@ -277,37 +284,12 @@ def wrapper_from_numpy(user_factors, item_factors, user_ids, item_ids, *,
     if len(user_index) > model.user_factors.shape[0] \
             or len(item_index) > model.item_factors.shape[0]:
         raise ValueError("more ids than factor rows")
+    if isinstance(ivf, Mapping):
+        ivf = IVFIndex(**ivf)
+    if isinstance(pq, Mapping):
+        pq = PQCodebook(**pq)
     return ALSModelWrapper(model=model, user_index=user_index,
-                           item_index=item_index)
-
-
-def _env_int(key: str, default: int) -> int:
-    try:
-        return int(os.environ.get(key, str(default)) or default)
-    except ValueError:
-        return default
-
-
-def _refuse_unported_structures(n_items: int) -> None:
-    """Raise where the reference's train-time policy would build an IVF
-    index or PQ codes for this corpus (``retrieval.build_train_index``
-    with ``require_explicit``, ``retrieval.pq.pq_build_config``): those
-    structures and their rungs arrive with the IVF/PQ slice, and a train
-    must not quietly skip them."""
-    off = ("off", "0", "false", "no")
-    ivf = os.environ.get("PIO_IVF", "auto").strip().lower() or "auto"
-    if ivf in ("on", "1", "true", "yes") \
-            and n_items >= _env_int("PIO_IVF_MIN_ITEMS", 50_000):
-        raise NotImplementedError(
-            f"PIO_IVF={ivf} asks for an IVF index over {n_items} items; "
-            "the IVF/PQ slice of the port is not ported yet (unset "
-            "PIO_IVF to train for exact serving)")
-    pq = os.environ.get("PIO_PQ", "auto").strip().lower() or "auto"
-    if pq not in off and n_items >= _env_int("PIO_PQ_MIN_ITEMS", 200_000):
-        raise NotImplementedError(
-            f"the PQ policy (PIO_PQ={pq}, PIO_PQ_MIN_ITEMS) would build PQ "
-            f"codes for {n_items} items; the IVF/PQ slice of the port is "
-            "not ported yet (set PIO_PQ=off to train for exact serving)")
+                           item_index=item_index, ivf=ivf, pq=pq)
 
 
 class ALSAlgorithm(Algorithm):
@@ -315,15 +297,15 @@ class ALSAlgorithm(Algorithm):
 
     def train(self, ctx: RuntimeContext,
               prepared_data: Ratings) -> ALSModelWrapper:
-        """Train on ``ctx.device`` (reference: ``ALSAlgorithm.train``);
-        the quality and recall scorecards are not ported yet."""
+        """Train on ``ctx.device``, then build the IVF index and PQ codes
+        the env policy asks for (reference: ``ALSAlgorithm.train``); the
+        quality and recall scorecards are not ported yet."""
         p: ALSAlgorithmParams = self.params
         if len(prepared_data.user_ids) == 0:
             raise ValueError(
                 "No rating events found — check appName/eventNames "
                 "(reference template raises the same assertion).")
         n_items = len(prepared_data.item_index)
-        _refuse_unported_structures(n_items)
         cfg = als_lib.ALSConfig(
             rank=p.rank,
             iterations=p.numIterations,
@@ -344,10 +326,23 @@ class ALSAlgorithm(Algorithm):
             config=cfg,
             device=ctx.device,
         )
+        itf_host = model.item_factors[:n_items]
+        # Train-time coarse index, pickled with the model.  Raw ALS
+        # factors carry popularity-scaled norms (a poor IVF fit: cells
+        # partition by direction), so it builds only under an explicit
+        # PIO_IVF=on, never auto.
+        ivf = build_train_index(itf_host, name="als", seed=cfg.seed,
+                                require_explicit=True)
+        # Residual PQ codes under the PIO_PQ policy (auto by default):
+        # the exact re-rank makes quantization safe for norm-variant
+        # factors, so no explicit opt-in is required.
+        pq = build_train_pq(itf_host, name="als", ivf=ivf, seed=cfg.seed)
         return ALSModelWrapper(
             model=model,
             user_index=prepared_data.user_index,
             item_index=prepared_data.item_index,
+            ivf=ivf,
+            pq=pq,
             app_name=prepared_data.app_name,
             fold_event_names=tuple(prepared_data.event_names or ()),
             buy_rating=float(prepared_data.buy_rating),

@@ -16,6 +16,8 @@ from predictionio_tpu_torch import device as port_device
 from predictionio_tpu_torch.models import als as port_als
 from predictionio_tpu_torch.ops import fused_gram as fg
 from predictionio_tpu_torch.ops import fused_topk as ft
+from predictionio_tpu_torch.ops import gather as gt
+from predictionio_tpu_torch.ops import pq_scan as pqs
 from predictionio_tpu_torch.ops import ridge_solve as rs
 from predictionio_tpu_torch.ops.topk import topk_mismatch
 
@@ -201,3 +203,98 @@ def test_training_on_the_card_launches_k1_k2_and_matches_plain(cuda_dev):
                                rtol=1e-3, atol=1e-4)
     np.testing.assert_allclose(got.item_factors, plain.item_factors,
                                rtol=1e-3, atol=1e-4)
+
+
+def _pq_inputs(b, s, n, seed, dev):
+    rng = np.random.default_rng(seed)
+    luts = torch.from_numpy(
+        rng.standard_normal((b, s, 256)).astype(np.float32)).to(dev)
+    codes = torch.from_numpy(
+        rng.integers(0, 256, (s, n)).astype(np.uint8)).to(dev)
+    return luts, codes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,n,k,n_valid", [
+    (1, 17, 100_003, 40, None), (3, 1, 511, 10, None), (8, 5, 1, 1, None),
+    (9, 17, 20_000, 1000, 19_000), (64, 33, 5000, 40, None),
+    (2, 65, 12_000, 4000, None), (5, 65, 3000, 300, 2999),
+])
+def test_pq_scan_matches_reference(cuda_dev, b, s, n, k, n_valid):
+    luts, codes = _pq_inputs(b, s, n, b + s + n, cuda_dev)
+    before = pqs.LAUNCHES
+    got_s, got_i = pqs.pq_scan_cuda(luts, codes, k, n_valid=n_valid)
+    torch.cuda.synchronize()
+    assert pqs.LAUNCHES == before + 1
+    n_real = n if n_valid is None else n_valid
+    ref_s, ref_i = pqs.pq_scan_reference(luts, codes, min(k + 1, n_real),
+                                         n_valid=n_valid)
+    next_s = ref_s[:, k].cpu().numpy() if ref_s.shape[1] > k else None
+    assert topk_mismatch(got_s.cpu().numpy(), got_i.cpu().numpy(),
+                         ref_s[:, :k].cpu().numpy(),
+                         ref_i[:, :k].cpu().numpy(), next_s, rtol=RTOL,
+                         atol=ATOL) is None
+    assert int(got_i.max()) < n_real
+
+
+@pytest.mark.cuda
+def test_pq_scan_ties_prefer_lower_id_and_unfilled_slots(cuda_dev):
+    """One table: every item scores one of 256 values, so scores tie;
+    the kernel ranks the lower id first.  Fewer valid items than k: the
+    tail slots read NEG_INF / -1."""
+    luts, codes = _pq_inputs(2, 1, 3000, 1, cuda_dev)
+    s, i = pqs.pq_scan_cuda(luts, codes, 3000)
+    s, i = s.cpu().numpy(), i.cpu().numpy()
+    for row in range(2):
+        assert sorted(i[row].tolist()) == list(range(3000))
+        key = np.lexsort((i[row], -s[row]))
+        assert (key == np.arange(3000)).all()
+    s, i = pqs.pq_scan_cuda(luts, codes, 10, n_valid=4)
+    s, i = s.cpu().numpy(), i.cpu().numpy()
+    assert (np.sort(i[:, :4], axis=1) == np.arange(4)).all()
+    assert (s[:, 4:] == np.float32(-3.4e38)).all() and (i[:, 4:] == -1).all()
+    with pytest.raises(TypeError, match="uint8"):
+        pqs.pq_scan(luts, codes.int(), 10)
+
+
+def _gather_inputs(i, k, r, l, seed, dev):
+    rng = np.random.default_rng(seed)
+    y = torch.from_numpy(rng.standard_normal((i, k)).astype(np.float32))
+    idx = torch.from_numpy((rng.zipf(1.25, (r, l)) % i).astype(np.int32))
+    w = torch.from_numpy(rng.random((r, l)).astype(np.float32))
+    return y.to(dev), idx.to(dev), w.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i,k,r,l", [(3000, 64, 300, 256), (500, 7, 9, 33),
+                                     (1000, 130, 20, 100), (50, 1, 3, 1),
+                                     (2000, 255, 5, 64)])
+def test_gather_sum_matches_reference(cuda_dev, i, k, r, l):
+    y, idx, _ = _gather_inputs(i, k, r, l, i + k + r + l, cuda_dev)
+    before = gt.LAUNCHES
+    got = gt.gather_sum(y, idx)
+    torch.cuda.synchronize()
+    assert gt.LAUNCHES == before + 1
+    want = gt.gather_sum_reference(y, idx)
+    abs_sum = gt.gather_sum_reference(y.abs(), idx)
+    sigma = GRAM_SIGMAS * l ** 0.5 * 2.0 ** -24
+    assert bool(((got - want).abs() <= sigma * abs_sum).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("i,k,r,l", [(3000, 64, 64, 256), (500, 10, 9, 33),
+                                     (2000, 200, 4, 64)])
+def test_gather_gram_matches_reference(cuda_dev, dtype, i, k, r, l):
+    y, idx, w = _gather_inputs(i, k, r, l, i + k + r + l, cuda_dev)
+    y = y.to(dtype)
+    before = (fg.LAUNCHES, fg.GATHER_GRAM_LAUNCHES)
+    got = fg.gather_gram(y, idx, w)
+    torch.cuda.synchronize()
+    assert (fg.LAUNCHES, fg.GATHER_GRAM_LAUNCHES) == \
+        (before[0], before[1] + 1)
+    want = fg.gather_gram_reference(y, idx, w)
+    abs_a = fg.gather_gram_reference(y.abs(), idx, w)
+    sigma = GRAM_SIGMAS * l ** 0.5 * 2.0 ** -24
+    assert bool(((got - want).abs() <= sigma * abs_a + GRAM_RTOL * want.abs())
+                .all())

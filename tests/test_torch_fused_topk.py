@@ -127,3 +127,23 @@ def test_plan_geometry(b, n, d, k):
 def test_plan_rejects_k_beyond_shared_memory():
     with pytest.raises(ValueError, match="shared memory"):
         ft.plan(1, 10 ** 6, 64, 30_000)
+
+
+def test_library_digest_covers_included_headers(tmp_path, monkeypatch):
+    """K3 and K5 share csrc/topk_select.cuh: editing the header must give
+    both libraries new names (so they rebuild) and leave the others'."""
+    import shutil
+
+    from predictionio_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    names = sorted(_build.sources())
+    assert {"fused_topk", "pq_scan", "gather_sum"} <= set(names)
+    before = {n: _build.library_path(n) for n in names}
+    header = csrc / "topk_select.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build.library_path(n) for n in names}
+    changed = {n for n in names if after[n] != before[n]}
+    assert changed == {"fused_topk", "pq_scan"}

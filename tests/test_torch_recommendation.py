@@ -296,13 +296,34 @@ def test_engine_json_binds_and_training_waits(tmp_path):
 
 
 def test_unported_structures_refused_at_load():
-    w = wrapper_from_numpy(np.zeros((2, 4)), np.zeros((3, 4)), ["a", "b"],
-                           ["x", "y", "z"], rank=4)
-    state = w.__getstate__()
-    state["ivf"] = object()
+    """A generation that carries an IVF index and PQ codes loads and
+    serves them now; at serving time they are refused (dropped, serving
+    exact) only when their fingerprint does not match the served item
+    factors."""
+    from predictionio_tpu_torch.retrieval import build_ivf, build_pq
+
+    rng = np.random.default_rng(2)
+    uf = rng.standard_normal((3, 4)).astype(np.float32)
+    itf = rng.standard_normal((400, 4)).astype(np.float32)
+    ivf = build_ivf(itf, nlist=5, force=True)
+    pq = build_pq(itf, m=2, ivf=ivf)
+    items = [f"i{j}" for j in range(400)]
+    w = wrapper_from_numpy(uf, itf, ["a", "b", "c"], items, rank=4,
+                           ivf=ivf, pq=pq)
     back = ALSModelWrapper.__new__(ALSModelWrapper)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        back.__setstate__(state)
+    back.__setstate__(pickle.loads(pickle.dumps(w.__getstate__())))
+    np.testing.assert_array_equal(back.pq.codes, pq.codes)
+    back.post_load(RuntimeContext(device=torch.device("cpu")))
+    assert back.retriever().plan(1, 10).rung == "ivf_pq"
+    answer = ALSAlgorithm().batch_predict(back, [(0, Query(user="a",
+                                                           num=5))])
+    assert len(answer[0][1].itemScores) == 5
+    stale = wrapper_from_numpy(uf, itf * 2.0, ["a", "b", "c"], items,
+                               rank=4, ivf=ivf, pq=pq)
+    stale.post_load(RuntimeContext(device=torch.device("cpu")))
+    r = stale.retriever()
+    assert r.ivf_index() is None and r.pq_codebook() is None
+    assert r.plan(1, 10).rung == "host"
 
 
 def test_server_needs_cuda_unless_cpu_is_asked(servers, monkeypatch):

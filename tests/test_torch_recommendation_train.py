@@ -12,8 +12,8 @@ The same events go into both packages' in-memory event stores.  Checks:
   ridge (λ = 1) keeps the float32 gap of five sweeps under that
   tolerance (at λ = 0.1 it reaches 2.5e-5; ``tests/test_torch_als_train.py``
   holds the sweep itself to atol 1e-4 + rtol 1e-3 there);
-- the workflow's watermark, window and FAILED status, and the refusal to
-  train where the reference would build IVF/PQ structures.
+- the workflow's watermark, window and FAILED status, and the train-time
+  IVF/PQ build policy (builds and skips as the reference's does).
 """
 
 import datetime as dt
@@ -276,26 +276,47 @@ def test_failed_train_is_recorded(tmp_path):
 
 
 def test_ivf_pq_policy_refuses_instead_of_skipping(monkeypatch):
+    """The train-time policy builds and skips as the reference's does:
+    IVF only under an explicit ``PIO_IVF=on`` at or above
+    ``PIO_IVF_MIN_ITEMS``; PQ under ``PIO_PQ`` (auto by default) at or
+    above ``PIO_PQ_MIN_ITEMS``, on top of the index when there is one.
+    Nothing is refused any more; only an empty train raises."""
+    from predictionio_tpu_torch.retrieval import IVFIndex, PQCodebook
+
+    rng = np.random.default_rng(0)
+    n_users, n_items = 30, 300
+    users = np.repeat(np.arange(n_users), 20)
+    items = rng.integers(0, n_items, len(users))
+    items[:n_items] = np.arange(n_items)       # every item rated once
+    users[:n_items] = np.arange(n_items) % n_users
     ratings = Ratings(
-        user_ids=np.array([0, 1, 1]), item_ids=np.array([0, 1, 2]),
-        ratings=np.ones(3, np.float32),
-        user_index=BiMap.string_int(["a", "b"]),
-        item_index=BiMap.string_int(["x", "y", "z"]))
+        user_ids=users, item_ids=items,
+        ratings=rng.integers(1, 6, len(users)).astype(np.float32),
+        user_index=BiMap.string_int([f"u{u}" for u in range(n_users)]),
+        item_index=BiMap.string_int([f"i{i}" for i in range(n_items)]))
     ctx = RuntimeContext(device=CPU)
-    algo = ALSAlgorithm(ALSAlgorithmParams(rank=2, numIterations=1))
-    for k in ("PIO_IVF", "PIO_IVF_MIN_ITEMS", "PIO_PQ", "PIO_PQ_MIN_ITEMS"):
+    algo = ALSAlgorithm(ALSAlgorithmParams(rank=4, numIterations=1))
+    for k in ("PIO_IVF", "PIO_IVF_MIN_ITEMS", "PIO_IVF_NLIST", "PIO_PQ",
+              "PIO_PQ_M", "PIO_PQ_MIN_ITEMS"):
         monkeypatch.delenv(k, raising=False)
-    assert algo.train(ctx, ratings).model.item_factors.shape == (3, 2)
+    w = algo.train(ctx, ratings)                # defaults: below both mins
+    assert w.model.item_factors.shape == (n_items, 4)
+    assert w.ivf is None and w.pq is None
+    monkeypatch.setenv("PIO_IVF_MIN_ITEMS", "100")
+    monkeypatch.setenv("PIO_PQ_MIN_ITEMS", "100")
+    w = algo.train(ctx, ratings)                # auto: PQ yes, IVF no
+    assert w.ivf is None and isinstance(w.pq, PQCodebook)
+    assert w.pq.n_items == n_items and w.pq.m == 1     # ~D/4 of rank 4
     monkeypatch.setenv("PIO_IVF", "on")
-    monkeypatch.setenv("PIO_IVF_MIN_ITEMS", "3")
-    with pytest.raises(NotImplementedError, match="IVF/PQ slice"):
-        algo.train(ctx, ratings)
-    monkeypatch.delenv("PIO_IVF")
-    monkeypatch.setenv("PIO_PQ_MIN_ITEMS", "2")
-    with pytest.raises(NotImplementedError, match="IVF/PQ slice"):
-        algo.train(ctx, ratings)
+    w = algo.train(ctx, ratings)
+    assert isinstance(w.ivf, IVFIndex) and isinstance(w.pq, PQCodebook)
+    assert w.ivf.nlist == 17                   # ~sqrt(300)
+    assert w.ivf.fingerprint == w.pq.fingerprint
     monkeypatch.setenv("PIO_PQ", "off")
-    algo.train(ctx, ratings)
+    w = algo.train(ctx, ratings)
+    assert isinstance(w.ivf, IVFIndex) and w.pq is None
+    monkeypatch.setenv("PIO_IVF_MIN_ITEMS", "301")   # the threshold rules
+    assert algo.train(ctx, ratings).ivf is None
     with pytest.raises(ValueError, match="No rating events"):
         algo.train(ctx, Ratings(
             user_ids=np.array([], np.int64), item_ids=np.array([], np.int64),

@@ -14,10 +14,17 @@ import torch
 from predictionio_tpu.obs import get_registry as jax_registry
 from predictionio_tpu.ops import topk as jtopk
 from predictionio_tpu.retrieval import Retriever as JaxRetriever
+from predictionio_tpu.retrieval import build_ivf as jax_build_ivf
+from predictionio_tpu.retrieval import build_pq as jax_build_pq
 from predictionio_tpu.retrieval import menu_k as jax_menu_k
 from predictionio_tpu_torch.obs import get_registry as port_registry
 from predictionio_tpu_torch.ops import topk as ttopk
-from predictionio_tpu_torch.retrieval import Retriever, menu_k
+from predictionio_tpu_torch.retrieval import (
+    Retriever,
+    build_ivf,
+    build_pq,
+    menu_k,
+)
 
 RTOL = 1e-5   # float32 sums in another order: a few ulps of the score
 ATOL = 1e-5
@@ -108,6 +115,22 @@ def corpus():
     return rng, vecs, jax_r, port_r
 
 
+@pytest.fixture(scope="module")
+def structured(corpus):
+    """The same corpus with an IVF index and PQ codes, each package's
+    own build over the real rows."""
+    _, vecs, _, _ = corpus
+    items = vecs[:_N_ITEMS]
+    jivf = jax_build_ivf(items, nlist=12, force=True)
+    jpq = jax_build_pq(items, m=4, ivf=jivf)
+    tivf = build_ivf(items, nlist=12, force=True)
+    tpq = build_pq(items, m=4, ivf=tivf)
+    return (JaxRetriever(jnp.asarray(vecs), n_items=_N_ITEMS, ivf=jivf,
+                         pq=jpq, name="parity-ivf-pq"),
+            Retriever(vecs, n_items=_N_ITEMS, ivf=tivf, pq=tpq,
+                      name="parity-ivf-pq", device="cpu"))
+
+
 @pytest.mark.parametrize("rung", ["host", "device", "chunked"])
 @pytest.mark.parametrize("b", [1, 3, 8])
 @pytest.mark.parametrize("num", [5, 10, 100])
@@ -136,19 +159,23 @@ def test_retriever_topk_matches_reference(corpus, monkeypatch, rung, b, num,
     {"PIO_RETRIEVAL_RUNG": "bogus"}, {"PIO_SERVE_HOST_MACS": "0"},
     {"PIO_SERVE_HOST_MACS": "0", "PIO_SERVE_CHUNK_ABOVE": "1000"},
 ])
-def test_plan_and_menu_agree_with_reference(corpus, monkeypatch, env):
+def test_plan_and_menu_agree_with_reference(corpus, structured, monkeypatch,
+                                            env):
+    """Each environment against the plain corpus and against the same
+    corpus carrying an IVF index and PQ codes."""
     _, _, jax_r, port_r = corpus
     for name, value in env.items():
         monkeypatch.setenv(name, value)
-    for b in (1, 3, 64):
-        for num in (0, 1, 7, 100, 5000):
-            assert menu_k(num, _N_ITEMS) == jax_menu_k(num, _N_ITEMS)
-            for has_exclude in (False, True):
-                want = jax_r.plan(b, num, has_exclude=has_exclude)
-                got = port_r.plan(b, num, has_exclude=has_exclude)
-                assert (got.rung, got.k, got.nprobe, got.rerank) == \
-                    (want.rung, want.k, want.nprobe, want.rerank), \
-                    (env, b, num, has_exclude)
+    for jr, pr in ((jax_r, port_r), structured):
+        for b in (1, 3, 64):
+            for num in (0, 1, 7, 100, 5000):
+                assert menu_k(num, _N_ITEMS) == jax_menu_k(num, _N_ITEMS)
+                for has_exclude in (False, True):
+                    want = jr.plan(b, num, has_exclude=has_exclude)
+                    got = pr.plan(b, num, has_exclude=has_exclude)
+                    assert (got.rung, got.k, got.nprobe, got.rerank) == \
+                        (want.rung, want.k, want.nprobe, want.rerank), \
+                        (pr.name, env, b, num, has_exclude)
 
 
 def test_large_catalog_routes_to_chunked_by_default():
@@ -176,11 +203,27 @@ def test_metric_families_match_reference(corpus):
 
 
 def test_retriever_refuses_unported_structures():
-    vecs = np.zeros((10, 4), np.float32)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        Retriever(vecs, ivf=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        Retriever(vecs, pq=object(), device="cpu")
+    """An IVF index and PQ codes are accepted now; a structure is refused
+    (dropped, counted, serving exact) only when its fingerprint does not
+    match the served corpus.  Only the sharded rung is still unported: a
+    forced ``sharded`` serves exact-device, as the reference does for a
+    corpus that is not mesh-sharded."""
+    rng = np.random.default_rng(4)
+    vecs = rng.standard_normal((600, 8)).astype(np.float32)
+    ivf = build_ivf(vecs, nlist=6, force=True)
+    pq = build_pq(vecs, m=2, ivf=ivf)
+    r = Retriever(vecs, ivf=ivf, pq=pq, name="accepts", device="cpu")
+    assert r.ivf_index() is ivf and r.pq_codebook() is pq
+    assert r.plan(1, 10).rung == "ivf_pq"
+    stale = Retriever(vecs + 1.0, ivf=ivf, pq=pq, name="refuses",
+                      device="cpu")
+    assert stale.ivf_index() is None and stale.pq_codebook() is None
+    assert stale.plan(1, 10).rung == "host"
+    reg = port_registry()
+    assert reg.get("pio_retrieval_ivf_rejected_total").value(
+        corpus="refuses") == 1.0
+    assert reg.get("pio_retrieval_pq_rejected_total").value(
+        corpus="accepts") == 0.0
 
 
 def test_retriever_needs_cuda_unless_cpu_is_asked(monkeypatch):
