@@ -96,7 +96,19 @@ TRAIN_ITERS = 10
 BIG_ITEMS = 4_194_304
 DASE_EVENTS, DASE_USERS, DASE_ITEMS = 300_000, 20_000, 10_000
 # Phase 3 grids: K1 over R x L x K, K2/K4 over B x K; then the timed shapes.
-GRAM_ROWS, GRAM_LENS, TRAIN_RANKS = (8, 4096), (8, 64, 1000, 4096), (10, 64, 128)
+# K1's R, L and K edges up to rank 128 (its symmetric-tile kernel): R below
+# a block's rows, L around the pipeline step (16 or 32 slots), ranks whose
+# rows are no multiple of 16 bytes and both register-tile widths; rows
+# whose every slot is padding must give exactly 0.
+GRAM_ROWS, GRAM_LENS = (1, 3, 8, 13, 4096), (1, 8, 17, 33, 64, 1000, 4096)
+TRAIN_RANKS = (10, 64, 128)
+GRAM_RANKS = (10, 17, 63, 64, 65, 100, 127, 128)
+# R large enough that a block holds several rows, its last block partial
+GRAM_MULTI_ROW = ((10_001, 9, 3), (11_111, 17, 10), (4501, 20, 33),
+                  (2001, 33, 64), (601, 50, 100), (3001, 40, 128))
+# Phase 9: T1 (K1's kernels without b) over the same edges
+T1_GRID = [(r, l, k) for r in (1, 3, 13) for l in (1, 17, 33, 4096)
+           for k in GRAM_RANKS] + list(GRAM_MULTI_ROW)
 # K1 above rank 128, where it cuts A into 2 x 2 tiles: (R, L, K)
 GRAM_TILED = ((8, 4096, 256), (512, 1000, 256), (4096, 64, 200),
               (8, 1000, 129))
@@ -186,20 +198,6 @@ def solve_cost(b: int, k: int, method: str, rs):
     read, x written; flops: the kernel's elimination count
     (``rs.solve_flops``)."""
     return b * (k * k + 2 * k + 1) * 4, b * rs.solve_flops(k, method)
-
-
-def synth_ml25m(seed: int):
-    """MovieLens-25M-shaped ratings, the repository's benchmark generator
-    (bench.py synth_ml25m, copied: bench.py imports JAX): uniform users,
-    Zipf(1.25) items, half-star ratings 0.5..5.0."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    users = rng.integers(0, ML25M_USERS, ML25M_RATINGS)
-    items = (rng.zipf(1.25, size=ML25M_RATINGS) % ML25M_ITEMS).astype(
-        np.int64)
-    ratings = (rng.integers(1, 11, ML25M_RATINGS) * 0.5).astype(np.float32)
-    return users, items, ratings
 
 
 def time_stream(fn, reps: int) -> float:
@@ -307,13 +305,16 @@ def training_kernels_phase(dev, fg, rs, card: str):
     base = torch.randn((n_fac, 256), generator=gen, device=dev)
     err = {"fused_gram": 0.0, "ridge_solve_lu": 0.0, "ridge_solve_gj": 0.0}
 
-    def gram_block(r, l):
+    def gram_block(r, l, dead=False):
         idx = torch.randint(0, n_fac, (r, l), generator=gen, device=dev,
                             dtype=torch.int32)
         w = torch.rand((r, l), generator=gen, device=dev)
         c = torch.randn((r, l), generator=gen, device=dev)
-        # ragged rows: slots past a row's degree carry index 0, w = c = 0
+        # ragged rows: slots past a row's degree carry index 0, w = c = 0;
+        # with `dead`, every fifth row is padding throughout
         deg = torch.randint(1, l + 1, (r, 1), generator=gen, device=dev)
+        if dead:
+            deg[torch.arange(r, device=dev) % 5 == 4] = 0
         tail = torch.arange(l, device=dev)[None, :] >= deg
         idx[tail] = 0
         w[tail] = 0.0
@@ -321,18 +322,23 @@ def training_kernels_phase(dev, fg, rs, card: str):
         return idx, w, c
 
     n_gram = 0
-    shapes = [(r, l, k) for k in TRAIN_RANKS for r in GRAM_ROWS
-              for l in GRAM_LENS] + list(GRAM_TILED)
+    shapes = [(r, l, k) for k in GRAM_RANKS for r in GRAM_ROWS
+              for l in GRAM_LENS] + list(GRAM_MULTI_ROW) + list(GRAM_TILED)
     for r, l, k in shapes:
         fac32 = base[:, :k].contiguous()
-        idx, w, c = gram_block(r, l)
+        idx, w, c = gram_block(r, l, dead=True)
+        dead = w.abs().sum(1) == 0
         for fac in (fac32, fac32.bfloat16()):
             a, b = fg.fused_gram_vector_cuda(fac, idx, w, c)
             torch.cuda.synchronize()
+            what = f"fused_gram R={r} L={l} K={k} {fac.dtype}"
+            if bool(a[dead].any()) or bool(b[dead].any()):
+                die(f"{what}: a row of padding gave a nonzero A or b")
+            if k <= 128 and not torch.equal(a, a.mT):
+                die(f"{what}: A is not exactly symmetric")
             ra, rb = fg.fused_gram_vector_reference(fac, idx, w, c)
             abs_a, abs_b = fg.fused_gram_vector_reference(
                 fac.abs(), idx, w.abs(), c.abs())
-            what = f"fused_gram R={r} L={l} K={k} {fac.dtype}"
             err["fused_gram"] = max(
                 err["fused_gram"],
                 assert_close(a, ra, GRAM_RTOL, gram_atol(l, abs_a), what),
@@ -361,8 +367,9 @@ def training_kernels_phase(dev, fg, rs, card: str):
             del a, rhs, reg
     log(f"phase 3 kernel: fused_gram matches its plain version in "
         f"{n_gram} cases (R in {GRAM_ROWS}, L in {GRAM_LENS}, K in "
-        f"{TRAIN_RANKS}, and (R, L, K) in {GRAM_TILED}; float32 and "
-        f"bfloat16 factors, ragged rows), max "
+        f"{GRAM_RANKS}, and (R, L, K) in {GRAM_MULTI_ROW + GRAM_TILED}; "
+        f"float32 and bfloat16 factors, ragged rows, every fifth row all "
+        f"padding and exactly 0, A exactly symmetric to K 128), max "
         f"|err| {err['fused_gram']:.3g} (rtol {GRAM_RTOL} + "
         f"{GRAM_SIGMAS}·√L·2^-24·Σ|terms|); ridge_solve lu and gj match theirs in "
         f"{n_solve} cases (B in {SOLVE_BATCHES}, K in {TRAIN_RANKS}), max "
@@ -516,8 +523,10 @@ def train_phase(dev, seed: int, als, fg, rs, card: str) -> dict:
 
     import torch
 
+    from predictionio_tpu_torch.tools.exp_gram_calls import ml25m_ratings
+
     t0 = time.perf_counter()
-    users, items, ratings = synth_ml25m(seed)
+    users, items, ratings = ml25m_ratings(seed)
     gen_s = time.perf_counter() - t0
     cfg = als.ALSConfig(rank=RANK, iterations=TRAIN_ITERS, reg=0.01,
                         solver="auto", seed=seed)
@@ -866,6 +875,25 @@ def gather_kernels_phase(dev, seed: int, mods, card: str):
     err_t1 = assert_close(a, want, GRAM_RTOL, gram_atol(l, abs_a),
                           f"gather_gram R={r} L={l} K={k}")
     del a, want, abs_a
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 9)
+    base = torch.randn((3000, max(GRAM_RANKS)), generator=gen, device=dev)
+    for r_, l_, k_ in T1_GRID:
+        ix = torch.randint(0, 3000, (r_, l_), generator=gen, device=dev,
+                           dtype=torch.int32)
+        ww = torch.rand((r_, l_), generator=gen, device=dev)
+        fac32 = base[:, :k_].contiguous()
+        for fac in (fac32, fac32.bfloat16()):
+            what = f"gather_gram R={r_} L={l_} K={k_} {fac.dtype}"
+            a = fg.gather_gram_cuda(fac, ix, ww)
+            torch.cuda.synchronize()
+            if not torch.equal(a, a.mT):
+                die(f"{what}: A is not exactly symmetric")
+            want = fg.gather_gram_reference(fac, ix, ww)
+            abs_a = fg.gather_gram_reference(fac.abs(), ix, ww)
+            err_t1 = max(err_t1, assert_close(
+                a, want, GRAM_RTOL, gram_atol(l_, abs_a), what))
+    del base, a, want, abs_a
     out = gt.gather_sum_cuda(y, idx)
     torch.cuda.synchronize()
     want = gt.gather_sum_reference(y, idx)
@@ -875,7 +903,11 @@ def gather_kernels_phase(dev, seed: int, mods, card: str):
     del out, want, abs_s
     log(f"phase 9 kernel: gather_gram (T1) and gather_sum (T2) match their "
         f"plain versions at I {i_rows}, K {k}, R {r}, L {l} (Zipf(1.25) "
-        f"indices, seed {seed}); max |err| T1 {err_t1:.3g} (rtol "
+        f"indices, seed {seed}), and T1 also at {len(T1_GRID)} shapes (R "
+        f"in (1, 3, 13), L in (1, 17, 33, 4096), K in {GRAM_RANKS}, and "
+        f"(R, L, K) in {GRAM_MULTI_ROW}) with float32 and bfloat16 "
+        f"factors, A exactly symmetric; max "
+        f"|err| T1 {err_t1:.3g} (rtol "
         f"{GRAM_RTOL} + {GRAM_SIGMAS}·√L·2^-24·Σ|terms|), T2 {err_t2:.3g} "
         f"({GRAM_SIGMAS}·√L·2^-24·Σ|terms|)")
 
@@ -1212,12 +1244,21 @@ def main() -> int:
     log(f"phase 1 device: {card} | {kind} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | built {sorted(built)} in {build_s:.2f} s "
         f"(parallel nvcc; per source {json.dumps(built)})")
+    spilled = []
     for name in built:
         rep = _build.library_path(name).with_name(
             _build.library_path(name).name + ".log").read_text()
+        kernel = "?"
         for line in rep.splitlines():
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1] if "'" in line else line.strip()
             if "registers" in line or "spill" in line:
                 log(f"  {name} ptxas: {line.strip()}")
+            if "spill" in line and not line.strip().endswith(
+                    "0 bytes spill stores, 0 bytes spill loads"):
+                spilled.append(f"{name}: {kernel}: {line.strip()}")
+    log("phase 1 ptxas: " + ("no kernel spills registers" if not spilled
+                             else f"spills in {spilled}"))
     set_float32_precision()
     dev = torch.device("cuda")
 

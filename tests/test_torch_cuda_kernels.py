@@ -127,13 +127,24 @@ def _gram_inputs(r, l, k, n, seed, dtype):
         torch.from_numpy(c)
 
 
+# K1's edges up to rank 128 (one symmetric-tile kernel): R below, at and
+# past a block's rows, L around the 16-slot pipeline step, odd ranks
+# (rows of no 16-byte width) and both register-tile widths; then R large
+# enough that a block holds several rows and the last block is partial.
+GRAM_EDGES = [(r, l, k) for r in (1, 3, 13) for l in (1, 17, 33, 4096)
+              for k in (10, 17, 63, 65, 100, 127, 128)]
+GRAM_MULTI_ROW = [(10_001, 9, 3), (11_111, 17, 10), (5003, 8, 17),
+                  (4501, 20, 33), (2001, 33, 64), (601, 50, 100),
+                  (3001, 40, 128)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("r,l,k", [(1, 8, 3), (8, 8, 10), (8, 64, 64),
                                    (37, 1000, 64), (8, 4096, 128),
                                    (300, 200, 17), (5, 33, 100),
                                    (16, 1000, 129), (7, 300, 200),
-                                   (3, 64, 256)])
+                                   (3, 64, 256)] + GRAM_EDGES + GRAM_MULTI_ROW)
 def test_fused_gram_matches_reference(cuda_dev, r, l, k, dtype):
     args = [t.to(cuda_dev) for t in _gram_inputs(r, l, k, 3000, r + l + k,
                                                  dtype)]
@@ -150,6 +161,38 @@ def test_fused_gram_matches_reference(cuda_dev, r, l, k, dtype):
                 .all())
     assert bool(((b - rb).abs() <= sigma * abs_b + GRAM_RTOL * rb.abs())
                 .all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,l,k", [(5, 17, 10), (2001, 33, 64),
+                                   (13, 64, 128), (9, 40, 200)])
+def test_fused_gram_padding_rows_are_exact_zero(cuda_dev, r, l, k, dtype):
+    """Rows whose every slot is padding (index 0, w = c = 0) give A = 0
+    and b = 0 exactly, beside rows that are not."""
+    fac, idx, w, c = [t.to(cuda_dev) for t in _gram_inputs(r, l, k, 3000,
+                                                           r + l, dtype)]
+    dead = torch.arange(r, device=cuda_dev) % 3 == 1
+    idx[dead], w[dead], c[dead] = 0, 0.0, 0.0
+    a, b = fg.fused_gram_vector(fac, idx, w, c)
+    torch.cuda.synchronize()
+    assert bool((a[dead] == 0).all()) and bool((b[dead] == 0).all())
+    assert bool((a[~dead].abs().sum((1, 2)) > 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [3, 10, 17, 32, 33, 63, 64, 65, 100, 127, 128])
+def test_gram_a_is_exactly_symmetric(cuda_dev, k, dtype):
+    """Up to rank 128 K1 and T1 compute the tiles on or above A's
+    diagonal and write each with its transpose: A equals Aᵀ bitwise."""
+    fac, idx, w, c = [t.to(cuda_dev) for t in _gram_inputs(700, 37, k, 3000,
+                                                           k, dtype)]
+    a, _ = fg.fused_gram_vector(fac, idx, w, c)
+    a1 = fg.gather_gram(fac, idx, w)
+    torch.cuda.synchronize()
+    assert torch.equal(a, a.mT) and torch.equal(a1, a1.mT)
+    assert torch.equal(a, a1)
 
 
 def _spd(b, k, seed, dev):
@@ -284,7 +327,10 @@ def test_gather_sum_matches_reference(cuda_dev, i, k, r, l):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("i,k,r,l", [(3000, 64, 64, 256), (500, 10, 9, 33),
-                                     (2000, 200, 4, 64)])
+                                     (2000, 200, 4, 64), (3000, 17, 13, 1),
+                                     (3000, 63, 3, 4096),
+                                     (3000, 128, 2001, 33),
+                                     (3000, 65, 11_111, 17)])
 def test_gather_gram_matches_reference(cuda_dev, dtype, i, k, r, l):
     y, idx, w = _gather_inputs(i, k, r, l, i + k + r + l, cuda_dev)
     y = y.to(dtype)
