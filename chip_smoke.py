@@ -15,9 +15,12 @@ cannot be imported, or when any phase fails.  Phases, in order:
    version on the card (float32, TF32 off), then CUDA-event timings of
    kernel, plain version, one library call as a yardstick, and the least
    time the card could take (bound).
-3. kernel  — the training kernels, fused gram (K1), LU solve (K2) and
-   Gauss-Jordan solve (K4), against their plain versions over a grid of
-   shapes, then timed as in phase 2 at representative shapes.
+3. kernel  — the training kernels, fused gram (K1), the ridge solve (K2:
+   Cholesky with the system in registers to rank 64, the shared-memory
+   LU above) and Gauss-Jordan solve (K4), against their plain versions
+   over a grid of shapes (K2 also against a float64 solve, with exactly
+   symmetric A), then timed as in phase 2 at representative shapes, K2
+   beside the shared-memory LU kernel it replaced.
 4. serve   — the ALS recommendation template at the MovieLens-25M shape
    (162,541 users x 59,047 items, rank 64, seeded random factors) carried
    in with wrapper_from_numpy, persisted, deployed on an EngineServer
@@ -28,13 +31,15 @@ cannot be imported, or when any phase fails.  Phases, in order:
    own thresholds must pick the chunked rung; 8 queries, checked as in 4.
 6. train   — ALS training at the MovieLens-25M shape (25,000,000 seeded
    ratings, rank 64, reg 0.01, 10 iterations, solver "auto"): host prep
-   time, ms per iteration, ratings/s, final RMSE, and the K1/K2 launches
+   time and the factor init's share of it, the dead rows (index -1) of the uploaded chunks, now and as
+   they were before the last row chunk of a plain bucket was trimmed,
+   ms per iteration, ratings/s, final RMSE, and the K1/K2 launches
    of the run; one iteration from the same init with the plain versions
    must agree with the kernels' iteration; a solver="gj" iteration must
    launch K4; then each training kernel timed over the calls that the
    first iteration made (their own arguments, kept as the run made
    them) against its plain version, its library yardstick and its
-   bound.
+   bound, K2 also beside the shared-memory LU kernel.
 7. dase    — seeded rate/buy events in the port's in-memory event store
    → run_train with the template's engine.json at rank 64 → the
    COMPLETED instance deployed on an EngineServer → 16 /queries.json,
@@ -112,9 +117,17 @@ T1_GRID = [(r, l, k) for r in (1, 3, 13) for l in (1, 17, 33, 4096)
 # K1 above rank 128, where it cuts A into 2 x 2 tiles: (R, L, K)
 GRAM_TILED = ((8, 4096, 256), (512, 1000, 256), (4096, 64, 200),
               (8, 1000, 129))
-SOLVE_BATCHES = (1, 127, 128, 131_072)
-GRAM_TIMED = ((4096, 64, 64), (4096, 1000, 64), (4096, 64, 256))  # (R, L, K)
-SOLVE_TIMED = 131_072                      # B at rank 64
+SOLVE_BATCHES = (1, 127, 128, 131_072)     # K4, at TRAIN_RANKS
+# K2: every compiled size (one thread a system: KP 4, 8, 12, 16; one warp:
+# 32, 64), the identity padding below each, the shared-memory LU above
+# 64; B around a 32-system tile and a 4-warp block.
+LU_BATCHES = (1, 31, 32, 33, 127, 128, 131_072)
+LU_RANKS = (1, 2, 10, 16, 17, 32, 33, 63, 64, 65, 100, 128)
+EXACT_CHUNK = 16_384        # systems a float64 reference solve takes
+# (R, L, K); rank 10 is what every shipped engine.json trains at
+GRAM_TIMED = ((4096, 64, 64), (4096, 1000, 64), (4096, 64, 256),
+              (4096, 64, 10), (4096, 1000, 10))
+SOLVE_TIMED = ((131_072, 64), (131_072, 10))   # K2 (B, K); K4 the first
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 SMEM_BANKS = 32             # 4-byte shared-memory banks per SM, one access
@@ -191,13 +204,6 @@ def gram_cost(r: int, l: int, k: int, n: int, elem: int = 4):
     R·L·(K(K+1) + 3K)."""
     return (r * l * 12 + n * k * elem + r * k * (k + 1) * 4,
             float(r * l * (k * (k + 1) + 3 * k)))
-
-
-def solve_cost(b: int, k: int, method: str, rs):
-    """K2/K4 on B rank-k systems: (bytes, flops).  Bytes: A, b and reg
-    read, x written; flops: the kernel's elimination count
-    (``rs.solve_flops``)."""
-    return b * (k * k + 2 * k + 1) * 4, b * rs.solve_flops(k, method)
 
 
 def time_stream(fn, reps: int) -> float:
@@ -286,6 +292,22 @@ def scaled(rel: float, want) -> float:
     return rel * float(want.abs().max()) if want.numel() else 0.0
 
 
+def exact_solve(a, b, reg):
+    """(A + diag(reg)) x = b by ``torch.linalg.solve`` in float64, in
+    chunks of EXACT_CHUNK systems; x as float32."""
+    import torch
+
+    k = a.shape[-1]
+    eye = torch.eye(k, dtype=torch.float64, device=a.device)
+    out = torch.empty_like(b)
+    for i in range(0, a.shape[0], EXACT_CHUNK):
+        sl = slice(i, i + EXACT_CHUNK)
+        out[sl] = torch.linalg.solve(
+            a[sl].double() + reg[sl].double()[:, None, None] * eye,
+            b[sl].double()[..., None])[..., 0].float()
+    return out
+
+
 def gram_atol(l: int, abs_sum):
     """K1's absolute tolerance per entry: GRAM_SIGMAS standard deviations
     of the rounding of a float32 sum of ``l`` terms whose magnitudes sum
@@ -345,35 +367,58 @@ def training_kernels_phase(dev, fg, rs, card: str):
                 assert_close(b, rb, GRAM_RTOL, gram_atol(l, abs_b), what))
             del a, b, ra, rb, abs_a, abs_b
             n_gram += 1
-    n_solve = 0
+    def spd(bsz, k):
+        m = torch.randn((bsz, k, 16), generator=gen, device=dev)
+        a = (m @ m.mT) / 16
+        del m
+        a = (a + a.mT) / 2                  # exactly symmetric
+        rhs = torch.randn((bsz, k), generator=gen, device=dev)
+        reg = 0.05 * torch.randint(1, 40, (bsz,), generator=gen,
+                                   device=dev).float()
+        return a, rhs, reg
+
+    n_lu = 0
+    err["ridge_solve_lu_f64"] = 0.0
+    for k in LU_RANKS:
+        for bsz in LU_BATCHES:
+            a, rhs, reg = spd(bsz, k)
+            x = rs.ridge_solve_cuda(a, rhs, reg, "lu")
+            torch.cuda.synchronize()
+            what = f"ridge_solve_lu B={bsz} K={k}"
+            want = rs.ridge_solve_lu_reference(a, rhs, reg)
+            err["ridge_solve_lu"] = max(err["ridge_solve_lu"], assert_close(
+                x, want, SOLVE_RTOL, scaled(SOLVE_ATOL, want), what))
+            exact = exact_solve(a, rhs, reg)
+            err["ridge_solve_lu_f64"] = max(
+                err["ridge_solve_lu_f64"], assert_close(
+                    x, exact, SOLVE_RTOL, scaled(SOLVE_ATOL, exact),
+                    what + " vs float64"))
+            n_lu += 1
+            del a, rhs, reg, x, want, exact
+    n_gj = 0
     for k in TRAIN_RANKS:
         for bsz in SOLVE_BATCHES:
-            m = torch.randn((bsz, k, 16), generator=gen, device=dev)
-            a = (m @ m.mT) / 16
-            del m
-            rhs = torch.randn((bsz, k), generator=gen, device=dev)
-            reg = 0.05 * torch.randint(1, 40, (bsz,), generator=gen,
-                                       device=dev).float()
-            for method, plain in (("lu", rs.ridge_solve_lu_reference),
-                                  ("gj", rs.ridge_solve_gj_reference)):
-                x = rs.ridge_solve_cuda(a, rhs, reg, method)
-                torch.cuda.synchronize()
-                name = f"ridge_solve_{method}"
-                want = plain(a, rhs, reg)
-                err[name] = max(err[name], assert_close(
-                    x, want, SOLVE_RTOL, scaled(SOLVE_ATOL, want),
-                    f"{name} B={bsz} K={k}"))
-                n_solve += 1
-            del a, rhs, reg
+            a, rhs, reg = spd(bsz, k)
+            x = rs.ridge_solve_cuda(a, rhs, reg, "gj")
+            torch.cuda.synchronize()
+            want = rs.ridge_solve_gj_reference(a, rhs, reg)
+            err["ridge_solve_gj"] = max(err["ridge_solve_gj"], assert_close(
+                x, want, SOLVE_RTOL, scaled(SOLVE_ATOL, want),
+                f"ridge_solve_gj B={bsz} K={k}"))
+            n_gj += 1
+            del a, rhs, reg, x, want
     log(f"phase 3 kernel: fused_gram matches its plain version in "
         f"{n_gram} cases (R in {GRAM_ROWS}, L in {GRAM_LENS}, K in "
         f"{GRAM_RANKS}, and (R, L, K) in {GRAM_MULTI_ROW + GRAM_TILED}; "
         f"float32 and bfloat16 factors, ragged rows, every fifth row all "
         f"padding and exactly 0, A exactly symmetric to K 128), max "
         f"|err| {err['fused_gram']:.3g} (rtol {GRAM_RTOL} + "
-        f"{GRAM_SIGMAS}·√L·2^-24·Σ|terms|); ridge_solve lu and gj match theirs in "
-        f"{n_solve} cases (B in {SOLVE_BATCHES}, K in {TRAIN_RANKS}), max "
-        f"|err| lu {err['ridge_solve_lu']:.3g}, gj "
+        f"{GRAM_SIGMAS}·√L·2^-24·Σ|terms|); ridge_solve lu (K2) matches "
+        f"its plain version and a float64 solve in {n_lu} cases (B in "
+        f"{LU_BATCHES}, K in {LU_RANKS}, A exactly symmetric), max |err| "
+        f"{err['ridge_solve_lu']:.3g} and {err['ridge_solve_lu_f64']:.3g}; "
+        f"gj (K4) matches its plain version in {n_gj} cases (B in "
+        f"{SOLVE_BATCHES}, K in {TRAIN_RANKS}), max |err| "
         f"{err['ridge_solve_gj']:.3g} (rtol {SOLVE_RTOL} + "
         f"{SOLVE_ATOL}·max|x|)")
 
@@ -396,29 +441,33 @@ def training_kernels_phase(dev, fg, rs, card: str):
              "library": "torch.bmm(fw^T, f) on the pre-gathered block",
              "card": card, **row}))
         del f, fw
-    bsz, k = SOLVE_TIMED, RANK
-    m = torch.randn((bsz, k, 16), generator=gen, device=dev)
-    a = (m @ m.mT) / 16
-    del m
-    rhs = torch.randn((bsz, k), generator=gen, device=dev)
-    reg = 0.05 * torch.randint(1, 40, (bsz,), generator=gen,
-                               device=dev).float()
-    a_reg = a + torch.diag_embed(reg[:, None].expand(bsz, k))
-    lib = time_single(lambda: torch.cholesky_solve(
-        rhs[..., None], torch.linalg.cholesky(a_reg)), 10)
-    for method, plain in (("lu", rs.ridge_solve_lu_reference),
-                          ("gj", rs.ridge_solve_gj_reference)):
-        bnd = Bound().add(*solve_cost(bsz, k, method, rs))
-        row = {"kernel_ms": time_single(
-                   lambda: rs.ridge_solve_cuda(a, rhs, reg, method), 10),
-               "plain_ms": time_single(lambda: plain(a, rhs, reg), 3,
-                                       warmup=1, spin=20 * SPIN_CYCLES),
-               "library_ms": lib, "bound_ms": bnd.ms, "bound_by": bnd.by}
-        row["share_of_bound"] = bnd.ms / row["kernel_ms"]
-        log("phase 3 timing: " + json.dumps(
-            {"kernel": f"ridge_solve_{method}", "B": bsz, "K": k,
-             "library": "torch.linalg.cholesky + torch.cholesky_solve on "
-                        "A + diag(reg)", "card": card, **row}))
+    for n_timed, (bsz, k) in enumerate(SOLVE_TIMED):
+        a, rhs, reg = spd(bsz, k)
+        a_reg = a + torch.diag_embed(reg[:, None].expand(bsz, k))
+        lib = time_single(lambda: torch.cholesky_solve(
+            rhs[..., None], torch.linalg.cholesky(a_reg)), 10)
+        del a_reg
+        methods = [("lu", rs.ridge_solve_lu_reference)]
+        if n_timed == 0:
+            methods.append(("gj", rs.ridge_solve_gj_reference))
+        for method, plain in methods:
+            bnd = Bound().add(*rs.solve_cost(bsz, k, method))
+            row = {"kernel_ms": time_single(
+                       lambda: rs.ridge_solve_cuda(a, rhs, reg, method), 10),
+                   "plain_ms": time_single(lambda: plain(a, rhs, reg), 3,
+                                           warmup=1, spin=20 * SPIN_CYCLES),
+                   "library_ms": lib, "bound_ms": bnd.ms,
+                   "bound_by": bnd.by}
+            if method == "lu":
+                row["shared_lu_ms"] = time_single(
+                    lambda: rs.ridge_solve_cuda(a, rhs, reg, "lu_shared"),
+                    10)
+            row["share_of_bound"] = bnd.ms / row["kernel_ms"]
+            log("phase 3 timing: " + json.dumps(
+                {"kernel": f"ridge_solve_{method}", "B": bsz, "K": k,
+                 "library": "torch.linalg.cholesky + torch.cholesky_solve "
+                            "on A + diag(reg)", "card": card, **row}))
+        del a, rhs, reg
     return err
 
 
@@ -469,7 +518,8 @@ class recorded_calls(swapped_routes):
 def iteration_kernel_times(calls: recorded_calls, fg, rs):
     """Each training kernel timed over the recorded calls of one ALS
     iteration, on their own arguments: the kernel, its plain version,
-    its library yardstick and its bound, summed over the calls.  K4 is
+    its library yardstick and its bound, summed over the calls; K2 also
+    the shared-memory LU kernel it replaced ("shared_lu_ms").  K4 is
     timed on K2's arguments (``solver="gj"`` makes the same calls).
     Returns {kernel name: row}."""
     import torch
@@ -477,6 +527,7 @@ def iteration_kernel_times(calls: recorded_calls, fg, rs):
     rows = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                 "bound": Bound(), "calls": 0}
             for n in ("fused_gram", "ridge_solve_lu", "ridge_solve_gj")}
+    rows["ridge_solve_lu"]["shared_lu_ms"] = 0.0
     long_spin = 20 * SPIN_CYCLES        # plain versions: many launches each
     row = rows["fused_gram"]
     for args in calls.gram:
@@ -506,10 +557,14 @@ def iteration_kernel_times(calls: recorded_calls, fg, rs):
             row = rows[f"ridge_solve_{method}"]
             row["ms"] += time_single(
                 lambda: rs.ridge_solve_cuda(a, b, reg, method), 3, warmup=1)
+            if method == "lu":
+                row["shared_lu_ms"] += time_single(
+                    lambda: rs.ridge_solve_cuda(a, b, reg, "lu_shared"), 3,
+                    warmup=1)
             row["plain_ms"] += time_single(lambda: plain(a, b, reg), 1,
                                            warmup=1, spin=long_spin)
             row["library_ms"] += lib
-            row["bound"].add(*solve_cost(a.shape[0], k, method, rs))
+            row["bound"].add(*rs.solve_cost(a.shape[0], k, method))
             row["calls"] += 1
     for row in rows.values():
         bnd = row.pop("bound")
@@ -523,7 +578,8 @@ def train_phase(dev, seed: int, als, fg, rs, card: str) -> dict:
 
     import torch
 
-    from predictionio_tpu_torch.tools.exp_gram_calls import ml25m_ratings
+    from predictionio_tpu_torch.tools.exp_gram_calls import (
+        dead_rows, ml25m_ratings)
 
     t0 = time.perf_counter()
     users, items, ratings = ml25m_ratings(seed)
@@ -539,7 +595,16 @@ def train_phase(dev, seed: int, als, fg, rs, card: str) -> dict:
                                     ML25M_ITEMS, cfg, device=dev)
     torch.cuda.synchronize()
     prep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()                # the init alone, drawn again
+    als._init_factors(ML25M_USERS, ML25M_ITEMS, RANK, seed)
+    init_s = time.perf_counter() - t0
     n_chunks = (len(inputs.user_buckets), len(inputs.item_buckets))
+    dead = {side: dead_rows(chunks, RANK, cfg.max_block_floats)
+            for side, chunks in (("user", inputs.user_buckets),
+                                 ("item", inputs.item_buckets))}
+    log("phase 6 dead rows (index -1; 'untrimmed': with each plain "
+        "bucket's last row chunk padded to the full chunk, as before the "
+        "trim): " + json.dumps(dead))
     n_merged = sum(c.kind == "merged" for c in inputs.item_buckets)
     one = dataclasses.replace(cfg, iterations=1)
     t0 = time.perf_counter()
@@ -599,7 +664,9 @@ def train_phase(dev, seed: int, als, fg, rs, card: str) -> dict:
     log(f"phase 6 train: ML-25M shape {ML25M_USERS}x{ML25M_ITEMS}, "
         f"{ML25M_RATINGS} ratings (made in {gen_s:.1f} s), rank {RANK}, "
         f"reg 0.01, solver auto -> {statics['solver']}: host prep + "
-        f"upload {prep_s:.2f} s ({n_chunks[0]} user / {n_chunks[1]} item "
+        f"upload {prep_s:.2f} s, of which the factor init (threefry "
+        f"normals on the host, {ML25M_USERS + ML25M_ITEMS} x {RANK}) "
+        f"{init_s:.3f} s ({n_chunks[0]} user / {n_chunks[1]} item "
         f"chunks, {n_merged} split); first iteration (its calls recorded) "
         f"{first_s * 1e3:.1f} ms; "
         f"{TRAIN_ITERS} iterations {wall_s:.3f} s = {ms_iter:.2f} ms/iter "

@@ -39,6 +39,7 @@ import torch
 from predictionio_tpu_torch.device import device as resolve_device
 from predictionio_tpu_torch.ops import fused_gram as fg
 from predictionio_tpu_torch.ops import ridge_solve as rs
+from predictionio_tpu_torch.ops import threefry
 from predictionio_tpu_torch.ops.linalg import batched_ridge_solve, gram
 from predictionio_tpu_torch.ops.ragged import (
     LEN_ALIGN,
@@ -132,20 +133,21 @@ _GRAM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def _init_factors(n_users: int, n_items: int, k: int, seed: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Seeded scaled-normal factor init (MLlib: normal / √k).
+    """Seeded scaled-normal factor init (MLlib: normal / √k): the
+    reference's draw, made without JAX.
 
-    Drawn on the CPU from one ``torch.Generator`` seeded with ``seed``
-    (users first, then items), so the same seed gives the same start on
-    the CPU and on the card.  The reference draws from JAX's threefry,
-    so the two packages start from different factors; the parity tests
-    hand both the reference's init.
+    The key of ``seed`` is split in two, and each half draws a float32
+    normal block, users then items, as ``jax.random`` does
+    (:mod:`~predictionio_tpu_torch.ops.threefry`).  The bits are JAX's
+    exactly and the factors within a few float32 ulps of the
+    reference's (another ``log1p`` inside erfinv).  Drawn on the host
+    as CPU tensors, so the card starts from the same factors.
     """
-    gen = torch.Generator(device="cpu")
-    gen.manual_seed(int(seed))
-    scale = torch.tensor(np.sqrt(k).astype(np.float32))
-    uf = torch.randn((n_users, k), generator=gen, dtype=torch.float32)
-    itf = torch.randn((n_items, k), generator=gen, dtype=torch.float32)
-    return uf / scale, itf / scale
+    ku, ki = threefry.split(threefry.seed_key(seed))
+    scale = np.sqrt(k).astype(np.float32)
+    uf = threefry.normal(ku, (n_users, k)) / scale
+    itf = threefry.normal(ki, (n_items, k)) / scale
+    return torch.from_numpy(uf), torch.from_numpy(itf)
 
 
 def _resolve_gram_dtype(gram_dtype: str) -> str:
@@ -318,9 +320,12 @@ def _upload(kind: str, idx, vals, msk, ids, device: torch.device,
 def _device_buckets(buckets: List[Padded], rank: int, max_block_floats: int,
                     pad_rows: int, device: torch.device) -> List[_Chunk]:
     """Upload padded buckets, splitting any whose gathered [R, L, K]
-    block would exceed ``max_block_floats`` into fixed-shape row chunks
-    (the last chunk row-padded with row_id = -1, which the scatter
-    drops).  Host loop; index blocks go up as int32, once."""
+    block would exceed ``max_block_floats`` into row chunks of
+    ``rows_max`` rows; the last chunk is row-padded (row_id = -1, which
+    the scatter drops) only up to a multiple of ``pad_rows``, as
+    :func:`_chunk_split_bucket` pads, so K1 and K2 do no work on rows
+    that exist only to fill a chunk.  Host loop; index blocks go up as
+    int32, once."""
     out: List[_Chunk] = []
     for p in buckets:
         if p.split:
@@ -337,7 +342,7 @@ def _device_buckets(buckets: List[Padded], rank: int, max_block_floats: int,
             sl = slice(start, start + rows_max)
             idx, vals = p.indices[sl], p.values[sl]
             msk, rid = p.mask[sl], p.row_ids[sl]
-            short = rows_max - idx.shape[0] if r > rows_max else 0
+            short = (-idx.shape[0]) % pad_rows
             if short:
                 idx = np.pad(idx, ((0, short), (0, 0)))
                 vals = np.pad(vals, ((0, short), (0, 0)))
@@ -385,9 +390,8 @@ def prepare_als_inputs(
     dev = resolve_device(device)
     k = config.rank
     pad_rows = LEN_ALIGN
-    uf, itf = _init_factors(n_users, n_items, k, config.seed)
-    uf = torch.as_tensor(uf, dtype=torch.float32).to(dev)
-    itf = torch.as_tensor(itf, dtype=torch.float32).to(dev)
+    uf, itf = (t.to(dev) for t in _init_factors(n_users, n_items, k,
+                                                  config.seed))
 
     def side(rows, cols, n_rows):
         return _device_buckets(

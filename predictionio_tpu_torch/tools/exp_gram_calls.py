@@ -1,7 +1,8 @@
-"""K1 on the calls of one ALS iteration at the MovieLens-25M shape, and the
-shared-memory read costs its tile layout rests on, on the card.
+"""K1 and K2 on the calls of one ALS iteration at the MovieLens-25M shape,
+and the shared-memory read costs K1's tile layout rests on, on the card.
 
-    python -m predictionio_tpu_torch.tools.exp_gram_calls [calls] [smem]
+    python -m predictionio_tpu_torch.tools.exp_gram_calls \
+        [calls] [solve] [designs] [smem]
 
 ``calls`` makes 25,000,000 ratings shaped like MovieLens-25M (the
 repository's benchmark generator: uniform users, Zipf(1.25) items,
@@ -12,6 +13,27 @@ on the pre-gathered block, the yardstick ``chip_smoke.py`` uses (the
 gather is not timed).  One row per call (R, L and both times, median of
 three single calls between CUDA events), then the sums.
 
+``solve`` records the K2 calls of the same iteration (one per bucket
+chunk, users then items) and times each under K2 (``ridge_solve_cuda``
+"lu": the Cholesky kernels with the system in registers), the
+shared-memory LU kernel ("lu_shared"), and ``torch.linalg.cholesky`` +
+``torch.cholesky_solve`` on ``A + diag(reg)`` (the yardstick; building
+``A + diag(reg)`` is not timed), beside the call's bound: the larger of
+its bytes over 3.35 TB/s and its flops over 67 TFLOP/s, as
+``ridge_solve.solve_cost`` counts them (A's lower triangle by 32-byte
+sectors, b and reg read, x written; the Cholesky flops).  It prints the
+dead rows of the chunks first (rows of padding, index -1, that K1 and K2
+still compute), then one row per call, then the sums by kind of bucket
+and in all.
+
+``designs`` times K2's register designs against each other at small
+ranks: 131,072 systems at each rank of ``DESIGN_RANKS``, then the
+recorded K2 calls of one rank-10 iteration at the same ML-25M shape
+(the rank every shipped ``engine.json`` trains at), each under K2 by
+rank (one thread a system, padded to the next of 4, 8, 12, 16), one
+thread a system padded to 16 (``"chol_thread16"``) and one warp a
+system (``"chol_warp"``), beside the bound.
+
 ``smem`` builds a small CUDA kernel with nvcc that streams 16-byte
 shared-memory reads (``LDS.128``, 64 warps an SM) in eight address
 patterns and prints each pattern's cost in SM cycles per warp-wide read,
@@ -21,6 +43,7 @@ at the maximum SM clock ``nvidia-smi`` reports.
 from __future__ import annotations
 
 import ctypes
+import json
 import subprocess
 import sys
 from typing import Callable, List, Optional
@@ -31,10 +54,16 @@ import torch
 from predictionio_tpu_torch.models import als
 from predictionio_tpu_torch.ops import _build
 from predictionio_tpu_torch.ops import fused_gram as fg
+from predictionio_tpu_torch.ops import ridge_solve as rs
+from predictionio_tpu_torch.ops.ragged import LEN_ALIGN
 from predictionio_tpu_torch.tools import require_cuda
 
 USERS, ITEMS, RATINGS = 162_541, 59_047, 25_000_000
-SECTIONS = ("calls", "smem")
+RANK = 64
+SECTIONS = ("calls", "solve", "designs", "smem")
+DESIGN_RANKS = (2, 4, 8, 10, 12, 16)
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
+FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 
 SMEM_SOURCE = r"""
 #include <cuda_runtime.h>
@@ -103,30 +132,93 @@ def ml25m_ratings(seed: int = 0):
     return users, items, ratings
 
 
-def recorded_gram_calls(dev: torch.device) -> List[tuple]:
-    """(factors, indices, w, c) of every K1 call of one rank-64 iteration."""
-    users, items, ratings = ml25m_ratings()
-    cfg = als.ALSConfig(rank=64, iterations=1, reg=0.01, solver="auto",
-                        seed=0)
-    inputs = als.prepare_als_inputs(users, items, ratings, USERS, ITEMS, cfg,
-                                    device=dev)
-    calls, route = [], fg.fused_gram_vector
+def ml25m_inputs(dev: torch.device, seed: int = 0, rank: int = RANK):
+    """(config, uploaded inputs) of the ML-25M training run (rank 64
+    unless asked)."""
+    users, items, ratings = ml25m_ratings(seed)
+    cfg = als.ALSConfig(rank=rank, iterations=1, reg=0.01, solver="auto",
+                        seed=seed)
+    return cfg, als.prepare_als_inputs(users, items, ratings, USERS, ITEMS,
+                                       cfg, device=dev)
 
-    def recording(*args):
-        calls.append(tuple(t.clone() for t in args))
-        return route(*args)
 
-    fg.fused_gram_vector = recording
+def bucket_kinds(inputs) -> List[str]:
+    """The kind of bucket of each chunk, in the sweep's order (users, then
+    items): one K1 call and one K2 call each."""
+    return (["user"] * len(inputs.user_buckets)
+            + [f"{c.kind} item" for c in inputs.item_buckets])
+
+
+def recorded_calls(cfg, inputs):
+    """The K1 calls (factors, indices, w, c) and the K2 calls (a, b, reg)
+    of one iteration over ``inputs``, and the kind of bucket of each
+    chunk."""
+    gram, solve = [], []
+    routes = fg.fused_gram_vector, rs.ridge_solve_lu
+
+    def recording(calls, route):
+        def call(*args):
+            calls.append(tuple(t.clone() for t in args))
+            return route(*args)
+        return call
+
+    fg.fused_gram_vector = recording(gram, routes[0])
+    rs.ridge_solve_lu = recording(solve, routes[1])
     try:
         als.train_als_prepared(inputs, cfg)
     finally:
-        fg.fused_gram_vector = route
-    torch.cuda.synchronize()
-    return calls
+        fg.fused_gram_vector, rs.ridge_solve_lu = routes
+    if inputs.uf0.device.type == "cuda":
+        torch.cuda.synchronize()
+    return gram, solve, bucket_kinds(inputs)
+
+
+def dead_rows(chunks, rank: int, max_block_floats: int,
+              pad_rows: int = LEN_ALIGN) -> dict:
+    """Rows of padding (id -1) in uploaded chunks, which K1 and K2 still
+    compute: K1's gathered slots in them and K2's systems, now and as
+    they were when a bucket's last row chunk was padded up to the full
+    chunk (``rows_max``).  Only plain buckets changed: a split bucket's
+    chunks were already cut to a multiple of ``pad_rows``."""
+    out = {"k1_slots": 0, "k1_dead_slots": 0, "k2_rows": 0,
+           "k2_dead_rows": 0}
+    by_len = {}
+    for c in chunks:
+        r, l = c.indices.shape
+        solved = c.n_seg if c.kind == "merged" else r
+        live = len(c.keep)
+        dead_k1 = (int((c.seg_ids == c.n_seg).sum()) if c.kind == "merged"
+                   else r - live)
+        out["k1_slots"] += r * l
+        out["k1_dead_slots"] += dead_k1 * l
+        out["k2_rows"] += solved
+        out["k2_dead_rows"] += solved - live
+        if c.kind == "plain":
+            by_len.setdefault(l, []).append(r)
+    extra_rows = extra_slots = 0
+    for l, rows in by_len.items():
+        rows_max = max(pad_rows, (max_block_floats // max(l * rank, 1))
+                       // pad_rows * pad_rows)
+        if len(rows) > 1:
+            extra_rows += rows_max - rows[-1]
+            extra_slots += (rows_max - rows[-1]) * l
+    out["k1_dead_slots_untrimmed"] = out["k1_dead_slots"] + extra_slots
+    out["k2_dead_rows_untrimmed"] = out["k2_dead_rows"] + extra_rows
+    out["k1_slots_untrimmed"] = out["k1_slots"] + extra_slots
+    out["k2_rows_untrimmed"] = out["k2_rows"] + extra_rows
+    return out
+
+
+def solve_bound_ms(n: int, k: int) -> float:
+    """Least time for K2 on n rank-k systems: its bytes over the memory
+    rate or its flops over the float32 peak (``ridge_solve.solve_cost``),
+    whichever is larger."""
+    n_bytes, flops = rs.solve_cost(n, k, "lu")
+    return max(n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
 
 
 def time_calls(dev: torch.device) -> None:
-    calls = recorded_gram_calls(dev)
+    calls, _, _ = recorded_calls(*ml25m_inputs(dev))
     total = {"kernel": 0.0, "bmm": 0.0}
     for src, idx, w, c in calls:
         (r, l), k = idx.shape, src.shape[1]
@@ -142,6 +234,70 @@ def time_calls(dev: torch.device) -> None:
               f"bmm {row['bmm']:.4f} ms")
     print(f"{len(calls)} calls: kernel {total['kernel']:.3f} ms, "
           f"bmm {total['bmm']:.3f} ms")
+
+
+SOLVE_COLUMNS = ("k2", "lu_shared", "cholesky", "bound")
+
+
+def time_solves(dev: torch.device) -> None:
+    cfg, inputs = ml25m_inputs(dev)
+    print("dead rows: " + json.dumps(dead_rows(
+        inputs.user_buckets + inputs.item_buckets, RANK,
+        cfg.max_block_floats)))
+    _, calls, kinds = recorded_calls(cfg, inputs)
+    del inputs
+    sums = {}
+    for (a, b, reg), kind in zip(calls, kinds):
+        n, k = b.shape
+        a_reg = a + torch.diag_embed(reg[:, None].expand(-1, k))
+        row = {"k2": single_ms(lambda: rs.ridge_solve_cuda(a, b, reg, "lu")),
+               "lu_shared": single_ms(
+                   lambda: rs.ridge_solve_cuda(a, b, reg, "lu_shared")),
+               "cholesky": single_ms(lambda: torch.cholesky_solve(
+                   b[..., None], torch.linalg.cholesky(a_reg))),
+               "bound": solve_bound_ms(n, k)}
+        del a_reg
+        for key in (kind, "all"):
+            acc = sums.setdefault(key, dict.fromkeys(SOLVE_COLUMNS, 0.0))
+            acc["calls"] = acc.get("calls", 0) + 1
+            for col in SOLVE_COLUMNS:
+                acc[col] += row[col]
+        print(f"{kind:11s} B {n:7d}  " + "  ".join(
+            f"{col} {row[col]:.4f} ms" for col in SOLVE_COLUMNS))
+    for key, acc in sums.items():
+        print(f"sum over {acc['calls']} {key} calls: " + ", ".join(
+            f"{col} {acc[col]:.3f} ms" for col in SOLVE_COLUMNS))
+
+
+DESIGN_COLUMNS = ("lu", "chol_thread16", "chol_warp", "bound")
+
+
+def time_designs(dev: torch.device) -> None:
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def row(a, b, reg):
+        out = {m: single_ms(lambda: rs.ridge_solve_cuda(a, b, reg, m))
+               for m in DESIGN_COLUMNS[:-1]}
+        out["bound"] = solve_bound_ms(*b.shape)
+        return out
+
+    n = 131_072
+    for k in DESIGN_RANKS:
+        m = torch.randn((n, k, 16), generator=gen, device=dev)
+        a = (m @ m.mT) / 16
+        b = torch.randn((n, k), generator=gen, device=dev)
+        reg = torch.full((n,), 0.5, device=dev)
+        times = row(a, b, reg)
+        del m, a, b, reg
+        print(f"B {n} K {k:2d}  " + "  ".join(
+            f"{col} {times[col]:.5f} ms" for col in DESIGN_COLUMNS))
+    _, calls, _ = recorded_calls(*ml25m_inputs(dev, rank=10))
+    total = dict.fromkeys(DESIGN_COLUMNS, 0.0)
+    for a, b, reg in calls:
+        for col, ms in row(a, b, reg).items():
+            total[col] += ms
+    print(f"{len(calls)} K2 calls of a rank-10 ML-25M iteration: " + ", ".join(
+        f"{col} {total[col]:.4f} ms" for col in DESIGN_COLUMNS))
 
 
 def time_smem(dev: torch.device) -> None:
@@ -179,6 +335,10 @@ def main(argv: Optional[List[str]] = None) -> None:
     dev = require_cuda()
     if "calls" in which:
         time_calls(dev)
+    if "solve" in which:
+        time_solves(dev)
+    if "designs" in which:
+        time_designs(dev)
     if "smem" in which:
         time_smem(dev)
 

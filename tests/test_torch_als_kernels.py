@@ -203,3 +203,33 @@ def test_ridge_wrapper_refuses_cpu_tensors_and_counts_flops():
     assert rs.solve_flops(64, "lu") == 181_024
     assert rs.solve_flops(64, "gj") == 264_224
     assert rs.supports(128) and not rs.supports(129)
+
+
+@pytest.mark.parametrize("n,k", [(1, 1), (9, 1), (3, 10), (7, 10), (5, 17),
+                                 (2, 64), (3, 65)])
+def test_solve_cost_reads_the_lower_triangle_by_sectors(n, k):
+    """K2's bound counts the 32-byte sectors that hold A's lower
+    triangles up to REG_MAX_RANK (all of A above it and for K4), plus b
+    and reg read and x written: held against a direct count."""
+    flat = np.arange(n * k * k).reshape(n, k, k)
+    rows, cols = np.tril_indices(k)
+    lower = np.unique(flat[:, rows, cols] // 8).size * 32
+    vectors = n * (2 * k + 1) * 4
+    n_bytes, flops = rs.solve_cost(n, k, "lu")
+    if k <= rs.REG_MAX_RANK:
+        assert (n_bytes, flops) == (lower + vectors,
+                                    n * rs.solve_flops(k, "cholesky"))
+    else:
+        assert (n_bytes, flops) == (n * k * k * 4 + vectors,
+                                    n * rs.solve_flops(k, "lu"))
+    assert rs.solve_cost(n, k, "gj") == (n * k * k * 4 + vectors,
+                                         n * rs.solve_flops(k, "gj"))
+
+
+def test_cholesky_flops_about_half_the_lu_count():
+    # rank 64: row i of the lower triangle fills ⌈(i + 1) / 8⌉ sectors
+    assert rs.solve_cost(1, 64, "lu")[0] == 288 * 32 + 129 * 4
+    assert rs.solve_flops(64, "cholesky") == 97_696
+    assert rs.solve_flops(1, "cholesky") == 4
+    with pytest.raises(ValueError, match="method"):
+        rs.solve_flops(8, "qr")

@@ -1,8 +1,8 @@
 """ALS training: the PyTorch port's ``train_als`` vs the JAX package's.
 
 Both train from the same COO ratings (numpy, from a seed) and the same
-initial factors: the port's ``_init_factors`` is patched to hand back
-the reference's threefry init, so the two sweeps start equal.  After 3
+seed: the port draws the reference's threefry init itself (within a few
+float32 ulps), so the two sweeps start equal.  After 3
 iterations the factors agree within atol 1e-4 + rtol 1e-3 (float32 Gram
 sums and Cholesky solves in another order, compounded over 6 half
 sweeps; the largest gap measured is printed) and ``rmse`` within 1e-5.
@@ -38,16 +38,6 @@ def _ratings(seed=0):
     return users, items, ratings
 
 
-@pytest.fixture()
-def reference_init(monkeypatch):
-    """Make the port start from the reference's init for this seed."""
-    def init(n_users, n_items, k, seed):
-        uf, itf = jax_als._init_factors(n_users, n_items, k, seed)
-        return np.array(uf), np.array(itf)
-
-    monkeypatch.setattr(port_als, "_init_factors", init)
-
-
 CASES = {
     "explicit": {},
     "implicit": {"implicit": True, "alpha": 0.5},
@@ -59,7 +49,7 @@ CASES = {
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_train_als_matches_jax(reference_init, case):
+def test_train_als_matches_jax(case):
     users, items, ratings = _ratings()
     cfg = dict(rank=RANK, iterations=3, reg=0.05, seed=5, **CASES[case])
     want = jax_als.train_als(users, items, ratings, N_USERS, N_ITEMS,
@@ -154,6 +144,29 @@ def test_route_choices():
         statics(port_als.ALSConfig(solver="qr"), CPU)
     with pytest.raises(ValueError, match="gram_dtype"):
         statics(port_als.ALSConfig(gram_dtype="float16"), CPU)
+
+
+def test_row_chunks_pad_only_to_a_multiple_of_len_align():
+    """A bucket cut into row chunks pads its last chunk only up to a
+    multiple of LEN_ALIGN, not to the full chunk: every chunk has fewer
+    than LEN_ALIGN rows of padding (index -1), yet the sweep still cuts."""
+    from predictionio_tpu_torch.tools.exp_gram_calls import dead_rows
+
+    users, items, ratings = _ratings()
+    cfg = port_als.ALSConfig(rank=RANK, max_block_floats=24 * 16 * RANK)
+    inputs = port_als.prepare_als_inputs(users, items, ratings, N_USERS,
+                                         N_ITEMS, cfg, device=CPU)
+    chunks = inputs.user_buckets + inputs.item_buckets
+    plain = [c for c in chunks if c.kind == "plain"]
+    lens = [c.indices.shape[1] for c in plain]
+    assert len(lens) > len(set(lens))          # some bucket was cut
+    for c in plain:
+        assert c.indices.shape[0] % port_als.LEN_ALIGN == 0
+        assert c.indices.shape[0] - len(c.keep) < port_als.LEN_ALIGN
+    dead = dead_rows(chunks, RANK, cfg.max_block_floats)
+    assert dead["k2_dead_rows_untrimmed"] > dead["k2_dead_rows"]
+    assert dead["k2_rows_untrimmed"] - dead["k2_rows"] == \
+        dead["k2_dead_rows_untrimmed"] - dead["k2_dead_rows"]
 
 
 def test_scatter_drops_padded_rows_never_clamps():

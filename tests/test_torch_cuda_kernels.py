@@ -204,10 +204,23 @@ def _spd(b, k, seed, dev):
     return a.to(dev), rhs.to(dev), reg.to(dev)
 
 
+def _exact(a, rhs, reg):
+    """float64 ``torch.linalg.solve`` of the same systems."""
+    k = a.shape[-1]
+    eye = torch.eye(k, dtype=torch.float64, device=a.device)
+    return torch.linalg.solve(a.double() + reg.double()[:, None, None] * eye,
+                              rhs.double()[..., None])[..., 0].float()
+
+
+# K2's compiled sizes: one thread per system (KP 4, 8, 12, 16), one warp
+# (KP 32, 64), identity padding between them, the shared-memory LU above
+# 64; B not a multiple of a tile (32 systems) or a block (4 warps).
 @pytest.mark.cuda
 @pytest.mark.parametrize("method", ["lu", "gj"])
 @pytest.mark.parametrize("b,k", [(1, 10), (127, 64), (128, 8), (131, 128),
-                                 (5000, 64), (3, 33)])
+                                 (5000, 64), (3, 33), (33, 1), (97, 10),
+                                 (1001, 16), (31, 17), (65, 32), (129, 33),
+                                 (4099, 64), (35, 65), (7, 128)])
 def test_ridge_solve_matches_reference(cuda_dev, method, b, k):
     a, rhs, reg = _spd(b, k, b + k, cuda_dev)
     plain = rs.ridge_solve_lu_reference if method == "lu" \
@@ -221,6 +234,76 @@ def test_ridge_solve_matches_reference(cuda_dev, method, b, k):
     want = plain(a, rhs, reg)
     torch.testing.assert_close(x, want, rtol=SOLVE_RTOL,
                                atol=SOLVE_ATOL * float(want.abs().max()))
+    torch.testing.assert_close(x, _exact(a, rhs, reg), rtol=SOLVE_RTOL,
+                               atol=SOLVE_ATOL * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 10, 16, 17, 32, 33, 64, 65, 128])
+def test_ridge_solve_lu_takes_the_register_kernel_to_rank_64(cuda_dev, k):
+    """K2 never launches the shared-memory LU at or below REG_MAX_RANK
+    (one thread a system to rank 16, one warp above), as the library
+    reports the kernel it launched; above it, and under method
+    "lu_shared", it does."""
+    a, rhs, reg = _spd(37, k, k, cuda_dev)
+    before = dict(rs.KERNEL_LAUNCHES)
+    x = rs.ridge_solve_lu(a, rhs, reg)
+    torch.cuda.synchronize()
+    want_kernel = ("chol_thread" if k <= 16 else
+                   "chol_warp" if k <= rs.REG_MAX_RANK else "lu_shared")
+    assert rs.KERNEL_LAUNCHES == {**before,
+                                  want_kernel: before[want_kernel] + 1}
+    before = (rs.LU_LAUNCHES, dict(rs.KERNEL_LAUNCHES))
+    old = rs.ridge_solve_cuda(a, rhs, reg, "lu_shared")
+    torch.cuda.synchronize()
+    assert (rs.LU_LAUNCHES, rs.KERNEL_LAUNCHES) == \
+        (before[0], {**before[1], "lu_shared": before[1]["lu_shared"] + 1})
+    want = rs.ridge_solve_lu_reference(a, rhs, reg)
+    for got in (x, old):
+        torch.testing.assert_close(got, want, rtol=SOLVE_RTOL,
+                                   atol=SOLVE_ATOL * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,k", [("chol_warp", 1), ("chol_warp", 10),
+                                      ("chol_warp", 64),
+                                      ("chol_thread16", 1),
+                                      ("chol_thread16", 10),
+                                      ("chol_thread16", 16)])
+def test_ridge_solve_forced_designs_match_reference(cuda_dev, method, k):
+    """The designs the tools force for timing solve the same systems, and
+    refuse a rank they do not take."""
+    a, rhs, reg = _spd(45, k, 3 * k, cuda_dev)
+    before = dict(rs.KERNEL_LAUNCHES)
+    x = rs.ridge_solve_cuda(a, rhs, reg, method)
+    torch.cuda.synchronize()
+    kernel = "chol_warp" if method == "chol_warp" else "chol_thread"
+    assert rs.KERNEL_LAUNCHES[kernel] == before[kernel] + 1
+    want = rs.ridge_solve_lu_reference(a, rhs, reg)
+    torch.testing.assert_close(x, want, rtol=SOLVE_RTOL,
+                               atol=SOLVE_ATOL * float(want.abs().max()))
+    too_big = rs.REG_MAX_RANK + 1 if method == "chol_warp" else 17
+    a, rhs, reg = _spd(3, too_big, 1, cuda_dev)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        rs.ridge_solve_cuda(a, rhs, reg, method)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k", [(45, 3), (70, 10), (33, 16), (9, 17),
+                                 (40, 33), (100, 64)])
+def test_ridge_solve_lu_reads_the_lower_triangle(cuda_dev, b, k):
+    """Up to REG_MAX_RANK, K2 solves the symmetric system of A's lower
+    triangle: whatever lies above the diagonal is never read."""
+    a, rhs, reg = _spd(b, k, 7 * k, cuda_dev)
+    a = (a + a.mT) / 2                        # exactly symmetric
+    low = torch.tril(a)
+    noisy = low + torch.triu(torch.full_like(a, float("nan")), diagonal=1)
+    x = rs.ridge_solve_lu(noisy, rhs, reg)
+    want = rs.ridge_solve_lu_reference(a, rhs, reg)
+    torch.testing.assert_close(x, want, rtol=SOLVE_RTOL,
+                               atol=SOLVE_ATOL * float(want.abs().max()))
+    torch.testing.assert_close(rs.ridge_solve_lu(a, rhs, reg), x,
+                               rtol=0, atol=0)
 
 
 @pytest.mark.cuda

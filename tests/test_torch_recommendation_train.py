@@ -8,7 +8,7 @@ The same events go into both packages' in-memory event stores.  Checks:
 - ``run_train`` → ``load_models`` → ``EngineServer.query_batch`` on the
   CPU gives the reference's items, with scores within the serving
   tolerance of ``tests/test_torch_recommendation.py`` (rtol 1e-5,
-  atol 1e-6) — both trains start from the reference's init, and the
+  atol 1e-6) — the port draws the reference's threefry init itself, and the
   ridge (λ = 1) keeps the float32 gap of five sweeps under that
   tolerance (at λ = 0.1 it reaches 2.5e-5; ``tests/test_torch_als_train.py``
   holds the sweep itself to atol 1e-4 + rtol 1e-3 there);
@@ -30,7 +30,6 @@ from predictionio_tpu.data.event import Event as JaxEvent
 from predictionio_tpu.data.storage import App as JaxApp
 from predictionio_tpu.data.storage import get_storage as jax_storage
 from predictionio_tpu.data.storage import reset_storage
-from predictionio_tpu.models import als as jax_als
 from predictionio_tpu.obs import reset_observability
 from predictionio_tpu.server.engine_server import (
     EngineServer as JaxEngineServer,
@@ -46,7 +45,6 @@ from predictionio_tpu.workflow.core_workflow import run_train as jax_run_train
 from predictionio_tpu_torch.controller import EngineVariant, RuntimeContext
 from predictionio_tpu_torch.data.event import BiMap, DataMap, Event
 from predictionio_tpu_torch.data.storage import App, get_storage
-from predictionio_tpu_torch.models import als as port_als
 from predictionio_tpu_torch.obs import get_registry
 from predictionio_tpu_torch.server.engine_server import EngineServer
 from predictionio_tpu_torch.templates.recommendation import (
@@ -138,8 +136,9 @@ def _insert_jax_events(storage, specs):
 
 @pytest.fixture(scope="module")
 def trained(tmp_path_factory):
-    """Both packages trained on the same events from the same init:
-    (JAX server, port storage, port instance id)."""
+    """Both packages trained on the same events and seed, each from its
+    own init draw (no patch): (JAX server, port storage, port instance
+    id)."""
     home = tmp_path_factory.mktemp("pio_home")
     specs = _event_specs()
     with pytest.MonkeyPatch.context() as mp:
@@ -152,12 +151,6 @@ def trained(tmp_path_factory):
         # then return the events in insertion (= event-time) order
         mp.setenv("PIO_STORAGE_REPOSITORIES_METADATA_SOURCE", "MEMORY")
         mp.setenv("PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE", "MEMORY")
-
-        def init(n_users, n_items, k, seed):
-            uf, itf = jax_als._init_factors(n_users, n_items, k, seed)
-            return np.array(uf), np.array(itf)
-
-        mp.setattr(port_als, "_init_factors", init)
         reset_storage()
         reset_observability()
         jctx = JaxContext.create(storage=jax_storage())
