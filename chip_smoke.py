@@ -17,10 +17,13 @@ cannot be imported, or when any phase fails.  Phases, in order:
    time the card could take (bound).
 3. kernel  — the training kernels, fused gram (K1), the ridge solve (K2:
    Cholesky with the system in registers to rank 64, the shared-memory
-   LU above) and Gauss-Jordan solve (K4), against their plain versions
-   over a grid of shapes (K2 also against a float64 solve, with exactly
-   symmetric A), then timed as in phase 2 at representative shapes, K2
-   beside the shared-memory LU kernel it replaced.
+   LU above) and Gauss-Jordan solve (K4: in registers to rank 64, one
+   thread a system to rank 12, in shared memory above), against their
+   plain versions and a float64 solve over a grid of shapes (K2 with
+   exactly symmetric A; K4 at every design edge, the design the library
+   reports checked, and on non-symmetric, diagonally dominant A), then
+   timed as in phase 2 at representative shapes, K2 beside the
+   shared-memory LU kernel it replaced.
 4. serve   — the ALS recommendation template at the MovieLens-25M shape
    (162,541 users x 59,047 items, rank 64, seeded random factors) carried
    in with wrapper_from_numpy, persisted, deployed on an EngineServer
@@ -46,9 +49,12 @@ cannot be imported, or when any phase fails.  Phases, in order:
    each held against the plain top-k of the trained factors; K1, K2 and
    K3 must have launched.
 8. kernel  — the PQ scan kernel (K5) against its plain version over a
-   grid of B, S (tables), N, k and n_valid, then timed at N = 1,048,576,
-   S = 17, k = 40 (B = 1 and 64) beside its plain version, a library
-   yardstick (torch.topk over the decoded corpus) and its bound.
+   grid of B, S (tables), N, k and n_valid and the edges of its plan
+   (16-byte, 4-byte and byte code loads, blocks of one and of several
+   queries, n_valid tails, k at the plan's limit), then timed at N =
+   1,048,576, S = 17, k = 40 (B = 1 and 64) beside its plain version, a
+   library yardstick (torch.topk over the decoded corpus) and its bound,
+   its time split into the score and merge passes (torch.profiler).
 9. kernel  — the gather experiments' kernels, T1 (gather + weighted
    Gram) and T2 (gather + sum), against their plain versions at the
    tools' shape, timed likewise, then driven through the tools' own
@@ -106,7 +112,6 @@ DASE_EVENTS, DASE_USERS, DASE_ITEMS = 300_000, 20_000, 10_000
 # rows are no multiple of 16 bytes and both register-tile widths; rows
 # whose every slot is padding must give exactly 0.
 GRAM_ROWS, GRAM_LENS = (1, 3, 8, 13, 4096), (1, 8, 17, 33, 64, 1000, 4096)
-TRAIN_RANKS = (10, 64, 128)
 GRAM_RANKS = (10, 17, 63, 64, 65, 100, 127, 128)
 # R large enough that a block holds several rows, its last block partial
 GRAM_MULTI_ROW = ((10_001, 9, 3), (11_111, 17, 10), (4501, 20, 33),
@@ -117,7 +122,12 @@ T1_GRID = [(r, l, k) for r in (1, 3, 13) for l in (1, 17, 33, 4096)
 # K1 above rank 128, where it cuts A into 2 x 2 tiles: (R, L, K)
 GRAM_TILED = ((8, 4096, 256), (512, 1000, 256), (4096, 64, 200),
               (8, 1000, 129))
-SOLVE_BATCHES = (1, 127, 128, 131_072)     # K4, at TRAIN_RANKS
+# K4: each design's compiled sizes (one thread a system: KP 4, 8, 12; one
+# warp: 32, 64) and the edges between them, rank 10 (every shipped
+# engine.json), the shared-memory kernel above 64; B around a 32-system
+# tile, a 4-warp block and the TPU kernel's 128-system block.
+GJ_BATCHES = (1, 31, 32, 33, 127, 128, 131_072)
+GJ_RANKS = (1, 4, 5, 8, 9, 10, 12, 13, 16, 17, 32, 33, 64, 65, 128)
 # K2: every compiled size (one thread a system: KP 4, 8, 12, 16; one warp:
 # 32, 64), the identity padding below each, the shared-memory LU above
 # 64; B around a 32-system tile and a 4-warp block.
@@ -127,7 +137,7 @@ EXACT_CHUNK = 16_384        # systems a float64 reference solve takes
 # (R, L, K); rank 10 is what every shipped engine.json trains at
 GRAM_TIMED = ((4096, 64, 64), (4096, 1000, 64), (4096, 64, 256),
               (4096, 64, 10), (4096, 1000, 10))
-SOLVE_TIMED = ((131_072, 64), (131_072, 10))   # K2 (B, K); K4 the first
+SOLVE_TIMED = ((131_072, 64), (131_072, 10))   # K2 and K4 (B, K)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 SMEM_BANKS = 32             # 4-byte shared-memory banks per SM, one access
@@ -140,6 +150,17 @@ PQ_ITEMS_GRID, PQ_KS = (1, 511, 100_003, 1_048_576), (1, 10, 40, 1000, 4000)
 PQ_N_VALID = ((8, 17, 100_003, 40, 50_000), (3, 5, 511, 10, 300),
               (64, 65, 1_048_576, 1000, 1_048_576 - 777),
               (1, 1, 100_003, 4000, 4000))        # (B, S, N, k, n_valid)
+# The plan's edges (B, S, N, k, n_valid): 16 items a thread a round at
+# B 1 (a 16-byte code load a table when N % 16 == 0, byte loads if not),
+# 4 at B > 1 (a 4-byte load when N % 4 == 0); B 7/9 around the 8 queries
+# a block; n_valid inside a round; k at the plan's limit (16,128).
+PQ_EDGES = ((7, 17, 1_048_576, 40, None), (9, 17, 1_048_576, 1000, None),
+            (1, 17, 65_540, 40, None), (1, 17, 65_536, 40, 65_535),
+            (9, 17, 65_540, 40, 65_539), (7, 17, 65_539, 10, None),
+            (8, 5, 4095, 100, 4001), (1, 17, 40_000, 16_128, None),
+            (2, 65, 40_000, 16_128, 39_999), (9, 17, 100_003, 16_128, None),
+            (1, 1, 1_048_576, 40, None), (9, 1, 100_003, 1000, None),
+            (1, 17, 1_048_576, 40, 1_048_576 - 9))
 PQ_TIMED = (1_048_576, 17, 40)                     # (N, S, k) at B 1 and 64
 PQ_ITEMS = 1_048_576        # phase 10: 5x PIO_PQ_MIN_ITEMS, the 1e6 scale
 PQ_USERS = 1024
@@ -395,18 +416,41 @@ def training_kernels_phase(dev, fg, rs, card: str):
                     what + " vs float64"))
             n_lu += 1
             del a, rhs, reg, x, want, exact
+    def dominant(bsz, k):
+        """A non-symmetric, diagonally dominant A, b and reg."""
+        a = 0.5 * torch.randn((bsz, k, k), generator=gen, device=dev)
+        a.diagonal(dim1=1, dim2=2).add_(float(k))
+        rhs = torch.randn((bsz, k), generator=gen, device=dev)
+        reg = 0.05 * torch.randint(1, 40, (bsz,), generator=gen,
+                                   device=dev).float()
+        return a, rhs, reg
+
     n_gj = 0
-    for k in TRAIN_RANKS:
-        for bsz in SOLVE_BATCHES:
-            a, rhs, reg = spd(bsz, k)
+    err["ridge_solve_gj_f64"] = 0.0
+    for k in GJ_RANKS:
+        design = ("gj_thread" if k <= rs.GJ_THREAD_MAX_RANK else
+                  "gj_warp" if k <= rs.REG_MAX_RANK else "gj_shared")
+        for bsz, make in [(b, spd) for b in GJ_BATCHES] + [(33, dominant)]:
+            a, rhs, reg = make(bsz, k)
+            before = dict(rs.KERNEL_LAUNCHES)
             x = rs.ridge_solve_cuda(a, rhs, reg, "gj")
             torch.cuda.synchronize()
+            what = (f"ridge_solve_gj B={bsz} K={k}"
+                    + (" non-symmetric" if make is dominant else ""))
+            if rs.KERNEL_LAUNCHES != {**before,
+                                      design: before[design] + 1}:
+                die(f"{what}: expected one launch of {design}, the library "
+                    f"reports {rs.KERNEL_LAUNCHES} after {before}")
             want = rs.ridge_solve_gj_reference(a, rhs, reg)
             err["ridge_solve_gj"] = max(err["ridge_solve_gj"], assert_close(
-                x, want, SOLVE_RTOL, scaled(SOLVE_ATOL, want),
-                f"ridge_solve_gj B={bsz} K={k}"))
+                x, want, SOLVE_RTOL, scaled(SOLVE_ATOL, want), what))
+            exact = exact_solve(a, rhs, reg)
+            err["ridge_solve_gj_f64"] = max(
+                err["ridge_solve_gj_f64"], assert_close(
+                    x, exact, SOLVE_RTOL, scaled(SOLVE_ATOL, exact),
+                    what + " vs float64"))
             n_gj += 1
-            del a, rhs, reg, x, want
+            del a, rhs, reg, x, want, exact
     log(f"phase 3 kernel: fused_gram matches its plain version in "
         f"{n_gram} cases (R in {GRAM_ROWS}, L in {GRAM_LENS}, K in "
         f"{GRAM_RANKS}, and (R, L, K) in {GRAM_MULTI_ROW + GRAM_TILED}; "
@@ -417,9 +461,11 @@ def training_kernels_phase(dev, fg, rs, card: str):
         f"its plain version and a float64 solve in {n_lu} cases (B in "
         f"{LU_BATCHES}, K in {LU_RANKS}, A exactly symmetric), max |err| "
         f"{err['ridge_solve_lu']:.3g} and {err['ridge_solve_lu_f64']:.3g}; "
-        f"gj (K4) matches its plain version in {n_gj} cases (B in "
-        f"{SOLVE_BATCHES}, K in {TRAIN_RANKS}), max |err| "
-        f"{err['ridge_solve_gj']:.3g} (rtol {SOLVE_RTOL} + "
+        f"gj (K4) matches its plain version and a float64 solve in {n_gj} "
+        f"cases (B in {GJ_BATCHES}, K in {GJ_RANKS}, and B 33 with a "
+        f"non-symmetric, diagonally dominant A; the design the library "
+        f"reports is the rank's), max |err| {err['ridge_solve_gj']:.3g} and "
+        f"{err['ridge_solve_gj_f64']:.3g} (rtol {SOLVE_RTOL} + "
         f"{SOLVE_ATOL}·max|x|)")
 
     for r, l, k in GRAM_TIMED:
@@ -441,16 +487,14 @@ def training_kernels_phase(dev, fg, rs, card: str):
              "library": "torch.bmm(fw^T, f) on the pre-gathered block",
              "card": card, **row}))
         del f, fw
-    for n_timed, (bsz, k) in enumerate(SOLVE_TIMED):
+    for bsz, k in SOLVE_TIMED:
         a, rhs, reg = spd(bsz, k)
         a_reg = a + torch.diag_embed(reg[:, None].expand(bsz, k))
         lib = time_single(lambda: torch.cholesky_solve(
             rhs[..., None], torch.linalg.cholesky(a_reg)), 10)
         del a_reg
-        methods = [("lu", rs.ridge_solve_lu_reference)]
-        if n_timed == 0:
-            methods.append(("gj", rs.ridge_solve_gj_reference))
-        for method, plain in methods:
+        for method, plain in (("lu", rs.ridge_solve_lu_reference),
+                              ("gj", rs.ridge_solve_gj_reference)):
             bnd = Bound().add(*rs.solve_cost(bsz, k, method))
             row = {"kernel_ms": time_single(
                        lambda: rs.ridge_solve_cuda(a, rhs, reg, method), 10),
@@ -844,6 +888,8 @@ def pq_kernel_phase(dev, seed: int, pqs, tpq, topk_mismatch, card: str):
     Returns (largest score error, {B: timing row})."""
     import torch
 
+    from predictionio_tpu_torch.tools.exp_pq import kernel_ms
+
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 8)
     codes_all = torch.randint(0, 256, (max(PQ_TABLES), max(PQ_ITEMS_GRID)),
@@ -852,7 +898,7 @@ def pq_kernel_phase(dev, seed: int, pqs, tpq, topk_mismatch, card: str):
                            generator=gen, device=dev)
     cases = [(b, t, n, k, None) for b in PQ_BATCHES for t in PQ_TABLES
              for n in PQ_ITEMS_GRID for k in PQ_KS if k <= n]
-    cases += list(PQ_N_VALID)
+    cases += list(PQ_N_VALID) + list(PQ_EDGES)
     err = 0.0
     for b, t, n, k, n_valid in cases:
         luts = luts_all[:b, :t].contiguous()
@@ -877,8 +923,9 @@ def pq_kernel_phase(dev, seed: int, pqs, tpq, topk_mismatch, card: str):
     log(f"phase 8 kernel: pq_scan matches its plain version in {len(cases)} "
         f"cases (B in {PQ_BATCHES}, S in {PQ_TABLES}, N in {PQ_ITEMS_GRID}, "
         f"k in {PQ_KS} with k <= N, and (B, S, N, k, n_valid) in "
-        f"{PQ_N_VALID}; S = 1 is the tie case: ids compared only above the "
-        f"k-th score); max |score err| {err:.3g} (rtol {RTOL}, atol {ATOL})")
+        f"{PQ_N_VALID + PQ_EDGES}; S = 1 is the tie case: ids compared only "
+        f"above the k-th score); max |score err| {err:.3g} (rtol {RTOL}, "
+        f"atol {ATOL})")
 
     # Timed on a real codebook's tables, so that one library call computes
     # the same function: sum_t lut[t, code_t] = q . decode(n).
@@ -906,6 +953,8 @@ def pq_kernel_phase(dev, seed: int, pqs, tpq, topk_mismatch, card: str):
                 row.setdefault(f"{tag}ms", []).append(time_single(fn, 20))
         row = {name: min(v) for name, v in row.items()}
         row["ms_cold"] = time_single(fns[""], 20, flush=flush_buf.zero_)
+        # device ms a call of each of its two kernels (torch.profiler)
+        row["by_kernel"] = kernel_ms(fns[""], 20)
         row["bound_ms"], row["bound_by"] = pq_bound(b, t, n, k, smem_rate)
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         rows[b] = row

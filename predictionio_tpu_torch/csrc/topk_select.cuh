@@ -10,6 +10,16 @@
 // [B, chunks, k]; topk_merge_pass then folds each query's chunks*k
 // candidates through the same buffer into the final sorted [k].
 //
+// offer_block is the round-at-a-time form of the same buffer, for
+// passes whose threads hold many candidates each (the PQ scan's score
+// pass and topk_merge_pass): every thread offers all of its candidates
+// at once, with one block barrier a round instead of one a tile.  While
+// a query's buffer has no threshold yet, the round itself gives one:
+// each warp ranks its lanes' best candidates with a shuffle sort, and
+// the worst of the warps' c-th best, c = ceil(k / warps), is beaten or
+// matched by at least k candidates, so nothing below it can rank.  That
+// keeps the first round from filling the buffer with every candidate.
+//
 // Ranking: higher score first, lower id first among equal scores.  Slots
 // that no candidate fills come out as score -3.4e38 and id -1.
 
@@ -24,8 +34,12 @@
 namespace {
 
 constexpr int kMergeThreads = 256;    // threads of the merge pass
+constexpr int kMergeItems = 16;       // candidates a merge thread takes a round
+constexpr int kBoundWarps = kMergeThreads / 32;  // warps of an offer_block
+constexpr int kBoundSlots = kBoundWarps + 1;     // per query, in Rows
 constexpr int kFillerId = INT_MAX;    // empty slot; sorts after every item
 constexpr float kNegInf = -3.4e38f;   // ops.topk.NEG_INF
+constexpr unsigned kAllLanes = 0xffffffffu;
 
 struct Cand {
   float s;
@@ -90,16 +104,20 @@ __device__ __forceinline__ void offer(Cand* buf, int q, int log_s, int k,
   }
 }
 
-// Empty buffers and thresholds for a block's nq queries.
+// Empty buffers and thresholds for a block's nq queries, and, given
+// `bound` (offer_block's slots), their best bounds so far.
 __device__ __forceinline__ void init_rows(Cand* buf, int nq, int log_s,
                                           int max_q, int* cnt, float* thr_s,
-                                          int* thr_i) {
+                                          int* thr_i, Cand* bound = nullptr) {
   for (int t = threadIdx.x; t < (nq << log_s); t += blockDim.x)
     buf[t] = Cand{-INFINITY, kFillerId};
   if (threadIdx.x < max_q) {
     cnt[threadIdx.x] = 0;
     thr_s[threadIdx.x] = -INFINITY;
     thr_i[threadIdx.x] = kFillerId;
+    if (bound != nullptr)
+      bound[threadIdx.x * kBoundSlots + kBoundWarps] =
+          Cand{-INFINITY, kFillerId};
   }
 }
 
@@ -119,8 +137,138 @@ __device__ __forceinline__ void write_partial(const Cand* buf, int nq,
   }
 }
 
-// One block per query: stream its c = chunks*k candidates through the
-// threshold-and-compact buffer and write the final sorted [k].
+// The selection state of a block in shared memory: per query, S = 1 <<
+// log_s buffer slots (the running top-k first), the count of fresh
+// candidates, the threshold (the k-th best after the last merge), and
+// kBoundSlots slots for offer_block's bounds: one a warp, then the best
+// bound so far (init_rows leaves it empty).
+struct Rows {
+  Cand* buf;
+  int* cnt;
+  float* thr_s;
+  int* thr_i;
+  Cand* bound;
+  int nq, S, log_s, k;
+};
+
+// The c-th best (1 <= c <= 32) of the warp's lanes' m: a bitonic sort
+// over shuffles, best first.  Every lane of the warp must call it.
+__device__ __forceinline__ Cand warp_rank(Cand m, int c) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const Cand o{__shfl_xor_sync(kAllLanes, m.s, stride),
+                   __shfl_xor_sync(kAllLanes, m.id, stride)};
+      // the lower lane of a pair keeps the better in a best-first run
+      const bool keep_better = ((lane & size) == 0) == ((lane & stride) == 0);
+      if (keep_better ? better(o.s, o.id, m.s, m.id)
+                      : better(m.s, m.id, o.s, o.id))
+        m = o;
+    }
+  }
+  return Cand{__shfl_sync(kAllLanes, m.s, c - 1),
+              __shfl_sync(kAllLanes, m.id, c - 1)};
+}
+
+// Offer every thread's NC candidates (score s[u], id[u], of query
+// u / PER_Q; only those whose bit is set in `valid`) to the block's
+// rows.  A candidate that beats its query's threshold is appended; when
+// a row is full, the block merges the rows and offers what is left
+// again.  Every thread of the block (kBoundWarps warps) must call it,
+// with the same rows; it starts and ends with no barrier pending, so
+// merge_rows may follow directly only after a __syncthreads().
+template <int NC, int PER_Q>
+__device__ void offer_block(const float (&s)[NC], const int (&id)[NC],
+                            unsigned valid, const Rows& r) {
+  static_assert(NC <= 32 && NC % PER_Q == 0, "one bit a candidate");
+  constexpr int NQ = NC / PER_Q;
+  const int c = (r.k + kBoundWarps - 1) / kBoundWarps;
+  // While a row has no threshold, this round's candidates bound it.
+  bool open[NQ];
+  bool any_open = false;
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    open[q] = q < r.nq && r.thr_i[q] == kFillerId && c <= 32;
+    any_open |= open[q];
+  }
+  if (any_open) {  // uniform: thresholds change only between barriers
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      if (!open[q]) continue;
+      Cand m{-INFINITY, kFillerId};
+#pragma unroll
+      for (int u = q * PER_Q; u < (q + 1) * PER_Q; ++u)
+        if ((valid >> u & 1) && better(s[u], id[u], m.s, m.id))
+          m = Cand{s[u], id[u]};
+      const Cand t = warp_rank(m, c);
+      if ((threadIdx.x & 31) == 0)
+        r.bound[q * kBoundSlots + (threadIdx.x >> 5)] = t;
+    }
+    __syncthreads();
+  }
+  float eff_s[NQ];
+  int eff_i[NQ];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    eff_s[q] = q < r.nq ? r.thr_s[q] : INFINITY;
+    eff_i[q] = q < r.nq ? r.thr_i[q] : kFillerId;
+    if (open[q]) {
+      // At least c candidates of every warp are as good as its bound, so
+      // k or more are as good as the worst bound: a candidate below it
+      // cannot rank.  The bound itself may: the threshold is the pair
+      // just below it, (score, id + 1).  An earlier round's bound holds
+      // too; the best so far is kept (every thread computes the same, so
+      // the unordered write is harmless).
+      Cand* slots = r.bound + q * kBoundSlots;
+      Cand w = slots[0];
+#pragma unroll
+      for (int v = 1; v < kBoundWarps; ++v)
+        if (better(w.s, w.id, slots[v].s, slots[v].id)) w = slots[v];
+      if (w.id != kFillerId) w.id += 1;
+      const Cand best = slots[kBoundWarps];
+      if (better(best.s, best.id, w.s, w.id)) w = best;
+      if (threadIdx.x == 0) slots[kBoundWarps] = w;
+      eff_s[q] = w.s;
+      eff_i[q] = w.id;
+    }
+  }
+  unsigned pend = 0;
+#pragma unroll
+  for (int u = 0; u < NC; ++u)
+    if ((valid >> u & 1) &&
+        better(s[u], id[u], eff_s[u / PER_Q], eff_i[u / PER_Q]))
+      pend |= 1u << u;
+  const int cap = r.S - r.k;  // fresh slots a row holds
+  while (true) {
+#pragma unroll
+    for (int u = 0; u < NC; ++u) {
+      if (!(pend >> u & 1)) continue;
+      const int q = u / PER_Q;
+      const int p = atomicAdd(&r.cnt[q], 1);
+      if (p < cap) {
+        r.buf[(q << r.log_s) + r.k + p] = Cand{s[u], id[u]};
+        pend &= ~(1u << u);
+      }
+    }
+    if (!__syncthreads_or(pend != 0)) break;
+    if (threadIdx.x < r.nq)
+      r.cnt[threadIdx.x] = min(r.cnt[threadIdx.x], cap);
+    __syncthreads();
+    merge_rows(r.buf, r.nq, r.S, r.log_s, r.k, r.cnt, r.thr_s, r.thr_i);
+#pragma unroll
+    for (int u = 0; u < NC; ++u) {
+      const int q = u / PER_Q;
+      if ((pend >> u & 1) && !better(s[u], id[u], r.thr_s[q], r.thr_i[q]))
+        pend &= ~(1u << u);
+    }
+  }
+}
+
+// One block per query: its c = chunks*k candidates, kMergeItems a thread
+// a round (coalesced: thread t takes every kMergeThreads-th from t),
+// through offer_block, then the final sorted [k].
 __global__ void __launch_bounds__(kMergeThreads)
 topk_merge_pass(const float* __restrict__ part_s,
                 const int* __restrict__ part_i, int c, int k, int S,
@@ -131,23 +279,29 @@ topk_merge_pass(const float* __restrict__ part_s,
   __shared__ int cnt[1];
   __shared__ float thr_s[1];
   __shared__ int thr_i[1];
+  __shared__ Cand bound[kBoundSlots];
 
   const size_t b = blockIdx.x;
   const float* ps = part_s + b * c;
   const int* pi = part_i + b * c;
-  init_rows(buf, 1, log_s, 1, cnt, thr_s, thr_i);
+  init_rows(buf, 1, log_s, 1, cnt, thr_s, thr_i, bound);
   __syncthreads();
+  const Rows rows{buf, cnt, thr_s, thr_i, bound, 1, S, log_s, k};
 
-  const int limit = S - k - kMergeThreads;
-  for (int base = 0; base < c; base += kMergeThreads) {
-    if (__syncthreads_or(cnt[0] > limit)) merge_rows(buf, 1, S, log_s, k, cnt, thr_s, thr_i);
-    const int j = base + threadIdx.x;
-    if (j < c) {
-      const int id = pi[j];
-      if (id != kFillerId) offer(buf, 0, log_s, k, cnt, thr_s, thr_i, ps[j], id);
+  for (int base = 0; base < c; base += kMergeThreads * kMergeItems) {
+    float s[kMergeItems];
+    int id[kMergeItems];
+    unsigned valid = 0;
+#pragma unroll
+    for (int u = 0; u < kMergeItems; ++u) {
+      const int j = base + u * kMergeThreads + threadIdx.x;
+      s[u] = j < c ? ps[j] : -INFINITY;
+      id[u] = j < c ? pi[j] : kFillerId;
+      if (id[u] != kFillerId) valid |= 1u << u;
     }
-    __syncthreads();
+    offer_block<kMergeItems, kMergeItems>(s, id, valid, rows);
   }
+  __syncthreads();
   merge_rows(buf, 1, S, log_s, k, cnt, thr_s, thr_i);
 
   for (int j = threadIdx.x; j < k; j += blockDim.x) {

@@ -12,7 +12,9 @@ Port of ``pq_scan_pallas`` / ``pq_scan`` in
   ``torch.topk``); what the reference's ``pq_scan_xla`` computes.
 - :func:`pq_scan_cuda` — launches the hand-written CUDA kernel
   (``predictionio_tpu_torch/csrc/pq_scan.cu``): tables in shared memory,
-  one read of the codes, the [B, N] block never written.
+  one read of the codes (16 or 4 codes a thread a table, one load each),
+  the [B, N] block never written, the chunks' candidates merged 16 a
+  thread a round.
 - :func:`pq_scan` — the dispatcher: CPU tensors take the reference, CUDA
   tensors take the kernel or raise.  There is no fallback.
 
@@ -47,13 +49,15 @@ _LAUNCHES_LOCK = threading.Lock()
 
 LUT_WIDTH = 256               # entries per table: one code byte
 # Launch geometry; csrc/pq_scan.cu holds the same thread and query counts
-# as kThreads / kMaxQ.
-THREADS = 256                 # threads per block = items per tile
+# as kThreads / kMaxQ, and the items a thread scores a round as
+# items_per_thread().
+THREADS = 256                 # threads per block
 MAX_QUERIES_PER_BLOCK = 8
+ITEMS_PER_THREAD_ONE_QUERY = 16   # one 16-byte code load a table
+ITEMS_PER_THREAD_SHARED = 4       # blocks of 2..8 queries: a 4-byte load
 SMEM_BUDGET = 200 * 1024      # dynamic shared memory a block may take
 TARGET_BLOCKS = 264           # two waves over the H100's 132 SMs
 MAX_CANDIDATES = 1 << 17      # per query, handed to the merge pass
-MIN_ROWS_PER_CHUNK = 2 * THREADS
 
 _CAND_BYTES = 8               # (float score, int id)
 
@@ -63,13 +67,15 @@ class Plan:
     """Launch plan of one call: ``queries_per_block`` queries share a
     score-pass block and its staged tables; each query keeps a
     ``buffer``-slot candidate buffer; the items split into ``n_chunks``
-    ranges of ``rows_per_chunk``, and the merge pass reads
-    ``n_chunks·k`` candidates per query."""
+    ranges of ``rows_per_chunk``, a multiple of the ``THREADS ·
+    items_per_thread`` items a block scores a round, and the merge pass
+    reads ``n_chunks·k`` candidates per query."""
 
     queries_per_block: int
     buffer: int
     n_chunks: int
     rows_per_chunk: int
+    items_per_thread: int
 
 
 def plan(b: int, n_real: int, s: int, k: int) -> Plan:
@@ -87,14 +93,17 @@ def plan(b: int, n_real: int, s: int, k: int) -> Plan:
         raise ValueError(f"pq_scan: k={k} at {s} tables needs {per_query} "
                          f"bytes of shared memory per query, over the "
                          f"{SMEM_BUDGET}-byte budget")
+    ipt = ITEMS_PER_THREAD_ONE_QUERY if qb == 1 else ITEMS_PER_THREAD_SHARED
+    step = THREADS * ipt
     groups = -(-b // qb)
     n_chunks = min(-(-TARGET_BLOCKS // groups),
                    max(1, MAX_CANDIDATES // k),
-                   max(1, -(-n_real // MIN_ROWS_PER_CHUNK)))
+                   max(1, -(-n_real // step)))
     rows = -(-max(n_real, 1) // n_chunks)
-    rows = -(-rows // THREADS) * THREADS
+    rows = -(-rows // step) * step
     return Plan(queries_per_block=qb, buffer=buffer,
-                n_chunks=max(1, -(-n_real // rows)), rows_per_chunk=rows)
+                n_chunks=max(1, -(-n_real // rows)), rows_per_chunk=rows,
+                items_per_thread=ipt)
 
 
 def pq_scan_reference(luts: torch.Tensor, codes: torch.Tensor, k: int, *,
@@ -158,7 +167,8 @@ def pq_scan_cuda(luts: torch.Tensor, codes: torch.Tensor, k: int, *,
         raise ValueError("pq_scan_cuda needs at least one query")
     n_real = n if n_valid is None else max(0, min(n_valid, n))
     p = plan(b, n_real, s, k)
-    if p.n_chunks * p.rows_per_chunk + THREADS >= 2 ** 31:
+    if p.n_chunks * p.rows_per_chunk + THREADS * p.items_per_thread \
+            >= 2 ** 31:
         # the kernel walks item columns with int32 indices
         raise ValueError(f"pq_scan_cuda: N={n} is too large")
     dev = luts.device

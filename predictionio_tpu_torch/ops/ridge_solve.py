@@ -14,15 +14,20 @@ in float32 without pivoting (ALS-WR makes every system SPD).  Per method:
   registers up to rank ``REG_MAX_RANK`` (64; one thread per system to
   rank 16, one warp per system above), and an elimination in shared
   memory at ranks 65-128.  Up to rank 64 it reads only the lower
-  triangle of A, so A must be symmetric (K1 writes it so).
+  triangle of A, so A must be symmetric (K1 writes it so).  K4 is
+  Gauss-Jordan with the system in registers up to rank 64 too (one
+  thread per system to rank ``GJ_THREAD_MAX_RANK``, 12; one warp per
+  system above) and in shared memory at ranks 65-128; it reads all of A
+  and solves A as it is given, symmetric or not.
 - :func:`ridge_solve_lu` / :func:`ridge_solve_gj` — the dispatchers: CPU
   tensors take the reference, CUDA tensors take the kernel or raise.
   There is no fallback.
 
 ``LU_LAUNCHES`` and ``GJ_LAUNCHES`` count kernel launches per method.
 ``KERNEL_LAUNCHES`` counts them by the kernel the library reports it
-launched: ``"chol_thread"`` (one thread a system), ``"chol_warp"`` (one
-warp a system), ``"lu_shared"`` (the shared-memory LU) and ``"gj"``.
+launched: for K2 ``"chol_thread"`` (one thread a system), ``"chol_warp"``
+(one warp a system) and ``"lu_shared"`` (the shared-memory LU); for K4
+``"gj_thread"``, ``"gj_warp"`` and ``"gj_shared"``.
 The methods ``"lu_shared"``, ``"chol_warp"`` and ``"chol_thread16"``
 force one of K2's designs whatever the rank, only so that the tools
 time the designs on the same calls.
@@ -42,16 +47,20 @@ from predictionio_tpu_torch.ops import _build
 __all__ = ["ridge_solve_lu", "ridge_solve_gj", "ridge_solve_cuda",
            "ridge_solve_lu_reference", "ridge_solve_gj_reference",
            "supports", "solve_flops", "solve_cost", "MAX_RANK",
-           "REG_MAX_RANK", "LU_LAUNCHES", "GJ_LAUNCHES", "KERNEL_LAUNCHES"]
+           "REG_MAX_RANK", "GJ_THREAD_MAX_RANK", "LU_LAUNCHES",
+           "GJ_LAUNCHES", "KERNEL_LAUNCHES"]
 
 LU_LAUNCHES = 0
 GJ_LAUNCHES = 0
-_KERNELS = {1: "gj", 2: "lu_shared", 3: "chol_warp", 4: "chol_thread"}
+_KERNELS = {2: "lu_shared", 3: "chol_warp", 4: "chol_thread",
+            5: "gj_shared", 6: "gj_warp", 7: "gj_thread"}
 KERNEL_LAUNCHES = dict.fromkeys(_KERNELS.values(), 0)
 _LAUNCHES_LOCK = threading.Lock()
 
 MAX_RANK = 128          # csrc/ridge_solve.cu kMaxK
-REG_MAX_RANK = 64       # csrc/ridge_solve.cu kRegMaxK: K2 in registers
+REG_MAX_RANK = 64       # csrc/ridge_solve.cu kRegMaxK: K2 and K4 in
+                        # registers
+GJ_THREAD_MAX_RANK = 12  # kGJThreadMaxK: K4 one thread a system
 _METHODS = {"lu": 0, "gj": 1, "lu_shared": 2, "chol_warp": 3,
             "chol_thread16": 4}
 _SECTOR = 32            # bytes the memory moves at a time
@@ -178,8 +187,10 @@ def ridge_solve_cuda(a: torch.Tensor, b: torch.Tensor, reg: torch.Tensor,
     x [B, K] float32 on that device, queued on PyTorch's current stream.
 
     ``method``: "lu" = K2 (Cholesky in registers to ``REG_MAX_RANK``,
-    the shared-memory LU above it), "gj" = K4 (Gauss-Jordan, reads all
-    of A); for timing only, one of K2's designs at any rank it takes:
+    the shared-memory LU above it), "gj" = K4 (Gauss-Jordan in registers
+    to ``REG_MAX_RANK``, in shared memory above it; reads all of A and
+    takes A as it is, symmetric or not); for timing only, one of K2's
+    designs at any rank it takes:
     "lu_shared" (the shared-memory LU), "chol_warp" (one warp a system,
     ``K <= REG_MAX_RANK``), "chol_thread16" (one thread a system, padded
     to rank 16, ``K <= 16``).  Up to ``REG_MAX_RANK`` "lu" reads only the lower triangle of A (on

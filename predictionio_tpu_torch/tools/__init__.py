@@ -10,7 +10,7 @@ from typing import Callable
 
 import torch
 
-__all__ = ["cuda_ms", "require_cuda"]
+__all__ = ["cuda_ms", "require_cuda", "single_ms"]
 
 
 def require_cuda() -> torch.device:
@@ -36,3 +36,21 @@ def cuda_ms(fn: Callable[[], object], reps: int = 20, warmup: int = 3
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def single_ms(fn: Callable[[], object], reps: int = 3) -> float:
+    """Median device ms of single calls of ``fn``, each between its own
+    CUDA events, after one warm-up call; a spin kernel queued ahead of
+    each call hides the host's enqueue."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(4_000_000)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return sorted(times)[len(times) // 2]

@@ -2,7 +2,7 @@
 and the shared-memory read costs K1's tile layout rests on, on the card.
 
     python -m predictionio_tpu_torch.tools.exp_gram_calls \
-        [calls] [solve] [designs] [smem]
+        [calls] [solve] [designs] [gj] [smem]
 
 ``calls`` makes 25,000,000 ratings shaped like MovieLens-25M (the
 repository's benchmark generator: uniform users, Zipf(1.25) items,
@@ -34,6 +34,20 @@ rank (one thread a system, padded to the next of 4, 8, 12, 16), one
 thread a system padded to 16 (``"chol_thread16"``) and one warp a
 system (``"chol_warp"``), beside the bound.
 
+``gj`` times K4's designs against each other.  The package's source
+has one design a rank; each entry of ``GJ_VARIANTS`` is a copy of
+``csrc/ridge_solve.cu`` in the build directory with a few constants or
+lines edited so that it launches another design (one thread a system at
+KP 12 for every rank to 12; one warp a system from rank 1; the warp
+design with its column loops stopped at a rank K below KP; the
+shared-memory kernel, K4's first design, at every rank).  Each copy and the package's
+source are built by their own ``nvcc``, all started together, and timed
+on 131,072 systems at each rank of ``GJ_RANKS`` and on the recorded
+calls of one ML-25M iteration at rank 64 and at rank 10
+(``solver="gj"`` makes the same calls as K2), beside the bound
+(``ridge_solve.solve_cost``, all of A).  Each variant's answers are held
+against the package's build.
+
 ``smem`` builds a small CUDA kernel with nvcc that streams 16-byte
 shared-memory reads (``LDS.128``, 64 warps an SM) in eight address
 patterns and prints each pattern's cost in SM cycles per warp-wide read,
@@ -46,7 +60,7 @@ import ctypes
 import json
 import subprocess
 import sys
-from typing import Callable, List, Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -56,12 +70,25 @@ from predictionio_tpu_torch.ops import _build
 from predictionio_tpu_torch.ops import fused_gram as fg
 from predictionio_tpu_torch.ops import ridge_solve as rs
 from predictionio_tpu_torch.ops.ragged import LEN_ALIGN
-from predictionio_tpu_torch.tools import require_cuda
+from predictionio_tpu_torch.tools import require_cuda, single_ms
 
 USERS, ITEMS, RATINGS = 162_541, 59_047, 25_000_000
 RANK = 64
-SECTIONS = ("calls", "solve", "designs", "smem")
+SECTIONS = ("calls", "solve", "designs", "gj", "smem")
 DESIGN_RANKS = (2, 4, 8, 10, 12, 16)
+GJ_RANKS = (2, 4, 8, 10, 12, 13, 16, 17, 24, 32, 33, 40, 48, 56, 64)
+# K4's variants: edits (old text -> new) of a copy of csrc/ridge_solve.cu
+GJ_VARIANTS = {
+    "k4": {},
+    "thread12": {"gj_thread_kernel<4>": "gj_thread_kernel<12>",
+                 "gj_thread_kernel<8>": "gj_thread_kernel<12>"},
+    "warp": {"kGJThreadMaxK = 12;": "kGJThreadMaxK = 0;"},
+    # the warp design's column loops stopped at K (tried; ptxas spills)
+    "column_bound": {"for (int c = c0; c < KP; c += 4) {":
+                     "for (int c = c0; c < KP; c += 4) { if (c >= K) break;"},
+    "shared": {"kGJThreadMaxK = 12;": "kGJThreadMaxK = 0;",
+               "kGJRegMaxK = 64;": "kGJRegMaxK = 0;"},
+}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 
@@ -102,23 +129,6 @@ SMEM_PATTERNS = ("32 addresses, 16 bytes apart",
                  "2 addresses a quarter",
                  "4 addresses a quarter",
                  "1 address a half warp")
-
-
-def single_ms(fn: Callable[[], object], reps: int = 3) -> float:
-    """Median device ms of single calls, each between its own CUDA events,
-    behind a spin kernel that hides the host's enqueue."""
-    fn()
-    times = []
-    for _ in range(reps):
-        torch.cuda._sleep(4_000_000)
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        fn()
-        t1.record()
-        t1.synchronize()
-        times.append(t0.elapsed_time(t1))
-    return sorted(times)[len(times) // 2]
 
 
 def ml25m_ratings(seed: int = 0):
@@ -300,6 +310,104 @@ def time_designs(dev: torch.device) -> None:
         f"{col} {total[col]:.4f} ms" for col in DESIGN_COLUMNS))
 
 
+def gj_variants() -> dict:
+    """The K4 variants' libraries by name: each an edited copy of
+    ``csrc/ridge_solve.cu`` in the build directory, one ``nvcc`` each,
+    all started together."""
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    source = (_build.CSRC_DIR / "ridge_solve.cu").read_text()
+    procs = {}
+    for name, edits in GJ_VARIANTS.items():
+        text = source
+        for old, new in edits.items():
+            if old not in text:
+                raise RuntimeError(f"K4 variant {name}: {old!r} is not in "
+                                   "csrc/ridge_solve.cu")
+            text = text.replace(old, new)
+        src = _build.BUILD_DIR / f"exp_gj_{name}.cu"
+        src.write_text(text)
+        out = _build.BUILD_DIR / f"libexp_gj_{name}.so"
+        procs[name] = (out, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (out, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for K4 variant {name}:\n{log}")
+        report, kernel = [], ""
+        for ln in log.splitlines():
+            if "Compiling entry function" in ln:
+                kernel = ln.split("'")[1] if "'" in ln else ln.strip()
+            elif "gj_" in kernel and ("registers" in ln or "spill" in ln):
+                report.append(f"{kernel}: {ln.strip()}")
+        print(f"gj variant {name}: ptxas " + json.dumps(report))
+        lib = ctypes.CDLL(str(out))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.pio_ridge_solve.argtypes = [i, p, p, p, i, i, p, p,
+                                        ctypes.POINTER(i)]
+        lib.pio_ridge_solve.restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def gj_solve(lib, a, b, reg) -> torch.Tensor:
+    """K4 (method 1) of one variant's library on PyTorch's stream."""
+    n, k = b.shape
+    x = torch.empty((n, k), dtype=torch.float32, device=a.device)
+    kernel = ctypes.c_int(0)
+    rc = lib.pio_ridge_solve(1, a.data_ptr(), b.data_ptr(), reg.data_ptr(),
+                             n, k, x.data_ptr(),
+                             torch.cuda.current_stream().cuda_stream,
+                             ctypes.byref(kernel))
+    if rc != 0:
+        raise RuntimeError(f"K4 variant launch failed (code {rc}, B={n}, "
+                           f"K={k})")
+    return x
+
+
+def gj_bound_ms(n: int, k: int) -> float:
+    n_bytes, flops = rs.solve_cost(n, k, "gj")
+    return max(n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+
+
+def time_gj(dev: torch.device) -> None:
+    libs = gj_variants()
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def row(a, b, reg):
+        want = gj_solve(libs["k4"], a, b, reg)
+        out = {}
+        for name, lib in libs.items():
+            x = gj_solve(lib, a, b, reg)
+            err = float((x - want).abs().max())
+            if not err <= 1e-3 * float(want.abs().max()):
+                raise RuntimeError(f"K4 variant {name} differs from the "
+                                   f"package's build by {err}")
+            out[name] = single_ms(lambda: gj_solve(lib, a, b, reg))
+        out["bound"] = gj_bound_ms(*b.shape)
+        return out
+
+    n = 131_072
+    for k in GJ_RANKS:
+        m = torch.randn((n, k, 16), generator=gen, device=dev)
+        a = (m @ m.mT) / 16
+        b = torch.randn((n, k), generator=gen, device=dev)
+        reg = torch.full((n,), 0.5, device=dev)
+        times = row(a, b, reg)
+        del m, a, b, reg
+        print(f"gj B {n} K {k:2d}  " + "  ".join(
+            f"{col} {ms:.5f} ms" for col, ms in times.items()))
+    for rank in (RANK, 10):
+        _, calls, _ = recorded_calls(*ml25m_inputs(dev, rank=rank))
+        total = {}
+        for a, b, reg in calls:
+            for col, ms in row(a, b, reg).items():
+                total[col] = total.get(col, 0.0) + ms
+        print(f"gj {len(calls)} calls of a rank-{rank} ML-25M iteration: "
+              + ", ".join(f"{col} {ms:.4f} ms" for col, ms in total.items()))
+        del calls
+
 def time_smem(dev: torch.device) -> None:
     src = _build.BUILD_DIR / "exp_smem.cu"
     lib_path = _build.BUILD_DIR / "libexp_smem.so"
@@ -339,6 +447,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         time_solves(dev)
     if "designs" in which:
         time_designs(dev)
+    if "gj" in which:
+        time_gj(dev)
     if "smem" in which:
         time_smem(dev)
 

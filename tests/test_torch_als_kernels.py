@@ -167,7 +167,10 @@ def _spd(seed, b, k):
     return a, rhs, reg
 
 
-@pytest.mark.parametrize("k", [8, 10, 64])
+# Ranks at the CUDA kernels' design edges: K4's one thread a system to
+# 12, one warp to 64 (KP 32 to rank 32), shared memory above; K2's one
+# thread to 16.  Every rank here is one gj_fits_vmem takes (k <= 68).
+@pytest.mark.parametrize("k", [8, 10, 16, 17, 33, 64, 65])
 @pytest.mark.parametrize("b", [1, 127, 129])
 def test_ridge_plain_matches_pallas_interpret_and_numpy(b, k):
     a, rhs, reg = _spd(b * 100 + k, b, k)
@@ -191,6 +194,34 @@ def test_ridge_plain_matches_pallas_interpret_and_numpy(b, k):
                                    atol=SOLVE_ATOL * scale)
         np.testing.assert_allclose(got, exact, rtol=SOLVE_RTOL,
                                    atol=SOLVE_ATOL * scale)
+
+
+@pytest.mark.parametrize("b,k", [(1, 10), (127, 17), (129, 64)])
+def test_ridge_gj_plain_solves_a_non_symmetric_a(b, k):
+    """K4 solves A as it is given, as the TPU kernel does: on a
+    non-symmetric, diagonally dominant A the port's Gauss-Jordan matches
+    the Pallas kernel in interpret mode and a float64 solve, and differs
+    from the solve of A's symmetric part."""
+    rng = np.random.default_rng(1000 * b + k)
+    a = (0.5 * rng.standard_normal((b, k, k))
+         + k * np.eye(k)).astype(np.float32)
+    rhs = rng.standard_normal((b, k)).astype(np.float32)
+    reg = (0.05 * rng.integers(1, 40, b)).astype(np.float32)
+    assert not np.array_equal(a, np.swapaxes(a, 1, 2))
+    exact = np.linalg.solve(
+        a.astype(np.float64) + reg[:, None, None] * np.eye(k),
+        rhs.astype(np.float64)[..., None])[..., 0]
+    got = rs.ridge_solve_gj(*map(torch.from_numpy, (a, rhs, reg))).numpy()
+    want = np.asarray(ridge_solve_gj_pallas(
+        jnp.asarray(a), jnp.asarray(rhs), jnp.asarray(reg), interpret=True))
+    scale = np.abs(exact).max()
+    np.testing.assert_allclose(got, want, rtol=SOLVE_RTOL,
+                               atol=SOLVE_ATOL * scale)
+    np.testing.assert_allclose(got, exact, rtol=SOLVE_RTOL,
+                               atol=SOLVE_ATOL * scale)
+    sym = (a + np.swapaxes(a, 1, 2)) / 2
+    other = rs.ridge_solve_gj(*map(torch.from_numpy, (sym, rhs, reg)))
+    assert np.abs(other.numpy() - exact).max() > 100 * SOLVE_ATOL * scale
 
 
 def test_ridge_wrapper_refuses_cpu_tensors_and_counts_flops():

@@ -288,6 +288,65 @@ def test_ridge_solve_forced_designs_match_reference(cuda_dev, method, k):
         rs.ridge_solve_cuda(a, rhs, reg, method)
 
 
+# K4's designs: one thread a system (KP 4, 8, 12) to rank 12, one warp
+# (KP 32, 64) to 64, the shared-memory kernel above; B around a tile of
+# 32 systems and a block of 4 warps.
+GJ_RANKS = (1, 4, 5, 8, 9, 12, 13, 16, 17, 32, 33, 63, 64, 65, 128)
+
+
+def _gj_kernel(k):
+    return ("gj_thread" if k <= rs.GJ_THREAD_MAX_RANK else
+            "gj_warp" if k <= rs.REG_MAX_RANK else "gj_shared")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", GJ_RANKS)
+@pytest.mark.parametrize("b", [1, 31, 32, 33])
+def test_ridge_solve_gj_designs_match_reference_and_float64(cuda_dev, b, k):
+    """K4 at every design edge takes the design of its rank, as the
+    library reports it, and matches its plain version and a float64
+    solve."""
+    a, rhs, reg = _spd(b, k, 11 * b + k, cuda_dev)
+    before = (rs.GJ_LAUNCHES, dict(rs.KERNEL_LAUNCHES))
+    x = rs.ridge_solve_gj(a, rhs, reg)
+    torch.cuda.synchronize()
+    kernel = _gj_kernel(k)
+    assert (rs.GJ_LAUNCHES, rs.KERNEL_LAUNCHES) == \
+        (before[0] + 1, {**before[1], kernel: before[1][kernel] + 1})
+    want = rs.ridge_solve_gj_reference(a, rhs, reg)
+    atol = SOLVE_ATOL * float(want.abs().max())
+    torch.testing.assert_close(x, want, rtol=SOLVE_RTOL, atol=atol)
+    torch.testing.assert_close(x, _exact(a, rhs, reg), rtol=SOLVE_RTOL,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k", [(40, 3), (70, 10), (33, 12), (9, 13),
+                                 (40, 33), (100, 64), (5, 100)])
+def test_ridge_solve_gj_reads_all_of_a_non_symmetric(cuda_dev, b, k):
+    """K4 solves A as it is given: a non-symmetric, diagonally dominant A
+    matches the plain version and a float64 solve, and A stored at an
+    address that is not 16-byte aligned takes the scalar staging."""
+    rng = np.random.default_rng(b * k)
+    a = (0.5 * rng.standard_normal((b, k, k)) + k * np.eye(k))
+    rhs = rng.standard_normal((b, k))
+    reg = 0.05 * rng.integers(1, 40, b)
+    a, rhs, reg = (torch.from_numpy(t.astype(np.float32)).to(cuda_dev)
+                   for t in (a, rhs, reg))
+    flat = torch.empty(b * k * k + 1, device=cuda_dev)
+    shifted = flat[1:].view(b, k, k)
+    shifted.copy_(a)
+    want = rs.ridge_solve_gj_reference(a, rhs, reg)
+    atol = SOLVE_ATOL * float(want.abs().max())
+    for given in (a, shifted):
+        x = rs.ridge_solve_gj(given, rhs, reg)
+        torch.testing.assert_close(x, want, rtol=SOLVE_RTOL, atol=atol)
+        torch.testing.assert_close(x, _exact(a, rhs, reg), rtol=SOLVE_RTOL,
+                                   atol=atol)
+    sym = rs.ridge_solve_gj(((a + a.mT) / 2).contiguous(), rhs, reg)
+    assert float((sym - want).abs().max()) > 100 * atol
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,k", [(45, 3), (70, 10), (33, 16), (9, 17),
                                  (40, 33), (100, 64)])
@@ -340,11 +399,21 @@ def _pq_inputs(b, s, n, seed, dev):
     return luts, codes
 
 
+# The plan's edges: 16 items a thread a round at B 1 (one 16-byte code
+# load a table when N % 16 == 0, byte loads otherwise), 4 at B > 1 (a
+# 4-byte load when N % 4 == 0); B 1/7/8/9/64 around the 8 queries a block;
+# n_valid tails inside a round; k up to the plan's limit.
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,n,k,n_valid", [
     (1, 17, 100_003, 40, None), (3, 1, 511, 10, None), (8, 5, 1, 1, None),
     (9, 17, 20_000, 1000, 19_000), (64, 33, 5000, 40, None),
     (2, 65, 12_000, 4000, None), (5, 65, 3000, 300, 2999),
+    (1, 17, 1_048_576, 40, None), (1, 17, 65_536, 40, 65_535),
+    (1, 17, 65_540, 40, None), (1, 5, 4095, 100, 4001),
+    (7, 17, 65_536, 40, None), (8, 17, 65_540, 40, 40_001),
+    (9, 17, 65_539, 40, None), (64, 17, 131_072, 40, 131_071),
+    (1, 3, 100, 100, None), (2, 17, 40_000, 16_128, None),
+    (1, 17, 20_000, 256, None), (1, 17, 20_000, 257, None),
 ])
 def test_pq_scan_matches_reference(cuda_dev, b, s, n, k, n_valid):
     luts, codes = _pq_inputs(b, s, n, b + s + n, cuda_dev)
@@ -366,15 +435,19 @@ def test_pq_scan_matches_reference(cuda_dev, b, s, n, k, n_valid):
 @pytest.mark.cuda
 def test_pq_scan_ties_prefer_lower_id_and_unfilled_slots(cuda_dev):
     """One table: every item scores one of 256 values, so scores tie;
-    the kernel ranks the lower id first.  Fewer valid items than k: the
-    tail slots read NEG_INF / -1."""
+    the kernel ranks the lower id first, in blocks of one query and of
+    several.  Fewer valid items than k: the tail slots read NEG_INF /
+    -1."""
+    for b, n, k in ((2, 3000, 3000), (9, 3000, 3000), (1, 50_000, 40),
+                    (9, 50_001, 40)):
+        luts, codes = _pq_inputs(b, 1, n, n + b, cuda_dev)
+        s, i = pqs.pq_scan_cuda(luts, codes, k)
+        s, i = s.cpu().numpy(), i.cpu().numpy()
+        ref = luts[:, 0].cpu().numpy()[:, codes[0].long().cpu().numpy()]
+        for row in range(b):
+            key = np.lexsort((np.arange(n), -ref[row]))[:k]
+            assert (i[row] == key).all() and (s[row] == ref[row][key]).all()
     luts, codes = _pq_inputs(2, 1, 3000, 1, cuda_dev)
-    s, i = pqs.pq_scan_cuda(luts, codes, 3000)
-    s, i = s.cpu().numpy(), i.cpu().numpy()
-    for row in range(2):
-        assert sorted(i[row].tolist()) == list(range(3000))
-        key = np.lexsort((i[row], -s[row]))
-        assert (key == np.arange(3000)).all()
     s, i = pqs.pq_scan_cuda(luts, codes, 10, n_valid=4)
     s, i = s.cpu().numpy(), i.cpu().numpy()
     assert (np.sort(i[:, :4], axis=1) == np.arange(4)).all()

@@ -44,7 +44,8 @@ TRAINING_SLICE = (
 # import without a card and build their inputs only when run.
 IVF_PQ_SLICE = (
     "retrieval.ivf", "retrieval.pq", "ops.pq_scan", "ops.gather",
-    "tools.exp_gram", "tools.exp_gather2",
+    "tools.exp_gram", "tools.exp_gather2", "tools.exp_gram_calls",
+    "tools.exp_pq",
 )
 
 

@@ -218,17 +218,25 @@ def test_pq_scan_n_valid_masks_and_dispatcher_edges():
 @pytest.mark.parametrize("b,n,s,k", [(1, 1, 1, 1), (1, 1_048_576, 17, 40),
                                      (64, 1_048_576, 17, 40),
                                      (3, 100_003, 65, 4000),
-                                     (8, 511, 33, 1000)])
+                                     (8, 511, 33, 1000), (9, 4095, 17, 10),
+                                     (2, 40_000, 17, 16_128),
+                                     (7, 0, 5, 3)])
 def test_pq_scan_plan_geometry(b, n, s, k):
+    """A block of one query scores 16 items a thread a round, a block of
+    several 4; every chunk is whole rounds and the chunks cover the
+    scanned items; the merge's candidates stay within MAX_CANDIDATES."""
     p = pqs.plan(b, n, s, k)
     assert p.buffer >= k + pqs.THREADS and p.buffer & (p.buffer - 1) == 0
     per_query = s * 256 * 4 + p.buffer * 8
-    assert 1 <= p.queries_per_block <= pqs.MAX_QUERIES_PER_BLOCK
+    assert 1 <= p.queries_per_block <= min(b, pqs.MAX_QUERIES_PER_BLOCK)
     assert p.queries_per_block * per_query <= pqs.SMEM_BUDGET
-    assert p.rows_per_chunk % pqs.THREADS == 0
+    assert p.items_per_thread == (16 if p.queries_per_block == 1 else 4)
+    assert p.rows_per_chunk % (pqs.THREADS * p.items_per_thread) == 0
     assert (p.n_chunks - 1) * p.rows_per_chunk < max(n, 1) \
         <= p.n_chunks * p.rows_per_chunk
     assert p.n_chunks * k <= max(pqs.MAX_CANDIDATES, k)
+    groups = -(-b // p.queries_per_block)
+    assert groups * p.n_chunks <= max(pqs.TARGET_BLOCKS + groups, groups)
 
 
 def test_pq_scan_plan_rejects_k_beyond_shared_memory():
