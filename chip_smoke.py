@@ -12,9 +12,13 @@ cannot be imported, or when any phase fails.  Phases, in order:
 1. device  — the card's name and power limit, and the kernel builds
    (every csrc/*.cu compiled by its own nvcc, all started together).
 2. kernel  — the fused top-k kernel (K3) against its plain PyTorch
-   version on the card (float32, TF32 off), then CUDA-event timings of
-   kernel, plain version, one library call as a yardstick, and the least
-   time the card could take (bound).
+   version on the card (float32, TF32 off) over a grid of N, B, k, D
+   and n_valid and both score passes' edges (the tiled route's
+   crossover at D 10, 63/65/128 queries, k at a tiled block's limit,
+   n_valid inside a tile, exact ties), then CUDA-event timings at B 1,
+   8 and 64 of kernel, the small-B route (the parent's design), plain
+   version, one library call as a yardstick, and the least time the
+   card could take (bound); ptxas's report of the tiled kernels.
 3. kernel  — the training kernels, fused gram (K1), the ridge solve (K2:
    Cholesky with the system in registers to rank 64, the shared-memory
    LU above) and Gauss-Jordan solve (K4: in registers to rank 64, one
@@ -57,8 +61,10 @@ cannot be imported, or when any phase fails.  Phases, in order:
    its time split into the score and merge passes (torch.profiler).
 9. kernel  — the gather experiments' kernels, T1 (gather + weighted
    Gram) and T2 (gather + sum), against their plain versions at the
-   tools' shape, timed likewise, then driven through the tools' own
-   entry points (exp_gram, exp_gather2), which must launch them.
+   tools' shape, timed likewise, T2 also under four index distributions
+   beside the warp design it replaced (bitwise equal), then driven
+   through the tools' own entry points (exp_gram, exp_gather2), which
+   must launch them.
 10. pq     — a 1,048,576-item catalog (rank 64): an IVF index
    (PIO_IVF=on) and PQ codes on top of it (the default policy: M = 16)
    built as ALSAlgorithm.train builds them, persisted, deployed; 16
@@ -969,6 +975,123 @@ def pq_kernel_phase(dev, seed: int, pqs, tpq, topk_mismatch, card: str):
     return err, rows
 
 
+def tiled_report(_build) -> list:
+    """ptxas's registers and spills of K3's tiled score pass kernels."""
+    path = _build.library_path("fused_topk")
+    lines, kernel = [], ""
+    for ln in path.with_name(path.name + ".log").read_text().splitlines():
+        if "Compiling entry function" in ln:
+            kernel = ln.split("'")[1] if "'" in ln else ln.strip()
+        elif "topk_tiled_pass" in kernel and ("registers" in ln
+                                             or "spill" in ln):
+            lines.append(f"{kernel.split('topk_tiled_pass')[1][:6]}: "
+                         f"{ln.replace('ptxas info    :', '').strip()}")
+    return lines
+
+
+def topk_kernel_phase(dev, ft, _build, topk_mismatch, queries_d, corpus,
+                      card: str):
+    """Phase 2: K3 against its plain version over a grid of N, B, k, D and
+    n_valid, both score passes' edges and exact ties, then timed at B 1,
+    8 and 64 beside the small-B route (the parent's design), its plain
+    version, the library yardstick and its bound.  Returns (max |score
+    err|, {(N, B, k): timing row})."""
+    import torch
+
+    ml, big = ML25M_ITEMS, BIG_ITEMS
+    c = ft.TILED_MIN_BATCH
+    # (N, B, k, n_valid, D): the grid, then the tiled route's edges: B
+    # around the crossover (D 10 takes it from c on), around a 64-query
+    # block, D 10 at B 64, k at a tiled block's limit (1,024 at D 64) and
+    # past it, n_valid inside a tile (N 59,047 is no tile multiple)
+    cases = [(n, b, k, None, RANK) for n in (ml, big) for b in (1, 8, 64)
+             for k in (10, 100, 1000)]
+    cases += [(ml, 8, 100, 50_000, RANK), (big, 64, 1000, big - 777, RANK),
+              (ml, 1, 10, None, 10), (ml, c - 1, 10, None, 10),
+              (ml, c, 10, None, 10), (ml, c + 1, 10, None, 10),
+              (ml, 63, 10, None, RANK), (ml, 65, 10, None, RANK),
+              (ml, 128, 10, None, RANK), (big, 128, 10, None, RANK),
+              (ml, 64, 10, None, 10), (big, 64, 10, None, 10),
+              (ml, 64, 1024, None, RANK), (ml, 64, 1025, None, RANK),
+              (ml, 64, 10, ml - 50, RANK), (ml, 64, 100, 1000, 10)]
+    routes = {True: 0, False: 0}
+    max_err = 0.0
+    for n, b, k, n_valid, d in cases:
+        q = queries_d[:b, :d].contiguous()
+        items = corpus[n] if d == RANK else corpus[n][:, :d].contiguous()
+        routes[ft.plan(b, n if n_valid is None else n_valid, d,
+                       k).tiled] += 1
+        s, i = ft.fused_topk_cuda(q, items, k, n_valid=n_valid)
+        torch.cuda.synchronize()
+        max_err = max(max_err, check_against_plain(
+            s.cpu().numpy(), i.cpu().numpy(), q, items, k, n_valid,
+            f"kernel N={n} B={b} k={k} n_valid={n_valid} D={d}", ft,
+            topk_mismatch))
+        del items
+    # exact ties on the tiled route: four copies of the best row, in
+    # other tiles and chunks, come out lowest id first for every query
+    tie_rows = [10, 300, 1500, 19_999]
+    items = corpus[ml][:20_000].clone()
+    items[tie_rows] = 5.0
+    q = queries_d[:64].abs().contiguous()
+    if not ft.plan(64, 20_000, RANK, 10).tiled:
+        die("phase 2: the tie case does not take the tiled route")
+    s, i = ft.fused_topk_cuda(q, items, 10)
+    s, i = s.cpu().numpy(), i.cpu().numpy()
+    if not ((i[:, :4] == tie_rows).all() and (s[:, :4] == s[:, :1]).all()):
+        die(f"phase 2: tied rows {tie_rows} came out as {i[:3, :4]} "
+            f"(scores {s[:3, :4]})")
+    max_err = max(max_err, check_against_plain(
+        s, i, q, items, 10, None, "kernel ties B=64", ft, topk_mismatch))
+    del items
+    log(f"phase 2 kernel: fused_topk matches the plain version in "
+        f"{len(cases) + 1} cases ({routes[True]} on the tiled route, "
+        f"{routes[False]} on the small-B route; N in {{{ml}, {big}}}, B in "
+        f"{{1, 8, 64}} x k in {{10, 100, 1000}}, n_valid < N, D 10; edges "
+        f"B {c - 1}/{c}/{c + 1} at D 10, B 63/65/128, k 1024/1025, n_valid "
+        f"inside a tile; exact ties at B 64 lowest id first); max |score "
+        f"err| {max_err:.3g} (rtol {RTOL}, atol {ATOL})")
+    log("phase 2 ptxas (tiled score pass, by queries a block): "
+        + json.dumps(tiled_report(_build)))
+
+    lib = ft.bind(_build.load("fused_topk"))
+    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    timings = {}
+    k = 10
+    for n in (ml, big):
+        items = corpus[n]
+        for b in (1, 8, 64):
+            q = queries_d[:b].contiguous()
+            reps = 50 if n == ml else 10
+            small = ft.small_plan(b, n, RANK, k)
+            fns = {"": lambda: ft.fused_topk_cuda(q, items, k),
+                   "small_": lambda: ft.launch(lib, q, items, k, n, small),
+                   "plain_": lambda: ft.fused_topk_reference(q, items, k),
+                   "library_": lambda: torch.topk(q @ items.T, k)}
+            row = {"route": "tiled" if ft.plan(b, n, RANK, k).tiled
+                   else "small"}
+            times = {}
+            for _ in range(2):   # in turns, twice
+                for tag, fn in fns.items():
+                    times.setdefault(f"{tag}ms", []).append(
+                        time_single(fn, reps))
+                    times.setdefault(f"{tag}ms_stream", []).append(
+                        time_stream(fn, reps))
+            row.update({name: min(v) for name, v in times.items()})
+            if n == ml:   # the corpus fits in L2: time it cold too
+                row["ms_cold"] = time_single(fns[""], 20,
+                                             flush=flush_buf.zero_)
+            row["bound_ms"], row["bound_by"] = bound(b, n, RANK, k)
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            timings[(n, b, k)] = row
+            log("phase 2 timing: " + json.dumps(
+                {"N": n, "B": b, "D": RANK, "k": k, "card": card,
+                 "small": "the small-B route (the parent's design)",
+                 "library": "torch.topk(q @ items.T, k)", **row}))
+    del flush_buf
+    return max_err, timings
+
+
 def gather_kernels_phase(dev, seed: int, mods, card: str):
     """Phase 9: T1 and T2 against their plain versions at the tools'
     shape, timed, then driven through the tools' entry points.  Returns
@@ -1060,7 +1183,36 @@ def gather_kernels_phase(dev, seed: int, mods, card: str):
         log("phase 9 timing: " + json.dumps(
             {"kernel": name, "I": i_rows, "K": k, "R": r, "L": l,
              "library": lib_note, "card": card, **row}))
-    del f, fw, idx64, t, y, idx, w
+    del f, fw, idx64
+
+    # T2 by index distribution (the tool's Zipf, its 2,048-row head, all
+    # zero, uniform), the vec4 design beside the warp design it replaced;
+    # the two add in the same order, so they must agree bit for bit
+    dists = exp_gather2.distributions(
+        {"idx": idx, "idx_head": torch.clamp(idx, max=2047)}, seed)
+    by_dist = {}
+    for name, ix in dists.items():
+        vec4 = gt.gather_sum_cuda(y, ix)
+        warp = gt.gather_sum_cuda(y, ix, design="warp")
+        if not torch.equal(vec4, warp):
+            die(f"gather_sum {name}: the vec4 and warp designs differ")
+        err_t2 = max(err_t2, assert_close(
+            vec4, gt.gather_sum_reference(y, ix), 0.0,
+            gram_atol(l, gt.gather_sum_reference(y.abs(), ix)),
+            f"gather_sum {name} indices"))
+        times = {"ms": [], "warp_ms": []}
+        for _ in range(2):   # in turns, twice
+            times["ms"].append(time_single(
+                lambda: gt.gather_sum_cuda(y, ix), 10))
+            times["warp_ms"].append(time_single(
+                lambda: gt.gather_sum_cuda(y, ix, design="warp"), 10))
+        by_dist[name] = {n_: min(v) for n_, v in times.items()}
+    rows["gather_sum"].update(max_abs_err=err_t2,
+                              warp_ms=by_dist["zipf"]["warp_ms"])
+    log("phase 9 T2 by index distribution (ms; vec4 design, and the warp "
+        "design it replaced; bitwise equal): " + json.dumps(
+            {"card": card, **by_dist}))
+    del dists, t, y, idx, w
     torch.cuda.empty_cache()
 
     fg.GATHER_GRAM_LAUNCHES = 0             # main path (T1) starts here
@@ -1387,67 +1539,14 @@ def main() -> int:
     big_np = rng.standard_normal((BIG_ITEMS, RANK), np.float32) / scale
     items_d = torch.from_numpy(items_np).to(dev)
     big_d = torch.from_numpy(big_np).to(dev)
-    queries_d = torch.from_numpy(users_np[:64]).to(dev).contiguous()
+    queries_d = torch.from_numpy(users_np[:128]).to(dev).contiguous()
     log(f"data: seed {args.seed}, factors made in "
         f"{time.perf_counter() - t0:.1f} s")
 
     # -- phase 2: kernel vs plain version --------------------------------
-    max_err = 0.0
-    cases = [(n, b, k, None) for n in (ML25M_ITEMS, BIG_ITEMS)
-             for b in (1, 8, 64) for k in (10, 100, 1000)]
-    cases += [(ML25M_ITEMS, 8, 100, 50_000),          # n_valid < N
-              (BIG_ITEMS, 64, 1000, BIG_ITEMS - 777)]  # ragged, n_valid
-    corpus = {ML25M_ITEMS: items_d, BIG_ITEMS: big_d}
-    for n, b, k, n_valid in cases:
-        q = queries_d[:b].contiguous()
-        s, i = ft.fused_topk_cuda(q, corpus[n], k, n_valid=n_valid)
-        torch.cuda.synchronize()
-        max_err = max(max_err, check_against_plain(
-            s.cpu().numpy(), i.cpu().numpy(), q, corpus[n], k, n_valid,
-            f"kernel N={n} B={b} k={k} n_valid={n_valid}", ft,
-            topk_mismatch))
-    # rank 10 (the shipped engine.json) takes the scalar load path
-    q10 = queries_d[:8, :10].contiguous()
-    it10 = items_d[:, :10].contiguous()
-    s, i = ft.fused_topk_cuda(q10, it10, 10)
-    torch.cuda.synchronize()
-    max_err = max(max_err, check_against_plain(
-        s.cpu().numpy(), i.cpu().numpy(), q10, it10, 10, None,
-        "kernel D=10", ft, topk_mismatch))
-    log(f"phase 2 kernel: fused_topk matches the plain version in "
-        f"{len(cases) + 1} cases (N in {{{ML25M_ITEMS}, {BIG_ITEMS}}}, "
-        f"B in {{1, 8, 64}}, k in {{10, 100, 1000}}, n_valid < N, "
-        f"N % 256 != 0, D=10); max |score err| {max_err:.3g} "
-        f"(rtol {RTOL}, atol {ATOL})")
-
-    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
-    timings = {}
-    for n in (ML25M_ITEMS, BIG_ITEMS):
-        for b in (1, 64):
-            k = 10
-            q = queries_d[:b].contiguous()
-            items = corpus[n]
-            reps = 50 if n == ML25M_ITEMS else 10
-            fns = {"": lambda: ft.fused_topk_cuda(q, items, k),
-                   "plain_": lambda: ft.fused_topk_reference(q, items, k),
-                   "library_": lambda: torch.topk(q @ items.T, k)}
-            row = {}
-            for _ in range(2):   # kernel, plain, library; twice, in turns
-                for tag, fn in fns.items():
-                    row.setdefault(f"{tag}ms", []).append(
-                        time_single(fn, reps))
-                    row.setdefault(f"{tag}ms_stream", []).append(
-                        time_stream(fn, reps))
-            row = {name: min(v) for name, v in row.items()}
-            if n == ML25M_ITEMS:   # the corpus fits in L2: time it cold too
-                row["ms_cold"] = time_single(fns[""], 20,
-                                             flush=flush_buf.zero_)
-            row["bound_ms"], row["bound_by"] = bound(b, n, RANK, k)
-            row["share_of_bound"] = row["bound_ms"] / row["ms"]
-            timings[(n, b, k)] = row
-            log("phase 2 timing: " + json.dumps(
-                {"N": n, "B": b, "D": RANK, "k": k, "card": card, **row}))
-    del flush_buf
+    max_err, timings = topk_kernel_phase(
+        dev, ft, _build, topk_mismatch, queries_d,
+        {ML25M_ITEMS: items_d, BIG_ITEMS: big_d}, card)
 
     # -- phase 3: training kernels vs their plain versions ----------------
     train_kernel_err = training_kernels_phase(dev, fg, rs, card)
@@ -1615,6 +1714,7 @@ def main() -> int:
 
     # -- phase 12: report --------------------------------------------------
     main_shape = timings[(ML25M_ITEMS, 1, 10)]
+    b64 = timings[(ML25M_ITEMS, 64, 10)]   # a full batch of query_batch
     kernels = [{
         "name": "fused_topk",
         "route": "cuda",
@@ -1627,6 +1727,11 @@ def main() -> int:
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
         "library_ms": main_shape["library_ms"],
+        "ms_b64": b64["ms"],
+        "plain_ms_b64": b64["plain_ms"],
+        "library_ms_b64": b64["library_ms"],
+        "bound_ms_b64": b64["bound_ms"],
+        "bound_by_b64": b64["bound_by"],
     }]
     replaces = {"fused_gram": "predictionio_tpu/ops/pallas_kernels.py:135",
                 "ridge_solve_lu": "predictionio_tpu/ops/pallas_kernels.py:358",

@@ -12,13 +12,14 @@
 //
 // offer_block is the round-at-a-time form of the same buffer, for
 // passes whose threads hold many candidates each (the PQ scan's score
-// pass and topk_merge_pass): every thread offers all of its candidates
-// at once, with one block barrier a round instead of one a tile.  While
-// a query's buffer has no threshold yet, the round itself gives one:
-// each warp ranks its lanes' best candidates with a shuffle sort, and
-// the worst of the warps' c-th best, c = ceil(k / warps), is beaten or
-// matched by at least k candidates, so nothing below it can rank.  That
-// keeps the first round from filling the buffer with every candidate.
+// pass, K3's tiled score pass and topk_merge_pass): every thread offers
+// all of its candidates at once, with one block barrier a round instead
+// of one a tile.  While a query's buffer has no threshold yet, the round
+// itself gives one: each warp ranks its lanes' best candidates with a
+// shuffle sort, and the worst of the warps' c-th best, c = ceil(k /
+// warps offering that query), is beaten or matched by at least k
+// candidates, so nothing below it can rank.  That keeps the first round
+// from filling the buffer with every candidate.
 //
 // Ranking: higher score first, lower id first among equal scores.  Slots
 // that no candidate fills come out as score -3.4e38 and id -1.
@@ -172,28 +173,37 @@ __device__ __forceinline__ Cand warp_rank(Cand m, int c) {
               __shfl_sync(kAllLanes, m.id, c - 1)};
 }
 
-// Offer every thread's NC candidates (score s[u], id[u], of query
-// u / PER_Q; only those whose bit is set in `valid`) to the block's
-// rows.  A candidate that beats its query's threshold is appended; when
-// a row is full, the block merges the rows and offers what is left
-// again.  Every thread of the block (kBoundWarps warps) must call it,
-// with the same rows; it starts and ends with no barrier pending, so
-// merge_rows may follow directly only after a __syncthreads().
-template <int NC, int PER_Q>
+// Offer every thread's NC candidates (score s[u], id[u], of row
+// q0 + u / PER_Q; only those whose bit is set in `valid`) to the block's
+// rows.  A candidate that beats its row's threshold is appended; when a
+// row is full, the block merges the rows and offers what is left again.
+// Every thread of the block (kBoundWarps warps) must call it; it starts
+// and ends with no barrier pending, so merge_rows may follow directly
+// only after a __syncthreads().
+//
+// GROUPS splits the block's warps into query groups: warp w offers for
+// the rows of group w % GROUPS, and every lane of a warp passes the same
+// q0.  With GROUPS = 1 (the PQ scan and the merge pass) every thread
+// offers for the same rows and q0 is 0.
+template <int NC, int PER_Q, int GROUPS = 1>
 __device__ void offer_block(const float (&s)[NC], const int (&id)[NC],
-                            unsigned valid, const Rows& r) {
+                            unsigned valid, const Rows& r, int q0 = 0) {
   static_assert(NC <= 32 && NC % PER_Q == 0, "one bit a candidate");
+  static_assert(kBoundWarps % GROUPS == 0, "whole warps a group");
   constexpr int NQ = NC / PER_Q;
-  const int c = (r.k + kBoundWarps - 1) / kBoundWarps;
+  constexpr int kRowWarps = kBoundWarps / GROUPS;  // warps offering a row
+  const int c = (r.k + kRowWarps - 1) / kRowWarps;
   // While a row has no threshold, this round's candidates bound it.
   bool open[NQ];
   bool any_open = false;
 #pragma unroll
   for (int q = 0; q < NQ; ++q) {
-    open[q] = q < r.nq && r.thr_i[q] == kFillerId && c <= 32;
+    open[q] = q0 + q < r.nq && r.thr_i[q0 + q] == kFillerId && c <= 32;
     any_open |= open[q];
   }
-  if (any_open) {  // uniform: thresholds change only between barriers
+  // Thresholds change only between barriers, so with one group any_open
+  // is uniform; groups hold other rows and agree on it first.
+  if (GROUPS == 1 ? any_open : __syncthreads_or(any_open)) {
 #pragma unroll
     for (int q = 0; q < NQ; ++q) {
       if (!open[q]) continue;
@@ -204,7 +214,7 @@ __device__ void offer_block(const float (&s)[NC], const int (&id)[NC],
           m = Cand{s[u], id[u]};
       const Cand t = warp_rank(m, c);
       if ((threadIdx.x & 31) == 0)
-        r.bound[q * kBoundSlots + (threadIdx.x >> 5)] = t;
+        r.bound[(q0 + q) * kBoundSlots + (threadIdx.x >> 5) / GROUPS] = t;
     }
     __syncthreads();
   }
@@ -212,24 +222,27 @@ __device__ void offer_block(const float (&s)[NC], const int (&id)[NC],
   int eff_i[NQ];
 #pragma unroll
   for (int q = 0; q < NQ; ++q) {
-    eff_s[q] = q < r.nq ? r.thr_s[q] : INFINITY;
-    eff_i[q] = q < r.nq ? r.thr_i[q] : kFillerId;
+    eff_s[q] = q0 + q < r.nq ? r.thr_s[q0 + q] : INFINITY;
+    eff_i[q] = q0 + q < r.nq ? r.thr_i[q0 + q] : kFillerId;
     if (open[q]) {
-      // At least c candidates of every warp are as good as its bound, so
-      // k or more are as good as the worst bound: a candidate below it
-      // cannot rank.  The bound itself may: the threshold is the pair
-      // just below it, (score, id + 1).  An earlier round's bound holds
-      // too; the best so far is kept (every thread computes the same, so
-      // the unordered write is harmless).
-      Cand* slots = r.bound + q * kBoundSlots;
+      // At least c candidates of every warp of the row are as good as its
+      // bound, so k or more are as good as the worst bound: a candidate
+      // below it cannot rank.  The bound itself may: the threshold is the
+      // pair just below it, (score, id + 1).  An earlier round's bound
+      // holds too; the best so far is kept (every thread of the group
+      // computes the same, so the unordered write is harmless).
+      Cand* slots = r.bound + (q0 + q) * kBoundSlots;
       Cand w = slots[0];
 #pragma unroll
-      for (int v = 1; v < kBoundWarps; ++v)
+      for (int v = 1; v < kRowWarps; ++v)
         if (better(w.s, w.id, slots[v].s, slots[v].id)) w = slots[v];
       if (w.id != kFillerId) w.id += 1;
       const Cand best = slots[kBoundWarps];
       if (better(best.s, best.id, w.s, w.id)) w = best;
-      if (threadIdx.x == 0) slots[kBoundWarps] = w;
+      const bool writer = GROUPS == 1 ? threadIdx.x == 0
+                                      : (threadIdx.x & 31) == 0 &&
+                                            (threadIdx.x >> 5) < GROUPS;
+      if (writer) slots[kBoundWarps] = w;
       eff_s[q] = w.s;
       eff_i[q] = w.id;
     }
@@ -245,7 +258,7 @@ __device__ void offer_block(const float (&s)[NC], const int (&id)[NC],
 #pragma unroll
     for (int u = 0; u < NC; ++u) {
       if (!(pend >> u & 1)) continue;
-      const int q = u / PER_Q;
+      const int q = q0 + u / PER_Q;
       const int p = atomicAdd(&r.cnt[q], 1);
       if (p < cap) {
         r.buf[(q << r.log_s) + r.k + p] = Cand{s[u], id[u]};
@@ -259,7 +272,7 @@ __device__ void offer_block(const float (&s)[NC], const int (&id)[NC],
     merge_rows(r.buf, r.nq, r.S, r.log_s, r.k, r.cnt, r.thr_s, r.thr_i);
 #pragma unroll
     for (int u = 0; u < NC; ++u) {
-      const int q = u / PER_Q;
+      const int q = q0 + u / PER_Q;
       if ((pend >> u & 1) && !better(s[u], id[u], r.thr_s[q], r.thr_i[q]))
         pend &= ~(1u << u);
     }

@@ -7,7 +7,11 @@ Port of ``fused_topk_pallas`` / ``fused_topk`` in
   mask + ``torch.topk``); it materializes the [B, N] score block.
 - :func:`fused_topk_cuda` — launches the hand-written CUDA kernel
   (``predictionio_tpu_torch/csrc/fused_topk.cu``), which never writes the
-  score block: one read of the corpus plus O(B·chunks·k) scratch.
+  score block: one read of the corpus plus O(B·chunks·k) scratch.  Its
+  score pass has two routes, picked by :func:`plan`: register-tiled
+  blocks of up to 64 queries over a ``cp.async`` corpus ring, and one
+  thread a row for what the tiled blocks do not take (small B on rows
+  that are not whole float4s, k or D too large for their shared memory).
 - :func:`fused_topk` — the dispatcher: CPU tensors take the reference,
   CUDA tensors take the kernel or raise.  There is no fallback.
 
@@ -35,59 +39,122 @@ from predictionio_tpu_torch.ops import _build
 from predictionio_tpu_torch.ops.topk import NEG_INF
 
 __all__ = ["fused_topk", "fused_topk_cuda", "fused_topk_reference",
-           "plan", "Plan", "LAUNCHES"]
+           "bind", "launch", "plan", "small_plan", "tiled_plan", "Plan",
+           "tiled_smem_bytes", "LAUNCHES"]
 
 LAUNCHES = 0
 _LAUNCHES_LOCK = threading.Lock()
 
 # Launch geometry; csrc/fused_topk.cu holds the same thread and query
-# counts as kThreads / kMaxQ.
+# counts as kThreads / kMaxQ, and the tiled route's as kTileRows /
+# kStages / TileShape.
 THREADS = 256                 # threads per block = corpus rows per tile
 MAX_QUERIES_PER_BLOCK = 8
 SMEM_BUDGET = 200 * 1024      # dynamic shared memory a block may take
-TARGET_BLOCKS = 264           # two waves over the H100's 132 SMs
+TARGET_BLOCKS = 264           # two blocks an SM over the H100's 132 SMs
 MAX_CANDIDATES = 1 << 17      # per query, handed to the merge pass
 MIN_ROWS_PER_CHUNK = 2 * THREADS
+# The tiled route takes rows of whole float4s (D % 4 == 0, 16-byte
+# copies) at every B, and other rows (4-byte copies) from B =
+# TILED_MIN_BATCH: the crossover timed by tools/exp_topk.py routes.
+TILED_MIN_BATCH = 8
+TILED_QUERIES = (8, 16, 32, 64)   # queries a block, one kernel each
+TILE_ROWS = 128
+TILED_STAGES = 2
+TILED_MIN_ROWS_PER_CHUNK = 2 * TILE_ROWS
+BOUND_SLOTS = 9               # topk_select.cuh kBoundSlots
 
 _CAND_BYTES = 8               # (float score, int id)
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """Launch plan of one call: ``queries_per_block`` queries share a
-    score-pass block; each query keeps a ``buffer``-slot shared-memory
-    candidate buffer; the corpus splits into ``n_chunks`` ranges of
-    ``rows_per_chunk`` rows, and the merge pass reads ``n_chunks·k``
-    candidates per query."""
+    """Launch plan of one call: the score pass's route (``tiled``), with
+    ``queries_per_block`` queries a block, each keeping a
+    ``buffer``-slot shared-memory candidate buffer; the corpus splits
+    into ``n_chunks`` ranges of ``rows_per_chunk`` rows, and the merge
+    pass folds each query's ``n_chunks·k`` candidates through a
+    ``merge_buffer``-slot buffer."""
 
     queries_per_block: int
     buffer: int
     n_chunks: int
     rows_per_chunk: int
+    tiled: bool
+    merge_buffer: int
 
 
-def plan(b: int, n_real: int, d: int, k: int) -> Plan:
-    """Grid and buffer sizes for ``b`` queries of width ``d`` against
-    ``n_real`` scored corpus rows.  Raises ``ValueError`` when one
-    query's buffer cannot fit the shared-memory budget (k near 25,000)."""
-    if b < 1 or d < 1 or k < 1:
-        raise ValueError(f"fused_topk plan needs b, d, k >= 1 "
-                         f"(got b={b}, d={d}, k={k})")
-    buffer = 1 << (k + THREADS - 1).bit_length()
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(0, x - 1).bit_length()
+
+
+def tiled_smem_bytes(qb: int, d: int, buffer: int) -> int:
+    """Dynamic shared memory of a tiled-route block (``tiled_smem`` in
+    csrc/fused_topk.cu): the copy ring's rows (D padded to whole float4s,
+    then to an odd number of them), the queries, the candidate buffers,
+    offer_block's bound slots and three counters a query."""
+    d4 = -(-d // 4) * 4
+    pitch = d4 + 4 if (d4 // 4) % 2 == 0 else d4
+    return (4 * TILED_STAGES * TILE_ROWS * pitch
+            + qb * (4 * d4 + _CAND_BYTES * (buffer + BOUND_SLOTS) + 12))
+
+
+def _chunks(groups: int, n_real: int, k: int, target: int, min_rows: int,
+            align: int) -> Tuple[int, int]:
+    n_chunks = min(-(-target // groups), max(1, MAX_CANDIDATES // k),
+                   max(1, -(-n_real // min_rows)))
+    rows = -(-max(n_real, 1) // n_chunks)
+    rows = -(-rows // align) * align
+    return max(1, -(-n_real // rows)), rows
+
+
+def tiled_plan(b: int, n_real: int, d: int, k: int) -> Optional[Plan]:
+    """The tiled route's plan, or None when not even a block of 8 queries
+    fits the shared-memory budget (k above 1,024 at D 64, or D above
+    about 180): the fewest of ``TILED_QUERIES`` that hold all ``b``
+    queries, or the most that fit, each with a buffer of the next power
+    of two >= 2k slots (at least 32)."""
+    buffer = max(32, _pow2_at_least(2 * k))
+    fits = [q for q in TILED_QUERIES
+            if tiled_smem_bytes(q, d, buffer) <= SMEM_BUDGET]
+    if not fits:
+        return None
+    qb = min([q for q in fits if q >= b] or [max(fits)])
+    n_chunks, rows = _chunks(-(-b // qb), n_real, k, TARGET_BLOCKS,
+                             TILED_MIN_ROWS_PER_CHUNK, TILE_ROWS)
+    return Plan(queries_per_block=qb, buffer=buffer, n_chunks=n_chunks,
+                rows_per_chunk=rows, tiled=True,
+                merge_buffer=_pow2_at_least(k + THREADS))
+
+
+def small_plan(b: int, n_real: int, d: int, k: int) -> Plan:
+    """The small-B route's plan: up to 8 queries a block, a buffer of
+    the next power of two >= k + 256 slots.  Raises ``ValueError`` when
+    one query's buffer cannot fit the budget (k near 25,000)."""
+    buffer = _pow2_at_least(k + THREADS)
     per_query = buffer * _CAND_BYTES + d * 4
     qb = min(MAX_QUERIES_PER_BLOCK, b, SMEM_BUDGET // per_query)
     if qb < 1:
         raise ValueError(f"fused_topk: k={k} at d={d} needs {per_query} "
                          f"bytes of shared memory per query, over the "
                          f"{SMEM_BUDGET}-byte budget")
-    groups = -(-b // qb)
-    n_chunks = min(-(-TARGET_BLOCKS // groups),
-                   max(1, MAX_CANDIDATES // k),
-                   max(1, -(-n_real // MIN_ROWS_PER_CHUNK)))
-    rows = -(-max(n_real, 1) // n_chunks)
-    rows = -(-rows // THREADS) * THREADS
-    return Plan(queries_per_block=qb, buffer=buffer,
-                n_chunks=max(1, -(-n_real // rows)), rows_per_chunk=rows)
+    n_chunks, rows = _chunks(-(-b // qb), n_real, k, TARGET_BLOCKS,
+                             MIN_ROWS_PER_CHUNK, THREADS)
+    return Plan(queries_per_block=qb, buffer=buffer, n_chunks=n_chunks,
+                rows_per_chunk=rows, tiled=False, merge_buffer=buffer)
+
+
+def plan(b: int, n_real: int, d: int, k: int) -> Plan:
+    """Route, grid and buffer sizes for ``b`` queries of width ``d``
+    against ``n_real`` scored corpus rows: the tiled route for rows of
+    whole float4s, or for ``b >= TILED_MIN_BATCH``, where its block fits
+    (:func:`tiled_plan`); else the small-B route (:func:`small_plan`)."""
+    if b < 1 or d < 1 or k < 1:
+        raise ValueError(f"fused_topk plan needs b, d, k >= 1 "
+                         f"(got b={b}, d={d}, k={k})")
+    tiled = (tiled_plan(b, n_real, d, k)
+             if d % 4 == 0 or b >= TILED_MIN_BATCH else None)
+    return tiled or small_plan(b, n_real, d, k)
 
 
 def fused_topk_reference(queries: torch.Tensor, items: torch.Tensor, k: int,
@@ -103,16 +170,45 @@ def fused_topk_reference(queries: torch.Tensor, items: torch.Tensor, k: int,
     return s, i.to(torch.int32)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("fused_topk")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures on a library built from csrc/fused_topk.cu
+    (the package's, or a tool's edited copy)."""
     fn = lib.pio_fused_topk
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, i, i, i, i, i, i, i, i, p, p, p, p, p]
+        fn.argtypes = [p, p, i, i, i, i, i, i, i, i, i, i, i, p, p, p, p, p]
         fn.restype = ctypes.c_int
         lib.pio_cuda_error_string.argtypes = [ctypes.c_int]
         lib.pio_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def launch(lib: ctypes.CDLL, queries: torch.Tensor, items: torch.Tensor,
+           k: int, n_real: int, p: Plan
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Queue both passes of ``lib`` (bound by :func:`bind`) on PyTorch's
+    current stream under plan ``p``, on tensors :func:`fused_topk_cuda`
+    has checked; counts nothing."""
+    b, d = queries.shape
+    dev = queries.device
+    part_s = torch.empty((b, p.n_chunks, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((b, p.n_chunks, k), dtype=torch.int32, device=dev)
+    out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    vec4 = int(d % 4 == 0 and items.data_ptr() % 16 == 0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.pio_fused_topk(
+            queries.data_ptr(), items.data_ptr(), b, d, n_real, k, p.buffer,
+            p.queries_per_block, p.rows_per_chunk, p.n_chunks, vec4,
+            int(p.tiled), p.merge_buffer, part_s.data_ptr(),
+            part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_topk kernel launch failed: "
+                           f"{lib.pio_cuda_error_string(rc).decode()} "
+                           f"(code {rc}, B={b}, N={items.shape[0]}, D={d}, "
+                           f"k={k})")
+    return out_s, out_i
 
 
 def fused_topk_cuda(queries: torch.Tensor, items: torch.Tensor, k: int, *,
@@ -144,27 +240,11 @@ def fused_topk_cuda(queries: torch.Tensor, items: torch.Tensor, k: int, *,
     if p.n_chunks * p.rows_per_chunk + THREADS >= 2 ** 31:
         # the kernel walks corpus rows with int32 indices
         raise ValueError(f"fused_topk_cuda: N={n} is too large")
-    dev = queries.device
-    part_s = torch.empty((b, p.n_chunks, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((b, p.n_chunks, k), dtype=torch.int32, device=dev)
-    out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
-    vec4 = int(d % 4 == 0 and items.data_ptr() % 16 == 0)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.pio_fused_topk(
-            queries.data_ptr(), items.data_ptr(), b, d, n_real, k, p.buffer,
-            p.queries_per_block, p.rows_per_chunk, p.n_chunks, vec4,
-            part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
-            out_i.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_topk kernel launch failed: "
-                           f"{lib.pio_cuda_error_string(rc).decode()} "
-                           f"(code {rc}, B={b}, N={n}, D={d}, k={k})")
+    out = launch(bind(_build.load("fused_topk")), queries, items, k, n_real,
+                 p)
     with _LAUNCHES_LOCK:
         LAUNCHES += 1
-    return out_s, out_i
+    return out
 
 
 def fused_topk(queries: torch.Tensor, items: torch.Tensor, k: int, *,

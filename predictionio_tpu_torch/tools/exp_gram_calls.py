@@ -70,7 +70,8 @@ from predictionio_tpu_torch.ops import _build
 from predictionio_tpu_torch.ops import fused_gram as fg
 from predictionio_tpu_torch.ops import ridge_solve as rs
 from predictionio_tpu_torch.ops.ragged import LEN_ALIGN
-from predictionio_tpu_torch.tools import require_cuda, single_ms
+from predictionio_tpu_torch.tools import (edited_libraries, require_cuda,
+                                          single_ms)
 
 USERS, ITEMS, RATINGS = 162_541, 59_047, 25_000_000
 RANK = 64
@@ -314,40 +315,12 @@ def gj_variants() -> dict:
     """The K4 variants' libraries by name: each an edited copy of
     ``csrc/ridge_solve.cu`` in the build directory, one ``nvcc`` each,
     all started together."""
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    source = (_build.CSRC_DIR / "ridge_solve.cu").read_text()
-    procs = {}
-    for name, edits in GJ_VARIANTS.items():
-        text = source
-        for old, new in edits.items():
-            if old not in text:
-                raise RuntimeError(f"K4 variant {name}: {old!r} is not in "
-                                   "csrc/ridge_solve.cu")
-            text = text.replace(old, new)
-        src = _build.BUILD_DIR / f"exp_gj_{name}.cu"
-        src.write_text(text)
-        out = _build.BUILD_DIR / f"libexp_gj_{name}.so"
-        procs[name] = (out, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (out, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for K4 variant {name}:\n{log}")
-        report, kernel = [], ""
-        for ln in log.splitlines():
-            if "Compiling entry function" in ln:
-                kernel = ln.split("'")[1] if "'" in ln else ln.strip()
-            elif "gj_" in kernel and ("registers" in ln or "spill" in ln):
-                report.append(f"{kernel}: {ln.strip()}")
-        print(f"gj variant {name}: ptxas " + json.dumps(report))
-        lib = ctypes.CDLL(str(out))
-        p, i = ctypes.c_void_p, ctypes.c_int
+    libs = edited_libraries("ridge_solve", GJ_VARIANTS, report="gj_")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for lib in libs.values():
         lib.pio_ridge_solve.argtypes = [i, p, p, p, i, i, p, p,
                                         ctypes.POINTER(i)]
         lib.pio_ridge_solve.restype = ctypes.c_int
-        libs[name] = lib
     return libs
 
 

@@ -52,6 +52,20 @@ def _inputs(b, n, d, seed):
     (9, 5000, 64, 1000, None), (16, 3001, 10, 10, 2500),
     (64, 20_000, 64, 10, 19_999), (2, 1200, 64, 1000, None),
     (4, 300, 64, 300, None),
+    # the tiled route: B around the crossover (D 10: 4-byte copies) and a
+    # 64-query block, D 10 at B 64, k 100 and 1000 (fewer queries a
+    # block), n_valid inside a tile, N no tile multiple; the small-B
+    # route at D 64 past a tiled block's k
+    (ft.TILED_MIN_BATCH - 1, 20_000, 10, 10, None),
+    (ft.TILED_MIN_BATCH, 20_000, 10, 10, None),
+    (ft.TILED_MIN_BATCH + 1, 20_000, 10, 10, None),
+    (63, 20_000, 64, 10, None), (64, 20_000, 64, 10, None),
+    (65, 5000, 64, 100, None), (128, 20_000, 64, 10, None),
+    (64, 10_000, 10, 10, None), (64, 20_000, 64, 100, None),
+    (64, 20_000, 64, 1000, None), (64, 20_000, 64, 10, 19_950),
+    (64, 20_001, 64, 10, None), (33, 3001, 10, 10, 2500),
+    (40, 100, 64, 100, None), (3, 3001, 10, 10, 2500),
+    (5, 5000, 64, 2000, None), (64, 5000, 64, 1025, 4999),
 ])
 def test_fused_topk_matches_reference(cuda_dev, b, n, d, k, n_valid):
     q, items = _inputs(b, n, d, seed=b + n)
@@ -86,6 +100,42 @@ def test_fused_topk_ties_prefer_lower_id(cuda_dev):
         pos = {int(x): p for p, x in enumerate(i[row])}
         assert sorted(pos) == list(range(2000))
         assert pos[10] < pos[1500] < pos[1999]
+
+
+@pytest.mark.cuda
+def test_fused_topk_tiled_ties_prefer_lower_id(cuda_dev):
+    """The tiled route: four copies of the best row in other tiles and
+    chunks tie exactly for every query and come out lowest id first."""
+    b, n = 64, 2000
+    q, items = _inputs(b, n, 64, seed=11)
+    q = np.abs(q)
+    for row in (10, 300, 1500, 1999):
+        items[row] = 5.0
+    assert ft.plan(b, n, 64, 10).tiled
+    qt = torch.from_numpy(q).to(cuda_dev)
+    it = torch.from_numpy(items).to(cuda_dev)
+    s, i = ft.fused_topk_cuda(qt, it, 10)
+    s, i = s.cpu().numpy(), i.cpu().numpy()
+    assert (i[:, :4] == [10, 300, 1500, 1999]).all()
+    assert (s[:, :4] == s[:, :1]).all() and (s[:, 4] < s[:, 0]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 10])
+def test_fused_topk_tiled_unaligned_rows(cuda_dev, d):
+    """A corpus whose rows are not 16-byte aligned takes 4-byte copies."""
+    q, items = _inputs(64, 3000, d, seed=d)
+    base = torch.empty(items.size + 1, dtype=torch.float32, device=cuda_dev)
+    it = base[1:].view(3000, d)
+    it.copy_(torch.from_numpy(items))
+    assert it.data_ptr() % 16 != 0
+    qt = torch.from_numpy(q).to(cuda_dev)
+    s, i = ft.fused_topk_cuda(qt, it, 10)
+    rs, ri = ft.fused_topk_reference(qt, it, 11)
+    assert topk_mismatch(s.cpu().numpy(), i.cpu().numpy(),
+                         rs[:, :10].cpu().numpy(), ri[:, :10].cpu().numpy(),
+                         rs[:, 10].cpu().numpy(), rtol=RTOL,
+                         atol=ATOL) is None
 
 
 @pytest.mark.cuda
@@ -467,13 +517,42 @@ def _gather_inputs(i, k, r, l, seed, dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("i,k,r,l", [(3000, 64, 300, 256), (500, 7, 9, 33),
                                      (1000, 130, 20, 100), (50, 1, 3, 1),
-                                     (2000, 255, 5, 64)])
+                                     (2000, 255, 5, 64),
+                                     # the vec4 design: 8/16/32 lanes a
+                                     # row, R odd, L no multiple of 16
+                                     # or of 4 (scalar index loads)
+                                     (3000, 4, 17, 256), (3000, 32, 31, 40),
+                                     (3000, 36, 7, 13), (3000, 128, 33, 257),
+                                     (59_047, 64, 1001, 256)])
 def test_gather_sum_matches_reference(cuda_dev, i, k, r, l):
     y, idx, _ = _gather_inputs(i, k, r, l, i + k + r + l, cuda_dev)
     before = gt.LAUNCHES
     got = gt.gather_sum(y, idx)
     torch.cuda.synchronize()
     assert gt.LAUNCHES == before + 1
+    want = gt.gather_sum_reference(y, idx)
+    abs_sum = gt.gather_sum_reference(y.abs(), idx)
+    sigma = GRAM_SIGMAS * l ** 0.5 * 2.0 ** -24
+    assert bool(((got - want).abs() <= sigma * abs_sum).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dist", ["zipf", "zero", "uniform"])
+@pytest.mark.parametrize("i,k,r,l", [(59_047, 64, 300, 256),
+                                     (3000, 32, 9, 33), (3000, 128, 5, 16)])
+def test_gather_sum_designs_give_the_same_bits(cuda_dev, dist, i, k, r, l):
+    """The vec4 and warp designs add each column's terms in l order, so
+    they agree bit for bit, with every index on one row, on the Zipf
+    head, or spread uniformly."""
+    y, idx, _ = _gather_inputs(i, k, r, l, i + k + r + l, cuda_dev)
+    if dist == "zero":
+        idx.zero_()
+    elif dist == "uniform":
+        idx = torch.randint(0, i, (r, l), device=cuda_dev, dtype=torch.int32)
+    assert gt.design_for(k, y.data_ptr()) == "vec4"
+    got = gt.gather_sum_cuda(y, idx)
+    warp = gt.gather_sum_cuda(y, idx, design="warp")
+    assert torch.equal(got, warp)
     want = gt.gather_sum_reference(y, idx)
     abs_sum = gt.gather_sum_reference(y.abs(), idx)
     sigma = GRAM_SIGMAS * l ** 0.5 * 2.0 ** -24

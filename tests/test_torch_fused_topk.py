@@ -108,20 +108,81 @@ def test_set_float32_precision_turns_tf32_off():
     (1, 4_194_304, 64, 10), (64, 4_194_304, 64, 10),
     (64, 4_194_304, 64, 1000), (3, 700, 10, 1), (1, 0, 8, 5),
     (5, 100_000, 16, 4000),
+    # the tiled route's edges: B around the crossover (D 10) and a
+    # 64-query block, D 10 and 64 at k 10/100/1000, N below one chunk
+    # and no tile multiple, k at and past a tiled block's limit, D too
+    # wide for two staged tiles
+    (ft.TILED_MIN_BATCH - 1, 59_047, 10, 10),
+    (ft.TILED_MIN_BATCH, 59_047, 10, 10),
+    (ft.TILED_MIN_BATCH + 1, 59_047, 10, 10),
+    (63, 59_047, 64, 10), (65, 59_047, 64, 10), (128, 4_194_304, 64, 10),
+    (64, 59_047, 10, 10), (64, 59_047, 10, 100), (64, 59_047, 10, 1000),
+    (64, 59_047, 64, 100), (64, 4_194_304, 10, 1000), (64, 1000, 64, 10),
+    (64, 100_003, 64, 10), (32, 0, 64, 10), (64, 59_047, 64, 4000),
+    (64, 59_047, 64, 1024), (64, 59_047, 64, 1025), (16, 59_047, 256, 10),
 ])
 def test_plan_geometry(b, n, d, k):
-    """The launch plan covers every row exactly once, keeps the buffer a
-    power of two with a full tile of headroom over k, and stays inside
-    the shared-memory and merge-pass budgets."""
+    """The launch plan covers every row exactly once and stays inside the
+    shared-memory and merge-pass budgets.  The small-B route keeps a
+    power-of-two buffer with a full tile of headroom over k; the tiled
+    route (B at or above the crossover) a power-of-two buffer of at
+    least 2k, one of its compiled block sizes, and whole tiles a chunk."""
     p = ft.plan(b, n, d, k)
     assert p.buffer & (p.buffer - 1) == 0
-    assert p.buffer >= k + ft.THREADS
-    assert 1 <= p.queries_per_block <= ft.MAX_QUERIES_PER_BLOCK
-    assert p.queries_per_block * (p.buffer * 8 + d * 4) <= ft.SMEM_BUDGET
-    assert p.rows_per_chunk % ft.THREADS == 0
+    assert p.merge_buffer & (p.merge_buffer - 1) == 0
+    assert p.merge_buffer >= k + ft.THREADS
+    assert p.queries_per_block >= 1
+    if p.tiled:
+        assert d % 4 == 0 or b >= ft.TILED_MIN_BATCH
+        assert p.queries_per_block in ft.TILED_QUERIES
+        assert p.buffer >= 2 * k
+        assert ft.tiled_smem_bytes(p.queries_per_block, d,
+                                   p.buffer) <= ft.SMEM_BUDGET
+        assert p.rows_per_chunk % ft.TILE_ROWS == 0
+    else:
+        assert p.buffer >= k + ft.THREADS
+        assert 1 <= p.queries_per_block <= ft.MAX_QUERIES_PER_BLOCK
+        assert p.queries_per_block * (p.buffer * 8 + d * 4) \
+            <= ft.SMEM_BUDGET
+        assert p.rows_per_chunk % ft.THREADS == 0
     assert p.n_chunks * p.rows_per_chunk >= n
     assert (p.n_chunks - 1) * p.rows_per_chunk < max(n, 1)
     assert p.n_chunks * k <= max(ft.MAX_CANDIDATES, k)
+
+
+@pytest.mark.parametrize("d", [10, 64])
+@pytest.mark.parametrize("k", [10, 100, 1000])
+def test_plan_switches_route_at_the_crossover(d, k):
+    """Rows of whole float4s take the tiled route at every B; other rows
+    take it from ``TILED_MIN_BATCH`` on, the small-B route below.  Larger
+    k takes fewer queries a block, never more."""
+    below = ft.plan(ft.TILED_MIN_BATCH - 1, 59_047, d, k)
+    at = ft.plan(ft.TILED_MIN_BATCH, 59_047, d, k)
+    assert below.tiled == (d % 4 == 0) and at.tiled
+    assert ft.plan(1, 59_047, d, k).tiled == (d % 4 == 0)
+    full = [ft.plan(64, 59_047, d, kk).queries_per_block
+            for kk in (10, 100, 1000)]
+    assert full == sorted(full, reverse=True) and full[0] == 64
+
+
+@pytest.mark.parametrize("b,n,d,k", [(64, 59_047, 64, 1025),
+                                     (16, 59_047, 256, 10),
+                                     (1, 4_194_304, 64, 2000)])
+def test_plan_takes_the_small_route_where_no_tiled_block_fits(b, n, d, k):
+    """Past a tiled block's shared memory (k > 1,024 at D 64, or D 256)
+    the plan takes the small-B route, whatever B."""
+    assert ft.tiled_plan(b, n, d, k) is None
+    assert ft.plan(b, n, d, k) == ft.small_plan(b, n, d, k)
+
+
+def test_tiled_smem_bytes_counts_every_array():
+    """QB 64, D 64, 32 slots: two stages of 128 rows of 68 floats, the
+    64 x 64 queries, 64 x (32 + 9) candidate slots, three counters."""
+    assert ft.tiled_smem_bytes(64, 64, 32) == (
+        2 * 128 * 68 * 4 + 64 * 64 * 4 + 64 * 41 * 8 + 64 * 12)
+    # D 10: rows padded to 12 floats, three float4s, already odd
+    assert ft.tiled_smem_bytes(8, 10, 32) == (
+        2 * 128 * 12 * 4 + 8 * 12 * 4 + 8 * 41 * 8 + 8 * 12)
 
 
 def test_plan_rejects_k_beyond_shared_memory():

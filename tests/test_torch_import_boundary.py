@@ -45,7 +45,7 @@ TRAINING_SLICE = (
 IVF_PQ_SLICE = (
     "retrieval.ivf", "retrieval.pq", "ops.pq_scan", "ops.gather",
     "tools.exp_gram", "tools.exp_gather2", "tools.exp_gram_calls",
-    "tools.exp_pq",
+    "tools.exp_pq", "tools.exp_topk",
 )
 
 
