@@ -37,11 +37,17 @@ cannot be imported, or when any phase fails.  Phases, in order:
 5. catalog — a 4,194,304-item corpus with no rung forced: the router's
    own thresholds must pick the chunked rung; 8 queries, checked as in 4.
 6. train   — ALS training at the MovieLens-25M shape (25,000,000 seeded
-   ratings, rank 64, reg 0.01, 10 iterations, solver "auto"): host prep
-   time and the factor init's share of it, the dead rows (index -1) of the uploaded chunks, now and as
-   they were before the last row chunk of a plain bucket was trimmed,
-   ms per iteration, ratings/s, final RMSE, and the K1/K2 launches
-   of the run; one iteration from the same init with the plain versions
+   ratings, rank 64, reg 0.01, 10 iterations, solver "auto"): the prep
+   both ways, the default (device_prep "auto", which must bucket on the
+   card) and the host route (device_prep False), each with its time and
+   peak device memory, the factor init's share, and both layouts held
+   equal as canonical COO (each side's (entity, other id, value) in slot
+   order, stably sorted by entity); the dead rows (index -1) of the
+   chunks, now and as they were before the last row chunk of a plain
+   bucket was trimmed, ms per iteration, ratings/s, final RMSE, and the
+   K1/K2 launches of the run from the card's prep; the same 10
+   iterations from the host prep must agree with it; one iteration from
+   the same init with the plain versions
    must agree with the kernels' iteration; a solver="gj" iteration must
    launch K4; then each training kernel timed over the calls that the
    first iteration made (their own arguments, kept as the run made
@@ -50,8 +56,13 @@ cannot be imported, or when any phase fails.  Phases, in order:
 7. dase    — seeded rate/buy events in the port's in-memory event store
    → run_train with the template's engine.json at rank 64 → the
    COMPLETED instance deployed on an EngineServer → 16 /queries.json,
-   each held against the plain top-k of the trained factors; K1, K2 and
-   K3 must have launched.
+   each held against the plain top-k of the trained factors; run_train
+   must have bucketed on the card (two plans); K1, K2 and K3 must have
+   launched.  Then serve-time fold-in: rate/buy events of
+   two unseen users go into the store, and each user's /queries.json
+   must equal the plain top-k of the port's fold_in vector over the
+   served item factors (K3 launched for them); a repeat query counts
+   "cached" and a user with no events gets [].
 8. kernel  — the PQ scan kernel (K5) against its plain version over a
    grid of B, S (tables), N, k and n_valid and the edges of its plan
    (16-byte, 4-byte and byte code loads, blocks of one and of several
@@ -622,6 +633,79 @@ def iteration_kernel_times(calls: recorded_calls, fg, rs):
     return rows
 
 
+def canonical_coo(chunks):
+    """The ratings a side's chunks hold, as (entity id, other id, value)
+    tensors: every masked slot in chunk, row and slot order, then stably
+    sorted by entity id.  Two layouts of the same ratings give equal
+    tensors when each entity's events keep their order."""
+    import torch
+
+    ents, others, vals = [], [], []
+    for c in chunks:
+        n_slots = c.n_seg if c.kind == "merged" else c.indices.shape[0]
+        ent = torch.full((n_slots + 1,), -1, dtype=torch.int64,
+                         device=c.indices.device)
+        ent[c.keep] = c.targets
+        row_ent = ent[c.seg_ids] if c.kind == "merged" else ent[:-1]
+        m = c.mask
+        ents.append(row_ent[:, None].expand_as(m)[m])
+        others.append(c.indices[m].long())
+        vals.append(c.values[m])
+    ents = torch.cat(ents)
+    order = torch.argsort(ents, stable=True)
+    return ents[order], torch.cat(others)[order], torch.cat(vals)[order]
+
+
+def timed_prep(als, users, items, ratings, cfg, dev):
+    """(inputs, seconds, peak device bytes above the start) of one
+    prepare_als_inputs call, synchronized."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    inputs = als.prepare_als_inputs(users, items, ratings, ML25M_USERS,
+                                    ML25M_ITEMS, cfg, device=dev)
+    torch.cuda.synchronize()
+    return (inputs, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() - base)
+
+
+def device_prep_steps(als, users, items, ratings, cfg, dev) -> dict:
+    """Seconds of each step of the device route, run again one at a
+    time with a synchronize after each: the ids to int32 on the host, the
+    upload, both sides' plans (host np.bincount + plan_buckets), each
+    side's build and chunks on the card, the factor init."""
+    import numpy as np
+    import torch
+
+    out = {}
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        out[name] = time.perf_counter() - t0
+        return r
+
+    h_u, h_i = step("int32_on_host", lambda: (np.asarray(users, np.int32),
+                                              np.asarray(items, np.int32)))
+    r_u, r_i, v = step("upload", lambda: (
+        torch.from_numpy(h_u).to(dev), torch.from_numpy(h_i).to(dev),
+        torch.from_numpy(ratings).to(dev, torch.float32)))
+    p_u, p_i = step("plans", lambda: (
+        als._plan_side(r_u, ML25M_USERS, cfg, host_rows=h_u),
+        als._plan_side(r_i, ML25M_ITEMS, cfg, host_rows=h_i)))
+    for side, rows, cols, plan in (("user", r_u, r_i, p_u),
+                                   ("item", r_i, r_u, p_i)):
+        step(f"build_{side}",
+             lambda: als._device_side(rows, cols, v, plan))
+    step("init", lambda: als._init_factors(ML25M_USERS, ML25M_ITEMS, RANK,
+                                           cfg.seed))
+    return out
+
+
 def train_phase(dev, seed: int, als, fg, rs, card: str) -> dict:
     """Phase 6: ALS training at the MovieLens-25M shape."""
     import dataclasses
@@ -640,14 +724,47 @@ def train_phase(dev, seed: int, als, fg, rs, card: str) -> dict:
     if statics["solver"] != "lu":
         die(f"training routes {statics} on the card; expected the LU "
             "kernel")
-    t0 = time.perf_counter()
-    inputs = als.prepare_als_inputs(users, items, ratings, ML25M_USERS,
-                                    ML25M_ITEMS, cfg, device=dev)
-    torch.cuda.synchronize()
-    prep_s = time.perf_counter() - t0
-    t0 = time.perf_counter()                # the init alone, drawn again
-    als._init_factors(ML25M_USERS, ML25M_ITEMS, RANK, seed)
-    init_s = time.perf_counter() - t0
+    # The default route ("auto") buckets on the card; the host route is
+    # prepped too and held against it.
+    taken = []
+    real_device_route = als._prepare_als_inputs_device
+    als._prepare_als_inputs_device = \
+        lambda *a: taken.append(a[-1]) or real_device_route(*a)
+    try:
+        inputs, prep_s, prep_peak = timed_prep(als, users, items, ratings,
+                                               cfg, dev)
+    finally:
+        als._prepare_als_inputs_device = real_device_route
+    if len(taken) != 1:
+        die("device_prep='auto' did not take the device route on the card")
+    host_inputs, host_prep_s, host_peak = timed_prep(
+        als, users, items, ratings,
+        dataclasses.replace(cfg, device_prep=False), dev)
+    steps = device_prep_steps(als, users, items, ratings, cfg, dev)
+    init_s = steps["init"]
+    for side in ("user", "item"):
+        got = canonical_coo(getattr(inputs, f"{side}_buckets"))
+        want = canonical_coo(getattr(host_inputs, f"{side}_buckets"))
+        for what, g, w in zip(("entity ids", "other ids", "values"), got,
+                              want):
+            if not torch.equal(g, w):
+                die(f"phase 6 prep: the {side} side's {what} differ "
+                    "between the device and the host layouts")
+        if got[0].numel() != ML25M_RATINGS:
+            die(f"phase 6 prep: the {side} side holds {got[0].numel()} "
+                f"ratings of {ML25M_RATINGS}")
+        del got, want
+    log(f"phase 6 prep: ML-25M {ML25M_RATINGS} ratings, device_prep auto "
+        f"(bucketing on the card) {prep_s:.3f} s, peak {prep_peak / 2**30:.3f} "
+        f"GiB allocated above the start; host route (device_prep=False) "
+        f"{host_prep_s:.3f} s, peak {host_peak / 2**30:.3f} GiB; factor init "
+        f"(in both) {init_s:.3f} s; the device route's steps run one by "
+        f"one (s): {json.dumps({k: round(v, 4) for k, v in steps.items()})}"
+        f"; {len(inputs.user_buckets)} user / "
+        f"{len(inputs.item_buckets)} item chunks on the card, "
+        f"{len(host_inputs.user_buckets)} / {len(host_inputs.item_buckets)} "
+        f"from the host; both sides' ratings equal as canonical COO; card "
+        f"{card}")
     n_chunks = (len(inputs.user_buckets), len(inputs.item_buckets))
     dead = {side: dead_rows(chunks, RANK, cfg.max_block_floats)
             for side, chunks in (("user", inputs.user_buckets),
@@ -677,6 +794,22 @@ def train_phase(dev, seed: int, als, fg, rs, card: str) -> dict:
             die(f"{name} never launched in the training run")
     ms_iter = wall_s * 1e3 / TRAIN_ITERS
     rmse = als.rmse(model, users, items, ratings, device=dev)
+    t0 = time.perf_counter()
+    host_model = als.train_als_prepared(host_inputs, cfg)
+    host_ms_iter = (time.perf_counter() - t0) * 1e3 / TRAIN_ITERS
+    del host_inputs
+    err_routes = max(
+        assert_close(torch.from_numpy(model.user_factors),
+                     torch.from_numpy(host_model.user_factors), TRAIN_RTOL,
+                     scaled(TRAIN_ATOL,
+                            torch.from_numpy(host_model.user_factors)),
+                     f"{TRAIN_ITERS} iterations, device vs host prep: users"),
+        assert_close(torch.from_numpy(model.item_factors),
+                     torch.from_numpy(host_model.item_factors), TRAIN_RTOL,
+                     scaled(TRAIN_ATOL,
+                            torch.from_numpy(host_model.item_factors)),
+                     f"{TRAIN_ITERS} iterations, device vs host prep: items"))
+    del host_model
     if not 0.0 < rmse < 5.0:
         die(f"training RMSE {rmse} out of range")
 
@@ -713,11 +846,14 @@ def train_phase(dev, seed: int, als, fg, rs, card: str) -> dict:
                      "one iteration, gj vs lu: items"))
     log(f"phase 6 train: ML-25M shape {ML25M_USERS}x{ML25M_ITEMS}, "
         f"{ML25M_RATINGS} ratings (made in {gen_s:.1f} s), rank {RANK}, "
-        f"reg 0.01, solver auto -> {statics['solver']}: host prep + "
-        f"upload {prep_s:.2f} s, of which the factor init (threefry "
+        f"reg 0.01, solver auto -> {statics['solver']}: prep on the card "
+        f"{prep_s:.2f} s, of which the factor init (threefry "
         f"normals on the host, {ML25M_USERS + ML25M_ITEMS} x {RANK}) "
         f"{init_s:.3f} s ({n_chunks[0]} user / {n_chunks[1]} item "
-        f"chunks, {n_merged} split); first iteration (its calls recorded) "
+        f"chunks, {n_merged} split); {TRAIN_ITERS} iterations from the "
+        f"device prep vs from the host prep max |err| {err_routes:.3g} "
+        f"(from the host prep {host_ms_iter:.2f} ms/iter); "
+        f"first iteration (its calls recorded) "
         f"{first_s * 1e3:.1f} ms; "
         f"{TRAIN_ITERS} iterations {wall_s:.3f} s = {ms_iter:.2f} ms/iter "
         f"= {ML25M_RATINGS / (ms_iter / 1e3):.4g} ratings/s; final RMSE "
@@ -734,7 +870,10 @@ def train_phase(dev, seed: int, als, fg, rs, card: str) -> dict:
             {"kernel": name, "card": card, **row}))
     launches["ridge_solve_gj"] = gj_launches
     return {"launches": launches, "per_iter": per_iter,
-            "err": max(err_plain, err_gj)}
+            "err": max(err_plain, err_gj),
+            "prep": {"device_s": prep_s, "host_s": host_prep_s,
+                     "init_s": init_s, "device_peak_bytes": prep_peak,
+                     "host_peak_bytes": host_peak}}
 
 
 def dase_phase(dev, seed: int, home: str, mods: dict, card: str) -> dict:
@@ -772,13 +911,18 @@ def dase_phase(dev, seed: int, home: str, mods: dict, card: str) -> dict:
     ctx = mods["RuntimeContext"].create(storage=storage)   # the card
     os.environ["PIO_RETRIEVAL_RUNG"] = "chunked"
     server = None
+    plans = mods["get_registry"]().histogram("pio_device_prep_plan_ms")
     try:
+        plans_before = plans.count()
         fg.LAUNCHES = 0                     # main path starts here
         rs.LU_LAUNCHES = 0
         ft.LAUNCHES = 0
         t0 = time.perf_counter()
         iid = mods["run_train"](eng, variant, ctx)
         train_s = time.perf_counter() - t0
+        if plans.count() - plans_before != 2:
+            die("DASE phase: run_train did not bucket both sides on the "
+                "card")
         server = mods["EngineServer"](eng, variant, storage,
                                       host="127.0.0.1", port=0)
         server.start()
@@ -822,6 +966,8 @@ def dase_phase(dev, seed: int, home: str, mods: dict, card: str) -> dict:
         spans = {p: round(phases.sum(phase=p), 3) for p in (
             "train.datasource", "train.prepare", "train.algorithm",
             "train.persist")}
+        fold = fold_in_queries(dev, rng, base, storage, app_id, wrapper,
+                               items_d, mods)
     finally:
         if server is not None:
             server.stop()
@@ -834,8 +980,100 @@ def dase_phase(dev, seed: int, home: str, mods: dict, card: str) -> dict:
         f"items); 16 /queries.json p50 {sorted(lats)[8] * 1e3:.2f} ms, each "
         f"held against the plain top-k of the trained factors, max |score "
         f"err| {err:.3g}; launches {json.dumps(counts)}; card {card}")
+    log(f"phase 7 fold-in: {fold['events']} rate/buy events of "
+        f"{len(fold['users'])} unseen users inserted after deploy; their "
+        f"/queries.json answers equal the plain top-k of fold_in's vector "
+        f"(max |score err| {fold['err']:.3g}); a repeat query cached, a "
+        f"user with no events answered []; pio_fold_in_total "
+        f"{json.dumps(fold['counts'])}; fused_topk launches "
+        f"{fold['fused_topk']}; p50 {fold['p50_ms']:.2f} ms; card {card}")
     return {"fused_topk": counts["fused_topk"], "storage": storage,
             "variant": variant, "engine": eng}
+
+
+def fold_in_queries(dev, rng, base: str, storage, app_id: int, wrapper,
+                    items_d, mods) -> dict:
+    """Phase 7's fold-in: rate/buy events of two users the deployed
+    generation never saw, then /queries.json for each (each answer held
+    against the plain top-k of ``fold_in``'s vector over the served item
+    factors), a repeat query (cached) and a user with no events ([])."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.models.als import fold_in
+
+    ft = mods["ft"]
+    Event, DataMap = mods["Event"], mods["DataMap"]
+    names = list(wrapper.item_index.keys())
+    fresh, batch = {}, []
+    for j in range(2):
+        user = f"unseen{j}"
+        ids, vals = [], []
+        for n, p in enumerate(rng.choice(len(names), 12, replace=False)):
+            buy = n % 4 == 3
+            stars = float(rng.integers(1, 11) * 0.5)
+            batch.append(Event(
+                event="buy" if buy else "rate", entity_type="user",
+                entity_id=user, target_entity_type="item",
+                target_entity_id=names[p],
+                properties=DataMap({} if buy else {"rating": stars})))
+            ids.append(wrapper.item_index[names[p]])
+            vals.append(wrapper.buy_rating if buy else stars)
+        if user in wrapper.user_index:
+            die(f"fold-in: {user} is a trained user")
+        fresh[user] = (np.asarray(ids), np.asarray(vals, np.float32))
+    storage.get_events().insert_batch(batch, app_id)
+    registry = mods["get_registry"]()
+
+    def fold_counts():
+        c = registry.get("pio_fold_in_total")
+        return {r: 0.0 if c is None else c.value(result=r)
+                for r in ("solved", "cached", "no_events", "unavailable")}
+
+    before = fold_counts()
+    ft.LAUNCHES = 0                         # fold-in path starts here
+    answers, lats = {}, []
+    for user in fresh:
+        t0 = time.perf_counter()
+        answers[user], _ = post_json(f"{base}/queries.json",
+                                     {"user": user, "num": 10})
+        lats.append(time.perf_counter() - t0)
+    again, _ = post_json(f"{base}/queries.json",
+                         {"user": "unseen0", "num": 10})
+    ghost, _ = post_json(f"{base}/queries.json",
+                         {"user": "no_events_user", "num": 10})
+    launches = ft.LAUNCHES                  # and ends here
+    counts = {r: v - before[r] for r, v in fold_counts().items()}
+    if counts != {"solved": 2, "cached": 1, "no_events": 1,
+                  "unavailable": 0}:
+        die(f"fold-in: pio_fold_in_total moved by {counts}")
+    if launches < 3:
+        die(f"fold-in: fused_topk launched {launches} times for 3 "
+            "answered queries")
+    if ghost["itemScores"] != []:
+        die(f"fold-in: a user with no events got {ghost}")
+    if again != answers["unseen0"]:
+        die("fold-in: the repeat query answered differently")
+    _, itf = wrapper.host_factors()
+    yty = None
+    if wrapper.model.implicit:
+        f = itf.astype(np.float64)
+        yty = f.T @ f
+    err = 0.0
+    for user, (ids, vals) in fresh.items():
+        hits = answers[user]["itemScores"]
+        if len(hits) != 10:
+            die(f"fold-in answer for {user} has {len(hits)} items")
+        vec = fold_in(itf, ids, vals, reg=wrapper.reg, alpha=wrapper.alpha,
+                      implicit=wrapper.model.implicit, yty=yty)
+        err = max(err, check_against_plain(
+            [[h["score"] for h in hits]],
+            [[wrapper.item_index[h["item"]] for h in hits]],
+            torch.from_numpy(vec[None]).to(dev), items_d, 10, None,
+            f"fold-in /queries.json {user}", ft, mods["topk_mismatch"]))
+    return {"users": sorted(fresh), "events": len(batch), "counts": counts,
+            "fused_topk": launches, "err": err,
+            "p50_ms": sorted(lats)[len(lats) // 2] * 1e3}
 
 
 class env_vars:

@@ -10,7 +10,7 @@ answers a dict of numpy columns instead of an Arrow table.
 from __future__ import annotations
 
 import datetime as _dt
-from typing import Dict, Iterator, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -90,6 +90,27 @@ class EventStore:
             event_names=event_names, target_entity_type=target_entity_type,
             target_entity_id=target_entity_id, limit=limit,
             reversed=reversed)
+
+    def find_by_entity(
+        self,
+        app_name: str,
+        entity_type: str,
+        entity_id: str,
+        channel_name: Optional[str] = None,
+        *,
+        event_names: Optional[Sequence[str]] = None,
+        target_entity_type: Optional[str] = None,
+        limit: Optional[int] = None,
+        latest: bool = True,
+    ) -> List[Event]:
+        """Recent events of one entity, newest first unless ``latest`` is
+        False (reference: LEventStore.findByEntity); serve-time fold-in
+        reads a visitor's events through it."""
+        return list(self.find(
+            app_name, channel_name, entity_type=entity_type,
+            entity_id=entity_id, event_names=event_names,
+            target_entity_type=target_entity_type, limit=limit,
+            reversed=latest))
 
 
 class WindowedEventStore(EventStore):

@@ -4,8 +4,11 @@ Port of ``predictionio_tpu/models/als.py`` (reference behaviour: Spark
 MLlib ``ALS.train`` / ``ALS.trainImplicit`` as the recommendation
 template calls them).  One training run:
 
-- ragged ratings → degree-bucketed padded blocks on the host
-  (:mod:`predictionio_tpu_torch.ops.ragged`), uploaded once, with index
+- ragged ratings → degree-bucketed padded blocks: on the card the COO
+  triplets go up once and are bucketed there
+  (:mod:`predictionio_tpu_torch.ops.device_prep`); elsewhere, or with
+  ``max_degree`` truncation, on the host
+  (:mod:`predictionio_tpu_torch.ops.ragged`) and uploaded, with index
   blocks as int32;
 - per side and bucket, the per-row normal equations
   ``A_u = Σ_i w_ui · y_i y_iᵀ``, ``b_u = Σ_i c_ui · y_i`` (kernel K1,
@@ -37,6 +40,7 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.device import device as resolve_device
+from predictionio_tpu_torch.ops import device_prep as dp
 from predictionio_tpu_torch.ops import fused_gram as fg
 from predictionio_tpu_torch.ops import ridge_solve as rs
 from predictionio_tpu_torch.ops import threefry
@@ -54,7 +58,7 @@ from predictionio_tpu_torch.resilience.supervision import (
 
 __all__ = ["ALSConfig", "ALSModel", "ALSInputs", "als_model_from_numpy",
            "prepare_als_inputs", "train_als", "train_als_prepared",
-           "predict_scores", "recommend", "rmse"]
+           "predict_scores", "recommend", "fold_in", "rmse"]
 
 
 @dataclasses.dataclass
@@ -90,8 +94,9 @@ class ALSConfig:
     # Device-memory guard: a bucket whose [rows, L, K] gathered block
     # would exceed this many floats is solved in row chunks.
     max_block_floats: int = 1 << 27
-    # Device-side bucketing is not ported: "auto" and False bucket on
-    # the host; True raises.
+    # Where the ratings are bucketed: "auto" = on the card when training
+    # runs there with no max_degree, else on the host; True = on the
+    # training device, whatever it is; False = on the host.
     device_prep: Union[bool, str] = "auto"
     # Mesh knobs of the reference; ignored without a mesh.
     factor_sharding: str = "auto"
@@ -201,15 +206,15 @@ def _solve_bucket(indices, values, mask, factors, yty, reg: float,
     return _ridge(a, b, reg * degree.clamp_min(1.0), solver)  # ALS-WR: λ·n_u
 
 
-def _valid_rows(ids: np.ndarray, device: torch.device
+def _valid_rows(ids, device: torch.device
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The host half of :func:`_scatter_rows`, computed once at upload:
+    """The index half of :func:`_scatter_rows`, computed once at prep:
     the positions whose id is valid (``id >= 0``, the mask) and the ids
-    there, as int64 tensors on ``device``."""
-    ids = np.asarray(ids)
-    keep = np.flatnonzero(ids >= 0)
-    return (torch.from_numpy(keep).to(device),
-            torch.from_numpy(ids[keep].astype(np.int64)).to(device))
+    there, as int64 tensors on ``device``.  ``ids`` (numpy or a tensor)
+    are read where they lie: the device route's never leave the card."""
+    ids = torch.as_tensor(ids, device=device)
+    keep = torch.nonzero(ids >= 0).squeeze(1)
+    return keep, ids[keep].long()
 
 
 def _scatter_rows(dst: torch.Tensor, keep: torch.Tensor,
@@ -302,19 +307,29 @@ def _chunk_split_bucket(
     return chunks
 
 
+def _make_chunk(kind: str, idx: torch.Tensor, vals: torch.Tensor,
+                msk: torch.Tensor, ids: torch.Tensor,
+                seg: Optional[torch.Tensor] = None) -> _Chunk:
+    """A solve block from tensors already on the training device:
+    ``ids`` are its row ids (plain) or entity ids (merged, with the
+    partial rows' ``seg`` ids, the spare slot ``len(ids)`` at most)."""
+    keep, targets = _valid_rows(ids, idx.device)
+    n_seg = len(ids) if seg is not None else 0
+    return _Chunk(kind=kind, indices=idx, values=vals, mask=msk,
+                  keep=keep, targets=targets,
+                  seg_ids=None if seg is None
+                  else seg.long().clamp(max=n_seg),
+                  n_seg=n_seg)
+
+
 def _upload(kind: str, idx, vals, msk, ids, device: torch.device,
             seg=None) -> _Chunk:
     def put(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
 
-    keep, targets = _valid_rows(ids, device)
-    n_seg = len(ids) if seg is not None else 0
-    return _Chunk(kind=kind, indices=put(idx, np.int32),
-                  values=put(vals, np.float32), mask=put(msk, np.bool_),
-                  keep=keep, targets=targets,
-                  seg_ids=None if seg is None
-                  else put(np.minimum(seg, n_seg), np.int64),
-                  n_seg=n_seg)
+    return _make_chunk(kind, put(idx, np.int32), put(vals, np.float32),
+                       put(msk, np.bool_), put(ids, np.int64),
+                       None if seg is None else put(seg, np.int64))
 
 
 def _device_buckets(buckets: List[Padded], rank: int, max_block_floats: int,
@@ -354,7 +369,7 @@ def _device_buckets(buckets: List[Padded], rank: int, max_block_floats: int,
 
 @dataclasses.dataclass
 class ALSInputs:
-    """Uploaded padded buckets + factor init (prep done once), so a
+    """Padded buckets on the device + factor init (prep done once), so a
     caller can run :func:`train_als_prepared` more than once without
     re-bucketing or re-uploading."""
 
@@ -377,17 +392,36 @@ def prepare_als_inputs(
     *,
     device=None,
 ) -> ALSInputs:
-    """Host bucketing (:func:`~predictionio_tpu_torch.ops.ragged.
-    bucket_by_length`) + upload for :func:`train_als_prepared`.
+    """Bucketing + upload for :func:`train_als_prepared`.
     ``device``: where training runs (default the card; ``"cpu"`` for the
-    plain paths)."""
+    plain paths).
+
+    ``config.device_prep`` picks the route (the reference's dispatch):
+    ``"auto"`` buckets on the card when training runs there with no
+    ``max_degree`` — the COO goes up once and
+    :mod:`~predictionio_tpu_torch.ops.device_prep` lays the buckets out
+    there — and on the host otherwise
+    (:func:`~predictionio_tpu_torch.ops.ragged.bucket_by_length`, then
+    the blocks go up); ``True`` takes the device route on ``device``,
+    whatever it is; ``False`` the host route.  A failure of the device
+    route raises: nothing falls back to the host."""
     if mesh is not None:
         raise NotImplementedError("ALS on a device mesh is not ported yet; "
                                   "pass mesh=None (one device)")
-    if config.device_prep is True:
-        raise NotImplementedError("device-side bucketing is not ported yet; "
-                                  "use device_prep='auto' or False (host)")
     dev = resolve_device(device)
+    use_dev = config.device_prep
+    if use_dev == "auto":
+        use_dev = dev.type == "cuda" and config.max_degree is None
+    elif use_dev not in (True, False):
+        raise ValueError(f"device_prep must be 'auto', True or False "
+                         f"(got {config.device_prep!r})")
+    if use_dev:
+        if config.max_degree is not None:
+            raise NotImplementedError(
+                "device bucketing does not truncate (max_degree); use "
+                "device_prep='auto' or False")
+        return _prepare_als_inputs_device(user_ids, item_ids, ratings,
+                                          n_users, n_items, config, dev)
     k = config.rank
     pad_rows = LEN_ALIGN
     uf, itf = (t.to(dev) for t in _init_factors(n_users, n_items, k,
@@ -404,6 +438,95 @@ def prepare_als_inputs(
     return ALSInputs(uf0=uf, itf0=itf,
                      user_buckets=side(user_ids, item_ids, n_users),
                      item_buckets=side(item_ids, user_ids, n_items),
+                     n_users=n_users, n_items=n_items)
+
+
+def _plan_side(rows: torch.Tensor, n_rows: int, config: ALSConfig,
+               host_rows: Optional[np.ndarray] = None) -> dp.BucketPlan:
+    """One side's :class:`~predictionio_tpu_torch.ops.device_prep.
+    BucketPlan` from its COO ids: the degree statistics as one
+    ``np.bincount`` when ``host_rows`` (a numpy copy of the same ids) is
+    at hand, else on the device of ``rows``.  Both count ids as the
+    device build places them (:func:`~predictionio_tpu_torch.ops.
+    device_prep.normalize_ids`), so they give the same plan."""
+    split_above = config.split_above or 1 << 20
+    if host_rows is not None:
+        host_rows = np.asarray(host_rows)
+        if host_rows.size and host_rows.min() < 0:
+            host_rows = np.where(host_rows < 0, host_rows + n_rows,
+                                 host_rows)
+        in_range = (host_rows >= 0) & (host_rows < n_rows)
+        if not in_range.all():
+            host_rows = host_rows[in_range]
+        counts = np.bincount(host_rows, minlength=n_rows)
+        hist = np.bincount(np.minimum(counts, split_above),
+                           minlength=split_above + 1)
+        over = counts > split_above
+        n_over = int(over.sum())
+        n_part = int(((counts[over] + split_above - 1)
+                      // split_above).sum())
+        over_deg = counts[over] if n_over else None
+    else:
+        counts = torch.bincount(dp.normalize_ids(rows, n_rows)[0],
+                                minlength=n_rows)
+        hist, n_over, n_part = dp.degree_histogram(counts, split_above)
+        # Degrees of the over-cap entities in id order: the plan places
+        # the split chunks' boundaries by them.
+        over_deg = (counts[counts > split_above].cpu().numpy() if n_over
+                    else None)
+    return dp.plan_buckets(hist, n_over, n_part, n_rows,
+                           split_above=split_above,
+                           bucket_bounds=config.bucket_bounds,
+                           max_block_floats=config.max_block_floats,
+                           rank=config.rank, over_degrees=over_deg)
+
+
+def _device_side_chunks(rows: torch.Tensor, cols: torch.Tensor,
+                        vals: torch.Tensor, plan: dp.BucketPlan
+                        ) -> List[Tuple[str, Tuple]]:
+    """``(kind, arrays)`` of every solve block of one side, in the sweep's
+    order: each plain bucket's row chunks (views of its block), then the
+    split bucket's entity chunks — the reference's ``_expand_chunks`` of
+    its device buckets."""
+    plain, split = dp.build_buckets(rows, cols, vals, plan)
+    return ([("plain", arrs) for arrs in plain]
+            + [("merged", arrs) for arrs in split or ()])
+
+
+def _device_side(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+                 plan: dp.BucketPlan) -> List[_Chunk]:
+    """One side's solve blocks, laid out on the device of ``rows``."""
+    return [_make_chunk(kind, *arrs[:3], arrs[-1],
+                        arrs[3] if kind == "merged" else None)
+            for kind, arrs in _device_side_chunks(rows, cols, vals, plan)]
+
+
+def _prepare_als_inputs_device(user_ids, item_ids, ratings, n_users: int,
+                               n_items: int, config: ALSConfig,
+                               dev: torch.device) -> ALSInputs:
+    """The device route: the COO goes up once as int32 / int32 /
+    float32, each side is planned on the host (numpy ids) or the device
+    (tensor ids) and laid out on ``dev``, and the factors start from
+    :func:`_init_factors`."""
+    def one_input(ids):
+        if isinstance(ids, torch.Tensor):
+            return None, ids.to(dev, torch.int32)
+        h = np.asarray(ids, dtype=np.int32)
+        return h, torch.from_numpy(h).to(dev)
+
+    host_u, rows_u = one_input(user_ids)
+    host_i, rows_i = one_input(item_ids)
+    if ratings is None:
+        vals = torch.ones(rows_u.shape[0], dtype=torch.float32, device=dev)
+    else:
+        vals = torch.as_tensor(ratings).to(dev, torch.float32)
+    plan_u = _plan_side(rows_u, n_users, config, host_rows=host_u)
+    plan_i = _plan_side(rows_i, n_items, config, host_rows=host_i)
+    uf, itf = (t.to(dev) for t in _init_factors(n_users, n_items,
+                                                  config.rank, config.seed))
+    return ALSInputs(uf0=uf, itf0=itf,
+                     user_buckets=_device_side(rows_u, rows_i, vals, plan_u),
+                     item_buckets=_device_side(rows_i, rows_u, vals, plan_i),
                      n_users=n_users, n_items=n_items)
 
 
@@ -552,3 +675,45 @@ def recommend(
         return chunked_top_k(q, items, k, chunk=chunk)
     return top_k_scores(q, items, k,
                         exclude=None if seen is None else _on(seen, device))
+
+
+def fold_in(
+    item_factors: np.ndarray,     # [I, K] host item factors (frozen)
+    item_ids: np.ndarray,         # [d] int — the user's observed items
+    ratings: np.ndarray,          # [d] float — ratings / implicit strengths
+    *,
+    reg: float,
+    alpha: float = 1.0,
+    implicit: bool = False,
+    yty: Optional[np.ndarray] = None,   # [K, K] — required when implicit
+) -> np.ndarray:
+    """Serve-time fold-in: one ridge solve for an unseen user against
+    the frozen item factors (reference: ``models/als.py`` ``fold_in``).
+
+    The user-side normal equation of the training sweep (ALS-WR
+    ``λ·n_u`` ridge; implicit = Hu-Koren-Volinsky with the shared
+    ``YᵀY`` the caller passes in), in float64 host numpy: the rank is
+    tens and the degree a visitor's recent-event count, so one K×K
+    solve is microseconds and the request never waits on the card.
+    """
+    item_ids = np.asarray(item_ids, np.int64)
+    r = np.asarray(ratings, np.float64)
+    y = np.asarray(item_factors, np.float64)[item_ids]      # [d, K]
+    k = y.shape[1]
+    if implicit:
+        if yty is None:
+            raise ValueError("implicit fold_in needs the cached YᵀY")
+        w = alpha * np.abs(r)                               # c - 1
+        c = (1.0 + w) * (r > 0)
+        a = np.asarray(yty, np.float64) + (y * w[:, None]).T @ y
+        b = y.T @ c
+    else:
+        a = y.T @ y
+        b = y.T @ r
+    n = max(len(item_ids), 1)
+    a = a + reg * n * np.eye(k)
+    try:
+        u = np.linalg.solve(a, b)
+    except np.linalg.LinAlgError:                       # singular corner:
+        u = np.linalg.lstsq(a, b, rcond=None)[0]        # degenerate events
+    return u.astype(np.float32)

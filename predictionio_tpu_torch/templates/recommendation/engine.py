@@ -17,18 +17,24 @@ train-time retrieval structures on the host: an IVF index under an
 explicit ``PIO_IVF=on``, and residual PQ codes under the ``PIO_PQ``
 policy on top of it.  Serving goes through the port's retrieval facade
 (exact rungs, the chunked one on the fused top-k kernel K3; the IVF and
-PQ rungs, ``pq_flat`` on the PQ scan kernel K5).  A generation trained
-elsewhere can still be carried in with :func:`wrapper_from_numpy` and
-persisted with
+PQ rungs, ``pq_flat`` on the PQ scan kernel K5).  An unseen user with
+``rate``/``buy`` events is folded in at serve time (one host ridge
+solve against the frozen item factors) and rides the same retrieval
+call as the trained users.  A generation trained elsewhere can still be
+carried in with :func:`wrapper_from_numpy` and persisted with
 :func:`predictionio_tpu_torch.workflow.core_workflow.persist_instance`.
 Not ported yet: ``read_eval``, ``warm_start``, the quality and recall
-scorecards, and serve-time fold-in.
+scorecards, and the fleet-shared fold-in cache.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
+import os
+import threading
+import time
 import weakref
 from typing import Any, List, Mapping, Optional, Sequence, Tuple, Union
 
@@ -45,10 +51,12 @@ from predictionio_tpu_torch.controller import (
 from predictionio_tpu_torch.controller.params import Params
 from predictionio_tpu_torch.data.event import BiMap
 from predictionio_tpu_torch.models import als as als_lib
+from predictionio_tpu_torch.obs import get_registry
 from predictionio_tpu_torch.retrieval import (
     IVFIndex,
     PQCodebook,
     Retriever,
+    _env_int,
     build_train_index,
     build_train_pq,
     cached_retriever,
@@ -193,6 +201,29 @@ class ALSAlgorithmParams(Params):
     gatherWindow: Union[bool, str] = "auto"  # noqa: N815
 
 
+def _fold_in_enabled() -> bool:
+    """``PIO_FOLD_IN``: unset or empty is on; ``0``/``off``/``false``/
+    ``no`` (any case) turn fold-in off."""
+    raw = os.environ.get("PIO_FOLD_IN")
+    if raw is None or raw.strip() == "":
+        return True
+    return raw.strip().lower() not in ("0", "off", "false", "no")
+
+
+def _fold_metric():
+    return get_registry().counter(
+        "pio_fold_in_total",
+        "Serve-time ALS fold-in attempts by outcome "
+        "(cached/solved/no_events/unavailable).", ("result",))
+
+
+# A user with no usable events is cached too (an unknown-user query
+# storm must not read the event store once a request), but only this
+# long: their first events should become recommendations within
+# seconds, not a generation's lifetime.
+_FOLD_NEG_TTL_S = 30.0
+
+
 # eq=False: wrapper identity IS the model generation — keeps the object
 # hashable for the weak-keyed retriever cache.
 @dataclasses.dataclass(eq=False)
@@ -203,9 +234,13 @@ class ALSModelWrapper:
     corpus, index and codes live in the weak-keyed retriever cache and
     die with the wrapper.  ``ivf``/``pq`` are the generation's optional
     IVF index and PQ codebook, pickled with it so a generation swap moves
-    model, index and codes together.  Training fills the fold-in fields
-    as the reference does, but serve-time fold-in is ported later: until
-    then an unseen user gets the cold-start (empty) answer.
+    model, index and codes together.
+
+    Serve-time fold-in: an unseen user with recent events gets one ridge
+    solve against the frozen item factors (``models.als.fold_in``)
+    instead of the cold-start empty answer.  The folded factor lives in
+    a bounded per-generation LRU (``PIO_FOLD_IN_CACHE``), per process
+    and ephemeral: the next train makes the user durable.
     """
 
     model: als_lib.ALSModel
@@ -221,20 +256,38 @@ class ALSModelWrapper:
     n_examples: int = 0
 
     def __post_init__(self):
+        self._init_transients()
+
+    def _init_transients(self) -> None:
+        # Per-generation serving state, never pickled: it dies with the
+        # wrapper on reload, exactly when the factors it was solved
+        # against do.  Cache values are (vector | None, monotonic
+        # stamp); None is a negative entry, kept _FOLD_NEG_TTL_S.
         self._device = None
+        self._fold_cache: "collections.OrderedDict[str, tuple]" = \
+            collections.OrderedDict()
+        self._fold_lock = threading.Lock()
+        self._event_store = None
+        self._yty: Optional[np.ndarray] = None
 
     def __getstate__(self):
         d = self.__dict__.copy()
-        d.pop("_device", None)
+        for k in ("_device", "_fold_cache", "_fold_lock", "_event_store",
+                  "_yty"):
+            d.pop(k, None)
         return d
 
     def __setstate__(self, d):
         self.__dict__.update(d)
-        self._device = None
+        self._init_transients()
 
     def post_load(self, ctx: RuntimeContext) -> None:
-        """Serving-time hook: take the device the server runs on."""
+        """Serving-time hook: take the device the server runs on, and
+        the event store fold-in reads (transient, never pickled)."""
         self._device = ctx.device
+        store = getattr(ctx, "event_store", None)
+        if store is not None:
+            self._event_store = store
 
     def retriever(self) -> Retriever:
         """THE serving route to the item corpus — one per loaded
@@ -261,9 +314,76 @@ class ALSModelWrapper:
                 self.model.item_factors[: len(self.item_index)])
 
     def fold_in_user(self, user: str) -> Optional[np.ndarray]:
-        """Serve-time fold-in is ported later: no factor, so an unseen
-        user gets the cold-start answer."""
-        return None
+        """Solve an unseen user's factor from their recent events
+        (``PIO_FOLD_IN_EVENTS``, newest first) against the frozen item
+        factors; None when fold-in is off, no event store is attached,
+        the read fails, or the user has no mappable events.  Outcomes
+        count in ``pio_fold_in_total{result}``."""
+        es = self._event_store
+        if es is None or not self.app_name or not _fold_in_enabled():
+            return None
+        with self._fold_lock:
+            hit = self._fold_cache.get(user)
+            if hit is not None:
+                vec, t = hit
+                if vec is not None or \
+                        time.monotonic() - t < _FOLD_NEG_TTL_S:
+                    self._fold_cache.move_to_end(user)
+                    _fold_metric().inc(result="cached")
+                    return vec
+                del self._fold_cache[user]  # expired negative: re-check
+        try:
+            events = es.find_by_entity(
+                self.app_name, "user", user,
+                event_names=list(self.fold_event_names) or None,
+                target_entity_type="item",
+                limit=_env_int("PIO_FOLD_IN_EVENTS", 50), latest=True)
+        except Exception:
+            # A storage blip degrades to the cold-start answer; it never
+            # fails the batch this user rides in.
+            logging.getLogger(__name__).debug("fold-in event read failed",
+                                              exc_info=True)
+            _fold_metric().inc(result="unavailable")
+            return None
+        ids: List[int] = []
+        vals: List[float] = []
+        for ev in events:
+            idx = self.item_index.get(ev.target_entity_id)
+            if idx is None:
+                continue  # item unknown to this generation
+            if ev.event == "rate":
+                r = ev.properties.get("rating")
+                if not isinstance(r, (int, float)) or not np.isfinite(r):
+                    continue
+                vals.append(float(r))
+            else:
+                vals.append(float(self.buy_rating))
+            ids.append(int(idx))
+        if not ids:
+            self._fold_store(user, None)
+            _fold_metric().inc(result="no_events")
+            return None
+        _, itf = self.host_factors()
+        if self.model.implicit and self._yty is None:
+            f = itf.astype(np.float64)
+            self._yty = f.T @ f
+        vec = als_lib.fold_in(
+            itf, np.asarray(ids), np.asarray(vals, np.float32),
+            reg=float(self.reg), alpha=float(self.alpha),
+            implicit=self.model.implicit, yty=self._yty)
+        self._fold_store(user, vec)
+        _fold_metric().inc(result="solved")
+        return vec
+
+    def _fold_store(self, user: str, vec: Optional[np.ndarray]) -> None:
+        """Bounded-LRU insert; ``vec=None`` is the (TTL'd) negative
+        entry for a user with no usable events."""
+        with self._fold_lock:
+            self._fold_cache[user] = (vec, time.monotonic())
+            self._fold_cache.move_to_end(user)
+            cap = _env_int("PIO_FOLD_IN_CACHE", 10000)
+            while len(self._fold_cache) > max(cap, 1):
+                self._fold_cache.popitem(last=False)
 
 
 def wrapper_from_numpy(user_factors, item_factors, user_ids, item_ids, *,
@@ -358,8 +478,10 @@ class ALSAlgorithm(Algorithm):
     def batch_predict(self, model: ALSModelWrapper, queries):
         """Vectorized serving path — ONE retrieval-facade call for the
         whole cohort; all routing lives in the retrieval facade, this
-        template only maps ids.  Unseen users try fold-in first (none
-        yet) and otherwise get the cold-start empty result."""
+        template only maps ids.  Unseen users try fold-in first: a
+        folded factor rides the same retrieval call as the trained
+        users' rows; users with no usable events get the cold-start
+        empty result."""
         known = [(i, q) for i, q in queries if q.user in model.user_index]
         rows: List[np.ndarray] = []
         cold: List[Tuple[int, Query]] = []

@@ -202,10 +202,20 @@ def test_one_device_only_and_card_by_default(monkeypatch):
     with pytest.raises(NotImplementedError, match="mesh"):
         port_als.train_als(users, items, ratings, N_USERS, N_ITEMS, cfg,
                            mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="bucketing"):
-        port_als.train_als(users, items, ratings, N_USERS, N_ITEMS,
-                           port_als.ALSConfig(rank=4, device_prep=True),
-                           device=CPU)
+    # bucketing on the training device is ported: on the CPU it trains
+    # what the host route trains
+    on_dev = port_als.train_als(users, items, ratings, N_USERS, N_ITEMS,
+                                port_als.ALSConfig(rank=4, iterations=1,
+                                                   device_prep=True),
+                                device=CPU)
+    on_host = port_als.train_als(users, items, ratings, N_USERS, N_ITEMS,
+                                 port_als.ALSConfig(rank=4, iterations=1,
+                                                    device_prep=False),
+                                 device=CPU)
+    np.testing.assert_allclose(on_dev.user_factors, on_host.user_factors,
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(on_dev.item_factors, on_host.item_factors,
+                               rtol=0, atol=1e-5)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         port_als.train_als(users, items, ratings, N_USERS, N_ITEMS, cfg)

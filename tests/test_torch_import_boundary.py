@@ -34,7 +34,7 @@ print(json.dumps({"modules": names, "bad": bad}))
 # Every module of the training slice must be among those imported.
 TRAINING_SLICE = (
     "ops.ragged", "ops.linalg", "ops.fused_gram", "ops.ridge_solve",
-    "ops.threefry",
+    "ops.threefry", "ops.device_prep",
     "resilience.supervision", "models.als", "data.event",
     "data.storage.base", "data.storage.memory", "data.store",
     "data.columnar", "controller.engine", "templates.recommendation.engine",
