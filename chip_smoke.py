@@ -87,7 +87,23 @@ cannot be imported, or when any phase fails.  Phases, in order:
    so the template's own policy builds PQ codes; deployed; 16
    /queries.json on the device pq_flat rung, each held against the host
    PQ search of the trained factors; K1, K2 and K5 must have launched.
-12. report — one JSON line of per-kernel numbers, the card's name and
+12. cli loop — the engine.json loop across processes at the MovieLens-1M
+   shape (1,000,209 seeded rate events, 6,040 users x 3,706 Zipf items,
+   half stars, and buys by 5 % of the users) on the default sqlite +
+   localfs storage of a fresh PIO_HOME: JSONL → `pio app new` and `pio
+   import` as subprocesses; `pio train` (the examples' engine.json with
+   the port's engineFactory, rank 64, 10 iterations) in-process through
+   the CLI's main, its factors held by entity id against run_train on
+   the same events in a MEMORY store; `pio deploy` as a subprocess,
+   which must report a CUDA device and answer 64 /queries.json each
+   equal to the plain top-k of the persisted factors; 24 events of two
+   unseen users imported by another process and folded in, then a
+   second deploy answering one of them from the shared KV
+   (pio_fold_in_total{result="shared"} 1); both stopped by POST /stop
+   with exit 0; `pio batchpredict` and `pio eval` (two candidates)
+   in-process; K1, K2 and K3 must launch (the chunked rung is forced:
+   the router would answer 3,706 items on the host).
+13. report — one JSON line of per-kernel numbers, the card's name and
    power limit, and the final status line.
 """
 
@@ -103,6 +119,7 @@ import sys
 import tempfile
 import time
 import urllib.request
+from pathlib import Path
 
 RTOL = 1e-5   # float32 sums in another order than the plain matmul
 ATOL = 1e-5
@@ -885,7 +902,7 @@ def dase_phase(dev, seed: int, home: str, mods: dict, card: str) -> dict:
 
     fg, rs, ft = mods["fg"], mods["rs"], mods["ft"]
     rng = np.random.default_rng(seed + 1)
-    storage = mods["get_storage"](os.path.join(home, "dase"))
+    storage = mods["memory_storage"](os.path.join(home, "dase"))
     app_id = storage.get_apps().insert(mods["App"](id=None, name="chipsmoke"))
     events = storage.get_events()
     events.init(app_id)
@@ -1523,7 +1540,7 @@ def pq_serve_phase(seed: int, home: str, users_np, mods, card: str) -> dict:
                        / "engine.json").read_text())
     spec["algorithms"][0]["params"]["rank"] = RANK
     variant = mods["EngineVariant"].from_dict(spec)
-    storage = mods["get_storage"](os.path.join(home, "pq"))
+    storage = mods["memory_storage"](os.path.join(home, "pq"))
     wrapper = mods["wrapper_from_numpy"](
         users_np[:PQ_USERS], items, [f"u{j}" for j in range(PQ_USERS)],
         [f"i{j}" for j in range(PQ_ITEMS)], rank=RANK, ivf=ivf, pq=pq)
@@ -1686,6 +1703,492 @@ def pq_dase_phase(dase, mods, card: str) -> dict:
     return {"launches": counts["pq_scan"], "err": err}
 
 
+# Phase 12: the engine.json loop across processes, at the MovieLens-1M
+# shape (cut from ML-25M in depth only: a 25 M-event import through JSON
+# and sqlite would not fit the run's limit).
+ML1M_EVENTS, ML1M_USERS, ML1M_ITEMS = 1_000_209, 6_040, 3_706
+ML1M_BUYER_SHARE, ML1M_BUYS_EACH = 0.05, 5
+CLI_APP, CLI_QUERIES = "chipcli", 64
+CLI_FACTORY = "predictionio_tpu_torch.templates.recommendation:engine"
+CLI_TIMEOUT_S = 600       # any one subprocess of phase 12
+
+
+def cli_eval_params():
+    """``pio eval``'s two candidates in phase 12 (the CLI loads this by
+    name): rank 64, 5 iterations, evalK 2, two ridges."""
+    from predictionio_tpu_torch.controller import EngineParams
+    from predictionio_tpu_torch.templates.recommendation.engine import (
+        ALSAlgorithmParams, DataSourceParams)
+    from predictionio_tpu_torch.templates.recommendation.evaluation import (
+        ParamsList)
+
+    ds = DataSourceParams(appName=CLI_APP, evalK=2)
+    return ParamsList([
+        EngineParams(datasource_params=ds, algorithms_params=(
+            ("als", ALSAlgorithmParams(rank=RANK, numIterations=5,
+                                       lambda_=lam, seed=3)),))
+        for lam in (0.01, 0.1)])
+
+
+def ml1m_events(seed: int):
+    """The phase's events as columns, in the order they are written:
+    1,000,209 rate events (every user and item at least once, Zipf(1.25)
+    items, half stars) and 5 buys each for 5 % of the users, sorted by
+    the user id's string, with event times one second apart — the order
+    the sqlite training scan reads them in (its entity index), so the
+    in-memory store's event-time scan sees the same order."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 12)
+    n = ML1M_EVENTS
+    users = rng.integers(0, ML1M_USERS, n)
+    users[:ML1M_USERS] = rng.permutation(ML1M_USERS)
+    items = rng.zipf(1.25, n) % ML1M_ITEMS
+    items[:ML1M_ITEMS] = rng.permutation(ML1M_ITEMS)
+    stars = rng.integers(1, 11, n) * 0.5
+    buyers = rng.choice(ML1M_USERS, int(ML1M_USERS * ML1M_BUYER_SHARE),
+                        replace=False)
+    b_users = np.repeat(buyers, ML1M_BUYS_EACH)
+    b_items = rng.zipf(1.25, len(b_users)) % ML1M_ITEMS
+    users = np.concatenate([users, b_users])
+    items = np.concatenate([items, b_items])
+    stars = np.concatenate([stars, np.full(len(b_users), np.nan)])
+    names = np.array([f"u{u}" for u in range(ML1M_USERS)])
+    rank = np.empty(ML1M_USERS, np.int64)
+    rank[np.argsort(names)] = np.arange(ML1M_USERS)
+    order = np.argsort(rank[users], kind="stable")
+    # one second apart, ending three weeks ago: all before any train's
+    # watermark
+    start = np.datetime64("now", "D") - np.timedelta64(35, "D")
+    times = np.datetime_as_string(
+        start.astype("datetime64[s]")
+        + np.arange(len(order)).astype("timedelta64[s]"))
+    return users[order], items[order], stars[order], times
+
+
+def write_jsonl(path: str, users, items, stars, times) -> None:
+    with open(path, "w") as f:
+        for u, i, r, t in zip(users.tolist(), items.tolist(), stars.tolist(),
+                              times.tolist()):
+            if r != r:   # NaN: a buy
+                f.write(f'{{"event":"buy","entityType":"user","entityId":'
+                        f'"u{u}","targetEntityType":"item","targetEntityId":'
+                        f'"i{i}","eventTime":"{t}Z"}}\n')
+            else:
+                f.write(f'{{"event":"rate","entityType":"user","entityId":'
+                        f'"u{u}","targetEntityType":"item","targetEntityId":'
+                        f'"i{i}","properties":{{"rating":{r}}},'
+                        f'"eventTime":"{t}Z"}}\n')
+
+
+def cli_env(home: str) -> env_vars:
+    """The phase's environment, in this process and its children: a
+    fresh PIO_HOME on the default storage, the chunked rung (K3) for
+    every answer — at 3,706 items the router would answer on the host
+    or by a library call — and no other switch of the path set."""
+    return env_vars(
+        PIO_HOME=home, PIO_RETRIEVAL_RUNG="chunked", PIO_CONFIG_FILE=None,
+        PIO_IVF=None, PIO_PQ=None, PIO_PQ_M=None, PIO_SERVE_HOST_MACS=None,
+        PIO_FOLD_IN=None, PIO_FOLD_IN_SHARED=None, PIO_EVAL_BATCH=None,
+        PIO_FOLD_IN_SHARED_MAX_AGE_S=None,
+        PIO_STORAGE_REPOSITORIES_METADATA_SOURCE=None,
+        PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE=None,
+        PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE=None,
+        PYTHONPATH=str(Path(__file__).resolve().parent))
+
+
+def run_cli(*argv) -> str:
+    """One ``python -m predictionio_tpu_torch.cli`` subprocess; dies
+    unless it exits 0.  Returns its standard output."""
+    out = subprocess.run(
+        [sys.executable, "-m", "predictionio_tpu_torch.cli", *argv],
+        cwd=Path(__file__).resolve().parent, capture_output=True,
+        text=True, timeout=CLI_TIMEOUT_S)
+    if out.returncode != 0:
+        die(f"phase 12: pio {' '.join(argv)} exited {out.returncode}: "
+            f"{out.stderr[-2000:]}")
+    return out.stdout
+
+
+class deployed:
+    """``pio deploy`` in a subprocess on a free port, until ``stop()``
+    (``POST /stop``; it must exit 0).  ``started_s``: Popen time."""
+
+    def __init__(self, engine_json: str, log_path: str):
+        import select
+
+        self.started_s = time.perf_counter()
+        self.log = open(log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "predictionio_tpu_torch.cli", "deploy",
+             "--engine-json", engine_json, "--ip", "127.0.0.1", "--port",
+             "0"], cwd=Path(__file__).resolve().parent,
+            stdout=subprocess.PIPE, stderr=self.log, text=True)
+        ready, _, _ = select.select([self.proc.stdout], [], [],
+                                    CLI_TIMEOUT_S)
+        line = self.proc.stdout.readline() if ready else ""
+        import re
+
+        m = re.search(r"listening on 127\.0\.0\.1:(\d+) \(instance (\w+); "
+                      r"device (\S+);", line)
+        if not m:
+            self.kill()
+            die(f"phase 12: pio deploy did not start ({line!r}): "
+                f"{Path(log_path).read_text()[-2000:]}")
+        self.base = f"http://127.0.0.1:{m.group(1)}"
+        self.instance, self.device = m.group(2), m.group(3)
+
+    def get(self, path: str) -> str:
+        with urllib.request.urlopen(self.base + path, timeout=120) as r:
+            return r.read().decode()
+
+    def stop(self) -> None:
+        post_json(self.base + "/stop", {})
+        rc = self.proc.wait(timeout=120)
+        self.proc.stdout.close()
+        self.log.close()
+        if rc != 0:
+            die(f"phase 12: pio deploy exited {rc} after POST /stop")
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+        self.proc.stdout.close()
+        self.log.close()
+
+
+def answers_agree(got, want, what: str, topk_mismatch) -> None:
+    """Two answers to one query: ids equal except within a tie, scores
+    within the answer tolerance."""
+    gs = [[h["score"] for h in got["itemScores"]]]
+    gi = [[int(h["item"][1:]) for h in got["itemScores"]]]
+    ws = [[h["score"] for h in want["itemScores"]]]
+    wi = [[int(h["item"][1:]) for h in want["itemScores"]]]
+    why = topk_mismatch(gs, gi, ws, wi, None, rtol=RTOL, atol=ATOL)
+    if why is not None or len(gs[0]) != len(ws[0]):
+        die(f"{what}: {why or 'lengths differ'}")
+
+
+def cli_loop_phase(dev, seed: int, mods: dict, card: str) -> dict:
+    """Phase 12: app new and import (subprocesses) → train (in-process,
+    through the CLI's main) → deploy (two subprocesses) → 64
+    /queries.json → fold-in across processes → batchpredict and eval
+    (in-process), all on the default sqlite + localfs storage of a fresh
+    PIO_HOME.  Returns the phase's launches of K1, K2 and K3."""
+    import logging
+
+    import numpy as np
+    import torch
+
+    fg, rs, ft, pio = mods["fg"], mods["rs"], mods["ft"], mods["pio"]
+    from predictionio_tpu_torch.data.storage import get_storage, \
+        reset_storage
+    from predictionio_tpu_torch.models.als import fold_in
+    from predictionio_tpu_torch.workflow.core_workflow import load_models
+
+    logging.basicConfig(level=logging.WARNING)   # the CLI's INFO stays off
+    work = tempfile.mkdtemp(prefix="pio_chip_cli_")
+    env = cli_env(os.path.join(work, "home"))
+    registry = mods["get_registry"]()
+
+    def read_ms() -> float:
+        h = registry.get("pio_train_phase_ms")
+        return 0.0 if h is None else h.sum(phase="train.datasource")
+
+    def fold_count(metrics: str, result: str) -> float:
+        key = f'pio_fold_in_total{{result="{result}"}} '
+        return sum(float(ln[len(key):]) for ln in metrics.splitlines()
+                   if ln.startswith(key))
+
+    servers = []
+    out = {}
+    phase_t0 = time.perf_counter()
+    env.__enter__()
+    reset_storage()
+    try:
+        # -- 1: events → JSONL → app new, import (subprocesses) -----------
+        t0 = time.perf_counter()
+        users, items, stars, times = ml1m_events(seed)
+        events_path = os.path.join(work, "events.jsonl")
+        write_jsonl(events_path, users, items, stars, times)
+        n_events = len(users)
+        out["write_s"] = time.perf_counter() - t0
+        run_cli("app", "new", CLI_APP)
+        t0 = time.perf_counter()
+        said = run_cli("import", "--appid", "1", "--input", events_path)
+        out["import_s"] = time.perf_counter() - t0
+        if f"Imported {n_events} events" not in said:
+            die(f"phase 12: import said {said!r}")
+
+        # -- 2: train in-process through the CLI ---------------------------
+        spec = json.loads((Path(__file__).resolve().parent / "examples" /
+                           "recommendation" / "engine.json").read_text())
+        spec["engineFactory"] = CLI_FACTORY
+        spec["datasource"]["params"]["appName"] = CLI_APP
+        spec["algorithms"][0]["params"].update(
+            rank=RANK, numIterations=TRAIN_ITERS, seed=seed)
+        engine_json = os.path.join(work, "engine.json")
+        Path(engine_json).write_text(json.dumps(spec))
+        read_before = read_ms()
+        fg.LAUNCHES = 0                      # main path starts here
+        rs.LU_LAUNCHES = 0
+        t0 = time.perf_counter()
+        if pio(["train", "--engine-json", engine_json]) != 0:
+            die("phase 12: pio train failed")
+        out["train_s"] = time.perf_counter() - t0
+        launches = {"fused_gram": fg.LAUNCHES,
+                    "ridge_solve_lu": rs.LU_LAUNCHES}
+        out["read_ms"] = read_ms() - read_before
+        storage = get_storage()
+        eng = mods["engine"]()
+        variant = mods["EngineVariant"].from_file(engine_json)
+        [inst] = storage.get_engine_instances().get_all()
+        if inst.status != "COMPLETED":
+            die(f"phase 12: instance {inst.id} is {inst.status}")
+        ctx = mods["RuntimeContext"](storage=storage, device=dev)
+        [wrapper] = load_models(eng, inst, ctx)
+        uf, itf = wrapper.host_factors()
+        if uf.shape != (ML1M_USERS, RANK) or itf.shape != (ML1M_ITEMS, RANK):
+            die(f"phase 12: trained {uf.shape} x {itf.shape}")
+        # the same events, in the same order, in a MEMORY store: run_train
+        # there must give the same factors by entity id
+        mem = mods["memory_storage"](os.path.join(work, "mem"))
+        app_id = mem.get_apps().insert(mods["App"](id=None, name=CLI_APP))
+        mem.get_events().init(app_id)
+        Event, DataMap = mods["Event"], mods["DataMap"]
+        from predictionio_tpu_torch.data.json_support import parse_iso8601
+
+        mem.get_events().insert_batch([
+            Event(event="buy" if r != r else "rate", entity_type="user",
+                  entity_id=f"u{u}", target_entity_type="item",
+                  target_entity_id=f"i{i}",
+                  properties=DataMap({} if r != r else {"rating": r}),
+                  event_time=parse_iso8601(t + "Z"))
+            for u, i, r, t in zip(users.tolist(), items.tolist(),
+                                  stars.tolist(), times.tolist())], app_id)
+        mid = mods["run_train"](eng, variant, mods["RuntimeContext"].create(
+            storage=mem, device=dev))
+        [mw] = load_models(eng, mem.get_engine_instances().get(mid),
+                           mods["RuntimeContext"](storage=mem, device=dev))
+        del mem
+        mu, mi = mw.host_factors()
+        same_order = (list(mw.user_index.keys()) ==
+                      list(wrapper.user_index.keys()))
+        err = 0.0
+        for what, got, gidx, want, widx in (
+                ("users", uf, wrapper.user_index, mu, mw.user_index),
+                ("items", itf, wrapper.item_index, mi, mw.item_index)):
+            if sorted(gidx.keys()) != sorted(widx.keys()):
+                die(f"phase 12: the sqlite and memory trains saw other "
+                    f"{what}")
+            rows = [widx[key] for key in gidx.keys()]
+            g = torch.from_numpy(np.ascontiguousarray(got))
+            w = torch.from_numpy(np.ascontiguousarray(want[rows]))
+            err = max(err, assert_close(
+                g, w, TRAIN_RTOL, scaled(TRAIN_ATOL, w),
+                f"phase 12: {what} factors, sqlite train vs memory train"))
+        out["factor_err"] = err
+        out["same_order"] = same_order
+
+        # -- 3: deploy (a second process on the same files) ---------------
+        a = deployed(engine_json, os.path.join(work, "deploy_a.log"))
+        servers.append(a)
+        rng = np.random.default_rng(seed + 121)
+        names = list(wrapper.user_index.keys())
+        asked = [names[j] for j in rng.choice(len(names), CLI_QUERIES,
+                                              replace=False)]
+        answers, lats, server_ms = [], [], []
+        for n, user in enumerate(asked):
+            t0 = time.perf_counter()
+            ans, ms = post_json(f"{a.base}/queries.json",
+                                {"user": user, "num": 10})
+            lats.append(time.perf_counter() - t0)
+            if n == 0:
+                out["deploy_to_first_s"] = time.perf_counter() - a.started_s
+            answers.append(ans)
+            server_ms.append(ms)
+        status = json.loads(a.get("/"))
+        if not status["device"].startswith(dev.type) or \
+                status["engineInstanceId"] != inst.id:
+            die(f"phase 12: deploy reports {status}")
+        items_d = torch.from_numpy(np.ascontiguousarray(itf)).to(dev)
+        qerr = 0.0
+        for user, ans in zip(asked, answers):
+            hits = ans["itemScores"]
+            if len(hits) != 10:
+                die(f"phase 12: the answer for {user} has {len(hits)} items")
+            qerr = max(qerr, check_against_plain(
+                [[h["score"] for h in hits]],
+                [[wrapper.item_index[h["item"]] for h in hits]],
+                torch.from_numpy(uf[[wrapper.user_index[user]]]).to(dev),
+                items_d, 10, None, f"phase 12 /queries.json {user}", ft,
+                mods["topk_mismatch"]))
+        out["p50_ms"] = sorted(lats)[len(lats) // 2] * 1e3
+        out["server_p50_ms"] = sorted(server_ms)[len(server_ms) // 2]
+        out["query_err"] = qerr
+
+        # -- 4: fold-in across processes ------------------------------------
+        item_names = list(wrapper.item_index.keys())
+        fold_path = os.path.join(work, "fold.jsonl")
+        fresh = {}
+        with open(fold_path, "w") as f:
+            for j in range(2):
+                user = f"unseen{j}"
+                ids, vals = [], []
+                for n, p in enumerate(rng.choice(len(item_names), 12,
+                                                 replace=False)):
+                    buy = n % 4 == 3
+                    r = float(rng.integers(1, 11) * 0.5)
+                    ev = {"event": "buy" if buy else "rate",
+                          "entityType": "user", "entityId": user,
+                          "targetEntityType": "item",
+                          "targetEntityId": item_names[p]}
+                    if not buy:
+                        ev["properties"] = {"rating": r}
+                    f.write(json.dumps(ev) + "\n")
+                    ids.append(wrapper.item_index[item_names[p]])
+                    vals.append(wrapper.buy_rating if buy else r)
+                fresh[user] = (np.asarray(ids), np.asarray(vals, np.float32))
+        run_cli("import", "--appid", "1", "--input", fold_path)
+        folded, fold_lats = {}, []
+        for user in fresh:
+            t0 = time.perf_counter()
+            folded[user], _ = post_json(f"{a.base}/queries.json",
+                                        {"user": user, "num": 10})
+            fold_lats.append(time.perf_counter() - t0)
+        ferr = 0.0
+        for user, (ids, vals) in fresh.items():
+            hits = folded[user]["itemScores"]
+            if len(hits) != 10:
+                die(f"phase 12: the folded answer for {user} has "
+                    f"{len(hits)} items")
+            vec = fold_in(itf, ids, vals, reg=wrapper.reg,
+                          alpha=wrapper.alpha, implicit=False)
+            ferr = max(ferr, check_against_plain(
+                [[h["score"] for h in hits]],
+                [[wrapper.item_index[h["item"]] for h in hits]],
+                torch.from_numpy(vec[None]).to(dev), items_d, 10, None,
+                f"phase 12 fold-in {user}", ft, mods["topk_mismatch"]))
+        b = deployed(engine_json, os.path.join(work, "deploy_b.log"))
+        servers.append(b)
+        again, _ = post_json(f"{b.base}/queries.json",
+                             {"user": "unseen0", "num": 10})
+        answers_agree(again, folded["unseen0"],
+                      "phase 12: the second deploy's folded answer",
+                      mods["topk_mismatch"])
+        counts = {name: {r: fold_count(s.get("/metrics"), r)
+                         for r in ("solved", "shared", "cached")}
+                  for name, s in (("first", a), ("second", b))}
+        if counts["second"] != {"solved": 0, "shared": 1, "cached": 0} \
+                or counts["first"]["solved"] != 2:
+            die(f"phase 12: pio_fold_in_total by deploy {counts}")
+        out["fold_first_ms"] = max(fold_lats) * 1e3
+        out["fold_err"] = ferr
+        out["fold_counts"] = counts
+        for s in (b, a):
+            s.stop()
+            servers.remove(s)
+
+        # -- 5: batchpredict in-process -------------------------------------
+        q_path = os.path.join(work, "queries.jsonl")
+        p_path = os.path.join(work, "predictions.jsonl")
+        Path(q_path).write_text("".join(
+            json.dumps({"user": u, "num": 10}) + "\n" for u in asked))
+        ft.LAUNCHES = 0
+        t0 = time.perf_counter()
+        if pio(["batchpredict", "--engine-json", engine_json,
+                     "--input", q_path, "--output", p_path]) != 0:
+            die("phase 12: pio batchpredict failed")
+        out["batch_s"] = time.perf_counter() - t0
+        launches["fused_topk"] = ft.LAUNCHES
+        lines = [json.loads(ln) for ln in
+                 Path(p_path).read_text().splitlines()]
+        if [ln["query"]["user"] for ln in lines] != asked:
+            die("phase 12: batchpredict's lines are not the queries")
+        for ln, ans in zip(lines, answers):
+            answers_agree(ln["prediction"], ans,
+                          f"phase 12 batchpredict {ln['query']['user']}",
+                          mods["topk_mismatch"])
+        if launches["fused_topk"] < 1:
+            die("phase 12: batchpredict never launched fused_topk")
+
+        # -- 6: eval in-process ----------------------------------------------
+        before = {"fused_gram": fg.LAUNCHES, "ridge_solve_lu": rs.LU_LAUNCHES,
+                  "fused_topk": ft.LAUNCHES}
+        eval_json = os.path.join(work, "eval.json")
+        t0 = time.perf_counter()
+        if pio([
+                "eval", "predictionio_tpu_torch.templates.recommendation."
+                "evaluation:evaluation", "chip_smoke:cli_eval_params",
+                "--output-json", eval_json]) != 0:
+            die("phase 12: pio eval failed")
+        out["eval_s"] = time.perf_counter() - t0
+        for name, n in before.items():
+            mod = {"fused_gram": fg, "ridge_solve_lu": rs,
+                   "fused_topk": ft}[name]
+            now = mod.LU_LAUNCHES if name == "ridge_solve_lu" \
+                else mod.LAUNCHES
+            if now == n:
+                die(f"phase 12: eval never launched {name}")
+            launches[name] += now - n        # main path ends here
+        res = json.loads(Path(eval_json).read_text())
+        scores = [c["score"] for c in res["candidates"]]
+        if len(scores) != 2 or not all(math.isfinite(s) for s in scores):
+            die(f"phase 12: eval scored {scores}")
+        if len(storage.get_evaluation_instances().get_completed()) != 1:
+            die("phase 12: no completed EvaluationInstance")
+        out["eval_scores"] = scores
+        for name, n in launches.items():
+            if n == 0:
+                die(f"phase 12: {name} never launched")
+        # K3 at eval's batch (PIO_EVAL_BATCH, 1,024 queries) against its
+        # plain version, beyond phase 2's grid
+        q = torch.from_numpy(np.ascontiguousarray(uf[:1024])).to(dev)
+        s, i = ft.fused_topk_cuda(q, items_d, 10)
+        out["eval_batch_err"] = check_against_plain(
+            s.cpu().numpy(), i.cpu().numpy(), q, items_d, 10, None,
+            "phase 12 K3 at B 1,024", ft, mods["topk_mismatch"])
+    finally:
+        for s in servers:
+            s.kill()
+        reset_storage()
+        env.__exit__()
+        shutil.rmtree(work, ignore_errors=True)
+    out["launches"] = launches
+    out["n_events"] = n_events
+    out["phase_s"] = time.perf_counter() - phase_t0
+    log(f"phase 12 cli loop: ML-1M shape, {n_events} events ({ML1M_EVENTS} "
+        f"rate + {n_events - ML1M_EVENTS} buy; {ML1M_USERS} users x "
+        f"{ML1M_ITEMS} items) written in {out['write_s']:.2f} s; pio import "
+        f"(subprocess) {out['import_s']:.2f} s = "
+        f"{n_events / out['import_s']:.0f} events/s; pio train rank {RANK}, "
+        f"{TRAIN_ITERS} iterations (in-process) {out['train_s']:.2f} s, read "
+        f"{out['read_ms']:.0f} ms; factors equal the memory store's train "
+        f"by entity id (max |err| {out['factor_err']:.3g}, same numbering "
+        f"{out['same_order']}); card {card}")
+    log(f"phase 12 deploy: subprocess on {status['device']}, start to first "
+        f"answer {out['deploy_to_first_s']:.2f} s; {CLI_QUERIES} "
+        f"/queries.json p50 {out['p50_ms']:.2f} ms (server "
+        f"{out['server_p50_ms']:.2f} ms), each equal to the plain top-k of "
+        f"the persisted factors (max |score err| {out['query_err']:.3g}); "
+        f"fold-in of 2 unseen users imported by another process: first "
+        f"query {out['fold_first_ms']:.2f} ms (the larger), answers equal "
+        f"the plain top-k of fold_in's vector (max |err| "
+        f"{out['fold_err']:.3g}); a second deploy answered from the shared "
+        f"KV {json.dumps(out['fold_counts'])}; both exited 0 on POST /stop; "
+        f"card {card}")
+    log(f"phase 12 batchpredict+eval: batchpredict {CLI_QUERIES} queries "
+        f"in {out['batch_s']:.2f} s = {CLI_QUERIES / out['batch_s']:.1f} "
+        f"recs/s (wall of the verb, model load included), lines equal the "
+        f"deploy's answers; pio eval (2 candidates, rank {RANK}, 5 "
+        f"iterations, evalK 2) {out['eval_s']:.2f} s, scores "
+        f"{out['eval_scores']}; K3 at B 1,024 max |err| "
+        f"{out['eval_batch_err']:.3g}; launches {json.dumps(launches)}; "
+        f"phase 12 in {out['phase_s']:.1f} s; card {card}")
+    return out
+
+
 def post_json(url: str, obj):
     """POST one query; returns (answer, the server's own wall ms)."""
     req = urllib.request.Request(
@@ -1719,7 +2222,9 @@ def main() -> int:
         from predictionio_tpu_torch.controller import (
             EngineVariant, RuntimeContext)
         from predictionio_tpu_torch.data.event import DataMap, Event
-        from predictionio_tpu_torch.data.storage import App, get_storage
+        from predictionio_tpu_torch.cli.main import main as pio
+        from predictionio_tpu_torch.config import memory_config
+        from predictionio_tpu_torch.data.storage import App, Storage
         from predictionio_tpu_torch.device import set_float32_precision
         from predictionio_tpu_torch.models import als
         from predictionio_tpu_torch.obs import get_registry
@@ -1740,6 +2245,10 @@ def main() -> int:
             persist_instance, run_train)
     except ImportError as e:
         die(f"cannot import the port (run from the repository root): {e}")
+
+    def memory_storage(home):
+        """A fresh in-process store (every repository on MEMORY)."""
+        return Storage(memory_config(home))
 
     # -- phase 1: device ------------------------------------------------
     card = card_line()
@@ -1799,7 +2308,7 @@ def main() -> int:
                            "recommendation" / "engine.json").read_text())
         spec["algorithms"][0]["params"]["rank"] = RANK
         variant = EngineVariant.from_dict(spec)
-        storage = get_storage(home)
+        storage = memory_storage(home)
         wrapper = wrapper_from_numpy(
             users_np, items_np, [f"u{j}" for j in range(ML25M_USERS)],
             [f"i{j}" for j in range(ML25M_ITEMS)], rank=RANK)
@@ -1918,13 +2427,14 @@ def main() -> int:
     mods = {
         "fg": fg, "rs": rs, "ft": ft, "gt": gt, "pqs": pqs, "tpq": tpq,
         "retrieval": retrieval, "exp_gram": exp_gram,
-        "exp_gather2": exp_gather2, "get_storage": get_storage, "App": App,
+        "exp_gather2": exp_gather2, "memory_storage": memory_storage,
+        "App": App,
         "Event": Event, "DataMap": DataMap, "csrc": _build.CSRC_DIR,
         "EngineVariant": EngineVariant, "engine": engine,
         "RuntimeContext": RuntimeContext, "run_train": run_train,
         "EngineServer": EngineServer, "topk_mismatch": topk_mismatch,
         "get_registry": get_registry, "wrapper_from_numpy": wrapper_from_numpy,
-        "persist_instance": persist_instance,
+        "persist_instance": persist_instance, "pio": pio,
     }
     home = tempfile.mkdtemp(prefix="pio_chip_smoke_")
     try:
@@ -1949,8 +2459,13 @@ def main() -> int:
         del dase
     finally:
         shutil.rmtree(home, ignore_errors=True)
+    torch.cuda.empty_cache()
 
-    # -- phase 12: report --------------------------------------------------
+    # -- phase 12: the engine.json loop across processes (the CLI) --------
+    loop = cli_loop_phase(dev, args.seed, mods, card)
+    torch.cuda.empty_cache()
+
+    # -- phase 13: report --------------------------------------------------
     main_shape = timings[(ML25M_ITEMS, 1, 10)]
     b64 = timings[(ML25M_ITEMS, 64, 10)]   # a full batch of query_batch
     kernels = [{
@@ -1958,7 +2473,7 @@ def main() -> int:
         "route": "cuda",
         "source": "predictionio_tpu_torch/csrc/fused_topk.cu",
         "replaces": "predictionio_tpu/ops/pallas_kernels.py:444",
-        "launches": main_launches,
+        "launches": main_launches + loop["launches"]["fused_topk"],
         "max_abs_err": max(max_err, err, err4),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -1983,7 +2498,8 @@ def main() -> int:
                 "fused_gram.cu" if name == "fused_gram" else
                 "ridge_solve.cu"),
             "replaces": where,
-            "launches": train["launches"][name],
+            "launches": train["launches"][name]
+            + loop["launches"].get(name, 0),
             "max_abs_err": train_kernel_err[name],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -2026,9 +2542,12 @@ def main() -> int:
         f"(phase 10) + {pq_dase['launches']} on the DASE+PQ path (phase "
         f"11), timed at B = 1 (one pq_flat request's shape); gather_gram "
         f"and gather_sum per their tools' entry points (phase 9)")
-    log(f"launches: fused_topk {main_launches} on the serve path, "
-        f"{dase_topk} on the DASE path; training kernels per the train "
-        f"run (fused_gram, ridge_solve_lu) and the solver='gj' run "
+    log(f"launches: fused_topk {main_launches} on the serve path (phase "
+        f"4) + {loop['launches']['fused_topk']} on the CLI path (phase 12: "
+        f"batchpredict and eval), {dase_topk} on the DASE path; training "
+        f"kernels per the train run (fused_gram, ridge_solve_lu) + the CLI "
+        f"path's train and eval ({loop['launches']['fused_gram']}, "
+        f"{loop['launches']['ridge_solve_lu']}) and the solver='gj' run "
         f"(ridge_solve_gj); timings of the training kernels are over one "
         f"iteration's calls at the ML-25M shape")
     print(json.dumps({"kernels": kernels}))

@@ -11,4 +11,4 @@ Entry points run on the CUDA card unless the caller asks for the CPU
 kernel wrapper launches its hand-written kernel or raises.
 """
 
-__version__ = "0.1.0"
+from predictionio_tpu_torch.version import __version__  # noqa: F401

@@ -1,0 +1,631 @@
+"""The port's ``pio`` command-line console.
+
+Port of ``predictionio_tpu/cli/main.py`` (reference: tools/.../tools/
+console/Console.scala and tools/.../commands/).  Verbs, with the
+reference's output lines::
+
+    pio status
+    pio app new <name> | list | delete <name> | data-delete <name>
+    pio app channel-new <app> <channel> | channel-delete <app> <channel>
+    pio accesskey new <app> [event ...] | list [app] | delete <key>
+    pio build        --engine-json engine.json
+    pio train        --engine-json engine.json [--seed N] [--device D]
+    pio eval         <EvaluationClass> <EngineParamsGeneratorClass>
+    pio deploy       --engine-json engine.json --port 8000 [--device D]
+    pio batchpredict --input q.ndjson --output p.ndjson [--device D]
+    pio import       --appid N --input events.ndjson [--from-line L]
+    pio export       --appid N --output events.ndjson
+
+Storage is the ``PIO_STORAGE_*`` registry (by default sqlite and model
+files under ``PIO_HOME``), so ``train`` in one process and ``deploy`` in
+another share it.  ``--device`` takes the place of the reference's
+``--mesh`` / ``JAX_PLATFORMS``: the CUDA card by default, the CPU only
+when ``--device cpu`` is given; without CUDA a verb that computes fails
+rather than run on the CPU.  Flags whose substrate the port does not
+have yet (the refresh daemon, train and eval checkpoints, the input
+pipeline, the serving scheduler and native frontend) are not defined,
+so argparse rejects them by name.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import sys
+from pathlib import Path
+from typing import List, Optional
+
+from predictionio_tpu_torch.version import __version__
+
+logger = logging.getLogger(__name__)
+
+# Streamed-import commit granularity (module-level so tests can shrink
+# it to exercise the chunk-boundary resume path).
+IMPORT_CHUNK = 50_000
+
+
+def _storage():
+    from predictionio_tpu_torch.data.storage import get_storage
+
+    return get_storage()
+
+
+def _die(msg: str, code: int = 1) -> "NoReturn":  # noqa: F821
+    print(f"[error] {msg}", file=sys.stderr)
+    raise SystemExit(code)
+
+
+def _device(args):
+    """The verb's ``torch.device``: the card unless ``--device cpu``;
+    no CUDA and no ``--device cpu`` ends the verb with an error."""
+    from predictionio_tpu_torch.device import device
+
+    try:
+        return device(args.device)
+    except (RuntimeError, ValueError) as e:
+        _die(str(e))
+
+
+def _variant_and_engine(args):
+    from predictionio_tpu_torch.controller import (
+        EngineVariant,
+        load_engine_factory,
+    )
+
+    variant_path = Path(args.engine_json)
+    if not variant_path.exists():
+        _die(f"{variant_path} not found (expected an engine.json).")
+    variant = EngineVariant.from_file(variant_path)
+    return variant, load_engine_factory(variant.engine_factory)()
+
+
+# --------------------------------------------------------------------------
+# pio status
+# --------------------------------------------------------------------------
+
+def cmd_status(args) -> int:
+    import torch
+
+    from predictionio_tpu_torch.config import load_config
+
+    cfg = load_config()
+    print(f"predictionio_tpu_torch {__version__}")
+    print(f"PIO_HOME: {cfg.home}")
+    try:
+        repo_types = _storage().verify()
+    except Exception as e:
+        _die(f"storage verification failed: {e}")
+    for repo, t in repo_types.items():
+        src = cfg.source_for(repo)
+        print(f"  {repo}: type={t} path={src.path or '-'}")
+    if torch.cuda.is_available():
+        free, total = torch.cuda.mem_get_info(0)
+        print(f"devices: {torch.cuda.device_count()} x cuda "
+              f"({torch.cuda.get_device_name(0)})")
+        print(f"  device memory: {free / 2**30:.2f} GiB free of "
+              f"{total / 2**30:.2f} GiB")
+    else:
+        print("devices: unavailable (CUDA is not available; verbs that "
+              "compute need --device cpu)")
+    print("(sanity check OK)")
+    return 0
+
+
+# --------------------------------------------------------------------------
+# pio app ...
+# --------------------------------------------------------------------------
+
+def cmd_app_new(args) -> int:
+    from predictionio_tpu_torch.data.storage import AccessKey, App
+
+    s = _storage()
+    app_id = s.get_apps().insert(App(id=None, name=args.name,
+                                     description=args.description))
+    if app_id is None:
+        _die(f"App {args.name!r} already exists.")
+    s.get_events().init(app_id)
+    key = s.get_access_keys().insert(
+        AccessKey(key=args.access_key or "", app_id=app_id))
+    print("Created a new app:")
+    print(f"      Name: {args.name}")
+    print(f"        ID: {app_id}")
+    print(f"Access Key: {key}")
+    return 0
+
+
+def cmd_app_list(args) -> int:
+    s = _storage()
+    apps = s.get_apps().get_all()
+    keys = s.get_access_keys()
+    print(f"{'Name':20} {'ID':>4}  Access Key")
+    for app in apps:
+        ks = keys.get_by_app_id(app.id)
+        first = ks[0].key if ks else "-"
+        print(f"{app.name:20} {app.id:>4}  {first}")
+    print(f"Finished listing {len(apps)} app(s).")
+    return 0
+
+
+def cmd_app_delete(args) -> int:
+    s = _storage()
+    app = s.get_apps().get_by_name(args.name)
+    if app is None:
+        _die(f"App {args.name!r} does not exist.")
+    if not args.force:
+        ans = input(f"Delete app {args.name!r} and ALL its data? "
+                    "(YES to confirm): ")
+        if ans.strip() != "YES":
+            print("Aborted.")
+            return 1
+    for ch in s.get_channels().get_by_app_id(app.id):
+        s.get_events().remove(app.id, ch.id)
+        s.get_channels().delete(ch.id)
+    s.get_events().remove(app.id)
+    for k in s.get_access_keys().get_by_app_id(app.id):
+        s.get_access_keys().delete(k.key)
+    s.get_apps().delete(app.id)
+    print(f"Deleted app {args.name}.")
+    return 0
+
+
+def cmd_app_data_delete(args) -> int:
+    s = _storage()
+    app = s.get_apps().get_by_name(args.name)
+    if app is None:
+        _die(f"App {args.name!r} does not exist.")
+    channel_id = None
+    if args.channel:
+        chans = s.get_channels().get_by_app_id(app.id)
+        ch = next((c for c in chans if c.name == args.channel), None)
+        if ch is None:
+            _die(f"Channel {args.channel!r} does not exist in app "
+                 f"{args.name!r}.")
+        channel_id = ch.id
+    if not args.force:
+        where = f"channel {args.channel!r} of " if args.channel else ""
+        ans = input(f"Delete all event data of {where}app {args.name!r}? "
+                    "(YES to confirm): ")
+        if ans.strip() != "YES":
+            print("Aborted.")
+            return 1
+    ev = s.get_events()
+    ev.remove(app.id, channel_id)
+    ev.init(app.id, channel_id)
+    print("Event data deleted.")
+    return 0
+
+
+def cmd_app_channel_new(args) -> int:
+    from predictionio_tpu_torch.data.storage import Channel
+
+    s = _storage()
+    app = s.get_apps().get_by_name(args.app)
+    if app is None:
+        _die(f"App {args.app!r} does not exist.")
+    cid = s.get_channels().insert(Channel(id=None, name=args.channel,
+                                          app_id=app.id))
+    if cid is None:
+        _die(f"Invalid or duplicate channel name {args.channel!r} "
+             "(1-16 chars, [a-zA-Z0-9-]).")
+    s.get_events().init(app.id, cid)
+    print(f"Created channel {args.channel} (ID {cid}) in app {args.app}.")
+    return 0
+
+
+def cmd_app_channel_delete(args) -> int:
+    s = _storage()
+    app = s.get_apps().get_by_name(args.app)
+    if app is None:
+        _die(f"App {args.app!r} does not exist.")
+    ch = next((c for c in s.get_channels().get_by_app_id(app.id)
+               if c.name == args.channel), None)
+    if ch is None:
+        _die(f"Channel {args.channel!r} does not exist in app {args.app!r}.")
+    s.get_events().remove(app.id, ch.id)
+    s.get_channels().delete(ch.id)
+    print(f"Deleted channel {args.channel} from app {args.app}.")
+    return 0
+
+
+# --------------------------------------------------------------------------
+# pio accesskey ...
+# --------------------------------------------------------------------------
+
+def cmd_accesskey_new(args) -> int:
+    from predictionio_tpu_torch.data.storage import AccessKey
+
+    s = _storage()
+    app = s.get_apps().get_by_name(args.app)
+    if app is None:
+        _die(f"App {args.app!r} does not exist.")
+    key = s.get_access_keys().insert(
+        AccessKey(key="", app_id=app.id, events=tuple(args.events)))
+    print(f"Created new access key: {key}")
+    if args.events:
+        print(f"  (restricted to events: {', '.join(args.events)})")
+    return 0
+
+
+def cmd_accesskey_list(args) -> int:
+    s = _storage()
+    keys = s.get_access_keys()
+    if args.app:
+        app = s.get_apps().get_by_name(args.app)
+        if app is None:
+            _die(f"App {args.app!r} does not exist.")
+        rows = keys.get_by_app_id(app.id)
+    else:
+        rows = keys.get_all()
+    for k in rows:
+        ev = ",".join(k.events) if k.events else "(all)"
+        print(f"{k.key}  app={k.app_id}  events={ev}")
+    print(f"Finished listing {len(rows)} access key(s).")
+    return 0
+
+
+def cmd_accesskey_delete(args) -> int:
+    if not _storage().get_access_keys().delete(args.key):
+        _die(f"Access key {args.key!r} does not exist.")
+    print("Deleted access key.")
+    return 0
+
+
+# --------------------------------------------------------------------------
+# pio build / train / eval
+# --------------------------------------------------------------------------
+
+def cmd_build(args) -> int:
+    """Reference: ``pio build`` compiles the engine with sbt; a Python
+    engine has nothing to compile, so this validates: the engine.json
+    parses, the factory imports and the params bind."""
+    variant, engine = _variant_and_engine(args)
+    params = engine.bind_engine_params(variant.raw)
+    print(f"Engine factory {variant.engine_factory} OK "
+          f"({len(params.algorithms_params)} algorithm(s): "
+          f"{', '.join(n for n, _ in params.algorithms_params)}).")
+    print("Engine variant params bind cleanly. Build successful.")
+    return 0
+
+
+def cmd_train(args) -> int:
+    from predictionio_tpu_torch.controller import RuntimeContext
+    from predictionio_tpu_torch.workflow.core_workflow import run_train
+
+    if args.pq:
+        # Quantized-corpus build policy, read at train time by the
+        # templates (retrieval.build_train_pq).
+        text = str(args.pq).strip().lower()
+        if text not in ("auto", "on", "off"):
+            _die(f"--pq {args.pq!r} must be auto|on|off.")
+        os.environ["PIO_PQ"] = text
+    if args.pq_m:
+        if args.pq_m < 1:
+            _die("--pq-m must be a positive integer (subspace count).")
+        os.environ["PIO_PQ_M"] = str(args.pq_m)
+    variant, engine = _variant_and_engine(args)
+    ctx = RuntimeContext.create(storage=_storage(), device=_device(args),
+                                seed=args.seed)
+    instance_id = run_train(engine, variant, ctx)
+    print(f"Training completed. Engine instance ID: {instance_id}")
+    return 0
+
+
+def cmd_eval(args) -> int:
+    from predictionio_tpu_torch.controller import (
+        RuntimeContext,
+        load_engine_factory,
+    )
+    from predictionio_tpu_torch.workflow.core_workflow import run_evaluation
+
+    evaluation = load_engine_factory(args.evaluation_class)()
+    generator = load_engine_factory(args.params_generator_class)()
+    ctx = RuntimeContext.create(storage=_storage(), device=_device(args),
+                                seed=args.seed)
+    instance_id, result = run_evaluation(
+        evaluation, generator, ctx,
+        evaluation_class=args.evaluation_class,
+        params_generator_class=args.params_generator_class)
+    print(result.summary())
+    print(f"Evaluation instance ID: {instance_id}")
+    if args.output_json:
+        inst = ctx.storage.get_evaluation_instances().get(instance_id)
+        Path(args.output_json).write_text(inst.evaluator_results_json)
+        print(f"Results written to {args.output_json}")
+    return 0
+
+
+# --------------------------------------------------------------------------
+# pio deploy / batchpredict
+# --------------------------------------------------------------------------
+
+def _install_drain_handlers(drain) -> None:
+    """SIGTERM/SIGINT → stop accepting, finish in-flight requests, exit
+    0 (a failed drain exits 1)."""
+    import signal
+
+    def _handler(signum, frame):
+        logger.info("signal %d: draining", signum)
+        try:
+            drain()
+        except Exception:
+            logger.exception("drain failed")
+            raise SystemExit(1) from None
+        raise SystemExit(0)
+
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            signal.signal(sig, _handler)
+        except (ValueError, OSError):  # not the main thread
+            continue
+
+
+def cmd_deploy(args) -> int:
+    from predictionio_tpu_torch.server.engine_server import EngineServer
+
+    variant, engine = _variant_and_engine(args)
+    srv = EngineServer(engine, variant, _storage(), host=args.ip,
+                       port=args.port, device=_device(args),
+                       instance_id=args.engine_instance_id)
+    _install_drain_handlers(srv.stop)
+    srv.start(block=False)
+    thread = srv._thread
+    print(f"Engine Server listening on {args.ip}:{srv.port} "
+          f"(instance {srv._instance.id}; device {srv.ctx.device}; "
+          "Ctrl-C to stop)", flush=True)
+    try:
+        thread.join()
+    except KeyboardInterrupt:
+        srv.stop()
+    return 0
+
+
+def cmd_batchpredict(args) -> int:
+    """Reference: ``pio batchpredict`` — bulk queries from NDJSON through
+    the server's batched dispatch, ``--query-partitions`` queries a
+    call."""
+    from predictionio_tpu_torch.server.engine_server import EngineServer
+
+    variant, engine = _variant_and_engine(args)
+    srv = EngineServer(engine, variant, _storage(), device=_device(args),
+                       instance_id=args.engine_instance_id)
+    queries = []
+    with open(args.input) as f:
+        for line_no, line in enumerate(f, 1):
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                queries.append(json.loads(line))
+            except json.JSONDecodeError as e:
+                _die(f"{args.input}:{line_no}: {e}")
+    n = 0
+    with open(args.output, "w") as out:
+        for start in range(0, len(queries), args.query_partitions):
+            chunk = queries[start:start + args.query_partitions]
+            for q, r in zip(chunk, srv.query_batch(chunk)):
+                out.write(json.dumps({"query": q, "prediction": r}) + "\n")
+                n += 1
+    print(f"Wrote {n} predictions to {args.output}.")
+    return 0
+
+
+# --------------------------------------------------------------------------
+# pio import / export
+# --------------------------------------------------------------------------
+
+def cmd_import(args) -> int:
+    """Streamed import: parse and insert in bounded chunks, one
+    group-committed ``insert_batch`` each (reference: FileToEvents).
+    Chunks committed before a parse error stay committed (ids are
+    store-assigned, so a naive re-run would duplicate them); the error
+    names the resume point, and ``--from-line`` skips the imported
+    prefix on the retry."""
+    from predictionio_tpu_torch.data.json_support import event_from_json
+
+    s = _storage()
+    channel_id = _resolve_channel(s, args.appid, args.channel)
+    ev = s.get_events()
+    ev.init(args.appid, channel_id)
+    start_line = max(1, args.from_line or 1)
+    total = 0
+    chunk = []
+    last_committed_line = start_line - 1
+    with open(args.input) as f:
+        for line_no, line in enumerate(f, 1):
+            if line_no < start_line:
+                continue
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                chunk.append(event_from_json(json.loads(line)))
+            except Exception as e:
+                _die(
+                    f"{args.input}:{line_no}: {e}\n"
+                    f"{total} event(s) up to line {last_committed_line} "
+                    f"were already imported and remain stored; fix the "
+                    f"line and re-run with --from-line "
+                    f"{last_committed_line + 1} to avoid duplicates.")
+            if len(chunk) >= IMPORT_CHUNK:
+                total += len(ev.insert_batch(chunk, args.appid, channel_id))
+                chunk = []
+                last_committed_line = line_no
+    if chunk:
+        total += len(ev.insert_batch(chunk, args.appid, channel_id))
+    print(f"Imported {total} events to app {args.appid}.")
+    return 0
+
+
+def cmd_export(args) -> int:
+    from predictionio_tpu_torch.data.json_support import event_to_json
+
+    s = _storage()
+    channel_id = _resolve_channel(s, args.appid, args.channel)
+    n = 0
+    with open(args.output, "w") as f:
+        for ev in s.get_events().find(args.appid, channel_id):
+            f.write(json.dumps(event_to_json(ev)) + "\n")
+            n += 1
+    print(f"Exported {n} events from app {args.appid} to {args.output}.")
+    return 0
+
+
+def _resolve_channel(s, app_id: int, channel_name: Optional[str]
+                     ) -> Optional[int]:
+    if not channel_name:
+        return None
+    ch = next((c for c in s.get_channels().get_by_app_id(app_id)
+               if c.name == channel_name), None)
+    if ch is None:
+        _die(f"Channel {channel_name!r} does not exist in app {app_id}.")
+    return ch.id
+
+
+# --------------------------------------------------------------------------
+# parser
+# --------------------------------------------------------------------------
+
+def _device_flag(parser) -> None:
+    parser.add_argument(
+        "--device", default=None, metavar="DEVICE",
+        help="where to compute: the CUDA card by default ('cuda', "
+             "'cuda:N'), 'cpu' only when named; no CUDA and no "
+             "'--device cpu' is an error")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="pio", description="predictionio_tpu_torch console")
+    p.add_argument("--version", action="version", version=__version__)
+    p.add_argument("-v", "--verbose", action="store_true")
+    sub = p.add_subparsers(dest="verb", required=True)
+
+    sub.add_parser("status", help="storage + device sanity check"
+                   ).set_defaults(fn=cmd_status)
+
+    app = sub.add_parser("app", help="app management").add_subparsers(
+        dest="app_verb", required=True)
+    a = app.add_parser("new")
+    a.add_argument("name")
+    a.add_argument("--description")
+    a.add_argument("--access-key", dest="access_key")
+    a.set_defaults(fn=cmd_app_new)
+    app.add_parser("list").set_defaults(fn=cmd_app_list)
+    a = app.add_parser("delete")
+    a.add_argument("name")
+    a.add_argument("-f", "--force", action="store_true")
+    a.set_defaults(fn=cmd_app_delete)
+    a = app.add_parser("data-delete")
+    a.add_argument("name")
+    a.add_argument("--channel")
+    a.add_argument("-f", "--force", action="store_true")
+    a.set_defaults(fn=cmd_app_data_delete)
+    a = app.add_parser("channel-new")
+    a.add_argument("app")
+    a.add_argument("channel")
+    a.set_defaults(fn=cmd_app_channel_new)
+    a = app.add_parser("channel-delete")
+    a.add_argument("app")
+    a.add_argument("channel")
+    a.set_defaults(fn=cmd_app_channel_delete)
+
+    ak = sub.add_parser("accesskey", help="access key management"
+                        ).add_subparsers(dest="ak_verb", required=True)
+    a = ak.add_parser("new")
+    a.add_argument("app")
+    a.add_argument("events", nargs="*")
+    a.set_defaults(fn=cmd_accesskey_new)
+    a = ak.add_parser("list")
+    a.add_argument("app", nargs="?")
+    a.set_defaults(fn=cmd_accesskey_list)
+    a = ak.add_parser("delete")
+    a.add_argument("key")
+    a.set_defaults(fn=cmd_accesskey_delete)
+
+    b = sub.add_parser("build", help="validate an engine variant")
+    b.add_argument("--engine-json", default="engine.json")
+    b.set_defaults(fn=cmd_build)
+
+    t = sub.add_parser("train", help="train an engine variant")
+    t.add_argument("--engine-json", default="engine.json")
+    t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--pq", dest="pq", default=None, metavar="auto|on|off",
+                   help="quantized-corpus build policy: residual PQ codes "
+                        "next to the IVF index (default: env PIO_PQ, "
+                        "else auto — builds above PIO_PQ_MIN_ITEMS)")
+    t.add_argument("--pq-m", dest="pq_m", type=int, default=0, metavar="M",
+                   help="PQ subspace count (bytes/item = 1+M; default: "
+                        "env PIO_PQ_M, else ~dim/4)")
+    _device_flag(t)
+    t.set_defaults(fn=cmd_train)
+
+    e = sub.add_parser("eval", help="evaluate engine-params candidates")
+    e.add_argument("evaluation_class")
+    e.add_argument("params_generator_class")
+    e.add_argument("--seed", type=int, default=0)
+    e.add_argument("--output-json", dest="output_json")
+    _device_flag(e)
+    e.set_defaults(fn=cmd_eval)
+
+    d = sub.add_parser("deploy", help="serve a trained engine over HTTP")
+    d.add_argument("--engine-json", default="engine.json")
+    d.add_argument("--ip", default="0.0.0.0")
+    d.add_argument("--port", type=int, default=8000)
+    d.add_argument("--engine-instance-id", dest="engine_instance_id")
+    _device_flag(d)
+    d.set_defaults(fn=cmd_deploy)
+
+    bp = sub.add_parser("batchpredict",
+                        help="bulk predict from NDJSON queries")
+    bp.add_argument("--engine-json", default="engine.json")
+    bp.add_argument("--input", required=True)
+    bp.add_argument("--output", required=True)
+    bp.add_argument("--engine-instance-id", dest="engine_instance_id")
+    bp.add_argument("--query-partitions", type=int, default=256,
+                    help="queries per vectorized predict chunk")
+    _device_flag(bp)
+    bp.set_defaults(fn=cmd_batchpredict)
+
+    imp = sub.add_parser("import", help="import NDJSON events")
+    imp.add_argument("--appid", type=int, required=True)
+    imp.add_argument("--channel")
+    imp.add_argument("--input", required=True)
+    imp.add_argument("--from-line", type=int, default=1, dest="from_line",
+                     help="resume a partially-committed import at this "
+                          "1-based line (printed by a failed run)")
+    imp.set_defaults(fn=cmd_import)
+
+    exp = sub.add_parser("export", help="export events as NDJSON")
+    exp.add_argument("--appid", type=int, required=True)
+    exp.add_argument("--channel")
+    exp.add_argument("--output", required=True)
+    exp.set_defaults(fn=cmd_export)
+    return p
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+    logging.basicConfig(
+        level=logging.DEBUG if args.verbose else logging.INFO,
+        format="[%(levelname)s] [%(name)s] %(message)s",
+    )
+    from predictionio_tpu_torch.controller import ParamsBindingError
+    from predictionio_tpu_torch.data.storage import StorageError
+    from predictionio_tpu_torch.workflow.core_workflow import WorkflowError
+
+    try:
+        return args.fn(args)
+    except SystemExit:
+        raise
+    except KeyboardInterrupt:
+        return 130
+    except (ParamsBindingError, StorageError, WorkflowError) as e:
+        # User-input errors get a clean message; unexpected ones traceback.
+        print(f"[error] {e}", file=sys.stderr)
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

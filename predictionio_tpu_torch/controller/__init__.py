@@ -1,6 +1,5 @@
-"""Controller API — the engine SDK (DASE), port of
-``predictionio_tpu.controller``.  Evaluation metrics arrive with the
-evaluation slice."""
+"""Controller API — the engine SDK (DASE) and its evaluation metrics,
+port of ``predictionio_tpu.controller``."""
 
 from predictionio_tpu_torch.controller.base import (
     Algorithm,
@@ -18,6 +17,16 @@ from predictionio_tpu_torch.controller.engine import (
     EngineVariant,
     load_engine_factory,
 )
+from predictionio_tpu_torch.controller.metrics import (
+    AverageMetric,
+    EngineParamsGenerator,
+    Evaluation,
+    Metric,
+    MetricEvaluatorResult,
+    OptionAverageMetric,
+    SumMetric,
+    ZeroMetric,
+)
 from predictionio_tpu_torch.controller.params import (
     EmptyParams,
     Params,
@@ -28,19 +37,27 @@ from predictionio_tpu_torch.controller.params import (
 
 __all__ = [
     "Algorithm",
+    "AverageMetric",
     "DataSource",
     "EmptyParams",
     "Engine",
     "EngineParams",
+    "EngineParamsGenerator",
     "EngineVariant",
+    "Evaluation",
     "FirstServing",
     "IdentityPreparator",
+    "Metric",
+    "MetricEvaluatorResult",
+    "OptionAverageMetric",
     "Params",
     "ParamsBindingError",
     "PersistentModel",
     "Preparator",
     "RuntimeContext",
     "Serving",
+    "SumMetric",
+    "ZeroMetric",
     "bind_params",
     "load_engine_factory",
     "params_to_dict",

@@ -83,6 +83,12 @@ class DataSource(_HasParams, Generic[TD, EI, Q, A], abc.ABC):
     @abc.abstractmethod
     def read_training(self, ctx: RuntimeContext) -> TD: ...
 
+    def read_eval(self, ctx: RuntimeContext
+                  ) -> List[Tuple[TD, EI, List[Tuple[Q, A]]]]:
+        """K folds of (training data, eval info, [(query, actual)])
+        (reference: PDataSource.readEval).  Default: no eval support."""
+        return []
+
 
 class Preparator(_HasParams, Generic[TD, PD], abc.ABC):
     """Reference: PPreparator/LPreparator."""

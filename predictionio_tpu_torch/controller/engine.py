@@ -10,7 +10,9 @@ schema is the reference's, verbatim::
      "serving": {"params": {...}}}
 
 :meth:`Engine.train` drives DataSource → Preparator → each Algorithm;
-the eval drive arrives with the evaluation slice.
+:meth:`Engine.eval_multi` drives ``read_eval`` folds through each
+candidate's algorithms and Serving (the reference's shared-prep sweep,
+without its checkpoints).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 import json
+import os
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Type
 
@@ -142,6 +145,68 @@ class Engine:
             with phase("train.algorithm"):
                 models.append(algo.train(ctx, pd))
         return models
+
+    def eval(self, ctx: RuntimeContext, engine_params: EngineParams
+             ) -> List[Tuple[Any, List[Tuple[Any, Any, Any]]]]:
+        """K folds of (eval_info, [(query, predicted, actual)])
+        (reference: Engine.eval): train on each fold's training split,
+        batch-predict the fold's queries through Serving."""
+        return self.eval_multi(ctx, [engine_params])[0]
+
+    def eval_multi(self, ctx: RuntimeContext,
+                   engine_params_list: Sequence[EngineParams]
+                   ) -> List[List[Tuple[Any, List[Tuple[Any, Any, Any]]]]]:
+        """Shared-prep candidate sweep (reference: ``eval_multi``):
+        ``read_eval`` and ``Preparator.prepare`` run once per distinct
+        (datasource, preparator) params, folds outer and candidates
+        inner, so one prepared fold is live at a time.  Returns each
+        candidate's folds, aligned with the input."""
+        results: List[Any] = [None] * len(engine_params_list)
+        groups: Dict[str, List[int]] = {}
+        for i, ep in enumerate(engine_params_list):
+            key = repr((ep.datasource_params, ep.preparator_params))
+            groups.setdefault(key, []).append(i)
+        for idxs in groups.values():
+            first = engine_params_list[idxs[0]]
+            datasource = self.datasource_class(first.datasource_params)
+            preparator = self.preparator_class(first.preparator_params)
+            for ci in idxs:
+                results[ci] = []
+            for td, eval_info, qa in datasource.read_eval(ctx):
+                pd = preparator.prepare(ctx, td)
+                for ci in idxs:
+                    engine_params = engine_params_list[ci]
+                    serving = self.make_serving(engine_params)
+                    algos = self.make_algorithms(engine_params)
+                    models = [a.train(ctx, pd) for a in algos]
+                    indexed = list(enumerate(q for q, _ in qa))
+                    per_algo = [dict(_eval_batch_predict(a, m, indexed))
+                                for a, m in zip(algos, models)]
+                    qpa = [(q, serving.serve(q, [p[i] for p in per_algo]),
+                            actual) for i, (q, actual) in enumerate(qa)]
+                    results[ci].append((eval_info, qpa))
+        return results
+
+
+def _eval_chunk_size(default: int = 1024) -> int:
+    """``PIO_EVAL_BATCH``: queries per eval ``batch_predict`` call (0
+    means the whole fold in one call)."""
+    try:
+        return int(os.environ.get("PIO_EVAL_BATCH", str(default)))
+    except ValueError:
+        return default
+
+
+def _eval_batch_predict(algo: Algorithm, model: Any,
+                        indexed: Sequence[Tuple[int, Any]]):
+    """A fold's queries through ``batch_predict`` in ``PIO_EVAL_BATCH``
+    chunks, which bounds the score block of a large fold."""
+    chunk = _eval_chunk_size()
+    if chunk <= 0:
+        chunk = max(len(indexed), 1)
+    for start in range(0, len(indexed), chunk):
+        yield from algo.batch_predict(model,
+                                      list(indexed[start:start + chunk]))
 
 
 @dataclasses.dataclass

@@ -4,13 +4,15 @@ Port of ``encode_ids``, ``numeric_property`` and ``event_mask`` from
 ``predictionio_tpu/data/columnar.py``.  The reference runs Arrow kernels
 over an Arrow table; the port reads the dict of numpy columns that
 :meth:`~predictionio_tpu_torch.data.store.EventStore.find_columnar`
-answers, with the property bag as ``DataMap`` objects.  Semantics match
-the reference's: first-appearance id order, and a numeric property read
-from the bag's top-level key.
+answers, with each property bag as a ``DataMap`` (the memory backend)
+or as its JSON text (sqlite).  Semantics match the reference's:
+first-appearance id order, and a numeric property read from the bag's
+top-level key.
 """
 
 from __future__ import annotations
 
+import json
 from typing import Dict, Mapping, Sequence, Tuple, Union
 
 import numpy as np
@@ -58,11 +60,32 @@ def numeric_property(table_or_col: Union[_Columns, Sequence], key: str,
                      default: float = 0.0) -> np.ndarray:
     """A numeric property per event as float64, ``default`` where absent,
     null, boolean or not a number.  Takes the scan's columns (reads
-    ``properties``) or the property column itself."""
+    ``properties``) or the property column itself.  Bags given as JSON
+    text are parsed once per distinct string and the values fanned out
+    by the inverse index (the reference's dictionary route: ML-style
+    data has about ten distinct rating bags); mapping bags are read one
+    by one.  The rule per bag is :func:`_number` either way."""
     col = table_or_col["properties"] if isinstance(table_or_col, Mapping) \
         else table_or_col
-    return np.fromiter((_number(p, key, default) for p in col), np.float64,
-                       count=len(col))
+    if not isinstance(col, np.ndarray):
+        # element by element: numpy would unpack equal-length bags
+        arr = np.empty(len(col), dtype=object)
+        for i, p in enumerate(col):
+            arr[i] = p
+        col = arr
+    out = np.empty(len(col), np.float64)
+    is_text = np.fromiter((isinstance(p, str) for p in col), bool,
+                          count=len(col))
+    text = np.flatnonzero(is_text)
+    if len(text):
+        uniq, inv = np.unique(col[text].astype(str), return_inverse=True)
+        vals = np.fromiter((_number(json.loads(u), key, default)
+                            for u in uniq), np.float64, count=len(uniq))
+        out[text] = vals[inv]
+    rest = np.flatnonzero(~is_text)
+    out[rest] = np.fromiter((_number(col[i], key, default) for i in rest),
+                            np.float64, count=len(rest))
+    return out
 
 
 def event_mask(table: _Columns, names: Sequence[str],

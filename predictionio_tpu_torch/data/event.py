@@ -2,8 +2,9 @@
 
 Port of ``Event``, ``DataMap``, ``PropertyMap`` and ``BiMap`` from
 ``predictionio_tpu/data/event.py`` (reference: Event.scala,
-DataMap.scala, PropertyMap.scala, BiMap.scala).  Event validation and
-property aggregation arrive with the event-server slice.
+DataMap.scala, PropertyMap.scala, BiMap.scala) and event validation
+(EventValidation.validate).  Property aggregation arrives with the
+event-server slice.
 """
 
 from __future__ import annotations
@@ -15,11 +16,21 @@ from typing import (Any, Dict, Generic, Iterable, Iterator, List, Mapping,
 
 import numpy as np
 
-__all__ = ["BiMap", "DataMap", "DataMapError", "Event", "PropertyMap"]
+__all__ = ["BiMap", "DataMap", "DataMapError", "Event",
+           "EventValidationError", "PropertyMap", "RESERVED_EVENTS",
+           "is_reserved_event", "validate_event"]
+
+# Reference: EventValidation.specialEvents in Event.scala.
+RESERVED_EVENTS = frozenset({"$set", "$unset", "$delete"})
+_RESERVED_PROP_PREFIX = "pio_"
 
 
 class DataMapError(KeyError):
     """Missing / mistyped property access (reference: DataMapException)."""
+
+
+class EventValidationError(ValueError):
+    """Event failed validation (reference: EventValidation.validate)."""
 
 
 def _utcnow() -> _dt.datetime:
@@ -200,6 +211,52 @@ class Event:
 
     def with_event_id(self, event_id: str) -> "Event":
         return replace(self, event_id=event_id)
+
+
+def is_reserved_event(name: str) -> bool:
+    return name.startswith("$")
+
+
+def validate_event(event: Event) -> None:
+    """The reference's EventValidation.validate:
+
+    - non-empty event name, entityType and entityId;
+    - ``$``-prefixed events must be one of the reserved set;
+    - ``$unset`` must carry a non-empty properties map;
+    - reserved events must not target another entity;
+    - property names must not start with ``pio_`` (reserved prefix).
+    """
+    if not event.event:
+        raise EventValidationError("event must not be empty.")
+    if not event.entity_type:
+        raise EventValidationError("entityType must not be empty string.")
+    if not event.entity_id:
+        raise EventValidationError("entityId must not be empty string.")
+    if event.target_entity_type is not None and not event.target_entity_type:
+        raise EventValidationError(
+            "targetEntityType must not be empty string.")
+    if event.target_entity_id is not None and not event.target_entity_id:
+        raise EventValidationError("targetEntityId must not be empty string.")
+    if (event.target_entity_type is None) != (event.target_entity_id is None):
+        raise EventValidationError(
+            "targetEntityType and targetEntityId must be specified together.")
+    if is_reserved_event(event.event):
+        if event.event not in RESERVED_EVENTS:
+            raise EventValidationError(
+                f"{event.event} is not a supported reserved event name "
+                f"(supported: {sorted(RESERVED_EVENTS)}).")
+        if event.target_entity_type is not None \
+                or event.target_entity_id is not None:
+            raise EventValidationError(
+                f"Reserved event {event.event} must not have targetEntity.")
+        if event.event == "$unset" and event.properties.is_empty:
+            raise EventValidationError(
+                "$unset event must have non-empty properties.")
+    for key in event.properties:
+        if key.startswith(_RESERVED_PROP_PREFIX):
+            raise EventValidationError(
+                f"Property name {key!r} is reserved (prefix "
+                f"{_RESERVED_PROP_PREFIX!r}).")
 
 
 K = TypeVar("K")

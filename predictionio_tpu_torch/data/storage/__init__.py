@@ -1,85 +1,276 @@
-"""Storage for training and deploy: apps, events, engine-instance rows
-and model blobs.
+"""Storage registry: ``PIO_STORAGE_*``-configured backends.
 
-Port of ``predictionio_tpu/data/storage`` with its in-memory backends.
-A :class:`Storage` holds its apps, events and engine-instance rows in
-memory and writes model blobs under ``<home>/storage/models`` (``home``
-defaults to ``PIO_HOME``, else ``~/.predictionio_tpu``).  There is no
-process-wide singleton: the caller creates one Storage and hands the
-same object to whatever inserts events, to ``run_train`` and to the
-server that loads the instance.  Nothing here needs ``pyarrow``.
+Port of ``predictionio_tpu/data/storage/__init__.py`` (reference:
+data/.../data/storage/Storage.scala): it reads the config
+(:func:`~predictionio_tpu_torch.config.load_config`), builds one backend
+client a (source, namespace) and hands out typed repositories for the
+three logical stores (METADATA / EVENTDATA / MODELDATA).  Registered
+source types: ``sqlite``, ``localfs`` and ``memory``.  The reference's
+``parquetlog`` (it needs ``pyarrow``) and ``pioserver`` (the storage
+server) are not ported; asking for either raises :class:`StorageError`.
+The getters return the repositories directly: the reference's
+fault-injection wrappers are not ported.
+
+Two processes on the default config share one sqlite file and one model
+directory under ``PIO_HOME``: a ``pio train`` writes what a ``pio
+deploy`` in another process loads.
 """
 
 from __future__ import annotations
 
-import os
-from pathlib import Path
-from typing import Optional, Union
+import threading
+from typing import Callable, Dict, Optional
 
-from predictionio_tpu_torch.data.storage.base import (
+from predictionio_tpu_torch.config import (
+    PioConfig,
+    StorageSourceConfig,
+    load_config,
+    pio_home,
+)
+from predictionio_tpu_torch.data.storage.base import (  # re-export
+    AccessKey,
+    AccessKeys,
     App,
     Apps,
+    Channel,
+    Channels,
     EngineInstance,
     EngineInstances,
+    EvaluationInstance,
+    EvaluationInstances,
     Events,
+    KV,
     Model,
     Models,
     StorageError,
-)
-from predictionio_tpu_torch.data.storage.localfs_models import LocalFSModels
-from predictionio_tpu_torch.data.storage.memory import (
-    MemoryApps,
-    MemoryEngineInstances,
-    MemoryEvents,
 )
 
 __all__ = [
     "Storage",
     "get_storage",
+    "reset_storage",
+    "register_backend",
     "pio_home",
-    "App",
-    "Apps",
-    "Events",
-    "EngineInstance",
-    "EngineInstances",
-    "Model",
-    "Models",
+    "App", "Apps", "AccessKey", "AccessKeys", "Channel", "Channels",
+    "EngineInstance", "EngineInstances", "EvaluationInstance",
+    "EvaluationInstances", "Model", "Models", "Events", "KV",
     "StorageError",
 ]
 
 
-def pio_home() -> Path:
-    home = os.environ.get("PIO_HOME")
-    if home:
-        return Path(home)
-    return Path(os.environ.get("HOME", "/tmp")) / ".predictionio_tpu"
+class _Backend:
+    """A constructed storage client for one source; repo accessors per kind."""
+
+    def __init__(self, source: StorageSourceConfig, namespace: str):
+        self.source = source
+        self.namespace = namespace
+
+    def events(self) -> Events:
+        raise StorageError(
+            f"Source type {self.source.type} has no events support.")
+
+    def apps(self) -> Apps:
+        raise StorageError(
+            f"Source type {self.source.type} has no metadata support.")
+
+    def access_keys(self) -> AccessKeys:
+        raise StorageError(
+            f"Source type {self.source.type} has no metadata support.")
+
+    def channels(self) -> Channels:
+        raise StorageError(
+            f"Source type {self.source.type} has no metadata support.")
+
+    def engine_instances(self) -> EngineInstances:
+        raise StorageError(
+            f"Source type {self.source.type} has no metadata support.")
+
+    def evaluation_instances(self) -> EvaluationInstances:
+        raise StorageError(
+            f"Source type {self.source.type} has no metadata support.")
+
+    def models(self) -> Models:
+        raise StorageError(
+            f"Source type {self.source.type} has no models support.")
+
+    def kv(self) -> KV:
+        raise StorageError(
+            f"Source type {self.source.type} has no shared-KV support.")
+
+    def close(self) -> None:
+        pass
+
+
+class _SQLiteBackend(_Backend):
+    def __init__(self, source, namespace):
+        super().__init__(source, namespace)
+        from predictionio_tpu_torch.data.storage.sqlite import SQLiteClient
+
+        path = source.path
+        if not path:
+            raise StorageError(
+                f"sqlite source {source.name} needs a PATH property.")
+        self._client = SQLiteClient(path, namespace=namespace)
+
+    def events(self): return self._client.events()
+    def apps(self): return self._client.apps()
+    def access_keys(self): return self._client.access_keys()
+    def channels(self): return self._client.channels()
+    def engine_instances(self): return self._client.engine_instances()
+    def evaluation_instances(self): return self._client.evaluation_instances()
+    def models(self): return self._client.models()
+    def kv(self): return self._client.kv()
+    def close(self): self._client.close()
+
+
+class _LocalFSBackend(_Backend):
+    def __init__(self, source, namespace):
+        super().__init__(source, namespace)
+        from predictionio_tpu_torch.data.storage.localfs_models import (
+            LocalFSModels)
+
+        path = source.path
+        if not path:
+            raise StorageError(
+                f"localfs source {source.name} needs a PATH property.")
+        self._models = LocalFSModels(path)
+
+    def models(self): return self._models
+
+
+class _MemoryBackend(_Backend):
+    def __init__(self, source, namespace):
+        super().__init__(source, namespace)
+        from predictionio_tpu_torch.data.storage import memory as m
+
+        self._events = m.MemoryEvents()
+        self._apps = m.MemoryApps()
+        self._keys = m.MemoryAccessKeys()
+        self._channels = m.MemoryChannels()
+        self._engine_instances = m.MemoryEngineInstances()
+        self._evaluation_instances = m.MemoryEvaluationInstances()
+        self._models = m.MemoryModels()
+        self._kv = m.MemoryKV()
+
+    def events(self): return self._events
+    def apps(self): return self._apps
+    def access_keys(self): return self._keys
+    def channels(self): return self._channels
+    def engine_instances(self): return self._engine_instances
+    def evaluation_instances(self): return self._evaluation_instances
+    def models(self): return self._models
+    def kv(self): return self._kv
+
+
+_BACKEND_TYPES: Dict[str, Callable[[StorageSourceConfig, str], _Backend]] = {
+    "sqlite": _SQLiteBackend,
+    "localfs": _LocalFSBackend,
+    "memory": _MemoryBackend,
+}
+
+
+def register_backend(type_name: str,
+                     factory: Callable[[StorageSourceConfig, str], _Backend]
+                     ) -> None:
+    """Plugin point for new storage types (reference: reflective client
+    load)."""
+    _BACKEND_TYPES[type_name] = factory
 
 
 class Storage:
-    """Typed repository getters (reference: ``Storage.getMetaData*`` /
-    ``getLEvents`` / ``getModelDataModels``) over in-memory METADATA and
-    EVENTDATA stores and a localfs MODELDATA store."""
+    """Typed repository getters over the configured backends
+    (reference: ``Storage.getLEvents`` / ``getMetaDataApps`` /
+    ``getModelDataModels`` ...)."""
 
-    def __init__(self, home: Union[str, Path]):
-        self.home = Path(home)
-        self._apps = MemoryApps()
-        self._events = MemoryEvents()
-        self._instances = MemoryEngineInstances()
-        self._models = LocalFSModels(str(self.home / "storage" / "models"))
+    def __init__(self, config: Optional[PioConfig] = None):
+        self.config = config or load_config()
+        self._backends: Dict[str, _Backend] = {}
+        self._lock = threading.Lock()
 
-    def get_apps(self) -> Apps:
-        return self._apps
+    def _backend_for(self, repo: str) -> _Backend:
+        rc = self.config.repositories[repo.upper()]
+        cache_key = f"{rc.source}:{rc.namespace}"
+        with self._lock:
+            if cache_key not in self._backends:
+                source = self.config.source_for(repo)
+                try:
+                    factory = _BACKEND_TYPES[source.type]
+                except KeyError:
+                    raise StorageError(
+                        f"Unknown storage source type {source.type!r} "
+                        f"(registered: {sorted(_BACKEND_TYPES)})"
+                    ) from None
+                self._backends[cache_key] = factory(source, rc.namespace)
+            return self._backends[cache_key]
 
+    # EVENTDATA
     def get_events(self) -> Events:
-        return self._events
+        return self._backend_for("EVENTDATA").events()
+
+    # METADATA
+    def get_apps(self) -> Apps:
+        return self._backend_for("METADATA").apps()
+
+    def get_access_keys(self) -> AccessKeys:
+        return self._backend_for("METADATA").access_keys()
+
+    def get_channels(self) -> Channels:
+        return self._backend_for("METADATA").channels()
 
     def get_engine_instances(self) -> EngineInstances:
-        return self._instances
+        return self._backend_for("METADATA").engine_instances()
 
+    def get_evaluation_instances(self) -> EvaluationInstances:
+        return self._backend_for("METADATA").evaluation_instances()
+
+    # MODELDATA
     def get_models(self) -> Models:
-        return self._models
+        return self._backend_for("MODELDATA").models()
+
+    # The shared KV rides the EVENTDATA source, as in the reference: the
+    # fold-in cache derives from events.
+    def get_kv(self) -> KV:
+        return self._backend_for("EVENTDATA").kv()
+
+    def close(self) -> None:
+        with self._lock:
+            for b in self._backends.values():
+                b.close()
+            self._backends.clear()
+
+    def verify(self) -> Dict[str, str]:
+        """Touch all three stores; returns repo → source type (``pio
+        status``)."""
+        out = {}
+        for repo, getter in (
+            ("METADATA", self.get_apps),
+            ("EVENTDATA", self.get_events),
+            ("MODELDATA", self.get_models),
+        ):
+            getter()
+            out[repo] = self.config.source_for(repo).type
+        return out
 
 
-def get_storage(home: Optional[Union[str, Path]] = None) -> Storage:
-    """A new :class:`Storage` rooted at ``home`` (default: ``PIO_HOME``)."""
-    return Storage(home if home is not None else pio_home())
+_global: Optional[Storage] = None
+_global_lock = threading.Lock()
+
+
+def get_storage(config: Optional[PioConfig] = None) -> Storage:
+    """Process-wide storage singleton (reference: the Storage object);
+    a ``config`` replaces it."""
+    global _global
+    with _global_lock:
+        if _global is None or config is not None:
+            if _global is not None:
+                _global.close()
+            _global = Storage(config)
+        return _global
+
+
+def reset_storage() -> None:
+    global _global
+    with _global_lock:
+        if _global is not None:
+            _global.close()
+        _global = None

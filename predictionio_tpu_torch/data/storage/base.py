@@ -1,36 +1,50 @@
-"""Storage records and repository traits that training and deploy need.
+"""Storage records and repository traits.
 
-Port of the ``App`` / ``EngineInstance`` / ``Model`` records and the
-``Apps`` / ``Events`` / ``EngineInstances`` / ``Models`` traits of
-``predictionio_tpu/data/storage/base.py`` (reference:
-data/.../data/storage/ — App.scala, LEvents/PEvents, EngineInstance.scala,
-Model.scala).  Where the reference's columnar scan answers an Arrow
-table, the port's answers a dict of numpy columns: the port needs no
-``pyarrow``.
+Port of the records and traits of ``predictionio_tpu/data/storage/base.py``
+(reference: data/.../data/storage/ — App.scala, AccessKey.scala,
+Channel.scala, EngineInstance.scala, EvaluationInstance.scala,
+Model.scala, LEvents/PEvents) and of its shared ``KV``.  Where the
+reference's columnar scan answers an Arrow table, the port's answers a
+dict of numpy columns, and its columnar ingest takes one: the port
+needs no ``pyarrow``.  The reference's spill queues wait for the event
+server.
 """
 
 from __future__ import annotations
 
 import abc
 import datetime as _dt
+import json
+import secrets
 from dataclasses import dataclass, field
-from typing import Any, Dict, Iterator, List, Optional, Sequence
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Sequence
 
 import numpy as np
 
-from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.data.event import DataMap, Event
 
 __all__ = [
     "App",
+    "AccessKey",
+    "Channel",
     "EngineInstance",
+    "EvaluationInstance",
     "Model",
     "Apps",
+    "AccessKeys",
+    "Channels",
     "Events",
     "EngineInstances",
+    "EvaluationInstances",
     "Models",
+    "KV",
     "StorageError",
     "EVENT_COLUMNS",
     "epoch_us",
+    "from_epoch_us",
+    "events_to_columns",
+    "normalize_event_columns",
+    "columns_to_events",
 ]
 
 
@@ -43,6 +57,34 @@ class App:
     id: Optional[int]
     name: str
     description: Optional[str] = None
+
+
+@dataclass
+class AccessKey:
+    key: str
+    app_id: int
+    events: Sequence[str] = ()          # allowlist; empty = all events
+
+    @staticmethod
+    def generate(app_id: int, events: Sequence[str] = ()) -> "AccessKey":
+        return AccessKey(key=secrets.token_urlsafe(48), app_id=app_id,
+                         events=tuple(events))
+
+
+@dataclass
+class Channel:
+    id: Optional[int]
+    name: str
+    app_id: int
+
+    NAME_MAX = 16
+
+    @staticmethod
+    def is_valid_name(name: str) -> bool:
+        # Reference: Channel.isValidName — [a-zA-Z0-9-] and 1..16 chars.
+        return (0 < len(name) <= Channel.NAME_MAX
+                and all((c.isascii() and c.isalnum()) or c == "-"
+                        for c in name))
 
 
 @dataclass
@@ -63,6 +105,22 @@ class EngineInstance:
     preparator_params: str = "{}"
     algorithms_params: str = "[]"
     serving_params: str = "{}"
+
+
+@dataclass
+class EvaluationInstance:
+    """One row per ``pio eval`` run (reference: EvaluationInstance.scala)."""
+
+    id: Optional[str]
+    status: str
+    start_time: _dt.datetime
+    end_time: Optional[_dt.datetime]
+    evaluation_class: str
+    engine_params_generator_class: str
+    env: Dict[str, str] = field(default_factory=dict)
+    evaluator_results: str = ""                  # text summary
+    evaluator_results_html: str = ""
+    evaluator_results_json: str = "{}"
 
 
 @dataclass
@@ -93,8 +151,74 @@ class Apps(abc.ABC):
     def delete(self, app_id: int) -> bool: ...
 
 
-# The columns of a columnar event scan (the reference's Arrow event
-# schema, with the property bag as DataMap objects instead of JSON text).
+class AccessKeys(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, access_key: AccessKey) -> Optional[str]: ...
+
+    @abc.abstractmethod
+    def get(self, key: str) -> Optional[AccessKey]: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> List[AccessKey]: ...
+
+    @abc.abstractmethod
+    def get_by_app_id(self, app_id: int) -> List[AccessKey]: ...
+
+    @abc.abstractmethod
+    def update(self, access_key: AccessKey) -> bool: ...
+
+    @abc.abstractmethod
+    def delete(self, key: str) -> bool: ...
+
+
+class Channels(abc.ABC):
+    def insert(self, channel: Channel) -> Optional[int]:
+        """Validate then store: the name rules hold for every backend."""
+        if not Channel.is_valid_name(channel.name):
+            return None
+        return self._insert(channel)
+
+    @abc.abstractmethod
+    def _insert(self, channel: Channel) -> Optional[int]: ...
+
+    @abc.abstractmethod
+    def get(self, channel_id: int) -> Optional[Channel]: ...
+
+    @abc.abstractmethod
+    def get_by_app_id(self, app_id: int) -> List[Channel]: ...
+
+    @abc.abstractmethod
+    def delete(self, channel_id: int) -> bool: ...
+
+
+class KV(abc.ABC):
+    """Namespaced shared key-value store (the durable fold-in cache).
+    Values are opaque bytes; ``prune`` bounds a namespace by dropping the
+    least-recently-written entries, so several servers can share a cache
+    without any one of them owning an eviction thread."""
+
+    @abc.abstractmethod
+    def put(self, ns: str, key: str, value: bytes) -> None: ...
+
+    @abc.abstractmethod
+    def get(self, ns: str, key: str) -> Optional[bytes]: ...
+
+    @abc.abstractmethod
+    def delete(self, ns: str, key: str) -> bool: ...
+
+    @abc.abstractmethod
+    def count(self, ns: str) -> int: ...
+
+    @abc.abstractmethod
+    def prune(self, ns: str, keep: int) -> int:
+        """Drop all but the ``keep`` most-recently-written entries of
+        ``ns``; returns the number deleted."""
+
+
+# The columns of a columnar event scan: the reference's Arrow event
+# schema, with one property-bag column ``properties`` that holds each
+# bag as its backend keeps it — a DataMap (memory) or its JSON text
+# (sqlite); ``data.columnar.numeric_property`` reads either.
 EVENT_COLUMNS = ("event_id", "event", "entity_type", "entity_id",
                  "target_entity_type", "target_entity_id", "properties",
                  "event_time_us", "pr_id", "creation_time_us")
@@ -172,10 +296,11 @@ class Events(abc.ABC):
     ) -> Dict[str, np.ndarray]:
         """Columnar scan for the training path (reference: PEvents.find):
         one numpy array per column of :data:`EVENT_COLUMNS` (or of
-        ``columns``), object arrays for strings and property bags, int64
-        for the microsecond times.  ``ordered=False`` lets a backend skip
-        the event-time sort; this default implementation converts the
-        (ordered) :meth:`find` scan."""
+        ``columns``, in that order), object arrays for strings and
+        property bags, int64 for the microsecond times.
+        ``ordered=False`` lets a backend skip the event-time sort; this
+        default implementation converts the (ordered) :meth:`find`
+        scan."""
         evs = list(self.find(
             app_id, channel_id, start_time=start_time,
             until_time=until_time, entity_type=entity_type,
@@ -183,6 +308,31 @@ class Events(abc.ABC):
             target_entity_type=target_entity_type,
             target_entity_id=target_entity_id))
         return events_to_columns(evs, columns)
+
+    def insert_columnar(self, columns: Mapping[str, Sequence], app_id: int,
+                        channel_id: Optional[int] = None) -> int:
+        """Bulk columnar ingest (reference: ``insert_columnar``): one
+        sequence per column of :data:`EVENT_COLUMNS`; ``event_id`` is
+        ignored (the store assigns ids), missing optional columns are
+        null, a missing creation time is now and a missing event time
+        the creation time (:func:`normalize_event_columns`).  Returns
+        the number of events ingested.  This default implementation
+        inserts :meth:`insert_batch` chunks."""
+        cols = normalize_event_columns(columns)
+        n = len(cols["event"])
+        done = 0
+        for start in range(0, n, 65536):
+            done += len(self.insert_batch(
+                columns_to_events(cols, start, min(start + 65536, n)),
+                app_id, channel_id))
+        return done
+
+    @abc.abstractmethod
+    def latest_event_time(self, app_id: int,
+                          channel_id: Optional[int] = None
+                          ) -> Optional[_dt.datetime]:
+        """The ingest high-watermark: the newest ``event_time`` stored
+        for the app/channel, or None when it is empty."""
 
 
 def epoch_us(dt: Optional[_dt.datetime]) -> Optional[int]:
@@ -192,6 +342,12 @@ def epoch_us(dt: Optional[_dt.datetime]) -> Optional[int]:
     if dt.tzinfo is None:
         dt = dt.replace(tzinfo=_dt.timezone.utc)
     return int(dt.timestamp() * 1_000_000)
+
+
+def from_epoch_us(us: Optional[int]) -> Optional[_dt.datetime]:
+    if us is None:
+        return None
+    return _dt.datetime.fromtimestamp(us / 1_000_000, tz=_dt.timezone.utc)
 
 
 def events_to_columns(events: Sequence[Event],
@@ -231,6 +387,73 @@ def events_to_columns(events: Sequence[Event],
     return out
 
 
+def normalize_event_columns(columns: Mapping[str, Sequence]
+                            ) -> Dict[str, List[Any]]:
+    """Validate and complete a caller's columnar event batch for
+    :meth:`Events.insert_columnar` (the reference's
+    ``normalize_event_table``): ``event``, ``entity_type`` and
+    ``entity_id`` are required and may hold no null; an unknown column
+    raises; ``event_id`` is dropped; a property bag may be a mapping, its
+    JSON text or null (``{}``); a missing or null creation time is now,
+    a missing or null event time the row's creation time.  Answers
+    plain lists, the property bags as JSON text."""
+    names = set(columns)
+    for req in ("event", "entity_type", "entity_id"):
+        if req not in names:
+            raise StorageError(f"insert_columnar: missing column {req!r}")
+        nulls = sum(v is None for v in columns[req])
+        if nulls:
+            raise StorageError(
+                f"insert_columnar: column {req!r} has {nulls} null "
+                "value(s) — required per event (reference: "
+                "EventJson4sSupport validation)")
+    unknown = names - set(EVENT_COLUMNS)
+    if unknown:
+        raise StorageError(
+            f"insert_columnar: unknown column(s) {sorted(unknown)}")
+    n = len(columns["event"])
+    lengths = {len(columns[c]) for c in names}
+    if lengths != {n}:
+        raise StorageError(
+            f"insert_columnar: columns of different lengths {sorted(lengths)}")
+    now_us = epoch_us(_dt.datetime.now(_dt.timezone.utc))
+
+    def col(name):
+        return list(columns[name]) if name in names else [None] * n
+
+    def as_int(v, default):
+        return default if v is None else int(v)
+
+    out: Dict[str, List[Any]] = {
+        name: col(name) for name in ("event", "entity_type", "entity_id",
+                                     "target_entity_type",
+                                     "target_entity_id", "pr_id")}
+    out["properties"] = [
+        "{}" if p is None else p if isinstance(p, str)
+        else json.dumps(dict(p)) for p in col("properties")]
+    out["creation_time_us"] = [as_int(v, now_us)
+                               for v in col("creation_time_us")]
+    out["event_time_us"] = [as_int(v, ct) for v, ct in zip(
+        col("event_time_us"), out["creation_time_us"])]
+    return out
+
+
+def columns_to_events(cols: Mapping[str, Sequence], start: int,
+                      stop: int) -> List[Event]:
+    """Rows ``[start, stop)`` of :func:`normalize_event_columns`' answer
+    as events."""
+    return [
+        Event(event=cols["event"][i], entity_type=cols["entity_type"][i],
+              entity_id=cols["entity_id"][i],
+              target_entity_type=cols["target_entity_type"][i],
+              target_entity_id=cols["target_entity_id"][i],
+              properties=DataMap(json.loads(cols["properties"][i])),
+              event_time=from_epoch_us(cols["event_time_us"][i]),
+              pr_id=cols["pr_id"][i],
+              creation_time=from_epoch_us(cols["creation_time_us"][i]))
+        for i in range(start, stop)]
+
+
 class EngineInstances(abc.ABC):
     @abc.abstractmethod
     def insert(self, instance: EngineInstance) -> str: ...
@@ -253,6 +476,26 @@ class EngineInstances(abc.ABC):
 
     @abc.abstractmethod
     def update(self, instance: EngineInstance) -> bool: ...
+
+    @abc.abstractmethod
+    def delete(self, instance_id: str) -> bool: ...
+
+
+class EvaluationInstances(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, instance: EvaluationInstance) -> str: ...
+
+    @abc.abstractmethod
+    def get(self, instance_id: str) -> Optional[EvaluationInstance]: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> List[EvaluationInstance]: ...
+
+    @abc.abstractmethod
+    def get_completed(self) -> List[EvaluationInstance]: ...
+
+    @abc.abstractmethod
+    def update(self, instance: EvaluationInstance) -> bool: ...
 
     @abc.abstractmethod
     def delete(self, instance_id: str) -> bool: ...

@@ -10,7 +10,7 @@ answers a dict of numpy columns instead of an Arrow table.
 from __future__ import annotations
 
 import datetime as _dt
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -22,22 +22,27 @@ __all__ = ["EventStore", "WindowedEventStore"]
 
 
 class EventStore:
-    """Resolves app names to ids and exposes reads (reference:
-    data/.../data/store/Common.scala appNameToId plus the
-    PEventStore/LEventStore objects).  Only the default channel is
-    ported."""
+    """Resolves app and channel names to ids and exposes reads
+    (reference: data/.../data/store/Common.scala appNameToId plus the
+    PEventStore/LEventStore objects)."""
 
     def __init__(self, storage: Storage):
         self._storage = storage
 
-    def _resolve(self, app_name: str, channel_name: Optional[str]) -> int:
-        if channel_name is not None:
-            raise StorageError("channels are not ported yet; read the "
-                               "default channel (channel_name=None)")
+    def _resolve(self, app_name: str, channel_name: Optional[str]
+                 ) -> Tuple[int, Optional[int]]:
         app = self._storage.get_apps().get_by_name(app_name)
         if app is None:
             raise StorageError(f"App {app_name!r} does not exist.")
-        return app.id
+        channel_id = None
+        if channel_name is not None:
+            chans = self._storage.get_channels().get_by_app_id(app.id)
+            match = next((c for c in chans if c.name == channel_name), None)
+            if match is None:
+                raise StorageError(f"Channel {channel_name!r} does not exist "
+                                   f"in app {app_name!r}.")
+            channel_id = match.id
+        return app.id, channel_id
 
     # -- P path (training) -----------------------------------------------
     def find_columnar(
@@ -58,9 +63,9 @@ class EventStore:
         """Columnar batch read (reference: PEventStore.find returning an
         RDD): a dict of numpy columns.  Training reads should pass
         ``ordered=False`` and project ``columns`` to what they consume."""
-        app_id = self._resolve(app_name, channel_name)
+        app_id, channel_id = self._resolve(app_name, channel_name)
         return self._storage.get_events().find_columnar(
-            app_id, None, start_time=start_time, until_time=until_time,
+            app_id, channel_id, start_time=start_time, until_time=until_time,
             entity_type=entity_type, entity_id=entity_id,
             event_names=event_names, target_entity_type=target_entity_type,
             target_entity_id=target_entity_id, ordered=ordered,
@@ -83,9 +88,9 @@ class EventStore:
         reversed: bool = False,
     ) -> Iterator[Event]:
         """Iterator read (reference: LEventStore.find)."""
-        app_id = self._resolve(app_name, channel_name)
+        app_id, channel_id = self._resolve(app_name, channel_name)
         return self._storage.get_events().find(
-            app_id, None, start_time=start_time, until_time=until_time,
+            app_id, channel_id, start_time=start_time, until_time=until_time,
             entity_type=entity_type, entity_id=entity_id,
             event_names=event_names, target_entity_type=target_entity_type,
             target_entity_id=target_entity_id, limit=limit,
@@ -105,7 +110,9 @@ class EventStore:
     ) -> List[Event]:
         """Recent events of one entity, newest first unless ``latest`` is
         False (reference: LEventStore.findByEntity); serve-time fold-in
-        reads a visitor's events through it."""
+        reads a visitor's events through it.  The entity filter reaches
+        the backend's own ``find``: on sqlite the entity index serves
+        it."""
         return list(self.find(
             app_name, channel_name, entity_type=entity_type,
             entity_id=entity_id, event_names=event_names,

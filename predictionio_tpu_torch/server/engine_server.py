@@ -25,7 +25,7 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
-from predictionio_tpu_torch import __version__
+from predictionio_tpu_torch.version import __version__
 from predictionio_tpu_torch.controller import (
     Engine,
     EngineVariant,
@@ -98,7 +98,9 @@ class EngineServer:
     default, the CPU only when ``"cpu"`` is passed (the constructor
     raises when CUDA is absent otherwise).  ``storage`` is the
     :class:`~predictionio_tpu_torch.data.storage.Storage` the instance
-    was persisted to.
+    was persisted to.  ``instance_id`` pins the engine instance served
+    (``pio deploy --engine-instance-id``); by default the latest
+    COMPLETED instance of the variant.
     """
 
     def __init__(
@@ -110,10 +112,12 @@ class EngineServer:
         port: int = 8000,
         *,
         device=None,
+        instance_id: Optional[str] = None,
     ):
         self.engine = engine
         self.variant = variant
         self.storage = storage
+        self.requested_instance_id = instance_id
         self.ctx = RuntimeContext.create(storage=storage, device=device)
         self.host = host
         self.port = port
@@ -133,17 +137,26 @@ class EngineServer:
     # -- model lifecycle ----------------------------------------------------
 
     def reload(self) -> str:
-        """Load the latest COMPLETED instance of the variant and swap it
-        in whole; returns its id."""
+        """Load the pinned instance, else the latest COMPLETED instance
+        of the variant, and swap it in whole; returns its id."""
         with self._reload_lock:
-            instance = self.storage.get_engine_instances() \
-                .get_latest_completed(self.variant.engine_factory,
-                                      __version__, self.variant.variant_id)
+            instances = self.storage.get_engine_instances()
+            if self.requested_instance_id:
+                instance = instances.get(self.requested_instance_id)
+                if instance is None or instance.status != "COMPLETED":
+                    raise WorkflowError(
+                        f"Engine instance {self.requested_instance_id!r} "
+                        "not found or not COMPLETED.")
+            else:
+                instance = instances.get_latest_completed(
+                    self.variant.engine_factory, __version__,
+                    self.variant.variant_id)
             if instance is None:
                 raise WorkflowError(
                     f"No COMPLETED engine instance for engine "
                     f"{self.variant.engine_factory!r} variant "
-                    f"{self.variant.variant_id!r}.")
+                    f"{self.variant.variant_id!r} — run `pio train` "
+                    "first.")
             models = load_models(self.engine, instance, self.ctx)
             engine_params = instance_engine_params(self.engine, instance)
             algorithms = self.engine.make_algorithms(engine_params)

@@ -20,26 +20,32 @@ policy on top of it.  Serving goes through the port's retrieval facade
 PQ rungs, ``pq_flat`` on the PQ scan kernel K5).  An unseen user with
 ``rate``/``buy`` events is folded in at serve time (one host ridge
 solve against the frozen item factors) and rides the same retrieval
-call as the trained users.  A generation trained elsewhere can still be
-carried in with :func:`wrapper_from_numpy` and persisted with
+call as the trained users; the solved factor is shared through the
+storage's KV with every other server on the same storage
+(``PIO_FOLD_IN_SHARED*``).  ``read_eval`` gives ``pio eval`` its seeded
+folds.  A generation trained elsewhere can still be carried in with
+:func:`wrapper_from_numpy` and persisted with
 :func:`predictionio_tpu_torch.workflow.core_workflow.persist_instance`.
-Not ported yet: ``read_eval``, ``warm_start``, the quality and recall
-scorecards, and the fleet-shared fold-in cache.
+Not ported yet: ``warm_start`` and the quality and recall scorecards.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
+import json
 import logging
 import os
 import threading
 import time
 import weakref
-from typing import Any, List, Mapping, Optional, Sequence, Tuple, Union
+from typing import (Any, Dict, List, Mapping, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 
+from predictionio_tpu_torch.config import env_bool
 from predictionio_tpu_torch.controller import (
     Algorithm,
     DataSource,
@@ -50,6 +56,7 @@ from predictionio_tpu_torch.controller import (
 )
 from predictionio_tpu_torch.controller.params import Params
 from predictionio_tpu_torch.data.event import BiMap
+from predictionio_tpu_torch.data.storage.base import epoch_us
 from predictionio_tpu_torch.models import als as als_lib
 from predictionio_tpu_torch.obs import get_registry
 from predictionio_tpu_torch.retrieval import (
@@ -131,7 +138,7 @@ class RecommendationDataSource(DataSource):
 
     params_class = DataSourceParams
 
-    def read_training(self, ctx: RuntimeContext) -> Ratings:
+    def _read(self, ctx: RuntimeContext) -> Ratings:
         from predictionio_tpu_torch.data.columnar import (
             encode_ids,
             event_mask,
@@ -176,6 +183,47 @@ class RecommendationDataSource(DataSource):
             buy_rating=p.buyRating,
         )
 
+    def read_training(self, ctx: RuntimeContext) -> Ratings:
+        return self._read(ctx)
+
+    def read_eval(self, ctx: RuntimeContext):
+        """``evalK`` folds drawn per rating from ``seed``; each fold's
+        queries ask ``evalQueryNum`` items of every user with held-out
+        positives, those items the actuals (reference:
+        DataSource.readEval)."""
+        p: DataSourceParams = self.params
+        if not p.evalK:
+            return []
+        data = self._read(ctx)
+        n = len(data.user_ids)
+        rng = np.random.default_rng(p.seed)
+        fold_of = rng.integers(0, p.evalK, n)
+        inv_user = data.user_index.inverse
+        inv_item = data.item_index.inverse
+        folds = []
+        for k in range(p.evalK):
+            train_sel = fold_of != k
+            test_sel = ~train_sel
+            td = Ratings(
+                user_ids=data.user_ids[train_sel],
+                item_ids=data.item_ids[train_sel],
+                ratings=data.ratings[train_sel],
+                user_index=data.user_index,
+                item_index=data.item_index,
+            )
+            qa: Dict[str, set] = {}
+            for u, i, r in zip(data.user_ids[test_sel],
+                               data.item_ids[test_sel],
+                               data.ratings[test_sel]):
+                if r > 0:
+                    qa.setdefault(inv_user[u], set()).add(inv_item[i])
+            queries = [
+                (Query(user=u, num=p.evalQueryNum), sorted(actual))
+                for u, actual in sorted(qa.items())
+            ]
+            folds.append((td, None, queries))
+        return folds
+
 
 class RecommendationPreparator(Preparator):
     """Reference: Preparator.scala — identity over the ratings."""
@@ -204,17 +252,14 @@ class ALSAlgorithmParams(Params):
 def _fold_in_enabled() -> bool:
     """``PIO_FOLD_IN``: unset or empty is on; ``0``/``off``/``false``/
     ``no`` (any case) turn fold-in off."""
-    raw = os.environ.get("PIO_FOLD_IN")
-    if raw is None or raw.strip() == "":
-        return True
-    return raw.strip().lower() not in ("0", "off", "false", "no")
+    return env_bool(os.environ.get("PIO_FOLD_IN"), True)
 
 
 def _fold_metric():
     return get_registry().counter(
         "pio_fold_in_total",
         "Serve-time ALS fold-in attempts by outcome "
-        "(cached/solved/no_events/unavailable).", ("result",))
+        "(cached/shared/solved/no_events/unavailable).", ("result",))
 
 
 # A user with no usable events is cached too (an unknown-user query
@@ -222,6 +267,62 @@ def _fold_metric():
 # long: their first events should become recommendations within
 # seconds, not a generation's lifetime.
 _FOLD_NEG_TTL_S = 30.0
+
+
+# -- the durable shared fold-in cache ----------------------------------------
+#
+# Several servers on one storage each solving the same visitor is wasted
+# work, and a restarted server would re-solve everyone.  So a solved
+# factor is also written (best-effort) to the storage's shared KV, keyed
+# by (factor fingerprint, user): the fingerprint — a SHA-1 of the
+# generation's item-factor bytes — names the exact matrix the solve is
+# valid against, so servers of the same generation share entries and a
+# different generation misses.  The local LRU stays the read-through
+# layer; the KV is read only on an LRU miss.  Negative outcomes are never
+# shared: "no events yet" goes stale in seconds.
+
+def _fold_shared_enabled() -> bool:
+    """``PIO_FOLD_IN_SHARED``: on unless set off."""
+    return env_bool(os.environ.get("PIO_FOLD_IN_SHARED"), True)
+
+
+def _fold_encode(vec: np.ndarray, watermark_us: Optional[int]) -> bytes:
+    """A JSON header line — the length ``n``, the event-time watermark
+    ``wm`` of the newest event consumed and the solve time ``ts`` (epoch
+    s, the max-age gate's anchor) — then the float32 bytes."""
+    v = np.ascontiguousarray(vec, dtype=np.float32)
+    head = json.dumps({"n": int(v.shape[0]), "wm": watermark_us,
+                       "ts": round(time.time(), 3)},
+                      separators=(",", ":")).encode()
+    return head + b"\n" + v.tobytes()
+
+
+def _fold_decode(blob: bytes
+                 ) -> Optional[Tuple[np.ndarray, Optional[float]]]:
+    """(vector, solve time in epoch s), or None for a malformed entry."""
+    try:
+        head, raw = blob.split(b"\n", 1)
+        meta = json.loads(head)
+        vec = np.frombuffer(raw, dtype=np.float32)
+        if vec.shape[0] != int(meta["n"]):
+            return None
+        ts = meta.get("ts")
+        return vec.copy(), (float(ts) if ts is not None else None)
+    except Exception:
+        return None
+
+
+def _fold_shared_max_age_s() -> float:
+    """``PIO_FOLD_IN_SHARED_MAX_AGE_S`` (0, the default, accepts any
+    age): a shared entry solved longer ago than this is a miss, so the
+    reader re-solves with the events that arrived since.  The anchor is
+    the solve time, not the user's newest event: gating on event
+    recency would expire every idle user's entry."""
+    try:
+        return float(os.environ.get("PIO_FOLD_IN_SHARED_MAX_AGE_S",
+                                    "0") or 0)
+    except ValueError:
+        return 0.0
 
 
 # eq=False: wrapper identity IS the model generation — keeps the object
@@ -239,8 +340,9 @@ class ALSModelWrapper:
     Serve-time fold-in: an unseen user with recent events gets one ridge
     solve against the frozen item factors (``models.als.fold_in``)
     instead of the cold-start empty answer.  The folded factor lives in
-    a bounded per-generation LRU (``PIO_FOLD_IN_CACHE``), per process
-    and ephemeral: the next train makes the user durable.
+    a bounded per-generation LRU (``PIO_FOLD_IN_CACHE``) and, shared
+    with other servers, in the storage's KV; the next train makes the
+    user durable.
     """
 
     model: als_lib.ALSModel
@@ -269,11 +371,16 @@ class ALSModelWrapper:
         self._fold_lock = threading.Lock()
         self._event_store = None
         self._yty: Optional[np.ndarray] = None
+        # The shared KV arrives at post_load; the fingerprint binds its
+        # entries to this generation's factors.
+        self._shared_kv = None
+        self._fold_fp: Optional[str] = None
+        self._fold_puts = 0
 
     def __getstate__(self):
         d = self.__dict__.copy()
         for k in ("_device", "_fold_cache", "_fold_lock", "_event_store",
-                  "_yty"):
+                  "_yty", "_shared_kv", "_fold_fp", "_fold_puts"):
             d.pop(k, None)
         return d
 
@@ -282,12 +389,19 @@ class ALSModelWrapper:
         self._init_transients()
 
     def post_load(self, ctx: RuntimeContext) -> None:
-        """Serving-time hook: take the device the server runs on, and
-        the event store fold-in reads (transient, never pickled)."""
+        """Serving-time hook: take the device the server runs on, the
+        event store fold-in reads and, where the storage has one, the
+        shared KV of solved factors (all transient, never pickled)."""
         self._device = ctx.device
         store = getattr(ctx, "event_store", None)
         if store is not None:
             self._event_store = store
+        storage = getattr(ctx, "storage", None)
+        if storage is not None and _fold_shared_enabled():
+            try:
+                self._shared_kv = storage.get_kv()
+            except Exception:
+                self._shared_kv = None
 
     def retriever(self) -> Retriever:
         """THE serving route to the item corpus — one per loaded
@@ -332,6 +446,13 @@ class ALSModelWrapper:
                     _fold_metric().inc(result="cached")
                     return vec
                 del self._fold_cache[user]  # expired negative: re-check
+        # Another server may have solved this user against the same
+        # factors: one KV read beats an event read and a solve.
+        shared_vec = self._fold_shared_get(user)
+        if shared_vec is not None:
+            self._fold_store(user, shared_vec)
+            _fold_metric().inc(result="shared")
+            return shared_vec
         try:
             events = es.find_by_entity(
                 self.app_name, "user", user,
@@ -347,6 +468,7 @@ class ALSModelWrapper:
             return None
         ids: List[int] = []
         vals: List[float] = []
+        watermark_us: Optional[int] = None
         for ev in events:
             idx = self.item_index.get(ev.target_entity_id)
             if idx is None:
@@ -359,6 +481,9 @@ class ALSModelWrapper:
             else:
                 vals.append(float(self.buy_rating))
             ids.append(int(idx))
+            us = epoch_us(ev.event_time)
+            if us is not None and (watermark_us is None or us > watermark_us):
+                watermark_us = us
         if not ids:
             self._fold_store(user, None)
             _fold_metric().inc(result="no_events")
@@ -372,8 +497,58 @@ class ALSModelWrapper:
             reg=float(self.reg), alpha=float(self.alpha),
             implicit=self.model.implicit, yty=self._yty)
         self._fold_store(user, vec)
+        self._fold_shared_put(user, vec, watermark_us)
         _fold_metric().inc(result="solved")
         return vec
+
+    def _fold_ns(self) -> str:
+        """The KV namespace of this generation's factors."""
+        if self._fold_fp is None:
+            _, itf = self.host_factors()
+            self._fold_fp = hashlib.sha1(
+                np.ascontiguousarray(itf, dtype=np.float32).tobytes()
+            ).hexdigest()[:16]
+        return f"foldin:{self._fold_fp}"
+
+    def _fold_shared_get(self, user: str) -> Optional[np.ndarray]:
+        kv = self._shared_kv
+        if kv is None or not _fold_shared_enabled():
+            return None
+        try:
+            blob = kv.get(self._fold_ns(), user)
+        except Exception:
+            # A KV blip never fails the request: the solve still answers.
+            logging.getLogger(__name__).debug("shared fold-in get failed",
+                                              exc_info=True)
+            return None
+        decoded = _fold_decode(blob) if blob else None
+        if decoded is None:
+            return None
+        vec, solved_at = decoded
+        if vec.shape[0] != self.model.item_factors.shape[-1]:
+            return None
+        max_age = _fold_shared_max_age_s()
+        if max_age > 0 and solved_at is not None \
+                and time.time() - solved_at > max_age:
+            return None  # a stale solve: miss, and re-solve
+        return vec
+
+    def _fold_shared_put(self, user: str, vec: np.ndarray,
+                         watermark_us: Optional[int]) -> None:
+        """Best-effort write-through; every 256th put prunes the
+        namespace to ``PIO_FOLD_IN_SHARED_CAP`` entries."""
+        kv = self._shared_kv
+        if kv is None or not _fold_shared_enabled():
+            return
+        try:
+            ns = self._fold_ns()
+            kv.put(ns, user, _fold_encode(vec, watermark_us))
+            self._fold_puts += 1
+            if self._fold_puts % 256 == 0:
+                kv.prune(ns, _env_int("PIO_FOLD_IN_SHARED_CAP", 100_000))
+        except Exception:
+            logging.getLogger(__name__).debug("shared fold-in put failed",
+                                              exc_info=True)
 
     def _fold_store(self, user: str, vec: Optional[np.ndarray]) -> None:
         """Bounded-LRU insert; ``vec=None`` is the (TTL'd) negative
@@ -457,7 +632,7 @@ class ALSAlgorithm(Algorithm):
         # the exact re-rank makes quantization safe for norm-variant
         # factors, so no explicit opt-in is required.
         pq = build_train_pq(itf_host, name="als", ivf=ivf, seed=cfg.seed)
-        return ALSModelWrapper(
+        wrapper = ALSModelWrapper(
             model=model,
             user_index=prepared_data.user_index,
             item_index=prepared_data.item_index,
@@ -470,6 +645,10 @@ class ALSAlgorithm(Algorithm):
             alpha=float(p.alpha),
             n_examples=len(prepared_data.ratings),
         )
+        # A generation predicts where it trained until a server's
+        # post_load moves it (pio eval predicts with it directly).
+        wrapper._device = ctx.device
+        return wrapper
 
     def predict(self, model: ALSModelWrapper, query: Query) -> PredictedResult:
         # One query = a batch of one: the same facade routing applies.

@@ -9,9 +9,11 @@ CoreWorkflow.scala runTrain):
 One manifest blob per engine instance (each model pickled or
 self-persisted), ``load_models`` with the ``post_load`` hook, and the
 instance-params rebinding the server uses.  ``persist_instance`` is the
-tail of ``run_train`` with the models given instead of trained.  Not
-ported yet: the warm-start branch, the memory sampler and the profiler
-capture of the reference's ``run_train``.
+tail of ``run_train`` with the models given instead of trained.
+``run_evaluation`` sweeps engine-params candidates (reference:
+CoreWorkflow.runEvaluation).  Not ported yet: the warm-start branch,
+the memory sampler and the profiler capture of the reference's
+``run_train``, and the eval sweep's checkpoints.
 """
 
 from __future__ import annotations
@@ -21,24 +23,33 @@ import datetime as _dt
 import importlib
 import json
 import logging
+import os
 import pickle
 import traceback
 from typing import Any, List, Optional, Sequence, Tuple
 
-from predictionio_tpu_torch import __version__
+from predictionio_tpu_torch.version import __version__
 from predictionio_tpu_torch.controller import (
     Engine,
     EngineParams,
+    EngineParamsGenerator,
     EngineVariant,
+    Evaluation,
+    MetricEvaluatorResult,
     PersistentModel,
     RuntimeContext,
 )
-from predictionio_tpu_torch.data.storage import EngineInstance, Model, Storage
+from predictionio_tpu_torch.data.storage import (
+    EngineInstance,
+    EvaluationInstance,
+    Model,
+    Storage,
+)
 
 logger = logging.getLogger(__name__)
 
 __all__ = ["WorkflowError", "run_train", "persist_instance", "load_models",
-           "instance_engine_params", "DATA_WATERMARK_KEY"]
+           "instance_engine_params", "run_evaluation", "DATA_WATERMARK_KEY"]
 
 # EngineInstance.env key of the data high-watermark of a train run
 # (ISO-8601; the read saw exactly event_time < watermark).
@@ -222,3 +233,85 @@ def _bind_instance_params(engine: Engine, instance: EngineInstance) -> EnginePar
 def instance_engine_params(engine: Engine, instance: EngineInstance) -> EngineParams:
     """Public alias used by the serving layer."""
     return _bind_instance_params(engine, instance)
+
+
+def run_evaluation(
+    evaluation: Evaluation,
+    params_generator: EngineParamsGenerator,
+    ctx: Optional[RuntimeContext] = None,
+    *,
+    evaluation_class: str = "",
+    params_generator_class: str = "",
+    checkpoint_dir: Optional[str] = None,
+) -> Tuple[str, MetricEvaluatorResult]:
+    """Sweep engine-params candidates and score them (reference:
+    CoreWorkflow.runEvaluation + MetricEvaluator.evaluateBase): each
+    candidate over the ``read_eval`` folds (:meth:`Engine.eval_multi`),
+    scored by the evaluation's metrics, the best by the first metric;
+    the sweep lands as an EVALCOMPLETED :class:`EvaluationInstance`
+    (EVALFAILED on an error).  The reference's sweep checkpoints are not
+    ported: a ``checkpoint_dir`` or ``PIO_EVAL_CHECKPOINT_DIR`` raises
+    :class:`WorkflowError` instead of being ignored."""
+    ck_dir = checkpoint_dir or os.environ.get("PIO_EVAL_CHECKPOINT_DIR")
+    if ck_dir:
+        raise WorkflowError(
+            f"eval checkpoints ({ck_dir}) are not ported to "
+            "predictionio_tpu_torch; run the sweep without them")
+    ctx = ctx or RuntimeContext.create()
+    storage: Storage = ctx.storage
+    instance = EvaluationInstance(
+        id=None,
+        status="EVALRUNNING",
+        start_time=_now(),
+        end_time=None,
+        evaluation_class=evaluation_class or _class_path(evaluation.engine),
+        engine_params_generator_class=(params_generator_class
+                                       or _class_path(params_generator)),
+    )
+    instances = storage.get_evaluation_instances()
+    instance_id = instances.insert(instance)
+    try:
+        candidates = list(params_generator.engine_params_list)
+        if not candidates:
+            raise WorkflowError(
+                "EngineParamsGenerator produced no candidates.")
+        scored: List[Tuple[EngineParams, float, List[float]]] = []
+        all_eval_data = evaluation.engine.eval_multi(ctx, candidates)
+        for i, (engine_params, eval_data) in enumerate(
+                zip(candidates, all_eval_data)):
+            score = evaluation.metric.calculate(eval_data)
+            others = [m.calculate(eval_data)
+                      for m in evaluation.other_metrics]
+            scored.append((engine_params, score, others))
+            logger.info("eval candidate %d/%d: %s=%s", i + 1,
+                        len(candidates), evaluation.metric.header, score)
+        best_index = max(range(len(scored)), key=lambda i: (scored[i][1],))
+        result = MetricEvaluatorResult(
+            best_score=scored[best_index][1],
+            best_engine_params=scored[best_index][0],
+            best_index=best_index,
+            metric_header=evaluation.metric.header,
+            other_metric_headers=[m.header
+                                  for m in evaluation.other_metrics],
+            candidate_scores=scored,
+        )
+        instance.status = "EVALCOMPLETED"
+        instance.end_time = _now()
+        instance.evaluator_results = result.summary()
+        instance.evaluator_results_json = json.dumps({
+            "bestScore": result.best_score,
+            "bestIndex": result.best_index,
+            "metric": result.metric_header,
+            "bestEngineParams": result.best_engine_params.to_json_dict(),
+            "candidates": [
+                {"engineParams": p.to_json_dict(), "score": s, "others": o}
+                for p, s, o in scored
+            ],
+        })
+        instances.update(instance)
+        return instance_id, result
+    except Exception:
+        instance.status = "EVALFAILED"
+        instance.end_time = _now()
+        instances.update(instance)
+        raise

@@ -1,0 +1,430 @@
+"""The port's ``pio`` console: ``python -m predictionio_tpu_torch.cli``.
+
+Cases of the reference's ``tests/test_cli.py`` for the verbs the port
+has (app and channel lifecycle, access keys, import / export with
+``--from-line``, build, a bad engine.json, train, eval, status), the
+port's ``--device`` rule, and two end-to-end checks:
+
+- the quickstart parity test: the reference's CLI (JAX on the CPU) and
+  the port's (``--device cpu``) each run ``app new`` → ``import`` →
+  ``train`` → ``batchpredict`` on the same seeded JSONL in their own
+  ``PIO_HOME`` (rank 10, 3 iterations): the answers agree, ids equal
+  except within ties, scores within atol 1e-4 + rtol 1e-3 (the training
+  tolerance of ``tests/test_torch_als_train.py``);
+- one across processes: ``deploy --device cpu`` in a subprocess answers
+  ``/queries.json`` as the in-process server does from the same storage,
+  and exits 0 on ``POST /stop``.
+"""
+
+import json
+import os
+import re
+import select
+import subprocess
+import sys
+import urllib.request
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from predictionio_tpu_torch.cli import main as cli_main
+from predictionio_tpu_torch.cli.main import main
+
+ROOT = Path(__file__).resolve().parents[1]
+ATOL, RTOL = 1e-4, 1e-3
+PORT_FACTORY = "predictionio_tpu_torch.templates.recommendation:engine"
+SUBPROCESS_TIMEOUT_S = 180
+
+
+def _clean_env(monkeypatch, home):
+    from predictionio_tpu.data.storage import reset_storage as jax_reset
+    from predictionio_tpu_torch.data.storage import reset_storage
+
+    monkeypatch.setenv("PIO_HOME", str(home))
+    for k in list(os.environ):
+        if k.startswith(("PIO_STORAGE_", "PIO_FOLD_IN", "PIO_IVF", "PIO_PQ",
+                         "PIO_EVAL_")) \
+                or k in ("PIO_CONFIG_FILE", "PIO_RETRIEVAL_RUNG"):
+            monkeypatch.delenv(k, raising=False)
+    reset_storage()
+    jax_reset()
+
+
+@pytest.fixture()
+def clean_storage(tmp_path, monkeypatch):
+    from predictionio_tpu_torch.data.storage import reset_storage
+
+    home = tmp_path / "pio_home"
+    home.mkdir()
+    _clean_env(monkeypatch, home)
+    yield home
+    reset_storage()
+
+
+def run(capsys, *argv):
+    code = main(list(argv))
+    return code, capsys.readouterr().out
+
+
+def _variant(path, app="qsapp", factory=PORT_FACTORY, **algo):
+    spec = json.loads((ROOT / "examples" / "recommendation" /
+                       "engine.json").read_text())
+    spec["engineFactory"] = factory
+    spec["datasource"]["params"]["appName"] = app
+    spec["algorithms"][0]["params"].update(algo)
+    path.write_text(json.dumps(spec))
+    return path
+
+
+def _write_events(path, n_users=20, n_items=25, n=300, seed=0):
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        for k in range(n):
+            u, i = int(rng.integers(n_users)), int(rng.zipf(1.3) % n_items)
+            buy = rng.random() < 0.15
+            ev = {"event": "buy" if buy else "rate", "entityType": "user",
+                  "entityId": f"u{u}", "targetEntityType": "item",
+                  "targetEntityId": f"i{i}",
+                  "eventTime": f"2026-01-01T{k // 3600:02d}:"
+                               f"{k // 60 % 60:02d}:{k % 60:02d}Z"}
+            if not buy:
+                ev["properties"] = {"rating": float(rng.integers(1, 11))
+                                    * 0.5}
+            f.write(json.dumps(ev) + "\n")
+    return path
+
+
+# -- the reference's verb tests ----------------------------------------------
+
+def test_app_lifecycle(clean_storage, capsys):
+    code, out = run(capsys, "app", "new", "myapp")
+    assert code == 0 and "Access Key:" in out
+    key = re.search(r"Access Key: (\S+)", out).group(1)
+    code, out = run(capsys, "app", "list")
+    assert "myapp" in out and key in out
+    code, out = run(capsys, "accesskey", "new", "myapp", "view", "buy")
+    assert code == 0 and "restricted" in out
+    code, out = run(capsys, "accesskey", "list", "myapp")
+    assert "events=view,buy" in out and "Finished listing 2" in out
+    code, out = run(capsys, "accesskey", "delete", key)
+    assert code == 0 and "Deleted access key." in out
+    code, out = run(capsys, "app", "channel-new", "myapp", "live")
+    assert code == 0
+    with pytest.raises(SystemExit):
+        run(capsys, "app", "channel-new", "myapp", "bad name!")
+    with pytest.raises(SystemExit):
+        run(capsys, "app", "new", "myapp")
+    code, out = run(capsys, "app", "delete", "myapp", "-f")
+    assert code == 0 and "Deleted app myapp." in out
+    code, out = run(capsys, "app", "list")
+    assert "Finished listing 0 app(s)." in out
+
+
+def test_channel_lifecycle(clean_storage, capsys):
+    run(capsys, "app", "new", "capp")
+    code, out = run(capsys, "app", "channel-new", "capp", "mobile")
+    assert code == 0 and "mobile" in out
+    code, out = run(capsys, "app", "channel-delete", "capp", "mobile")
+    assert code == 0
+    with pytest.raises(SystemExit):
+        run(capsys, "app", "channel-delete", "capp", "mobile")
+
+
+def test_import_export_roundtrip(clean_storage, capsys, tmp_path):
+    run(capsys, "app", "new", "impapp")
+    run(capsys, "app", "channel-new", "impapp", "side")
+    src = tmp_path / "events.ndjson"
+    src.write_text("\n".join(
+        json.dumps({"event": "rate", "entityType": "user",
+                    "entityId": f"u{i}", "targetEntityType": "item",
+                    "targetEntityId": "i1",
+                    "properties": {"rating": float(i)},
+                    "eventTime": f"2026-01-0{i + 1}T00:00:00Z"})
+        for i in range(3)))
+    code, out = run(capsys, "import", "--appid", "1", "--input", str(src))
+    assert code == 0 and "Imported 3 events" in out
+    dst = tmp_path / "out.ndjson"
+    code, out = run(capsys, "export", "--appid", "1", "--output", str(dst))
+    assert code == 0 and "Exported 3 events" in out
+    lines = [json.loads(ln) for ln in dst.read_text().splitlines()]
+    assert [ln["entityId"] for ln in lines] == ["u0", "u1", "u2"]
+    assert lines[0]["properties"]["rating"] == 0.0
+    assert lines[2]["eventTime"] == "2026-01-03T00:00:00.000+00:00"
+    code, out = run(capsys, "export", "--appid", "1", "--channel", "side",
+                    "--output", str(dst))
+    assert "Exported 0 events" in out
+    code, out = run(capsys, "app", "data-delete", "impapp", "-f")
+    assert code == 0 and "Event data deleted." in out
+    code, out = run(capsys, "export", "--appid", "1", "--output", str(dst))
+    assert "Exported 0 events" in out
+
+
+def test_import_resume_from_line(clean_storage, capsys, tmp_path,
+                                 monkeypatch):
+    """A parse error mid-file leaves the chunks committed before it and
+    names the resume point; re-running from there imports the rest
+    without duplicating the committed prefix."""
+    monkeypatch.setattr(cli_main, "IMPORT_CHUNK", 2)
+    run(capsys, "app", "new", "resapp")
+    src = tmp_path / "events.ndjson"
+    good = [json.dumps({"event": "rate", "entityType": "user",
+                        "entityId": f"u{i}"}) for i in range(5)]
+    src.write_text("\n".join(good[:2] + ["NOT JSON"] + good[2:]))
+    with pytest.raises(SystemExit):
+        run(capsys, "import", "--appid", "1", "--input", str(src))
+    err = capsys.readouterr().err
+    assert "2 event(s) up to line 2 were already imported" in err
+    m = re.search(r"--from-line (\d+)", err)
+    assert m and m.group(1) == "3"
+    src.write_text("\n".join(good[:2] + [good[4]] + good[2:]))
+    code, out = run(capsys, "import", "--appid", "1", "--input", str(src),
+                    "--from-line", m.group(1))
+    assert code == 0 and "Imported 4 events" in out
+    dst = tmp_path / "out.ndjson"
+    run(capsys, "export", "--appid", "1", "--output", str(dst))
+    ids = [json.loads(ln)["entityId"] for ln in dst.read_text().splitlines()]
+    assert sorted(ids) == ["u0", "u1", "u2", "u3", "u4", "u4"]
+
+
+def test_import_rejects_an_invalid_event(clean_storage, capsys, tmp_path):
+    run(capsys, "app", "new", "valapp")
+    src = tmp_path / "events.ndjson"
+    src.write_text(json.dumps({"event": "$bogus", "entityType": "user",
+                               "entityId": "u1"}))
+    with pytest.raises(SystemExit):
+        run(capsys, "import", "--appid", "1", "--input", str(src))
+    assert "not a supported reserved event name" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("params,code", [({"rank": 4}, 0),
+                                         ({"rankk": 4}, 1)])
+def test_build_validates_engine_json(clean_storage, capsys, tmp_path,
+                                     params, code):
+    ej = tmp_path / "engine.json"
+    ej.write_text(json.dumps({
+        "engineFactory": PORT_FACTORY,
+        "datasource": {"params": {"appName": "x"}},
+        "algorithms": [{"name": "als", "params": params}],
+    }))
+    got, out = run(capsys, "build", "--engine-json", str(ej))
+    assert got == code
+    assert ("Build successful" in out) == (code == 0)
+
+
+def test_bad_engine_json(clean_storage, capsys):
+    with pytest.raises(SystemExit):
+        run(capsys, "train", "--engine-json", "/nonexistent/engine.json",
+            "--device", "cpu")
+
+
+def test_status(clean_storage, capsys):
+    code, out = run(capsys, "status")
+    assert code == 0
+    assert "METADATA: type=sqlite" in out and "sanity check OK" in out
+    assert (clean_storage / "storage" / "pio.db").exists()
+
+
+@pytest.mark.parametrize("argv", [
+    ["train", "--mesh", "data=8"], ["train", "--follow"],
+    ["train", "--checkpoint-dir", "/tmp/x"], ["deploy", "--native"],
+    ["deploy", "--max-batch", "8"], ["eval", "a:b", "c:d", "--mesh", "x"],
+    ["eval", "a:b", "c:d", "--checkpoint-dir", "/tmp/x"],
+    ["status", "--fleet", "http://x"], ["eventserver"]])
+def test_flags_without_substrate_are_rejected(clean_storage, capsys, argv):
+    with pytest.raises(SystemExit) as e:
+        main(argv)
+    assert e.value.code == 2
+    assert "unrecognized arguments" in capsys.readouterr().err \
+        or argv == ["eventserver"]
+
+
+def test_no_cuda_and_no_device_cpu_is_an_error(clean_storage, capsys,
+                                               tmp_path):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device works")
+    run(capsys, "app", "new", "qsapp")
+    ej = _variant(tmp_path / "engine.json", rank=2, numIterations=1)
+    for verb in (["train"], ["deploy", "--port", "0"],
+                 ["batchpredict", "--input", "q", "--output", "p"]):
+        with pytest.raises(SystemExit) as e:
+            main([*verb, "--engine-json", str(ej)])
+        assert e.value.code == 1
+        assert "CUDA is not available" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        main(["eval", "predictionio_tpu_torch.templates.recommendation."
+              "evaluation:evaluation", "predictionio_tpu_torch.templates."
+              "recommendation.evaluation:default_params_generator"])
+    from predictionio_tpu_torch.data.storage import get_storage
+
+    assert get_storage().get_engine_instances().get_all() == []
+
+
+def test_train_via_cli(clean_storage, capsys, tmp_path, monkeypatch):
+    monkeypatch.setenv("PIO_PQ", "auto")   # the verb sets it; undone after
+    run(capsys, "app", "new", "qsapp")
+    src = _write_events(tmp_path / "ev.jsonl", n=120)
+    run(capsys, "import", "--appid", "1", "--input", str(src))
+    ej = _variant(tmp_path / "engine.json", rank=4, numIterations=2)
+    code, out = run(capsys, "train", "--engine-json", str(ej),
+                    "--device", "cpu", "--pq", "off")
+    assert code == 0 and "Training completed" in out
+    iid = re.search(r"Engine instance ID: (\w+)", out).group(1)
+    assert os.environ["PIO_PQ"] == "off"
+    from predictionio_tpu_torch.data.storage import get_storage
+
+    inst = get_storage().get_engine_instances().get(iid)
+    assert inst.status == "COMPLETED"
+    assert inst.engine_factory == PORT_FACTORY
+    assert list((clean_storage / "storage" / "models").iterdir())
+    with pytest.raises(SystemExit):
+        main(["train", "--engine-json", str(ej), "--device", "cpu",
+              "--pq", "sometimes"])
+
+
+def test_cli_eval_end_to_end(clean_storage, capsys, tmp_path):
+    """``pio eval`` drives the sweep and writes the evaluation instance
+    and its JSON results (reference: RunEvaluation)."""
+    from predictionio_tpu_torch.data.event import DataMap, Event
+    from predictionio_tpu_torch.data.storage import App, get_storage
+
+    storage = get_storage()
+    app_id = storage.get_apps().insert(App(id=None, name="testapp"))
+    storage.get_events().init(app_id)
+    storage.get_events().insert_batch([
+        Event(event="rate", entity_type="user", entity_id=f"u{u % 12}",
+              target_entity_type="item", target_entity_id=f"i{(u + d) % 8}",
+              properties=DataMap({"rating": float(1 + d % 5)}))
+        for u in range(12) for d in range(6)], app_id)
+    out_json = tmp_path / "eval.json"
+    code, out = run(
+        capsys, "eval",
+        "predictionio_tpu_torch.templates.recommendation.evaluation:"
+        "evaluation",
+        "predictionio_tpu_torch.templates.recommendation.evaluation:"
+        "default_params_generator",
+        "--output-json", str(out_json), "--device", "cpu")
+    assert code == 0 and "Evaluation instance ID:" in out
+    res = json.loads(out_json.read_text())
+    assert "bestScore" in res and len(res["candidates"]) == 2
+    assert len(storage.get_evaluation_instances().get_completed()) == 1
+
+
+# -- the quickstart loop, both packages ---------------------------------------
+
+def _quickstart(cli, home, tmp_path, factory, monkeypatch, capsys, *extra):
+    """app new → import → train → batchpredict through ``cli`` in
+    ``home``; returns the predictions by user."""
+    _clean_env(monkeypatch, home)
+    src = _write_events(tmp_path / "ev.jsonl")
+    ej = _variant(home / "engine.json", factory=factory, rank=10,
+                  numIterations=3)
+    queries = tmp_path / "q.jsonl"
+    queries.write_text("\n".join(json.dumps({"user": f"u{u}", "num": 6})
+                                 for u in range(20)) + "\n"
+                       + json.dumps({"user": "ghost", "num": 3}) + "\n")
+    out = home / "pred.jsonl"
+    for argv in (["app", "new", "qsapp"],
+                 ["import", "--appid", "1", "--input", str(src)],
+                 ["train", "--engine-json", str(ej), *extra],
+                 ["batchpredict", "--engine-json", str(ej), "--input",
+                  str(queries), "--output", str(out), *extra]):
+        assert cli(argv) == 0, argv
+    capsys.readouterr()
+    return {json.loads(ln)["query"]["user"]: json.loads(ln)["prediction"]
+            for ln in out.read_text().splitlines()}
+
+
+def _agree(got, want):
+    """Ids equal except within a tie, scores within the training
+    tolerance."""
+    gi = [h["item"] for h in got["itemScores"]]
+    wi = [h["item"] for h in want["itemScores"]]
+    gs = np.array([h["score"] for h in got["itemScores"]])
+    ws = np.array([h["score"] for h in want["itemScores"]])
+    assert len(gi) == len(wi)
+    np.testing.assert_allclose(gs, ws, rtol=RTOL, atol=ATOL)
+    tol = ATOL + RTOL * np.abs(ws).max(initial=0.0)
+    for j, (a, b) in enumerate(zip(gi, wi)):
+        if a != b:
+            tied = [k for k, w in enumerate(wi) if w == a]
+            assert tied and abs(ws[tied[0]] - ws[j]) <= 2 * tol \
+                or abs(ws[j] - ws[-1]) <= 2 * tol, (gi, wi, ws)
+
+
+def test_quickstart_parity_with_the_reference_cli(tmp_path, monkeypatch,
+                                                  capsys):
+    from predictionio_tpu.cli.main import main as jax_main
+    from predictionio_tpu.data.storage import reset_storage as jax_reset
+    from predictionio_tpu_torch.data.storage import reset_storage
+
+    (tmp_path / "jax").mkdir()
+    (tmp_path / "port").mkdir()
+    try:
+        want = _quickstart(jax_main, tmp_path / "jax", tmp_path,
+                           "predictionio_tpu.templates.recommendation:engine",
+                           monkeypatch, capsys)
+        got = _quickstart(main, tmp_path / "port", tmp_path, PORT_FACTORY,
+                          monkeypatch, capsys, "--device", "cpu")
+    finally:
+        jax_reset()
+        reset_storage()
+    assert sorted(got) == sorted(want) and len(got) == 21
+    assert got["ghost"] == want["ghost"] == {"itemScores": []}
+    for user in want:
+        _agree(got[user], want[user])
+
+
+def test_deploy_in_a_subprocess_answers_as_in_process(clean_storage,
+                                                      capsys, tmp_path):
+    from predictionio_tpu_torch.controller import EngineVariant
+    from predictionio_tpu_torch.data.storage import get_storage
+    from predictionio_tpu_torch.server.engine_server import EngineServer
+    from predictionio_tpu_torch.templates.recommendation import engine
+
+    run(capsys, "app", "new", "qsapp")
+    run(capsys, "import", "--appid", "1", "--input",
+        str(_write_events(tmp_path / "ev.jsonl", n=150)))
+    ej = _variant(tmp_path / "engine.json", rank=4, numIterations=2)
+    assert main(["train", "--engine-json", str(ej), "--device", "cpu"]) == 0
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "predictionio_tpu_torch.cli", "deploy",
+         "--engine-json", str(ej), "--device", "cpu", "--ip", "127.0.0.1",
+         "--port", "0"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        ready, _, _ = select.select([proc.stdout], [], [],
+                                    SUBPROCESS_TIMEOUT_S)
+        line = proc.stdout.readline() if ready else ""
+        m = re.search(r"listening on 127\.0\.0\.1:(\d+) \(instance (\w+); "
+                      r"device cpu;", line)
+        assert m, (line, proc.stderr.read() if proc.poll() is not None
+                   else "")
+        base = f"http://127.0.0.1:{m.group(1)}"
+        with urllib.request.urlopen(base + "/", timeout=30) as r:
+            status = json.loads(r.read())
+        assert status["device"] == "cpu"
+        assert status["engineInstanceId"] == m.group(2)
+        local = EngineServer(engine(), EngineVariant.from_file(ej),
+                             get_storage(), device="cpu")
+        for user in ("u0", "u3", "u7", "ghost"):
+            q = {"user": user, "num": 5}
+            req = urllib.request.Request(
+                base + "/queries.json", data=json.dumps(q).encode(),
+                method="POST")
+            with urllib.request.urlopen(req, timeout=30) as r:
+                assert json.loads(r.read()) == local.query_batch([q])[0]
+        req = urllib.request.Request(base + "/stop", data=b"",
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=30) as r:
+            assert json.loads(r.read()) == {"status": "stopping"}
+        assert proc.wait(timeout=SUBPROCESS_TIMEOUT_S) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stdout.close()
+        proc.stderr.close()

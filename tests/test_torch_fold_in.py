@@ -14,10 +14,16 @@ Checks, on seeded factors and events:
 - the contract of the wrapper: a user with no events stays cold and is
   cached negatively, ``PIO_FOLD_IN=off``, ``PIO_FOLD_IN_CACHE``, no
   transient in the pickle, a storage error degrades to the cold answer,
-  and the ``pio_fold_in_total{result}`` counts.
+  and the ``pio_fold_in_total{result}`` counts;
+- the shared cache: a second server on the same sqlite storage answers
+  from the KV (``result="shared"``), ``PIO_FOLD_IN_SHARED`` and the max
+  age behave as the reference's, and the KV entries read across
+  packages.
 """
 
 import datetime as dt
+import importlib
+import json
 import pickle
 
 import jax.numpy as jnp
@@ -43,7 +49,8 @@ from predictionio_tpu.templates.recommendation.engine import (
 from predictionio_tpu.templates.recommendation.engine import Query as JaxQuery
 from predictionio_tpu_torch.controller import RuntimeContext
 from predictionio_tpu_torch.data.event import BiMap, DataMap, Event
-from predictionio_tpu_torch.data.storage import App, get_storage
+from predictionio_tpu_torch.config import memory_config
+from predictionio_tpu_torch.data.storage import App, Storage
 from predictionio_tpu_torch.models import als as port_als
 from predictionio_tpu_torch.obs import MetricsRegistry, get_registry, \
     set_registry
@@ -54,6 +61,8 @@ from predictionio_tpu_torch.templates.recommendation.engine import (
     Query,
 )
 
+PORT_ENGINE = importlib.import_module(
+    "predictionio_tpu_torch.templates.recommendation.engine")
 SCORE_TOL = 1e-5
 APP = "foldin"
 N_USERS, N_ITEMS, RANK = 30, 40, 8
@@ -110,7 +119,7 @@ def registry():
 
 def _port_wrapper(tmp_path, *, implicit=False, specs=SPECS, reg=0.1):
     uf, itf = _factors()
-    storage = get_storage(tmp_path / "port")
+    storage = Storage(memory_config(tmp_path / "port"))
     _insert(storage, App, Event, DataMap, specs)
     w = ALSModelWrapper(
         model=port_als.als_model_from_numpy(uf, itf, rank=RANK,
@@ -336,7 +345,7 @@ def test_find_by_entity_newest_first_with_limit(tmp_path):
         WindowedEventStore,
     )
 
-    storage = get_storage(tmp_path / "store")
+    storage = Storage(memory_config(tmp_path / "store"))
     _insert(storage, App, Event, DataMap, SPECS)
     es = EventStore(storage)
     got = es.find_by_entity(APP, "user", "unew", event_names=["rate"],
@@ -348,3 +357,95 @@ def test_find_by_entity_newest_first_with_limit(tmp_path):
         seconds=2))
     assert [e.target_entity_id for e in windowed.find_by_entity(
         APP, "user", "unew")] == ["i7", "i3"]
+
+
+# -- the shared fold-in cache (reference: tests/test_fleet.py) -----------------
+
+def _sqlite_wrapper(home, storage=None):
+    """A wrapper served from the default sqlite storage under ``home``:
+    a second call with a new Storage is a second server process."""
+    from predictionio_tpu_torch.config import load_config
+
+    uf, itf = _factors()
+    storage = storage or Storage(load_config(env={"PIO_HOME": str(home)}))
+    w = ALSModelWrapper(
+        model=port_als.als_model_from_numpy(uf, itf, rank=RANK,
+                                            implicit=False),
+        user_index=BiMap({f"u{j}": j for j in range(N_USERS)}),
+        item_index=BiMap({f"i{j}": j for j in range(N_ITEMS)}),
+        app_name=APP, fold_event_names=("rate", "buy"), buy_rating=4.0,
+        reg=0.1, alpha=0.5)
+    w.post_load(RuntimeContext.create(storage=storage, device="cpu"))
+    return w, storage
+
+
+@pytest.fixture
+def shared_pair(tmp_path, registry):
+    """Two servers' wrappers on one sqlite storage, the events in it."""
+    a, storage = _sqlite_wrapper(tmp_path)
+    _insert(storage, App, Event, DataMap, SPECS)
+    b, other = _sqlite_wrapper(tmp_path)
+    yield a, b
+    storage.close()
+    other.close()
+
+
+def test_second_server_answers_from_the_shared_cache(shared_pair, registry):
+    a, b = shared_pair
+    algo = ALSAlgorithm(ALSAlgorithmParams(rank=RANK))
+    first = _answer(algo, a, Query, "unew")
+    c = registry.get("pio_fold_in_total")
+    assert (c.value(result="solved"), c.value(result="shared")) == (1, 0)
+    second = _answer(algo, b, Query, "unew")
+    assert (c.value(result="solved"), c.value(result="shared")) == (1, 1)
+    assert second == first and len(first) == 5
+    assert b._fold_cache["unew"][0] is not None     # now in b's LRU
+    _answer(algo, b, Query, "unew")
+    assert c.value(result="cached") == 1
+    # a user with no events is never shared
+    assert _answer(algo, a, Query, "ughost") == []
+    assert a._shared_kv.count(a._fold_ns()) == 1
+
+
+def test_shared_switch_off(shared_pair, registry, monkeypatch):
+    a, b = shared_pair
+    monkeypatch.setenv("PIO_FOLD_IN_SHARED", "0")
+    assert a.fold_in_user("unew") is not None
+    assert a._shared_kv.count(a._fold_ns()) == 0
+    assert b.fold_in_user("unew") is not None
+    c = registry.get("pio_fold_in_total")
+    assert (c.value(result="solved"), c.value(result="shared")) == (2, 0)
+
+
+def test_shared_entry_older_than_max_age_is_a_miss(shared_pair, registry,
+                                                   monkeypatch):
+    a, b = shared_pair
+    vec = a.fold_in_user("unew")
+    monkeypatch.setenv("PIO_FOLD_IN_SHARED_MAX_AGE_S", "60")
+    assert np.array_equal(b._fold_shared_get("unew"), vec)
+    head, raw = PORT_ENGINE._fold_encode(vec, None).split(b"\n", 1)
+    stale = json.dumps({**json.loads(head), "ts": 1.0}).encode() \
+        + b"\n" + raw
+    a._shared_kv.put(a._fold_ns(), "unew", stale)
+    assert b._fold_shared_get("unew") is None
+    assert b.fold_in_user("unew") is not None
+    c = registry.get("pio_fold_in_total")
+    assert (c.value(result="solved"), c.value(result="shared")) == (2, 0)
+    monkeypatch.setenv("PIO_FOLD_IN_SHARED_MAX_AGE_S", "0")
+    a._shared_kv.put(a._fold_ns(), "unew", stale)
+    assert np.array_equal(b._fold_shared_get("unew"), vec)
+
+
+def test_shared_entries_read_across_packages():
+    """The KV value format is the reference's: each package decodes the
+    other's entry, and a malformed or wrong-length one is a miss."""
+    je = importlib.import_module(
+        "predictionio_tpu.templates.recommendation.engine")
+    vec = np.arange(RANK, dtype=np.float32) / 3
+    for enc, dec in ((je._fold_encode, PORT_ENGINE._fold_decode),
+                     (PORT_ENGINE._fold_encode, je._fold_decode)):
+        got, ts = dec(enc(vec, 1_700_000_000_000_000))
+        assert np.array_equal(got, vec) and ts > 1.7e9
+    assert PORT_ENGINE._fold_decode(b"garbage") is None
+    assert PORT_ENGINE._fold_decode(
+        b'{"n": 3, "ts": 1}\n' + vec.tobytes()) is None

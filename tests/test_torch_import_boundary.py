@@ -1,10 +1,12 @@
-"""The PyTorch port stands alone: no JAX and nothing of the JAX package.
+"""The PyTorch port stands alone: no JAX, no pyarrow and nothing of the
+JAX package.
 
 ``predictionio_tpu_torch`` and ``chip_smoke.py`` run on machines that have
-PyTorch but not JAX, and they carry their own copy of everything they
-need from ``predictionio_tpu``.  Two checks: importing every module of
-the port in a fresh interpreter leaves ``jax`` and ``predictionio_tpu``
-out of ``sys.modules``, and no source file names them in an import.
+PyTorch but neither JAX nor pyarrow, and they carry their own copy of
+everything they need from ``predictionio_tpu``.  Two checks: importing
+every module of the port in a fresh interpreter leaves ``jax``,
+``pyarrow`` and ``predictionio_tpu`` out of ``sys.modules``, and no
+source file names them in an import.
 """
 
 import ast
@@ -26,8 +28,9 @@ names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "jaxlib", "predictionio_tpu")
-             or m.startswith(("jax.", "jaxlib.", "predictionio_tpu.")))
+             if m in ("jax", "jaxlib", "pyarrow", "predictionio_tpu")
+             or m.startswith(("jax.", "jaxlib.", "pyarrow.",
+                              "predictionio_tpu.")))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -47,11 +50,18 @@ IVF_PQ_SLICE = (
     "tools.exp_gram", "tools.exp_gather2", "tools.exp_gram_calls",
     "tools.exp_pq", "tools.exp_topk",
 )
+# ... and every module of the storage registry and CLI slice, the
+# console's ``__main__`` included (it runs only as ``python -m``).
+CLI_SLICE = (
+    "config", "version", "data.json_support", "data.storage.sqlite",
+    "data.storage.localfs_models", "controller.metrics",
+    "templates.recommendation.evaluation", "cli.main", "cli.__main__",
+)
 
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "predictionio_tpu")
+    return top in ("jax", "jaxlib", "pyarrow", "predictionio_tpu")
 
 
 def test_importing_the_port_loads_no_jax():
@@ -60,7 +70,7 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0, out.stderr
     probe = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(probe["modules"]) >= 30
-    missing = [m for m in TRAINING_SLICE + IVF_PQ_SLICE
+    missing = [m for m in TRAINING_SLICE + IVF_PQ_SLICE + CLI_SLICE
                if f"predictionio_tpu_torch.{m}" not in probe["modules"]]
     assert missing == []
     assert probe["bad"] == [], f"the port pulled in {probe['bad']}"

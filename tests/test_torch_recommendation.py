@@ -37,7 +37,8 @@ from predictionio_tpu_torch.controller import (
     load_engine_factory,
 )
 from predictionio_tpu_torch.data.storage import App as PortApp
-from predictionio_tpu_torch.data.storage import get_storage
+from predictionio_tpu_torch.config import memory_config
+from predictionio_tpu_torch.data.storage import Storage
 from predictionio_tpu_torch.models import als as port_als
 from predictionio_tpu_torch.server.engine_server import EngineServer
 from predictionio_tpu_torch.templates.recommendation import (
@@ -114,7 +115,7 @@ def servers(tmp_path_factory):
             uf[:len(jw.user_index)], itf[:len(jw.item_index)],
             jw.user_index.to_numpy_keys(), jw.item_index.to_numpy_keys(),
             rank=RANK, implicit=jw.model.implicit)
-        storage = get_storage(home / "port")
+        storage = Storage(memory_config(home / "port"))
         eng = engine()
         variant = EngineVariant.from_dict(PORT_VARIANT)
         persist_instance(eng, variant, [wrapper], storage)
@@ -282,7 +283,7 @@ def test_engine_json_binds_and_training_waits(tmp_path):
     assert params.algorithms_params[0][0] == "als"
     assert eng.query_class is Query
     # training now runs; it waits for events: an app with none is refused
-    storage = get_storage(tmp_path)
+    storage = Storage(memory_config(tmp_path))
     ctx = RuntimeContext.create(storage=storage, device="cpu")
     with pytest.raises(Exception, match="does not exist"):
         eng.datasource_class(params.datasource_params).read_training(ctx)

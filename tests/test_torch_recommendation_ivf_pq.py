@@ -30,7 +30,8 @@ from predictionio_tpu.retrieval import build_train_index as jax_build_index
 from predictionio_tpu.retrieval import build_train_pq as jax_build_pq
 from predictionio_tpu_torch.controller import EngineVariant, RuntimeContext
 from predictionio_tpu_torch.data.event import DataMap, Event
-from predictionio_tpu_torch.data.storage import App, get_storage
+from predictionio_tpu_torch.config import memory_config
+from predictionio_tpu_torch.data.storage import App, Storage
 from predictionio_tpu_torch.ops import topk as ttopk
 from predictionio_tpu_torch.retrieval import IVFIndex, PQCodebook
 from predictionio_tpu_torch.server.engine_server import EngineServer
@@ -76,7 +77,7 @@ def served(tmp_path_factory):
         mp.setenv("PIO_IVF", "on")
         mp.setenv("PIO_IVF_MIN_ITEMS", "100")
         mp.setenv("PIO_PQ_MIN_ITEMS", "100")
-        storage = get_storage(home)
+        storage = Storage(memory_config(home))
         app_id = storage.get_apps().insert(App(id=None, name=APP))
         events = storage.get_events()
         events.init(app_id)

@@ -44,7 +44,8 @@ from predictionio_tpu.templates.recommendation.engine import (
 from predictionio_tpu.workflow.core_workflow import run_train as jax_run_train
 from predictionio_tpu_torch.controller import EngineVariant, RuntimeContext
 from predictionio_tpu_torch.data.event import BiMap, DataMap, Event
-from predictionio_tpu_torch.data.storage import App, get_storage
+from predictionio_tpu_torch.config import memory_config
+from predictionio_tpu_torch.data.storage import App, Storage
 from predictionio_tpu_torch.obs import get_registry
 from predictionio_tpu_torch.server.engine_server import EngineServer
 from predictionio_tpu_torch.templates.recommendation import (
@@ -159,7 +160,7 @@ def trained(tmp_path_factory):
         jax_run_train(jeng, JaxVariant.from_dict(VARIANT), jctx)
         jsrv = JaxEngineServer(jeng, JaxVariant.from_dict(VARIANT),
                                jctx.storage, host="127.0.0.1", port=0)
-        storage = get_storage(home / "port")
+        storage = Storage(memory_config(home / "port"))
         _insert_port_events(storage, specs)
         ctx = RuntimeContext.create(storage=storage, device="cpu")
         iid = run_train(engine(), EngineVariant.from_dict(PORT_VARIANT), ctx)
@@ -240,7 +241,7 @@ def test_run_train_load_and_serve_match_the_reference(trained):
 
 
 def test_window_excludes_events_past_the_watermark(tmp_path):
-    storage = get_storage(tmp_path)
+    storage = Storage(memory_config(tmp_path))
     specs = [("rate", "a", "item", "x", {"rating": 3.0}),
              ("rate", "b", "item", "y", {"rating": 4.0})]
     app_id = _insert_port_events(storage, specs)
@@ -260,7 +261,7 @@ def test_window_excludes_events_past_the_watermark(tmp_path):
 
 
 def test_failed_train_is_recorded(tmp_path):
-    storage = get_storage(tmp_path)
+    storage = Storage(memory_config(tmp_path))
     ctx = RuntimeContext.create(storage=storage, device="cpu")
     with pytest.raises(Exception, match="does not exist"):
         run_train(engine(), EngineVariant.from_dict(PORT_VARIANT), ctx)
