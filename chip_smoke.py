@@ -103,7 +103,38 @@ cannot be imported, or when any phase fails.  Phases, in order:
    with exit 0; `pio batchpredict` and `pio eval` (two candidates)
    in-process; K1, K2 and K3 must launch (the chunked rung is forced:
    the router would answer 3,706 items on the host).
-13. report — one JSON line of per-kernel numbers, the card's name and
+13. templates — the three templates that read entity state through
+   aggregate_properties, each trained by `pio train` in-process from its
+   shipped examples/<t>/engine.json with the port's engineFactory, on the
+   default sqlite + localfs storage of a fresh PIO_HOME, at phase 12's
+   shape, the events written in-process through insert_columnar:
+   13a similarproduct: 1,001,719 views, a $set of 1-3 of the 18
+   MovieLens-1M genres on every item, an $unset of 5 items' genres and a
+   $delete of 5 items; K1 and K2 must launch; the item factors held by
+   entity id against run_train on the same rows in a MEMORY store, whose
+   aggregate_properties must equal the sqlite store's; the COMPLETED
+   instance on an EngineServer, 64 /queries.json (1-3 items, a third with
+   categories, some with a whiteList or blackList) under the router's
+   choice (host) and on the chunked rung, each held against the plain
+   masked top-k of the persisted normalised factors; 8 views each of two
+   unseen items, each folded query equal to the plain top-k of the
+   normalised fold_in vector, pio_fold_in_items_total solved 2 then
+   cached 1.  13b ecommerce: the same events as view/buy (buys by 5 % of
+   the users), the genres, two unavailable lists at distinct times; K1
+   and K2 must launch; `pio deploy` as a subprocess, on the card; 64
+   /queries.json of known users with mixed filters and 4 of unknown
+   ones, each held against the plain answer (persisted factors; the
+   newest 512 seen items and the latest list from the phase's own
+   events; view counts for the unknown); a newer list written by another
+   process (`pio import`) must be excluded without a redeploy; POST /stop
+   exits 0.  13c classification: 100,000 users' $set of attr0..attr2
+   and a 4-class plan, 40 plans $unset later; `pio train` naive (the
+   shipped engine.json) and lr (maxIter 200), 64 /queries.json each
+   equal to the plain numpy prediction of the persisted model (where its
+   top two differ by more than NEAR_TIE); `pio eval` (3 candidates,
+   evalK 3), its accuracy equal to a plain float64 recount.  Each part
+   logs its writes, train wall and read, launches and client p50.
+14. report — one JSON line of per-kernel numbers, the card's name and
    power limit, and the final status line.
 """
 
@@ -1797,7 +1828,7 @@ def cli_env(home: str) -> env_vars:
         PYTHONPATH=str(Path(__file__).resolve().parent))
 
 
-def run_cli(*argv) -> str:
+def run_cli(*argv, phase: str = "phase 12") -> str:
     """One ``python -m predictionio_tpu_torch.cli`` subprocess; dies
     unless it exits 0.  Returns its standard output."""
     out = subprocess.run(
@@ -1805,24 +1836,27 @@ def run_cli(*argv) -> str:
         cwd=Path(__file__).resolve().parent, capture_output=True,
         text=True, timeout=CLI_TIMEOUT_S)
     if out.returncode != 0:
-        die(f"phase 12: pio {' '.join(argv)} exited {out.returncode}: "
+        die(f"{phase}: pio {' '.join(argv)} exited {out.returncode}: "
             f"{out.stderr[-2000:]}")
     return out.stdout
 
 
 class deployed:
-    """``pio deploy`` in a subprocess on a free port, until ``stop()``
-    (``POST /stop``; it must exit 0).  ``started_s``: Popen time."""
+    """``pio deploy`` in a subprocess on a free port (``extra``: more of
+    its arguments), until ``stop()`` (``POST /stop``; it must exit 0).
+    ``started_s``: Popen time."""
 
-    def __init__(self, engine_json: str, log_path: str):
+    def __init__(self, engine_json: str, log_path: str, extra=(),
+                 phase: str = "phase 12"):
         import select
 
+        self.phase = phase
         self.started_s = time.perf_counter()
         self.log = open(log_path, "w")
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "predictionio_tpu_torch.cli", "deploy",
              "--engine-json", engine_json, "--ip", "127.0.0.1", "--port",
-             "0"], cwd=Path(__file__).resolve().parent,
+             "0", *extra], cwd=Path(__file__).resolve().parent,
             stdout=subprocess.PIPE, stderr=self.log, text=True)
         ready, _, _ = select.select([self.proc.stdout], [], [],
                                     CLI_TIMEOUT_S)
@@ -1833,7 +1867,7 @@ class deployed:
                       r"device (\S+);", line)
         if not m:
             self.kill()
-            die(f"phase 12: pio deploy did not start ({line!r}): "
+            die(f"{phase}: pio deploy did not start ({line!r}): "
                 f"{Path(log_path).read_text()[-2000:]}")
         self.base = f"http://127.0.0.1:{m.group(1)}"
         self.instance, self.device = m.group(2), m.group(3)
@@ -1848,7 +1882,7 @@ class deployed:
         self.proc.stdout.close()
         self.log.close()
         if rc != 0:
-            die(f"phase 12: pio deploy exited {rc} after POST /stop")
+            die(f"{self.phase}: pio deploy exited {rc} after POST /stop")
 
     def kill(self) -> None:
         if self.proc.poll() is None:
@@ -2189,6 +2223,625 @@ def cli_loop_phase(dev, seed: int, mods: dict, card: str) -> dict:
     return out
 
 
+# Phase 13: the three aggregate_properties templates, each trained by
+# `pio train` from its shipped engine.json with the port's engineFactory,
+# at phase 12's MovieLens-1M shape (the events written in-process
+# through the storage API: phase 12 times the import).
+TPL_QUERIES = 64
+TPL_GENRES = ("Action", "Adventure", "Animation", "Children's", "Comedy",
+              "Crime", "Documentary", "Drama", "Fantasy", "Film-Noir",
+              "Horror", "Musical", "Mystery", "Romance", "Sci-Fi",
+              "Thriller", "War", "Western")    # MovieLens-1M's 18 genres
+TPL_BUY_WEIGHT = 5.0        # the ecommerce datasource's buyWeight
+TPL_SEEN = 512              # the newest seen events the ecommerce rule reads
+CLS_USERS, CLS_UNSET = 100_000, 40
+CLS_APP, CLS_EVAL_K = "MyApp2", 3
+NEAR_TIE = 1e-3   # a plain top-two margin under this may flip between the
+                  # card's float32 and numpy's float64
+
+
+def cls_eval_params():
+    """``pio eval``'s candidates in phase 13 (the CLI loads this by
+    name): the classification template's default generator."""
+    from predictionio_tpu_torch.templates.classification.evaluation \
+        import default_params_generator
+
+    return default_params_generator(app_name=CLS_APP, eval_k=CLS_EVAL_K)
+
+
+def tpl_engine_json(work: str, template: str, **changes) -> str:
+    """The shipped examples/<template>/engine.json with the port's
+    engineFactory (and ``changes`` at its top level), written to
+    ``work``; its path."""
+    root = Path(__file__).resolve().parent
+    spec = json.loads((root / "examples" / template /
+                       "engine.json").read_text())
+    spec["engineFactory"] = \
+        f"predictionio_tpu_torch.templates.{template}:engine"
+    spec.update(changes)
+    path = os.path.join(work, f"{template}-{spec['id']}.json")
+    Path(path).write_text(json.dumps(spec))
+    return path
+
+
+def tpl_write(storage, app: str, rows, start_us: int):
+    """Create ``app`` if it is new and write ``rows`` — (event, entity
+    type, entity id, target item or None, properties) — through the
+    port's columnar insert, one second apart from ``start_us``.  Returns
+    the app id and the seconds the insert took."""
+    from predictionio_tpu_torch.data.storage import App
+
+    apps = storage.get_apps()
+    found = apps.get_by_name(app)
+    app_id = found.id if found else apps.insert(App(id=None, name=app))
+    storage.get_events().init(app_id)
+    stamps = [start_us + n * 1_000_000 for n in range(len(rows))]
+    cols = {name: [row[j] for row in rows] for j, name in enumerate(
+        ("event", "entity_type", "entity_id", "target_entity_id",
+         "properties"))}
+    cols["target_entity_type"] = ["item" if t else None
+                                  for t in cols["target_entity_id"]]
+    cols["event_time_us"] = cols["creation_time_us"] = stamps
+    t0 = time.perf_counter()
+    storage.get_events().insert_columnar(cols, app_id)
+    return app_id, time.perf_counter() - t0
+
+
+def tpl_catalog(rng):
+    """A $set of 1-3 genres on every item, then an $unset of 5 items'
+    genres and a $delete of 5 other items: (the events, each item's
+    genres as aggregation must leave them)."""
+    cats, rows = {}, []
+    for i in range(ML1M_ITEMS):
+        g = [TPL_GENRES[j] for j in sorted(rng.choice(
+            len(TPL_GENRES), int(rng.integers(1, 4)), replace=False))]
+        cats[f"i{i}"] = set(g)
+        rows.append(("$set", "item", f"i{i}", None, {"categories": g}))
+    picked = rng.choice(ML1M_ITEMS, 10, replace=False).tolist()
+    for i in picked[:5]:
+        rows.append(("$unset", "item", f"i{i}", None, {"categories": None}))
+        del cats[f"i{i}"]
+    for i in picked[5:]:
+        rows.append(("$delete", "item", f"i{i}", None, {}))
+        del cats[f"i{i}"]
+    return rows, cats
+
+
+def tpl_queries(rng, pool, n: int, key: str):
+    """``n`` queries — 1-3 items of ``pool`` under "items", or one name
+    of it under "user" — a third with categories, some with a whiteList
+    of a twelfth of the items or a blackList of 20."""
+    items = [f"i{i}" for i in range(ML1M_ITEMS)]
+    out = []
+    for k in range(n):
+        if key == "items":
+            q = {"items": [pool[j] for j in rng.choice(
+                len(pool), int(rng.integers(1, 4)), replace=False)]}
+        else:
+            q = {"user": pool[int(rng.integers(len(pool)))]}
+        q["num"] = int(rng.choice([1, 5, 10, 50]))
+        if k % 3 == 0:
+            q["categories"] = [TPL_GENRES[j] for j in rng.choice(
+                len(TPL_GENRES), 2, replace=False)]
+        if k % 5 == 1:
+            q["whiteList"] = [items[j] for j in rng.choice(
+                len(items), ML1M_ITEMS // 12, replace=False)]
+        if k % 4 == 2:
+            q["blackList"] = [items[j] for j in rng.choice(
+                len(items), 20, replace=False)]
+        out.append(q)
+    return out
+
+
+def tpl_mask(q, index, cats, also=()):
+    """The phase's own exclude row for query ``q`` over the model's item
+    numbering ``index``: the items of ``also``, the items sharing no
+    genre with ``categories``, the items off a whiteList, the
+    blackList."""
+    import numpy as np
+
+    inv = index.inverse
+    ex = np.zeros(len(index), bool)
+    for name in list(also) + list(q.get("blackList") or ()):
+        if name in index:
+            ex[index[name]] = True
+    if q.get("categories") is not None:
+        want = set(q["categories"])
+        ex |= np.array([not (cats.get(inv[j], set()) & want)
+                        for j in range(len(index))])
+    if q.get("whiteList") is not None:
+        off = np.ones(len(index), bool)
+        off[[index[t] for t in q["whiteList"] if t in index]] = False
+        ex |= off
+    return ex
+
+
+def hold_answer(ans, index, scores, exclude, num: int, what: str,
+                topk_mismatch, rtol=RTOL, atol=ATOL) -> float:
+    """Hold one /queries.json answer against the plain top-``num`` of a
+    float64 score row with ``exclude`` dropped (ids equal except within
+    a tie at the edge); returns the largest score error."""
+    import numpy as np
+
+    s = np.where(exclude, -np.inf, scores)
+    order = np.argsort(-s, kind="stable")
+    live = order[np.isfinite(s[order])]
+    k = min(num, len(live))
+    hits = ans["itemScores"]
+    if len(hits) != k:
+        die(f"{what}: {len(hits)} items, the plain answer has {k}")
+    ref_i, ref_s = live[:k], s[live[:k]]
+    nxt = [s[live[k]]] if len(live) > k else None
+    got_s = np.array([h["score"] for h in hits])
+    why = topk_mismatch([got_s], [[index[h["item"]] for h in hits]],
+                        [ref_s], [ref_i], nxt, rtol=rtol, atol=atol)
+    if why is not None:
+        die(f"{what}: {why}")
+    return float(np.max(np.abs(got_s - ref_s))) if k else 0.0
+
+
+def tpl_serve(base: str, queries):
+    """Each query through /queries.json: (answers, client seconds)."""
+    answers, lats = [], []
+    for q in queries:
+        t0 = time.perf_counter()
+        ans, _ = post_json(f"{base}/queries.json", q)
+        lats.append(time.perf_counter() - t0)
+        answers.append(ans)
+    return answers, lats
+
+
+def p50_ms(lats) -> float:
+    return sorted(lats)[len(lats) // 2] * 1e3
+
+
+def metric_value(registry, name: str, **labels) -> float:
+    """A counter's value in the port's registry (0 before it exists)."""
+    m = registry.get(name)
+    return 0.0 if m is None else m.value(**labels)
+
+
+def tpl_train(mods, engine_json: str, cli_dev) -> dict:
+    """``pio train`` in-process through the CLI's main, the K1/K2 counts
+    set to 0 just before and read just after: its wall time, its
+    train.datasource read and the launches."""
+    fg, rs, pio = mods["fg"], mods["rs"], mods["pio"]
+    reg = mods["get_registry"]()
+
+    def read_ms() -> float:
+        h = reg.get("pio_train_phase_ms")
+        return 0.0 if h is None else h.sum(phase="train.datasource")
+
+    before = read_ms()
+    fg.LAUNCHES = 0                       # main path starts here
+    rs.LU_LAUNCHES = 0
+    t0 = time.perf_counter()
+    if pio(["train", "--engine-json", engine_json, *cli_dev]) != 0:
+        die(f"phase 13: pio train --engine-json {engine_json} failed")
+    return {"train_s": time.perf_counter() - t0,
+            "launches": {"fused_gram": fg.LAUNCHES,   # main path ends here
+                         "ridge_solve_lu": rs.LU_LAUNCHES},
+            "read_ms": read_ms() - before}
+
+
+def tpl_load(mods, engine_json: str, storage, dev):
+    """(engine, variant, model) of the latest COMPLETED instance of
+    ``engine_json``'s variant."""
+    from predictionio_tpu_torch.controller import load_engine_factory
+    from predictionio_tpu_torch.version import __version__
+    from predictionio_tpu_torch.workflow.core_workflow import load_models
+
+    variant = mods["EngineVariant"].from_file(engine_json)
+    eng = load_engine_factory(variant.engine_factory)()
+    inst = storage.get_engine_instances().get_latest_completed(
+        variant.engine_factory, __version__, variant.variant_id)
+    if inst is None:
+        die(f"phase 13: no COMPLETED instance of {engine_json}")
+    [model] = load_models(eng, inst, mods["RuntimeContext"](
+        storage=storage, device=dev))
+    return eng, variant, model
+
+
+def templates_phase(dev, seed: int, mods: dict, card: str) -> dict:
+    """Phase 13: similarproduct, ecommerce and classification, each
+    trained by ``pio train`` from its shipped engine.json (the port's
+    engineFactory) on the default sqlite + localfs storage of a fresh
+    PIO_HOME, served, and held against plain answers.  Returns each
+    part's numbers and the K1/K2 launches of the two ALS trains."""
+    import logging
+
+    import numpy as np
+
+    from predictionio_tpu_torch.data.storage import get_storage, \
+        reset_storage
+
+    logging.basicConfig(level=logging.WARNING)
+    work = tempfile.mkdtemp(prefix="pio_chip_tpl_")
+    env = cli_env(os.path.join(work, "home"))
+    env.values["PIO_RETRIEVAL_RUNG"] = None      # the router's own choice
+    cli_dev = [] if dev.type == "cuda" else ["--device", "cpu"]
+    out = {}
+    phase_t0 = time.perf_counter()
+    env.__enter__()
+    reset_storage()
+    try:
+        users, items, stars, _ = ml1m_events(seed)
+        events = (users, items, np.isnan(stars))
+        start_us = int((time.time() - 40 * 86400) * 1e6)
+        rng = np.random.default_rng(seed + 13)
+        storage = get_storage()
+        args = (dev, rng, storage, start_us, work, cli_dev, mods, card)
+        out["similarproduct"] = tpl_similarproduct(events, *args)
+        out["ecommerce"] = tpl_ecommerce(events, *args)
+        out["classification"] = tpl_classification(*args)
+    finally:
+        reset_storage()
+        env.__exit__()
+        shutil.rmtree(work, ignore_errors=True)
+    out["launches"] = {
+        name: sum(out[t]["launches"][name]
+                  for t in ("similarproduct", "ecommerce"))
+        for name in ("fused_gram", "ridge_solve_lu")}
+    out["phase_s"] = time.perf_counter() - phase_t0
+    log(f"phase 13 templates: K1/K2 launches of the two ALS trains "
+        f"{json.dumps(out['launches'])}; phase 13 in "
+        f"{out['phase_s']:.1f} s; card {card}")
+    return out
+
+
+def tpl_similarproduct(events, dev, rng, storage, start_us, work, cli_dev,
+                       mods, card) -> dict:
+    """13a: views + item genres → pio train → item factors held by entity
+    id against run_train on a MEMORY store → 64 /queries.json under the
+    router's choice and on the chunked rung, each held against the plain
+    masked top-k of the persisted factors → fold-in of two unseen
+    items."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.data.store import EventStore
+    from predictionio_tpu_torch.models.als import fold_in
+    from predictionio_tpu_torch.workflow.core_workflow import load_models
+
+    users, items, _ = events
+    app = "MyApp3"
+    catalog, cats = tpl_catalog(rng)
+    rows = [("view", "user", f"u{u}", f"i{i}", {})
+            for u, i in zip(users.tolist(), items.tolist())] + catalog
+    _, write_s = tpl_write(storage, app, rows, start_us)
+    engine_json = tpl_engine_json(work, "similarproduct")
+    out = tpl_train(mods, engine_json, cli_dev)
+    for name, n in out["launches"].items():
+        if n == 0:
+            die(f"phase 13a: pio train never launched {name}")
+    eng, variant, model = tpl_load(mods, engine_json, storage, dev)
+    # the same rows, in the same order, in a MEMORY store
+    mem = mods["memory_storage"](os.path.join(work, "mem"))
+    tpl_write(mem, app, rows, start_us)
+    mid = mods["run_train"](eng, variant, mods["RuntimeContext"].create(
+        storage=mem, device=dev))
+    [mw] = load_models(eng, mem.get_engine_instances().get(mid),
+                       mods["RuntimeContext"](storage=mem, device=dev))
+    if sorted(mw.item_index.keys()) != sorted(model.item_index.keys()):
+        die("phase 13a: the sqlite and memory trains saw other items")
+    w = torch.from_numpy(np.ascontiguousarray(
+        mw.item_factors[[mw.item_index[k] for k in model.item_index]]))
+    out["factor_err"] = assert_close(
+        torch.from_numpy(model.item_factors), w, TRAIN_RTOL,
+        scaled(TRAIN_ATOL, w), "phase 13a: item factors, sqlite train vs "
+        "memory train")
+
+    def aggregated(st):
+        return {k: (dict(v), v.first_updated, v.last_updated) for k, v in
+                EventStore(st).aggregate_properties(app, "item").items()}
+
+    agg = aggregated(storage)
+    if agg != aggregated(mem) or {k: set(v[0]["categories"])
+                                  for k, v in agg.items()
+                                  if v[0].get("categories")} != cats \
+            or model.item_categories != cats:
+        die("phase 13a: aggregate_properties differs between the stores, "
+            "or from the genres written")
+    del mem, mw
+    server = mods["EngineServer"](eng, variant, storage, host="127.0.0.1",
+                                  port=0, device=dev)
+    server.start()
+    base = f"http://127.0.0.1:{server.port}"
+    try:
+        index = model.item_index
+        queries = tpl_queries(rng, list(index.keys()), TPL_QUERIES, "items")
+        f64 = model.item_factors.astype(np.float64)
+        reg = mods["get_registry"]()
+        err, out["p50_ms"], out["rungs"] = 0.0, {}, {}
+        for rung in ("auto", "chunked"):
+            before = {r: metric_value(reg, "pio_retrieval_requests_total",
+                                      rung=r, corpus="similarproduct")
+                      for r in ("host", "device", "chunked")}
+            with env_vars(PIO_RETRIEVAL_RUNG=None if rung == "auto"
+                          else rung):
+                answers, lats = tpl_serve(base, queries)
+            out["p50_ms"][rung] = p50_ms(lats)
+            out["rungs"][rung] = {
+                r: metric_value(reg, "pio_retrieval_requests_total", rung=r,
+                                corpus="similarproduct") - n
+                for r, n in before.items()}
+            for q, ans in zip(queries, answers):
+                qv = f64[[index[t] for t in q["items"]]].sum(axis=0)
+                err = max(err, hold_answer(
+                    ans, index, f64 @ qv,
+                    tpl_mask(q, index, cats, q["items"]), q["num"],
+                    f"phase 13a ({rung}) {q}", mods["topk_mismatch"]))
+        if out["rungs"]["chunked"]["chunked"] != TPL_QUERIES:
+            die(f"phase 13a: rungs served {out['rungs']}")
+        out["err"] = err
+        # fold-in: 8 views each of two items this generation never saw
+        inv_u = model.user_index.inverse
+        viewers = {f"new{j}": rng.choice(len(inv_u), 8, replace=False)
+                   for j in range(2)}
+        tpl_write(storage, app, [
+            ("view", "user", inv_u[int(u)], item, {})
+            for item, who in viewers.items() for u in who],
+            int((time.time() - 3600) * 1e6))
+        before = {r: metric_value(reg, "pio_fold_in_items_total", result=r)
+                  for r in ("solved", "cached")}
+        uf = model.user_factors
+        uty = uf.astype(np.float64).T @ uf.astype(np.float64)
+        ferr, fold_lats = 0.0, []
+        for item, who in viewers.items():
+            vec = fold_in(uf, who, np.ones(len(who), np.float32),
+                          reg=model.reg, alpha=model.alpha, implicit=True,
+                          yty=uty).astype(np.float64)
+            vec /= max(float(np.linalg.norm(vec)), 1e-9)
+            [ans], lat = tpl_serve(base, [{"items": [item], "num": 10}])
+            fold_lats += lat
+            ferr = max(ferr, hold_answer(
+                ans, index, f64 @ vec, np.zeros(len(index), bool), 10,
+                f"phase 13a fold-in {item}", mods["topk_mismatch"]))
+        tpl_serve(base, [{"items": ["new0"], "num": 10}])
+        counts = {r: metric_value(reg, "pio_fold_in_items_total",
+                                  result=r) - n
+                  for r, n in before.items()}
+        if counts != {"solved": 2, "cached": 1}:
+            die(f"phase 13a: pio_fold_in_items_total {counts}")
+        out["fold_err"], out["fold_counts"] = ferr, counts
+        out["fold_first_ms"] = max(fold_lats) * 1e3
+    finally:
+        server.stop()
+    out["write_s"] = write_s
+    log(f"phase 13a similarproduct: {len(users)} views + {len(catalog)} "
+        f"item $set/$unset/$delete written in {write_s:.2f} s; pio train "
+        f"(shipped engine.json: rank 10, 20 iterations, alpha 10) "
+        f"{out['train_s']:.2f} s, read {out['read_ms']:.0f} ms, launches "
+        f"{json.dumps(out['launches'])}; item factors equal the memory "
+        f"store's train by entity id (max |err| {out['factor_err']:.3g}); "
+        f"aggregate_properties equal on both stores; {TPL_QUERIES} "
+        f"/queries.json p50 {json.dumps(out['p50_ms'])} ms, rungs "
+        f"{json.dumps(out['rungs'])}, each equal to the plain masked top-k "
+        f"of the persisted factors (max |err| {err:.3g}); fold-in of 2 "
+        f"unseen items (max |err| {ferr:.3g}, first "
+        f"{out['fold_first_ms']:.2f} ms) {json.dumps(counts)}; card {card}")
+    return out
+
+
+def tpl_ecommerce(events, dev, rng, storage, start_us, work, cli_dev, mods,
+                  card) -> dict:
+    """13b: views, buys, item genres and two unavailable lists → pio
+    train → pio deploy (a subprocess on the card) → 64 /queries.json of
+    known users and 4 of unknown ones, each held against the plain
+    answer (persisted factors, the phase's own seen and unavailable
+    lists; popularity for the unknown) → a newer unavailable list from
+    another process, excluded without a redeploy → POST /stop."""
+    import numpy as np
+
+    users, items, buys = events
+    app = "MyApp4"
+    catalog, cats = tpl_catalog(rng)
+    lists = [sorted(f"i{i}" for i in rng.choice(ML1M_ITEMS, 40,
+                                                replace=False))
+             for _ in range(2)]
+    rows = [("buy" if b else "view", "user", f"u{u}", f"i{i}", {})
+            for u, i, b in zip(users.tolist(), items.tolist(),
+                               buys.tolist())] + catalog + [
+        ("$set", "constraint", "unavailableItems", None, {"items": lst})
+        for lst in lists]
+    app_id, write_s = tpl_write(storage, app, rows, start_us)
+    engine_json = tpl_engine_json(work, "ecommerce")
+    out = tpl_train(mods, engine_json, cli_dev)
+    for name, n in out["launches"].items():
+        if n == 0:
+            die(f"phase 13b: pio train never launched {name}")
+    _, _, model = tpl_load(mods, engine_json, storage, dev)
+    index, uindex = model.item_index, model.user_index
+    itf = model.item_factors.astype(np.float64)
+    # the plain answer's inputs, from the phase's own event lists
+    order = np.argsort(users, kind="stable")
+    bounds = np.searchsorted(users[order], np.arange(ML1M_USERS + 1))
+    weights = np.where(buys, TPL_BUY_WEIGHT, 1.0)
+    counts = np.bincount(items, weights=weights, minlength=ML1M_ITEMS)
+    popular = np.array([counts[int(index.inverse[j][1:])]
+                        for j in range(len(index))])
+
+    def plain(q, unavailable):
+        user = q["user"]
+        seen = set()
+        if user in uindex:
+            u = int(user[1:])
+            mine = order[bounds[u]:bounds[u + 1]][-TPL_SEEN:]
+            seen = {f"i{i}" for i in items[mine].tolist()}
+            scores = itf @ model.user_factors[uindex[user]].astype(
+                np.float64)
+        else:
+            scores = popular
+        return scores, tpl_mask(q, index, cats, seen | set(unavailable))
+
+    queries = tpl_queries(rng, list(uindex.keys()), TPL_QUERIES, "user") \
+        + [{"user": f"visitor{j}", "num": n, **extra} for j, (n, extra) in
+           enumerate(((10, {}), (5, {"categories": ["Drama"]}),
+                      (50, {"blackList": ["i0", "i1"]}), (1, {})))]
+    server = deployed(engine_json, os.path.join(work, "deploy_ec.log"),
+                      cli_dev, phase="phase 13b")
+    try:
+        status = json.loads(server.get("/"))
+        if not status["device"].startswith(dev.type):
+            die(f"phase 13b: pio deploy reports {status}")
+        t0 = time.perf_counter()
+        answers, lats = tpl_serve(server.base, queries)
+        out["deploy_to_first_s"] = t0 + lats[0] - server.started_s
+        err = 0.0
+        for q, ans in zip(queries, answers):
+            scores, mask = plain(q, lists[-1])
+            # popularity scores are counts: held exactly
+            tol = RTOL if q["user"] in uindex else 0.0
+            err = max(err, hold_answer(
+                ans, index, scores, mask, q["num"], f"phase 13b {q}",
+                mods["topk_mismatch"], rtol=tol, atol=tol))
+        # another process writes a newer list: the next answer excludes
+        # it without a redeploy
+        newer = [h["item"] for h in answers[0]["itemScores"][:3]]
+        path = os.path.join(work, "unavailable.jsonl")
+        Path(path).write_text(json.dumps({
+            "event": "$set", "entityType": "constraint",
+            "entityId": "unavailableItems",
+            "properties": {"items": newer}}) + "\n")
+        run_cli("import", "--appid", str(app_id), "--input", path,
+                phase="phase 13b")
+        [again], _ = tpl_serve(server.base, [queries[0]])
+        if {h["item"] for h in again["itemScores"]} & set(newer):
+            die(f"phase 13b: the newer unavailable list {newer} was served")
+        scores, mask = plain(queries[0], newer)
+        err = max(err, hold_answer(again, index, scores, mask,
+                                   queries[0]["num"], "phase 13b newer list",
+                                   mods["topk_mismatch"]))
+        server.stop()
+    except BaseException:
+        server.kill()
+        raise
+    out.update(write_s=write_s, err=err, p50_ms=p50_ms(lats),
+               device=status["device"])
+    log(f"phase 13b ecommerce: {len(users)} view/buy events + "
+        f"{len(catalog)} item $set/$unset/$delete + 2 unavailable lists "
+        f"written in {write_s:.2f} s; pio train (shipped engine.json: rank "
+        f"10, 20 iterations, alpha 10) {out['train_s']:.2f} s, read "
+        f"{out['read_ms']:.0f} ms, launches {json.dumps(out['launches'])}; "
+        f"pio deploy (subprocess on {status['device']}) start to first "
+        f"answer {out['deploy_to_first_s']:.2f} s; {len(queries)} "
+        f"/queries.json ({TPL_QUERIES} known users, 4 unknown) p50 "
+        f"{out['p50_ms']:.2f} ms, each equal to the plain answer (seen: "
+        f"newest {TPL_SEEN}; latest unavailable list; popularity for the "
+        f"unknown; max |err| {err:.3g}); a newer list from another process "
+        f"excluded without a redeploy; exit 0 on POST /stop; card {card}")
+    return out
+
+
+def tpl_classification(dev, rng, storage, start_us, work, cli_dev, mods,
+                       card) -> dict:
+    """13c: 100,000 users' $set attributes and plan (a few plans
+    $unset later) → pio train naive (shipped) and lr (maxIter 200) →
+    64 /queries.json per model, each equal to the plain numpy prediction
+    of the persisted model → pio eval, its accuracy equal to a plain
+    recount."""
+    import numpy as np
+
+    labels = rng.integers(0, 4, CLS_USERS)
+    attrs = rng.poisson(1.0 + 4.0 * np.eye(4, 3)[labels]).astype(float)
+    unset = rng.choice(CLS_USERS, CLS_UNSET, replace=False)
+    rows = [("$set", "user", f"c{j}", None,
+             {"attr0": a[0], "attr1": a[1], "attr2": a[2],
+              "plan": float(lbl)})
+            for j, (a, lbl) in enumerate(zip(attrs.tolist(),
+                                              labels.tolist()))]
+    rows += [("$unset", "user", f"c{j}", None, {"plan": None})
+             for j in unset.tolist()]
+    _, write_s = tpl_write(storage, CLS_APP, rows, start_us)
+    out = {"write_s": write_s}
+    queries = [{f"attr{d}": float(v) for d, v in enumerate(row)}
+               for row in rng.integers(0, 8, (TPL_QUERIES, 3)).tolist()]
+    qx = np.array([[q[f"attr{d}"] for d in range(3)] for q in queries])
+    for name, changes in (
+            ("naive", {}),
+            ("lr", {"id": "lr", "algorithms": [
+                {"name": "lr", "params": {"maxIter": 200}}]})):
+        engine_json = tpl_engine_json(work, "classification", **changes)
+        out[name] = tpl_train(mods, engine_json, cli_dev)
+        eng, variant, wrapper = tpl_load(mods, engine_json, storage, dev)
+        m = {k: (v.cpu().double().numpy()
+                 if hasattr(v, "cpu") else v)
+             for k, v in vars(wrapper.model).items()}
+        if name == "naive":
+            plain = m["class_log_prior"] + qx @ m["feature_log_prob"].T
+        else:
+            z = ((qx - m["mean"]) / m["scale"]) @ m["weights"] + m["bias"]
+            plain = np.exp(z - z.max(1, keepdims=True))
+            plain /= plain.sum(1, keepdims=True)
+        server = mods["EngineServer"](eng, variant, storage,
+                                      host="127.0.0.1", port=0, device=dev)
+        server.start()
+        try:
+            answers, lats = tpl_serve(f"http://127.0.0.1:{server.port}",
+                                      queries)
+        finally:
+            server.stop()
+        top2 = np.sort(plain, axis=1)[:, -2:]
+        clear = top2[:, 1] - top2[:, 0] > NEAR_TIE
+        want = wrapper.classes[plain.argmax(1)]
+        got = np.array([a["label"] for a in answers])
+        if (got[clear] != want[clear]).any() or clear.sum() < 0.9 * len(got):
+            die(f"phase 13c {name}: labels {got.tolist()} vs plain "
+                f"{want.tolist()} (clear {clear.sum()})")
+        out[name].update(p50_ms=p50_ms(lats), clear=int(clear.sum()))
+    # pio eval, and its accuracy recounted with a plain float64 NB
+    eval_json = os.path.join(work, "cls_eval.json")
+    t0 = time.perf_counter()
+    if mods["pio"](["eval", "predictionio_tpu_torch.templates."
+                    "classification.evaluation:evaluation",
+                    "chip_smoke:cls_eval_params", "--output-json",
+                    eval_json, *cli_dev]) != 0:
+        die("phase 13c: pio eval failed")
+    out["eval_s"] = time.perf_counter() - t0
+    scores = [c["score"] for c in json.loads(
+        Path(eval_json).read_text())["candidates"]]
+    keep = np.ones(CLS_USERS, bool)
+    keep[unset] = False
+    ids = np.flatnonzero(keep)
+    ids = ids[np.argsort([f"c{j}" for j in ids])]   # entity-id order
+    x, y = attrs[ids], labels[ids]
+    fold_of = np.random.default_rng(3).integers(0, CLS_EVAL_K, len(y))
+    recount, near = [], []
+    for lam in (0.5, 1.0, 5.0):
+        right = ties = 0
+        for k in range(CLS_EVAL_K):
+            tr, te = fold_of != k, fold_of == k
+            onehot = np.eye(4)[y[tr]]
+            cc = onehot.sum(0)
+            feat = onehot.T @ x[tr] + lam
+            lp = (np.log(cc) - np.log(cc.sum()))[None, :] + x[te] @ (
+                np.log(feat) - np.log(feat.sum(1, keepdims=True))).T
+            right += int((lp.argmax(1) == y[te]).sum())
+            t2 = np.sort(lp, axis=1)[:, -2:]
+            ties += int((t2[:, 1] - t2[:, 0] <= NEAR_TIE).sum())
+        recount.append(right / len(y))
+        near.append(ties)
+    for got, want, ties in zip(scores, recount, near):
+        if abs(got - want) * len(y) > ties + 1e-6:
+            die(f"phase 13c: eval accuracy {scores} vs plain recount "
+                f"{recount} (near ties {near})")
+    out.update(eval_scores=scores, recount=recount, near_ties=near)
+    log(f"phase 13c classification: {CLS_USERS} users' $set + "
+        f"{CLS_UNSET} $unset of plan written in {write_s:.2f} s; pio train "
+        f"naive (shipped engine.json) {out['naive']['train_s']:.2f} s "
+        f"(read {out['naive']['read_ms']:.0f} ms), lr maxIter 200 "
+        f"{out['lr']['train_s']:.2f} s (read {out['lr']['read_ms']:.0f} "
+        f"ms); {TPL_QUERIES} /queries.json each, p50 naive "
+        f"{out['naive']['p50_ms']:.2f} ms / lr {out['lr']['p50_ms']:.2f} "
+        f"ms, labels equal the plain prediction of the persisted model "
+        f"({out['naive']['clear']} / {out['lr']['clear']} of "
+        f"{TPL_QUERIES} clear of a {NEAR_TIE} margin); pio eval (evalK "
+        f"{CLS_EVAL_K}, 3 candidates) {out['eval_s']:.2f} s, accuracy "
+        f"{scores} = plain recount {recount} (near ties {near}); card "
+        f"{card}")
+    return out
+
+
 def post_json(url: str, obj):
     """POST one query; returns (answer, the server's own wall ms)."""
     req = urllib.request.Request(
@@ -2465,7 +3118,11 @@ def main() -> int:
     loop = cli_loop_phase(dev, args.seed, mods, card)
     torch.cuda.empty_cache()
 
-    # -- phase 13: report --------------------------------------------------
+    # -- phase 13: the aggregate_properties templates (the CLI) -----------
+    tpl = templates_phase(dev, args.seed, mods, card)
+    torch.cuda.empty_cache()
+
+    # -- phase 14: report --------------------------------------------------
     main_shape = timings[(ML25M_ITEMS, 1, 10)]
     b64 = timings[(ML25M_ITEMS, 64, 10)]   # a full batch of query_batch
     kernels = [{
@@ -2499,7 +3156,7 @@ def main() -> int:
                 "ridge_solve.cu"),
             "replaces": where,
             "launches": train["launches"][name]
-            + loop["launches"].get(name, 0),
+            + loop["launches"].get(name, 0) + tpl["launches"].get(name, 0),
             "max_abs_err": train_kernel_err[name],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -2547,7 +3204,9 @@ def main() -> int:
         f"batchpredict and eval), {dase_topk} on the DASE path; training "
         f"kernels per the train run (fused_gram, ridge_solve_lu) + the CLI "
         f"path's train and eval ({loop['launches']['fused_gram']}, "
-        f"{loop['launches']['ridge_solve_lu']}) and the solver='gj' run "
+        f"{loop['launches']['ridge_solve_lu']}), the similarproduct and "
+        f"ecommerce trains of phase 13 ({tpl['launches']['fused_gram']}, "
+        f"{tpl['launches']['ridge_solve_lu']}) and the solver='gj' run "
         f"(ridge_solve_gj); timings of the training kernels are over one "
         f"iteration's calls at the ML-25M shape")
     print(json.dumps({"kernels": kernels}))

@@ -2,9 +2,9 @@
 
 Port of ``Event``, ``DataMap``, ``PropertyMap`` and ``BiMap`` from
 ``predictionio_tpu/data/event.py`` (reference: Event.scala,
-DataMap.scala, PropertyMap.scala, BiMap.scala) and event validation
-(EventValidation.validate).  Property aggregation arrives with the
-event-server slice.
+DataMap.scala, PropertyMap.scala, BiMap.scala), event validation
+(EventValidation.validate) and the ``$set``/``$unset``/``$delete``
+property fold (LEventAggregator.aggregateProperties).
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import numpy as np
 
 __all__ = ["BiMap", "DataMap", "DataMapError", "Event",
            "EventValidationError", "PropertyMap", "RESERVED_EVENTS",
-           "is_reserved_event", "validate_event"]
+           "aggregate_properties", "is_reserved_event", "validate_event"]
 
 # Reference: EventValidation.specialEvents in Event.scala.
 RESERVED_EVENTS = frozenset({"$set", "$unset", "$delete"})
@@ -257,6 +257,38 @@ def validate_event(event: Event) -> None:
             raise EventValidationError(
                 f"Property name {key!r} is reserved (prefix "
                 f"{_RESERVED_PROP_PREFIX!r}).")
+
+
+def aggregate_properties(events: Iterable[Event]) -> Optional[PropertyMap]:
+    """Fold ``$set``/``$unset``/``$delete`` events into entity state.
+
+    Reference: LEventAggregator.aggregateProperties — events are processed in
+    event-time order; ``$set`` merges keys (later wins), ``$unset`` removes its
+    property keys, ``$delete`` resets the entity to "absent".  Returns ``None``
+    if the entity ends up deleted or never ``$set``.
+    """
+    ordered = sorted(events, key=lambda e: (e.event_time, e.creation_time))
+    props: Optional[Dict[str, Any]] = None
+    first: Optional[_dt.datetime] = None
+    last: Optional[_dt.datetime] = None
+    for e in ordered:
+        if e.event == "$set":
+            if props is None:
+                props = {}
+                first = e.event_time
+            props.update(e.properties.to_dict())
+            last = e.event_time
+        elif e.event == "$unset":
+            if props is not None:
+                for k in e.properties:
+                    props.pop(k, None)
+                last = e.event_time
+        elif e.event == "$delete":
+            props, first, last = None, None, None
+        # non-reserved events do not affect properties
+    if props is None:
+        return None
+    return PropertyMap(props, first_updated=first, last_updated=last)
 
 
 K = TypeVar("K")

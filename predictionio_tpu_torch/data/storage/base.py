@@ -21,7 +21,7 @@ from typing import Any, Dict, Iterator, List, Mapping, Optional, Sequence
 
 import numpy as np
 
-from predictionio_tpu_torch.data.event import DataMap, Event
+from predictionio_tpu_torch.data.event import DataMap, Event, PropertyMap
 
 __all__ = [
     "App",
@@ -333,6 +333,45 @@ class Events(abc.ABC):
                           ) -> Optional[_dt.datetime]:
         """The ingest high-watermark: the newest ``event_time`` stored
         for the app/channel, or None when it is empty."""
+
+    def aggregate_properties(
+        self,
+        app_id: int,
+        channel_id: Optional[int] = None,
+        *,
+        entity_type: str,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+        required: Optional[Sequence[str]] = None,
+    ) -> Dict[str, PropertyMap]:
+        """Aggregate ``$set``/``$unset``/``$delete`` into per-entity
+        state: one :class:`PropertyMap` per entity that ends up set,
+        keeping only entities holding every ``required`` key.
+
+        Reference: PEventStore.aggregateProperties / LEventAggregator.
+        """
+        from predictionio_tpu_torch.data.event import (
+            aggregate_properties as _agg)
+
+        by_entity: Dict[str, List[Event]] = {}
+        for ev in self.find(
+            app_id,
+            channel_id,
+            start_time=start_time,
+            until_time=until_time,
+            entity_type=entity_type,
+            event_names=["$set", "$unset", "$delete"],
+        ):
+            by_entity.setdefault(ev.entity_id, []).append(ev)
+        out: Dict[str, PropertyMap] = {}
+        for eid, evs in by_entity.items():
+            pm = _agg(evs)
+            if pm is None:
+                continue
+            if required and not all(k in pm for k in required):
+                continue
+            out[eid] = pm
+        return out
 
 
 def epoch_us(dt: Optional[_dt.datetime]) -> Optional[int]:

@@ -691,7 +691,11 @@ class SQLiteEvents(_Repo, base.Events):
         eventtime ... LIMIT n`` from the time index and walks the app's
         events until n match: the whole app for a user with fewer than n
         events (about 1 s at a million events).  The reference's SQL
-        takes that plan; the rows are the same either way."""
+        takes that plan, which leaves rows tied in (eventtime,
+        creationtime) in the index's rowid order, walked in the read's
+        direction; :meth:`_find_sql` makes that order explicit with a
+        last ``rowid`` key, so the pinned plan answers the same rows in
+        the same order, ties and limits included."""
         table = f"{self._ns}_events"
         if entity_type is not None and entity_id is not None:
             return f"{table} INDEXED BY {table}_entity"
@@ -707,7 +711,8 @@ class SQLiteEvents(_Repo, base.Events):
         order = "DESC" if reversed else "ASC"
         sql = (
             f"SELECT * FROM {self._source(entity_type, entity_id)} "
-            f"WHERE {where} ORDER BY eventtime {order}, creationtime {order}"
+            f"WHERE {where} ORDER BY eventtime {order}, "
+            f"creationtime {order}, rowid {order}"
         )
         if limit is not None and limit >= 0:
             sql += f" LIMIT {int(limit)}"

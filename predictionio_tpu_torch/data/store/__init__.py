@@ -14,7 +14,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.data.event import Event, PropertyMap
 from predictionio_tpu_torch.data.storage import Storage, StorageError
 from predictionio_tpu_torch.data.storage.base import epoch_us
 
@@ -70,6 +70,24 @@ class EventStore:
             event_names=event_names, target_entity_type=target_entity_type,
             target_entity_id=target_entity_id, ordered=ordered,
             columns=columns)
+
+    def aggregate_properties(
+        self,
+        app_name: str,
+        entity_type: str,
+        channel_name: Optional[str] = None,
+        *,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+        required: Optional[Sequence[str]] = None,
+    ) -> Dict[str, PropertyMap]:
+        """Per-entity ``$set`` state (reference:
+        PEventStore.aggregateProperties)."""
+        app_id, channel_id = self._resolve(app_name, channel_name)
+        return self._storage.get_events().aggregate_properties(
+            app_id, channel_id, entity_type=entity_type,
+            start_time=start_time, until_time=until_time,
+            required=required)
 
     # -- L path (serving) --------------------------------------------------
     def find(
@@ -128,6 +146,7 @@ class WindowedEventStore(EventStore):
     ``event_time < watermark``: events landing mid-read belong to the
     next generation.  A read that passes no bound of its own inherits
     the window; an explicit bound outside the window is clamped to it.
+    Property aggregation takes only the until bound.
     """
 
     def __init__(self, storage: Storage,
@@ -137,11 +156,11 @@ class WindowedEventStore(EventStore):
         self.window_start = start_time
         self.window_until = until_time
 
-    def _clamped(self, kwargs: dict) -> dict:
+    def _clamped(self, kwargs: dict, *, inject_start: bool = True) -> dict:
         st = kwargs.get("start_time")
         if st is None:
-            st = self.window_start
-        elif self.window_start is not None \
+            st = self.window_start if inject_start else None
+        elif self.window_start is not None and inject_start \
                 and epoch_us(st) < epoch_us(self.window_start):
             st = self.window_start
         ut = kwargs.get("until_time")
@@ -158,3 +177,13 @@ class WindowedEventStore(EventStore):
 
     def find(self, app_name, channel_name=None, **kwargs):
         return super().find(app_name, channel_name, **self._clamped(kwargs))
+
+    def aggregate_properties(self, app_name, entity_type, channel_name=None,
+                             **kwargs):
+        # $set/$unset/$delete state is cumulative from t = 0: a windowed
+        # aggregation would drop every property written before the
+        # window.  Only the until bound applies; the window start is
+        # never injected.
+        return super().aggregate_properties(
+            app_name, entity_type, channel_name,
+            **self._clamped(kwargs, inject_start=False))

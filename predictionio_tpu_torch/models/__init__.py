@@ -1,1 +1,2 @@
-"""Models of the port; ALS serving first."""
+"""Models of the port: ALS, naive Bayes, logistic regression and the
+Markov chain."""

@@ -668,3 +668,71 @@ def test_sqlite_reads_one_entity_through_its_index(tmp_path, scan):
                             columns=["target_entity_id"])
     assert sorted(cols["target_entity_id"].tolist()) == sorted(got)
     client.close()
+
+
+@pytest.fixture(scope="module")
+def tied_pio_db(tmp_path_factory):
+    """One pio.db per time pattern, written by the reference: 120 `rate`
+    and `buy` events, 60 of them by user `target`; "tied" gives every
+    event one event and creation time, "mixed" gives groups of seven one
+    time and one creation time apart from the event time."""
+    from predictionio_tpu.data.event import DataMap as JaxDataMap
+    from predictionio_tpu.data.event import Event as JaxEvent
+    from predictionio_tpu.data.storage.sqlite import (
+        SQLiteClient as JaxClient)
+
+    t0 = ts("2026-01-01T00:00:00")
+    paths = {}
+    for pattern in ("tied", "mixed"):
+        path = str(tmp_path_factory.mktemp(pattern) / "pio.db")
+        client = JaxClient(path, namespace="ev")
+        client.events().init(APP)
+        evs = []
+        for k in range(120):
+            t = t0 if pattern == "tied" else \
+                t0 + dt.timedelta(seconds=k // 7)
+            created = t if pattern == "tied" else \
+                t + dt.timedelta(minutes=k % 2)
+            evs.append(JaxEvent(
+                event="buy" if k % 10 == 4 else "rate", entity_type="user",
+                entity_id="target" if k % 2 == 0 else f"u{k}",
+                target_entity_type="item", target_entity_id=f"i{k}",
+                properties=JaxDataMap({}), event_time=t,
+                creation_time=created))
+        client.events().insert_batch(evs, APP)
+        client.close()
+        paths[pattern] = path
+    return paths
+
+
+@pytest.mark.parametrize("pattern", ["tied", "mixed"])
+@pytest.mark.parametrize("event_names", [None, ("rate", "buy")])
+@pytest.mark.parametrize("limit", [1, 50, None])
+@pytest.mark.parametrize("reverse", [True, False])
+def test_sqlite_one_entity_read_orders_ties_as_the_reference(
+        tied_pio_db, pattern, event_names, limit, reverse):
+    """A one-entity read through the entity index answers the ids, in the
+    order, that the reference's time-index walk gives: under a limit
+    that cuts rows tied in (eventtime, creationtime), newest row first
+    when reversed."""
+    from predictionio_tpu.data.storage.sqlite import (
+        SQLiteClient as JaxClient)
+    from predictionio_tpu_torch.data.storage.sqlite import SQLiteClient
+
+    path = tied_pio_db[pattern]
+    kw = dict(entity_type="user", entity_id="target",
+              event_names=list(event_names) if event_names else None,
+              target_entity_type="item", limit=limit, reversed=reverse)
+    ref, port = JaxClient(path, namespace="ev"), \
+        SQLiteClient(path, namespace="ev")
+    try:
+        want = [e.target_entity_id for e in ref.events().find(APP, **kw)]
+        got = [e.target_entity_id for e in port.events().find(APP, **kw)]
+    finally:
+        ref.close()
+        port.close()
+    assert got == want
+    assert len(got) == min(limit or 60, 60)
+    if pattern == "tied" and limit == 50:
+        # the tie is cut: the newest rows when reversed, the oldest not
+        assert got[0] == ("i118" if reverse else "i0")
