@@ -134,7 +134,21 @@ cannot be imported, or when any phase fails.  Phases, in order:
    top two differ by more than NEAR_TIE); `pio eval` (3 candidates,
    evalK 3), its accuracy equal to a plain float64 recount.  Each part
    logs its writes, train wall and read, launches and client p50.
-14. report — one JSON line of per-kernel numbers, the card's name and
+14. eventserver — the event server on phase 12's shape and storage:
+   `pio app new` and `pio eventserver --port 0` as subprocesses (/ready
+   must answer ready); every event posted by the port's
+   sdk.EventClient as POST /batch/events.json at the reference's cap of
+   50, eight client threads each with a contiguous share, each batch
+   under a client token (events/s, client p50 and p99 a batch, the
+   server's /stats.json); three batches posted again under their tokens
+   must add no row and answer the same ids; `pio export` must equal the
+   generated events exactly as a multiset of (event, entity, target,
+   rating, eventTime); `pio train` in-process (K1 and K2 must launch);
+   `pio deploy` as a subprocess on the forced chunked rung, which must
+   report a CUDA device and answer 64 /queries.json each equal to the
+   plain top-k of the persisted factors (K3 must launch, counted in the
+   deploy process); SIGTERM must drain the event server with exit 0.
+15. report — one JSON line of per-kernel numbers, the card's name and
    power limit, and the final status line.
 """
 
@@ -1841,10 +1855,28 @@ def run_cli(*argv, phase: str = "phase 12") -> str:
     return out.stdout
 
 
+def counted_pio(argv) -> int:
+    """``pio <argv>`` in this process, then one line ``launches {...}``
+    with the kernel launches it made: how a verb run as a subprocess
+    reports its counts (``deployed``)."""
+    from predictionio_tpu_torch.cli.main import main as pio
+    from predictionio_tpu_torch.ops import fused_gram as fg
+    from predictionio_tpu_torch.ops import fused_topk as ft
+    from predictionio_tpu_torch.ops import ridge_solve as rs
+
+    rc = pio(list(argv))
+    print("launches " + json.dumps({
+        "fused_gram": fg.LAUNCHES, "ridge_solve_lu": rs.LU_LAUNCHES,
+        "fused_topk": ft.LAUNCHES}), flush=True)
+    return rc
+
+
 class deployed:
     """``pio deploy`` in a subprocess on a free port (``extra``: more of
     its arguments), until ``stop()`` (``POST /stop``; it must exit 0).
-    ``started_s``: Popen time."""
+    ``started_s``: Popen time.  It runs through :func:`counted_pio`, so
+    ``stop()`` leaves the subprocess's kernel launches in
+    ``launches``."""
 
     def __init__(self, engine_json: str, log_path: str, extra=(),
                  phase: str = "phase 12"):
@@ -1853,10 +1885,13 @@ class deployed:
         self.phase = phase
         self.started_s = time.perf_counter()
         self.log = open(log_path, "w")
+        self.launches = None
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "predictionio_tpu_torch.cli", "deploy",
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "sys.exit(chip_smoke.counted_pio(sys.argv[1:]))", "deploy",
              "--engine-json", engine_json, "--ip", "127.0.0.1", "--port",
-             "0", *extra], cwd=Path(__file__).resolve().parent,
+             "0", *extra],
+            cwd=Path(__file__).resolve().parent,
             stdout=subprocess.PIPE, stderr=self.log, text=True)
         ready, _, _ = select.select([self.proc.stdout], [], [],
                                     CLI_TIMEOUT_S)
@@ -1879,10 +1914,14 @@ class deployed:
     def stop(self) -> None:
         post_json(self.base + "/stop", {})
         rc = self.proc.wait(timeout=120)
+        rest = self.proc.stdout.read()
         self.proc.stdout.close()
         self.log.close()
         if rc != 0:
             die(f"{self.phase}: pio deploy exited {rc} after POST /stop")
+        for line in rest.splitlines():
+            if line.startswith("launches "):
+                self.launches = json.loads(line[len("launches "):])
 
     def kill(self) -> None:
         if self.proc.poll() is None:
@@ -2842,6 +2881,317 @@ def tpl_classification(dev, rng, storage, start_us, work, cli_dev, mods,
     return out
 
 
+# Phase 14: the event server — every event of phase 12's MovieLens-1M
+# shape posted by the SDK to `pio eventserver` in batches of the
+# reference's cap, then trained and served from what it stored.
+ES_APP = "chipes"
+ES_THREADS = 8            # client threads, each a contiguous share
+ES_BATCH = 50             # the reference's cap of /batch/events.json
+ES_REPLAYED = 3           # batches posted again under their tokens
+
+
+def es_batch(users, items, stars, times, lo: int, hi: int):
+    """Events [lo, hi) of ``ml1m_events``'s columns as event JSON."""
+    out = []
+    for u, i, r, t in zip(users[lo:hi].tolist(), items[lo:hi].tolist(),
+                          stars[lo:hi].tolist(), times[lo:hi].tolist()):
+        ev = {"event": "buy" if r != r else "rate", "entityType": "user",
+              "entityId": f"u{u}", "targetEntityType": "item",
+              "targetEntityId": f"i{i}", "eventTime": t + "Z"}
+        if r == r:
+            ev["properties"] = {"rating": r}
+        out.append(ev)
+    return out
+
+
+class eventserver_proc:
+    """``pio eventserver --port 0`` in a subprocess; ``drain()`` sends
+    SIGTERM, which must end it with exit 0."""
+
+    def __init__(self, log_path: str):
+        import re
+        import select
+
+        self.log = open(log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "predictionio_tpu_torch.cli",
+             "eventserver", "--ip", "127.0.0.1", "--port", "0"],
+            cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+            stderr=self.log, text=True)
+        ready, _, _ = select.select([self.proc.stdout], [], [],
+                                    CLI_TIMEOUT_S)
+        line = self.proc.stdout.readline() if ready else ""
+        m = re.search(r"listening on 127\.0\.0\.1:(\d+) ", line)
+        if not m:
+            self.kill()
+            die(f"phase 14: pio eventserver did not start ({line!r}): "
+                f"{Path(log_path).read_text()[-2000:]}")
+        self.base = f"http://127.0.0.1:{m.group(1)}"
+
+    def get(self, path: str):
+        with urllib.request.urlopen(self.base + path, timeout=120) as r:
+            return json.loads(r.read())
+
+    def drain(self) -> None:
+        import signal
+
+        self.proc.send_signal(signal.SIGTERM)
+        rc = self.proc.wait(timeout=120)
+        self.proc.stdout.close()
+        self.log.close()
+        if rc != 0:
+            die(f"phase 14: pio eventserver exited {rc} after SIGTERM")
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+        self.proc.stdout.close()
+        self.log.close()
+
+
+def es_ingest(base: str, key: str, cols, n: int):
+    """Every event through ``sdk.EventClient.create_events`` in batches
+    of ``ES_BATCH``, ``ES_THREADS`` threads each posting a contiguous
+    share, each batch under a token of its own; every item must answer
+    201 with the id its token derives.  Returns (wall s, per-batch
+    client latencies, the batches as (token, lo, hi, ids))."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from predictionio_tpu_torch.sdk import EventClient
+
+    bounds = [n * t // ES_THREADS for t in range(ES_THREADS + 1)]
+
+    def share(t: int):
+        client = EventClient(key, base, timeout=120)
+        lats, done = [], []
+        for j, lo in enumerate(range(bounds[t], bounds[t + 1], ES_BATCH)):
+            hi = min(lo + ES_BATCH, bounds[t + 1])
+            token = f"s{t}b{j}"
+            batch = es_batch(*cols, lo, hi)
+            t0 = time.perf_counter()
+            res = client.create_events(batch, batch_token=token)
+            lats.append(time.perf_counter() - t0)
+            ids = [r.event_id for r in res]
+            if [r.status for r in res] != [201] * len(batch) or \
+                    ids != [f"bt{token}.{k}" for k in range(len(batch))]:
+                die(f"phase 14: batch {token} answered "
+                    f"{[(r.status, str(r)) for r in res][:3]}...")
+            done.append((token, lo, hi, ids))
+        return lats, done
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(ES_THREADS) as pool:
+        parts = list(pool.map(share, range(ES_THREADS)))
+    wall = time.perf_counter() - t0
+    lats = [x for p in parts for x in p[0]]
+    batches = [x for p in parts for x in p[1]]
+    return wall, lats, batches
+
+
+def es_export_matches(path: str, cols, n: int) -> None:
+    """`pio export`'s lines against the generated events, exactly, as a
+    multiset of (event, entity, target, rating, eventTime)."""
+    from collections import Counter
+
+    users, items, stars, times = cols
+    want = Counter(
+        ("buy" if r != r else "rate", f"u{u}", f"i{i}",
+         None if r != r else r, t)
+        for u, i, r, t in zip(users.tolist(), items.tolist(),
+                              stars.tolist(), times.tolist()))
+    got = Counter()
+    lines = 0
+    with open(path) as f:
+        for line in f:
+            e = json.loads(line)
+            lines += 1
+            t = e["eventTime"]
+            if not t.endswith(".000+00:00"):
+                die(f"phase 14: exported eventTime {t!r}")
+            got[(e["event"], e["entityId"], e["targetEntityId"],
+                 e.get("properties", {}).get("rating"),
+                 t[:-len(".000+00:00")])] += 1
+    if lines != n or got != want:
+        extra = list((got - want).items())[:3]
+        missing = list((want - got).items())[:3]
+        die(f"phase 14: export has {lines} events against {n}; extra "
+            f"{extra}, missing {missing}")
+
+
+def eventserver_phase(dev, seed: int, mods: dict, card: str) -> dict:
+    """Phase 14: `pio app new` and `pio eventserver` (subprocesses) →
+    every event of phase 12's shape posted by the port's SDK over HTTP →
+    ``ES_REPLAYED`` batches posted again under their tokens → `pio
+    export` held exactly against the generated events → `pio train`
+    in-process (K1, K2) → `pio deploy` (a subprocess, K3 counted there)
+    → 64 /queries.json against the plain top-k → SIGTERM drains the
+    event server with exit 0.  Returns the phase's numbers and
+    launches."""
+    import logging
+    import re
+
+    import numpy as np
+    import torch
+
+    fg, rs, ft, pio = mods["fg"], mods["rs"], mods["ft"], mods["pio"]
+    from predictionio_tpu_torch.data.storage import get_storage, \
+        reset_storage
+    from predictionio_tpu_torch.sdk import EventClient
+    from predictionio_tpu_torch.workflow.core_workflow import load_models
+
+    logging.basicConfig(level=logging.WARNING)
+    work = tempfile.mkdtemp(prefix="pio_chip_es_")
+    env = cli_env(os.path.join(work, "home"))
+    dev_args = [] if dev.type == "cuda" else ["--device", dev.type]
+    out = {}
+    procs = []
+    phase_t0 = time.perf_counter()
+    env.__enter__()
+    reset_storage()
+    try:
+        # -- 1: app new, eventserver (subprocesses) ----------------------
+        cols = ml1m_events(seed)
+        n = len(cols[0])
+        said = run_cli("app", "new", ES_APP, phase="phase 14")
+        key = re.search(r"Access Key: (\S+)", said).group(1)
+        es = eventserver_proc(os.path.join(work, "eventserver.log"))
+        procs.append(es)
+        ready = es.get("/ready")
+        if ready["status"] != "ready":
+            die(f"phase 14: /ready answered {ready}")
+
+        # -- 2: ingest over HTTP -----------------------------------------
+        wall, lats, batches = es_ingest(es.base, key, cols, n)
+        lats.sort()
+        out["ingest_s"] = wall
+        out["events_per_s"] = n / wall
+        out["batch_p50_ms"] = lats[len(lats) // 2] * 1e3
+        out["batch_p99_ms"] = lats[min(len(lats) - 1,
+                                       int(len(lats) * 0.99))] * 1e3
+        out["batches"] = len(batches)
+        out["stats"] = es.get("/stats.json")
+
+        # -- 3: three batches again under their tokens --------------------
+        client = EventClient(key, es.base, timeout=120)
+        for token, lo, hi, ids in (batches[0], batches[len(batches) // 2],
+                                   batches[-1])[:ES_REPLAYED]:
+            again = client.create_events(es_batch(*cols, lo, hi),
+                                         batch_token=token)
+            if [r.event_id for r in again] != ids or \
+                    {r.status for r in again} != {201}:
+                die(f"phase 14: the replay of {token} answered other ids")
+
+        # -- 4: export, exactly the generated events ---------------------
+        exported = os.path.join(work, "export.jsonl")
+        t0 = time.perf_counter()
+        said = run_cli("export", "--appid", "1", "--output", exported,
+                       phase="phase 14")
+        out["export_s"] = time.perf_counter() - t0
+        if f"Exported {n} events" not in said:
+            die(f"phase 14: export said {said!r}")
+        es_export_matches(exported, cols, n)
+
+        # -- 5: train in-process through the CLI ---------------------------
+        spec = json.loads((Path(__file__).resolve().parent / "examples" /
+                           "recommendation" / "engine.json").read_text())
+        spec["engineFactory"] = CLI_FACTORY
+        spec["datasource"]["params"]["appName"] = ES_APP
+        spec["algorithms"][0]["params"].update(
+            rank=RANK, numIterations=TRAIN_ITERS, seed=seed)
+        engine_json = os.path.join(work, "engine.json")
+        Path(engine_json).write_text(json.dumps(spec))
+        fg.LAUNCHES = 0                      # main path starts here
+        rs.LU_LAUNCHES = 0
+        t0 = time.perf_counter()
+        if pio(["train", "--engine-json", engine_json, *dev_args]) != 0:
+            die("phase 14: pio train failed")
+        out["train_s"] = time.perf_counter() - t0
+        launches = {"fused_gram": fg.LAUNCHES,
+                    "ridge_solve_lu": rs.LU_LAUNCHES}
+        storage = get_storage()
+        [inst] = storage.get_engine_instances().get_all()
+        if inst.status != "COMPLETED":
+            die(f"phase 14: instance {inst.id} is {inst.status}")
+        [wrapper] = load_models(mods["engine"](), inst, mods[
+            "RuntimeContext"](storage=storage, device=dev))
+        uf, itf = wrapper.host_factors()
+        if uf.shape != (ML1M_USERS, RANK) or itf.shape != (ML1M_ITEMS, RANK):
+            die(f"phase 14: trained {uf.shape} x {itf.shape}")
+
+        # -- 6: deploy (a subprocess), 64 /queries.json --------------------
+        d = deployed(engine_json, os.path.join(work, "deploy.log"),
+                     extra=dev_args, phase="phase 14")
+        procs.append(d)
+        if not d.device.startswith(dev.type):
+            die(f"phase 14: deploy reports device {d.device}")
+        rng = np.random.default_rng(seed + 141)
+        names = list(wrapper.user_index.keys())
+        asked = [names[j] for j in rng.choice(len(names), CLI_QUERIES,
+                                              replace=False)]
+        items_d = torch.from_numpy(np.ascontiguousarray(itf)).to(dev)
+        qlats, qerr = [], 0.0
+        for user in asked:
+            t0 = time.perf_counter()
+            ans, _ = post_json(f"{d.base}/queries.json",
+                               {"user": user, "num": 10})
+            qlats.append(time.perf_counter() - t0)
+            hits = ans["itemScores"]
+            if len(hits) != 10:
+                die(f"phase 14: the answer for {user} has {len(hits)} "
+                    "items")
+            qerr = max(qerr, check_against_plain(
+                [[h["score"] for h in hits]],
+                [[wrapper.item_index[h["item"]] for h in hits]],
+                torch.from_numpy(uf[[wrapper.user_index[user]]]).to(dev),
+                items_d, 10, None, f"phase 14 /queries.json {user}", ft,
+                mods["topk_mismatch"]))
+        d.stop()
+        procs.remove(d)
+        launches["fused_topk"] = (d.launches or {}).get("fused_topk", 0)
+        out["query_err"] = qerr
+        out["p50_ms"] = sorted(qlats)[len(qlats) // 2] * 1e3
+
+        # -- 7: SIGTERM drains the event server ----------------------------
+        es.drain()
+        procs.remove(es)
+        for name, k in launches.items():    # main path ends here
+            if k == 0:
+                die(f"phase 14: {name} never launched")
+    finally:
+        for p in procs:
+            p.kill()
+        reset_storage()
+        env.__exit__()
+        shutil.rmtree(work, ignore_errors=True)
+    out["launches"] = launches
+    out["n_events"] = n
+    out["phase_s"] = time.perf_counter() - phase_t0
+    st = out["stats"]
+    log(f"phase 14 eventserver ingest: {n} events (phase 12's ML-1M "
+        f"shape) posted by sdk.EventClient.create_events to `pio "
+        f"eventserver` (a subprocess) in {out['batches']} batches of "
+        f"{ES_BATCH} from {ES_THREADS} threads: {out['ingest_s']:.2f} s = "
+        f"{out['events_per_s']:.0f} events/s; client p50 "
+        f"{out['batch_p50_ms']:.2f} ms, p99 {out['batch_p99_ms']:.2f} ms a "
+        f"batch; server /stats.json statusCounts "
+        f"{json.dumps(st['statusCounts'])}, latency p50/p95/p99 "
+        f"{st['latencyMs']['p50']:.2f}/{st['latencyMs']['p95']:.2f}/"
+        f"{st['latencyMs']['p99']:.2f} ms; {ES_REPLAYED} batches posted "
+        f"again under their tokens: same ids, and `pio export` "
+        f"({out['export_s']:.2f} s) equals the generated events exactly "
+        f"as a multiset ({n} events, 0 rows added); card {card}")
+    log(f"phase 14 train+serve: pio train rank {RANK}, {TRAIN_ITERS} "
+        f"iterations (in-process) {out['train_s']:.2f} s; pio deploy "
+        f"(subprocess) {CLI_QUERIES} /queries.json p50 {out['p50_ms']:.2f} "
+        f"ms, each equal to the plain top-k (max |score err| "
+        f"{out['query_err']:.3g}); launches {json.dumps(launches)} (K3 "
+        f"counted in the deploy process); SIGTERM drained the event "
+        f"server with exit 0; phase 14 in {out['phase_s']:.1f} s; card "
+        f"{card}")
+    return out
+
+
 def post_json(url: str, obj):
     """POST one query; returns (answer, the server's own wall ms)."""
     req = urllib.request.Request(
@@ -3122,7 +3472,11 @@ def main() -> int:
     tpl = templates_phase(dev, args.seed, mods, card)
     torch.cuda.empty_cache()
 
-    # -- phase 14: report --------------------------------------------------
+    # -- phase 14: the event server: HTTP ingest → train → serve ----------
+    es = eventserver_phase(dev, args.seed, mods, card)
+    torch.cuda.empty_cache()
+
+    # -- phase 15: report --------------------------------------------------
     main_shape = timings[(ML25M_ITEMS, 1, 10)]
     b64 = timings[(ML25M_ITEMS, 64, 10)]   # a full batch of query_batch
     kernels = [{
@@ -3130,7 +3484,8 @@ def main() -> int:
         "route": "cuda",
         "source": "predictionio_tpu_torch/csrc/fused_topk.cu",
         "replaces": "predictionio_tpu/ops/pallas_kernels.py:444",
-        "launches": main_launches + loop["launches"]["fused_topk"],
+        "launches": main_launches + loop["launches"]["fused_topk"]
+        + es["launches"]["fused_topk"],
         "max_abs_err": max(max_err, err, err4),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -3156,7 +3511,8 @@ def main() -> int:
                 "ridge_solve.cu"),
             "replaces": where,
             "launches": train["launches"][name]
-            + loop["launches"].get(name, 0) + tpl["launches"].get(name, 0),
+            + loop["launches"].get(name, 0) + tpl["launches"].get(name, 0)
+            + es["launches"].get(name, 0),
             "max_abs_err": train_kernel_err[name],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -3201,12 +3557,15 @@ def main() -> int:
         f"and gather_sum per their tools' entry points (phase 9)")
     log(f"launches: fused_topk {main_launches} on the serve path (phase "
         f"4) + {loop['launches']['fused_topk']} on the CLI path (phase 12: "
-        f"batchpredict and eval), {dase_topk} on the DASE path; training "
+        f"batchpredict and eval) + {es['launches']['fused_topk']} in phase "
+        f"14's deploy process, {dase_topk} on the DASE path; training "
         f"kernels per the train run (fused_gram, ridge_solve_lu) + the CLI "
         f"path's train and eval ({loop['launches']['fused_gram']}, "
         f"{loop['launches']['ridge_solve_lu']}), the similarproduct and "
         f"ecommerce trains of phase 13 ({tpl['launches']['fused_gram']}, "
-        f"{tpl['launches']['ridge_solve_lu']}) and the solver='gj' run "
+        f"{tpl['launches']['ridge_solve_lu']}), phase 14's train of the "
+        f"ingested events ({es['launches']['fused_gram']}, "
+        f"{es['launches']['ridge_solve_lu']}) and the solver='gj' run "
         f"(ridge_solve_gj); timings of the training kernels are over one "
         f"iteration's calls at the ML-25M shape")
     print(json.dumps({"kernels": kernels}))

@@ -12,6 +12,8 @@ reference's output lines::
     pio train        --engine-json engine.json [--seed N] [--device D]
     pio eval         <EvaluationClass> <EngineParamsGeneratorClass>
     pio deploy       --engine-json engine.json --port 8000 [--device D]
+    pio eventserver  --ip 0.0.0.0 --port 7070
+    pio spill        inspect|drain|requeue-dead [--dir D] [--backend B]
     pio batchpredict --input q.ndjson --output p.ndjson [--device D]
     pio import       --appid N --input events.ndjson [--from-line L]
     pio export       --appid N --output events.ndjson
@@ -23,8 +25,8 @@ another share it.  ``--device`` takes the place of the reference's
 when ``--device cpu`` is given; without CUDA a verb that computes fails
 rather than run on the CPU.  Flags whose substrate the port does not
 have yet (the refresh daemon, train and eval checkpoints, the input
-pipeline, the serving scheduler and native frontend) are not defined,
-so argparse rejects them by name.
+pipeline, the serving scheduler and the native frontends of ``deploy``
+and ``eventserver``) are not defined, so argparse rejects them by name.
 """
 
 from __future__ import annotations
@@ -381,6 +383,23 @@ def cmd_deploy(args) -> int:
     return 0
 
 
+def cmd_eventserver(args) -> int:
+    """The event server over the storage registry; prints the bound port
+    (``--port 0`` picks a free one) and drains on SIGTERM/SIGINT."""
+    from predictionio_tpu_torch.server.event_server import EventServer
+
+    srv = EventServer(storage=_storage(), host=args.ip, port=args.port)
+    _install_drain_handlers(srv.drain)
+    srv.start(block=False)
+    print(f"Event Server listening on {args.ip}:{srv.port} "
+          "(Ctrl-C to stop)", flush=True)
+    try:
+        srv._thread.join()
+    except KeyboardInterrupt:
+        srv.drain()
+    return 0
+
+
 def cmd_batchpredict(args) -> int:
     """Reference: ``pio batchpredict`` — bulk queries from NDJSON through
     the server's batched dispatch, ``--query-partitions`` queries a
@@ -408,6 +427,179 @@ def cmd_batchpredict(args) -> int:
                 out.write(json.dumps({"query": q, "prediction": r}) + "\n")
                 n += 1
     print(f"Wrote {n} predictions to {args.output}.")
+    return 0
+
+
+# --------------------------------------------------------------------------
+# pio spill inspect | drain | requeue-dead
+# --------------------------------------------------------------------------
+
+def _spill_dir(args) -> Path:
+    from predictionio_tpu_torch.config import load_config
+    from predictionio_tpu_torch.resilience.spill import resolve_spill_dir
+
+    d = resolve_spill_dir(getattr(args, "dir", None), load_config().home)
+    if d is None:
+        _die("spilling is disabled (PIO_SPILL_DIR=off and no --dir given).")
+    return d
+
+
+def _spill_cli_backend(args) -> str:
+    """local|shared for the spill verbs: --backend > PIO_SPILL_BACKEND >
+    auto (local on every source the port has)."""
+    from predictionio_tpu_torch.resilience.shared_spill import (
+        resolve_spill_backend,
+    )
+
+    try:
+        ev_type = _storage().config.source_for("EVENTDATA").type
+    except KeyError:
+        ev_type = None
+    return resolve_spill_backend(getattr(args, "backend", None), ev_type)
+
+
+def _shared_spill(args):
+    from predictionio_tpu_torch.data.storage import StorageError
+    from predictionio_tpu_torch.resilience.shared_spill import (
+        SharedSpillQueue,
+    )
+
+    try:
+        storage = _storage()
+        storage.get_spill_queues()  # probe support
+    except StorageError as e:
+        _die(f"shared spill queue unavailable on this storage: {e}")
+    return SharedSpillQueue(storage)
+
+
+def cmd_spill_inspect(args) -> int:
+    from predictionio_tpu_torch.resilience.spill import journal_summary
+
+    if _spill_cli_backend(args) == "shared":
+        q = _shared_spill(args)
+        st = q.stats()
+        print(f"shared spill queue [{q.queue}] "
+              f"(storage-backed, fleet-wide):")
+        print(f"  pending: {st.get('pending', 0)} record(s) / "
+              f"{st.get('pendingEvents', 0)} event(s)")
+        print(f"  leased: {st.get('leased', 0)} record(s) "
+              f"({st.get('expired', 0)} with expired leases awaiting "
+              "takeover)")
+        print(f"  dead-lettered: {st.get('dead', 0)} record(s) / "
+              f"{st.get('deadEvents', 0)} event(s)")
+        if args.json:
+            print(json.dumps(st))
+        return 0
+    s = journal_summary(_spill_dir(args))
+    print(f"spill journal: {s['dir']}")
+    print(f"  pending: {s['pendingRecords']} record(s) / "
+          f"{s['pendingEvents']} event(s) "
+          f"(offset {s['replayedOffset']}/{s['records']})")
+    if s["pendingTokens"]:
+        print(f"  next tokens: "
+              f"{', '.join(t or '-' for t in s['pendingTokens'])}")
+    print(f"  dead-lettered: {s['deadRecords']} record(s) / "
+          f"{s['deadEvents']} event(s)")
+    for inst in s["privateInstanceDirs"]:
+        print(f"  private instance dir (locked-journal divert): {inst}")
+    if args.json:
+        print(json.dumps(s))
+    return 0
+
+
+def _open_spill_exclusive(args):
+    """The mutating verbs need THE journal, not a diverted private one."""
+    from predictionio_tpu_torch.resilience.spill import SpillJournal
+
+    try:
+        return SpillJournal(_spill_dir(args), divert_if_locked=False)
+    except RuntimeError as e:
+        _die(str(e))
+
+
+def _spill_insert_fn(storage):
+    """One journal/queue record → storage, token-pinned (shared by both
+    drain backends).  A bulk record (per-item ``tokens``) replays through
+    ``create_batch``, as the event server's replay does, so rows a
+    crashed attempt already landed are not written twice; the
+    reference's CLI takes ``insert_batch`` for every record."""
+    from predictionio_tpu_torch.data.json_support import event_from_json
+    from predictionio_tpu_torch.resilience import idempotency_key
+
+    def insert(record):
+        evs = [event_from_json(e) for e in record["events"]]
+        events = storage.get_events()
+        tokens = record.get("tokens")
+        with idempotency_key(record["token"]):
+            if tokens is not None:
+                events.create_batch(evs, record["appId"],
+                                    record.get("channelId"), tokens=tokens)
+            else:
+                events.insert_batch(evs, record["appId"],
+                                    record.get("channelId"))
+    return insert
+
+
+def cmd_spill_drain(args) -> int:
+    """Foreground replay into storage — the same record-at-a-time,
+    token-pinned insert the event server's background worker does, for
+    when that server is gone but its spill must not be.  Against the
+    shared queue this is just another lease drainer (safe next to live
+    instances — leases serialize the work); against the local journal it
+    takes the exclusive flock."""
+    from predictionio_tpu_torch.resilience.spill import ReplayWorker
+
+    storage = _storage()
+    if _spill_cli_backend(args) == "shared":
+        from predictionio_tpu_torch.resilience.shared_spill import (
+            LeaseDrainer,
+        )
+
+        q = _shared_spill(args)
+        # owner=None → LeaseDrainer mints a pid+uuid identity: two
+        # operators draining concurrently must never share an owner.
+        drainer = LeaseDrainer(q, _spill_insert_fn(storage),
+                               batch=args.batch)
+        landed = drainer.drain_once()
+        remaining = q.depth()
+        print(f"Replayed {landed} event(s); {remaining} still pending "
+              "in the shared queue"
+              + (" (storage unavailable or leased elsewhere — re-run "
+                 "after recovery)." if remaining else "."))
+        return 0 if remaining == 0 else 1
+    journal = _open_spill_exclusive(args)
+    worker = ReplayWorker(journal, _spill_insert_fn(storage),
+                          batch=args.batch)
+    try:
+        landed = worker.drain_once()
+        remaining = journal.depth()
+    finally:
+        journal.close()
+    print(f"Replayed {landed} event(s); {remaining} still pending"
+          + (" (storage unavailable — re-run after recovery)."
+             if remaining else "."))
+    return 0 if remaining == 0 else 1
+
+
+def cmd_spill_requeue_dead(args) -> int:
+    if _spill_cli_backend(args) == "shared":
+        n = _shared_spill(args).requeue_dead()
+        if n == 0:
+            print("No dead-lettered records in the shared queue.")
+        else:
+            print(f"Requeued {n} dead-lettered event(s) — any instance's "
+                  "drainer (or `pio spill drain`) replays them.")
+        return 0
+    journal = _open_spill_exclusive(args)
+    try:
+        n = journal.requeue_dead()
+    finally:
+        journal.close()
+    if n == 0:
+        print("No dead-lettered records.")
+    else:
+        print(f"Requeued {n} dead-lettered event(s) for replay "
+              "(drain with `pio spill drain` or restart the event server).")
     return 0
 
 
@@ -576,6 +768,44 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--engine-instance-id", dest="engine_instance_id")
     _device_flag(d)
     d.set_defaults(fn=cmd_deploy)
+
+    es = sub.add_parser("eventserver",
+                        help="start the event ingestion server")
+    es.add_argument("--ip", default="0.0.0.0")
+    es.add_argument("--port", type=int, default=7070)
+    es.set_defaults(fn=cmd_eventserver)
+
+    sp = sub.add_parser("spill", help="inspect/drain the storage-outage "
+                                      "spill journal")
+    spsub = sp.add_subparsers(dest="spill_verb", required=True)
+    _backend_help = ("spill home to operate on: 'shared' = the "
+                     "storage-backed fleet queue, 'local' = this box's "
+                     "JSONL journal (default: PIO_SPILL_BACKEND, else "
+                     "auto)")
+    si = spsub.add_parser("inspect", help="pending/dead-letter counts "
+                                          "(read-only; safe while the "
+                                          "event server runs)")
+    sd = spsub.add_parser("drain", help="foreground replay into storage "
+                                        "(local: event server must be "
+                                        "stopped; shared: safe anytime — "
+                                        "leases serialize)")
+    sq = spsub.add_parser("requeue-dead",
+                          help="move dead-lettered records back into the "
+                               "queue/journal for replay")
+    for s_ in (si, sd, sq):
+        s_.add_argument("--dir", default=None,
+                        help="journal directory (default: PIO_SPILL_DIR, "
+                             "else $PIO_HOME/spill)")
+        s_.add_argument("--backend", default=None,
+                        choices=("auto", "local", "shared"),
+                        help=_backend_help)
+    si.add_argument("--json", action="store_true",
+                    help="also print the summary as one JSON line")
+    si.set_defaults(fn=cmd_spill_inspect)
+    sd.add_argument("--batch", type=int, default=100,
+                    help="records per replay batch")
+    sd.set_defaults(fn=cmd_spill_drain)
+    sq.set_defaults(fn=cmd_spill_requeue_dead)
 
     bp = sub.add_parser("batchpredict",
                         help="bulk predict from NDJSON queries")

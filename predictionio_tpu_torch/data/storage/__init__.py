@@ -8,8 +8,9 @@ three logical stores (METADATA / EVENTDATA / MODELDATA).  Registered
 source types: ``sqlite``, ``localfs`` and ``memory``.  The reference's
 ``parquetlog`` (it needs ``pyarrow``) and ``pioserver`` (the storage
 server) are not ported; asking for either raises :class:`StorageError`.
-The getters return the repositories directly: the reference's
-fault-injection wrappers are not ported.
+The events, spill-queue and KV getters pass through the ``PIO_FAULTS``
+seam (:mod:`predictionio_tpu_torch.resilience.faults`), a no-op unless a
+plan is active.
 
 Two processes on the default config share one sqlite file and one model
 directory under ``PIO_HOME``: a ``pio train`` writes what a ``pio
@@ -42,7 +43,14 @@ from predictionio_tpu_torch.data.storage.base import (  # re-export
     KV,
     Model,
     Models,
+    SpillQueues,
     StorageError,
+    StorageUnavailable,
+)
+from predictionio_tpu_torch.resilience.faults import (
+    wrap_events as _wrap_events,
+    wrap_kv as _wrap_kv,
+    wrap_spill_queues as _wrap_spill_queues,
 )
 
 __all__ = [
@@ -54,7 +62,7 @@ __all__ = [
     "App", "Apps", "AccessKey", "AccessKeys", "Channel", "Channels",
     "EngineInstance", "EngineInstances", "EvaluationInstance",
     "EvaluationInstances", "Model", "Models", "Events", "KV",
-    "StorageError",
+    "SpillQueues", "StorageError", "StorageUnavailable",
 ]
 
 
@@ -93,6 +101,10 @@ class _Backend:
         raise StorageError(
             f"Source type {self.source.type} has no models support.")
 
+    def spill_queues(self) -> SpillQueues:
+        raise StorageError(
+            f"Source type {self.source.type} has no spill-queue support.")
+
     def kv(self) -> KV:
         raise StorageError(
             f"Source type {self.source.type} has no shared-KV support.")
@@ -119,6 +131,7 @@ class _SQLiteBackend(_Backend):
     def engine_instances(self): return self._client.engine_instances()
     def evaluation_instances(self): return self._client.evaluation_instances()
     def models(self): return self._client.models()
+    def spill_queues(self): return self._client.spill_queues()
     def kv(self): return self._client.kv()
     def close(self): self._client.close()
 
@@ -150,6 +163,7 @@ class _MemoryBackend(_Backend):
         self._engine_instances = m.MemoryEngineInstances()
         self._evaluation_instances = m.MemoryEvaluationInstances()
         self._models = m.MemoryModels()
+        self._spill_queues = m.MemorySpillQueues()
         self._kv = m.MemoryKV()
 
     def events(self): return self._events
@@ -159,6 +173,7 @@ class _MemoryBackend(_Backend):
     def engine_instances(self): return self._engine_instances
     def evaluation_instances(self): return self._evaluation_instances
     def models(self): return self._models
+    def spill_queues(self): return self._spill_queues
     def kv(self): return self._kv
 
 
@@ -205,7 +220,10 @@ class Storage:
 
     # EVENTDATA
     def get_events(self) -> Events:
-        return self._backend_for("EVENTDATA").events()
+        # Fault-injection seam: a passthrough unless a PIO_FAULTS plan is
+        # active; wrapped per call so a plan installed mid-process takes
+        # effect at once.
+        return _wrap_events(self._backend_for("EVENTDATA").events())
 
     # METADATA
     def get_apps(self) -> Apps:
@@ -227,10 +245,15 @@ class Storage:
     def get_models(self) -> Models:
         return self._backend_for("MODELDATA").models()
 
-    # The shared KV rides the EVENTDATA source, as in the reference: the
-    # fold-in cache derives from events.
+    # The spill queue and the shared KV ride the EVENTDATA source, as in
+    # the reference: the queue holds event payloads and the fold-in cache
+    # derives from events.
+    def get_spill_queues(self) -> SpillQueues:
+        return _wrap_spill_queues(
+            self._backend_for("EVENTDATA").spill_queues())
+
     def get_kv(self) -> KV:
-        return self._backend_for("EVENTDATA").kv()
+        return _wrap_kv(self._backend_for("EVENTDATA").kv())
 
     def close(self) -> None:
         with self._lock:

@@ -6,8 +6,9 @@ Channel.scala, EngineInstance.scala, EvaluationInstance.scala,
 Model.scala, LEvents/PEvents) and of its shared ``KV``.  Where the
 reference's columnar scan answers an Arrow table, the port's answers a
 dict of numpy columns, and its columnar ingest takes one: the port
-needs no ``pyarrow``.  The reference's spill queues wait for the event
-server.
+needs no ``pyarrow``.  Bulk ingest (``Events.create_batch``) derives
+each event id from its idempotency sub-token (:func:`batch_event_id`),
+the same string in both packages.
 """
 
 from __future__ import annotations
@@ -37,8 +38,12 @@ __all__ = [
     "EngineInstances",
     "EvaluationInstances",
     "Models",
+    "SpillQueues",
+    "QueueRecord",
     "KV",
     "StorageError",
+    "StorageUnavailable",
+    "batch_event_id",
     "EVENT_COLUMNS",
     "epoch_us",
     "from_epoch_us",
@@ -48,8 +53,26 @@ __all__ = [
 ]
 
 
+def batch_event_id(token: str) -> str:
+    """Deterministic event id for a bulk-ingest item from its idempotency
+    sub-token.  The id IS the dedup key: every backend's ``create_batch``
+    keys its conflict-ignoring insert on it, so a replayed batch (same
+    tokens) lands each row at most once — even when a crash left the
+    first attempt partially committed."""
+    return f"bt{token}"
+
+
 class StorageError(RuntimeError):
     pass
+
+
+class StorageUnavailable(StorageError):
+    """The backend is unreachable / timing out — an AVAILABILITY failure,
+    distinct from a bad request: retriable, counted by circuit breakers,
+    and mapped to 503 (or a spill-journal 202) by the servers instead of
+    a client-fault 400."""
+
+    retriable = True
 
 
 @dataclass
@@ -67,8 +90,12 @@ class AccessKey:
 
     @staticmethod
     def generate(app_id: int, events: Sequence[str] = ()) -> "AccessKey":
-        return AccessKey(key=secrets.token_urlsafe(48), app_id=app_id,
-                         events=tuple(events))
+        # Drawn again while it starts with "-": the CLI's argument parser
+        # would read such a key as an option (`pio accesskey delete`).
+        key = secrets.token_urlsafe(48)
+        while key.startswith("-"):
+            key = secrets.token_urlsafe(48)
+        return AccessKey(key=key, app_id=app_id, events=tuple(events))
 
 
 @dataclass
@@ -131,6 +158,29 @@ class Model:
     models: bytes
 
 
+@dataclass
+class QueueRecord:
+    """One record of a shared spill queue.
+
+    ``payload`` is the journal-record JSON object (token/appId/channelId/
+    events); ``state`` walks pending → leased → (acked = deleted | dead).
+    ``lease_expires_s`` is epoch seconds — lease math is done against a
+    CALLER-supplied ``now_s`` so tests (and clock-skewed fleets) reason
+    about expiry explicitly instead of trusting each backend's wall
+    clock."""
+
+    id: str
+    payload: Dict[str, Any]
+    token: Optional[str] = None
+    events: int = 1
+    attempts: int = 0
+    state: str = "pending"            # pending | leased | dead
+    lease_owner: Optional[str] = None
+    lease_expires_s: Optional[float] = None
+    reason: Optional[str] = None      # dead-letter reason
+    enqueued_s: float = 0.0
+
+
 class Apps(abc.ABC):
     @abc.abstractmethod
     def insert(self, app: App) -> Optional[int]: ...
@@ -189,6 +239,69 @@ class Channels(abc.ABC):
 
     @abc.abstractmethod
     def delete(self, channel_id: int) -> bool: ...
+
+
+class SpillQueues(abc.ABC):
+    """Shared durable work queue with lease/ack semantics.
+
+    The fleet-scale home for the event server's failed writes: N event
+    servers enqueue into ONE storage-backed queue, and any instance's
+    drainer may lease a batch, replay it, and ack.  A crashed drainer's
+    lease expires (``lease_expires_s`` vs the caller's ``now_s``) and
+    another instance re-leases the batch — replay stays idempotent
+    because each record carries the ORIGINAL write's idempotency tokens.
+
+    - :meth:`enqueue` is token-idempotent — re-enqueueing a token already
+      queued (lost-reply retry) returns the existing record's id.
+    - :meth:`lease` atomically claims up to ``n`` records that are
+      pending OR whose lease expired before ``now_s``, oldest first,
+      bumping ``attempts`` — two concurrent drainers never hold the same
+      record under an unexpired lease.
+    - :meth:`ack` deletes ONLY records still leased by ``owner`` — an
+      acker whose lease was stolen learns it from the return count.
+    - :meth:`nack` releases records back to pending (transient replay
+      failure: storage still down, retry next tick).
+    - :meth:`dead_letter` parks a permanently unreplayable record (state
+      ``dead``) where :meth:`requeue_dead` can resurrect it after the
+      operator fixes the cause.
+    """
+
+    @abc.abstractmethod
+    def enqueue(self, queue: str, payload: Dict[str, Any],
+                token: Optional[str] = None, events: int = 1,
+                now_s: Optional[float] = None) -> str: ...
+
+    @abc.abstractmethod
+    def lease(self, queue: str, owner: str, n: int, ttl_s: float,
+              now_s: Optional[float] = None) -> List[QueueRecord]: ...
+
+    @abc.abstractmethod
+    def ack(self, queue: str, ids: Sequence[str], owner: str) -> int: ...
+
+    @abc.abstractmethod
+    def nack(self, queue: str, ids: Sequence[str], owner: str) -> int: ...
+
+    @abc.abstractmethod
+    def dead_letter(self, queue: str, record_id: str, owner: str,
+                    reason: str) -> bool: ...
+
+    @abc.abstractmethod
+    def requeue_dead(self, queue: str) -> int:
+        """Move every dead record back to pending; returns EVENTS
+        requeued (the operator-facing unit, matching the journal)."""
+
+    @abc.abstractmethod
+    def stats(self, queue: str, now_s: Optional[float] = None
+              ) -> Dict[str, Any]:
+        """``{"pending","leased","expired","dead"}`` record counts plus
+        ``*Events`` sums — ``expired`` counts leased records whose lease
+        already lapsed at ``now_s`` (re-leasable work)."""
+
+    @abc.abstractmethod
+    def peek(self, queue: str, n: int = 5, state: str = "pending"
+             ) -> List[QueueRecord]:
+        """Read-only oldest-first view for ``pio spill inspect`` — takes
+        no lease, never mutates."""
 
 
 class KV(abc.ABC):
@@ -251,6 +364,29 @@ class Events(abc.ABC):
     def insert_batch(self, events: Sequence[Event], app_id: int,
                      channel_id: Optional[int] = None) -> List[str]:
         return [self.insert(e, app_id, channel_id) for e in events]
+
+    def create_batch(self, events: Sequence[Event], app_id: int,
+                     channel_id: Optional[int] = None,
+                     tokens: Optional[Sequence[str]] = None) -> List[str]:
+        """One multi-row write with PER-ITEM exactly-once semantics.
+
+        ``tokens`` are the batch's per-item idempotency sub-tokens; each
+        item's event id is derived from its sub-token
+        (:func:`batch_event_id`), so a replay of the same batch after a
+        crashed reply — possibly after a PARTIAL landing — skips the rows
+        that already committed and re-inserts only the missing ones,
+        returning the same ids either way.  Without tokens a fresh set is
+        minted.
+
+        The base default delegates to :meth:`insert_batch` (store-assigned
+        ids, at-least-once on replay); sqlite and memory override with a
+        single conflict-ignoring write keyed on the derived ids.
+        """
+        if tokens is not None and len(tokens) != len(events):
+            raise StorageError(
+                f"create_batch: {len(events)} events but {len(tokens)} "
+                "tokens")
+        return self.insert_batch(events, app_id, channel_id)
 
     @abc.abstractmethod
     def get(self, event_id: str, app_id: int,

@@ -1,19 +1,20 @@
 """In-memory storage backend, the ``memory`` source type.
 
 Port of ``predictionio_tpu/data/storage/memory.py``: every repository
-the registry hands out, kept in one process.  The reference's
-``MemorySpillQueues`` waits for the event server.
+the registry hands out, kept in one process, the shared spill queue
+included.
 """
 
 from __future__ import annotations
 
+import collections
 import copy
 import datetime as _dt
 import itertools
 import threading
 import time
 import uuid
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 from predictionio_tpu_torch.data.event import Event
 from predictionio_tpu_torch.data.storage import base
@@ -34,6 +35,7 @@ __all__ = [
     "MemoryEvaluationInstances",
     "MemoryModels",
     "MemoryEvents",
+    "MemorySpillQueues",
     "MemoryKV",
 ]
 
@@ -211,6 +213,32 @@ class MemoryEvents(base.Events):
             bucket[eid] = event.with_event_id(eid)
             return eid
 
+    def create_batch(self, events: Sequence[Event], app_id: int,
+                     channel_id: Optional[int] = None,
+                     tokens: Optional[Sequence[str]] = None) -> List[str]:
+        """One pass under the lock; ids derive from the sub-tokens, and a
+        key already present (prior partial landing of the same batch) is
+        left untouched — per-item exactly-once on replay."""
+        if tokens is None:
+            # One uuid4 per BATCH, not per event (see sqlite.create_batch).
+            pre = uuid.uuid4().hex
+            tokens = [f"{pre}{i:x}" for i in range(len(events))]
+        else:
+            tokens = list(tokens)
+        if len(tokens) != len(events):
+            raise base.StorageError(
+                f"create_batch: {len(events)} events but {len(tokens)} "
+                "tokens")
+        with self._lock:
+            bucket = self._bucket(app_id, channel_id)
+            ids = []
+            for ev, tok in zip(events, tokens):
+                eid = base.batch_event_id(tok)
+                ids.append(eid)
+                if eid not in bucket:
+                    bucket[eid] = ev.with_event_id(eid)
+            return ids
+
     def get(self, event_id: str, app_id: int,
             channel_id: Optional[int] = None) -> Optional[Event]:
         return self._bucket(app_id, channel_id).get(event_id)
@@ -356,6 +384,124 @@ class MemoryModels(base.Models):
     def delete(self, model_id: str) -> bool:
         with self._lock:
             return self._models.pop(model_id, None) is not None
+
+
+class MemorySpillQueues(base.SpillQueues):
+    """In-process shared spill queue.
+
+    "Shared" here means shared by every server in THIS process that holds
+    the same Storage object; cross-process deployments ride sqlite."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._queues: Dict[
+            str, "collections.OrderedDict[str, base.QueueRecord]"] = {}
+        self._by_token: Dict[Tuple[str, str], str] = {}
+
+    def _q(self, queue: str):
+        return self._queues.setdefault(queue, collections.OrderedDict())
+
+    def enqueue(self, queue, payload, token=None, events=1, now_s=None):
+        now = time.time() if now_s is None else float(now_s)
+        with self._lock:
+            if token is not None:
+                rid = self._by_token.get((queue, token))
+                if rid is not None:
+                    return rid  # lost-reply retry: already queued
+            rid = uuid.uuid4().hex
+            self._q(queue)[rid] = base.QueueRecord(
+                id=rid, payload=copy.deepcopy(payload), token=token,
+                events=int(events), enqueued_s=now)
+            if token is not None:
+                self._by_token[(queue, token)] = rid
+            return rid
+
+    def lease(self, queue, owner, n, ttl_s, now_s=None):
+        now = time.time() if now_s is None else float(now_s)
+        out: List[base.QueueRecord] = []
+        with self._lock:
+            for rec in self._q(queue).values():
+                if len(out) >= int(n):
+                    break
+                claimable = rec.state == "pending" or (
+                    rec.state == "leased"
+                    and rec.lease_expires_s is not None
+                    and rec.lease_expires_s < now)
+                if not claimable:
+                    continue
+                rec.state = "leased"
+                rec.lease_owner = owner
+                rec.lease_expires_s = now + float(ttl_s)
+                rec.attempts += 1
+                out.append(copy.deepcopy(rec))
+        return out
+
+    def _owned(self, queue, ids, owner):
+        q = self._q(queue)
+        return [rid for rid in ids
+                if rid in q and q[rid].state == "leased"
+                and q[rid].lease_owner == owner]
+
+    def ack(self, queue, ids, owner):
+        with self._lock:
+            q = self._q(queue)
+            owned = self._owned(queue, ids, owner)
+            for rid in owned:
+                rec = q.pop(rid)
+                if rec.token is not None:
+                    self._by_token.pop((queue, rec.token), None)
+            return len(owned)
+
+    def nack(self, queue, ids, owner):
+        with self._lock:
+            q = self._q(queue)
+            owned = self._owned(queue, ids, owner)
+            for rid in owned:
+                q[rid].state = "pending"
+                q[rid].lease_owner = None
+                q[rid].lease_expires_s = None
+            return len(owned)
+
+    def dead_letter(self, queue, record_id, owner, reason):
+        with self._lock:
+            owned = self._owned(queue, [record_id], owner)
+            if not owned:
+                return False
+            rec = self._q(queue)[record_id]
+            rec.state = "dead"
+            rec.lease_owner = None
+            rec.lease_expires_s = None
+            rec.reason = str(reason)[:500]
+            return True
+
+    def requeue_dead(self, queue):
+        with self._lock:
+            n_events = 0
+            for rec in self._q(queue).values():
+                if rec.state == "dead":
+                    rec.state = "pending"
+                    rec.reason = None
+                    n_events += rec.events
+            return n_events
+
+    def stats(self, queue, now_s=None):
+        now = time.time() if now_s is None else float(now_s)
+        out = {"pending": 0, "leased": 0, "expired": 0, "dead": 0,
+               "pendingEvents": 0, "leasedEvents": 0, "deadEvents": 0}
+        with self._lock:
+            for rec in self._q(queue).values():
+                out[rec.state] = out.get(rec.state, 0) + 1
+                key = f"{rec.state}Events"
+                out[key] = out.get(key, 0) + rec.events
+                if rec.state == "leased" and rec.lease_expires_s is not None \
+                        and rec.lease_expires_s < now:
+                    out["expired"] += 1
+        return out
+
+    def peek(self, queue, n=5, state="pending"):
+        with self._lock:
+            return [copy.deepcopy(rec) for rec in self._q(queue).values()
+                    if rec.state == state][: int(n)]
 
 
 class MemoryKV(base.KV):

@@ -3,10 +3,10 @@
 Port of ``predictionio_tpu/data/storage/sqlite.py`` (reference analogue:
 storage/jdbc/).  The schema, indexes and PRAGMAs are the reference's,
 table for table, so a ``pio.db`` written by either package reads in the
-other; that includes the shared spill-queue table, whose repository
-waits for the event server here.  Nothing here needs ``pyarrow``: the
-columnar scan answers numpy columns (property bags as JSON text) and
-the columnar ingest takes plain sequences.
+other; that includes the shared spill-queue table and the bulk-ingest
+ids ``create_batch`` derives from its tokens.  Nothing here needs
+``pyarrow``: the columnar scan answers numpy columns (property bags as
+JSON text) and the columnar ingest takes plain sequences.
 """
 
 from __future__ import annotations
@@ -157,8 +157,7 @@ class SQLiteClient:
                     channelid INTEGER,
                     UNIQUE(appid, channelid))"""
             )
-            # The reference's shared spill queue: created so both
-            # packages keep one schema; no repository reads it here yet.
+            # The shared spill queue (SQLiteSpillQueues).
             c.execute(
                 f"""CREATE TABLE IF NOT EXISTS {ns}_spillqueue (
                     seq INTEGER PRIMARY KEY AUTOINCREMENT,
@@ -214,6 +213,9 @@ class SQLiteClient:
 
     def events(self) -> "SQLiteEvents":
         return SQLiteEvents(self)
+
+    def spill_queues(self) -> "SQLiteSpillQueues":
+        return SQLiteSpillQueues(self)
 
     def kv(self) -> "SQLiteKV":
         return SQLiteKV(self)
@@ -615,6 +617,46 @@ class SQLiteEvents(_Repo, base.Events):
             )
         return ids
 
+    def create_batch(
+        self, events: Sequence[Event], app_id: int,
+        channel_id: Optional[int] = None,
+        tokens: Optional[Sequence[str]] = None,
+    ) -> List[str]:
+        """One transaction, one executemany, per-item exactly-once: ids
+        derive from the sub-tokens and ``id`` is the PRIMARY KEY, so
+        ``INSERT OR IGNORE`` makes a replay after a partial landing skip
+        exactly the rows that already committed."""
+        self._check_init(app_id, channel_id)
+        if tokens is None:
+            # One uuid4 per BATCH, not per event: at 100k+ ev/s the
+            # per-event uuid4() alone costs more than the sqlite insert.
+            pre = uuid.uuid4().hex
+            tokens = [f"{pre}{i:x}" for i in range(len(events))]
+        else:
+            tokens = list(tokens)
+        if len(tokens) != len(events):
+            raise base.StorageError(
+                f"create_batch: {len(events)} events but {len(tokens)} "
+                "tokens")
+        ids, rows = [], []
+        dumps, us, batch_id = json.dumps, _us, base.batch_event_id
+        for ev, tok in zip(events, tokens):
+            eid = batch_id(tok)
+            ids.append(eid)
+            props = ev.properties._fields  # skip the to_dict() copy
+            rows.append((
+                eid, app_id, channel_id, ev.event, ev.entity_type,
+                ev.entity_id, ev.target_entity_type, ev.target_entity_id,
+                dumps(props) if props else "{}", us(ev.event_time),
+                ev.pr_id, us(ev.creation_time),
+            ))
+        with self._lock, self._conn:
+            self._conn.executemany(
+                f"INSERT OR IGNORE INTO {self._ns}_events "
+                f"VALUES ({','.join('?' * 12)})", rows
+            )
+        return ids
+
     def _row_to_event(self, r) -> Event:
         return Event(
             event_id=r[0], event=r[3], entity_type=r[4], entity_id=r[5],
@@ -859,6 +901,151 @@ class SQLiteEvents(_Repo, base.Events):
         with self._lock, self._conn:
             self._conn.executemany(sql, rows)
         return n
+
+
+class SQLiteSpillQueues(_Repo, base.SpillQueues):
+    """Shared spill queue over one sqlite file.
+
+    Lease claims are per-row conditional UPDATEs (``WHERE id=? AND
+    (pending OR expired)``), each atomic at the sqlite level, so two
+    drainer processes sharing the file can race a lease and exactly one
+    wins each record — no table lock held across the batch."""
+
+    _COLS = ("id,queue,token,payload,events,attempts,state,leaseowner,"
+             "leaseexpires,reason,enqueued")
+
+    def _from_row(self, r) -> base.QueueRecord:
+        return base.QueueRecord(
+            id=r[0], payload=json.loads(r[3]), token=r[2], events=r[4],
+            attempts=r[5], state=r[6], lease_owner=r[7],
+            lease_expires_s=r[8], reason=r[9], enqueued_s=r[10])
+
+    def enqueue(self, queue, payload, token=None, events=1, now_s=None):
+        rid = uuid.uuid4().hex
+        now = time.time() if now_s is None else float(now_s)
+        with self._lock:
+            if token is not None:
+                row = self._conn.execute(
+                    f"SELECT id FROM {self._ns}_spillqueue "
+                    "WHERE queue=? AND token=?", (queue, token)).fetchone()
+                if row is not None:
+                    return row[0]  # lost-reply retry: already queued
+            try:
+                with self._conn:
+                    self._conn.execute(
+                        f"INSERT INTO {self._ns}_spillqueue "
+                        "(id,queue,token,payload,events,attempts,state,"
+                        "leaseowner,leaseexpires,reason,enqueued) "
+                        "VALUES (?,?,?,?,?,0,'pending',NULL,NULL,NULL,?)",
+                        (rid, queue, token,
+                         json.dumps(payload, separators=(",", ":")),
+                         int(events), now))
+            except sqlite3.IntegrityError:
+                # (queue, token) raced another process's enqueue
+                row = self._conn.execute(
+                    f"SELECT id FROM {self._ns}_spillqueue "
+                    "WHERE queue=? AND token=?", (queue, token)).fetchone()
+                if row is not None:
+                    return row[0]
+                raise
+        return rid
+
+    def lease(self, queue, owner, n, ttl_s, now_s=None):
+        now = time.time() if now_s is None else float(now_s)
+        expires = now + float(ttl_s)
+        claimed: List[str] = []
+        with self._lock, self._conn:
+            rows = self._conn.execute(
+                f"SELECT id FROM {self._ns}_spillqueue WHERE queue=? AND "
+                "(state='pending' OR (state='leased' AND leaseexpires<?)) "
+                "ORDER BY seq LIMIT ?", (queue, now, int(n))).fetchall()
+            for (rid,) in rows:
+                cur = self._conn.execute(
+                    f"UPDATE {self._ns}_spillqueue SET state='leased', "
+                    "leaseowner=?, leaseexpires=?, attempts=attempts+1 "
+                    "WHERE id=? AND (state='pending' OR "
+                    "(state='leased' AND leaseexpires<?))",
+                    (owner, expires, rid, now))
+                if cur.rowcount:
+                    claimed.append(rid)
+            if not claimed:
+                return []
+            out = self._conn.execute(
+                f"SELECT {self._COLS} FROM {self._ns}_spillqueue "
+                f"WHERE id IN ({','.join('?' * len(claimed))}) "
+                "ORDER BY seq", claimed).fetchall()
+        return [self._from_row(r) for r in out]
+
+    def ack(self, queue, ids, owner):
+        ids = list(ids)
+        if not ids:
+            return 0
+        with self._lock, self._conn:
+            cur = self._conn.execute(
+                f"DELETE FROM {self._ns}_spillqueue WHERE queue=? AND "
+                f"leaseowner=? AND state='leased' AND "
+                f"id IN ({','.join('?' * len(ids))})",
+                [queue, owner] + ids)
+            return cur.rowcount
+
+    def nack(self, queue, ids, owner):
+        ids = list(ids)
+        if not ids:
+            return 0
+        with self._lock, self._conn:
+            cur = self._conn.execute(
+                f"UPDATE {self._ns}_spillqueue SET state='pending', "
+                f"leaseowner=NULL, leaseexpires=NULL WHERE queue=? AND "
+                f"leaseowner=? AND state='leased' AND "
+                f"id IN ({','.join('?' * len(ids))})",
+                [queue, owner] + ids)
+            return cur.rowcount
+
+    def dead_letter(self, queue, record_id, owner, reason):
+        with self._lock, self._conn:
+            cur = self._conn.execute(
+                f"UPDATE {self._ns}_spillqueue SET state='dead', "
+                "leaseowner=NULL, leaseexpires=NULL, reason=? "
+                "WHERE queue=? AND id=? AND leaseowner=? AND "
+                "state='leased'", (str(reason)[:500], queue, record_id,
+                                   owner))
+            return cur.rowcount > 0
+
+    def requeue_dead(self, queue):
+        with self._lock, self._conn:
+            row = self._conn.execute(
+                f"SELECT COALESCE(SUM(events),0) FROM "
+                f"{self._ns}_spillqueue WHERE queue=? AND state='dead'",
+                (queue,)).fetchone()
+            self._conn.execute(
+                f"UPDATE {self._ns}_spillqueue SET state='pending', "
+                "reason=NULL WHERE queue=? AND state='dead'", (queue,))
+            return int(row[0])
+
+    def stats(self, queue, now_s=None):
+        now = time.time() if now_s is None else float(now_s)
+        out = {"pending": 0, "leased": 0, "expired": 0, "dead": 0,
+               "pendingEvents": 0, "leasedEvents": 0, "deadEvents": 0}
+        with self._lock:
+            rows = self._conn.execute(
+                f"SELECT state, leaseexpires<?, COUNT(*), "
+                f"COALESCE(SUM(events),0) FROM {self._ns}_spillqueue "
+                "WHERE queue=? GROUP BY state, leaseexpires<?",
+                (now, queue, now)).fetchall()
+        for state, expired, n, ev in rows:
+            out[state] = out.get(state, 0) + n
+            out[f"{state}Events"] = out.get(f"{state}Events", 0) + ev
+            if state == "leased" and expired:
+                out["expired"] += n
+        return out
+
+    def peek(self, queue, n=5, state="pending"):
+        with self._lock:
+            rows = self._conn.execute(
+                f"SELECT {self._COLS} FROM {self._ns}_spillqueue "
+                "WHERE queue=? AND state=? ORDER BY seq LIMIT ?",
+                (queue, state, int(n))).fetchall()
+        return [self._from_row(r) for r in rows]
 
 
 class SQLiteKV(_Repo, base.KV):

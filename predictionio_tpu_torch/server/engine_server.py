@@ -10,9 +10,11 @@ answer ``POST /queries.json`` through ``Algorithm.batch_predict`` →
 Every query path is the batched dispatch :meth:`EngineServer.
 _dispatch_batch` — the function the serving scheduler will drive: a
 ``/queries.json`` request is a cohort of one, ``query_batch`` (the
-``pio batchpredict`` path) a cohort of many.  The scheduler and
-micro-batcher, the result cache, staged-reload validation and rollback,
-the quality/recall/SLO monitors and plugins arrive with later slices.
+``pio batchpredict`` path) a cohort of many.  Server plugins load from
+``PIO_ENGINESERVER_PLUGINS`` (:mod:`.plugins`), started last.  The
+scheduler and micro-batcher, the result cache, staged-reload validation
+and rollback, and the quality/recall/SLO monitors arrive with later
+slices.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import logging
 import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
+from urllib.parse import urlparse
 
 from predictionio_tpu_torch.version import __version__
 from predictionio_tpu_torch.controller import (
@@ -35,6 +38,7 @@ from predictionio_tpu_torch.controller.params import bind_params
 from predictionio_tpu_torch.data.storage import Storage
 from predictionio_tpu_torch.obs import get_registry
 from predictionio_tpu_torch.server.http import BaseHandler, ThreadingHTTPServer
+from predictionio_tpu_torch.server.plugins import PluginManager
 from predictionio_tpu_torch.workflow.core_workflow import (
     WorkflowError,
     instance_engine_params,
@@ -100,7 +104,9 @@ class EngineServer:
     :class:`~predictionio_tpu_torch.data.storage.Storage` the instance
     was persisted to.  ``instance_id`` pins the engine instance served
     (``pio deploy --engine-instance-id``); by default the latest
-    COMPLETED instance of the variant.
+    COMPLETED instance of the variant.  ``plugins`` is a
+    :class:`~predictionio_tpu_torch.server.plugins.PluginManager`; by
+    default the specs of ``PIO_ENGINESERVER_PLUGINS``.
     """
 
     def __init__(
@@ -113,6 +119,7 @@ class EngineServer:
         *,
         device=None,
         instance_id: Optional[str] = None,
+        plugins: Optional[PluginManager] = None,
     ):
         self.engine = engine
         self.variant = variant
@@ -133,6 +140,12 @@ class EngineServer:
         self._loaded_at: Optional[_dt.datetime] = None
         self._generation = 0
         self.reload()
+        # Server plugin seam (reference: EngineServerPlugin).  Started
+        # LAST — after reload() — so plugins see a fully constructed
+        # server with a loaded instance.
+        self.plugins = plugins if plugins is not None else \
+            PluginManager.from_env("PIO_ENGINESERVER_PLUGINS")
+        self.plugins.start(self)
 
     # -- model lifecycle ----------------------------------------------------
 
@@ -265,7 +278,8 @@ class EngineServer:
                 self.stats.record((time.perf_counter() - t0) * 1e3, True)
                 return 200, result
             if path == "/stop" and method == "POST":
-                threading.Thread(target=self.stop, daemon=True).start()
+                # The handler stops the server once this answer is written
+                # (Handler.do_POST).
                 return 200, {"status": "stopping"}
             return 404, {"message": "Not Found"}
         except Exception:
@@ -276,14 +290,26 @@ class EngineServer:
         class Handler(BaseHandler):
             server_log_name = "engine-server"
 
-            def pio_handle(self, method, path, body):
+            def pio_handle(self, method, path, params, body):
                 return server_self.handle(method, path, body)
+
+            def pio_on_complete(self, method, path, status, ms, body,
+                                params):
+                return server_self.plugins.on_request(
+                    f"{method} {path}", status, ms) \
+                    if server_self.plugins else None
 
             def do_GET(self):  # noqa: N802
                 self.dispatch("GET")
 
             def do_POST(self):  # noqa: N802
                 self.dispatch("POST")
+                if urlparse(self.path).path == "/stop":
+                    # Only now: `pio deploy` exits as soon as the serve
+                    # loop ends, and a stop begun inside the handler could
+                    # end it before the answer reached the client.
+                    threading.Thread(target=server_self.stop,
+                                     daemon=True).start()
 
         return Handler
 
@@ -307,3 +333,4 @@ class EngineServer:
         thread, self._thread = self._thread, None
         if thread is not None and thread is not threading.current_thread():
             thread.join(timeout=10)
+        self.plugins.stop()

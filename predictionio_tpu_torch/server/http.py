@@ -1,45 +1,99 @@
 """Shared HTTP plumbing for the port's servers.
 
-Port of the transport of ``predictionio_tpu/server/http.py``:
+Port of ``predictionio_tpu/server/http.py``:
 
 - :class:`ThreadingHTTPServer` — stdlib ``ThreadingHTTPServer`` with a
   128-deep accept backlog (the default of 5 resets connections under
   load bursts).
+- ``X-Request-ID`` handling: :func:`incoming_request_id` pulls and
+  sanitizes the client-supplied id (or a fresh one is generated); every
+  response carries the effective id back.
 - :class:`BaseHandler` — HTTP/1.1 keep-alive, Nagle off (Nagle plus
   delayed ACK between a multi-write response and a keep-alive client
-  stalls every request ~40 ms), debug-level access logs, and the
-  request driver :meth:`BaseHandler.dispatch`: read the body, call
-  :meth:`BaseHandler.pio_handle`, write a JSON or Prometheus-text answer
-  with ``Content-Length`` and the server's own wall time
-  (``X-PIO-Server-Ms``).
+  stalls every request ~40 ms), debug-level access logs, and the one
+  request path :meth:`BaseHandler.dispatch`: the ``X-PIO-Deadline-Ms``
+  scope with optional pre-handle shedding (504), the per-server
+  completion hook (stats and plugins), the server's own wall time
+  (``X-PIO-Server-Ms``) and the ``Retry-After`` hint on degraded
+  answers.  Subclasses implement :meth:`BaseHandler.pio_handle` and
+  override the small hooks below it.
 
-The trace, waterfall and deadline hooks of the reference driver arrive
-with the port's observability layer.
+The reference's dispatch also opens a trace root with ``http.*`` spans
+and feeds the latency waterfall; those arrive with the port's trace
+layer, as do ``traces_payload`` and ``timeline_payload``, and so do the
+handler results that name their own content type (the dashboard's).
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import re
 import time
+import uuid
 from http.server import (
     BaseHTTPRequestHandler,
     ThreadingHTTPServer as _ThreadingHTTPServer,
 )
-from typing import Any, Dict, Optional, Tuple
-from urllib.parse import urlparse
+from typing import Any, Dict, List, Optional, Tuple
+from urllib.parse import parse_qs, urlparse
+
+from predictionio_tpu_torch.config import env_bool
+from predictionio_tpu_torch.resilience import deadline as _deadline
+from predictionio_tpu_torch.resilience.deadline import DEADLINE_HEADER
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["ThreadingHTTPServer", "BaseHandler", "PROMETHEUS_CTYPE",
-           "payload_bytes"]
+__all__ = [
+    "ThreadingHTTPServer",
+    "BaseHandler",
+    "REQUEST_ID_HEADER",
+    "DEADLINE_HEADER",
+    "PROMETHEUS_CTYPE",
+    "incoming_request_id",
+    "incoming_deadline_ms",
+    "param_bool",
+    "payload_bytes",
+]
 
+REQUEST_ID_HEADER = "X-Request-ID"
 PROMETHEUS_CTYPE = "text/plain; version=0.0.4"
+
+# The reference tracer's id rule (obs/trace.py sanitize_trace_id).
+_REQUEST_ID_RE = re.compile(r"[^A-Za-z0-9._:-]")
+_REQUEST_ID_MAX = 128
 
 
 class ThreadingHTTPServer(_ThreadingHTTPServer):
     # Default accept backlog (5) resets connections under load bursts.
     request_queue_size = 128
+
+
+def incoming_request_id(headers) -> Optional[str]:
+    """Sanitized client-supplied ``X-Request-ID`` (None → generate one):
+    clamped to ``[A-Za-z0-9._:-]`` and 128 characters."""
+    if headers is None:
+        return None
+    raw = headers.get(REQUEST_ID_HEADER)
+    if not raw:
+        return None
+    cleaned = _REQUEST_ID_RE.sub("", str(raw))[:_REQUEST_ID_MAX]
+    return cleaned or None
+
+
+def incoming_deadline_ms(headers) -> Optional[float]:
+    """Client-declared time budget (``X-PIO-Deadline-Ms``); None when
+    absent or unparseable — a garbage header must not 500 the request."""
+    if headers is None:
+        return None
+    raw = headers.get(DEADLINE_HEADER)
+    if not raw:
+        return None
+    try:
+        budget = float(raw)
+    except ValueError:
+        return None
+    return budget if budget >= 0 else None
 
 
 def payload_bytes(payload: Any) -> Tuple[bytes, str]:
@@ -48,6 +102,15 @@ def payload_bytes(payload: Any) -> Tuple[bytes, str]:
     if isinstance(payload, str):
         return payload.encode(), PROMETHEUS_CTYPE
     return json.dumps(payload).encode(), "application/json; charset=UTF-8"
+
+
+def param_bool(params: Optional[Dict[str, List[str]]], key: str,
+               default: bool = False) -> bool:
+    """Boolean query param in the same dialect as env_bool — so
+    ``?exemplars=0`` / ``?exemplars=off`` actually means OFF (a bare
+    presence check would read an explicit opt-out as opt-in)."""
+    vals = (params or {}).get(key) or [""]
+    return env_bool(vals[0], default)
 
 
 class BaseHandler(BaseHTTPRequestHandler):
@@ -59,27 +122,78 @@ class BaseHandler(BaseHTTPRequestHandler):
     # See module docstring: keep-alive + Nagle stalls every request ~40 ms.
     disable_nagle_algorithm = True
     server_log_name = "server"
+    # Shed with 504 BEFORE pio_handle when the deadline is already spent
+    # (the event server's pre-auth shed).
+    shed_pre_handle = False
+    # Degraded answers that carry the Retry-After backoff hint: spill
+    # accepts (202), admission rejections (429), and unavailability
+    # (503) all want the client to come back, just later.
+    retry_after_statuses = (202, 429, 503)
 
-    def pio_handle(self, method: str, path: str, body: bytes
+    # -- per-frontend hooks --------------------------------------------------
+
+    def pio_handle(self, method: str, path: str,
+                   params: Dict[str, List[str]], body: bytes
                    ) -> Tuple[int, Any]:
-        """Handle one request; returns (status, payload)."""
+        """Handle one request; returns (status, payload) and runs inside
+        the deadline scope."""
         raise NotImplementedError
+
+    def pio_on_complete(self, method: str, path: str, status: int,
+                        ms: float, body: bytes,
+                        params: Dict[str, List[str]]
+                        ) -> Optional[Dict[str, str]]:
+        """Post-handle hook (stats recording, plugins); runs BEFORE the
+        response is written — a client reading /stats.json right after
+        its own request completes must see it counted.  May return extra
+        response headers."""
+        return None
+
+    def pio_retry_after_s(self) -> Optional[int]:
+        """Backoff hint attached to ``retry_after_statuses`` answers."""
+        return None
+
+    def pio_shed(self) -> None:
+        """Count a transport-level deadline shed (pre-handle 504)."""
+
+    # -- the request path ---------------------------------------------------
 
     def dispatch(self, method: str) -> None:
         t0 = time.perf_counter()
+        request_id = incoming_request_id(self.headers) or uuid.uuid4().hex
+        parsed = urlparse(self.path)
+        params = parse_qs(parsed.query)
         length = int(self.headers.get("Content-Length") or 0)
         body = self.rfile.read(length) if length else b""
-        status, payload = self.pio_handle(method, urlparse(self.path).path,
-                                          body)
-        data, ctype = payload_bytes(payload)
+        with _deadline.deadline_scope(incoming_deadline_ms(self.headers)):
+            if self.shed_pre_handle and _deadline.exceeded():
+                # A request whose budget is already gone must not queue
+                # behind auth/storage.
+                self.pio_shed()
+                status, payload = 504, {"message": "Deadline exceeded."}
+            else:
+                status, payload = self.pio_handle(method, parsed.path,
+                                                  params, body)
         ms = (time.perf_counter() - t0) * 1e3
-        self.respond(status, data, ctype, {"X-PIO-Server-Ms": f"{ms:.1f}"})
+        extra = dict(self.pio_on_complete(method, parsed.path, status, ms,
+                                          body, params) or {})
+        # The server's own read+handle wall time: clients use it to
+        # attribute client-vs-server latency.
+        extra.setdefault("X-PIO-Server-Ms", f"{ms:.1f}")
+        retry_after = self.pio_retry_after_s()
+        if retry_after is not None and status in self.retry_after_statuses:
+            extra.setdefault("Retry-After", str(retry_after))
+        data, ctype = payload_bytes(payload)
+        self.respond(status, data, ctype, extra, request_id=request_id)
 
     def respond(self, status: int, data: bytes, ctype: str,
-                extra_headers: Optional[Dict[str, str]] = None) -> None:
+                extra_headers: Optional[Dict[str, str]] = None,
+                request_id: Optional[str] = None) -> None:
         self.send_response(status)
         self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(data)))
+        if request_id:
+            self.send_header(REQUEST_ID_HEADER, request_id)
         for k, v in (extra_headers or {}).items():
             self.send_header(k, v)
         self.end_headers()

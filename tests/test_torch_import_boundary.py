@@ -57,6 +57,14 @@ CLI_SLICE = (
     "data.storage.localfs_models", "controller.metrics",
     "templates.recommendation.evaluation", "cli.main", "cli.__main__",
 )
+# ... and every module of the event server slice.
+EVENT_SERVER_SLICE = (
+    "resilience", "resilience.deadline", "resilience.policy",
+    "resilience.faults", "resilience.spill", "resilience.shared_spill",
+    "data.storage", "data.storage.memory", "data.webhooks",
+    "data.webhooks.connectors", "server.http", "server.plugins",
+    "server.event_server", "server.engine_server", "sdk",
+)
 
 
 def _forbidden(module: str) -> bool:
@@ -71,6 +79,7 @@ def test_importing_the_port_loads_no_jax():
     probe = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(probe["modules"]) >= 30
     missing = [m for m in TRAINING_SLICE + IVF_PQ_SLICE + CLI_SLICE
+               + EVENT_SERVER_SLICE
                if f"predictionio_tpu_torch.{m}" not in probe["modules"]]
     assert missing == []
     assert probe["bad"] == [], f"the port pulled in {probe['bad']}"
