@@ -148,7 +148,27 @@ cannot be imported, or when any phase fails.  Phases, in order:
    report a CUDA device and answer 64 /queries.json each equal to the
    plain top-k of the persisted factors (K3 must launch, counted in the
    deploy process); SIGTERM must drain the event server with exit 0.
-15. report — one JSON line of per-kernel numbers, the card's name and
+15. scheduler — phase 4's ML-25M serving model persisted on the default
+   sqlite + localfs storage and deployed on an EngineServer with the
+   default SchedulerConfig (batcher and autotuner on, depth 128, max
+   batch 64) under PIO_RETRIEVAL_RUNG=chunked, warmed by one query: 64
+   client threads in 4 client processes each post 32 /queries.json for
+   distinct users over keep-alive HTTP, each
+   answer held against the plain top-k on the card; the batcher must
+   count fewer dispatches than requests and K3 must launch once a
+   dispatch (recs/s, client p50/p99, server p50, mean and largest
+   cohort, the autotuner's window); the same 2,048 queries again must be
+   byte-equal result-cache hits with no K3 launch; 256 of them through
+   the inline path (batcher off) one K3 launch each; `pio deploy
+   --native` as a subprocess on the same stored instance, on the card,
+   answering 256 of them as the Python path did (K3 counted there), POST
+   /stop exit 0; `pio eventserver --native` taking phase 12's first
+   100,000 events through the SDK, `pio export` equal to them as a
+   multiset, SIGTERM exit 0; within 120 s.  Phases 7 and 13a count a
+   repeat query as a result-cache hit and reach the fold-in cache with
+   another num; 13b deploys with PIO_RESULT_CACHE=0 (F7: the cache key
+   does not see ecommerce's live unavailable list).
+16. report — one JSON line of per-kernel numbers, the card's name and
    power limit, and the final status line.
 """
 
@@ -1045,7 +1065,8 @@ def dase_phase(dev, seed: int, home: str, mods: dict, card: str) -> dict:
     log(f"phase 7 fold-in: {fold['events']} rate/buy events of "
         f"{len(fold['users'])} unseen users inserted after deploy; their "
         f"/queries.json answers equal the plain top-k of fold_in's vector "
-        f"(max |score err| {fold['err']:.3g}); a repeat query cached, a "
+        f"(max |score err| {fold['err']:.3g}); a repeat query a result-"
+        f"cache hit, the same user with num 5 from the fold-in cache, a "
         f"user with no events answered []; pio_fold_in_total "
         f"{json.dumps(fold['counts'])}; fused_topk launches "
         f"{fold['fused_topk']}; p50 {fold['p50_ms']:.2f} ms; card {card}")
@@ -1058,7 +1079,9 @@ def fold_in_queries(dev, rng, base: str, storage, app_id: int, wrapper,
     """Phase 7's fold-in: rate/buy events of two users the deployed
     generation never saw, then /queries.json for each (each answer held
     against the plain top-k of ``fold_in``'s vector over the served item
-    factors), a repeat query (cached) and a user with no events ([])."""
+    factors), a repeat query (a result-cache hit, which never reaches the
+    fold-in), the same user with another ``num`` (another cache key: the
+    fold-in cache answers it) and a user with no events ([])."""
     import numpy as np
     import torch
 
@@ -1093,6 +1116,8 @@ def fold_in_queries(dev, rng, base: str, storage, app_id: int, wrapper,
                 for r in ("solved", "cached", "no_events", "unavailable")}
 
     before = fold_counts()
+    hits_before = metric_value(registry, "pio_result_cache_hits_total",
+                               tier="local")
     ft.LAUNCHES = 0                         # fold-in path starts here
     answers, lats = {}, []
     for user in fresh:
@@ -1102,16 +1127,22 @@ def fold_in_queries(dev, rng, base: str, storage, app_id: int, wrapper,
         lats.append(time.perf_counter() - t0)
     again, _ = post_json(f"{base}/queries.json",
                          {"user": "unseen0", "num": 10})
+    five, _ = post_json(f"{base}/queries.json",
+                        {"user": "unseen0", "num": 5})
     ghost, _ = post_json(f"{base}/queries.json",
                          {"user": "no_events_user", "num": 10})
     launches = ft.LAUNCHES                  # and ends here
     counts = {r: v - before[r] for r, v in fold_counts().items()}
+    hits = metric_value(registry, "pio_result_cache_hits_total",
+                        tier="local") - hits_before
     if counts != {"solved": 2, "cached": 1, "no_events": 1,
                   "unavailable": 0}:
         die(f"fold-in: pio_fold_in_total moved by {counts}")
+    if hits != 1:
+        die(f"fold-in: the repeat query made {hits} result-cache hits")
     if launches < 3:
         die(f"fold-in: fused_topk launched {launches} times for 3 "
-            "answered queries")
+            "dispatched queries")
     if ghost["itemScores"] != []:
         die(f"fold-in: a user with no events got {ghost}")
     if again != answers["unseen0"]:
@@ -1133,6 +1164,14 @@ def fold_in_queries(dev, rng, base: str, storage, app_id: int, wrapper,
             [[wrapper.item_index[h["item"]] for h in hits]],
             torch.from_numpy(vec[None]).to(dev), items_d, 10, None,
             f"fold-in /queries.json {user}", ft, mods["topk_mismatch"]))
+        if user == "unseen0":
+            err = max(err, check_against_plain(
+                [[h["score"] for h in five["itemScores"]]],
+                [[wrapper.item_index[h["item"]]
+                  for h in five["itemScores"]]],
+                torch.from_numpy(vec[None]).to(dev), items_d, 5, None,
+                "fold-in /queries.json unseen0 num 5", ft,
+                mods["topk_mismatch"]))
     return {"users": sorted(fresh), "events": len(batch), "counts": counts,
             "fused_topk": launches, "err": err,
             "p50_ms": sorted(lats)[len(lats) // 2] * 1e3}
@@ -1898,8 +1937,8 @@ class deployed:
         line = self.proc.stdout.readline() if ready else ""
         import re
 
-        m = re.search(r"listening on 127\.0\.0\.1:(\d+) \(instance (\w+); "
-                      r"device (\S+);", line)
+        m = re.search(r"(?:listening|frontend) on 127\.0\.0\.1:(\d+) "
+                      r"\(instance (\w+); device (\S+);", line)
         if not m:
             self.kill()
             die(f"{phase}: pio deploy did not start ({line!r}): "
@@ -2593,6 +2632,10 @@ def tpl_similarproduct(events, dev, rng, storage, start_us, work, cli_dev,
         reg = mods["get_registry"]()
         err, out["p50_ms"], out["rungs"] = 0.0, {}, {}
         for rung in ("auto", "chunked"):
+            # The same queries on another rung: the result cache's key
+            # does not hold the rung, so empty it or the second round
+            # would be all hits and never reach the retrieval.
+            server.result_cache.clear()
             before = {r: metric_value(reg, "pio_retrieval_requests_total",
                                       rung=r, corpus="similarproduct")
                       for r in ("host", "device", "chunked")}
@@ -2623,6 +2666,8 @@ def tpl_similarproduct(events, dev, rng, storage, start_us, work, cli_dev,
             int((time.time() - 3600) * 1e6))
         before = {r: metric_value(reg, "pio_fold_in_items_total", result=r)
                   for r in ("solved", "cached")}
+        hits_before = metric_value(reg, "pio_result_cache_hits_total",
+                                   tier="local")
         uf = model.user_factors
         uty = uf.astype(np.float64).T @ uf.astype(np.float64)
         ferr, fold_lats = 0.0, []
@@ -2636,12 +2681,19 @@ def tpl_similarproduct(events, dev, rng, storage, start_us, work, cli_dev,
             ferr = max(ferr, hold_answer(
                 ans, index, f64 @ vec, np.zeros(len(index), bool), 10,
                 f"phase 13a fold-in {item}", mods["topk_mismatch"]))
+        # The repeat is a result-cache hit and never reaches the fold-in;
+        # another num is another cache key, which the fold-in cache
+        # answers.
         tpl_serve(base, [{"items": ["new0"], "num": 10}])
+        tpl_serve(base, [{"items": ["new0"], "num": 5}])
         counts = {r: metric_value(reg, "pio_fold_in_items_total",
                                   result=r) - n
                   for r, n in before.items()}
-        if counts != {"solved": 2, "cached": 1}:
-            die(f"phase 13a: pio_fold_in_items_total {counts}")
+        hits = metric_value(reg, "pio_result_cache_hits_total",
+                            tier="local") - hits_before
+        if counts != {"solved": 2, "cached": 1} or hits != 1:
+            die(f"phase 13a: pio_fold_in_items_total {counts}, result-"
+                f"cache hits {hits}")
         out["fold_err"], out["fold_counts"] = ferr, counts
         out["fold_first_ms"] = max(fold_lats) * 1e3
     finally:
@@ -2717,8 +2769,14 @@ def tpl_ecommerce(events, dev, rng, storage, start_us, work, cli_dev, mods,
         + [{"user": f"visitor{j}", "num": n, **extra} for j, (n, extra) in
            enumerate(((10, {}), (5, {"categories": ["Drama"]}),
                       (50, {"blackList": ["i0", "i1"]}), (1, {})))]
-    server = deployed(engine_json, os.path.join(work, "deploy_ec.log"),
-                      cli_dev, phase="phase 13b")
+    # F7: the result cache's key holds only the instance id and the
+    # query, and ecommerce reads the unavailable list and seen items live,
+    # so a cached answer would outlive the newer list below.  The
+    # deployment turns the cache off, as the README's remedy for a serve
+    # path that reads mutable state says.
+    with env_vars(PIO_RESULT_CACHE="0"):
+        server = deployed(engine_json, os.path.join(work, "deploy_ec.log"),
+                          cli_dev, phase="phase 13b")
     try:
         status = json.loads(server.get("/"))
         if not status["device"].startswith(dev.type):
@@ -2905,17 +2963,19 @@ def es_batch(users, items, stars, times, lo: int, hi: int):
 
 
 class eventserver_proc:
-    """``pio eventserver --port 0`` in a subprocess; ``drain()`` sends
-    SIGTERM, which must end it with exit 0."""
+    """``pio eventserver --port 0`` in a subprocess (``extra``: more of
+    its arguments); ``drain()`` sends SIGTERM, which must end it with
+    exit 0."""
 
-    def __init__(self, log_path: str):
+    def __init__(self, log_path: str, extra=(), phase: str = "phase 14"):
         import re
         import select
 
+        self.phase = phase
         self.log = open(log_path, "w")
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "predictionio_tpu_torch.cli",
-             "eventserver", "--ip", "127.0.0.1", "--port", "0"],
+             "eventserver", "--ip", "127.0.0.1", "--port", "0", *extra],
             cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
             stderr=self.log, text=True)
         ready, _, _ = select.select([self.proc.stdout], [], [],
@@ -2924,7 +2984,7 @@ class eventserver_proc:
         m = re.search(r"listening on 127\.0\.0\.1:(\d+) ", line)
         if not m:
             self.kill()
-            die(f"phase 14: pio eventserver did not start ({line!r}): "
+            die(f"{phase}: pio eventserver did not start ({line!r}): "
                 f"{Path(log_path).read_text()[-2000:]}")
         self.base = f"http://127.0.0.1:{m.group(1)}"
 
@@ -2940,7 +3000,7 @@ class eventserver_proc:
         self.proc.stdout.close()
         self.log.close()
         if rc != 0:
-            die(f"phase 14: pio eventserver exited {rc} after SIGTERM")
+            die(f"{self.phase}: pio eventserver exited {rc} after SIGTERM")
 
     def kill(self) -> None:
         if self.proc.poll() is None:
@@ -2950,7 +3010,7 @@ class eventserver_proc:
         self.log.close()
 
 
-def es_ingest(base: str, key: str, cols, n: int):
+def es_ingest(base: str, key: str, cols, n: int, phase: str = "phase 14"):
     """Every event through ``sdk.EventClient.create_events`` in batches
     of ``ES_BATCH``, ``ES_THREADS`` threads each posting a contiguous
     share, each batch under a token of its own; every item must answer
@@ -2975,7 +3035,7 @@ def es_ingest(base: str, key: str, cols, n: int):
             ids = [r.event_id for r in res]
             if [r.status for r in res] != [201] * len(batch) or \
                     ids != [f"bt{token}.{k}" for k in range(len(batch))]:
-                die(f"phase 14: batch {token} answered "
+                die(f"{phase}: batch {token} answered "
                     f"{[(r.status, str(r)) for r in res][:3]}...")
             done.append((token, lo, hi, ids))
         return lats, done
@@ -2989,7 +3049,8 @@ def es_ingest(base: str, key: str, cols, n: int):
     return wall, lats, batches
 
 
-def es_export_matches(path: str, cols, n: int) -> None:
+def es_export_matches(path: str, cols, n: int,
+                      phase: str = "phase 14") -> None:
     """`pio export`'s lines against the generated events, exactly, as a
     multiset of (event, entity, target, rating, eventTime)."""
     from collections import Counter
@@ -3008,14 +3069,14 @@ def es_export_matches(path: str, cols, n: int) -> None:
             lines += 1
             t = e["eventTime"]
             if not t.endswith(".000+00:00"):
-                die(f"phase 14: exported eventTime {t!r}")
+                die(f"{phase}: exported eventTime {t!r}")
             got[(e["event"], e["entityId"], e["targetEntityId"],
                  e.get("properties", {}).get("rating"),
                  t[:-len(".000+00:00")])] += 1
     if lines != n or got != want:
         extra = list((got - want).items())[:3]
         missing = list((want - got).items())[:3]
-        die(f"phase 14: export has {lines} events against {n}; extra "
+        die(f"{phase}: export has {lines} events against {n}; extra "
             f"{extra}, missing {missing}")
 
 
@@ -3192,13 +3253,443 @@ def eventserver_phase(dev, seed: int, mods: dict, card: str) -> dict:
     return out
 
 
+# Phase 15: the serving scheduler — concurrent /queries.json coalesce
+# into one K3 launch a cohort; the result cache; the native frontends.
+SCHED_CLIENTS = 64        # client threads, each on a keep-alive connection
+SCHED_PER_CLIENT = 32     # /queries.json each, every one for its own user
+SCHED_INLINE = 256        # of those queries through the inline path
+SCHED_NATIVE = 256        # ... and through `pio deploy --native`
+SCHED_EVENTS = 100_000    # phase 12's first events via `eventserver --native`
+SCHED_LIMIT_S = 120.0     # the phase's wall-time budget
+SCHED_CLIENT_PROCS = 4    # client processes the client threads run in
+
+
+def sched_share(base: str, queries, clients: int, ready) -> dict:
+    """In this process: ``clients`` threads, each posting its contiguous
+    share of ``queries`` to ``/queries.json`` over one keep-alive
+    connection.  ``ready()`` runs once every connection is open; the
+    threads start when it returns.  Returns the 200 bodies (text) in
+    query order, the client latencies (s), the server's
+    ``X-PIO-Server-Ms`` (NaN where absent) and the start and end on the
+    host's monotonic clock."""
+    import http.client
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    from urllib.parse import urlparse
+
+    u = urlparse(base)
+    n = len(queries)
+    bounds = [n * t // clients for t in range(clients + 1)]
+    bodies, lats, server_ms = [None] * n, [0.0] * n, [math.nan] * n
+    start = threading.Barrier(clients + 1)
+
+    def share(t: int):
+        conn = http.client.HTTPConnection(u.hostname, u.port, timeout=120)
+        conn.connect()
+        start.wait()
+        try:
+            for j in range(bounds[t], bounds[t + 1]):
+                t0 = time.perf_counter()
+                conn.request("POST", "/queries.json",
+                             body=json.dumps(queries[j]).encode(),
+                             headers={"Content-Type": "application/json"})
+                r = conn.getresponse()
+                data = r.read()
+                lats[j] = time.perf_counter() - t0
+                if r.status != 200:
+                    die(f"phase 15: /queries.json {queries[j]} answered "
+                        f"{r.status}: {data[:200]!r}")
+                bodies[j] = data.decode("utf-8")
+                server_ms[j] = float(r.getheader("X-PIO-Server-Ms") or "nan")
+        finally:
+            conn.close()
+
+    with ThreadPoolExecutor(clients) as pool:
+        done = [pool.submit(share, t) for t in range(clients)]
+        ready()
+        start.wait()
+        t0 = time.monotonic()
+        for f in done:
+            f.result()
+        t1 = time.monotonic()
+    return {"bodies": bodies, "lats": lats, "server_ms": server_ms,
+            "start": t0, "end": t1}
+
+
+def sched_client(argv) -> None:
+    """One client process of :func:`sched_drive` (base URL, query file,
+    first and last query, threads): says ``ready`` once connected, starts
+    on a line from its standard input, prints one JSON result line."""
+    base, path, lo, hi, clients = argv
+    queries = json.loads(Path(path).read_text())[int(lo):int(hi)]
+
+    def ready():
+        print("ready", flush=True)
+        sys.stdin.readline()
+
+    print(json.dumps(sched_share(base, queries, int(clients), ready)),
+          flush=True)
+
+
+def sched_drive(base: str, queries, clients: int, work: str,
+                procs: int = SCHED_CLIENT_PROCS):
+    """``clients`` threads spread over ``procs`` client processes — the
+    load does not share the server's interpreter — each thread posting
+    its contiguous share of ``queries`` over one keep-alive connection,
+    all released together.  Returns the raw 200 bodies in query order,
+    the client latencies (s), the servers' ``X-PIO-Server-Ms`` (NaN where
+    absent) and the wall time from the release to the last answer."""
+    procs = max(1, min(procs, clients))
+    path = os.path.join(work, "sched_queries.json")
+    Path(path).write_text(json.dumps(queries))
+    n = len(queries)
+    children = []
+    for k in range(procs):
+        lo, hi = n * k // procs, n * (k + 1) // procs
+        c = clients * (k + 1) // procs - clients * k // procs
+        children.append(subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "chip_smoke.sched_client(sys.argv[1:])", base, path, str(lo),
+             str(hi), str(c)], cwd=Path(__file__).resolve().parent,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True))
+    try:
+        for ch in children:
+            if ch.stdout.readline().strip() != "ready":
+                die("phase 15: a client process did not connect")
+        for ch in children:
+            ch.stdin.write("go\n")
+            ch.stdin.flush()
+        parts = []
+        for ch in children:
+            out, _ = ch.communicate(timeout=CLI_TIMEOUT_S)
+            if ch.returncode != 0:
+                die(f"phase 15: a client process exited {ch.returncode}")
+            parts.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for ch in children:
+            if ch.poll() is None:
+                ch.kill()
+                ch.wait(timeout=60)
+    bodies = [b.encode("utf-8") for p_ in parts for b in p_["bodies"]]
+    lats = [x for p_ in parts for x in p_["lats"]]
+    server_ms = [x for p_ in parts for x in p_["server_ms"]]
+    wall = max(p_["end"] for p_ in parts) - min(p_["start"] for p_ in parts)
+    return bodies, lats, server_ms, wall
+
+
+def pct(values, q: float) -> float:
+    """The q-quantile of ``values`` (nearest rank, as the phases log)."""
+    v = sorted(x for x in values if x == x)
+    return v[min(len(v) - 1, int(q * len(v)))] if v else math.nan
+
+
+def scheduler_phase(dev, seed: int, users_np, items_np, mods: dict,
+                    card: str) -> dict:
+    """Phase 15: phase 4's ML-25M serving model persisted on the default
+    sqlite + localfs storage and deployed on an EngineServer with the
+    default SchedulerConfig on the chunked rung →
+    SCHED_CLIENTS x SCHED_PER_CLIENT concurrent /queries.json for
+    distinct users (coalesced: fewer dispatches than requests, K3
+    launches = dispatches, each answer the plain top-k on the card) →
+    the same queries again (2,048 byte-equal result-cache hits, no K3
+    launch) → SCHED_INLINE through the inline path (batcher off: one K3
+    launch a request) → `pio deploy --native` (a subprocess, K3 counted
+    there) answering SCHED_NATIVE as the Python path did, POST /stop exit
+    0 → `pio eventserver --native` taking SCHED_EVENTS of phase 12's
+    events through the SDK, `pio export` equal to them, SIGTERM exit 0.
+    Returns the phase's numbers and launches."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.data.storage import get_storage, \
+        reset_storage
+    from predictionio_tpu_torch.serving import SchedulerConfig
+
+    ft, reg = mods["ft"], mods["get_registry"]()
+    dev_args = () if dev.type == "cuda" else ("--device", dev.type)
+    phase_t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="pio_chip_sched_")
+    env = cli_env(os.path.join(work, "home"))
+    out = {}
+    procs, servers = [], []
+    env.__enter__()
+    reset_storage()
+    try:
+        with env_vars(PIO_BATCH_ENABLED=None, PIO_QUEUE_DEPTH=None,
+                      PIO_BATCH_WINDOW_MS=None, PIO_BATCH_WINDOW_MAX_MS=None,
+                      PIO_BATCH_MAX=None, PIO_BATCH_AUTOTUNE=None,
+                      PIO_BATCH_P99_TARGET_MS=None, PIO_RESULT_CACHE=None,
+                      PIO_RESULT_CACHE_SIZE=None,
+                      PIO_RESULT_CACHE_BYTES=None):
+            cfg = SchedulerConfig.from_env()
+        if (cfg.enabled, cfg.autotune, cfg.queue_depth, cfg.max_batch) != \
+                (True, True, 128, 64):
+            die(f"phase 15: the default SchedulerConfig is {cfg}")
+        # -- 1: persist phase 4's model, deploy it ---------------------------
+        eng = mods["engine"]()
+        spec = json.loads((mods["csrc"].parent / "templates" /
+                           "recommendation" / "engine.json").read_text())
+        spec["algorithms"][0]["params"]["rank"] = RANK
+        engine_json = os.path.join(work, "engine.json")
+        Path(engine_json).write_text(json.dumps(spec))
+        variant = mods["EngineVariant"].from_dict(spec)
+        storage = get_storage()
+        wrapper = mods["wrapper_from_numpy"](
+            users_np, items_np, [f"u{j}" for j in range(ML25M_USERS)],
+            [f"i{j}" for j in range(ML25M_ITEMS)], rank=RANK)
+        t0 = time.perf_counter()
+        iid = mods["persist_instance"](eng, variant, [wrapper], storage)
+        out["persist_s"] = time.perf_counter() - t0
+        del wrapper
+        server = mods["EngineServer"](eng, variant, storage,
+                                      host="127.0.0.1", port=0,
+                                      scheduler_config=cfg)
+        servers.append(server)
+        server.start()
+        base = f"http://127.0.0.1:{server.port}"
+        cohorts = []
+        batcher = server.scheduler._lanes["default"].batcher
+        dispatch = batcher.dispatch_fn
+
+        def recorded(queries):
+            cohorts.append(len(queries))
+            return dispatch(queries)
+
+        batcher.dispatch_fn = recorded       # sizes only; same dispatch
+        rng = np.random.default_rng(seed + 151)
+        n = SCHED_CLIENTS * SCHED_PER_CLIENT
+        users = rng.choice(ML25M_USERS, n + 1, replace=False)
+        # the last user warms each server up (corpus staged on the card,
+        # first launch) outside the measured rounds
+        warm, users = {"user": f"u{users[-1]}", "num": 10}, users[:n]
+        queries = [{"user": f"u{u}", "num": 10} for u in users]
+        items_d = torch.from_numpy(items_np).to(dev)
+
+        def chunked_requests():
+            return metric_value(reg, "pio_retrieval_requests_total",
+                                rung="chunked", corpus="als")
+
+        # -- 2: coalescing ----------------------------------------------------
+        post_json(f"{base}/queries.json", warm)
+        cohorts.clear()
+        snap0 = server.scheduler.snapshot()["default"]
+        rung0 = chunked_requests()
+        ft.LAUNCHES = 0                      # main path starts here
+        bodies, lats, server_ms, wall = sched_drive(base, queries,
+                                                    SCHED_CLIENTS, work)
+        launches = ft.LAUNCHES               # and ends here
+        snap = server.scheduler.snapshot()["default"]
+        dispatches = snap["dispatches"] - snap0["dispatches"]
+        requests = snap["requests"] - snap0["requests"]
+        on_chunked = chunked_requests() - rung0
+        if requests != n or dispatches >= n:
+            die(f"phase 15: {requests} requests in {dispatches} dispatches")
+        if launches != dispatches or on_chunked != dispatches:
+            die(f"phase 15: fused_topk launched {launches} times for "
+                f"{dispatches} dispatches ({on_chunked} on the chunked "
+                "rung)")
+        if sum(cohorts) != n or len(cohorts) != dispatches:
+            die(f"phase 15: recorded cohorts {len(cohorts)} summing to "
+                f"{sum(cohorts)}")
+        err = 0.0
+        answers = [json.loads(b) for b in bodies]
+        for lo in range(0, n, 256):
+            s_, i_ = zip(*(answer_arrays(a, 10) for a in answers[lo:lo + 256]))
+            err = max(err, check_against_plain(
+                np.concatenate(s_), np.concatenate(i_),
+                torch.from_numpy(users_np[users[lo:lo + 256]]).to(dev),
+                items_d, 10, None, "phase 15 coalesced /queries.json", ft,
+                mods["topk_mismatch"]))
+        out.update(
+            requests=n, dispatches=dispatches, launches=launches,
+            recs_per_s=n / wall, wall_s=wall,
+            client_p50_ms=pct(lats, 0.5) * 1e3,
+            client_p99_ms=pct(lats, 0.99) * 1e3,
+            server_p50_ms=pct(server_ms, 0.5),
+            server_p99_ms=pct(server_ms, 0.99),
+            mean_cohort=n / dispatches, largest_cohort=max(cohorts),
+            cohorts_by_size={str(k): int(v) for k, v in zip(
+                *np.unique(cohorts, return_counts=True))},
+            window_ms=snap["windowMs"], max_batch=snap["maxBatch"],
+            served_p99_ms=snap["servedP99Ms"], err=err)
+
+        # -- 3: the same queries again: result-cache hits --------------------
+        hits0 = metric_value(reg, "pio_result_cache_hits_total",
+                             tier="local")
+        before = ft.LAUNCHES
+        again, lats2, server_ms2, wall2 = sched_drive(base, queries,
+                                                      SCHED_CLIENTS, work)
+        hits = metric_value(reg, "pio_result_cache_hits_total",
+                            tier="local") - hits0
+        if hits != n or ft.LAUNCHES != before:
+            die(f"phase 15: the repeat made {hits} cache hits and "
+                f"{ft.LAUNCHES - before} fused_topk launches")
+        differ = sum(a != b for a, b in zip(again, bodies))
+        if differ:
+            die(f"phase 15: {differ} cached bodies differ from the first")
+        out.update(cache_hits=hits, cache_recs_per_s=n / wall2,
+                   cache_client_p50_ms=pct(lats2, 0.5) * 1e3,
+                   cache_client_p99_ms=pct(lats2, 0.99) * 1e3,
+                   cache_server_p50_ms=pct(server_ms2, 0.5),
+                   cache_hit_rate=server.result_cache.snapshot()["hitRate"])
+
+        # -- 4: the inline path (batcher off) ----------------------------------
+        inline = mods["EngineServer"](
+            eng, variant, storage, host="127.0.0.1", port=0,
+            scheduler_config=SchedulerConfig.from_env(enabled=False))
+        servers.append(inline)
+        inline.start()
+        post_json(f"http://127.0.0.1:{inline.port}/queries.json", warm)
+        before = ft.LAUNCHES
+        # one registry: the counters are the process's, so read deltas
+        isnap0 = inline.scheduler.snapshot()["default"]
+        ibodies, ilats, _, iwall = sched_drive(
+            f"http://127.0.0.1:{inline.port}", queries[:SCHED_INLINE], 8,
+            work)
+        ilaunches = ft.LAUNCHES - before
+        isnap = inline.scheduler.snapshot()["default"]
+        if ilaunches != SCHED_INLINE or isnap["batching"] \
+                or isnap["dispatches"] - isnap0["dispatches"] \
+                != SCHED_INLINE:
+            die(f"phase 15: the inline path launched fused_topk "
+                f"{ilaunches} times for {SCHED_INLINE} requests ({isnap})")
+        for q, b, a in zip(queries, ibodies, answers):
+            answers_agree(json.loads(b), a, f"phase 15 inline {q}",
+                          mods["topk_mismatch"])
+        inline.stop()
+        servers.remove(inline)
+        out.update(inline_launches=ilaunches,
+                   inline_recs_per_s=SCHED_INLINE / iwall,
+                   inline_client_p50_ms=pct(ilats, 0.5) * 1e3)
+
+        # -- 5: `pio deploy --native` (a subprocess) ---------------------------
+        t0 = time.perf_counter()
+        d = deployed(engine_json, os.path.join(work, "deploy_native.log"),
+                     extra=("--native", "--engine-instance-id", iid,
+                            *dev_args), phase="phase 15")
+        procs.append(d)
+        out["native_start_s"] = time.perf_counter() - t0
+        if not d.device.startswith(dev.type) or d.instance != iid:
+            die(f"phase 15: pio deploy --native serves {d.instance} on "
+                f"{d.device}")
+        alive = json.loads(d.get("/"))
+        if alive != {"status": "alive", "frontend": "native"}:
+            die(f"phase 15: the native frontend's / answered {alive}")
+        post_json(f"{d.base}/queries.json", warm)
+        nbodies, nlats, _, nwall = sched_drive(
+            d.base, queries[:SCHED_NATIVE], SCHED_CLIENTS, work)
+        for q, b, a in zip(queries, nbodies, answers):
+            answers_agree(json.loads(b), a, f"phase 15 native {q}",
+                          mods["topk_mismatch"])
+        fe_metrics = d.get("/metrics")
+        d.stop()
+        procs.remove(d)
+        nlaunch = (d.launches or {}).get("fused_topk", 0)
+        if not 1 < nlaunch <= SCHED_NATIVE + 1:       # + the warm-up
+            die(f"phase 15: the native deploy launched fused_topk "
+                f"{nlaunch} times")
+        out.update(native_launches=nlaunch,
+                   native_recs_per_s=SCHED_NATIVE / nwall,
+                   native_client_p50_ms=pct(nlats, 0.5) * 1e3,
+                   native_client_p99_ms=pct(nlats, 0.99) * 1e3,
+                   native_metrics=" ".join(
+                       ln for ln in fe_metrics.splitlines()
+                       if ln.startswith(("pio_frontend_batches_total",
+                                         "pio_frontend_mean_batch_size"))))
+        for srv in servers:
+            srv.stop()
+        servers.clear()
+        del items_d
+
+        # -- 6: `pio eventserver --native`: SDK ingest, export, SIGTERM -------
+        import re
+
+        cols = tuple(c[:SCHED_EVENTS] for c in ml1m_events(seed))
+        said = run_cli("app", "new", "chipsched", phase="phase 15")
+        key = re.search(r"Access Key: (\S+)", said).group(1)
+        app_id = re.search(r"ID: (\d+)", said)
+        app_id = app_id.group(1) if app_id else "1"
+        es = eventserver_proc(os.path.join(work, "eventserver_native.log"),
+                              extra=("--native",), phase="phase 15")
+        procs.append(es)
+        ready = es.get("/ready")
+        if ready["status"] != "ready":
+            die(f"phase 15: the native event server's /ready is {ready}")
+        ewall, elats, _ = es_ingest(es.base, key, cols, SCHED_EVENTS,
+                                    phase="phase 15")
+        exported = os.path.join(work, "export_native.jsonl")
+        said = run_cli("export", "--appid", app_id, "--output", exported,
+                       phase="phase 15")
+        if f"Exported {SCHED_EVENTS} events" not in said:
+            die(f"phase 15: export said {said!r}")
+        es_export_matches(exported, cols, SCHED_EVENTS, phase="phase 15")
+        es.drain()
+        procs.remove(es)
+        out.update(es_events_per_s=SCHED_EVENTS / ewall,
+                   es_batch_p50_ms=pct(elats, 0.5) * 1e3)
+    finally:
+        for p_ in procs:
+            p_.kill()
+        for srv in servers:
+            srv.stop()
+        reset_storage()
+        env.__exit__()
+        shutil.rmtree(work, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - phase_t0
+    log(f"phase 15 scheduler: ML-25M shape {ML25M_USERS}x{ML25M_ITEMS} "
+        f"rank {RANK} on the chunked rung, default SchedulerConfig "
+        f"(batcher and autotuner on, depth 128, max batch 64): {n} "
+        f"/queries.json from {SCHED_CLIENTS} clients x {SCHED_PER_CLIENT} "
+        f"({SCHED_CLIENT_PROCS} client processes), distinct users, in "
+        f"{out['wall_s']:.2f} s = "
+        f"{out['recs_per_s']:.1f} recs/s; client p50 "
+        f"{out['client_p50_ms']:.2f} ms, p99 {out['client_p99_ms']:.2f} "
+        f"ms; server p50 {out['server_p50_ms']:.2f} ms, p99 "
+        f"{out['server_p99_ms']:.2f} ms; {out['dispatches']} dispatches "
+        f"= {out['launches']} fused_topk launches, mean cohort "
+        f"{out['mean_cohort']:.2f}, largest {out['largest_cohort']}, by "
+        f"size {json.dumps(out['cohorts_by_size'])}; autotuner settled at "
+        f"window {out['window_ms']} ms, max batch {out['max_batch']}, "
+        f"served p99 {out['served_p99_ms']} ms; max |score err| "
+        f"{out['err']:.3g}; card {card}")
+    log(f"phase 15 cache: the same {n} queries again: {out['cache_hits']} "
+        f"result-cache hits, every body byte-equal, 0 launches; "
+        f"{out['cache_recs_per_s']:.1f} recs/s, client p50 "
+        f"{out['cache_client_p50_ms']:.2f} ms, p99 "
+        f"{out['cache_client_p99_ms']:.2f} ms, server p50 "
+        f"{out['cache_server_p50_ms']:.2f} ms; hit rate "
+        f"{out['cache_hit_rate']:.3f}")
+    log(f"phase 15 inline (batcher off): {SCHED_INLINE} queries from 8 "
+        f"clients, {out['inline_launches']} fused_topk launches, "
+        f"{out['inline_recs_per_s']:.1f} recs/s, client p50 "
+        f"{out['inline_client_p50_ms']:.2f} ms; answers equal")
+    log(f"phase 15 native: `pio deploy --native` started in "
+        f"{out['native_start_s']:.2f} s, {SCHED_NATIVE} queries from "
+        f"{SCHED_CLIENTS} clients equal to the Python path's, "
+        f"{out['native_recs_per_s']:.1f} recs/s, client p50 "
+        f"{out['native_client_p50_ms']:.2f} ms, p99 "
+        f"{out['native_client_p99_ms']:.2f} ms, fused_topk launches "
+        f"{out['native_launches']} ({out['native_metrics']}); POST /stop "
+        f"exit 0; `pio eventserver --native`: {SCHED_EVENTS} events by "
+        f"sdk.EventClient in batches of {ES_BATCH} from {ES_THREADS} "
+        f"threads, {out['es_events_per_s']:.0f} events/s, batch p50 "
+        f"{out['es_batch_p50_ms']:.2f} ms; export exact; SIGTERM exit 0; "
+        f"the phase {out['phase_s']:.1f} s")
+    if out["phase_s"] > SCHED_LIMIT_S:
+        die(f"phase 15: took {out['phase_s']:.1f} s, over "
+            f"{SCHED_LIMIT_S:.0f} s")
+    return out
+
+
 def post_json(url: str, obj):
     """POST one query; returns (answer, the server's own wall ms)."""
     req = urllib.request.Request(
         url, data=json.dumps(obj).encode(), method="POST",
         headers={"Content-Type": "application/json"})
     with urllib.request.urlopen(req, timeout=120) as r:
-        return json.loads(r.read()), float(r.headers["X-PIO-Server-Ms"])
+        # the native frontend sends no X-PIO-Server-Ms
+        return json.loads(r.read()), float(
+            r.headers.get("X-PIO-Server-Ms", "nan"))
 
 
 def answer_arrays(answer, num):
@@ -3476,7 +3967,11 @@ def main() -> int:
     es = eventserver_phase(dev, args.seed, mods, card)
     torch.cuda.empty_cache()
 
-    # -- phase 15: report --------------------------------------------------
+    # -- phase 15: the serving scheduler, the result cache, --native ------
+    sched = scheduler_phase(dev, args.seed, users_np, items_np, mods, card)
+    torch.cuda.empty_cache()
+
+    # -- phase 16: report --------------------------------------------------
     main_shape = timings[(ML25M_ITEMS, 1, 10)]
     b64 = timings[(ML25M_ITEMS, 64, 10)]   # a full batch of query_batch
     kernels = [{
@@ -3485,7 +3980,8 @@ def main() -> int:
         "source": "predictionio_tpu_torch/csrc/fused_topk.cu",
         "replaces": "predictionio_tpu/ops/pallas_kernels.py:444",
         "launches": main_launches + loop["launches"]["fused_topk"]
-        + es["launches"]["fused_topk"],
+        + es["launches"]["fused_topk"] + sched["launches"]
+        + sched["inline_launches"] + sched["native_launches"],
         "max_abs_err": max(max_err, err, err4),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -3558,7 +4054,10 @@ def main() -> int:
     log(f"launches: fused_topk {main_launches} on the serve path (phase "
         f"4) + {loop['launches']['fused_topk']} on the CLI path (phase 12: "
         f"batchpredict and eval) + {es['launches']['fused_topk']} in phase "
-        f"14's deploy process, {dase_topk} on the DASE path; training "
+        f"14's deploy process + {sched['launches']} coalesced, "
+        f"{sched['inline_launches']} inline and "
+        f"{sched['native_launches']} in the native deploy process (phase "
+        f"15), {dase_topk} on the DASE path; training "
         f"kernels per the train run (fused_gram, ridge_solve_lu) + the CLI "
         f"path's train and eval ({loop['launches']['fused_gram']}, "
         f"{loop['launches']['ridge_solve_lu']}), the similarproduct and "

@@ -12,7 +12,10 @@ reference's output lines::
     pio train        --engine-json engine.json [--seed N] [--device D]
     pio eval         <EvaluationClass> <EngineParamsGeneratorClass>
     pio deploy       --engine-json engine.json --port 8000 [--device D]
-    pio eventserver  --ip 0.0.0.0 --port 7070
+                     [--native] [--max-batch N] [--max-wait-us U]
+                     [--no-batcher] [--batch-window-ms MS]
+                     [--queue-depth N] [--batch-p99-target-ms MS]
+    pio eventserver  --ip 0.0.0.0 --port 7070 [--native]
     pio spill        inspect|drain|requeue-dead [--dir D] [--backend B]
     pio batchpredict --input q.ndjson --output p.ndjson [--device D]
     pio import       --appid N --input events.ndjson [--from-line L]
@@ -23,10 +26,14 @@ files under ``PIO_HOME``), so ``train`` in one process and ``deploy`` in
 another share it.  ``--device`` takes the place of the reference's
 ``--mesh`` / ``JAX_PLATFORMS``: the CUDA card by default, the CPU only
 when ``--device cpu`` is given; without CUDA a verb that computes fails
-rather than run on the CPU.  Flags whose substrate the port does not
-have yet (the refresh daemon, train and eval checkpoints, the input
-pipeline, the serving scheduler and the native frontends of ``deploy``
-and ``eventserver``) are not defined, so argparse rejects them by name.
+rather than run on the CPU.  ``deploy``'s scheduler flags override the
+``PIO_BATCH_*`` / ``PIO_QUEUE_*`` knobs; ``--native`` serves through
+the C++ continuous-batching frontend, built from the port's own source
+at first use (a failed build ends the verb with the compiler's message;
+there is no fallback to the Python transport).  Flags whose substrate
+the port does not have yet (the refresh daemon, train and eval
+checkpoints, the input pipeline, the mesh) are not defined, so argparse
+rejects them by name.
 """
 
 from __future__ import annotations
@@ -365,11 +372,24 @@ def _install_drain_handlers(drain) -> None:
 
 def cmd_deploy(args) -> int:
     from predictionio_tpu_torch.server.engine_server import EngineServer
+    from predictionio_tpu_torch.serving import SchedulerConfig
 
     variant, engine = _variant_and_engine(args)
+    # Serving-scheduler knobs: flags override the PIO_BATCH_*/PIO_QUEUE_*
+    # env (SchedulerConfig.from_env ignores None overrides).
+    sched_cfg = SchedulerConfig.from_env(
+        enabled=False if args.no_batcher else None,
+        window_ms=args.batch_window_ms,
+        queue_depth=args.queue_depth,
+        max_batch=args.max_batch,
+        p99_target_ms=args.batch_p99_target_ms,
+    )
     srv = EngineServer(engine, variant, _storage(), host=args.ip,
                        port=args.port, device=_device(args),
-                       instance_id=args.engine_instance_id)
+                       instance_id=args.engine_instance_id,
+                       scheduler_config=sched_cfg)
+    if args.native:
+        return _deploy_native(args, srv, sched_cfg)
     _install_drain_handlers(srv.stop)
     srv.start(block=False)
     thread = srv._thread
@@ -383,12 +403,93 @@ def cmd_deploy(args) -> int:
     return 0
 
 
+def _deploy_native(args, srv, sched_cfg) -> int:
+    """``pio deploy --native``: the C++ frontend answers ``/queries.json``
+    in batches through ``srv.query_batch``; every other route goes to
+    ``srv.handle`` (``GET /`` and ``GET /metrics`` stay the frontend's
+    own), ``POST /stop`` ends the verb with exit 0."""
+    import threading
+
+    from predictionio_tpu_torch.native.frontend import NativeFrontend
+
+    stop_event = threading.Event()
+
+    def engine_fallback(method, path_with_qs, body):
+        # /stop must stop the FRONTEND, and not from inside its own
+        # callback thread (pio_frontend_stop joins the batchers): answer
+        # first, then the main thread tears down.
+        path = path_with_qs.split("?", 1)[0]
+        if path == "/stop" and method == "POST":
+            stop_event.set()
+            return 200, {"status": "stopping"}
+        return srv.handle(method, path, body)
+
+    try:
+        # One batch ceiling for both batching stacks: the flag beats
+        # PIO_BATCH_MAX beats 64.
+        fe = NativeFrontend(srv.query_batch, host=args.ip, port=args.port,
+                            max_batch=sched_cfg.max_batch,
+                            max_wait_us=args.max_wait_us,
+                            fallback=engine_fallback,
+                            plugin_hook=(srv.plugins.header_block
+                                         if srv.plugins else None))
+    except RuntimeError as e:
+        srv.stop()
+        _die(f"native frontend unavailable: {e}")
+
+    def _drain_native_deploy():
+        fe.stop()
+        srv.stop()
+
+    _install_drain_handlers(_drain_native_deploy)
+    port = fe.start()
+    print(f"Native engine frontend on {args.ip}:{port} "
+          f"(instance {srv._instance.id}; device {srv.ctx.device}; "
+          f"continuous batching ≤{sched_cfg.max_batch}; Ctrl-C to stop)",
+          flush=True)
+    try:
+        stop_event.wait()
+    except KeyboardInterrupt:
+        pass
+    _drain_native_deploy()
+    return 0
+
+
 def cmd_eventserver(args) -> int:
     """The event server over the storage registry; prints the bound port
-    (``--port 0`` picks a free one) and drains on SIGTERM/SIGINT."""
+    (``--port 0`` picks a free one) and drains on SIGTERM/SIGINT.
+    ``--native`` serves through the C++ frontend, which groups concurrent
+    single-event POSTs into one insert."""
     from predictionio_tpu_torch.server.event_server import EventServer
 
     srv = EventServer(storage=_storage(), host=args.ip, port=args.port)
+    if args.native:
+        import threading
+
+        from predictionio_tpu_torch.native.frontend import NativeFrontend
+
+        try:
+            fe = NativeFrontend(None, host=args.ip, port=args.port,
+                                fallback_batch=srv.native_fallback_batch,
+                                plugin_hook=(srv.plugins.header_block
+                                             if srv.plugins else None))
+        except RuntimeError as e:
+            srv.stop()
+            _die(f"native frontend unavailable: {e}")
+
+        def _drain_native():
+            fe.stop()
+            srv.drain()
+
+        _install_drain_handlers(_drain_native)
+        port = fe.start()
+        print(f"Event Server (native frontend) listening on "
+              f"{args.ip}:{port} (Ctrl-C to stop)", flush=True)
+        try:
+            threading.Event().wait()
+        except KeyboardInterrupt:
+            _drain_native()
+        return 0
     _install_drain_handlers(srv.drain)
     srv.start(block=False)
     print(f"Event Server listening on {args.ip}:{srv.port} "
@@ -766,6 +867,29 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--ip", default="0.0.0.0")
     d.add_argument("--port", type=int, default=8000)
     d.add_argument("--engine-instance-id", dest="engine_instance_id")
+    d.add_argument("--native", action="store_true",
+                   help="serve via the C++ continuous-batching frontend")
+    d.add_argument("--max-batch", type=int, default=None,
+                   help="max queries per batched dispatch — applies to "
+                        "the serving scheduler AND the native frontend "
+                        "(default env PIO_BATCH_MAX, else 64)")
+    d.add_argument("--max-wait-us", type=int, default=2000,
+                   help="the native frontend's linger for stragglers")
+    d.add_argument("--no-batcher", action="store_true",
+                   help="disable the serving micro-batcher (per-request "
+                        "dispatch; admission control stays on)")
+    d.add_argument("--batch-window-ms", dest="batch_window_ms", type=float,
+                   default=None,
+                   help="initial batch gather window (default env "
+                        "PIO_BATCH_WINDOW_MS, else 2.0; autotuned live)")
+    d.add_argument("--queue-depth", dest="queue_depth", type=int,
+                   default=None,
+                   help="admission queue depth; full queue answers 429 "
+                        "(default env PIO_QUEUE_DEPTH, else 128)")
+    d.add_argument("--batch-p99-target-ms", dest="batch_p99_target_ms",
+                   type=float, default=None,
+                   help="autotuner served-latency p99 target (default env "
+                        "PIO_BATCH_P99_TARGET_MS, else 100)")
     _device_flag(d)
     d.set_defaults(fn=cmd_deploy)
 
@@ -773,6 +897,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="start the event ingestion server")
     es.add_argument("--ip", default="0.0.0.0")
     es.add_argument("--port", type=int, default=7070)
+    es.add_argument("--native", action="store_true",
+                    help="serve through the C++ continuous-batching "
+                         "frontend (group-committed ingest)")
     es.set_defaults(fn=cmd_eventserver)
 
     sp = sub.add_parser("spill", help="inspect/drain the storage-outage "

@@ -4,17 +4,21 @@ Port of the core of ``predictionio_tpu/server/engine_server.py``
 (reference: core/.../workflow/CreateServer.scala): resolve the latest
 COMPLETED engine instance, load its models onto the serving device,
 answer ``POST /queries.json`` through ``Algorithm.batch_predict`` →
-``Serving.serve``, a status page at ``GET /`` and the process metrics at
-``GET /metrics``.
+``Serving.serve``, a status page at ``GET /``, counters at
+``GET /stats.json`` and the process metrics at ``GET /metrics``.
 
-Every query path is the batched dispatch :meth:`EngineServer.
-_dispatch_batch` — the function the serving scheduler will drive: a
-``/queries.json`` request is a cohort of one, ``query_batch`` (the
-``pio batchpredict`` path) a cohort of many.  Server plugins load from
-``PIO_ENGINESERVER_PLUGINS`` (:mod:`.plugins`), started last.  The
-scheduler and micro-batcher, the result cache, staged-reload validation
-and rollback, and the quality/recall/SLO monitors arrive with later
-slices.
+Every ``/queries.json`` goes bind → the result cache
+(:mod:`predictionio_tpu_torch.serving.result_cache`) → the serving
+scheduler (:class:`~predictionio_tpu_torch.serving.ServingScheduler`:
+admission queue, micro-batcher, p99 autotuner) → the batched dispatch
+:meth:`EngineServer._dispatch_batch`, so concurrent requests share one
+``batch_predict`` call — on the card, one launch of the top-k kernel at
+B = cohort size.  The answer fills the cache under the generation the
+dispatch returned.  ``query_batch`` (``pio batchpredict``, the native
+frontend) calls the dispatch directly with its own cohort.  Server
+plugins load from ``PIO_ENGINESERVER_PLUGINS`` (:mod:`.plugins`),
+started last.  Staged-reload validation and rollback, and the
+quality/recall/SLO monitors, arrive with later slices.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import dataclasses
 import datetime as _dt
 import json
 import logging
+import os
 import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -37,8 +42,20 @@ from predictionio_tpu_torch.controller import (
 from predictionio_tpu_torch.controller.params import bind_params
 from predictionio_tpu_torch.data.storage import Storage
 from predictionio_tpu_torch.obs import get_registry
+from predictionio_tpu_torch.resilience import deadline as _deadline
+from predictionio_tpu_torch.resilience.deadline import DeadlineExceeded
 from predictionio_tpu_torch.server.http import BaseHandler, ThreadingHTTPServer
 from predictionio_tpu_torch.server.plugins import PluginManager
+from predictionio_tpu_torch.serving import (
+    QueueFull,
+    ResultCache,
+    ResultCacheConfig,
+    SchedulerClosed,
+    SchedulerConfig,
+    SchedulerStalled,
+    ServingScheduler,
+    canonical_query,
+)
 from predictionio_tpu_torch.workflow.core_workflow import (
     WorkflowError,
     instance_engine_params,
@@ -50,6 +67,7 @@ logger = logging.getLogger(__name__)
 __all__ = ["EngineServer", "QueryError"]
 
 _DC_FIELDS: Dict[type, Tuple[str, ...]] = {}
+_JSON_CTYPE = "application/json; charset=UTF-8"
 
 
 def _dc_to_json(obj: Any) -> Any:
@@ -87,12 +105,23 @@ class _QueryMetrics:
             "pio_query_errors_total", "Predict requests that failed.")
         self.latency = self.registry.histogram(
             "pio_query_latency_ms", "Predict request latency.")
+        self.shed = self.registry.counter(
+            "pio_deadline_shed_total",
+            "Requests shed with 504 because their deadline expired.",
+            ("server",))
 
     def record(self, ms: float, ok: bool) -> None:
         self.requests.inc()
         if not ok:
             self.errors.inc()
         self.latency.observe(ms)
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {"requestCount": int(self.requests.value()),
+                "errorCount": int(self.errors.value()),
+                "latencyMs": {"p50": self.latency.quantile(0.5),
+                              "p95": self.latency.quantile(0.95),
+                              "p99": self.latency.quantile(0.99)}}
 
 
 class EngineServer:
@@ -107,6 +136,9 @@ class EngineServer:
     COMPLETED instance of the variant.  ``plugins`` is a
     :class:`~predictionio_tpu_torch.server.plugins.PluginManager`; by
     default the specs of ``PIO_ENGINESERVER_PLUGINS``.
+    ``scheduler_config`` sets the serving scheduler (default
+    :meth:`SchedulerConfig.from_env`); the result cache reads
+    ``PIO_RESULT_CACHE*`` (:meth:`ResultCacheConfig.from_env`).
     """
 
     def __init__(
@@ -120,6 +152,7 @@ class EngineServer:
         device=None,
         instance_id: Optional[str] = None,
         plugins: Optional[PluginManager] = None,
+        scheduler_config: Optional[SchedulerConfig] = None,
     ):
         self.engine = engine
         self.variant = variant
@@ -139,6 +172,27 @@ class EngineServer:
         self._serving = None
         self._loaded_at: Optional[_dt.datetime] = None
         self._generation = 0
+        self.retry_after_s = int(os.environ.get("PIO_RETRY_AFTER_S", "5"))
+        # Every /queries.json rides the admission queue + micro-batcher;
+        # handlers never reach the model directly.
+        self.scheduler = ServingScheduler(
+            config=scheduler_config or SchedulerConfig.from_env())
+        self.scheduler.register("default", self._dispatch_batch)
+        # The result cache: the first stop on the query path, keyed by
+        # (instance id, canonical query) so a reload misses by
+        # construction.  Its optional fleet tier rides the storage's
+        # shared KV; a missing or broken KV degrades to the per-instance
+        # LRU and never fails construction.
+        cache_cfg = ResultCacheConfig.from_env()
+        cache_kv = None
+        if cache_cfg.shared:
+            try:
+                cache_kv = self.storage.get_kv()
+            except Exception:
+                logger.warning("result cache: shared tier unavailable; "
+                               "running local-only", exc_info=True)
+        self.result_cache = ResultCache(cache_cfg, registry=self.stats.registry,
+                                        kv=cache_kv)
         self.reload()
         # Server plugin seam (reference: EngineServerPlugin).  Started
         # LAST — after reload() — so plugins see a fully constructed
@@ -182,6 +236,9 @@ class EngineServer:
                 self._loaded_at = _dt.datetime.now(_dt.timezone.utc)
                 self._generation += 1
                 gen = self._generation
+            # The new instance id becomes the cache key's fingerprint:
+            # every entry of the previous generation misses from here.
+            self.result_cache.on_generation(gen, instance.id)
             logger.info("Engine server loaded instance %s (generation %d)",
                         instance.id, gen)
             return instance.id
@@ -243,8 +300,7 @@ class EngineServer:
 
     # -- HTTP ---------------------------------------------------------------
 
-    def handle(self, method: str, path: str, body: bytes
-               ) -> Tuple[int, Any]:
+    def handle(self, method: str, path: str, body: bytes) -> Tuple:
         try:
             if path == "/" and method == "GET":
                 with self._swap_lock:
@@ -259,24 +315,18 @@ class EngineServer:
                     "modelLoadedAt": loaded.isoformat() if loaded else None,
                     "modelGeneration": gen,
                     "device": str(self.ctx.device),
+                    "batcher": self.scheduler.snapshot(),
+                    "resultCache": self.result_cache.snapshot(),
                     "version": __version__,
                 }
             if path == "/metrics" and method == "GET":
                 return 200, self.stats.registry.render()
+            if path == "/stats.json" and method == "GET":
+                return 200, {**self.stats.snapshot(),
+                             "batcher": self.scheduler.snapshot(),
+                             "resultCache": self.result_cache.snapshot()}
             if path == "/queries.json" and method == "POST":
-                t0 = time.perf_counter()
-                try:
-                    q = self._bind_query(json.loads(body.decode("utf-8")))
-                    result = self._dispatch_batch([q])[0][0]
-                except (QueryError, ValueError) as e:
-                    self.stats.record((time.perf_counter() - t0) * 1e3, False)
-                    return 400, {"message": str(e)}
-                except Exception:
-                    self.stats.record((time.perf_counter() - t0) * 1e3, False)
-                    logger.exception("query failed")
-                    return 500, {"message": "Internal server error."}
-                self.stats.record((time.perf_counter() - t0) * 1e3, True)
-                return 200, result
+                return self._answer_query(body)
             if path == "/stop" and method == "POST":
                 # The handler stops the server once this answer is written
                 # (Handler.do_POST).
@@ -286,12 +336,84 @@ class EngineServer:
             logger.exception("engine server internal error")
             return 500, {"message": "Internal server error."}
 
+    def _answer_query(self, body: bytes) -> Tuple:
+        """``POST /queries.json``: bind → result cache → scheduler →
+        cache fill under the dispatch's generation → the respond gate.
+        A 200 body is the compact JSON the cache keeps, so a hit and the
+        miss that filled it answer the same bytes."""
+        t0 = time.perf_counter()
+        try:
+            # Shed BEFORE admission: a request whose budget is spent must
+            # not occupy a queue slot.
+            _deadline.check("predict")
+            # Bind BEFORE admission: a malformed query 400s on this thread
+            # and never occupies a queue slot or fails its cohort.
+            q = self._bind_query(json.loads(body.decode("utf-8")))
+            canon = None
+            if self.result_cache.enabled:
+                try:
+                    canon = canonical_query(q)
+                except TypeError:
+                    canon = None  # uncacheable query shape
+                hit = (self.result_cache.lookup(canon)
+                       if canon is not None else None)
+                if hit is not None:
+                    # Same never-late-200 gate as the dispatch path.
+                    _deadline.check("respond")
+                    self.stats.record((time.perf_counter() - t0) * 1e3, True)
+                    return 200, hit.result_bytes, _JSON_CTYPE
+            # The ONLY route to the model: admission queue → micro-batcher
+            # → one vectorized dispatch for the cohort.
+            result, generation = self.scheduler.submit_and_wait(
+                "default", q)
+            # Fill under the generation the dispatch RETURNED — never
+            # "current" — so a mid-flight reload cannot cache generation
+            # A's answer under B's key.  Before the respond gate: a late
+            # result still warms the cache for the retry.
+            if canon is not None:
+                self.result_cache.fill(canon, result, generation)
+            # A result that arrived past its own deadline is never served
+            # as a slow 200.
+            _deadline.check("respond")
+            self.stats.record((time.perf_counter() - t0) * 1e3, True)
+            return (200, json.dumps(result, separators=(",", ":")).encode(),
+                    _JSON_CTYPE)
+        except QueueFull as e:
+            # Admission rejected: 429 + Retry-After (the transport adds
+            # the hint) — the requests already admitted keep their
+            # latency.
+            self.stats.record((time.perf_counter() - t0) * 1e3, False)
+            return 429, {"message": str(e)}
+        except DeadlineExceeded as e:
+            self.stats.shed.inc(server="engine")
+            self.stats.record((time.perf_counter() - t0) * 1e3, False)
+            return 504, {"message": str(e)}
+        except (SchedulerStalled, SchedulerClosed) as e:
+            self.stats.record((time.perf_counter() - t0) * 1e3, False)
+            return 503, {"message": f"Temporarily unavailable: {e}"}
+        except (QueryError, ValueError) as e:
+            self.stats.record((time.perf_counter() - t0) * 1e3, False)
+            return 400, {"message": str(e)}
+        except Exception:
+            self.stats.record((time.perf_counter() - t0) * 1e3, False)
+            logger.exception("query failed")
+            return 500, {"message": "Internal server error."}
+
     def _make_handler(server_self):
         class Handler(BaseHandler):
             server_log_name = "engine-server"
+            # Predicts are read-only: a 200 computed past its budget is
+            # safely rewritten to 504 at the transport (never-late-200).
+            shed_late_responses = True
 
             def pio_handle(self, method, path, params, body):
                 return server_self.handle(method, path, body)
+
+            def pio_shed(self):
+                server_self.stats.shed.inc(server="engine")
+
+            def pio_retry_after_s(self):
+                return server_self.retry_after_s
 
             def pio_on_complete(self, method, path, status, ms, body,
                                 params):
@@ -333,4 +455,5 @@ class EngineServer:
         thread, self._thread = self._thread, None
         if thread is not None and thread is not threading.current_thread():
             thread.join(timeout=10)
+        self.scheduler.close()
         self.plugins.stop()

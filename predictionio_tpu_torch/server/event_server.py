@@ -2,10 +2,11 @@
 
 Port of ``predictionio_tpu/server/event_server.py``: the same routes,
 status codes and JSON bodies, the same exactly-once batch ids, the same
-breaker, spill and admission behaviour.  It never touches the card; the
-verbs that train and serve what it ingested do.  Not ported yet: the
-columnar segment tee (``/ready`` reports ``diskDegraded: false`` and no
-segment fields), the native frontend's ``native_fallback_batch``,
+breaker, spill and admission behaviour, and the same entry for the
+native frontend (``native_fallback_batch``: ``pio eventserver
+--native``).  It never touches the card; the verbs that train and serve
+what it ingested do.  Not ported yet: the columnar segment tee
+(``/ready`` reports ``diskDegraded: false`` and no segment fields),
 ``/traces.json`` (404 here) and the feedback join of the quality layer.
 
 Reference: data/.../data/api/EventServer.scala + EventServiceActor routes
@@ -40,7 +41,7 @@ import threading
 import time
 import uuid
 from typing import Any, Dict, List, Optional, Tuple
-from urllib.parse import parse_qsl
+from urllib.parse import parse_qs, parse_qsl, urlparse
 
 from predictionio_tpu_torch.data.event import EventValidationError
 from predictionio_tpu_torch.data.json_support import (
@@ -712,6 +713,75 @@ class EventServer:
                 self.dispatch("DELETE")
 
         return Handler
+
+    # -- native frontend entry ---------------------------------------------
+
+    def native_fallback_batch(self, method: str, path_with_qs: str,
+                              bodies: List[bytes]):
+        """Batch entry for the C++ frontend: a run of same-route requests.
+
+        A run of concurrent single-event POSTs becomes ONE group-committed
+        ``create_batch`` through the same fold as ``/batch/events.json``
+        — the per-request transaction commit is the single-event ingest
+        ceiling.  Auth is query-param accessKey only (the native layer
+        does not forward headers, so basic-auth clients must use the
+        Python frontend).  Every item gets its own answer.
+        """
+        t0 = time.perf_counter()
+        parsed = urlparse(path_with_qs)
+        params = parse_qs(parsed.query)
+        path = parsed.path
+        if method == "POST" and path == "/events.json" and len(bodies) > 1:
+            outs_named = self._ingest_group(params, bodies)
+        else:
+            outs_named = []
+            for b in bodies:
+                # handle() is total (decode errors → 400, the rest → 500);
+                # the guard keeps the answered-every-item invariant should
+                # that ever regress, so peers whose inserts committed are
+                # never 500'd into client-retry duplicates.
+                try:
+                    status, payload = self.handle(method, path, params, b)
+                except Exception:
+                    logger.exception("native fallback item failed")
+                    status, payload = 500, {"message":
+                                            "Internal server error."}
+                name = None
+                if method == "POST" and path == "/events.json" \
+                        and status == 201:
+                    try:  # single body, cold path — one extra parse is fine
+                        name = json.loads(b).get("event")
+                    except Exception:
+                        name = None
+                outs_named.append((status, payload, name))
+        dt = (time.perf_counter() - t0) * 1e3 / max(len(bodies), 1)
+        for status, _, name in outs_named:
+            self.stats.record(status, name, dt)
+        if method == "GET" and path == "/metrics":
+            # Explicit Prometheus exposition content type on the wire —
+            # the native layer would otherwise label the text plain UTF-8.
+            return [(s, p, "text/plain; version=0.0.4")
+                    if isinstance(p, str) else (s, p)
+                    for s, p, _ in outs_named]
+        return [(s, p) for s, p, _ in outs_named]
+
+    def _ingest_group(self, params, bodies: List[bytes]):
+        """Decode each body, then the shared validate+group-insert fold;
+        a bad key or channel answers every item alike."""
+        key_row, err = self._auth(params, None)
+        if err:
+            return [(err, {"message": "Invalid accessKey."}, None)] \
+                * len(bodies)
+        channel_id, cerr = self._resolve_channel(key_row.app_id, params)
+        if cerr:
+            return [(400, {"message": cerr}, None)] * len(bodies)
+        items: List[Any] = []
+        for body in bodies:
+            try:
+                items.append(json.loads(body.decode("utf-8")))
+            except ValueError as e:  # JSONDecodeError + UnicodeDecodeError
+                items.append(ValueError(f"Invalid JSON: {e}"))
+        return self._fold_insert(key_row, channel_id, items)
 
     @staticmethod
     def _parse_batch_body(body: bytes, headers) -> Any:

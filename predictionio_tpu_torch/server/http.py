@@ -12,16 +12,20 @@ Port of ``predictionio_tpu/server/http.py``:
   delayed ACK between a multi-write response and a keep-alive client
   stalls every request ~40 ms), debug-level access logs, and the one
   request path :meth:`BaseHandler.dispatch`: the ``X-PIO-Deadline-Ms``
-  scope with optional pre-handle shedding (504), the per-server
-  completion hook (stats and plugins), the server's own wall time
-  (``X-PIO-Server-Ms``) and the ``Retry-After`` hint on degraded
-  answers.  Subclasses implement :meth:`BaseHandler.pio_handle` and
-  override the small hooks below it.
+  scope with optional pre-handle shedding (504), the never-late-200
+  rewrite of a read-only answer that came back past its budget (504,
+  ``shed_late_responses``) with its ``X-PIO-Deadline-Remaining-Ms``
+  attestation, the per-server completion hook (stats and plugins), the
+  server's own wall time (``X-PIO-Server-Ms``) and the ``Retry-After``
+  hint on degraded answers.  Subclasses implement
+  :meth:`BaseHandler.pio_handle` and override the small hooks below it.
+  A handler answers ``(status, payload)``, or ``(status, payload,
+  content_type)`` when the payload is already the body (the result
+  cache's hit bytes).
 
 The reference's dispatch also opens a trace root with ``http.*`` spans
 and feeds the latency waterfall; those arrive with the port's trace
-layer, as do ``traces_payload`` and ``timeline_payload``, and so do the
-handler results that name their own content type (the dashboard's).
+layer, as do ``traces_payload`` and ``timeline_payload``.
 """
 
 from __future__ import annotations
@@ -125,6 +129,13 @@ class BaseHandler(BaseHTTPRequestHandler):
     # Shed with 504 BEFORE pio_handle when the deadline is already spent
     # (the event server's pre-auth shed).
     shed_pre_handle = False
+    # Rewrite a 2xx whose budget ran out DURING handling into a 504 (an
+    # expired request gets 504, never a slow 200).  The verdict and the
+    # X-PIO-Deadline-Remaining-Ms attestation are ONE measurement, so a
+    # 200 always attests positive remaining budget.  Only safe on
+    # non-mutating frontends — the engine server opts in; an event-server
+    # write that SUCCEEDED must report its success.
+    shed_late_responses = False
     # Degraded answers that carry the Retry-After backoff hint: spill
     # accepts (202), admission rejections (429), and unavailability
     # (503) all want the client to come back, just later.
@@ -134,9 +145,9 @@ class BaseHandler(BaseHTTPRequestHandler):
 
     def pio_handle(self, method: str, path: str,
                    params: Dict[str, List[str]], body: bytes
-                   ) -> Tuple[int, Any]:
-        """Handle one request; returns (status, payload) and runs inside
-        the deadline scope."""
+                   ) -> Tuple:
+        """Handle one request inside the deadline scope; returns (status,
+        payload) or (status, body, content_type)."""
         raise NotImplementedError
 
     def pio_on_complete(self, method: str, path: str, status: int,
@@ -165,25 +176,44 @@ class BaseHandler(BaseHTTPRequestHandler):
         params = parse_qs(parsed.query)
         length = int(self.headers.get("Content-Length") or 0)
         body = self.rfile.read(length) if length else b""
+        remaining: Optional[float] = None
         with _deadline.deadline_scope(incoming_deadline_ms(self.headers)):
             if self.shed_pre_handle and _deadline.exceeded():
                 # A request whose budget is already gone must not queue
                 # behind auth/storage.
                 self.pio_shed()
-                status, payload = 504, {"message": "Deadline exceeded."}
+                out: Tuple = (504, {"message": "Deadline exceeded."})
             else:
-                status, payload = self.pio_handle(method, parsed.path,
-                                                  params, body)
+                out = self.pio_handle(method, parsed.path, params, body)
+                remaining = _deadline.remaining_ms()
+        status, payload = out[0], out[1]
+        ctype = out[2] if len(out) == 3 else None
+        if (self.shed_late_responses and remaining is not None
+                and remaining <= 0 and 200 <= status < 300):
+            # The handler answered, but past its budget: the client
+            # stopped waiting — 504, not a slow 2xx (see class attr).
+            self.pio_shed()
+            status, payload, ctype = 504, {
+                "message": "Deadline exceeded before response."}, None
         ms = (time.perf_counter() - t0) * 1e3
         extra = dict(self.pio_on_complete(method, parsed.path, status, ms,
                                           body, params) or {})
         # The server's own read+handle wall time: clients use it to
         # attribute client-vs-server latency.
         extra.setdefault("X-PIO-Server-Ms", f"{ms:.1f}")
+        if remaining is not None:
+            # Deadline attestation: the SAME reading the late-shed verdict
+            # used (only NEGATIVE values are late; formatting may floor a
+            # sliver to 0.00).
+            extra.setdefault("X-PIO-Deadline-Remaining-Ms",
+                             f"{remaining:.2f}")
         retry_after = self.pio_retry_after_s()
         if retry_after is not None and status in self.retry_after_statuses:
             extra.setdefault("Retry-After", str(retry_after))
-        data, ctype = payload_bytes(payload)
+        if ctype is None:
+            data, ctype = payload_bytes(payload)
+        else:
+            data = payload.encode() if isinstance(payload, str) else payload
         self.respond(status, data, ctype, extra, request_id=request_id)
 
     def respond(self, status: int, data: bytes, ctype: str,

@@ -161,6 +161,14 @@ class PluginManager:
                                  getattr(p, "name", p))
         return headers
 
+    def header_block(self, route: str, status: int, ms: float) -> str:
+        """CRLF-joined header lines for the native frontend's
+        ``pio_batch_respond_ex``; empty string when nothing to inject."""
+        headers = self.on_request(route, status, ms)
+        if not headers:
+            return ""
+        return "".join(f"{k}: {v}\r\n" for k, v in headers.items())
+
     def stop(self) -> None:
         for p in self.plugins:
             try:

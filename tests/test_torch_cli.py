@@ -227,10 +227,10 @@ def test_status(clean_storage, capsys):
 
 @pytest.mark.parametrize("argv", [
     ["train", "--mesh", "data=8"], ["train", "--follow"],
-    ["train", "--checkpoint-dir", "/tmp/x"], ["deploy", "--native"],
-    ["deploy", "--max-batch", "8"], ["eval", "a:b", "c:d", "--mesh", "x"],
+    ["train", "--checkpoint-dir", "/tmp/x"],
+    ["eval", "a:b", "c:d", "--mesh", "x"],
     ["eval", "a:b", "c:d", "--checkpoint-dir", "/tmp/x"],
-    ["status", "--fleet", "http://x"], ["eventserver", "--native"]])
+    ["status", "--fleet", "http://x"]])
 def test_flags_without_substrate_are_rejected(clean_storage, capsys, argv):
     with pytest.raises(SystemExit) as e:
         main(argv)
@@ -444,3 +444,229 @@ def test_deploy_in_a_subprocess_answers_as_in_process(clean_storage,
             proc.wait(timeout=30)
         proc.stdout.close()
         proc.stderr.close()
+
+
+# -- the serving scheduler's flags and the native frontends -------------------
+
+class _Verb:
+    """``python -m predictionio_tpu_torch.cli <argv>`` in a subprocess,
+    until its first stdout line matches ``pattern``."""
+
+    def __init__(self, argv, pattern):
+        env = {**os.environ, "PYTHONPATH": str(ROOT)}
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "predictionio_tpu_torch.cli", *argv],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        ready, _, _ = select.select([self.proc.stdout], [], [],
+                                    SUBPROCESS_TIMEOUT_S)
+        line = self.proc.stdout.readline() if ready else ""
+        self.match = re.search(pattern, line)
+        if not self.match:
+            self.close()
+            raise AssertionError((line, self.proc.stderr.read()))
+        self.base = f"http://127.0.0.1:{self.match.group(1)}"
+
+    def get(self, path):
+        with urllib.request.urlopen(self.base + path, timeout=30) as r:
+            return r.status, r.read()
+
+    def post(self, path, obj):
+        req = urllib.request.Request(self.base + path,
+                                     data=json.dumps(obj).encode(),
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return json.loads(r.read())
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+        self.proc.stdout.close()
+        self.proc.stderr.close()
+
+
+def _trained(capsys, tmp_path):
+    run(capsys, "app", "new", "qsapp")
+    run(capsys, "import", "--appid", "1", "--input",
+        str(_write_events(tmp_path / "ev.jsonl", n=150)))
+    ej = _variant(tmp_path / "engine.json", rank=4, numIterations=2)
+    assert main(["train", "--engine-json", str(ej), "--device", "cpu"]) == 0
+    return ej
+
+
+def _local_answers(ej, users):
+    from predictionio_tpu_torch.controller import EngineVariant
+    from predictionio_tpu_torch.data.storage import get_storage
+    from predictionio_tpu_torch.server.engine_server import EngineServer
+    from predictionio_tpu_torch.templates.recommendation import engine
+
+    local = EngineServer(engine(), EngineVariant.from_file(ej),
+                         get_storage(), device="cpu")
+    try:
+        return local.query_batch([{"user": u, "num": 5} for u in users])
+    finally:
+        local.stop()
+
+
+def _close(got, want):
+    """Answers of one cohort against another's: the same items, scores
+    within float32 rounding (another batch shape sums in another
+    order)."""
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert [h["item"] for h in g["itemScores"]] == \
+            [h["item"] for h in w["itemScores"]]
+        np.testing.assert_allclose([h["score"] for h in g["itemScores"]],
+                                   [h["score"] for h in w["itemScores"]],
+                                   rtol=1e-5, atol=1e-6)
+
+
+_DEPLOY_LINE = (r"listening on 127\.0\.0\.1:(\d+) \(instance (\w+); "
+                r"device cpu;")
+
+
+def test_deploy_scheduler_flags_reach_the_scheduler(clean_storage, capsys,
+                                                    tmp_path):
+    """``--max-batch``, ``--batch-window-ms``, ``--queue-depth`` and
+    ``--batch-p99-target-ms`` override the PIO_BATCH_* / PIO_QUEUE_*
+    knobs (the env sets others, which the flags beat)."""
+    ej = _trained(capsys, tmp_path)
+    os.environ["PIO_BATCH_MAX"] = "32"
+    os.environ["PIO_QUEUE_DEPTH"] = "99"
+    try:
+        d = _Verb(["deploy", "--engine-json", str(ej), "--device", "cpu",
+                   "--ip", "127.0.0.1", "--port", "0", "--max-batch", "8",
+                   "--batch-window-ms", "5", "--queue-depth", "7",
+                   "--batch-p99-target-ms", "50"], _DEPLOY_LINE)
+    finally:
+        del os.environ["PIO_BATCH_MAX"], os.environ["PIO_QUEUE_DEPTH"]
+    try:
+        users = ["u0", "u3", "ghost"]
+        got = [d.post("/queries.json", {"user": u, "num": 5})
+               for u in users]
+        _close(got, _local_answers(ej, users))
+        snap = json.loads(d.get("/")[1])["batcher"]["default"]
+        assert (snap["batching"], snap["maxBatch"], snap["queueLimit"],
+                snap["windowMs"], snap["p99TargetMs"]) == \
+            (True, 8, 7, 5.0, 50.0)
+        assert snap["requests"] == 3
+        assert d.post("/stop", {}) == {"status": "stopping"}
+        assert d.proc.wait(timeout=SUBPROCESS_TIMEOUT_S) == 0
+    finally:
+        d.close()
+
+
+def test_deploy_no_batcher_dispatches_inline(clean_storage, capsys,
+                                             tmp_path):
+    ej = _trained(capsys, tmp_path)
+    d = _Verb(["deploy", "--engine-json", str(ej), "--device", "cpu",
+               "--ip", "127.0.0.1", "--port", "0", "--no-batcher"],
+              _DEPLOY_LINE)
+    try:
+        users = ["u1", "u2", "u1"]
+        got = [d.post("/queries.json", {"user": u, "num": 5})
+               for u in users]
+        _close(got, _local_answers(ej, users))
+        root = json.loads(d.get("/")[1])
+        snap = root["batcher"]["default"]
+        assert snap["batching"] is False and snap["maxBatch"] == 1
+        assert (snap["dispatches"], snap["requests"]) == (2, 2)
+        assert root["resultCache"]["hits"] == 1      # the repeat of u1
+        assert d.post("/stop", {}) == {"status": "stopping"}
+        assert d.proc.wait(timeout=SUBPROCESS_TIMEOUT_S) == 0
+    finally:
+        d.close()
+
+
+def test_deploy_native_answers_as_in_process(clean_storage, capsys,
+                                             tmp_path):
+    """``pio deploy --native``: the C++ frontend answers /queries.json
+    through the server's batched dispatch, / is its own liveness, other
+    routes reach the engine server, POST /stop exits 0."""
+    ej = _trained(capsys, tmp_path)
+    d = _Verb(["deploy", "--engine-json", str(ej), "--device", "cpu",
+               "--ip", "127.0.0.1", "--port", "0", "--native",
+               "--max-batch", "4", "--max-wait-us", "500"],
+              r"Native engine frontend on 127\.0\.0\.1:(\d+) \(instance "
+              r"(\w+); device cpu; continuous batching ≤4;")
+    try:
+        assert json.loads(d.get("/")[1]) == {"status": "alive",
+                                            "frontend": "native"}
+        users = ["u0", "u4", "u7", "ghost"]
+        got = [d.post("/queries.json", {"user": u, "num": 5})
+               for u in users]
+        _close(got, _local_answers(ej, users))
+        stats = json.loads(d.get("/stats.json")[1])
+        assert "batcher" in stats and "resultCache" in stats
+        assert b"pio_frontend_batches_total" in d.get("/metrics")[1]
+        assert d.post("/stop", {}) == {"status": "stopping"}
+        assert d.proc.wait(timeout=SUBPROCESS_TIMEOUT_S) == 0
+    finally:
+        d.close()
+
+
+def test_deploy_native_build_failure_exits_with_the_compilers_message(
+        clean_storage, capsys, tmp_path, monkeypatch):
+    """No fallback to the Python transport: a frontend that does not
+    build ends the verb non-zero with g++'s message."""
+    from predictionio_tpu_torch.native import build
+
+    ej = _trained(capsys, tmp_path)
+    src = tmp_path / "src"
+    src.mkdir()
+    (src / "serving_frontend.cc").write_text("this is not C++\n")
+    monkeypatch.setattr(build, "SOURCE_DIR", src)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    with pytest.raises(SystemExit) as e:
+        main(["deploy", "--engine-json", str(ej), "--device", "cpu",
+              "--ip", "127.0.0.1", "--port", "0", "--native"])
+    assert e.value.code == 1
+    err = capsys.readouterr().err
+    assert "native frontend unavailable: g++ failed" in err
+    assert "error" in err.split("g++ failed", 1)[1]
+
+
+def test_eventserver_native_ingests_and_drains(clean_storage, capsys,
+                                               tmp_path):
+    """``pio eventserver --native``: SDK single and batch posts through
+    the C++ frontend land exactly once (``pio export``), SIGTERM drains
+    with exit 0."""
+    import signal
+
+    from predictionio_tpu_torch.sdk import EventClient
+
+    code, out = run(capsys, "app", "new", "nativeapp")
+    key = re.search(r"Access Key: (\S+)", out).group(1)
+    es = _Verb(["eventserver", "--ip", "127.0.0.1", "--port", "0",
+                "--native"],
+               r"Event Server \(native frontend\) listening on "
+               r"127\.0\.0\.1:(\d+) ")
+    try:
+        client = EventClient(key, es.base, timeout=30)
+        evs = [{"event": "rate", "entityType": "user", "entityId": f"u{i}",
+                "targetEntityType": "item", "targetEntityId": f"i{i % 3}",
+                "properties": {"rating": float(i % 5 + 1)},
+                "eventTime": f"2026-01-01T00:00:{i:02d}Z"}
+               for i in range(12)]
+        res = client.create_events(evs[:10], batch_token="tk1")
+        assert [r.status for r in res] == [201] * 10
+        assert [r.event_id for r in res] == [f"bttk1.{k}" for k in range(10)]
+        again = client.create_events(evs[:10], batch_token="tk1")
+        assert [r.event_id for r in again] == [r.event_id for r in res]
+        for ev in evs[10:]:
+            assert client.create_event(
+                ev["event"], "user", ev["entityId"], "item",
+                ev["targetEntityId"], ev["properties"],
+                ev["eventTime"]).status == 201
+        assert json.loads(es.get("/ready")[1])["status"] == "ready"
+        es.proc.send_signal(signal.SIGTERM)
+        assert es.proc.wait(timeout=SUBPROCESS_TIMEOUT_S) == 0
+    finally:
+        es.close()
+    dst = tmp_path / "out.ndjson"
+    code, out = run(capsys, "export", "--appid", "1", "--output", str(dst))
+    assert "Exported 12 events" in out
+    rows = sorted((e["entityId"], e["properties"]["rating"])
+                  for e in map(json.loads, dst.read_text().splitlines()))
+    assert rows == sorted((f"u{i}", float(i % 5 + 1)) for i in range(12))

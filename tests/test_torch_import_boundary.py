@@ -66,6 +66,13 @@ EVENT_SERVER_SLICE = (
     "server.event_server", "server.engine_server", "sdk",
 )
 
+# ... and every module of the serving-scheduler slice: the scheduler,
+# the result cache and the native frontend.
+SCHEDULER_SLICE = (
+    "serving", "serving.queue", "serving.batcher", "serving.autotune",
+    "serving.result_cache", "native", "native.build", "native.frontend",
+)
+
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
@@ -79,7 +86,7 @@ def test_importing_the_port_loads_no_jax():
     probe = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(probe["modules"]) >= 30
     missing = [m for m in TRAINING_SLICE + IVF_PQ_SLICE + CLI_SLICE
-               + EVENT_SERVER_SLICE
+               + EVENT_SERVER_SLICE + SCHEDULER_SLICE
                if f"predictionio_tpu_torch.{m}" not in probe["modules"]]
     assert missing == []
     assert probe["bad"] == [], f"the port pulled in {probe['bad']}"
@@ -99,3 +106,18 @@ def test_no_source_imports_jax_or_the_jax_package(path):
         for name in names:
             assert not _forbidden(name), \
                 f"{path.relative_to(ROOT)}:{node.lineno} imports {name}"
+
+
+def test_the_native_build_reads_only_the_ports_sources():
+    """The port compiles its own copy of the frontend: every C++ source
+    its build can name lies under ``predictionio_tpu_torch/native/``,
+    and nothing in the package points at the repository's ``native/``."""
+    from predictionio_tpu_torch.native import build
+
+    assert build.SOURCE_DIR == PORT / "native"
+    assert sorted(p.name for p in build.SOURCE_DIR.glob("*.cc")) == \
+        ["serving_frontend.cc"]
+    for path in PORT.rglob("*.py"):
+        text = path.read_text()
+        assert "NATIVE_DIR" not in text, path
+        assert 'parents[2] / "native"' not in text, path
