@@ -168,7 +168,26 @@ cannot be imported, or when any phase fails.  Phases, in order:
    repeat query as a result-cache hit and reach the fold-in cache with
    another num; 13b deploys with PIO_RESULT_CACHE=0 (F7: the cache key
    does not see ecommerce's live unavailable list).
-16. report — one JSON line of per-kernel numbers, the card's name and
+16. refresh — phase 12's sqlite + localfs store (kept alive for this
+   phase) and its generation 1: `pio deploy` as a subprocess answers 64
+   /queries.json (the baseline); 20,000 rate events stamped after the
+   watermark (2 % of the corpus; 200 new users, 100 new items); one
+   RefreshDaemon cycle with an HttpPromoter on that server must train
+   warm and promote through POST /reload (generation 2; every row no
+   delta event touched bitwise generation 1's; the 64 answers and 64 of
+   new users each the plain top-k of the warm factors;
+   pio_refresh_staleness_s 0); a candidate with a NaN row must get 409
+   and change nothing; POST /admin/rollback restores generation 1 (the
+   64 answers equal the baseline, all result-cache hits) and a second
+   one generation 2; a second warm generation promoted by POST /reload
+   while 16 client threads query: every answer 200 and the plain top-k
+   of one generation or the other; a delta over
+   PIO_REFRESH_MAX_DELTA_FRACTION must fall back to a full retrain in
+   one instance, launching K1 and K2; on an in-process server the bytes
+   an eviction frees (torch.cuda.memory_allocated) must cover the
+   evicted generation's staged corpus.  Times: warm vs full train, the
+   /reload and rollback walls, client p50/p99 under load.
+17. report — one JSON line of per-kernel numbers, the card's name and
    power limit, and the final status line.
 """
 
@@ -183,6 +202,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -1987,7 +2007,9 @@ def cli_loop_phase(dev, seed: int, mods: dict, card: str) -> dict:
     through the CLI's main) → deploy (two subprocesses) → 64
     /queries.json → fold-in across processes → batchpredict and eval
     (in-process), all on the default sqlite + localfs storage of a fresh
-    PIO_HOME.  Returns the phase's launches of K1, K2 and K3."""
+    PIO_HOME.  Returns the phase's launches of K1, K2 and K3, and the
+    store's directory (``work``, which phase 16 refreshes and removes)
+    with its ``engine_json``."""
     import logging
 
     import numpy as np
@@ -2015,6 +2037,7 @@ def cli_loop_phase(dev, seed: int, mods: dict, card: str) -> dict:
 
     servers = []
     out = {}
+    kept = False
     phase_t0 = time.perf_counter()
     env.__enter__()
     reset_storage()
@@ -2144,6 +2167,7 @@ def cli_loop_phase(dev, seed: int, mods: dict, card: str) -> dict:
         item_names = list(wrapper.item_index.keys())
         fold_path = os.path.join(work, "fold.jsonl")
         fresh = {}
+        out["fold_events"] = 0
         with open(fold_path, "w") as f:
             for j in range(2):
                 user = f"unseen{j}"
@@ -2159,6 +2183,7 @@ def cli_loop_phase(dev, seed: int, mods: dict, card: str) -> dict:
                     if not buy:
                         ev["properties"] = {"rating": r}
                     f.write(json.dumps(ev) + "\n")
+                    out["fold_events"] += 1
                     ids.append(wrapper.item_index[item_names[p]])
                     vals.append(wrapper.buy_rating if buy else r)
                 fresh[user] = (np.asarray(ids), np.asarray(vals, np.float32))
@@ -2261,12 +2286,16 @@ def cli_loop_phase(dev, seed: int, mods: dict, card: str) -> dict:
         out["eval_batch_err"] = check_against_plain(
             s.cpu().numpy(), i.cpu().numpy(), q, items_d, 10, None,
             "phase 12 K3 at B 1,024", ft, mods["topk_mismatch"])
+        # phase 16 refreshes this store: it outlives the phase
+        out["work"], out["engine_json"] = work, engine_json
+        kept = True
     finally:
         for s in servers:
             s.kill()
         reset_storage()
         env.__exit__()
-        shutil.rmtree(work, ignore_errors=True)
+        if not kept:
+            shutil.rmtree(work, ignore_errors=True)
     out["launches"] = launches
     out["n_events"] = n_events
     out["phase_s"] = time.perf_counter() - phase_t0
@@ -3681,6 +3710,461 @@ def scheduler_phase(dev, seed: int, users_np, items_np, mods: dict,
     return out
 
 
+# Phase 16: staged reload, rollback and the ALS warm-start refresh, on
+# phase 12's sqlite + localfs store (its generation 1, rank 64, at the
+# MovieLens-1M shape: no import is repeated).
+REFRESH_DELTA = 20_000        # rate events stamped after the watermark: 2 %
+REFRESH_NEW_USERS, REFRESH_NEW_ITEMS = 200, 100
+REFRESH_TOUCHED_USERS = 1_500  # existing users the delta touches
+REFRESH_QUERIES = 64
+REFRESH_LOAD_CLIENTS = 16      # client threads across the loaded /reload
+REFRESH_LOAD_S = 1.0           # load before and after the POST
+REFRESH_FALLBACK_DELTA = 1_000
+REFRESH_LIMIT_S = 150.0
+
+
+def post_status(url: str, obj=None):
+    """POST ``obj`` (no body for None); returns (status, answer, wall s)
+    whatever the status."""
+    data = None if obj is None else json.dumps(obj).encode()
+    req = urllib.request.Request(
+        url, data=data, method="POST",
+        headers={} if obj is None else {"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            status, body = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, body = e.code, e.read()
+    return status, json.loads(body or b"{}"), time.perf_counter() - t0
+
+
+def refresh_delta(rng, names, item_names, n: int, new_users: int,
+                  new_items: int, touched: int, prefix: str):
+    """``n`` rate events: every new user 5 and every new item 10 of them,
+    the rest spread over ``touched`` existing users (Zipf(1.25) items);
+    half stars.  Returns [(user, item, rating)]."""
+    rows = []
+    nu = [f"{prefix}u{j}" for j in range(new_users)]
+    ni = [f"{prefix}i{j}" for j in range(new_items)]
+    users = list(rng.choice(names, touched, replace=False))
+    for u in nu:
+        for _ in range(5):
+            rows.append((u, item_names[int(rng.zipf(1.25)) % len(
+                item_names)]))
+    for i in ni:
+        for _ in range(10):
+            rows.append((users[int(rng.integers(len(users)))], i))
+    while len(rows) < n:
+        rows.append((users[int(rng.integers(len(users)))],
+                     item_names[int(rng.zipf(1.25)) % len(item_names)]))
+    stars = rng.integers(1, 11, len(rows)) * 0.5
+    return [(u, i, float(r)) for (u, i), r in zip(rows, stars)]
+
+
+def refresh_phase(dev, seed: int, loop: dict, mods: dict, card: str) -> dict:
+    """Phase 16: `pio deploy` generation 1 of phase 12's store (a
+    subprocess), then a warm refresh cycle promoted through POST /reload,
+    a poisoned candidate (409), rollback and back, a second warm
+    generation promoted under 16 client threads, a full fallback, and
+    the eviction's freed bytes on an in-process server.  Returns the
+    phase's times and launches."""
+    import datetime as dt
+    import gc
+    import threading
+
+    import numpy as np
+    import torch
+
+    fg, rs, ft = mods["fg"], mods["rs"], mods["ft"]
+    from predictionio_tpu_torch.data.storage import get_storage, \
+        reset_storage
+    from predictionio_tpu_torch.refresh import RefreshConfig
+    from predictionio_tpu_torch.refresh.daemon import HttpPromoter, \
+        RefreshDaemon
+    from predictionio_tpu_torch.version import __version__
+    from predictionio_tpu_torch.workflow.core_workflow import (
+        data_watermark, load_models)
+
+    phase_t0 = time.perf_counter()
+    work, engine_json = loop["work"], loop["engine_json"]
+    env = cli_env(os.path.join(work, "home"))
+    env.values.update({k: None for k in (
+        "PIO_REFRESH_INTERVAL_S", "PIO_REFRESH_MAX_DELTA_FRACTION",
+        "PIO_REFRESH_EVAL_TOLERANCE", "PIO_REFRESH_PROMOTE_URL",
+        "PIO_REFRESH_CANARY_WINDOW_S", "PIO_CANARY_QUERIES",
+        "PIO_RETAIN_PREVIOUS", "PIO_RETAIN_PREVIOUS_TTL_S",
+        "PIO_RESULT_CACHE")})
+    registry = mods["get_registry"]()
+    rng = np.random.default_rng(seed + 16)
+    out, server = {}, None
+    env.__enter__()
+    reset_storage()
+    try:
+        storage = get_storage()
+        eng = mods["engine"]()
+        variant = mods["EngineVariant"].from_file(engine_json)
+        instances = storage.get_engine_instances()
+        inst1 = instances.get_latest_completed(
+            variant.engine_factory, __version__, variant.variant_id)
+        ctx = mods["RuntimeContext"](storage=storage, device=dev)
+        [w1] = load_models(eng, inst1, ctx)
+        uf1, itf1 = (x.copy() for x in w1.host_factors())
+        names = list(w1.user_index.keys())
+        item_names = list(w1.item_index.keys())
+        app_id = storage.get_apps().get_by_name(CLI_APP).id
+        ft.LAUNCHES = 0                      # main path starts here
+        fg.LAUNCHES = 0
+        rs.LU_LAUNCHES = 0
+
+        def plain(w, users, num):
+            """The plain top-k of ``w``'s factors for ``users``: (ids,
+            scores) a user, on the card."""
+            uf, itf = w.host_factors()
+            q = torch.from_numpy(np.ascontiguousarray(
+                uf[[w.user_index[u] for u in users]])).to(dev)
+            items = torch.from_numpy(np.ascontiguousarray(itf)).to(dev)
+            s, i = ft.fused_topk_reference(q, items, min(num + 1,
+                                                         itf.shape[0]))
+            return s.cpu().numpy(), i.cpu().numpy()
+
+        def mismatch(answer, w, user, num):
+            """Why ``answer`` is not ``w``'s plain top-``num`` (None when
+            it is, within the answer tolerance and ties)."""
+            s, i = plain(w, [user], num)
+            hits = answer["itemScores"]
+            if len(hits) != num:
+                return f"{len(hits)} items, not {num}"
+            inv = w.item_index
+            if any(h["item"] not in inv for h in hits):
+                return "an item the generation does not know"
+            return mods["topk_mismatch"](
+                [[h["score"] for h in hits]],
+                [[inv[h["item"]] for h in hits]], s[:, :num], i[:, :num],
+                s[:, num] if s.shape[1] > num else None, rtol=RTOL,
+                atol=ATOL)
+
+        def hold(answers, w, users, num, what):
+            for user, ans in zip(users, answers):
+                why = mismatch(ans, w, user, num)
+                if why is not None:
+                    die(f"phase 16 {what} {user}: {why}")
+
+        def cache_hits(srv) -> float:
+            key = 'pio_result_cache_hits_total{tier="local"} '
+            return sum(float(ln[len(key):]) for ln in
+                       srv.get("/metrics").splitlines()
+                       if ln.startswith(key))
+
+        # -- a: deploy generation 1, baseline answers -----------------------
+        server = deployed(engine_json, os.path.join(work, "refresh.log"),
+                          phase="phase 16")
+        if server.instance != inst1.id:
+            die(f"phase 16: deploy serves {server.instance}, not "
+                f"generation 1 {inst1.id}")
+        asked = [names[j] for j in rng.choice(len(names), REFRESH_QUERIES,
+                                              replace=False)]
+        base = [post_json(f"{server.base}/queries.json",
+                          {"user": u, "num": 10})[0] for u in asked]
+        hold(base, w1, asked, 10, "baseline")
+
+        # -- b: the delta, stamped after generation 1's watermark -----------
+        wm1 = data_watermark(inst1)
+        rows = refresh_delta(rng, names, item_names, REFRESH_DELTA,
+                             REFRESH_NEW_USERS, REFRESH_NEW_ITEMS,
+                             REFRESH_TOUCHED_USERS, "r")
+        Event, DataMap = mods["Event"], mods["DataMap"]
+        stamp = dt.datetime.now(dt.timezone.utc)
+        if stamp <= wm1:
+            die(f"phase 16: the clock reads {stamp}, not after generation "
+                f"1's watermark {wm1}")
+        t0 = time.perf_counter()
+        storage.get_events().insert_batch([
+            Event(event="rate", entity_type="user", entity_id=u,
+                  target_entity_type="item", target_entity_id=i,
+                  properties=DataMap({"rating": r}),
+                  event_time=stamp + dt.timedelta(microseconds=n))
+            for n, (u, i, r) in enumerate(rows)], app_id)
+        out["delta_write_s"] = time.perf_counter() - t0
+
+        # -- c: one warm cycle promoted through POST /reload ----------------
+        reload_walls = []
+
+        def timed_opener(req, timeout=30.0):
+            t = time.perf_counter()
+            resp = urllib.request.urlopen(req, timeout=timeout)
+            if req.full_url.endswith("/reload"):
+                reload_walls.append(time.perf_counter() - t)
+            return resp
+
+        dctx = mods["RuntimeContext"].create(storage=storage, device=dev)
+        daemon = RefreshDaemon(
+            eng, variant, dctx, config=RefreshConfig.from_env(
+                canary_window_s=0.0),
+            promoter=HttpPromoter(server.base, canary_window_s=0.0,
+                                  opener=timed_opener))
+        cycle = daemon.run_once()
+        if (cycle["result"], cycle["promotion"]) != ("warm", "promoted"):
+            die(f"phase 16: the warm cycle ended {cycle}")
+        train_s = registry.get("pio_refresh_train_s")   # unrounded
+        out["warm_train_s"] = train_s.value(mode="warm")
+        out["reload_s"] = reload_walls[-1]
+        status = json.loads(server.get("/"))
+        if (status["engineInstanceId"], status["modelGeneration"],
+                status["refreshMode"]) != (cycle["instance"], 2, "warm"):
+            die(f"phase 16: after the warm cycle the server reports "
+                f"{status}")
+        stale = registry.get("pio_refresh_staleness_s").value()
+        if stale != 0.0:
+            die(f"phase 16: pio_refresh_staleness_s reads {stale}")
+        inst2 = instances.get(cycle["instance"])
+        [w2] = load_models(eng, inst2, ctx)
+        uf2, itf2 = w2.host_factors()
+        wm2 = data_watermark(inst2)
+        window = list(storage.get_events().find(
+            app_id, start_time=wm1, until_time=wm2))
+        touched_u = {e.entity_id for e in window}
+        touched_i = {e.target_entity_id for e in window}
+        kept_u = [r for u, r in w1.user_index.items() if u not in touched_u]
+        kept_i = [r for t, r in w1.item_index.items() if t not in touched_i]
+        if not (np.array_equal(uf2[kept_u], uf1[kept_u])
+                and np.array_equal(itf2[kept_i], itf1[kept_i])):
+            die("phase 16: a row no delta event touched moved")
+        moved_u = int(np.sum(np.any(uf2[:len(names)] != uf1, axis=1)))
+        new_u = touched_u.difference(w1.user_index.keys())
+        new_i = touched_i.difference(w1.item_index.keys())
+        if (len(window) != REFRESH_DELTA + loop["fold_events"]
+                or w2.n_examples != w1.n_examples + len(window)
+                or len(new_i) != REFRESH_NEW_ITEMS
+                or len(new_u) < REFRESH_NEW_USERS
+                or len(w2.user_index) != len(names) + len(new_u)
+                or len(w2.item_index) != len(item_names) + len(new_i)):
+            die(f"phase 16: the warm generation read {len(window)} events, "
+                f"{w2.n_examples} examples, {len(w2.user_index)} x "
+                f"{len(w2.item_index)}")
+        fresh = [f"ru{j}" for j in rng.choice(REFRESH_NEW_USERS,
+                                              REFRESH_QUERIES,
+                                              replace=False)]
+        warm_ans = [post_json(f"{server.base}/queries.json",
+                              {"user": u, "num": 10})[0]
+                    for u in asked + fresh]
+        hold(warm_ans, w2, asked + fresh, 10, "warm answer")
+        changed = sum(a != b for a, b in zip(warm_ans, base))
+
+        # -- e: a poisoned candidate is refused -----------------------------
+        bad_uf = uf2.copy()
+        bad_uf[int(rng.integers(len(bad_uf)))] = np.nan
+        bad = mods["wrapper_from_numpy"](
+            bad_uf, itf2, list(w2.user_index.keys()),
+            list(w2.item_index.keys()), rank=RANK)
+        bad_id = mods["persist_instance"](eng, variant, [bad], storage)
+        del bad, bad_uf
+        st, body, _ = post_status(f"{server.base}/reload",
+                                  {"engineInstanceId": bad_id})
+        status = json.loads(server.get("/"))
+        if st != 409 or "non-finite" not in body.get("message", "") or (
+                status["engineInstanceId"], status["modelGeneration"]) != (
+                inst2.id, 2):
+            die(f"phase 16: the poisoned reload answered {st} {body}; the "
+                f"server reports {status}")
+        again = [post_json(f"{server.base}/queries.json",
+                           {"user": u, "num": 10})[0] for u in asked[:8]]
+        if again != warm_ans[:8]:
+            die("phase 16: answers changed after the refused reload")
+        # the operator retires the bad train: no later cycle warms from it
+        poisoned = instances.get(bad_id)
+        poisoned.status = "FAILED"
+        instances.update(poisoned)
+
+        # -- f: rollback to generation 1, and back --------------------------
+        hits0 = cache_hits(server)
+        st, body, out["rollback_s"] = post_status(
+            f"{server.base}/admin/rollback")
+        if st != 200 or body["engineInstanceId"] != inst1.id:
+            die(f"phase 16: rollback answered {st} {body}")
+        back = [post_json(f"{server.base}/queries.json",
+                          {"user": u, "num": 10})[0] for u in asked]
+        hits = cache_hits(server) - hits0
+        if back != base or hits != REFRESH_QUERIES:
+            die(f"phase 16: after the rollback {sum(a != b for a, b in zip(back, base))} "
+                f"answers differ from the baseline, {hits} cache hits")
+        st, body, out["rollback2_s"] = post_status(
+            f"{server.base}/admin/rollback")
+        if st != 200 or body["engineInstanceId"] != inst2.id:
+            die(f"phase 16: the second rollback answered {st} {body}")
+
+        # -- d: a second warm generation promoted under load ----------------
+        rows3 = [(u, item_names[int(rng.zipf(1.25)) % len(item_names)],
+                  float(rng.integers(1, 11) * 0.5))
+                 for u in asked for _ in range(8)]
+        stamp = dt.datetime.now(dt.timezone.utc)
+        storage.get_events().insert_batch([
+            Event(event="rate", entity_type="user", entity_id=u,
+                  target_entity_type="item", target_entity_id=i,
+                  properties=DataMap({"rating": r}),
+                  event_time=stamp + dt.timedelta(microseconds=n))
+            for n, (u, i, r) in enumerate(rows3)], app_id)
+        trainer = RefreshDaemon(eng, variant, dctx,
+                                config=RefreshConfig.from_env(
+                                    canary_window_s=0.0))
+        cycle3 = trainer.run_once()
+        if cycle3["result"] != "warm":
+            die(f"phase 16: the second warm cycle ended {cycle3}")
+        [w3] = load_models(eng, instances.get(cycle3["instance"]), ctx)
+        stop = threading.Event()
+        results = [[] for _ in range(REFRESH_LOAD_CLIENTS)]
+
+        def client(n):
+            j = n
+            while not stop.is_set():
+                user = asked[j % len(asked)]
+                num = 5 + (j // len(asked)) % 16
+                t = time.perf_counter()
+                st, ans, _ = post_status(f"{server.base}/queries.json",
+                                         {"user": user, "num": num})
+                results[n].append((st, user, num, ans,
+                                   time.perf_counter() - t))
+                j += REFRESH_LOAD_CLIENTS
+
+        threads = [threading.Thread(target=client, args=(n,))
+                   for n in range(REFRESH_LOAD_CLIENTS)]
+        for t in threads:
+            t.start()
+        time.sleep(REFRESH_LOAD_S)
+        st, body, out["reload_load_s"] = post_status(
+            f"{server.base}/reload", {"engineInstanceId": cycle3["instance"]})
+        time.sleep(REFRESH_LOAD_S)
+        stop.set()
+        for t in threads:
+            t.join(120)
+        if st != 200 or body["engineInstanceId"] != cycle3["instance"]:
+            die(f"phase 16: the loaded reload answered {st} {body}")
+        flat = [r for rs_ in results for r in rs_]
+        if any(r[0] != 200 for r in flat):
+            die(f"phase 16: {sum(r[0] != 200 for r in flat)} of "
+                f"{len(flat)} answers under load were not 200")
+        seen = {}
+        for _, user, num, ans, _ in flat:
+            seen.setdefault((user, num, json.dumps(ans)), ans)
+        of_gen = {2: 0, 3: 0}
+        for (user, num, _), ans in seen.items():
+            if mismatch(ans, w2, user, num) is None:
+                of_gen[2] += 1
+            elif mismatch(ans, w3, user, num) is None:
+                of_gen[3] += 1
+            else:
+                die(f"phase 16: an answer for {user} under load is neither "
+                    f"generation's: {ans}")
+        lats = sorted(r[4] for r in flat)
+        out["load"] = {"requests": len(flat), "distinct": len(seen),
+                       "of_gen": of_gen, "p50_ms": pct(lats, 0.5) * 1e3,
+                       "p99_ms": pct(lats, 0.99) * 1e3}
+
+        # -- g: a delta over PIO_REFRESH_MAX_DELTA_FRACTION: full fallback --
+        rows4 = refresh_delta(rng, names, item_names,
+                              REFRESH_FALLBACK_DELTA, 0, 0, 200, "g")
+        stamp = dt.datetime.now(dt.timezone.utc)
+        storage.get_events().insert_batch([
+            Event(event="rate", entity_type="user", entity_id=u,
+                  target_entity_type="item", target_entity_id=i,
+                  properties=DataMap({"rating": r}),
+                  event_time=stamp + dt.timedelta(microseconds=n))
+            for n, (u, i, r) in enumerate(rows4)], app_id)
+        n_before = len(instances.get_all())
+        k_before = (fg.LAUNCHES, rs.LU_LAUNCHES)
+        with env_vars(PIO_REFRESH_MAX_DELTA_FRACTION="0.0001"):
+            full = RefreshDaemon(
+                eng, variant, dctx, config=RefreshConfig.from_env(
+                    canary_window_s=0.0),
+                promoter=HttpPromoter(server.base, canary_window_s=0.0,
+                                      opener=timed_opener)).run_once()
+        k1, k2 = (fg.LAUNCHES - k_before[0], rs.LU_LAUNCHES - k_before[1])
+        inst4 = instances.get(full["instance"])
+        if (full["result"], inst4.env.get("refreshMode"), inst4.status,
+                len(instances.get_all())) != (
+                "full_fallback", "full_fallback", "COMPLETED",
+                n_before + 1) or k1 == 0 or k2 == 0:
+            die(f"phase 16: the fallback cycle ended {full} "
+                f"({len(instances.get_all()) - n_before} new instances, "
+                f"K1 {k1}, K2 {k2} launches)")
+        out["full_train_s"] = train_s.value(mode="full_fallback")
+        [w4] = load_models(eng, inst4, ctx)
+        sample = asked[:16]
+        hold([post_json(f"{server.base}/queries.json",
+                        {"user": u, "num": 10})[0] for u in sample],
+             w4, sample, 10, "fallback answer")
+        server.stop()
+        deploy_k3 = server.launches["fused_topk"]
+        server = None
+
+        # -- h: the bytes an eviction frees, on an in-process server --------
+        del w1, w2, w4, window
+        gc.collect()
+        srv = mods["EngineServer"](eng, variant, storage, host="127.0.0.1",
+                                   port=0, device=dev, instance_id=inst2.id)
+        try:
+            srv.query({"user": asked[0], "num": 10})   # stages generation 2
+            srv.reload(cycle3["instance"])
+            srv.query({"user": asked[0], "num": 10})   # stages generation 3
+            gc.collect()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            if not srv._evict_previous(srv._generation):
+                die("phase 16: nothing to evict")
+            gc.collect()
+            torch.cuda.synchronize()
+            out["evicted_bytes"] = before - torch.cuda.memory_allocated()
+        finally:
+            srv.stop()
+        corpus = itf2.shape[0] * itf2.shape[1] * 4
+        if out["evicted_bytes"] < corpus:
+            die(f"phase 16: eviction freed {out['evicted_bytes']} bytes, "
+                f"less than generation 2's staged corpus ({corpus})")
+        launches = {"fused_topk": ft.LAUNCHES + deploy_k3,   # main path ends
+                    "fused_gram": fg.LAUNCHES,
+                    "ridge_solve_lu": rs.LU_LAUNCHES}
+        if launches["fused_topk"] == 0:
+            die("phase 16: fused_topk never launched")
+    finally:
+        if server is not None:
+            server.kill()
+        reset_storage()
+        env.__exit__()
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - phase_t0
+    log(f"phase 16 refresh: generation 1 of phase 12's store deployed; "
+        f"{REFRESH_DELTA} delta events ({REFRESH_NEW_USERS} new users, "
+        f"{REFRESH_NEW_ITEMS} new items; {len(touched_u)} users and "
+        f"{len(touched_i)} items touched) written in "
+        f"{out['delta_write_s']:.2f} s; warm cycle: train "
+        f"{out['warm_train_s']:.3f} s against the full fallback's "
+        f"{out['full_train_s']:.3f} s (phase 12's pio train "
+        f"{loop['train_s']:.2f} s); POST /reload {out['reload_s'] * 1e3:.1f} "
+        f"ms to 200; generation 2 warm ({moved_u} trained user rows moved, "
+        f"every untouched row bitwise generation 1's); "
+        f"{2 * REFRESH_QUERIES} answers ({changed} of the "
+        f"{REFRESH_QUERIES} baseline ones changed) equal "
+        f"the plain top-k of the warm factors; staleness 0; card {card}")
+    log(f"phase 16 gate: the NaN candidate 409, generation 2 kept serving; "
+        f"POST /admin/rollback {out['rollback_s'] * 1e3:.1f} ms (back "
+        f"{out['rollback2_s'] * 1e3:.1f} ms), the {REFRESH_QUERIES} "
+        f"baseline answers equal, each a result-cache hit; under "
+        f"{REFRESH_LOAD_CLIENTS} clients a /reload took "
+        f"{out['reload_load_s'] * 1e3:.1f} ms: "
+        f"{out['load']['requests']} answers all 200, "
+        f"{out['load']['distinct']} distinct, by generation "
+        f"{json.dumps(out['load']['of_gen'])}, none mixed, client p50 "
+        f"{out['load']['p50_ms']:.2f} ms p99 {out['load']['p99_ms']:.2f} ms; "
+        f"the full fallback in one instance launched K1 {k1} and K2 {k2} "
+        f"times; eviction freed {out['evicted_bytes']} bytes "
+        f"(generation 2's corpus {corpus}); launches "
+        f"{json.dumps(launches)}; phase 16 in {out['phase_s']:.1f} s; "
+        f"card {card}")
+    if out["phase_s"] > REFRESH_LIMIT_S:
+        log(f"phase 16: over its {REFRESH_LIMIT_S:.0f} s budget")
+    return out
+
+
 def post_json(url: str, obj):
     """POST one query; returns (answer, the server's own wall ms)."""
     req = urllib.request.Request(
@@ -3971,7 +4455,14 @@ def main() -> int:
     sched = scheduler_phase(dev, args.seed, users_np, items_np, mods, card)
     torch.cuda.empty_cache()
 
-    # -- phase 16: report --------------------------------------------------
+    # -- phase 16: staged reload, rollback, the warm-start refresh --------
+    try:
+        refresh = refresh_phase(dev, args.seed, loop, mods, card)
+    finally:
+        shutil.rmtree(loop["work"], ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # -- phase 17: report --------------------------------------------------
     main_shape = timings[(ML25M_ITEMS, 1, 10)]
     b64 = timings[(ML25M_ITEMS, 64, 10)]   # a full batch of query_batch
     kernels = [{
@@ -3981,7 +4472,8 @@ def main() -> int:
         "replaces": "predictionio_tpu/ops/pallas_kernels.py:444",
         "launches": main_launches + loop["launches"]["fused_topk"]
         + es["launches"]["fused_topk"] + sched["launches"]
-        + sched["inline_launches"] + sched["native_launches"],
+        + sched["inline_launches"] + sched["native_launches"]
+        + refresh["launches"]["fused_topk"],
         "max_abs_err": max(max_err, err, err4),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -4008,7 +4500,8 @@ def main() -> int:
             "replaces": where,
             "launches": train["launches"][name]
             + loop["launches"].get(name, 0) + tpl["launches"].get(name, 0)
-            + es["launches"].get(name, 0),
+            + es["launches"].get(name, 0)
+            + refresh["launches"].get(name, 0),
             "max_abs_err": train_kernel_err[name],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -4057,14 +4550,18 @@ def main() -> int:
         f"14's deploy process + {sched['launches']} coalesced, "
         f"{sched['inline_launches']} inline and "
         f"{sched['native_launches']} in the native deploy process (phase "
-        f"15), {dase_topk} on the DASE path; training "
+        f"15), {refresh['launches']['fused_topk']} in phase 16 (its "
+        f"deploy process and the eviction's server), {dase_topk} on the "
+        f"DASE path; training "
         f"kernels per the train run (fused_gram, ridge_solve_lu) + the CLI "
         f"path's train and eval ({loop['launches']['fused_gram']}, "
         f"{loop['launches']['ridge_solve_lu']}), the similarproduct and "
         f"ecommerce trains of phase 13 ({tpl['launches']['fused_gram']}, "
         f"{tpl['launches']['ridge_solve_lu']}), phase 14's train of the "
         f"ingested events ({es['launches']['fused_gram']}, "
-        f"{es['launches']['ridge_solve_lu']}) and the solver='gj' run "
+        f"{es['launches']['ridge_solve_lu']}), phase 16's full fallback "
+        f"({refresh['launches']['fused_gram']}, "
+        f"{refresh['launches']['ridge_solve_lu']}) and the solver='gj' run "
         f"(ridge_solve_gj); timings of the training kernels are over one "
         f"iteration's calls at the ML-25M shape")
     print(json.dumps({"kernels": kernels}))

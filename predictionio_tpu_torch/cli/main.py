@@ -10,6 +10,9 @@ reference's output lines::
     pio accesskey new <app> [event ...] | list [app] | delete <key>
     pio build        --engine-json engine.json
     pio train        --engine-json engine.json [--seed N] [--device D]
+                     [--follow [--refresh-interval S] [--promote-url URL]
+                      [--canary-window S] [--trigger-staleness S]
+                      [--trigger-delta-count N]]
     pio eval         <EvaluationClass> <EngineParamsGeneratorClass>
     pio deploy       --engine-json engine.json --port 8000 [--device D]
                      [--native] [--max-batch N] [--max-wait-us U]
@@ -30,10 +33,12 @@ rather than run on the CPU.  ``deploy``'s scheduler flags override the
 ``PIO_BATCH_*`` / ``PIO_QUEUE_*`` knobs; ``--native`` serves through
 the C++ continuous-batching frontend, built from the port's own source
 at first use (a failed build ends the verb with the compiler's message;
-there is no fallback to the Python transport).  Flags whose substrate
-the port does not have yet (the refresh daemon, train and eval
-checkpoints, the input pipeline, the mesh) are not defined, so argparse
-rejects them by name.
+there is no fallback to the Python transport).  ``train --follow`` is
+the refresh daemon: it retrains on a cadence (ALS warm start on the
+delta when it can) and promotes each generation through a deploy's
+``POST /reload``.  Flags whose substrate the port does not have yet
+(train and eval checkpoints, the input pipeline, the mesh) are not
+defined, so argparse rejects them by name.
 """
 
 from __future__ import annotations
@@ -316,8 +321,79 @@ def cmd_train(args) -> int:
     variant, engine = _variant_and_engine(args)
     ctx = RuntimeContext.create(storage=_storage(), device=_device(args),
                                 seed=args.seed)
+    if args.follow:
+        return _train_follow(args, engine, variant, ctx)
     instance_id = run_train(engine, variant, ctx)
     print(f"Training completed. Engine instance ID: {instance_id}")
+    return 0
+
+
+def _train_follow(args, engine, variant, ctx) -> int:
+    """``pio train --follow``: the continuous-refresh daemon.
+
+    Retrains on a cadence — delta warm start when the last generation
+    carries a watermark and continuable state, a full retrain otherwise
+    — and, with ``--promote-url`` / ``PIO_REFRESH_PROMOTE_URL``, promotes
+    each generation through the serving server's staged-reload gate.
+    SIGTERM/SIGINT stop the loop after the current cycle, exit 0 (the
+    port's trains have no checkpoints to hand back mid-train)."""
+    import signal
+
+    from predictionio_tpu_torch.refresh import RefreshConfig
+    from predictionio_tpu_torch.refresh.daemon import RefreshDaemon
+    from predictionio_tpu_torch.resilience.supervision import (
+        PREEMPTED_EXIT_CODE,
+        TrainPreempted,
+        clear_preemption,
+        request_preemption,
+    )
+
+    clear_preemption()   # a stop asked of an earlier run stops no new one
+    cfg = RefreshConfig.from_env(
+        interval_s=args.refresh_interval,
+        promote_url=args.promote_url,
+        canary_window_s=args.canary_window,
+        trigger_staleness_s=args.trigger_staleness,
+        trigger_delta_count=args.trigger_delta_count,
+    )
+    try:
+        daemon = RefreshDaemon(engine, variant, ctx, config=cfg)
+    except ValueError as e:
+        _die(str(e))
+
+    def _stop(signum, frame):
+        print(f"[follow] signal {signum}: stopping after the current "
+              "cycle", file=sys.stderr, flush=True)
+        request_preemption()
+        daemon.stop()   # the between-cycles wait wakes at once
+
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            signal.signal(sig, _stop)
+        except (ValueError, OSError):
+            continue
+    where = f", promoting via {cfg.promote_url}" if cfg.promote_url else \
+        " (no promote URL — serving servers reload on their own)"
+    if cfg.trigger_staleness_s is not None \
+            or cfg.trigger_delta_count is not None:
+        trig = []
+        if cfg.trigger_staleness_s is not None:
+            trig.append(f"staleness≥{cfg.trigger_staleness_s:g}s")
+        if cfg.trigger_delta_count is not None:
+            trig.append(f"delta≥{cfg.trigger_delta_count} events")
+        print(f"Refresh daemon: trigger mode ({' or '.join(trig)}, "
+              f"backstop every {cfg.interval_s:g}s){where}. Ctrl-C to "
+              "stop.", flush=True)
+    else:
+        print(f"Refresh daemon: retraining every {cfg.interval_s:g}s"
+              f"{where}. Ctrl-C to stop.", flush=True)
+    try:
+        cycles = daemon.follow(on_cycle=lambda out: print(
+            "Refresh cycle: " + json.dumps(out), flush=True))
+    except TrainPreempted as e:
+        print(f"[preempted] {e}", file=sys.stderr)
+        return PREEMPTED_EXIT_CODE
+    print(f"Refresh daemon stopped after {cycles} cycle(s).")
     return 0
 
 
@@ -851,6 +927,40 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--pq-m", dest="pq_m", type=int, default=0, metavar="M",
                    help="PQ subspace count (bytes/item = 1+M; default: "
                         "env PIO_PQ_M, else ~dim/4)")
+    t.add_argument("--follow", action="store_true",
+                   help="continuous refresh: retrain on a cadence "
+                        "(delta warm start when possible), promote "
+                        "through the serving server's staged-reload "
+                        "gate (--promote-url), roll back when the canary "
+                        "window trips; SIGTERM/SIGINT stop after the "
+                        "current cycle")
+    t.add_argument("--refresh-interval", dest="refresh_interval",
+                   type=float, default=None, metavar="S",
+                   help="follow-mode cadence in seconds (default env "
+                        "PIO_REFRESH_INTERVAL_S, else 300)")
+    t.add_argument("--promote-url", dest="promote_url", default=None,
+                   metavar="URL",
+                   help="engine-server base URL each refreshed "
+                        "generation is promoted through (POST /reload; "
+                        "default env PIO_REFRESH_PROMOTE_URL; unset = "
+                        "train only)")
+    t.add_argument("--canary-window", dest="canary_window", type=float,
+                   default=None, metavar="S",
+                   help="post-promotion watch window; a trip rolls the "
+                        "promotion back (default env "
+                        "PIO_REFRESH_CANARY_WINDOW_S, else 60; 0 = off)")
+    t.add_argument("--trigger-staleness", dest="trigger_staleness",
+                   type=float, default=None, metavar="S",
+                   help="follow-mode trigger: fire a refresh cycle when "
+                        "event→servable staleness crosses S seconds "
+                        "(default env PIO_REFRESH_TRIGGER_STALENESS_S; "
+                        "the --refresh-interval cadence becomes a "
+                        "backstop ceiling)")
+    t.add_argument("--trigger-delta-count", dest="trigger_delta_count",
+                   type=int, default=None, metavar="N",
+                   help="follow-mode trigger: fire a refresh cycle when "
+                        "N events have landed past the served watermark "
+                        "(default env PIO_REFRESH_TRIGGER_DELTA_COUNT)")
     _device_flag(t)
     t.set_defaults(fn=cmd_train)
 

@@ -10,6 +10,7 @@ from predictionio_tpu_torch.controller.base import (
     Preparator,
     RuntimeContext,
     Serving,
+    WarmStartFallback,
 )
 from predictionio_tpu_torch.controller.engine import (
     Engine,
@@ -57,6 +58,7 @@ __all__ = [
     "RuntimeContext",
     "Serving",
     "SumMetric",
+    "WarmStartFallback",
     "ZeroMetric",
     "bind_params",
     "load_engine_factory",

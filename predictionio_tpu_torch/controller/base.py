@@ -25,7 +25,26 @@ __all__ = [
     "Serving",
     "FirstServing",
     "PersistentModel",
+    "WarmStartFallback",
 ]
+
+
+class WarmStartFallback(Exception):
+    """A warm-start (delta) train cannot proceed — fall back to a full
+    retrain.
+
+    Raised by :meth:`Algorithm.warm_start` when the algorithm does not
+    support incremental continuation, when the delta window is too large
+    a fraction of the corpus for continuation to be trustworthy, or when
+    the warm-started model regresses against the generation it started
+    from.  ``run_train`` catches it and re-runs the engine in full mode
+    over the complete window — the refresh always lands a generation,
+    just a more expensive one.
+    """
+
+    def __init__(self, reason: str):
+        super().__init__(reason)
+        self.reason = reason
 
 TD = TypeVar("TD")   # training data
 PD = TypeVar("PD")   # prepared data
@@ -117,6 +136,26 @@ class Algorithm(_HasParams, Generic[PD, M, Q, P], abc.ABC):
         """Reference: PAlgorithm.batchPredict.  Default maps
         :meth:`predict`; algorithms override with a vectorized path."""
         return [(i, self.predict(model, q)) for i, q in queries]
+
+    def warm_start(self, ctx: RuntimeContext, prepared_delta: PD,
+                   prev_model: M, warm: Any) -> M:
+        """Continue training ``prev_model`` on a DELTA window of prepared
+        data (event-delta warm-start refresh).
+
+        ``prepared_delta`` was read through a window-scoped event store
+        covering only ``[previous generation's watermark, new
+        watermark)``; ``warm`` is the
+        :class:`~predictionio_tpu_torch.refresh.WarmStartContext`
+        carrying the window and the fallback thresholds.
+        Implementations either return a model trained on previous state
+        + delta, or raise :class:`WarmStartFallback` — the workflow then
+        re-runs the whole engine in full mode.  The default declines:
+        algorithms without an incremental form always retrain fully on
+        refresh.
+        """
+        raise WarmStartFallback(
+            f"{type(self).__name__} does not support warm-start "
+            "continuation")
 
 
 class Serving(_HasParams, Generic[Q, P], abc.ABC):

@@ -9,7 +9,9 @@ schema is the reference's, verbatim::
      "algorithms": [{"name": ..., "params": {...}}, ...],
      "serving": {"params": {...}}}
 
-:meth:`Engine.train` drives DataSource → Preparator → each Algorithm;
+:meth:`Engine.train` drives DataSource → Preparator → each Algorithm
+(``Algorithm.warm_start`` on a delta window when it is given a warm
+context);
 :meth:`Engine.eval_multi` drives ``read_eval`` folds through each
 candidate's algorithms and Serving (the reference's shared-prep sweep,
 without its checkpoints).
@@ -32,6 +34,7 @@ from predictionio_tpu_torch.controller.base import (
     Preparator,
     RuntimeContext,
     Serving,
+    WarmStartFallback,
 )
 from predictionio_tpu_torch.controller.params import (
     Params,
@@ -127,13 +130,38 @@ class Engine:
     def make_serving(self, engine_params: EngineParams) -> Serving:
         return self.serving_class(engine_params.serving_params)
 
-    def train(self, ctx: RuntimeContext,
-              engine_params: EngineParams) -> List[Any]:
+    def train(self, ctx: RuntimeContext, engine_params: EngineParams,
+              warm: Any = None) -> List[Any]:
         """Run DataSource → Preparator → each Algorithm.train; returns the
         models (reference: Engine.train).  Each stage's wall time lands
-        in ``pio_train_phase_ms{phase}``."""
+        in ``pio_train_phase_ms{phase}``.
+
+        With ``warm`` (a :class:`~predictionio_tpu_torch.refresh.
+        WarmStartContext`), the datasource reads through the caller's
+        delta-scoped event store and every algorithm continues its
+        previous model via :meth:`Algorithm.warm_start`.  Any algorithm
+        raising :class:`~predictionio_tpu_torch.controller.
+        WarmStartFallback` aborts the WHOLE warm attempt (one generation
+        is one consistent data window); ``run_train`` then retrains
+        fully.
+        """
         from predictionio_tpu_torch.obs import phase
 
+        names = [n for n, _ in engine_params.algorithms_params]
+        if warm is not None:
+            if len(warm.models) != len(names):
+                raise WarmStartFallback(
+                    f"algorithm set changed ({len(warm.models)} previous "
+                    f"model(s) vs {len(names)} configured)")
+            # Decline BEFORE the datasource read: an engine whose
+            # algorithms all use the declining default would otherwise
+            # pay a full delta read and prepare every refresh cycle just
+            # to be told no.
+            if all(cls.warm_start is Algorithm.warm_start
+                   for cls in self.algorithm_classes.values()):
+                raise WarmStartFallback(
+                    "no configured algorithm supports warm-start "
+                    "continuation")
         datasource = self.datasource_class(engine_params.datasource_params)
         preparator = self.preparator_class(engine_params.preparator_params)
         with phase("train.datasource"):
@@ -141,9 +169,15 @@ class Engine:
         with phase("train.prepare"):
             pd = preparator.prepare(ctx, td)
         models = []
-        for algo in self.make_algorithms(engine_params):
-            with phase("train.algorithm"):
-                models.append(algo.train(ctx, pd))
+        for i, (name, algo) in enumerate(
+                zip(names, self.make_algorithms(engine_params))):
+            if warm is not None:
+                with phase("train.algorithm.warm", algo=name):
+                    models.append(
+                        algo.warm_start(ctx, pd, warm.models[i], warm))
+            else:
+                with phase("train.algorithm", algo=name):
+                    models.append(algo.train(ctx, pd))
         return models
 
     def eval(self, ctx: RuntimeContext, engine_params: EngineParams

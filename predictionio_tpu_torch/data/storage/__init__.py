@@ -49,7 +49,9 @@ from predictionio_tpu_torch.data.storage.base import (  # re-export
 )
 from predictionio_tpu_torch.resilience.faults import (
     wrap_events as _wrap_events,
+    wrap_instances as _wrap_instances,
     wrap_kv as _wrap_kv,
+    wrap_models as _wrap_models,
     wrap_spill_queues as _wrap_spill_queues,
 )
 
@@ -236,14 +238,17 @@ class Storage:
         return self._backend_for("METADATA").channels()
 
     def get_engine_instances(self) -> EngineInstances:
-        return self._backend_for("METADATA").engine_instances()
+        # Fault seam like get_events: PIO_FAULTS storage.* rules can
+        # break the engine server's reload reads (fail-closed serving).
+        return _wrap_instances(
+            self._backend_for("METADATA").engine_instances())
 
     def get_evaluation_instances(self) -> EvaluationInstances:
         return self._backend_for("METADATA").evaluation_instances()
 
     # MODELDATA
     def get_models(self) -> Models:
-        return self._backend_for("MODELDATA").models()
+        return _wrap_models(self._backend_for("MODELDATA").models())
 
     # The spill queue and the shared KV ride the EVENTDATA source, as in
     # the reference: the queue holds event payloads and the fold-in cache

@@ -138,6 +138,17 @@ class EventStore:
             reversed=latest))
 
 
+    def latest_event_time(
+        self, app_name: str, channel_name: Optional[str] = None
+    ) -> Optional[_dt.datetime]:
+        """Ingest high-watermark by app NAME: the freshness anchor the
+        refresh daemon compares against the serving generation's data
+        watermark."""
+        app_id, channel_id = self._resolve(app_name, channel_name)
+        return self._storage.get_events().latest_event_time(
+            app_id, channel_id)
+
+
 class WindowedEventStore(EventStore):
     """An :class:`EventStore` view scoped to one training data window.
 

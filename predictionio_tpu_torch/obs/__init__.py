@@ -19,10 +19,12 @@ __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
 
 
 @_contextlib.contextmanager
-def phase(name: str):
+def phase(name: str, **attrs):
     """Wall time of one workflow phase into ``pio_train_phase_ms{phase}``
-    (the reference's series; its span half arrives with traces).  A
-    phase that raises is recorded too."""
+    (the reference's series).  ``attrs`` are the reference's span
+    attributes, kept for its call sites; they land nowhere until the
+    span half arrives with traces.  A phase that raises is recorded
+    too."""
     hist = get_registry().histogram(
         "pio_train_phase_ms", "Workflow phase duration by phase name.",
         ("phase",))

@@ -22,10 +22,11 @@ Instrumented points:
 
 - ``storage.create`` / ``storage.find`` / ``storage.get`` /
   ``storage.delete`` / ``storage.init`` — the storage base layer (every
-  ``Storage.get_events()`` repository call routes through these).
+  ``Storage.get_events()`` repository call routes through these, and
+  so do the engine-instance and model-blob reads of a reload).
 - ``spillq.*`` and ``kv.*`` — the shared spill queue and the shared KV.
 - ``http.event``, ``ingest.admit`` and ``ingest.batch`` — the event
-  server.  (The reference's ``rpc.*`` points belong to its storage
+  server; ``http.engine`` — the engine server.  (The reference's ``rpc.*`` points belong to its storage
   server, which the port does not have yet.)
 
 Injected errors raise :class:`FaultInjected` (a ``ConnectionError``), so
@@ -52,6 +53,8 @@ __all__ = [
     "clear",
     "fault_point",
     "wrap_events",
+    "wrap_instances",
+    "wrap_models",
     "wrap_spill_queues",
     "wrap_kv",
 ]
@@ -248,6 +251,40 @@ def wrap_events(events: Any) -> Any:
     if _current_plan() is None:
         return events
     return _FaultyRepo(events, _EVENTS_POINTS)
+
+
+# Model-lifecycle repositories: the engine server's staged reload reads
+# engine instances and model blobs, so a "storage.find:error" rule can
+# break a reload and fail-closed serving is testable.
+_INSTANCES_POINTS = {
+    "get": "storage.find",
+    "get_all": "storage.find",
+    "get_latest_completed": "storage.find",
+    "get_completed": "storage.find",
+    "insert": "storage.create",
+    "update": "storage.create",
+    "delete": "storage.delete",
+}
+
+_MODELS_POINTS = {
+    "get": "storage.find",
+    "insert": "storage.create",
+    "delete": "storage.delete",
+}
+
+
+def wrap_instances(instances: Any) -> Any:
+    """Fault seam over an EngineInstances repository (reload reads)."""
+    if _current_plan() is None:
+        return instances
+    return _FaultyRepo(instances, _INSTANCES_POINTS)
+
+
+def wrap_models(models: Any) -> Any:
+    """Fault seam over a Models (blob store) repository (reload reads)."""
+    if _current_plan() is None:
+        return models
+    return _FaultyRepo(models, _MODELS_POINTS)
 
 
 # Shared spill queue: every queue op is individually breakable so a

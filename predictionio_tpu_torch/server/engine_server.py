@@ -17,8 +17,20 @@ B = cohort size.  The answer fills the cache under the generation the
 dispatch returned.  ``query_batch`` (``pio batchpredict``, the native
 frontend) calls the dispatch directly with its own cohort.  Server
 plugins load from ``PIO_ENGINESERVER_PLUGINS`` (:mod:`.plugins`),
-started last.  Staged-reload validation and rollback, and the
-quality/recall/SLO monitors, arrive with later slices.
+started last.
+
+A new generation reaches the live server only through the STAGED
+reload (``POST /reload``, optionally pinned to one
+``{"engineInstanceId"}``): the storage reads run under the ``modeldata``
+circuit breaker (``PIO_BREAKER_THRESHOLD`` / ``PIO_BREAKER_RECOVERY_S``),
+the candidate is built off to the side, validated (every array finite,
+then each ``PIO_CANARY_QUERIES`` golden query must predict), and swapped
+in whole under the lock; the previous generation is kept for
+``POST /admin/rollback`` (``PIO_RETAIN_PREVIOUS``, dropped after
+``PIO_RETAIN_PREVIOUS_TTL_S``).  A failed reload keeps the last-good
+generation serving and drops every reference to the candidate, so its
+staged tensors leave the card.  The quality/recall/SLO monitors arrive
+with a later slice.
 """
 
 from __future__ import annotations
@@ -34,16 +46,26 @@ from typing import Any, Dict, List, Optional, Tuple
 from urllib.parse import urlparse
 
 from predictionio_tpu_torch.version import __version__
+from predictionio_tpu_torch.config import env_bool
 from predictionio_tpu_torch.controller import (
     Engine,
     EngineVariant,
     RuntimeContext,
 )
 from predictionio_tpu_torch.controller.params import bind_params
-from predictionio_tpu_torch.data.storage import Storage
+from predictionio_tpu_torch.data.storage import Storage, StorageUnavailable
 from predictionio_tpu_torch.obs import get_registry
 from predictionio_tpu_torch.resilience import deadline as _deadline
 from predictionio_tpu_torch.resilience.deadline import DeadlineExceeded
+from predictionio_tpu_torch.resilience.faults import fault_point
+from predictionio_tpu_torch.resilience.policy import (
+    CircuitBreaker,
+    CircuitOpenError,
+)
+from predictionio_tpu_torch.resilience.supervision import (
+    ModelValidationError,
+    validate_model_finite,
+)
 from predictionio_tpu_torch.server.http import BaseHandler, ThreadingHTTPServer
 from predictionio_tpu_torch.server.plugins import PluginManager
 from predictionio_tpu_torch.serving import (
@@ -58,6 +80,7 @@ from predictionio_tpu_torch.serving import (
 )
 from predictionio_tpu_torch.workflow.core_workflow import (
     WorkflowError,
+    data_watermark,
     instance_engine_params,
     load_models,
 )
@@ -124,6 +147,24 @@ class _QueryMetrics:
                               "p99": self.latency.quantile(0.99)}}
 
 
+class _Generation:
+    """One immutable loaded-model generation (instance + built serving
+    stack).  The server swaps whole generations under the lock and keeps
+    the previous one for ``POST /admin/rollback``."""
+
+    __slots__ = ("instance", "models", "algorithms", "serving", "loaded_at",
+                 "number")
+
+    def __init__(self, instance, models, algorithms, serving, loaded_at,
+                 number):
+        self.instance = instance
+        self.models = models
+        self.algorithms = algorithms
+        self.serving = serving
+        self.loaded_at = loaded_at
+        self.number = number
+
+
 class EngineServer:
     """Loads a trained engine instance and serves queries over HTTP.
 
@@ -139,6 +180,9 @@ class EngineServer:
     ``scheduler_config`` sets the serving scheduler (default
     :meth:`SchedulerConfig.from_env`); the result cache reads
     ``PIO_RESULT_CACHE*`` (:meth:`ResultCacheConfig.from_env`).
+    ``breaker`` guards the reload's storage reads (default: the
+    ``modeldata`` breaker from ``PIO_BREAKER_THRESHOLD`` and
+    ``PIO_BREAKER_RECOVERY_S``).
     """
 
     def __init__(
@@ -153,6 +197,7 @@ class EngineServer:
         instance_id: Optional[str] = None,
         plugins: Optional[PluginManager] = None,
         scheduler_config: Optional[SchedulerConfig] = None,
+        breaker: Optional[CircuitBreaker] = None,
     ):
         self.engine = engine
         self.variant = variant
@@ -163,7 +208,7 @@ class EngineServer:
         self.port = port
         self.stats = _QueryMetrics()
         self._swap_lock = threading.Lock()
-        self._reload_lock = threading.Lock()
+        self._reload_lock = threading.Lock()  # serializes staged reloads
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
         self._instance = None
@@ -172,7 +217,44 @@ class EngineServer:
         self._serving = None
         self._loaded_at: Optional[_dt.datetime] = None
         self._generation = 0
+        self._previous: Optional[_Generation] = None
+        self._last_reload: Dict[str, Any] = {}
         self.retry_after_s = int(os.environ.get("PIO_RETRY_AFTER_S", "5"))
+        # The breaker around reload()'s storage reads: a dead model store
+        # sheds fast with Retry-After instead of hanging every /reload.
+        self._breaker = breaker or CircuitBreaker(
+            "modeldata",
+            failure_threshold=int(os.environ.get(
+                "PIO_BREAKER_THRESHOLD", "5")),
+            recovery_time_s=float(os.environ.get(
+                "PIO_BREAKER_RECOVERY_S", "10")),
+            failure_types=(StorageUnavailable, ConnectionError))
+        # The retained previous generation doubles model memory while it
+        # lives: off = never retain; a TTL > 0 drops it after the canary
+        # window.
+        self._retain_previous = env_bool(
+            os.environ.get("PIO_RETAIN_PREVIOUS"), True)
+        try:
+            self._retain_ttl_s = float(
+                os.environ.get("PIO_RETAIN_PREVIOUS_TTL_S", "0") or 0)
+        except ValueError:
+            self._retain_ttl_s = 0.0
+        self._evict_timer: Optional[threading.Timer] = None
+        reg = self.stats.registry
+        self._reload_total = reg.counter(
+            "pio_model_reload_total",
+            "Staged model reloads by outcome.", ("result",))
+        self._gen_gauge = reg.gauge(
+            "pio_model_generation",
+            "Monotonic generation of the model currently serving "
+            "(bumped by every successful reload or rollback).")
+        self._prev_retained = reg.gauge(
+            "pio_model_previous_retained",
+            "1 while a rollback generation is held in memory.")
+        self._prev_evicted = reg.counter(
+            "pio_model_previous_evicted_total",
+            "Rollback generations dropped by the PIO_RETAIN_PREVIOUS_TTL_S "
+            "eviction timer.")
         # Every /queries.json rides the admission queue + micro-batcher;
         # handlers never reach the model directly.
         self.scheduler = ServingScheduler(
@@ -203,45 +285,207 @@ class EngineServer:
 
     # -- model lifecycle ----------------------------------------------------
 
-    def reload(self) -> str:
-        """Load the pinned instance, else the latest COMPLETED instance
-        of the variant, and swap it in whole; returns its id."""
-        with self._reload_lock:
-            instances = self.storage.get_engine_instances()
-            if self.requested_instance_id:
-                instance = instances.get(self.requested_instance_id)
-                if instance is None or instance.status != "COMPLETED":
-                    raise WorkflowError(
-                        f"Engine instance {self.requested_instance_id!r} "
-                        "not found or not COMPLETED.")
-            else:
-                instance = instances.get_latest_completed(
-                    self.variant.engine_factory, __version__,
-                    self.variant.variant_id)
+    def _load_candidate(self, target_instance_id: Optional[str] = None):
+        """Storage-read phase of the staged reload (runs under the
+        breaker): resolve the target instance and load its models.
+        ``target_instance_id`` pins the candidate (a rollout names one
+        instance on every ``POST /reload``)."""
+        instances = self.storage.get_engine_instances()
+        requested = target_instance_id or self.requested_instance_id
+        if requested:
+            instance = instances.get(requested)
+            if instance is None or instance.status != "COMPLETED":
+                raise WorkflowError(
+                    f"Engine instance {requested!r} not found "
+                    "or not COMPLETED.")
+        else:
+            instance = instances.get_latest_completed(
+                self.variant.engine_factory, __version__,
+                self.variant.variant_id)
             if instance is None:
                 raise WorkflowError(
-                    f"No COMPLETED engine instance for engine "
+                    f"No COMPLETED engine instance for engine id "
                     f"{self.variant.engine_factory!r} variant "
                     f"{self.variant.variant_id!r} — run `pio train` "
                     "first.")
-            models = load_models(self.engine, instance, self.ctx)
-            engine_params = instance_engine_params(self.engine, instance)
-            algorithms = self.engine.make_algorithms(engine_params)
-            serving = self.engine.make_serving(engine_params)
+        models = load_models(self.engine, instance, self.ctx)
+        return instance, models
+
+    @staticmethod
+    def _canary_queries() -> List[Any]:
+        """Golden queries from ``PIO_CANARY_QUERIES``: inline JSON array,
+        or a path to a JSON-array / NDJSON file.  Empty/unset disables
+        the canary stage."""
+        raw = os.environ.get("PIO_CANARY_QUERIES", "").strip()
+        if not raw:
+            return []
+        if raw.startswith("["):
+            return json.loads(raw)
+        with open(raw, encoding="utf-8") as f:
+            text = f.read().strip()
+        if text.startswith("["):
+            return json.loads(text)
+        return [json.loads(line) for line in text.splitlines() if line.strip()]
+
+    def _validate_candidate(self, instance, models, algorithms,
+                            serving) -> None:
+        """Validation stage: finite params over every array the models
+        carry, then each ``PIO_CANARY_QUERIES`` entry must predict
+        without raising."""
+        for i, model in enumerate(models):
+            validate_model_finite(model, name=f"models[{i}]")
+        for qi, query_json in enumerate(self._canary_queries()):
+            try:
+                self._predict_with(algorithms, models, serving, query_json)
+            except Exception as e:
+                raise ModelValidationError(
+                    f"candidate instance {instance.id} failed canary "
+                    f"query #{qi} ({query_json!r}): "
+                    f"{type(e).__name__}: {e}") from e
+
+    def _record_reload(self, result: str, error: Optional[str] = None) -> None:
+        # The reference also publishes a model.reload trace event; the
+        # port's trace ring arrives with the obs layers.
+        self._reload_total.inc(result=result)
+        self._last_reload = {
+            "result": result,
+            "at": _dt.datetime.now(_dt.timezone.utc).isoformat(),
+            **({"error": error} if error else {}),
+        }
+
+    def reload(self, target_instance_id: Optional[str] = None) -> str:
+        """Staged reload of the latest COMPLETED instance — or, with
+        ``target_instance_id``, of exactly that instance.
+
+        read (breaker-guarded) → build → validate → swap; any failure
+        keeps the last-good generation serving and raises, holding no
+        reference to the candidate.  The previous generation is retained
+        for :meth:`rollback`."""
+        with self._reload_lock:
+            try:
+                instance, models = self._breaker.call(
+                    self._load_candidate, target_instance_id)
+                engine_params = instance_engine_params(self.engine, instance)
+                algorithms = self.engine.make_algorithms(engine_params)
+                serving = self.engine.make_serving(engine_params)
+                self._validate_candidate(instance, models, algorithms,
+                                         serving)
+            except Exception as e:
+                # The candidate (and what a canary staged on the card)
+                # dies with the exception's frames, so the log record
+                # gets the text only: a handler that keeps its records
+                # would keep the frames.
+                self._record_reload("failed", error=str(e))
+                logger.error("model reload failed (%s); %s", str(e),
+                             "serving continues on the last-good model"
+                             if self._instance is not None else
+                             "no model is loaded yet")
+                raise
+            now = _dt.datetime.now(_dt.timezone.utc)
             with self._swap_lock:
+                # PIO_RETAIN_PREVIOUS=off: never hold a second generation.
+                self._previous = _Generation(
+                    self._instance, self._models, self._algorithms,
+                    self._serving, self._loaded_at, self._generation) \
+                    if self._instance is not None and self._retain_previous \
+                    else None
                 self._instance = instance
                 self._models = models
                 self._algorithms = algorithms
                 self._serving = serving
-                self._loaded_at = _dt.datetime.now(_dt.timezone.utc)
+                self._loaded_at = now
                 self._generation += 1
                 gen = self._generation
+                retained = self._previous is not None
+            self._gen_gauge.set(gen)
+            self._prev_retained.set(1 if retained else 0)
+            # Seams of the quality and recall monitors (re-anchor on the
+            # new generation; shadow-score against the retained one):
+            # they arrive with the obs layers.
             # The new instance id becomes the cache key's fingerprint:
             # every entry of the previous generation misses from here.
             self.result_cache.on_generation(gen, instance.id)
+            self._arm_eviction(gen)
+            self._record_reload("ok")
             logger.info("Engine server loaded instance %s (generation %d)",
                         instance.id, gen)
             return instance.id
+
+    def rollback(self) -> str:
+        """Instant swap back to the retained previous generation
+        (``POST /admin/rollback``).  The generations exchange places, so
+        a second rollback returns; raises when none is retained."""
+        with self._reload_lock:
+            with self._swap_lock:
+                prev = self._previous
+                if prev is None:
+                    raise WorkflowError(
+                        "No previous model generation retained — nothing "
+                        "to roll back to.")
+                self._previous = _Generation(
+                    self._instance, self._models, self._algorithms,
+                    self._serving, self._loaded_at, self._generation)
+                self._instance = prev.instance
+                self._models = prev.models
+                self._algorithms = prev.algorithms
+                self._serving = prev.serving
+                self._loaded_at = prev.loaded_at
+                self._generation += 1
+                gen = self._generation
+                instance_id = prev.instance.id
+            self._gen_gauge.set(gen)
+            self._prev_retained.set(1)
+            # Seam of the quality and recall monitors (end the shadow
+            # session, re-anchor on the restored generation): the obs
+            # layers.
+            # Restoring the previous instance id revalidates its surviving
+            # cache entries for free — the fingerprint IS the key.
+            self.result_cache.on_generation(gen, instance_id)
+            # The rolled-from generation now sits in the previous slot;
+            # it ages out on the same TTL as any other retained one.
+            self._arm_eviction(gen)
+            self._record_reload("rollback")
+            logger.warning("Engine server rolled back to instance %s "
+                           "(generation %d)", instance_id, gen)
+            return instance_id
+
+    def _arm_eviction(self, generation: int) -> None:
+        """(Re)start the retained-previous TTL timer for ``generation``.
+        A timer armed for an older generation evicts nothing: the newer
+        swap armed its own."""
+        timer, self._evict_timer = self._evict_timer, None
+        if timer is not None:
+            timer.cancel()
+        if self._retain_ttl_s <= 0:
+            return
+        with self._swap_lock:
+            if self._previous is None:
+                return
+        timer = threading.Timer(self._retain_ttl_s, self._evict_previous,
+                                args=(generation,))
+        timer.daemon = True
+        timer.start()
+        self._evict_timer = timer
+
+    def _evict_previous(self, expected_generation: int) -> bool:
+        """Drop the retained rollback generation, and with it the last
+        reference to its models (their tensors leave the card) — called
+        by the TTL timer or directly.  False when a newer swap already
+        owns the previous slot."""
+        with self._swap_lock:
+            if (self._generation != expected_generation
+                    or self._previous is None):
+                return False
+            dropped = self._previous.number
+            self._previous = None
+        self._prev_retained.set(0)
+        self._prev_evicted.inc()
+        # Seam of the quality monitor's shadow session (it holds the
+        # evicted generation's predict closure): the obs layers.
+        logger.info("Evicted retained previous model generation %d after "
+                    "%.0fs TTL (rollback no longer available)",
+                    dropped, self._retain_ttl_s)
+        return True
 
     # -- query path ---------------------------------------------------------
 
@@ -261,15 +505,21 @@ class EngineServer:
             return _dc_to_json(result)
         return result
 
-    def query(self, query_json: Any) -> Any:
-        """One predict round trip: bind → supplement → per-algorithm
-        predict → serve."""
-        with self._swap_lock:
-            algorithms, models, serving = (
-                self._algorithms, self._models, self._serving)
+    def _predict_with(self, algorithms, models, serving,
+                      query_json: Any) -> Any:
+        """bind → supplement → per-algorithm predict → serve against an
+        EXPLICIT model set: the live generation (:meth:`query`) and the
+        reload canary both ride this path."""
         q = serving.supplement(self._bind_query(query_json))
         predictions = [a.predict(m, q) for a, m in zip(algorithms, models)]
         return self._result_to_json(serving.serve(q, predictions))
+
+    def query(self, query_json: Any) -> Any:
+        """One predict round trip against the live generation."""
+        with self._swap_lock:
+            algorithms, models, serving = (
+                self._algorithms, self._models, self._serving)
+        return self._predict_with(algorithms, models, serving, query_json)
 
     def _dispatch_batch(self, bound_queries: List[Any]
                         ) -> Tuple[List[Any], int]:
@@ -302,11 +552,14 @@ class EngineServer:
 
     def handle(self, method: str, path: str, body: bytes) -> Tuple:
         try:
+            fault_point("http.engine")
             if path == "/" and method == "GET":
                 with self._swap_lock:
                     inst = self._instance
                     loaded = self._loaded_at
                     gen = self._generation
+                    prev = self._previous
+                wm = data_watermark(inst) if inst else None
                 return 200, {
                     "status": "alive",
                     "engineFactory": self.variant.engine_factory,
@@ -314,6 +567,15 @@ class EngineServer:
                     "engineInstanceId": inst.id if inst else None,
                     "modelLoadedAt": loaded.isoformat() if loaded else None,
                     "modelGeneration": gen,
+                    # The served generation's data high-watermark: events
+                    # before this instant are in the model.
+                    "dataWatermark": wm.isoformat() if wm else None,
+                    "refreshMode": (inst.env or {}).get("refreshMode")
+                    if inst else None,
+                    "lastReload": self._last_reload or None,
+                    "rollbackAvailable": prev is not None,
+                    "retainPreviousTtlS": self._retain_ttl_s or None,
+                    "breaker": self._breaker.state,
                     "device": str(self.ctx.device),
                     "batcher": self.scheduler.snapshot(),
                     "resultCache": self.result_cache.snapshot(),
@@ -322,9 +584,24 @@ class EngineServer:
             if path == "/metrics" and method == "GET":
                 return 200, self.stats.registry.render()
             if path == "/stats.json" and method == "GET":
+                with self._swap_lock:
+                    inst = self._instance
+                wm = data_watermark(inst) if inst else None
                 return 200, {**self.stats.snapshot(),
                              "batcher": self.scheduler.snapshot(),
-                             "resultCache": self.result_cache.snapshot()}
+                             "resultCache": self.result_cache.snapshot(),
+                             "dataWatermark": wm.isoformat() if wm
+                             else None}
+            if path == "/reload" and method == "POST":
+                return self._answer_reload(body)
+            if path == "/admin/rollback" and method == "POST":
+                try:
+                    instance_id = self.rollback()
+                except WorkflowError as e:
+                    return 409, {"message": str(e)}
+                return 200, {"status": "rolled_back",
+                             "engineInstanceId": instance_id,
+                             "generation": self._generation}
             if path == "/queries.json" and method == "POST":
                 return self._answer_query(body)
             if path == "/stop" and method == "POST":
@@ -332,9 +609,45 @@ class EngineServer:
                 # (Handler.do_POST).
                 return 200, {"status": "stopping"}
             return 404, {"message": "Not Found"}
+        except DeadlineExceeded as e:
+            self.stats.shed.inc(server="engine")
+            return 504, {"message": str(e)}
+        except (ConnectionError, StorageUnavailable, CircuitOpenError) as e:
+            # Injected faults, dead backends and the reload breaker
+            # shedding are availability failures: 503 + Retry-After.  The
+            # last-good model keeps serving throughout.
+            return 503, {"message": f"Temporarily unavailable: {e}"}
         except Exception:
             logger.exception("engine server internal error")
             return 500, {"message": "Internal server error."}
+
+    def _answer_reload(self, body: bytes) -> Tuple:
+        """``POST /reload`` with an optional ``{"engineInstanceId"}``
+        pin: 200 with the new generation; 409 when the candidate fails
+        validation, or when a named candidate cannot be loaded; 400 for a
+        body that is not JSON."""
+        target = None
+        if body:
+            try:
+                target = (json.loads(body.decode("utf-8"))
+                          or {}).get("engineInstanceId")
+            except (ValueError, AttributeError):
+                return 400, {"message": "reload body must be JSON"}
+        try:
+            instance_id = self.reload(target)
+        except ModelValidationError as e:
+            # The last-good model keeps serving: a bad train is the
+            # client's fault, not an availability failure.
+            return 409, {"message": str(e), "status": "rejected"}
+        except WorkflowError as e:
+            if target:
+                # A named candidate this server cannot load (unknown or
+                # not COMPLETED) is rejected like a validation failure.
+                return 409, {"message": str(e), "status": "rejected"}
+            raise
+        return 200, {"status": "reloaded",
+                     "engineInstanceId": instance_id,
+                     "generation": self._generation}
 
     def _answer_query(self, body: bytes) -> Tuple:
         """``POST /queries.json``: bind → result cache → scheduler →
@@ -413,7 +726,11 @@ class EngineServer:
                 server_self.stats.shed.inc(server="engine")
 
             def pio_retry_after_s(self):
-                return server_self.retry_after_s
+                # A breaker-open reload shed carries the breaker's own
+                # recovery hint; other degraded answers the env default.
+                open_in = server_self._breaker.retry_after_s()
+                return max(1, int(open_in)) if open_in > 0 \
+                    else server_self.retry_after_s
 
             def pio_on_complete(self, method, path, status, ms, body,
                                 params):
@@ -455,5 +772,8 @@ class EngineServer:
         thread, self._thread = self._thread, None
         if thread is not None and thread is not threading.current_thread():
             thread.join(timeout=10)
+        timer, self._evict_timer = self._evict_timer, None
+        if timer is not None:
+            timer.cancel()
         self.scheduler.close()
         self.plugins.stop()

@@ -26,7 +26,9 @@ storage's KV with every other server on the same storage
 folds.  A generation trained elsewhere can still be carried in with
 :func:`wrapper_from_numpy` and persisted with
 :func:`predictionio_tpu_torch.workflow.core_workflow.persist_instance`.
-Not ported yet: ``warm_start`` and the quality and recall scorecards.
+``ALSAlgorithm.warm_start`` is the refresh loop's delta warm start
+(host float64 ridge sweeps over the delta-touched rows, as in the
+reference).  Not ported yet: the quality and recall scorecards.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ from predictionio_tpu_torch.controller import (
     FirstServing,
     Preparator,
     RuntimeContext,
+    WarmStartFallback,
 )
 from predictionio_tpu_torch.controller.params import Params
 from predictionio_tpu_torch.data.event import BiMap
@@ -587,6 +590,48 @@ def wrapper_from_numpy(user_factors, item_factors, user_ids, item_ids, *,
                            item_index=item_index, ivf=ivf, pq=pq)
 
 
+def _warm_ridge_sweep(target: np.ndarray, frozen: np.ndarray,
+                      row_ids: np.ndarray, col_ids: np.ndarray,
+                      vals: np.ndarray, *, reg: float, alpha: float,
+                      implicit: bool) -> None:
+    """One half-sweep of ALS warm-start continuation: re-solve each
+    delta-touched row of ``target`` against the frozen complement — the
+    same normal equation as :func:`models.als.fold_in`, but anchored at
+    the row's carried factor (``λn·u_prev`` on the right-hand side) so
+    one new event updates a trained row instead of wiping it.  Host
+    float64, row by row, as the reference does."""
+    order = np.argsort(row_ids, kind="stable")
+    rs = row_ids[order]
+    cs = col_ids[order]
+    vs = vals[order]
+    starts = np.flatnonzero(np.r_[True, rs[1:] != rs[:-1]])
+    f64 = frozen.astype(np.float64)
+    k = f64.shape[1]
+    yty = f64.T @ f64 if implicit else None
+    bounds = list(starts) + [len(rs)]
+    eye = np.eye(k)
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        row = int(rs[a])
+        y = f64[cs[a:b]]
+        r = vs[a:b]
+        if implicit:
+            w = alpha * np.abs(r)
+            c = (1.0 + w) * (r > 0)
+            mat = yty + (y * w[:, None]).T @ y
+            rhs = y.T @ c
+        else:
+            mat = y.T @ y
+            rhs = y.T @ r
+        lam = reg * (b - a)
+        mat = mat + lam * eye
+        rhs = rhs + lam * target[row].astype(np.float64)
+        try:
+            sol = np.linalg.solve(mat, rhs)
+        except np.linalg.LinAlgError:
+            sol = np.linalg.lstsq(mat, rhs, rcond=None)[0]
+        target[row] = sol.astype(np.float32)
+
+
 class ALSAlgorithm(Algorithm):
     params_class = ALSAlgorithmParams
 
@@ -647,6 +692,158 @@ class ALSAlgorithm(Algorithm):
         )
         # A generation predicts where it trained until a server's
         # post_load moves it (pio eval predicts with it directly).
+        wrapper._device = ctx.device
+        return wrapper
+
+    def warm_start(self, ctx: RuntimeContext, prepared_delta: Ratings,
+                   prev_model: ALSModelWrapper,
+                   warm: Any) -> ALSModelWrapper:
+        """Delta warm start — the refresh rung of ALS (reference:
+        ``ALSAlgorithm.warm_start``).
+
+        The previous generation's factors carry over, delta-new entities
+        get fresh normal/√rank rows, and ``numIterations // 5`` (at
+        least one) host ridge half-sweeps re-solve ONLY the
+        delta-touched rows against the frozen complement, anchored at
+        their carried values (:func:`_warm_ridge_sweep`, host float64 as
+        in the reference — not K1 and K2).  The random numbers are drawn
+        in the reference's order (fresh user rows, fresh item rows, then
+        the eval sample), so from the same previous factors the warm
+        factors are the reference's bit for bit.  Gates: config
+        compatibility, the delta-fraction gate, and an eval-regression
+        check (RMSE on a delta sample restricted to pairs the previous
+        generation knew).  Any doubt raises :class:`WarmStartFallback` →
+        full retrain.  IVF and PQ are rebuilt from the new factors as
+        :meth:`train` builds them; the quality and recall scorecards are
+        not ported.  The returned wrapper predicts on ``ctx.device``.
+        """
+        log = logging.getLogger(__name__)
+        p: ALSAlgorithmParams = self.params
+        prev_n = int(getattr(prev_model, "n_examples", 0))
+        delta_n = int(len(prepared_delta.ratings))
+        if (prev_model.model.rank != p.rank
+                or prev_model.model.implicit != p.implicitPrefs
+                or float(getattr(prev_model, "reg", p.lambda_))
+                != float(p.lambda_)
+                or float(getattr(prev_model, "alpha", p.alpha))
+                != float(p.alpha)):
+            raise WarmStartFallback("algorithm config changed")
+        max_frac = getattr(warm, "max_delta_fraction", 0.5)
+        if prev_n <= 0 or delta_n > max_frac * prev_n:
+            raise WarmStartFallback(
+                f"delta window too large for continuation ({delta_n} "
+                f"events vs {prev_n} trained; max fraction {max_frac:g})")
+        if delta_n == 0:
+            # Nothing new: carry the generation forward.  A FRESH wrapper
+            # (replace() re-runs __post_init__) because wrapper identity
+            # is the serving generation — caches must not be shared.
+            fresh = dataclasses.replace(prev_model)
+            fresh._device = ctx.device
+            return fresh
+        seed_now = p.seed if p.seed is not None else ctx.seed
+        k = int(p.rank)
+        uf_prev, itf_prev = prev_model.host_factors()
+        # Union-extend the id spaces: previous entities keep their rows,
+        # delta-new entities append contiguous fresh indices.
+        u_map: Dict[str, int] = dict(prev_model.user_index.items())
+        i_map: Dict[str, int] = dict(prev_model.item_index.items())
+        for key in prepared_delta.user_index.to_numpy_keys():
+            u_map.setdefault(str(key), len(u_map))
+        for key in prepared_delta.item_index.to_numpy_keys():
+            i_map.setdefault(str(key), len(i_map))
+        user_index = BiMap(u_map)
+        item_index = BiMap(i_map)
+        rng = np.random.default_rng(seed_now if seed_now is not None else 0)
+        scale = np.float32(np.sqrt(k))
+
+        def _extend(prev: np.ndarray, n_total: int) -> np.ndarray:
+            out = np.array(prev, np.float32, copy=True)
+            if n_total <= out.shape[0]:
+                return out
+            fresh_rows = rng.standard_normal(
+                (n_total - out.shape[0], k)).astype(np.float32) / scale
+            return np.concatenate([out, fresh_rows], axis=0)
+
+        uf = _extend(uf_prev, len(user_index))
+        itf = _extend(itf_prev, len(item_index))
+        # Remap delta triplets from the delta read's local indices to the
+        # union index space.
+        u_lut = np.asarray(
+            [u_map[str(kk)]
+             for kk in prepared_delta.user_index.to_numpy_keys()], np.int64)
+        i_lut = np.asarray(
+            [i_map[str(kk)]
+             for kk in prepared_delta.item_index.to_numpy_keys()], np.int64)
+        rows_u = u_lut[np.asarray(prepared_delta.user_ids, np.int64)]
+        rows_i = i_lut[np.asarray(prepared_delta.item_ids, np.int64)]
+        vals = np.asarray(prepared_delta.ratings, np.float64)
+        # Eval sample: pairs the PREVIOUS generation could already score.
+        # All-new-entity deltas have no comparable pairs — the fraction
+        # gate above already bounds how much unchecked change they carry.
+        known = np.flatnonzero(
+            (rows_u < len(prev_model.user_index))
+            & (rows_i < len(prev_model.item_index)))
+        su = si = sv = None
+        if known.size:
+            sel = rng.choice(known, size=min(known.size, 1024),
+                             replace=False)
+            su, si = rows_u[sel], rows_i[sel]
+            sv = ((vals[sel] > 0).astype(np.float64)
+                  if p.implicitPrefs else vals[sel])
+
+        def _sample_rmse() -> float:
+            pred = np.einsum("ij,ij->i", uf[su].astype(np.float64),
+                             itf[si].astype(np.float64))
+            return float(np.sqrt(np.mean((pred - sv) ** 2)))
+
+        rmse_before = _sample_rmse() if known.size else None
+        sweeps = max(1, int(p.numIterations) // 5)
+        for _ in range(sweeps):
+            _warm_ridge_sweep(uf, itf, rows_u, rows_i, vals,
+                              reg=float(p.lambda_), alpha=float(p.alpha),
+                              implicit=bool(p.implicitPrefs))
+            _warm_ridge_sweep(itf, uf, rows_i, rows_u, vals,
+                              reg=float(p.lambda_), alpha=float(p.alpha),
+                              implicit=bool(p.implicitPrefs))
+        tol = getattr(warm, "eval_tolerance", 0.1)
+        if known.size:
+            rmse_after = _sample_rmse()
+            if not np.isfinite(rmse_after) \
+                    or rmse_after > rmse_before * (1.0 + tol) + 1e-9:
+                raise WarmStartFallback(
+                    f"warm-started eval regressed on the delta sample "
+                    f"(rmse {rmse_before:.4f} → {rmse_after:.4f}, "
+                    f"tolerance {tol:g})")
+            log.info("als warm-start: +%d events (%d sweeps), "
+                     "delta-sample rmse %.4f → %.4f", delta_n, sweeps,
+                     rmse_before, rmse_after)
+        else:
+            log.info("als warm-start: +%d events (%d sweeps), all-new "
+                     "entities — no comparable eval pairs", delta_n, sweeps)
+        model = als_lib.ALSModel(user_factors=uf, item_factors=itf,
+                                 rank=k, implicit=bool(p.implicitPrefs))
+        # Retrieval structures are derived from THIS generation's
+        # factors — rebuilt exactly as train() builds them; carrying the
+        # parent's would mis-route the rows just moved.
+        ivf = build_train_index(itf, name="als", seed=seed_now,
+                                require_explicit=True)
+        pq = build_train_pq(itf, name="als", ivf=ivf, seed=seed_now)
+        wrapper = ALSModelWrapper(
+            model=model,
+            user_index=user_index,
+            item_index=item_index,
+            ivf=ivf,
+            pq=pq,
+            app_name=getattr(prepared_delta, "app_name", None)
+            or getattr(prev_model, "app_name", None),
+            fold_event_names=tuple(
+                getattr(prepared_delta, "event_names", ()) or ())
+            or tuple(getattr(prev_model, "fold_event_names", ()) or ()),
+            buy_rating=float(getattr(prepared_delta, "buy_rating", 4.0)),
+            reg=float(p.lambda_),
+            alpha=float(p.alpha),
+            n_examples=prev_n + delta_n,
+        )
         wrapper._device = ctx.device
         return wrapper
 

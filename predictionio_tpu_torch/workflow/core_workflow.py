@@ -11,7 +11,11 @@ self-persisted), ``load_models`` with the ``post_load`` hook, and the
 instance-params rebinding the server uses.  ``persist_instance`` is the
 tail of ``run_train`` with the models given instead of trained.
 ``run_evaluation`` sweeps engine-params candidates (reference:
-CoreWorkflow.runEvaluation).  Not ported yet: the warm-start branch,
+CoreWorkflow.runEvaluation).  ``run_train(warm_from=...)`` is the
+refresh loop's delta warm start: it reads only ``[previous watermark,
+new watermark)`` and falls back to a full retrain in the same engine
+instance when an algorithm declines (``refreshMode`` ``warm`` /
+``full`` / ``full_fallback`` on the instance's env).  Not ported yet:
 the memory sampler and the profiler capture of the reference's
 ``run_train``, and the eval sweep's checkpoints.
 """
@@ -38,6 +42,7 @@ from predictionio_tpu_torch.controller import (
     MetricEvaluatorResult,
     PersistentModel,
     RuntimeContext,
+    WarmStartFallback,
 )
 from predictionio_tpu_torch.data.storage import (
     EngineInstance,
@@ -45,15 +50,32 @@ from predictionio_tpu_torch.data.storage import (
     Model,
     Storage,
 )
+from predictionio_tpu_torch.resilience.supervision import TrainPreempted
 
 logger = logging.getLogger(__name__)
 
 __all__ = ["WorkflowError", "run_train", "persist_instance", "load_models",
-           "instance_engine_params", "run_evaluation", "DATA_WATERMARK_KEY"]
+           "instance_engine_params", "run_evaluation", "data_watermark",
+           "DATA_WATERMARK_KEY", "REFRESH_MODE_KEY", "WARM_FROM_KEY"]
 
-# EngineInstance.env key of the data high-watermark of a train run
-# (ISO-8601; the read saw exactly event_time < watermark).
-DATA_WATERMARK_KEY = "dataWatermark"
+# EngineInstance.env keys of the refresh loop.  The env dict rides every
+# backend's row format, so none needs a schema change.
+DATA_WATERMARK_KEY = "dataWatermark"   # ISO-8601 until-bound of the data read
+REFRESH_MODE_KEY = "refreshMode"       # "full" | "warm" | "full_fallback"
+WARM_FROM_KEY = "warmStartFrom"        # parent COMPLETED instance id
+
+
+def data_watermark(instance: EngineInstance) -> Optional[_dt.datetime]:
+    """The data high-watermark recorded on a train run: every event with
+    ``event_time < watermark`` was visible to (and bounded the read of)
+    that generation.  None for an instance that records none."""
+    raw = (instance.env or {}).get(DATA_WATERMARK_KEY)
+    if not raw:
+        return None
+    try:
+        return _dt.datetime.fromisoformat(raw)
+    except ValueError:
+        return None
 
 
 class WorkflowError(RuntimeError):
@@ -107,7 +129,8 @@ def _finish(storage: Storage, instance: EngineInstance, status: str) -> None:
 def run_train(engine: Engine, variant: EngineVariant,
               ctx: Optional[RuntimeContext] = None, *,
               engine_id: Optional[str] = None,
-              engine_version: str = __version__) -> str:
+              engine_version: str = __version__,
+              warm_from: Any = None) -> str:
     """Train an engine variant; returns the COMPLETED engine-instance id.
 
     Reference: CoreWorkflow.runTrain, including the FAILED-status write
@@ -118,25 +141,63 @@ def run_train(engine: Engine, variant: EngineVariant,
     recording it in ``instance.env[dataWatermark]``: events landing
     mid-read belong to the next generation.  ``ctx`` defaults to
     :meth:`RuntimeContext.create` (the card).
+
+    ``warm_from`` (a :class:`~predictionio_tpu_torch.refresh.
+    WarmStartContext`) switches the run to delta warm start: the
+    datasource reads only ``[previous watermark, new watermark)`` and
+    each algorithm continues its previous model.  A
+    :class:`~predictionio_tpu_torch.controller.WarmStartFallback` falls
+    back to a full retrain over the complete window inside the SAME
+    engine instance (``refreshMode`` ``full_fallback``).  A
+    :class:`TrainPreempted` lands the instance as PREEMPTED.
     """
     from predictionio_tpu_torch.data.store import WindowedEventStore
     from predictionio_tpu_torch.obs import phase
 
     ctx = ctx or RuntimeContext.create()
     storage: Storage = ctx.storage
+    # The watermark is pinned before ANY event is read.
     watermark = _now()
+    env = {DATA_WATERMARK_KEY: watermark.isoformat(),
+           REFRESH_MODE_KEY: "warm" if warm_from is not None else "full"}
+    if warm_from is not None and getattr(warm_from, "instance", None):
+        env[WARM_FROM_KEY] = warm_from.instance.id
     instance, engine_params = _start_instance(
-        engine, variant, storage,
-        env={DATA_WATERMARK_KEY: watermark.isoformat()},
+        engine, variant, storage, env=env,
         engine_id=engine_id, engine_version=engine_version)
     logger.info("EngineInstance %s TRAINING (factory=%s)", instance.id,
                 variant.engine_factory)
+
+    def _windowed(start: Optional[_dt.datetime]) -> RuntimeContext:
+        return dataclasses.replace(
+            ctx, event_store=WindowedEventStore(storage, start, watermark))
+
     try:
-        wctx = dataclasses.replace(
-            ctx, event_store=WindowedEventStore(storage, None, watermark))
-        models = engine.train(wctx, engine_params)
+        models = None
+        if warm_from is not None:
+            try:
+                models = engine.train(_windowed(warm_from.start_time),
+                                      engine_params, warm=warm_from)
+            except WarmStartFallback as e:
+                # The fallback is part of the contract, not a failure:
+                # retrain fully over the complete window, same instance,
+                # and record which road was taken.
+                logger.warning(
+                    "EngineInstance %s: warm-start declined (%s) — "
+                    "falling back to a full retrain", instance.id,
+                    e.reason)
+                instance.env[REFRESH_MODE_KEY] = "full_fallback"
+        if models is None:
+            models = engine.train(_windowed(None), engine_params)
         with phase("train.persist"):
             _persist_models(models, instance.id, ctx)
+    except TrainPreempted as e:
+        # SIGTERM preemption: the distinct status tells a supervisor
+        # this run hands back, not failed.
+        _finish(storage, instance, "PREEMPTED")
+        logger.warning("EngineInstance %s PREEMPTED at step %d",
+                       instance.id, e.step)
+        raise
     except BaseException:
         # BaseException: an interrupted run must land as FAILED, not sit
         # in TRAINING as a phantom live train.
