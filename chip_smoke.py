@@ -187,7 +187,27 @@ cannot be imported, or when any phase fails.  Phases, in order:
    an eviction frees (torch.cuda.memory_allocated) must cover the
    evicted generation's staged corpus.  Times: warm vs full train, the
    /reload and rollback walls, client p50/p99 under load.
-17. report — one JSON line of per-kernel numbers, the card's name and
+17. twotower — the two-tower engine.  17a: two_tower.train at bench.py's
+   shape (200,000 users x 100,000 items, embed 64, hidden [128], out 64,
+   batch 1,024; 800,000 seeded interaction rows, 1 epoch) from numpy
+   and from the native feeder, at K=1 and K=8 (one init outside the
+   walls): examples/s, the pipeline probe's device_wait / h2d /
+   host_wait / dispatch shares, peak device memory; each K=8 state
+   equal to its K=1 state bit for bit; a NaN batch must raise
+   TrainDiverged with no checkpoint directory.  17b: `pio train
+   --fuse-steps 8` in-process with the port's shipped twotower
+   engine.json (appName set, eventNames rate and buy; 2 epochs of its
+   10, for time) on phase 12's store; `pio deploy` as a
+   subprocess on the card (chunked rung, PIO_SERVE_HOST_MACS=0, result
+   cache off) answering 64 /queries.json, each held against the plain
+   top-k of the persisted vectors; two_tower.retrieve(chunk=) (K3)
+   against the plain top-k of encode_users/encode_items.  17c: 20,000
+   rate events after the watermark (phase 16's delta shape: 200 new
+   users, 100 new items), run_train(warm_from=) must come out warm past
+   the template's loss gate; POST /reload to it; 64 answers (32 of new
+   users) held against the plain top-k of the warm vectors; K3 counted
+   in the deploy process.
+18. report — one JSON line of per-kernel numbers, the card's name and
    power limit, and the final status line.
 """
 
@@ -4165,6 +4185,364 @@ def refresh_phase(dev, seed: int, loop: dict, mods: dict, card: str) -> dict:
     return out
 
 
+# Phase 17: the two-tower engine.  (a) the train loop at bench.py's
+# shape; (b) the shipped engine.json through `pio train` / `pio deploy`
+# on phase 12's store; (c) one warm cycle on a 20,000-event delta.
+TT_USERS, TT_ITEMS = 200_000, 100_000       # bench.py's two-tower shape
+TT_EMBED, TT_HIDDEN, TT_OUT, TT_BATCH = 64, (128,), 64, 1024
+# bench.py's feeder rows, one epoch a run: the eager loop is host-bound
+# (PERF.md §5), and the smoke must end inside its time limit
+TT_ROWS, TT_EPOCHS = 800_000, 1
+TT_PIO_EPOCHS = 2     # 17b: the shipped engine.json's 10, cut for time
+TT_FUSED = 8
+TT_NAN_ROWS = 65_536                        # the injected-NaN run's rows
+TT_FACTORY = "predictionio_tpu_torch.templates.twotower:engine"
+TT_CHUNK = 8_192                            # retrieve(chunk=) on the card
+TT_LIMIT_S = 150.0
+
+
+def tt_state_leaves(tt, state):
+    """Every tensor of a two-tower state (params, both moments) in one
+    fixed order."""
+    adam = state.opt_state[0]
+    return (tt._leaves(state.params) + tt._leaves(adam.mu)
+            + tt._leaves(adam.nu))
+
+
+def two_tower_train_runs(dev, seed: int, card: str) -> dict:
+    """Phase 17a: ``two_tower.train`` at bench.py's shape, from numpy and
+    from the native feeder, at K=1 and K=8: examples/s, the probe's
+    shares, peak device memory; K=8's state bitwise K=1's; and a NaN
+    batch must raise TrainDiverged with no checkpoint directory."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.models import two_tower as tt
+    from predictionio_tpu_torch.obs.runtime import get_timeline
+    from predictionio_tpu_torch.resilience.supervision import TrainDiverged
+
+    rng = np.random.default_rng(seed + 17)
+    users = rng.integers(0, TT_USERS, TT_ROWS)
+    items = rng.integers(0, TT_ITEMS, TT_ROWS)
+    cfg = tt.TwoTowerConfig(
+        n_users=TT_USERS, n_items=TT_ITEMS, embed_dim=TT_EMBED,
+        hidden_dims=TT_HIDDEN, out_dim=TT_OUT, batch_size=TT_BATCH,
+        epochs=TT_EPOCHS, seed=seed)
+    t0 = time.perf_counter()
+    # One init for every run: train() never changes its starting state,
+    # and starting from it (warm_state) times the loop alone.
+    init = tt.init_state(cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # Warm-up outside the walls: the first train of a process pays the
+    # card's and PyTorch's first-call costs, the first feeder run the
+    # library's g++ build.
+    t0 = time.perf_counter()
+    warm_rows = 2 * TT_FUSED * TT_BATCH
+    for source in ("numpy", "feeder"):
+        for k in (1, TT_FUSED):
+            tt.train(users[:warm_rows], items[:warm_rows], cfg,
+                     data_source=source, fuse_steps=k, warm_state=init,
+                     device=dev)
+    torch.cuda.synchronize()
+    out = {"init_s": init_s, "warmup_s": time.perf_counter() - t0,
+           "runs": {}}
+    finals = {}
+    steps = TT_EPOCHS * -(-TT_ROWS // TT_BATCH)
+    for source in ("numpy", "feeder"):
+        for k in (1, TT_FUSED):
+            timeline = get_timeline()
+            timeline.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            state = tt.train(users, items, cfg, data_source=source,
+                             fuse_steps=k, warm_state=init, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if int(state.step) != steps:
+                die(f"phase 17a {source} K={k}: {state.step} steps, not "
+                    f"{steps}")
+            summ = timeline.summary("two_tower")
+            ms = summ["phase_ms"]
+            loop_ms = sum(ms[p] for p in ("host_wait", "h2d", "dispatch",
+                                          "device_wait"))
+            out["runs"][f"{source}_k{k}"] = {
+                "wall_s": wall,
+                "examples_per_s": TT_ROWS * TT_EPOCHS / wall,
+                "dispatches": summ["dispatches"],
+                "device_wait_share": summ["phase_share"]["device_wait"],
+                "h2d_share": summ["phase_share"]["h2d"],
+                "host_wait_share": summ["phase_share"]["host_wait"],
+                "dispatch_share": summ["phase_share"]["dispatch"],
+                "h2d_overlap_ms": ms["h2d_overlap"],
+                "loop_ms": loop_ms,
+                "peak_bytes": torch.cuda.max_memory_allocated() - base,
+            }
+            finals[(source, k)] = state
+        a, b = finals[(source, 1)], finals[(source, TT_FUSED)]
+        la, lb = tt_state_leaves(tt, a), tt_state_leaves(tt, b)
+        if not all(torch.equal(x, y) for x, y in zip(la, lb)) or (
+                int(a.opt_state[0].count), a.step) != (
+                int(b.opt_state[0].count), b.step):
+            worst = max(float((x - y).abs().max()) for x, y in zip(la, lb))
+            die(f"phase 17a {source}: the K={TT_FUSED} state is not the "
+                f"K=1 state bit for bit (max |diff| {worst:.3g})")
+        if not all(bool(torch.isfinite(x).all()) for x in la):
+            die(f"phase 17a {source}: non-finite trained state")
+    del finals, a, b, la, lb
+    # The finite-loss guard: one NaN weight poisons one batch's loss.
+    w = np.ones(TT_NAN_ROWS, np.float32)
+    w[TT_NAN_ROWS // 2] = np.nan
+    nan_cfg = tt.TwoTowerConfig(**{**vars(cfg), "epochs": 1})
+    try:
+        tt.train(users[:TT_NAN_ROWS], items[:TT_NAN_ROWS], nan_cfg,
+                 weights=w, data_source="numpy", fuse_steps=TT_FUSED,
+                 warm_state=init, device=dev)
+        die("phase 17a: a NaN batch did not raise TrainDiverged")
+    except TrainDiverged as e:
+        out["diverged"] = str(e).split(" (")[0]
+    torch.cuda.empty_cache()
+    return out
+
+
+def two_tower_phase(dev, seed: int, loop: dict, mods: dict, card: str
+                    ) -> dict:
+    """Phase 17: (a) :func:`two_tower_train_runs`; (b) `pio train` of
+    the port's shipped twotower engine.json on phase 12's store (in
+    process), `pio deploy` as a subprocess answering 64 /queries.json on
+    the chunked rung, each held against the plain top-k of the persisted
+    vectors, and ``two_tower.retrieve(chunk=)`` against the plain top-k;
+    (c) one warm ``run_train(warm_from=)`` on a 20,000-event delta
+    promoted through POST /reload, 64 answers held against the new
+    vectors.  Returns the phase's numbers and K3 launches."""
+    import datetime as dt
+    import logging
+
+    import numpy as np
+    import torch
+
+    ft, pio = mods["ft"], mods["pio"]
+    from predictionio_tpu_torch.data.storage import get_storage, \
+        reset_storage
+    from predictionio_tpu_torch.models import two_tower as tt
+    from predictionio_tpu_torch.refresh import WarmStartContext
+    from predictionio_tpu_torch.templates.twotower import engine
+    from predictionio_tpu_torch.version import __version__
+    from predictionio_tpu_torch.workflow.core_workflow import (
+        data_watermark, load_models)
+
+    phase_t0 = time.perf_counter()
+    out = {"train": two_tower_train_runs(dev, seed, card)}
+    work = loop["work"]
+    spec = json.loads((Path(__file__).resolve().parent /
+                       "predictionio_tpu_torch" / "templates" / "twotower" /
+                       "engine.json").read_text())
+    if spec["engineFactory"] != TT_FACTORY:
+        die(f"phase 17: the shipped engine.json names "
+            f"{spec['engineFactory']}")
+    spec["datasource"]["params"].update(appName=CLI_APP,
+                                        eventNames=["rate", "buy"])
+    spec["algorithms"][0]["params"].update(seed=seed, epochs=TT_PIO_EPOCHS)
+    engine_json = os.path.join(work, "twotower.json")
+    Path(engine_json).write_text(json.dumps(spec))
+    env = cli_env(os.path.join(work, "home"))
+    env.values.update(PIO_SERVE_HOST_MACS="0", PIO_RESULT_CACHE="0",
+                      PIO_FUSE_STEPS=None, PIO_PREFETCH_DEPTH=None)
+    rng = np.random.default_rng(seed + 171)
+    server = None
+    captured = []
+
+    class _Gate(logging.Handler):
+        def emit(self, record):
+            captured.append(record.getMessage())
+
+    gate = _Gate(level=logging.INFO)
+    tpl_log = logging.getLogger(
+        "predictionio_tpu_torch.templates.twotower.engine")
+    env.__enter__()
+    reset_storage()
+    try:
+        # -- b: pio train (in-process), pio deploy (subprocess) -----------
+        ft.LAUNCHES = 0                      # main path starts here
+        t0 = time.perf_counter()
+        if pio(["train", "--engine-json", engine_json, "--fuse-steps",
+                str(TT_FUSED)]) != 0:
+            die("phase 17: pio train (twotower) failed")
+        out["train_s"] = time.perf_counter() - t0
+        storage = get_storage()
+        eng = engine()
+        variant = mods["EngineVariant"].from_file(engine_json)
+        instances = storage.get_engine_instances()
+        inst1 = instances.get_latest_completed(
+            variant.engine_factory, __version__, variant.variant_id)
+        ctx = mods["RuntimeContext"](storage=storage, device=dev)
+        [w1] = load_models(eng, inst1, ctx)
+        out["n_examples"] = w1.n_examples
+        out["shape"] = (len(w1.user_index), len(w1.item_index))
+        d = spec["algorithms"][0]["params"]["outDim"]
+        if w1.user_vecs.shape != (out["shape"][0], d) or \
+                w1.item_vecs.shape != (out["shape"][1], d) or not (
+                np.isfinite(w1.user_vecs).all()
+                and np.isfinite(w1.item_vecs).all()):
+            die(f"phase 17: trained vectors {w1.user_vecs.shape} x "
+                f"{w1.item_vecs.shape}")
+        norms = np.linalg.norm(w1.item_vecs, axis=1)
+        if not np.allclose(norms, 1.0, atol=1e-3):
+            die(f"phase 17: item vectors not normalised ({norms.min()} .. "
+                f"{norms.max()})")
+        server = deployed(engine_json, os.path.join(work, "tt.log"),
+                          phase="phase 17")
+        if server.instance != inst1.id or \
+                not server.device.startswith(dev.type):
+            die(f"phase 17: deploy serves {server.instance} on "
+                f"{server.device}")
+        names = list(w1.user_index.keys())
+        asked = [names[j] for j in rng.choice(len(names), CLI_QUERIES,
+                                              replace=False)]
+
+        def hold(w, users, what):
+            """64 /queries.json, each the plain top-k of ``w``'s vectors
+            on the card; returns (max |err|, p50 ms)."""
+            items_d = torch.from_numpy(w.item_vecs).to(dev)
+            err, lats = 0.0, []
+            for user in users:
+                t = time.perf_counter()
+                ans, _ = post_json(f"{server.base}/queries.json",
+                                   {"user": user, "num": 10})
+                lats.append(time.perf_counter() - t)
+                hits = ans["itemScores"]
+                if len(hits) != 10:
+                    die(f"phase 17 {what} {user}: {len(hits)} items")
+                err = max(err, check_against_plain(
+                    [[h["score"] for h in hits]],
+                    [[w.item_index[h["item"]] for h in hits]],
+                    torch.from_numpy(w.user_vecs[[w.user_index[user]]]).to(
+                        dev), items_d, 10, None, f"phase 17 {what} {user}",
+                    ft, mods["topk_mismatch"]))
+            return err, sorted(lats)[len(lats) // 2] * 1e3
+
+        out["query_err"], out["p50_ms"] = hold(w1, asked, "/queries.json")
+        # retrieve(chunk=) on the card (K3), from the carried train state
+        state = tt.state_from_host(w1.train_state, dev)
+        q_users = torch.as_tensor(rng.choice(len(names), 64, replace=False),
+                                  device=dev)
+        n_items = len(w1.item_index)
+        s, i = tt.retrieve(state.params, q_users, n_items, 10,
+                           chunk=TT_CHUNK)
+        q = tt.encode_users(state.params, q_users)
+        if not np.array_equal(q.cpu().numpy(),
+                              w1.user_vecs[q_users.cpu().numpy()]):
+            die("phase 17: encode_users differs from the persisted vectors")
+        items_d = tt.encode_items(state.params,
+                                  torch.arange(n_items, device=dev))
+        out["retrieve_err"] = check_against_plain(
+            s.cpu().numpy(), i.cpu().numpy(), q, items_d, 10, None,
+            "phase 17 retrieve(chunk=)", ft, mods["topk_mismatch"])
+        del state, items_d
+
+        # -- c: one warm cycle on a 20,000-event delta ----------------------
+        wm1 = data_watermark(inst1)
+        rows = refresh_delta(rng, names, list(w1.item_index.keys()),
+                             REFRESH_DELTA, REFRESH_NEW_USERS,
+                             REFRESH_NEW_ITEMS, REFRESH_TOUCHED_USERS, "t")
+        stamp = dt.datetime.now(dt.timezone.utc)
+        if stamp <= wm1:
+            die(f"phase 17: the clock reads {stamp}, not after the "
+                f"watermark {wm1}")
+        app_id = storage.get_apps().get_by_name(CLI_APP).id
+        Event, DataMap = mods["Event"], mods["DataMap"]
+        storage.get_events().insert_batch([
+            Event(event="rate", entity_type="user", entity_id=u,
+                  target_entity_type="item", target_entity_id=i_,
+                  properties=DataMap({"rating": r}),
+                  event_time=stamp + dt.timedelta(microseconds=n))
+            for n, (u, i_, r) in enumerate(rows)], app_id)
+        warm = WarmStartContext(instance=inst1, models=[w1],
+                                start_time=wm1)
+        tpl_log.addHandler(gate)
+        tpl_log.setLevel(logging.INFO)
+        t0 = time.perf_counter()
+        wid = mods["run_train"](
+            eng, variant, mods["RuntimeContext"].create(storage=storage,
+                                                        device=dev),
+            warm_from=warm)
+        out["warm_s"] = time.perf_counter() - t0
+        inst2 = instances.get(wid)
+        mode = inst2.env.get("refreshMode")
+        if mode != "warm":
+            die(f"phase 17: the warm cycle came out {mode!r} "
+                f"({captured})")
+        gate_lines = [m for m in captured if "delta-sample loss" in m]
+        if not gate_lines:
+            die("phase 17: the warm start logged no delta-sample loss")
+        out["warm_gate"] = gate_lines[-1].split("delta-sample loss ")[-1]
+        [w2] = load_models(eng, inst2, ctx)
+        if w2.n_examples != w1.n_examples + REFRESH_DELTA or \
+                len(w2.user_index) < len(w1.user_index) + REFRESH_NEW_USERS:
+            die(f"phase 17: the warm generation has {w2.n_examples} "
+                f"examples, {len(w2.user_index)} users")
+        st, body, out["reload_s"] = post_status(f"{server.base}/reload",
+                                                {"engineInstanceId": wid})
+        if st != 200:
+            die(f"phase 17: POST /reload answered {st} {body}")
+        fresh = [r[0] for r in rows[:REFRESH_NEW_USERS * 5:5]]
+        out["warm_err"], out["warm_p50_ms"] = hold(
+            w2, asked[:CLI_QUERIES // 2] + fresh[:CLI_QUERIES // 2],
+            "warm answer")
+        server.stop()
+        deploy_k3 = server.launches["fused_topk"]
+        server = None
+        out["launches"] = {"fused_topk": ft.LAUNCHES + deploy_k3}
+        # main path ends here
+        if deploy_k3 < 2 * CLI_QUERIES or ft.LAUNCHES < 1:
+            die(f"phase 17: K3 launched {deploy_k3} times in the deploy "
+                f"process and {ft.LAUNCHES} in this one")
+    finally:
+        tpl_log.removeHandler(gate)
+        if server is not None:
+            server.kill()
+        reset_storage()
+        env.__exit__()
+    out["phase_s"] = time.perf_counter() - phase_t0
+    tr = out["train"]
+    runs = " | ".join(
+        f"{name}: {r['examples_per_s']:.0f} ex/s ({r['wall_s']:.2f} s, "
+        f"{r['dispatches']} dispatches; shares device_wait "
+        f"{r['device_wait_share']:.3f} h2d {r['h2d_share']:.3f} host_wait "
+        f"{r['host_wait_share']:.3f} dispatch {r['dispatch_share']:.3f}; "
+        f"h2d overlapped {r['h2d_overlap_ms']:.0f} ms; peak "
+        f"{r['peak_bytes'] / 2**20:.0f} MiB)"
+        for name, r in tr["runs"].items())
+    log(f"phase 17 two-tower train: {TT_USERS}x{TT_ITEMS}, embed "
+        f"{TT_EMBED}, hidden {list(TT_HIDDEN)}, out {TT_OUT}, batch "
+        f"{TT_BATCH}, {TT_ROWS} rows x {TT_EPOCHS} epochs (init "
+        f"{tr['init_s']:.2f} s and a warm-up of 4 short trains "
+        f"{tr['warmup_s']:.2f} s, outside the walls): {runs}; K={TT_FUSED} "
+        f"state equals K=1 bit for bit from both sources; a NaN batch "
+        f"raised {tr['diverged']!r}; card {card}")
+    log(f"phase 17 two-tower pio loop: pio train --fuse-steps {TT_FUSED} "
+        f"(shipped engine.json, epochs {TT_PIO_EPOCHS}, "
+        f"{out['n_examples']} events, {out['shape'][0]} users x "
+        f"{out['shape'][1]} items) {out['train_s']:.2f} s; pio deploy on "
+        f"the chunked rung: {CLI_QUERIES} /queries.json p50 "
+        f"{out['p50_ms']:.2f} ms, each the plain top-k of the persisted "
+        f"vectors (max |err| {out['query_err']:.3g}); retrieve(chunk="
+        f"{TT_CHUNK}) max |err| {out['retrieve_err']:.3g}; warm cycle on "
+        f"{REFRESH_DELTA} delta events {out['warm_s']:.2f} s, mode warm, "
+        f"delta-sample loss {out['warm_gate']}; POST /reload "
+        f"{out['reload_s'] * 1e3:.1f} ms; {CLI_QUERIES} answers "
+        f"({CLI_QUERIES // 2} new "
+        f"users) the plain top-k of the warm vectors (max |err| "
+        f"{out['warm_err']:.3g}, p50 {out['warm_p50_ms']:.2f} ms); K3 "
+        f"launches {out['launches']['fused_topk']}; phase 17 in "
+        f"{out['phase_s']:.1f} s; card {card}")
+    if out["phase_s"] > TT_LIMIT_S:
+        log(f"phase 17: over its {TT_LIMIT_S:.0f} s budget")
+    return out
+
+
 def post_json(url: str, obj):
     """POST one query; returns (answer, the server's own wall ms)."""
     req = urllib.request.Request(
@@ -4456,13 +4834,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- phase 16: staged reload, rollback, the warm-start refresh --------
+    # -- phase 17: the two-tower engine on phase 12's store ---------------
     try:
         refresh = refresh_phase(dev, args.seed, loop, mods, card)
+        torch.cuda.empty_cache()
+        tt = two_tower_phase(dev, args.seed, loop, mods, card)
     finally:
         shutil.rmtree(loop["work"], ignore_errors=True)
     torch.cuda.empty_cache()
 
-    # -- phase 17: report --------------------------------------------------
+    # -- phase 18: report --------------------------------------------------
     main_shape = timings[(ML25M_ITEMS, 1, 10)]
     b64 = timings[(ML25M_ITEMS, 64, 10)]   # a full batch of query_batch
     kernels = [{
@@ -4473,7 +4854,7 @@ def main() -> int:
         "launches": main_launches + loop["launches"]["fused_topk"]
         + es["launches"]["fused_topk"] + sched["launches"]
         + sched["inline_launches"] + sched["native_launches"]
-        + refresh["launches"]["fused_topk"],
+        + refresh["launches"]["fused_topk"] + tt["launches"]["fused_topk"],
         "max_abs_err": max(max_err, err, err4),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -4551,7 +4932,9 @@ def main() -> int:
         f"{sched['inline_launches']} inline and "
         f"{sched['native_launches']} in the native deploy process (phase "
         f"15), {refresh['launches']['fused_topk']} in phase 16 (its "
-        f"deploy process and the eviction's server), {dase_topk} on the "
+        f"deploy process and the eviction's server), "
+        f"{tt['launches']['fused_topk']} in phase 17 (two-tower: its deploy "
+        f"process and retrieve(chunk=)), {dase_topk} on the "
         f"DASE path; training "
         f"kernels per the train run (fused_gram, ridge_solve_lu) + the CLI "
         f"path's train and eval ({loop['launches']['fused_gram']}, "

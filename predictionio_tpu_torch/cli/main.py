@@ -36,9 +36,12 @@ at first use (a failed build ends the verb with the compiler's message;
 there is no fallback to the Python transport).  ``train --follow`` is
 the refresh daemon: it retrains on a cadence (ALS warm start on the
 delta when it can) and promotes each generation through a deploy's
-``POST /reload``.  Flags whose substrate the port does not have yet
-(train and eval checkpoints, the input pipeline, the mesh) are not
-defined, so argparse rejects them by name.
+``POST /reload``.  ``train --prefetch-depth`` / ``--fuse-steps`` /
+``--batch-autoscale`` set the deep models' input pipeline knobs
+(``PIO_PREFETCH_DEPTH`` / ``PIO_FUSE_STEPS`` / ``PIO_BATCH_AUTOSCALE``);
+a SIGTERM'd train hands back and exits 143.  Flags whose substrate the
+port does not have yet (the train and eval checkpoint flags, the mesh)
+are not defined, so argparse rejects them by name.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ import argparse
 import json
 import logging
 import os
+import signal
 import sys
 from pathlib import Path
 from typing import List, Optional
@@ -305,8 +309,34 @@ def cmd_build(args) -> int:
 
 def cmd_train(args) -> int:
     from predictionio_tpu_torch.controller import RuntimeContext
+    from predictionio_tpu_torch.resilience.supervision import (
+        PREEMPTED_EXIT_CODE,
+        TrainPreempted,
+        install_preemption_handler,
+    )
     from predictionio_tpu_torch.workflow.core_workflow import run_train
 
+    if getattr(args, "prefetch_depth", 0) > 0:
+        # Overlapped input pipeline (data/prefetch.py): the deep-model
+        # train loop reads this when constructing its DevicePrefetcher.
+        os.environ["PIO_PREFETCH_DEPTH"] = str(args.prefetch_depth)
+    if getattr(args, "fuse_steps", None):
+        # K-step fused dispatch (data/fusion.py): an int pins the window
+        # depth, "auto" hands it to the HBM-guided autotuner.
+        text = str(args.fuse_steps).strip().lower()
+        if text != "auto":
+            try:
+                if int(text) < 1:
+                    _die("--fuse-steps must be a positive integer or "
+                         "'auto'.")
+            except ValueError:
+                _die(f"--fuse-steps {args.fuse_steps!r} is neither an "
+                     "integer nor 'auto'.")
+        os.environ["PIO_FUSE_STEPS"] = text
+    if getattr(args, "batch_autoscale", False):
+        # Opt-in: wider (concatenated) optimizer steps once fusion depth
+        # caps out — a semantics change, so never on by default.
+        os.environ["PIO_BATCH_AUTOSCALE"] = "on"
     if args.pq:
         # Quantized-corpus build policy, read at train time by the
         # templates (retrieval.build_train_pq).
@@ -323,7 +353,21 @@ def cmd_train(args) -> int:
                                 seed=args.seed)
     if args.follow:
         return _train_follow(args, engine, variant, ctx)
-    instance_id = run_train(engine, variant, ctx)
+    # SIGTERM during the train → the loops hand back at the next step
+    # boundary and the verb exits 143 (the reference's preemption
+    # contract); the process's own handler is back once the verb ends.
+    previous = signal.getsignal(signal.SIGTERM)
+    installed = install_preemption_handler()
+    try:
+        instance_id = run_train(engine, variant, ctx)
+    except TrainPreempted as e:
+        print(f"[preempted] {e}", file=sys.stderr)
+        print("[preempted] rerun the same `pio train` command to train "
+              "again.", file=sys.stderr)
+        return PREEMPTED_EXIT_CODE
+    finally:
+        if installed:
+            signal.signal(signal.SIGTERM, previous)
     print(f"Training completed. Engine instance ID: {instance_id}")
     return 0
 
@@ -335,10 +379,10 @@ def _train_follow(args, engine, variant, ctx) -> int:
     carries a watermark and continuable state, a full retrain otherwise
     — and, with ``--promote-url`` / ``PIO_REFRESH_PROMOTE_URL``, promotes
     each generation through the serving server's staged-reload gate.
-    SIGTERM/SIGINT stop the loop after the current cycle, exit 0 (the
-    port's trains have no checkpoints to hand back mid-train)."""
-    import signal
-
+    SIGTERM/SIGINT stop the loop after the current cycle, exit 0; a
+    two-tower train in flight hands back at its next step boundary
+    instead (``TrainPreempted``, exit 143), as in the reference.  ALS
+    has no checkpoints in the port and finishes its cycle."""
     from predictionio_tpu_torch.refresh import RefreshConfig
     from predictionio_tpu_torch.refresh.daemon import RefreshDaemon
     from predictionio_tpu_torch.resilience.supervision import (
@@ -428,8 +472,6 @@ def cmd_eval(args) -> int:
 def _install_drain_handlers(drain) -> None:
     """SIGTERM/SIGINT → stop accepting, finish in-flight requests, exit
     0 (a failed drain exits 1)."""
-    import signal
-
     def _handler(signum, frame):
         logger.info("signal %d: draining", signum)
         try:
@@ -920,6 +962,26 @@ def build_parser() -> argparse.ArgumentParser:
     t = sub.add_parser("train", help="train an engine variant")
     t.add_argument("--engine-json", default="engine.json")
     t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--prefetch-depth", dest="prefetch_depth", type=int,
+                   default=0, metavar="N",
+                   help="staged batches the input pipeline keeps ahead "
+                        "of the device (default: env PIO_PREFETCH_DEPTH, "
+                        "else 2; raise on fast-feeder/slow-step "
+                        "workloads, lower if HBM headroom warns)")
+    t.add_argument("--fuse-steps", dest="fuse_steps", default=None,
+                   metavar="K|auto",
+                   help="optimizer steps issued per window with no host "
+                        "sync inside (bitwise-equal to K=1).  'auto' "
+                        "grows depth until the HBM headroom guardrail "
+                        "pushes back, then backs off one notch and pins "
+                        "(default: env PIO_FUSE_STEPS, else 1)")
+    t.add_argument("--batch-autoscale", dest="batch_autoscale",
+                   action="store_true",
+                   help="let the fusion autotuner also widen the "
+                        "effective batch (concatenate prepped batches) "
+                        "once fusion depth caps out — fewer, wider "
+                        "optimizer steps: a semantics change, opt-in "
+                        "(env PIO_BATCH_AUTOSCALE=on)")
     t.add_argument("--pq", dest="pq", default=None, metavar="auto|on|off",
                    help="quantized-corpus build policy: residual PQ codes "
                         "next to the IVF index (default: env PIO_PQ, "

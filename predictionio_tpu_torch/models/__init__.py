@@ -1,2 +1,2 @@
-"""Models of the port: ALS, naive Bayes, logistic regression and the
-Markov chain."""
+"""Models of the port: ALS, naive Bayes, logistic regression, the
+Markov chain and the two-tower retrieval model."""

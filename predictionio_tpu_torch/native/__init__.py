@@ -2,9 +2,10 @@
 
 Port of ``predictionio_tpu/native``: the continuous-batching serving
 frontend (``serving_frontend.cc``, the port's own copy) behind ``pio
-deploy --native`` and ``pio eventserver --native``.  :func:`load_library`
-compiles a source with g++ at first use into ``build/torch_native/``.
-The feeder arrives with the deep models.
+deploy --native`` and ``pio eventserver --native``, and the event-log
+feeder (``feeder.cc``, the port's own copy) that assembles the deep
+models' shuffled training batches.  :func:`load_library` compiles a
+source with g++ at first use into ``build/torch_native/``.
 """
 
 from predictionio_tpu_torch.native.build import load_library

@@ -1,6 +1,7 @@
 """Observability of the port: the metrics registry and the workflow's
-phase timer.  Traces, the latency waterfall and the quality monitors
-arrive with later slices."""
+phase timer; the training-pipeline probe (:mod:`.pipeline`) and the
+device-memory sampler and step timeline (:mod:`.runtime`).  Traces, the
+latency waterfall and the quality monitors arrive with later slices."""
 
 import contextlib as _contextlib
 import time as _time

@@ -12,6 +12,9 @@ lays out its counters in partitionable mode:
 - ``split(key, n)`` hashes the 64-bit counters ``0 .. n-1`` (high word,
   low word) under the key; key ``i`` is the two output words of
   counter ``i``;
+- ``fold_in(key, data)`` hashes the one counter pair ``(0, data)``
+  (the key JAX makes of ``data`` as a seed) under the key; the new key
+  is its two output words;
 - 32-bit ``random_bits(key, shape)`` hashes the row-major flat index of
   each element the same way and XORs the two output words;
 - ``normal``: the top 23 bits become a float in [1, 2), shifted to
@@ -32,7 +35,8 @@ from typing import Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["seed_key", "split", "random_bits", "normal", "erfinv"]
+__all__ = ["seed_key", "split", "fold_in", "random_bits", "normal",
+           "erfinv"]
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = np.uint32(0x1BD11BDA)
@@ -91,6 +95,15 @@ def split(key: np.ndarray, num: int = 2) -> np.ndarray:
     """``num`` new keys, uint32 ``[num, 2]`` (``jax.random.split`` in
     partitionable mode)."""
     return np.stack(_hash_counters(key, 0, int(num)), axis=1)
+
+
+def fold_in(key: np.ndarray, data: int) -> np.ndarray:
+    """The key ``jax.random.fold_in(key, data)`` makes, uint32 ``[2]``:
+    ``data`` taken as 32 bits, as a seed is."""
+    x0 = np.zeros(1, np.uint32)
+    x1 = np.array([int(data) & 0xFFFFFFFF], np.uint32)
+    w0, w1 = _threefry2x32(np.asarray(key, np.uint32), x0, x1)
+    return np.array([w0[0], w1[0]], np.uint32)
 
 
 def _bits_into(key: np.ndarray, out: np.ndarray, start: int) -> None:

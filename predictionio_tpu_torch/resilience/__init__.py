@@ -13,7 +13,8 @@ Port of ``predictionio_tpu/resilience/``:
 - :mod:`.spill` — the storage-outage spill journal and its replay
   worker; :mod:`.shared_spill` — the storage-backed fleet queue and its
   lease drainer;
-- :mod:`.supervision` — the training divergence check.
+- :mod:`.supervision` — the step watchdog, the divergence guard and its
+  rollback, preemption, and the reload's finite-params check.
 
 :func:`idempotency_key` pins the token a write is issued under, so a
 replayed spill record re-issues the identical write.  The reference's

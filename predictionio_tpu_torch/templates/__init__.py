@@ -1,1 +1,2 @@
-"""Engine templates of the port; the ALS recommendation template first."""
+"""Engine templates of the port: recommendation, similarproduct,
+ecommerce, classification and twotower."""

@@ -1,1 +1,2 @@
-"""Workflow of the port: engine-instance persistence and model loading."""
+"""Workflow of the port: engine-instance persistence and model loading,
+and training checkpoints (:mod:`.checkpoint`)."""

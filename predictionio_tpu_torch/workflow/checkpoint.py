@@ -1,0 +1,206 @@
+"""Training checkpoints + resume.
+
+Port of ``predictionio_tpu/workflow/checkpoint.py``.  A killed train
+resumes from its last checkpoint when a training loop starts over the
+same directory::
+
+    ckpt = TrainCheckpointer(dir, save_every=200, fingerprint=fp)
+    start = ckpt.restore_step(state_like, total_steps=total)  # 0 if fresh
+    state = ckpt.restored_state or state
+    for step in range(start, total):
+        state, loss = train_step(...)
+        ckpt.maybe_save(step + 1, state)
+    ckpt.complete()   # clear — a finished run leaves no checkpoints
+    ckpt.close()      # behind to stale-resume the next one
+
+The reference writes orbax checkpoints asynchronously.  The port writes
+each step with ``torch.save`` (tensors copied to the host first) to a
+temporary name in the directory, then moves it onto ``<step>.pt`` with
+``os.replace``, so a step file on disk is always complete; saves are
+synchronous, so :meth:`TrainCheckpointer.flush` has nothing to wait
+for.  The on-disk format is the port's own: neither package reads the
+other's checkpoints.  A state is any nesting of dicts, lists, tuples
+(named ones included), tensors and plain values; :meth:`restore_step`
+maps the restored tensors onto the device of ``state_like``.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import re
+import shutil
+from pathlib import Path
+from typing import Any, List, Optional
+
+import torch
+
+logger = logging.getLogger(__name__)
+
+__all__ = ["TrainCheckpointer"]
+
+_STEP_FILE = re.compile(r"^(\d+)\.pt$")
+
+
+def _to_host(state: Any) -> Any:
+    """``state`` with every tensor copied to the CPU (same nesting)."""
+    if isinstance(state, torch.Tensor):
+        return state.detach().to("cpu", copy=True)
+    if isinstance(state, dict):
+        return {k: _to_host(v) for k, v in state.items()}
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return type(state)(*(_to_host(v) for v in state))
+    if isinstance(state, (list, tuple)):
+        return type(state)(_to_host(v) for v in state)
+    return state
+
+
+def _device_of(state: Any) -> Optional[torch.device]:
+    """The device of the first tensor in ``state`` (None: no tensor)."""
+    if isinstance(state, torch.Tensor):
+        return state.device
+    values = state.values() if isinstance(state, dict) else (
+        state if isinstance(state, (list, tuple)) else ())
+    for v in values:
+        dev = _device_of(v)
+        if dev is not None:
+            return dev
+    return None
+
+
+class TrainCheckpointer:
+    """Step checkpoints of one training run in ``directory``.
+
+    ``save_every`` 0 disables every operation (the loops construct one
+    unconditionally).  ``keep`` bounds the step files kept on disk (the
+    newest ones).  ``fingerprint`` names the config and data the run was
+    started for: checkpoints written for another fingerprint are
+    discarded, loudly, instead of resumed.
+    """
+
+    def __init__(self, directory, *, save_every: int = 0, keep: int = 3,
+                 fingerprint: Optional[str] = None):
+        self.directory = Path(directory).absolute()
+        self.save_every = int(save_every)
+        self.keep = keep
+        self.fingerprint = fingerprint
+        self.restored_state: Optional[Any] = None
+        if self.enabled:
+            self._check_fingerprint()
+
+    @property
+    def _fingerprint_path(self) -> Path:
+        return self.directory / "fingerprint.txt"
+
+    def _steps(self) -> List[int]:
+        """Complete step files on disk, ascending."""
+        if not self.directory.is_dir():
+            return []
+        return sorted(int(m.group(1)) for m in
+                      (_STEP_FILE.match(c.name)
+                       for c in self.directory.iterdir()) if m)
+
+    def _step_path(self, step: int) -> Path:
+        return self.directory / f"{int(step)}.pt"
+
+    def _check_fingerprint(self) -> None:
+        """Refuse checkpoints written for a different config/data: a
+        mismatched (or absent) fingerprint purges the stale steps so the
+        run starts fresh — loudly.  Only checkpoint artifacts (step files
+        and unfinished temporaries) are removed: the directory may hold
+        unrelated files."""
+        if self.fingerprint is None:
+            return
+        fp = self._fingerprint_path
+        if fp.exists() or self._steps():
+            stored = fp.read_text().strip() if fp.exists() else "<absent>"
+            if stored != self.fingerprint:
+                logger.warning(
+                    "Checkpoint dir %s was written for a different "
+                    "config/data (fingerprint %s != %s); discarding stale "
+                    "checkpoints and training from scratch.",
+                    self.directory, stored, self.fingerprint)
+                for child in self.directory.iterdir():
+                    if _STEP_FILE.match(child.name) or \
+                            child.name.endswith(".pt.tmp"):
+                        if child.is_dir():
+                            shutil.rmtree(child, ignore_errors=True)
+                        else:
+                            child.unlink(missing_ok=True)
+                fp.unlink(missing_ok=True)
+        self.directory.mkdir(parents=True, exist_ok=True)
+        fp.write_text(self.fingerprint)
+
+    @property
+    def enabled(self) -> bool:
+        return self.save_every > 0
+
+    def restore_step(self, state_like: Any,
+                     total_steps: Optional[int] = None) -> int:
+        """Restore the latest checkpoint into ``restored_state``, its
+        tensors on ``state_like``'s device; returns the step to resume
+        FROM (0 when no checkpoint exists).  Pass ``total_steps`` so a
+        checkpoint at or beyond the end of the run — the loop would not
+        run at all — is flagged loudly."""
+        if not self.enabled:
+            return 0
+        steps = self._steps()
+        if not steps:
+            return 0
+        latest = steps[-1]
+        self.restored_state = torch.load(
+            self._step_path(latest),
+            map_location=_device_of(state_like) or "cpu",
+            weights_only=False)
+        logger.info("Resumed training from checkpoint step %d (%s)",
+                    latest, self.directory)
+        if total_steps is not None and latest >= total_steps:
+            logger.warning(
+                "Checkpoint step %d >= total training steps %d: the "
+                "training loop will not run and the checkpointed state is "
+                "returned as-is.  If this is a fresh retrain, the previous "
+                "run did not complete cleanly (a completed run clears its "
+                "checkpoints); delete %s to train from scratch.",
+                latest, total_steps, self.directory)
+        return int(latest)
+
+    def maybe_save(self, step: int, state: Any) -> bool:
+        if not self.enabled or step % self.save_every != 0:
+            return False
+        self._write(step, state)
+        return True
+
+    def save(self, step: int, state: Any) -> None:
+        """Off-cadence forced save (window boundaries, preemption).  A
+        step already on disk is not written again: its state is already
+        durable."""
+        if self.enabled and not self._step_path(step).exists():
+            self._write(step, state)
+
+    def _write(self, step: int, state: Any) -> None:
+        self.directory.mkdir(parents=True, exist_ok=True)
+        path = self._step_path(step)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.pt.tmp")
+        torch.save(_to_host(state), tmp)
+        os.replace(tmp, path)
+        for old in self._steps()[:-max(int(self.keep), 1)]:
+            self._step_path(old).unlink(missing_ok=True)
+
+    def flush(self) -> None:
+        """Every save is durable when it returns: nothing to wait for
+        (the watchdog calls this before aborting a hung run)."""
+
+    def complete(self) -> None:
+        """Mark the run finished: CLEAR its checkpoints.  A completed
+        train persists its final model through the model store; leaving
+        mid-train checkpoints behind would make the next retrain over the
+        same directory fast-forward past its loop."""
+        if not self.enabled:
+            return
+        for step in self._steps():
+            self._step_path(step).unlink(missing_ok=True)
+        if self.fingerprint is not None:
+            self._fingerprint_path.unlink(missing_ok=True)
+
+    def close(self) -> None:
+        """Nothing is held open between saves."""

@@ -226,7 +226,7 @@ def test_status(clean_storage, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["train", "--mesh", "data=8"], ["train", "--prefetch-depth", "2"],
+    ["train", "--mesh", "data=8"], ["train", "--checkpoint-every", "2"],
     ["train", "--checkpoint-dir", "/tmp/x"],
     ["eval", "a:b", "c:d", "--mesh", "x"],
     ["eval", "a:b", "c:d", "--checkpoint-dir", "/tmp/x"],

@@ -1,12 +1,12 @@
-"""The PyTorch port stands alone: no JAX, no pyarrow and nothing of the
-JAX package.
+"""The PyTorch port stands alone: no JAX, no optax or orbax, no pyarrow
+and nothing of the JAX package.
 
 ``predictionio_tpu_torch`` and ``chip_smoke.py`` run on machines that have
 PyTorch but neither JAX nor pyarrow, and they carry their own copy of
 everything they need from ``predictionio_tpu``.  Two checks: importing
 every module of the port in a fresh interpreter leaves ``jax``,
-``pyarrow`` and ``predictionio_tpu`` out of ``sys.modules``, and no
-source file names them in an import.
+``optax``, ``orbax``, ``pyarrow`` and ``predictionio_tpu`` out of
+``sys.modules``, and no source file names them in an import.
 """
 
 import ast
@@ -28,9 +28,10 @@ names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "jaxlib", "pyarrow", "predictionio_tpu")
+             if m in ("jax", "jaxlib", "pyarrow", "predictionio_tpu",
+                      "optax", "orbax")
              or m.startswith(("jax.", "jaxlib.", "pyarrow.",
-                              "predictionio_tpu.")))
+                              "predictionio_tpu.", "optax.", "orbax.")))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -74,9 +75,20 @@ SCHEDULER_SLICE = (
 )
 
 
+# ... and every module of the two-tower slice: the model, its template,
+# and the train loop's substrate (feeder, prefetcher, fusion, probe,
+# runtime introspection, supervision, checkpoints).
+TWO_TOWER_SLICE = (
+    "models.two_tower", "templates.twotower", "templates.twotower.engine",
+    "native.feeder", "obs.pipeline", "obs.runtime", "data.prefetch",
+    "data.fusion", "resilience.supervision", "workflow.checkpoint",
+)
+
+
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "pyarrow", "predictionio_tpu")
+    return top in ("jax", "jaxlib", "pyarrow", "predictionio_tpu", "optax",
+                   "orbax")
 
 
 def test_importing_the_port_loads_no_jax():
@@ -86,7 +98,7 @@ def test_importing_the_port_loads_no_jax():
     probe = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(probe["modules"]) >= 30
     missing = [m for m in TRAINING_SLICE + IVF_PQ_SLICE + CLI_SLICE
-               + EVENT_SERVER_SLICE + SCHEDULER_SLICE
+               + EVENT_SERVER_SLICE + SCHEDULER_SLICE + TWO_TOWER_SLICE
                if f"predictionio_tpu_torch.{m}" not in probe["modules"]]
     assert missing == []
     assert probe["bad"] == [], f"the port pulled in {probe['bad']}"
@@ -116,7 +128,7 @@ def test_the_native_build_reads_only_the_ports_sources():
 
     assert build.SOURCE_DIR == PORT / "native"
     assert sorted(p.name for p in build.SOURCE_DIR.glob("*.cc")) == \
-        ["serving_frontend.cc"]
+        ["feeder.cc", "serving_frontend.cc"]
     for path in PORT.rglob("*.py"):
         text = path.read_text()
         assert "NATIVE_DIR" not in text, path

@@ -7,7 +7,12 @@ it with ctypes; ``predictionio_tpu.native`` builds the reference's into
 in one process.  The cases of the reference's ``tests/test_native.py``
 for the frontend, the plugin seam, the adaptive linger, the round-2
 worker pool and shutdown, the event-ingest path and the deploy fallback
-run on BOTH packages (``pkg``); the feeder's wait for the deep models.
+run on BOTH packages (``pkg``), and so do the cases of the feeder
+(``native/feeder.cc``, the port's own copy): an epoch is a shuffled
+permutation of the cache with values following their rows, extra
+columns and categorical caches round-trip, epochs differ and repeat per
+seed; both packages' feeder libraries yield byte-equal batches from one
+cache and seed.
 Also: both frontends answer the same bodies byte for byte, the port's
 frontend serves its engine server's ``query_batch`` and, behind the
 fallback, its status routes; and the port's build — sources only under
@@ -35,12 +40,14 @@ import pytest
 
 import predictionio_tpu.config as ref_config
 import predictionio_tpu.data.storage as ref_storage
+import predictionio_tpu.native.feeder as ref_feeder
 import predictionio_tpu.native.frontend as ref_frontend
 import predictionio_tpu.obs as ref_obs
 import predictionio_tpu.server.event_server as ref_es
 import predictionio_tpu_torch.config as port_config
 import predictionio_tpu_torch.data.storage as port_storage
 import predictionio_tpu_torch.native.build as port_build
+import predictionio_tpu_torch.native.feeder as port_feeder
 import predictionio_tpu_torch.native.frontend as port_frontend
 import predictionio_tpu_torch.obs as port_obs
 import predictionio_tpu_torch.server.event_server as port_es
@@ -619,8 +626,9 @@ def test_the_build_reads_only_the_ports_sources(tmp_path):
     inputs = [a for a in cmd[1:] if not a.startswith("-") and a != str(out)]
     assert inputs == [str(src)]
     assert b'#include "' not in src.read_bytes()     # no local headers
+    assert port_build.source_path("feeder").parent == pkg_dir / "native"
     with pytest.raises(RuntimeError, match="missing"):
-        port_build.source_path("feeder")   # waits for the deep models
+        port_build.source_path("dlrm_feeder")   # no such source
     assert "build/torch_native/" in (ROOT / ".gitignore").read_text()
 
 
@@ -678,3 +686,114 @@ def test_an_edited_source_builds_a_new_library(tmp_path, monkeypatch):
     first = port_build.library_path("serving_frontend", tmp_path)
     src.write_bytes(src.read_bytes() + b"\n// edited\n")
     assert port_build.library_path("serving_frontend", tmp_path) != first
+
+
+# -- the event-log feeder -------------------------------------------------------------
+
+FEEDERS = (SimpleNamespace(name="ref", feeder=ref_feeder),
+           SimpleNamespace(name="port", feeder=port_feeder))
+
+
+@pytest.fixture(params=FEEDERS, ids=lambda p: p.name)
+def fd(request):
+    return request.param.feeder
+
+
+def test_feeder_roundtrip_epoch(fd, tmp_path):
+    users = np.arange(100, dtype=np.uint32)
+    items = (np.arange(100, dtype=np.uint32) * 7) % 31
+    vals = np.linspace(0, 1, 100).astype(np.float32)
+    path = fd.write_cache(tmp_path / "events.piof", users, items, vals)
+    with fd.EventFeeder(path, batch_size=32, seed=1) as f:
+        assert len(f) == 100
+        got = list(f.epoch())
+    assert [len(b[0]) for b in got] == [32, 32, 32, 4]
+    all_u = np.concatenate([b[0] for b in got])
+    order = np.argsort(all_u)
+    np.testing.assert_array_equal(all_u[order], users)
+    np.testing.assert_array_equal(np.concatenate([b[1] for b in got])[order],
+                                  items)
+    np.testing.assert_allclose(np.concatenate([b[2] for b in got])[order],
+                               vals)
+
+
+def test_feeder_extras_and_cats_roundtrip(fd, tmp_path):
+    rng = np.random.default_rng(0)
+    n = 77
+    users = np.arange(n, dtype=np.uint32)
+    extras = rng.random((n, 3)).astype(np.float32)
+    path = fd.write_cache(tmp_path / "x.piof", users, (users * 3) % 13,
+                          rng.random(n).astype(np.float32), extras=extras)
+    with fd.EventFeeder(path, batch_size=19, seed=2) as f:
+        assert f.n_extra == 3
+        got = list(f.epoch())
+    all_u = np.concatenate([b[0] for b in got])
+    order = np.argsort(all_u)
+    np.testing.assert_allclose(np.concatenate([b[3] for b in got])[order],
+                               extras)
+    cats = np.stack([users, users % 5, users % 7], axis=1)
+    path = fd.write_cache(tmp_path / "c.piof", cats=cats)
+    with fd.EventFeeder(path, batch_size=32, seed=3) as f:
+        assert f.n_cat == 3
+        rows = np.concatenate([b[0] for b in f.epoch_cats()])
+    np.testing.assert_array_equal(rows[np.argsort(rows[:, 0])], cats)
+
+
+def test_feeder_epochs_differ_and_repeat_per_seed(fd, tmp_path):
+    users = np.arange(64, dtype=np.uint32)
+    path = fd.write_cache(tmp_path / "e.piof", users, users)
+    with fd.EventFeeder(path, batch_size=64, seed=5) as f:
+        e1 = f.next_batch()[0]
+        assert f.next_batch() is None
+        e2 = f.next_batch()[0]
+    assert not np.array_equal(e1, e2)
+    with fd.EventFeeder(path, batch_size=64, seed=5) as f:
+        np.testing.assert_array_equal(e1, f.next_batch()[0])
+    with fd.EventFeeder(path, batch_size=4, shuffle=False) as f:
+        np.testing.assert_array_equal(f.next_batch()[0], [0, 1, 2, 3])
+
+
+def test_feeder_rejects_what_the_reader_cannot_read(fd, tmp_path):
+    with pytest.raises(ValueError):
+        fd.write_cache(tmp_path / "bad.piof")
+    (tmp_path / "junk.piof").write_bytes(b"not a cache at all")
+    with pytest.raises(RuntimeError, match="cannot open"):
+        fd.EventFeeder(tmp_path / "junk.piof", 4)
+
+
+@pytest.mark.parametrize("case", ["pairs", "extras", "cats", "ragged"])
+def test_both_feeder_libraries_yield_byte_equal_batches(tmp_path, case):
+    """One cache, one seed: the reference's library and the port's give
+    the same batches, byte for byte, in the same order, over 3 epochs."""
+    rng = np.random.default_rng(11)
+    n = 1000 if case != "ragged" else 997
+    users = rng.integers(0, 50, n).astype(np.uint32)
+    items = rng.integers(0, 40, n).astype(np.uint32)
+    vals = rng.random(n).astype(np.float32)
+    kw = {}
+    if case == "extras":
+        kw["extras"] = rng.random((n, 2)).astype(np.float32)
+    if case == "cats":
+        path = port_feeder.write_cache(
+            tmp_path / "c.piof", cats=np.stack([users, items, users % 3], 1))
+        ref_path = ref_feeder.write_cache(
+            tmp_path / "rc.piof",
+            cats=np.stack([users, items, users % 3], 1))
+    else:
+        path = port_feeder.write_cache(tmp_path / "p.piof", users, items,
+                                       vals, **kw)
+        ref_path = ref_feeder.write_cache(tmp_path / "r.piof", users, items,
+                                          vals, **kw)
+    assert path.read_bytes() == ref_path.read_bytes()   # one format
+    with ref_feeder.EventFeeder(path, 64, seed=17) as a, \
+            port_feeder.EventFeeder(path, 64, seed=17) as b:
+        for _ in range(3):
+            if case == "cats":
+                want, got = list(a.epoch_cats()), list(b.epoch_cats())
+            else:
+                want, got = list(a.epoch()), list(b.epoch())
+            assert len(got) == len(want) == -(-n // 64)
+            for g, w in zip(got, want):
+                assert len(g) == len(w)
+                for x, y in zip(g, w):
+                    assert x.dtype == y.dtype and x.tobytes() == y.tobytes()

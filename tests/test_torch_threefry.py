@@ -90,3 +90,19 @@ def test_init_factors_match_the_reference(shape):
         assert g.dtype == torch.float32
         np.testing.assert_array_max_ulp(g.numpy(), np.asarray(w),
                                         maxulp=MAX_ULP)
+
+
+@pytest.mark.parametrize("data", [0, 1, 1_000_003 + 50, 2_000_006 + 40,
+                                  2**31 - 1, 2**32 - 1])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fold_in_equals_jax_bitwise(seed, data):
+    """``fold_in`` — the key two-tower's ``grow_state`` draws new rows
+    from — is JAX's bit for bit, and its normals within MAX_ULP."""
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), data)
+    got = threefry.fold_in(threefry.seed_key(seed), data)
+    assert got.dtype == np.uint32 and got.shape == (2,)
+    np.testing.assert_array_equal(got, np.asarray(key))
+    np.testing.assert_array_max_ulp(
+        threefry.normal(got, (7, 8)),
+        np.asarray(jax.random.normal(key, (7, 8), jnp.float32)),
+        maxulp=MAX_ULP)
