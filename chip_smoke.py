@@ -207,7 +207,27 @@ cannot be imported, or when any phase fails.  Phases, in order:
    the template's loss gate; POST /reload to it; 64 answers (32 of new
    users) held against the plain top-k of the warm vectors; K3 counted
    in the deploy process.
-18. report — one JSON line of per-kernel numbers, the card's name and
+18. dlrm — the DLRM engine, whose path runs no kernel of the port (the
+   reference computes it without Pallas).  18a: dlrm.train at bench.py's
+   DLRM shape (8 fields x 100,000 rows, 13 dense features, embed 32,
+   bottom [64, 32], top [128, 64], batch 8,192; 800,000 seeded rows at a
+   25 % click rate, 1 epoch) from numpy and from the native feeder, at
+   K=1 and K=8 (one init outside the walls): examples/s, the probe's
+   shares, peak device memory; each K=8 state equal to its K=1 state bit
+   for bit; a NaN batch must raise TrainDiverged.  18b: phase 12's
+   1,000,209 (user, item) rate pairs written in-process as impressions
+   of a planted click model (hidden user and item factors and 4 dense
+   features, about 25 % clicks) into a new app of phase 12's store; `pio
+   train` in-process with the port's shipped dlrm engine.json; a
+   held-out log-loss below the constant-CTR predictor's; `pio deploy` as
+   a subprocess on the card answering 64 /queries.json of 50 candidates
+   (some of unseen users and items), each answer's order and scores
+   held against dlrm.predict_proba of the persisted state.  18c: 20,000
+   impressions after the watermark (phase 16's delta shape),
+   run_train(warm_from=) must come out warm past the template's
+   log-loss gate; POST /reload to it; 64 answers (32 of new users) held
+   against the warm state.
+19. report — one JSON line of per-kernel numbers, the card's name and
    power limit, and the final status line.
 """
 
@@ -4543,6 +4563,482 @@ def two_tower_phase(dev, seed: int, loop: dict, mods: dict, card: str
     return out
 
 
+# Phase 18: the DLRM engine.  (a) the train loop at bench.py's DLRM
+# shape; (b) the shipped engine.json through `pio train` / `pio deploy`
+# on phase 12's store, its rate pairs written as impressions; (c) one
+# warm cycle on a 20,000-impression delta through POST /reload.
+DLRM_FIELDS, DLRM_VOCAB, DLRM_DENSE = 8, 100_000, 13   # bench.py:705-708
+DLRM_EMBED, DLRM_BOTTOM, DLRM_TOP = 32, (64, 32), (128, 64)
+DLRM_BATCH = 8_192                                      # bench.py:611
+DLRM_ROWS, DLRM_EPOCHS = 800_000, 1                     # bench.py:743
+DLRM_CTR = 0.25                                         # bench.py:717
+DLRM_FUSED = 8
+DLRM_NAN_ROWS = 65_536                    # the injected-NaN run's rows
+DLRM_FACTORY = "predictionio_tpu_torch.templates.dlrm:engine"
+DLRM_APP = "chipdlrm"
+DLRM_CANDIDATES = 50                      # items a /queries.json ranks
+DLRM_HELD_OUT = 20_000                    # impressions never written
+DLRM_FACTORS = 4                          # the planted model's hidden rank
+DLRM_DENSE_W = (0.8, -0.6, 0.4, 0.0)      # ... and its dense weights
+DLRM_LIMIT_S = 150.0
+
+
+def dlrm_state_leaves(dl, state):
+    """Every tensor of a DLRM state (params, the Adagrad accumulator) in
+    one fixed order."""
+    return (dl._leaves(state.params)
+            + dl._leaves(state.opt_state[0].sum_of_squares))
+
+
+def dlrm_train_runs(dev, seed: int, card: str) -> dict:
+    """Phase 18a: ``dlrm.train`` at bench.py's DLRM shape, from numpy and
+    from the native feeder, at K=1 and K=8: examples/s, the probe's
+    shares, peak device memory; K=8's state bitwise K=1's; and a NaN
+    batch must raise TrainDiverged with no checkpoint directory."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.models import dlrm as dl
+    from predictionio_tpu_torch.obs.runtime import get_timeline
+    from predictionio_tpu_torch.resilience.supervision import TrainDiverged
+
+    rng = np.random.default_rng(seed + 18)
+    dense = rng.standard_normal((DLRM_ROWS, DLRM_DENSE), np.float32)
+    cat = rng.integers(0, DLRM_VOCAB, (DLRM_ROWS, DLRM_FIELDS))
+    labels = (rng.random(DLRM_ROWS) < DLRM_CTR).astype(np.float32)
+    cfg = dl.DLRMConfig(
+        vocab_sizes=(DLRM_VOCAB,) * DLRM_FIELDS, n_dense=DLRM_DENSE,
+        embed_dim=DLRM_EMBED, bottom_mlp=DLRM_BOTTOM, top_mlp=DLRM_TOP,
+        batch_size=DLRM_BATCH, epochs=DLRM_EPOCHS, seed=seed)
+    t0 = time.perf_counter()
+    # One init for every run, handed in as warm_state (train() copies it
+    # onto the card and never changes it): the walls time the loop.
+    init = dl.init_state(cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # Warm-up outside the walls: the first train of a process pays the
+    # card's and PyTorch's first-call costs.
+    t0 = time.perf_counter()
+    warm_rows = 2 * DLRM_FUSED * DLRM_BATCH
+    for source in ("numpy", "feeder"):
+        for k in (1, DLRM_FUSED):
+            dl.train(dense[:warm_rows], cat[:warm_rows], labels[:warm_rows],
+                     cfg, data_source=source, fuse_steps=k,
+                     warm_state=init, device=dev)
+    torch.cuda.synchronize()
+    out = {"init_s": init_s, "warmup_s": time.perf_counter() - t0,
+           "runs": {}}
+    finals = {}
+    steps = DLRM_EPOCHS * -(-DLRM_ROWS // DLRM_BATCH)
+    for source in ("numpy", "feeder"):
+        for k in (1, DLRM_FUSED):
+            timeline = get_timeline()
+            timeline.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            state = dl.train(dense, cat, labels, cfg, data_source=source,
+                             fuse_steps=k, warm_state=init, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if int(state.step) != steps:
+                die(f"phase 18a {source} K={k}: {state.step} steps, not "
+                    f"{steps}")
+            summ = timeline.summary("dlrm")
+            ms = summ["phase_ms"]
+            out["runs"][f"{source}_k{k}"] = {
+                "wall_s": wall,
+                "examples_per_s": DLRM_ROWS * DLRM_EPOCHS / wall,
+                "dispatches": summ["dispatches"],
+                "device_wait_share": summ["phase_share"]["device_wait"],
+                "h2d_share": summ["phase_share"]["h2d"],
+                "host_wait_share": summ["phase_share"]["host_wait"],
+                "dispatch_share": summ["phase_share"]["dispatch"],
+                "h2d_overlap_ms": ms["h2d_overlap"],
+                "peak_bytes": torch.cuda.max_memory_allocated() - base,
+            }
+            finals[(source, k)] = state
+        a, b = finals[(source, 1)], finals[(source, DLRM_FUSED)]
+        la, lb = dlrm_state_leaves(dl, a), dlrm_state_leaves(dl, b)
+        if not all(torch.equal(x, y) for x, y in zip(la, lb)) or \
+                a.step != b.step:
+            worst = max(float((x - y).abs().max()) for x, y in zip(la, lb))
+            die(f"phase 18a {source}: the K={DLRM_FUSED} state is not the "
+                f"K=1 state bit for bit (max |diff| {worst:.3g})")
+        if not all(bool(torch.isfinite(x).all()) for x in la):
+            die(f"phase 18a {source}: non-finite trained state")
+    del finals, a, b, la, lb
+    # The finite-loss guard: one NaN dense feature poisons one batch.
+    d = dense[:DLRM_NAN_ROWS].copy()
+    d[DLRM_NAN_ROWS // 2, 0] = np.nan
+    try:
+        dl.train(d, cat[:DLRM_NAN_ROWS], labels[:DLRM_NAN_ROWS], cfg,
+                 data_source="numpy", fuse_steps=DLRM_FUSED,
+                 warm_state=init, device=dev)
+        die("phase 18a: a NaN batch did not raise TrainDiverged")
+    except TrainDiverged as e:
+        out["diverged"] = str(e).split(" (")[0]
+    out["table_mib"] = init.params["embed"].numel() * 4 / 2**20
+    del init
+    torch.cuda.empty_cache()
+    return out
+
+
+class dlrm_clicks:
+    """The planted click model of 18b and 18c: each user and item name
+    has hidden factors (drawn at first sight), each impression four
+    dense features; P(click) = sigmoid(u·i / 2 + w·dense + bias), the
+    bias set once so the training impressions click at DLRM_CTR."""
+
+    def __init__(self, rng):
+        self.rng = rng
+        self.factors = {}
+        self.bias = 0.0
+
+    def _f(self, names):
+        import numpy as np
+
+        out = np.empty((len(names), DLRM_FACTORS))
+        for j, name in enumerate(names):
+            f = self.factors.get(name)
+            if f is None:
+                f = self.factors[name] = self.rng.standard_normal(
+                    DLRM_FACTORS)
+            out[j] = f
+        return out
+
+    def draw(self, users, items, calibrate: bool = False):
+        """(dense [n, 4] rounded to 4 places, clicked [n] bool) for the
+        (user, item) name pairs."""
+        import numpy as np
+
+        n = len(users)
+        dense = np.round(self.rng.standard_normal((n, 4)), 4)
+        z = (self._f(users) * self._f(items)).sum(1) / 2 \
+            + dense @ np.asarray(DLRM_DENSE_W)
+        if calibrate:
+            lo, hi = -10.0, 10.0
+            for _ in range(60):
+                mid = (lo + hi) / 2
+                rate = (1 / (1 + np.exp(-(z + mid)))).mean()
+                lo, hi = (mid, hi) if rate < DLRM_CTR else (lo, mid)
+            self.bias = (lo + hi) / 2
+        p = 1 / (1 + np.exp(-(z + self.bias)))
+        return dense, self.rng.random(n) < p
+
+
+def dlrm_bags(dense, clicked):
+    """The impressions' property bags as the JSON text ``json.dumps``
+    writes (floats by ``repr``)."""
+    return [f'{{"clicked": {"true" if c else "false"}, "dense": '
+            f'[{a!r}, {b!r}, {e!r}, {f!r}]}}'
+            for c, (a, b, e, f) in zip(clicked.tolist(), dense.tolist())]
+
+
+def dlrm_logloss(p, y) -> float:
+    """The mean binary log-loss of probabilities ``p`` on labels ``y``
+    (clipped as the template's warm-start gate clips)."""
+    import numpy as np
+
+    p = np.clip(np.asarray(p, np.float64), 1e-7, 1 - 1e-7)
+    y = np.asarray(y, np.float64)
+    return float(-np.mean(y * np.log(p) + (1 - y) * np.log(1 - p)))
+
+
+def dlrm_phase(dev, seed: int, loop: dict, mods: dict, card: str) -> dict:
+    """Phase 18: (a) :func:`dlrm_train_runs`; (b) phase 12's 1,000,209
+    (user, item) rate pairs written as impressions of a planted click
+    model into a new app of its store, `pio train` of the port's
+    shipped dlrm engine.json (in process), `pio deploy` as a subprocess
+    answering 64 /queries.json of 50 candidates each, every answer's
+    order and scores held against ``dlrm.predict_proba`` of the
+    persisted state, and a held-out log-loss against the constant-CTR
+    predictor; (c) 20,000 impressions after the watermark, a warm
+    ``run_train(warm_from=)`` promoted through POST /reload, 64 answers
+    held against the warm state.  Raises (dies) on any failure."""
+    import datetime as dt
+    import logging
+    import zlib
+
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.data.storage import get_storage, \
+        reset_storage
+    from predictionio_tpu_torch.models import dlrm as dl
+    from predictionio_tpu_torch.refresh import WarmStartContext
+    from predictionio_tpu_torch.templates.dlrm import engine
+    from predictionio_tpu_torch.version import __version__
+    from predictionio_tpu_torch.workflow.core_workflow import (
+        data_watermark, load_models)
+
+    phase_t0 = time.perf_counter()
+    out = {"train": dlrm_train_runs(dev, seed, card)}
+    work = loop["work"]
+    spec = json.loads((Path(__file__).resolve().parent /
+                       "predictionio_tpu_torch" / "templates" / "dlrm" /
+                       "engine.json").read_text())
+    if spec["engineFactory"] != DLRM_FACTORY:
+        die(f"phase 18: the shipped engine.json names "
+            f"{spec['engineFactory']}")
+    ds = spec["datasource"]["params"]
+    ds["appName"] = DLRM_APP
+    algo = spec["algorithms"][0]["params"]
+    algo["seed"] = seed
+    n_dense = ds["nDense"]
+    user_vocab = ds.get("userVocab", 65536)
+    item_vocab = ds.get("itemVocab", 65536)
+    engine_json = os.path.join(work, "dlrm.json")
+    Path(engine_json).write_text(json.dumps(spec))
+    env = cli_env(os.path.join(work, "home"))
+    env.values.update(PIO_RESULT_CACHE="0", PIO_RETRIEVAL_RUNG=None,
+                      PIO_FUSE_STEPS=None, PIO_PREFETCH_DEPTH=None,
+                      PIO_BATCH_AUTOSCALE=None)
+    rng = np.random.default_rng(seed + 181)
+    clicks = dlrm_clicks(rng)
+    server = None
+    captured = []
+
+    class _Gate(logging.Handler):
+        def emit(self, record):
+            captured.append(record.getMessage())
+
+    gate = _Gate(level=logging.INFO)
+    tpl_log = logging.getLogger(
+        "predictionio_tpu_torch.templates.dlrm.engine")
+    reg = mods["get_registry"]()
+
+    def read_ms() -> float:
+        h = reg.get("pio_train_phase_ms")
+        return 0.0 if h is None else h.sum(phase="train.datasource")
+
+    def hashed(user, items):
+        return np.stack([
+            np.full(len(items), zlib.crc32(user.encode()) % user_vocab),
+            np.array([zlib.crc32(i.encode()) % item_vocab for i in items])],
+            axis=1)
+
+    def hold(ans, q, state, cfg, what) -> float:
+        """One answer: its items the candidates, each score the plain
+        predict_proba of ``state`` (rtol = atol = 1e-5), ranked by it
+        (an order may differ only within that size).  Returns max
+        |err|."""
+        hits = ans["itemScores"]
+        if sorted(h["item"] for h in hits) != sorted(q["items"]):
+            die(f"phase 18 {what}: the answer ranks other items")
+        d = list(q.get("dense") or [])[:n_dense]
+        d += [0.0] * (n_dense - len(d))
+        want = dl.predict_proba(
+            state, np.tile(np.asarray(d, np.float32), (len(q["items"]), 1)),
+            hashed(q["user"], q["items"]), cfg).cpu().numpy()
+        by_item = dict(zip(q["items"], want.tolist()))
+        got = np.array([h["score"] for h in hits])
+        ref_ = np.array([by_item[h["item"]] for h in hits])
+        tol = ATOL + RTOL * np.abs(ref_)
+        if np.any(np.abs(got - ref_) > tol):
+            die(f"phase 18 {what}: scores differ from predict_proba by "
+                f"{np.abs(got - ref_).max():.3g}")
+        if np.any(np.diff(got) > 2 * tol[1:]):
+            die(f"phase 18 {what}: the answer is not ranked by score")
+        return float(np.abs(got - ref_).max())
+
+    def serve(queries, state, cfg, what):
+        """The queries over HTTP, each held; returns (max |err|, p50
+        ms)."""
+        err, lats = 0.0, []
+        for j, q in enumerate(queries):
+            t = time.perf_counter()
+            ans, _ = post_json(f"{server.base}/queries.json", q)
+            lats.append(time.perf_counter() - t)
+            err = max(err, hold(ans, q, state, cfg, f"{what} {j}"))
+        return err, sorted(lats)[len(lats) // 2] * 1e3
+
+    env.__enter__()
+    reset_storage()
+    try:
+        # -- b: impressions, pio train (in-process), pio deploy ----------
+        users, items, stars, _ = ml1m_events(seed)
+        rate = ~np.isnan(stars)
+        u_names = np.array([f"u{u}" for u in range(ML1M_USERS)])[
+            users[rate]]
+        i_names = np.array([f"i{i}" for i in range(ML1M_ITEMS)])[
+            items[rate]]
+        n = len(u_names)
+        dense, clicked = clicks.draw(u_names, i_names, calibrate=True)
+        storage = get_storage()
+        start_us = int((time.time() - 40 * 86400) * 1e6)
+        bags = dlrm_bags(dense, clicked)
+        _, out["write_s"] = tpl_write(storage, DLRM_APP, [
+            ("impression", "user", u, i, b)
+            for u, i, b in zip(u_names.tolist(), i_names.tolist(), bags)],
+            start_us)
+        del bags
+        out["n"], out["ctr"] = n, float(clicked.mean())
+        before = read_ms()
+        t0 = time.perf_counter()
+        if mods["pio"](["train", "--engine-json", engine_json]) != 0:
+            die("phase 18: pio train (dlrm) failed")
+        out["train_s"] = time.perf_counter() - t0
+        out["read_ms"] = read_ms() - before
+        eng = engine()
+        variant = mods["EngineVariant"].from_file(engine_json)
+        instances = storage.get_engine_instances()
+        inst1 = instances.get_latest_completed(
+            variant.engine_factory, __version__, variant.variant_id)
+        ctx = mods["RuntimeContext"](storage=storage, device=dev)
+        [w1] = load_models(eng, inst1, ctx)
+        steps = algo["epochs"] * -(-n // algo["batchSize"])
+        leaves = dlrm_state_leaves(dl, w1.state)
+        if w1.n_examples != n or w1.state.step != steps or \
+                w1.state.params["embed"].device.type != dev.type or \
+                not all(bool(torch.isfinite(x).all()) for x in leaves):
+            die(f"phase 18: the trained model has {w1.n_examples} "
+                f"examples, {w1.state.step} steps (want {n}, {steps})")
+        # held-out impressions of the same pairs, never written
+        pick = rng.choice(n, DLRM_HELD_OUT, replace=False)
+        hd, hc = clicks.draw(u_names[pick], i_names[pick])
+        cat_h = np.stack([
+            np.array([zlib.crc32(u.encode()) % user_vocab
+                      for u in u_names[pick].tolist()]),
+            np.array([zlib.crc32(i.encode()) % item_vocab
+                      for i in i_names[pick].tolist()])], axis=1)
+        proba = dl.predict_proba(w1.state, hd.astype(np.float32), cat_h,
+                                 w1.cfg).cpu().numpy()
+        out["logloss"] = dlrm_logloss(proba, hc)
+        out["logloss_const"] = dlrm_logloss(
+            np.full(len(hc), out["ctr"]), hc)
+        if not out["logloss"] < out["logloss_const"]:
+            die(f"phase 18: held-out log-loss {out['logloss']:.4f} is not "
+                f"below the constant CTR's {out['logloss_const']:.4f}")
+        server = deployed(engine_json, os.path.join(work, "dlrm.log"),
+                          phase="phase 18")
+        if server.instance != inst1.id or \
+                not server.device.startswith(dev.type):
+            die(f"phase 18: deploy serves {server.instance} on "
+                f"{server.device}")
+        known_items = [f"i{i}" for i in range(ML1M_ITEMS)]
+        queries = []
+        for j in range(CLI_QUERIES):
+            user = f"newu{j}" if j % 8 == 7 else \
+                str(u_names[rng.integers(n)])
+            cand = [known_items[k] for k in rng.choice(
+                ML1M_ITEMS, DLRM_CANDIDATES, replace=False)]
+            if j % 4 == 3:          # unseen items land in hash buckets
+                cand[-5:] = [f"newi{j}_{k}" for k in range(5)]
+            q = {"user": user, "items": cand}
+            if j % 16 != 15:
+                q["dense"] = np.round(rng.standard_normal(
+                    n_dense if j % 5 else 2), 4).tolist()
+            queries.append(q)
+        out["query_err"], out["p50_ms"] = serve(queries, w1.state, w1.cfg,
+                                                "/queries.json")
+
+        # -- c: one warm cycle on a 20,000-impression delta --------------
+        wm1 = data_watermark(inst1)
+        rows = refresh_delta(rng, list(dict.fromkeys(u_names.tolist())),
+                             known_items, REFRESH_DELTA, REFRESH_NEW_USERS,
+                             REFRESH_NEW_ITEMS, REFRESH_TOUCHED_USERS, "d")
+        du = [r[0] for r in rows]
+        di = [r[1] for r in rows]
+        d_dense, d_clicked = clicks.draw(du, di)
+        stamp = dt.datetime.now(dt.timezone.utc)
+        if stamp <= wm1:
+            die(f"phase 18: the clock reads {stamp}, not after the "
+                f"watermark {wm1}")
+        stamp_us = int(stamp.timestamp() * 1e6)
+        app_id = storage.get_apps().get_by_name(DLRM_APP).id
+        storage.get_events().insert_columnar({
+            "event": ["impression"] * len(rows),
+            "entity_type": ["user"] * len(rows), "entity_id": du,
+            "target_entity_type": ["item"] * len(rows),
+            "target_entity_id": di,
+            "properties": dlrm_bags(d_dense, d_clicked),
+            "event_time_us": [stamp_us + k for k in range(len(rows))],
+            "creation_time_us": [stamp_us + k for k in range(len(rows))]},
+            app_id)
+        warm = WarmStartContext(instance=inst1, models=[w1],
+                                start_time=wm1)
+        tpl_log.addHandler(gate)
+        tpl_log.setLevel(logging.INFO)
+        t0 = time.perf_counter()
+        wid = mods["run_train"](
+            eng, variant, mods["RuntimeContext"].create(storage=storage,
+                                                        device=dev),
+            warm_from=warm)
+        out["warm_s"] = time.perf_counter() - t0
+        inst2 = instances.get(wid)
+        mode = inst2.env.get("refreshMode")
+        if mode != "warm":
+            die(f"phase 18: the warm cycle came out {mode!r} ({captured})")
+        gate_lines = [m for m in captured if "delta-sample logloss" in m]
+        if not gate_lines:
+            die("phase 18: the warm start logged no delta-sample logloss")
+        out["warm_gate"] = gate_lines[-1].split("logloss ")[-1]
+        [w2] = load_models(eng, inst2, ctx)
+        warm_steps = steps + algo["epochs"] * -(-REFRESH_DELTA //
+                                                algo["batchSize"])
+        if w2.n_examples != n + REFRESH_DELTA or \
+                w2.state.step != warm_steps:
+            die(f"phase 18: the warm generation has {w2.n_examples} "
+                f"examples, {w2.state.step} steps")
+        st, body, out["reload_s"] = post_status(f"{server.base}/reload",
+                                                {"engineInstanceId": wid})
+        if st != 200:
+            die(f"phase 18: POST /reload answered {st} {body}")
+        fresh = [{**q, "user": u} for q, u in zip(
+            queries, dict.fromkeys(u for u in du if u.startswith("du")))]
+        out["warm_err"], out["warm_p50_ms"] = serve(
+            queries[:CLI_QUERIES // 2] + fresh[:CLI_QUERIES // 2],
+            w2.state, w2.cfg, "warm answer")
+        server.stop()
+        server = None
+    finally:
+        tpl_log.removeHandler(gate)
+        if server is not None:
+            server.kill()
+        reset_storage()
+        env.__exit__()
+    out["phase_s"] = time.perf_counter() - phase_t0
+    tr = out["train"]
+    runs = " | ".join(
+        f"{name}: {r['examples_per_s']:.0f} ex/s ({r['wall_s']:.2f} s, "
+        f"{r['dispatches']} dispatches; shares device_wait "
+        f"{r['device_wait_share']:.3f} h2d {r['h2d_share']:.3f} host_wait "
+        f"{r['host_wait_share']:.3f} dispatch {r['dispatch_share']:.3f}; "
+        f"h2d overlapped {r['h2d_overlap_ms']:.0f} ms; peak "
+        f"{r['peak_bytes'] / 2**20:.0f} MiB)"
+        for name, r in tr["runs"].items())
+    log(f"phase 18 dlrm train: {DLRM_FIELDS} fields x {DLRM_VOCAB} rows "
+        f"(table {tr['table_mib']:.0f} MiB), {DLRM_DENSE} dense, embed "
+        f"{DLRM_EMBED}, bottom {list(DLRM_BOTTOM)}, top {list(DLRM_TOP)}, "
+        f"batch {DLRM_BATCH}, {DLRM_ROWS} rows x {DLRM_EPOCHS} epochs at "
+        f"CTR {DLRM_CTR} (init {tr['init_s']:.2f} s and a warm-up of 4 "
+        f"short trains {tr['warmup_s']:.2f} s, outside the walls): {runs}; "
+        f"K={DLRM_FUSED} state equals K=1 bit for bit from both sources; "
+        f"a NaN batch raised {tr['diverged']!r}; card {card}")
+    log(f"phase 18 dlrm pio loop: {out['n']} impressions (CTR "
+        f"{out['ctr']:.4f}) written in {out['write_s']:.2f} s; pio train "
+        f"(shipped engine.json: embed {algo['embedDim']}, bottom "
+        f"{algo['bottomMlp']}, top {algo['topMlp']}, {algo['epochs']} "
+        f"epochs, batch {algo['batchSize']}, {steps} steps) "
+        f"{out['train_s']:.2f} s, read {out['read_ms']:.0f} ms; held-out "
+        f"log-loss {out['logloss']:.4f} vs the constant CTR's "
+        f"{out['logloss_const']:.4f} on {DLRM_HELD_OUT}; pio deploy on the "
+        f"card: {CLI_QUERIES} /queries.json of {DLRM_CANDIDATES} items p50 "
+        f"{out['p50_ms']:.2f} ms, each ranked by predict_proba of the "
+        f"persisted state (max |err| {out['query_err']:.3g}); warm cycle on "
+        f"{REFRESH_DELTA} delta impressions {out['warm_s']:.2f} s, mode "
+        f"warm, delta-sample logloss {out['warm_gate']}; POST /reload "
+        f"{out['reload_s'] * 1e3:.1f} ms; {CLI_QUERIES} answers "
+        f"({CLI_QUERIES // 2} of new users) held against the warm state "
+        f"(max |err| {out['warm_err']:.3g}, p50 {out['warm_p50_ms']:.2f} "
+        f"ms); phase 18 in {out['phase_s']:.1f} s; card {card}")
+    if out["phase_s"] > DLRM_LIMIT_S:
+        log(f"phase 18: over its {DLRM_LIMIT_S:.0f} s budget")
+    return out
+
+
 def post_json(url: str, obj):
     """POST one query; returns (answer, the server's own wall ms)."""
     req = urllib.request.Request(
@@ -4835,15 +5331,18 @@ def main() -> int:
 
     # -- phase 16: staged reload, rollback, the warm-start refresh --------
     # -- phase 17: the two-tower engine on phase 12's store ---------------
+    # -- phase 18: the DLRM engine on phase 12's store ---------------------
     try:
         refresh = refresh_phase(dev, args.seed, loop, mods, card)
         torch.cuda.empty_cache()
         tt = two_tower_phase(dev, args.seed, loop, mods, card)
+        torch.cuda.empty_cache()
+        dlrm_phase(dev, args.seed, loop, mods, card)
     finally:
         shutil.rmtree(loop["work"], ignore_errors=True)
     torch.cuda.empty_cache()
 
-    # -- phase 18: report --------------------------------------------------
+    # -- phase 19: report --------------------------------------------------
     main_shape = timings[(ML25M_ITEMS, 1, 10)]
     b64 = timings[(ML25M_ITEMS, 64, 10)]   # a full batch of query_batch
     kernels = [{

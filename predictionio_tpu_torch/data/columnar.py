@@ -1,25 +1,28 @@
 """Columnar decoding of event scans into training arrays (numpy).
 
-Port of ``encode_ids``, ``numeric_property`` and ``event_mask`` from
-``predictionio_tpu/data/columnar.py``.  The reference runs Arrow kernels
-over an Arrow table; the port reads the dict of numpy columns that
+Port of ``encode_ids``, ``numeric_property``, ``bool_property`` and
+``event_mask`` from ``predictionio_tpu/data/columnar.py``.  The
+reference runs Arrow kernels over an Arrow table; the port reads the
+dict of numpy columns that
 :meth:`~predictionio_tpu_torch.data.store.EventStore.find_columnar`
 answers, with each property bag as a ``DataMap`` (the memory backend)
 or as its JSON text (sqlite).  Semantics match the reference's:
-first-appearance id order, and a numeric property read from the bag's
-top-level key.
+first-appearance id order, a numeric property read from the bag's
+top-level key, and a boolean one matched in the bag's JSON text.
 """
 
 from __future__ import annotations
 
 import json
+import re
 from typing import Dict, Mapping, Sequence, Tuple, Union
 
 import numpy as np
 
 from predictionio_tpu_torch.data.event import BiMap
 
-__all__ = ["encode_ids", "numeric_property", "event_mask"]
+__all__ = ["encode_ids", "numeric_property", "bool_property",
+           "event_mask"]
 
 _Columns = Mapping[str, np.ndarray]
 
@@ -85,6 +88,38 @@ def numeric_property(table_or_col: Union[_Columns, Sequence], key: str,
     rest = np.flatnonzero(~is_text)
     out[rest] = np.fromiter((_number(col[i], key, default) for i in rest),
                             np.float64, count=len(rest))
+    return out
+
+
+def bool_property(table_or_col: Union[_Columns, Sequence],
+                  key: str) -> np.ndarray:
+    """True where property ``key`` is JSON ``true`` or ``1`` (``1.0``,
+    ``1.00``...): the reference's one regex over the bag's JSON text,
+    ``"key"`` then ``:`` then the value, each side of the colon allowing
+    whitespace, the value ended by ``,``, ``}``, whitespace or the end.
+    Like the reference's, it matches the key at any depth.  Takes the
+    scan's columns (reads ``properties``) or the property column itself.
+    A JSON text bag (sqlite) is matched once per distinct string; a
+    mapping bag (the memory store's DataMap) is ``json.dumps``'d first,
+    as the reference's store writes ``properties_json``; a null bag is
+    False."""
+    col = table_or_col["properties"] if isinstance(table_or_col, Mapping) \
+        else table_or_col
+    # RE2's \s and $ (the reference runs Arrow's regex kernel), spelled
+    # out: Python's \s also takes Unicode spaces, its $ a final newline.
+    ws = "[\t\n\f\r ]"
+    pattern = re.compile('"' + re.escape(key) + '"' + ws + "*:" + ws
+                         + "*(true|1(?:\\.0*)?)([,}\t\n\f\r ]|\\Z)")
+    memo: Dict[str, bool] = {}
+    out = np.zeros(len(col), bool)
+    for i, bag in enumerate(col):
+        if bag is None:
+            continue
+        text = bag if isinstance(bag, str) else json.dumps(dict(bag))
+        hit = memo.get(text)
+        if hit is None:
+            hit = memo[text] = pattern.search(text) is not None
+        out[i] = hit
     return out
 
 

@@ -28,10 +28,9 @@ reference's:
   EmptyState())``), so :func:`state_to_host` / :func:`state_from_host`
   carry a generation across packages;
 - the embedding gathers' backward (a scatter-add of the row gradients)
-  runs under ``torch.use_deterministic_algorithms`` scoped to it, so a
-  step gives the same bits every time on the card as on the CPU: on
-  CUDA that is the sort-based ``index_put_`` that sums each row's
-  duplicates in batch order, which is also the order of XLA's scatter.
+  is :class:`~predictionio_tpu_torch.ops.embedding.GatherRows`'s
+  deterministic one, so a step gives the same bits every time on the
+  card as on the CPU.
 
 A step is functional: it returns a new state and leaves its input
 untouched.  A fused window (:func:`train_steps_fused`) is K steps issued
@@ -47,7 +46,6 @@ back to ``"numpy"``.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
@@ -56,6 +54,7 @@ import torch
 
 from predictionio_tpu_torch.device import device as resolve_device
 from predictionio_tpu_torch.ops import threefry
+from predictionio_tpu_torch.ops.embedding import GatherRows
 
 __all__ = ["TwoTowerConfig", "TwoTowerState", "AdamState", "EmptyState",
            "init_params", "init_state", "train_step", "train_steps_fused",
@@ -252,37 +251,6 @@ def grow_state(state: TwoTowerState, cfg: TwoTowerConfig) -> TwoTowerState:
 
 # -- the model ---------------------------------------------------------------
 
-@contextlib.contextmanager
-def _deterministic():
-    """``torch.use_deterministic_algorithms(True)`` for the block only."""
-    was = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(was)
-
-
-class _GatherRows(torch.autograd.Function):
-    """``table[ids]`` whose backward — the scatter-add of the row
-    gradients into a dense zero table — is deterministic: each row sums
-    its duplicates in batch order, on the card as on the CPU."""
-
-    @staticmethod
-    def forward(ctx, table, ids):
-        ctx.save_for_backward(ids)
-        ctx.table_shape = table.shape
-        return table.index_select(0, ids)
-
-    @staticmethod
-    def backward(ctx, grad):
-        (ids,) = ctx.saved_tensors
-        out = grad.new_zeros(ctx.table_shape)
-        with _deterministic():
-            out.index_put_((ids.long(),), grad, accumulate=True)
-        return out, None
-
-
 def _mlp(params: Dict, x: torch.Tensor) -> torch.Tensor:
     h = x.to(torch.bfloat16)
     n = len(params["layers"])
@@ -300,12 +268,12 @@ def _normalized(z: torch.Tensor) -> torch.Tensor:
 
 
 def _forward_users(params: Dict, user_ids: torch.Tensor) -> torch.Tensor:
-    e = _GatherRows.apply(params["user_embed"], user_ids)
+    e = GatherRows.apply(params["user_embed"], user_ids)
     return _normalized(_mlp(params["user_mlp"], e))
 
 
 def _forward_items(params: Dict, item_ids: torch.Tensor) -> torch.Tensor:
-    e = _GatherRows.apply(params["item_embed"], item_ids)
+    e = GatherRows.apply(params["item_embed"], item_ids)
     return _normalized(_mlp(params["item_mlp"], e))
 
 

@@ -1,2 +1,2 @@
 """Engine templates of the port: recommendation, similarproduct,
-ecommerce, classification and twotower."""
+ecommerce, classification, twotower and dlrm."""

@@ -83,6 +83,12 @@ TWO_TOWER_SLICE = (
     "native.feeder", "obs.pipeline", "obs.runtime", "data.prefetch",
     "data.fusion", "resilience.supervision", "workflow.checkpoint",
 )
+# ... and every module of the DLRM slice: the model, its template and
+# the embedding gather the two models share.
+DLRM_SLICE = (
+    "models.dlrm", "templates.dlrm", "templates.dlrm.engine",
+    "ops.embedding",
+)
 
 
 def _forbidden(module: str) -> bool:
@@ -99,6 +105,7 @@ def test_importing_the_port_loads_no_jax():
     assert len(probe["modules"]) >= 30
     missing = [m for m in TRAINING_SLICE + IVF_PQ_SLICE + CLI_SLICE
                + EVENT_SERVER_SLICE + SCHEDULER_SLICE + TWO_TOWER_SLICE
+               + DLRM_SLICE
                if f"predictionio_tpu_torch.{m}" not in probe["modules"]]
     assert missing == []
     assert probe["bad"] == [], f"the port pulled in {probe['bad']}"

@@ -145,29 +145,86 @@ def test_kill_grace_reads_env(pkg, monkeypatch):
                                 poll_interval_s=0).kill_grace_s == 0.0
 
 
-def test_watchdog_aborts_a_hung_step_in_a_real_train(monkeypatch):
-    """With PIO_STEP_TIMEOUT_S set, a step that hangs fires the poller
-    thread's abort (KeyboardInterrupt in the main thread) and the train
-    unwinds."""
+@pytest.mark.parametrize("wedge", ["short_sleeps", "c_call"])
+def test_watchdog_aborts_a_hung_step_in_a_real_train(monkeypatch, caplog,
+                                                     wedge):
+    """With PIO_STEP_TIMEOUT_S set, the third step hangs and the watchdog
+    fires AT that step (its CRITICAL line names step 3, its counter
+    moves by one), then the train unwinds with KeyboardInterrupt.
+
+    - ``short_sleeps``: a hang of 500 sleeps of 10 ms.  The interpreter
+      runs bytecode between them, so the soft abort
+      (``_thread.interrupt_main``) lands within the deadline plus a poll.
+    - ``c_call``: a wedge inside one blocking C call (an ``Event.wait``),
+      which the soft abort cannot reach.  With ``PIO_STEP_TIMEOUT_KILL``
+      the poller escalates to ``kill_fn`` once the grace has passed
+      since the fire; the injected ``kill_fn`` ends the wedge instead of
+      SIGKILLing the test process, and the pending interrupt unwinds.
+    """
+    import logging
+    import threading
     import time
 
-    monkeypatch.setenv("PIO_STEP_TIMEOUT_S", "0.2")
     users, items = _data()
+    # The process's first train pays one-off costs (lazy imports inside
+    # torch) that can outlast the deadline; pay them before arming.
+    port_tt.train(users, items, _cfg(port_tt, epochs=1),
+                  data_source="numpy", device="cpu")
+    timeout_s, grace_s = 1.0, 0.5
+    monkeypatch.setenv("PIO_STEP_TIMEOUT_S", str(timeout_s))
+    released = threading.Event()
+    fires, kills, made = [], [], []
+
+    class Watchdog(port_sup.StepWatchdog):
+        def __init__(self, *a, **kw):
+            if wedge == "c_call":
+                kw["kill_fn"] = lambda: (kills.append(time.monotonic()),
+                                         released.set())
+            super().__init__(*a, **kw)
+            made.append(self)
+
+        def _fire(self, step):
+            fires.append(time.monotonic())
+            super()._fire(step)
+
+    if wedge == "c_call":
+        monkeypatch.setenv("PIO_STEP_TIMEOUT_KILL", str(grace_s))
+    monkeypatch.setattr(port_sup, "StepWatchdog", Watchdog)
+    fired = port_obs.get_registry().counter("pio_watchdog_fired_total", "",
+                                            ("fn",))
+    before = fired.value(fn="two_tower")
     real = port_tt.train_step
     calls = {"n": 0}
 
     def hang_at_3(*a, **k):
         calls["n"] += 1
         if calls["n"] == 3:
-            time.sleep(5.0)
+            if wedge == "short_sleeps":
+                for _ in range(500):
+                    time.sleep(0.01)
+            else:
+                released.wait(10.0)
         return real(*a, **k)
 
     monkeypatch.setattr(port_tt, "train_step", hang_at_3)
     t0 = time.perf_counter()
-    with pytest.raises(KeyboardInterrupt):
+    with caplog.at_level(logging.CRITICAL, logger=port_sup.logger.name), \
+            pytest.raises(KeyboardInterrupt):
         port_tt.train(users, items, _cfg(port_tt), data_source="numpy",
                       device="cpu")
     assert time.perf_counter() - t0 < 5.0
+    assert calls["n"] == 3
+    [wd] = made
+    assert wd.fired_steps == [3]
+    assert fired.value(fn="two_tower") == before + 1
+    lines = [r.getMessage() for r in caplog.records
+             if r.name == port_sup.logger.name]
+    assert any("device step 3 exceeded" in m for m in lines), lines
+    if wedge == "c_call":
+        assert len(kills) == 1 and kills[0] - fires[0] >= grace_s
+        assert any("did not unwind" in m for m in lines), lines
+    else:
+        assert kills == []
 
 
 # -- the divergence guard -------------------------------------------------------------

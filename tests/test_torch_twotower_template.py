@@ -86,6 +86,9 @@ from predictionio_tpu_torch.workflow.core_workflow import (
 )
 
 ROOT = Path(__file__).resolve().parents[1]
+_PIPELINE_FLAGS = ("PIO_FUSE_STEPS", "PIO_PREFETCH_DEPTH",
+                   "PIO_BATCH_AUTOSCALE")
+_FLAGS_AT_IMPORT = {k: os.environ.get(k) for k in _PIPELINE_FLAGS}
 SERVE_RTOL, SERVE_ATOL = 1e-5, 1e-5     # float32 scores, another order
 TRAIN_ATOL = 2.0 ** -6                  # two bfloat16-rounded unit vectors
 T0 = dt.datetime(2026, 1, 1, tzinfo=dt.timezone.utc)
@@ -483,13 +486,17 @@ def test_train_pipeline_flags_exit_and_print_as_the_reference(
         one_home, tmp_path, capsys, monkeypatch, argv, env):
     """With an engine.json that is not there, both CLIs stop at the same
     point: a bad --fuse-steps before it, a good flag after setting its
-    variable."""
+    variable.  The verb sets that variable in this process, so each one
+    is put under monkeypatch first: teardown then restores the value
+    from before the test (a ``delenv`` of an unset name records nothing,
+    and would leave the verb's value to later tests in the process)."""
     home, jax_main = one_home
+    for k in _PIPELINE_FLAGS:
+        monkeypatch.setenv(k, "")
     results = []
     for cli in (jax_main, port_main):
-        for k in ("PIO_FUSE_STEPS", "PIO_PREFETCH_DEPTH",
-                  "PIO_BATCH_AUTOSCALE"):
-            monkeypatch.delenv(k, raising=False)
+        for k in _PIPELINE_FLAGS:
+            os.environ.pop(k, None)
         with pytest.raises(SystemExit) as e:
             cli(["train", "--engine-json", str(tmp_path / "none.json"),
                  *argv])
@@ -503,3 +510,12 @@ def test_train_pipeline_flags_exit_and_print_as_the_reference(
         assert value == env[1] and "not found" in err
     else:
         assert "--fuse-steps" in err
+
+
+def test_the_pipeline_flags_test_leaves_no_variable_behind():
+    """Runs after the cases above (the file's order): the variables the
+    verb set are back to what they were when this module was imported,
+    so a later test in the process (the reference's resume test, say)
+    trains unfused at the batch size it asked for."""
+    assert {k: os.environ.get(k) for k in _PIPELINE_FLAGS} == \
+        _FLAGS_AT_IMPORT
