@@ -126,17 +126,18 @@ cannot be imported, or when any phase fails.  Phases, in order:
    ones, each held against the plain answer (persisted factors; the
    newest 512 seen items and the latest list from the phase's own
    events; view counts for the unknown); a newer list written by another
-   process (`pio import`) must be excluded without a redeploy; POST /stop
-   exits 0.  13c classification: 100,000 users' $set of attr0..attr2
+   process (`pio import`) must be excluded without a redeploy, the
+   result cache on and holding none of its answers; POST /stop exits 0.  13c classification: 100,000 users' $set of attr0..attr2
    and a 4-class plan, 40 plans $unset later; `pio train` naive (the
    shipped engine.json) and lr (maxIter 200), 64 /queries.json each
    equal to the plain numpy prediction of the persisted model (where its
    top two differ by more than NEAR_TIE); `pio eval` (3 candidates,
    evalK 3), its accuracy equal to a plain float64 recount.  Each part
    logs its writes, train wall and read, launches and client p50.
-14. eventserver — the event server on phase 12's shape and storage:
+14. eventserver — the event server on phase 12's first 300,000 events
+   (cut from all 1,000,209 for the time limit) and storage:
    `pio app new` and `pio eventserver --port 0` as subprocesses (/ready
-   must answer ready); every event posted by the port's
+   must answer ready); every one of them posted by the port's
    sdk.EventClient as POST /batch/events.json at the reference's cap of
    50, eight client threads each with a contiguous share, each batch
    under a client token (events/s, client p50 and p99 a batch, the
@@ -166,8 +167,8 @@ cannot be imported, or when any phase fails.  Phases, in order:
    100,000 events through the SDK, `pio export` equal to them as a
    multiset, SIGTERM exit 0; within 120 s.  Phases 7 and 13a count a
    repeat query as a result-cache hit and reach the fold-in cache with
-   another num; 13b deploys with PIO_RESULT_CACHE=0 (F7: the cache key
-   does not see ecommerce's live unavailable list).
+   another num; 13b deploys with the result cache on, which keeps no
+   ecommerce answer (F7: its algorithm reads live state).
 16. refresh — phase 12's sqlite + localfs store (kept alive for this
    phase) and its generation 1: `pio deploy` as a subprocess answers 64
    /queries.json (the baseline); 20,000 rate events stamped after the
@@ -227,13 +228,35 @@ cannot be imported, or when any phase fails.  Phases, in order:
    run_train(warm_from=) must come out warm past the template's
    log-loss gate; POST /reload to it; 64 answers (32 of new users) held
    against the warm state.
-19. report — one JSON line of per-kernel numbers, the card's name and
+19. supervision — checkpoints, the profiler and traces, each part run
+   where its inputs live.  19a, right after phase 6 on its inputs: the
+   same ML-25M train under sweep checkpoints every 2 sweeps (about 54
+   MiB a save), uninterrupted, preempted after its second chunk
+   (TrainPreempted at sweep 4 with the step file on disk) then resumed,
+   and with one chunk's factors made NaN (rolled back, replayed); each
+   torch.equal to phase 6's factors, K1 and K2 launched.  19b-e, right
+   after phase 12 on its store (so phase 12's own eval is the
+   uninterrupted sweep): `pio train --checkpoint-dir D
+   --checkpoint-every 2` with a SIGTERM during the read must exit 143
+   with a PREEMPTED instance and the step-2 file, the same command then
+   exit 0 with factors equal to an uninterrupted `pio train`'s by
+   entity id bit for bit;
+   `pio eval --checkpoint-dir` SIGTERM'd after its first (candidate,
+   fold) unit must exit 143, the same command train only the other 3
+   units and score phase 12's eval exactly; one run_train under
+   PIO_PROFILE_DIR, whose Chrome trace must name K1's and K2's CUDA
+   functions; `pio deploy --no-batcher`, whose /traces.json?request_id=
+   must resolve a query's tree http.request > http.handle >
+   batcher.dispatch > retrieval (chunked rung; K3 counted in the deploy
+   process).
+20. report — one JSON line of per-kernel numbers, the card's name and
    power limit, and the final status line.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import math
 import os
@@ -1013,6 +1036,8 @@ def train_phase(dev, seed: int, als, fg, rs, card: str) -> dict:
     launches["ridge_solve_gj"] = gj_launches
     return {"launches": launches, "per_iter": per_iter,
             "err": max(err_plain, err_gj),
+            # phase 19a trains these inputs again under checkpoints
+            "inputs": inputs, "cfg": cfg, "model": model,
             "prep": {"device_s": prep_s, "host_s": host_prep_s,
                      "init_s": init_s, "device_peak_bytes": prep_peak,
                      "host_peak_bytes": host_peak}}
@@ -2838,18 +2863,19 @@ def tpl_ecommerce(events, dev, rng, storage, start_us, work, cli_dev, mods,
         + [{"user": f"visitor{j}", "num": n, **extra} for j, (n, extra) in
            enumerate(((10, {}), (5, {"categories": ["Drama"]}),
                       (50, {"blackList": ["i0", "i1"]}), (1, {})))]
-    # F7: the result cache's key holds only the instance id and the
-    # query, and ecommerce reads the unavailable list and seen items live,
-    # so a cached answer would outlive the newer list below.  The
-    # deployment turns the cache off, as the README's remedy for a serve
-    # path that reads mutable state says.
-    with env_vars(PIO_RESULT_CACHE="0"):
+    # F7: the result cache stays on (its default).  Ecommerce reads the
+    # unavailable list and seen items live, so its algorithm declares
+    # reads_live_state and the server keeps no cached answer for it: the
+    # newer list below must be served although queries[0] repeats.
+    with env_vars(PIO_RESULT_CACHE=None):
         server = deployed(engine_json, os.path.join(work, "deploy_ec.log"),
                           cli_dev, phase="phase 13b")
     try:
         status = json.loads(server.get("/"))
         if not status["device"].startswith(dev.type):
             die(f"phase 13b: pio deploy reports {status}")
+        if not status["resultCache"]["enabled"]:
+            die(f"phase 13b: the result cache is off: {status}")
         t0 = time.perf_counter()
         answers, lats = tpl_serve(server.base, queries)
         out["deploy_to_first_s"] = t0 + lats[0] - server.started_s
@@ -2878,6 +2904,10 @@ def tpl_ecommerce(events, dev, rng, storage, start_us, work, cli_dev, mods,
         err = max(err, hold_answer(again, index, scores, mask,
                                    queries[0]["num"], "phase 13b newer list",
                                    mods["topk_mismatch"]))
+        cache = json.loads(server.get("/"))["resultCache"]
+        if cache["entries"] or cache["hits"]:
+            die(f"phase 13b: the result cache kept ecommerce answers: "
+                f"{cache}")
         server.stop()
     except BaseException:
         server.kill()
@@ -2895,7 +2925,8 @@ def tpl_ecommerce(events, dev, rng, storage, start_us, work, cli_dev, mods,
         f"{out['p50_ms']:.2f} ms, each equal to the plain answer (seen: "
         f"newest {TPL_SEEN}; latest unavailable list; popularity for the "
         f"unknown; max |err| {err:.3g}); a newer list from another process "
-        f"excluded without a redeploy; exit 0 on POST /stop; card {card}")
+        f"excluded without a redeploy, with the result cache on (0 entries "
+        f"kept: reads_live_state); exit 0 on POST /stop; card {card}")
     return out
 
 
@@ -3015,6 +3046,8 @@ ES_APP = "chipes"
 ES_THREADS = 8            # client threads, each a contiguous share
 ES_BATCH = 50             # the reference's cap of /batch/events.json
 ES_REPLAYED = 3           # batches posted again under their tokens
+ES_EVENTS = 300_000       # phase 12's first events (all of ~30 % of its
+                          # users): cut from 1,000,209 for the time limit
 
 
 def es_batch(users, items, stars, times, lo: int, hi: int):
@@ -3151,7 +3184,7 @@ def es_export_matches(path: str, cols, n: int,
 
 def eventserver_phase(dev, seed: int, mods: dict, card: str) -> dict:
     """Phase 14: `pio app new` and `pio eventserver` (subprocesses) →
-    every event of phase 12's shape posted by the port's SDK over HTTP →
+    phase 12's first ES_EVENTS events posted by the port's SDK over HTTP →
     ``ES_REPLAYED`` batches posted again under their tokens → `pio
     export` held exactly against the generated events → `pio train`
     in-process (K1, K2) → `pio deploy` (a subprocess, K3 counted there)
@@ -3181,7 +3214,7 @@ def eventserver_phase(dev, seed: int, mods: dict, card: str) -> dict:
     reset_storage()
     try:
         # -- 1: app new, eventserver (subprocesses) ----------------------
-        cols = ml1m_events(seed)
+        cols = tuple(c[:ES_EVENTS] for c in ml1m_events(seed))
         n = len(cols[0])
         said = run_cli("app", "new", ES_APP, phase="phase 14")
         key = re.search(r"Access Key: (\S+)", said).group(1)
@@ -3246,8 +3279,10 @@ def eventserver_phase(dev, seed: int, mods: dict, card: str) -> dict:
         [wrapper] = load_models(mods["engine"](), inst, mods[
             "RuntimeContext"](storage=storage, device=dev))
         uf, itf = wrapper.host_factors()
-        if uf.shape != (ML1M_USERS, RANK) or itf.shape != (ML1M_ITEMS, RANK):
-            die(f"phase 14: trained {uf.shape} x {itf.shape}")
+        want = ((len(np.unique(cols[0])), RANK), (len(np.unique(cols[1])),
+                                                   RANK))
+        if (uf.shape, itf.shape) != want:
+            die(f"phase 14: trained {uf.shape} x {itf.shape}, not {want}")
 
         # -- 6: deploy (a subprocess), 64 /queries.json --------------------
         d = deployed(engine_json, os.path.join(work, "deploy.log"),
@@ -3298,8 +3333,8 @@ def eventserver_phase(dev, seed: int, mods: dict, card: str) -> dict:
     out["n_events"] = n
     out["phase_s"] = time.perf_counter() - phase_t0
     st = out["stats"]
-    log(f"phase 14 eventserver ingest: {n} events (phase 12's ML-1M "
-        f"shape) posted by sdk.EventClient.create_events to `pio "
+    log(f"phase 14 eventserver ingest: {n} events (the first of phase 12's "
+        f"ML-1M events) posted by sdk.EventClient.create_events to `pio "
         f"eventserver` (a subprocess) in {out['batches']} batches of "
         f"{ES_BATCH} from {ES_THREADS} threads: {out['ingest_s']:.2f} s = "
         f"{out['events_per_s']:.0f} events/s; client p50 "
@@ -5039,6 +5074,388 @@ def dlrm_phase(dev, seed: int, loop: dict, mods: dict, card: str) -> dict:
     return out
 
 
+# Phase 19: supervision, checkpoints and traces, each run where its
+# inputs live: 19a on phase 6's ML-25M inputs, 19b-e on phase 12's store
+# before phase 16 changes it (so phase 12's own eval is the uninterrupted
+# sweep 19c is held against).
+SUPERVISE_EVERY = 2              # sweeps a checkpoint (19a, 19b)
+PHASE19_LIMIT_S = 45.0           # the whole phase's budget
+
+
+def held_equal(got, want, what: str) -> None:
+    """Two ALS models' factors bit for bit (``torch.equal``)."""
+    import numpy as np
+    import torch
+
+    for side in ("user_factors", "item_factors"):
+        g = torch.from_numpy(np.ascontiguousarray(getattr(got, side)))
+        w = torch.from_numpy(np.ascontiguousarray(getattr(want, side)))
+        if g.shape != w.shape or not torch.equal(g, w):
+            diff = float((g - w).abs().max()) if g.shape == w.shape \
+                else float("nan")
+            die(f"{what}: {side} differ from the uninterrupted train's "
+                f"(max |diff| {diff:.3g})")
+
+
+def supervised_als_runs(dev, train: dict, als, fg, rs, card: str) -> dict:
+    """Phase 19a: phase 6's ML-25M train (rank 64, 10 iterations) again
+    under sweep checkpoints every SUPERVISE_EVERY sweeps: uninterrupted,
+    preempted after its second chunk (TrainPreempted at sweep 4, the
+    step file on disk) then resumed, and with one chunk's factors made
+    NaN (rolled back and replayed); each must equal phase 6's
+    uninterrupted factors bit for bit."""
+    from predictionio_tpu_torch.obs import get_registry
+    from predictionio_tpu_torch.resilience import supervision as sup
+
+    inputs, cfg, plain = train["inputs"], train["cfg"], train["model"]
+    work = tempfile.mkdtemp(prefix="pio_chip_ckpt_")
+    real_loop = als._train_loop
+    div = get_registry().counter(
+        "pio_train_divergence_total",
+        "Non-finite loss/params observations per training loop.", ("fn",))
+    phase_t0 = time.perf_counter()
+    walls = {}
+
+    def run(name, what):
+        ck = os.path.join(work, name)
+        t0 = time.perf_counter()
+        model = als.train_als_prepared(inputs, cfg, checkpoint_dir=ck,
+                                       save_every=SUPERVISE_EVERY)
+        walls[name] = time.perf_counter() - t0
+        held_equal(model, plain, f"phase 19a {what}")
+        if os.listdir(ck):
+            die(f"phase 19a {what}: the completed run left {os.listdir(ck)}")
+        return model
+
+    fg.LAUNCHES = 0                          # main path starts here
+    rs.LU_LAUNCHES = 0
+    try:
+        run("plain", "checkpointed, uninterrupted")
+        calls = [0]
+
+        def preempting(*a, **k):
+            out = real_loop(*a, **k)
+            calls[0] += 1
+            if calls[0] == 2:
+                sup.request_preemption()     # the SIGTERM flag
+            return out
+
+        als._train_loop = preempting
+        ck = os.path.join(work, "preempted")
+        try:
+            als.train_als_prepared(inputs, cfg, checkpoint_dir=ck,
+                                   save_every=SUPERVISE_EVERY)
+            die("phase 19a: a preemption after the second chunk did not "
+                "raise TrainPreempted")
+        except sup.TrainPreempted as e:
+            if (e.step, e.checkpointed) != (2 * SUPERVISE_EVERY, True):
+                die(f"phase 19a: preempted at {e.step} ({e})")
+        finally:
+            als._train_loop = real_loop
+            sup.clear_preemption()
+        saved = sorted(os.listdir(ck))
+        step_file = os.path.join(ck, f"{2 * SUPERVISE_EVERY}.pt")
+        if not os.path.exists(step_file):
+            die(f"phase 19a: no step-{2 * SUPERVISE_EVERY} checkpoint "
+                f"({saved})")
+        ckpt_mb = os.path.getsize(step_file) / 2 ** 20
+        run("preempted", "resumed after a preemption")
+        calls = [0]
+        before = div.value(fn="als")
+
+        def poisoned(*a, **k):
+            uf, itf = real_loop(*a, **k)
+            calls[0] += 1
+            if calls[0] == 3:
+                uf[0, 0] = float("nan")
+            return uf, itf
+
+        als._train_loop = poisoned
+        try:
+            run("nan", "rolled back from a NaN chunk")
+        finally:
+            als._train_loop = real_loop
+        n_chunks = -(-cfg.iterations // SUPERVISE_EVERY)
+        if calls[0] != n_chunks + 1 or div.value(fn="als") != before + 1:
+            die(f"phase 19a: {calls[0]} chunks for {n_chunks} and one "
+                f"replay, divergences +{div.value(fn='als') - before}")
+        launches = {"fused_gram": fg.LAUNCHES,
+                    "ridge_solve_lu": rs.LU_LAUNCHES}   # and ends here
+    finally:
+        als._train_loop = real_loop
+        shutil.rmtree(work, ignore_errors=True)
+    for name, n in launches.items():
+        if n == 0:
+            die(f"phase 19a: {name} never launched")
+    out = {"launches": launches, "walls": walls, "ckpt_mb": ckpt_mb,
+           "phase_s": time.perf_counter() - phase_t0}
+    log(f"phase 19a supervised ALS: ML-25M, rank {RANK}, {cfg.iterations} "
+        f"iterations, a checkpoint every {SUPERVISE_EVERY} sweeps "
+        f"({ckpt_mb:.1f} MiB a save, {saved} on disk at the preemption): "
+        f"uninterrupted {walls['plain']:.2f} s, resumed from sweep "
+        f"{2 * SUPERVISE_EVERY} {walls['preempted']:.2f} s, NaN chunk rolled "
+        f"back and replayed {walls['nan']:.2f} s; each torch.equal to phase "
+        f"6's uninterrupted factors; launches {json.dumps(launches)}; the "
+        f"phase {out['phase_s']:.2f} s; card {card}")
+    return out
+
+
+def checkpoint_cli_phase(dev, loop: dict, mods: dict, card: str) -> dict:
+    """Phase 19b-e on phase 12's store, before phase 16 changes it:
+    19b `pio train --checkpoint-dir D --checkpoint-every 2` with a
+    SIGTERM during the read (exit 143, a PREEMPTED instance, the step-2
+    file), the same command again (exit 0) equal to an uninterrupted
+    `pio train` by entity id bit for bit; 19c `pio eval --checkpoint-dir` SIGTERM'd
+    after its first (candidate, fold) unit (143), the same command
+    training only the other units and scoring phase 12's eval exactly;
+    19d one run_train under PIO_PROFILE_DIR, whose Chrome trace must name
+    K1's and K2's CUDA functions; 19e `pio deploy --no-batcher`:
+    /traces.json?request_id= resolves a query's span tree http.request ⊃
+    batcher.dispatch ⊃ retrieval (chunked rung, K3)."""
+    import signal
+
+    import numpy as np
+
+    fg, rs, ft, pio = mods["fg"], mods["rs"], mods["ft"], mods["pio"]
+    from predictionio_tpu_torch.controller import engine as ctl_engine
+    from predictionio_tpu_torch.data.storage import get_storage, \
+        reset_storage
+    from predictionio_tpu_torch.obs.profiler import TRACE_FILE
+    from predictionio_tpu_torch.resilience import supervision as sup
+    from predictionio_tpu_torch.workflow.core_workflow import load_models
+
+    tpl = importlib.import_module(
+        "predictionio_tpu_torch.templates.recommendation.engine")
+    phase_t0 = time.perf_counter()
+    work, engine_json = loop["work"], loop["engine_json"]
+    env = cli_env(os.path.join(work, "home"))
+    env.values.update(PIO_CHECKPOINT_DIR=None, PIO_CHECKPOINT_EVERY=None,
+                      PIO_EVAL_CHECKPOINT_DIR=None, PIO_PROFILE_DIR=None,
+                      PIO_BATCH_ENABLED=None)
+    out, launches, server = {}, {}, None
+    env.__enter__()
+    reset_storage()
+    try:
+        storage = get_storage()
+        instances = storage.get_engine_instances()
+        eng = mods["engine"]()
+        variant = mods["EngineVariant"].from_file(engine_json)
+        ctx = mods["RuntimeContext"](storage=storage, device=dev)
+
+        def newest():
+            return max(instances.get_all(), key=lambda i: i.start_time)
+
+        def by_entity(inst):
+            """(names, rows) of an instance's user and item factors, in
+            the order of the names."""
+            [w] = load_models(eng, inst, ctx)
+            uf, itf = w.host_factors()
+            users, items = sorted(w.user_index.keys()), \
+                sorted(w.item_index.keys())
+            return (users, items,
+                    uf[[w.user_index[u] for u in users]],
+                    itf[[w.item_index[i] for i in items]])
+
+        # -- 19b: a SIGTERM'd pio train, then the same command -------------
+        ck = os.path.join(work, "ckpt")
+        argv = ["train", "--engine-json", engine_json, "--checkpoint-dir",
+                ck, "--checkpoint-every", str(SUPERVISE_EVERY)]
+        ds = tpl.RecommendationDataSource
+        real_read = ds.read_training
+
+        def read_then_sigterm(self, c):
+            os.kill(os.getpid(), signal.SIGTERM)   # lands during the read
+            return real_read(self, c)
+
+        fg.LAUNCHES = 0                        # main path starts here
+        rs.LU_LAUNCHES = 0
+        ft.LAUNCHES = 0
+        ds.read_training = read_then_sigterm
+        t0 = time.perf_counter()
+        try:
+            rc = pio(argv)
+        finally:
+            ds.read_training = real_read
+            sup.clear_preemption()   # the flag outlives the verb
+        out["preempted_s"] = time.perf_counter() - t0
+        first = newest()
+        saved = sorted(os.listdir(os.path.join(ck, "als"))) \
+            if os.path.isdir(os.path.join(ck, "als")) else []
+        if rc != 143 or first.status != "PREEMPTED" or \
+                f"{SUPERVISE_EVERY}.pt" not in saved:
+            die(f"phase 19b: pio train exited {rc}, instance "
+                f"{first.status}, checkpoints {saved}")
+        t0 = time.perf_counter()
+        if pio(argv) != 0:
+            die("phase 19b: the resumed pio train failed")
+        out["resumed_s"] = time.perf_counter() - t0
+        resumed = newest()
+        if os.listdir(os.path.join(ck, "als")):
+            die("phase 19b: the completed train left its checkpoints")
+        # the uninterrupted train of the same store (phase 12's train
+        # predates its fold-in events), without the checkpoint flags
+        for k in ("PIO_CHECKPOINT_DIR", "PIO_CHECKPOINT_EVERY"):
+            os.environ.pop(k, None)
+        t0 = time.perf_counter()
+        if pio(["train", "--engine-json", engine_json]) != 0:
+            die("phase 19b: the uninterrupted pio train failed")
+        out["plain_s"] = time.perf_counter() - t0
+        want, got = by_entity(newest()), by_entity(resumed)
+        if resumed.status != "COMPLETED" or got[:2] != want[:2] or not (
+                np.array_equal(got[2], want[2])
+                and np.array_equal(got[3], want[3])):
+            diff = "different entities" if got[:2] != want[:2] else (
+                f"max |diff| users {np.abs(got[2] - want[2]).max():.3g}, "
+                f"items {np.abs(got[3] - want[3]).max():.3g}")
+            die(f"phase 19b: the resumed train ({resumed.status}) differs "
+                f"from the uninterrupted one by entity id ({diff})")
+
+        # -- 19c: a SIGTERM'd pio eval, then the same command --------------
+        eck = os.path.join(work, "eval_ckpt")
+        eargv = ["eval", "predictionio_tpu_torch.templates.recommendation."
+                 "evaluation:evaluation", "chip_smoke:cli_eval_params",
+                 "--checkpoint-dir", eck, "--output-json",
+                 os.path.join(work, "eval19.json")]
+        real_put = ctl_engine.EvalCheckpoint.put
+        algo = tpl.ALSAlgorithm
+        real_train = algo.train
+        trains = [0]
+
+        def put_then_sigterm(self, ci, fi, result):
+            real_put(self, ci, fi, result)
+            os.kill(os.getpid(), signal.SIGTERM)
+
+        def counted_train(self, *a, **k):
+            trains[0] += 1
+            return real_train(self, *a, **k)
+
+        ctl_engine.EvalCheckpoint.put = put_then_sigterm
+        algo.train = counted_train
+        t0 = time.perf_counter()
+        try:
+            rc = pio(eargv)
+            sup.clear_preemption()
+            units = sorted(os.listdir(eck))
+            first_trains = trains[0]
+            ctl_engine.EvalCheckpoint.put = real_put
+            if rc != 143 or first_trains != 1 or len(units) != 1:
+                die(f"phase 19c: pio eval exited {rc} after {first_trains} "
+                    f"train(s), units {units}")
+            out["eval_preempted_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            if pio(eargv) != 0:
+                die("phase 19c: the resumed pio eval failed")
+            out["eval_resumed_s"] = time.perf_counter() - t0
+        finally:
+            ctl_engine.EvalCheckpoint.put = real_put
+            algo.train = real_train
+        res = json.loads(Path(os.path.join(work, "eval19.json")).read_text())
+        scores = [c["score"] for c in res["candidates"]]
+        if trains[0] - first_trains != 3 or scores != loop["eval_scores"] \
+                or os.listdir(eck):
+            die(f"phase 19c: the resumed eval trained "
+                f"{trains[0] - first_trains} unit(s), scored {scores} "
+                f"against phase 12's {loop['eval_scores']}, left "
+                f"{os.listdir(eck)}")
+        launches = {"fused_gram": fg.LAUNCHES,
+                    "ridge_solve_lu": rs.LU_LAUNCHES,
+                    "fused_topk": ft.LAUNCHES}
+
+        # -- 19d: run_train under PIO_PROFILE_DIR --------------------------
+        prof_dir = os.path.join(work, "profile")
+        before = (fg.LAUNCHES, rs.LU_LAUNCHES)
+        t0 = time.perf_counter()
+        with env_vars(PIO_PROFILE_DIR=prof_dir):
+            mods["run_train"](eng, variant, mods["RuntimeContext"].create(
+                storage=storage, device=dev))
+        out["profiled_s"] = time.perf_counter() - t0
+        profiled = (fg.LAUNCHES - before[0], rs.LU_LAUNCHES - before[1])
+        trace = json.loads(Path(prof_dir, TRACE_FILE).read_text())
+        kernels = [e["name"] for e in trace.get("traceEvents", ())
+                   if e.get("cat") == "kernel"]
+        k1 = sum("gram_kernel" in k for k in kernels)
+        k2 = sum("chol_" in k or "ridge_kernel" in k for k in kernels)
+        if not k1 or not k2:
+            cats = {}
+            for e in trace.get("traceEvents", ()):
+                cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+            die(f"phase 19d: the profiler's trace names no K1 ({k1}) or K2 "
+                f"({k2}) function among {len(kernels)} kernels "
+                f"{sorted(set(kernels))[:20]}; events by category {cats}; "
+                f"launches in the window {profiled}")
+        out["trace_mb"] = os.path.getsize(
+            os.path.join(prof_dir, TRACE_FILE)) / 2 ** 20
+        launches["fused_gram"] = fg.LAUNCHES
+        launches["ridge_solve_lu"] = rs.LU_LAUNCHES
+
+        # -- 19e: a deploy with traces -------------------------------------
+        server = deployed(engine_json, os.path.join(work, "deploy19.log"),
+                          extra=("--no-batcher",), phase="phase 19e")
+        req = urllib.request.Request(
+            server.base + "/queries.json",
+            data=json.dumps({"user": "u1", "num": 10}).encode(),
+            method="POST", headers={"Content-Type": "application/json",
+                                    "X-Request-ID": "chip-19e"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            if r.headers.get("X-Request-ID") != "chip-19e":
+                die("phase 19e: the answer lost its X-Request-ID")
+            answer = json.loads(r.read())
+        one = json.loads(server.get("/traces.json?request_id=chip-19e"))
+        slow = json.loads(server.get("/traces.json?min_ms=1e9"))
+        [tree] = one["traces"] or [None]
+        handle = [s for s in (tree or {}).get("spans", ())
+                  if s["name"] == "http.handle"]
+        dispatch = [s for s in (handle[0].get("spans", ()) if handle else ())
+                    if s["name"] == "batcher.dispatch" and "spans" in s]
+        retrieval = [s for s in (dispatch[0]["spans"] if dispatch else ())
+                     if s["name"] == "retrieval"]
+        if tree is None or tree["name"] != "http.request" or not retrieval \
+                or retrieval[0]["attrs"].get("rung") != "chunked" \
+                or slow["traces"] or len(answer["itemScores"]) != 10:
+            die(f"phase 19e: /traces.json?request_id=chip-19e gave {one}")
+        server.stop()
+        launches["fused_topk"] += server.launches["fused_topk"]
+        if not server.launches["fused_topk"]:
+            die("phase 19e: the deploy never launched fused_topk")
+        out["trace_tree"] = [tree["name"], handle[0]["name"],
+                             dispatch[0]["name"], retrieval[0]["name"]]
+        server = None
+        for name, n in launches.items():    # main path ends here
+            if n == 0:
+                die(f"phase 19b-e: {name} never launched")
+    finally:
+        if server is not None:
+            server.kill()
+        reset_storage()
+        env.__exit__()
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - phase_t0
+    # The store's latest generation is now 19d's, whose read took in
+    # phase 12's fold-in events: phase 16's delta window starts after
+    # them.
+    loop["fold_events"] = 0
+    log(f"phase 19b pio train --checkpoint-every {SUPERVISE_EVERY} on phase "
+        f"12's store: SIGTERM during the read → exit 143, instance "
+        f"PREEMPTED, {saved} on disk, {out['preempted_s']:.2f} s; the same "
+        f"command → exit 0 in {out['resumed_s']:.2f} s, its factors equal "
+        f"an uninterrupted pio train's ({out['plain_s']:.2f} s) by entity "
+        f"id bit for bit ({len(got[0])} users, {len(got[1])} items); card "
+        f"{card}")
+    log(f"phase 19c pio eval --checkpoint-dir: SIGTERM after unit (0, 0) → "
+        f"exit 143 in {out['eval_preempted_s']:.2f} s; the same command "
+        f"trained the other 3 units in {out['eval_resumed_s']:.2f} s and "
+        f"scored {scores}, phase 12's exactly")
+    log(f"phase 19d run_train under PIO_PROFILE_DIR: {out['profiled_s']:.2f} "
+        f"s, Chrome trace {out['trace_mb']:.1f} MiB with {len(kernels)} "
+        f"kernel events, K1 functions {k1} (launches {profiled[0]}), K2 "
+        f"functions {k2} (launches {profiled[1]})")
+    log(f"phase 19e pio deploy --no-batcher: /traces.json?request_id= "
+        f"resolved {' > '.join(out['trace_tree'])} (rung chunked); "
+        f"launches 19b-e {json.dumps(launches)}; phases 19b-e "
+        f"{out['phase_s']:.2f} s; card {card}")
+    return out
+
+
 def post_json(url: str, obj):
     """POST one query; returns (answer, the server's own wall ms)."""
     req = urllib.request.Request(
@@ -5274,6 +5691,10 @@ def main() -> int:
 
     # -- phase 6: ALS training at the MovieLens-25M shape -----------------
     train = train_phase(dev, args.seed, als, fg, rs, card)
+    # -- phase 19a: the same train under checkpoints, while its inputs live
+    supervised = supervised_als_runs(dev, train, als, fg, rs, card)
+    for key in ("inputs", "cfg", "model"):
+        del train[key]
     torch.cuda.empty_cache()
 
     mods = {
@@ -5316,6 +5737,16 @@ def main() -> int:
     # -- phase 12: the engine.json loop across processes (the CLI) --------
     loop = cli_loop_phase(dev, args.seed, mods, card)
     torch.cuda.empty_cache()
+    # -- phases 19b-e: checkpoints, profiler and traces on phase 12's store
+    try:
+        ckpt = checkpoint_cli_phase(dev, loop, mods, card)
+    except BaseException:
+        shutil.rmtree(loop["work"], ignore_errors=True)
+        raise
+    log(f"phase 19: {supervised['phase_s'] + ckpt['phase_s']:.2f} s "
+        f"(19a {supervised['phase_s']:.2f} s, 19b-e {ckpt['phase_s']:.2f} "
+        f"s; budget {PHASE19_LIMIT_S:.0f} s)")
+    torch.cuda.empty_cache()
 
     # -- phase 13: the aggregate_properties templates (the CLI) -----------
     tpl = templates_phase(dev, args.seed, mods, card)
@@ -5342,7 +5773,7 @@ def main() -> int:
         shutil.rmtree(loop["work"], ignore_errors=True)
     torch.cuda.empty_cache()
 
-    # -- phase 19: report --------------------------------------------------
+    # -- phase 20: report --------------------------------------------------
     main_shape = timings[(ML25M_ITEMS, 1, 10)]
     b64 = timings[(ML25M_ITEMS, 64, 10)]   # a full batch of query_batch
     kernels = [{
@@ -5353,7 +5784,8 @@ def main() -> int:
         "launches": main_launches + loop["launches"]["fused_topk"]
         + es["launches"]["fused_topk"] + sched["launches"]
         + sched["inline_launches"] + sched["native_launches"]
-        + refresh["launches"]["fused_topk"] + tt["launches"]["fused_topk"],
+        + refresh["launches"]["fused_topk"] + tt["launches"]["fused_topk"]
+        + ckpt["launches"]["fused_topk"],
         "max_abs_err": max(max_err, err, err4),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -5381,7 +5813,9 @@ def main() -> int:
             "launches": train["launches"][name]
             + loop["launches"].get(name, 0) + tpl["launches"].get(name, 0)
             + es["launches"].get(name, 0)
-            + refresh["launches"].get(name, 0),
+            + refresh["launches"].get(name, 0)
+            + supervised["launches"].get(name, 0)
+            + ckpt["launches"].get(name, 0),
             "max_abs_err": train_kernel_err[name],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -5433,8 +5867,9 @@ def main() -> int:
         f"15), {refresh['launches']['fused_topk']} in phase 16 (its "
         f"deploy process and the eviction's server), "
         f"{tt['launches']['fused_topk']} in phase 17 (two-tower: its deploy "
-        f"process and retrieve(chunk=)), {dase_topk} on the "
-        f"DASE path; training "
+        f"process and retrieve(chunk=)), {ckpt['launches']['fused_topk']} "
+        f"in phase 19 (19c's eval and 19e's deploy process), {dase_topk} "
+        f"on the DASE path; training "
         f"kernels per the train run (fused_gram, ridge_solve_lu) + the CLI "
         f"path's train and eval ({loop['launches']['fused_gram']}, "
         f"{loop['launches']['ridge_solve_lu']}), the similarproduct and "
@@ -5443,7 +5878,10 @@ def main() -> int:
         f"ingested events ({es['launches']['fused_gram']}, "
         f"{es['launches']['ridge_solve_lu']}), phase 16's full fallback "
         f"({refresh['launches']['fused_gram']}, "
-        f"{refresh['launches']['ridge_solve_lu']}) and the solver='gj' run "
+        f"{refresh['launches']['ridge_solve_lu']}), phase 19's supervised "
+        f"trains (19a {json.dumps(supervised['launches'])}, 19b-d "
+        f"({ckpt['launches']['fused_gram']}, "
+        f"{ckpt['launches']['ridge_solve_lu']})) and the solver='gj' run "
         f"(ridge_solve_gj); timings of the training kernels are over one "
         f"iteration's calls at the ML-25M shape")
     print(json.dumps({"kernels": kernels}))

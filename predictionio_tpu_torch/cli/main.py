@@ -10,10 +10,12 @@ reference's output lines::
     pio accesskey new <app> [event ...] | list [app] | delete <key>
     pio build        --engine-json engine.json
     pio train        --engine-json engine.json [--seed N] [--device D]
+                     [--checkpoint-dir D --checkpoint-every N]
                      [--follow [--refresh-interval S] [--promote-url URL]
                       [--canary-window S] [--trigger-staleness S]
                       [--trigger-delta-count N]]
     pio eval         <EvaluationClass> <EngineParamsGeneratorClass>
+                     [--checkpoint-dir D]
     pio deploy       --engine-json engine.json --port 8000 [--device D]
                      [--native] [--max-batch N] [--max-wait-us U]
                      [--no-batcher] [--batch-window-ms MS]
@@ -39,9 +41,14 @@ delta when it can) and promotes each generation through a deploy's
 ``POST /reload``.  ``train --prefetch-depth`` / ``--fuse-steps`` /
 ``--batch-autoscale`` set the deep models' input pipeline knobs
 (``PIO_PREFETCH_DEPTH`` / ``PIO_FUSE_STEPS`` / ``PIO_BATCH_AUTOSCALE``);
-a SIGTERM'd train hands back and exits 143.  Flags whose substrate the
-port does not have yet (the train and eval checkpoint flags, the mesh)
-are not defined, so argparse rejects them by name.
+a SIGTERM'd train hands back and exits 143; with ``--checkpoint-dir``
+and ``--checkpoint-every`` (``PIO_CHECKPOINT_DIR`` /
+``PIO_CHECKPOINT_EVERY``) ALS saves every N sweeps and the same command
+run again resumes from the last complete sweep.  ``eval
+--checkpoint-dir`` (``PIO_EVAL_CHECKPOINT_DIR``) keeps each finished
+(candidate, fold) unit, so a SIGTERM'd sweep (exit 143) resumes.  Flags
+whose substrate the port does not have yet (the mesh) are not defined,
+so argparse rejects them by name.
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ import signal
 import sys
 from pathlib import Path
 from typing import List, Optional
+from urllib.parse import parse_qs, urlparse
 
 from predictionio_tpu_torch.version import __version__
 
@@ -316,6 +324,16 @@ def cmd_train(args) -> int:
     )
     from predictionio_tpu_torch.workflow.core_workflow import run_train
 
+    if getattr(args, "checkpoint_dir", None):
+        if args.checkpoint_every <= 0:
+            _die("--checkpoint-dir requires --checkpoint-every N (the save "
+                 "cadence); without it no checkpoints would be written and "
+                 "a killed train could not resume.")
+        os.environ["PIO_CHECKPOINT_DIR"] = args.checkpoint_dir
+        os.environ["PIO_CHECKPOINT_EVERY"] = str(args.checkpoint_every)
+    elif getattr(args, "checkpoint_every", 0) > 0:
+        _die("--checkpoint-every requires --checkpoint-dir DIR (where to "
+             "save); without it no checkpoints would be written.")
     if getattr(args, "prefetch_depth", 0) > 0:
         # Overlapped input pipeline (data/prefetch.py): the deep-model
         # train loop reads this when constructing its DevicePrefetcher.
@@ -362,8 +380,8 @@ def cmd_train(args) -> int:
         instance_id = run_train(engine, variant, ctx)
     except TrainPreempted as e:
         print(f"[preempted] {e}", file=sys.stderr)
-        print("[preempted] rerun the same `pio train` command to train "
-              "again.", file=sys.stderr)
+        print("[preempted] rerun the same `pio train` command to resume.",
+              file=sys.stderr)
         return PREEMPTED_EXIT_CODE
     finally:
         if installed:
@@ -380,9 +398,10 @@ def _train_follow(args, engine, variant, ctx) -> int:
     — and, with ``--promote-url`` / ``PIO_REFRESH_PROMOTE_URL``, promotes
     each generation through the serving server's staged-reload gate.
     SIGTERM/SIGINT stop the loop after the current cycle, exit 0; a
-    two-tower train in flight hands back at its next step boundary
-    instead (``TrainPreempted``, exit 143), as in the reference.  ALS
-    has no checkpoints in the port and finishes its cycle."""
+    train in flight that checks the flag hands back at its next step
+    boundary instead (``TrainPreempted``, exit 143), as in the
+    reference: the two-tower and DLRM loops, and ALS under
+    ``--checkpoint-dir``, after its current chunk of sweeps."""
     from predictionio_tpu_torch.refresh import RefreshConfig
     from predictionio_tpu_torch.refresh.daemon import RefreshDaemon
     from predictionio_tpu_torch.resilience.supervision import (
@@ -446,16 +465,37 @@ def cmd_eval(args) -> int:
         RuntimeContext,
         load_engine_factory,
     )
+    from predictionio_tpu_torch.resilience.supervision import (
+        PREEMPTED_EXIT_CODE,
+        TrainPreempted,
+        install_preemption_handler,
+    )
     from predictionio_tpu_torch.workflow.core_workflow import run_evaluation
 
     evaluation = load_engine_factory(args.evaluation_class)()
     generator = load_engine_factory(args.params_generator_class)()
     ctx = RuntimeContext.create(storage=_storage(), device=_device(args),
                                 seed=args.seed)
-    instance_id, result = run_evaluation(
-        evaluation, generator, ctx,
-        evaluation_class=args.evaluation_class,
-        params_generator_class=args.params_generator_class)
+    # The training preemption contract: SIGTERM keeps the sweep's
+    # finished (candidate, fold) units and exits 143; the same command
+    # run again resumes.  The process's own handler is back once the
+    # verb ends.
+    previous = signal.getsignal(signal.SIGTERM)
+    installed = install_preemption_handler()
+    try:
+        instance_id, result = run_evaluation(
+            evaluation, generator, ctx,
+            evaluation_class=args.evaluation_class,
+            params_generator_class=args.params_generator_class,
+            checkpoint_dir=args.checkpoint_dir)
+    except TrainPreempted as e:
+        print(f"[preempted] {e}", file=sys.stderr)
+        print("[preempted] rerun the same `pio eval` command to resume "
+              "from the checkpointed folds.", file=sys.stderr)
+        return PREEMPTED_EXIT_CODE
+    finally:
+        if installed:
+            signal.signal(signal.SIGTERM, previous)
     print(result.summary())
     print(f"Evaluation instance ID: {instance_id}")
     if args.output_json:
@@ -536,11 +576,11 @@ def _deploy_native(args, srv, sched_cfg) -> int:
         # /stop must stop the FRONTEND, and not from inside its own
         # callback thread (pio_frontend_stop joins the batchers): answer
         # first, then the main thread tears down.
-        path = path_with_qs.split("?", 1)[0]
-        if path == "/stop" and method == "POST":
+        parsed = urlparse(path_with_qs)
+        if parsed.path == "/stop" and method == "POST":
             stop_event.set()
             return 200, {"status": "stopping"}
-        return srv.handle(method, path, body)
+        return srv.handle(method, parsed.path, body, parse_qs(parsed.query))
 
     try:
         # One batch ceiling for both batching stacks: the flag beats
@@ -962,6 +1002,12 @@ def build_parser() -> argparse.ArgumentParser:
     t = sub.add_parser("train", help="train an engine variant")
     t.add_argument("--engine-json", default="engine.json")
     t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--checkpoint-dir", dest="checkpoint_dir", default=None,
+                   help="checkpoint root; with --checkpoint-every, a "
+                        "killed train resumes from the last complete step")
+    t.add_argument("--checkpoint-every", dest="checkpoint_every", type=int,
+                   default=0, metavar="N",
+                   help="save every N sweeps/steps (0 = off)")
     t.add_argument("--prefetch-depth", dest="prefetch_depth", type=int,
                    default=0, metavar="N",
                    help="staged batches the input pipeline keeps ahead "
@@ -1031,6 +1077,11 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("params_generator_class")
     e.add_argument("--seed", type=int, default=0)
     e.add_argument("--output-json", dest="output_json")
+    e.add_argument("--checkpoint-dir", dest="checkpoint_dir", default=None,
+                   help="persist each completed (candidate, fold) unit "
+                        "here so a SIGTERM'd sweep resumes instead of "
+                        "restarting (default env PIO_EVAL_CHECKPOINT_DIR;"
+                        " cleared when the sweep completes)")
     _device_flag(e)
     e.set_defaults(fn=cmd_eval)
 

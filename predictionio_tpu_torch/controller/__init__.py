@@ -16,6 +16,7 @@ from predictionio_tpu_torch.controller.engine import (
     Engine,
     EngineParams,
     EngineVariant,
+    EvalCheckpoint,
     load_engine_factory,
 )
 from predictionio_tpu_torch.controller.metrics import (
@@ -45,6 +46,7 @@ __all__ = [
     "EngineParams",
     "EngineParamsGenerator",
     "EngineVariant",
+    "EvalCheckpoint",
     "Evaluation",
     "FirstServing",
     "IdentityPreparator",

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import abc
 import dataclasses
-from typing import Any, Generic, List, Optional, Sequence, Tuple, TypeVar
+from typing import Any, Dict, Generic, List, Optional, Sequence, Tuple, TypeVar
 
 import torch
 
@@ -65,15 +65,19 @@ class RuntimeContext:
     - ``device``: the ``torch.device`` models train on and stage their
       tensors on
     - ``seed``: base RNG seed for the run (reproducible training)
+    - ``workflow_params``: the run's knobs (``profile_dir``: capture the
+      train under ``torch.profiler``)
     """
 
     storage: Any = None
     event_store: Any = None
     device: Optional[torch.device] = None
     seed: int = 0
+    workflow_params: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     @staticmethod
-    def create(storage=None, device=None, seed: int = 0) -> "RuntimeContext":
+    def create(storage=None, device=None, seed: int = 0,
+               **workflow_params) -> "RuntimeContext":
         """Build the run context.  ``device`` goes through
         :func:`~predictionio_tpu_torch.device.device`: the CUDA card
         unless ``"cpu"`` is asked for, raising when CUDA is absent."""
@@ -84,7 +88,8 @@ class RuntimeContext:
         storage = storage or get_storage()
         return RuntimeContext(storage=storage,
                               event_store=EventStore(storage),
-                              device=resolve_device(device), seed=seed)
+                              device=resolve_device(device), seed=seed,
+                              workflow_params=dict(workflow_params))
 
 
 class _HasParams:
@@ -124,7 +129,14 @@ class IdentityPreparator(Preparator[TD, TD]):
 
 
 class Algorithm(_HasParams, Generic[PD, M, Q, P], abc.ABC):
-    """Reference: PAlgorithm/P2LAlgorithm/LAlgorithm."""
+    """Reference: PAlgorithm/P2LAlgorithm/LAlgorithm.
+
+    ``reads_live_state``: True for an algorithm whose ``predict`` reads
+    state that changes without a new generation (events written after
+    the train); the engine server then keeps no cached answers for it
+    (the port's own attribute)."""
+
+    reads_live_state = False
 
     @abc.abstractmethod
     def train(self, ctx: RuntimeContext, prepared_data: PD) -> M: ...

@@ -13,8 +13,9 @@ schema is the reference's, verbatim::
 (``Algorithm.warm_start`` on a delta window when it is given a warm
 context);
 :meth:`Engine.eval_multi` drives ``read_eval`` folds through each
-candidate's algorithms and Serving (the reference's shared-prep sweep,
-without its checkpoints).
+candidate's algorithms and Serving (the reference's shared-prep sweep),
+keeping each finished (candidate, fold) unit in an
+:class:`EvalCheckpoint` when it is given one.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import dataclasses
 import importlib
 import json
 import os
+import pickle
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Type
 
@@ -43,7 +45,49 @@ from predictionio_tpu_torch.controller.params import (
     params_to_dict,
 )
 
-__all__ = ["Engine", "EngineParams", "EngineVariant", "load_engine_factory"]
+__all__ = ["Engine", "EngineParams", "EngineVariant", "EvalCheckpoint",
+           "load_engine_factory"]
+
+
+class EvalCheckpoint:
+    """Fold-granular checkpoints of an eval sweep (reference:
+    ``EvalCheckpoint``).
+
+    A ``pio eval`` sweep is candidates × folds of full trains.  One
+    finished ``(candidate, fold)`` unit is one pickle file in
+    ``directory``; on resume :meth:`Engine.eval_multi` loads the finished
+    units instead of training them again.  That is valid because the
+    SAME evaluation command (same candidates, same seeds) gives the same
+    fold split, so unit (ci, fi) means the same work across runs: a
+    changed sweep should use a fresh directory.  The files are the
+    port's own pickles of the port's objects."""
+
+    def __init__(self, directory):
+        self.dir = Path(directory)
+        self.dir.mkdir(parents=True, exist_ok=True)
+
+    def _path(self, candidate: int, fold: int) -> Path:
+        return self.dir / f"cand{candidate:04d}_fold{fold:04d}.pkl"
+
+    def has(self, candidate: int, fold: int) -> bool:
+        return self._path(candidate, fold).exists()
+
+    def get(self, candidate: int, fold: int):
+        with open(self._path(candidate, fold), "rb") as f:
+            return pickle.load(f)
+
+    def put(self, candidate: int, fold: int, result) -> None:
+        tmp = self._path(candidate, fold).with_suffix(".tmp")
+        with open(tmp, "wb") as f:
+            pickle.dump(result, f)
+        tmp.replace(self._path(candidate, fold))  # atomic: never torn
+
+    def completed(self) -> int:
+        return len(list(self.dir.glob("cand*_fold*.pkl")))
+
+    def clear(self) -> None:
+        for p in self.dir.glob("cand*_fold*.pkl"):
+            p.unlink(missing_ok=True)
 
 
 @dataclasses.dataclass
@@ -188,13 +232,26 @@ class Engine:
         return self.eval_multi(ctx, [engine_params])[0]
 
     def eval_multi(self, ctx: RuntimeContext,
-                   engine_params_list: Sequence[EngineParams]
+                   engine_params_list: Sequence[EngineParams],
+                   checkpoint: Optional[EvalCheckpoint] = None
                    ) -> List[List[Tuple[Any, List[Tuple[Any, Any, Any]]]]]:
         """Shared-prep candidate sweep (reference: ``eval_multi``):
         ``read_eval`` and ``Preparator.prepare`` run once per distinct
         (datasource, preparator) params, folds outer and candidates
         inner, so one prepared fold is live at a time.  Returns each
-        candidate's folds, aligned with the input."""
+        candidate's folds, aligned with the input.
+
+        With ``checkpoint`` every finished ``(candidate, fold)`` unit is
+        kept as it finishes, a fold whose units are all kept skips its
+        prepare, a pending SIGTERM raises
+        :class:`~predictionio_tpu_torch.resilience.supervision.
+        TrainPreempted` BETWEEN units, and a rerun loads the kept units
+        instead of training them again."""
+        from predictionio_tpu_torch.resilience.supervision import (
+            TrainPreempted,
+            preemption_requested,
+        )
+
         results: List[Any] = [None] * len(engine_params_list)
         groups: Dict[str, List[int]] = {}
         for i, ep in enumerate(engine_params_list):
@@ -206,9 +263,25 @@ class Engine:
             preparator = self.preparator_class(first.preparator_params)
             for ci in idxs:
                 results[ci] = []
-            for td, eval_info, qa in datasource.read_eval(ctx):
-                pd = preparator.prepare(ctx, td)
+            for fi, (td, eval_info, qa) in enumerate(
+                    datasource.read_eval(ctx)):
+                todo = [ci for ci in idxs
+                        if checkpoint is None or not checkpoint.has(ci, fi)]
+                # A fold every candidate already finished in an earlier
+                # run is not prepared again.
+                pd = preparator.prepare(ctx, td) if todo else None
                 for ci in idxs:
+                    if ci not in todo:
+                        results[ci].append(checkpoint.get(ci, fi))
+                        continue
+                    if checkpoint is not None and preemption_requested():
+                        # Every finished unit is already on disk, so the
+                        # "checkpointed" flag is honest.
+                        raise TrainPreempted(
+                            f"eval sweep (candidate {ci} fold {fi}, "
+                            f"{checkpoint.completed()} unit(s) saved)",
+                            step=fi,
+                            checkpointed=checkpoint.completed() > 0)
                     engine_params = engine_params_list[ci]
                     serving = self.make_serving(engine_params)
                     algos = self.make_algorithms(engine_params)
@@ -219,6 +292,8 @@ class Engine:
                     qpa = [(q, serving.serve(q, [p[i] for p in per_algo]),
                             actual) for i, (q, actual) in enumerate(qa)]
                     results[ci].append((eval_info, qpa))
+                    if checkpoint is not None:
+                        checkpoint.put(ci, fi, (eval_info, qpa))
         return results
 
 

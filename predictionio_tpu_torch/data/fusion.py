@@ -25,9 +25,9 @@ configures it and — in ``auto`` mode — tunes it:
   reports no limit, the guardrail cannot push back, so growth stops at
   ``PIO_FUSE_STEPS_MAX`` (default 32).
 
-The reference also publishes a ``train.fusion_autotune`` trace-ring
-event at each decision; the port has no trace ring yet, so the
-decisions land in the log and the gauges only.
+Each decision also lands in the trace ring as the reference's
+``train.fusion_autotune`` event (``action`` backoff_pin, grow_fuse,
+grow_batch or cap_pin).
 """
 
 
@@ -37,6 +37,8 @@ import logging
 import os
 import threading
 from typing import Optional, Tuple
+
+from predictionio_tpu_torch.obs.runtime import publish_event
 
 logger = logging.getLogger(__name__)
 
@@ -246,14 +248,20 @@ class FusionAutotuner:
             logger.warning(
                 "%s: HBM headroom guardrail pushed back — pinning fused "
                 "training at fuse_steps=%d batch_scale=%d", self.model, k, m)
+            publish_event("train.fusion_autotune", model=self.model,
+                          fuseSteps=k, batchScale=m, action="backoff_pin")
         elif k < self.max_fuse_steps:
             k = min(k * 2, self.max_fuse_steps)
             logger.info("%s: fusion autotune grows to fuse_steps=%d",
                         self.model, k)
+            publish_event("train.fusion_autotune", model=self.model,
+                          fuseSteps=k, batchScale=m, action="grow_fuse")
         elif self.batch_scale_enabled and m < self.max_batch_scale:
             m = min(m * 2, self.max_batch_scale)
             logger.info("%s: fusion autotune grows to batch_scale=%d",
                         self.model, m)
+            publish_event("train.fusion_autotune", model=self.model,
+                          fuseSteps=k, batchScale=m, action="grow_batch")
         else:
             self.pinned = True
             logger.info(
@@ -261,5 +269,7 @@ class FusionAutotuner:
                 "(fuse_steps=%d batch_scale=%d) with HBM headroom to "
                 "spare — a larger PIO_FUSE_STEPS_MAX (or batch size) "
                 "may still help", self.model, k, m)
+            publish_event("train.fusion_autotune", model=self.model,
+                          fuseSteps=k, batchScale=m, action="cap_pin")
         self.plan.set(k, m)
         self._publish_gauges()

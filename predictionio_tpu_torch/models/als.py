@@ -26,6 +26,10 @@ the ``YᵀY`` term shared across the side.
 The factors stay numpy at rest in :class:`ALSModel` (they ride the model
 pickle); training works on tensors on the device it is given (the card
 unless the caller passes ``device="cpu"``) and returns numpy factors.
+The loop runs under supervision (:func:`train_als_prepared`): sweep
+checkpoints, rollback of a non-finite chunk, preemption and the step
+watchdog; every sweep is bit for bit reproducible, so a resumed train
+equals an uninterrupted one.
 One process and one device: ``mesh`` must be None, and the mesh knobs
 ``factor_sharding`` / ``gather_window`` are accepted and ignored, as the
 reference ignores them without a mesh.
@@ -41,6 +45,7 @@ import torch
 
 from predictionio_tpu_torch.device import device as resolve_device
 from predictionio_tpu_torch.ops import device_prep as dp
+from predictionio_tpu_torch.ops.embedding import deterministic
 from predictionio_tpu_torch.ops import fused_gram as fg
 from predictionio_tpu_torch.ops import ridge_solve as rs
 from predictionio_tpu_torch.ops import threefry
@@ -52,8 +57,13 @@ from predictionio_tpu_torch.ops.ragged import (
 )
 from predictionio_tpu_torch.ops.topk import chunked_top_k, top_k_scores
 from predictionio_tpu_torch.resilience.supervision import (
+    DivergenceGuard,
+    RollbackRequested,
+    StepWatchdog,
     TrainDiverged,
+    TrainPreempted,
     all_finite,
+    preemption_requested,
 )
 
 __all__ = ["ALSConfig", "ALSModel", "ALSInputs", "als_model_from_numpy",
@@ -248,15 +258,19 @@ def _merged_solve(ch: _Chunk, dst: torch.Tensor, src: torch.Tensor,
                   yty: Optional[torch.Tensor], reg: float, alpha: float,
                   implicit: bool, solver: str) -> None:
     """Split-bucket step: partial rows → segment-summed normal equations
-    → one solve per entity.  The sums are ``index_add_``, which on the
-    card adds in no fixed order: the bits may differ from run to run."""
+    → one solve per entity.  The sums are ``index_add_`` under
+    :func:`~predictionio_tpu_torch.ops.embedding.deterministic`: on the
+    card that is the sort-based ``index_put_``, which adds each entity's
+    partial rows in row order, so a sweep's bits are the same from run
+    to run and a resumed train equals an uninterrupted one."""
     a, b, deg = _gram_pieces(ch.indices, ch.values, ch.mask, src, alpha,
                              implicit)
     n, k = ch.n_seg, a.shape[-1]
     seg = ch.seg_ids
-    big_a = a.new_zeros((n + 1, k, k)).index_add_(0, seg, a)[:n]
-    big_b = b.new_zeros((n + 1, k)).index_add_(0, seg, b)[:n]
-    degree = deg.new_zeros(n + 1).index_add_(0, seg, deg)[:n]
+    with deterministic():
+        big_a = a.new_zeros((n + 1, k, k)).index_add_(0, seg, a)[:n]
+        big_b = b.new_zeros((n + 1, k)).index_add_(0, seg, b)[:n]
+        degree = deg.new_zeros(n + 1).index_add_(0, seg, deg)[:n]
     if implicit:
         big_a += yty
     solved = _ridge(big_a, big_b, reg * degree.clamp_min(1.0), solver)
@@ -540,31 +554,128 @@ def train_als(
     mesh=None,
     *,
     device=None,
+    checkpoint_dir=None,
+    save_every: int = 0,
 ) -> ALSModel:
-    """Train from COO triplets on ``device`` (default the card)."""
+    """Train from COO triplets on ``device`` (default the card); with
+    ``checkpoint_dir`` and ``save_every``, under sweep checkpoints
+    (:func:`train_als_prepared`)."""
     inputs = prepare_als_inputs(user_ids, item_ids, ratings, n_users,
                                 n_items, config, mesh, device=device)
-    return train_als_prepared(inputs, config)
+    return train_als_prepared(inputs, config, checkpoint_dir=checkpoint_dir,
+                              save_every=save_every)
 
 
-def train_als_prepared(inputs: ALSInputs, config: ALSConfig) -> ALSModel:
+def train_als_prepared(inputs: ALSInputs, config: ALSConfig, *,
+                       checkpoint_dir=None, save_every: int = 0) -> ALSModel:
     """The iteration loop over uploaded buckets, from ``inputs``' init
-    (which it does not modify).  A non-finite result raises
-    :class:`~predictionio_tpu_torch.resilience.supervision.TrainDiverged`
-    and is never returned."""
+    (which it does not modify), under supervision.
+
+    With ``checkpoint_dir`` and ``save_every`` the loop runs
+    ``save_every`` sweeps a chunk and saves the factors after each
+    (:class:`~predictionio_tpu_torch.workflow.checkpoint.
+    TrainCheckpointer`, fingerprinted by the config and the data's
+    ``n_users`` × ``n_items``); a killed train resumes from the latest
+    complete sweep, and because a sweep depends on nothing but the
+    factors it starts from (the split buckets sum in a fixed order), the
+    resumed factors equal an uninterrupted run's bit for bit.  Each
+    chunk is finiteness-checked before it can be saved: a non-finite
+    chunk rolls back in place to the last saved sweep (or the init) and
+    is replayed, at most ``PIO_DIVERGENCE_RETRIES`` times, then
+    :class:`~predictionio_tpu_torch.resilience.supervision.
+    TrainDiverged`.  A pending preemption (SIGTERM) saves the current
+    sweep and raises ``TrainPreempted``.  ``PIO_STEP_TIMEOUT_S`` arms a
+    watchdog around each chunk.  The checkpoints are cleared when the
+    train completes.
+
+    Without a checkpoint directory the whole loop is one chunk under the
+    watchdog, and a non-finite result raises ``TrainDiverged`` (there is
+    nothing to roll back to).  A non-finite model is never returned."""
     statics = _resolve_loop_statics(config, inputs.uf0.device)
-    uf, itf = _train_loop(inputs.uf0.clone(), inputs.itf0.clone(),
-                          inputs.user_buckets, inputs.item_buckets,
-                          float(config.reg), float(config.alpha),
-                          int(config.iterations), **statics)
-    # No checkpoint to roll back to: a non-finite result is a terminal
-    # divergence (never silently returned or persisted).
-    if not all_finite((uf, itf)):
-        raise TrainDiverged("als", int(config.iterations),
-                            "non-finite factors", 0)
+    reg, alpha = float(config.reg), float(config.alpha)
+    total = int(config.iterations)
+
+    def sweeps(uf, itf, n):
+        return _train_loop(uf, itf, inputs.user_buckets, inputs.item_buckets,
+                           reg, alpha, n, **statics)
+
+    if checkpoint_dir and save_every > 0:
+        uf, itf = _supervised_loop(inputs, config, sweeps, checkpoint_dir,
+                                   int(save_every))
+    else:
+        watchdog = StepWatchdog("als")
+        watchdog.arm(total)
+        try:
+            uf, itf = sweeps(inputs.uf0.clone(), inputs.itf0.clone(), total)
+            # No checkpoint to roll back to: a non-finite result is a
+            # terminal divergence (never silently returned or persisted).
+            if not all_finite((uf, itf)):
+                raise TrainDiverged("als", total, "non-finite factors", 0)
+        finally:
+            watchdog.stop()
     return ALSModel(user_factors=uf.cpu().numpy(),
                     item_factors=itf.cpu().numpy(), rank=config.rank,
                     implicit=config.implicit)
+
+
+def _supervised_loop(inputs: ALSInputs, config: ALSConfig, sweeps,
+                     checkpoint_dir, save_every: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The checkpointed loop of :func:`train_als_prepared`: chunks of
+    ``save_every`` sweeps, each checked, saved, and rolled back or
+    preempted as it says.  Returns the final factors."""
+    from predictionio_tpu_torch.workflow.checkpoint import TrainCheckpointer
+
+    total = int(config.iterations)
+    guard = DivergenceGuard("als")
+    # Fingerprint = config + data dims: checkpoints of another config or
+    # a grown dataset are discarded, not resumed into.
+    fp = f"als|{config}|{inputs.n_users}x{inputs.n_items}"
+    ckpt = TrainCheckpointer(checkpoint_dir, save_every=save_every,
+                             fingerprint=fp)
+    watchdog = StepWatchdog("als", checkpoint_fn=ckpt.flush)
+
+    def restart() -> Tuple[int, torch.Tensor, torch.Tensor]:
+        """The latest saved sweep (or the init at sweep 0), as fresh
+        tensors the sweeps may update in place."""
+        ckpt.restored_state = None
+        done = ckpt.restore_step((inputs.uf0, inputs.itf0),
+                                 total_steps=total)
+        if ckpt.restored_state is not None:
+            uf, itf = ckpt.restored_state
+            return done, uf, itf
+        return 0, inputs.uf0.clone(), inputs.itf0.clone()
+
+    try:
+        done, uf, itf = restart()
+        while done < total:
+            n = min(save_every, total - done)
+            watchdog.arm(done + n)
+            uf, itf = sweeps(uf, itf, n)
+            finite = all_finite((uf, itf))  # waits for the chunk
+            watchdog.disarm()
+            if not finite:
+                # Roll back IN PLACE to the latest durable sweep and
+                # replay; diverged() raises TrainDiverged once the
+                # retries are spent.
+                try:
+                    guard.diverged(done + n, "non-finite factors")
+                except RollbackRequested:
+                    pass
+                done, uf, itf = restart()
+                continue
+            done += n
+            saved = ckpt.maybe_save(done, (uf, itf))
+            if preemption_requested():
+                if not saved:
+                    ckpt.save(done, (uf, itf))
+                ckpt.flush()
+                raise TrainPreempted("als", done, True)
+        ckpt.complete()
+    finally:
+        watchdog.stop()
+        ckpt.close()
+    return uf, itf
 
 
 def _resolve_loop_statics(config: ALSConfig, device: torch.device) -> dict:

@@ -14,9 +14,8 @@ The library is the port's own copy of the source, built by
 ``build/torch_native/``; a failed build raises with the compiler's
 message.  The format, the C API and the per-(seed, epoch) shuffle are
 the reference's, so one cache and seed yield the same batches from
-either package's library.  The reference also publishes a
-``feeder.epoch`` trace-ring event at each epoch boundary; the port has
-no trace ring yet, so only the metrics remain.
+either package's library.  Each epoch boundary lands in the trace ring
+as the reference's ``feeder.epoch`` event.
 """
 
 from __future__ import annotations
@@ -30,7 +29,7 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 
 from predictionio_tpu_torch.native.build import load_library
-from predictionio_tpu_torch.obs import get_registry
+from predictionio_tpu_torch.obs import get_registry, publish_event
 
 __all__ = ["write_cache", "EventFeeder"]
 
@@ -168,7 +167,11 @@ class EventFeeder:
             raise RuntimeError("feeder error")
         self._m_wait.observe(wait_ms)
         if n == 0:
-            # Epoch boundary: the whole dataset is queued again.
+            # Epoch boundary: the whole dataset is queued again.  The
+            # trace-ring event correlates feeder epoch turnover with the
+            # run being explained.
+            publish_event("feeder.epoch", rows=self._epoch_served,
+                          batchSize=self.batch_size)
             self._epoch_served = 0
             self._m_depth.set(len(self))
             return None

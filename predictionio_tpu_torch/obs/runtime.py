@@ -1,8 +1,13 @@
-"""Runtime introspection: device-memory telemetry and the per-step
-pipeline timeline ring.
+"""Runtime introspection: trace-ring events, device-memory telemetry and
+the per-step pipeline timeline ring.
 
-Port of two pieces of ``predictionio_tpu/obs/runtime.py``:
+Port of three pieces of ``predictionio_tpu/obs/runtime.py``:
 
+- :func:`publish_event` — a zero-duration annotation in the trace ring
+  (:mod:`predictionio_tpu_torch.obs.trace`): a child of the innermost
+  open span, or a single-span trace of its own outside any trace.  The
+  breaker, spill, supervision, fusion, feeder, reload and refresh events
+  ride it under the reference's names.
 - :class:`DeviceMemorySampler` polls the CUDA caching allocator
   (``torch.cuda.memory_stats``) and the card's totals
   (``torch.cuda.mem_get_info``) into ``pio_device_mem_bytes{device,kind}``
@@ -25,7 +30,7 @@ Port of two pieces of ``predictionio_tpu/obs/runtime.py``:
   PipelineProbe`), exportable as Chrome-trace JSON.  Pure Python.
 
 Left out on purpose: the XLA compile tracker (eager PyTorch compiles
-nothing) and the trace-ring events (the port has no trace ring yet).
+nothing).
 """
 
 from __future__ import annotations
@@ -38,10 +43,19 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 from predictionio_tpu_torch.obs.metrics import MetricsRegistry, get_registry
+from predictionio_tpu_torch.obs.trace import (
+    Span,
+    TraceRecorder,
+    current_span,
+    current_trace_id,
+    get_recorder,
+    new_trace_id,
+)
 
 logger = logging.getLogger(__name__)
 
 __all__ = [
+    "publish_event",
     "DeviceMemorySampler",
     "get_memory_sampler",
     "StepTimeline",
@@ -49,6 +63,29 @@ __all__ = [
     "set_timeline",
     "reset_runtime",
 ]
+
+
+# -- trace-ring events -------------------------------------------------------
+
+def publish_event(name: str, *, recorder: Optional[TraceRecorder] = None,
+                  **attrs) -> None:
+    """Publish a zero-duration annotation into the trace ring.
+
+    Inside an active trace the event attaches as a child span of the
+    innermost open span, so a request or a train that hit a breaker
+    transition, a spill or a divergence carries the evidence in its own
+    span tree.  Outside any trace it records as a standalone single-span
+    trace, so the ring still shows runtime incidents with their wall
+    time.
+    """
+    ev = Span(name, attrs)
+    ev.duration_ms = 0.0
+    parent = current_span()
+    if parent is not None:
+        parent.children.append(ev)
+        return
+    (recorder or get_recorder()).record(
+        current_trace_id() or new_trace_id(), ev)
 
 
 # -- device-memory telemetry -------------------------------------------------

@@ -46,6 +46,8 @@ from predictionio_tpu_torch.controller import (
     EngineVariant,
     RuntimeContext,
 )
+from predictionio_tpu_torch.obs import publish_event
+from predictionio_tpu_torch.obs import trace as obs_trace
 from predictionio_tpu_torch.refresh import (
     RefreshConfig,
     RefreshMetrics,
@@ -288,43 +290,43 @@ class RefreshDaemon:
         the trace ring as ``refresh.cycle``)."""
         out: Dict[str, Any] = {"promotion": "skipped"}
         t0 = self._clock()
-        # The reference wraps the cycle in a refresh.cycle trace and
-        # publishes its summary to the trace ring; the port's traces
-        # arrive with the obs layers.
-        warm = self._warm_context()
-        try:
-            instance_id = run_train(
-                self.engine, self.variant, self.ctx,
-                engine_id=self.engine_id,
-                engine_version=self.engine_version,
-                warm_from=warm)
-        except TrainPreempted:
-            # SIGTERM mid-train: the CLI owns the exit code — not a
-            # failed cycle.
-            raise
-        except Exception as e:
-            # A failed train (TrainDiverged, a storage error, no events):
-            # the cycle records it and the PREVIOUS generation keeps
-            # serving — nothing was promoted.
-            self.metrics.runs.inc(result="failed")
-            logger.error("refresh train failed: %s", e)
-            out.update(result="failed", error=str(e)[:200])
-            return out
-        finally:
-            # The parent generation's models are done with: let their
-            # memory go before the promotion loads the new one.
-            warm = None
-        train_s = self._clock() - t0
-        inst = self.ctx.storage.get_engine_instances().get(instance_id)
-        mode = (inst.env or {}).get(REFRESH_MODE_KEY, "full") \
-            if inst else "full"
-        self.metrics.runs.inc(result=mode)
-        self.metrics.train_s.set(train_s, mode=mode)
-        out.update(result=mode, instance=instance_id,
-                   trainS=round(train_s, 3))
-        if self.promoter is not None:
-            out["promotion"] = self._promote(instance_id)
-        self._publish_staleness(inst)
+        with obs_trace("refresh.cycle", engine=self.engine_id):
+            warm = self._warm_context()
+            try:
+                instance_id = run_train(
+                    self.engine, self.variant, self.ctx,
+                    engine_id=self.engine_id,
+                    engine_version=self.engine_version,
+                    warm_from=warm)
+            except TrainPreempted:
+                # SIGTERM mid-train: the CLI owns the exit code — not a
+                # failed cycle.
+                raise
+            except Exception as e:
+                # A failed train (TrainDiverged, a storage error, no
+                # events): the cycle records it and the PREVIOUS
+                # generation keeps serving — nothing was promoted.
+                self.metrics.runs.inc(result="failed")
+                logger.error("refresh train failed: %s", e)
+                out.update(result="failed", error=str(e)[:200])
+                publish_event("refresh.cycle", **out)
+                return out
+            finally:
+                # The parent generation's models are done with: let their
+                # memory go before the promotion loads the new one.
+                warm = None
+            train_s = self._clock() - t0
+            inst = self.ctx.storage.get_engine_instances().get(instance_id)
+            mode = (inst.env or {}).get(REFRESH_MODE_KEY, "full") \
+                if inst else "full"
+            self.metrics.runs.inc(result=mode)
+            self.metrics.train_s.set(train_s, mode=mode)
+            out.update(result=mode, instance=instance_id,
+                       trainS=round(train_s, 3))
+            if self.promoter is not None:
+                out["promotion"] = self._promote(instance_id)
+            self._publish_staleness(inst)
+        publish_event("refresh.cycle", **out)
         return out
 
     def _promote(self, instance_id: str) -> str:
@@ -437,6 +439,7 @@ class RefreshDaemon:
             fire, reason = self._trigger_ready(started)
             if fire:
                 self.metrics.triggers.inc(reason=reason)
+                publish_event("refresh.trigger", reason=reason)
                 logger.info("refresh trigger fired: %s", reason)
                 return reason
             if sleep is not None:

@@ -17,9 +17,9 @@ Port of ``predictionio_tpu/resilience/``:
   rollback, preemption, and the reload's finite-params check.
 
 :func:`idempotency_key` pins the token a write is issued under, so a
-replayed spill record re-issues the identical write.  The reference's
-breaker and spill also publish trace-ring events; the port has no trace
-ring yet, so those events are not published.
+replayed spill record re-issues the identical write.  The breaker and
+the spill journals publish the reference's trace-ring events
+(``breaker.transition``, ``spill.*``).
 """
 
 from __future__ import annotations

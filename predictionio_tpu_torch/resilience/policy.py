@@ -15,7 +15,7 @@ import threading
 import time
 from typing import Any, Callable, Optional, Tuple, Type
 
-from predictionio_tpu_torch.obs import get_registry
+from predictionio_tpu_torch.obs import get_registry, publish_event
 
 __all__ = ["RetryPolicy", "CircuitBreaker", "CircuitOpenError"]
 
@@ -154,9 +154,13 @@ class CircuitBreaker:
     def _set_state(self, state: str) -> None:
         if state == self._state:
             return
-        self._state = state
+        prev, self._state = self._state, state
         self._gauge.set(_STATE_VALUE[state], breaker=self.name)
         self._transitions.inc(breaker=self.name, to=state)
+        # Trace-ring correlation: a request that trips or probes the
+        # breaker carries the transition in its span tree.
+        publish_event("breaker.transition", breaker=self.name,
+                      to=state, **{"from": prev})
 
     def _tick(self) -> None:
         if self._state == "open" and self._opened_at is not None and \

@@ -44,7 +44,7 @@ import time
 import uuid
 from typing import Any, Callable, Dict, List, Optional, Tuple, Type
 
-from predictionio_tpu_torch.obs import get_registry
+from predictionio_tpu_torch.obs import get_registry, publish_event
 from predictionio_tpu_torch.resilience.policy import CircuitOpenError
 
 logger = logging.getLogger(__name__)
@@ -144,6 +144,8 @@ class SharedSpillQueue:
         # end-of-tick refresh reconciles against the real queue.
         self._last_depth += len(record["events"])
         self._depth_gauge.set(self._last_depth)
+        publish_event("spill.shared.append", token=token,
+                      events=len(record["events"]))
         return token
 
     def depth(self) -> int:
@@ -170,6 +172,8 @@ class SharedSpillQueue:
 
     def requeue_dead(self) -> int:
         n = self._repo().requeue_dead(self.queue)
+        if n:
+            publish_event("spill.shared.requeue_dead", events=n)
         self._publish_depth()
         return n
 
@@ -201,6 +205,9 @@ class SharedSpillQueue:
         ok = self._repo().dead_letter(self.queue, record.id, owner, reason)
         if ok:
             self._dead.inc(record.events)
+            publish_event("spill.shared.dead_letter",
+                          token=record.token, events=record.events,
+                          reason=reason[:200])
         return ok
 
     def note_replayed(self, n_events: int) -> None:
@@ -326,6 +333,8 @@ class LeaseDrainer:
                     acked = 0
                 if acked:
                     self.shared.note_replayed(batch_events)
+                    publish_event("spill.shared.replayed",
+                                  events=batch_events, owner=self.owner)
                 landed += batch_events
             if paused or len(records) < self.batch:
                 break

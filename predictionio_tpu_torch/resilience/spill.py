@@ -50,7 +50,7 @@ import uuid
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Tuple, Type
 
-from predictionio_tpu_torch.obs import get_registry
+from predictionio_tpu_torch.obs import get_registry, publish_event
 from predictionio_tpu_torch.resilience.policy import CircuitOpenError
 
 logger = logging.getLogger(__name__)
@@ -125,6 +125,10 @@ class SpillJournal:
         self._recover()
         self._f = open(self.path, "a", encoding="utf-8")
         self._depth_gauge.set(self._pending_events)
+        # Trace-ring incident record: a journal opening with backlog is
+        # the first sign of a prior outage or crash worth correlating.
+        publish_event("spill.open", dir=str(self.dir),
+                      pendingEvents=self._pending_events)
 
     def _acquire_dir(self, base: Path) -> Path:
         try:
@@ -246,6 +250,11 @@ class SpillJournal:
             self._pending_events += len(record["events"])
             self._depth_gauge.set(self._pending_events)
         self._spilled.inc(len(record["events"]))
+        # Inside the ingest request's trace: THIS request degraded to the
+        # journal, so the 202 in the ring explains itself.
+        publish_event("spill.append", token=token,
+                      events=len(record["events"]),
+                      pendingEvents=self.depth())
         return token
 
     def peek(self, n: int) -> List[Dict[str, Any]]:
@@ -299,6 +308,8 @@ class SpillJournal:
             self._advance(records)
         n = sum(len(r["events"]) for r in records)
         self._replayed.inc(n)
+        publish_event("spill.replayed", events=n,
+                      pendingEvents=self.depth())
 
     def dead_letter(self, record: Dict[str, Any], reason: str) -> None:
         """Skip a permanently unreplayable record: persist it to the
@@ -312,6 +323,8 @@ class SpillJournal:
                                    separators=(",", ":")) + "\n")
             self._advance([record])
         self._dead.inc(len(record["events"]))
+        publish_event("spill.dead_letter", token=record.get("token"),
+                      events=len(record["events"]), reason=reason)
 
     def dead_records(self) -> List[Dict[str, Any]]:
         """Parse the dead-letter file (operator inspection/requeue)."""
@@ -345,6 +358,8 @@ class SpillJournal:
             n_events += len(rec["events"])
         if records:
             self.dead_path.unlink()
+            publish_event("spill.requeue_dead", records=len(records),
+                          events=n_events)
         return n_events
 
     def close(self) -> None:

@@ -24,10 +24,10 @@ Port of ``predictionio_tpu/resilience/supervision.py``:
 The reference walks pytrees with ``jax.tree_util``; the port takes
 tensors, numpy arrays, floats, and (nested) lists, tuples and dicts of
 them.  A tensor is reduced where it lives, so one boolean crosses to
-the host; integer leaves (PQ codes, IVF lists) are skipped.  The
-reference also publishes ``train.diverged``, ``watchdog.fired`` and
-``watchdog.killed`` trace-ring events; the port has no trace ring yet,
-so those land in the log and the counters only.
+the host; integer leaves (PQ codes, IVF lists) are skipped.  Each divergence,
+watchdog fire and hard kill also lands in the trace ring as the
+reference's ``train.diverged``, ``watchdog.fired`` and
+``watchdog.killed`` events.
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ from typing import Any, Callable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from predictionio_tpu_torch.obs import get_registry
+from predictionio_tpu_torch.obs import get_registry, publish_event
 
 logger = logging.getLogger(__name__)
 
@@ -307,6 +307,8 @@ class DivergenceGuard:
         :class:`TrainDiverged`."""
         self._counter().inc(fn=self.fn)
         will_rollback = self.rollbacks < self.max_rollbacks
+        publish_event("train.diverged", fn=self.fn, step=int(step),
+                      what=what, rollback=will_rollback)
         if not will_rollback:
             raise TrainDiverged(self.fn, step, what, self.rollbacks)
         self.rollbacks += 1
@@ -459,6 +461,8 @@ class StepWatchdog:
 
     def _escalate(self) -> None:
         self._kill_counter().inc(fn=self.fn)
+        publish_event("watchdog.killed", fn=self.fn,
+                      graceS=self.kill_grace_s)
         logger.critical(
             "%s: run did not unwind within PIO_STEP_TIMEOUT_KILL=%.1fs of "
             "the watchdog abort (runtime wedged in a C call?) — hard-"
@@ -480,8 +484,12 @@ class StepWatchdog:
         from predictionio_tpu_torch.obs.runtime import get_timeline
 
         last = (self._timeline or get_timeline()).recent(1, model=self.fn)
-        # The last timeline entry is the evidence ("the step before the
-        # hang looked like THIS").
+        # JSON-encoded: trace attrs keep only primitives, and the last
+        # timeline entry is the evidence ("the step before the hang
+        # looked like THIS") an operator reads out of /traces.json.
+        publish_event("watchdog.fired", fn=self.fn, step=step,
+                      timeoutS=self.timeout_s,
+                      lastStep=json.dumps(last[0]) if last else None)
         logger.critical(
             "%s: device step %d exceeded PIO_STEP_TIMEOUT_S=%.1fs — "
             "flushing checkpoints and aborting the run (last timeline "

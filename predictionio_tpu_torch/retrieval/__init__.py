@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.device import device as resolve_device
-from predictionio_tpu_torch.obs import get_registry
+from predictionio_tpu_torch.obs import get_registry, span
 from predictionio_tpu_torch.retrieval import exact as _exact
 from predictionio_tpu_torch.retrieval.ivf import (
     IVFIndex,
@@ -447,7 +447,14 @@ class Retriever:
         b = q.shape[0]
         p = self.plan(b, num, has_exclude=exclude is not None)
         t0 = time.perf_counter()
-        scores, ids, scanned = self._execute(q, p, exclude)
+        with span("retrieval", corpus=self.name, rung=p.rung, batch=b,
+                  k=p.k) as sp:
+            scores, ids, scanned = self._execute(q, p, exclude)
+            if p.nprobe:
+                sp.set(nprobe=p.nprobe)
+            if p.rerank:
+                sp.set(rerank=p.rerank)
+            sp.set(candidates=scanned)
         ms = (time.perf_counter() - t0) * 1e3
         self._m_requests.inc(rung=p.rung, corpus=self.name)
         self._m_candidates.inc(scanned, rung=p.rung, corpus=self.name)

@@ -5,7 +5,9 @@ Port of the core of ``predictionio_tpu/server/engine_server.py``
 COMPLETED engine instance, load its models onto the serving device,
 answer ``POST /queries.json`` through ``Algorithm.batch_predict`` →
 ``Serving.serve``, a status page at ``GET /``, counters at
-``GET /stats.json`` and the process metrics at ``GET /metrics``.
+``GET /stats.json``, the process metrics at ``GET /metrics``, the trace
+ring at ``GET /traces.json`` and the step timeline at
+``GET /timeline.json``.
 
 Every ``/queries.json`` goes bind → the result cache
 (:mod:`predictionio_tpu_torch.serving.result_cache`) → the serving
@@ -14,7 +16,11 @@ admission queue, micro-batcher, p99 autotuner) → the batched dispatch
 :meth:`EngineServer._dispatch_batch`, so concurrent requests share one
 ``batch_predict`` call — on the card, one launch of the top-k kernel at
 B = cohort size.  The answer fills the cache under the generation the
-dispatch returned.  ``query_batch`` (``pio batchpredict``, the native
+dispatch returned.  An engine whose algorithm reads live state at
+predict time (``reads_live_state``, ecommerce's unavailable list and
+seen items) keeps no cached answers: the server reads the attribute at
+deploy and at every swap and neither looks up nor fills for it.
+``query_batch`` (``pio batchpredict``, the native
 frontend) calls the dispatch directly with its own cohort.  Server
 plugins load from ``PIO_ENGINESERVER_PLUGINS`` (:mod:`.plugins`),
 started last.
@@ -54,7 +60,7 @@ from predictionio_tpu_torch.controller import (
 )
 from predictionio_tpu_torch.controller.params import bind_params
 from predictionio_tpu_torch.data.storage import Storage, StorageUnavailable
-from predictionio_tpu_torch.obs import get_registry
+from predictionio_tpu_torch.obs import get_registry, publish_event, span
 from predictionio_tpu_torch.resilience import deadline as _deadline
 from predictionio_tpu_torch.resilience.deadline import DeadlineExceeded
 from predictionio_tpu_torch.resilience.faults import fault_point
@@ -66,7 +72,12 @@ from predictionio_tpu_torch.resilience.supervision import (
     ModelValidationError,
     validate_model_finite,
 )
-from predictionio_tpu_torch.server.http import BaseHandler, ThreadingHTTPServer
+from predictionio_tpu_torch.server.http import (
+    BaseHandler,
+    ThreadingHTTPServer,
+    timeline_payload,
+    traces_payload,
+)
 from predictionio_tpu_torch.server.plugins import PluginManager
 from predictionio_tpu_torch.serving import (
     QueueFull,
@@ -111,6 +122,12 @@ def _val_to_json(v: Any) -> Any:
     if isinstance(v, dict):
         return {k: _val_to_json(x) for k, x in v.items()}
     return v
+
+
+def _reads_live_state(algorithms) -> bool:
+    """Whether any algorithm's predict reads live state (F7): read once
+    a swap, never a request."""
+    return any(getattr(a, "reads_live_state", False) for a in algorithms)
 
 
 class QueryError(ValueError):
@@ -218,6 +235,9 @@ class EngineServer:
         self._loaded_at: Optional[_dt.datetime] = None
         self._generation = 0
         self._previous: Optional[_Generation] = None
+        # True while the serving generation's algorithms read live state
+        # at predict time: the result cache neither looks up nor fills.
+        self._live_state = False
         self._last_reload: Dict[str, Any] = {}
         self.retry_after_s = int(os.environ.get("PIO_RETRY_AFTER_S", "5"))
         # The breaker around reload()'s storage reads: a dead model store
@@ -343,15 +363,16 @@ class EngineServer:
                     f"query #{qi} ({query_json!r}): "
                     f"{type(e).__name__}: {e}") from e
 
-    def _record_reload(self, result: str, error: Optional[str] = None) -> None:
-        # The reference also publishes a model.reload trace event; the
-        # port's trace ring arrives with the obs layers.
+    def _record_reload(self, result: str, error: Optional[str] = None,
+                       **extra) -> None:
         self._reload_total.inc(result=result)
         self._last_reload = {
             "result": result,
             "at": _dt.datetime.now(_dt.timezone.utc).isoformat(),
             **({"error": error} if error else {}),
         }
+        publish_event("model.reload", result=result,
+                      **({"error": error[:200]} if error else {}), **extra)
 
     def reload(self, target_instance_id: Optional[str] = None) -> str:
         """Staged reload of the latest COMPLETED instance — or, with
@@ -395,6 +416,7 @@ class EngineServer:
                 self._serving = serving
                 self._loaded_at = now
                 self._generation += 1
+                self._live_state = _reads_live_state(algorithms)
                 gen = self._generation
                 retained = self._previous is not None
             self._gen_gauge.set(gen)
@@ -406,7 +428,7 @@ class EngineServer:
             # every entry of the previous generation misses from here.
             self.result_cache.on_generation(gen, instance.id)
             self._arm_eviction(gen)
-            self._record_reload("ok")
+            self._record_reload("ok", instance=instance.id, generation=gen)
             logger.info("Engine server loaded instance %s (generation %d)",
                         instance.id, gen)
             return instance.id
@@ -431,6 +453,7 @@ class EngineServer:
                 self._serving = prev.serving
                 self._loaded_at = prev.loaded_at
                 self._generation += 1
+                self._live_state = _reads_live_state(prev.algorithms)
                 gen = self._generation
                 instance_id = prev.instance.id
             self._gen_gauge.set(gen)
@@ -444,7 +467,8 @@ class EngineServer:
             # The rolled-from generation now sits in the previous slot;
             # it ages out on the same TTL as any other retained one.
             self._arm_eviction(gen)
-            self._record_reload("rollback")
+            self._record_reload("rollback", instance=instance_id,
+                                generation=gen)
             logger.warning("Engine server rolled back to instance %s "
                            "(generation %d)", instance_id, gen)
             return instance_id
@@ -482,6 +506,9 @@ class EngineServer:
         self._prev_evicted.inc()
         # Seam of the quality monitor's shadow session (it holds the
         # evicted generation's predict closure): the obs layers.
+        publish_event("model.previous_evicted",
+                      generation=expected_generation,
+                      evicted_generation=dropped)
         logger.info("Evicted retained previous model generation %d after "
                     "%.0fs TTL (rollback no longer available)",
                     dropped, self._retain_ttl_s)
@@ -510,9 +537,16 @@ class EngineServer:
         """bind → supplement → per-algorithm predict → serve against an
         EXPLICIT model set: the live generation (:meth:`query`) and the
         reload canary both ride this path."""
-        q = serving.supplement(self._bind_query(query_json))
-        predictions = [a.predict(m, q) for a, m in zip(algorithms, models)]
-        return self._result_to_json(serving.serve(q, predictions))
+        with span("predict.bind"):
+            q = self._bind_query(query_json)
+        with span("predict.supplement"):
+            q = serving.supplement(q)
+        predictions = []
+        for a, m in zip(algorithms, models):
+            with span("predict.algorithm", algo=type(a).__name__):
+                predictions.append(a.predict(m, q))
+        with span("predict.serve"):
+            return self._result_to_json(serving.serve(q, predictions))
 
     def query(self, query_json: Any) -> Any:
         """One predict round trip against the live generation."""
@@ -550,7 +584,9 @@ class EngineServer:
 
     # -- HTTP ---------------------------------------------------------------
 
-    def handle(self, method: str, path: str, body: bytes) -> Tuple:
+    def handle(self, method: str, path: str, body: bytes,
+               params: Optional[Dict[str, List[str]]] = None) -> Tuple:
+        params = params or {}
         try:
             fault_point("http.engine")
             if path == "/" and method == "GET":
@@ -592,6 +628,13 @@ class EngineServer:
                              "resultCache": self.result_cache.snapshot(),
                              "dataWatermark": wm.isoformat() if wm
                              else None}
+            if path == "/traces.json" and method == "GET":
+                # ?request_id= resolves one trace; ?min_ms=/?limit= bound
+                # the view (the shared helper).
+                return 200, traces_payload(params)
+            if path == "/timeline.json" and method == "GET":
+                # Step-timeline ring: ?model=/?n=/?format=chrome.
+                return 200, timeline_payload(params)
             if path == "/reload" and method == "POST":
                 return self._answer_reload(body)
             if path == "/admin/rollback" and method == "POST":
@@ -663,7 +706,7 @@ class EngineServer:
             # and never occupies a queue slot or fails its cohort.
             q = self._bind_query(json.loads(body.decode("utf-8")))
             canon = None
-            if self.result_cache.enabled:
+            if self.result_cache.enabled and not self._live_state:
                 try:
                     canon = canonical_query(q)
                 except TypeError:
@@ -715,12 +758,13 @@ class EngineServer:
     def _make_handler(server_self):
         class Handler(BaseHandler):
             server_log_name = "engine-server"
+            trace_server_name = "engine"
             # Predicts are read-only: a 200 computed past its budget is
             # safely rewritten to 504 at the transport (never-late-200).
             shed_late_responses = True
 
             def pio_handle(self, method, path, params, body):
-                return server_self.handle(method, path, body)
+                return server_self.handle(method, path, body, params)
 
             def pio_shed(self):
                 server_self.stats.shed.inc(server="engine")

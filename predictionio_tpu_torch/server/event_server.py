@@ -6,8 +6,8 @@ breaker, spill and admission behaviour, and the same entry for the
 native frontend (``native_fallback_batch``: ``pio eventserver
 --native``).  It never touches the card; the verbs that train and serve
 what it ingested do.  Not ported yet: the columnar segment tee
-(``/ready`` reports ``diskDegraded: false`` and no segment fields),
-``/traces.json`` (404 here) and the feedback join of the quality layer.
+(``/ready`` reports ``diskDegraded: false`` and no segment fields) and
+the feedback join of the quality layer.
 
 Reference: data/.../data/api/EventServer.scala + EventServiceActor routes
 (SURVEY.md §3.3).  API parity (Appendix A):
@@ -23,6 +23,8 @@ Reference: data/.../data/api/EventServer.scala + EventServiceActor routes
   (reference keeps these behind a flag; always on here)
 - ``GET /metrics`` — Prometheus text exposition of the process registry
 - ``GET /ready`` — readiness: breaker state, spill depths, admission
+- ``GET /traces.json?accessKey=K`` — the trace ring (``?request_id=``,
+  ``?min_ms=``, ``?limit=``), behind the access key
 
 Auth: accessKey query param or ``Authorization`` header (the reference
 accepts basic-auth with the key as username).  Per-key event allowlists
@@ -79,6 +81,7 @@ from predictionio_tpu_torch.server.http import (
     BaseHandler,
     ThreadingHTTPServer,
     param_bool,
+    traces_payload,
 )
 from predictionio_tpu_torch.server.plugins import PluginManager
 
@@ -556,6 +559,11 @@ class EventServer:
         if err:
             return err, {"message": "Invalid accessKey."}
 
+        if path == "/traces.json" and method == "GET":
+            # Behind accessKey, unlike the aggregate /metrics and
+            # /stats.json views: traces carry per-request paths, timings
+            # and request ids.
+            return 200, traces_payload(params)
         channel_id, cerr = self._resolve_channel(key_row.app_id, params)
         if cerr:
             return 400, {"message": cerr}
@@ -677,6 +685,7 @@ class EventServer:
     def _make_handler(server_self):
         class Handler(BaseHandler):
             server_log_name = "event-server"
+            trace_server_name = "event"
             shed_pre_handle = True  # shed BEFORE auth/storage
 
             def pio_handle(self, method, path, params, body):

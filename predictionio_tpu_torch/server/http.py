@@ -11,30 +11,31 @@ Port of ``predictionio_tpu/server/http.py``:
 - :class:`BaseHandler` — HTTP/1.1 keep-alive, Nagle off (Nagle plus
   delayed ACK between a multi-write response and a keep-alive client
   stalls every request ~40 ms), debug-level access logs, and the one
-  request path :meth:`BaseHandler.dispatch`: the ``X-PIO-Deadline-Ms``
-  scope with optional pre-handle shedding (504), the never-late-200
-  rewrite of a read-only answer that came back past its budget (504,
-  ``shed_late_responses``) with its ``X-PIO-Deadline-Remaining-Ms``
-  attestation, the per-server completion hook (stats and plugins), the
-  server's own wall time (``X-PIO-Server-Ms``) and the ``Retry-After``
-  hint on degraded answers.  Subclasses implement
-  :meth:`BaseHandler.pio_handle` and override the small hooks below it.
-  A handler answers ``(status, payload)``, or ``(status, payload,
-  content_type)`` when the payload is already the body (the result
-  cache's hit bytes).
+  request path :meth:`BaseHandler.dispatch`: the trace root
+  ``http.request`` with its ``http.read`` / ``http.handle`` /
+  ``http.respond`` spans (the trace id is the request id), the
+  ``X-PIO-Deadline-Ms`` scope with optional pre-handle shedding (504),
+  the never-late-200 rewrite of a read-only answer that came back past
+  its budget (504, ``shed_late_responses``) with its
+  ``X-PIO-Deadline-Remaining-Ms`` attestation, the per-server completion
+  hook (stats and plugins), the server's own wall time
+  (``X-PIO-Server-Ms``) and the ``Retry-After`` hint on degraded
+  answers.  Subclasses implement :meth:`BaseHandler.pio_handle` and
+  override the small hooks below it.  A handler answers ``(status,
+  payload)``, or ``(status, payload, content_type)`` when the payload is
+  already the body (the result cache's hit bytes).
+- :func:`traces_payload` / :func:`timeline_payload` — the shared
+  ``GET /traces.json`` and ``GET /timeline.json`` views.
 
-The reference's dispatch also opens a trace root with ``http.*`` spans
-and feeds the latency waterfall; those arrive with the port's trace
-layer, as do ``traces_payload`` and ``timeline_payload``.
+The reference's dispatch also feeds the latency waterfall; that arrives
+with the port's waterfall.
 """
 
 from __future__ import annotations
 
 import json
 import logging
-import re
 import time
-import uuid
 from http.server import (
     BaseHTTPRequestHandler,
     ThreadingHTTPServer as _ThreadingHTTPServer,
@@ -43,6 +44,14 @@ from typing import Any, Dict, List, Optional, Tuple
 from urllib.parse import parse_qs, urlparse
 
 from predictionio_tpu_torch.config import env_bool
+from predictionio_tpu_torch.obs.trace import (
+    current_trace_id,
+    get_recorder,
+    sanitize_trace_id,
+    slow_request_ms,
+    span,
+    trace,
+)
 from predictionio_tpu_torch.resilience import deadline as _deadline
 from predictionio_tpu_torch.resilience.deadline import DEADLINE_HEADER
 
@@ -58,15 +67,12 @@ __all__ = [
     "incoming_deadline_ms",
     "param_bool",
     "payload_bytes",
+    "timeline_payload",
+    "traces_payload",
 ]
 
 REQUEST_ID_HEADER = "X-Request-ID"
 PROMETHEUS_CTYPE = "text/plain; version=0.0.4"
-
-# The reference tracer's id rule (obs/trace.py sanitize_trace_id).
-_REQUEST_ID_RE = re.compile(r"[^A-Za-z0-9._:-]")
-_REQUEST_ID_MAX = 128
-
 
 class ThreadingHTTPServer(_ThreadingHTTPServer):
     # Default accept backlog (5) resets connections under load bursts.
@@ -78,11 +84,7 @@ def incoming_request_id(headers) -> Optional[str]:
     clamped to ``[A-Za-z0-9._:-]`` and 128 characters."""
     if headers is None:
         return None
-    raw = headers.get(REQUEST_ID_HEADER)
-    if not raw:
-        return None
-    cleaned = _REQUEST_ID_RE.sub("", str(raw))[:_REQUEST_ID_MAX]
-    return cleaned or None
+    return sanitize_trace_id(headers.get(REQUEST_ID_HEADER))
 
 
 def incoming_deadline_ms(headers) -> Optional[float]:
@@ -117,6 +119,52 @@ def param_bool(params: Optional[Dict[str, List[str]]], key: str,
     return env_bool(vals[0], default)
 
 
+def timeline_payload(params: Dict[str, List[str]]) -> Dict[str, Any]:
+    """The shared ``GET /timeline.json`` view over the process step
+    timeline.  ``?model=`` filters, ``?n=`` bounds the record count, and
+    ``?format=chrome`` returns Chrome-trace JSON (chrome://tracing /
+    Perfetto); ``?format=summary`` returns only the per-model phase
+    aggregation."""
+    from predictionio_tpu_torch.obs.runtime import get_timeline
+
+    tl = get_timeline()
+    model = params.get("model", [None])[0]
+    try:
+        n = int(params.get("n", ["256"])[0])
+    except ValueError:
+        n = 256
+    fmt = params.get("format", ["raw"])[0]
+    if fmt == "chrome":
+        return tl.to_chrome_trace(max(n, 1), model=model)
+    models = tl.models() if model is None else [model]
+    summaries = {m: tl.summary(m) for m in models}
+    if fmt == "summary":
+        return {"models": summaries}
+    return {"steps": tl.recent(n, model=model), "models": summaries}
+
+
+def traces_payload(params: Dict[str, List[str]]) -> Dict[str, Any]:
+    """The shared ``GET /traces.json`` view (every frontend).
+
+    ``?request_id=`` resolves one exact trace, ``?min_ms=`` keeps only
+    traces at least that slow, ``?limit=`` bounds the count (default 50,
+    clamped to the ring)."""
+    request_id = sanitize_trace_id(params.get("request_id", [None])[0])
+    try:
+        limit = int(params.get("limit", ["50"])[0])
+    except ValueError:
+        limit = 50
+    min_ms: Optional[float] = None
+    raw = params.get("min_ms", [None])[0]
+    if raw:
+        try:
+            min_ms = float(raw)
+        except ValueError:
+            min_ms = None
+    return {"traces": get_recorder().recent(
+        limit, request_id=request_id, min_ms=min_ms)}
+
+
 class BaseHandler(BaseHTTPRequestHandler):
     """Shared request-handler skeleton; subclasses implement
     :meth:`pio_handle` and route their do_* methods through
@@ -126,6 +174,8 @@ class BaseHandler(BaseHTTPRequestHandler):
     # See module docstring: keep-alive + Nagle stalls every request ~40 ms.
     disable_nagle_algorithm = True
     server_log_name = "server"
+    # Short server tag on the trace root ("engine", "event").
+    trace_server_name = "server"
     # Shed with 504 BEFORE pio_handle when the deadline is already spent
     # (the event server's pre-auth shed).
     shed_pre_handle = False
@@ -146,8 +196,8 @@ class BaseHandler(BaseHTTPRequestHandler):
     def pio_handle(self, method: str, path: str,
                    params: Dict[str, List[str]], body: bytes
                    ) -> Tuple:
-        """Handle one request inside the deadline scope; returns (status,
-        payload) or (status, body, content_type)."""
+        """Handle one request inside the trace and deadline scope;
+        returns (status, payload) or (status, body, content_type)."""
         raise NotImplementedError
 
     def pio_on_complete(self, method: str, path: str, status: int,
@@ -171,50 +221,63 @@ class BaseHandler(BaseHTTPRequestHandler):
 
     def dispatch(self, method: str) -> None:
         t0 = time.perf_counter()
-        request_id = incoming_request_id(self.headers) or uuid.uuid4().hex
-        parsed = urlparse(self.path)
-        params = parse_qs(parsed.query)
-        length = int(self.headers.get("Content-Length") or 0)
-        body = self.rfile.read(length) if length else b""
-        remaining: Optional[float] = None
-        with _deadline.deadline_scope(incoming_deadline_ms(self.headers)):
-            if self.shed_pre_handle and _deadline.exceeded():
-                # A request whose budget is already gone must not queue
-                # behind auth/storage.
+        with trace("http.request",
+                   trace_id=incoming_request_id(self.headers),
+                   slow_ms=slow_request_ms(),
+                   server=self.trace_server_name, method=method) as troot:
+            parsed = urlparse(self.path)
+            troot.set(path=parsed.path)
+            params = parse_qs(parsed.query)
+            with span("http.read"):
+                length = int(self.headers.get("Content-Length") or 0)
+                body = self.rfile.read(length) if length else b""
+            remaining: Optional[float] = None
+            with _deadline.deadline_scope(
+                    incoming_deadline_ms(self.headers)):
+                if self.shed_pre_handle and _deadline.exceeded():
+                    # A request whose budget is already gone must not
+                    # queue behind auth/storage.
+                    self.pio_shed()
+                    out: Tuple = (504, {"message": "Deadline exceeded."})
+                else:
+                    with span("http.handle"):
+                        out = self.pio_handle(method, parsed.path, params,
+                                              body)
+                    remaining = _deadline.remaining_ms()
+            status, payload = out[0], out[1]
+            ctype = out[2] if len(out) == 3 else None
+            if (self.shed_late_responses and remaining is not None
+                    and remaining <= 0 and 200 <= status < 300):
+                # The handler answered, but past its budget: the client
+                # stopped waiting — 504, not a slow 2xx (see class attr).
                 self.pio_shed()
-                out: Tuple = (504, {"message": "Deadline exceeded."})
-            else:
-                out = self.pio_handle(method, parsed.path, params, body)
-                remaining = _deadline.remaining_ms()
-        status, payload = out[0], out[1]
-        ctype = out[2] if len(out) == 3 else None
-        if (self.shed_late_responses and remaining is not None
-                and remaining <= 0 and 200 <= status < 300):
-            # The handler answered, but past its budget: the client
-            # stopped waiting — 504, not a slow 2xx (see class attr).
-            self.pio_shed()
-            status, payload, ctype = 504, {
-                "message": "Deadline exceeded before response."}, None
-        ms = (time.perf_counter() - t0) * 1e3
-        extra = dict(self.pio_on_complete(method, parsed.path, status, ms,
-                                          body, params) or {})
-        # The server's own read+handle wall time: clients use it to
-        # attribute client-vs-server latency.
-        extra.setdefault("X-PIO-Server-Ms", f"{ms:.1f}")
-        if remaining is not None:
-            # Deadline attestation: the SAME reading the late-shed verdict
-            # used (only NEGATIVE values are late; formatting may floor a
-            # sliver to 0.00).
-            extra.setdefault("X-PIO-Deadline-Remaining-Ms",
-                             f"{remaining:.2f}")
-        retry_after = self.pio_retry_after_s()
-        if retry_after is not None and status in self.retry_after_statuses:
-            extra.setdefault("Retry-After", str(retry_after))
-        if ctype is None:
-            data, ctype = payload_bytes(payload)
-        else:
-            data = payload.encode() if isinstance(payload, str) else payload
-        self.respond(status, data, ctype, extra, request_id=request_id)
+                status, payload, ctype = 504, {
+                    "message": "Deadline exceeded before response."}, None
+            troot.set(status=status)
+            ms = (time.perf_counter() - t0) * 1e3
+            extra = dict(self.pio_on_complete(method, parsed.path, status,
+                                              ms, body, params) or {})
+            # The server's own read+handle wall time: clients use it to
+            # attribute client-vs-server latency.
+            extra.setdefault("X-PIO-Server-Ms", f"{ms:.1f}")
+            if remaining is not None:
+                # Deadline attestation: the SAME reading the late-shed
+                # verdict used (only NEGATIVE values are late; formatting
+                # may floor a sliver to 0.00).
+                extra.setdefault("X-PIO-Deadline-Remaining-Ms",
+                                 f"{remaining:.2f}")
+            retry_after = self.pio_retry_after_s()
+            if retry_after is not None and \
+                    status in self.retry_after_statuses:
+                extra.setdefault("Retry-After", str(retry_after))
+            with span("http.respond"):
+                if ctype is None:
+                    data, ctype = payload_bytes(payload)
+                else:
+                    data = (payload.encode() if isinstance(payload, str)
+                            else payload)
+                self.respond(status, data, ctype, extra,
+                             request_id=current_trace_id())
 
     def respond(self, status: int, data: bytes, ctype: str,
                 extra_headers: Optional[Dict[str, str]] = None,

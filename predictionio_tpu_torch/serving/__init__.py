@@ -50,7 +50,7 @@ import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from predictionio_tpu_torch.config import env_bool as _truthy
-from predictionio_tpu_torch.obs import get_registry
+from predictionio_tpu_torch.obs import current_span, get_registry
 from predictionio_tpu_torch.resilience import deadline as _deadline
 from predictionio_tpu_torch.resilience.deadline import DeadlineExceeded
 from predictionio_tpu_torch.serving.autotune import WindowAutotuner
@@ -229,7 +229,7 @@ class ServingScheduler:
         now = self.clock.now()
         rem = _deadline.remaining_ms()
         deadline_s = now + rem / 1e3 if rem is not None else None
-        pending = Pending(query, now, deadline_s)
+        pending = Pending(query, now, deadline_s, span=current_span())
         if not self.config.enabled:
             return self._submit_inline(model, lane, pending)
         try:

@@ -31,17 +31,23 @@ Failure isolation: when a batch dispatch raises, the batcher retries the
 members individually so one malformed query (bind error) 400s itself
 instead of failing its whole cohort.
 
-The reference also roots a trace per dispatch and stamps each member's
-latency waterfall; the port has neither layer yet.
+Tracing: each dispatch is its own root trace ``batcher.dispatch`` (the
+batcher thread has no request context; on the inline path it nests in
+the request's trace), and every member request gets a zero-duration
+``batcher.dispatch`` event on its own span naming the batch, its size
+and the generation.  The reference also stamps each member's latency
+waterfall; that layer arrives with a later slice.
 """
 
 from __future__ import annotations
 
 import logging
 import threading
+import uuid
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
-from predictionio_tpu_torch.obs import get_registry
+from predictionio_tpu_torch.obs import attach_event, get_registry
+from predictionio_tpu_torch.obs import trace as _trace
 from predictionio_tpu_torch.resilience.deadline import DeadlineExceeded
 from predictionio_tpu_torch.serving.queue import (
     Clock,
@@ -219,20 +225,28 @@ class MicroBatcher:
             live.append(e)
         if not live:
             return 0
+        batch_id = uuid.uuid4().hex[:12]
         t0 = self.clock.now()
         try:
-            results, generation = self.dispatch_fn([e.query for e in live])
-            if len(results) != len(live):
-                raise ValueError(
-                    f"dispatch returned {len(results)} results for "
-                    f"{len(live)} queries")
+            # The dispatch is its own root trace: the ring shows every
+            # coalesced dispatch, and member requests join it by batch_id
+            # through the event attached to their spans below.
+            with _trace("batcher.dispatch", model=self.model,
+                        batch_id=batch_id, batch_size=len(live)) as troot:
+                results, generation = self.dispatch_fn(
+                    [e.query for e in live])
+                if len(results) != len(live):
+                    raise ValueError(
+                        f"dispatch returned {len(results)} results for "
+                        f"{len(live)} queries")
+                troot.set(generation=generation)
         except Exception as exc:
             if len(live) == 1:
                 # Retrying a singleton would replay the IDENTICAL call —
                 # pure double work for the same error.
                 live[0].finish(error=exc)
             else:
-                self._finish_individually(live)
+                self._finish_individually(live, batch_id)
             return len(live)
         dt = self.clock.now() - t0
         # EWMA (alpha .25): reactive enough to track a model swap,
@@ -245,9 +259,17 @@ class MicroBatcher:
         self._m_batch_size.observe(n, model=self.model)
         self._m_dispatch_ms.observe(dt * 1e3, model=self.model)
         for e, r in zip(live, results):
-            self._m_wait_ms.observe((t0 - e.enqueued_s) * 1e3,
-                                    model=self.model)
+            wait_ms = (t0 - e.enqueued_s) * 1e3
+            self._m_wait_ms.observe(wait_ms, model=self.model)
             self._m_coalesce.observe(1.0 / n, model=self.model)
+            # Join the dispatch to the member request's own span tree:
+            # which batch carried it, how big the cohort was, and which
+            # generation answered.
+            e.annotate(attach_event, "batcher.dispatch", batch_id=batch_id,
+                       model=self.model, batch_size=n,
+                       queue_wait_ms=round(wait_ms, 3),
+                       dispatch_ms=round(dt * 1e3, 3),
+                       generation=generation)
             if self.autotuner is not None:
                 self.autotuner.observe((self.clock.now() - e.enqueued_s)
                                        * 1e3)
@@ -256,7 +278,8 @@ class MicroBatcher:
             self.autotuner.after_dispatch(self)
         return n
 
-    def _finish_individually(self, live: List[Pending]) -> None:
+    def _finish_individually(self, live: List[Pending],
+                             batch_id: str) -> None:
         """Batch dispatch raised: isolate the failure per member so one
         poisoned query cannot 500 its cohort."""
         for e in live:
@@ -273,6 +296,10 @@ class MicroBatcher:
                 continue
             try:
                 results, generation = self.dispatch_fn([e.query])
+                e.annotate(attach_event, "batcher.dispatch",
+                           batch_id=batch_id, model=self.model,
+                           batch_size=1, isolated=True,
+                           generation=generation)
                 self._m_dispatches.inc(model=self.model)
                 self._m_requests.inc(model=self.model)
                 self._m_batch_size.observe(1, model=self.model)

@@ -90,11 +90,15 @@ class Pending:
 
     The submitting (HTTP handler) thread blocks on :meth:`wait_done`;
     the batcher thread claims, dispatches, and :meth:`finish`\\ es it with
-    the result and the generation the dispatch returned.
+    the result and the generation the dispatch returned.  ``span``
+    carries the submitting request's open trace span so the batcher can
+    attach its ``batcher.dispatch`` event to the request's own tree (the
+    handler thread is parked in ``wait_done`` while the batcher writes).
     """
 
-    __slots__ = ("query", "enqueued_s", "deadline_s", "state", "result",
-                 "generation", "error", "_lock", "_done")
+    __slots__ = ("query", "enqueued_s", "deadline_s", "span", "state",
+                 "result", "generation", "error", "walked", "_lock",
+                 "_done")
 
     QUEUED = "queued"
     CLAIMED = "claimed"
@@ -102,15 +106,19 @@ class Pending:
     DONE = "done"
 
     def __init__(self, query: Any, enqueued_s: float,
-                 deadline_s: Optional[float] = None):
+                 deadline_s: Optional[float] = None, span: Any = None):
         self.query = query
         self.enqueued_s = enqueued_s
         self.deadline_s = deadline_s
+        self.span = span
         self.state = Pending.QUEUED
         self.result: Any = None
         # The model generation that answered (None until a dispatch did).
         self.generation: Optional[int] = None
         self.error: Optional[BaseException] = None
+        # True once the submitting thread stopped waiting (deadline): its
+        # span tree may be serializing, so no one may touch it.
+        self.walked = False
         self._lock = threading.Lock()
         self._done = threading.Event()
 
@@ -125,10 +133,20 @@ class Pending:
     def abandon(self) -> bool:
         """Waiter gives up (deadline); False if a batch already owns it."""
         with self._lock:
+            self.walked = True
             if self.state != Pending.QUEUED:
                 return False
             self.state = Pending.ABANDONED
             return True
+
+    def annotate(self, attach, name: str, **attrs) -> None:
+        """Attach a trace event to the submitter's span, but ONLY while
+        the submitter is still parked in :meth:`wait_done`: the shared
+        lock with :meth:`abandon` keeps a walked waiter's tree from being
+        mutated while it is recorded."""
+        with self._lock:
+            if not self.walked:
+                attach(self.span, name, **attrs)
 
     def finish(self, result: Any = None,
                error: Optional[BaseException] = None,

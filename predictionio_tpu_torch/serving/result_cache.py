@@ -34,10 +34,17 @@ through a bounded generation→fingerprint map maintained by
 :meth:`on_generation`; a generation the map does not know — ``None``
 included — drops the fill (counted, never mis-keyed).
 
-The key holds only the instance id and the query: a serve path that reads
-mutable state besides the model (ecommerce's live unavailable list and
-seen items) answers from the cache until the entry is evicted.  Such a
-deployment turns the cache off with ``PIO_RESULT_CACHE=0``.
+The key holds only the instance id and the query, so an answer that
+depends on mutable state besides the model would outlive that state.
+An algorithm whose ``predict`` reads such state (ecommerce's live
+unavailable list and seen items) declares ``reads_live_state = True``;
+the engine server reads the attribute at deploy and at every swap and
+then neither looks up nor fills the cache for that generation, while
+the other templates keep it.  That was chosen over putting the live
+state's version into the key: the state is event-store rows with no
+version to read, and reading them on every request to build a key would
+cost what the cache saves.  The reference has no such bypass and serves
+the cached answer (F7).
 
 Knobs (prefix ``PIO_RESULT_CACHE``; the kill switch registers ZERO
 instruments):

@@ -208,6 +208,9 @@ def model_from_numpy(user_factors, item_factors, user_ids, item_ids, *,
 
 class ECommAlgorithm(Algorithm):
     params_class = ECommAlgorithmParams
+    # predict reads the live unavailable list and the user's seen items:
+    # a cached answer would outlive a newer $set (F7).
+    reads_live_state = True
 
     def __init__(self, params=None):
         super().__init__(params)

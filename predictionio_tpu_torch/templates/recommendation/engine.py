@@ -61,7 +61,7 @@ from predictionio_tpu_torch.controller.params import Params
 from predictionio_tpu_torch.data.event import BiMap
 from predictionio_tpu_torch.data.storage.base import epoch_us
 from predictionio_tpu_torch.models import als as als_lib
-from predictionio_tpu_torch.obs import get_registry
+from predictionio_tpu_torch.obs import get_registry, span
 from predictionio_tpu_torch.retrieval import (
     IVFIndex,
     PQCodebook,
@@ -457,11 +457,12 @@ class ALSModelWrapper:
             _fold_metric().inc(result="shared")
             return shared_vec
         try:
-            events = es.find_by_entity(
-                self.app_name, "user", user,
-                event_names=list(self.fold_event_names) or None,
-                target_entity_type="item",
-                limit=_env_int("PIO_FOLD_IN_EVENTS", 50), latest=True)
+            with span("fold_in", user=user):
+                events = es.find_by_entity(
+                    self.app_name, "user", user,
+                    event_names=list(self.fold_event_names) or None,
+                    target_entity_type="item",
+                    limit=_env_int("PIO_FOLD_IN_EVENTS", 50), latest=True)
         except Exception:
             # A storage blip degrades to the cold-start answer; it never
             # fails the batch this user rides in.
@@ -657,6 +658,11 @@ class ALSAlgorithm(Algorithm):
             factor_sharding=p.factorSharding,
             gather_window=p.gatherWindow,
         )
+        # `pio train --checkpoint-dir D --checkpoint-every N` (or the
+        # PIO_CHECKPOINT_* pair) makes a killed train resume from the
+        # last complete sweep, bit for bit equal to an uninterrupted run.
+        ck_dir = os.environ.get("PIO_CHECKPOINT_DIR")
+        ck_every = int(os.environ.get("PIO_CHECKPOINT_EVERY", "0") or 0)
         model = als_lib.train_als(
             prepared_data.user_ids,
             prepared_data.item_ids,
@@ -665,6 +671,8 @@ class ALSAlgorithm(Algorithm):
             n_items=n_items,
             config=cfg,
             device=ctx.device,
+            checkpoint_dir=(os.path.join(ck_dir, "als") if ck_dir else None),
+            save_every=ck_every,
         )
         itf_host = model.item_factors[:n_items]
         # Train-time coarse index, pickled with the model.  Raw ALS

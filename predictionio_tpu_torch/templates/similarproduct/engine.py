@@ -46,7 +46,7 @@ from predictionio_tpu_torch.controller import (
 from predictionio_tpu_torch.controller.params import Params
 from predictionio_tpu_torch.data.event import BiMap
 from predictionio_tpu_torch.models import als as als_lib
-from predictionio_tpu_torch.obs import get_registry
+from predictionio_tpu_torch.obs import get_registry, span
 from predictionio_tpu_torch.retrieval import (
     Retriever,
     _env_int,
@@ -238,11 +238,13 @@ class SimilarProductModel:
                     return vec
                 del self._fold_cache[item]
         try:
-            events = list(es.find(
-                self.app_name, entity_type="user",
-                target_entity_type="item", target_entity_id=item,
-                event_names=list(self.fold_event_names) or None,
-                limit=_env_int("PIO_FOLD_IN_EVENTS", 50), reversed=True))
+            with span("fold_in_item", item=item):
+                events = list(es.find(
+                    self.app_name, entity_type="user",
+                    target_entity_type="item", target_entity_id=item,
+                    event_names=list(self.fold_event_names) or None,
+                    limit=_env_int("PIO_FOLD_IN_EVENTS", 50),
+                    reversed=True))
         except Exception:
             logging.getLogger(__name__).debug(
                 "item fold-in event read failed", exc_info=True)

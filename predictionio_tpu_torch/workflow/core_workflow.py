@@ -15,9 +15,15 @@ CoreWorkflow.runEvaluation).  ``run_train(warm_from=...)`` is the
 refresh loop's delta warm start: it reads only ``[previous watermark,
 new watermark)`` and falls back to a full retrain in the same engine
 instance when an algorithm declines (``refreshMode`` ``warm`` /
-``full`` / ``full_fallback`` on the instance's env).  Not ported yet:
-the memory sampler and the profiler capture of the reference's
-``run_train``, and the eval sweep's checkpoints.
+``full`` / ``full_fallback`` on the instance's env).  Each train is one
+``workflow.train`` trace (the DASE phases and ``train.persist`` are its
+spans), runs under the device-memory sampler's fresh peak window, and
+with ``PIO_PROFILE_DIR`` (or the workflow param ``profile_dir``) under a
+``torch.profiler`` capture whose Chrome trace lands in that directory.
+``run_evaluation(checkpoint_dir=...)`` (or ``PIO_EVAL_CHECKPOINT_DIR``)
+keeps each finished (candidate, fold) unit of the sweep, so a preempted
+sweep resumes (:class:`~predictionio_tpu_torch.controller.engine.
+EvalCheckpoint`).
 """
 
 from __future__ import annotations
@@ -50,6 +56,12 @@ from predictionio_tpu_torch.data.storage import (
     Model,
     Storage,
 )
+from predictionio_tpu_torch.obs import (
+    get_memory_sampler,
+    phase,
+    publish_event,
+)
+from predictionio_tpu_torch.obs import trace as obs_trace
 from predictionio_tpu_torch.resilience.supervision import TrainPreempted
 
 logger = logging.getLogger(__name__)
@@ -152,7 +164,6 @@ def run_train(engine: Engine, variant: EngineVariant,
     :class:`TrainPreempted` lands the instance as PREEMPTED.
     """
     from predictionio_tpu_torch.data.store import WindowedEventStore
-    from predictionio_tpu_torch.obs import phase
 
     ctx = ctx or RuntimeContext.create()
     storage: Storage = ctx.storage
@@ -167,33 +178,55 @@ def run_train(engine: Engine, variant: EngineVariant,
         engine_id=engine_id, engine_version=engine_version)
     logger.info("EngineInstance %s TRAINING (factory=%s)", instance.id,
                 variant.engine_factory)
+    # Per-run device-memory peak: a fresh peak window at the start, the
+    # poll thread tracks the high-water mark, and the final sample pins
+    # pio_device_mem_peak_bytes to THIS run.
+    sampler = get_memory_sampler()
+    sampler.reset_peak()
+    sampler.start()
 
     def _windowed(start: Optional[_dt.datetime]) -> RuntimeContext:
         return dataclasses.replace(
             ctx, event_store=WindowedEventStore(storage, start, watermark))
 
     try:
-        models = None
-        if warm_from is not None:
-            try:
-                models = engine.train(_windowed(warm_from.start_time),
-                                      engine_params, warm=warm_from)
-            except WarmStartFallback as e:
-                # The fallback is part of the contract, not a failure:
-                # retrain fully over the complete window, same instance,
-                # and record which road was taken.
-                logger.warning(
-                    "EngineInstance %s: warm-start declined (%s) — "
-                    "falling back to a full retrain", instance.id,
-                    e.reason)
-                instance.env[REFRESH_MODE_KEY] = "full_fallback"
-        if models is None:
-            models = engine.train(_windowed(None), engine_params)
-        with phase("train.persist"):
-            _persist_models(models, instance.id, ctx)
+        # One trace per train: the DASE phases inside Engine.train and
+        # the persist phase below hang off this root; recorded to the
+        # ring (and PIO_TRACE_FILE) on exit.
+        with obs_trace("workflow.train",
+                       engine_factory=variant.engine_factory,
+                       instance=instance.id,
+                       mode=env[REFRESH_MODE_KEY]):
+            models = None
+            if warm_from is not None:
+                try:
+                    wctx = _windowed(warm_from.start_time)
+                    models = _maybe_profiled(
+                        ctx, lambda: engine.train(wctx, engine_params,
+                                                  warm=warm_from))
+                except WarmStartFallback as e:
+                    # The fallback is part of the contract, not a
+                    # failure: retrain fully over the complete window,
+                    # same instance, and record which road was taken.
+                    logger.warning(
+                        "EngineInstance %s: warm-start declined (%s) — "
+                        "falling back to a full retrain", instance.id,
+                        e.reason)
+                    publish_event("refresh.warm_fallback",
+                                  instance=instance.id,
+                                  reason=e.reason[:200])
+                    instance.env[REFRESH_MODE_KEY] = "full_fallback"
+            if models is None:
+                fctx = _windowed(None)
+                models = _maybe_profiled(
+                    ctx, lambda: engine.train(fctx, engine_params))
+            with phase("train.persist"):
+                _persist_models(models, instance.id, ctx)
+            sampler.sample_once()
     except TrainPreempted as e:
         # SIGTERM preemption: the distinct status tells a supervisor
-        # this run hands back, not failed.
+        # this run hands back (and, with checkpoints, resumes), not
+        # failed.
         _finish(storage, instance, "PREEMPTED")
         logger.warning("EngineInstance %s PREEMPTED at step %d",
                        instance.id, e.step)
@@ -209,6 +242,20 @@ def run_train(engine: Engine, variant: EngineVariant,
     logger.info("EngineInstance %s COMPLETED in %.1fs", instance.id,
                 (instance.end_time - instance.start_time).total_seconds())
     return instance.id
+
+
+def _maybe_profiled(ctx: RuntimeContext, fn):
+    """``PIO_PROFILE_DIR`` (or the workflow param ``profile_dir``): run
+    ``fn`` under a ``torch.profiler`` capture whose Chrome trace lands in
+    that directory (the reference captures a JAX xplane trace there)."""
+    trace_dir = ctx.workflow_params.get("profile_dir") or os.environ.get(
+        "PIO_PROFILE_DIR")
+    if not trace_dir:
+        return fn()
+    from predictionio_tpu_torch.obs.profiler import get_profiler
+
+    logger.info("Capturing a torch.profiler trace to %s", trace_dir)
+    return get_profiler().capture_call(str(trace_dir), fn)
 
 
 def persist_instance(engine: Engine, variant: EngineVariant,
@@ -310,16 +357,20 @@ def run_evaluation(
     candidate over the ``read_eval`` folds (:meth:`Engine.eval_multi`),
     scored by the evaluation's metrics, the best by the first metric;
     the sweep lands as an EVALCOMPLETED :class:`EvaluationInstance`
-    (EVALFAILED on an error).  The reference's sweep checkpoints are not
-    ported: a ``checkpoint_dir`` or ``PIO_EVAL_CHECKPOINT_DIR`` raises
-    :class:`WorkflowError` instead of being ignored."""
-    ck_dir = checkpoint_dir or os.environ.get("PIO_EVAL_CHECKPOINT_DIR")
-    if ck_dir:
-        raise WorkflowError(
-            f"eval checkpoints ({ck_dir}) are not ported to "
-            "predictionio_tpu_torch; run the sweep without them")
+    (EVALFAILED on an error).
+
+    ``checkpoint_dir`` (default ``PIO_EVAL_CHECKPOINT_DIR``) makes the
+    sweep preemption-safe: each finished (candidate, fold) unit is kept
+    as it finishes, a SIGTERM mid-sweep marks the instance
+    EVALPREEMPTED and raises ``TrainPreempted`` (``pio eval`` exits
+    143), and the same command run again resumes from the kept units,
+    which are cleared once the sweep lands."""
+    from predictionio_tpu_torch.controller.engine import EvalCheckpoint
+
     ctx = ctx or RuntimeContext.create()
     storage: Storage = ctx.storage
+    ck_dir = checkpoint_dir or os.environ.get("PIO_EVAL_CHECKPOINT_DIR")
+    checkpoint = EvalCheckpoint(ck_dir) if ck_dir else None
     instance = EvaluationInstance(
         id=None,
         status="EVALRUNNING",
@@ -336,8 +387,13 @@ def run_evaluation(
         if not candidates:
             raise WorkflowError(
                 "EngineParamsGenerator produced no candidates.")
+        if checkpoint is not None and checkpoint.completed():
+            logger.info("eval sweep resuming: %d completed "
+                        "(candidate, fold) unit(s) found in %s",
+                        checkpoint.completed(), ck_dir)
         scored: List[Tuple[EngineParams, float, List[float]]] = []
-        all_eval_data = evaluation.engine.eval_multi(ctx, candidates)
+        all_eval_data = evaluation.engine.eval_multi(
+            ctx, candidates, checkpoint=checkpoint)
         for i, (engine_params, eval_data) in enumerate(
                 zip(candidates, all_eval_data)):
             score = evaluation.metric.calculate(eval_data)
@@ -370,7 +426,16 @@ def run_evaluation(
             ],
         })
         instances.update(instance)
+        if checkpoint is not None:
+            checkpoint.clear()  # landed: a rerun is a fresh sweep
         return instance_id, result
+    except TrainPreempted:
+        # SIGTERM mid-sweep: the finished units are on disk and the CLI
+        # owns the exit code — not a failed evaluation.
+        instance.status = "EVALPREEMPTED"
+        instance.end_time = _now()
+        instances.update(instance)
+        raise
     except Exception:
         instance.status = "EVALFAILED"
         instance.end_time = _now()

@@ -226,10 +226,8 @@ def test_status(clean_storage, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["train", "--mesh", "data=8"], ["train", "--checkpoint-every", "2"],
-    ["train", "--checkpoint-dir", "/tmp/x"],
+    ["train", "--mesh", "data=8"],
     ["eval", "a:b", "c:d", "--mesh", "x"],
-    ["eval", "a:b", "c:d", "--checkpoint-dir", "/tmp/x"],
     ["status", "--fleet", "http://x"]])
 def test_flags_without_substrate_are_rejected(clean_storage, capsys, argv):
     with pytest.raises(SystemExit) as e:

@@ -474,11 +474,12 @@ def ecommerce_pair(tmp_path_factory):
 @pytest.mark.parametrize("cache", ["on", "0"])
 def test_f7_cached_answer_outlives_a_newer_unavailable_list(
         ecommerce_pair, monkeypatch, cache):
-    """F7, shared with the reference: the result cache's key holds the
-    instance id and the query, so after a newer unavailable list both
-    packages serve the cached answer, which still holds the newly
-    unavailable items; with ``PIO_RESULT_CACHE=0`` both serve the fresh
-    answer without them."""
+    """F7: the reference's result cache keys (instance id, query), so
+    after a newer unavailable list it serves the cached answer, which
+    still holds the newly unavailable items.  The port's ecommerce
+    algorithm declares ``reads_live_state``, so its server keeps no
+    cached answers for it and serves the fresh list with the cache on.
+    With ``PIO_RESULT_CACHE=0`` both serve the fresh answer."""
     from tests.test_torch_ecommerce import N_ITEMS
 
     p = ecommerce_pair
@@ -506,13 +507,16 @@ def test_f7_cached_answer_outlives_a_newer_unavailable_list(
         p.insert(p.storage, *p.port_cls, spec, offset=offset)
         again = [call(srv, "POST", "/queries.json", q)[2]
                  for srv in (ref, port)]
-        _same_answer(again[1], again[0])
         served = [{h["item"] for h in a["itemScores"]} for a in again]
+        assert not set(newer) & served[1]          # the port: fresh
         if cache == "on":
-            assert again == first                  # stale in both
-            assert all(set(newer) <= s for s in served)
+            assert again[0] == first[0]            # the reference: stale
+            assert set(newer) <= served[0]
+            snap = port.handle("GET", "/", b"")[1]["resultCache"]
+            assert snap["enabled"] and snap["entries"] == 0
         else:
-            assert all(not set(newer) & s for s in served)
+            _same_answer(again[1], again[0])
+            assert not set(newer) & served[0]
     finally:
         for srv in (ref, port):
             srv.stop()

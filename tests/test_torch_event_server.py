@@ -12,9 +12,10 @@ over both stores gives the same rows in the same order, and each
 
 Also here: ``pio eventserver`` as a subprocess (bound port printed,
 drained with exit 0 on SIGTERM) and the plugin seam of both servers,
-the port's engine server included.  Departures from the reference,
-which the script does not send: ``/traces.json`` (404 in the port) and
-``/ready``'s segment fields (the port has no segment tee yet).
+the port's engine server included.  The script does not send
+``/traces.json`` (its span trees are compared in
+``tests/test_torch_traces.py``) or read ``/ready``'s segment fields (a
+departure: the port has no segment tee yet).
 """
 
 import http.client

@@ -89,6 +89,10 @@ DLRM_SLICE = (
     "models.dlrm", "templates.dlrm", "templates.dlrm.engine",
     "ops.embedding",
 )
+TRACE_SLICE = (
+    "obs.trace", "obs.runtime", "obs.profiler",
+    "tools.exp_als_repeat",
+)
 
 
 def _forbidden(module: str) -> bool:
@@ -105,7 +109,7 @@ def test_importing_the_port_loads_no_jax():
     assert len(probe["modules"]) >= 30
     missing = [m for m in TRAINING_SLICE + IVF_PQ_SLICE + CLI_SLICE
                + EVENT_SERVER_SLICE + SCHEDULER_SLICE + TWO_TOWER_SLICE
-               + DLRM_SLICE
+               + DLRM_SLICE + TRACE_SLICE
                if f"predictionio_tpu_torch.{m}" not in probe["modules"]]
     assert missing == []
     assert probe["bad"] == [], f"the port pulled in {probe['bad']}"

@@ -6,7 +6,9 @@ default sqlite storage (its own ``PIO_HOME``): the two scans then share
 one SQL plan and so one row order, which fixes the entity numbering.
 Checks: ``read_eval``'s folds and queries equal the reference's;
 ``run_evaluation``'s scores are within 1e-6 of the reference's and its
-EvaluationInstance is stored; and ``numeric_property`` reads a JSON-text
+EvaluationInstance is stored; a sweep preempted after its first
+(candidate, fold) unit resumes in both packages with the same train
+counts and the same scores; and ``numeric_property`` reads a JSON-text
 property column as it reads the DataMap column.
 """
 
@@ -140,23 +142,146 @@ def test_run_evaluation_scores_equal_the_reference(both):
     assert "Precision@5" in inst.evaluator_results
 
 
-def test_run_evaluation_refuses_checkpoints_and_records_failure(both):
+def test_run_evaluation_records_an_empty_sweep_as_failed(both):
     from predictionio_tpu_torch.controller import EngineParamsGenerator
     from predictionio_tpu_torch.workflow.core_workflow import WorkflowError
 
     _, pctx = both
-    ev = port_eval.evaluation()
-    with pytest.raises(WorkflowError, match="checkpoints"):
-        run_evaluation(ev, port_eval.default_params_generator(APP), pctx,
-                       checkpoint_dir="/tmp/ck")
 
     class Empty(EngineParamsGenerator):
         engine_params_list = []
 
     with pytest.raises(WorkflowError, match="no candidates"):
-        run_evaluation(ev, Empty(), pctx)
+        run_evaluation(port_eval.evaluation(), Empty(), pctx)
     [inst] = pctx.storage.get_evaluation_instances().get_all()
     assert inst.status == "EVALFAILED"
+
+
+def _preempted_then_resumed(pkg, ctx, ev, gen, ck, monkeypatch):
+    """One package's sweep: SIGTERM's flag raised right after unit (0, 0)
+    is saved, then the same sweep run again.  Returns (the preempted
+    instance's status, trains in the first run, trains in the rerun, the
+    rerun's result, the units left on disk)."""
+    import importlib
+
+    sup = importlib.import_module(f"{pkg}.resilience.supervision")
+    eng_mod = importlib.import_module(f"{pkg}.controller.engine")
+    run = importlib.import_module(f"{pkg}.workflow").run_evaluation \
+        if pkg == "predictionio_tpu" else run_evaluation
+    algo_cls = ev.engine.algorithm_classes["als"]
+    trains = []
+    real_train, real_put = algo_cls.train, eng_mod.EvalCheckpoint.put
+
+    def counting_train(self, *a, **k):
+        trains.append(1)
+        return real_train(self, *a, **k)
+
+    def put_then_preempt(self, ci, fi, result):
+        real_put(self, ci, fi, result)
+        if (ci, fi) == (0, 0):
+            sup.request_preemption()
+
+    monkeypatch.setattr(algo_cls, "train", counting_train)
+    monkeypatch.setattr(eng_mod.EvalCheckpoint, "put", put_then_preempt)
+    sup.clear_preemption()
+    try:
+        with pytest.raises(sup.TrainPreempted):
+            run(ev, gen, ctx, checkpoint_dir=str(ck))
+    finally:
+        sup.clear_preemption()
+    first = len(trains)
+    status = [i.status for i in
+              ctx.storage.get_evaluation_instances().get_all()]
+    monkeypatch.setattr(eng_mod.EvalCheckpoint, "put", real_put)
+    _, result = run(ev, gen, ctx, checkpoint_dir=str(ck))
+    return status, first, len(trains) - first, result, \
+        sorted(p.name for p in ck.iterdir())
+
+
+def test_eval_sweep_preempted_after_the_first_unit_resumes_as_the_reference(
+        both, tmp_path, monkeypatch):
+    """A sweep of 2 candidates × 2 folds, preempted after unit (0, 0) in
+    both packages: the first run trains one unit and lands
+    EVALPREEMPTED, the rerun trains only the 3 units left, its scores
+    equal the uninterrupted sweep's and the reference's (1e-6), and the
+    landed sweep clears its units."""
+    jctx, pctx = both
+    kw = dict(app_name=APP, eval_k=2, ranks=(4, 6))
+    outs = {}
+    for pkg, ctx, ev_mod in (("predictionio_tpu", jctx, jax_eval),
+                             ("predictionio_tpu_torch", pctx, port_eval)):
+        outs[pkg] = _preempted_then_resumed(
+            pkg, ctx, ev_mod.RecommendationEvaluation(k=5),
+            ev_mod.default_params_generator(**kw), tmp_path / pkg,
+            monkeypatch)
+    (jstatus, jfirst, jrest, want, jleft), \
+        (pstatus, pfirst, prest, got, pleft) = outs.values()
+    _, plain = run_evaluation(port_eval.RecommendationEvaluation(k=5),
+                              port_eval.default_params_generator(**kw), pctx)
+    assert pstatus == jstatus == ["EVALPREEMPTED"]
+    assert (pfirst, prest) == (jfirst, jrest) == (1, 3)
+    assert pleft == jleft == []
+    for res in (plain, want):
+        for (gp, gs, go), (wp, ws, wo) in zip(got.candidate_scores,
+                                             res.candidate_scores):
+            assert gp.to_json_dict() == wp.to_json_dict()
+            assert abs(gs - ws) <= SCORE_TOL, (gs, ws)
+            np.testing.assert_allclose(go, wo, rtol=0, atol=SCORE_TOL)
+    assert got.best_index == want.best_index == plain.best_index
+
+
+def test_a_fold_every_candidate_finished_is_not_prepared_again(
+        both, tmp_path, monkeypatch):
+    """Resume from a directory holding every unit of fold 0: fold 0 is
+    neither prepared nor trained again; the answers come from the
+    files."""
+    from predictionio_tpu_torch.controller import EvalCheckpoint
+
+    _, pctx = both
+    ev = port_eval.RecommendationEvaluation(k=5)
+    gen = port_eval.default_params_generator(app_name=APP, eval_k=2,
+                                             ranks=(4, 6))
+    ck = EvalCheckpoint(tmp_path / "ck")
+    full = ev.engine.eval_multi(pctx, gen.engine_params_list)
+    for ci in range(2):
+        ck.put(ci, 0, full[ci][0])
+    prepares, trains = [], []
+    prep_cls = ev.engine.preparator_class
+    algo_cls = ev.engine.algorithm_classes["als"]
+    real_prep, real_train = prep_cls.prepare, algo_cls.train
+    monkeypatch.setattr(prep_cls, "prepare", lambda self, *a: (
+        prepares.append(1), real_prep(self, *a))[1])
+    monkeypatch.setattr(algo_cls, "train", lambda self, *a: (
+        trains.append(1), real_train(self, *a))[1])
+    got = ev.engine.eval_multi(pctx, gen.engine_params_list, checkpoint=ck)
+    assert (len(prepares), len(trains)) == (1, 2)
+    for g, w in zip(got, full):
+        assert [[(q.user, a) for q, _, a in qpa] for _, qpa in g] == \
+            [[(q.user, a) for q, _, a in qpa] for _, qpa in w]
+    assert ck.completed() == 4
+
+
+def test_run_evaluation_reads_the_checkpoint_dir_from_the_env(
+        both, tmp_path, monkeypatch):
+    """``PIO_EVAL_CHECKPOINT_DIR`` names the directory when the call
+    gives none; a landed sweep clears it."""
+    from predictionio_tpu_torch.resilience import supervision as sup
+
+    _, pctx = both
+    ck = tmp_path / "envck"
+    monkeypatch.setenv("PIO_EVAL_CHECKPOINT_DIR", str(ck))
+    ev = port_eval.RecommendationEvaluation(k=5)
+    gen = port_eval.default_params_generator(app_name=APP, eval_k=2,
+                                             ranks=(4,))
+    sup.request_preemption()
+    try:
+        with pytest.raises(sup.TrainPreempted, match="0 unit"):
+            run_evaluation(ev, gen, pctx)
+    finally:
+        sup.clear_preemption()
+    assert ck.is_dir() and list(ck.iterdir()) == []
+    run_evaluation(ev, gen, pctx)
+    assert list(ck.iterdir()) == []
 
 
 BAGS = [{"rating": 4.5}, {"rating": True}, {"rating": None}, {},

@@ -655,6 +655,40 @@ def test_daemon_cycles_as_the_reference(pair):
     assert counters["staleness"] == 0.0
 
 
+def test_a_cycle_traces_as_the_reference(pair):
+    """One cycle whose warm start falls back (a delta too large for the
+    warm gate), in each package: the ``refresh.cycle`` trees — the
+    nested ``workflow.train`` with its DASE phases, the
+    ``refresh.warm_fallback`` event — and the cycle's summary event are
+    equal once durations and ids are masked."""
+    from tests.test_torch_traces import mask
+
+    wm1 = pair.ref.wf.data_watermark(pair.ref.inst)
+    got = {}
+    for name, obs in (("ref", ref_obs), ("port", port_obs)):
+        side = getattr(pair, name)
+        obs.get_recorder().clear()
+        d = _daemon(name, side, promoter=_FakePromoter(side.wf,
+                                                       side.ctx.storage),
+                    cfg={"max_delta_fraction": 0.01})
+        _insert_delta(side, DELTA, wm1)
+        d.run_once()
+        # The engine factories differ by the package name only.
+        got[name] = json.loads(json.dumps(
+            [mask(t) for t in obs.get_recorder().recent(16)[::-1]]
+        ).replace("predictionio_tpu_torch.", "predictionio_tpu."))
+    assert got["port"] == got["ref"]
+    # The cycle's trace, then its summary as an event of its own.
+    cycle, summary = got["port"]
+    assert cycle["name"] == summary["name"] == "refresh.cycle"
+    assert summary["attrs"]["result"] == "full_fallback"
+    [train] = cycle["spans"]
+    assert [s["name"] for s in train["spans"]] == [
+        "train.datasource", "train.prepare", "train.algorithm.warm",
+        "refresh.warm_fallback", "train.datasource", "train.prepare",
+        "train.algorithm", "train.persist"]
+
+
 def test_failed_cycle_as_the_reference(tmp_path, monkeypatch):
     out = {}
     monkeypatch.setenv("PIO_HOME", str(tmp_path / "home"))
@@ -726,6 +760,7 @@ def test_follow_reports_each_cycle_and_honours_preemption(pair):
 def test_trigger_fires_as_the_reference(pair):
     fired = {}
     for name in ("ref", "port"):
+        (ref_obs if name == "ref" else port_obs).get_recorder().clear()
         side = getattr(pair, name)
         promoter = _FakePromoter(side.wf, side.ctx.storage)
         d = _daemon(name, side, promoter=promoter,
@@ -741,11 +776,16 @@ def test_trigger_fires_as_the_reference(pair):
             assert len(polls) < 10
 
         reason = d._await_trigger(fake_sleep)
-        fired[name] = (reason, polls, _counters(
-            (ref_obs if name == "ref" else port_obs).get_registry())
-            ["pio_refresh_triggers_total"])
+        obs = ref_obs if name == "ref" else port_obs
+        events = [(t["name"], t.get("attrs")) for t in
+                  obs.get_recorder().recent(64)
+                  if t["name"] == "refresh.trigger"]
+        fired[name] = (reason, polls, _counters(obs.get_registry())
+                       ["pio_refresh_triggers_total"], events)
     assert fired["port"] == fired["ref"]
     assert fired["port"][0] == "delta_count"
+    assert fired["port"][3] == [("refresh.trigger",
+                                 {"reason": "delta_count"})]
 
 
 def test_staleness_reads_the_served_watermark_after_a_rollback(pair):

@@ -452,6 +452,28 @@ def test_lease_steal_dead_letter_and_requeue(tmp_path):
     assert obs[4][1] == 0 and obs[4][2] == 2   # A's ack lost both
 
 
+def test_shared_spill_events_as_the_reference(tmp_path):
+    """The lease drill's trace-ring events (``spill.shared.append``,
+    ``replayed``, ``dead_letter``, ``requeue_dead``) are published alike
+    in both packages, tokens masked."""
+    from tests.test_torch_traces import mask
+
+    got = []
+    for pkg, obs in ((REF, ref_obs), (PORT, port_obs)):
+        pkg.reset_metrics()
+        prev = obs.set_recorder(obs.TraceRecorder(256))
+        try:
+            _lease_steal_and_dead_letter(pkg, tmp_path / pkg.name)
+            got.append([mask(t) for t in obs.get_recorder().recent(256)[::-1]
+                        if t["name"].startswith("spill.")])
+        finally:
+            obs.set_recorder(prev)
+    assert got[1] == got[0]
+    assert {t["name"] for t in got[0]} == {
+        "spill.shared.append", "spill.shared.replayed",
+        "spill.shared.dead_letter", "spill.shared.requeue_dead"}
+
+
 def _admission(pkg, home, monkeypatch):
     monkeypatch.setenv("PIO_INGEST_QUEUE_BUDGET", "2")
     st = stack(pkg, home)
