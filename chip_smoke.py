@@ -84,9 +84,15 @@ cannot be imported, or when any phase fails.  Phases, in order:
    query_batch under auto routing (ivf_pq), every answer held against the
    port's host search over the same structures.
 11. dase+pq — phase 7's events trained again with PIO_PQ_MIN_ITEMS=5000,
-   so the template's own policy builds PQ codes; deployed; 16
-   /queries.json on the device pq_flat rung, each held against the host
-   PQ search of the trained factors; K1, K2 and K5 must have launched.
+   so the template's own policy builds PQ codes and the quality and
+   recall scorecards (a pq_flat baseline); deployed with every request
+   quality- and recall-sampled (PIO_QUALITY_SAMPLE=1,
+   PIO_RECALL_SAMPLE=1); 256 /queries.json on the device pq_flat rung,
+   each held against the host PQ search of the trained factors; K1, K2
+   and K5 must have launched; /quality.json's live pq_flat recall@10,
+   re-ranked exactly off the serving path, within PIO_RECALL_TOLERANCE
+   (0.05) of the baseline on both windows, at least 50 captures scored,
+   drift not tripped and gate.rollback false.
 12. cli loop — the engine.json loop across processes at the MovieLens-1M
    shape (1,000,209 seeded rate events, 6,040 users x 3,706 Zipf items,
    half stars, and buys by 5 % of the users) on the default sqlite +
@@ -165,10 +171,16 @@ cannot be imported, or when any phase fails.  Phases, in order:
    answering 256 of them as the Python path did (K3 counted there), POST
    /stop exit 0; `pio eventserver --native` taking phase 12's first
    100,000 events through the SDK, `pio export` equal to them as a
-   multiset, SIGTERM exit 0; within 120 s.  Phases 7 and 13a count a
-   repeat query as a result-cache hit and reach the fold-in cache with
-   another num; 13b deploys with the result cache on, which keeps no
-   ecommerce answer (F7: its algorithm reads live state).
+   multiset, SIGTERM exit 0; within 120 s.  The quality and recall
+   monitors run at their shipped rates (0.1, 0.05) throughout; the
+   coalesced drive's waterfall (pio_serve_stage_ms, p50/p99/mean a
+   stage) names the stage with the largest p99, and the same drive on a
+   fresh server with PIO_QUALITY=off and PIO_RECALL=off, then on another
+   with them on again, gives the monitors' cost in recs/s and p99.
+   Phases 7 and 13a count a repeat query as a result-cache hit and reach
+   the fold-in cache with another num; 13b deploys with the result cache
+   on, which keeps no ecommerce answer (F7: its algorithm reads live
+   state).
 16. refresh — phase 12's sqlite + localfs store (kept alive for this
    phase) and its generation 1: `pio deploy` as a subprocess answers 64
    /queries.json (the baseline); 20,000 rate events stamped after the
@@ -249,8 +261,37 @@ cannot be imported, or when any phase fails.  Phases, in order:
    must resolve a query's tree http.request > http.handle >
    batcher.dispatch > retrieval (chunked rung; K3 counted in the deploy
    process).
-20. report — one JSON line of per-kernel numbers, the card's name and
+20. obs — the serving waterfall, the SLO engine behind /ready and the
+   quality monitors' canary gate, on phase 12's store after phases
+   16-18 (its newest generation), an EngineServer and an EventServer in
+   this process on the chunked rung, result cache off, every query
+   quality-sampled.  20a: 256 /queries.json from 8 threads with
+   PIO_REQUEST_LOG set, each the plain top-k; every wide event carries
+   the dispatch path's stages, its serverMs equal to X-PIO-Server-Ms;
+   the p50 of attestedSumMs / serverMs in [0.9, 1.1] (the reference's
+   bound); a dispatch bucket's exemplar on /metrics?exemplars=1 (none on
+   the plain view) resolves through /traces.json?request_id= to one
+   http.request tree; p50 and p99 of each stage.  20b: a server with
+   PIO_SLO_LATENCY_TARGET_MS=0.5, 2/4 s burn windows and a 1 s recovery:
+   /ready 200, then 503 degraded (sustained_burn) after 24 dispatched
+   queries, 200 again after the dwell once the same queries are cache
+   hits; with PIO_READY_SLO=off /ready stays 200 while /stats.json's slo
+   reads degraded.  20c: every 200 of 20a carries X-PIO-Serve-Id; 64
+   buys echoing them (properties.pioServeId) through the event server,
+   40 on a served item: /quality.json's generation-1 hit rate exactly
+   40/64.  20d: a RefreshDaemon cycle retrains on the same store and
+   promotes through POST /reload across a 3 s canary window of traffic;
+   the shadow scorer re-predicts on the retained generation (one K3
+   launch each, counted), overlap at least PIO_SHADOW_MIN_OVERLAP, no
+   rollback; then a fresh server deploys that generation, a second
+   cycle's candidate is loaded with its user vectors scaled 4x (the
+   reference's own fault: ranking and corpus fingerprint intact), drift
+   trips, gate.rollback, the daemon posts /admin/rollback, generation 1
+   serves again and its answers are the plain top-k.  Budget 45 s.
+21. report — one JSON line of per-kernel numbers, the card's name and
    power limit, and the final status line.
+After phases 7, 11-14, 16, 17, 19b-e and 20 a line gives the seconds the
+quality and recall scorecards took in that phase's in-process trains.
 """
 
 from __future__ import annotations
@@ -1798,10 +1839,42 @@ def pq_serve_phase(seed: int, home: str, users_np, mods, card: str) -> dict:
     return {"launches": launches, "err": err}
 
 
+PQ_DASE_QUERIES = 256   # phase 11: > PIO_RECALL_MIN_SAMPLES (50), and
+#                         enough sampled scores that drift's PSI noise
+#                         (~15/n + 15/256 for 16 bins) stays well under 0.25
+
+
+def quality_doc(base: str, want_scored: int, phase: str,
+                timeout_s: float = 20.0) -> dict:
+    """``/quality.json`` once the recall monitor's off-thread worker has
+    re-ranked every capture (scored + dropped + stale + errors reach the
+    captured count) and at least ``want_scored`` of them."""
+    deadline = time.perf_counter() + timeout_s
+    while True:
+        with urllib.request.urlopen(base + "/quality.json",
+                                    timeout=60) as r:
+            doc = json.loads(r.read())
+        rec = doc.get("recall") or {}
+        if rec.get("scored", 0) + rec.get("dropped", 0) >= \
+                rec.get("captured", 0) and rec.get("scored", 0) >= \
+                want_scored:
+            return doc
+        if time.perf_counter() > deadline:
+            die(f"{phase}: the recall monitor scored {rec.get('scored')} "
+                f"of {rec.get('captured')} captures in {timeout_s:.0f} s")
+        time.sleep(0.1)
+
+
 def pq_dase_phase(dase, mods, card: str) -> dict:
     """Phase 11: phase 7's events trained again with PIO_PQ_MIN_ITEMS=5000
-    (the template builds codes), deployed, 16 /queries.json on pq_flat."""
+    (the template builds codes, and the quality and recall scorecards),
+    deployed with every request quality- and recall-sampled,
+    PQ_DASE_QUERIES /queries.json on pq_flat; /quality.json's live
+    pq_flat recall against the scorecard's baseline."""
     import numpy as np
+
+    from predictionio_tpu_torch.obs.quality import Scorecard
+    from predictionio_tpu_torch.obs.recall import RecallScorecard
 
     fg, rs, pqs, tpq = mods["fg"], mods["rs"], mods["pqs"], mods["tpq"]
     storage, variant, eng = dase["storage"], dase["variant"], dase["engine"]
@@ -1809,7 +1882,12 @@ def pq_dase_phase(dase, mods, card: str) -> dict:
     try:
         with env_vars(PIO_PQ_MIN_ITEMS="5000", PIO_SERVE_HOST_MACS="0",
                       PIO_IVF=None, PIO_PQ=None, PIO_PQ_M=None,
-                      PIO_RETRIEVAL_RUNG=None, PIO_PQ_RERANK=None):
+                      PIO_RETRIEVAL_RUNG=None, PIO_PQ_RERANK=None,
+                      PIO_QUALITY=None, PIO_QUALITY_SAMPLE="1",
+                      PIO_QUALITY_MIN_SAMPLES=None, PIO_RECALL=None,
+                      PIO_RECALL_SAMPLE="1", PIO_RECALL_MIN_SAMPLES=None,
+                      PIO_RECALL_TOLERANCE=None, PIO_RECALL_K=None,
+                      PIO_RESULT_CACHE=None):
             ctx = mods["RuntimeContext"].create(storage=storage)  # the card
             fg.LAUNCHES = 0                     # main path starts here
             rs.LU_LAUNCHES = 0
@@ -1824,8 +1902,8 @@ def pq_dase_phase(dase, mods, card: str) -> dict:
             wrapper = server._models[0]
             names = list(wrapper.user_index.keys())
             rng = np.random.default_rng(len(names))
-            asked = [names[j] for j in rng.choice(len(names), 16,
-                                                  replace=False)]
+            asked = [names[j] for j in rng.choice(
+                len(names), PQ_DASE_QUERIES, replace=False)]
             answers, lats = [], []
             for user in asked:
                 t0 = time.perf_counter()
@@ -1837,6 +1915,7 @@ def pq_dase_phase(dase, mods, card: str) -> dict:
                       "ridge_solve_lu": rs.LU_LAUNCHES,
                       "pq_scan": pqs.LAUNCHES}    # main path ends here
             plan = wrapper.retriever().plan(1, 10)
+            quality = quality_doc(base, 50, "phase 11")
     finally:
         if server is not None:
             server.stop()
@@ -1846,12 +1925,18 @@ def pq_dase_phase(dase, mods, card: str) -> dict:
     if not isinstance(wrapper.pq, tpq.PQCodebook) or wrapper.ivf is not None:
         die(f"phase 11: the generation carries pq={type(wrapper.pq)}, "
             f"ivf={type(wrapper.ivf)}")
+    rsc = wrapper.recall
+    if not isinstance(wrapper.quality, Scorecard) \
+            or not isinstance(rsc, RecallScorecard) \
+            or set(rsc.recall) != {"pq_flat"}:
+        die(f"phase 11: the wrapper carries quality "
+            f"{type(wrapper.quality)}, recall {rsc}")
     for name, n in counts.items():
         if n == 0:
             die(f"phase 11: {name} never launched")
-    if counts["pq_scan"] != 16 or plan.rung != "pq_flat":
-        die(f"phase 11: pq_scan launched {counts['pq_scan']} times for 16 "
-            f"queries on the {plan.rung} rung")
+    if counts["pq_scan"] != PQ_DASE_QUERIES or plan.rung != "pq_flat":
+        die(f"phase 11: pq_scan launched {counts['pq_scan']} times for "
+            f"{PQ_DASE_QUERIES} queries on the {plan.rung} rung")
     uf, itf = wrapper.host_factors()
     q = uf[[wrapper.user_index[u] for u in asked]]
     hs, hi, _ = tpq.search_pq_host(wrapper.pq, itf, q, 11, plan.rerank)
@@ -1861,14 +1946,39 @@ def pq_dase_phase(dase, mods, card: str) -> dict:
                                for h in a["itemScores"]]} for a in answers]
     err = pq_answers_agree(answers, hs, hi, "DASE+PQ /queries.json",
                            mods["topk_mismatch"])
+    rec = quality["recall"]
+    row = rec["rungs"].get("pq_flat") or {}
+    tol = rec["tolerance"]
+    drift = quality["drift"]
+    if (rec["verdict"] != "healthy" or row.get("baseline") is None
+            or abs(row["recallFast"] - row["baseline"]) > tol
+            or abs(row["recallSlow"] - row["baseline"]) > tol
+            or rec["scorecard"].get("fingerprint") != rsc.fingerprint):
+        die(f"phase 11: live pq_flat recall {json.dumps(rec)}")
+    if (quality["sampling"]["sampledTotal"] < 50 or drift["tripped"]
+            or drift["reportingOnly"] or quality["gate"]["rollback"]):
+        die(f"phase 11: quality {json.dumps(quality)}")
     log(f"phase 11 dase+pq: run_train with PIO_PQ_MIN_ITEMS=5000 COMPLETED "
         f"in {train_s:.2f} s ({len(wrapper.user_index)} users x "
         f"{len(wrapper.item_index)} items; codes M {wrapper.pq.m}, "
-        f"{wrapper.pq.bytes_per_item()} B/item); 16 /queries.json on "
-        f"{plan.rung} (rerank {plan.rerank}) p50 "
-        f"{sorted(lats)[8] * 1e3:.2f} ms, each equal to the host PQ search "
-        f"of the trained factors, max |score err| {err:.3g}; launches "
-        f"{json.dumps(counts)}; card {card}")
+        f"{wrapper.pq.bytes_per_item()} B/item; scorecards: quality "
+        f"{wrapper.quality.n} rank-1 scores, recall@10 pq_flat "
+        f"{rsc.recall['pq_flat'][10]:.4f} over {rsc.n_queries} users); "
+        f"{PQ_DASE_QUERIES} /queries.json on {plan.rung} (rerank "
+        f"{plan.rerank}) p50 {sorted(lats)[len(lats) // 2] * 1e3:.2f} ms, "
+        f"each equal to the host PQ search of the trained factors, max "
+        f"|score err| {err:.3g}; launches {json.dumps(counts)}; card {card}")
+    log(f"phase 11 quality+recall (every request sampled): live pq_flat "
+        f"recall@10 fast {row['recallFast']} slow {row['recallSlow']} vs "
+        f"baseline {row['baseline']} (tolerance {tol}), {rec['scored']} of "
+        f"{rec['captured']} captures re-ranked exactly off the serving "
+        f"path ({rec['dropped']} dropped), scanned fraction "
+        f"{row.get('scannedFraction')}, shortlist saturation "
+        f"{row.get('shortlistSaturation')}; drift psi fast "
+        f"{drift['psi']['fast']} slow {drift['psi']['slow']} over "
+        f"{drift['nFast']} scores (threshold {drift['threshold']}), "
+        f"verdict {quality['verdict']}, gate.rollback "
+        f"{quality['gate']['rollback']}; card {card}")
     return {"launches": counts["pq_scan"], "err": err}
 
 
@@ -1977,6 +2087,27 @@ def run_cli(*argv, phase: str = "phase 12") -> str:
         die(f"{phase}: pio {' '.join(argv)} exited {out.returncode}: "
             f"{out.stderr[-2000:]}")
     return out.stdout
+
+
+def timed_scorecards() -> dict:
+    """Wrap the ALS and two-tower templates' scorecard builders
+    (``scorecard_from_matrix``, ``build_recall_scorecard``) so that every
+    in-process train sums their wall time: what the quality and recall
+    layers add to a train.  Returns the running totals."""
+    totals = {"s": 0.0, "calls": 0}
+    for path in ("predictionio_tpu_torch.templates.recommendation.engine",
+                 "predictionio_tpu_torch.templates.twotower.engine"):
+        mod = importlib.import_module(path)
+        for name in ("scorecard_from_matrix", "build_recall_scorecard"):
+            def timed(*args, _real=getattr(mod, name), **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return _real(*args, **kwargs)
+                finally:
+                    totals["s"] += time.perf_counter() - t0
+                    totals["calls"] += 1
+            setattr(mod, name, timed)
+    return totals
 
 
 def counted_pio(argv) -> int:
@@ -3366,6 +3497,9 @@ SCHED_NATIVE = 256        # ... and through `pio deploy --native`
 SCHED_EVENTS = 100_000    # phase 12's first events via `eventserver --native`
 SCHED_LIMIT_S = 120.0     # the phase's wall-time budget
 SCHED_CLIENT_PROCS = 4    # client processes the client threads run in
+SCHED_STAGES = ("ingress", "bind", "cache", "queue_wait", "batch_wait",
+                "dispatch", "retrieval", "resume", "shed_check",
+                "serialize")     # the waterfall's (obs.waterfall)
 
 
 def sched_share(base: str, queries, clients: int, ready) -> dict:
@@ -3487,6 +3621,43 @@ def pct(values, q: float) -> float:
     return v[min(len(v) - 1, int(q * len(v)))] if v else math.nan
 
 
+def stage_cdf(registry, stage: str) -> tuple:
+    """(counts ≤ each bucket bound, count, sum) of ``pio_serve_stage_ms``
+    for one stage: exact at the bounds, so two readings' difference is
+    the distribution of the requests in between."""
+    h = registry.get("pio_serve_stage_ms")
+    if h is None:
+        return (), 0, 0.0
+    return (tuple(h.count_le(b, stage=stage) for b in h.buckets),
+            h.count(stage=stage), h.sum(stage=stage))
+
+
+def stage_split(registry, before: dict) -> dict:
+    """Per stage of the waterfall: (p50, p99, mean) ms of the requests
+    since ``before`` (``{stage: stage_cdf(...)}``), the quantiles
+    interpolated inside their bucket as the registry's own are."""
+    h = registry.get("pio_serve_stage_ms")
+    out = {}
+    for stage, (cum0, n0, sum0) in before.items():
+        cum1, n1, sum1 = stage_cdf(registry, stage)
+        n = n1 - n0
+        if n <= 0:
+            continue
+        cum = [a - (cum0[j] if cum0 else 0.0) for j, a in enumerate(cum1)]
+
+        def q(p):
+            target, lo, prev = p * n, 0.0, 0.0
+            for b, c in zip(h.buckets, cum):
+                if c >= target and c > prev:
+                    return lo + (b - lo) * (target - prev) / (c - prev)
+                lo, prev = b, c
+            return h.buckets[-1]
+
+        out[stage] = (round(q(0.5), 4), round(q(0.99), 4),
+                      round((sum1 - sum0) / n, 4))
+    return out
+
+
 def scheduler_phase(dev, seed: int, users_np, items_np, mods: dict,
                     card: str) -> dict:
     """Phase 15: phase 4's ML-25M serving model persisted on the default
@@ -3578,10 +3749,15 @@ def scheduler_phase(dev, seed: int, users_np, items_np, mods: dict,
         cohorts.clear()
         snap0 = server.scheduler.snapshot()["default"]
         rung0 = chunked_requests()
+        stages0 = {st: stage_cdf(reg, st) for st in SCHED_STAGES}
         ft.LAUNCHES = 0                      # main path starts here
         bodies, lats, server_ms, wall = sched_drive(base, queries,
                                                     SCHED_CLIENTS, work)
         launches = ft.LAUNCHES               # and ends here
+        split = stage_split(reg, stages0)
+        wall_split = {k: v for k, v in split.items() if k != "retrieval"}
+        out["stages"] = split
+        out["p99_stage"] = max(wall_split, key=lambda k: wall_split[k][1])
         snap = server.scheduler.snapshot()["default"]
         dispatches = snap["dispatches"] - snap0["dispatches"]
         requests = snap["requests"] - snap0["requests"]
@@ -3636,6 +3812,30 @@ def scheduler_phase(dev, seed: int, users_np, items_np, mods: dict,
                    cache_client_p99_ms=pct(lats2, 0.99) * 1e3,
                    cache_server_p50_ms=pct(server_ms2, 0.5),
                    cache_hit_rate=server.result_cache.snapshot()["hitRate"])
+
+        # -- 3b: the monitors' cost: the same drive on fresh servers with
+        # them off, then on again (on, off, on in one run)
+        out["off_launches"] = 0
+        for label, knobs in (("off", {"PIO_QUALITY": "off",
+                                       "PIO_RECALL": "off"}),
+                             ("on2", {"PIO_QUALITY": None,
+                                      "PIO_RECALL": None})):
+            with env_vars(**knobs):
+                fresh = mods["EngineServer"](eng, variant, storage,
+                                             host="127.0.0.1", port=0,
+                                             scheduler_config=cfg)
+            servers.append(fresh)
+            fresh.start()
+            fbase = f"http://127.0.0.1:{fresh.port}"
+            post_json(f"{fbase}/queries.json", warm)
+            before = ft.LAUNCHES
+            _, flats, _, fwall = sched_drive(fbase, queries, SCHED_CLIENTS,
+                                             work)
+            out["off_launches"] += ft.LAUNCHES - before
+            out[f"{label}_recs_per_s"] = n / fwall
+            out[f"{label}_client_p99_ms"] = pct(flats, 0.99) * 1e3
+            fresh.stop()
+            servers.remove(fresh)
 
         # -- 4: the inline path (batcher off) ----------------------------------
         inline = mods["EngineServer"](
@@ -3756,6 +3956,16 @@ def scheduler_phase(dev, seed: int, users_np, items_np, mods: dict,
         f"window {out['window_ms']} ms, max batch {out['max_batch']}, "
         f"served p99 {out['served_p99_ms']} ms; max |score err| "
         f"{out['err']:.3g}; card {card}")
+    log(f"phase 15 waterfall (monitors on at the shipped rates: quality "
+        f"0.1, recall 0.05): stage ms (p50, p99, mean) "
+        f"{json.dumps(out['stages'])}; the largest p99 is "
+        f"{out['p99_stage']}'s; the same drive on a fresh server with "
+        f"PIO_QUALITY=off PIO_RECALL=off: {out['off_recs_per_s']:.1f} "
+        f"recs/s, client p99 {out['off_client_p99_ms']:.2f} ms, then on "
+        f"another with the monitors on again: "
+        f"{out['on2_recs_per_s']:.1f} recs/s, p99 "
+        f"{out['on2_client_p99_ms']:.2f} ms ({out['off_launches']} "
+        f"fused_topk launches in the two)")
     log(f"phase 15 cache: the same {n} queries again: {out['cache_hits']} "
         f"result-cache hits, every body byte-equal, 0 launches; "
         f"{out['cache_recs_per_s']:.1f} recs/s, client p50 "
@@ -5456,6 +5666,582 @@ def checkpoint_cli_phase(dev, loop: dict, mods: dict, card: str) -> dict:
     return out
 
 
+# Phase 20: the serving waterfall, the SLO engine behind /ready, and the
+# quality monitors' canary gate, in-process on phase 12's store after
+# phases 16-18 (its newest generation; the engine server and the event
+# server share one process, so the feedback join is process-local, as in
+# the reference).
+P20_QUERIES = 256            # 20a: /queries.json, distinct users ...
+P20_THREADS = 8              # ... from this many client threads
+P20_STAGES = ("ingress", "bind", "queue_wait", "batch_wait", "dispatch",
+              "retrieval", "serialize", "shed_check")
+P20_SLO_QUERIES = 24         # 20b: dispatched queries of the burn
+P20_SLO_TARGET_MS = "0.5"    # 20b: below a dispatched request's handler
+#                              time, above a result-cache hit's
+P20_FEEDBACK = 64            # 20c: buys echoing 20a's serve ids ...
+P20_PLANTED = 40             # ... of which this many target a served item
+P20_CANARY_S = 3.0           # 20d: the daemon's canary window
+P20_CLIENTS = 4              # 20d: client threads across each window
+P20_DRIFT_SCALE = 4.0        # 20d: tests/test_quality.py's planted fault
+P20_HELD = 32                # 20d: answers held after the rollback
+PHASE20_LIMIT_S = 45.0
+
+
+def http_call(url: str, obj=None):
+    """GET (``obj`` None) or POST ``obj``; returns (status, headers,
+    JSON answer) whatever the status."""
+    data = None if obj is None else json.dumps(obj).encode()
+    req = urllib.request.Request(
+        url, data=data, method="GET" if obj is None else "POST",
+        headers={} if obj is None else {"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, dict(r.headers), json.loads(r.read() or b"{}")
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), json.loads(e.read() or b"{}")
+
+
+class _Answer:
+    """A response already read: what ``HttpPromoter``'s reads need."""
+
+    def __init__(self, status: int, data: bytes):
+        self.status, self._data = status, data
+
+    def read(self) -> bytes:
+        return self._data
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+class recorded_opener:
+    """An ``HttpPromoter`` opener that keeps every (method, path, status,
+    answer) it carried, so a phase can read what the daemon saw."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, req, timeout=30.0):
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, data = r.status, r.read()
+        self.calls.append((req.get_method(), req.selector, status,
+                           json.loads(data or b"{}")))
+        return _Answer(status, data)
+
+
+class query_load:
+    """``threads`` client threads posting /queries.json (num 10) for
+    ``users`` in turn until ``stop()``; ``statuses`` their answers'."""
+
+    def __init__(self, base: str, users, threads: int):
+        import threading
+
+        self.stop_ev = threading.Event()
+        self.statuses = [[] for _ in range(threads)]
+
+        def run(n):
+            j = n
+            while not self.stop_ev.is_set():
+                st, _, _ = http_call(f"{base}/queries.json",
+                                     {"user": users[j % len(users)],
+                                      "num": 10})
+                self.statuses[n].append(st)
+                j += threads
+
+        self.threads = [threading.Thread(target=run, args=(n,))
+                        for n in range(threads)]
+        for t in self.threads:
+            t.start()
+
+    def stop(self) -> list:
+        self.stop_ev.set()
+        for t in self.threads:
+            t.join(120)
+        return [s for ss in self.statuses for s in ss]
+
+
+def read_request_log(path: str, n: int, timeout_s: float = 20.0) -> list:
+    """The first ``n`` wide events of a PIO_REQUEST_LOG file: a line lands
+    after its answer reached the client, so poll."""
+    deadline = time.perf_counter() + timeout_s
+    while True:
+        rows = []
+        if os.path.exists(path):
+            for line in Path(path).read_text().splitlines():
+                if line.endswith("}"):
+                    rows.append(json.loads(line))
+        if len(rows) >= n:
+            return rows
+        if time.perf_counter() > deadline:
+            die(f"phase 20a: the request log holds {len(rows)} of {n} "
+                "wide events")
+        time.sleep(0.05)
+
+
+def obs_phase(dev, seed: int, loop: dict, mods: dict, card: str) -> dict:
+    """Phase 20: an EngineServer and an EventServer in this process on
+    phase 12's store.  20a the waterfall of 256 concurrent queries (wide
+    events, attested ratio, an exemplar resolved to its trace); 20b
+    /ready under a burn and its recovery, and with PIO_READY_SLO=off;
+    20c the feedback join of echoed buys; 20d the canary gate: a
+    retrained candidate promoted by the RefreshDaemon with the shadow
+    scorer on the retained generation, then a candidate whose loaded
+    user vectors are scaled 4x rolled back through gate.rollback.
+    Returns the phase's launches and numbers."""
+    import datetime as dt
+    import threading
+
+    import numpy as np
+    import torch
+
+    fg, rs, ft = mods["fg"], mods["rs"], mods["ft"]
+    from predictionio_tpu_torch.data.storage import AccessKey, \
+        get_storage, reset_storage
+    from predictionio_tpu_torch.obs.quality import QualityConfig
+    from predictionio_tpu_torch.refresh import RefreshConfig
+    from predictionio_tpu_torch.refresh.daemon import HttpPromoter, \
+        RefreshDaemon
+    from predictionio_tpu_torch.server import engine_server as es_mod
+    from predictionio_tpu_torch.server.event_server import EventServer
+    from predictionio_tpu_torch.workflow.core_workflow import load_models
+
+    phase_t0 = time.perf_counter()
+    work, engine_json = loop["work"], loop["engine_json"]
+    req_log = os.path.join(work, "p20_requests.jsonl")
+    env = cli_env(os.path.join(work, "home"))
+    env.values.update({k: None for k in (
+        "PIO_REFRESH_INTERVAL_S", "PIO_REFRESH_MAX_DELTA_FRACTION",
+        "PIO_REFRESH_EVAL_TOLERANCE", "PIO_REFRESH_PROMOTE_URL",
+        "PIO_REFRESH_CANARY_WINDOW_S", "PIO_CANARY_QUERIES",
+        "PIO_RETAIN_PREVIOUS", "PIO_RETAIN_PREVIOUS_TTL_S",
+        "PIO_REQUEST_LOG", "PIO_REQUEST_LOG_SAMPLE", "PIO_QUALITY",
+        "PIO_QUALITY_MIN_SAMPLES", "PIO_QUALITY_FAST_WINDOW",
+        "PIO_QUALITY_RESERVOIR", "PIO_QUALITY_PSI_THRESHOLD",
+        "PIO_QUALITY_GATE", "PIO_SHADOW_MIN_OVERLAP", "PIO_SHADOW_QUEUE",
+        "PIO_QUALITY_FEEDBACK_EVENTS", "PIO_RECALL", "PIO_READY_SLO",
+        "PIO_SLO_AVAILABILITY", "PIO_SLO_LATENCY_OBJECTIVE",
+        "PIO_SLO_LATENCY_TARGET_MS", "PIO_SLO_FAST_WINDOW_S",
+        "PIO_SLO_SLOW_WINDOW_S", "PIO_SLO_BURN_THRESHOLD",
+        "PIO_SLO_MIN_REQUESTS", "PIO_SLO_RECOVERY_S",
+        "PIO_BATCH_P99_TARGET_MS", "PIO_FAULTS")})
+    # Every query dispatches (no cache) and is quality-sampled; the
+    # shadow scorer takes every sampled query of a canary window.
+    env.values.update(PIO_RESULT_CACHE="0", PIO_QUALITY_SAMPLE="1",
+                      PIO_SHADOW_SAMPLE="1")
+    rng = np.random.default_rng(seed + 20)
+    registry = mods["get_registry"]()
+    out, servers = {}, []
+    env.__enter__()
+    reset_storage()
+    real_load = es_mod.load_models
+    try:
+        storage = get_storage()
+        eng = mods["engine"]()
+        variant = mods["EngineVariant"].from_file(engine_json)
+        instances = storage.get_engine_instances()
+        app_id = storage.get_apps().get_by_name(CLI_APP).id
+        storage.get_access_keys().insert(
+            AccessKey(key="chip-p20", app_id=app_id))
+        ctx = mods["RuntimeContext"](storage=storage, device=dev)
+        ft.LAUNCHES = 0                      # main path starts here
+        fg.LAUNCHES = 0
+        rs.LU_LAUNCHES = 0
+
+        def start(**knobs):
+            with env_vars(**knobs):
+                srv = mods["EngineServer"](eng, variant, storage,
+                                           host="127.0.0.1", port=0,
+                                           device=dev)
+            servers.append(srv)
+            srv.start()
+            return srv, f"http://127.0.0.1:{srv.port}"
+
+        def stop(srv):
+            srv.stop()
+            servers.remove(srv)
+
+        def mismatch(answer, w, user, num=10):
+            """Why ``answer`` is not ``w``'s plain top-``num`` on the
+            card (None when it is, within the tolerance and ties)."""
+            uf, itf = w.host_factors()
+            q = torch.from_numpy(np.ascontiguousarray(
+                uf[[w.user_index[user]]])).to(dev)
+            items = torch.from_numpy(np.ascontiguousarray(itf)).to(dev)
+            s, i = (x.cpu().numpy() for x in ft.fused_topk_reference(
+                q, items, min(num + 1, itf.shape[0])))
+            hits = answer.get("itemScores") or []
+            if len(hits) != num:
+                return f"{len(hits)} items, not {num}"
+            inv = w.item_index
+            return mods["topk_mismatch"](
+                [[h["score"] for h in hits]],
+                [[inv[h["item"]] for h in hits]], s[:, :num], i[:, :num],
+                s[:, num] if s.shape[1] > num else None, rtol=RTOL,
+                atol=ATOL)
+
+        server, base = start()
+        es = EventServer(storage=storage, host="127.0.0.1", port=0)
+        servers.append(es)
+        es.start()
+        es_base = f"http://127.0.0.1:{es.port}"
+        [w1] = server._models
+        inst1 = server._instance
+        names = list(w1.user_index.keys())
+        item_names = list(w1.item_index.keys())
+
+        # -- 20a: the waterfall of 256 concurrent queries -----------------
+        asked = [names[j] for j in rng.choice(len(names), P20_QUERIES,
+                                              replace=False)]
+        results = [None] * P20_QUERIES
+
+        def client(t):
+            for j in range(t, P20_QUERIES, P20_THREADS):
+                results[j] = http_call(f"{base}/queries.json",
+                                       {"user": asked[j], "num": 10})
+
+        with env_vars(PIO_REQUEST_LOG=req_log):
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(t,))
+                       for t in range(P20_THREADS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(120)
+            wall = time.perf_counter() - t0
+            rows = read_request_log(req_log, P20_QUERIES)
+        by_id = {r["traceId"]: r for r in rows}
+        ratios, stage_ms = [], {s: [] for s in P20_STAGES + ("resume",)}
+        for user, (st, head, ans) in zip(asked, results):
+            if st != 200:
+                die(f"phase 20a: /queries.json for {user} answered {st}")
+            why = mismatch(ans, w1, user)
+            if why is not None:
+                die(f"phase 20a: the answer for {user}: {why}")
+            row = by_id.get(head.get("X-Request-ID"))
+            if row is None:
+                die(f"phase 20a: no wide event for {head}")
+            missing = set(P20_STAGES) - set(row["stages"])
+            if missing or row.get("rung") != "chunked" \
+                    or row.get("generation") != 1 \
+                    or abs(row["serverMs"]
+                           - float(head["X-PIO-Server-Ms"])) > 0.06:
+                die(f"phase 20a: wide event {row} (missing {missing}) "
+                    f"against X-PIO-Server-Ms {head.get('X-PIO-Server-Ms')}")
+            ratios.append(row["attestedSumMs"] / row["serverMs"])
+            for s_ in stage_ms:
+                stage_ms[s_].append(row["stages"].get(s_, 0.0))
+        ratio_p50 = pct(ratios, 0.5)
+        if not 0.9 <= ratio_p50 <= 1.1:
+            die(f"phase 20a: p50 of attestedSumMs / serverMs is "
+                f"{ratio_p50:.4f}, outside [0.9, 1.1]")
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            plain = r.read().decode()
+        with urllib.request.urlopen(base + "/metrics?exemplars=1",
+                                    timeout=60) as r:
+            expo = r.read().decode()
+        tids = [ln.split('trace_id="', 1)[1].split('"', 1)[0]
+                for ln in expo.splitlines() if ln.startswith(
+                    'pio_serve_stage_ms_bucket{stage="dispatch"')
+                and 'trace_id="' in ln]
+        if 'trace_id="' in plain or not tids:
+            die("phase 20a: exemplars on the plain /metrics, or none on "
+                "?exemplars=1")
+        # A bucket keeps its newest request's id; the trace ring keeps
+        # the last PIO_TRACE_RING (256) traces, batcher.dispatch roots
+        # included, so an early bucket's request may have left it.
+        resolved = 0
+        for tid in tids:
+            _, _, tr = http_call(f"{base}/traces.json?request_id={tid}")
+            traces = tr.get("traces") or []
+            if not traces:
+                continue
+            if len(traces) != 1 or traces[0].get("name") != \
+                    "http.request" or traces[0].get("traceId") != tid \
+                    or '"waterfall"' not in json.dumps(traces[0]):
+                die(f"phase 20a: exemplar {tid} resolved to {traces}")
+            resolved += 1
+        if not resolved:
+            die(f"phase 20a: none of the dispatch buckets' exemplars "
+                f"{tids} is in the trace ring")
+        out["waterfall"] = {
+            "recs_per_s": P20_QUERIES / wall, "ratio_p50": ratio_p50,
+            "exemplars": (resolved, len(tids)),
+            "stages": {s_: (round(pct(v, 0.5), 4), round(pct(v, 0.99), 4))
+                       for s_, v in stage_ms.items()}}
+
+        # -- 20c: the feedback join of echoed buys -------------------------
+        sids = [head.get("X-PIO-Serve-Id") for _, head, _ in results]
+        if not all(s_ and s_.startswith("g1-") for s_ in sids):
+            die(f"phase 20c: a 200 without a generation-1 serve id: "
+                f"{[s_ for s_ in sids if not (s_ or '').startswith('g1-')]}")
+        buys = []
+        for k in range(P20_FEEDBACK):
+            served = [h["item"] for h in results[k][2]["itemScores"]]
+            target = served[0] if k < P20_PLANTED else next(
+                t for t in item_names if t not in served)
+            buys.append({"event": "buy", "entityType": "user",
+                         "entityId": asked[k], "targetEntityType": "item",
+                         "targetEntityId": target,
+                         "properties": {"pioServeId": sids[k]}})
+        for lo in range(0, P20_FEEDBACK, ES_BATCH):
+            st, _, ans = http_call(
+                f"{es_base}/batch/events.json?accessKey=chip-p20",
+                buys[lo:lo + ES_BATCH])
+            if st != 200 or any(a.get("status") != 201 for a in ans):
+                die(f"phase 20c: the buys answered {st} {ans}")
+        _, _, quality = http_call(f"{base}/quality.json")
+        fb = quality["feedback"]["generations"].get("1") or {}
+        rate = registry.get("pio_quality_online_hit_rate").value()
+        if (fb.get("hits"), fb.get("misses"), fb.get("attributedOnly")) != \
+                (P20_PLANTED, P20_FEEDBACK - P20_PLANTED, 0) \
+                or rate != P20_PLANTED / P20_FEEDBACK \
+                or quality["sampling"]["sampledTotal"] < P20_QUERIES:
+            die(f"phase 20c: feedback {fb}, hit-rate gauge {rate}, "
+                f"sampling {quality['sampling']}")
+        out["feedback"] = dict(fb, gauge=rate)
+
+        # -- 20b: /ready under a burn, its recovery, the escape hatch -----
+        slo_knobs = dict(
+            PIO_QUALITY="off", PIO_RECALL="off", PIO_RESULT_CACHE="1",
+            PIO_SLO_LATENCY_TARGET_MS=P20_SLO_TARGET_MS,
+            PIO_SLO_FAST_WINDOW_S="2", PIO_SLO_SLOW_WINDOW_S="4",
+            PIO_SLO_MIN_REQUESTS="8", PIO_SLO_RECOVERY_S="1")
+        burn_users = asked[:P20_SLO_QUERIES]
+        out["slo"] = {}
+        for hatch in ("on", "off"):
+            srv, b = start(PIO_READY_SLO=hatch, **slo_knobs)
+            polls, t0 = [], time.perf_counter()
+
+            def poll():
+                st, _, doc = http_call(f"{b}/ready")
+                stats = http_call(f"{b}/stats.json")[2]["slo"]
+                polls.append((round(time.perf_counter() - t0, 2), st,
+                              doc["status"], doc["slo"], stats))
+                return polls[-1]
+
+            def ask(users):
+                for u in users:
+                    st, _, _ = http_call(f"{b}/queries.json",
+                                         {"user": u, "num": 10})
+                    if st != 200:
+                        die(f"phase 20b: /queries.json answered {st}")
+
+            first = poll()
+            if first[1] != 200 or first[2] != "ready":
+                die(f"phase 20b ({hatch}): /ready before the burn {first}")
+            ask(burn_users)                   # dispatched: each misses
+            time.sleep(1.05)
+            burn = poll()
+            lat_burn = burn[3]["burn"]["fast"]["latency"]
+            if hatch == "on" and (
+                    burn[1] != 503 or burn[2] != "degraded"
+                    or "sustained_burn" not in burn[3]["tripReasons"]):
+                die(f"phase 20b: /ready under the burn {burn}")
+            if hatch == "off" and (burn[1] != 200
+                                   or not burn[4]["degraded"]):
+                die(f"phase 20b (PIO_READY_SLO=off): /ready {burn}")
+            while hatch == "on" and polls[-1][1] != 200:
+                ask(burn_users)               # result-cache hits: meet it
+                time.sleep(1.05)
+                poll()
+                if time.perf_counter() - t0 > 20:
+                    die(f"phase 20b: /ready never recovered {polls}")
+            if hatch == "on":
+                if not any(p_[3].get("recoveringForS") is not None
+                           for p_ in polls):
+                    die(f"phase 20b: no recovery dwell seen {polls}")
+            stop(srv)
+            out["slo"][hatch] = {
+                "latency_burn": lat_burn, "trip": burn[3]["tripReasons"],
+                "statuses": [p_[1] for p_ in polls],
+                "recovered_s": polls[-1][0]}
+
+        # -- 20d: the canary gate, healthy ---------------------------------
+        shadow_calls = [0]
+        real_shadow = server._shadow_predict
+
+        def counted_shadow(gen, q):
+            answer = real_shadow(gen, q)
+            shadow_calls[0] += 1             # one K3 launch (B 1, chunked)
+            return answer
+
+        server._shadow_predict = counted_shadow
+        load_users = list(names)
+        rng.shuffle(load_users)
+        dctx = mods["RuntimeContext"].create(storage=storage, device=dev)
+        opener = recorded_opener()
+        daemon = RefreshDaemon(
+            eng, variant, dctx,
+            config=RefreshConfig.from_env(canary_window_s=P20_CANARY_S),
+            promoter=HttpPromoter(base, canary_window_s=P20_CANARY_S,
+                                  canary_poll_s=0.2, opener=opener))
+        k3_0 = ft.LAUNCHES
+        disp0 = server.scheduler.snapshot()["default"]["dispatches"]
+        drive = query_load(base, load_users, P20_CLIENTS)
+        cycle = daemon.run_once()
+        statuses = drive.stop()
+        _, _, q1 = http_call(f"{base}/quality.json")
+        shadow = q1["shadow"]
+        # Count once the shadow worker is idle: its session ends (the queue
+        # dropped), and its last prediction returns.
+        server.quality.end_shadow("phase 20d count")
+        seen_k3 = None
+        while seen_k3 != (ft.LAUNCHES, shadow_calls[0]):
+            seen_k3 = (ft.LAUNCHES, shadow_calls[0])
+            time.sleep(0.2)
+        k3 = ft.LAUNCHES - k3_0
+        dispatches = server.scheduler.snapshot()["default"]["dispatches"] \
+            - disp0
+        min_samples = QualityConfig.from_env().min_samples
+        if cycle["promotion"] != "promoted" or cycle["result"] not in (
+                "warm", "full_fallback"):
+            die(f"phase 20d: the healthy cycle ended {cycle}")
+        if any(c[1] == "/admin/rollback" for c in opener.calls) \
+                or q1["gate"]["rollback"] or not shadow["active"] \
+                or shadow["scored"] < min_samples \
+                or shadow["overlapMean"] < shadow["minOverlap"] \
+                or shadow["divergent"] or q1["drift"]["tripped"]:
+            die(f"phase 20d: the healthy canary read {json.dumps(q1)}")
+        if k3 != dispatches + shadow_calls[0] or shadow_calls[0] < \
+                shadow["scored"] or any(s_ != 200 for s_ in statuses):
+            die(f"phase 20d: {k3} fused_topk launches for {dispatches} "
+                f"dispatches and {shadow_calls[0]} shadow predictions; "
+                f"client statuses {set(statuses)}")
+        inst2 = instances.get(cycle["instance"])
+        out["healthy"] = {
+            "cycle": cycle["result"], "requests": len(statuses),
+            "shadow_scored": shadow["scored"],
+            "shadow_launches": shadow_calls[0],
+            "overlap": shadow["overlapMean"],
+            "overlap_p10": shadow["overlapP10"],
+            "psi": q1["drift"]["psi"], "polls": sum(
+                c[1] == "/quality.json" for c in opener.calls)}
+        stop(server)
+        server = None
+
+        # -- 20d: the planted fault on a fresh deploy of that generation --
+        srv_e, base_e = start()
+        if srv_e._instance.id != inst2.id:
+            die(f"phase 20d: the fresh server loaded {srv_e._instance.id},"
+                f" not the promoted {inst2.id}")
+        stamp = dt.datetime.now(dt.timezone.utc)
+        Event, DataMap = mods["Event"], mods["DataMap"]
+        storage.get_events().insert_batch([
+            Event(event="rate", entity_type="user", entity_id=u,
+                  target_entity_type="item",
+                  target_entity_id=item_names[int(rng.integers(
+                      len(item_names)))],
+                  properties=DataMap({"rating": 4.0}),
+                  event_time=stamp + dt.timedelta(microseconds=n))
+            for n, u in enumerate(asked[:P20_FEEDBACK])], app_id)
+
+        def planted(engine_, instance, ctx_=None):
+            models = real_load(engine_, instance, ctx_)
+            m = models[0].model
+            m.user_factors = m.user_factors * np.float32(P20_DRIFT_SCALE)
+            return models
+
+        es_mod.load_models = planted         # the server's loads only
+        opener2 = recorded_opener()
+        daemon2 = RefreshDaemon(
+            eng, variant, dctx,
+            config=RefreshConfig.from_env(canary_window_s=P20_CANARY_S),
+            promoter=HttpPromoter(base_e, canary_window_s=P20_CANARY_S,
+                                  canary_poll_s=0.2, opener=opener2))
+        drive = query_load(base_e, load_users, P20_CLIENTS)
+        try:
+            cycle2 = daemon2.run_once()
+        finally:
+            statuses2 = drive.stop()
+            es_mod.load_models = real_load
+        seen = [c[3] for c in opener2.calls if c[1] == "/quality.json"]
+        tripped = seen[-1] if seen else {}
+        if cycle2["promotion"] != "rolled_back" \
+                or ("POST", "/admin/rollback") not in [
+                    c[:2] for c in opener2.calls] \
+                or not tripped.get("gate", {}).get("rollback") \
+                or "drift" not in tripped["gate"]["reasons"] \
+                or not tripped["drift"]["tripped"]:
+            die(f"phase 20d: the planted candidate's cycle ended {cycle2}; "
+                f"the daemon's last /quality.json {json.dumps(tripped)}")
+        _, _, alive = http_call(base_e + "/")
+        if (alive["engineInstanceId"], alive["modelGeneration"]) != (
+                inst2.id, 3) or any(s_ != 200 for s_ in statuses2):
+            die(f"phase 20d: after the rollback the server reports "
+                f"{alive}; client statuses {set(statuses2)}")
+        [w2] = load_models(eng, inst2, ctx)
+        held = [names[j] for j in rng.choice(len(names), P20_HELD,
+                                             replace=False)]
+        for u in held:
+            st, _, ans = http_call(f"{base_e}/queries.json",
+                                   {"user": u, "num": 10})
+            why = mismatch(ans, w2, u) if st == 200 else st
+            if why is not None:
+                die(f"phase 20d: after the rollback the answer for {u}: "
+                    f"{why}")
+        out["fault"] = {
+            "requests": len(statuses2), "psi": tripped["drift"]["psi"],
+            "reasons": tripped["gate"]["reasons"],
+            "polls": len(seen), "cycle": cycle2["result"]}
+        stop(srv_e)
+        launches = {"fused_topk": ft.LAUNCHES,       # main path ends here
+                    "fused_gram": fg.LAUNCHES,
+                    "ridge_solve_lu": rs.LU_LAUNCHES}
+    finally:
+        es_mod.load_models = real_load
+        for srv in servers:
+            srv.stop()
+        reset_storage()
+        env.__exit__()
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - phase_t0
+    wf = out["waterfall"]
+    log(f"phase 20a waterfall: {P20_QUERIES} /queries.json from "
+        f"{P20_THREADS} threads ({wf['recs_per_s']:.1f} recs/s, result "
+        f"cache off, every one sampled), each the plain top-k of "
+        f"generation 1 and a wide event carrying {', '.join(P20_STAGES)}; "
+        f"p50 attestedSumMs / serverMs {wf['ratio_p50']:.4f}; stage ms "
+        f"(p50, p99) {json.dumps(wf['stages'])}; {wf['exemplars'][0]} of "
+        f"the {wf['exemplars'][1]} dispatch buckets' exemplars still in "
+        f"the trace ring, each resolved to its one http.request tree "
+        f"(with its waterfall event); card {card}")
+    log(f"phase 20b slo: target {P20_SLO_TARGET_MS} ms, windows 2/4 s, "
+        f"recovery 1 s: {P20_SLO_QUERIES} dispatched queries burnt latency "
+        f"{out['slo']['on']['latency_burn']} x ({out['slo']['on']['trip']}) "
+        f"→ /ready {out['slo']['on']['statuses']}, 200 again at "
+        f"{out['slo']['on']['recovered_s']} s once the same queries were "
+        f"cache hits; PIO_READY_SLO=off: /ready "
+        f"{out['slo']['off']['statuses']} while /stats.json's slo read "
+        f"degraded; card {card}")
+    log(f"phase 20c feedback: every 200 carried X-PIO-Serve-Id g1-*; "
+        f"{P20_FEEDBACK} buys echoing them through the in-process event "
+        f"server, {P20_PLANTED} on a served item: /quality.json generation "
+        f"1 {json.dumps(out['feedback'])} (planted share "
+        f"{P20_PLANTED / P20_FEEDBACK})")
+    h, f_ = out["healthy"], out["fault"]
+    log(f"phase 20d canary: RefreshDaemon cycle {h['cycle']} promoted "
+        f"through POST /reload after a {P20_CANARY_S:.0f} s window of "
+        f"{h['requests']} queries from {P20_CLIENTS} threads; the shadow "
+        f"scorer re-predicted {h['shadow_launches']} of them on the "
+        f"retained generation (one fused_topk launch each; "
+        f"{h['shadow_scored']} scored), overlap mean {h['overlap']} p10 "
+        f"{h['overlap_p10']}, drift psi {json.dumps(h['psi'])}, no "
+        f"rollback; the planted candidate (user vectors x"
+        f"{P20_DRIFT_SCALE:.0f} at load, cycle {f_['cycle']}): drift psi "
+        f"{json.dumps(f_['psi'])}, gate.rollback for {f_['reasons']} at "
+        f"the daemon's poll {f_['polls']}, POST /admin/rollback; "
+        f"generation 1 serves again, {P20_HELD} answers the plain top-k; "
+        f"{f_['requests']} queries all 200; launches "
+        f"{json.dumps(launches)}; phase 20 in {out['phase_s']:.1f} s "
+        f"(budget {PHASE20_LIMIT_S:.0f} s); card {card}")
+    if out["phase_s"] > PHASE20_LIMIT_S:
+        log(f"phase 20: over its {PHASE20_LIMIT_S:.0f} s budget")
+    return out
+
+
 def post_json(url: str, obj):
     """POST one query; returns (answer, the server's own wall ms)."""
     req = urllib.request.Request(
@@ -5697,6 +6483,17 @@ def main() -> int:
         del train[key]
     torch.cuda.empty_cache()
 
+    scorecards = timed_scorecards()
+    marks = []
+
+    def mark(phase: str) -> None:
+        """The scorecards' seconds and builds since the previous mark."""
+        prev = marks[-1][1] if marks else {"s": 0.0, "calls": 0}
+        marks.append((phase, dict(scorecards)))
+        log(f"phase {phase} scorecards: {scorecards['s'] - prev['s']:.4f} s "
+            f"in {scorecards['calls'] - prev['calls']} builds of the "
+            f"phase's in-process trains")
+
     mods = {
         "fg": fg, "rs": rs, "ft": ft, "gt": gt, "pqs": pqs, "tpq": tpq,
         "retrieval": retrieval, "exp_gram": exp_gram,
@@ -5714,6 +6511,7 @@ def main() -> int:
         # -- phase 7: events → run_train → deploy → /queries.json ---------
         dase = dase_phase(dev, args.seed, home, mods, card)
         dase_topk = dase["fused_topk"]
+        mark("7")
         torch.cuda.empty_cache()
 
         # -- phase 8: the PQ scan kernel vs its plain version --------------
@@ -5729,6 +6527,7 @@ def main() -> int:
 
         # -- phase 11: phase 7's events trained again with PQ codes --------
         pq_dase = pq_dase_phase(dase, mods, card)
+        mark("11")
         del dase
     finally:
         shutil.rmtree(home, ignore_errors=True)
@@ -5736,10 +6535,12 @@ def main() -> int:
 
     # -- phase 12: the engine.json loop across processes (the CLI) --------
     loop = cli_loop_phase(dev, args.seed, mods, card)
+    mark("12")
     torch.cuda.empty_cache()
     # -- phases 19b-e: checkpoints, profiler and traces on phase 12's store
     try:
         ckpt = checkpoint_cli_phase(dev, loop, mods, card)
+        mark("19b-e")
     except BaseException:
         shutil.rmtree(loop["work"], ignore_errors=True)
         raise
@@ -5750,10 +6551,12 @@ def main() -> int:
 
     # -- phase 13: the aggregate_properties templates (the CLI) -----------
     tpl = templates_phase(dev, args.seed, mods, card)
+    mark("13")
     torch.cuda.empty_cache()
 
     # -- phase 14: the event server: HTTP ingest → train → serve ----------
     es = eventserver_phase(dev, args.seed, mods, card)
+    mark("14")
     torch.cuda.empty_cache()
 
     # -- phase 15: the serving scheduler, the result cache, --native ------
@@ -5765,15 +6568,21 @@ def main() -> int:
     # -- phase 18: the DLRM engine on phase 12's store ---------------------
     try:
         refresh = refresh_phase(dev, args.seed, loop, mods, card)
+        mark("16")
         torch.cuda.empty_cache()
         tt = two_tower_phase(dev, args.seed, loop, mods, card)
+        mark("17")
         torch.cuda.empty_cache()
         dlrm_phase(dev, args.seed, loop, mods, card)
+        torch.cuda.empty_cache()
+        # -- phase 20: the waterfall, /ready, the quality canary gate -----
+        obs = obs_phase(dev, args.seed, loop, mods, card)
+        mark("20")
     finally:
         shutil.rmtree(loop["work"], ignore_errors=True)
     torch.cuda.empty_cache()
 
-    # -- phase 20: report --------------------------------------------------
+    # -- phase 21: report --------------------------------------------------
     main_shape = timings[(ML25M_ITEMS, 1, 10)]
     b64 = timings[(ML25M_ITEMS, 64, 10)]   # a full batch of query_batch
     kernels = [{
@@ -5784,8 +6593,9 @@ def main() -> int:
         "launches": main_launches + loop["launches"]["fused_topk"]
         + es["launches"]["fused_topk"] + sched["launches"]
         + sched["inline_launches"] + sched["native_launches"]
+        + sched["off_launches"]
         + refresh["launches"]["fused_topk"] + tt["launches"]["fused_topk"]
-        + ckpt["launches"]["fused_topk"],
+        + ckpt["launches"]["fused_topk"] + obs["launches"]["fused_topk"],
         "max_abs_err": max(max_err, err, err4),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -5815,7 +6625,8 @@ def main() -> int:
             + es["launches"].get(name, 0)
             + refresh["launches"].get(name, 0)
             + supervised["launches"].get(name, 0)
-            + ckpt["launches"].get(name, 0),
+            + ckpt["launches"].get(name, 0)
+            + obs["launches"].get(name, 0),
             "max_abs_err": train_kernel_err[name],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -5862,13 +6673,16 @@ def main() -> int:
         f"4) + {loop['launches']['fused_topk']} on the CLI path (phase 12: "
         f"batchpredict and eval) + {es['launches']['fused_topk']} in phase "
         f"14's deploy process + {sched['launches']} coalesced, "
-        f"{sched['inline_launches']} inline and "
+        f"{sched['inline_launches']} inline, {sched['off_launches']} "
+        f"on the monitors' off/on servers and "
         f"{sched['native_launches']} in the native deploy process (phase "
         f"15), {refresh['launches']['fused_topk']} in phase 16 (its "
         f"deploy process and the eviction's server), "
         f"{tt['launches']['fused_topk']} in phase 17 (two-tower: its deploy "
         f"process and retrieve(chunk=)), {ckpt['launches']['fused_topk']} "
-        f"in phase 19 (19c's eval and 19e's deploy process), {dase_topk} "
+        f"in phase 19 (19c's eval and 19e's deploy process), "
+        f"{obs['launches']['fused_topk']} in phase 20 (dispatches and the "
+        f"shadow scorer's re-predictions), {dase_topk} "
         f"on the DASE path; training "
         f"kernels per the train run (fused_gram, ridge_solve_lu) + the CLI "
         f"path's train and eval ({loop['launches']['fused_gram']}, "
@@ -5881,7 +6695,9 @@ def main() -> int:
         f"{refresh['launches']['ridge_solve_lu']}), phase 19's supervised "
         f"trains (19a {json.dumps(supervised['launches'])}, 19b-d "
         f"({ckpt['launches']['fused_gram']}, "
-        f"{ckpt['launches']['ridge_solve_lu']})) and the solver='gj' run "
+        f"{ckpt['launches']['ridge_solve_lu']})), phase 20's retrains "
+        f"({obs['launches']['fused_gram']}, "
+        f"{obs['launches']['ridge_solve_lu']}) and the solver='gj' run "
         f"(ridge_solve_gj); timings of the training kernels are over one "
         f"iteration's calls at the ML-25M shape")
     print(json.dumps({"kernels": kernels}))

@@ -2,9 +2,12 @@
 (:mod:`.trace`: spans, the trace ring behind ``GET /traces.json``,
 ``PIO_TRACE_FILE``), the workflow's phase timer, the training-pipeline
 probe (:mod:`.pipeline`), the trace-ring events, the device-memory
-sampler and the step timeline (:mod:`.runtime`), and the on-demand
-``torch.profiler`` capture (:mod:`.profiler`).  The latency waterfall,
-the SLOs and the quality monitors arrive with later slices."""
+sampler and the step timeline (:mod:`.runtime`), the on-demand
+``torch.profiler`` capture (:mod:`.profiler`), the per-request serving
+latency waterfall (:mod:`.waterfall`: ``pio_serve_stage_ms{stage}`` with
+exemplars, the ``PIO_REQUEST_LOG`` wide event), the SLO engine behind
+``/ready`` (:mod:`.slo`), and the model-quality and retrieval-recall
+monitors behind ``/quality.json`` (:mod:`.quality`, :mod:`.recall`)."""
 
 import contextlib as _contextlib
 
@@ -16,10 +19,22 @@ from predictionio_tpu_torch.obs.metrics import (
     get_registry,
     set_registry,
 )
+from predictionio_tpu_torch.obs.quality import (
+    QualityConfig,
+    QualityMonitor,
+    Scorecard,
+    reset_quality,
+)
+from predictionio_tpu_torch.obs.recall import (
+    RecallConfig,
+    RecallMonitor,
+    RecallScorecard,
+)
 from predictionio_tpu_torch.obs.runtime import (
     get_memory_sampler,
     get_timeline,
     publish_event,
+    reset_runtime,
 )
 from predictionio_tpu_torch.obs.trace import (
     Span,
@@ -35,6 +50,8 @@ from predictionio_tpu_torch.obs.trace import (
     span,
     trace,
 )
+from predictionio_tpu_torch.obs.slo import SLOConfig, SLOEngine
+from predictionio_tpu_torch.obs.waterfall import Waterfall
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
            "get_registry", "set_registry", "phase", "publish_event",
@@ -42,7 +59,9 @@ __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
            "Span", "TraceRecorder", "attach_event", "current_span",
            "current_trace_id", "get_recorder", "new_trace_id",
            "sanitize_trace_id", "set_recorder", "slow_request_ms", "span",
-           "trace"]
+           "trace", "Waterfall", "SLOConfig", "SLOEngine", "QualityConfig",
+           "QualityMonitor", "Scorecard", "RecallConfig", "RecallMonitor",
+           "RecallScorecard", "reset_observability"]
 
 
 @_contextlib.contextmanager
@@ -61,3 +80,17 @@ def phase(name: str, **attrs):
             s.finish()
             hist.observe(s.duration_ms or 0.0, phase=name)
 
+
+
+def reset_observability() -> None:
+    """Fresh registry + empty trace ring and timeline, no armed waterfall
+    and no feedback joiner (test isolation).  A caller that drives the
+    engine's handler directly (no transport) arms the request waterfall
+    and nothing finalizes it; the joiner is process-global and its
+    counters lived in the registry just reset."""
+    get_registry().reset()
+    get_recorder().clear()
+    reset_runtime()
+    from predictionio_tpu_torch.obs import waterfall as _waterfall
+    _waterfall.deactivate()
+    reset_quality()

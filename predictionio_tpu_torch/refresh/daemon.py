@@ -22,10 +22,11 @@ and the daemon keeps following — the previous generation keeps serving
 throughout, which is the whole point of promoting through the gate.
 
 Clock / sleep / HTTP are injectable so tests drive canary windows and
-follow cadences with zero wall sleeps.  The port's engine server has no
-``slo`` in ``/stats.json`` and no ``/quality.json`` until the obs layers
-arrive, so the canary window runs and reads "promoted", as the
-reference's daemon does against a server without them.  Several
+follow cadences with zero wall sleeps.  The canary window reads the
+engine server's ``slo`` in ``/stats.json`` and ``gate.rollback`` in
+``/quality.json`` (drift, shadow divergence, recall regression); a
+server without them reads "promoted", as the reference's daemon does.
+Several
 comma-separated promote URLs are fleet mode, whose rollout controller is
 not ported: the daemon refuses them rather than promote to one URL.
 """

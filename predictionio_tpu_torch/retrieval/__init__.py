@@ -31,7 +31,12 @@ Observability: ``pio_retrieval_requests_total{rung,corpus}``,
 ``pio_retrieval_candidates_total{rung,corpus}`` (rows actually scored),
 ``pio_retrieval_ms{rung}``, ``pio_retrieval_ivf_rejected_total{corpus}``
 and ``pio_retrieval_pq_rejected_total{corpus}`` — the reference's family
-and label names.  The recall hook arrives with the observability slice.
+and label names.  Each answer stamps the rung-tagged ``retrieval`` stage
+on the active latency waterfall (the batcher's per-dispatch sink), timed
+until the answer is on the host: every rung returns numpy arrays, and the
+copy of a device rung's answer waits for its kernels.  An approximate
+rung's answer is offered to ``Retriever.recall_hook`` (armed by
+:class:`~predictionio_tpu_torch.obs.recall.RecallMonitor`).
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ import torch
 
 from predictionio_tpu_torch.device import device as resolve_device
 from predictionio_tpu_torch.obs import get_registry, span
+from predictionio_tpu_torch.obs.waterfall import record_stage
 from predictionio_tpu_torch.retrieval import exact as _exact
 from predictionio_tpu_torch.retrieval.ivf import (
     IVFIndex,
@@ -150,6 +156,13 @@ class Retriever:
         self._pq: Optional[PQCodebook] = None
         self._pq_checked = False
         self._pq_dev: Optional[Tuple[torch.Tensor, ...]] = None
+        # Recall capture hook: armed per generation by
+        # ``obs.recall.RecallMonitor`` — called after approximate-rung
+        # answers with (retriever, plan, queries, ids, scanned) so
+        # sampled requests can be exactly re-ranked off-thread.  None
+        # (the default, and whenever PIO_RECALL=off) costs one attribute
+        # read per topk.
+        self.recall_hook = None
         self._rerank_dev: Dict = {}
         self._fp: Optional[str] = None
         reg = get_registry()
@@ -459,6 +472,20 @@ class Retriever:
         self._m_requests.inc(rung=p.rung, corpus=self.name)
         self._m_candidates.inc(scanned, rung=p.rung, corpus=self.name)
         self._m_latency.observe(ms, rung=p.rung)
+        # Waterfall hand-off: the serving batcher routes this into the
+        # per-dispatch sink and fans it out to every member of the cohort
+        # as the rung-tagged "retrieval" stage (⊂ dispatch).
+        record_stage("retrieval", ms, rung=p.rung,
+                     retrievalCandidates=scanned)
+        hook = self.recall_hook
+        if hook is not None and p.rung in ("ivf", "ivf_pq", "pq_flat"):
+            # Sampled recall capture — the hook does its own shared-draw
+            # sampling and bounded enqueue; it must never be able to fail
+            # a serving answer.
+            try:
+                hook(self, p, q, ids, scanned)
+            except Exception:
+                logger.debug("recall capture failed", exc_info=True)
         info = {"rung": p.rung, "k": p.k, "nprobe": p.nprobe,
                 "rerank": p.rerank, "candidates": scanned, "ms": ms}
         return scores, ids, info

@@ -4,10 +4,13 @@ Port of the core of ``predictionio_tpu/server/engine_server.py``
 (reference: core/.../workflow/CreateServer.scala): resolve the latest
 COMPLETED engine instance, load its models onto the serving device,
 answer ``POST /queries.json`` through ``Algorithm.batch_predict`` →
-``Serving.serve``, a status page at ``GET /``, counters at
-``GET /stats.json``, the process metrics at ``GET /metrics``, the trace
-ring at ``GET /traces.json`` and the step timeline at
-``GET /timeline.json``.
+``Serving.serve``, a status page at ``GET /``, readiness at ``GET /ready``
+(200 ``ready``; 503 ``degraded`` while the SLO engine trips, or
+``unavailable`` with no model), counters at ``GET /stats.json``, the
+process metrics at ``GET /metrics`` (``?exemplars=1`` adds the waterfall
+buckets' trace ids), the model-quality document and promotion gate at
+``GET /quality.json``, the trace ring at ``GET /traces.json`` and the
+step timeline at ``GET /timeline.json``.
 
 Every ``/queries.json`` goes bind → the result cache
 (:mod:`predictionio_tpu_torch.serving.result_cache`) → the serving
@@ -35,8 +38,25 @@ in whole under the lock; the previous generation is kept for
 ``POST /admin/rollback`` (``PIO_RETAIN_PREVIOUS``, dropped after
 ``PIO_RETAIN_PREVIOUS_TTL_S``).  A failed reload keeps the last-good
 generation serving and drops every reference to the candidate, so its
-staged tensors leave the card.  The quality/recall/SLO monitors arrive
-with a later slice.
+staged tensors leave the card.
+
+Observability (:mod:`predictionio_tpu_torch.obs`): every
+``/queries.json`` arms a latency waterfall (``ingress``, ``bind``,
+``cache``, the batcher's stages, ``resume``; the transport adds
+``shed_check`` and ``serialize`` and publishes ``pio_serve_stage_ms``
+and the ``PIO_REQUEST_LOG`` wide event).  The SLO engine
+(``PIO_SLO_*``, ``PIO_READY_SLO``) reads the serving counters and the
+autotuner's saturation.  The quality monitor (``PIO_QUALITY*``,
+``PIO_SHADOW_*``) samples served scores against the generation's
+training scorecard, shadow-scores a slice of live queries on the
+retained previous generation after a reload, and echoes
+``X-PIO-Serve-Id`` for the event server's feedback join; the recall
+monitor (``PIO_RECALL*``) re-ranks a sample of approximate-rung answers
+exactly, off the serving thread.  ``/quality.json``'s ``gate.rollback``
+is what the refresh daemon polls in its canary window.  The 200 body is
+encoded in the handler (a cache hit and the miss that filled it answer
+the same bytes), so that encoding lands in ``shed_check`` and
+``serialize`` is the socket write alone.
 """
 
 from __future__ import annotations
@@ -61,6 +81,10 @@ from predictionio_tpu_torch.controller import (
 from predictionio_tpu_torch.controller.params import bind_params
 from predictionio_tpu_torch.data.storage import Storage, StorageUnavailable
 from predictionio_tpu_torch.obs import get_registry, publish_event, span
+from predictionio_tpu_torch.obs import waterfall as _waterfall
+from predictionio_tpu_torch.obs.quality import SERVE_ID_HEADER, QualityMonitor
+from predictionio_tpu_torch.obs.recall import RecallMonitor
+from predictionio_tpu_torch.obs.slo import SLOConfig, SLOEngine
 from predictionio_tpu_torch.resilience import deadline as _deadline
 from predictionio_tpu_torch.resilience.deadline import DeadlineExceeded
 from predictionio_tpu_torch.resilience.faults import fault_point
@@ -75,6 +99,7 @@ from predictionio_tpu_torch.resilience.supervision import (
 from predictionio_tpu_torch.server.http import (
     BaseHandler,
     ThreadingHTTPServer,
+    param_bool,
     timeline_payload,
     traces_payload,
 )
@@ -280,6 +305,20 @@ class EngineServer:
         self.scheduler = ServingScheduler(
             config=scheduler_config or SchedulerConfig.from_env())
         self.scheduler.register("default", self._dispatch_batch)
+        # SLO engine: multi-window burn rates over the serving instruments
+        # + the autotuner's persistent-floor saturation detector, combined
+        # into the /ready degradation verdict (PIO_READY_SLO=off disables
+        # the flip, never the gauges).
+        self.slo = SLOEngine(SLOConfig.from_env(), registry=reg,
+                             saturation_fn=self.scheduler.saturated)
+        # Model-quality layer: sampled prediction stream + drift detection
+        # + shadow-scored canary + feedback join, all behind the
+        # PIO_QUALITY kill switch (off = inert no-op hooks).
+        self.quality = QualityMonitor(registry=reg)
+        # Retrieval-recall layer: sampled exact re-rank of approximate-
+        # rung answers vs each generation's own baked recall scorecard,
+        # folded into /quality.json's gate as a third verdict.
+        self.recall = RecallMonitor(registry=reg)
         # The result cache: the first stop on the query path, keyed by
         # (instance id, canonical query) so a reload misses by
         # construction.  Its optional fleet tier rides the storage's
@@ -293,8 +332,7 @@ class EngineServer:
             except Exception:
                 logger.warning("result cache: shared tier unavailable; "
                                "running local-only", exc_info=True)
-        self.result_cache = ResultCache(cache_cfg, registry=self.stats.registry,
-                                        kv=cache_kv)
+        self.result_cache = ResultCache(cache_cfg, registry=reg, kv=cache_kv)
         self.reload()
         # Server plugin seam (reference: EngineServerPlugin).  Started
         # LAST — after reload() — so plugins see a fully constructed
@@ -418,12 +456,27 @@ class EngineServer:
                 self._generation += 1
                 self._live_state = _reads_live_state(algorithms)
                 gen = self._generation
-                retained = self._previous is not None
+                prev = self._previous
+                retained = prev is not None
             self._gen_gauge.set(gen)
             self._prev_retained.set(1 if retained else 0)
-            # Seams of the quality and recall monitors (re-anchor on the
-            # new generation; shadow-score against the retained one):
-            # they arrive with the obs layers.
+            # Quality re-anchor: the new generation's scorecard becomes
+            # the drift baseline, and — while a previous generation is
+            # retained for rollback — its predict stack shadow-scores a
+            # sampled slice of live queries so the canary window can judge
+            # old-vs-new divergence.  The closure is dropped on rollback
+            # and eviction so the retained generation's tensors can leave
+            # the card.
+            shadow_fn = None
+            if retained and self.quality.enabled:
+                def shadow_fn(q, _gen=prev):
+                    return self._shadow_predict(_gen, q)
+            self.quality.on_generation(
+                gen, models, shadow_fn=shadow_fn,
+                prev_generation=prev.number if retained else None)
+            # Recall re-anchor: arm the NEW generation's retriever hook
+            # and judge it against its own baked recall scorecard.
+            self.recall.on_generation(gen, models)
             # The new instance id becomes the cache key's fingerprint:
             # every entry of the previous generation misses from here.
             self.result_cache.on_generation(gen, instance.id)
@@ -456,11 +509,14 @@ class EngineServer:
                 self._live_state = _reads_live_state(prev.algorithms)
                 gen = self._generation
                 instance_id = prev.instance.id
+                restored_models = prev.models
             self._gen_gauge.set(gen)
             self._prev_retained.set(1)
-            # Seam of the quality and recall monitors (end the shadow
-            # session, re-anchor on the restored generation): the obs
-            # layers.
+            # Quality: the rollback ends any shadow session (the "new"
+            # generation it was judging is out) and re-anchors drift on
+            # the RESTORED generation's own scorecard.
+            self.quality.on_generation(gen, restored_models)
+            self.recall.on_generation(gen, restored_models)
             # Restoring the previous instance id revalidates its surviving
             # cache entries for free — the fingerprint IS the key.
             self.result_cache.on_generation(gen, instance_id)
@@ -504,8 +560,10 @@ class EngineServer:
             self._previous = None
         self._prev_retained.set(0)
         self._prev_evicted.inc()
-        # Seam of the quality monitor's shadow session (it holds the
-        # evicted generation's predict closure): the obs layers.
+        # The shadow session holds the evicted generation's predict
+        # closure — drop it with the generation, or the eviction frees
+        # nothing.
+        self.quality.end_shadow("previous generation evicted")
         publish_event("model.previous_evicted",
                       generation=expected_generation,
                       evicted_generation=dropped)
@@ -547,6 +605,16 @@ class EngineServer:
                 predictions.append(a.predict(m, q))
         with span("predict.serve"):
             return self._result_to_json(serving.serve(q, predictions))
+
+    def _shadow_predict(self, gen: _Generation, q: Any) -> Any:
+        """Score one BOUND query against a retained (non-serving)
+        generation's full predict stack — the shadow-scoring canary's
+        reference answer.  Runs on the shadow worker thread, never a
+        handler thread."""
+        q2 = gen.serving.supplement(q)
+        preds = [a.predict(m, q2)
+                 for a, m in zip(gen.algorithms, gen.models)]
+        return self._result_to_json(gen.serving.serve(q2, preds))
 
     def query(self, query_json: Any) -> Any:
         """One predict round trip against the live generation."""
@@ -615,10 +683,33 @@ class EngineServer:
                     "device": str(self.ctx.device),
                     "batcher": self.scheduler.snapshot(),
                     "resultCache": self.result_cache.snapshot(),
+                    "slo": self.slo.snapshot(),
                     "version": __version__,
                 }
+            if path == "/ready" and method == "GET":
+                # Readiness (vs "/" liveness): a model is loaded AND the
+                # SLO/saturation signal is healthy — 503 rotates the
+                # instance out of the LB pool (PIO_READY_SLO=off is the
+                # operator escape hatch; hysteresis in the engine).
+                with self._swap_lock:
+                    inst = self._instance
+                    serving = self._serving
+                loaded = inst is not None and serving is not None
+                slo_ok, slo_state = self.slo.ready()
+                ok = loaded and slo_ok
+                status = "ready" if ok else (
+                    "degraded" if loaded else "unavailable")
+                return (200 if ok else 503), {
+                    "status": status,
+                    "engineInstanceId": inst.id if inst else None,
+                    "slo": slo_state,
+                }
             if path == "/metrics" and method == "GET":
-                return 200, self.stats.registry.render()
+                # ?exemplars=1 appends the OpenMetrics trace-id suffixes
+                # to the waterfall buckets — opt-in, classic scrapers
+                # choke on them.
+                return 200, self.stats.registry.render(
+                    exemplars=param_bool(params, "exemplars"))
             if path == "/stats.json" and method == "GET":
                 with self._swap_lock:
                     inst = self._instance
@@ -626,8 +717,17 @@ class EngineServer:
                 return 200, {**self.stats.snapshot(),
                              "batcher": self.scheduler.snapshot(),
                              "resultCache": self.result_cache.snapshot(),
+                             "slo": self.slo.snapshot(),
+                             "quality": self.quality.summary(),
                              "dataWatermark": wm.isoformat() if wm
                              else None}
+            if path == "/quality.json" and method == "GET":
+                # Drift vs the training scorecard, shadow-canary
+                # divergence, online hit rate, and the promotion-gate
+                # verdict the refresh daemon polls in its canary window;
+                # the recall layer folds its verdict into the same gate.
+                return 200, self.recall.augment_quality(
+                    self.quality.payload())
             if path == "/traces.json" and method == "GET":
                 # ?request_id= resolves one trace; ?min_ms=/?limit= bound
                 # the view (the shared helper).
@@ -696,41 +796,97 @@ class EngineServer:
         """``POST /queries.json``: bind → result cache → scheduler →
         cache fill under the dispatch's generation → the respond gate.
         A 200 body is the compact JSON the cache keeps, so a hit and the
-        miss that filled it answer the same bytes."""
+        miss that filled it answer the same bytes.  Arms the request's
+        latency waterfall; the transport finalizes it after the write."""
         t0 = time.perf_counter()
+        _waterfall.activate()
         try:
             # Shed BEFORE admission: a request whose budget is spent must
             # not occupy a queue slot.
             _deadline.check("predict")
+            tb = time.perf_counter()
+            # ingress: transport receipt → here (socket body read, trace
+            # setup, routing, the deadline check) — real wall the
+            # attestation contains, so the waterfall bills it.
+            t0t = _waterfall.transport_start()
+            if t0t is not None and tb > t0t:
+                _waterfall.record_stage("ingress", (tb - t0t) * 1e3)
             # Bind BEFORE admission: a malformed query 400s on this thread
             # and never occupies a queue slot or fails its cohort.
             q = self._bind_query(json.loads(body.decode("utf-8")))
+            _waterfall.record_stage("bind", (time.perf_counter() - tb) * 1e3)
+            wf = _waterfall.current_waterfall()
+            # ONE uniform draw per request: the prediction record stream,
+            # shadow sampling, recall capture and the
+            # PIO_REQUEST_LOG_SAMPLE wide-event sampler all compare this
+            # same u against their own rates.
+            u = self.quality.draw() if self.quality.enabled \
+                else (self.recall.draw() if self.recall.enabled else None)
+            if wf is not None and u is not None:
+                wf.sample_u = u
             canon = None
             if self.result_cache.enabled and not self._live_state:
+                tc = time.perf_counter()
                 try:
                     canon = canonical_query(q)
                 except TypeError:
                     canon = None  # uncacheable query shape
                 hit = (self.result_cache.lookup(canon)
                        if canon is not None else None)
+                # The lookup is stamped on misses too: it is real wall
+                # the attestation contains.
+                _waterfall.record_stage(
+                    "cache", (time.perf_counter() - tc) * 1e3,
+                    cacheHit=hit is not None)
                 if hit is not None:
+                    # A hit bypasses admission and batching but carries
+                    # the FILL generation, so attribution and the serve
+                    # id describe the answer actually served.
+                    if wf is not None:
+                        wf.note(generation=hit.generation,
+                                cacheTier=hit.tier,
+                                cacheAgeS=round(hit.age_s, 3))
+                        wf.mark("handler_done")
                     # Same never-late-200 gate as the dispatch path.
                     _deadline.check("respond")
+                    # Parse the document only when this request is
+                    # quality-sampled: an unsampled hit serves the cached
+                    # bytes untouched.
+                    if (u is not None and self.quality.enabled
+                            and u < self.quality.config.sample):
+                        sid = self.quality.observe(
+                            q, hit.result, hit.generation, u)
+                        if sid is not None and wf is not None:
+                            wf.note(serveId=sid)
                     self.stats.record((time.perf_counter() - t0) * 1e3, True)
                     return 200, hit.result_bytes, _JSON_CTYPE
             # The ONLY route to the model: admission queue → micro-batcher
             # → one vectorized dispatch for the cohort.
-            result, generation = self.scheduler.submit_and_wait(
-                "default", q)
-            # Fill under the generation the dispatch RETURNED — never
-            # "current" — so a mid-flight reload cannot cache generation
-            # A's answer under B's key.  Before the respond gate: a late
-            # result still warms the cache for the retry.
+            try:
+                result = self.scheduler.submit_and_wait("default", q)
+            finally:
+                # shed_check opens here: the transport stamps it from this
+                # mark, so the segment between the scheduler hand-back and
+                # the respond write is accounted.
+                if wf is not None:
+                    wf.mark("handler_done")
+            generation = wf.attr("generation") if wf is not None else None
+            # Fill under the generation the batcher STAMPED at dispatch —
+            # never "current" — so a mid-flight reload cannot cache
+            # generation A's answer under B's key.  Before the respond
+            # gate: a late result still warms the cache for the retry.
             if canon is not None:
                 self.result_cache.fill(canon, result, generation)
             # A result that arrived past its own deadline is never served
             # as a slow 200.
             _deadline.check("respond")
+            # Quality record stream at the scheduler hand-back: one
+            # sampled append, attributed to the dispatch's generation.
+            sid = self.quality.observe(q, result, generation, u)
+            if sid is not None and wf is not None:
+                # Rides the waterfall into the wide event AND to the
+                # transport hook that echoes it as X-PIO-Serve-Id.
+                wf.note(serveId=sid)
             self.stats.record((time.perf_counter() - t0) * 1e3, True)
             return (200, json.dumps(result, separators=(",", ":")).encode(),
                     _JSON_CTYPE)
@@ -778,9 +934,17 @@ class EngineServer:
 
             def pio_on_complete(self, method, path, status, ms, body,
                                 params):
-                return server_self.plugins.on_request(
-                    f"{method} {path}", status, ms) \
-                    if server_self.plugins else None
+                extra = dict(server_self.plugins.on_request(
+                    f"{method} {path}", status, ms) or {}) \
+                    if server_self.plugins else {}
+                # Serve-id echo: the quality layer noted the sampled serve
+                # on the request's waterfall; the client echoes it on its
+                # feedback event (properties.pioServeId).
+                wf = _waterfall.current_waterfall()
+                sid = wf.attr("serveId") if wf is not None else None
+                if sid:
+                    extra[SERVE_ID_HEADER] = str(sid)
+                return extra or None
 
             def do_GET(self):  # noqa: N802
                 self.dispatch("GET")
@@ -820,4 +984,6 @@ class EngineServer:
         if timer is not None:
             timer.cancel()
         self.scheduler.close()
+        self.quality.close()
+        self.recall.close()
         self.plugins.stop()

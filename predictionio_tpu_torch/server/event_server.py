@@ -5,9 +5,12 @@ status codes and JSON bodies, the same exactly-once batch ids, the same
 breaker, spill and admission behaviour, and the same entry for the
 native frontend (``native_fallback_batch``: ``pio eventserver
 --native``).  It never touches the card; the verbs that train and serve
-what it ingested do.  Not ported yet: the columnar segment tee
-(``/ready`` reports ``diskDegraded: false`` and no segment fields) and
-the feedback join of the quality layer.
+what it ingested do.  A landed feedback event that echoes a served
+recommendation's id (``properties.pioServeId``) joins back to the served
+items in the quality layer (:func:`~predictionio_tpu_torch.obs.quality.
+note_feedback_events`; process-local, as in the reference).  Not ported
+yet: the columnar segment tee (``/ready`` reports ``diskDegraded:
+false`` and no segment fields).
 
 Reference: data/.../data/api/EventServer.scala + EventServiceActor routes
 (SURVEY.md §3.3).  API parity (Appendix A):
@@ -60,6 +63,7 @@ from predictionio_tpu_torch.data.storage import (
 from predictionio_tpu_torch.data.storage.base import epoch_us
 from predictionio_tpu_torch.data.webhooks import ConnectorError, get_connector
 from predictionio_tpu_torch.obs import get_registry
+from predictionio_tpu_torch.obs.quality import note_feedback_events
 from predictionio_tpu_torch.resilience import idempotency_key
 from predictionio_tpu_torch.resilience.deadline import DeadlineExceeded
 from predictionio_tpu_torch.resilience.faults import fault_point
@@ -384,9 +388,17 @@ class EventServer:
         LANDED in the store.  First touch of an app seeds the floor from
         the backend's own MAX so a restarted server reports the true
         store-wide watermark, not just this process's ingest.  Spilled
-        (202) events advance it only when replay lands them.  (The
-        reference also joins feedback events to served items here; that
-        arrives with the port's quality layer.)"""
+        (202) events advance it only when replay lands them.
+
+        Also the feedback-join hook: a landed buy/rate event echoing a
+        served recommendation's id (``properties.pioServeId``) joins back
+        to the served item set → online hit rate per model generation.
+        Joining here — not at accept time — means spilled (202) events
+        count only when replay lands them, the watermark's contract."""
+        try:
+            note_feedback_events(evs)
+        except Exception:
+            logger.exception("feedback join failed (ingest unaffected)")
         newest = None
         for ev in evs:
             us = epoch_us(ev.event_time)

@@ -23,12 +23,14 @@ Port of ``predictionio_tpu/server/http.py``:
   answers.  Subclasses implement :meth:`BaseHandler.pio_handle` and
   override the small hooks below it.  A handler answers ``(status,
   payload)``, or ``(status, payload, content_type)`` when the payload is
-  already the body (the result cache's hit bytes).
+  already the body (the result cache's hit bytes).  The path also closes
+  the request's latency waterfall when a handler armed one
+  (:mod:`predictionio_tpu_torch.obs.waterfall`): it notes the receipt
+  time for ``ingress``, stamps ``shed_check`` and ``serialize``,
+  finalizes the collector and attaches its ``waterfall`` event to the
+  request's span.
 - :func:`traces_payload` / :func:`timeline_payload` — the shared
   ``GET /traces.json`` and ``GET /timeline.json`` views.
-
-The reference's dispatch also feeds the latency waterfall; that arrives
-with the port's waterfall.
 """
 
 from __future__ import annotations
@@ -44,7 +46,9 @@ from typing import Any, Dict, List, Optional, Tuple
 from urllib.parse import parse_qs, urlparse
 
 from predictionio_tpu_torch.config import env_bool
+from predictionio_tpu_torch.obs import waterfall as _waterfall
 from predictionio_tpu_torch.obs.trace import (
+    attach_event,
     current_trace_id,
     get_recorder,
     sanitize_trace_id,
@@ -221,6 +225,10 @@ class BaseHandler(BaseHTTPRequestHandler):
 
     def dispatch(self, method: str) -> None:
         t0 = time.perf_counter()
+        # Receipt wall for the waterfall's ingress stage (the engine
+        # handler arms the collector mid-handle, after body read+routing
+        # already happened — it reads this to bill them).
+        _waterfall.note_transport_start(t0)
         with trace("http.request",
                    trace_id=incoming_request_id(self.headers),
                    slow_ms=slow_request_ms(),
@@ -244,6 +252,7 @@ class BaseHandler(BaseHTTPRequestHandler):
                         out = self.pio_handle(method, parsed.path, params,
                                               body)
                     remaining = _deadline.remaining_ms()
+            t_shed = time.perf_counter()
             status, payload = out[0], out[1]
             ctype = out[2] if len(out) == 3 else None
             if (self.shed_late_responses and remaining is not None
@@ -270,7 +279,17 @@ class BaseHandler(BaseHTTPRequestHandler):
             if retry_after is not None and \
                     status in self.retry_after_statuses:
                 extra.setdefault("Retry-After", str(retry_after))
-            with span("http.respond"):
+            wf = _waterfall.current_waterfall()
+            if wf is not None:
+                # shed_check: scheduler hand-back → the respond write —
+                # the handler's span unwind + stats hooks (from the
+                # handler_done mark when the engine set one), the
+                # late-shed verdict, and response-header assembly, so the
+                # stage sum reconciles with X-PIO-Server-Ms.
+                t_fin = wf.take_mark("handler_done") or t_shed
+                wf.stamp("shed_check",
+                         (time.perf_counter() - t_fin) * 1e3)
+            with span("http.respond") as rspan:
                 if ctype is None:
                     data, ctype = payload_bytes(payload)
                 else:
@@ -278,6 +297,18 @@ class BaseHandler(BaseHTTPRequestHandler):
                             else payload)
                 self.respond(status, data, ctype, extra,
                              request_id=current_trace_id())
+            if wf is not None:
+                # serialize: the respond write (body bytes + the socket).
+                wf.stamp("serialize", rspan.duration_ms or 0.0)
+                doc = wf.finalize(
+                    trace_id=current_trace_id(), status=status,
+                    total_ms=(time.perf_counter() - t0) * 1e3,
+                    attested_ms=ms)
+                if doc:
+                    attach_event(troot, "waterfall",
+                                 **{k: v for k, v in doc.items()
+                                    if k not in ("ts", "traceId")})
+                _waterfall.deactivate()
 
     def respond(self, status: int, data: bytes, ctype: str,
                 extra_headers: Optional[Dict[str, str]] = None,

@@ -21,8 +21,9 @@ Layout:
   scheduler.
 - :class:`ServingScheduler` (here) — the facade the engine server talks
   to: ``register`` a model's dispatch fn, ``submit_and_wait`` per
-  request (which hands back the result AND the generation that answered
-  it), ``snapshot`` for the status page, ``close`` on shutdown.
+  request, ``snapshot`` for the status page, ``close`` on shutdown.  The
+  generation that answered a request rides its latency waterfall
+  (:mod:`predictionio_tpu_torch.obs.waterfall`), stamped by the batcher.
 
 Env knobs (all read at server construction; ``pio deploy`` flags
 override):
@@ -51,6 +52,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from predictionio_tpu_torch.config import env_bool as _truthy
 from predictionio_tpu_torch.obs import current_span, get_registry
+from predictionio_tpu_torch.obs.waterfall import current_waterfall
 from predictionio_tpu_torch.resilience import deadline as _deadline
 from predictionio_tpu_torch.resilience.deadline import DeadlineExceeded
 from predictionio_tpu_torch.serving.autotune import WindowAutotuner
@@ -209,11 +211,10 @@ class ServingScheduler:
 
     # -- the per-request path ----------------------------------------------
 
-    def submit_and_wait(self, model: str, query: Any
-                        ) -> Tuple[Any, Optional[int]]:
-        """Admit one query and block until its batch answers (or sheds);
-        returns ``(result, generation)``: the answer and the model
-        generation the dispatch served it from.
+    def submit_and_wait(self, model: str, query: Any) -> Any:
+        """Admit one query and block until its batch answers (or sheds).
+        The generation the dispatch served it from is stamped on the
+        request's waterfall (``current_waterfall().attr("generation")``).
 
         Raises :class:`QueueFull` (→429), :class:`DeadlineExceeded`
         (→504), :class:`SchedulerStalled`/:class:`SchedulerClosed`
@@ -229,7 +230,11 @@ class ServingScheduler:
         now = self.clock.now()
         rem = _deadline.remaining_ms()
         deadline_s = now + rem / 1e3 if rem is not None else None
-        pending = Pending(query, now, deadline_s, span=current_span())
+        # The request's stage collector rides the Pending hand-off so the
+        # batcher thread can stamp queue_wait/batch_wait/dispatch/
+        # retrieval (and the generation) onto it.
+        pending = Pending(query, now, deadline_s, span=current_span(),
+                          waterfall=current_waterfall())
         if not self.config.enabled:
             return self._submit_inline(model, lane, pending)
         try:
@@ -251,12 +256,25 @@ class ServingScheduler:
                     f"({timeout * 1e3:.0f}ms budget)")
             raise SchedulerStalled(
                 f"no dispatch within {stall_s:.0f}s — batcher wedged?")
+        if pending.waterfall is not None:
+            # resume: dispatch done → this thread actually running again
+            # (event wake-up + GIL/thread contention).  Computed as the
+            # admission→result wall minus the batcher-attributed stages,
+            # ON THE SAME CLOCK the batcher stamped with — without it the
+            # stage sum undershoots the server-attested wall under
+            # concurrency.
+            done = pending.waterfall.snapshot()
+            resid = (self.clock.now() - now) * 1e3 - sum(
+                done.get(s, 0.0)
+                for s in ("queue_wait", "batch_wait", "dispatch"))
+            if resid > 0:
+                pending.waterfall.stamp("resume", resid)
         if pending.error is not None:
             raise pending.error
-        return pending.result, pending.generation
+        return pending.result
 
     def _submit_inline(self, model: str, lane: _ModelLane,
-                       pending: Pending) -> Tuple[Any, Optional[int]]:
+                       pending: Pending) -> Any:
         """Batching disabled: dispatch on the caller thread through the
         SAME batcher machinery (metrics, deadline shed), with the
         queue-depth limit enforced as an in-flight cap."""
@@ -274,13 +292,14 @@ class ServingScheduler:
                 lane.inline_inflight -= 1
         if pending.error is not None:
             raise pending.error
-        return pending.result, pending.generation
+        return pending.result
 
     # -- introspection / lifecycle ------------------------------------------
 
     def saturated(self) -> bool:
         """Any model lane's autotuner reporting persistent-floor
-        saturation (offered load > capacity)."""
+        saturation (offered load > capacity) — the serving half of the
+        SLO engine's /ready degradation signal."""
         return any(lane.autotuner is not None and lane.autotuner.saturated()
                    for lane in self._lanes.values())
 

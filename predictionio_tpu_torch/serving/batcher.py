@@ -23,9 +23,9 @@ Generation safety: the whole batch goes through ONE ``dispatch_fn`` call,
 and the engine server's dispatch snapshots (models, generation) once
 under its swap lock — a reload that lands mid-gather flips the NEXT
 batch, never splits this one.  ``dispatch_fn(queries) -> (results,
-generation)`` returns the generation it served, and every member's
-:class:`~predictionio_tpu_torch.serving.queue.Pending` carries it back
-to its submitter, where the result cache fills under it.
+generation)`` returns the generation it served; it is stamped on every
+member's latency waterfall (``Pending.waterfall``), from which the
+submitter's result cache fill reads it.
 
 Failure isolation: when a batch dispatch raises, the batcher retries the
 members individually so one malformed query (bind error) 400s itself
@@ -35,8 +35,13 @@ Tracing: each dispatch is its own root trace ``batcher.dispatch`` (the
 batcher thread has no request context; on the inline path it nests in
 the request's trace), and every member request gets a zero-duration
 ``batcher.dispatch`` event on its own span naming the batch, its size
-and the generation.  The reference also stamps each member's latency
-waterfall; that layer arrives with a later slice.
+and the generation.
+
+Waterfall: every member's collector gets ``queue_wait`` (admission →
+gather pickup), ``batch_wait`` (pickup → dispatch start) and
+``dispatch``, on every finish path (a shed, a failed batch, a per-member
+retry).  Library code under the dispatch (the retrieval facade) records
+into one per-dispatch sink, merged into every member.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 from predictionio_tpu_torch.obs import attach_event, get_registry
 from predictionio_tpu_torch.obs import trace as _trace
+from predictionio_tpu_torch.obs.waterfall import Waterfall, dispatch_sink
 from predictionio_tpu_torch.resilience.deadline import DeadlineExceeded
 from predictionio_tpu_torch.serving.queue import (
     Clock,
@@ -176,6 +182,9 @@ class MicroBatcher:
                 return []
         batch = [first]
         opened = self.clock.now()
+        # Waterfall: gather pickup splits the member's admission→dispatch
+        # wait into queue_wait (before pickup) and batch_wait (window).
+        first.gathered_s = opened
         window_s = self.window_s if self._lone_streak < 2 else 0.0
         close = opened + window_s
         close = min(close, self._latest_dispatch_s(first))
@@ -186,6 +195,7 @@ class MicroBatcher:
             entry = self.queue.take(self.clock, timeout=0)
             if entry is None:
                 break
+            entry.gathered_s = self.clock.now()
             batch.append(entry)
             close = min(close, self._latest_dispatch_s(entry))
         while len(batch) < self.max_size:
@@ -197,12 +207,26 @@ class MicroBatcher:
                 if self.queue.closed() or self.clock.now() >= close:
                     break
                 continue
+            entry.gathered_s = self.clock.now()
             batch.append(entry)
             close = min(close, self._latest_dispatch_s(entry))
         self._lone_streak = self._lone_streak + 1 if len(batch) == 1 else 0
         return batch
 
     # -- dispatch -----------------------------------------------------------
+
+    def _stamp_waits(self, e: Pending, end_s: float) -> None:
+        """queue_wait (admission → gather pickup) + batch_wait (pickup →
+        ``end_s``) onto a member's waterfall.  Called on EVERY finish
+        path — dispatch, pre-dispatch shed, failed batch — so a 504's
+        wall is attributed to queueing, never mistaken for the waiter's
+        post-dispatch resume residual."""
+        if e.waterfall is None:
+            return
+        gathered = e.gathered_s if e.gathered_s is not None else end_s
+        e.waterfall.stamp("queue_wait",
+                          max(gathered - e.enqueued_s, 0.0) * 1e3)
+        e.waterfall.stamp("batch_wait", max(end_s - gathered, 0.0) * 1e3)
 
     def dispatch(self, batch: Sequence[Pending]) -> int:
         """Claim, shed expired, run ONE vectorized dispatch, finish all.
@@ -217,6 +241,10 @@ class MicroBatcher:
                 continue  # waiter already walked (deadline) — silent drop
             if e.deadline_s is not None and now >= e.deadline_s:
                 # Expired in the queue: 504 upstream, no device work.
+                # Stamp the waits first so the 504's wide event bills
+                # this wall to queue_wait/batch_wait, not to the waiter's
+                # resume residual.
+                self._stamp_waits(e, now)
                 self._m_shed.inc(model=self.model, reason="expired")
                 e.finish(error=DeadlineExceeded(
                     "deadline expired while queued for batch dispatch "
@@ -226,21 +254,48 @@ class MicroBatcher:
         if not live:
             return 0
         batch_id = uuid.uuid4().hex[:12]
+        # Per-dispatch stage sink: library code under the dispatch (the
+        # retrieval facade) records stages here; the result is fanned out
+        # to every member's waterfall below — one corpus scan, one shared
+        # "retrieval" reading per cohort.
+        sink = Waterfall()
+        # The cohort shares ONE retrieval scan, so it shares one recall
+        # sampling decision: the first member's per-request draw rides
+        # the sink, where the retrieval facade's recall capture reads it.
+        for e in live:
+            wf = e.waterfall
+            if wf is not None and wf.sample_u is not None:
+                sink.sample_u = wf.sample_u
+                break
         t0 = self.clock.now()
+        # queue_wait/batch_wait are fully determined at dispatch start —
+        # stamp them NOW, on every outcome path (success, failure, retry).
+        for e in live:
+            self._stamp_waits(e, t0)
         try:
             # The dispatch is its own root trace: the ring shows every
             # coalesced dispatch, and member requests join it by batch_id
             # through the event attached to their spans below.
             with _trace("batcher.dispatch", model=self.model,
                         batch_id=batch_id, batch_size=len(live)) as troot:
-                results, generation = self.dispatch_fn(
-                    [e.query for e in live])
+                with dispatch_sink(sink):
+                    results, generation = self.dispatch_fn(
+                        [e.query for e in live])
                 if len(results) != len(live):
                     raise ValueError(
                         f"dispatch returned {len(results)} results for "
                         f"{len(live)} queries")
                 troot.set(generation=generation)
         except Exception as exc:
+            # The failed attempt's time is real wall the members waited
+            # through — bill it (stamps accumulate: a retried dispatch
+            # bills both attempts).
+            dt_fail = (self.clock.now() - t0) * 1e3
+            for e in live:
+                if e.waterfall is not None:
+                    e.waterfall.stamp("dispatch", dt_fail,
+                                      batchSize=len(live), failed=True,
+                                      model=self.model)
             if len(live) == 1:
                 # Retrying a singleton would replay the IDENTICAL call —
                 # pure double work for the same error.
@@ -258,10 +313,18 @@ class MicroBatcher:
         self._m_requests.inc(n, model=self.model)
         self._m_batch_size.observe(n, model=self.model)
         self._m_dispatch_ms.observe(dt * 1e3, model=self.model)
+        sink_stages, sink_attrs = sink.export()
         for e, r in zip(live, results):
             wait_ms = (t0 - e.enqueued_s) * 1e3
             self._m_wait_ms.observe(wait_ms, model=self.model)
             self._m_coalesce.observe(1.0 / n, model=self.model)
+            if e.waterfall is not None:
+                # queue_wait/batch_wait already stamped at dispatch start;
+                # the generation rides here to the submitter's cache fill.
+                e.waterfall.stamp("dispatch", dt * 1e3,
+                                  batchSize=n, generation=generation,
+                                  model=self.model)
+                e.waterfall.merge(sink_stages, **sink_attrs)
             # Join the dispatch to the member request's own span tree:
             # which batch carried it, how big the cohort was, and which
             # generation answered.
@@ -273,7 +336,7 @@ class MicroBatcher:
             if self.autotuner is not None:
                 self.autotuner.observe((self.clock.now() - e.enqueued_s)
                                        * 1e3)
-            e.finish(result=r, generation=generation)
+            e.finish(result=r)
         if self.autotuner is not None:
             self.autotuner.after_dispatch(self)
         return n
@@ -294,8 +357,23 @@ class MicroBatcher:
                     "deadline expired during batch retry "
                     f"({(now - e.deadline_s) * 1e3:.0f}ms over budget)"))
                 continue
+            t1 = self.clock.now()
             try:
-                results, generation = self.dispatch_fn([e.query])
+                sink = Waterfall()
+                if e.waterfall is not None:
+                    sink.sample_u = e.waterfall.sample_u
+                with dispatch_sink(sink):
+                    results, generation = self.dispatch_fn([e.query])
+                if e.waterfall is not None:
+                    # Waits already stamped at the failed batch's start;
+                    # this retry's dispatch accumulates onto the failed
+                    # attempt's.
+                    e.waterfall.stamp(
+                        "dispatch", (self.clock.now() - t1) * 1e3,
+                        batchSize=1, isolated=True,
+                        generation=generation, model=self.model)
+                    stages, attrs = sink.export()
+                    e.waterfall.merge(stages, **attrs)
                 e.annotate(attach_event, "batcher.dispatch",
                            batch_id=batch_id, model=self.model,
                            batch_size=1, isolated=True,
@@ -304,8 +382,13 @@ class MicroBatcher:
                 self._m_requests.inc(model=self.model)
                 self._m_batch_size.observe(1, model=self.model)
                 self._m_coalesce.observe(1.0, model=self.model)
-                e.finish(result=results[0], generation=generation)
+                e.finish(result=results[0])
             except Exception as exc:  # noqa: BLE001 - per-item verdict
+                if e.waterfall is not None:
+                    e.waterfall.stamp(
+                        "dispatch", (self.clock.now() - t1) * 1e3,
+                        batchSize=1, isolated=True, failed=True,
+                        model=self.model)
                 e.finish(error=exc)
 
     # -- loop / lifecycle ---------------------------------------------------

@@ -17,9 +17,10 @@ Pieces:
   ``claimed`` (a batcher owns it) → ``done``; or ``queued`` →
   ``abandoned`` when the submitting thread gave up (deadline) before any
   batch took it.  The claim/abandon race is settled by one lock so a
-  request is never both answered and re-dispatched.  A finished entry
-  carries the model generation its dispatch answered under
-  (``generation``): the result cache fills under it.
+  request is never both answered and re-dispatched.  An entry carries
+  its request's latency waterfall (``waterfall``), on which the batcher
+  stamps the stages it owns and the generation its dispatch answered
+  under: the result cache fills under that generation.
 - :class:`ModelQueue` — bounded FIFO + condition variable, one per
   registered model, with a depth hook for the gauge.
 """
@@ -89,16 +90,16 @@ class Pending:
     """One admitted query awaiting its batch.
 
     The submitting (HTTP handler) thread blocks on :meth:`wait_done`;
-    the batcher thread claims, dispatches, and :meth:`finish`\\ es it with
-    the result and the generation the dispatch returned.  ``span``
-    carries the submitting request's open trace span so the batcher can
-    attach its ``batcher.dispatch`` event to the request's own tree (the
-    handler thread is parked in ``wait_done`` while the batcher writes).
+    the batcher thread claims, dispatches, and :meth:`finish`\\ es it.
+    ``span`` carries the submitting request's open trace span so the
+    batcher can attach its ``batcher.dispatch`` event to the request's own
+    tree (the handler thread is parked in ``wait_done`` while the batcher
+    writes).
     """
 
     __slots__ = ("query", "enqueued_s", "deadline_s", "span", "state",
-                 "result", "generation", "error", "walked", "_lock",
-                 "_done")
+                 "result", "error", "walked", "_lock", "_done",
+                 "gathered_s", "waterfall")
 
     QUEUED = "queued"
     CLAIMED = "claimed"
@@ -106,21 +107,28 @@ class Pending:
     DONE = "done"
 
     def __init__(self, query: Any, enqueued_s: float,
-                 deadline_s: Optional[float] = None, span: Any = None):
+                 deadline_s: Optional[float] = None, span: Any = None,
+                 waterfall: Any = None):
         self.query = query
         self.enqueued_s = enqueued_s
         self.deadline_s = deadline_s
         self.span = span
         self.state = Pending.QUEUED
         self.result: Any = None
-        # The model generation that answered (None until a dispatch did).
-        self.generation: Optional[int] = None
         self.error: Optional[BaseException] = None
         # True once the submitting thread stopped waiting (deadline): its
         # span tree may be serializing, so no one may touch it.
         self.walked = False
         self._lock = threading.Lock()
         self._done = threading.Event()
+        # Stamped by the batcher when a gather picks the entry up —
+        # splits the admission→dispatch wait into queue_wait (admission →
+        # pickup) and batch_wait (pickup → dispatch start).
+        self.gathered_s: Optional[float] = None
+        # The submitting request's stage collector (obs.waterfall); the
+        # collector is internally locked and close-once, so cross-thread
+        # stamps from the batcher are safe even against a walked waiter.
+        self.waterfall = waterfall
 
     def claim(self) -> bool:
         """Batcher takes ownership; False if the waiter already walked."""
@@ -149,12 +157,10 @@ class Pending:
                 attach(self.span, name, **attrs)
 
     def finish(self, result: Any = None,
-               error: Optional[BaseException] = None,
-               generation: Optional[int] = None) -> None:
+               error: Optional[BaseException] = None) -> None:
         with self._lock:
             self.state = Pending.DONE
         self.result = result
-        self.generation = generation
         self.error = error
         self._done.set()
 

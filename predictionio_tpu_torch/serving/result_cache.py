@@ -26,9 +26,8 @@ Layout
   negative caching so an unknown-entity query storm doesn't punch
   through to the fold-in path on every request.
 
-Mid-flight swap safety: the handler fills under the generation that the
-batcher's dispatch RETURNED for that request (``Pending.generation``,
-handed back by ``ServingScheduler.submit_and_wait``), never under
+Mid-flight swap safety: the handler fills under the generation the
+batcher *stamped on the request's waterfall at dispatch*, never under
 "whatever is current at hand-back".  :meth:`ResultCache.fill` resolves it
 through a bounded generation→fingerprint map maintained by
 :meth:`on_generation`; a generation the map does not know — ``None``
@@ -71,7 +70,7 @@ import logging
 import threading
 import time
 from collections import OrderedDict
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 from predictionio_tpu_torch.config import env_bool
 from predictionio_tpu_torch.obs.metrics import MetricsRegistry, get_registry
@@ -199,26 +198,6 @@ def canonical_query(query: Any,
     return json.dumps(canon, sort_keys=True, separators=(",", ":"))
 
 
-def _result_items(result: Any) -> Optional[List[Tuple[Any, float]]]:
-    """``[(item, score), ...]`` out of a served result JSON, or None for
-    shapes that carry no scored list (the reference's
-    ``obs.quality.extract_result_items``, which the port has no module
-    for yet): ``{"itemScores": [{"item", "score"}]}``, the contract every
-    shipped retrieval template speaks, or a bare numeric ``score``.  An
-    empty list marks a negative entry."""
-    if not isinstance(result, dict):
-        return None
-    rows = result.get("itemScores")
-    if isinstance(rows, list):
-        return [(r.get("item"), float(r["score"])) for r in rows
-                if isinstance(r, dict)
-                and isinstance(r.get("score"), (int, float))]
-    s = result.get("score")
-    if isinstance(s, (int, float)):
-        return [(None, float(s))]
-    return None
-
-
 # --------------------------------------------------------------------------
 # config
 # --------------------------------------------------------------------------
@@ -279,7 +258,9 @@ class CacheHit:
     parse + re-dump of a document that is already exactly the response
     body.  ``result`` deserializes FRESH per access — a caller that does
     want the document may change it without corrupting the cached entry.
-    ``generation`` is the generation the entry was *filled* under.
+    ``generation`` is the generation the entry was *filled* under: the hit
+    path stamps it on the waterfall so attribution and the quality
+    layer's serve id describe the answer actually served.
     """
 
     result_json: str
@@ -592,7 +573,9 @@ class ResultCache:
             self._m_rate.set(self._hits / total)
 
     def _is_negative(self, result: Any) -> bool:
-        return _result_items(result) == []
+        from predictionio_tpu_torch.obs.quality import extract_result_items
+
+        return extract_result_items(result) == []
 
     def snapshot(self) -> Dict[str, Any]:
         with self._lock:

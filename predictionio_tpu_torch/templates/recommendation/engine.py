@@ -28,7 +28,10 @@ folds.  A generation trained elsewhere can still be carried in with
 :func:`predictionio_tpu_torch.workflow.core_workflow.persist_instance`.
 ``ALSAlgorithm.warm_start`` is the refresh loop's delta warm start
 (host float64 ridge sweeps over the delta-touched rows, as in the
-reference).  Not ported yet: the quality and recall scorecards.
+reference).  Every generation, trained or warm-started, carries its
+quality scorecard (the rank-1 score distribution the serving drift
+detector compares against) and, when it built IVF or PQ, its recall
+scorecard (the offline recall of those structures).
 """
 
 from __future__ import annotations
@@ -62,6 +65,16 @@ from predictionio_tpu_torch.data.event import BiMap
 from predictionio_tpu_torch.data.storage.base import epoch_us
 from predictionio_tpu_torch.models import als as als_lib
 from predictionio_tpu_torch.obs import get_registry, span
+from predictionio_tpu_torch.obs.quality import (
+    Scorecard,
+    scorecard_from_mapping,
+    scorecard_from_matrix,
+)
+from predictionio_tpu_torch.obs.recall import (
+    RecallScorecard,
+    build_recall_scorecard,
+    recall_scorecard_from_mapping,
+)
 from predictionio_tpu_torch.retrieval import (
     IVFIndex,
     PQCodebook,
@@ -337,8 +350,9 @@ class ALSModelWrapper:
     Everything pickled is numpy or plain Python; the CUDA copies of the
     corpus, index and codes live in the weak-keyed retriever cache and
     die with the wrapper.  ``ivf``/``pq`` are the generation's optional
-    IVF index and PQ codebook, pickled with it so a generation swap moves
-    model, index and codes together.
+    IVF index and PQ codebook, and ``quality``/``recall`` its training-
+    time score and recall baselines, pickled with it so a generation swap
+    moves model, index, codes and baselines together.
 
     Serve-time fold-in: an unseen user with recent events gets one ridge
     solve against the frozen item factors (``models.als.fold_in``)
@@ -353,6 +367,8 @@ class ALSModelWrapper:
     item_index: BiMap
     ivf: Optional[IVFIndex] = None
     pq: Optional[PQCodebook] = None
+    quality: Optional[Scorecard] = None
+    recall: Optional[RecallScorecard] = None
     app_name: Optional[str] = None
     fold_event_names: Sequence[str] = ()
     buy_rating: float = 4.0
@@ -565,17 +581,21 @@ class ALSModelWrapper:
                 self._fold_cache.popitem(last=False)
 
 
-def wrapper_from_numpy(user_factors, item_factors, user_ids, item_ids, *,
-                       rank: int, implicit: bool = False,
-                       ivf: Union[IVFIndex, Mapping[str, Any], None] = None,
-                       pq: Union[PQCodebook, Mapping[str, Any], None] = None
-                       ) -> ALSModelWrapper:
+def wrapper_from_numpy(
+        user_factors, item_factors, user_ids, item_ids, *, rank: int,
+        implicit: bool = False,
+        ivf: Union[IVFIndex, Mapping[str, Any], None] = None,
+        pq: Union[PQCodebook, Mapping[str, Any], None] = None,
+        quality: Union[Scorecard, Mapping[str, Any], None] = None,
+        recall: Union[RecallScorecard, Mapping[str, Any], None] = None
+) -> ALSModelWrapper:
     """Carry a trained ALS generation into the port: factor arrays plus
     the user and item id strings of their rows, in row order, and
-    optionally its IVF index and PQ codebook — each an :class:`IVFIndex`
-    / :class:`PQCodebook` or a mapping of the reference's fields (numpy
-    arrays and plain values, e.g. ``dataclasses.asdict`` of the
-    reference's structure)."""
+    optionally its IVF index, PQ codebook, quality scorecard and recall
+    scorecard — each the port's structure or a mapping of the
+    reference's fields (numpy arrays and plain values, e.g.
+    ``dataclasses.asdict`` of the reference's structure), so a carried
+    generation keeps its baselines and their corpus fingerprint."""
     model = als_lib.als_model_from_numpy(user_factors, item_factors,
                                          rank=rank, implicit=implicit)
     user_index = BiMap({str(u): i for i, u in enumerate(user_ids)})
@@ -588,7 +608,9 @@ def wrapper_from_numpy(user_factors, item_factors, user_ids, item_ids, *,
     if isinstance(pq, Mapping):
         pq = PQCodebook(**pq)
     return ALSModelWrapper(model=model, user_index=user_index,
-                           item_index=item_index, ivf=ivf, pq=pq)
+                           item_index=item_index, ivf=ivf, pq=pq,
+                           quality=scorecard_from_mapping(quality),
+                           recall=recall_scorecard_from_mapping(recall))
 
 
 def _warm_ridge_sweep(target: np.ndarray, frozen: np.ndarray,
@@ -639,8 +661,8 @@ class ALSAlgorithm(Algorithm):
     def train(self, ctx: RuntimeContext,
               prepared_data: Ratings) -> ALSModelWrapper:
         """Train on ``ctx.device``, then build the IVF index and PQ codes
-        the env policy asks for (reference: ``ALSAlgorithm.train``); the
-        quality and recall scorecards are not ported yet."""
+        the env policy asks for and the quality and recall scorecards
+        (reference: ``ALSAlgorithm.train``)."""
         p: ALSAlgorithmParams = self.params
         if len(prepared_data.user_ids) == 0:
             raise ValueError(
@@ -675,6 +697,7 @@ class ALSAlgorithm(Algorithm):
             save_every=ck_every,
         )
         itf_host = model.item_factors[:n_items]
+        uf_host = model.user_factors[:len(prepared_data.user_index)]
         # Train-time coarse index, pickled with the model.  Raw ALS
         # factors carry popularity-scaled norms (a poor IVF fit: cells
         # partition by direction), so it builds only under an explicit
@@ -691,6 +714,17 @@ class ALSAlgorithm(Algorithm):
             item_index=prepared_data.item_index,
             ivf=ivf,
             pq=pq,
+            # Quality baseline: the rank-1 reconstruction scores of a
+            # seeded user sample against the item factors — the
+            # population serving's itemScores come from.
+            quality=scorecard_from_matrix(uf_host, itf_host,
+                                          seed=cfg.seed or 0, name="als"),
+            # Expected-recall baseline: offline recall of the structures
+            # just built, through the same host search paths and
+            # nprobe/rerank formulas serving uses.
+            recall=build_recall_scorecard(uf_host, itf_host, ivf=ivf,
+                                          pq=pq, seed=cfg.seed or 0,
+                                          name="als"),
             app_name=prepared_data.app_name,
             fold_event_names=tuple(prepared_data.event_names or ()),
             buy_rating=float(prepared_data.buy_rating),
@@ -722,8 +756,8 @@ class ALSAlgorithm(Algorithm):
         check (RMSE on a delta sample restricted to pairs the previous
         generation knew).  Any doubt raises :class:`WarmStartFallback` →
         full retrain.  IVF and PQ are rebuilt from the new factors as
-        :meth:`train` builds them; the quality and recall scorecards are
-        not ported.  The returned wrapper predicts on ``ctx.device``.
+        :meth:`train` builds them, and so are the quality and recall
+        scorecards.  The returned wrapper predicts on ``ctx.device``.
         """
         log = logging.getLogger(__name__)
         p: ALSAlgorithmParams = self.params
@@ -842,6 +876,10 @@ class ALSAlgorithm(Algorithm):
             item_index=item_index,
             ivf=ivf,
             pq=pq,
+            quality=scorecard_from_matrix(uf, itf, seed=seed_now or 0,
+                                          name="als"),
+            recall=build_recall_scorecard(uf, itf, ivf=ivf, pq=pq,
+                                          seed=seed_now or 0, name="als"),
             app_name=getattr(prepared_delta, "app_name", None)
             or getattr(prev_model, "app_name", None),
             fold_event_names=tuple(

@@ -19,8 +19,10 @@ top-k kernel K3 on the card).  ``TwoTowerAlgorithm.warm_start`` is the
 refresh loop's delta warm start: the carried train state grows for new
 entities and continues training on the delta window.  A generation
 trained by the reference is carried in with :func:`model_from_numpy`.
-Not ported yet: the quality and recall scorecards, and the serving
-mesh's sharding in ``post_load``.
+Every generation carries its quality scorecard and, when it built IVF
+or PQ, its recall scorecard, both pinned to the item corpus's
+fingerprint.  Not ported yet: the serving mesh's sharding in
+``post_load``.
 """
 
 from __future__ import annotations
@@ -44,6 +46,16 @@ from predictionio_tpu_torch.controller import (
 from predictionio_tpu_torch.controller.params import Params
 from predictionio_tpu_torch.data.event import BiMap
 from predictionio_tpu_torch.models import two_tower as tt_lib
+from predictionio_tpu_torch.obs.quality import (
+    Scorecard,
+    scorecard_from_mapping,
+    scorecard_from_matrix,
+)
+from predictionio_tpu_torch.obs.recall import (
+    RecallScorecard,
+    build_recall_scorecard,
+    recall_scorecard_from_mapping,
+)
 from predictionio_tpu_torch.retrieval import (
     IVFIndex,
     PQCodebook,
@@ -139,8 +151,8 @@ class TwoTowerModelWrapper:
 
     Everything pickled is numpy or plain Python; the device copies of the
     corpus live in the weak-keyed retriever cache and die with the
-    wrapper.  ``quality`` and ``recall`` stay None until the scorecards
-    are ported (ROADMAP Queue 1 item 11)."""
+    wrapper.  ``quality`` and ``recall`` are the training-time score and
+    recall baselines, pinned to ``item_vecs``' fingerprint."""
 
     user_vecs: np.ndarray   # [U, D] — encoded user representations
     item_vecs: np.ndarray   # [I, D] (L2-normalized tower outputs)
@@ -148,8 +160,8 @@ class TwoTowerModelWrapper:
     item_index: BiMap
     ivf: Optional[IVFIndex] = None
     pq: Optional[PQCodebook] = None
-    quality: Optional[Any] = None
-    recall: Optional[Any] = None
+    quality: Optional[Scorecard] = None
+    recall: Optional[RecallScorecard] = None
     train_state: Optional[Dict] = None
     train_cfg: Optional[tt_lib.TwoTowerConfig] = None
     n_examples: int = 0
@@ -237,14 +249,19 @@ def _port_snapshot(snapshot: Mapping) -> Dict:
 def model_from_numpy(user_vecs, item_vecs, user_ids, item_ids, *,
                      ivf: Union[IVFIndex, Mapping[str, Any], None] = None,
                      pq: Union[PQCodebook, Mapping[str, Any], None] = None,
+                     quality: Union[Scorecard, Mapping[str, Any],
+                                    None] = None,
+                     recall: Union[RecallScorecard, Mapping[str, Any],
+                                   None] = None,
                      train_state: Optional[Mapping] = None,
                      train_cfg: Any = None,
                      n_examples: int = 0) -> TwoTowerModelWrapper:
     """Carry a trained two-tower generation into the port: the encoded
     user and item vectors, the ids of their rows (a BiMap or mapping of
     id → row, e.g. the reference wrapper's ``user_index``, or the ids in
-    row order), optionally its IVF index and PQ codebook (the port's
-    structures or mappings of the reference's fields), and for warm
+    row order), optionally its IVF index, PQ codebook, quality scorecard
+    and recall scorecard (the port's structures or mappings of the
+    reference's fields, e.g. ``dataclasses.asdict``), and for warm
     start the reference's ``train_state`` snapshot with its
     ``train_cfg`` (any object with :class:`TwoTowerConfig`'s fields)."""
     user_index, item_index = _index_of(user_ids), _index_of(item_ids)
@@ -265,6 +282,8 @@ def model_from_numpy(user_vecs, item_vecs, user_ids, item_ids, *,
     return TwoTowerModelWrapper(
         user_vecs=uv, item_vecs=iv, user_index=user_index,
         item_index=item_index, ivf=ivf, pq=pq,
+        quality=scorecard_from_mapping(quality),
+        recall=recall_scorecard_from_mapping(recall),
         train_state=None if train_state is None
         else _port_snapshot(train_state),
         train_cfg=cfg, n_examples=int(n_examples))
@@ -293,9 +312,9 @@ class TwoTowerAlgorithm(Algorithm):
               cfg: tt_lib.TwoTowerConfig, user_index: BiMap,
               item_index: BiMap, n_examples: int) -> TwoTowerModelWrapper:
         """Encode every user and item on the state's device, keep them as
-        numpy, and build the train-time IVF index and PQ codes from the
+        numpy, build the train-time IVF index and PQ codes from the
         normalised item vectors (policy-gated: ``PIO_IVF`` /
-        ``PIO_PQ``)."""
+        ``PIO_PQ``), and the quality and recall scorecards."""
         import torch
 
         dev = state.params["user_embed"].device
@@ -310,10 +329,15 @@ class TwoTowerAlgorithm(Algorithm):
             user_vecs=user_vecs, item_vecs=item_vecs,
             user_index=user_index, item_index=item_index,
             ivf=ivf, pq=pq,
-            # The quality and recall scorecards are not ported yet
-            # (ROADMAP Queue 1 item 11): serving has no baseline to
-            # judge drift or recall against.
-            quality=None, recall=None,
+            # Quality baseline: rank-1 dot-product scores of a seeded
+            # user sample against the item corpus.
+            quality=scorecard_from_matrix(user_vecs, item_vecs,
+                                          seed=cfg.seed or 0,
+                                          name="twotower"),
+            # Expected-recall baseline of the structures just built.
+            recall=build_recall_scorecard(user_vecs, item_vecs, ivf=ivf,
+                                          pq=pq, seed=cfg.seed or 0,
+                                          name="twotower"),
             train_state=tt_lib.state_to_host(state),
             train_cfg=cfg, n_examples=int(n_examples))
         # A generation predicts where it trained until a server's

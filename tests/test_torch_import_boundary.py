@@ -93,6 +93,11 @@ TRACE_SLICE = (
     "obs.trace", "obs.runtime", "obs.profiler",
     "tools.exp_als_repeat",
 )
+# ... and every module of the serving-observability slice: the latency
+# waterfall, the SLO engine and the quality and recall monitors.
+OBS_SLICE = (
+    "obs", "obs.waterfall", "obs.slo", "obs.quality", "obs.recall",
+)
 
 
 def _forbidden(module: str) -> bool:
@@ -109,7 +114,7 @@ def test_importing_the_port_loads_no_jax():
     assert len(probe["modules"]) >= 30
     missing = [m for m in TRAINING_SLICE + IVF_PQ_SLICE + CLI_SLICE
                + EVENT_SERVER_SLICE + SCHEDULER_SLICE + TWO_TOWER_SLICE
-               + DLRM_SLICE + TRACE_SLICE
+               + DLRM_SLICE + TRACE_SLICE + OBS_SLICE
                if f"predictionio_tpu_torch.{m}" not in probe["modules"]]
     assert missing == []
     assert probe["bad"] == [], f"the port pulled in {probe['bad']}"

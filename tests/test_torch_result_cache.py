@@ -13,9 +13,9 @@
 - one hit/miss/eviction/negative-TTL script under a fake clock gives the
   same results, snapshots and counters in both;
 - the port's server seam: a repeated ``/queries.json`` is a hit under the
-  generation the dispatch returned (the fill is dropped if the scheduler
-  hands back no generation), a reload misses, and the kill switch
-  registers nothing.
+  generation the dispatch stamped on the request's waterfall (the fill is
+  dropped when that stamp is missing), a reload misses, and the kill
+  switch registers nothing.
 """
 
 import dataclasses
@@ -36,6 +36,7 @@ import predictionio_tpu_torch.data.storage.memory as port_memory
 import predictionio_tpu_torch.obs as port_obs
 import predictionio_tpu_torch.obs.metrics as port_metrics
 import predictionio_tpu_torch.serving.result_cache as port_rc
+from predictionio_tpu_torch.obs.waterfall import current_waterfall
 
 REF = SimpleNamespace(name="ref", rc=ref_rc, memory=ref_memory,
                       metrics=ref_metrics, registry=ref_obs.get_registry,
@@ -581,13 +582,21 @@ def test_repeat_query_hits_under_the_dispatch_generation(port_server):
 
 def test_without_the_generation_every_fill_is_dropped(port_server,
                                                       monkeypatch):
-    """The pin of the hand-back: were the scheduler to return no
-    generation (the reference's handler read it from the waterfall, which
-    the port does not have), every fill would drop and nothing would hit."""
+    """The pin of the hand-back: were the dispatch's generation missing
+    from the request's waterfall (where the batcher stamps it, as in the
+    reference), every fill would drop and nothing would hit."""
     srv = port_server.make()
     real = srv.scheduler.submit_and_wait
+
+    def without_generation(m, q):
+        result = real(m, q)
+        wf = current_waterfall()
+        with wf._lock:
+            wf.attrs.pop("generation")
+        return result
+
     monkeypatch.setattr(srv.scheduler, "submit_and_wait",
-                        lambda m, q: (real(m, q)[0], None))
+                        without_generation)
     _q(srv)
     _q(srv)
     reg = port_obs.get_registry()

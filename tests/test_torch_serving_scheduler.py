@@ -13,9 +13,10 @@ autotuner, the ``ServingScheduler`` facade) is held against
   in order), the ``QueueFull`` points, the shed reasons, the autotuner's
   window and batch size after every step and the shutdown's
   ``SchedulerClosed`` answers are equal;
-- the port's own contract: a finished request carries the generation its
-  dispatch returned, and ``submit_and_wait`` hands it back with the
-  result — on the batcher, the inline path and a per-member retry;
+- the generation hand-back: the generation a dispatch returned is
+  stamped on each member's latency waterfall, as in the reference, and
+  ``submit_and_wait`` hands back the result alone — on the batcher, the
+  inline path and a per-member retry;
 - coalescing is shown by holding the first dispatch on a
   ``threading.Event`` until the other requests are queued, never by
   timing.
@@ -33,18 +34,16 @@ import predictionio_tpu.serving as ref_serving
 import predictionio_tpu_torch.obs as port_obs
 import predictionio_tpu_torch.resilience.deadline as port_deadline
 import predictionio_tpu_torch.serving as port_serving
+from predictionio_tpu_torch.obs.waterfall import Waterfall, begin_request
 
 REF = SimpleNamespace(
     name="ref", s=ref_serving, deadline=ref_deadline,
     registry=ref_obs.get_registry, reset=ref_obs.reset_observability,
-    # the reference hands back the result alone
     submit=lambda sched, m, q: sched.submit_and_wait(m, q))
 PORT = SimpleNamespace(
     name="port", s=port_serving, deadline=port_deadline,
-    registry=port_obs.get_registry,
-    reset=lambda: port_obs.get_registry().reset(),
-    # the port hands back (result, generation)
-    submit=lambda sched, m, q: sched.submit_and_wait(m, q)[0])
+    registry=port_obs.get_registry, reset=port_obs.reset_observability,
+    submit=lambda sched, m, q: sched.submit_and_wait(m, q))
 PKGS = (REF, PORT)
 
 
@@ -558,15 +557,18 @@ def test_scripted_sequence_is_equal_across_packages():
     assert any(e[0] == "cohort" and len(e[1]) > 1 for e in ref)
 
 
-# -- the generation hand-back (the port's contract) ----------------------------
+# -- the generation hand-back: on each member's waterfall ----------------------
 
 def test_pending_carries_the_dispatch_generation():
     engine, clock, q, b = _batcher(PORT)
     engine.generation = 7
-    members = [port_serving.Pending(f"u{i}", 0.0) for i in range(3)]
+    members = [port_serving.Pending(f"u{i}", 0.0, waterfall=Waterfall())
+               for i in range(3)]
     b.dispatch(members)
-    assert [(m.result, m.generation) for m in members] == \
-        [((f"u{i}", 7), 7) for i in range(3)]
+    assert [(m.result, m.waterfall.attr("generation")) for m in members] \
+        == [((f"u{i}", 7), 7) for i in range(3)]
+    assert all({"queue_wait", "batch_wait", "dispatch"}
+               <= set(m.waterfall.snapshot()) for m in members)
 
 
 def test_retried_members_carry_their_own_generation():
@@ -580,10 +582,13 @@ def test_retried_members_carry_their_own_generation():
 
     b = port_serving.MicroBatcher("m", port_serving.ModelQueue("m", 4),
                                   flaky, clock=FakeClock())
-    a, c = port_serving.Pending("a", 0.0), port_serving.Pending("c", 0.0)
+    a, c = (port_serving.Pending(x, 0.0, waterfall=Waterfall())
+            for x in "ac")
     b.dispatch([a, c])
-    assert (a.result, a.generation) == ("A", 6)
-    assert (c.result, c.generation) == ("C", 7)
+    assert (a.result, a.waterfall.attr("generation")) == ("A", 6)
+    assert (c.result, c.waterfall.attr("generation")) == ("C", 7)
+    # the failed cohort attempt and the retry both bill "dispatch"
+    assert a.waterfall.attr("isolated") is True
 
 
 @pytest.mark.parametrize("enabled", [True, False],
@@ -595,7 +600,9 @@ def test_submit_and_wait_hands_back_the_generation(enabled):
         enabled=enabled, autotune=False, window_ms=0.0))
     sched.register("m", engine.dispatch)
     try:
-        assert sched.submit_and_wait("m", "q") == (("q", 42), 42)
+        with begin_request() as wf:
+            assert sched.submit_and_wait("m", "q") == ("q", 42)
+        assert wf.attr("generation") == 42
     finally:
         sched.close()
 

@@ -232,7 +232,17 @@ def test_run_train_matches_the_reference(trained):
         model.train_cfg, **{f.name: getattr(jmodel.train_cfg, f.name)
                             for f in dataclasses.fields(jmodel.train_cfg)})
     assert int(model.train_state["step"]) == int(jmodel.train_state["step"])
-    assert model.quality is None and model.recall is None
+    # Both packages bake the quality scorecard at train (the rank-1 score
+    # distribution of a seeded user sample), from vectors equal within
+    # the tolerance above; the corpus is below every IVF/PQ threshold, so
+    # neither bakes a recall scorecard.
+    sc, jsc = model.quality, jmodel.quality
+    assert sc is not None and jsc is not None
+    assert (sc.n, len(sc.probs), sc.name) == (jsc.n, len(jsc.probs), jsc.name)
+    np.testing.assert_allclose(sc.edges, jsc.edges, rtol=0, atol=2.0 ** -6)
+    np.testing.assert_allclose([sc.mean, sc.std], [jsc.mean, jsc.std],
+                               rtol=0, atol=2.0 ** -6)
+    assert model.recall is None and jmodel.recall is None
     algo = engine().make_algorithms(
         engine().bind_engine_params(_spec(PORT_SHIPPED)))[0]
     jalgo = jax_engine().make_algorithms(
