@@ -288,7 +288,35 @@ cannot be imported, or when any phase fails.  Phases, in order:
    reference's own fault: ranking and corpus fingerprint intact), drift
    trips, gate.rollback, the daemon posts /admin/rollback, generation 1
    serves again and its answers are the plain top-k.  Budget 45 s.
-21. report — one JSON line of per-kernel numbers, the card's name and
+21. fleet — the fleet plane, after phase 20 on phases 15's and 12's
+   stores.  Four `pio deploy` processes serve phase 15's ML-25M model
+   (G1; chunked rung, result cache off, every query quality-sampled),
+   two serve phase 12's newest ALS generation; all six start together.
+   21a: a second ML-25M generation G2 (G1 plus a little noise, with its
+   quality scorecard) persisted, then `pio rollout --waves 1,50%,100%
+   --bake-s 2` to it while 16 client threads query all four: exit 0,
+   the journal's waves 1, 2, 4, the instances taking G2 in that order,
+   every answer 200 and the plain top-10 of G1 or G2, then 64 answers
+   an instance G2's.  21b: G3 = G2's user vectors x4 carrying G2's
+   scorecard (phase 20d's fault): the rollout halts at the canary on
+   the merged quality gate, rolls U1 back, U2-U4 read G2 at every poll,
+   all four then serve G2.  21c: a `pio rollout` SIGTERM'd in its
+   second wave's bake; a plain rollout refused (exit 1, the reference's
+   message); --resume finishes it; a second SIGTERM'd one --unwind'd,
+   its instances back on the previous generation.  21d (beside 21a-c):
+   `pio train --follow --promote-url U5,U6` on phase 12's store: a
+   20,000-event delta trains warm (host solves) and rolls across both,
+   which then serve the warm factors' plain top-10; a delta over
+   PIO_REFRESH_MAX_DELTA_FRACTION falls back to a full retrain (K1, K2)
+   rolled across both; pio_refresh_staleness_s from the older served
+   watermark.  21e: `pio dashboard --fleet`: /fleet.json's counters the
+   four instances' sums, buckets added, gauges by instance; a stopped
+   instance stale and still counted; `pio status --fleet` and
+   `--metrics-url`.  21f: an AdminServer beside an in-process
+   EngineServer: POST /admin/profile 200 then 409, its artifact and
+   `pio profile --url --out`'s, each Chrome trace naming K3's
+   functions; the app routes as `pio app list` sees them.  Budget 90 s.
+22. report — one JSON line of per-kernel numbers, the card's name and
    power limit, and the final status line.
 After phases 7, 11-14, 16, 17, 19b-e and 20 a line gives the seconds the
 quality and recall scorecards took in that phase's in-process trains.
@@ -2119,25 +2147,31 @@ def counted_pio(argv) -> int:
     from predictionio_tpu_torch.ops import fused_topk as ft
     from predictionio_tpu_torch.ops import ridge_solve as rs
 
+    from predictionio_tpu_torch.obs import get_registry
+
     rc = pio(list(argv))
     print("launches " + json.dumps({
         "fused_gram": fg.LAUNCHES, "ridge_solve_lu": rs.LU_LAUNCHES,
         "fused_topk": ft.LAUNCHES}), flush=True)
+    stale = get_registry().get("pio_refresh_staleness_s")
+    if stale is not None:
+        print(f"pio_refresh_staleness_s {stale.value()!r}", flush=True)
     return rc
 
 
 class deployed:
     """``pio deploy`` in a subprocess on a free port (``extra``: more of
-    its arguments), until ``stop()`` (``POST /stop``; it must exit 0).
-    ``started_s``: Popen time.  It runs through :func:`counted_pio`, so
-    ``stop()`` leaves the subprocess's kernel launches in
-    ``launches``."""
+    its arguments; ``env``: its environment, this process's by default),
+    until ``stop()`` (``POST /stop``; it must exit 0).  ``started_s``:
+    Popen time.  With ``wait=False`` the constructor returns at once and
+    :meth:`ready` waits for the listening line, so several deploys start
+    together.  It runs through :func:`counted_pio`, so ``stop()`` leaves
+    the subprocess's kernel launches in ``launches``."""
 
     def __init__(self, engine_json: str, log_path: str, extra=(),
-                 phase: str = "phase 12"):
-        import select
-
+                 phase: str = "phase 12", env=None, wait: bool = True):
         self.phase = phase
+        self.log_path = log_path
         self.started_s = time.perf_counter()
         self.log = open(log_path, "w")
         self.launches = None
@@ -2146,21 +2180,28 @@ class deployed:
              "sys.exit(chip_smoke.counted_pio(sys.argv[1:]))", "deploy",
              "--engine-json", engine_json, "--ip", "127.0.0.1", "--port",
              "0", *extra],
-            cwd=Path(__file__).resolve().parent,
+            cwd=Path(__file__).resolve().parent, env=env,
             stdout=subprocess.PIPE, stderr=self.log, text=True)
+        if wait:
+            self.ready()
+
+    def ready(self) -> "deployed":
+        """Wait for the listening line: the port, instance and device."""
+        import re
+        import select
+
         ready, _, _ = select.select([self.proc.stdout], [], [],
                                     CLI_TIMEOUT_S)
         line = self.proc.stdout.readline() if ready else ""
-        import re
-
         m = re.search(r"(?:listening|frontend) on 127\.0\.0\.1:(\d+) "
                       r"\(instance (\w+); device (\S+);", line)
         if not m:
             self.kill()
-            die(f"{phase}: pio deploy did not start ({line!r}): "
-                f"{Path(log_path).read_text()[-2000:]}")
+            die(f"{self.phase}: pio deploy did not start ({line!r}): "
+                f"{Path(self.log_path).read_text()[-2000:]}")
         self.base = f"http://127.0.0.1:{m.group(1)}"
         self.instance, self.device = m.group(2), m.group(3)
+        return self
 
     def get(self, path: str) -> str:
         with urllib.request.urlopen(self.base + path, timeout=120) as r:
@@ -3672,7 +3713,9 @@ def scheduler_phase(dev, seed: int, users_np, items_np, mods: dict,
     there) answering SCHED_NATIVE as the Python path did, POST /stop exit
     0 → `pio eventserver --native` taking SCHED_EVENTS of phase 12's
     events through the SDK, `pio export` equal to them, SIGTERM exit 0.
-    Returns the phase's numbers and launches."""
+    Returns the phase's numbers and launches, and its store (``work``,
+    ``home``, ``engine_json``, ``instance``: the persisted model) for
+    phase 21."""
     import numpy as np
     import torch
 
@@ -3931,6 +3974,9 @@ def scheduler_phase(dev, seed: int, users_np, items_np, mods: dict,
         procs.remove(es)
         out.update(es_events_per_s=SCHED_EVENTS / ewall,
                    es_batch_p50_ms=pct(elats, 0.5) * 1e3)
+        # the store stays for phase 21 (its G1); main() removes it
+        out.update(work=work, home=os.path.join(work, "home"),
+                   engine_json=engine_json, instance=iid)
     finally:
         for p_ in procs:
             p_.kill()
@@ -3938,7 +3984,8 @@ def scheduler_phase(dev, seed: int, users_np, items_np, mods: dict,
             srv.stop()
         reset_storage()
         env.__exit__()
-        shutil.rmtree(work, ignore_errors=True)
+        if "work" not in out:
+            shutil.rmtree(work, ignore_errors=True)
     out["phase_s"] = time.perf_counter() - phase_t0
     log(f"phase 15 scheduler: ML-25M shape {ML25M_USERS}x{ML25M_ITEMS} "
         f"rank {RANK} on the chunked rung, default SchedulerConfig "
@@ -5734,24 +5781,31 @@ class recorded_opener:
 
 class query_load:
     """``threads`` client threads posting /queries.json (num 10) for
-    ``users`` in turn until ``stop()``; ``statuses`` their answers'."""
+    ``users`` in turn to the instances of ``bases`` (thread n on
+    ``bases[n % len(bases)]``, or the whole list in turn with
+    ``spread``), until ``stop()``, which returns (instance, user index,
+    status, answer, client ms) of every request."""
 
-    def __init__(self, base: str, users, threads: int):
+    def __init__(self, bases, users, threads: int, spread: bool = True):
         import threading
 
         self.stop_ev = threading.Event()
-        self.statuses = [[] for _ in range(threads)]
+        self.answers = [[] for _ in range(threads)]
 
         def run(n):
             j = n
             while not self.stop_ev.is_set():
-                st, _, _ = http_call(f"{base}/queries.json",
-                                     {"user": users[j % len(users)],
-                                      "num": 10})
-                self.statuses[n].append(st)
+                b = (j if spread else n) % len(bases)
+                u = j % len(users)
+                t0 = time.perf_counter()
+                st, _, ans = http_call(f"{bases[b]}/queries.json",
+                                       {"user": users[u], "num": 10})
+                self.answers[n].append(
+                    (b, u, st, ans, (time.perf_counter() - t0) * 1e3))
                 j += threads
 
-        self.threads = [threading.Thread(target=run, args=(n,))
+        # daemon: a phase that dies mid-load leaves no thread behind
+        self.threads = [threading.Thread(target=run, args=(n,), daemon=True)
                         for n in range(threads)]
         for t in self.threads:
             t.start()
@@ -5760,7 +5814,7 @@ class query_load:
         self.stop_ev.set()
         for t in self.threads:
             t.join(120)
-        return [s for ss in self.statuses for s in ss]
+        return [a for aa in self.answers for a in aa]
 
 
 def read_request_log(path: str, n: int, timeout_s: float = 20.0) -> list:
@@ -6080,9 +6134,9 @@ def obs_phase(dev, seed: int, loop: dict, mods: dict, card: str) -> dict:
                                   canary_poll_s=0.2, opener=opener))
         k3_0 = ft.LAUNCHES
         disp0 = server.scheduler.snapshot()["default"]["dispatches"]
-        drive = query_load(base, load_users, P20_CLIENTS)
+        drive = query_load([base], load_users, P20_CLIENTS)
         cycle = daemon.run_once()
-        statuses = drive.stop()
+        statuses = [a[2] for a in drive.stop()]
         _, _, q1 = http_call(f"{base}/quality.json")
         shadow = q1["shadow"]
         # Count once the shadow worker is idle: its session ends (the queue
@@ -6151,11 +6205,11 @@ def obs_phase(dev, seed: int, loop: dict, mods: dict, card: str) -> dict:
             config=RefreshConfig.from_env(canary_window_s=P20_CANARY_S),
             promoter=HttpPromoter(base_e, canary_window_s=P20_CANARY_S,
                                   canary_poll_s=0.2, opener=opener2))
-        drive = query_load(base_e, load_users, P20_CLIENTS)
+        drive = query_load([base_e], load_users, P20_CLIENTS)
         try:
             cycle2 = daemon2.run_once()
         finally:
-            statuses2 = drive.stop()
+            statuses2 = [a[2] for a in drive.stop()]
             es_mod.load_models = real_load
         seen = [c[3] for c in opener2.calls if c[1] == "/quality.json"]
         tripped = seen[-1] if seen else {}
@@ -6239,6 +6293,910 @@ def obs_phase(dev, seed: int, loop: dict, mods: dict, card: str) -> dict:
         f"(budget {PHASE20_LIMIT_S:.0f} s); card {card}")
     if out["phase_s"] > PHASE20_LIMIT_S:
         log(f"phase 20: over its {PHASE20_LIMIT_S:.0f} s budget")
+    return out
+
+
+# Phase 21: the fleet plane.  Four `pio deploy` processes serve phase
+# 15's ML-25M store (G1 pinned), two serve phase 12's ML-1M store; the
+# rollouts, the dashboard and the status verb drive them over HTTP.
+FLEET_N = 4                    # 21a-c, e: deploys of phase 15's store
+FLEET_CLIENTS = 16             # client threads across each rollout
+FLEET_POOL = 2048              # distinct users the clients ask
+FLEET_HELD = 64                # answers an instance held after a rollout
+FLEET_WAVES = "1,50%,100%"
+FLEET_BAKE_S = "2"             # 21a's bake
+FLEET_HALT_BAKE_S = "4"        # 21b: the canary's bake, drift must trip
+FLEET_RESUME_BAKE_S = "1"      # 21c
+FLEET_G2_NOISE = 0.05          # G2 = G1 + this x N(0, 1/rank): a neighbour
+#                                generation, as a retrain is (the shadow
+#                                canary's overlap stays high)
+FLEET_DRIFT_SCALE = 4.0        # 21b's G3: G2's user vectors x4 (20d's fault)
+FLEET_DELTA = 20_000           # 21d: phase 16's delta shape (2 %)
+FLEET_DELTA2 = 30_000          # ... then over the fraction gate: fallback
+FLEET_MAX_DELTA_FRACTION = "0.025"
+FLEET_PROFILE_MS = 2000
+FLEET_WARM_S = 6.0             # 21a: traffic before the rollout starts
+PHASE21_LIMIT_S = 90.0
+
+
+def proc_env(home: str, **extra) -> dict:
+    """This process's environment with :func:`cli_env`'s values for
+    ``home`` and ``extra`` applied (None unsets): a subprocess's own,
+    with nothing of this process's environment changed."""
+    env = dict(os.environ)
+    for k, v in {**cli_env(home).values, **extra}.items():
+        if v is None:
+            env.pop(k, None)
+        else:
+            env[k] = v
+    return env
+
+
+class served_poller:
+    """Reads ``GET <path>``'s ``key`` of each base every ``every_s`` until
+    ``stop()`` (by default ``GET /``'s engineInstanceId); ``seen[i]``:
+    (time, value) of base i's reads."""
+
+    def __init__(self, bases, every_s: float = 0.1, path: str = "/",
+                 key: str = "engineInstanceId"):
+        import threading
+
+        self.stop_ev = threading.Event()
+        self.seen = [[] for _ in bases]
+
+        def run():
+            while not self.stop_ev.is_set():
+                for n, b in enumerate(bases):
+                    try:
+                        _, _, doc = http_call(b + path)
+                        got = doc.get(key)
+                    except OSError as e:
+                        got = f"unreachable: {e}"
+                    self.seen[n].append((time.perf_counter(), got))
+                self.stop_ev.wait(every_s)
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def stop(self) -> list:
+        self.stop_ev.set()
+        self.thread.join(60)
+        return self.seen
+
+
+class timed_rollouts:
+    """Within the block, the rollout controllers ``pio rollout`` makes
+    note when the fleet gate first reads tripped and when each rollback
+    returns (``marks``), and count the gate's polls."""
+
+    def __init__(self):
+        self.marks = {"polls": 0}
+
+    def __enter__(self):
+        from predictionio_tpu_torch import fleet
+
+        base, marks = fleet.RolloutController, self.marks
+
+        class Timed(base):
+            def fleet_tripped(self):
+                out = base.fleet_tripped(self)
+                marks["polls"] += 1
+                if out[0]:
+                    marks.setdefault("tripped", time.perf_counter())
+                return out
+
+            def _rollback_instance(self, url):
+                out = base._rollback_instance(self, url)
+                marks["rolled_back"] = time.perf_counter()
+                return out
+
+        self.saved, fleet.RolloutController = base, Timed
+        return self
+
+    def __exit__(self, *exc):
+        from predictionio_tpu_torch import fleet
+
+        fleet.RolloutController = self.saved
+
+
+def run_pio(mods, argv, what: str):
+    """``pio <argv>`` in this process: (exit code, standard output,
+    standard error); a SystemExit is its code."""
+    import contextlib
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            rc = mods["pio"](list(argv))
+        except SystemExit as e:
+            rc = e.code
+    said = " | ".join(ln.strip() for ln in out.getvalue().splitlines()
+                      if ln.strip())
+    log(f"  {what}: pio {' '.join(argv)} → exit {rc}: {said[:600]}")
+    return rc, out.getvalue(), err.getvalue()
+
+
+def held_ml25m(answers, gens, plain, what, topk_mismatch) -> dict:
+    """Each (instance, user, status, answer) of ``answers`` must be 200
+    and the plain top-10 of one of ``gens`` (names into ``plain``: a
+    generation's (scores, ids) [pool, 11] on the pool).  Returns the
+    answers' count by generation."""
+    import numpy as np
+
+    by_gen = {g: 0 for g in gens}
+    for b, u, st, ans, *_ in answers:
+        if st != 200:
+            die(f"{what}: an answer of instance {b} was {st}: {ans}")
+        hits = ans.get("itemScores") or []
+        got_s = [[h["score"] for h in hits]]
+        got_i = [[int(h["item"][1:]) for h in hits]]
+        for g in gens:
+            s, i = plain[g]
+            if len(hits) == 10 and topk_mismatch(
+                    got_s, got_i, s[u:u + 1, :10], i[u:u + 1, :10],
+                    s[u:u + 1, 10], rtol=RTOL, atol=ATOL) is None:
+                by_gen[g] += 1
+                break
+        else:
+            die(f"{what}: instance {b}'s answer for user {u} is the plain "
+                f"top-10 of none of {gens}: {np.round(got_s, 4)}")
+    return by_gen
+
+
+def fleet_phase(dev, seed: int, users_np, items_np, sched: dict,
+                loop: dict, mods: dict, card: str) -> dict:
+    """Phase 21: the fleet plane on the card.  21a `pio rollout` of a
+    second ML-25M generation across four `pio deploy` processes in waves
+    1, 50 %, 100 % under 16 client threads; 21b a candidate whose user
+    vectors are 4x halts at the canary on the merged quality gate; 21c a
+    SIGTERM'd rollout refused, resumed, and another unwound; 21d `pio
+    train --follow --promote-url` across two ML-1M deploys (a warm cycle,
+    then a full fallback); 21e `pio dashboard --fleet` and `pio status
+    --fleet`; 21f the admin server's capture and app routes.  Returns
+    the phase's numbers and launches."""
+    import signal
+    import threading
+
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.config import load_config
+    from predictionio_tpu_torch.data.storage import Storage
+    from predictionio_tpu_torch.obs.fleet import parse_exposition
+    from predictionio_tpu_torch.obs.quality import scorecard_from_matrix
+    from predictionio_tpu_torch.server.admin import AdminServer
+
+    ft = mods["ft"]
+    topk_mismatch = mods["topk_mismatch"]
+    dev_args = () if dev.type == "cuda" else ("--device", dev.type)
+    phase_t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="pio_chip_fleet_")
+    home15, home12 = sched["home"], os.path.join(loop["work"], "home")
+    # A 1 s latency objective: at the default 100 ms, U1's own ML-25M
+    # reload on an H100 (answers stalled up to ~1.7 s) under 16
+    # closed-loop clients spent the latency budget while the autotuner
+    # sat at its floor (saturation_with_burn, fast burn 1.133) and the
+    # fleet gate halted a healthy rollout; 21b's halt must come from the
+    # quality gate.
+    env15 = proc_env(home15, PIO_RESULT_CACHE="0", PIO_QUALITY_SAMPLE="1",
+                     PIO_SLO_LATENCY_TARGET_MS="1000", PIO_QUALITY=None,
+                     PIO_RECALL=None, PIO_RETAIN_PREVIOUS=None,
+                     PIO_CANARY_QUERIES=None)
+    env12 = proc_env(home12, PIO_RESULT_CACHE="0",
+                     PIO_RETAIN_PREVIOUS=None, PIO_CANARY_QUERIES=None)
+    rng = np.random.default_rng(seed + 21)
+    out, procs, servers = {"launches": {}}, [], []
+    store15 = None
+    k3 = {"deploys": 0, "here": 0}
+
+    def stop_proc(d):
+        d.stop()
+        procs.remove(d)
+        k3["deploys"] += (d.launches or {}).get("fused_topk", 0)
+
+    box = {}                          # 21d's outcome, from its thread
+    try:
+        # -- six deploys started together: four pinned to G1, two on the
+        # ML-1M store's newest ALS generation
+        t0 = time.perf_counter()
+        g1 = sched["instance"]
+        fleet = [deployed(sched["engine_json"],
+                          os.path.join(work, f"deploy{n}.log"),
+                          extra=("--engine-instance-id", g1, *dev_args),
+                          phase="phase 21", env=env15, wait=False)
+                 for n in range(FLEET_N)]
+        pair = [deployed(loop["engine_json"],
+                         os.path.join(work, f"deploy1m{n}.log"),
+                         extra=dev_args, phase="phase 21d", env=env12,
+                         wait=False) for n in range(2)]
+        procs.extend(fleet + pair)
+
+        # -- meanwhile: G2 (a neighbour of G1 with its scorecard) and G3
+        # (G2's user vectors x4 carrying G2's scorecard)
+        store15 = Storage(load_config(env={"PIO_HOME": home15}))
+        eng = mods["engine"]()
+        variant15 = mods["EngineVariant"].from_file(sched["engine_json"])
+        scale = np.float32(FLEET_G2_NOISE / np.sqrt(RANK))
+        users2 = users_np + scale * rng.standard_normal(
+            users_np.shape, np.float32)
+        items2 = items_np + scale * rng.standard_normal(
+            items_np.shape, np.float32)
+        users3 = users2 * np.float32(FLEET_DRIFT_SCALE)
+        card2 = scorecard_from_matrix(users2, items2, seed=0, name="als")
+        uid = [f"u{j}" for j in range(ML25M_USERS)]
+        iid = [f"i{j}" for j in range(ML25M_ITEMS)]
+        g2 = mods["persist_instance"](eng, variant15, [
+            mods["wrapper_from_numpy"](users2, items2, uid, iid, rank=RANK,
+                                       quality=card2)], store15)
+        g3 = mods["persist_instance"](eng, variant15, [
+            mods["wrapper_from_numpy"](users3, items2, uid, iid, rank=RANK,
+                                       quality=card2)], store15)
+        pool = rng.choice(ML25M_USERS, FLEET_POOL, replace=False)
+        users = [f"u{p}" for p in pool]
+        plain = {}
+        items_d = {"G1": torch.from_numpy(items_np).to(dev),
+                   "G2": torch.from_numpy(items2).to(dev)}
+        for g, uf, itd in (("G1", users_np, items_d["G1"]),
+                           ("G2", users2, items_d["G2"]),
+                           ("G3", users3, items_d["G2"])):
+            s, i = ft.fused_topk_reference(
+                torch.from_numpy(uf[pool]).to(dev), itd, 11)
+            plain[g] = (s.cpu().numpy(), i.cpu().numpy())
+        del items_d
+        for d in procs:
+            d.ready()
+        out["start_s"] = time.perf_counter() - t0
+        urls = [d.base for d in fleet]
+        if any(d.instance != g1 or not d.device.startswith(dev.type)
+               for d in fleet):
+            die(f"phase 21: the deploys serve "
+                f"{[(d.instance, d.device) for d in fleet]}, not G1 {g1}")
+
+        def served(bases):
+            return [http_call(b + "/")[2].get("engineInstanceId")
+                    for b in bases]
+
+        def held_after(gen, label, what):
+            """FLEET_HELD answers on each instance, each the plain top-10
+            of ``gen``; and GET / reads ``label`` everywhere."""
+            if served(urls) != [label] * len(urls):
+                die(f"{what}: GET / reads {served(urls)}, not {label}")
+            answers = []
+            for b, base in enumerate(urls):
+                for u in range(b * FLEET_HELD, (b + 1) * FLEET_HELD):
+                    st, _, ans = http_call(f"{base}/queries.json", {
+                        "user": users[u], "num": 10})
+                    answers.append((b, u, st, ans))
+            held_ml25m(answers, (gen,), plain, what, topk_mismatch)
+
+        # -- 21d in a thread of its own, beside 21a-c ----------------------
+        d_thread = threading.Thread(target=follow_fleet, args=(
+            dev, rng.integers(1 << 30), pair, loop, env12, work, mods, box),
+            daemon=True)
+        d_thread.start()
+
+        # -- 21a: the rollout at full width ----------------------------------
+        # A load balancer's health check polls /ready through 21a-c, and
+        # traffic runs before the rollout starts: each instance's SLO
+        # windows then hold its steady traffic, not only the seconds
+        # around its own reload (the first tick opens the window).
+        health = served_poller(urls, every_s=0.5, path="/ready",
+                               key="status")
+        poll = served_poller(urls)
+        load = query_load(urls, users, FLEET_CLIENTS)
+        time.sleep(FLEET_WARM_S)
+        t0 = time.perf_counter()
+        rc, said, err = run_pio(mods, [
+            "rollout", "--instances", ",".join(urls), "--engine-instance-id",
+            g2, "--waves", FLEET_WAVES, "--bake-s", FLEET_BAKE_S, "--state",
+            os.path.join(work, "rollout_a.json")], "21a")
+        out["rollout_s"] = time.perf_counter() - t0
+        answers = load.stop()
+        seen = poll.stop()
+        state = json.loads(Path(work, "rollout_a.json").read_text())
+        if rc != 0 or (state["status"], state["waveCounts"], state["wave"],
+                       state["promoted"], state["target"]) != (
+                "promoted", [1, 2, 4], 2, urls, g2):
+            bad = [a[:4] for a in answers if a[2] != 200]
+            die(f"phase 21a: pio rollout exited {rc} ({err[-1000:]}); "
+                f"journal {json.dumps(state)}; {len(bad)} of "
+                f"{len(answers)} answers not 200, the first {bad[:5]}; "
+                f"U1's slo {json.dumps(http_call(urls[0] + '/stats.json')[2].get('slo'))}; "
+                f"U1's log {Path(fleet[0].log_path).read_text()[-3000:]}")
+        switched = [next((t for t, g in rows if g == g2), None)
+                    for rows in seen]
+        if None in switched or not (switched[0] < switched[1]
+                                    < min(switched[2:])):
+            die(f"phase 21a: the instances took G2 at {switched}, not in "
+                "the waves 1, 2, 4")
+        lost = sum(a[2] != 200 for a in answers)
+        by_gen = held_ml25m(answers, ("G1", "G2"), plain,
+                            "phase 21a during the rollout", topk_mismatch)
+        held_after("G2", g2, "phase 21a after the rollout")
+        lats = [a[4] for a in answers]
+        out["a"] = {"answers": len(answers), "lost": lost, "by_gen": by_gen,
+                    "waves_s": [round(t - switched[0], 3)
+                                for t in switched],
+                    "client_ms": (round(pct(lats, 0.5), 3),
+                                  round(pct(lats, 0.99), 3),
+                                  round(max(lats), 3))}
+
+        # -- 21b: a halt at the canary -------------------------------------
+        poll = served_poller(urls[1:])
+        # half the clients on the canary, so drift fills its window
+        load = query_load([urls[0]] * FLEET_N + urls, users, FLEET_CLIENTS,
+                          spread=False)
+        t0 = time.perf_counter()
+        with timed_rollouts() as timed:
+            rc, said, err = run_pio(mods, [
+                "rollout", "--instances", ",".join(urls),
+                "--engine-instance-id", g3, "--waves", FLEET_WAVES,
+                "--bake-s", FLEET_HALT_BAKE_S, "--poll-s", "0.25",
+                "--state", os.path.join(work, "rollout_b.json")], "21b")
+        out["halt_rollout_s"] = time.perf_counter() - t0
+        answers = load.stop()
+        seen = poll.stop()
+        state = json.loads(Path(work, "rollout_b.json").read_text())
+        if rc != 1 or state["status"] != "rolled_back" \
+                or state["promoted"] != [urls[0]] \
+                or state["rolledBack"] != [urls[0]] \
+                or "fleet quality gate" not in (state["haltReason"] or ""):
+            die(f"phase 21b: pio rollout exited {rc}; journal "
+                f"{json.dumps(state)}")
+        others = {g for rows in seen for _, g in rows}
+        if others != {g2} or min(len(rows) for rows in seen) < 5:
+            die(f"phase 21b: U2-U4 read {others} during the halted rollout")
+        lost_b = sum(a[2] != 200 for a in answers)
+        by_gen_b = held_ml25m(answers, ("G2", "G3"), plain,
+                              "phase 21b during the rollout", topk_mismatch)
+        held_after("G2", g2, "phase 21b after the rollback")
+        out["b"] = {"answers": len(answers), "lost": lost_b,
+                    "by_gen": by_gen_b, "reason": state["haltReason"],
+                    "polls": timed.marks["polls"],
+                    "trip_to_rollback_s": timed.marks["rolled_back"]
+                    - timed.marks["tripped"],
+                    "reads": sum(len(r) for r in seen)}
+
+        # -- 21c: preemption: refused, resumed; another unwound -----------
+        def preempted(target, state_path):
+            """`pio rollout` (a subprocess) SIGTERM'd in its second wave's
+            bake; returns its exit code and the journal then."""
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "predictionio_tpu_torch.cli",
+                 "rollout", "--instances", ",".join(urls),
+                 "--engine-instance-id", target, "--waves", FLEET_WAVES,
+                 "--bake-s", FLEET_RESUME_BAKE_S, "--state", state_path],
+                cwd=Path(__file__).resolve().parent, env=env15,
+                stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+            deadline = time.perf_counter() + CLI_TIMEOUT_S
+            while True:
+                try:
+                    st = json.loads(Path(state_path).read_text())
+                except (OSError, ValueError):
+                    st = {}
+                if st.get("wave") == 1 and len(st.get("promoted", ())) == 2:
+                    break
+                if proc.poll() is not None or time.perf_counter() > deadline:
+                    proc.kill()
+                    die(f"phase 21c: the rollout ended ({proc.returncode}) "
+                        f"before its second wave's bake: {st}")
+                time.sleep(0.02)
+            time.sleep(0.2)
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=60)
+            return rc, json.loads(Path(state_path).read_text())
+
+        state_c = os.path.join(work, "rollout_c.json")
+        rc, st = preempted(g1, state_c)
+        if rc != -signal.SIGTERM or st["status"] != "in_progress" \
+                or st["promoted"] != urls[:2]:
+            die(f"phase 21c: the SIGTERM'd rollout exited {rc}: {st}")
+        common = ["--instances", ",".join(urls), "--waves", FLEET_WAVES,
+                  "--bake-s", FLEET_RESUME_BAKE_S, "--state", state_c]
+        rc, _, err = run_pio(mods, ["rollout", "--engine-instance-id", g1,
+                                    *common], "21c plain")
+        if rc != 1 or f"rollout {st['rolloutId']} is journaled " \
+                f"'in_progress' at {state_c} — finish it first (--resume " \
+                "to continue, --unwind to roll it back)" not in err:
+            die(f"phase 21c: a plain rollout over the journal exited {rc}: "
+                f"{err[-500:]}")
+        t0 = time.perf_counter()
+        rc, _, err = run_pio(mods, ["rollout", "--resume", *common],
+                             "21c resume")
+        out["resume_s"] = time.perf_counter() - t0
+        st = json.loads(Path(state_c).read_text())
+        if rc != 0 or st["status"] != "promoted" or st["promoted"] != urls:
+            die(f"phase 21c: --resume exited {rc}: {json.dumps(st)}")
+        held_after("G1", g1, "phase 21c after --resume")
+        state_u = os.path.join(work, "rollout_u.json")
+        rc, st = preempted(g2, state_u)
+        if rc != -signal.SIGTERM or st["promoted"] != urls[:2]:
+            die(f"phase 21c: the second SIGTERM'd rollout exited {rc}: {st}")
+        rc, _, err = run_pio(mods, [
+            "rollout", "--unwind", "--instances", ",".join(urls), "--state",
+            state_u], "21c unwind")
+        st = json.loads(Path(state_u).read_text())
+        if rc != 0 or st["status"] != "rolled_back" \
+                or st["rolledBack"] != urls[1::-1] \
+                or st["postRollback"] != {u: g1 for u in urls}:
+            die(f"phase 21c: --unwind exited {rc}: {json.dumps(st)}")
+        held_after("G1", g1, "phase 21c after --unwind")
+        ready = health.stop()
+        out["ready_statuses"] = sorted({v for rows in ready
+                                        for _, v in rows})
+
+        # -- 21d's outcome ----------------------------------------------------
+        d_thread.join(CLI_TIMEOUT_S)
+        if d_thread.is_alive() or "error" in box:
+            die(f"phase 21d: {box.get('error', 'did not finish')}")
+        out["d"] = box["out"]
+        for name in ("fused_gram", "ridge_solve_lu"):
+            out["launches"][name] = out["d"]["launches"].get(name, 0)
+
+        # -- 21e: fleet telemetry ----------------------------------------------
+        dash = subprocess.Popen(
+            [sys.executable, "-m", "predictionio_tpu_torch.cli", "dashboard",
+             "--ip", "127.0.0.1", "--port", "0", "--fleet", ",".join(urls)],
+            cwd=Path(__file__).resolve().parent, env=env15,
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        try:
+            out["e"] = fleet_telemetry(dash, urls, fleet, mods, env15,
+                                       state_u, parse_exposition)
+            stop_proc(fleet[-1])             # an instance goes away
+            _, _, doc = http_call(out["e"]["dash"] + "/fleet.json")
+            rows = {r["instance"]: r for r in doc["instances"]}
+            if [rows[u]["stale"] for u in urls] != [False] * 3 + [True] \
+                    or doc["merged"]["counters"] != out["e"]["counters"]:
+                die(f"phase 21e: after a stop the fleet reads "
+                    f"{[rows[u]['stale'] for u in urls]}, counters equal "
+                    f"{doc['merged']['counters'] == out['e']['counters']}")
+            out["e"].pop("counters")
+        finally:
+            dash.terminate()
+            dash.wait(timeout=60)
+            dash.stdout.close()
+
+        # -- 21f: the admin server beside an in-process engine server --------
+        ft_before = ft.LAUNCHES
+        with env_vars(**cli_env(home15).values, PIO_RESULT_CACHE="0"):
+            srv = mods["EngineServer"](eng, variant15, store15,
+                                       host="127.0.0.1", port=0, device=dev,
+                                       instance_id=g2)
+            servers.append(srv)
+            srv.start()
+            admin = AdminServer(storage=store15, host="127.0.0.1", port=0)
+            servers.append(admin)
+            admin.start()
+            out["f"] = admin_capture(
+                f"http://127.0.0.1:{srv.port}",
+                f"http://127.0.0.1:{admin.port}", users, work, home15, mods)
+            for s_ in list(servers):
+                s_.stop()
+                servers.remove(s_)
+        k3["here"] = ft.LAUNCHES - ft_before
+        if not k3["here"]:
+            die("phase 21f: the in-process server launched no fused_topk")
+        for d in list(fleet[:-1]) + pair:
+            stop_proc(d)
+    finally:
+        follow = box.get("proc")
+        if follow is not None and follow.poll() is None:
+            follow.kill()
+            follow.wait()
+        for d in procs:
+            d.kill()
+        for s_ in servers:
+            s_.stop()
+        if store15 is not None:
+            store15.close()
+        shutil.rmtree(work, ignore_errors=True)
+    out["launches"]["fused_topk"] = k3["deploys"] + k3["here"]
+    out["k3"] = dict(k3)
+    out["phase_s"] = time.perf_counter() - phase_t0
+    a, b, d, e, f = (out[x] for x in "abdef")
+    log(f"phase 21a rollout: six pio deploy processes up in "
+        f"{out['start_s']:.2f} s; pio rollout of G2 across "
+        f"{FLEET_N} ML-25M instances ({ML25M_USERS}x{ML25M_ITEMS} rank "
+        f"{RANK}, chunked, cache off, every query quality-sampled), waves "
+        f"{FLEET_WAVES}, bake {FLEET_BAKE_S} s: exit 0 in "
+        f"{out['rollout_s']:.3f} s; instances took G2 at "
+        f"{a['waves_s']} s; {a['answers']} answers from {FLEET_CLIENTS} "
+        f"threads meanwhile (client ms p50, p99, max {a['client_ms']}), "
+        f"{a['lost']} lost, by generation "
+        f"{json.dumps(a['by_gen'])} (each the plain top-10 of its "
+        f"generation); then {FLEET_HELD} answers an instance the plain "
+        f"top-10 of G2; card {card}")
+    log(f"phase 21b halt: the x{FLEET_DRIFT_SCALE:g} candidate halted at "
+        f"the canary ({b['reason']}) after {b['polls']} gate polls, "
+        f"rollout {out['halt_rollout_s']:.3f} s, first tripped poll to the "
+        f"last rollback {b['trip_to_rollback_s']:.4f} s; U2-U4 read G2 at "
+        f"all {b['reads']} polls; {b['answers']} answers, {b['lost']} "
+        f"lost, {json.dumps(b['by_gen'])}; all four serve G2's plain "
+        f"top-10 after")
+    log(f"phase 21c preemption: a rollout SIGTERM'd in its second wave's "
+        f"bake, a plain rollout refused (exit 1, the reference's message), "
+        f"--resume finished it in {out['resume_s']:.3f} s (all on G1); a "
+        f"second SIGTERM'd rollout unwound (U1, U2 back on G1); /ready "
+        f"read {out['ready_statuses']} through 21a-c")
+    log(f"phase 21d fleet refresh: pio train --follow --promote-url "
+        f"U5,U6 on the ML-1M store: cycle 1 {d['cycles'][0]}, cycle 2 "
+        f"{d['cycles'][1]}; both instances served each cycle's plain "
+        f"top-10; pio_refresh_staleness_s {d['staleness']!r} = latest "
+        f"event - the older served watermark; launches "
+        f"{json.dumps(d['launches'])}; {d['s']:.2f} s beside 21a-c")
+    log(f"phase 21e telemetry: /fleet.json scrape {e['scrape_ms']:.2f} ms; "
+        f"{e['n_counters']} counters equal to the four instances' sums, "
+        f"{e['n_buckets']} histogram buckets add, "
+        f"{e['n_gauges']} gauges keep their instance label; a stopped "
+        f"instance reads stale and still counts; pio status --fleet "
+        f"prints the same totals, the rollout and shared-spill lines")
+    log(f"phase 21f admin: POST /admin/profile 200 then 409 inside the "
+        f"window; captures of {FLEET_PROFILE_MS} ms under "
+        f"{f['queries']} queries: the admin route's {f['bytes'][0]} "
+        f"bytes ({f['k3_events'][0]} K3 kernel events), pio profile "
+        f"--url's {f['bytes'][1]} bytes ({f['k3_events'][1]}); the app "
+        f"routes' create, list and delete seen by pio app list; launches "
+        f"K3 {json.dumps(out['k3'])}; phase 21 "
+        f"{out['phase_s']:.1f} s (budget {PHASE21_LIMIT_S:.0f} s); card "
+        f"{card}")
+    if out["phase_s"] > PHASE21_LIMIT_S:
+        log(f"phase 21: over its {PHASE21_LIMIT_S:.0f} s budget")
+    return out
+
+
+def follow_fleet(dev, seed: int, pair, loop: dict, env12: dict, work: str,
+                 mods: dict, box: dict) -> None:
+    """Phase 21d (in a thread of its own; its outcome or error in
+    ``box``): `pio train --follow --promote-url U5,U6` on phase 12's
+    store.  A 20,000-event delta → cycle 1 warm, rolled across both;
+    both serve the warm factors' plain top-10; then a delta over the
+    fraction gate → cycle 2 full_fallback (K1, K2), rolled across both;
+    the staleness gauge from the older served watermark."""
+    try:
+        box["out"] = _follow_fleet(dev, seed, pair, loop, env12, work, mods,
+                                   box)
+    except BaseException as e:  # noqa: BLE001 - handed to the main thread
+        box["error"] = f"{type(e).__name__}: {e}"
+
+
+def _follow_fleet(dev, seed, pair, loop, env12, work, mods, box):
+    import datetime as dt
+    import select
+    import signal
+
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.config import load_config
+    from predictionio_tpu_torch.data.storage import Storage
+    from predictionio_tpu_torch.refresh import staleness_s
+    from predictionio_tpu_torch.workflow.core_workflow import load_models
+
+    t_start = time.perf_counter()
+    ft = mods["ft"]
+    rng = np.random.default_rng(seed)
+    storage = Storage(load_config(env={"PIO_HOME": os.path.join(
+        loop["work"], "home")}))
+    eng = mods["engine"]()
+    ctx = mods["RuntimeContext"].create(storage=storage, device=dev)
+    instances = storage.get_engine_instances()
+    app_id = storage.get_apps().get_by_name(CLI_APP).id
+    Event, DataMap = mods["Event"], mods["DataMap"]
+    bases = [d.base for d in pair]
+    proc = None
+    try:
+        first = pair[0].instance
+        if pair[1].instance != first:
+            raise RuntimeError(f"the two deploys serve {pair[0].instance} "
+                               f"and {pair[1].instance}")
+        [w1] = load_models(eng, instances.get(first), ctx)
+        names = list(w1.user_index.keys())
+        item_names = list(w1.item_index.keys())
+
+        def insert(n, prefix):
+            rows = refresh_delta(rng, names, item_names, n,
+                                 REFRESH_NEW_USERS, REFRESH_NEW_ITEMS,
+                                 REFRESH_TOUCHED_USERS, prefix)
+            stamp = dt.datetime.now(dt.timezone.utc)
+            storage.get_events().insert_batch([
+                Event(event="rate", entity_type="user", entity_id=u,
+                      target_entity_type="item", target_entity_id=i,
+                      properties=DataMap({"rating": r}),
+                      event_time=stamp + dt.timedelta(microseconds=k))
+                for k, (u, i, r) in enumerate(rows)], app_id)
+
+        def held(instance_id, what):
+            """Both deploys serve ``instance_id``: GET / and 64 answers
+            each, the plain top-10 of its factors."""
+            for b in bases:
+                got = http_call(b + "/")[2].get("engineInstanceId")
+                if got != instance_id:
+                    raise RuntimeError(f"{what}: {b} serves {got}, not "
+                                       f"{instance_id}")
+            [w] = load_models(eng, instances.get(instance_id), ctx)
+            uf, itf = w.host_factors()
+            users = [names[j] for j in rng.choice(len(names), REFRESH_QUERIES,
+                                                  replace=False)]
+            q = torch.from_numpy(np.ascontiguousarray(
+                uf[[w.user_index[u] for u in users]])).to(dev)
+            s, i = (x.cpu().numpy() for x in ft.fused_topk_reference(
+                q, torch.from_numpy(np.ascontiguousarray(itf)).to(dev), 11))
+            inv = w.item_index
+            for b in bases:
+                for row, u in enumerate(users):
+                    st, _, ans = http_call(f"{b}/queries.json",
+                                           {"user": u, "num": 10})
+                    hits = (ans or {}).get("itemScores") or []
+                    why = st if st != 200 or len(hits) != 10 else \
+                        mods["topk_mismatch"](
+                            [[h["score"] for h in hits]],
+                            [[inv[h["item"]] for h in hits]],
+                            s[row:row + 1, :10], i[row:row + 1, :10],
+                            s[row:row + 1, 10], rtol=RTOL, atol=ATOL)
+                    if why is not None:
+                        raise RuntimeError(f"{what}: {b}'s answer for {u}: "
+                                           f"{why}")
+
+        insert(FLEET_DELTA, "f")
+        env = dict(env12, PIO_ROLLOUT_WAVES="1,100%", PIO_ROLLOUT_BAKE_S="1",
+                   PIO_ROLLOUT_POLL_S="0.25",
+                   PIO_ROLLOUT_STATE=os.path.join(work, "rollout_d.json"),
+                   PIO_REFRESH_MAX_DELTA_FRACTION=FLEET_MAX_DELTA_FRACTION,
+                   PIO_REFRESH_TRIGGER_POLL_S="0.25")
+        proc = subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "sys.exit(chip_smoke.counted_pio(sys.argv[1:]))", "train",
+             "--engine-json", loop["engine_json"], "--follow",
+             "--refresh-interval", "600", "--trigger-delta-count",
+             str(FLEET_DELTA2), "--promote-url", ",".join(bases),
+             *(() if dev.type == "cuda" else ("--device", dev.type))],
+            cwd=Path(__file__).resolve().parent, env=env,
+            stdout=subprocess.PIPE,
+            stderr=open(os.path.join(work, "follow.log"), "w"), text=True)
+        box["proc"] = proc                   # killed by the phase if it dies
+
+        def line(prefix):
+            ready, _, _ = select.select([proc.stdout], [], [], CLI_TIMEOUT_S)
+            got = proc.stdout.readline() if ready else ""
+            if not got.startswith(prefix):
+                raise RuntimeError(f"pio train --follow said {got!r}: "
+                                   f"{Path(work, 'follow.log').read_text()[-2000:]}")
+            return got[len(prefix):]
+
+        line("Refresh daemon: trigger mode")
+        cycles = [json.loads(line("Refresh cycle: "))]
+        if (cycles[0]["result"], cycles[0]["promotion"]) != ("warm",
+                                                             "promoted"):
+            raise RuntimeError(f"cycle 1 ended {cycles[0]}")
+        held(cycles[0]["instance"], "after the warm cycle")
+        insert(FLEET_DELTA2, "g")
+        cycles.append(json.loads(line("Refresh cycle: ")))
+        if (cycles[1]["result"], cycles[1]["promotion"]) != (
+                "full_fallback", "promoted"):
+            raise RuntimeError(f"cycle 2 ended {cycles[1]}")
+        proc.send_signal(signal.SIGTERM)
+        rest = proc.communicate(timeout=CLI_TIMEOUT_S)[0]
+        if proc.returncode != 0 or "stopped after 2 cycle(s)" not in rest:
+            raise RuntimeError(f"pio train --follow exited "
+                               f"{proc.returncode}: {rest[-1000:]}")
+        launches, stale = {}, None
+        for ln in rest.splitlines():
+            if ln.startswith("launches "):
+                launches = json.loads(ln[len("launches "):])
+            if ln.startswith("pio_refresh_staleness_s "):
+                stale = float(ln.split()[1])
+        if not launches.get("fused_gram") \
+                or not launches.get("ridge_solve_lu"):
+            raise RuntimeError(f"the fallback cycle launched {launches}")
+        held(cycles[1]["instance"], "after the fallback cycle")
+        marks = [dt.datetime.fromisoformat(
+            http_call(b + "/")[2]["dataWatermark"]) for b in bases]
+        want = staleness_s(ctx.event_store.latest_event_time(CLI_APP),
+                           min(marks))
+        if stale is None or want is None or abs(stale - want) > 1e-6:
+            raise RuntimeError(f"pio_refresh_staleness_s {stale}, the "
+                               f"older served watermark gives {want}")
+        return {"cycles": [{k: c[k] for k in ("result", "promotion")}
+                           for c in cycles],
+                "launches": launches, "staleness": stale,
+                "s": time.perf_counter() - t_start}
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        storage.close()
+
+
+def fleet_telemetry(dash, urls, fleet, mods, env15, state_path,
+                    parse_exposition) -> dict:
+    """Phase 21e: the dashboard's /fleet.json against the instances' own
+    /metrics, read between two scrapes with no traffic; then `pio status
+    --fleet` and `--metrics-url`.  Returns the numbers and the merged
+    counters (for the stale check after a stop)."""
+    import re
+    import select
+
+    ready, _, _ = select.select([dash.stdout], [], [], CLI_TIMEOUT_S)
+    said = dash.stdout.readline() if ready else ""
+    m = re.search(r"Dashboard listening on 127\.0\.0\.1:(\d+)", said)
+    if not m:
+        die(f"phase 21e: pio dashboard said {said!r}")
+    base = f"http://127.0.0.1:{m.group(1)}"
+    def key(name, labels):
+        return name + ("{" + ",".join(f'{k}="{labels[k]}"'
+                                      for k in sorted(labels)) + "}"
+                       if labels else "")
+
+    for _ in range(10):
+        t0 = time.perf_counter()
+        _, _, first = http_call(base + "/fleet.json")
+        scrape_ms = (time.perf_counter() - t0) * 1e3
+        counters, buckets = {}, {}
+        for u in urls:
+            with urllib.request.urlopen(u + "/metrics", timeout=60) as r:
+                types, samples = parse_exposition(r.read().decode())
+            for name, labels, v in samples:
+                fam = name[:-len("_bucket")]
+                if types.get(name) == "counter":
+                    counters[key(name, labels)] = \
+                        counters.get(key(name, labels), 0.0) + v
+                elif name.endswith("_bucket") \
+                        and types.get(fam) == "histogram":
+                    rest = {k: v_ for k, v_ in labels.items() if k != "le"}
+                    b_ = (fam, key(fam, rest), labels["le"])
+                    buckets[b_] = buckets.get(b_, 0.0) + v
+        _, _, second = http_call(base + "/fleet.json")
+        if first["merged"]["counters"] == second["merged"]["counters"]:
+            break
+        time.sleep(0.5)
+    else:
+        die("phase 21e: the fleet's counters moved between every two "
+            "scrapes with no traffic")
+    merged = second["merged"]
+    if merged["counters"] != counters:
+        diff = {k: (merged["counters"].get(k), counters.get(k))
+                for k in set(counters) | set(merged["counters"])
+                if merged["counters"].get(k) != counters.get(k)}
+        die(f"phase 21e: /fleet.json counters differ from the sums: "
+            f"{dict(list(diff.items())[:10])}")
+    got = {(fam, skey, le): v
+           for fam, series in merged["histograms"].items()
+           for skey, row in series.items()
+           for le, v in row["buckets"].items()}
+    if got != buckets:
+        diff = {k: (got.get(k), buckets.get(k))
+                for k in set(got) | set(buckets)
+                if got.get(k) != buckets.get(k)}
+        die(f"phase 21e: merged histogram buckets differ from the sums: "
+            f"{dict(list(diff.items())[:10])}")
+    n_buckets = len(got)
+    gauges = [k for k in merged["gauges"]
+              if k.startswith("pio_model_generation{")]
+    if sorted(gauges) != sorted(f'pio_model_generation{{instance="{u}"}}'
+                                for u in urls) \
+            or any(r["stale"] for r in second["instances"]):
+        die(f"phase 21e: generation gauges {gauges}, rows "
+            f"{[r['stale'] for r in second['instances']]}")
+    from predictionio_tpu_torch.data.storage import reset_storage
+
+    with env_vars(**{**cli_env(env15["PIO_HOME"]).values,
+                     "PIO_ROLLOUT_STATE": state_path,
+                     "PIO_FLEET_INSTANCES": None}):
+        reset_storage()
+        rc, said, _ = run_pio(mods, ["status", "--fleet", ",".join(urls)],
+                              "21e status --fleet")
+        totals = {}
+        for ln in said.splitlines():
+            mm = re.match(r"    (pio_\S+) (\S+)$", ln)
+            if mm:
+                totals[mm.group(1)] = float(mm.group(2))
+        want = {k: v for k, v in counters.items() if k.startswith((
+            "pio_query_requests_total", "pio_query_errors_total",
+            "pio_event_requests_total", "pio_queue_rejected_total",
+            "pio_deadline_shed_total"))}
+        if rc != 0 or not said.startswith("predictionio_tpu_torch") \
+                or f"fleet: {len(urls)} instance(s)" not in said \
+                or totals != want or "  shared spill queue: " not in said \
+                or "  rollout [" not in said:
+            die(f"phase 21e: pio status --fleet exited {rc}: totals {totals}"
+                f" against {want}: {said[-1500:]}")
+        rc, one, _ = run_pio(mods, ["status", "--metrics-url", urls[0]],
+                             "21e status --metrics-url")
+        if rc != 0 or "fleet:" in one or "serving: model generation" \
+                not in one or f"metrics (scraped from {urls[0]}/metrics)" \
+                not in one:
+            die(f"phase 21e: pio status --metrics-url exited {rc}: "
+                f"{one[-1500:]}")
+        reset_storage()
+    return {"dash": base, "scrape_ms": scrape_ms, "counters":
+            merged["counters"], "n_counters": len(counters),
+            "n_buckets": n_buckets, "n_gauges": len(merged["gauges"])}
+
+
+def admin_capture(engine_base, admin_base, users, work, home15,
+                  mods) -> dict:
+    """Phase 21f: POST /admin/profile under query load (200, then 409
+    inside the window), its artifact, then `pio profile --url --out`; each
+    Chrome trace must name K3's CUDA functions.  Then the app routes
+    against `pio app list`."""
+    import io
+    import re
+    import tarfile
+
+    from predictionio_tpu_torch.data.storage import reset_storage
+    from predictionio_tpu_torch.obs.profiler import TRACE_FILE
+
+    def k3_events(tar) -> int:
+        member = next(n for n in tar.getnames() if n.endswith(TRACE_FILE))
+        doc = json.load(tar.extractfile(member))
+        return sum(1 for e in doc.get("traceEvents", ())
+                   if e.get("cat") == "kernel" and re.search(
+                       r"topk_(score|tiled)_pass", e.get("name", "")))
+
+    out = {"bytes": [], "k3_events": []}
+    load = query_load([engine_base], users, 8)
+    try:
+        st, _, doc = http_call(
+            f"{admin_base}/admin/profile?duration_ms={FLEET_PROFILE_MS}",
+            {})
+        st2, _, _ = http_call(f"{admin_base}/admin/profile?duration_ms=100",
+                              {})
+        if (st, st2) != (200, 409):
+            die(f"phase 21f: POST /admin/profile answered {st} ({doc}), "
+                f"then {st2} inside the window")
+        deadline = time.perf_counter() + 60
+        while http_call(f"{admin_base}/admin/profile")[2].get("active"):
+            if time.perf_counter() > deadline:
+                die("phase 21f: the capture never finished")
+            time.sleep(0.1)
+        with urllib.request.urlopen(f"{admin_base}/admin/profile/artifact",
+                                    timeout=120) as r:
+            data = r.read()
+        out["bytes"].append(len(data))
+        with tarfile.open(fileobj=io.BytesIO(data), mode="r:gz") as tar:
+            out["k3_events"].append(k3_events(tar))
+        dest = os.path.join(work, "profile")
+        os.makedirs(dest)
+        rc, said, err = run_pio(mods, [
+            "profile", "--url", admin_base, "--duration-ms",
+            str(FLEET_PROFILE_MS), "--out", dest], "21f profile --url")
+        m = re.search(r"Profile archive downloaded: (\S+) \((\S+) bytes\)",
+                      said)
+        if rc != 0 or not m:
+            die(f"phase 21f: pio profile --url exited {rc}: {said} {err}")
+        out["bytes"].append(os.path.getsize(m.group(1)))
+        with tarfile.open(m.group(1), mode="r:gz") as tar:
+            out["k3_events"].append(k3_events(tar))
+    finally:
+        answers = load.stop()
+    out["queries"] = len(answers)
+    if out["queries"] < 64 or any(a[2] != 200 for a in answers):
+        die(f"phase 21f: {out['queries']} queries under the captures, "
+            f"statuses {sorted({a[2] for a in answers})}")
+    if not all(out["k3_events"]):
+        die(f"phase 21f: a capture's trace names no K3 function: "
+            f"{out['k3_events']} K3 kernel events")
+    # the app routes, as `pio app list` sees them
+    st, _, made = http_call(f"{admin_base}/v1/cmd/app", {"name": "chipfleet"})
+    with env_vars(**cli_env(home15).values):
+        reset_storage()
+        rc, listed, _ = run_pio(mods, ["app", "list"], "21f app list")
+        st3, _, apps = http_call(f"{admin_base}/v1/cmd/app")
+        req = urllib.request.Request(f"{admin_base}/v1/cmd/app/chipfleet",
+                                     method="DELETE")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            st4 = r.status
+        rc2, after, _ = run_pio(mods, ["app", "list"], "21f app list")
+        reset_storage()
+    row = re.search(rf"^chipfleet\s+{made.get('id')}\s+(\S+)$", listed,
+                    re.M)
+    if st != 201 or rc != 0 or not row or row.group(1) != made["accessKey"] \
+            or {"name": "chipfleet", "id": made["id"],
+                "accessKeys": [made["accessKey"]]} not in apps \
+            or st4 != 200 or rc2 != 0 or "chipfleet" in after:
+        die(f"phase 21f: the app routes ({st}, {st3}, {st4}: {made}) "
+            f"against pio app list {listed!r} / {after!r}")
     return out
 
 
@@ -6560,7 +7518,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- phase 15: the serving scheduler, the result cache, --native ------
-    sched = scheduler_phase(dev, args.seed, users_np, items_np, mods, card)
+    try:
+        sched = scheduler_phase(dev, args.seed, users_np, items_np, mods,
+                                card)
+    except BaseException:
+        shutil.rmtree(loop["work"], ignore_errors=True)
+        raise
     torch.cuda.empty_cache()
 
     # -- phase 16: staged reload, rollback, the warm-start refresh --------
@@ -6578,11 +7541,16 @@ def main() -> int:
         # -- phase 20: the waterfall, /ready, the quality canary gate -----
         obs = obs_phase(dev, args.seed, loop, mods, card)
         mark("20")
+        torch.cuda.empty_cache()
+        # -- phase 21: the fleet plane on phases 15's and 12's stores -----
+        fleet = fleet_phase(dev, args.seed, users_np, items_np, sched, loop,
+                            mods, card)
     finally:
         shutil.rmtree(loop["work"], ignore_errors=True)
+        shutil.rmtree(sched["work"], ignore_errors=True)
     torch.cuda.empty_cache()
 
-    # -- phase 21: report --------------------------------------------------
+    # -- phase 22: report --------------------------------------------------
     main_shape = timings[(ML25M_ITEMS, 1, 10)]
     b64 = timings[(ML25M_ITEMS, 64, 10)]   # a full batch of query_batch
     kernels = [{
@@ -6595,7 +7563,8 @@ def main() -> int:
         + sched["inline_launches"] + sched["native_launches"]
         + sched["off_launches"]
         + refresh["launches"]["fused_topk"] + tt["launches"]["fused_topk"]
-        + ckpt["launches"]["fused_topk"] + obs["launches"]["fused_topk"],
+        + ckpt["launches"]["fused_topk"] + obs["launches"]["fused_topk"]
+        + fleet["launches"]["fused_topk"],
         "max_abs_err": max(max_err, err, err4),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -6626,7 +7595,8 @@ def main() -> int:
             + refresh["launches"].get(name, 0)
             + supervised["launches"].get(name, 0)
             + ckpt["launches"].get(name, 0)
-            + obs["launches"].get(name, 0),
+            + obs["launches"].get(name, 0)
+            + fleet["launches"].get(name, 0),
             "max_abs_err": train_kernel_err[name],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -6682,7 +7652,9 @@ def main() -> int:
         f"process and retrieve(chunk=)), {ckpt['launches']['fused_topk']} "
         f"in phase 19 (19c's eval and 19e's deploy process), "
         f"{obs['launches']['fused_topk']} in phase 20 (dispatches and the "
-        f"shadow scorer's re-predictions), {dase_topk} "
+        f"shadow scorer's re-predictions), "
+        f"{fleet['launches']['fused_topk']} in phase 21 (its six deploy "
+        f"processes and 21f's server), {dase_topk} "
         f"on the DASE path; training "
         f"kernels per the train run (fused_gram, ridge_solve_lu) + the CLI "
         f"path's train and eval ({loop['launches']['fused_gram']}, "
@@ -6697,7 +7669,9 @@ def main() -> int:
         f"({ckpt['launches']['fused_gram']}, "
         f"{ckpt['launches']['ridge_solve_lu']})), phase 20's retrains "
         f"({obs['launches']['fused_gram']}, "
-        f"{obs['launches']['ridge_solve_lu']}) and the solver='gj' run "
+        f"{obs['launches']['ridge_solve_lu']}), phase 21d's fallback cycle "
+        f"({fleet['launches']['fused_gram']}, "
+        f"{fleet['launches']['ridge_solve_lu']}) and the solver='gj' run "
         f"(ridge_solve_gj); timings of the training kernels are over one "
         f"iteration's calls at the ML-25M shape")
     print(json.dumps({"kernels": kernels}))

@@ -4,7 +4,7 @@ Port of ``predictionio_tpu/cli/main.py`` (reference: tools/.../tools/
 console/Console.scala and tools/.../commands/).  Verbs, with the
 reference's output lines::
 
-    pio status
+    pio status       [--metrics-url URL | --fleet URLS]
     pio app new <name> | list | delete <name> | data-delete <name>
     pio app channel-new <app> <channel> | channel-delete <app> <channel>
     pio accesskey new <app> [event ...] | list [app] | delete <key>
@@ -25,6 +25,12 @@ reference's output lines::
     pio batchpredict --input q.ndjson --output p.ndjson [--device D]
     pio import       --appid N --input events.ndjson [--from-line L]
     pio export       --appid N --output events.ndjson
+    pio adminserver  --ip 127.0.0.1 --port 7071
+    pio dashboard    --ip 127.0.0.1 --port 9000 [--fleet URLS]
+    pio profile      [--url URL] [--out DIR] [--duration-ms MS]
+    pio rollout      [--instances URLS] [--engine-instance-id ID]
+                     [--waves SPEC] [--bake-s S] [--poll-s S]
+                     [--state FILE] [--resume | --unwind]
 
 Storage is the ``PIO_STORAGE_*`` registry (by default sqlite and model
 files under ``PIO_HOME``), so ``train`` in one process and ``deploy`` in
@@ -38,7 +44,12 @@ at first use (a failed build ends the verb with the compiler's message;
 there is no fallback to the Python transport).  ``train --follow`` is
 the refresh daemon: it retrains on a cadence (ALS warm start on the
 delta when it can) and promotes each generation through a deploy's
-``POST /reload``.  ``train --prefetch-depth`` / ``--fuse-steps`` /
+``POST /reload`` (several ``--promote-url`` servers: a wave rollout
+through ``FleetPromoter``).  ``rollout`` promotes one generation across
+a fleet in gated waves and rolls the whole fleet back when the merged
+SLO or quality gate trips; ``status --fleet`` and ``dashboard --fleet``
+merge the fleet's ``/metrics``; ``adminserver`` and ``profile --url``
+capture a ``torch.profiler`` trace of a running process.  ``train --prefetch-depth`` / ``--fuse-steps`` /
 ``--batch-autoscale`` set the deep models' input pipeline knobs
 (``PIO_PREFETCH_DEPTH`` / ``PIO_FUSE_STEPS`` / ``PIO_BATCH_AUTOSCALE``);
 a SIGTERM'd train hands back and exits 143; with ``--checkpoint-dir``
@@ -54,9 +65,11 @@ so argparse rejects them by name.
 from __future__ import annotations
 
 import argparse
+import datetime as _dt
 import json
 import logging
 import os
+import re
 import signal
 import sys
 from pathlib import Path
@@ -135,8 +148,371 @@ def cmd_status(args) -> int:
     else:
         print("devices: unavailable (CUDA is not available; verbs that "
               "compute need --device cpu)")
+    fleet = getattr(args, "fleet", None)
+    metrics_url = getattr(args, "metrics_url", None)
+    # An explicit --metrics-url outranks the ambient PIO_FLEET_INSTANCES:
+    # the operator asked about ONE process, not the fleet the env
+    # happens to describe.  --fleet (also explicit) still wins over it.
+    if fleet is not None or (metrics_url is None
+                             and os.environ.get("PIO_FLEET_INSTANCES")):
+        _print_fleet_status(fleet)
+    else:
+        _print_metrics_snapshot(metrics_url)
     print("(sanity check OK)")
     return 0
+
+
+def _print_fleet_status(fleet_arg: Optional[str]) -> None:
+    """`pio status --fleet URL,URL`: scrape every instance's
+    /metrics + SLO state, merge type-correctly (obs.fleet), and print
+    the operator summary — per-instance readiness next to fleet-summed
+    traffic counters."""
+    from predictionio_tpu_torch.obs.fleet import (
+        FleetAggregator,
+        fleet_instances_from_env,
+    )
+
+    urls = ([u.strip().rstrip("/") for u in fleet_arg.split(",")
+             if u.strip()] if fleet_arg else fleet_instances_from_env())
+    if not urls:
+        print("fleet: no instances configured (--fleet URL,URL or "
+              "PIO_FLEET_INSTANCES)")
+        return
+    agg = FleetAggregator(urls)
+    doc = agg.scrape()
+    print(f"fleet: {len(urls)} instance(s)")
+    for row in doc["instances"]:
+        state = "STALE" if row["stale"] else "up"
+        parts = [state]
+        slo = row.get("slo")
+        if slo:
+            parts.append("degraded" if slo.get("degraded") else "healthy")
+            if slo.get("saturated"):
+                parts.append("saturated")
+            fast = slo.get("burn", {}).get("fast", {})
+            parts.append(f"burn fast a={fast.get('availability', 0):g}"
+                         f"/l={fast.get('latency', 0):g}")
+        if row.get("error"):
+            parts.append(row["error"])
+        print(f"  {row['instance']}: {', '.join(parts)}")
+    counters = doc["merged"]["counters"]
+    interesting = ("pio_query_requests_total", "pio_query_errors_total",
+                   "pio_event_requests_total", "pio_queue_rejected_total",
+                   "pio_deadline_shed_total")
+    shown = {k: v for k, v in counters.items()
+             if any(k.startswith(p) for p in interesting)}
+    if shown:
+        print("  fleet totals:")
+        for k, v in sorted(shown.items()):
+            print(f"    {k} {v:g}")
+    q = doc["merged"]["histogramQuantiles"].get("pio_query_latency_ms", {})
+    for key, row in sorted(q.items()):
+        print(f"  fleet {key}: p50 {row['p50']:g}ms p99 {row['p99']:g}ms "
+              f"over {row['count']:g} requests")
+    _print_fleet_plane(doc)
+
+
+def _print_fleet_plane(doc) -> None:
+    """The fleet plane's lines for `pio status --fleet`: shared spill-queue depth
+    (scraped gauges first, storage second) and the journaled rollout
+    wave state."""
+    gauges = doc["merged"].get("gauges", {})
+    shared = {k: v for k, v in gauges.items()
+              if k.startswith("pio_spill_shared_depth")}
+    if shared:
+        print(f"  shared spill queue: {max(shared.values()):g} event(s) "
+              "pending/leased (per-instance view of one fleet queue)")
+    else:
+        # No event server in the scraped set — best-effort direct read
+        # of THIS process's configured storage.
+        try:
+            from predictionio_tpu_torch.resilience.shared_spill import (
+                SharedSpillQueue,
+            )
+
+            st = SharedSpillQueue(_storage()).stats()
+            print(f"  shared spill queue: {st.get('pendingEvents', 0)} "
+                  f"pending / {st.get('leasedEvents', 0)} leased / "
+                  f"{st.get('deadEvents', 0)} dead event(s)")
+        except Exception:
+            pass
+    try:
+        from predictionio_tpu_torch.fleet import rollout_state_path
+
+        state = json.loads(rollout_state_path().read_text())
+    except Exception:
+        return
+    line = (f"  rollout [{state.get('rolloutId')}]: "
+            f"{state.get('status')} — wave {state.get('wave')} of "
+            f"{len(state.get('waveCounts') or [])}, "
+            f"{len(state.get('promoted') or [])} promoted, "
+            f"{len(state.get('skipped') or {})} skipped")
+    if state.get("haltReason"):
+        line += f", halt: {state['haltReason']}"
+    print(line)
+
+
+def _print_metrics_snapshot(metrics_url: Optional[str]) -> None:
+    """Metrics view for `pio status`: scrape a running server's /metrics
+    when --metrics-url is given, else render this process's registry (the
+    sanity checks above already touched storage, so it is non-empty only
+    if instrumented code ran — say so rather than print nothing)."""
+    if metrics_url:
+        from urllib.request import urlopen
+
+        url = metrics_url.rstrip("/")
+        if not url.endswith("/metrics"):
+            url += "/metrics"
+        try:
+            with urlopen(url, timeout=10) as resp:
+                text = resp.read().decode()
+        except Exception as e:
+            print(f"metrics: cannot scrape {url} ({e})")
+            return
+        _print_serving_snapshot(text.splitlines())
+        print(f"metrics (scraped from {url}):")
+        for line in text.splitlines():
+            if line and not line.startswith("#"):
+                print(f"  {line}")
+        return
+    from predictionio_tpu_torch.obs import get_registry
+
+    metrics = get_registry().metrics()
+    samples = [line for m in metrics for line in m.render()]
+    if not samples:
+        print("metrics: none recorded in this process "
+              "(use --metrics-url http://HOST:PORT to scrape a server)")
+        return
+    _print_serving_snapshot(samples)
+    print("metrics (this process):")
+    for line in samples:
+        print(f"  {line}")
+
+
+_BREAKER_STATES = {0: "closed", 1: "half-open", 2: "open"}
+_METRIC_LINE = None  # compiled lazily (keep the import-light CLI startup)
+
+
+def _parse_metric_lines(lines):
+    """(name, labels-dict, value) triples from Prometheus text lines."""
+    import re
+
+    global _METRIC_LINE
+    if _METRIC_LINE is None:
+        _METRIC_LINE = re.compile(
+            r'^(?P<name>[a-zA-Z_:][a-zA-Z0-9_:]*)'
+            r'(?:\{(?P<labels>[^}]*)\})?\s+(?P<value>\S+)$')
+    for line in lines:
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        # Strip OpenMetrics exemplar suffixes (pio_serve_stage_ms buckets
+        # carry ` # {trace_id="..."} v` after the sample value).
+        line = line.split(" # ", 1)[0].rstrip()
+        m = _METRIC_LINE.match(line)
+        if not m:
+            continue
+        labels = {}
+        for part in (m.group("labels") or "").split(","):
+            if "=" in part:
+                k, _, v = part.partition("=")
+                labels[k.strip()] = v.strip().strip('"')
+        try:
+            yield m.group("name"), labels, float(m.group("value"))
+        except ValueError:
+            continue
+
+
+def _print_serving_snapshot(lines) -> None:
+    """Model-lifecycle view for `pio status`: the
+    serving generation, reload outcomes, and breaker states out of a
+    metrics exposition — printed alongside the device-memory snapshot so
+    one `pio status --metrics-url` answers "what model is live and is
+    its storage healthy"."""
+    generation = None
+    reloads = {}
+    breakers = {}
+    watchdog = {}
+    batcher = {}
+    latest_ts = {}
+    staleness = None
+    refresh_runs = {}
+    quality = {}
+    recall = {}
+    rcache = {}
+
+    def _b(model):
+        return batcher.setdefault(model, {})
+
+    for name, labels, value in _parse_metric_lines(lines):
+        if name == "pio_model_generation":
+            generation = int(value)
+        elif name == "pio_events_latest_ts":
+            latest_ts[labels.get("app", "?")] = value
+        elif name == "pio_refresh_staleness_s":
+            staleness = value
+        elif name == "pio_refresh_runs_total" and value > 0:
+            refresh_runs[labels.get("result", "?")] = int(value)
+        elif name == "pio_quality_drift":
+            quality.setdefault("drift", {})[
+                f"{labels.get('metric', '?')}_{labels.get('window', '?')}"
+            ] = value
+        elif name == "pio_quality_drift_tripped":
+            quality["tripped"] = bool(value)
+        elif name == "pio_quality_reporting_only" and value > 0:
+            quality["reporting_only"] = True
+        elif name == "pio_quality_shadow_overlap":
+            quality["shadow_overlap"] = value
+        elif name == "pio_quality_online_hit_rate":
+            quality["hit_rate"] = value
+        elif name == "pio_quality_gate_rollback":
+            quality["gate_rollback"] = bool(value)
+        elif name == "pio_quality_sampled_total" and value > 0:
+            quality["sampled"] = int(value)
+        elif name == "pio_retrieval_recall":
+            if labels.get("window") == "fast":
+                recall.setdefault("rungs", {})[
+                    labels.get("rung", "?")] = value
+                recall["k"] = labels.get("k", "?")
+        elif name == "pio_retrieval_recall_baseline":
+            recall.setdefault("baselines", {})[
+                labels.get("rung", "?")] = value
+        elif name == "pio_retrieval_recall_tripped" and value > 0:
+            recall["tripped"] = True
+        elif name == "pio_retrieval_recall_reporting_only" and value > 0:
+            recall["reporting_only"] = True
+        elif name == "pio_result_cache_hits_total":
+            rcache["hits"] = rcache.get("hits", 0) + int(value)
+        elif name == "pio_result_cache_misses_total":
+            rcache["misses"] = int(value)
+        elif name == "pio_result_cache_hit_rate":
+            rcache["hit_rate"] = value
+        elif name == "pio_result_cache_entries":
+            rcache["entries"] = int(value)
+        elif name == "pio_result_cache_bytes":
+            rcache["bytes"] = int(value)
+        elif name == "pio_result_cache_evictions_total" and value > 0:
+            rcache["evictions"] = int(value)
+        elif name == "pio_result_cache_shared_errors_total" and value > 0:
+            rcache["shared_errors"] = int(value)
+        elif name == "pio_model_reload_total":
+            reloads[labels.get("result", "?")] = int(value)
+        elif name == "pio_breaker_state":
+            breakers[labels.get("breaker", "?")] = \
+                _BREAKER_STATES.get(int(value), str(value))
+        elif name == "pio_watchdog_fired_total" and value > 0:
+            watchdog[labels.get("fn", "?")] = int(value)
+        elif name == "pio_batch_window_ms":
+            _b(labels.get("model", "?"))["window_ms"] = value
+        elif name == "pio_batch_max_size":
+            _b(labels.get("model", "?"))["max"] = int(value)
+        elif name == "pio_queue_depth":
+            _b(labels.get("model", "?"))["queued"] = int(value)
+        elif name == "pio_batch_dispatch_total":
+            _b(labels.get("model", "?"))["dispatches"] = int(value)
+        elif name == "pio_batch_requests_total":
+            _b(labels.get("model", "?"))["requests"] = int(value)
+        elif name == "pio_queue_rejected_total" and value > 0:
+            _b(labels.get("model", "?"))["rejected"] = int(value)
+        elif name == "pio_queue_shed_total" and value > 0:
+            shed = _b(labels.get("model", "?")).setdefault("shed", {})
+            shed[labels.get("reason", "?")] = int(value)
+    if generation is None and not reloads and not breakers and not batcher \
+            and not latest_ts and not refresh_runs and staleness is None \
+            and not quality and not recall and not rcache:
+        return
+    if generation is not None:
+        print(f"serving: model generation {generation}")
+    # Freshness: ingest high-watermark per app + the refresh
+    # loop's event→servable staleness, when the scraped process runs it.
+    for app, ts in sorted(latest_ts.items()):
+        iso = _dt.datetime.fromtimestamp(
+            ts, tz=_dt.timezone.utc).isoformat(timespec="seconds")
+        print(f"  events latest [app {app}]: {iso}")
+    if staleness is not None:
+        print(f"  refresh staleness: {staleness:g}s event→servable")
+    if refresh_runs:
+        parts = ", ".join(f"{k}={v}" for k, v in sorted(refresh_runs.items()))
+        print(f"  refresh runs: {parts}")
+    # Model quality: drift vs the training scorecard, shadow
+    # canary overlap, online hit-rate, and the promotion-gate verdict.
+    if quality:
+        parts = []
+        drift = quality.get("drift", {})
+        if "psi_fast" in drift or "psi_slow" in drift:
+            parts.append(f"psi fast={drift.get('psi_fast', 0):.3f}"
+                         f"/slow={drift.get('psi_slow', 0):.3f}")
+        if quality.get("tripped"):
+            parts.append("DRIFT TRIPPED")
+        if quality.get("reporting_only"):
+            parts.append("reporting-only (no trusted scorecard)")
+        if "shadow_overlap" in quality:
+            parts.append(f"shadow overlap {quality['shadow_overlap']:.2f}")
+        if "hit_rate" in quality:
+            parts.append(f"online hit-rate {quality['hit_rate']:.3f}")
+        if quality.get("gate_rollback"):
+            parts.append("GATE=ROLLBACK")
+        if "sampled" in quality:
+            parts.append(f"sampled {quality['sampled']}")
+        if parts:
+            print(f"  quality: {', '.join(parts)}")
+    # Retrieval recall: live sampled recall@k per approximate
+    # rung vs the generation's own baked baseline.
+    if recall:
+        parts = []
+        baselines = recall.get("baselines", {})
+        for rung, v in sorted(recall.get("rungs", {}).items()):
+            b = baselines.get(rung)
+            parts.append(f"{rung} {v:.3f}"
+                         + (f" (baseline {b:.3f})" if b is not None
+                            else ""))
+        if recall.get("tripped"):
+            parts.append("RECALL TRIPPED")
+        if recall.get("reporting_only"):
+            parts.append("reporting-only (no trusted recall scorecard)")
+        if parts:
+            k = recall.get("k", "?")
+            print(f"  recall@{k}: {', '.join(parts)}")
+    # Result cache: the serve fast path — hit rate, residency,
+    # and whether the shared tier is degrading to local-only.
+    if rcache:
+        parts = []
+        if "hit_rate" in rcache:
+            parts.append(f"hit-rate {rcache['hit_rate']:.3f}")
+        if "hits" in rcache or "misses" in rcache:
+            parts.append(f"hits {rcache.get('hits', 0)}"
+                         f"/misses {rcache.get('misses', 0)}")
+        if "entries" in rcache:
+            parts.append(f"entries {rcache['entries']}")
+        if "bytes" in rcache:
+            parts.append(f"{rcache['bytes'] / 1024:.0f}KiB")
+        if rcache.get("evictions"):
+            parts.append(f"evictions {rcache['evictions']}")
+        if rcache.get("shared_errors"):
+            parts.append(f"SHARED-TIER ERRORS {rcache['shared_errors']}")
+        if parts:
+            print(f"  result cache: {', '.join(parts)}")
+    if reloads:
+        parts = ", ".join(f"{k}={v}" for k, v in sorted(reloads.items()))
+        print(f"  model reloads: {parts}")
+    for b, st in sorted(breakers.items()):
+        print(f"  breaker [{b}]: {st}")
+    for fn, n in sorted(watchdog.items()):
+        print(f"  watchdog fired [{fn}]: {n}")
+    # Batcher snapshot: coalescing health per model lane.
+    for model, row in sorted(batcher.items()):
+        disp, reqs = row.get("dispatches", 0), row.get("requests", 0)
+        parts = [f"window {row.get('window_ms', 0):g}ms",
+                 f"max {row.get('max', '?')}",
+                 f"queued {row.get('queued', 0)}",
+                 f"requests {reqs}", f"dispatches {disp}"]
+        if disp:
+            parts.append(f"mean batch {reqs / disp:.2f}")
+        if row.get("rejected"):
+            parts.append(f"rejected(429) {row['rejected']}")
+        for reason, n in sorted(row.get("shed", {}).items()):
+            parts.append(f"shed[{reason}] {n}")
+        print(f"  batcher [{model}]: {', '.join(parts)}")
 
 
 # --------------------------------------------------------------------------
@@ -419,10 +795,7 @@ def _train_follow(args, engine, variant, ctx) -> int:
         trigger_staleness_s=args.trigger_staleness,
         trigger_delta_count=args.trigger_delta_count,
     )
-    try:
-        daemon = RefreshDaemon(engine, variant, ctx, config=cfg)
-    except ValueError as e:
-        _die(str(e))
+    daemon = RefreshDaemon(engine, variant, ctx, config=cfg)
 
     def _stop(signum, frame):
         print(f"[follow] signal {signum}: stopping after the current "
@@ -935,6 +1308,172 @@ def _resolve_channel(s, app_id: int, channel_name: Optional[str]
 
 
 # --------------------------------------------------------------------------
+# pio adminserver / profile / dashboard
+# --------------------------------------------------------------------------
+
+def cmd_adminserver(args) -> int:
+    from predictionio_tpu_torch.server.admin import AdminServer
+
+    srv = AdminServer(storage=_storage(), host=args.ip, port=args.port)
+    srv.start(block=False)
+    print(f"Admin server listening on {args.ip}:{srv.port} (Ctrl-C to stop)")
+    try:
+        srv._thread.join()
+    except KeyboardInterrupt:
+        srv.stop()
+    return 0
+
+
+def cmd_profile(args) -> int:
+    """On-demand profiler capture (obs.profiler).
+
+    With --url, arms the capture on a RUNNING admin server
+    (POST /admin/profile) and returns immediately — the artifact lands on
+    the server's disk.  Without it, captures THIS process for the window
+    (mostly useful under `pio shell` or to smoke-test the platform)."""
+    duration_ms = args.duration_ms
+    if args.url:
+        from urllib.error import HTTPError
+        from urllib.request import Request, urlopen
+
+        base = args.url.rstrip("/")
+        url = base + f"/admin/profile?duration_ms={duration_ms:g}"
+        try:
+            with urlopen(Request(url, method="POST"), timeout=30) as resp:
+                body = json.loads(resp.read() or b"{}")
+        except HTTPError as e:
+            payload = e.read()
+            try:
+                msg = json.loads(payload).get("message", "")
+            except Exception:
+                msg = payload.decode(errors="replace")[:200]
+            _die(f"profile request failed: HTTP {e.code}: {msg}")
+        except OSError as e:
+            _die(f"cannot reach {args.url}: {e}")
+        print(f"Profiling for {body.get('durationMs', duration_ms):g} ms; "
+              f"artifacts: {body.get('path')}")
+        if not args.out:
+            print("(view trace.json in chrome://tracing or Perfetto once "
+                  "the window closes; --out FILE downloads the archive)")
+            return 0
+        # The capture path above is SERVER-local: wait the window out,
+        # then pull the archive down over HTTP so remote or fleet
+        # operation never needs access to the server's disk.
+        import time as _time
+
+        _time.sleep(float(body.get("durationMs", duration_ms)) / 1e3)
+        deadline = _time.monotonic() + 30
+        while _time.monotonic() < deadline:
+            try:
+                with urlopen(base + "/admin/profile", timeout=10) as resp:
+                    if not json.loads(resp.read() or b"{}").get("active"):
+                        break
+            except OSError:
+                pass
+            _time.sleep(0.25)
+        try:
+            with urlopen(base + "/admin/profile/artifact",
+                         timeout=60) as resp:
+                data = resp.read()
+                disposition = resp.headers.get("Content-Disposition", "")
+        except HTTPError as e:
+            _die(f"artifact download failed: HTTP {e.code}")
+        except OSError as e:
+            _die(f"artifact download failed: {e}")
+        out = Path(args.out)
+        if out.is_dir():
+            # The server names the archive after its capture dir
+            # (Content-Disposition); fall back to a stable default.
+            m = re.search(r'filename="([^"/\\]+)"', disposition)
+            out = out / (m.group(1) if m else "pio_profile.tar.gz")
+        out.write_bytes(data)
+        print(f"Profile archive downloaded: {out} ({len(data):,} bytes)")
+        return 0
+    from predictionio_tpu_torch.obs.profiler import ProfilerUnavailable, capture
+
+    try:
+        path = capture(duration_ms, args.out)
+    except ValueError as e:  # bad --duration-ms: same clean error as --url
+        _die(str(e))
+    except ProfilerUnavailable as e:
+        _die(f"this platform cannot capture a profile: {e}")
+    print(f"Profile captured: {path}")
+    return 0
+
+
+def cmd_dashboard(args) -> int:
+    from predictionio_tpu_torch.server.dashboard import DashboardServer
+
+    fleet = ([u.strip() for u in args.fleet.split(",") if u.strip()]
+             if getattr(args, "fleet", None) else None)
+    srv = DashboardServer(storage=_storage(), host=args.ip, port=args.port,
+                          fleet=fleet)
+    srv.start(block=False)
+    print(f"Dashboard listening on {args.ip}:{srv.port} (Ctrl-C to stop)")
+    try:
+        srv._thread.join()
+    except KeyboardInterrupt:
+        srv.stop()
+    return 0
+
+
+# --------------------------------------------------------------------------
+# pio rollout — coordinated wave promotion across a fleet
+# --------------------------------------------------------------------------
+
+def cmd_rollout(args) -> int:
+    from predictionio_tpu_torch.fleet import RolloutConfig, RolloutController
+    from predictionio_tpu_torch.obs.fleet import fleet_instances_from_env
+
+    urls = ([u.strip().rstrip("/") for u in args.instances.split(",")
+             if u.strip()] if args.instances
+            else fleet_instances_from_env())
+    if not urls:
+        _die("no instances (--instances URL,URL or PIO_FLEET_INSTANCES)")
+    cfg = RolloutConfig.from_env(
+        waves=args.waves, bake_s=args.bake_s, poll_s=args.poll_s,
+        state_path=args.state)
+    ctl = RolloutController(urls, cfg)
+    if args.resume or args.unwind:
+        try:
+            state = ctl.resume(unwind=args.unwind)
+        except RuntimeError as e:
+            _die(str(e))
+    else:
+        prior = ctl.load_state()
+        if prior and prior.get("status") in ("in_progress",
+                                             "rolling_back"):
+            _die(f"rollout {prior.get('rolloutId')} is journaled "
+                 f"{prior.get('status')!r} at {ctl.state_path} — finish "
+                 "it first (--resume to continue, --unwind to roll it "
+                 "back)")
+        state = ctl.run(args.engine_instance_id)
+    print(f"rollout {state.get('rolloutId')}: {state['status']} "
+          f"(target instance {state.get('target')})")
+    print(f"  promoted: {len(state.get('promoted', []))}/"
+          f"{len(state.get('instances', []))} instance(s)"
+          + (f" through wave {state.get('wave')}"
+             if state.get('wave') is not None else ""))
+    for url, why in (state.get("skipped") or {}).items():
+        print(f"  skipped {url}: {why}")
+    if state.get("haltReason"):
+        print(f"  halt: {state['haltReason']}")
+    for url in state.get("rolledBack", []):
+        print(f"  rolled back {url}")
+    for url, why in (state.get("unwindFailures") or {}).items():
+        print(f"  UNWIND FAILED {url}: {why} — roll this instance back "
+              "by hand (POST /admin/rollback)")
+    print(f"  state journal: {ctl.state_path}")
+    # An explicitly requested unwind that rolled every instance back IS
+    # the success case; a rollout (or resumed rollout) that got halted
+    # and rolled back is not.
+    ok = state["status"] == "promoted" or (
+        args.unwind and state["status"] == "rolled_back"
+        and not state.get("unwindFailures"))
+    return 0 if ok else 1
+
+
+# --------------------------------------------------------------------------
 # parser
 # --------------------------------------------------------------------------
 
@@ -953,8 +1492,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-v", "--verbose", action="store_true")
     sub = p.add_subparsers(dest="verb", required=True)
 
-    sub.add_parser("status", help="storage + device sanity check"
-                   ).set_defaults(fn=cmd_status)
+    st = sub.add_parser("status", help="storage + device sanity check "
+                                       "+ metrics snapshot")
+    st.add_argument("--metrics-url", dest="metrics_url", default=None,
+                    metavar="URL",
+                    help="scrape a running server's /metrics into the "
+                         "status report (e.g. http://127.0.0.1:7070)")
+    st.add_argument("--fleet", dest="fleet", default=None,
+                    metavar="URLS",
+                    help="comma-separated instance base URLs (or unset: "
+                         "PIO_FLEET_INSTANCES) — scrape and merge "
+                         "/metrics + SLO state across the fleet instead "
+                         "of one process")
+    st.set_defaults(fn=cmd_status)
 
     app = sub.add_parser("app", help="app management").add_subparsers(
         dest="app_verb", required=True)
@@ -1050,8 +1600,9 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar="URL",
                    help="engine-server base URL each refreshed "
                         "generation is promoted through (POST /reload; "
-                        "default env PIO_REFRESH_PROMOTE_URL; unset = "
-                        "train only)")
+                        "several comma-separated URLs: a gated wave "
+                        "rollout across them; default env "
+                        "PIO_REFRESH_PROMOTE_URL; unset = train only)")
     t.add_argument("--canary-window", dest="canary_window", type=float,
                    default=None, metavar="S",
                    help="post-promotion watch window; a trip rolls the "
@@ -1167,6 +1718,71 @@ def build_parser() -> argparse.ArgumentParser:
                     help="queries per vectorized predict chunk")
     _device_flag(bp)
     bp.set_defaults(fn=cmd_batchpredict)
+
+    adm = sub.add_parser("adminserver", help="app-management REST API server")
+    adm.add_argument("--ip", default="127.0.0.1")
+    adm.add_argument("--port", type=int, default=7071)
+    adm.set_defaults(fn=cmd_adminserver)
+
+    db = sub.add_parser("dashboard", help="engine/evaluation instance dashboard")
+    db.add_argument("--ip", default="127.0.0.1")
+    db.add_argument("--port", type=int, default=9000)
+    db.add_argument("--fleet", default=None, metavar="URLS",
+                    help="comma-separated instance base URLs to aggregate "
+                         "at GET /fleet.json (default: "
+                         "PIO_FLEET_INSTANCES)")
+    db.set_defaults(fn=cmd_dashboard)
+
+    pf = sub.add_parser("profile", help="on-demand torch.profiler capture "
+                                        "(local, or a running admin "
+                                        "server via --url)")
+    pf.add_argument("--duration-ms", dest="duration_ms", type=float,
+                    default=2000.0, help="capture window (default 2000)")
+    pf.add_argument("--url", default=None,
+                    help="admin server base URL (e.g. "
+                         "http://127.0.0.1:7071) — capture happens there")
+    pf.add_argument("--out", default=None,
+                    help="local capture: artifact directory (default: "
+                         "fresh temp dir; env PIO_PROFILE_OUT). With "
+                         "--url: LOCAL file/dir the capture archive is "
+                         "downloaded to after the window closes "
+                         "(GET /admin/profile/artifact)")
+    pf.set_defaults(fn=cmd_profile)
+
+    ro = sub.add_parser("rollout",
+                        help="promote a generation across a fleet in "
+                             "gated waves, rolling the WHOLE fleet back "
+                             "on degradation")
+    ro.add_argument("--instances", default=None, metavar="URLS",
+                    help="comma-separated engine-server base URLs "
+                         "(default: PIO_FLEET_INSTANCES)")
+    ro.add_argument("--engine-instance-id", dest="engine_instance_id",
+                    default=None,
+                    help="candidate engine instance id (default: the "
+                         "first promoted server's latest COMPLETED, "
+                         "then pinned fleet-wide)")
+    ro.add_argument("--waves", default=None, metavar="SPEC",
+                    help="wave tranches, counts or percentages "
+                         "(default env PIO_ROLLOUT_WAVES, else "
+                         "'1,25%%,100%%')")
+    ro.add_argument("--bake-s", dest="bake_s", type=float, default=None,
+                    help="per-wave observation window watching the "
+                         "fleet-merged SLO burn + quality gate "
+                         "(default env PIO_ROLLOUT_BAKE_S, else 10)")
+    ro.add_argument("--poll-s", dest="poll_s", type=float, default=None,
+                    help="gate poll cadence inside the bake (default "
+                         "env PIO_ROLLOUT_POLL_S, else 1)")
+    ro.add_argument("--state", default=None, metavar="FILE",
+                    help="wave-state journal (default env "
+                         "PIO_ROLLOUT_STATE, else "
+                         "$PIO_HOME/rollout/state.json)")
+    ro.add_argument("--resume", action="store_true",
+                    help="continue a preempted rollout from its journal "
+                         "(re-verifies what each instance serves first)")
+    ro.add_argument("--unwind", action="store_true",
+                    help="roll back everything the journaled rollout "
+                         "already promoted, instead of continuing")
+    ro.set_defaults(fn=cmd_rollout)
 
     imp = sub.add_parser("import", help="import NDJSON events")
     imp.add_argument("--appid", type=int, required=True)

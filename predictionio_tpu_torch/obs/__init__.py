@@ -6,8 +6,10 @@ sampler and the step timeline (:mod:`.runtime`), the on-demand
 ``torch.profiler`` capture (:mod:`.profiler`), the per-request serving
 latency waterfall (:mod:`.waterfall`: ``pio_serve_stage_ms{stage}`` with
 exemplars, the ``PIO_REQUEST_LOG`` wide event), the SLO engine behind
-``/ready`` (:mod:`.slo`), and the model-quality and retrieval-recall
-monitors behind ``/quality.json`` (:mod:`.quality`, :mod:`.recall`)."""
+``/ready`` (:mod:`.slo`), the model-quality and retrieval-recall
+monitors behind ``/quality.json`` (:mod:`.quality`, :mod:`.recall`), and
+the fleet-merged view of several servers' ``/metrics`` behind
+``/fleet.json`` and ``pio status --fleet`` (:mod:`.fleet`)."""
 
 import contextlib as _contextlib
 

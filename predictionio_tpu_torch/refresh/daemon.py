@@ -26,9 +26,10 @@ follow cadences with zero wall sleeps.  The canary window reads the
 engine server's ``slo`` in ``/stats.json`` and ``gate.rollback`` in
 ``/quality.json`` (drift, shadow divergence, recall regression); a
 server without them reads "promoted", as the reference's daemon does.
-Several
-comma-separated promote URLs are fleet mode, whose rollout controller is
-not ported: the daemon refuses them rather than promote to one URL.
+Several comma-separated promote URLs are fleet mode: each cycle rolls
+across them in gated waves through a
+:class:`~predictionio_tpu_torch.fleet.FleetPromoter`, whose verdict is
+the rollout's outcome.
 """
 
 from __future__ import annotations
@@ -237,20 +238,18 @@ class RefreshDaemon:
             urls = [u.strip() for u in self.config.promote_url.split(",")
                     if u.strip()]
             if len(urls) > 1:
-                # Fleet mode promotes through the wave-based rollout
-                # controller (gated waves, whole-fleet rollback), never a
-                # bare promote of the first URL; the port has no
-                # FleetPromoter yet.
-                raise ValueError(
-                    f"promote_url names {len(urls)} servers: fleet "
-                    "promotion goes through FleetPromoter (the rollout "
-                    "controller, ROADMAP Queue 1 item 11), which "
-                    "predictionio_tpu_torch does not port yet; give one "
-                    "engine-server URL")
-            promoter = HttpPromoter(
-                urls[0],
-                canary_window_s=self.config.canary_window_s,
-                canary_poll_s=self.config.canary_poll_s)
+                # Fleet mode: N instance URLs promote through the
+                # wave-based rollout controller — gated waves, the fleet
+                # SLO and quality gate, whole-fleet rollback — never a
+                # bare promote loop.
+                from predictionio_tpu_torch.fleet import FleetPromoter
+
+                promoter = FleetPromoter(urls)
+            else:
+                promoter = HttpPromoter(
+                    urls[0],
+                    canary_window_s=self.config.canary_window_s,
+                    canary_poll_s=self.config.canary_poll_s)
         self.promoter = promoter
         # appName out of the variant: the staleness gauge compares the
         # app's ingest high-watermark against the served window.

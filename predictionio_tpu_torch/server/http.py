@@ -22,8 +22,10 @@ Port of ``predictionio_tpu/server/http.py``:
   (``X-PIO-Server-Ms``) and the ``Retry-After`` hint on degraded
   answers.  Subclasses implement :meth:`BaseHandler.pio_handle` and
   override the small hooks below it.  A handler answers ``(status,
-  payload)``, or ``(status, payload, content_type)`` when the payload is
-  already the body (the result cache's hit bytes).  The path also closes
+  payload)``, ``(status, payload, content_type)`` when the payload is
+  already the body (the result cache's hit bytes), or ``(status,
+  payload, content_type, headers)`` when it also sets response headers
+  (the profiler artifact's ``Content-Disposition``).  The path also closes
   the request's latency waterfall when a handler armed one
   (:mod:`predictionio_tpu_torch.obs.waterfall`): it notes the receipt
   time for ``ingress``, stamps ``shed_check`` and ``serialize``,
@@ -201,7 +203,8 @@ class BaseHandler(BaseHTTPRequestHandler):
                    params: Dict[str, List[str]], body: bytes
                    ) -> Tuple:
         """Handle one request inside the trace and deadline scope;
-        returns (status, payload) or (status, body, content_type)."""
+        returns (status, payload), (status, body, content_type) or
+        (status, body, content_type, headers)."""
         raise NotImplementedError
 
     def pio_on_complete(self, method: str, path: str, status: int,
@@ -254,7 +257,8 @@ class BaseHandler(BaseHTTPRequestHandler):
                     remaining = _deadline.remaining_ms()
             t_shed = time.perf_counter()
             status, payload = out[0], out[1]
-            ctype = out[2] if len(out) == 3 else None
+            ctype = out[2] if len(out) >= 3 else None
+            handler_headers = out[3] if len(out) == 4 else {}
             if (self.shed_late_responses and remaining is not None
                     and remaining <= 0 and 200 <= status < 300):
                 # The handler answered, but past its budget: the client
@@ -266,6 +270,8 @@ class BaseHandler(BaseHTTPRequestHandler):
             ms = (time.perf_counter() - t0) * 1e3
             extra = dict(self.pio_on_complete(method, parsed.path, status,
                                               ms, body, params) or {})
+            for k, v in handler_headers.items():
+                extra.setdefault(k, v)
             # The server's own read+handle wall time: clients use it to
             # attribute client-vs-server latency.
             extra.setdefault("X-PIO-Server-Ms", f"{ms:.1f}")

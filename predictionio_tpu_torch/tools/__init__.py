@@ -1,7 +1,9 @@
 """Micro-experiments on the card, ports of the reference's ``tools/`` scratch
 experiments.  Each runs as ``python -m predictionio_tpu_torch.tools.<name>
 [section ...]``, needs an NVIDIA card, and builds its inputs inside
-``main()``, never at import.
+``main()``, never at import.  ``attribute_serve`` and
+``attribute_quality`` are the exceptions: they read a server's outputs
+(``/metrics``, ``PIO_REQUEST_LOG``, ``/quality.json``) on the host.
 """
 
 from __future__ import annotations

@@ -14,6 +14,10 @@ port's ``--device`` rule, and two end-to-end checks:
 - one across processes: ``deploy --device cpu`` in a subprocess answers
   ``/queries.json`` as the in-process server does from the same storage,
   and exits 0 on ``POST /stop``.
+
+``pio status --fleet`` prints the reference's fleet lines against a live
+server of each package (URL, burn rates and latency quantiles masked),
+and the fleet verbs' argparse surfaces equal the reference's.
 """
 
 import json
@@ -227,13 +231,108 @@ def test_status(clean_storage, capsys):
 
 @pytest.mark.parametrize("argv", [
     ["train", "--mesh", "data=8"],
-    ["eval", "a:b", "c:d", "--mesh", "x"],
-    ["status", "--fleet", "http://x"]])
+    ["eval", "a:b", "c:d", "--mesh", "x"]])
 def test_flags_without_substrate_are_rejected(clean_storage, capsys, argv):
     with pytest.raises(SystemExit) as e:
         main(argv)
     assert e.value.code == 2
     assert "unrecognized arguments" in capsys.readouterr().err
+
+
+def _fleet_lines(text, url):
+    """`pio status`'s lines from ``fleet:`` on, with the URL, the burn
+    rates and the latency quantiles (timings) masked."""
+    lines = text.split("fleet: ", 1)[1].splitlines()
+    out = []
+    for line in ["fleet: " + lines[0]] + lines[1:]:
+        if line.startswith("(sanity check OK)"):
+            break
+        line = line.replace(url, "<U>")
+        line = re.sub(r"a=[0-9.e+-]+/l=[0-9.e+-]+", "a=<b>/l=<b>", line)
+        line = re.sub(r"p50 \S+ms p99 \S+ms", "p50 <ms> p99 <ms>", line)
+        out.append(line)
+    return out
+
+
+def test_status_fleet_prints_the_reference_lines(tmp_path, monkeypatch,
+                                                 capsys):
+    """`pio status --fleet URL` against a live server of each package
+    prints the reference's fleet summary: instance state, SLO, the
+    fleet totals, the latency quantiles, the shared spill queue and the
+    journaled rollout line; `--metrics-url` prints one instance's
+    snapshot instead, and outranks PIO_FLEET_INSTANCES."""
+    from predictionio_tpu.cli.main import main as ref_main
+    from test_torch_rollout import _port_stack, _ref_stack
+
+    _clean_env(monkeypatch, tmp_path / "home")
+    monkeypatch.setenv("PIO_STORAGE_REPOSITORIES_METADATA_SOURCE", "MEMORY")
+    monkeypatch.setenv("PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE", "MEMORY")
+    monkeypatch.delenv("PIO_FLEET_INSTANCES", raising=False)
+    journal = tmp_path / "home" / "rollout" / "state.json"
+    journal.parent.mkdir(parents=True)
+    journal.write_text(json.dumps({
+        "rolloutId": "abc123", "status": "rolled_back", "wave": 0,
+        "waveCounts": [1, 4], "promoted": ["u1"], "skipped": {"u2": "x"},
+        "haltReason": "fleet quality gate: ['drift']"}))
+    said = {}
+    for label, make, cli in (
+            ("reference", _ref_stack, ref_main),
+            ("port", lambda: _port_stack(tmp_path / "port"), main)):
+        pkg = make()
+        pkg.wf.run_train(pkg.eng, pkg.variant, pkg.ctx)
+        srv = pkg.server()
+        srv.start()
+        url = f"http://127.0.0.1:{srv.port}"
+        try:
+            for n in range(3):
+                req = urllib.request.Request(
+                    url + "/queries.json", method="POST",
+                    data=json.dumps({"user": f"u{n}", "num": 2}).encode(),
+                    headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=30) as r:
+                    assert r.status == 200
+            assert cli(["status", "--fleet", url]) == 0
+            said[label] = _fleet_lines(capsys.readouterr().out, url)
+            monkeypatch.setenv("PIO_FLEET_INSTANCES", url)
+            assert cli(["status", "--metrics-url", url]) == 0
+            one = capsys.readouterr().out
+            monkeypatch.delenv("PIO_FLEET_INSTANCES")
+            assert "fleet:" not in one
+            assert "serving: model generation 1" in one
+            assert f"metrics (scraped from {url}/metrics):" in one
+        finally:
+            srv.stop()
+    assert said["port"] == said["reference"]
+    lines = said["port"]
+    assert lines[0] == "fleet: 1 instance(s)"
+    assert lines[1].startswith("  <U>: up, healthy, burn fast")
+    assert "    pio_query_requests_total 3" in lines
+    assert any(ln.startswith("  fleet pio_query_latency_ms: p50 <ms> p99 "
+                             "<ms> over 3 requests") for ln in lines)
+    assert any(ln.startswith("  shared spill queue: ") for ln in lines)
+    assert lines[-1] == ("  rollout [abc123]: rolled_back — wave 0 of 2, "
+                         "1 promoted, 1 skipped, halt: fleet quality "
+                         "gate: ['drift']")
+
+
+def _surface(parser, verb):
+    sub = next(a for a in parser._actions
+               if isinstance(a, __import__("argparse")._SubParsersAction))
+    return sorted(
+        (tuple(a.option_strings), a.dest, a.default, a.type, a.nargs,
+         a.const, a.choices, a.required, a.metavar)
+        for a in sub.choices[verb]._actions)
+
+
+@pytest.mark.parametrize("verb", ["adminserver", "dashboard", "profile",
+                                  "rollout", "status"])
+def test_fleet_verbs_parse_as_the_reference(verb):
+    """The four fleet-plane verbs and `status`' fleet flags: the same
+    options, destinations, defaults, types and metavars."""
+    from predictionio_tpu.cli.main import build_parser as ref_parser
+
+    assert _surface(cli_main.build_parser(), verb) == \
+        _surface(ref_parser(), verb)
 
 
 def test_access_keys_never_start_with_a_dash(clean_storage, capsys,

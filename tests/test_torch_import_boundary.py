@@ -98,6 +98,12 @@ TRACE_SLICE = (
 OBS_SLICE = (
     "obs", "obs.waterfall", "obs.slo", "obs.quality", "obs.recall",
 )
+# ... and every module of the fleet plane: the merged telemetry, the wave
+# rollout, the admin server, the dashboard and the attribution tools.
+FLEET_SLICE = (
+    "obs.fleet", "fleet", "fleet.rollout", "server.admin",
+    "server.dashboard", "tools.attribute_serve", "tools.attribute_quality",
+)
 
 
 def _forbidden(module: str) -> bool:
@@ -114,7 +120,7 @@ def test_importing_the_port_loads_no_jax():
     assert len(probe["modules"]) >= 30
     missing = [m for m in TRAINING_SLICE + IVF_PQ_SLICE + CLI_SLICE
                + EVENT_SERVER_SLICE + SCHEDULER_SLICE + TWO_TOWER_SLICE
-               + DLRM_SLICE + TRACE_SLICE + OBS_SLICE
+               + DLRM_SLICE + TRACE_SLICE + OBS_SLICE + FLEET_SLICE
                if f"predictionio_tpu_torch.{m}" not in probe["modules"]]
     assert missing == []
     assert probe["bad"] == [], f"the port pulled in {probe['bad']}"

@@ -22,7 +22,9 @@ warm start, ``run_train(warm_from=...)``, the refresh daemon and
   rollback, the canary-rollback branch — equal summaries, counters and
   request sequences.
 - ``pio train --follow --device cpu`` runs a cycle in a process of its
-  own and exits 0 on SIGTERM.
+  own and exits 0 on SIGTERM; with several ``--promote-url`` servers the
+  cycle rolls out across them through ``FleetPromoter`` (the reference's
+  choice of promoter is checked beside it).
 """
 
 import dataclasses
@@ -896,9 +898,20 @@ def test_a_rejected_promotion_as_the_reference():
 
 
 def test_several_promote_urls_are_refused_not_cut_to_one(pair):
+    """Several URLs are never cut to the first: they build the fleet's
+    wave promoter over all of them, as the reference's daemon does; one
+    URL builds an HttpPromoter."""
+    from predictionio_tpu.fleet import FleetPromoter as RefFleetPromoter
+    from predictionio_tpu_torch.fleet import FleetPromoter
+
     side = pair.port
-    with pytest.raises(ValueError, match="FleetPromoter"):
-        _daemon("port", side, cfg={"promote_url": "http://a:1, http://b:2"})
+    d = _daemon("port", side, cfg={"promote_url": "http://a:1, http://b:2"})
+    r = _daemon("ref", pair.ref, cfg={"promote_url": "http://a:1, http://b:2"})
+    assert isinstance(d.promoter, FleetPromoter)
+    assert isinstance(r.promoter, RefFleetPromoter)
+    assert d.promoter.instances == r.promoter.instances == \
+        ["http://a:1", "http://b:2"]
+    assert d.promoter.canary_window_s == r.promoter.canary_window_s
     d = _daemon("port", side, cfg={"promote_url": "http://a:1"})
     assert isinstance(d.promoter, port_daemon.HttpPromoter)
     assert d.promoter.base_url == "http://a:1"
@@ -954,15 +967,68 @@ def test_pio_train_follow_runs_a_cycle_and_stops_on_sigterm(tmp_path):
         storage.close()
 
 
-def test_pio_train_follow_refuses_a_fleet_of_promote_urls(tmp_path,
-                                                         monkeypatch, capsys):
-    from predictionio_tpu_torch.cli.main import main as pio
+def test_pio_train_follow_promotes_a_fleet_through_fleet_promoter(
+        tmp_path):
+    """`pio train --follow --promote-url A,B` in a process of its own:
+    the cycle rolls the new generation across both servers in waves
+    (FleetPromoter → RolloutController), its verdict is the rollout's,
+    and both servers then serve it."""
+    from predictionio_tpu_torch.config import load_config
 
-    monkeypatch.setenv("PIO_HOME", str(tmp_path / "home"))
+    home = tmp_path / "home"
+    storage = Storage(load_config(env={"PIO_HOME": str(home)}))
+    app_id = storage.get_apps().insert(App(id=None, name=APP))
+    storage.get_events().init(app_id)
+    storage.get_events().insert_batch(
+        [_rate(Event, DataMap, *e) for e in _gen1_events()], app_id)
+    eng, variant = engine(), EngineVariant.from_dict(PORT_VARIANT)
+    first = port_wf.run_train(eng, variant, RuntimeContext.create(
+        storage=storage, device="cpu"))
+    servers = [EngineServer(eng, variant, storage, host="127.0.0.1", port=0,
+                            device="cpu") for _ in range(2)]
+    for srv in servers:
+        srv.start()
+    urls = [f"http://127.0.0.1:{srv.port}" for srv in servers]
     engine_json = tmp_path / "engine.json"
     engine_json.write_text(json.dumps(PORT_VARIANT))
-    with pytest.raises(SystemExit) as e:
-        pio(["train", "--engine-json", str(engine_json), "--device", "cpu",
-             "--follow", "--promote-url", "http://a:1,http://b:2"])
-    assert e.value.code == 1
-    assert "FleetPromoter" in capsys.readouterr().err
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("PIO_", "JAX_"))}
+    env.update(PIO_HOME=str(home), PYTHONPATH=str(ROOT),
+               PIO_ROLLOUT_WAVES="1,100%", PIO_ROLLOUT_BAKE_S="0.2",
+               PIO_ROLLOUT_POLL_S="0.1",
+               PIO_ROLLOUT_STATE=str(tmp_path / "rollout.json"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "predictionio_tpu_torch.cli", "train",
+         "--engine-json", str(engine_json), "--device", "cpu", "--follow",
+         "--refresh-interval", "600", "--promote-url", ",".join(urls)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        head = proc.stdout.readline()
+        assert head.startswith("Refresh daemon: retraining every 600s") \
+            and ",".join(urls) in head, (
+                head, proc.stderr.read() if proc.poll() is not None else "")
+        line = proc.stdout.readline()
+        assert line.startswith("Refresh cycle: "), (
+            line, proc.stderr.read() if proc.poll() is not None else "")
+        cycle = json.loads(line[len("Refresh cycle: "):])
+        assert cycle["promotion"] == "promoted"
+        assert cycle["instance"] != first
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=120) == 0
+        for srv in servers:
+            assert srv._instance.id == cycle["instance"]
+        journal = json.loads((tmp_path / "rollout.json").read_text())
+        assert (journal["status"], journal["target"], journal["waveCounts"],
+                journal["promoted"]) == ("promoted", cycle["instance"],
+                                         [1, 2], urls)
+        assert journal["preRollout"] == {u: first for u in urls}
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+        proc.stderr.close()
+        for srv in servers:
+            srv.stop()
+        storage.close()

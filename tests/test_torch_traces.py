@@ -148,11 +148,20 @@ def test_the_native_fallback_serves_traces_with_their_filters(serve, rings):
     included) to ``EngineServer.handle``: the filters apply there too."""
     from urllib.parse import parse_qs, urlparse
 
+    import time
+
     _, port = serve()
     call(port, "POST", "/queries.json", {"user": "u1", "num": 3},
          headers={"X-Request-ID": "nat-1"})
     parsed = urlparse("/traces.json?request_id=nat-1")
-    st, body = port.handle("GET", parsed.path, b"", parse_qs(parsed.query))
+    # The handler records its trace after writing the answer: wait for it.
+    deadline = time.monotonic() + 10
+    while True:
+        st, body = port.handle("GET", parsed.path, b"",
+                               parse_qs(parsed.query))
+        if body["traces"] or time.monotonic() > deadline:
+            break
+        time.sleep(0.01)
     assert st == 200 and [t["traceId"] for t in body["traces"]] == ["nat-1"]
 
 
