@@ -316,7 +316,28 @@ cannot be imported, or when any phase fails.  Phases, in order:
    EngineServer: POST /admin/profile 200 then 409, its artifact and
    `pio profile --url --out`'s, each Chrome trace naming K3's
    functions; the app routes as `pio app list` sees them.  Budget 90 s.
-22. report — one JSON line of per-kernel numbers, the card's name and
+22. remote — the storage server, after phase 21 on phase 12's store:
+   `pio storageserver` (a secret, a free port) hosts it in a process of
+   its own.  22a: `pio template get recommendation` scaffolds the
+   engine.json (the port's engineFactory; appName and rank 64 set),
+   phase 12's first 200,000 events go into an app of their own (cut for
+   the time limit; in that app sqlite's entity-index read and the wire's
+   event-time read give the same order), and `pio train` runs twice in
+   this process: on sqlite, then with METADATA, EVENTDATA and MODELDATA
+   on `type=pioserver`; K1 and K2 must launch in the second, and its
+   factors must be torch.equal to the first's by entity id; both walls,
+   both reads and the wire's events/s.  22b: `pio deploy` on pioserver
+   as a subprocess (result cache off) answering 64 /queries.json, each
+   the plain top-k of the persisted factors (K3 counted in the deploy
+   process).  22c: the storage server killed: 8 answers 200 and
+   unchanged, POST /reload 503 until the modeldata breaker opens (2
+   failures), then 503 shed by the open breaker with Retry-After; the
+   storage server restarted on the same port: after the 3 s recovery
+   /reload 200 and the 8 answers unchanged.  22d: `pio status` prints
+   type=pioserver for each repository.  22e: `entry()`'s two-tower
+   forward on the card within rtol = atol = 1e-5 of the CPU's.  Budget
+   60 s.
+23. report — one JSON line of per-kernel numbers, the card's name and
    power limit, and the final status line.
 After phases 7, 11-14, 16, 17, 19b-e and 20 a line gives the seconds the
 quality and recall scorecards took in that phase's in-process trains.
@@ -7200,6 +7221,387 @@ def admin_capture(engine_base, admin_base, users, work, home15,
     return out
 
 
+# Phase 22: the storage server.  Every repository of a train and a deploy
+# on `type=pioserver`, behind a `pio storageserver` process over phase
+# 12's store.
+REMOTE_APP = "chipremote"
+REMOTE_EVENTS = 200_000        # phase 12's first events (cut for the time
+#                                limit: the wire reads ~12,000 events/s)
+REMOTE_SECRET_BYTES = 16
+REMOTE_QUERIES = 64
+REMOTE_BREAKER = {"PIO_BREAKER_THRESHOLD": "2", "PIO_BREAKER_RECOVERY_S": "3"}
+REMOTE_LIMIT_S = 60.0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class storage_server:
+    """``pio storageserver`` in a subprocess over ``home`` on ``port``,
+    until :meth:`kill`.  With ``wait=False`` the constructor returns at
+    once and :meth:`ready` waits for its two lines, so the server starts
+    while this process works."""
+
+    def __init__(self, home: str, port: int, secret: str, log_path: str,
+                 wait: bool = True):
+        self.port, self.log_path = port, log_path
+        self.started_s = time.perf_counter()
+        self.log = open(log_path, "a")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "predictionio_tpu_torch.cli",
+             "storageserver", "--ip", "127.0.0.1", "--port", str(port),
+             "--secret", secret],
+            cwd=Path(__file__).resolve().parent, env=proc_env(home),
+            stdout=subprocess.PIPE, stderr=self.log, text=True)
+        if wait:
+            self.ready()
+
+    def ready(self) -> "storage_server":
+        """Wait for the listening and client lines; ``up_s``: Popen to
+        the listening line."""
+        import re
+        import select
+
+        port = self.port
+        ready, _, _ = select.select([self.proc.stdout], [], [],
+                                    CLI_TIMEOUT_S)
+        # the two lines are printed together: the second needs no wait
+        lines = [self.proc.stdout.readline() if ready else ""]
+        self.up_s = time.perf_counter() - self.started_s
+        lines.append(self.proc.stdout.readline() if lines[0] else "")
+        if not re.match(rf"Storage server listening on 127\.0\.0\.1:{port} ",
+                        lines[0]) or not lines[1].startswith(
+                "Clients: PIO_STORAGE_SOURCES_REMOTE_TYPE=pioserver "
+                f"PIO_STORAGE_SOURCES_REMOTE_HOSTS=127.0.0.1 "
+                f"PIO_STORAGE_SOURCES_REMOTE_PORTS={port} "):
+            self.kill()
+            die(f"phase 22: pio storageserver did not start ({lines!r}): "
+                f"{Path(self.log_path).read_text()[-2000:]}")
+        return self
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=60)
+        self.proc.stdout.close()
+        self.log.close()
+
+
+def reload_status(base: str):
+    """POST /reload: (status, Retry-After, message, wall s)."""
+    req = urllib.request.Request(base + "/reload", data=b"", method="POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            status, body, ra = r.status, r.read(), r.headers.get(
+                "Retry-After")
+    except urllib.error.HTTPError as e:
+        status, body, ra = e.code, e.read(), e.headers.get("Retry-After")
+    return (status, ra, json.loads(body or b"{}").get("message", ""),
+            time.perf_counter() - t0)
+
+
+def remote_phase(dev, seed: int, loop: dict, mods: dict, card: str) -> dict:
+    """Phase 22: ALS trains and serves through a store in another
+    process.  22a `pio template get recommendation`, then `pio train`
+    twice on REMOTE_EVENTS of phase 12's events in an app of their own:
+    directly on sqlite, then with METADATA, EVENTDATA and MODELDATA on
+    `pioserver` (K1/K2 launched; factors torch.equal by entity id); 22b
+    `pio deploy` on `pioserver`, 64 answers the plain top-k (K3 in the
+    deploy process); 22c the storage server killed: answers 200, /reload
+    503 until the breaker opens, then shed with Retry-After; restarted:
+    /reload 200, answers unchanged; 22d `pio status` names pioserver;
+    22e `entry()` on the card equals it on the CPU.  Returns the phase's
+    numbers and launches."""
+    import secrets
+
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.data.storage import get_storage, \
+        reset_storage
+    from predictionio_tpu_torch.entry import entry
+    from predictionio_tpu_torch.workflow.core_workflow import load_models
+
+    fg, rs, ft = mods["fg"], mods["rs"], mods["ft"]
+    registry = mods["get_registry"]()
+    home = os.path.join(loop["work"], "home")
+    work = tempfile.mkdtemp(prefix="pio_chip_remote_", dir=loop["work"])
+    port, secret = free_port(), secrets.token_hex(REMOTE_SECRET_BYTES)
+    remote = {"PIO_STORAGE_SOURCES_REMOTE_TYPE": "pioserver",
+              "PIO_STORAGE_SOURCES_REMOTE_HOSTS": "127.0.0.1",
+              "PIO_STORAGE_SOURCES_REMOTE_PORTS": str(port),
+              "PIO_STORAGE_SOURCES_REMOTE_SECRET": secret,
+              **{f"PIO_STORAGE_REPOSITORIES_{r}_SOURCE": "REMOTE"
+                 for r in ("METADATA", "EVENTDATA", "MODELDATA")}}
+    server_log = os.path.join(work, "storageserver.log")
+
+    def read_ms() -> float:
+        h = registry.get("pio_train_phase_ms")
+        return 0.0 if h is None else h.sum(phase="train.datasource")
+
+    def train(what: str) -> dict:
+        fg.LAUNCHES, rs.LU_LAUNCHES = 0, 0
+        before = read_ms()
+        t0 = time.perf_counter()
+        rc, said, err = run_pio(mods, ["train", "--engine-json",
+                                       engine_json], f"22a {what} train")
+        out = {"s": time.perf_counter() - t0, "read_ms": read_ms() - before,
+               "launches": {"fused_gram": fg.LAUNCHES,
+                            "ridge_solve_lu": rs.LU_LAUNCHES}}
+        if rc != 0 or "Training completed. Engine instance ID: " not in said:
+            die(f"phase 22a: the {what} pio train failed ({rc}): "
+                f"{err[-2000:]}")
+        out["id"] = said.split("Engine instance ID: ")[1].split()[0]
+        storage = get_storage()
+        inst = storage.get_engine_instances().get(out["id"])
+        if inst is None or inst.status != "COMPLETED":
+            die(f"phase 22a: the {what} train's instance reads {inst}")
+        [w] = load_models(mods["engine"](), inst, mods["RuntimeContext"](
+            storage=storage, device=dev))
+        out["wrapper"] = w
+        return out
+
+    phase_t0 = time.perf_counter()
+    out = {}
+    servers, deploys = [], []
+    env = cli_env(home)
+    env.__enter__()
+    reset_storage()
+    try:
+        # -- 22a: the scaffold, the app, two trains --------------------------
+        scaffold = os.path.join(work, "engine")
+        rc, said, _ = run_pio(mods, ["template", "get", "recommendation",
+                                     scaffold], "22a")
+        engine_json = os.path.join(scaffold, "engine.json")
+        spec = json.loads(Path(engine_json).read_text())
+        if rc != 0 or spec["engineFactory"] != CLI_FACTORY:
+            die(f"phase 22a: pio template get gave {rc}, {spec}")
+        spec["datasource"]["params"]["appName"] = REMOTE_APP
+        spec["algorithms"][0]["params"].update(rank=RANK, seed=seed)
+        Path(engine_json).write_text(json.dumps(spec, indent=2))
+        users, items, stars, times = (
+            a[:REMOTE_EVENTS] for a in ml1m_events(seed))
+        storage = get_storage()
+        app_id = storage.get_apps().insert(mods["App"](id=None,
+                                                       name=REMOTE_APP))
+        storage.get_events().init(app_id)
+        buy = np.isnan(stars)
+        stamps = (times.astype("datetime64[us]").astype(np.int64)).tolist()
+        t0 = time.perf_counter()
+        storage.get_events().insert_columnar({
+            "event": np.where(buy, "buy", "rate").tolist(),
+            "entity_type": ["user"] * REMOTE_EVENTS,
+            "entity_id": [f"u{u}" for u in users.tolist()],
+            "target_entity_type": ["item"] * REMOTE_EVENTS,
+            "target_entity_id": [f"i{i}" for i in items.tolist()],
+            "properties": ["{}" if b else f'{{"rating": {r}}}'
+                           for b, r in zip(buy.tolist(), stars.tolist())],
+            "event_time_us": stamps, "creation_time_us": stamps},
+            app_id)
+        out["write_s"] = time.perf_counter() - t0
+        # the storage server starts while the sqlite train runs
+        servers.append(storage_server(home, port, secret, server_log,
+                                      wait=False))
+        direct = train("sqlite")
+        out["server_start_s"] = servers[-1].ready().up_s
+        reset_storage()
+        with env_vars(**remote):
+            try:
+                wire = train("pioserver")
+            finally:
+                reset_storage()
+        if not all(wire["launches"].values()):
+            die(f"phase 22a: the pioserver train launched "
+                f"{wire['launches']}")
+        dw, ww = direct["wrapper"], wire["wrapper"]
+        du, di = dw.host_factors()
+        wu, wi = ww.host_factors()
+        for what, got, gidx, want, widx in (
+                ("users", wu, ww.user_index, du, dw.user_index),
+                ("items", wi, ww.item_index, di, dw.item_index)):
+            if sorted(gidx.keys()) != sorted(widx.keys()):
+                die(f"phase 22a: the two trains saw other {what}")
+            rows = [gidx[key] for key in widx.keys()]
+            if not torch.equal(torch.from_numpy(np.ascontiguousarray(
+                    got[rows])), torch.from_numpy(np.ascontiguousarray(
+                    want))):
+                diff = float(np.max(np.abs(got[rows] - want)))
+                die(f"phase 22a: {what} factors of the pioserver train "
+                    f"differ from the sqlite train's by entity id (max "
+                    f"|diff| {diff:.3g})")
+        out["same_numbering"] = (list(ww.user_index.keys()) ==
+                                 list(dw.user_index.keys()))
+        out["direct"], out["wire"] = (
+            {k: v for k, v in t.items() if k != "wrapper"}
+            for t in (direct, wire))
+        out["wire_events_per_s"] = REMOTE_EVENTS / (wire["read_ms"] / 1e3)
+        log(f"phase 22a pioserver train: {REMOTE_EVENTS} of phase 12's "
+            f"events written in {out['write_s']:.2f} s; pio storageserver "
+            f"up in {out['server_start_s']:.2f} s (beside the sqlite "
+            f"train); pio train (the "
+            f"template-get engine.json, rank {RANK}, "
+            f"{spec['algorithms'][0]['params']['numIterations']} "
+            f"iterations) on sqlite {direct['s']:.2f} s (read "
+            f"{direct['read_ms']:.0f} ms) and on pioserver {wire['s']:.2f} "
+            f"s (read {wire['read_ms']:.0f} ms = "
+            f"{out['wire_events_per_s']:.0f} events/s over the wire, "
+            f"{wire['read_ms'] / max(direct['read_ms'], 1e-9):.1f}x the "
+            f"sqlite read); factors torch.equal by entity id (same "
+            f"numbering {out['same_numbering']}); launches sqlite "
+            f"{json.dumps(direct['launches'])}, pioserver "
+            f"{json.dumps(wire['launches'])}; card {card}")
+        del direct, dw
+
+        # -- 22b: pio deploy on pioserver ------------------------------------
+        deploy_env = proc_env(home, PIO_RESULT_CACHE="0", **remote,
+                              **REMOTE_BREAKER)
+        a = deployed(engine_json, os.path.join(work, "deploy.log"),
+                     phase="phase 22", env=deploy_env)
+        deploys.append(a)
+        status = json.loads(a.get("/"))
+        if not status["device"].startswith(dev.type) or \
+                status["engineInstanceId"] != wire["id"]:
+            die(f"phase 22b: deploy reports {status}")
+        rng = np.random.default_rng(seed + 22)
+        names = list(ww.user_index.keys())
+        asked = [names[j] for j in rng.choice(len(names), REMOTE_QUERIES,
+                                              replace=False)]
+        answers, lats, server_ms = [], [], []
+        for n, user in enumerate(asked):
+            t0 = time.perf_counter()
+            ans, ms = post_json(f"{a.base}/queries.json",
+                                {"user": user, "num": 10})
+            lats.append(time.perf_counter() - t0)
+            if n == 0:
+                out["deploy_to_first_s"] = time.perf_counter() - a.started_s
+            answers.append(ans)
+            server_ms.append(ms)
+        items_d = torch.from_numpy(np.ascontiguousarray(wi)).to(dev)
+        qerr = 0.0
+        for user, ans in zip(asked, answers):
+            hits = ans["itemScores"]
+            if len(hits) != 10:
+                die(f"phase 22b: the answer for {user} has {len(hits)} "
+                    "items")
+            qerr = max(qerr, check_against_plain(
+                [[h["score"] for h in hits]],
+                [[ww.item_index[h["item"]] for h in hits]],
+                torch.from_numpy(wu[[ww.user_index[user]]]).to(dev),
+                items_d, 10, None, f"phase 22b /queries.json {user}", ft,
+                mods["topk_mismatch"]))
+        out["p50_ms"] = sorted(lats)[len(lats) // 2] * 1e3
+        out["server_p50_ms"] = sorted(server_ms)[len(server_ms) // 2]
+        out["query_err"] = qerr
+        log(f"phase 22b pioserver deploy: subprocess on "
+            f"{status['device']}, start to first answer "
+            f"{out['deploy_to_first_s']:.2f} s; {REMOTE_QUERIES} "
+            f"/queries.json p50 {out['p50_ms']:.2f} ms (server "
+            f"{out['server_p50_ms']:.2f} ms), each the plain top-k of the "
+            f"persisted factors (max |score err| {qerr:.3g}); card {card}")
+
+        # -- 22c: the storage server killed, then restarted ------------------
+        drill_t0 = time.perf_counter()
+        servers.pop().kill()
+        during = [post_json(f"{a.base}/queries.json",
+                            {"user": u, "num": 10})[0] for u in asked[:8]]
+        if during != answers[:8]:
+            die("phase 22c: answers changed with the storage server down")
+        reloads = [reload_status(a.base)
+                   for _ in range(int(REMOTE_BREAKER[
+                       "PIO_BREAKER_THRESHOLD"]) + 1)]
+        shed = reloads[-1]
+        if [r[0] for r in reloads] != [503] * len(reloads) or \
+                "circuit breaker 'modeldata' is open" not in shed[2] or \
+                not shed[1] or int(shed[1]) < 1 or \
+                any("is open" in r[2] for r in reloads[:-1]):
+            die(f"phase 22c: /reload with the store down answered "
+                f"{reloads}")
+        if json.loads(a.get("/"))["breaker"] != "open":
+            die("phase 22c: the modeldata breaker is not open")
+        servers.append(storage_server(home, port, secret, server_log))
+        out["restart_s"] = servers[-1].up_s
+        deadline = time.perf_counter() + 30
+        while json.loads(a.get("/"))["breaker"] == "open":
+            if time.perf_counter() > deadline:
+                die("phase 22c: the breaker stayed open")
+            time.sleep(0.1)
+        back = reload_status(a.base)
+        after = [post_json(f"{a.base}/queries.json",
+                           {"user": u, "num": 10})[0] for u in asked[:8]]
+        if back[0] != 200 or after != answers[:8]:
+            die(f"phase 22c: after the restart /reload answered {back} "
+                "and the answers " + ("agree" if after == answers[:8]
+                                      else "changed"))
+        out["drill_s"] = time.perf_counter() - drill_t0
+        a.stop()
+        deploys.remove(a)
+        out["topk_launches"] = a.launches["fused_topk"]
+        if not out["topk_launches"]:
+            die("phase 22b: the deploy process never launched fused_topk")
+        log(f"phase 22c outage drill: storage server killed: 8 answers 200 "
+            f"and unchanged; /reload {[(r[0], r[1]) for r in reloads]} "
+            f"(the last shed by the open breaker: {shed[2]!r}); restarted "
+            f"on port {port} in {out['restart_s']:.2f} s; after the "
+            f"{REMOTE_BREAKER['PIO_BREAKER_RECOVERY_S']} s recovery /reload "
+            f"{back[0]} in {back[3] * 1e3:.1f} ms, the 8 answers "
+            f"unchanged; drill {out['drill_s']:.2f} s; the deploy launched "
+            f"fused_topk {out['topk_launches']} times; exit 0 on POST "
+            "/stop")
+
+        # -- 22d: pio status on pioserver ------------------------------------
+        with env_vars(**remote):
+            try:
+                rc, said, _ = run_pio(mods, ["status"], "22d")
+            finally:
+                reset_storage()
+        for repo in ("METADATA", "EVENTDATA", "MODELDATA"):
+            if f"  {repo}: type=pioserver path=-" not in said:
+                die(f"phase 22d: pio status printed {said!r}")
+        servers.pop().kill()
+
+        # -- 22e: entry() on the card against the CPU ------------------------
+        forward, args = entry()
+        s, i = forward(*args)
+        cforward, cargs = entry(device="cpu")
+        cs, ci = cforward(*cargs)
+        if s.device.type != dev.type:
+            die(f"phase 22e: entry() ran on {s.device}")
+        why = mods["topk_mismatch"](s.cpu().numpy(), i.cpu().numpy(),
+                                    cs.numpy(), ci.numpy(), None,
+                                    rtol=RTOL, atol=ATOL)
+        if why is not None:
+            die(f"phase 22e: entry() on the card vs the CPU: {why}")
+        out["entry_err"] = float((s.cpu() - cs).abs().max())
+        out["entry_ids_equal"] = bool(torch.equal(i.cpu(), ci))
+    finally:
+        for d in deploys:
+            d.kill()
+        for srv in servers:
+            srv.kill()
+        reset_storage()
+        env.__exit__()
+        shutil.rmtree(work, ignore_errors=True)
+    out["launches"] = {
+        "fused_gram": out["direct"]["launches"]["fused_gram"]
+        + out["wire"]["launches"]["fused_gram"],
+        "ridge_solve_lu": out["direct"]["launches"]["ridge_solve_lu"]
+        + out["wire"]["launches"]["ridge_solve_lu"],
+        "fused_topk": out["topk_launches"]}
+    out["phase_s"] = time.perf_counter() - phase_t0
+    log(f"phase 22e entry(): two-tower forward (512 x 1,024, embed 64, "
+        f"top-10 of 8 users) on the card, max |score - CPU| "
+        f"{out['entry_err']:.3g}, ids equal {out['entry_ids_equal']}; "
+        f"phase 22 in {out['phase_s']:.1f} s (budget "
+        f"{REMOTE_LIMIT_S:.0f} s); card {card}")
+    return out
+
+
 def post_json(url: str, obj):
     """POST one query; returns (answer, the server's own wall ms)."""
     req = urllib.request.Request(
@@ -7545,12 +7947,15 @@ def main() -> int:
         # -- phase 21: the fleet plane on phases 15's and 12's stores -----
         fleet = fleet_phase(dev, args.seed, users_np, items_np, sched, loop,
                             mods, card)
+        torch.cuda.empty_cache()
+        # -- phase 22: the storage server: train and serve on pioserver ---
+        remote = remote_phase(dev, args.seed, loop, mods, card)
     finally:
         shutil.rmtree(loop["work"], ignore_errors=True)
         shutil.rmtree(sched["work"], ignore_errors=True)
     torch.cuda.empty_cache()
 
-    # -- phase 22: report --------------------------------------------------
+    # -- phase 23: report --------------------------------------------------
     main_shape = timings[(ML25M_ITEMS, 1, 10)]
     b64 = timings[(ML25M_ITEMS, 64, 10)]   # a full batch of query_batch
     kernels = [{
@@ -7564,7 +7969,7 @@ def main() -> int:
         + sched["off_launches"]
         + refresh["launches"]["fused_topk"] + tt["launches"]["fused_topk"]
         + ckpt["launches"]["fused_topk"] + obs["launches"]["fused_topk"]
-        + fleet["launches"]["fused_topk"],
+        + fleet["launches"]["fused_topk"] + remote["launches"]["fused_topk"],
         "max_abs_err": max(max_err, err, err4),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -7596,7 +8001,8 @@ def main() -> int:
             + supervised["launches"].get(name, 0)
             + ckpt["launches"].get(name, 0)
             + obs["launches"].get(name, 0)
-            + fleet["launches"].get(name, 0),
+            + fleet["launches"].get(name, 0)
+            + remote["launches"].get(name, 0),
             "max_abs_err": train_kernel_err[name],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -7654,7 +8060,8 @@ def main() -> int:
         f"{obs['launches']['fused_topk']} in phase 20 (dispatches and the "
         f"shadow scorer's re-predictions), "
         f"{fleet['launches']['fused_topk']} in phase 21 (its six deploy "
-        f"processes and 21f's server), {dase_topk} "
+        f"processes and 21f's server), {remote['launches']['fused_topk']} "
+        f"in phase 22's pioserver deploy process, {dase_topk} "
         f"on the DASE path; training "
         f"kernels per the train run (fused_gram, ridge_solve_lu) + the CLI "
         f"path's train and eval ({loop['launches']['fused_gram']}, "
@@ -7671,7 +8078,9 @@ def main() -> int:
         f"({obs['launches']['fused_gram']}, "
         f"{obs['launches']['ridge_solve_lu']}), phase 21d's fallback cycle "
         f"({fleet['launches']['fused_gram']}, "
-        f"{fleet['launches']['ridge_solve_lu']}) and the solver='gj' run "
+        f"{fleet['launches']['ridge_solve_lu']}), phase 22a's sqlite and "
+        f"pioserver trains ({remote['launches']['fused_gram']}, "
+        f"{remote['launches']['ridge_solve_lu']}) and the solver='gj' run "
         f"(ridge_solve_gj); timings of the training kernels are over one "
         f"iteration's calls at the ML-25M shape")
     print(json.dumps({"kernels": kernels}))

@@ -31,6 +31,9 @@ reference's output lines::
     pio rollout      [--instances URLS] [--engine-instance-id ID]
                      [--waves SPEC] [--bake-s S] [--poll-s S]
                      [--state FILE] [--resume | --unwind]
+    pio storageserver --ip 127.0.0.1 --port 7077 [--secret S]
+    pio template get <template> <directory>
+    pio shell
 
 Storage is the ``PIO_STORAGE_*`` registry (by default sqlite and model
 files under ``PIO_HOME``), so ``train`` in one process and ``deploy`` in
@@ -49,8 +52,15 @@ through ``FleetPromoter``).  ``rollout`` promotes one generation across
 a fleet in gated waves and rolls the whole fleet back when the merged
 SLO or quality gate trips; ``status --fleet`` and ``dashboard --fleet``
 merge the fleet's ``/metrics``; ``adminserver`` and ``profile --url``
-capture a ``torch.profiler`` trace of a running process.  ``train --prefetch-depth`` / ``--fuse-steps`` /
-``--batch-autoscale`` set the deep models' input pipeline knobs
+capture a ``torch.profiler`` trace of a running process.
+``storageserver`` hosts this ``PIO_HOME``'s storage over TCP for other
+processes, which select it with ``type=pioserver``
+(:mod:`predictionio_tpu_torch.data.storage.remote`); ``template get``
+scaffolds an engine from the checkout's ``examples/<template>/`` with
+the port's ``engineFactory``; ``shell`` is a Python REPL with the
+storage, the package, numpy and torch preloaded.  ``train
+--prefetch-depth`` / ``--fuse-steps`` / ``--batch-autoscale`` set the
+deep models' input pipeline knobs
 (``PIO_PREFETCH_DEPTH`` / ``PIO_FUSE_STEPS`` / ``PIO_BATCH_AUTOSCALE``);
 a SIGTERM'd train hands back and exits 143; with ``--checkpoint-dir``
 and ``--checkpoint-every`` (``PIO_CHECKPOINT_DIR`` /
@@ -1324,6 +1334,105 @@ def cmd_adminserver(args) -> int:
     return 0
 
 
+def cmd_template_get(args) -> int:
+    """Reference: `pio template get <gallery-repo> <dir>` scaffolds a new
+    engine from the template gallery.  The gallery is the source
+    checkout's examples/<name>; this copies the engine.json + quickstart
+    into the target directory, ready for `pio build` / `pio train`.  The
+    shipped engine.json names the JAX package's factory; the copy names
+    the port's (``predictionio_tpu_torch.templates.<t>:engine``), so a
+    `pio train` there trains with the port."""
+    import shutil
+
+    gallery = Path(__file__).resolve().parents[2] / "examples"
+    if not gallery.is_dir():
+        # pip wheels ship only the packages; the scaffold gallery lives
+        # in the source checkout.
+        _die("No template gallery in this installation (pip wheels ship "
+             "only the package) — run from a source checkout, which has "
+             "examples/<template>/engine.json scaffolds.")
+    name = args.template.rstrip("/").split("/")[-1]  # accept repo-ish paths
+    src = gallery / name
+    if not src.is_dir():
+        avail = sorted(d.name for d in gallery.iterdir()
+                       if d.is_dir() and not d.name.startswith("_"))
+        _die(f"Unknown template {name!r}. Available: {', '.join(avail)}")
+    dst = Path(args.directory)
+    if dst.exists() and (not dst.is_dir() or any(dst.iterdir())):
+        _die(f"{dst} exists and is not empty.")
+    shutil.copytree(src, dst, dirs_exist_ok=True)
+    engine_json = dst / "engine.json"
+    if engine_json.is_file():
+        text = engine_json.read_text()
+        engine_json.write_text(re.sub(
+            r'("engineFactory"\s*:\s*")predictionio_tpu\.templates\.',
+            r"\1predictionio_tpu_torch.templates.", text))
+    print(f"Template {name!r} copied to {dst}/")
+    for f in sorted(p.name for p in dst.iterdir()):
+        print(f"  {f}")
+    print("Next: edit engine.json (appName), then `pio train` there.")
+    return 0
+
+
+def _shell_device() -> str:
+    """The device the port's entry points would use, for the banner."""
+    import torch
+
+    if torch.cuda.is_available():
+        return f"cuda ({torch.cuda.get_device_name(0)})"
+    return "none (CUDA is not available; pass device='cpu')"
+
+
+def cmd_shell(args) -> int:
+    """Reference: `pio-shell` (a spark-shell with the pio jars).  Here: a
+    Python REPL with the storage, config, and template modules preloaded."""
+    import code
+
+    import numpy as np
+    import torch
+
+    import predictionio_tpu_torch as pio
+    from predictionio_tpu_torch import config as pio_config
+
+    storage = _storage()
+    banner = (
+        f"predictionio_tpu_torch shell\n"
+        f"  storage  -> {type(storage).__name__} "
+        f"({storage.config.repositories['METADATA'].source} metadata)\n"
+        f"  apps     -> storage.get_apps().get_all()\n"
+        f"  events   -> storage.get_events()\n"
+        f"  device   -> {_shell_device()}\n"
+        f"Modules: predictionio_tpu_torch (pio), numpy (np), torch"
+    )
+    code.interact(banner=banner, local={
+        "storage": storage, "pio": pio, "np": np, "torch": torch,
+        "config": pio_config,
+    })
+    return 0
+
+
+def cmd_storageserver(args) -> int:
+    """Host this process's configured storage over TCP (data/storage/remote.py)
+    so OTHER processes can select it with type=pioserver — the reference's
+    network-storage deployment shape (JDBC/HBase/ES) without their servers."""
+    from predictionio_tpu_torch.data.storage.remote import StorageServer
+
+    secret = args.secret or os.environ.get("PIO_STORAGE_SERVER_SECRET")
+    srv = StorageServer(_storage(), host=args.ip, port=args.port,
+                        secret=secret)
+    srv.start()
+    print(f"Storage server listening on {args.ip}:{srv.port} (Ctrl-C to stop)")
+    print("Clients: PIO_STORAGE_SOURCES_REMOTE_TYPE=pioserver "
+          f"PIO_STORAGE_SOURCES_REMOTE_HOSTS={args.ip} "
+          f"PIO_STORAGE_SOURCES_REMOTE_PORTS={srv.port} "
+          "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE=REMOTE", flush=True)
+    try:
+        srv._thread.join()
+    except KeyboardInterrupt:
+        srv.stop()
+    return 0
+
+
 def cmd_profile(args) -> int:
     """On-demand profiler capture (obs.profiler).
 
@@ -1723,6 +1832,28 @@ def build_parser() -> argparse.ArgumentParser:
     adm.add_argument("--ip", default="127.0.0.1")
     adm.add_argument("--port", type=int, default=7071)
     adm.set_defaults(fn=cmd_adminserver)
+
+    tpl = sub.add_parser("template", help="engine template gallery")
+    tplsub = tpl.add_subparsers(dest="template_cmd", required=True)
+    tg = tplsub.add_parser("get", help="scaffold an engine from a template")
+    tg.add_argument("template", help="template name (e.g. recommendation)")
+    tg.add_argument("directory", help="target directory")
+    tg.set_defaults(fn=cmd_template_get)
+
+    sh = sub.add_parser("shell", help="interactive shell with storage "
+                                      "preloaded (reference: pio-shell)")
+    sh.set_defaults(fn=cmd_shell)
+
+    ss = sub.add_parser("storageserver",
+                        help="serve this PIO_HOME's storage over TCP "
+                             "(clients use type=pioserver)")
+    ss.add_argument("--ip", default="127.0.0.1")
+    ss.add_argument("--port", type=int, default=7077)
+    ss.add_argument("--secret", default=None,
+                    help="shared auth secret clients must present "
+                         "(default: env PIO_STORAGE_SERVER_SECRET); "
+                         "strongly recommended when binding non-loopback")
+    ss.set_defaults(fn=cmd_storageserver)
 
     db = sub.add_parser("dashboard", help="engine/evaluation instance dashboard")
     db.add_argument("--ip", default="127.0.0.1")

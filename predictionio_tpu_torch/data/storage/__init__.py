@@ -5,9 +5,11 @@ data/.../data/storage/Storage.scala): it reads the config
 (:func:`~predictionio_tpu_torch.config.load_config`), builds one backend
 client a (source, namespace) and hands out typed repositories for the
 three logical stores (METADATA / EVENTDATA / MODELDATA).  Registered
-source types: ``sqlite``, ``localfs`` and ``memory``.  The reference's
-``parquetlog`` (it needs ``pyarrow``) and ``pioserver`` (the storage
-server) are not ported; asking for either raises :class:`StorageError`.
+source types: ``sqlite``, ``localfs``, ``memory`` and ``pioserver``
+(every repository forwarded to a ``pio storageserver`` process,
+:mod:`predictionio_tpu_torch.data.storage.remote`).  The reference's
+``parquetlog`` (it needs ``pyarrow``) is not ported; asking for it
+raises :class:`StorageError`.
 The events, spill-queue and KV getters pass through the ``PIO_FAULTS``
 seam (:mod:`predictionio_tpu_torch.resilience.faults`), a no-op unless a
 plan is active.
@@ -179,10 +181,44 @@ class _MemoryBackend(_Backend):
     def kv(self): return self._kv
 
 
+class _PioServerBackend(_Backend):
+    """Out-of-process backend: every repository call forwarded over TCP to
+    a ``pio storageserver`` process (data/storage/remote.py) — the
+    reference's JDBC/HBase/ES network-storage property, selected purely
+    by PIO_STORAGE_* config (HOSTS/PORTS properties)."""
+
+    def __init__(self, source, namespace):
+        super().__init__(source, namespace)
+        from predictionio_tpu_torch.data.storage.remote import RemoteClient
+
+        host = source.properties.get("HOSTS", "127.0.0.1").split(",")[0]
+        port = source.properties.get("PORTS")
+        if not port:
+            raise StorageError(
+                f"pioserver source {source.name} needs a PORTS property.")
+        self._client = RemoteClient(
+            host, int(port.split(",")[0]),
+            secret=source.properties.get("SECRET"),
+            pool_size=int(source.properties.get("CONNECTIONS", "2")),
+            retries=int(source.properties.get("RETRIES", "2")))
+
+    def events(self): return self._client.events()
+    def apps(self): return self._client.apps()
+    def access_keys(self): return self._client.access_keys()
+    def channels(self): return self._client.channels()
+    def engine_instances(self): return self._client.engine_instances()
+    def evaluation_instances(self): return self._client.evaluation_instances()
+    def models(self): return self._client.models()
+    def spill_queues(self): return self._client.spill_queues()
+    def kv(self): return self._client.kv()
+    def close(self): self._client.close()
+
+
 _BACKEND_TYPES: Dict[str, Callable[[StorageSourceConfig, str], _Backend]] = {
     "sqlite": _SQLiteBackend,
     "localfs": _LocalFSBackend,
     "memory": _MemoryBackend,
+    "pioserver": _PioServerBackend,
 }
 
 

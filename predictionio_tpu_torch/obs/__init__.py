@@ -37,6 +37,7 @@ from predictionio_tpu_torch.obs.runtime import (
     get_timeline,
     publish_event,
     reset_runtime,
+    start_runtime_introspection,
 )
 from predictionio_tpu_torch.obs.trace import (
     Span,
@@ -58,6 +59,7 @@ from predictionio_tpu_torch.obs.waterfall import Waterfall
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
            "get_registry", "set_registry", "phase", "publish_event",
            "get_memory_sampler", "get_timeline",
+           "start_runtime_introspection",
            "Span", "TraceRecorder", "attach_event", "current_span",
            "current_trace_id", "get_recorder", "new_trace_id",
            "sanitize_trace_id", "set_recorder", "slow_request_ms", "span",

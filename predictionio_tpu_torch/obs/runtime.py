@@ -29,8 +29,12 @@ Port of three pieces of ``predictionio_tpu/obs/runtime.py``:
   device_step, fed by :class:`~predictionio_tpu_torch.obs.pipeline.
   PipelineProbe`), exportable as Chrome-trace JSON.  Pure Python.
 
+- :func:`start_runtime_introspection` — the servers' per-process
+  bring-up: the sampler's instruments registered (so ``/metrics`` names
+  them before the first sample), its thread started, one sample taken.
+
 Left out on purpose: the XLA compile tracker (eager PyTorch compiles
-nothing).
+nothing), so ``/metrics`` has no ``pio_xla_compile_*`` series.
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ __all__ = [
     "get_timeline",
     "set_timeline",
     "reset_runtime",
+    "start_runtime_introspection",
 ]
 
 
@@ -521,3 +526,21 @@ def reset_runtime() -> None:
     """Test isolation: empty timeline + fresh peak window."""
     get_timeline().clear()
     get_memory_sampler().reset_peak()
+
+
+# -- process wiring ----------------------------------------------------------
+
+def start_runtime_introspection(*, sample: bool = True) -> None:
+    """Idempotent per-process bring-up, called by the servers: register
+    the memory instruments (so ``/metrics`` exposes the names before the
+    first sample) and start the memory-sampler thread.  The reference
+    also registers its XLA compile tracker here; the port has none."""
+    sampler = get_memory_sampler()
+    sampler.touch()
+    sampler.start()
+    if sample:
+        try:
+            sampler.sample_once()
+        except Exception:
+            logger.debug("initial device-memory sample failed",
+                         exc_info=True)

@@ -25,9 +25,13 @@ Instrumented points:
   ``Storage.get_events()`` repository call routes through these, and
   so do the engine-instance and model-blob reads of a reload).
 - ``spillq.*`` and ``kv.*`` — the shared spill queue and the shared KV.
+- ``rpc.send`` / ``rpc.recv`` — the JSON-RPC framing in the remote
+  storage client (``rpc.recv`` fires AFTER the request hit the wire:
+  the server may have committed, which is exactly the lost-reply case
+  idempotency tokens exist for); ``rpc.dispatch`` server-side
+  (:mod:`predictionio_tpu_torch.data.storage.remote`).
 - ``http.event``, ``ingest.admit`` and ``ingest.batch`` — the event
-  server; ``http.engine`` — the engine server.  (The reference's ``rpc.*`` points belong to its storage
-  server, which the port does not have yet.)
+  server; ``http.engine`` — the engine server.
 
 Injected errors raise :class:`FaultInjected` (a ``ConnectionError``), so
 they travel the same except-paths a real dead backend would.  Tests can

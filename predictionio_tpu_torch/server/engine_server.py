@@ -80,7 +80,12 @@ from predictionio_tpu_torch.controller import (
 )
 from predictionio_tpu_torch.controller.params import bind_params
 from predictionio_tpu_torch.data.storage import Storage, StorageUnavailable
-from predictionio_tpu_torch.obs import get_registry, publish_event, span
+from predictionio_tpu_torch.obs import (
+    get_registry,
+    publish_event,
+    span,
+    start_runtime_introspection,
+)
 from predictionio_tpu_torch.obs import waterfall as _waterfall
 from predictionio_tpu_torch.obs.quality import SERVE_ID_HEADER, QualityMonitor
 from predictionio_tpu_torch.obs.recall import RecallMonitor
@@ -249,6 +254,9 @@ class EngineServer:
         self.host = host
         self.port = port
         self.stats = _QueryMetrics()
+        # Runtime introspection: registers pio_device_mem_* so /metrics
+        # exposes them from t=0, and starts the memory-sampler thread.
+        start_runtime_introspection()
         self._swap_lock = threading.Lock()
         self._reload_lock = threading.Lock()  # serializes staged reloads
         self._httpd: Optional[ThreadingHTTPServer] = None

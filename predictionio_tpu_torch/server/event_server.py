@@ -62,7 +62,10 @@ from predictionio_tpu_torch.data.storage import (
 )
 from predictionio_tpu_torch.data.storage.base import epoch_us
 from predictionio_tpu_torch.data.webhooks import ConnectorError, get_connector
-from predictionio_tpu_torch.obs import get_registry
+from predictionio_tpu_torch.obs import (
+    get_registry,
+    start_runtime_introspection,
+)
 from predictionio_tpu_torch.obs.quality import note_feedback_events
 from predictionio_tpu_torch.resilience import idempotency_key
 from predictionio_tpu_torch.resilience.deadline import DeadlineExceeded
@@ -183,6 +186,10 @@ class EventServer:
         self.host = host
         self.port = port
         self.stats = _EventMetrics()
+        # Runtime introspection (the device-memory instruments + the
+        # memory-sampler thread); a process that never touched CUDA
+        # samples no device, so this never initialises the card.
+        start_runtime_introspection()
         # Positive accessKey cache (5 s TTL): the ingest hot path otherwise
         # pays a metadata SELECT per request.  Key revocation propagates
         # within the TTL; auth FAILURES are never cached.

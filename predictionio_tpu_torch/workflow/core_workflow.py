@@ -128,7 +128,10 @@ def _start_instance(engine: Engine, variant: EngineVariant,
         algorithms_params=json.dumps(ep_json["algorithms"]),
         serving_params=json.dumps(ep_json["serving"]["params"]),
     )
-    storage.get_engine_instances().insert(instance)
+    # The id is the insert's answer: a remote store (``pioserver``)
+    # cannot fill in the caller's object, and every later update of the
+    # row goes by ``instance.id``.
+    instance.id = storage.get_engine_instances().insert(instance)
     return instance, engine_params
 
 
@@ -381,7 +384,7 @@ def run_evaluation(
                                        or _class_path(params_generator)),
     )
     instances = storage.get_evaluation_instances()
-    instance_id = instances.insert(instance)
+    instance_id = instance.id = instances.insert(instance)
     try:
         candidates = list(params_generator.engine_params_list)
         if not candidates:

@@ -15,6 +15,7 @@ import copy
 import importlib.util
 import json
 import os
+import time
 import urllib.request
 from pathlib import Path
 
@@ -178,13 +179,27 @@ def test_attribute_quality_on_a_missing_file(tmp_path, capsys):
     assert code == 1 and "cannot load" in err
 
 
-def test_attribute_tools_on_a_live_port_server(tmp_path, monkeypatch,
-                                               capsys):
-    """A port EngineServer on the CPU writes the wide events, the
-    exposition (plain and with exemplars) and /quality.json that both
-    packages' tools then read, over HTTP and from files."""
-    from predictionio_tpu.data.storage import reset_storage
+def _logged_queries(base, log, n, monkeypatch):
+    """``n`` queries with ``PIO_REQUEST_LOG`` set, then wait for their
+    ``n`` wide events before unsetting it.  A request's wide event is
+    written after its answer went out, and the log path is read at the
+    write: unset any earlier, and a late write lands nowhere."""
+    monkeypatch.setenv("PIO_REQUEST_LOG", str(log))
+    for i in range(n):
+        req = urllib.request.Request(
+            base + "/queries.json", method="POST",
+            data=json.dumps({"user": f"u{i}", "num": 3}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=30) as r:
+            assert r.status == 200
+    deadline = time.monotonic() + 30
+    while not log.exists() or len(log.read_text().splitlines()) < n:
+        assert time.monotonic() < deadline
+        time.sleep(0.05)
+    monkeypatch.delenv("PIO_REQUEST_LOG")
 
+
+def _live_port_server(tmp_path, monkeypatch):
     monkeypatch.setenv("PIO_HOME", str(tmp_path / "home"))
     for k in list(os.environ):
         if k.startswith(("PIO_STORAGE_", "PIO_QUALITY", "PIO_REQUEST_LOG",
@@ -192,22 +207,49 @@ def test_attribute_tools_on_a_live_port_server(tmp_path, monkeypatch,
             monkeypatch.delenv(k, raising=False)
     monkeypatch.setenv("PIO_QUALITY_SAMPLE", "1")
     monkeypatch.setenv("PIO_RESULT_CACHE", "0")
-    log = tmp_path / "requests.jsonl"
     pkg = _port_stack(tmp_path / "port")
     pkg.wf.run_train(pkg.eng, pkg.variant, pkg.ctx)
     srv = pkg.server()
     srv.start()
+    return srv
+
+
+def test_every_wide_event_lands_when_the_log_write_is_late(
+        tmp_path, monkeypatch):
+    """The wide events of a loaded host, written a while after each
+    answer: all of them land in the log the test reads."""
+    from predictionio_tpu.data.storage import reset_storage
+    from predictionio_tpu_torch.obs import waterfall
+
+    real = waterfall._request_log_write
+
+    def late(doc, sample_u=None):
+        time.sleep(0.3)
+        real(doc, sample_u)
+
+    monkeypatch.setattr(waterfall, "_request_log_write", late)
+    srv = _live_port_server(tmp_path, monkeypatch)
+    log = tmp_path / "requests.jsonl"
+    try:
+        _logged_queries(f"http://127.0.0.1:{srv.port}", log, 3, monkeypatch)
+        assert len(log.read_text().splitlines()) == 3
+    finally:
+        srv.stop()
+        reset_storage()
+
+
+def test_attribute_tools_on_a_live_port_server(tmp_path, monkeypatch,
+                                               capsys):
+    """A port EngineServer on the CPU writes the wide events, the
+    exposition (plain and with exemplars) and /quality.json that both
+    packages' tools then read, over HTTP and from files."""
+    from predictionio_tpu.data.storage import reset_storage
+
+    log = tmp_path / "requests.jsonl"
+    srv = _live_port_server(tmp_path, monkeypatch)
     base = f"http://127.0.0.1:{srv.port}"
     try:
-        monkeypatch.setenv("PIO_REQUEST_LOG", str(log))
-        for n in range(12):
-            req = urllib.request.Request(
-                base + "/queries.json", method="POST",
-                data=json.dumps({"user": f"u{n}", "num": 3}).encode(),
-                headers={"Content-Type": "application/json"})
-            with urllib.request.urlopen(req, timeout=30) as r:
-                assert r.status == 200
-        monkeypatch.delenv("PIO_REQUEST_LOG")
+        _logged_queries(base, log, 12, monkeypatch)
         files = {}
         for name, path in (("metrics.txt", "/metrics"),
                            ("exemplars.txt", "/metrics?exemplars=1"),
@@ -215,11 +257,6 @@ def test_attribute_tools_on_a_live_port_server(tmp_path, monkeypatch,
             with urllib.request.urlopen(base + path, timeout=30) as r:
                 files[name] = tmp_path / name
                 files[name].write_bytes(r.read())
-        import time
-        deadline = time.monotonic() + 10
-        while len(log.read_text().splitlines()) < 12:
-            assert time.monotonic() < deadline
-            time.sleep(0.05)
         for path in (log, files["metrics.txt"], files["exemplars.txt"]):
             for extra in ((), ("--json",)):
                 code, out, _ = same_output("attribute_serve", path, capsys,

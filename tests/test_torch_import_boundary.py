@@ -104,6 +104,13 @@ FLEET_SLICE = (
     "obs.fleet", "fleet", "fleet.rollout", "server.admin",
     "server.dashboard", "tools.attribute_serve", "tools.attribute_quality",
 )
+# ... and every module of the storage server and the entry surfaces: the
+# remote store, the registry that selects it, the CLI that serves it and
+# the entry point.
+REMOTE_SLICE = (
+    "data.storage.remote", "data.storage", "cli.main", "obs.runtime",
+    "entry",
+)
 
 
 def _forbidden(module: str) -> bool:
@@ -121,6 +128,7 @@ def test_importing_the_port_loads_no_jax():
     missing = [m for m in TRAINING_SLICE + IVF_PQ_SLICE + CLI_SLICE
                + EVENT_SERVER_SLICE + SCHEDULER_SLICE + TWO_TOWER_SLICE
                + DLRM_SLICE + TRACE_SLICE + OBS_SLICE + FLEET_SLICE
+               + REMOTE_SLICE
                if f"predictionio_tpu_torch.{m}" not in probe["modules"]]
     assert missing == []
     assert probe["bad"] == [], f"the port pulled in {probe['bad']}"

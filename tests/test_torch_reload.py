@@ -30,6 +30,7 @@ import http.client
 import json
 import os
 import threading
+import time
 import weakref
 from pathlib import Path
 from types import SimpleNamespace
@@ -228,16 +229,26 @@ def _poisoning_loader(pkg, poison):
     return load
 
 
-def run_session(pkg, monkeypatch):
+def frozen_clock():
+    """The breakers' clock in a scripted session: the time never moves,
+    so ``Retry-After`` and the shed message read the whole recovery time
+    however long a step takes on a loaded host."""
+    return 1000.0
+
+
+def run_session(pkg, monkeypatch, pause_after_open=0.0):
     """One scripted session; returns [(step, status, Retry-After, masked
-    body)], the staged GET / fields after each step, and the counters."""
+    body)], the staged GET / fields after each step, and the counters.
+    ``pause_after_open`` sleeps that long on the wall clock after the
+    outage step that opens the breaker (a slow host, on purpose)."""
     a, b, c = pkg.ids
     labels = {a: "<A>", b: "<B>", c: "<C>"}
     poison = {"on": False}
     monkeypatch.setattr(pkg.es, "load_models", _poisoning_loader(pkg, poison))
     breaker = pkg.policy.CircuitBreaker(
         "modeldata", failure_threshold=2, recovery_time_s=60.0,
-        failure_types=(pkg.unavailable, ConnectionError))
+        failure_types=(pkg.unavailable, ConnectionError),
+        clock=frozen_clock)
     srv = pkg.server(breaker=breaker)          # serves the latest: C
     srv.start()
     port = srv.port
@@ -280,6 +291,8 @@ def run_session(pkg, monkeypatch):
             st, body = step(f"outage query {n}", "POST", "/queries.json",
                             query)
             assert st == 200 and len(body["itemScores"]) == 3
+            if n == 1:
+                time.sleep(pause_after_open)
         monkeypatch.delenv("PIO_FAULTS")
         reg = pkg.registry()
         counters = {f"{n}{lab}": (reg.get(n).value(**lab)
@@ -309,6 +322,24 @@ def test_scripted_session_answers_as_the_reference(stacks, monkeypatch):
     assert port[1][-1][1]["breaker"] == "open"
     # the last-good generation (A, passed its canary) served the outage
     assert port[1][-1][1]["engineInstanceId"] == "<A>"
+
+
+def test_outage_retry_after_does_not_depend_on_the_session_speed(
+        stacks, monkeypatch):
+    """A port session that spends longer than a second between the
+    breaker opening and the next outage step sheds with the same
+    ``Retry-After`` and message as the reference's: the breakers read
+    the session's clock, not the wall clock (on the wall clock the port
+    read 58 s / "~58.8s" against 59 s / "~59.9s")."""
+    ref = run_session(stacks[0], monkeypatch)
+    port = run_session(stacks[1], monkeypatch, pause_after_open=1.2)
+    shed = [(r, p) for r, p in zip(ref[0], port[0])
+            if r[0] == "outage reload 2"]
+    assert len(shed) == 1
+    r_step, p_step = shed[0]
+    assert r_step == p_step
+    assert p_step[1:3] == (503, "60")
+    assert "retry in ~60.0s" in p_step[3]["message"]
 
 
 @pytest.mark.parametrize("pkg_index", [0, 1], ids=["reference", "port"])

@@ -1,8 +1,10 @@
-"""The port's storage contract — one spec, its ``memory`` and ``sqlite``
-backends — and the ``PIO_STORAGE_*`` registry.
+"""The port's storage contract — one spec, its ``memory``, ``sqlite`` and
+``pioserver`` backends — and the ``PIO_STORAGE_*`` registry.
 
 Cases of the reference's ``tests/test_storage_contract.py``, each one
-parametrised test over the two backends, with the port's columnar
+parametrised test over the three backends (``pioserver``: the remote
+client's adapters against a :class:`StorageServer` hosting sqlite, so
+every case also runs over the wire), with the port's columnar
 contract (numpy columns; a property bag as a DataMap on memory, as its
 JSON text on sqlite).  Last, the ``pio.db`` file itself: written by the
 reference's ``SQLiteClient`` and read by the port's, and the other way
@@ -38,7 +40,7 @@ from predictionio_tpu_torch.data.storage.base import (
 
 UTC = dt.timezone.utc
 APP = 7
-BACKENDS = ["memory", "sqlite"]
+BACKENDS = ["memory", "sqlite", "pioserver"]
 
 
 def ts(s):
@@ -66,7 +68,35 @@ class _Repos:
     """The repositories of one backend, each made once."""
 
     def __init__(self, kind, tmp_path):
-        if kind == "memory":
+        self.server = None
+        if kind == "pioserver":
+            from types import SimpleNamespace
+
+            from predictionio_tpu_torch.data.storage.remote import (
+                RemoteClient, StorageServer)
+            from predictionio_tpu_torch.data.storage.sqlite import (
+                SQLiteClient)
+
+            self.hosted = SQLiteClient(str(tmp_path / "pio.db"))
+            h = self.hosted
+            self.server = StorageServer(SimpleNamespace(
+                get_events=h.events, get_apps=h.apps,
+                get_access_keys=h.access_keys, get_channels=h.channels,
+                get_engine_instances=h.engine_instances,
+                get_evaluation_instances=h.evaluation_instances,
+                get_models=h.models, get_spill_queues=h.spill_queues,
+                get_kv=h.kv))
+            self.server.start()
+            self.client = RemoteClient("127.0.0.1", self.server.port)
+            self.events = self.client.events()
+            self.apps = self.client.apps()
+            self.keys = self.client.access_keys()
+            self.channels = self.client.channels()
+            self.instances = self.client.engine_instances()
+            self.evals = self.client.evaluation_instances()
+            self.models = self.client.models()
+            self.kv = self.client.kv()
+        elif kind == "memory":
             from predictionio_tpu_torch.data.storage import memory as m
 
             self.client = None
@@ -99,6 +129,9 @@ def repos(request, tmp_path):
     yield r
     if r.client is not None:
         r.client.close()
+    if r.server is not None:
+        r.server.stop()
+        r.hosted.close()
 
 
 @pytest.fixture()
@@ -522,6 +555,8 @@ def test_memory_config_is_one_process(tmp_path):
 @pytest.mark.parametrize("source_type", ["parquetlog", "pioserver",
                                          "nosuch"])
 def test_storage_registry_unknown_type(clean_env, monkeypatch, source_type):
+    """An unregistered type names the registered ones; a ``pioserver``
+    source without ``PORTS`` raises the reference's message."""
     if source_type == "parquetlog":
         # the default config names it, as the reference's does
         monkeypatch.setenv("PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE",
@@ -533,10 +568,14 @@ def test_storage_registry_unknown_type(clean_env, monkeypatch, source_type):
                            "BOGUS")
         getter = "get_apps"
     s = Storage()
-    with pytest.raises(StorageError, match=(
-            f"Unknown storage source type '{source_type}' "
-            r"\(registered: \['localfs', 'memory', 'sqlite'\]\)")):
+    message = (
+        "pioserver source BOGUS needs a PORTS property." if source_type ==
+        "pioserver" else
+        f"Unknown storage source type '{source_type}' "
+        "(registered: ['localfs', 'memory', 'pioserver', 'sqlite'])")
+    with pytest.raises(StorageError) as err:
         getattr(s, getter)()
+    assert str(err.value) == message
 
 
 # -- one pio.db, both packages ---------------------------------------------------
