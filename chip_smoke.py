@@ -337,7 +337,27 @@ cannot be imported, or when any phase fails.  Phases, in order:
    type=pioserver for each repository.  22e: `entry()`'s two-tower
    forward on the card within rtol = atol = 1e-5 of the CPU's.  Budget
    60 s.
-23. report — one JSON line of per-kernel numbers, the card's name and
+23. mesh — the device mesh (`predictionio_tpu_torch/parallel`) on the
+   one card, after phase 22.  23a: `sharded_top_k` on 4 shards of the
+   card (`devices=[cuda:0] * 4`), K3 on every shard, at N 59,047 (the
+   tail padded) and 4,194,304, D 64, B 1 and 64, k 10: 4 K3 launches a
+   call, each answer the meshless K3's and the plain top-k's (rtol =
+   atol = 1e-5, ids equal except within a tie), the sharded call timed
+   beside the meshless K3 and the plain version.  23b: phase 6's ML-25M
+   ratings on `data=4`, rank 64, 10 iterations, factors row-sharded
+   (`factor_sharding="sharded"`, `gather_window=True`): prep and train
+   walls, K1 and K2 launched, the factors within phase 6's tolerance of
+   phase 6's meshless factors, a second train torch.equal to the first.
+   23c: phase 12's store as phase 12 trained it (copied then): `pio
+   train --mesh data=1` and `pio deploy --mesh data=1` as subprocesses,
+   each in an NCCL world of one (PIO_COORDINATOR_ADDRESS on loopback,
+   PIO_NUM_PROCESSES=1), the corpus sharded (PIO_SERVE_SHARD_ABOVE=0)
+   and routed by the default plan: phase 12's 64 queries, each the
+   plain top-k of the mesh train's factors and phase 12's meshless
+   answer within the training tolerance (ids equal except within a tie
+   of that size); every retrieval on the `sharded` rung; K1, K2 and K3
+   counted in the subprocesses.  Budget 90 s.
+24. report — one JSON line of per-kernel numbers, the card's name and
    power limit, and the final status line.
 After phases 7, 11-14, 16, 17, 19b-e and 20 a line gives the seconds the
 quality and recall scorecards took in that phase's in-process trains.
@@ -1126,8 +1146,10 @@ def train_phase(dev, seed: int, als, fg, rs, card: str) -> dict:
     launches["ridge_solve_gj"] = gj_launches
     return {"launches": launches, "per_iter": per_iter,
             "err": max(err_plain, err_gj),
-            # phase 19a trains these inputs again under checkpoints
+            # phase 19a trains these inputs again under checkpoints,
+            # phase 23b its ratings on a mesh
             "inputs": inputs, "cfg": cfg, "model": model,
+            "ratings": (users, items, ratings),
             "prep": {"device_s": prep_s, "host_s": host_prep_s,
                      "init_s": init_s, "device_peak_bytes": prep_peak,
                      "host_peak_bytes": host_peak}}
@@ -2333,6 +2355,12 @@ def cli_loop_phase(dev, seed: int, mods: dict, card: str) -> dict:
         launches = {"fused_gram": fg.LAUNCHES,
                     "ridge_solve_lu": rs.LU_LAUNCHES}
         out["read_ms"] = read_ms() - read_before
+        # phase 23c trains this store again on a mesh: a copy as it
+        # stands now, before the fold-in events and later phases
+        out["mesh_home"] = os.path.join(work, "mesh_home")
+        shutil.copytree(os.path.join(work, "home"), out["mesh_home"])
+        out["mesh_engine_json"] = os.path.join(work, "mesh_engine.json")
+        shutil.copyfile(engine_json, out["mesh_engine_json"])
         storage = get_storage()
         eng = mods["engine"]()
         variant = mods["EngineVariant"].from_file(engine_json)
@@ -2420,6 +2448,9 @@ def cli_loop_phase(dev, seed: int, mods: dict, card: str) -> dict:
         out["p50_ms"] = sorted(lats)[len(lats) // 2] * 1e3
         out["server_p50_ms"] = sorted(server_ms)[len(server_ms) // 2]
         out["query_err"] = qerr
+        # phase 23c asks these again of a mesh train's deploy
+        out["asked"], out["answers"] = asked, answers
+        out["factors12"] = (uf, itf, wrapper.user_index, wrapper.item_index)
 
         # -- 4: fold-in across processes ------------------------------------
         item_names = list(wrapper.item_index.keys())
@@ -6340,6 +6371,17 @@ FLEET_WARM_S = 6.0             # 21a: traffic before the rollout starts
 PHASE21_LIMIT_S = 90.0
 
 
+def fleet_lats(answers, n: int) -> list:
+    """(count, p50, max) of the client walls in ms by instance, of
+    ``query_load`` answers (instance, user, status, answer, ms)."""
+    out = []
+    for b in range(n):
+        lats = sorted(a[4] for a in answers if a[0] == b)
+        out.append((len(lats), round(lats[len(lats) // 2], 1) if lats
+                    else None, round(lats[-1], 1) if lats else None))
+    return out
+
+
 def proc_env(home: str, **extra) -> dict:
     """This process's environment with :func:`cli_env`'s values for
     ``home`` and ``extra`` applied (None unsets): a subprocess's own,
@@ -6569,6 +6611,15 @@ def fleet_phase(dev, seed: int, users_np, items_np, sched: dict,
             d.ready()
         out["start_s"] = time.perf_counter() - t0
         urls = [d.base for d in fleet]
+        # One query each before any load: a fresh process's first answer
+        # stages its corpus and kernels, and under the 16 clients every
+        # request queued behind it would be slow too, several slow
+        # answers in a window of a few: a sustained burn that latches
+        # `degraded` for the SLO recovery (60 s) and halts the rollout.
+        for d in procs:
+            post_json(f"{d.base}/queries.json",
+                      {"user": f"u{pool[0]}" if d in fleet else "u1",
+                       "num": 10})
         if any(d.instance != g1 or not d.device.startswith(dev.type)
                for d in fleet):
             die(f"phase 21: the deploys serve "
@@ -6620,11 +6671,15 @@ def fleet_phase(dev, seed: int, users_np, items_np, sched: dict,
                        state["promoted"], state["target"]) != (
                 "promoted", [1, 2, 4], 2, urls, g2):
             bad = [a[:4] for a in answers if a[2] != 200]
+            halted = next((n for n, u in enumerate(urls)
+                           if u in str(state.get("haltReason"))), 0)
             die(f"phase 21a: pio rollout exited {rc} ({err[-1000:]}); "
                 f"journal {json.dumps(state)}; {len(bad)} of "
                 f"{len(answers)} answers not 200, the first {bad[:5]}; "
-                f"U1's slo {json.dumps(http_call(urls[0] + '/stats.json')[2].get('slo'))}; "
-                f"U1's log {Path(fleet[0].log_path).read_text()[-3000:]}")
+                f"client wall by instance (n, p50, max ms) "
+                f"{fleet_lats(answers, len(urls))}; U{halted + 1}'s slo "
+                f"{json.dumps(http_call(urls[halted] + '/stats.json')[2].get('slo'))}; "
+                f"its log {Path(fleet[halted].log_path).read_text()[-3000:]}")
         switched = [next((t for t, g in rows if g == g2), None)
                     for rows in seen]
         if None in switched or not (switched[0] < switched[1]
@@ -7602,6 +7657,341 @@ def remote_phase(dev, seed: int, loop: dict, mods: dict, card: str) -> dict:
     return out
 
 
+# Phase 23: the device mesh on the card.  23a: the sharded rung's
+# scorer, K3 on every shard of a 4-shard mesh of this one card; 23b:
+# phase 6's ML-25M ALS train on `data=4` with row-sharded factors and
+# windowed gathers (K1, K2 on every shard); 23c: `pio train` and `pio
+# deploy --mesh data=1` on phase 12's store as phase 12 trained it, in
+# an NCCL world of one.  One card shows that the split and the merge
+# give the meshless answer at full width, not any gain across cards.
+MESH_SHARDS = 4
+MESH_K = 10
+MESH_REPS = 20
+PHASE23_LIMIT_S = 90.0
+
+
+def sharded_rung_phase(dev, seed: int, items_np, mods, card: str) -> dict:
+    """23a: ``sharded_top_k`` on MESH_SHARDS shards of one card
+    (``devices=[cuda:0] * 4``) at N 59,047 (tail padded) and 4,194,304,
+    D 64, B 1 and 64, k 10: each answer against the meshless K3 and the
+    plain version, both timed beside it."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.ops.topk import sharded_top_k
+    from predictionio_tpu_torch.parallel.mesh import (
+        PartitionSpec,
+        make_mesh,
+        put_sharded,
+    )
+
+    ft, topk_mismatch = mods["ft"], mods["topk_mismatch"]
+    mesh = make_mesh({"data": MESH_SHARDS}, devices=[dev] * MESH_SHARDS)
+    g = torch.Generator(device=dev).manual_seed(seed + 23)
+    corpora = {
+        ML25M_ITEMS: torch.from_numpy(items_np).to(dev),
+        BIG_ITEMS: torch.randn(BIG_ITEMS, RANK, generator=g, device=dev)
+        / math.sqrt(RANK)}
+    queries = torch.randn(64, RANK, generator=g, device=dev) \
+        / math.sqrt(RANK)
+    out = {"launches": 0, "err": 0.0, "rows": []}
+    for n, items in corpora.items():
+        pad = (-n) % MESH_SHARDS
+        sharded = put_sharded(torch.nn.functional.pad(items, (0, 0, 0, pad)),
+                              mesh, PartitionSpec("data"))
+        for b in (1, 64):
+            q = queries[:b].contiguous()
+            before = ft.LAUNCHES              # main path starts here
+            s, i = sharded_top_k(mesh, "data", q, sharded, MESH_K,
+                                 n_valid=n)
+            got = ft.LAUNCHES - before        # and ends here
+            if got != MESH_SHARDS:
+                die(f"phase 23a: N {n} B {b}: {got} K3 launches for "
+                    f"{MESH_SHARDS} shards")
+            out["launches"] += got
+            s, i = s.cpu().numpy(), i.cpu().numpy()
+            what = f"phase 23a sharded N {n} B {b}"
+            out["err"] = max(out["err"], check_against_plain(
+                s, i, q, items, MESH_K, None, what, ft, topk_mismatch))
+            ms, mi = ft.fused_topk_cuda(q, items, MESH_K)
+            ps, _ = ft.fused_topk_reference(q, items, MESH_K + 1)
+            why = topk_mismatch(s, i, ms.cpu().numpy(), mi.cpu().numpy(),
+                                ps[:, MESH_K].cpu().numpy(), rtol=RTOL,
+                                atol=ATOL)
+            if why is not None:
+                die(f"{what} against the meshless K3: {why}")
+            same = int((i == mi.cpu().numpy()).all(axis=1).sum())
+            row = {
+                "n": n, "b": b, "shards": MESH_SHARDS,
+                "sharded_ms": time_single(lambda: sharded_top_k(
+                    mesh, "data", q, sharded, MESH_K, n_valid=n),
+                    MESH_REPS),
+                "meshless_k3_ms": time_single(
+                    lambda: ft.fused_topk_cuda(q, items, MESH_K), MESH_REPS),
+                "plain_ms": time_single(
+                    lambda: ft.fused_topk_reference(q, items, MESH_K),
+                    MESH_REPS),
+                "rows_ids_equal_meshless": f"{same}/{b}",
+                "card": card}
+            out["rows"].append(row)
+            log("phase 23a sharded rung: " + json.dumps(row))
+    del corpora, queries
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_train_phase(dev, seed: int, six: dict, mods, card: str) -> dict:
+    """23b: phase 6's ML-25M inputs on a ``data=4`` mesh of one card,
+    factors row-sharded, windowed gathers on: the factors against phase
+    6's meshless factors (rtol 1e-3 + 1e-3·max|ref|, as phase 6), a
+    second train ``torch.equal`` to the first, K1 and K2 counted."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.parallel.mesh import make_mesh
+
+    als, fg, rs = mods["als"], mods["fg"], mods["rs"]
+    users, items, ratings = six["ratings"]
+    cfg = als.ALSConfig(rank=RANK, iterations=TRAIN_ITERS, reg=0.01,
+                        solver="auto", seed=seed, factor_sharding="sharded",
+                        gather_window=True)
+    mesh = make_mesh({"data": MESH_SHARDS}, devices=[dev] * MESH_SHARDS)
+    t0 = time.perf_counter()
+    inputs = als.prepare_als_inputs(users, items, ratings, ML25M_USERS,
+                                    ML25M_ITEMS, cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    windowed = {side: sum(c.win is not None
+                          for c in getattr(inputs, f"{side}_buckets"))
+                for side in ("user", "item")}
+    chunks = {side: len(getattr(inputs, f"{side}_buckets"))
+              for side in ("user", "item")}
+    fg.LAUNCHES = 0                          # main path starts here
+    rs.LU_LAUNCHES = 0
+    t0 = time.perf_counter()
+    model = als.train_als_prepared(inputs, cfg)
+    train_s = time.perf_counter() - t0
+    launches = {"fused_gram": fg.LAUNCHES, "ridge_solve_lu": rs.LU_LAUNCHES}
+    for name, n in launches.items():         # main path ends here
+        if n == 0:
+            die(f"phase 23b: {name} never launched in the mesh train")
+    t0 = time.perf_counter()
+    again = als.train_als_prepared(inputs, cfg)
+    again_s = time.perf_counter() - t0
+    for what in ("user_factors", "item_factors"):
+        if not np.array_equal(getattr(model, what), getattr(again, what)):
+            die(f"phase 23b: two mesh trains' {what} differ")
+    del inputs, again
+    err = 0.0
+    for what in ("user_factors", "item_factors"):
+        want = torch.from_numpy(getattr(six["model"], what))
+        err = max(err, assert_close(
+            torch.from_numpy(getattr(model, what)), want, TRAIN_RTOL,
+            scaled(TRAIN_ATOL, want),
+            f"phase 23b: mesh {what} vs phase 6's meshless"))
+    out = {"launches": launches, "prep_s": prep_s, "train_s": train_s,
+           "err": err}
+    log(f"phase 23b mesh train: ML-25M {ML25M_USERS}x{ML25M_ITEMS}, "
+        f"{ML25M_RATINGS} ratings, rank {RANK}, {TRAIN_ITERS} iterations "
+        f"on data={MESH_SHARDS} of one card, factors row-sharded, "
+        f"gather_window on: prep (host bucketing through the prefetcher, "
+        f"the mesh placement; beside 23c's train subprocess) "
+        f"{prep_s:.2f} s, {chunks['user']} user / "
+        f"{chunks['item']} item chunks of which {windowed['user']} / "
+        f"{windowed['item']} windowed; train {train_s:.3f} s = "
+        f"{train_s * 1e3 / TRAIN_ITERS:.2f} ms/iter (again {again_s:.3f} s, "
+        f"torch.equal); launches {json.dumps(launches)}; factors vs phase "
+        f"6's meshless max |err| {err:.3g} (rtol {TRAIN_RTOL}, atol "
+        f"{TRAIN_ATOL}·max|ref|); phase 6's host route prep "
+        f"{six['host_prep_s']:.2f} s; card {card}")
+    torch.cuda.empty_cache()
+    return out
+
+
+# 23c's subprocesses: an NCCL world of one each, the corpus sharded,
+# the default plan with the host fast path off
+MESH_CLI_ENV = dict(PIO_RETRIEVAL_RUNG=None, PIO_SERVE_HOST_MACS="1",
+                    PIO_SERVE_SHARD_ABOVE="0", PIO_NUM_PROCESSES="1",
+                    PIO_PROCESS_ID="0", PIO_MESH=None)
+
+
+class mesh_train_cli:
+    """23c's ``pio train --mesh data=1`` on phase 12's copied store, a
+    subprocess through :func:`counted_pio`, started at once; ``wait()``
+    gives its standard output, kernel launches and wall."""
+
+    def __init__(self, loop: dict):
+        self.argv = ["train", "--engine-json", loop["mesh_engine_json"],
+                     "--mesh", "data=1"]
+        base = os.path.join(os.path.dirname(loop["mesh_home"]), "train_23c")
+        self.out_path, self.err_path = base + ".out", base + ".log"
+        self.t0 = time.perf_counter()
+        with open(self.out_path, "w") as out, open(self.err_path, "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", "import sys, chip_smoke; "
+                 "sys.exit(chip_smoke.counted_pio(sys.argv[1:]))",
+                 *self.argv],
+                cwd=Path(__file__).resolve().parent, stdout=out, stderr=err,
+                env=proc_env(loop["mesh_home"], **MESH_CLI_ENV,
+                             PIO_COORDINATOR_ADDRESS=(
+                                 f"127.0.0.1:{free_port()}")))
+
+    def wait(self) -> tuple:
+        rc = self.proc.wait(timeout=CLI_TIMEOUT_S)
+        wall = time.perf_counter() - self.t0
+        if rc != 0:
+            die(f"phase 23c: pio {' '.join(self.argv)} exited {rc}: "
+                f"{Path(self.err_path).read_text()[-2000:]}")
+        said = Path(self.out_path).read_text()
+        launches = next((json.loads(ln[len("launches "):])
+                         for ln in said.splitlines()
+                         if ln.startswith("launches ")), None)
+        return said, launches, wall
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+
+
+def mesh_cli_phase(dev, loop: dict, train: mesh_train_cli, mods,
+                   card: str) -> dict:
+    """23c: on phase 12's store as phase 12 trained it (its copy),
+    ``pio train --mesh data=1`` (``train``, started earlier) and ``pio
+    deploy --mesh data=1`` as subprocesses, each in an NCCL world of one
+    (``PIO_COORDINATOR_ADDRESS`` on loopback, ``PIO_NUM_PROCESSES=1``),
+    the corpus sharded (``PIO_SERVE_SHARD_ABOVE=0``) and routed by the
+    default plan (host fast path off): phase 12's 64 queries, each the
+    plain top-k of the mesh train's factors and phase 12's answer within
+    the training tolerance; the plan named by /metrics is ``sharded``."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.data.storage import get_storage, \
+        reset_storage
+    from predictionio_tpu_torch.workflow.core_workflow import load_models
+
+    ft, topk_mismatch = mods["ft"], mods["topk_mismatch"]
+    home, engine_json = loop["mesh_home"], loop["mesh_engine_json"]
+    work = os.path.dirname(home)
+    out = {}
+    said, launches, out["train_s"] = train.wait()
+    if "Mesh: {'data': 1} over 1 device(s)" not in said:
+        die(f"phase 23c: pio train --mesh printed {said[-500:]!r}")
+    if not launches or not launches["fused_gram"] \
+            or not launches["ridge_solve_lu"]:
+        die(f"phase 23c: the mesh train launched {launches}")
+    out["launches"] = {"fused_gram": launches["fused_gram"],
+                       "ridge_solve_lu": launches["ridge_solve_lu"]}
+    reset_storage()
+    with cli_env(home):
+        storage = get_storage()
+        inst = max((i for i in storage.get_engine_instances().get_all()
+                    if i.status == "COMPLETED"), key=lambda i: i.start_time)
+        [wrapper] = load_models(
+            mods["engine"](), inst,
+            mods["RuntimeContext"](storage=storage, device=dev))
+        uf, itf = wrapper.host_factors()
+        reset_storage()
+    d = None
+    try:
+        d = deployed(engine_json, os.path.join(work, "deploy_23c.log"),
+                     extra=("--mesh", "data=1"), phase="phase 23c",
+                     env=proc_env(home, **MESH_CLI_ENV,
+                                  PIO_COORDINATOR_ADDRESS=(
+                                      f"127.0.0.1:{free_port()}")))
+        if d.instance != inst.id:
+            die(f"phase 23c: the deploy serves {d.instance}, not the mesh "
+                f"train's {inst.id}")
+        items_d = torch.from_numpy(np.ascontiguousarray(itf)).to(dev)
+        u12, i12, uidx12, iidx12 = loop["factors12"]
+        items12 = torch.from_numpy(np.ascontiguousarray(i12)).to(dev)
+        lats, qerr, terr = [], 0.0, 0.0
+        for user, want in zip(loop["asked"], loop["answers"]):
+            t0 = time.perf_counter()
+            ans, _ = post_json(f"{d.base}/queries.json",
+                               {"user": user, "num": 10})
+            lats.append(time.perf_counter() - t0)
+            hits = ans["itemScores"]
+            s = [[h["score"] for h in hits]]
+            qerr = max(qerr, check_against_plain(
+                s, [[wrapper.item_index[h["item"]] for h in hits]],
+                torch.from_numpy(uf[[wrapper.user_index[user]]]).to(dev),
+                items_d, 10, None, f"phase 23c /queries.json {user}", ft,
+                topk_mismatch))
+            # against phase 12's meshless answer: another train of the
+            # same events, so the training tolerance, ties at its edge
+            ps, _ = ft.fused_topk_reference(
+                torch.from_numpy(u12[[uidx12[user]]]).to(dev), items12, 11)
+            ws = [[h["score"] for h in want["itemScores"]]]
+            why = topk_mismatch(
+                s, [[iidx12[h["item"]] for h in hits]], ws,
+                [[iidx12[h["item"]] for h in want["itemScores"]]],
+                ps[:, 10].cpu().numpy(), rtol=TRAIN_RTOL, atol=TRAIN_ATOL)
+            if why is not None:
+                die(f"phase 23c: {user} against phase 12's answer: {why}")
+            terr = max(terr, float(np.max(np.abs(np.asarray(s) -
+                                                 np.asarray(ws)))))
+        metrics = d.get("/metrics")
+        rungs = {}
+        for ln in metrics.splitlines():
+            if ln.startswith("pio_retrieval_requests_total{"):
+                rung = ln.split('rung="', 1)[1].split('"', 1)[0]
+                rungs[rung] = rungs.get(rung, 0.0) + float(ln.split()[-1])
+        if set(rungs) != {"sharded"} or rungs["sharded"] < 1:
+            die(f"phase 23c: the deploy's retrievals by rung {rungs}")
+        d.stop()
+        topk = d.launches["fused_topk"]
+        d = None
+    finally:
+        if d is not None:
+            d.kill()
+    if topk < rungs["sharded"]:
+        die(f"phase 23c: {topk} K3 launches for {rungs['sharded']} "
+            "sharded retrievals")
+    out["launches"]["fused_topk"] = topk
+    out.update(p50_ms=sorted(lats)[len(lats) // 2] * 1e3, query_err=qerr,
+               vs_phase12=terr, rungs=rungs)
+    log(f"phase 23c mesh CLI: pio train --mesh data=1 (NCCL world of one; "
+        f"a subprocess beside 23a and 23b) {out['train_s']:.2f} s on phase "
+        f"12's store, launches "
+        f"{json.dumps(out['launches'])}; pio deploy --mesh data=1: "
+        f"retrievals by rung {json.dumps(rungs)}; {len(lats)} "
+        f"/queries.json p50 {out['p50_ms']:.2f} ms, each the plain top-k "
+        f"of the mesh train's factors (max |score err| {qerr:.3g}) and "
+        f"phase 12's meshless answer within rtol {TRAIN_RTOL} + atol "
+        f"{TRAIN_ATOL} (max |score diff| {terr:.3g}); card {card}")
+    return out
+
+
+def mesh_phase(dev, seed: int, items_np, six: dict, loop: dict, mods,
+               card: str) -> dict:
+    """Phase 23, 23a-c (23c's train runs beside 23a and 23b); returns
+    the launches of K1, K2 and K3."""
+    t0 = time.perf_counter()
+    cli_train = mesh_train_cli(loop)
+    try:
+        rung = sharded_rung_phase(dev, seed, items_np, mods, card)
+        train = mesh_train_phase(dev, seed, six, mods, card)
+        cli = mesh_cli_phase(dev, loop, cli_train, mods, card)
+    finally:
+        cli_train.kill()
+    phase_s = time.perf_counter() - t0
+    launches = {
+        "fused_topk": rung["launches"] + cli["launches"]["fused_topk"],
+        "fused_gram": train["launches"]["fused_gram"]
+        + cli["launches"]["fused_gram"],
+        "ridge_solve_lu": train["launches"]["ridge_solve_lu"]
+        + cli["launches"]["ridge_solve_lu"]}
+    log(f"phase 23 in {phase_s:.1f} s (budget {PHASE23_LIMIT_S:.0f} s); "
+        f"launches {json.dumps(launches)}; card {card}")
+    if phase_s > PHASE23_LIMIT_S:
+        log(f"phase 23 over its budget: {phase_s:.1f} s > "
+            f"{PHASE23_LIMIT_S:.0f} s")
+    return {"launches": launches, "phase_s": phase_s, "rows": rung["rows"],
+            "err": rung["err"], "train": train}
+
+
 def post_json(url: str, obj):
     """POST one query; returns (answer, the server's own wall ms)."""
     req = urllib.request.Request(
@@ -7839,6 +8229,9 @@ def main() -> int:
     train = train_phase(dev, args.seed, als, fg, rs, card)
     # -- phase 19a: the same train under checkpoints, while its inputs live
     supervised = supervised_als_runs(dev, train, als, fg, rs, card)
+    # phase 23b trains phase 6's ratings again on a mesh
+    six = {"ratings": train.pop("ratings"), "model": train["model"],
+           "host_prep_s": train["prep"]["host_s"]}
     for key in ("inputs", "cfg", "model"):
         del train[key]
     torch.cuda.empty_cache()
@@ -7950,12 +8343,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         # -- phase 22: the storage server: train and serve on pioserver ---
         remote = remote_phase(dev, args.seed, loop, mods, card)
+        torch.cuda.empty_cache()
+        # -- phase 23: the device mesh on the card -------------------------
+        mesh = mesh_phase(dev, args.seed, items_np, six, loop,
+                          dict(mods, als=als), card)
+        del six
     finally:
         shutil.rmtree(loop["work"], ignore_errors=True)
         shutil.rmtree(sched["work"], ignore_errors=True)
     torch.cuda.empty_cache()
 
-    # -- phase 23: report --------------------------------------------------
+    # -- phase 24: report --------------------------------------------------
     main_shape = timings[(ML25M_ITEMS, 1, 10)]
     b64 = timings[(ML25M_ITEMS, 64, 10)]   # a full batch of query_batch
     kernels = [{
@@ -7969,7 +8367,8 @@ def main() -> int:
         + sched["off_launches"]
         + refresh["launches"]["fused_topk"] + tt["launches"]["fused_topk"]
         + ckpt["launches"]["fused_topk"] + obs["launches"]["fused_topk"]
-        + fleet["launches"]["fused_topk"] + remote["launches"]["fused_topk"],
+        + fleet["launches"]["fused_topk"] + remote["launches"]["fused_topk"]
+        + mesh["launches"]["fused_topk"],
         "max_abs_err": max(max_err, err, err4),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -8002,7 +8401,8 @@ def main() -> int:
             + ckpt["launches"].get(name, 0)
             + obs["launches"].get(name, 0)
             + fleet["launches"].get(name, 0)
-            + remote["launches"].get(name, 0),
+            + remote["launches"].get(name, 0)
+            + mesh["launches"].get(name, 0),
             "max_abs_err": train_kernel_err[name],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -8061,7 +8461,9 @@ def main() -> int:
         f"shadow scorer's re-predictions), "
         f"{fleet['launches']['fused_topk']} in phase 21 (its six deploy "
         f"processes and 21f's server), {remote['launches']['fused_topk']} "
-        f"in phase 22's pioserver deploy process, {dase_topk} "
+        f"in phase 22's pioserver deploy process, "
+        f"{mesh['launches']['fused_topk']} in phase 23 (23a's sharded calls "
+        f"and 23c's mesh deploy process), {dase_topk} "
         f"on the DASE path; training "
         f"kernels per the train run (fused_gram, ridge_solve_lu) + the CLI "
         f"path's train and eval ({loop['launches']['fused_gram']}, "
@@ -8080,7 +8482,9 @@ def main() -> int:
         f"({fleet['launches']['fused_gram']}, "
         f"{fleet['launches']['ridge_solve_lu']}), phase 22a's sqlite and "
         f"pioserver trains ({remote['launches']['fused_gram']}, "
-        f"{remote['launches']['ridge_solve_lu']}) and the solver='gj' run "
+        f"{remote['launches']['ridge_solve_lu']}), phase 23's mesh trains "
+        f"({mesh['launches']['fused_gram']}, "
+        f"{mesh['launches']['ridge_solve_lu']}) and the solver='gj' run "
         f"(ridge_solve_gj); timings of the training kernels are over one "
         f"iteration's calls at the ML-25M shape")
     print(json.dumps({"kernels": kernels}))

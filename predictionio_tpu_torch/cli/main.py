@@ -10,19 +10,21 @@ reference's output lines::
     pio accesskey new <app> [event ...] | list [app] | delete <key>
     pio build        --engine-json engine.json
     pio train        --engine-json engine.json [--seed N] [--device D]
-                     [--checkpoint-dir D --checkpoint-every N]
+                     [--mesh SPEC] [--checkpoint-dir D --checkpoint-every N]
                      [--follow [--refresh-interval S] [--promote-url URL]
                       [--canary-window S] [--trigger-staleness S]
                       [--trigger-delta-count N]]
     pio eval         <EvaluationClass> <EngineParamsGeneratorClass>
-                     [--checkpoint-dir D]
+                     [--device D] [--mesh SPEC] [--checkpoint-dir D]
     pio deploy       --engine-json engine.json --port 8000 [--device D]
-                     [--native] [--max-batch N] [--max-wait-us U]
+                     [--mesh SPEC] [--native] [--max-batch N]
+                     [--max-wait-us U]
                      [--no-batcher] [--batch-window-ms MS]
                      [--queue-depth N] [--batch-p99-target-ms MS]
     pio eventserver  --ip 0.0.0.0 --port 7070 [--native]
     pio spill        inspect|drain|requeue-dead [--dir D] [--backend B]
     pio batchpredict --input q.ndjson --output p.ndjson [--device D]
+                     [--mesh SPEC]
     pio import       --appid N --input events.ndjson [--from-line L]
     pio export       --appid N --output events.ndjson
     pio adminserver  --ip 127.0.0.1 --port 7071
@@ -38,9 +40,15 @@ reference's output lines::
 Storage is the ``PIO_STORAGE_*`` registry (by default sqlite and model
 files under ``PIO_HOME``), so ``train`` in one process and ``deploy`` in
 another share it.  ``--device`` takes the place of the reference's
-``--mesh`` / ``JAX_PLATFORMS``: the CUDA card by default, the CPU only
-when ``--device cpu`` is given; without CUDA a verb that computes fails
-rather than run on the CPU.  ``deploy``'s scheduler flags override the
+``JAX_PLATFORMS``: the CUDA card by default, the CPU only when
+``--device cpu`` is given; without CUDA a verb that computes fails
+rather than run on the CPU.  ``--mesh SPEC`` (env ``PIO_MESH``; the
+reference's grammar) lays a device mesh over that kind of device —
+every card, or with ``--device cpu`` the CPU positions
+``XLA_FLAGS=--xla_force_host_platform_device_count=N`` asks for — and
+the four compute verbs first join the ``PIO_COORDINATOR_ADDRESS`` /
+``PIO_NUM_PROCESSES`` / ``PIO_PROCESS_ID`` gang when it is set (NCCL
+on the card, gloo on the CPU).  ``deploy``'s scheduler flags override the
 ``PIO_BATCH_*`` / ``PIO_QUEUE_*`` knobs; ``--native`` serves through
 the C++ continuous-batching frontend, built from the port's own source
 at first use (a failed build ends the verb with the compiler's message;
@@ -67,9 +75,7 @@ and ``--checkpoint-every`` (``PIO_CHECKPOINT_DIR`` /
 ``PIO_CHECKPOINT_EVERY``) ALS saves every N sweeps and the same command
 run again resumes from the last complete sweep.  ``eval
 --checkpoint-dir`` (``PIO_EVAL_CHECKPOINT_DIR``) keeps each finished
-(candidate, fold) unit, so a SIGTERM'd sweep (exit 143) resumes.  Flags
-whose substrate the port does not have yet (the mesh) are not defined,
-so argparse rejects them by name.
+(candidate, fold) unit, so a SIGTERM'd sweep (exit 143) resumes.
 """
 
 from __future__ import annotations
@@ -114,6 +120,40 @@ def _device(args):
     try:
         return device(args.device)
     except (RuntimeError, ValueError) as e:
+        _die(str(e))
+
+
+def _join_gang(args) -> None:
+    """Check ``--mesh`` (its grammar errors end the verb with the
+    parser's message before anything loads), then join the
+    multi-process gang when ``PIO_COORDINATOR_ADDRESS`` is set (a no-op
+    otherwise): NCCL for the card, gloo for ``--device cpu``."""
+    from predictionio_tpu_torch.parallel.distributed import (
+        initialize_distributed,
+    )
+    from predictionio_tpu_torch.parallel.mesh import parse_mesh_spec
+
+    spec = getattr(args, "mesh", None)
+    if spec is not None and spec.strip().lower() not in ("none", "off"):
+        try:
+            parse_mesh_spec(spec)
+        except ValueError as e:
+            _die(str(e))
+    dev = getattr(args, "device", None)
+    cpu = dev is not None and str(dev).strip().lower().startswith("cpu")
+    initialize_distributed(backend="gloo" if cpu else "nccl")
+
+
+def _context(args, **kwargs):
+    """The verb's :class:`RuntimeContext`, on ``--device`` and over
+    ``--mesh`` (env ``PIO_MESH`` without the flag); a mesh the devices
+    cannot form ends the verb with the reason."""
+    from predictionio_tpu_torch.controller import RuntimeContext
+
+    try:
+        return RuntimeContext.create(storage=_storage(), device=_device(args),
+                                     mesh_spec=args.mesh, **kwargs)
+    except ValueError as e:
         _die(str(e))
 
 
@@ -702,7 +742,6 @@ def cmd_build(args) -> int:
 
 
 def cmd_train(args) -> int:
-    from predictionio_tpu_torch.controller import RuntimeContext
     from predictionio_tpu_torch.resilience.supervision import (
         PREEMPTED_EXIT_CODE,
         TrainPreempted,
@@ -710,6 +749,7 @@ def cmd_train(args) -> int:
     )
     from predictionio_tpu_torch.workflow.core_workflow import run_train
 
+    _join_gang(args)
     if getattr(args, "checkpoint_dir", None):
         if args.checkpoint_every <= 0:
             _die("--checkpoint-dir requires --checkpoint-every N (the save "
@@ -753,8 +793,9 @@ def cmd_train(args) -> int:
             _die("--pq-m must be a positive integer (subspace count).")
         os.environ["PIO_PQ_M"] = str(args.pq_m)
     variant, engine = _variant_and_engine(args)
-    ctx = RuntimeContext.create(storage=_storage(), device=_device(args),
-                                seed=args.seed)
+    ctx = _context(args, seed=args.seed)
+    if ctx.mesh is not None:
+        print(f"Mesh: {dict(ctx.mesh.shape)} over {ctx.mesh.devices.size} device(s)")
     if args.follow:
         return _train_follow(args, engine, variant, ctx)
     # SIGTERM during the train → the loops hand back at the next step
@@ -844,10 +885,7 @@ def _train_follow(args, engine, variant, ctx) -> int:
 
 
 def cmd_eval(args) -> int:
-    from predictionio_tpu_torch.controller import (
-        RuntimeContext,
-        load_engine_factory,
-    )
+    from predictionio_tpu_torch.controller import load_engine_factory
     from predictionio_tpu_torch.resilience.supervision import (
         PREEMPTED_EXIT_CODE,
         TrainPreempted,
@@ -855,10 +893,10 @@ def cmd_eval(args) -> int:
     )
     from predictionio_tpu_torch.workflow.core_workflow import run_evaluation
 
+    _join_gang(args)
     evaluation = load_engine_factory(args.evaluation_class)()
     generator = load_engine_factory(args.params_generator_class)()
-    ctx = RuntimeContext.create(storage=_storage(), device=_device(args),
-                                seed=args.seed)
+    ctx = _context(args, seed=args.seed)
     # The training preemption contract: SIGTERM keeps the sweep's
     # finished (candidate, fold) units and exits 143; the same command
     # run again resumes.  The process's own handler is back once the
@@ -911,10 +949,24 @@ def _install_drain_handlers(drain) -> None:
             continue
 
 
-def cmd_deploy(args) -> int:
+def _server(args, engine, variant, **kwargs):
+    """The verb's engine server, on ``--device`` and over ``--mesh``; a
+    mesh the devices cannot form ends the verb with the reason."""
     from predictionio_tpu_torch.server.engine_server import EngineServer
+
+    device = _device(args)
+    try:
+        return EngineServer(engine, variant, _storage(), device=device,
+                            mesh_spec=args.mesh,
+                            instance_id=args.engine_instance_id, **kwargs)
+    except ValueError as e:
+        _die(str(e))
+
+
+def cmd_deploy(args) -> int:
     from predictionio_tpu_torch.serving import SchedulerConfig
 
+    _join_gang(args)
     variant, engine = _variant_and_engine(args)
     # Serving-scheduler knobs: flags override the PIO_BATCH_*/PIO_QUEUE_*
     # env (SchedulerConfig.from_env ignores None overrides).
@@ -925,10 +977,8 @@ def cmd_deploy(args) -> int:
         max_batch=args.max_batch,
         p99_target_ms=args.batch_p99_target_ms,
     )
-    srv = EngineServer(engine, variant, _storage(), host=args.ip,
-                       port=args.port, device=_device(args),
-                       instance_id=args.engine_instance_id,
-                       scheduler_config=sched_cfg)
+    srv = _server(args, engine, variant, host=args.ip, port=args.port,
+                  scheduler_config=sched_cfg)
     if args.native:
         return _deploy_native(args, srv, sched_cfg)
     _install_drain_handlers(srv.stop)
@@ -1046,11 +1096,9 @@ def cmd_batchpredict(args) -> int:
     """Reference: ``pio batchpredict`` — bulk queries from NDJSON through
     the server's batched dispatch, ``--query-partitions`` queries a
     call."""
-    from predictionio_tpu_torch.server.engine_server import EngineServer
-
+    _join_gang(args)
     variant, engine = _variant_and_engine(args)
-    srv = EngineServer(engine, variant, _storage(), device=_device(args),
-                       instance_id=args.engine_instance_id)
+    srv = _server(args, engine, variant)
     queries = []
     with open(args.input) as f:
         for line_no, line in enumerate(f, 1):
@@ -1730,6 +1778,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "N events have landed past the served watermark "
                         "(default env PIO_REFRESH_TRIGGER_DELTA_COUNT)")
     _device_flag(t)
+    t.add_argument("--mesh", default=None, metavar="SPEC",
+                   help="device mesh, e.g. 'data=8,model=2' or 'auto' "
+                        "(default: env PIO_MESH, else single device)")
     t.set_defaults(fn=cmd_train)
 
     e = sub.add_parser("eval", help="evaluate engine-params candidates")
@@ -1743,6 +1794,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "restarting (default env PIO_EVAL_CHECKPOINT_DIR;"
                         " cleared when the sweep completes)")
     _device_flag(e)
+    e.add_argument("--mesh", default=None, metavar="SPEC")
     e.set_defaults(fn=cmd_eval)
 
     d = sub.add_parser("deploy", help="serve a trained engine over HTTP")
@@ -1774,6 +1826,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="autotuner served-latency p99 target (default env "
                         "PIO_BATCH_P99_TARGET_MS, else 100)")
     _device_flag(d)
+    d.add_argument("--mesh", default=None, metavar="SPEC",
+                   help="device mesh for model re-load/serve sharding")
     d.set_defaults(fn=cmd_deploy)
 
     es = sub.add_parser("eventserver",
@@ -1826,6 +1880,7 @@ def build_parser() -> argparse.ArgumentParser:
     bp.add_argument("--query-partitions", type=int, default=256,
                     help="queries per vectorized predict chunk")
     _device_flag(bp)
+    bp.add_argument("--mesh", default=None, metavar="SPEC")
     bp.set_defaults(fn=cmd_batchpredict)
 
     adm = sub.add_parser("adminserver", help="app-management REST API server")

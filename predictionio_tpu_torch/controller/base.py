@@ -1,15 +1,19 @@
 """DASE base classes — the engine-author SDK.
 
-Counterpart of ``predictionio_tpu/controller/base.py``.  Where the
-reference's :class:`RuntimeContext` carries a JAX device mesh, the port's
-carries the ``torch.device`` its models train and serve on (see
-:func:`predictionio_tpu_torch.device.device`).
+Counterpart of ``predictionio_tpu/controller/base.py``.  The port's
+:class:`RuntimeContext` carries the ``torch.device`` its models train
+and serve on (see :func:`predictionio_tpu_torch.device.device`) and,
+next to it, the device mesh of sharded compute
+(:mod:`predictionio_tpu_torch.parallel`), whose shards follow that
+device: the card by default, the CPU when asked.
 """
 
 from __future__ import annotations
 
 import abc
 import dataclasses
+import os
+import pickle
 from typing import Any, Dict, Generic, List, Optional, Sequence, Tuple, TypeVar
 
 import torch
@@ -26,6 +30,8 @@ __all__ = [
     "FirstServing",
     "PersistentModel",
     "WarmStartFallback",
+    "model_to_bytes",
+    "model_from_bytes",
 ]
 
 
@@ -64,6 +70,8 @@ class RuntimeContext:
       (:class:`~predictionio_tpu_torch.data.store.EventStore`)
     - ``device``: the ``torch.device`` models train on and stage their
       tensors on
+    - ``mesh``: the device mesh for sharded compute (None = the one
+      device)
     - ``seed``: base RNG seed for the run (reproducible training)
     - ``workflow_params``: the run's knobs (``profile_dir``: capture the
       train under ``torch.profiler``)
@@ -72,23 +80,48 @@ class RuntimeContext:
     storage: Any = None
     event_store: Any = None
     device: Optional[torch.device] = None
+    mesh: Any = None
     seed: int = 0
     workflow_params: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     @staticmethod
     def create(storage=None, device=None, seed: int = 0,
+               mesh_spec: Optional[str] = None, mesh=None,
                **workflow_params) -> "RuntimeContext":
-        """Build the run context.  ``device`` goes through
+        """Build the run context; this is where multi-device bring-up
+        happens.  ``device`` goes through
         :func:`~predictionio_tpu_torch.device.device`: the CUDA card
-        unless ``"cpu"`` is asked for, raising when CUDA is absent."""
+        unless ``"cpu"`` is asked for, raising when CUDA is absent.
+
+        ``mesh_spec`` (or env ``PIO_MESH``, e.g. ``data=8,model=2`` /
+        ``auto``) builds the device mesh over ``device``'s kind of
+        device; a multi-process gang joins first through
+        ``initialize_distributed`` (env ``PIO_COORDINATOR_ADDRESS``;
+        NCCL on the card, gloo on the CPU).  Engines only consume
+        ``ctx.mesh``."""
         from predictionio_tpu_torch.data.storage import get_storage
         from predictionio_tpu_torch.data.store import EventStore
         from predictionio_tpu_torch.device import device as resolve_device
 
+        dev = resolve_device(device)
+        if mesh is None:
+            spec = mesh_spec if mesh_spec is not None \
+                else os.environ.get("PIO_MESH")
+            if spec:
+                from predictionio_tpu_torch.parallel.distributed import (
+                    initialize_distributed,
+                )
+                from predictionio_tpu_torch.parallel.mesh import (
+                    mesh_from_spec,
+                )
+
+                initialize_distributed(
+                    backend="nccl" if dev.type == "cuda" else "gloo")
+                mesh = mesh_from_spec(spec, device=dev)
         storage = storage or get_storage()
         return RuntimeContext(storage=storage,
                               event_store=EventStore(storage),
-                              device=resolve_device(device), seed=seed,
+                              device=dev, mesh=mesh, seed=seed,
                               workflow_params=dict(workflow_params))
 
 
@@ -201,3 +234,14 @@ class PersistentModel(abc.ABC):
     @abc.abstractmethod
     def load(cls, instance_id: str, params: Params, ctx: RuntimeContext) -> "PersistentModel":
         ...
+
+
+def model_to_bytes(model: Any) -> bytes:
+    """Default model serialization (reference: P2L/L auto-persistence):
+    a pickle; an engine with exotic state implements
+    :class:`PersistentModel` instead."""
+    return pickle.dumps(model, protocol=pickle.HIGHEST_PROTOCOL)
+
+
+def model_from_bytes(blob: bytes) -> Any:
+    return pickle.loads(blob)

@@ -71,6 +71,21 @@ class EventStore:
             target_entity_id=target_entity_id, ordered=ordered,
             columns=columns)
 
+    def insert_columnar(
+        self,
+        columns,
+        app_name: str,
+        channel_name: Optional[str] = None,
+    ) -> int:
+        """Bulk columnar event ingest (reference analogue: HBase bulk
+        import): one sequence per event column, as
+        :meth:`~predictionio_tpu_torch.data.storage.base.Events.
+        insert_columnar` takes them; returns the number of events
+        ingested."""
+        app_id, channel_id = self._resolve(app_name, channel_name)
+        return self._storage.get_events().insert_columnar(
+            columns, app_id, channel_id)
+
     def aggregate_properties(
         self,
         app_name: str,

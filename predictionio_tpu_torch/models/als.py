@@ -30,15 +30,21 @@ The loop runs under supervision (:func:`train_als_prepared`): sweep
 checkpoints, rollback of a non-finite chunk, preemption and the step
 watchdog; every sweep is bit for bit reproducible, so a resumed train
 equals an uninterrupted one.
-One process and one device: ``mesh`` must be None, and the mesh knobs
-``factor_sharding`` / ``gather_window`` are accepted and ignored, as the
-reference ignores them without a mesh.
+With a ``mesh`` (:mod:`predictionio_tpu_torch.parallel`) every solve
+block's rows split over the ``data`` axis and each shard runs K1 and K2
+on its own rows, on its own device; ``factor_sharding`` keeps the
+factors replicated or row-sharded, and ``gather_window`` fetches only
+the rows a block touches from row-sharded factors.  Every sum over
+shards runs in shard order, so a mesh train is as reproducible as a
+meshless one.  Without a mesh the two knobs are ignored, as the
+reference ignores them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple, Union
+import math
+from typing import Any, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -56,6 +62,19 @@ from predictionio_tpu_torch.ops.ragged import (
     bucket_by_length,
 )
 from predictionio_tpu_torch.ops.topk import chunked_top_k, top_k_scores
+from predictionio_tpu_torch.parallel.compat import (
+    axis_lane,
+    lane_outputs,
+    psum,
+    shard_map,
+)
+from predictionio_tpu_torch.parallel.mesh import (
+    AXIS_DATA,
+    NamedSharding,
+    PartitionSpec,
+    ShardedTensor,
+    put_sharded,
+)
 from predictionio_tpu_torch.resilience.supervision import (
     DivergenceGuard,
     RollbackRequested,
@@ -123,6 +142,12 @@ class ALSModel:
     item_factors: np.ndarray
     rank: int
     implicit: bool
+
+    def tree_flatten(self):
+        """The factor arrays by name (the reference's checkpoint split
+        of the model's arrays)."""
+        return {"user_factors": self.user_factors,
+                "item_factors": self.item_factors}
 
 
 def als_model_from_numpy(user_factors, item_factors, *, rank: int,
@@ -252,6 +277,9 @@ class _Chunk:
     targets: torch.Tensor      # [n] int64
     seg_ids: Optional[torch.Tensor] = None   # [R] int64, merged only
     n_seg: int = 0
+    # On a mesh with row-sharded factors: per destination row block,
+    # which solved rows it takes and where (see _mesh_scatter).
+    routes: Optional[List[Tuple]] = None
 
 
 def _merged_solve(ch: _Chunk, dst: torch.Tensor, src: torch.Tensor,
@@ -346,53 +374,220 @@ def _upload(kind: str, idx, vals, msk, ids, device: torch.device,
                        None if seg is None else put(seg, np.int64))
 
 
+@dataclasses.dataclass
+class _MeshChunk:
+    """One solve block on a mesh: its rows split into equal blocks over
+    the ``data`` axis, ``shards[s]`` on shard ``s``'s device.  A merged
+    block's shards each hold the entity block ``s`` of its ``n_seg``
+    entities (``keep`` / ``targets``) and every entity slot for its
+    rows' ``seg_ids``.  ``win`` (windowed blocks): the sorted factor rows
+    the block touches, replicated on every shard's device; the indices
+    are then window-local."""
+
+    kind: str
+    shards: List[_Chunk]
+    win: Optional[List[torch.Tensor]] = None
+
+
+def _chunk_window(idx: np.ndarray, msk: np.ndarray, n_src: int,
+                  pad_to: int = 64) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """Sorted unique src ids a chunk touches + the window-local remap.
+
+    Returns ``None`` when windowing would not shrink the gather (window
+    ≥ half the matrix) — the caller keeps the plain full-matrix path.
+    Padding repeats the LAST (max) id so the array stays sorted for
+    ``searchsorted``; duplicate fetches of one row are harmless.
+    """
+    win = np.unique(idx[msk])
+    if win.size == 0:
+        win = np.zeros(1, idx.dtype)
+    padded = -(-win.size // pad_to) * pad_to
+    if padded >= n_src // 2:
+        return None
+    win = np.pad(win, (0, padded - win.size), mode="edge")
+    local = np.searchsorted(win, idx).astype(np.int32)
+    local[~msk] = 0
+    return win.astype(np.int32), local
+
+
+def _mesh_upload(kind: str, host_arrs: Tuple, win, mesh) -> _MeshChunk:
+    """Place one block's host arrays row-sharded over the mesh's
+    ``data`` axis (``put_sharded``) and its window replicated, then make
+    each shard's solve block on its device."""
+    row = PartitionSpec(AXIS_DATA)
+    lane = axis_lane(mesh, AXIS_DATA)
+    if kind == "merged":
+        idx, vals, msk, seg, ent = host_arrs
+        n_seg = len(ent)
+        arrs = [put_sharded(np.ascontiguousarray(a, dtype=t), mesh, row)
+                for a, t in ((idx, np.int32), (vals, np.float32),
+                             (msk, np.bool_), (seg, np.int64),
+                             (ent, np.int64))]
+    else:
+        arrs = [put_sharded(np.ascontiguousarray(a, dtype=t), mesh, row)
+                for a, t in zip(host_arrs, (np.int32, np.float32, np.bool_,
+                                            np.int64))]
+    shards = []
+    for p in lane:
+        blocks = [a.block(p) for a in arrs]
+        if kind == "merged":
+            idx_s, vals_s, msk_s, seg_s, ent_s = blocks
+            keep, targets = _valid_rows(ent_s, idx_s.device)
+            shards.append(_Chunk(kind="merged", indices=idx_s,
+                                 values=vals_s, mask=msk_s, keep=keep,
+                                 targets=targets,
+                                 seg_ids=seg_s.clamp(max=n_seg),
+                                 n_seg=n_seg))
+        else:
+            shards.append(_make_chunk("plain", *blocks))
+    wins = None
+    if win is not None:
+        w = put_sharded(np.ascontiguousarray(win, dtype=np.int64), mesh,
+                        PartitionSpec())
+        wins = [w.block(p) for p in lane]
+    return _MeshChunk(kind=kind, shards=shards, win=wins)
+
+
 def _device_buckets(buckets: List[Padded], rank: int, max_block_floats: int,
-                    pad_rows: int, device: torch.device) -> List[_Chunk]:
-    """Upload padded buckets, splitting any whose gathered [R, L, K]
+                    pad_rows: int, device: Optional[torch.device],
+                    mesh=None, window_n_src: Optional[int] = None) -> List:
+    """Stage padded buckets, splitting any whose gathered [R, L, K]
     block would exceed ``max_block_floats`` into row chunks of
     ``rows_max`` rows; the last chunk is row-padded (row_id = -1, which
     the scatter drops) only up to a multiple of ``pad_rows``, as
     :func:`_chunk_split_bucket` pads, so K1 and K2 do no work on rows
-    that exist only to fill a chunk.  Host loop; index blocks go up as
-    int32, once."""
-    out: List[_Chunk] = []
-    for p in buckets:
-        if p.split:
-            for idx, vals, msk, seg, ent in _chunk_split_bucket(
-                    p, rank, max_block_floats, pad_rows):
-                out.append(_upload("merged", idx, vals, msk, ent, device,
-                                   seg=seg))
-            continue
-        r, l = p.indices.shape
-        rows_max = max(pad_rows,
-                       (max_block_floats // max(l * rank, 1))
-                       // pad_rows * pad_rows)
-        for start in range(0, r, rows_max):
-            sl = slice(start, start + rows_max)
-            idx, vals = p.indices[sl], p.values[sl]
-            msk, rid = p.mask[sl], p.row_ids[sl]
-            short = (-idx.shape[0]) % pad_rows
-            if short:
-                idx = np.pad(idx, ((0, short), (0, 0)))
-                vals = np.pad(vals, ((0, short), (0, 0)))
-                msk = np.pad(msk, ((0, short), (0, 0)))
-                rid = np.pad(rid, (0, short), constant_values=-1)
-            out.append(_upload("plain", idx, vals, msk, rid, device))
-    return out
+    that exist only to fill a chunk.  Index blocks go up as int32, once.
+
+    The staging rides a :class:`~predictionio_tpu_torch.data.prefetch.
+    DevicePrefetcher` (``model="als"``): its source generator does the
+    chunk/pad/window numpy work on the prefetcher's thread and its put
+    issues the transfers, so one chunk's padding overlaps the previous
+    chunk's copy, and the staging shows in ``pio_prefetch_*``.  The
+    prefetcher's thread is joined on every exit.
+
+    Without a mesh: one :class:`_Chunk` per block on ``device``.  With a
+    mesh: one :class:`_MeshChunk` per block, rows over the ``data``
+    axis; with ``window_n_src`` (factors row-sharded), a block whose
+    working set is under half the other side's matrix gets a window
+    (:func:`_chunk_window`) and window-local indices.
+    """
+    from predictionio_tpu_torch.data.prefetch import DevicePrefetcher
+
+    def windowed(kind, idx, msk, rest):
+        if window_n_src is None:
+            return kind, (idx, *rest), None
+        w = _chunk_window(idx, msk, window_n_src)
+        if w is None:
+            return kind, (idx, *rest), None
+        win, local = w
+        return kind, (local, *rest), win
+
+    def entries():
+        """(kind, host_arrs, win) stream — all chunk/pad/window numpy
+        work happens here, on the prefetcher's thread."""
+        for p in buckets:
+            if p.split:
+                for idx, vals, msk, seg, ent in _chunk_split_bucket(
+                        p, rank, max_block_floats, pad_rows):
+                    yield windowed("merged", idx, msk, (vals, msk, seg, ent))
+                continue
+            r, l = p.indices.shape
+            rows_max = max(pad_rows,
+                           (max_block_floats // max(l * rank, 1))
+                           // pad_rows * pad_rows)
+            for start in range(0, r, rows_max):
+                sl = slice(start, start + rows_max)
+                idx, vals = p.indices[sl], p.values[sl]
+                msk, rid = p.mask[sl], p.row_ids[sl]
+                short = (-idx.shape[0]) % pad_rows
+                if short:
+                    idx = np.pad(idx, ((0, short), (0, 0)))
+                    vals = np.pad(vals, ((0, short), (0, 0)))
+                    msk = np.pad(msk, ((0, short), (0, 0)))
+                    rid = np.pad(rid, (0, short), constant_values=-1)
+                yield windowed("plain", idx, msk, (vals, msk, rid))
+
+    def put_entry(entry):
+        kind, host_arrs, win = entry
+        if mesh is not None:
+            return _mesh_upload(kind, host_arrs, win, mesh)
+        if kind == "merged":
+            idx, vals, msk, seg, ent = host_arrs
+            return _upload("merged", idx, vals, msk, ent, device, seg=seg)
+        return _upload("plain", *host_arrs, device)
+
+    with DevicePrefetcher(entries(), prep_fn=lambda e: e, put_fn=put_entry,
+                          count_fn=lambda e: 1, model="als") as pf:
+        return [batch.args for batch in pf]
 
 
 @dataclasses.dataclass
 class ALSInputs:
     """Padded buckets on the device + factor init (prep done once), so a
     caller can run :func:`train_als_prepared` more than once without
-    re-bucketing or re-uploading."""
+    re-bucketing or re-uploading.  On a mesh the factors are
+    :class:`~predictionio_tpu_torch.parallel.mesh.ShardedTensor` s
+    (row-sharded, padded to the ``data`` axis, or replicated) and the
+    buckets :class:`_MeshChunk` s."""
 
-    uf0: torch.Tensor
-    itf0: torch.Tensor
-    user_buckets: List[_Chunk]
-    item_buckets: List[_Chunk]
+    uf0: Any
+    itf0: Any
+    user_buckets: List
+    item_buckets: List
     n_users: int
     n_items: int
+    mesh: Any = None
+
+
+def _shard_factors(config: ALSConfig, n_users: int, n_items: int) -> bool:
+    """Whether a mesh run row-shards the persistent factor matrices."""
+    if config.factor_sharding == "sharded":
+        return True
+    if config.factor_sharding == "replicated":
+        return False
+    if config.factor_sharding != "auto":
+        raise ValueError(
+            f"factor_sharding must be 'auto', 'replicated' or 'sharded' "
+            f"(got {config.factor_sharding!r})")
+    return (n_users + n_items) * config.rank * 4 > config.factor_shard_threshold
+
+
+def _factor_constraint(arr) -> Optional[NamedSharding]:
+    """The sharding a blocked (row-sharded) factor matrix keeps through
+    every sweep, or None for replicated / meshless factors."""
+    sh = getattr(arr, "sharding", None)
+    if isinstance(sh, NamedSharding) and sh.spec and sh.spec[0] == AXIS_DATA:
+        return sh
+    return None
+
+
+def _window_gather(src, win: torch.Tensor, *, device=None) -> torch.Tensor:
+    """Fetch factor rows ``win`` from (possibly row-sharded) ``src``.
+
+    Sharded case: a masked local take on every shard + the fixed-order
+    sum over the ``data`` axis (:func:`~predictionio_tpu_torch.parallel.
+    compat.psum`) — each requested row lives in exactly ONE shard, so
+    every other shard contributes exact zeros and the float32 sum is
+    bitwise the row value.  The transient is ``[len(win), K]`` (the
+    chunk's working set), on ``device`` (default: the first shard's).
+    """
+    if _factor_constraint(src) is None:
+        return src[torch.as_tensor(win, device=src.device).long()]
+    mesh = src.mesh
+    shard_rows = src.shape[0] // mesh.shape[AXIS_DATA]
+
+    def local(axis_index, src_local, win_rep):
+        lo = axis_index(AXIS_DATA) * shard_rows
+        loc = win_rep.long() - lo
+        ok = (loc >= 0) & (loc < shard_rows)
+        rows = src_local[torch.where(ok, loc, torch.zeros_like(loc))]
+        return torch.where(ok[:, None], rows, torch.zeros_like(rows))
+
+    parts = shard_map(local, mesh=mesh,
+                      in_specs=(PartitionSpec(AXIS_DATA, None),
+                                PartitionSpec()),
+                      out_specs=None)(src, win)
+    return psum(lane_outputs(parts, mesh, AXIS_DATA), mesh, device=device)
 
 
 def prepare_als_inputs(
@@ -408,20 +603,28 @@ def prepare_als_inputs(
 ) -> ALSInputs:
     """Bucketing + upload for :func:`train_als_prepared`.
     ``device``: where training runs (default the card; ``"cpu"`` for the
-    plain paths).
+    plain paths); with a ``mesh``, the mesh's devices.
 
     ``config.device_prep`` picks the route (the reference's dispatch):
     ``"auto"`` buckets on the card when training runs there with no
-    ``max_degree`` — the COO goes up once and
+    ``max_degree`` and no mesh — the COO goes up once and
     :mod:`~predictionio_tpu_torch.ops.device_prep` lays the buckets out
     there — and on the host otherwise
     (:func:`~predictionio_tpu_torch.ops.ragged.bucket_by_length`, then
-    the blocks go up); ``True`` takes the device route on ``device``,
-    whatever it is; ``False`` the host route.  A failure of the device
-    route raises: nothing falls back to the host."""
+    the blocks go up through the prefetcher); ``True`` takes the device
+    route on ``device``, whatever it is; ``False`` the host route.  A
+    failure of the device route raises: nothing falls back to the host.
+
+    On a mesh (the host route, as the reference's): bucket rows pad to
+    ``lcm(LEN_ALIGN, data)`` and split over the ``data`` axis;
+    ``config.factor_sharding`` row-shards the factors (padded to the
+    axis size; ``auto`` above ``factor_shard_threshold`` bytes) or
+    replicates them, and ``gather_window`` (``auto``: sharded factors
+    on more than one shard) gives each block a window of the other
+    side's rows."""
     if mesh is not None:
-        raise NotImplementedError("ALS on a device mesh is not ported yet; "
-                                  "pass mesh=None (one device)")
+        return _prepare_als_inputs_mesh(user_ids, item_ids, ratings,
+                                        n_users, n_items, config, mesh)
     dev = resolve_device(device)
     use_dev = config.device_prep
     if use_dev == "auto":
@@ -453,6 +656,63 @@ def prepare_als_inputs(
                      user_buckets=side(user_ids, item_ids, n_users),
                      item_buckets=side(item_ids, user_ids, n_items),
                      n_users=n_users, n_items=n_items)
+
+
+def _prepare_als_inputs_mesh(user_ids, item_ids, ratings, n_users: int,
+                             n_items: int, config: ALSConfig,
+                             mesh) -> ALSInputs:
+    """The mesh route of :func:`prepare_als_inputs` (host bucketing)."""
+    if AXIS_DATA not in mesh.shape:
+        raise ValueError(f"ALS shards its solves over the {AXIS_DATA!r} "
+                         f"axis; the mesh has {tuple(mesh.shape)}")
+    if mesh.multi_process:
+        raise NotImplementedError(
+            "ALS on a mesh that spans processes is not ported yet "
+            "(ROADMAP Queue 1 item 10b); use one process per mesh")
+    if config.device_prep is True:
+        raise NotImplementedError(
+            "device bucketing (device_prep=True) has no mesh route; use "
+            "device_prep='auto' or False")
+    k = config.rank
+    d = mesh.shape[AXIS_DATA]
+    # Rows pad to the lcm of the data axis (the blocks must divide) and
+    # LEN_ALIGN, so a mesh of 1, 2, 4 or 8 shards keeps the meshless
+    # layout.
+    pad_rows = math.lcm(LEN_ALIGN, d)
+    uf, itf = _init_factors(n_users, n_items, k, config.seed)
+    sharded = _shard_factors(config, n_users, n_items)
+    window = config.gather_window
+    if window == "auto":
+        # A 1-shard mesh has no cross-shard transient to shrink.
+        window = sharded and d > 1
+    elif not isinstance(window, bool):
+        raise ValueError(f"gather_window must be 'auto', True or False "
+                         f"(got {config.gather_window!r})")
+    window = window and sharded  # windows only exist over sharded factors
+    if sharded:
+        # Padded rows are never gathered (indices < n) nor scattered to
+        # (row ids < n); the final model drops them.
+        uf = torch.nn.functional.pad(uf, (0, 0, 0, (-n_users) % d))
+        itf = torch.nn.functional.pad(itf, (0, 0, 0, (-n_items) % d))
+        spec = PartitionSpec(AXIS_DATA, None)
+    else:
+        spec = PartitionSpec()
+    uf = put_sharded(uf, mesh, spec)
+    itf = put_sharded(itf, mesh, spec)
+
+    def side(rows, cols, n_rows, n_src):
+        return _device_buckets(
+            bucket_by_length(rows, cols, ratings, n_rows,
+                             bucket_bounds=config.bucket_bounds,
+                             max_len=config.max_degree, pad_rows_to=pad_rows,
+                             split_above=config.split_above),
+            k, config.max_block_floats, pad_rows, None, mesh=mesh,
+            window_n_src=n_src if window else None)
+
+    return ALSInputs(uf0=uf, itf0=itf,
+                     user_buckets=side(user_ids, item_ids, n_users, n_items),
+                     item_buckets=side(item_ids, user_ids, n_items, n_users),
+                     n_users=n_users, n_items=n_items, mesh=mesh)
 
 
 def _plan_side(rows: torch.Tensor, n_rows: int, config: ALSConfig,
@@ -590,7 +850,14 @@ def train_als_prepared(inputs: ALSInputs, config: ALSConfig, *,
 
     Without a checkpoint directory the whole loop is one chunk under the
     watchdog, and a non-finite result raises ``TrainDiverged`` (there is
-    nothing to roll back to).  A non-finite model is never returned."""
+    nothing to roll back to).  A non-finite model is never returned.
+
+    On a mesh (``inputs.mesh``) the sweeps run :func:`_mesh_train_loop`
+    and the returned factors drop the rows padded to the mesh; sweep
+    checkpoints are not ported there yet."""
+    if inputs.mesh is not None:
+        return _train_prepared_mesh(inputs, config, checkpoint_dir,
+                                    save_every)
     statics = _resolve_loop_statics(config, inputs.uf0.device)
     reg, alpha = float(config.reg), float(config.alpha)
     total = int(config.iterations)
@@ -740,6 +1007,180 @@ def _train_loop(uf: torch.Tensor, itf: torch.Tensor,
         uf = _side(user_buckets, uf, itf, reg, alpha, **statics)
         itf = _side(item_buckets, itf, uf, reg, alpha, **statics)
     return uf, itf
+
+
+# -- the mesh sweep --------------------------------------------------------------
+
+def _lane_blocks(x: ShardedTensor) -> List[torch.Tensor]:
+    """``x``'s block on each shard of the ``data`` axis, in shard order
+    (the whole matrix on each, when ``x`` is replicated)."""
+    return [x.block(p) for p in axis_lane(x.mesh, AXIS_DATA)]
+
+
+def _distinct(tensors) -> List[torch.Tensor]:
+    """``tensors`` without repeats (replicas shared by positions of one
+    device are one tensor)."""
+    seen, out = set(), []
+    for t in tensors:
+        if id(t) not in seen:
+            seen.add(id(t))
+            out.append(t)
+    return out
+
+
+def _mesh_full(src: ShardedTensor, dev: torch.device, dtype: torch.dtype,
+               memo: dict) -> torch.Tensor:
+    """The whole (padded) matrix on ``dev`` in ``dtype``: the replica
+    there, or the row blocks gathered in shard order (once a side, per
+    device)."""
+    key = str(dev)
+    if key not in memo:
+        if _factor_constraint(src) is None:
+            rep = next((b for b in _lane_blocks(src) if b.device == dev),
+                       None)
+            full = rep if rep is not None else _lane_blocks(src)[0].to(dev)
+        else:
+            full = torch.cat([b.to(dev) for b in _lane_blocks(src)])
+        memo[key] = full.to(dtype)
+    return memo[key]
+
+
+def _mesh_gram(src: ShardedTensor) -> torch.Tensor:
+    """YᵀY of the whole matrix (padded rows are zeros): one gram of the
+    replica, or the fixed-order sum of the row blocks' grams."""
+    blocks = _lane_blocks(src)
+    if _factor_constraint(src) is None:
+        return gram(blocks[0])
+    return psum([gram(b) for b in blocks], src.mesh)
+
+
+def _mesh_scatter(dst: ShardedTensor, ch: _Chunk,
+                  rows: torch.Tensor) -> None:
+    """Write a shard's solved rows (row ``ch.keep[n]`` of ``rows`` onto
+    global row ``ch.targets[n]``) into every replica of ``dst``, or into
+    the row block that owns each target.  The routes to the blocks are
+    the same every sweep: worked out once, then kept on ``ch``."""
+    rows = rows.index_select(0, ch.keep)
+    if _factor_constraint(dst) is None:
+        for rep in _distinct(_lane_blocks(dst)):
+            rep.index_copy_(0, ch.targets.to(rep.device),
+                            rows.to(rep.device))
+        return
+    blocks = _lane_blocks(dst)
+    if ch.routes is None:
+        per = dst.shape[0] // len(blocks)
+        ch.routes = []
+        for s, blk in enumerate(blocks):
+            own = (ch.targets >= s * per) & (ch.targets < (s + 1) * per)
+            sel = torch.nonzero(own).squeeze(1)
+            if sel.numel():
+                ch.routes.append((s, sel, (ch.targets[sel] - s * per)
+                                  .to(blk.device)))
+    for s, sel, local in ch.routes:
+        blk = blocks[s]
+        blk.index_copy_(0, local, rows.index_select(0, sel).to(blk.device))
+
+
+def _mesh_side(chunks: List[_MeshChunk], dst: ShardedTensor,
+               src: ShardedTensor, reg: float, alpha: float, *,
+               gram_dtype: str, solver: str, implicit: bool) -> None:
+    """One side's sweep on a mesh: every block's shards solve their own
+    rows against ``src`` on their own devices (K1, K2 on the card) and
+    write into ``dst`` in place.  A merged (split) block's per-shard
+    segment sums add in shard order before its entities are solved,
+    each shard solving its entity block."""
+    gdt = _GRAM_DTYPES[gram_dtype]
+    yty = _mesh_gram(src) if implicit else None
+    full: dict = {}
+    for mc in chunks:
+        wins: dict = {}
+        pieces = []
+        for s, ch in enumerate(mc.shards):
+            dev = ch.indices.device
+            if mc.win is not None:
+                key = str(dev)
+                if key not in wins:
+                    wins[key] = _window_gather(src, mc.win[s],
+                                               device=dev).to(gdt)
+                bsrc = wins[key]
+            else:
+                bsrc = _mesh_full(src, dev, gdt, full)
+            y = None if yty is None else yty.to(dev)
+            if mc.kind == "plain":
+                solved = _solve_bucket(ch.indices, ch.values, ch.mask, bsrc,
+                                       y, reg, alpha, implicit, solver)
+                _mesh_scatter(dst, ch, solved)
+                continue
+            a, b, deg = _gram_pieces(ch.indices, ch.values, ch.mask, bsrc,
+                                     alpha, implicit)
+            n, k = ch.n_seg, a.shape[-1]
+            with deterministic():
+                pieces.append((
+                    a.new_zeros((n + 1, k, k)).index_add_(0, ch.seg_ids,
+                                                          a)[:n],
+                    b.new_zeros((n + 1, k)).index_add_(0, ch.seg_ids, b)[:n],
+                    deg.new_zeros(n + 1).index_add_(0, ch.seg_ids, deg)[:n]))
+        if mc.kind == "plain":
+            continue
+        big_a, big_b, degree = (psum([pc[j] for pc in pieces], src.mesh)
+                                for j in range(3))
+        if implicit:
+            big_a += yty.to(big_a.device)
+        per = big_a.shape[0] // len(mc.shards)
+        for s, ch in enumerate(mc.shards):
+            dev = ch.indices.device
+            sl = slice(s * per, (s + 1) * per)
+            solved = _ridge(big_a[sl].to(dev), big_b[sl].to(dev),
+                            reg * degree[sl].to(dev).clamp_min(1.0), solver)
+            _mesh_scatter(dst, ch, solved)
+
+
+def _mesh_train_loop(uf: ShardedTensor, itf: ShardedTensor,
+                     user_buckets: List[_MeshChunk],
+                     item_buckets: List[_MeshChunk], reg: float,
+                     alpha: float, iterations: int, **statics) -> None:
+    """Users first, then items, ``iterations`` times, in place."""
+    for _ in range(iterations):
+        _mesh_side(user_buckets, uf, itf, reg, alpha, **statics)
+        _mesh_side(item_buckets, itf, uf, reg, alpha, **statics)
+
+
+def _mesh_clone(x: ShardedTensor) -> ShardedTensor:
+    """A copy with its own blocks (positions that shared a block share
+    its copy)."""
+    copies: dict = {}
+    shards = [None if t is None else copies.setdefault(id(t), t.clone())
+              for t in x.shards]
+    return ShardedTensor(x.sharding, x.shape, shards)
+
+
+def _train_prepared_mesh(inputs: ALSInputs, config: ALSConfig,
+                         checkpoint_dir, save_every: int) -> ALSModel:
+    """:func:`train_als_prepared` on a mesh: the sweeps under the step
+    watchdog, a non-finite result raising ``TrainDiverged``."""
+    if checkpoint_dir and save_every > 0:
+        raise NotImplementedError(
+            "sweep checkpoints of a mesh train are not ported yet "
+            "(ROADMAP Queue 1 item 10b); train without --checkpoint-dir")
+    first = _lane_blocks(inputs.uf0)[0].device
+    statics = _resolve_loop_statics(config, first)
+    total = int(config.iterations)
+    uf, itf = _mesh_clone(inputs.uf0), _mesh_clone(inputs.itf0)
+    watchdog = StepWatchdog("als")
+    watchdog.arm(total)
+    try:
+        _mesh_train_loop(uf, itf, inputs.user_buckets, inputs.item_buckets,
+                         float(config.reg), float(config.alpha), total,
+                         **statics)
+        if not all_finite(_distinct(_lane_blocks(uf) + _lane_blocks(itf))):
+            raise TrainDiverged("als", total, "non-finite factors", 0)
+    finally:
+        watchdog.stop()
+    # Blocked mode pads factor rows to the mesh axis; the model keeps
+    # the true extents.
+    return ALSModel(user_factors=uf.to_host()[:inputs.n_users],
+                    item_factors=itf.to_host()[:inputs.n_items],
+                    rank=config.rank, implicit=config.implicit)
 
 
 def rmse(model: ALSModel, user_ids, item_ids, ratings, *,

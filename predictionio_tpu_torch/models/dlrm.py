@@ -3,7 +3,7 @@
 Port of ``predictionio_tpu/models/dlrm.py`` on one device (the card
 unless ``device="cpu"`` is asked for).  The expert-sharded lookup
 (``param_shardings``, ``sharded_embedding_lookup``) needs the mesh and is
-not ported: ``mesh`` must be None (ROADMAP Queue 1 item 10).  The
+not ported: ``mesh`` must be None (ROADMAP Queue 1 item 10b).  The
 numerics are the reference's:
 
 - init: the reference's ``jax.random`` tree drawn by
@@ -66,7 +66,7 @@ __all__ = ["DLRMConfig", "DLRMState", "RssState", "EmptyState",
 
 _INITIAL_ACCUMULATOR, _EPS = 0.1, 1e-7
 _NO_MESH = ("DLRM on a device mesh (the expert-sharded embedding lookup) "
-            "is not ported yet (ROADMAP Queue 1 item 10); pass mesh=None")
+            "is not ported yet (ROADMAP Queue 1 item 10b); pass mesh=None")
 
 
 @dataclasses.dataclass

@@ -7,7 +7,8 @@ dataset lives on one device (the card unless the caller passes
 through autograd.  The loss is the reference's: softmax cross entropy
 weighted by sample plus ``reg·Σw²``, from zero init.  The update is
 ``optax.adam``'s (b1 0.9, b2 0.999, eps 1e-8, eps_root 0), written out
-so that its order of operations is optax's.  ``mesh`` must be None.
+so that its order of operations is optax's.  ``mesh`` must be None
+(ROADMAP Queue 1 item 10b).
 """
 
 from __future__ import annotations
@@ -74,8 +75,10 @@ def train(x: np.ndarray, y: np.ndarray, cfg: LogisticRegressionConfig,
     """``cfg.steps`` full-batch Adam steps at ``cfg.learning_rate`` on
     standardized features (constant features keep scale 1)."""
     if mesh is not None:
-        raise NotImplementedError("logistic regression on a device mesh "
-                                  "is not ported yet; pass mesh=None")
+        raise NotImplementedError(
+            "logistic regression on a device mesh (the put_sharded "
+            "batches) is not ported yet (ROADMAP Queue 1 item 10b); pass "
+            "mesh=None")
     dev = resolve_device(device)
     x = np.asarray(x, np.float32)
     n, d = x.shape

@@ -5,7 +5,7 @@ MLlib ``NaiveBayes.train`` as the classification template calls it).
 The per-class counts are one-hot products on the device the caller
 names (the card unless it passes ``device="cpu"``); the model keeps
 float32 tensors on that device.  One process and one device: ``mesh``
-must be None.
+must be None (ROADMAP Queue 1 item 10b).
 """
 
 from __future__ import annotations
@@ -46,8 +46,9 @@ class NaiveBayesModel:
 
 def _inputs(x, y, n_classes: int, mesh, device):
     if mesh is not None:
-        raise NotImplementedError("naive Bayes on a device mesh is not "
-                                  "ported yet; pass mesh=None")
+        raise NotImplementedError(
+            "naive Bayes on a device mesh (the put_sharded batches) is not "
+            "ported yet (ROADMAP Queue 1 item 10b); pass mesh=None")
     dev = resolve_device(device)
     xt = torch.as_tensor(np.asarray(x, np.float32), device=dev)
     yt = torch.as_tensor(np.asarray(y, np.int64), device=dev)

@@ -4,7 +4,7 @@ over the encoded items.
 
 Port of ``predictionio_tpu/models/two_tower.py`` on one device (the card
 unless ``device="cpu"`` is asked for); the mesh and ``param_shardings``
-are not ported (``mesh`` must be None).  The numerics are the
+are not ported (``mesh`` must be None: ROADMAP Queue 1 item 10b).  The numerics are the
 reference's:
 
 - init: the reference's ``jax.random`` tree drawn by
@@ -55,6 +55,9 @@ import torch
 from predictionio_tpu_torch.device import device as resolve_device
 from predictionio_tpu_torch.ops import threefry
 from predictionio_tpu_torch.ops.embedding import GatherRows
+
+_NO_MESH = ("two-tower on a device mesh (param_shardings) is not ported "
+            "yet (ROADMAP Queue 1 item 10b); pass mesh=None")
 
 __all__ = ["TwoTowerConfig", "TwoTowerState", "AdamState", "EmptyState",
            "init_params", "init_state", "train_step", "train_steps_fused",
@@ -168,8 +171,7 @@ def _zero_opt_state(params: Dict) -> Tuple:
 def init_state(cfg: TwoTowerConfig, mesh=None, *,
                device=None) -> TwoTowerState:
     if mesh is not None:
-        raise NotImplementedError("two-tower on a device mesh is not "
-                                  "ported yet; pass mesh=None")
+        raise NotImplementedError(_NO_MESH)
     params = init_params(cfg, device)
     return TwoTowerState(params=params, opt_state=_zero_opt_state(params),
                          step=0)
@@ -413,8 +415,7 @@ def train(
     )
 
     if mesh is not None:
-        raise NotImplementedError("two-tower on a device mesh is not "
-                                  "ported yet; pass mesh=None")
+        raise NotImplementedError(_NO_MESH)
     if data_source not in ("auto", "feeder", "numpy"):
         raise ValueError(f"data_source {data_source!r}: use auto, feeder "
                          "or numpy")

@@ -8,6 +8,6 @@ models' shuffled training batches.  :func:`load_library` compiles a
 source with g++ at first use into ``build/torch_native/``.
 """
 
-from predictionio_tpu_torch.native.build import load_library
+from predictionio_tpu_torch.native.build import load_library, native_available
 
-__all__ = ["load_library"]
+__all__ = ["load_library", "native_available"]

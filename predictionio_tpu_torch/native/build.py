@@ -34,7 +34,8 @@ from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 __all__ = ["SOURCE_DIR", "BUILD_DIR", "CXX_FLAGS", "source_path",
-           "library_path", "compile_command", "load_library"]
+           "library_path", "compile_command", "load_library",
+           "native_available"]
 
 SOURCE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_native"
@@ -113,3 +114,12 @@ def load_library(name: str, build_dir: Optional[Path] = None
             lib = ctypes.CDLL(str(out))
             _cache[key] = lib
         return lib
+
+
+def native_available(name: str) -> bool:
+    """Whether ``name``'s library builds and loads here."""
+    try:
+        load_library(name)
+    except (RuntimeError, OSError):
+        return False
+    return True

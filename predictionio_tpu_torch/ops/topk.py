@@ -5,7 +5,8 @@ programs (``einsum`` + ``lax.top_k``) become ``torch.matmul`` +
 ``torch.topk`` on whatever device the tensors live on; these are library
 paths in the reference too, not Pallas kernels.  Ids come back as int32,
 like ``lax.top_k``'s (``torch.topk`` returns int64).  The mesh-sharded
-``sharded_top_k`` arrives with the multi-chip slice.
+:func:`sharded_top_k` scores each shard with the fused top-k (kernel K3
+on the card) where the reference's shards take ``top_k_scores``.
 """
 
 from __future__ import annotations
@@ -15,8 +16,15 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["top_k_scores", "chunked_top_k", "host_top_k", "topk_mismatch",
-           "NEG_INF"]
+from predictionio_tpu_torch.parallel.compat import (
+    all_gather,
+    lane_outputs,
+    shard_map,
+)
+from predictionio_tpu_torch.parallel.mesh import PartitionSpec as P
+
+__all__ = ["top_k_scores", "chunked_top_k", "sharded_top_k", "host_top_k",
+           "topk_mismatch", "NEG_INF"]
 
 NEG_INF = -3.4e38
 
@@ -85,6 +93,56 @@ def chunked_top_k(
         best_s, pos = torch.topk(merged_s, k, dim=1)
         best_i = torch.gather(merged_i, 1, pos)
     return best_s, best_i
+
+
+def sharded_top_k(
+    mesh,
+    axis: str,
+    queries: torch.Tensor,   # [B, K] replicated
+    items,                   # ShardedTensor [N, K], dim 0 sharded on `axis`
+    k: int,
+    n_valid: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over item factors row-sharded on a mesh axis.
+
+    Each shard scores its N/shards rows and takes a local top-k with
+    :func:`~predictionio_tpu_torch.ops.fused_topk.fused_topk` (K3 on the
+    card), masking the rows at or past ``n_valid`` (the mesh padding a
+    blocked corpus carries at its tail: zero vectors that would outrank
+    genuinely negative scores), and offsets its ids by ``shard·per``.
+    The k·shards candidates are gathered in shard order onto the first
+    shard's device and reduced to the global top k by a stable sort, so
+    among equal scores the lower id comes first, as K3 ranks them.  A
+    slot a shard cannot fill keeps id -1 (never offset into a real id).
+    Returns ``([B, k] float32, [B, k] int32)`` on the first shard's
+    device, the same on every process of a gang.
+    """
+    # ops.fused_topk imports this module (NEG_INF)
+    from predictionio_tpu_torch.ops.fused_topk import fused_topk
+
+    n = items.shape[0]
+    n_shards = mesh.shape[axis]
+    if n % n_shards:
+        raise ValueError(f"pad catalog ({n}) to a multiple of {n_shards}")
+    per = n // n_shards
+    kk = min(k, per)
+
+    def local(axis_index, q, it):
+        shard = axis_index(axis)
+        nv = per if n_valid is None else \
+            max(0, min(n_valid - shard * per, per))
+        s, i = fused_topk(q.float().contiguous(), it, kk, n_valid=nv)
+        return s, torch.where(i >= 0, i + shard * per, i)
+
+    s_parts, i_parts = (lane_outputs(parts, mesh, axis) for parts in shard_map(
+        local, mesh=mesh, in_specs=(P(), P(axis)),
+        out_specs=(None, None))(queries, items))
+    dev = s_parts[0].device
+    all_s = all_gather(s_parts, mesh, dim=1, device=dev)
+    all_i = all_gather(i_parts, mesh, dim=1, device=dev)
+    top_s, pos = torch.sort(all_s, dim=1, descending=True, stable=True)
+    return (top_s[:, :k].contiguous(),
+            torch.gather(all_i, 1, pos[:, :k]).contiguous())
 
 
 def topk_mismatch(s, i, ref_s, ref_i, next_s=None, *, rtol: float = 1e-5,

@@ -55,6 +55,7 @@ __all__ = [
     "parse_plan",
     "install",
     "clear",
+    "active",
     "fault_point",
     "wrap_events",
     "wrap_instances",
@@ -198,6 +199,11 @@ def _current_plan() -> Optional[FaultPlan]:
         if _env_cache[0] != spec:
             _env_cache = (spec, parse_plan(spec))
         return _env_cache[1]
+
+
+def active() -> bool:
+    """Whether a fault plan is installed or set by ``PIO_FAULTS``."""
+    return _current_plan() is not None
 
 
 def fault_point(name: str) -> None:

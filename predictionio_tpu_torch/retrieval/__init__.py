@@ -3,8 +3,9 @@
 Port of ``predictionio_tpu/retrieval/__init__.py``.  The rungs:
 
 1. **Exact** (``retrieval/exact.py``): ``host`` (numpy), ``device`` (one
-   matmul + top-k on the card) and ``chunked`` (the fused top-k kernel,
-   K3).
+   matmul + top-k on the card), ``chunked`` (the fused top-k kernel, K3)
+   and ``sharded`` (K3 on every shard of a mesh-sharded corpus, staged by
+   :meth:`Retriever.maybe_shard` at model load).
 2. **IVF** (``retrieval/ivf.py``): a train-time k-means coarse index,
    versioned with the generation by a corpus fingerprint (an index that
    does not match the served vectors is dropped and counted).
@@ -17,8 +18,10 @@ Port of ``predictionio_tpu/retrieval/__init__.py``.  The rungs:
 The routing is the reference's, knob for knob:
 
 - ``PIO_RETRIEVAL_RUNG`` — auto|host|device|chunked|sharded|ivf|ivf_pq|
-  pq_flat (force); ``sharded`` is not ported yet and serves exact-device,
-  as the reference does for a corpus that is not mesh-sharded
+  pq_flat (force); ``sharded`` on a corpus that is not mesh-sharded
+  serves exact-device, as the reference does
+- ``PIO_SERVE_SHARD_ABOVE`` — ``maybe_shard`` row-shards a corpus of more
+  than this many items over the serving mesh (default 1,000,000)
 - ``PIO_SERVE_HOST_MACS`` — host fast path when B·N·D (IVF/PQ: the rows
   or code lookups actually scored) is at or below this (default 2e8)
 - ``PIO_SERVE_CHUNK_ABOVE`` — chunked rung above this many items
@@ -55,6 +58,12 @@ import torch
 from predictionio_tpu_torch.device import device as resolve_device
 from predictionio_tpu_torch.obs import get_registry, span
 from predictionio_tpu_torch.obs.waterfall import record_stage
+from predictionio_tpu_torch.parallel.mesh import (
+    AXIS_DATA,
+    PartitionSpec,
+    ShardedTensor,
+    put_sharded,
+)
 from predictionio_tpu_torch.retrieval import exact as _exact
 from predictionio_tpu_torch.retrieval.ivf import (
     IVFIndex,
@@ -92,8 +101,6 @@ RUNGS = ("host", "device", "chunked", "sharded", "ivf", "ivf_pq",
 # Rungs that honor a per-request exclude mask (everything else pins the
 # query to an exact rung — a blacklisted id must never be returned).
 EXCLUDE_RUNGS = ("host", "device", "chunked")
-# Rungs of the reference that this port does not have yet.
-_UNPORTED_RUNGS = ("sharded",)
 
 
 def _env_int(name: str, default: int) -> int:
@@ -185,6 +192,21 @@ class Retriever:
 
     # -- corpus staging -----------------------------------------------------
 
+    @property
+    def vecs(self):
+        """The corpus array currently backing retrieval (numpy, or the
+        mesh-sharded :class:`~predictionio_tpu_torch.parallel.mesh.
+        ShardedTensor` :meth:`maybe_shard` last staged)."""
+        return self._vecs
+
+    @property
+    def sharded(self) -> bool:
+        v = self._vecs
+        if not isinstance(v, ShardedTensor):
+            return False
+        axis = v.spec[0] if v.spec else None
+        return axis is not None and v.shape[0] % v.mesh.shape[axis] == 0
+
     def host_vecs(self) -> np.ndarray:
         """[n_items, D] float32 numpy copy (trimmed of padding rows)."""
         if self._host is None:
@@ -192,20 +214,53 @@ class Retriever:
                 if self._host is None:
                     src = self._host_fn() if self._host_fn is not None \
                         else self._vecs
+                    if isinstance(src, ShardedTensor):
+                        src = src.to_host()
                     self._host = np.ascontiguousarray(
                         np.asarray(src, dtype=np.float32)[: self.n_items])
         return self._host
 
     def device_vecs(self) -> torch.Tensor:
-        """The corpus on ``self.device`` — staged ONCE, reused across
-        requests."""
+        """The whole corpus on ``self.device`` — staged ONCE, reused
+        across requests (from the host copy when the served corpus is
+        mesh-sharded)."""
         if self._dev is None:
+            src = self.host_vecs() if self.sharded else self._vecs
             with _exact.SERVE_CACHE_LOCK:
                 if self._dev is None:
                     self._dev = torch.as_tensor(
-                        np.require(self._vecs, np.float32, ("C", "W")),
+                        np.require(src, np.float32, ("C", "W")),
                         device=self.device)
         return self._dev
+
+    def maybe_shard(self, mesh, *, axis: Optional[str] = None) -> bool:
+        """Row-shard the corpus over ``mesh`` at model-load time.
+
+        The post_load hook's contract: above ``PIO_SERVE_SHARD_ABOVE``
+        items the corpus is padded HOST-side to a multiple of the axis
+        size (a device-side pad would stage the whole corpus on one
+        device first) and placed shard by shard; predict then routes
+        through the sharded rung.  Returns True when the corpus was
+        (re)sharded.
+        """
+        if mesh is None:
+            return False
+        axis = axis or AXIS_DATA
+        if axis not in mesh.shape:
+            return False
+        if self.n_items <= _env_int("PIO_SERVE_SHARD_ABOVE", 1_000_000):
+            return False
+        host = self.host_vecs()
+        d = mesh.shape[axis]
+        pad = (-host.shape[0]) % d
+        vecs = np.pad(host, ((0, pad), (0, 0))) if pad else host
+        self._vecs = put_sharded(vecs, mesh, PartitionSpec(axis))
+        self._dev = None
+        self._cache = {}
+        # The f32 re-rank staging may hold the pre-shard device copy —
+        # drop it so the old whole-corpus buffer can free.
+        self._rerank_dev = {}
+        return True
 
     # -- IVF / PQ lifecycle --------------------------------------------------
 
@@ -362,9 +417,7 @@ class Retriever:
                     "exclude mask for corpus %r; serving exact", forced,
                     self.name)
                 forced = "auto"
-            if forced in _UNPORTED_RUNGS:
-                # The reference serves a corpus that is not mesh-sharded
-                # exact-device; the port has no sharded corpora yet.
+            if forced == "sharded" and not self.sharded:
                 logger.warning("PIO_RETRIEVAL_RUNG=sharded but corpus %r "
                                "is not mesh-sharded; serving exact-device",
                                self.name)
@@ -408,6 +461,8 @@ class Retriever:
             return self._finish_plan("ivf", b, k)
         if work <= host_macs:
             return self._finish_plan("host", b, k)
+        if self.sharded:
+            return self._finish_plan("sharded", b, k)
         if self.n_items > _env_int("PIO_SERVE_CHUNK_ABOVE", 2_000_000):
             return self._finish_plan("chunked", b, k)
         return self._finish_plan("device", b, k)
@@ -520,7 +575,9 @@ class Retriever:
             exclude = np.concatenate(
                 [exclude, np.zeros((len(qp) - b, exclude.shape[1]),
                                    dtype=bool)])
-        if p.rung == "chunked":
+        if p.rung == "sharded":
+            s, i = _exact.exact_sharded(qp, self._vecs, self.n_items, p.k)
+        elif p.rung == "chunked":
             s, i = _exact.exact_chunked(qp, self.device_vecs(),
                                         self.n_items, p.k, exclude=exclude)
         else:

@@ -1,4 +1,4 @@
-"""Exact retrieval rungs — host, single-device, chunked.
+"""Exact retrieval rungs — host, single-device, chunked, mesh-sharded.
 
 Port of ``predictionio_tpu/retrieval/exact.py``.  Every rung returns the
 same answer (the true top-k id set, scores within float tolerance); they
@@ -12,11 +12,13 @@ differ only in where the work runs and what memory it touches:
   block; a request that carries an exclude mask takes the
   ``chunked_top_k`` scan instead (the kernel takes no mask), bounded at
   [B, chunk] score memory.
+- ``sharded`` — a corpus row-sharded over a mesh axis: K3 on every
+  shard, then a tiny merge of the k·shards candidates
+  (:func:`~predictionio_tpu_torch.ops.topk.sharded_top_k`).
 
 PyTorch runs eagerly, so there is no compiled-program cache; the
 caller-owned ``cache`` dict keeps only request-invariant device state
-(the corpus-padding mask row).  The mesh-sharded rung arrives with the
-multi-chip slice.
+(the corpus-padding mask row).
 """
 
 from __future__ import annotations
@@ -31,10 +33,12 @@ from predictionio_tpu_torch.ops.fused_topk import fused_topk
 from predictionio_tpu_torch.ops.topk import (
     chunked_top_k,
     host_top_k,
+    sharded_top_k,
     top_k_scores,
 )
 
-__all__ = ["exact_host", "exact_device", "exact_chunked", "SERVE_CACHE_LOCK"]
+__all__ = ["exact_host", "exact_device", "exact_chunked", "exact_sharded",
+           "SERVE_CACHE_LOCK"]
 
 # Guards cold-path serving cache builds (device staging): a burst of
 # concurrent first requests on the threaded server must not each stage
@@ -112,3 +116,14 @@ def exact_chunked(queries: np.ndarray, items_dev: torch.Tensor, n_items: int,
     return _to_host(*chunked_top_k(q, items_dev, k, chunk=min(chunk, n),
                                    n_valid=n_items,
                                    exclude=_exclude_on(exclude, n, dev)))
+
+
+def exact_sharded(queries: np.ndarray, items_sharded, n_items: int, k: int
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """Mesh-sharded exact: a local score + top-k on every shard, then a
+    tiny merge of the candidates.  ``items_sharded`` is a
+    :class:`~predictionio_tpu_torch.parallel.mesh.ShardedTensor` whose
+    dim-0 spec names a mesh axis (the facade stages it that way)."""
+    mesh, axis = items_sharded.mesh, items_sharded.spec[0]
+    return _to_host(*sharded_top_k(mesh, axis, torch.from_numpy(queries),
+                                   items_sharded, k, n_valid=n_items))

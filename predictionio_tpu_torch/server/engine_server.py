@@ -217,7 +217,9 @@ class EngineServer:
 
     ``device`` is where models stage their tensors: the CUDA card by
     default, the CPU only when ``"cpu"`` is passed (the constructor
-    raises when CUDA is absent otherwise).  ``storage`` is the
+    raises when CUDA is absent otherwise).  ``mesh_spec`` (or env
+    ``PIO_MESH``) builds the serving mesh over that device's kind, which
+    a model's ``post_load`` may shard over.  ``storage`` is the
     :class:`~predictionio_tpu_torch.data.storage.Storage` the instance
     was persisted to.  ``instance_id`` pins the engine instance served
     (``pio deploy --engine-instance-id``); by default the latest
@@ -241,6 +243,7 @@ class EngineServer:
         port: int = 8000,
         *,
         device=None,
+        mesh_spec: Optional[str] = None,
         instance_id: Optional[str] = None,
         plugins: Optional[PluginManager] = None,
         scheduler_config: Optional[SchedulerConfig] = None,
@@ -250,7 +253,8 @@ class EngineServer:
         self.variant = variant
         self.storage = storage
         self.requested_instance_id = instance_id
-        self.ctx = RuntimeContext.create(storage=storage, device=device)
+        self.ctx = RuntimeContext.create(storage=storage, device=device,
+                                         mesh_spec=mesh_spec)
         self.host = host
         self.port = port
         self.stats = _QueryMetrics()

@@ -211,6 +211,10 @@ class ServingScheduler:
 
     # -- the per-request path ----------------------------------------------
 
+    def models(self) -> List[str]:
+        """The registered model lanes, sorted."""
+        return sorted(self._lanes)
+
     def submit_and_wait(self, model: str, query: Any) -> Any:
         """Admit one query and block until its batch answers (or sheds).
         The generation the dispatch served it from is stamped on the

@@ -188,11 +188,11 @@ class NaiveBayesAlgorithm(Algorithm):
         if p.modelType == "gaussian":
             model = nb_lib.train_gaussian(
                 prepared_data.x, prepared_data.y, len(prepared_data.classes),
-                device=ctx.device)
+                mesh=ctx.mesh, device=ctx.device)
         else:
             model = nb_lib.train_multinomial(
                 prepared_data.x, prepared_data.y, len(prepared_data.classes),
-                alpha=p.lambda_, device=ctx.device)
+                alpha=p.lambda_, mesh=ctx.mesh, device=ctx.device)
         return NBModelWrapper(model=model, classes=prepared_data.classes,
                               attrs=prepared_data.attrs)
 
@@ -235,7 +235,7 @@ class LRAlgorithm(Algorithm):
             n_classes=len(prepared_data.classes), reg=p.regParam,
             learning_rate=p.stepSize, steps=p.maxIter, seed=p.seed)
         model = lr_lib.train(prepared_data.x, prepared_data.y, cfg,
-                             device=ctx.device)
+                             mesh=ctx.mesh, device=ctx.device)
         return LRModelWrapper(model=model, classes=prepared_data.classes,
                               attrs=prepared_data.attrs)
 

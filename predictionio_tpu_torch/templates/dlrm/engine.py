@@ -17,7 +17,7 @@ fusion); ``DLRMAlgorithm.warm_start`` is the refresh loop's delta warm
 start, continuing the carried train state on the delta window.  The
 model's state lives on the serving device and travels as host numpy in
 its pickle.  Not ported: the expert-sharded lookup over a mesh (ROADMAP
-Queue 1 item 10).
+Queue 1 item 10b).
 """
 
 from __future__ import annotations
@@ -224,7 +224,8 @@ class DLRMAlgorithm(Algorithm):
             seed=p.seed if p.seed is not None else ctx.seed,
         )
         state = dlrm_lib.train(prepared_data.dense, prepared_data.cat,
-                               prepared_data.labels, cfg, device=ctx.device)
+                               prepared_data.labels, cfg, mesh=ctx.mesh,
+                               device=ctx.device)
         return DLRMModelWrapper(state=state, cfg=cfg, user_vocab=p.userVocab,
                                 item_vocab=p.itemVocab,
                                 n_dense=prepared_data.n_dense,
@@ -283,7 +284,7 @@ class DLRMAlgorithm(Algorithm):
         # changes it: prev_model keeps serving, and is the baseline above.
         state = dlrm_lib.train(prepared_delta.dense, prepared_delta.cat,
                                prepared_delta.labels, cfg,
-                               warm_state=prev_model.state,
+                               mesh=ctx.mesh, warm_state=prev_model.state,
                                device=ctx.device)
         loss_after = self._sample_logloss(state, cfg, sd, sc, sy)
         tol = getattr(warm, "eval_tolerance", 0.1)

@@ -231,7 +231,7 @@ class ECommAlgorithm(Algorithm):
             prepared_data.weights,
             n_users=len(prepared_data.user_index),
             n_items=len(prepared_data.item_index),
-            config=cfg, device=ctx.device)
+            config=cfg, mesh=ctx.mesh, device=ctx.device)
         out = ECommModel(
             user_factors=model.user_factors,
             item_factors=model.item_factors,

@@ -410,7 +410,14 @@ class ALSModelWrapper:
     def post_load(self, ctx: RuntimeContext) -> None:
         """Serving-time hook: take the device the server runs on, the
         event store fold-in reads and, where the storage has one, the
-        shared KV of solved factors (all transient, never pickled)."""
+        shared KV of solved factors (all transient, never pickled).
+
+        With a serving mesh (``ctx.mesh``) the retriever row-shards the
+        item corpus over it (:meth:`Retriever.maybe_shard`, above
+        ``PIO_SERVE_SHARD_ABOVE`` items), so predict routes through the
+        sharded rung.  The user factors stay on the host, where the
+        query rows are gathered, and each query batch is replicated to
+        every shard."""
         self._device = ctx.device
         store = getattr(ctx, "event_store", None)
         if store is not None:
@@ -421,6 +428,9 @@ class ALSModelWrapper:
                 self._shared_kv = storage.get_kv()
             except Exception:
                 self._shared_kv = None
+        mesh = getattr(ctx, "mesh", None)
+        if mesh is not None:
+            self.retriever().maybe_shard(mesh)
 
     def retriever(self) -> Retriever:
         """THE serving route to the item corpus — one per loaded
@@ -692,6 +702,7 @@ class ALSAlgorithm(Algorithm):
             n_users=len(prepared_data.user_index),
             n_items=n_items,
             config=cfg,
+            mesh=ctx.mesh,
             device=ctx.device,
             checkpoint_dir=(os.path.join(ck_dir, "als") if ck_dir else None),
             save_every=ck_every,

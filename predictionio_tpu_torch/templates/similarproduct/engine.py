@@ -330,7 +330,7 @@ class ALSAlgorithm(Algorithm):
             prepared_data.user_ids, prepared_data.item_ids, None,
             n_users=len(prepared_data.user_index),
             n_items=len(prepared_data.item_index),
-            config=cfg, device=ctx.device)
+            config=cfg, mesh=ctx.mesh, device=ctx.device)
         f = model.item_factors
         norms = np.linalg.norm(f, axis=1, keepdims=True)
         f = f / np.where(norms < 1e-9, 1.0, norms)

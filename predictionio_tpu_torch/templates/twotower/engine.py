@@ -352,7 +352,7 @@ class TwoTowerAlgorithm(Algorithm):
         cfg = self._config(ctx, len(prepared_data.user_index),
                            len(prepared_data.item_index))
         state = tt_lib.train(prepared_data.user_ids, prepared_data.item_ids,
-                             cfg, device=ctx.device)
+                             cfg, mesh=ctx.mesh, device=ctx.device)
         return self._wrap(ctx, state, cfg, prepared_data.user_index,
                           prepared_data.item_index,
                           len(prepared_data.user_ids))
@@ -416,8 +416,8 @@ class TwoTowerAlgorithm(Algorithm):
         sample = rng.choice(delta_n, size=min(delta_n, 1024), replace=False)
         loss_before = tt_lib.eval_loss(state.params, uids[sample],
                                        iids[sample], cfg)
-        trained = tt_lib.train(uids, iids, cfg, warm_state=state,
-                               device=ctx.device)
+        trained = tt_lib.train(uids, iids, cfg, mesh=ctx.mesh,
+                               warm_state=state, device=ctx.device)
         loss_after = tt_lib.eval_loss(trained.params, uids[sample],
                                       iids[sample], cfg)
         tol = getattr(warm, "eval_tolerance", 0.1)

@@ -301,7 +301,10 @@ def load_models(engine: Engine, instance: EngineInstance,
                 ctx: RuntimeContext) -> List[Any]:
     """Load the models of a COMPLETED instance (reference: CreateServer
     model loading / PersistentModelLoader), then run each model's
-    ``post_load(ctx)`` hook — where a model takes its serving device."""
+    ``post_load(ctx)`` hook — where a model takes its serving device
+    and, with ``ctx.mesh``, re-lays itself out over the mesh (the
+    recommendation corpus row-shards).  A failed hook is logged and the
+    model serves with the layout it loaded with."""
     blob = ctx.storage.get_models().get(instance.id)
     if blob is None:
         raise WorkflowError(f"No model data for engine instance {instance.id}.")

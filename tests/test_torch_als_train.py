@@ -199,9 +199,15 @@ def test_all_finite_on_tensors_arrays_and_trees():
 def test_one_device_only_and_card_by_default(monkeypatch):
     users, items, ratings = _ratings()
     cfg = port_als.ALSConfig(rank=4, iterations=1)
+    # A mesh trains (tests/test_torch_als_mesh.py) within one process; a
+    # mesh whose shards span two processes is refused.
+    from predictionio_tpu_torch.parallel.mesh import Mesh
+
+    two_processes = Mesh(np.array([CPU, CPU], dtype=object), ("data",),
+                         np.array([0, 1]))
     with pytest.raises(NotImplementedError, match="mesh"):
         port_als.train_als(users, items, ratings, N_USERS, N_ITEMS, cfg,
-                           mesh=object(), device=CPU)
+                           mesh=two_processes, device=CPU)
     # bucketing on the training device is ported: on the CPU it trains
     # what the host route trains
     on_dev = port_als.train_als(users, items, ratings, N_USERS, N_ITEMS,

@@ -230,13 +230,28 @@ def test_status(clean_storage, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["train", "--mesh", "data=8"],
+    ["train", "--mesh", "data=8", "--device", "cpu"],
     ["eval", "a:b", "c:d", "--mesh", "x"]])
-def test_flags_without_substrate_are_rejected(clean_storage, capsys, argv):
+def test_flags_without_substrate_are_rejected(clean_storage, capsys,
+                                              tmp_path, argv):
+    """``--mesh`` has its substrate now (``parallel/``): a mesh train
+    prints the reference's ``Mesh:`` line and trains, and a spec that
+    does not parse ends the verb with the reference's message before
+    anything loads."""
+    if argv[0] == "train":
+        run(capsys, "app", "new", "qsapp")
+        run(capsys, "import", "--appid", "1", "--input",
+            str(_write_events(tmp_path / "ev.jsonl", n=120)))
+        ej = _variant(tmp_path / "engine.json", rank=4, numIterations=2)
+        code, out = run(capsys, *argv, "--engine-json", str(ej))
+        assert code == 0
+        assert "Mesh: {'data': 8} over 8 device(s)" in out
+        assert "Training completed" in out
+        return
     with pytest.raises(SystemExit) as e:
         main(argv)
-    assert e.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err
+    assert e.value.code == 1
+    assert "Bad mesh spec token 'x'" in capsys.readouterr().err
 
 
 def _fleet_lines(text, url):

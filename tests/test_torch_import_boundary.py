@@ -111,6 +111,13 @@ REMOTE_SLICE = (
     "data.storage.remote", "data.storage", "cli.main", "obs.runtime",
     "entry",
 )
+# ... and every module of the device mesh: ``parallel/`` and the modules
+# that read the mesh.
+MESH_SLICE = (
+    "parallel", "parallel.mesh", "parallel.compat", "parallel.distributed",
+    "parallel.collectives", "ops.topk", "retrieval.exact", "retrieval",
+    "models.als", "controller.base", "templates.recommendation.engine",
+)
 
 
 def _forbidden(module: str) -> bool:
@@ -128,7 +135,7 @@ def test_importing_the_port_loads_no_jax():
     missing = [m for m in TRAINING_SLICE + IVF_PQ_SLICE + CLI_SLICE
                + EVENT_SERVER_SLICE + SCHEDULER_SLICE + TWO_TOWER_SLICE
                + DLRM_SLICE + TRACE_SLICE + OBS_SLICE + FLEET_SLICE
-               + REMOTE_SLICE
+               + REMOTE_SLICE + MESH_SLICE
                if f"predictionio_tpu_torch.{m}" not in probe["modules"]]
     assert missing == []
     assert probe["bad"] == [], f"the port pulled in {probe['bad']}"

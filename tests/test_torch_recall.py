@@ -24,6 +24,8 @@ import dataclasses
 import os
 from types import SimpleNamespace
 
+import time
+
 import numpy as np
 import pytest
 
@@ -293,9 +295,18 @@ def test_pq_flat_recall_through_the_port_server(tmp_path, monkeypatch):
             st, _ = srv.handle("POST", "/queries.json",
                                f'{{"user": "u{u}", "num": 10}}'.encode())[:2]
             assert st == 200
-        while srv.recall.drain_once():
-            pass
-        doc = srv.handle("GET", "/quality.json", b"")[1]["recall"]
+        # The monitor's own thread drains the queue too: a capture it has
+        # taken but not yet scored is in neither the queue nor the doc,
+        # so wait (bounded) until every capture is scored.
+        deadline = time.monotonic() + 10.0
+        while True:
+            while srv.recall.drain_once():
+                pass
+            doc = srv.handle("GET", "/quality.json", b"")[1]["recall"]
+            if doc["rungs"]["pq_flat"]["nFast"] >= 40 \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(0.02)
     finally:
         srv.stop()
     row = doc["rungs"]["pq_flat"]

@@ -205,9 +205,8 @@ def test_metric_families_match_reference(corpus):
 def test_retriever_refuses_unported_structures():
     """An IVF index and PQ codes are accepted now; a structure is refused
     (dropped, counted, serving exact) only when its fingerprint does not
-    match the served corpus.  Only the sharded rung is still unported: a
-    forced ``sharded`` serves exact-device, as the reference does for a
-    corpus that is not mesh-sharded."""
+    match the served corpus.  A forced ``sharded`` on a corpus that is
+    not mesh-sharded serves exact-device, as the reference does."""
     rng = np.random.default_rng(4)
     vecs = rng.standard_normal((600, 8)).astype(np.float32)
     ivf = build_ivf(vecs, nlist=6, force=True)
