@@ -94,8 +94,10 @@ cannot be imported, or when any phase fails.  Phases, in order:
    (0.05) of the baseline on both windows, at least 50 captures scored,
    drift not tripped and gate.rollback false.
 12. cli loop — the engine.json loop across processes at the MovieLens-1M
-   shape (1,000,209 seeded rate events, 6,040 users x 3,706 Zipf items,
-   half stars, and buys by 5 % of the users) on the default sqlite +
+   catalog (6,040 users x 3,706 Zipf items; 400,000 seeded rate events,
+   cut from ML-1M's 1,000,209 for the time limit, which took the phase
+   from 142.3 s to PERF.md §4's; half stars, and buys by 5 % of the
+   users) on the default sqlite +
    localfs storage of a fresh PIO_HOME: JSONL → `pio app new` and `pio
    import` as subprocesses; `pio train` (the examples' engine.json with
    the port's engineFactory, rank 64, 10 iterations) in-process through
@@ -114,7 +116,8 @@ cannot be imported, or when any phase fails.  Phases, in order:
    shipped examples/<t>/engine.json with the port's engineFactory, on the
    default sqlite + localfs storage of a fresh PIO_HOME, at phase 12's
    shape, the events written in-process through insert_columnar:
-   13a similarproduct: 1,001,719 views, a $set of 1-3 of the 18
+   13a similarproduct: phase 12's 401,510 events as views, a $set of 1-3
+   of the 18
    MovieLens-1M genres on every item, an $unset of 5 items' genres and a
    $delete of 5 items; K1 and K2 must launch; the item factors held by
    entity id against run_train on the same rows in a MEMORY store, whose
@@ -140,8 +143,8 @@ cannot be imported, or when any phase fails.  Phases, in order:
    top two differ by more than NEAR_TIE); `pio eval` (3 candidates,
    evalK 3), its accuracy equal to a plain float64 recount.  Each part
    logs its writes, train wall and read, launches and client p50.
-14. eventserver — the event server on phase 12's first 300,000 events
-   (cut from all 1,000,209 for the time limit) and storage:
+14. eventserver — the event server on phase 12's first 100,000 events
+   (cut from 300,000 for the time limit) and storage:
    `pio app new` and `pio eventserver --port 0` as subprocesses (/ready
    must answer ready); every one of them posted by the port's
    sdk.EventClient as POST /batch/events.json at the reference's cap of
@@ -170,7 +173,7 @@ cannot be imported, or when any phase fails.  Phases, in order:
    --native` as a subprocess on the same stored instance, on the card,
    answering 256 of them as the Python path did (K3 counted there), POST
    /stop exit 0; `pio eventserver --native` taking phase 12's first
-   100,000 events through the SDK, `pio export` equal to them as a
+   50,000 events (cut from 100,000 for the time limit) through the SDK, `pio export` equal to them as a
    multiset, SIGTERM exit 0; within 120 s.  The quality and recall
    monitors run at their shipped rates (0.1, 0.05) throughout; the
    coalesced drive's waterfall (pio_serve_stage_ms, p50/p99/mean a
@@ -184,7 +187,7 @@ cannot be imported, or when any phase fails.  Phases, in order:
 16. refresh — phase 12's sqlite + localfs store (kept alive for this
    phase) and its generation 1: `pio deploy` as a subprocess answers 64
    /queries.json (the baseline); 20,000 rate events stamped after the
-   watermark (2 % of the corpus; 200 new users, 100 new items); one
+   watermark (5 % of the corpus; 200 new users, 100 new items); one
    RefreshDaemon cycle with an HttpPromoter on that server must train
    warm and promote through POST /reload (generation 2; every row no
    delta event touched bitwise generation 1's; the 64 answers and 64 of
@@ -202,7 +205,8 @@ cannot be imported, or when any phase fails.  Phases, in order:
    /reload and rollback walls, client p50/p99 under load.
 17. twotower — the two-tower engine.  17a: two_tower.train at bench.py's
    shape (200,000 users x 100,000 items, embed 64, hidden [128], out 64,
-   batch 1,024; 800,000 seeded interaction rows, 1 epoch) from numpy
+   batch 1,024; 400,000 seeded interaction rows, cut from 800,000 for
+   the time limit, 1 epoch) from numpy
    and from the native feeder, at K=1 and K=8 (one init outside the
    walls): examples/s, the pipeline probe's device_wait / h2d /
    host_wait / dispatch shares, peak device memory; each K=8 state
@@ -228,7 +232,7 @@ cannot be imported, or when any phase fails.  Phases, in order:
    K=1 and K=8 (one init outside the walls): examples/s, the probe's
    shares, peak device memory; each K=8 state equal to its K=1 state bit
    for bit; a NaN batch must raise TrainDiverged.  18b: phase 12's
-   1,000,209 (user, item) rate pairs written in-process as impressions
+   400,000 (user, item) rate pairs written in-process as impressions
    of a planted click model (hidden user and item factors and 4 dense
    features, about 25 % clicks) into a new app of phase 12's store; `pio
    train` in-process with the port's shipped dlrm engine.json; a
@@ -304,8 +308,9 @@ cannot be imported, or when any phase fails.  Phases, in order:
    second wave's bake; a plain rollout refused (exit 1, the reference's
    message); --resume finishes it; a second SIGTERM'd one --unwind'd,
    its instances back on the previous generation.  21d (beside 21a-c):
-   `pio train --follow --promote-url U5,U6` on phase 12's store: a
-   20,000-event delta trains warm (host solves) and rolls across both,
+   `pio train --follow --promote-url U5,U6` on phase 12's store: an
+   8,000-event delta (2 % of the store) trains warm (host solves) and
+   rolls across both,
    which then serve the warm factors' plain top-10; a delta over
    PIO_REFRESH_MAX_DELTA_FRACTION falls back to a full retrain (K1, K2)
    rolled across both; pio_refresh_staleness_s from the older served
@@ -320,8 +325,8 @@ cannot be imported, or when any phase fails.  Phases, in order:
    `pio storageserver` (a secret, a free port) hosts it in a process of
    its own.  22a: `pio template get recommendation` scaffolds the
    engine.json (the port's engineFactory; appName and rank 64 set),
-   phase 12's first 200,000 events go into an app of their own (cut for
-   the time limit; in that app sqlite's entity-index read and the wire's
+   phase 12's first 100,000 events go into an app of their own (cut from
+   200,000 for the time limit; in that app sqlite's entity-index read and the wire's
    event-time read give the same order), and `pio train` runs twice in
    this process: on sqlite, then with METADATA, EVENTDATA and MODELDATA
    on `type=pioserver`; K1 and K2 must launch in the second, and its
@@ -357,7 +362,32 @@ cannot be imported, or when any phase fails.  Phases, in order:
    answer within the training tolerance (ids equal except within a tie
    of that size); every retrieval on the `sharded` rung; K1, K2 and K3
    counted in the subprocesses.  Budget 90 s.
-24. report — one JSON line of per-kernel numbers, the card's name and
+24. mesh2 — the rest of the device mesh, after phase 23, every mesh 4
+   shards of the one card.  24a: two_tower.train(mesh=) at bench.py's
+   two-tower shape on data=2 x model=2 (tables row-sharded over model,
+   MLPs replicated, batches over data): one step's loss within rtol
+   1e-5, atol 1e-6 of the meshless step's (the reference's bound); 16
+   steps: per-step losses within 2^-8 relative and the tables within
+   2 x 16 x lr of the meshless train's, a second mesh train and a K=8
+   fused one torch.equal to the first; examples/s beside the meshless
+   train's.  24b: sharded_embedding_lookup torch.equal to the plain
+   gather, then dlrm.train(mesh=) at bench.py's DLRM shape on expert=4:
+   16 steps' parameters within 4e-3 of the meshless train's, a second
+   train torch.equal; examples/s.  24c: ring and Ulysses attention on
+   sequence=4 at B 1, S 8,192, H 8, D 64, causal and not, within rtol
+   1e-4, atol 1e-5 of local_attention, the gradients of a sum of squares
+   within rtol 1e-3, atol 1e-4; device ms of each.  24d: phase 17b's
+   two-tower generation under `pio deploy --mesh data=4`
+   (PIO_MESH_DEVICES four times the card, PIO_SERVE_SHARD_ABOVE=0): 64
+   /queries.json, each the plain top-k of the persisted vectors, every
+   retrieval `sharded`, 4 K3 launches a dispatch (counted in the deploy
+   process).  24e: 23b's data=4 ML-25M inputs under sweep checkpoints
+   every 2 sweeps: preempted after 2 chunks and resumed, and with one
+   chunk's factors made NaN (counted, replayed), each torch.equal to
+   23b's uninterrupted factors; K1 and K2 launched.  24f: the port's
+   dryrun_multichip(4) on the card, its ALS part's K1 and K2 counted.
+   Budget 60 s.
+25. report — one JSON line of per-kernel numbers, the card's name and
    power limit, and the final status line.
 After phases 7, 11-14, 16, 17, 19b-e and 20 a line gives the seconds the
 quality and recall scorecards took in that phase's in-process trains.
@@ -2056,7 +2086,10 @@ def pq_dase_phase(dase, mods, card: str) -> dict:
 # Phase 12: the engine.json loop across processes, at the MovieLens-1M
 # shape (cut from ML-25M in depth only: a 25 M-event import through JSON
 # and sqlite would not fit the run's limit).
-ML1M_EVENTS, ML1M_USERS, ML1M_ITEMS = 1_000_209, 6_040, 3_706
+# The MovieLens-1M catalog (6,040 users x 3,706 items) at 400,000 of its
+# 1,000,209 ratings: cut in depth for the time limit (PERF.md §4); the
+# widths stay, and phase 21d's deltas keep their share of the store.
+ML1M_EVENTS, ML1M_USERS, ML1M_ITEMS = 400_000, 6_040, 3_706
 ML1M_BUYER_SHARE, ML1M_BUYS_EACH = 0.05, 5
 CLI_APP, CLI_QUERIES = "chipcli", 64
 CLI_FACTORY = "predictionio_tpu_torch.templates.recommendation:engine"
@@ -2082,7 +2115,7 @@ def cli_eval_params():
 
 def ml1m_events(seed: int):
     """The phase's events as columns, in the order they are written:
-    1,000,209 rate events (every user and item at least once, Zipf(1.25)
+    ML1M_EVENTS rate events (every user and item at least once, Zipf(1.25)
     items, half stars) and 5 buys each for 5 % of the users, sorted by
     the user id's string, with event times one second apart — the order
     the sqlite training scan reads them in (its entity index), so the
@@ -3270,8 +3303,8 @@ ES_APP = "chipes"
 ES_THREADS = 8            # client threads, each a contiguous share
 ES_BATCH = 50             # the reference's cap of /batch/events.json
 ES_REPLAYED = 3           # batches posted again under their tokens
-ES_EVENTS = 300_000       # phase 12's first events (all of ~30 % of its
-                          # users): cut from 1,000,209 for the time limit
+ES_EVENTS = 100_000       # phase 12's first events (all of ~25 % of its
+                          # users): cut from 300,000 for the time limit
 
 
 def es_batch(users, items, stars, times, lo: int, hi: int):
@@ -3587,7 +3620,8 @@ SCHED_CLIENTS = 64        # client threads, each on a keep-alive connection
 SCHED_PER_CLIENT = 32     # /queries.json each, every one for its own user
 SCHED_INLINE = 256        # of those queries through the inline path
 SCHED_NATIVE = 256        # ... and through `pio deploy --native`
-SCHED_EVENTS = 100_000    # phase 12's first events via `eventserver --native`
+SCHED_EVENTS = 50_000     # phase 12's first events via `eventserver
+#                           --native` (cut from 100,000 for the time limit)
 SCHED_LIMIT_S = 120.0     # the phase's wall-time budget
 SCHED_CLIENT_PROCS = 4    # client processes the client threads run in
 SCHED_STAGES = ("ingress", "bind", "cache", "queue_wait", "batch_wait",
@@ -4097,7 +4131,7 @@ def scheduler_phase(dev, seed: int, users_np, items_np, mods: dict,
 # Phase 16: staged reload, rollback and the ALS warm-start refresh, on
 # phase 12's sqlite + localfs store (its generation 1, rank 64, at the
 # MovieLens-1M shape: no import is repeated).
-REFRESH_DELTA = 20_000        # rate events stamped after the watermark: 2 %
+REFRESH_DELTA = 20_000        # rate events stamped after the watermark: 5 %
 REFRESH_NEW_USERS, REFRESH_NEW_ITEMS = 200, 100
 REFRESH_TOUCHED_USERS = 1_500  # existing users the delta touches
 REFRESH_QUERIES = 64
@@ -4556,7 +4590,7 @@ TT_USERS, TT_ITEMS = 200_000, 100_000       # bench.py's two-tower shape
 TT_EMBED, TT_HIDDEN, TT_OUT, TT_BATCH = 64, (128,), 64, 1024
 # bench.py's feeder rows, one epoch a run: the eager loop is host-bound
 # (PERF.md §5), and the smoke must end inside its time limit
-TT_ROWS, TT_EPOCHS = 800_000, 1
+TT_ROWS, TT_EPOCHS = 400_000, 1      # cut from 800,000 for the time limit
 TT_PIO_EPOCHS = 2     # 17b: the shipped engine.json's 10, cut for time
 TT_FUSED = 8
 TT_NAN_ROWS = 65_536                        # the injected-NaN run's rows
@@ -4859,6 +4893,8 @@ def two_tower_phase(dev, seed: int, loop: dict, mods: dict, card: str
         deploy_k3 = server.launches["fused_topk"]
         server = None
         out["launches"] = {"fused_topk": ft.LAUNCHES + deploy_k3}
+        # phase 24d serves 17b's generation over a mesh
+        loop.update(tt_engine_json=engine_json, tt_instance=inst1.id)
         # main path ends here
         if deploy_k3 < 2 * CLI_QUERIES or ft.LAUNCHES < 1:
             die(f"phase 17: K3 launched {deploy_k3} times in the deploy "
@@ -6363,8 +6399,8 @@ FLEET_G2_NOISE = 0.05          # G2 = G1 + this x N(0, 1/rank): a neighbour
 #                                generation, as a retrain is (the shadow
 #                                canary's overlap stays high)
 FLEET_DRIFT_SCALE = 4.0        # 21b's G3: G2's user vectors x4 (20d's fault)
-FLEET_DELTA = 20_000           # 21d: phase 16's delta shape (2 %)
-FLEET_DELTA2 = 30_000          # ... then over the fraction gate: fallback
+FLEET_DELTA = 8_000            # 21d: 2 % of phase 12's store, as phase 16's
+FLEET_DELTA2 = 12_000          # ... then over the fraction gate: fallback
 FLEET_MAX_DELTA_FRACTION = "0.025"
 FLEET_PROFILE_MS = 2000
 FLEET_WARM_S = 6.0             # 21a: traffic before the rollout starts
@@ -6542,8 +6578,16 @@ def fleet_phase(dev, seed: int, users_np, items_np, sched: dict,
     # sat at its floor (saturation_with_burn, fast burn 1.133) and the
     # fleet gate halted a healthy rollout; 21b's halt must come from the
     # quality gate.
+    # The drift gate's floor at 256 samples a window: at the default 100
+    # a healthy generation's live top-1 scores read PSI ~0.21 ± 0.07
+    # against its 256-user scorecard's 16 bins by sampling noise alone
+    # (15/100 + 15/256), so G2 tripped the 0.25 threshold right after
+    # its reload in about one run of three on the H100; at 256 the noise
+    # is ~0.12 ± 0.04, and 21b's x4 candidate (PSI ~5.6) still trips
+    # within its bake.
     env15 = proc_env(home15, PIO_RESULT_CACHE="0", PIO_QUALITY_SAMPLE="1",
-                     PIO_SLO_LATENCY_TARGET_MS="1000", PIO_QUALITY=None,
+                     PIO_SLO_LATENCY_TARGET_MS="1000",
+                     PIO_QUALITY_MIN_SAMPLES="256", PIO_QUALITY=None,
                      PIO_RECALL=None, PIO_RETAIN_PREVIOUS=None,
                      PIO_CANARY_QUERIES=None)
     env12 = proc_env(home12, PIO_RESULT_CACHE="0",
@@ -7280,8 +7324,9 @@ def admin_capture(engine_base, admin_base, users, work, home15,
 # on `type=pioserver`, behind a `pio storageserver` process over phase
 # 12's store.
 REMOTE_APP = "chipremote"
-REMOTE_EVENTS = 200_000        # phase 12's first events (cut for the time
-#                                limit: the wire reads ~12,000 events/s)
+REMOTE_EVENTS = 100_000        # phase 12's first events (cut from 200,000
+#                                for the time limit: the wire reads ~12,000
+#                                events/s)
 REMOTE_SECRET_BYTES = 16
 REMOTE_QUERIES = 64
 REMOTE_BREAKER = {"PIO_BREAKER_THRESHOLD": "2", "PIO_BREAKER_RECOVERY_S": "3"}
@@ -7781,7 +7826,7 @@ def mesh_train_phase(dev, seed: int, six: dict, mods, card: str) -> dict:
     for what in ("user_factors", "item_factors"):
         if not np.array_equal(getattr(model, what), getattr(again, what)):
             die(f"phase 23b: two mesh trains' {what} differ")
-    del inputs, again
+    del again
     err = 0.0
     for what in ("user_factors", "item_factors"):
         want = torch.from_numpy(getattr(six["model"], what))
@@ -7789,8 +7834,9 @@ def mesh_train_phase(dev, seed: int, six: dict, mods, card: str) -> dict:
             torch.from_numpy(getattr(model, what)), want, TRAIN_RTOL,
             scaled(TRAIN_ATOL, want),
             f"phase 23b: mesh {what} vs phase 6's meshless"))
+    # 24e trains these inputs again under checkpoints
     out = {"launches": launches, "prep_s": prep_s, "train_s": train_s,
-           "err": err}
+           "err": err, "inputs": inputs, "cfg": cfg, "model": model}
     log(f"phase 23b mesh train: ML-25M {ML25M_USERS}x{ML25M_ITEMS}, "
         f"{ML25M_RATINGS} ratings, rank {RANK}, {TRAIN_ITERS} iterations "
         f"on data={MESH_SHARDS} of one card, factors row-sharded, "
@@ -7992,6 +8038,511 @@ def mesh_phase(dev, seed: int, items_np, six: dict, loop: dict, mods,
             "err": rung["err"], "train": train}
 
 
+# Phase 24 ("mesh2"): the rest of the device mesh on the card, every
+# mesh 4 shards of the one card (``devices=[cuda:0] * 4``).  24a: the
+# two-tower train at bench.py's shape on data=2 x model=2; 24b: the
+# DLRM train at bench.py's DLRM shape on expert=4; 24c: ring and Ulysses
+# attention on sequence=4; 24d: phase 17b's two-tower generation under
+# `pio deploy --mesh data=4` (K3 on every shard); 24e: 23b's mesh ALS
+# train under sweep checkpoints (K1, K2 on every shard); 24f: the port's
+# `dryrun_multichip(4)`.  One card: the layouts and their numerics, no
+# gain across cards.
+MESH2_LIMIT_S = 60.0
+MESH2_STEPS = 16               # 24a, 24b: optimizer steps a train
+MESH2_LOSS_RTOL = 2.0 ** -8    # 24a: per-step losses vs the meshless train
+#                                (one bfloat16 ulp, the port's bound vs JAX)
+MESH2_TT_ATOL = 2 * MESH2_STEPS * 1e-3   # 24a: tables vs the meshless
+#                                train: the two moving a coordinate apart by
+#                                Adam's step (lr 1e-3) at every step
+MESH2_DLRM_ATOL = 4e-3         # 24b: parameters vs the meshless train: the
+#                                steps x lr 0.05 x one bfloat16 ulp (2^-8)
+MESH2_SEQ, MESH2_HEADS, MESH2_HEAD_DIM = 8_192, 8, 64
+MESH2_ATTN_RTOL, MESH2_ATTN_ATOL = 1e-4, 1e-5   # __graft_entry__.py:135-136
+MESH2_GRAD_RTOL, MESH2_GRAD_ATOL = 1e-3, 1e-4   # test_ring_attention.py:58
+MESH2_REPS = 5
+
+
+def mesh_blocks(state, leaves) -> list:
+    """The distinct blocks of a mesh state's params and optimizer
+    state, in a fixed order (``leaves``: the model's ``_leaves``)."""
+    from predictionio_tpu_torch.parallel.blocks import flat_blocks
+
+    opt = state.opt_state[0]
+    trees = [state.params, *(t for t in opt if isinstance(t, dict))]
+    return flat_blocks([x for tree in trees for x in leaves(tree)])
+
+
+def blocks_equal(a: list, b: list) -> bool:
+    import torch
+
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def mesh_two_tower_runs(dev, seed: int, card: str) -> dict:
+    """24a: ``two_tower.train(mesh=)`` at bench.py's two-tower shape on
+    data=2 x model=2: one step's loss against the meshless step's (rtol
+    1e-5, atol 1e-6, ``__graft_entry__.py:89-93``); MESH2_STEPS steps'
+    tables against the meshless train's (MESH2_TT_ATOL); a second mesh
+    train and a K=8 fused one ``torch.equal`` to the first; examples/s
+    beside the meshless train's."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.models import two_tower as tt
+    from predictionio_tpu_torch.parallel.mesh import (
+        PartitionSpec,
+        make_mesh,
+        put_sharded,
+    )
+
+    mesh = make_mesh({"data": 2, "model": 2}, devices=[dev] * MESH_SHARDS)
+    cfg = tt.TwoTowerConfig(
+        n_users=TT_USERS, n_items=TT_ITEMS, embed_dim=TT_EMBED,
+        hidden_dims=TT_HIDDEN, out_dim=TT_OUT, batch_size=TT_BATCH,
+        epochs=1, seed=seed)
+    rng = np.random.default_rng(seed + 241)
+    rows = MESH2_STEPS * TT_BATCH
+    users = rng.integers(0, TT_USERS, rows)
+    items = rng.integers(0, TT_ITEMS, rows)
+    init_m = tt.init_state(cfg, mesh)
+    init_1 = tt.init_state(cfg, device=dev)
+    batch = (users[:TT_BATCH].astype(np.int32),
+             items[:TT_BATCH].astype(np.int32),
+             np.ones(TT_BATCH, np.float32))
+    _, loss_m = tt.train_step(init_m, *(put_sharded(
+        a, mesh, PartitionSpec("data")) for a in batch), cfg)
+    _, loss_1 = tt.train_step(init_1, *(torch.from_numpy(a).to(dev)
+                                        for a in batch), cfg)
+    step_err = assert_close(loss_m, loss_1, 1e-5, 1e-6,
+                            "phase 24a: one step's loss vs meshless")
+    out = {"step_loss": float(loss_m), "step_loss_err": step_err}
+
+    real_step = tt.train_step
+
+    def run(losses=None, **kw):
+        if losses is not None:
+            def recording(*a):
+                st, loss = real_step(*a)
+                losses.append(float(loss))
+                return st, loss
+            tt.train_step = recording
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            state = tt.train(users, items, cfg, data_source="numpy", **kw)
+        finally:
+            tt.train_step = real_step
+        torch.cuda.synchronize()
+        return state, time.perf_counter() - t0
+
+    mesh_losses, plain_losses = [], []
+    first, out["first_s"] = run(mesh_losses, mesh=mesh, warm_state=init_m)
+    again, wall = run(mesh=mesh, warm_state=init_m)
+    fused, _ = run(mesh=mesh, warm_state=init_m, fuse_steps=TT_FUSED)
+    plain, _ = run(plain_losses, warm_state=init_1, device=dev)
+    _, plain_wall = run(warm_state=init_1, device=dev)
+    if first.step != MESH2_STEPS or len(mesh_losses) != MESH2_STEPS:
+        die(f"phase 24a: the mesh train took {first.step} steps")
+    loss_err = assert_close(
+        torch.tensor(mesh_losses), torch.tensor(plain_losses),
+        MESH2_LOSS_RTOL, 0.0, "phase 24a: per-step losses vs meshless")
+    ref = mesh_blocks(first, tt._leaves)
+    if not blocks_equal(ref, mesh_blocks(again, tt._leaves)):
+        die("phase 24a: two mesh trains differ")
+    if not blocks_equal(ref, mesh_blocks(fused, tt._leaves)):
+        die(f"phase 24a: the K={TT_FUSED} mesh train is not the K=1 one "
+            "bit for bit")
+    err, moved, total = 0.0, 0, 0
+    for name in ("user_embed", "item_embed"):
+        got = first.params[name].full()
+        err = max(err, assert_close(
+            got, plain.params[name], 0.0, MESH2_TT_ATOL,
+            f"phase 24a: {name} after {MESH2_STEPS} steps vs meshless"))
+        moved += int(((got - plain.params[name]).abs() > 1e-3).sum())
+        total += got.numel()
+    out.update(tables_err=err, loss_err=loss_err, apart=moved / total,
+               ex_per_s=rows / wall, plain_ex_per_s=rows / plain_wall)
+    log(f"phase 24a two-tower mesh: {TT_USERS}x{TT_ITEMS}, embed "
+        f"{TT_EMBED}, hidden {list(TT_HIDDEN)}, out {TT_OUT}, batch "
+        f"{TT_BATCH} on data=2 x model=2 of one card: one step's loss "
+        f"{out['step_loss']:.6f}, |vs meshless| {step_err:.3g} (rtol 1e-5, "
+        f"atol 1e-6); {MESH2_STEPS} steps: per-step losses vs meshless "
+        f"max |err| {loss_err:.3g} (rtol 2^-8), tables max |err| {err:.3g} "
+        f"(atol {MESH2_TT_ATOL:g}; a share {out['apart']:.3g} of the "
+        f"coordinates more than one Adam step (1e-3) apart), a second "
+        f"train and K="
+        f"{TT_FUSED} torch.equal; {out['ex_per_s']:.0f} ex/s (the first "
+        f"train, a loss read a step, {rows / out['first_s']:.0f}) vs "
+        f"meshless "
+        f"{out['plain_ex_per_s']:.0f} ex/s; card {card}")
+    del init_m, init_1, first, again, fused, plain, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_dlrm_runs(dev, seed: int, card: str) -> dict:
+    """24b: ``sharded_embedding_lookup`` ``torch.equal`` to the plain
+    gather, and ``dlrm.train(mesh=)`` at bench.py's DLRM shape on
+    expert=4: MESH2_STEPS steps' parameters against the meshless train's
+    (MESH2_DLRM_ATOL), a second mesh train ``torch.equal``, examples/s
+    beside the meshless train's."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.models import dlrm as dl
+    from predictionio_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh({"expert": MESH_SHARDS}, devices=[dev] * MESH_SHARDS)
+    cfg = dl.DLRMConfig(vocab_sizes=(DLRM_VOCAB,) * DLRM_FIELDS,
+                        n_dense=DLRM_DENSE, embed_dim=DLRM_EMBED,
+                        bottom_mlp=DLRM_BOTTOM, top_mlp=DLRM_TOP,
+                        batch_size=DLRM_BATCH, epochs=1, seed=seed)
+    rng = np.random.default_rng(seed + 242)
+    rows = MESH2_STEPS * DLRM_BATCH
+    dense = rng.standard_normal((rows, DLRM_DENSE)).astype(np.float32)
+    cat = rng.integers(0, DLRM_VOCAB, (rows, DLRM_FIELDS))
+    labels = (rng.random(rows) < DLRM_CTR).astype(np.float32)
+    init_m = dl.init_state(cfg, mesh)
+    init_1 = dl.init_state(cfg, device=dev)
+    idx = torch.from_numpy((cat[:DLRM_BATCH] + cfg.offsets[None, :])
+                           .astype(np.int32)).to(dev)
+    got = dl.sharded_embedding_lookup(mesh, init_m.params["embed"], idx)
+    if not torch.equal(got.full(), init_1.params["embed"][idx.long()]):
+        die("phase 24b: sharded_embedding_lookup differs from the plain "
+            "gather")
+
+    def run(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = dl.train(dense, cat, labels, cfg, data_source="numpy", **kw)
+        torch.cuda.synchronize()
+        return state, time.perf_counter() - t0
+
+    first, first_s = run(mesh=mesh, warm_state=init_m)
+    again, wall = run(mesh=mesh, warm_state=init_m)
+    plain, plain_wall = run(warm_state=init_1, device=dev)
+    if first.step != MESH2_STEPS:
+        die(f"phase 24b: the mesh train took {first.step} steps")
+    if not blocks_equal(mesh_blocks(first, dl._leaves),
+                        mesh_blocks(again, dl._leaves)):
+        die("phase 24b: two mesh trains differ")
+    err = 0.0
+    for a, b in zip(dl._leaves(first.params), dl._leaves(plain.params)):
+        err = max(err, assert_close(
+            a.full(), b, 0.0, MESH2_DLRM_ATOL,
+            f"phase 24b: parameters after {MESH2_STEPS} steps vs meshless"))
+    out = {"params_err": err, "ex_per_s": rows / wall,
+           "plain_ex_per_s": rows / plain_wall}
+    log(f"phase 24b dlrm mesh: {DLRM_FIELDS} fields x {DLRM_VOCAB} rows, "
+        f"{DLRM_DENSE} dense, embed {DLRM_EMBED}, bottom "
+        f"{list(DLRM_BOTTOM)}, top {list(DLRM_TOP)}, batch {DLRM_BATCH} "
+        f"on expert={MESH_SHARDS} of one card: the sharded lookup "
+        f"torch.equal to the plain gather; {MESH2_STEPS} steps: parameters "
+        f"vs meshless max |err| {err:.3g} (atol {MESH2_DLRM_ATOL}), a "
+        f"second train torch.equal; {out['ex_per_s']:.0f} ex/s (first "
+        f"train {rows / first_s:.0f}) vs meshless "
+        f"{out['plain_ex_per_s']:.0f} ex/s; card {card}")
+    del init_m, init_1, first, again, plain, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_attention_runs(dev, seed: int, card: str) -> dict:
+    """24c: ring and Ulysses attention on sequence=4 at B 1, S 8,192, H
+    8, D 64, causal and not: each within rtol 1e-4, atol 1e-5 of
+    ``local_attention``, the gradients of a sum of squares within rtol
+    1e-3, atol 1e-4 of its; device ms of each (forward)."""
+    import torch
+
+    from predictionio_tpu_torch.parallel.mesh import make_mesh
+    from predictionio_tpu_torch.parallel.ring import (
+        local_attention,
+        ring_attention,
+        ulysses_attention,
+    )
+
+    mesh = make_mesh({"sequence": MESH_SHARDS}, devices=[dev] * MESH_SHARDS)
+    g = torch.Generator(device=dev).manual_seed(seed + 243)
+    qkv = [torch.randn(1, MESH2_SEQ, MESH2_HEADS, MESH2_HEAD_DIM,
+                       generator=g, device=dev) for _ in range(3)]
+    kinds = {"ring": ring_attention, "ulysses": ulysses_attention}
+    out = {"rows": [], "err": 0.0, "grad_err": 0.0}
+    for causal in (False, True):
+        row = {"causal": causal, "card": card}
+        full = local_attention(*qkv, causal=causal)
+        row["local_ms"] = time_single(
+            lambda: local_attention(*qkv, causal=causal), MESH2_REPS)
+        leaves = [x.detach().requires_grad_(True) for x in qkv]
+        (local_attention(*leaves, causal=causal) ** 2).sum().backward()
+        want = [x.grad for x in leaves]
+        for name, fn in kinds.items():
+            got = fn(*qkv, mesh, causal=causal).full()
+            out["err"] = max(out["err"], assert_close(
+                got, full, MESH2_ATTN_RTOL, MESH2_ATTN_ATOL,
+                f"phase 24c {name} causal={causal} vs local_attention"))
+            row[f"{name}_ms"] = time_single(
+                lambda: fn(*qkv, mesh, causal=causal), MESH2_REPS)
+            leaves = [x.detach().requires_grad_(True) for x in qkv]
+            (fn(*leaves, mesh, causal=causal).full() ** 2).sum().backward()
+            for x, w in zip(leaves, want):
+                out["grad_err"] = max(out["grad_err"], assert_close(
+                    x.grad, w, MESH2_GRAD_RTOL, MESH2_GRAD_ATOL,
+                    f"phase 24c {name} causal={causal} gradient vs "
+                    "local_attention's"))
+            del got, leaves
+        out["rows"].append(row)
+        log("phase 24c attention: " + json.dumps(row))
+        del full, want
+        torch.cuda.empty_cache()
+    log(f"phase 24c ring and Ulysses on sequence={MESH_SHARDS} of one card "
+        f"(B 1, S {MESH2_SEQ}, H {MESH2_HEADS}, D {MESH2_HEAD_DIM}): max "
+        f"|err| vs local_attention {out['err']:.3g} (rtol "
+        f"{MESH2_ATTN_RTOL}, atol {MESH2_ATTN_ATOL}), gradients "
+        f"{out['grad_err']:.3g} (rtol {MESH2_GRAD_RTOL}, atol "
+        f"{MESH2_GRAD_ATOL}); card {card}")
+    return out
+
+
+def mesh_serve_phase(dev, loop: dict, mods, card: str) -> dict:
+    """24d: phase 17b's two-tower generation under ``pio deploy --mesh
+    data=4`` (PIO_MESH_DEVICES: four shards of this card; the corpus
+    sharded, PIO_SERVE_SHARD_ABOVE=0, the host fast path off): 64
+    /queries.json, each the plain top-k of the persisted vectors; every
+    retrieval ``sharded``, MESH_SHARDS K3 launches each."""
+    import torch
+
+    from predictionio_tpu_torch.data.storage import get_storage, \
+        reset_storage
+    from predictionio_tpu_torch.workflow.core_workflow import load_models
+
+    ft, topk_mismatch = mods["ft"], mods["topk_mismatch"]
+    home = os.path.join(loop["work"], "home")
+    reset_storage()
+    with cli_env(home):
+        storage = get_storage()
+        inst = storage.get_engine_instances().get(loop["tt_instance"])
+        [w] = load_models(mods["tt_engine"](), inst,
+                          mods["RuntimeContext"](storage=storage,
+                                                 device=dev))
+        reset_storage()
+    d = None
+    try:
+        d = deployed(loop["tt_engine_json"],
+                     os.path.join(loop["work"], "deploy_24d.log"),
+                     extra=("--mesh", f"data={MESH_SHARDS}",
+                            "--engine-instance-id", inst.id),
+                     phase="phase 24d",
+                     env=proc_env(home, PIO_RETRIEVAL_RUNG=None,
+                                  PIO_SERVE_HOST_MACS="1",
+                                  PIO_SERVE_SHARD_ABOVE="0",
+                                  PIO_RESULT_CACHE="0", PIO_MESH=None,
+                                  PIO_COORDINATOR_ADDRESS=None,
+                                  PIO_MESH_DEVICES=",".join(
+                                      [str(torch.device(dev.type, 0))]
+                                      * MESH_SHARDS)))
+        if d.instance != inst.id:
+            die(f"phase 24d: the deploy serves {d.instance}, not {inst.id}")
+        items_d = torch.from_numpy(w.item_vecs).to(dev)
+        names = sorted(w.user_index.keys())[:CLI_QUERIES]
+        lats, err = [], 0.0
+        for user in names:
+            t0 = time.perf_counter()
+            ans, _ = post_json(f"{d.base}/queries.json",
+                               {"user": user, "num": 10})
+            lats.append(time.perf_counter() - t0)
+            hits = ans["itemScores"]
+            if len(hits) != 10:
+                die(f"phase 24d {user}: {len(hits)} items")
+            err = max(err, check_against_plain(
+                [[h["score"] for h in hits]],
+                [[w.item_index[h["item"]] for h in hits]],
+                torch.from_numpy(w.user_vecs[[w.user_index[user]]]).to(dev),
+                items_d, 10, None, f"phase 24d /queries.json {user}", ft,
+                topk_mismatch))
+        rungs = {}
+        for ln in d.get("/metrics").splitlines():
+            if ln.startswith("pio_retrieval_requests_total{"):
+                rung = ln.split('rung="', 1)[1].split('"', 1)[0]
+                rungs[rung] = rungs.get(rung, 0.0) + float(ln.split()[-1])
+        if set(rungs) != {"sharded"} or rungs["sharded"] != len(names):
+            die(f"phase 24d: the deploy's retrievals by rung {rungs}")
+        d.stop()
+        topk = d.launches["fused_topk"]
+        d = None
+    finally:
+        if d is not None:
+            d.kill()
+    if topk != MESH_SHARDS * rungs["sharded"]:
+        die(f"phase 24d: {topk} K3 launches for {rungs['sharded']} sharded "
+            f"retrievals of {MESH_SHARDS} shards")
+    out = {"launches": topk, "err": err,
+           "p50_ms": sorted(lats)[len(lats) // 2] * 1e3}
+    log(f"phase 24d two-tower serving mesh: pio deploy --mesh "
+        f"data={MESH_SHARDS} (four shards of one card) of phase 17b's "
+        f"generation ({len(w.item_index)} items, corpus sharded): "
+        f"retrievals by rung {json.dumps(rungs)}, K3 launches {topk} "
+        f"({MESH_SHARDS} a dispatch); {len(names)} /queries.json p50 "
+        f"{out['p50_ms']:.2f} ms, each the plain top-k of the persisted "
+        f"vectors (max |score err| {err:.3g}); card {card}")
+    return out
+
+
+def mesh_checkpoint_runs(dev, m23: dict, mods, card: str) -> dict:
+    """24e: 23b's ``data=4`` ML-25M inputs under sweep checkpoints every
+    SUPERVISE_EVERY sweeps: preempted after its second chunk
+    (TrainPreempted at sweep 4, the step file on disk) then resumed, and
+    with one chunk's factors made NaN (counted, rolled back, replayed);
+    each ``torch.equal`` to 23b's uninterrupted factors; K1 and K2
+    launched."""
+    import numpy as np
+
+    from predictionio_tpu_torch.obs import get_registry
+    from predictionio_tpu_torch.resilience import supervision as sup
+
+    als, fg, rs = mods["als"], mods["fg"], mods["rs"]
+    inputs, cfg, want = m23.pop("inputs"), m23.pop("cfg"), m23.pop("model")
+    work = tempfile.mkdtemp(prefix="pio_chip_mesh_ckpt_")
+    real = als._mesh_train_loop
+    div = get_registry().counter(
+        "pio_train_divergence_total",
+        "Non-finite loss/params observations per training loop.", ("fn",))
+    out = {}
+
+    def equal(model, what):
+        for name in ("user_factors", "item_factors"):
+            if not np.array_equal(getattr(model, name), getattr(want, name)):
+                die(f"phase 24e {what}: {name} differ from 23b's")
+
+    fg.LAUNCHES = 0                          # main path starts here
+    rs.LU_LAUNCHES = 0
+    try:
+        calls = [0]
+
+        def preempting(*a, **k):
+            real(*a, **k)
+            calls[0] += 1
+            if calls[0] == 2:
+                sup.request_preemption()      # the SIGTERM flag
+
+        ck = os.path.join(work, "preempted")
+        als._mesh_train_loop = preempting
+        t0 = time.perf_counter()
+        try:
+            als.train_als_prepared(inputs, cfg, checkpoint_dir=ck,
+                                   save_every=SUPERVISE_EVERY)
+            die("phase 24e: a preemption after the second chunk did not "
+                "raise TrainPreempted")
+        except sup.TrainPreempted as e:
+            if (e.step, e.checkpointed) != (2 * SUPERVISE_EVERY, True):
+                die(f"phase 24e: preempted at {e.step} ({e})")
+        finally:
+            als._mesh_train_loop = real
+            sup.clear_preemption()
+        step_file = os.path.join(ck, f"{2 * SUPERVISE_EVERY}.pt")
+        if not os.path.exists(step_file):
+            die(f"phase 24e: no step-{2 * SUPERVISE_EVERY} checkpoint "
+                f"({sorted(os.listdir(ck))})")
+        out["save_mib"] = os.path.getsize(step_file) / 2 ** 20
+        equal(als.train_als_prepared(inputs, cfg, checkpoint_dir=ck,
+                                     save_every=SUPERVISE_EVERY),
+              "resumed")
+        out["preempt_resume_s"] = time.perf_counter() - t0
+        calls[0] = 0
+
+        def poisoning(uf, itf, *a, **k):
+            real(uf, itf, *a, **k)
+            calls[0] += 1
+            if calls[0] == 2:
+                uf.shards[0][0, 0] = float("nan")
+
+        before = div.value(fn="als")
+        als._mesh_train_loop = poisoning
+        t0 = time.perf_counter()
+        try:
+            got = als.train_als_prepared(
+                inputs, cfg, checkpoint_dir=os.path.join(work, "nan"),
+                save_every=SUPERVISE_EVERY)
+        finally:
+            als._mesh_train_loop = real
+        out["nan_s"] = time.perf_counter() - t0
+        equal(got, "after a NaN chunk")
+        chunks = -(-cfg.iterations // SUPERVISE_EVERY)
+        if div.value(fn="als") != before + 1 or calls[0] != chunks + 1:
+            die(f"phase 24e: {div.value(fn='als') - before} divergences "
+                f"counted, {calls[0]} chunks run for {chunks}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["launches"] = {"fused_gram": fg.LAUNCHES,
+                       "ridge_solve_lu": rs.LU_LAUNCHES}
+    for name, n in out["launches"].items():     # main path ends here
+        if n == 0:
+            die(f"phase 24e: {name} never launched")
+    log(f"phase 24e mesh ALS checkpoints: 23b's inputs (data="
+        f"{MESH_SHARDS}, factors row-sharded), a checkpoint every "
+        f"{SUPERVISE_EVERY} sweeps ({out['save_mib']:.1f} MiB a save, each "
+        f"block with its spec): preempted after 2 chunks and resumed "
+        f"{out['preempt_resume_s']:.2f} s, torch.equal to 23b's; one NaN "
+        f"chunk counted and replayed {out['nan_s']:.2f} s, torch.equal; "
+        f"launches {json.dumps(out['launches'])}; card {card}")
+    del inputs, want
+    return out
+
+
+def mesh_dryrun(dev, mods, card: str) -> dict:
+    """24f: the port's ``dryrun_multichip(4)`` on four shards of the
+    card, its ALS part's K1 and K2 launches counted."""
+    from predictionio_tpu_torch.entry import dryrun_multichip
+
+    fg, rs = mods["fg"], mods["rs"]
+    fg.LAUNCHES = 0                          # main path starts here
+    rs.LU_LAUNCHES = 0
+    t0 = time.perf_counter()
+    gaps = dryrun_multichip(MESH_SHARDS, device=dev)
+    wall = time.perf_counter() - t0
+    launches = {"fused_gram": fg.LAUNCHES, "ridge_solve_lu": rs.LU_LAUNCHES}
+    for name, n in launches.items():         # main path ends here
+        if n == 0:
+            die(f"phase 24f: {name} never launched in the ALS part")
+    log(f"phase 24f dryrun_multichip({MESH_SHARDS}) on the card: "
+        f"{wall:.2f} s, each part within the reference's tolerances, "
+        f"largest gaps {json.dumps(gaps)}; launches {json.dumps(launches)}; "
+        f"card {card}")
+    return {"launches": launches, "gaps": gaps, "s": wall}
+
+
+def mesh2_phase(dev, seed: int, m23: dict, loop: dict, mods,
+                card: str) -> dict:
+    """Phase 24, 24a-f; returns the launches of K1, K2 and K3."""
+    import torch
+
+    t0 = time.perf_counter()
+    walls = {}
+    parts = {}
+    for name, fn in (
+            ("a", lambda: mesh_two_tower_runs(dev, seed, card)),
+            ("b", lambda: mesh_dlrm_runs(dev, seed, card)),
+            ("c", lambda: mesh_attention_runs(dev, seed, card)),
+            ("d", lambda: mesh_serve_phase(dev, loop, mods, card)),
+            ("e", lambda: mesh_checkpoint_runs(dev, m23, mods, card)),
+            ("f", lambda: mesh_dryrun(dev, mods, card))):
+        t = time.perf_counter()
+        parts[name] = fn()
+        walls[name] = round(time.perf_counter() - t, 2)
+        torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t0
+    launches = {"fused_topk": parts["d"]["launches"]}
+    for name in ("fused_gram", "ridge_solve_lu"):
+        launches[name] = parts["e"]["launches"][name] \
+            + parts["f"]["launches"][name]
+    log(f"phase 24 in {phase_s:.1f} s (budget {MESH2_LIMIT_S:.0f} s; by "
+        f"part {json.dumps(walls)}); launches {json.dumps(launches)}; card "
+        f"{card}")
+    if phase_s > MESH2_LIMIT_S:
+        log(f"phase 24 over its budget: {phase_s:.1f} s > "
+            f"{MESH2_LIMIT_S:.0f} s")
+    return {"launches": launches, "phase_s": phase_s, "parts": parts}
+
+
 def post_json(url: str, obj):
     """POST one query; returns (answer, the server's own wall ms)."""
     req = urllib.request.Request(
@@ -8045,6 +8596,8 @@ def main() -> int:
         from predictionio_tpu_torch.server.engine_server import EngineServer
         from predictionio_tpu_torch.templates.recommendation import (
             engine, wrapper_from_numpy)
+        from predictionio_tpu_torch.templates.twotower import (
+            engine as tt_engine)
         from predictionio_tpu_torch.tools import exp_gather2, exp_gram
         from predictionio_tpu_torch.workflow.core_workflow import (
             persist_instance, run_train)
@@ -8348,12 +8901,18 @@ def main() -> int:
         mesh = mesh_phase(dev, args.seed, items_np, six, loop,
                           dict(mods, als=als), card)
         del six
+        torch.cuda.empty_cache()
+        # -- phase 24: the rest of the mesh: deep models, attention, the
+        # two-tower serving mesh, mesh ALS checkpoints, dryrun_multichip
+        mesh2 = mesh2_phase(dev, args.seed, mesh["train"], loop,
+                            dict(mods, als=als, tt_engine=tt_engine), card)
+        del mesh["train"]
     finally:
         shutil.rmtree(loop["work"], ignore_errors=True)
         shutil.rmtree(sched["work"], ignore_errors=True)
     torch.cuda.empty_cache()
 
-    # -- phase 24: report --------------------------------------------------
+    # -- report ----------------------------------------------------------
     main_shape = timings[(ML25M_ITEMS, 1, 10)]
     b64 = timings[(ML25M_ITEMS, 64, 10)]   # a full batch of query_batch
     kernels = [{
@@ -8368,7 +8927,7 @@ def main() -> int:
         + refresh["launches"]["fused_topk"] + tt["launches"]["fused_topk"]
         + ckpt["launches"]["fused_topk"] + obs["launches"]["fused_topk"]
         + fleet["launches"]["fused_topk"] + remote["launches"]["fused_topk"]
-        + mesh["launches"]["fused_topk"],
+        + mesh["launches"]["fused_topk"] + mesh2["launches"]["fused_topk"],
         "max_abs_err": max(max_err, err, err4),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -8402,7 +8961,8 @@ def main() -> int:
             + obs["launches"].get(name, 0)
             + fleet["launches"].get(name, 0)
             + remote["launches"].get(name, 0)
-            + mesh["launches"].get(name, 0),
+            + mesh["launches"].get(name, 0)
+            + mesh2["launches"].get(name, 0),
             "max_abs_err": train_kernel_err[name],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -8463,7 +9023,9 @@ def main() -> int:
         f"processes and 21f's server), {remote['launches']['fused_topk']} "
         f"in phase 22's pioserver deploy process, "
         f"{mesh['launches']['fused_topk']} in phase 23 (23a's sharded calls "
-        f"and 23c's mesh deploy process), {dase_topk} "
+        f"and 23c's mesh deploy process), "
+        f"{mesh2['launches']['fused_topk']} in phase 24d's two-tower "
+        f"`pio deploy --mesh data={MESH_SHARDS}` process, {dase_topk} "
         f"on the DASE path; training "
         f"kernels per the train run (fused_gram, ridge_solve_lu) + the CLI "
         f"path's train and eval ({loop['launches']['fused_gram']}, "
@@ -8484,7 +9046,10 @@ def main() -> int:
         f"pioserver trains ({remote['launches']['fused_gram']}, "
         f"{remote['launches']['ridge_solve_lu']}), phase 23's mesh trains "
         f"({mesh['launches']['fused_gram']}, "
-        f"{mesh['launches']['ridge_solve_lu']}) and the solver='gj' run "
+        f"{mesh['launches']['ridge_solve_lu']}), phase 24's checkpointed "
+        f"mesh trains and dryrun_multichip "
+        f"({mesh2['launches']['fused_gram']}, "
+        f"{mesh2['launches']['ridge_solve_lu']}) and the solver='gj' run "
         f"(ridge_solve_gj); timings of the training kernels are over one "
         f"iteration's calls at the ML-25M shape")
     print(json.dumps({"kernels": kernels}))

@@ -97,7 +97,11 @@ class RuntimeContext:
         ``auto``) builds the device mesh over ``device``'s kind of
         device; a multi-process gang joins first through
         ``initialize_distributed`` (env ``PIO_COORDINATOR_ADDRESS``;
-        NCCL on the card, gloo on the CPU).  Engines only consume
+        NCCL on the card, gloo on the CPU).  Env ``PIO_MESH_DEVICES``
+        (comma-separated device names, one process) lays the mesh over
+        exactly those devices in that order instead; a name may repeat,
+        so ``cuda:0,cuda:0,cuda:0,cuda:0`` gives four shards of one card.
+        Each must be of ``device``'s kind.  Engines only consume
         ``ctx.mesh``."""
         from predictionio_tpu_torch.data.storage import get_storage
         from predictionio_tpu_torch.data.store import EventStore
@@ -117,12 +121,35 @@ class RuntimeContext:
 
                 initialize_distributed(
                     backend="nccl" if dev.type == "cuda" else "gloo")
-                mesh = mesh_from_spec(spec, device=dev)
+                mesh = mesh_from_spec(spec, device=dev,
+                                      devices=_mesh_devices(dev))
         storage = storage or get_storage()
         return RuntimeContext(storage=storage,
                               event_store=EventStore(storage),
                               device=dev, mesh=mesh, seed=seed,
                               workflow_params=dict(workflow_params))
+
+
+def _mesh_devices(dev):
+    """``PIO_MESH_DEVICES`` as a device list (None when unset), each of
+    ``dev``'s kind: a mesh position on another kind of device raises,
+    and so does the list in a gang of several processes."""
+    from predictionio_tpu_torch.parallel.distributed import process_count
+
+    names = [n.strip() for n in os.environ.get("PIO_MESH_DEVICES", "")
+             .split(",") if n.strip()]
+    if not names:
+        return None
+    if process_count() > 1:
+        raise ValueError("PIO_MESH_DEVICES lays out a mesh of one process; "
+                         "a gang of several builds its mesh from each "
+                         "process's devices")
+    devices = [torch.device(n) for n in names]
+    other = [str(d) for d in devices if d.type != dev.type]
+    if other:
+        raise ValueError(f"PIO_MESH_DEVICES names {other}, not {dev.type} "
+                         f"devices; the run is on {dev}")
+    return devices
 
 
 class _HasParams:

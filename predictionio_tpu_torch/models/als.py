@@ -668,7 +668,7 @@ def _prepare_als_inputs_mesh(user_ids, item_ids, ratings, n_users: int,
     if mesh.multi_process:
         raise NotImplementedError(
             "ALS on a mesh that spans processes is not ported yet "
-            "(ROADMAP Queue 1 item 10b); use one process per mesh")
+            "(ROADMAP Queue 1 item 10c); use one process per mesh")
     if config.device_prep is True:
         raise NotImplementedError(
             "device bucketing (device_prep=True) has no mesh route; use "
@@ -853,8 +853,9 @@ def train_als_prepared(inputs: ALSInputs, config: ALSConfig, *,
     nothing to roll back to).  A non-finite model is never returned.
 
     On a mesh (``inputs.mesh``) the sweeps run :func:`_mesh_train_loop`
-    and the returned factors drop the rows padded to the mesh; sweep
-    checkpoints are not ported there yet."""
+    on the sharded factors, under the same checkpoints (each block saved
+    with its spec and restored onto its position), and the returned
+    factors drop the rows padded to the mesh."""
     if inputs.mesh is not None:
         return _train_prepared_mesh(inputs, config, checkpoint_dir,
                                     save_every)
@@ -886,11 +887,13 @@ def train_als_prepared(inputs: ALSInputs, config: ALSConfig, *,
 
 
 def _supervised_loop(inputs: ALSInputs, config: ALSConfig, sweeps,
-                     checkpoint_dir, save_every: int
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+                     checkpoint_dir, save_every: int, *,
+                     clone=torch.clone) -> Tuple[Any, Any]:
     """The checkpointed loop of :func:`train_als_prepared`: chunks of
     ``save_every`` sweeps, each checked, saved, and rolled back or
-    preempted as it says.  Returns the final factors."""
+    preempted as it says.  Returns the final factors.  ``clone`` copies
+    an initial factor matrix (a tensor, or a mesh's sharded one) for the
+    sweeps to update in place."""
     from predictionio_tpu_torch.workflow.checkpoint import TrainCheckpointer
 
     total = int(config.iterations)
@@ -911,7 +914,7 @@ def _supervised_loop(inputs: ALSInputs, config: ALSConfig, sweeps,
         if ckpt.restored_state is not None:
             uf, itf = ckpt.restored_state
             return done, uf, itf
-        return 0, inputs.uf0.clone(), inputs.itf0.clone()
+        return 0, clone(inputs.uf0), clone(inputs.itf0)
 
     try:
         done, uf, itf = restart()
@@ -1157,25 +1160,33 @@ def _mesh_clone(x: ShardedTensor) -> ShardedTensor:
 def _train_prepared_mesh(inputs: ALSInputs, config: ALSConfig,
                          checkpoint_dir, save_every: int) -> ALSModel:
     """:func:`train_als_prepared` on a mesh: the sweeps under the step
-    watchdog, a non-finite result raising ``TrainDiverged``."""
-    if checkpoint_dir and save_every > 0:
-        raise NotImplementedError(
-            "sweep checkpoints of a mesh train are not ported yet "
-            "(ROADMAP Queue 1 item 10b); train without --checkpoint-dir")
+    watchdog, a non-finite result raising ``TrainDiverged``; with
+    ``checkpoint_dir`` and ``save_every``, :func:`_supervised_loop` over
+    the sharded factors (each block saved with its spec, restored onto
+    its position)."""
     first = _lane_blocks(inputs.uf0)[0].device
     statics = _resolve_loop_statics(config, first)
+    reg, alpha = float(config.reg), float(config.alpha)
     total = int(config.iterations)
-    uf, itf = _mesh_clone(inputs.uf0), _mesh_clone(inputs.itf0)
-    watchdog = StepWatchdog("als")
-    watchdog.arm(total)
-    try:
+
+    def sweeps(uf, itf, n):
         _mesh_train_loop(uf, itf, inputs.user_buckets, inputs.item_buckets,
-                         float(config.reg), float(config.alpha), total,
-                         **statics)
-        if not all_finite(_distinct(_lane_blocks(uf) + _lane_blocks(itf))):
-            raise TrainDiverged("als", total, "non-finite factors", 0)
-    finally:
-        watchdog.stop()
+                         reg, alpha, n, **statics)
+        return uf, itf
+
+    if checkpoint_dir and save_every > 0:
+        uf, itf = _supervised_loop(inputs, config, sweeps, checkpoint_dir,
+                                   int(save_every), clone=_mesh_clone)
+    else:
+        uf, itf = _mesh_clone(inputs.uf0), _mesh_clone(inputs.itf0)
+        watchdog = StepWatchdog("als")
+        watchdog.arm(total)
+        try:
+            sweeps(uf, itf, total)
+            if not all_finite((uf, itf)):
+                raise TrainDiverged("als", total, "non-finite factors", 0)
+        finally:
+            watchdog.stop()
     # Blocked mode pads factor rows to the mesh axis; the model keeps
     # the true extents.
     return ALSModel(user_factors=uf.to_host()[:inputs.n_users],

@@ -1,10 +1,9 @@
 """DLRM-style CTR ranking: embedding tables + dense interaction.
 
-Port of ``predictionio_tpu/models/dlrm.py`` on one device (the card
-unless ``device="cpu"`` is asked for).  The expert-sharded lookup
-(``param_shardings``, ``sharded_embedding_lookup``) needs the mesh and is
-not ported: ``mesh`` must be None (ROADMAP Queue 1 item 10b).  The
-numerics are the reference's:
+Port of ``predictionio_tpu/models/dlrm.py``, on one device (the card
+unless ``device="cpu"`` is asked for) or on an ``expert`` mesh of one
+process (:func:`param_shardings`, :func:`sharded_embedding_lookup`;
+below).  The numerics are the reference's:
 
 - init: the reference's ``jax.random`` tree drawn by
   :mod:`~predictionio_tpu_torch.ops.threefry` (key of the seed, a 3-way
@@ -43,6 +42,23 @@ divergence guard with checkpoint rollback, the step watchdog,
 preemption, warm continuation); ``data_source="auto"`` trains on the
 native feeder's permutation, and a failed build raises with the
 compiler's message instead of falling back to ``"numpy"``.
+
+On a mesh (``init_state(cfg, mesh)``, ``train(..., mesh=mesh)``) the
+concatenated table is row-sharded over ``expert`` and the MLPs are
+replicated; batches are sharded over ``expert`` too.  The reference's
+lookup runs three collectives inside one ``shard_map`` body; the port's
+``shard_map`` runs a function a position with no collective inside, so
+:func:`sharded_embedding_lookup` is three stages: the index blocks
+all-gathered, a masked local gather on each position (rows it does not
+own are exact zeros), and ``psum_scatter`` in shard order — each looked
+up row is one shard's row plus zeros, the plain gather's bits.  Each
+shard then runs the MLPs (their weights rounded to bfloat16 once for
+every shard) and the interaction on its rows and sums its weighted
+losses; the sums add in shard order.  ``torch.autograd``
+differentiates through the stages, a block's gradient is the sum of its
+positions' in position order (:mod:`~predictionio_tpu_torch.parallel.
+blocks`), and Adagrad updates each block where it lives.  A mesh that
+spans processes is refused (ROADMAP Queue 1 item 10c).
 """
 
 from __future__ import annotations
@@ -58,15 +74,40 @@ from predictionio_tpu_torch.device import device as resolve_device
 from predictionio_tpu_torch.models.two_tower import EmptyState
 from predictionio_tpu_torch.ops import threefry
 from predictionio_tpu_torch.ops.embedding import GatherRows
+from predictionio_tpu_torch.parallel.blocks import (
+    distinct_blocks,
+    flat_blocks,
+    grads_by_block,
+    leading_slot,
+    map_blocks,
+    position_leaves,
+    rebuild_all,
+)
+from predictionio_tpu_torch.parallel.compat import (
+    all_gather,
+    axis_lane,
+    psum,
+    psum_scatter,
+    shard_map,
+)
+from predictionio_tpu_torch.parallel.mesh import (
+    AXIS_EXPERT,
+    NamedSharding,
+    PartitionSpec as P,
+    ShardedTensor,
+    put_sharded,
+)
 
 __all__ = ["DLRMConfig", "DLRMState", "RssState", "EmptyState",
-           "init_params_host", "init_params", "init_state", "train_step",
+           "init_params_host", "init_params", "init_state",
+           "param_shardings", "sharded_embedding_lookup", "train_step",
            "train_steps_fused", "train", "state_to", "state_to_host",
            "state_from_host", "predict_proba"]
 
 _INITIAL_ACCUMULATOR, _EPS = 0.1, 1e-7
-_NO_MESH = ("DLRM on a device mesh (the expert-sharded embedding lookup) "
-            "is not ported yet (ROADMAP Queue 1 item 10b); pass mesh=None")
+_ACROSS_PROCESSES = (
+    "DLRM training on a mesh that spans processes is not ported yet "
+    "(ROADMAP Queue 1 item 10c); use one process per mesh")
 
 
 @dataclasses.dataclass
@@ -172,21 +213,60 @@ def init_params(cfg: DLRMConfig, device=None) -> Dict:
                 init_params_host(cfg))
 
 
+def param_shardings(cfg: DLRMConfig, mesh) -> Dict:
+    """The table row-sharded over ``expert``; the MLPs replicated."""
+    return _shardings_like(init_params_host(cfg), mesh)
+
+
+def _shardings_like(tree: Dict, mesh) -> Dict:
+    rep = NamedSharding(mesh, P())
+    return _unflatten(tree, [NamedSharding(mesh, P(AXIS_EXPERT, None))]
+                      + [rep] * (len(_leaves(tree)) - 1))
+
+
+def _on_mesh(tree: Dict) -> bool:
+    return isinstance(tree["embed"], ShardedTensor)
+
+
+def _place(host_tree: Dict, mesh) -> Dict:
+    """A params-shaped tree of host arrays laid out on ``mesh``."""
+    return _unflatten(host_tree, [
+        put_sharded(np.array(a, np.float32), mesh, sh)
+        for a, sh in zip(_leaves(host_tree),
+                         _leaves(_shardings_like(host_tree, mesh)))])
+
+
+def _full_like(x, value: float):
+    if isinstance(x, ShardedTensor):
+        return map_blocks(lambda t: torch.full_like(t, value), x)
+    return torch.full_like(x, value)
+
+
 def init_state(cfg: DLRMConfig, mesh=None, *, device=None) -> DLRMState:
+    """The reference's initial state, on ``device`` or laid out on
+    ``mesh`` by :func:`param_shardings`."""
     if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
-    params = init_params(cfg, device)
-    acc = _map(lambda t: torch.full_like(t, _INITIAL_ACCUMULATOR), params)
+        params = _place(init_params_host(cfg), mesh)
+    else:
+        params = init_params(cfg, device)
+    acc = _map(lambda t: _full_like(t, _INITIAL_ACCUMULATOR), params)
     return DLRMState(params=params,
                      opt_state=(RssState(acc), EmptyState()), step=0)
+
+
+def _host_array(x) -> np.ndarray:
+    if isinstance(x, ShardedTensor):
+        return x.to_host()
+    return x.detach().cpu().numpy()
 
 
 def state_to_host(state: DLRMState) -> Dict:
     """Host-numpy snapshot of a train state, laid out as the reference's
     (``params``; ``opt_state`` = ``(RssState(sum_of_squares),
     EmptyState())``; ``step``) — exact float32 values, so a warm-started
-    continuation equals continuing in-process."""
-    to_np = lambda t: t.detach().cpu().numpy()  # noqa: E731
+    continuation equals continuing in-process.  A mesh state's sharded
+    leaves are gathered."""
+    to_np = _host_array
     return {"params": _map(to_np, state.params),
             "opt_state": (RssState(_map(to_np,
                                         state.opt_state[0].sum_of_squares)),
@@ -194,16 +274,22 @@ def state_to_host(state: DLRMState) -> Dict:
             "step": np.asarray(int(state.step), np.int32)}
 
 
-def state_from_host(snapshot, device=None) -> DLRMState:
-    """Rebuild a live state on ``device`` from a :func:`state_to_host`
-    snapshot, or from the reference's ``jax.tree.map(np.asarray,
-    (params, opt_state, step))`` (its optax state is a
-    ``(ScaleByRssState(sum_of_squares), EmptyState())`` tuple too)."""
+def state_from_host(snapshot, device=None, *, mesh=None) -> DLRMState:
+    """Rebuild a live state on ``device`` (or laid out on ``mesh`` by
+    :func:`param_shardings`) from a :func:`state_to_host` snapshot, or
+    from the reference's ``jax.tree.map(np.asarray, (params, opt_state,
+    step))`` (its optax state is a ``(ScaleByRssState(sum_of_squares),
+    EmptyState())`` tuple too)."""
     if isinstance(snapshot, Mapping):
         params, opt_state, step = (snapshot["params"],
                                    snapshot["opt_state"], snapshot["step"])
     else:
         params, opt_state, step = snapshot
+    if mesh is not None:
+        return DLRMState(params=_place(params, mesh),
+                         opt_state=(RssState(_place(opt_state[0][0], mesh)),
+                                    EmptyState()),
+                         step=int(np.asarray(step)))
     dev = resolve_device(device)
     put = lambda a: torch.from_numpy(  # noqa: E731
         np.array(a, np.float32)).to(dev)
@@ -213,10 +299,18 @@ def state_from_host(snapshot, device=None) -> DLRMState:
                      step=int(np.asarray(step)))
 
 
+def _to_mesh(state: DLRMState, mesh) -> DLRMState:
+    """A meshless state's copy laid out on ``mesh``."""
+    return state_from_host(state_to_host(state), mesh=mesh)
+
+
 def state_to(state: DLRMState, device, *, copy: bool = False
              ) -> DLRMState:
     """``state`` with every tensor on ``device`` (copied when ``copy``,
-    else moved only where it lies elsewhere)."""
+    else moved only where it lies elsewhere); a mesh state gathered
+    whole there."""
+    if _on_mesh(state.params):
+        return state_from_host(state_to_host(state), device)
     move = lambda t: t.to(device, copy=copy)  # noqa: E731
     return DLRMState(
         params=_map(move, state.params),
@@ -227,12 +321,26 @@ def state_to(state: DLRMState, device, *, copy: bool = False
 
 # -- the model ---------------------------------------------------------------
 
+def _bf16_weights(layers: List[Dict]) -> List[Dict]:
+    """The layers with each weight rounded to bfloat16 (kept as float32),
+    the operand :func:`_mlp_rounded` multiplies by."""
+    return [{"w": layer["w"].to(torch.bfloat16).float(), "b": layer["b"]}
+            for layer in layers]
+
+
 def _mlp(layers: List[Dict], x: torch.Tensor,
          final_relu: bool = True) -> torch.Tensor:
+    return _mlp_rounded(_bf16_weights(layers), x, final_relu)
+
+
+def _mlp_rounded(layers: List[Dict], x: torch.Tensor,
+                 final_relu: bool = True) -> torch.Tensor:
+    """:func:`_mlp` on weights already rounded by :func:`_bf16_weights`
+    (the rounding's backward rounds a weight's gradient once, after
+    every use of it has added its part in float32)."""
     h = x
     for i, layer in enumerate(layers):
-        h = (h.to(torch.bfloat16).float()
-             @ layer["w"].to(torch.bfloat16).float()) + layer["b"]
+        h = (h.to(torch.bfloat16).float() @ layer["w"]) + layer["b"]
         if final_relu or i < len(layers) - 1:
             h = torch.relu(h)
     return h
@@ -269,23 +377,35 @@ def _loss(params: Dict, dense, cat, labels, weights) -> torch.Tensor:
 
 def _adagrad_update(grads: List[torch.Tensor], rss: RssState, lr: float
                     ) -> Tuple[List[torch.Tensor], RssState]:
+    """``optax.adagrad(lr).update`` of a params tree's leaves; returns the
+    updates and the new state."""
+    upd, sos = _adagrad_flat(grads, _leaves(rss.sum_of_squares), lr)
+    return upd, RssState(_unflatten(rss.sum_of_squares, sos))
+
+
+def _adagrad_flat(grads: List[torch.Tensor], sos_l: List[torch.Tensor],
+                  lr: float) -> Tuple[List[torch.Tensor],
+                                      List[torch.Tensor]]:
     """``optax.adagrad(lr).update`` out of place, in optax's order:
-    ``s = g² + s``, ``u = where(s > 0, rsqrt(s + eps), 0) · g · -lr``;
-    returns the updates and the new state."""
+    ``s = g² + s``, ``u = where(s > 0, rsqrt(s + eps), 0) · g · -lr``.
+    Elementwise, so any list of matching tensors (a tree's leaves, a
+    mesh's blocks) takes it.  Returns the updates and the new sums."""
     sos = torch._foreach_mul(grads, grads)
-    torch._foreach_add_(sos, _leaves(rss.sum_of_squares))
+    torch._foreach_add_(sos, sos_l)
     inv = torch._foreach_add(sos, _EPS)
     torch._foreach_rsqrt_(inv)
     inv = [torch.where(s > 0, r, 0.0) for s, r in zip(sos, inv)]
     upd = torch._foreach_mul(inv, grads)
     torch._foreach_mul_(upd, -lr)
-    return upd, RssState(_unflatten(rss.sum_of_squares, sos))
+    return upd, sos
 
 
 def _step_math(state: DLRMState, dense, cat, labels, weights,
                cfg: DLRMConfig) -> Tuple[DLRMState, torch.Tensor]:
     """One optimizer step's math — shared verbatim by :func:`train_step`
     and the fused window, so fused training is the same computation."""
+    if _on_mesh(state.params):
+        return _mesh_step_math(state, dense, cat, labels, weights, cfg)
     leaves = [p.detach().requires_grad_(True)
               for p in _leaves(state.params)]
     params = _unflatten(state.params, leaves)
@@ -301,13 +421,148 @@ def _step_math(state: DLRMState, dense, cat, labels, weights,
             loss.detach())
 
 
+# -- the expert-sharded lookup and the mesh step -------------------------------
+
+def _lane_of(x: ShardedTensor) -> List[torch.Tensor]:
+    """``x``'s block on each shard of ``expert``, in shard order."""
+    return [x.block(p) for p in axis_lane(x.mesh, AXIS_EXPERT)]
+
+
+def _expert_lookup(table: ShardedTensor, indices: ShardedTensor
+                   ) -> List[torch.Tensor]:
+    """:func:`sharded_embedding_lookup`'s three stages; returns each
+    ``expert`` shard's rows ``[B/S, F, E]`` in shard order."""
+    mesh = table.mesh
+    n_shards = mesh.shape[AXIS_EXPERT]
+    v = table.shape[0]
+    assert v % n_shards == 0, f"pad vocab ({v}) to a multiple of {n_shards}"
+    rows_per = v // n_shards
+    # Stage 1: every shard gets the whole (tiny, int32) index batch.
+    idx_lane = _lane_of(indices)
+    idx_all = {str(b.device): all_gather(idx_lane, device=b.device)
+               for b in idx_lane}
+
+    # Stage 2: each position's masked partial embeddings of the indices
+    # its table block owns (rows it does not own are exact zeros).
+    def local(axis_index, tab):
+        idx = idx_all[str(tab.device)]                         # [B, F]
+        rel = idx.long() - axis_index(AXIS_EXPERT) * rows_per
+        mine = (rel >= 0) & (rel < rows_per)
+        got = GatherRows.apply(tab, rel.clamp(0, rows_per - 1).reshape(-1)
+                               ).reshape(*idx.shape, -1)      # [B, F, E]
+        return torch.where(mine[..., None], got, torch.zeros_like(got))
+
+    parts = shard_map(local, mesh=mesh, in_specs=P(AXIS_EXPERT, None),
+                      out_specs=None)(table)
+    part_of = dict(zip(mesh.local_positions(), parts))
+    # Stage 3: each batch shard gets its rows, summed in shard order.
+    return psum_scatter([part_of[p] for p in axis_lane(mesh, AXIS_EXPERT)],
+                        dim=0)
+
+
+def _expert_layout(blocks: List[torch.Tensor], mesh, shape) -> ShardedTensor:
+    """Per-``expert``-shard outputs as a ``P(expert)`` array (the other
+    axes' positions share their lane's block)."""
+    spec = P(AXIS_EXPERT, *([None] * (len(shape) - 1)))
+    shards = [None] * mesh.size
+    for p in mesh.local_positions():
+        shards[p] = blocks[mesh.position(p)[AXIS_EXPERT]]
+    return ShardedTensor(NamedSharding(mesh, spec), shape, shards)
+
+
+def sharded_embedding_lookup(mesh, table, indices) -> ShardedTensor:
+    """Row-sharded table lookup: ``table`` ``[V, E]`` row-sharded over
+    ``expert`` (a tensor or array is laid out so), ``indices`` ``[B, F]``
+    global rows batch-sharded over ``expert``; returns the ``[B, F, E]``
+    rows batch-sharded over ``expert``.  ``V`` must be a multiple of the
+    shard count."""
+    if not isinstance(table, ShardedTensor):
+        n_shards = mesh.shape[AXIS_EXPERT]
+        assert table.shape[0] % n_shards == 0, \
+            f"pad vocab ({table.shape[0]}) to a multiple of {n_shards}"
+        table = put_sharded(table, mesh, P(AXIS_EXPERT, None))
+    if not isinstance(indices, ShardedTensor):
+        indices = put_sharded(indices, mesh, P(AXIS_EXPERT, None))
+    rows = _expert_lookup(table, indices)
+    return _expert_layout(rows, mesh,
+                          (*indices.shape, table.shape[1]))
+
+
+def _mesh_logits(params: Dict, dense: ShardedTensor,
+                 cat: ShardedTensor) -> List[torch.Tensor]:
+    """Each ``expert`` shard's logits for its batch rows, in shard order:
+    the sharded lookup, then the shard's MLPs and interaction."""
+    mesh = cat.mesh
+    emb = _expert_lookup(params["embed"], cat)
+    lane = axis_lane(mesh, AXIS_EXPERT)
+    # The replicated MLPs' weights rounded to bfloat16 once, on the first
+    # shard, for every shard to multiply by: their gradients then add in
+    # float32 before the rounding's backward rounds them, as the meshless
+    # step's one product over the whole batch does.
+    mlps = {name: _bf16_weights([{k: v.block(lane[0])
+                                  for k, v in layer.items()}
+                                 for layer in params[name]])
+            for name in ("bottom", "top")}
+    out = []
+    for e, d in zip(emb, _lane_of(dense)):
+        here = {name: [{k: v.to(e.device) for k, v in layer.items()}
+                       for layer in layers]
+                for name, layers in mlps.items()}
+        z = _interact(e, _mlp_rounded(here["bottom"], d))
+        out.append(_mlp_rounded(here["top"], z, final_relu=False)[:, 0])
+    return out
+
+
+def _mesh_step_math(state: DLRMState, dense: ShardedTensor,
+                    cat: ShardedTensor, labels: ShardedTensor,
+                    weights: ShardedTensor, cfg: DLRMConfig
+                    ) -> Tuple[DLRMState, torch.Tensor]:
+    """:func:`_step_math` on a mesh state: each shard's weighted loss sum
+    over the stages, added in shard order; the positions' gradients
+    summed a block; Adagrad on each block where it lives."""
+    sharded = _leaves(state.params)
+    mesh = sharded[0].mesh
+    if mesh.multi_process:
+        raise NotImplementedError(_ACROSS_PROCESSES)
+    leaves = [position_leaves(x) for x in sharded]
+    logits = _mesh_logits(_unflatten(state.params, leaves), dense, cat)
+    nums, dens = [], []
+    for x, y, w in zip(logits, _lane_of(labels), _lane_of(weights)):
+        losses = -y * F.logsigmoid(x) - (1.0 - y) * F.logsigmoid(-x)
+        nums.append((losses * w).sum())
+        dens.append(w.sum())
+    dev0 = logits[0].device
+    loss = psum(nums, device=dev0) / torch.clamp(psum(dens, device=dev0),
+                                                 min=1.0)
+    grads = grads_by_block(loss, sharded, leaves)
+    with torch.no_grad():
+        upd, sos = _adagrad_flat(
+            flat_blocks(grads),
+            flat_blocks(_leaves(state.opt_state[0].sum_of_squares)),
+            float(cfg.learning_rate))
+        new = torch._foreach_add(flat_blocks(sharded), upd)
+
+    def laid_out(blocks: List[torch.Tensor]) -> Dict:
+        return _unflatten(state.params, rebuild_all(sharded, blocks))
+
+    return (DLRMState(params=laid_out(new),
+                      opt_state=(RssState(laid_out(sos)),
+                                 state.opt_state[1]),
+                      step=int(state.step) + 1),
+            loss.detach())
+
+
+def _slot(x, k: int):
+    return leading_slot(x, k) if isinstance(x, ShardedTensor) else x[k]
+
+
 def train_step(state: DLRMState, dense, cat, labels, weights,
                cfg: DLRMConfig, mesh=None) -> Tuple[DLRMState, torch.Tensor]:
     """One optimizer step on one batch (tensors on the state's device;
-    ``cat`` holds global rows, offsets applied); returns the new state
-    and the loss (0-dim tensor)."""
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
+    ``cat`` holds global rows, offsets applied; on a mesh state,
+    :class:`ShardedTensor` s laid out ``P("expert")``); returns the new
+    state and the loss (0-dim tensor).  ``mesh`` is the reference's
+    argument: the state's own layout decides."""
     return _step_math(state, dense, cat, labels, weights, cfg)
 
 
@@ -315,15 +570,14 @@ def train_steps_fused(state: DLRMState, dense, cat, labels, weights,
                       cfg: DLRMConfig, mesh=None
                       ) -> Tuple[DLRMState, torch.Tensor]:
     """K optimizer steps issued back to back with no host sync: the batch
-    tensors carry a leading slot axis ([K, B, ...]); returns the state
-    after the K-th step and the per-step loss vector [K].  Bitwise K
-    sequential :func:`train_step` calls on the same batches."""
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
+    tensors carry a leading slot axis ([K, B, ...]; on a mesh, laid out
+    ``P(None, "expert")``); returns the state after the K-th step and the
+    per-step loss vector [K].  Bitwise K sequential :func:`train_step`
+    calls on the same batches."""
     losses = []
     for k in range(labels.shape[0]):
-        state, loss = _step_math(state, dense[k], cat[k], labels[k],
-                                 weights[k], cfg)
+        state, loss = _step_math(state, _slot(dense, k), _slot(cat, k),
+                                 _slot(labels, k), _slot(weights, k), cfg)
         losses.append(loss)
     return state, torch.stack(losses)
 
@@ -367,18 +621,25 @@ def train(
     autotuner); supervision then sits at the window boundary.
     ``device``: the card unless ``"cpu"`` is asked for (default: the
     warm state's device).
+
+    ``mesh``: train on it (the module docstring's layout; batches over
+    ``expert``, which must divide ``batch_size`` and the total vocab),
+    its positions' devices in place of ``device``.  A meshless
+    ``warm_state`` is laid out on the mesh first.
     """
     from predictionio_tpu_torch.resilience.supervision import (
         DivergenceGuard,
         RollbackRequested,
     )
 
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
     if data_source not in ("auto", "feeder", "numpy"):
         raise ValueError(f"data_source {data_source!r}: use auto, feeder "
                          "or numpy")
-    if device is None and warm_state is not None:
+    if mesh is not None:
+        if mesh.multi_process:
+            raise NotImplementedError(_ACROSS_PROCESSES)
+        device = mesh.devices.flat[0]
+    elif device is None and warm_state is not None:
         device = warm_state.params["embed"].device
     dev = resolve_device(device)
     if dev.type == "cuda":
@@ -386,7 +647,11 @@ def train(
 
         set_float32_precision()
     if warm_state is not None:
-        warm_state = state_to(warm_state, dev, copy=True)
+        # Steps are functional: a mesh state is never changed in place.
+        if mesh is not None and not _on_mesh(warm_state.params):
+            warm_state = _to_mesh(warm_state, mesh)
+        elif mesh is None:
+            warm_state = state_to(warm_state, dev, copy=True)
     # Without a checkpointer a "rollback" is a full deterministic retrain
     # that reproduces the same NaN — terminal immediately.
     can_rollback = bool(checkpoint_dir) and save_every > 0
@@ -394,7 +659,7 @@ def train(
                             max_rollbacks=None if can_rollback else 0)
     while True:
         try:
-            return _train_attempt(dense, cat, labels, cfg,
+            return _train_attempt(dense, cat, labels, cfg, mesh=mesh,
                                   checkpoint_dir=checkpoint_dir,
                                   save_every=save_every,
                                   data_source=data_source, guard=guard,
@@ -404,7 +669,8 @@ def train(
             continue  # re-enter: restore_step fast-forwards to last-good
 
 
-def _train_attempt(dense, cat, labels, cfg: DLRMConfig, *, checkpoint_dir,
+def _train_attempt(dense, cat, labels, cfg: DLRMConfig, *, mesh=None,
+                   checkpoint_dir,
                    save_every: int, data_source: str, guard, fuse_steps,
                    warm_state: Optional[DLRMState],
                    dev: torch.device) -> DLRMState:
@@ -430,7 +696,7 @@ def _train_attempt(dense, cat, labels, cfg: DLRMConfig, *, checkpoint_dir,
     cat_global = (np.asarray(cat, np.int64)
                   + cfg.offsets[None, :]).astype(np.int32)
     state = warm_state if warm_state is not None \
-        else init_state(cfg, device=dev)
+        else init_state(cfg, mesh, device=dev)
     total_steps = cfg.epochs * ((n + cfg.batch_size - 1) // cfg.batch_size)
     # Warm continuations fingerprint on the carried step: a crash-resume
     # checkpoint from a different base generation must not restore here.
@@ -509,12 +775,24 @@ def _train_attempt(dense, cat, labels, cfg: DLRMConfig, *, checkpoint_dir,
     plan = FusionPlan(k0)
     tuner = FusionAutotuner("dlrm", plan) if auto else None
 
+    staging = {"device": dev}
+    if mesh is not None:
+        # A batch shards over ``expert``; a fused superbatch's batch axis
+        # is dim 1, so its staging shards dim 1 and replicates the slots.
+        batch_sh = NamedSharding(mesh, P(AXIS_EXPERT))
+        fused_sh = NamedSharding(mesh, P(None, AXIS_EXPERT))
+        staging = {
+            "put_fn": lambda arrays: tuple(
+                put_sharded(a, mesh, batch_sh) for a in arrays),
+            "fused_put_fn": lambda arrays: tuple(
+                put_sharded(a, mesh, fused_sh) for a in arrays)}
+
     probe = PipelineProbe("dlrm")
     global_step = start_step
     pending = None  # (losses, slot steps) of the in-flight dispatch
     in_flight = 0  # raw steps covered by the in-flight dispatch
     try:
-        with DevicePrefetcher(source, prep, device=dev,
+        with DevicePrefetcher(source, prep, **staging,
                               skip_steps=start_step, fuse_plan=plan,
                               model="dlrm") as pf:
             for batch in probe.iter_prefetched(pf):
@@ -575,12 +853,28 @@ def _train_attempt(dense, cat, labels, cfg: DLRMConfig, *, checkpoint_dir,
 def predict_proba(state: DLRMState, dense: np.ndarray, cat: np.ndarray,
                   cfg: DLRMConfig, mesh=None) -> torch.Tensor:
     """Click probabilities ``[N]`` on the state's device (``cat`` holds
-    per-field indices; the offsets are applied here)."""
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
-    dev = state.params["embed"].device
+    per-field indices; the offsets are applied here).  With ``mesh`` the
+    rows are sharded over ``expert`` (which must divide ``N``) and the
+    lookup is :func:`sharded_embedding_lookup` (a meshless state is laid
+    out on the mesh first), the result assembled on the first shard's
+    device; a mesh state without ``mesh`` is gathered whole."""
     cat_global = (np.asarray(cat, np.int64)
                   + cfg.offsets[None, :]).astype(np.int32)
+    if mesh is not None:
+        if not _on_mesh(state.params):
+            state = _to_mesh(state, mesh)
+        bsh = NamedSharding(mesh, P(AXIS_EXPERT))
+        with torch.no_grad():
+            logits = _mesh_logits(
+                state.params,
+                put_sharded(np.ascontiguousarray(dense, np.float32), mesh,
+                            bsh),
+                put_sharded(cat_global, mesh, bsh))
+            return torch.sigmoid(all_gather(logits))
+    if _on_mesh(state.params):
+        state = state_to(state, distinct_blocks(state.params["embed"])[0]
+                         .device)
+    dev = state.params["embed"].device
     with torch.no_grad():
         logits = _forward(
             state.params,

@@ -7,8 +7,16 @@ dataset lives on one device (the card unless the caller passes
 through autograd.  The loss is the reference's: softmax cross entropy
 weighted by sample plus ``reg·Σw²``, from zero init.  The update is
 ``optax.adam``'s (b1 0.9, b2 0.999, eps 1e-8, eps_root 0), written out
-so that its order of operations is optax's.  ``mesh`` must be None
-(ROADMAP Queue 1 item 10b).
+so that its order of operations is optax's.
+
+With a ``mesh`` the rows are sharded over ``data`` (which must divide
+their count) and the weights replicated: each shard computes its weighted
+loss sum on its own device, the sums add in shard order (the
+reference's ``psum``), each replica's gradient is the sum of its
+positions' in position order (:mod:`~predictionio_tpu_torch.parallel.
+blocks`), and every replica takes the same Adam step.  The model is
+returned on the first shard's device.  A mesh that spans processes is
+refused (ROADMAP Queue 1 item 10c).
 """
 
 from __future__ import annotations
@@ -20,6 +28,17 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.device import device as resolve_device
+from predictionio_tpu_torch.parallel.blocks import (
+    flat_blocks,
+    grads_by_block,
+    position_leaves,
+)
+from predictionio_tpu_torch.parallel.compat import axis_lane, psum
+from predictionio_tpu_torch.parallel.mesh import (
+    AXIS_DATA,
+    PartitionSpec,
+    put_sharded,
+)
 
 __all__ = ["LogisticRegressionConfig", "LogisticRegressionModel", "train",
            "predict_proba"]
@@ -74,12 +93,12 @@ def train(x: np.ndarray, y: np.ndarray, cfg: LogisticRegressionConfig,
           device=None) -> LogisticRegressionModel:
     """``cfg.steps`` full-batch Adam steps at ``cfg.learning_rate`` on
     standardized features (constant features keep scale 1)."""
-    if mesh is not None:
+    if mesh is not None and mesh.multi_process:
         raise NotImplementedError(
-            "logistic regression on a device mesh (the put_sharded "
-            "batches) is not ported yet (ROADMAP Queue 1 item 10b); pass "
-            "mesh=None")
-    dev = resolve_device(device)
+            "logistic regression on a mesh that spans processes is not "
+            "ported yet (ROADMAP Queue 1 item 10c); use one process per "
+            "mesh")
+    dev = resolve_device(device) if mesh is None else mesh.devices.flat[0]
     x = np.asarray(x, np.float32)
     n, d = x.shape
     if cfg.standardize:
@@ -89,13 +108,21 @@ def train(x: np.ndarray, y: np.ndarray, cfg: LogisticRegressionConfig,
     else:
         mean = np.zeros(d, np.float32)
         scale = np.ones(d, np.float32)
+    w_np = (np.asarray(sample_weight, np.float32)
+            if sample_weight is not None else np.ones(n, np.float32))
+    if mesh is not None:
+        w, b = _fit_mesh((x - mean) / scale, np.asarray(y, np.int64), w_np,
+                         cfg, mesh)
+        return LogisticRegressionModel(
+            weights=w, bias=b,
+            mean=torch.as_tensor(mean, dtype=torch.float32, device=w.device),
+            scale=torch.as_tensor(scale, dtype=torch.float32,
+                                  device=w.device))
     xs = torch.as_tensor((x - mean) / scale, device=dev)
     y_onehot = torch.nn.functional.one_hot(
         torch.as_tensor(np.asarray(y, np.int64), device=dev),
         cfg.n_classes).to(torch.float32)
-    w_sample = torch.as_tensor(
-        np.asarray(sample_weight, np.float32) if sample_weight is not None
-        else np.ones(n, np.float32), device=dev)
+    w_sample = torch.as_tensor(w_np, device=dev)
     w = torch.zeros((d, cfg.n_classes), dtype=torch.float32, device=dev,
                     requires_grad=True)
     b = torch.zeros((cfg.n_classes,), dtype=torch.float32, device=dev,
@@ -112,6 +139,41 @@ def train(x: np.ndarray, y: np.ndarray, cfg: LogisticRegressionConfig,
         weights=w.detach(), bias=b.detach(),
         mean=torch.as_tensor(mean, dtype=torch.float32, device=dev),
         scale=torch.as_tensor(scale, dtype=torch.float32, device=dev))
+
+
+def _fit_mesh(xs: np.ndarray, y: np.ndarray, w_sample: np.ndarray,
+              cfg: LogisticRegressionConfig, mesh):
+    """:func:`train`'s steps over ``data``-sharded rows; returns the
+    weights and bias on the first shard's device."""
+    rows = PartitionSpec(AXIS_DATA)
+    x_s = put_sharded(np.asarray(xs, np.float32), mesh, rows)
+    y_s = put_sharded(torch.nn.functional.one_hot(
+        torch.as_tensor(y), cfg.n_classes).to(torch.float32), mesh, rows)
+    ws_s = put_sharded(w_sample, mesh, rows)
+    params = [put_sharded(np.zeros(shape, np.float32), mesh,
+                          PartitionSpec())
+              for shape in ((xs.shape[1], cfg.n_classes), (cfg.n_classes,))]
+    blocks = flat_blocks(params)
+    mu = [torch.zeros_like(b) for b in blocks]
+    nu = [torch.zeros_like(b) for b in blocks]
+    lane = axis_lane(mesh, AXIS_DATA)
+    reg = float(cfg.reg)
+    for t in range(1, int(cfg.steps) + 1):
+        lw, lb = (position_leaves(p) for p in params)
+        nums, dens = [], []
+        for p in lane:
+            logp = torch.log_softmax(x_s.block(p) @ lw.block(p)
+                                     + lb.block(p), dim=-1)
+            ll = -(y_s.block(p) * logp).sum(dim=-1)
+            nums.append((ll * ws_s.block(p)).sum())
+            dens.append(ws_s.block(p).sum())
+        dev = lw.block(lane[0]).device
+        loss = psum(nums, device=dev) / psum(dens, device=dev).clamp(
+            min=1.0) + reg * (lw.block(lane[0]) ** 2).sum()
+        grads = flat_blocks(grads_by_block(loss, params, (lw, lb)))
+        with torch.no_grad():
+            _adam(blocks, grads, mu, nu, t, float(cfg.learning_rate))
+    return tuple(p.block(lane[0]) for p in params)
 
 
 def predict_proba(model: LogisticRegressionModel, x) -> torch.Tensor:

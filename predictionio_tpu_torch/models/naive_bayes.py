@@ -4,8 +4,11 @@ Port of ``predictionio_tpu/models/naive_bayes.py`` (reference: Spark
 MLlib ``NaiveBayes.train`` as the classification template calls it).
 The per-class counts are one-hot products on the device the caller
 names (the card unless it passes ``device="cpu"``); the model keeps
-float32 tensors on that device.  One process and one device: ``mesh``
-must be None (ROADMAP Queue 1 item 10b).
+float32 tensors on that device.  With a ``mesh`` the rows are sharded
+over ``data`` (which must divide their count): each shard computes its
+counts on its own device, and the shards' counts add in shard order
+(:func:`~predictionio_tpu_torch.parallel.compat.psum`, the reference's
+``psum``) on the first shard's device, where the model is kept.
 """
 
 from __future__ import annotations
@@ -18,6 +21,12 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.device import device as resolve_device
+from predictionio_tpu_torch.parallel.compat import axis_lane, psum
+from predictionio_tpu_torch.parallel.mesh import (
+    AXIS_DATA,
+    PartitionSpec,
+    put_sharded,
+)
 
 __all__ = ["NaiveBayesModel", "train_multinomial", "train_gaussian",
            "predict_log_proba"]
@@ -44,25 +53,38 @@ class NaiveBayesModel:
             means=move(self.means), variances=move(self.variances))
 
 
-def _inputs(x, y, n_classes: int, mesh, device):
-    if mesh is not None:
-        raise NotImplementedError(
-            "naive Bayes on a device mesh (the put_sharded batches) is not "
-            "ported yet (ROADMAP Queue 1 item 10b); pass mesh=None")
-    dev = resolve_device(device)
-    xt = torch.as_tensor(np.asarray(x, np.float32), device=dev)
-    yt = torch.as_tensor(np.asarray(y, np.int64), device=dev)
-    onehot = torch.nn.functional.one_hot(yt, n_classes).to(torch.float32)
-    return xt, onehot
+def _sums(x, y, n_classes: int, mesh, device, squares: bool):
+    """The per-class row counts and feature sums (and sums of squares
+    with ``squares``) of ``x`` by label ``y``: on ``device``, or a shard
+    of the ``data`` axis each, added in shard order."""
+    x = torch.as_tensor(np.asarray(x, np.float32))
+    onehot = torch.nn.functional.one_hot(
+        torch.as_tensor(np.asarray(y, np.int64)), n_classes).to(torch.float32)
+
+    def stats(xt, yt):
+        out = [yt.sum(dim=0), yt.T @ xt]
+        if squares:
+            out.append(yt.T @ (xt * xt))
+        return out
+
+    if mesh is None:
+        dev = resolve_device(device)
+        return stats(x.to(dev), onehot.to(dev))
+    spec = PartitionSpec(AXIS_DATA)
+    xs, ys = put_sharded(x, mesh, spec), put_sharded(onehot, mesh, spec)
+    parts = [stats(xs.block(p), ys.block(p))
+             for p in axis_lane(mesh, AXIS_DATA)]
+    dev = parts[0][0].device
+    return [psum([pt[j] for pt in parts], mesh, device=dev)
+            for j in range(len(parts[0]))]
 
 
 def train_multinomial(x: np.ndarray, y: np.ndarray, n_classes: int, *,
                       alpha: float = 1.0, mesh=None, device=None
                       ) -> NaiveBayesModel:
     """MLlib-parity multinomial NB with Laplace smoothing ``alpha``."""
-    xt, onehot = _inputs(x, y, n_classes, mesh, device)
-    class_count = onehot.sum(dim=0)                          # [C]
-    feat_count = onehot.T @ xt                               # [C, D]
+    class_count, feat_count = _sums(x, y, n_classes, mesh, device,
+                                    squares=False)
     log_prior = torch.log(class_count) - torch.log(class_count.sum())
     smoothed = feat_count + alpha
     log_prob = torch.log(smoothed) - torch.log(
@@ -74,10 +96,7 @@ def train_multinomial(x: np.ndarray, y: np.ndarray, n_classes: int, *,
 def train_gaussian(x: np.ndarray, y: np.ndarray, n_classes: int, *,
                    var_smoothing: float = 1e-6, mesh=None, device=None
                    ) -> NaiveBayesModel:
-    xt, onehot = _inputs(x, y, n_classes, mesh, device)
-    n = onehot.sum(dim=0)
-    s1 = onehot.T @ xt
-    s2 = onehot.T @ (xt * xt)
+    n, s1, s2 = _sums(x, y, n_classes, mesh, device, squares=True)
     n_safe = n.clamp(min=1.0)[:, None]
     means = s1 / n_safe
     variances = (s2 / n_safe - means ** 2).clamp(min=0.0) + var_smoothing

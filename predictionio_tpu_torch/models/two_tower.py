@@ -2,9 +2,9 @@
 trained with in-batch sampled-softmax negatives; retrieval is MIPS top-k
 over the encoded items.
 
-Port of ``predictionio_tpu/models/two_tower.py`` on one device (the card
-unless ``device="cpu"`` is asked for); the mesh and ``param_shardings``
-are not ported (``mesh`` must be None: ROADMAP Queue 1 item 10b).  The numerics are the
+Port of ``predictionio_tpu/models/two_tower.py``, on one device (the card
+unless ``device="cpu"`` is asked for) or on a ``data × model`` mesh of
+one process (:func:`param_shardings`; below).  The numerics are the
 reference's:
 
 - init: the reference's ``jax.random`` tree drawn by
@@ -42,6 +42,28 @@ preemption, and warm continuation.  ``data_source="auto"`` trains on the
 native feeder's permutation (the reference's CPU runs build it too); a
 failed build raises with the compiler's message instead of falling
 back to ``"numpy"``.
+
+On a mesh (``init_state(cfg, mesh)``, ``train(..., mesh=mesh)``) the
+state's leaves are :class:`~predictionio_tpu_torch.parallel.mesh.
+ShardedTensor` s: the embedding tables row-sharded over ``model``, the
+MLPs replicated, as the reference's :func:`param_shardings` lays them
+out; batches are sharded over ``data`` (a fused window's staging over
+dim 1).  A step (:func:`_mesh_step_math`) is the reference's GSPMD
+program written out in stages: each position gathers its ids' rows of
+its table block (:class:`~predictionio_tpu_torch.ops.embedding.
+GatherRows`, rows it does not own masked to zero) and the blocks of a
+``data`` shard add in ``model`` order, so each looked-up row is one
+block's row plus exact zeros; each ``data`` shard runs the towers on its
+rows (the replicated weights rounded to bfloat16 once for every shard,
+so their gradients add in float32 before the rounding's backward, as one
+product over the whole batch does), scores them against the
+all-gathered item vectors of the whole batch (the in-batch negatives)
+and sums its weighted losses; the shards' sums add in shard order.  ``torch.autograd`` differentiates through the
+stages, each block's gradient is the sum of its positions' in position
+order (:mod:`~predictionio_tpu_torch.parallel.blocks`), and Adam updates
+each block where it lives.  The only float differences from the meshless
+step are the orders of those sums.  A mesh that spans processes is
+refused (ROADMAP Queue 1 item 10c).
 """
 
 from __future__ import annotations
@@ -55,14 +77,39 @@ import torch
 from predictionio_tpu_torch.device import device as resolve_device
 from predictionio_tpu_torch.ops import threefry
 from predictionio_tpu_torch.ops.embedding import GatherRows
+from predictionio_tpu_torch.parallel.blocks import (
+    distinct_blocks,
+    flat_blocks,
+    grads_by_block,
+    leading_slot,
+    map_blocks,
+    position_leaves,
+    rebuild_all,
+)
+from predictionio_tpu_torch.parallel.compat import (
+    all_gather,
+    axis_lane,
+    psum,
+    shard_map,
+)
+from predictionio_tpu_torch.parallel.mesh import (
+    AXIS_DATA,
+    AXIS_MODEL,
+    NamedSharding,
+    PartitionSpec as P,
+    ShardedTensor,
+    put_sharded,
+)
 
-_NO_MESH = ("two-tower on a device mesh (param_shardings) is not ported "
-            "yet (ROADMAP Queue 1 item 10b); pass mesh=None")
+_ACROSS_PROCESSES = (
+    "two-tower training on a mesh that spans processes is not ported yet "
+    "(ROADMAP Queue 1 item 10c); use one process per mesh")
 
 __all__ = ["TwoTowerConfig", "TwoTowerState", "AdamState", "EmptyState",
-           "init_params", "init_state", "train_step", "train_steps_fused",
-           "train", "grow_state", "state_to_host", "state_from_host",
-           "eval_loss", "encode_users", "encode_items", "retrieve"]
+           "init_params", "init_state", "param_shardings", "train_step",
+           "train_steps_fused", "train", "grow_state", "state_to_host",
+           "state_from_host", "eval_loss", "encode_users", "encode_items",
+           "retrieve"]
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
 
@@ -163,18 +210,56 @@ def init_params(cfg: TwoTowerConfig, device=None) -> Dict:
 
 
 def _zero_opt_state(params: Dict) -> Tuple:
-    zeros = lambda t: torch.zeros_like(t)  # noqa: E731
-    return (AdamState(count=0, mu=_map(zeros, params),
-                      nu=_map(zeros, params)), EmptyState())
+    return (AdamState(count=0, mu=_map(_zeros_like, params),
+                      nu=_map(_zeros_like, params)), EmptyState())
+
+
+def param_shardings(cfg: TwoTowerConfig, mesh) -> Dict:
+    """Embedding tables row-sharded over ``model``; MLPs replicated."""
+    return _shardings_like(init_params_host(cfg), mesh)
+
+
+def _shardings_like(tree: Dict, mesh) -> Dict:
+    table = NamedSharding(mesh, P(AXIS_MODEL, None))
+    rep = NamedSharding(mesh, P())
+    return _unflatten(tree, [table, table]
+                      + [rep] * (len(_leaves(tree)) - 2))
+
+
+def _on_mesh(tree: Dict) -> bool:
+    return isinstance(tree["user_embed"], ShardedTensor)
+
+
+def _place(host_tree: Dict, mesh) -> Dict:
+    """A params-shaped tree of host arrays laid out on ``mesh``."""
+    return _unflatten(host_tree, [
+        put_sharded(np.array(a, np.float32), mesh, sh)
+        for a, sh in zip(_leaves(host_tree),
+                         _leaves(_shardings_like(host_tree, mesh)))])
+
+
+def _zeros_like(x):
+    if isinstance(x, ShardedTensor):
+        return map_blocks(torch.zeros_like, x)
+    return torch.zeros_like(x)
 
 
 def init_state(cfg: TwoTowerConfig, mesh=None, *,
                device=None) -> TwoTowerState:
+    """The reference's initial state, on ``device`` or laid out on
+    ``mesh`` by :func:`param_shardings` (each position's device)."""
     if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
-    params = init_params(cfg, device)
+        params = _place(init_params_host(cfg), mesh)
+    else:
+        params = init_params(cfg, device)
     return TwoTowerState(params=params, opt_state=_zero_opt_state(params),
                          step=0)
+
+
+def _to_mesh(state: TwoTowerState, mesh) -> TwoTowerState:
+    """A meshless state's copy laid out on ``mesh``."""
+    snap = state_to_host(state)
+    return state_from_host(snap, mesh=mesh)
 
 
 def state_to_host(state: TwoTowerState) -> Dict:
@@ -182,8 +267,9 @@ def state_to_host(state: TwoTowerState) -> Dict:
     (``params``; ``opt_state`` = ``(AdamState(count, mu, nu),
     EmptyState())``; ``step``) — exact float32 values, so a warm-started
     continuation equals continuing in-process, and the reference's
-    ``state_from_host`` takes it."""
-    to_np = lambda t: t.detach().cpu().numpy()  # noqa: E731
+    ``state_from_host`` takes it.  A mesh state's sharded leaves are
+    gathered."""
+    to_np = _host_array
     adam = state.opt_state[0]
     return {"params": _map(to_np, state.params),
             "opt_state": (AdamState(count=np.asarray(int(adam.count),
@@ -194,14 +280,29 @@ def state_to_host(state: TwoTowerState) -> Dict:
             "step": np.asarray(int(state.step), np.int32)}
 
 
-def state_from_host(snapshot: Dict, device=None) -> TwoTowerState:
+def _host_array(x) -> np.ndarray:
+    if isinstance(x, ShardedTensor):
+        return x.to_host()
+    return x.detach().cpu().numpy()
+
+
+def state_from_host(snapshot: Dict, device=None, *,
+                    mesh=None) -> TwoTowerState:
     """Rebuild a live state from a :func:`state_to_host` snapshot — the
     port's or the reference's (its optax state is a ``(count, mu, nu)``
-    named tuple too) — on ``device``."""
+    named tuple too) — on ``device``, or laid out on ``mesh`` by
+    :func:`param_shardings` (the moments as their parameters)."""
+    count, mu, nu = snapshot["opt_state"][0]
+    if mesh is not None:
+        return TwoTowerState(
+            params=_place(snapshot["params"], mesh),
+            opt_state=(AdamState(count=int(np.asarray(count)),
+                                 mu=_place(mu, mesh), nu=_place(nu, mesh)),
+                       EmptyState()),
+            step=int(np.asarray(snapshot["step"])))
     dev = resolve_device(device)
     put = lambda a: torch.from_numpy(  # noqa: E731
         np.array(a, np.float32)).to(dev)
-    count, mu, nu = snapshot["opt_state"][0]
     return TwoTowerState(
         params=_map(put, snapshot["params"]),
         opt_state=(AdamState(count=int(np.asarray(count)),
@@ -217,7 +318,14 @@ def grow_state(state: TwoTowerState, cfg: TwoTowerConfig) -> TwoTowerState:
     Existing rows keep their trained values AND their adam moments; new
     rows get the reference's deterministic init (keyed off ``cfg.seed``
     and the CURRENT table height through ``fold_in``) with zero moments.
-    ``cfg`` carries the NEW ``n_users``/``n_items``."""
+    ``cfg`` carries the NEW ``n_users``/``n_items``.  A mesh state grows
+    on its first block's device and is laid out on its mesh again."""
+    if _on_mesh(state.params):
+        mesh = state.params["user_embed"].mesh
+        home = distinct_blocks(state.params["user_embed"])[0].device
+        grown_state = grow_state(
+            state_from_host(state_to_host(state), home), cfg)
+        return _to_mesh(grown_state, mesh)
     params = dict(state.params)
     scale = np.float32(cfg.embed_dim ** -0.5)
 
@@ -253,11 +361,26 @@ def grow_state(state: TwoTowerState, cfg: TwoTowerConfig) -> TwoTowerState:
 
 # -- the model ---------------------------------------------------------------
 
+def _bf16_weights(params: Dict) -> Dict:
+    """A tower's layers with each weight rounded to bfloat16 (kept as
+    float32), the operand :func:`_mlp_rounded` multiplies by."""
+    return {"layers": [{"w": layer["w"].to(torch.bfloat16).float(),
+                        "b": layer["b"]} for layer in params["layers"]]}
+
+
 def _mlp(params: Dict, x: torch.Tensor) -> torch.Tensor:
+    return _mlp_rounded(_bf16_weights(params), x)
+
+
+def _mlp_rounded(params: Dict, x: torch.Tensor) -> torch.Tensor:
+    """:func:`_mlp` on weights already rounded by :func:`_bf16_weights`.
+    The rounding's backward rounds the weight's gradient to bfloat16
+    once, after every use of the rounded weight has added its part in
+    float32 (on a mesh: every ``data`` shard's rows)."""
     h = x.to(torch.bfloat16)
     n = len(params["layers"])
     for i, layer in enumerate(params["layers"]):
-        h = h.float() @ layer["w"].to(torch.bfloat16).float()
+        h = h.float() @ layer["w"]
         h = h + layer["b"]
         if i < n - 1:
             h = torch.relu(h)
@@ -305,12 +428,23 @@ def _loss(params: Dict, user_ids, item_ids, weights,
 def _adam(params: List[torch.Tensor], grads: List[torch.Tensor],
           adam: AdamState, lr: float) -> Tuple[List[torch.Tensor],
                                                AdamState]:
-    """One ``optax.adam(lr)`` update, out of place, in optax's order:
-    ``mu = (1-b1)·g + b1·mu``, ``nu = (1-b2)·g² + b2·nu``, both divided
-    by ``1 - b**count`` (float32), ``u = m̂ / (√v̂ + eps) · -lr``,
-    ``p + u``."""
-    count = int(adam.count) + 1
-    mu_l, nu_l = _leaves(adam.mu), _leaves(adam.nu)
+    """One ``optax.adam(lr)`` update of a params tree's leaves."""
+    new, mu, nu = _adam_flat(params, grads, _leaves(adam.mu),
+                             _leaves(adam.nu), int(adam.count) + 1, lr)
+    like = adam.mu
+    return new, AdamState(int(adam.count) + 1, _unflatten(like, mu),
+                          _unflatten(like, nu))
+
+
+def _adam_flat(params: List[torch.Tensor], grads: List[torch.Tensor],
+               mu_l: List[torch.Tensor], nu_l: List[torch.Tensor],
+               count: int, lr: float):
+    """``optax.adam(lr)``'s update at step ``count``, out of place, in
+    optax's order: ``mu = (1-b1)·g + b1·mu``, ``nu = (1-b2)·g² + b2·nu``,
+    both divided by ``1 - b**count`` (float32), ``u = m̂ / (√v̂ + eps) ·
+    -lr``, ``p + u``.  Elementwise, so any list of matching tensors (a
+    tree's leaves, a mesh's blocks) takes it.  Returns the new params and
+    both moments."""
     mu = torch._foreach_mul(grads, 1 - _B1)
     torch._foreach_add_(mu, torch._foreach_mul(mu_l, _B1))
     nu = torch._foreach_mul(grads, grads)
@@ -325,15 +459,15 @@ def _adam(params: List[torch.Tensor], grads: List[torch.Tensor],
     upd = torch._foreach_div(mu, bc1)
     torch._foreach_div_(upd, den)
     torch._foreach_mul_(upd, -lr)
-    new = torch._foreach_add(params, upd)
-    like = adam.mu
-    return new, AdamState(count, _unflatten(like, mu), _unflatten(like, nu))
+    return torch._foreach_add(params, upd), mu, nu
 
 
 def _step_math(state: TwoTowerState, user_ids, item_ids, weights,
                cfg: TwoTowerConfig) -> Tuple[TwoTowerState, torch.Tensor]:
     """One optimizer step's math — shared verbatim by :func:`train_step`
     and the fused window, so fused training is the same computation."""
+    if _on_mesh(state.params):
+        return _mesh_step_math(state, user_ids, item_ids, weights, cfg)
     leaves = [p.detach().requires_grad_(True)
               for p in _leaves(state.params)]
     params = _unflatten(state.params, leaves)
@@ -348,24 +482,149 @@ def _step_math(state: TwoTowerState, user_ids, item_ids, weights,
             loss.detach())
 
 
+# -- the mesh step ------------------------------------------------------------
+
+def _at(tree, p: int):
+    """A tree of :class:`ShardedTensor` s as position ``p``'s blocks."""
+    if isinstance(tree, dict):
+        return {k: _at(v, p) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_at(v, p) for v in tree]
+    return tree.block(p)
+
+
+def _owned_rows(axis_index, block: torch.Tensor,
+                ids: torch.Tensor) -> torch.Tensor:
+    """The rows of ``ids`` this position's row block owns, gathered
+    through :class:`GatherRows`, and exact zeros for the others."""
+    rows = block.shape[0]
+    rel = ids.long() - axis_index(AXIS_MODEL) * rows
+    mine = (rel >= 0) & (rel < rows)
+    got = GatherRows.apply(block, rel.clamp(0, rows - 1))
+    return torch.where(mine[:, None], got, torch.zeros_like(got))
+
+
+def _mesh_towers(params: Dict, ids: ShardedTensor, table: str,
+                 tower: str) -> List[torch.Tensor]:
+    """Each ``data`` shard's tower outputs, on its lane position's device:
+    the masked gathers of every position, their ``model`` blocks added
+    in order, then the MLP on the shard's rows.  The replicated MLP's
+    weights are rounded to bfloat16 once, on the first lane position, and
+    every shard multiplies by that copy: the weight gradients of the
+    shards then add in float32 before the rounding's backward rounds
+    them, as the meshless step's one product over the whole batch does
+    (a rounding a shard would give partial sums of bfloat16 gradients)."""
+    mesh = ids.mesh
+    parts = shard_map(_owned_rows, mesh=mesh,
+                      in_specs=(P(AXIS_MODEL, None), P(AXIS_DATA)),
+                      out_specs=None)(params[table], ids)
+    part_of = dict(zip(mesh.local_positions(), parts))
+    lane = axis_lane(mesh, AXIS_DATA)
+    mlp = _bf16_weights(_at(params[tower], lane[0]))
+    out = []
+    for lead in lane:
+        d = mesh.position(lead)[AXIS_DATA]
+        row = axis_lane(mesh, AXIS_MODEL, at={AXIS_DATA: d})
+        dev = params[table].block(lead).device
+        e = psum([part_of[p] for p in row], device=dev)
+        here = {"layers": [{k: v.to(dev) for k, v in layer.items()}
+                           for layer in mlp["layers"]]}
+        out.append(_normalized(_mlp_rounded(here, e)))
+    return out
+
+
+def _mesh_loss(params: Dict, user_ids: ShardedTensor,
+               item_ids: ShardedTensor, weights: ShardedTensor,
+               temperature: float) -> torch.Tensor:
+    """:func:`_loss` over a ``data``-sharded batch: each shard's rows
+    against the all-gathered item vectors, the shards' weighted sums
+    added in shard order."""
+    mesh = user_ids.mesh
+    lane = axis_lane(mesh, AXIS_DATA)
+    u = _mesh_towers(params, user_ids, "user_embed", "user_mlp")
+    v = _mesh_towers(params, item_ids, "item_embed", "item_mlp")
+    items = [item_ids.block(p) for p in lane]
+    wts = [weights.block(p) for p in lane]
+    nums, dens = [], []
+    for d, ud in enumerate(u):
+        dev, rows = ud.device, ud.shape[0]
+        v_all = all_gather(v, device=dev)                     # [B, D]
+        i_all = all_gather(items, device=dev)
+        w_all = all_gather(wts, device=dev)
+        logits = (ud @ v_all.T) / temperature                 # [B/n, B]
+        diag = d * rows + torch.arange(rows, device=dev)
+        same = items[d][:, None] == i_all[None, :]
+        pad_col = (w_all <= 0.0)[None, :]
+        eye = torch.arange(v_all.shape[0], device=dev)[None, :] \
+            == diag[:, None]
+        logits = logits.masked_fill((same | pad_col) & ~eye, -1e9)
+        top = logits.max(dim=-1, keepdim=True).values.detach()
+        log_norm = torch.log(torch.exp(logits - top).sum(dim=-1)) \
+            + top[:, 0]
+        losses = log_norm - logits.gather(1, diag[:, None])[:, 0]
+        nums.append((losses * wts[d]).sum())
+        dens.append(wts[d].sum())
+    dev0 = u[0].device
+    return psum(nums, device=dev0) / torch.clamp(psum(dens, device=dev0),
+                                                 min=1.0)
+
+
+def _mesh_step_math(state: TwoTowerState, user_ids: ShardedTensor,
+                    item_ids: ShardedTensor, weights: ShardedTensor,
+                    cfg: TwoTowerConfig
+                    ) -> Tuple[TwoTowerState, torch.Tensor]:
+    """:func:`_step_math` on a mesh state: the loss over the stages, the
+    positions' gradients summed a block, Adam on each block where it
+    lives."""
+    sharded = _leaves(state.params)
+    mesh = sharded[0].mesh
+    if mesh.multi_process:
+        raise NotImplementedError(_ACROSS_PROCESSES)
+    leaves = [position_leaves(x) for x in sharded]
+    loss = _mesh_loss(_unflatten(state.params, leaves), user_ids, item_ids,
+                      weights, cfg.temperature)
+    grads = grads_by_block(loss, sharded, leaves)
+    adam = state.opt_state[0]
+    with torch.no_grad():
+        new, mu, nu = _adam_flat(
+            *(flat_blocks(xs) for xs in (sharded, grads, _leaves(adam.mu),
+                                         _leaves(adam.nu))),
+            int(adam.count) + 1, float(cfg.learning_rate))
+
+    def laid_out(blocks: List[torch.Tensor]) -> Dict:
+        return _unflatten(state.params, rebuild_all(sharded, blocks))
+
+    return (TwoTowerState(
+        params=laid_out(new),
+        opt_state=(AdamState(int(adam.count) + 1, laid_out(mu),
+                             laid_out(nu)), state.opt_state[1]),
+        step=int(state.step) + 1), loss.detach())
+
+
 def train_step(state: TwoTowerState, user_ids, item_ids, weights,
                cfg: TwoTowerConfig) -> Tuple[TwoTowerState, torch.Tensor]:
-    """One optimizer step on one batch (tensors on the state's device);
+    """One optimizer step on one batch (tensors on the state's device;
+    on a mesh state, :class:`ShardedTensor` s laid out ``P("data")``);
     returns the new state and the loss (0-dim tensor)."""
     return _step_math(state, user_ids, item_ids, weights, cfg)
+
+
+def _slot(x, k: int):
+    return leading_slot(x, k) if isinstance(x, ShardedTensor) else x[k]
 
 
 def train_steps_fused(state: TwoTowerState, user_ids, item_ids, weights,
                       cfg: TwoTowerConfig
                       ) -> Tuple[TwoTowerState, torch.Tensor]:
     """K optimizer steps issued back to back with no host sync: the batch
-    tensors carry a leading slot axis ([K, B]); returns the state after
-    the K-th step and the per-step loss vector [K].  Bitwise K
-    sequential :func:`train_step` calls on the same batches."""
+    tensors carry a leading slot axis ([K, B]; on a mesh, laid out
+    ``P(None, "data")``); returns the state after the K-th step and the
+    per-step loss vector [K].  Bitwise K sequential :func:`train_step`
+    calls on the same batches."""
     losses = []
     for k in range(user_ids.shape[0]):
-        state, loss = _step_math(state, user_ids[k], item_ids[k],
-                                 weights[k], cfg)
+        state, loss = _step_math(state, _slot(user_ids, k),
+                                 _slot(item_ids, k), _slot(weights, k), cfg)
         losses.append(loss)
     return state, torch.stack(losses)
 
@@ -408,18 +667,27 @@ def train(
     steps per window (``"auto"``: the HBM-guided autotuner); supervision
     then sits at the window boundary.  ``device``: the card unless
     ``"cpu"`` is asked for.
+
+    ``mesh``: train on it (the module docstring's layout; batches over
+    ``data``, which must divide ``batch_size``; tables over ``model``,
+    which must divide their heights), its positions' devices in place of
+    ``device``.  A meshless ``warm_state`` is laid out on the mesh first.
     """
     from predictionio_tpu_torch.resilience.supervision import (
         DivergenceGuard,
         RollbackRequested,
     )
 
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
     if data_source not in ("auto", "feeder", "numpy"):
         raise ValueError(f"data_source {data_source!r}: use auto, feeder "
                          "or numpy")
-    if device is None and warm_state is not None:
+    if mesh is not None:
+        if mesh.multi_process:
+            raise NotImplementedError(_ACROSS_PROCESSES)
+        device = mesh.devices.flat[0]
+        if warm_state is not None and not _on_mesh(warm_state.params):
+            warm_state = _to_mesh(warm_state, mesh)
+    elif device is None and warm_state is not None:
         device = warm_state.params["user_embed"].device
     dev = resolve_device(device)
     if dev.type == "cuda":
@@ -438,7 +706,8 @@ def train(
                                   save_every=save_every,
                                   data_source=data_source, guard=guard,
                                   fuse_steps=fuse_steps,
-                                  warm_state=warm_state, dev=dev)
+                                  warm_state=warm_state, dev=dev,
+                                  mesh=mesh)
         except RollbackRequested:
             continue  # re-enter: restore_step fast-forwards to last-good
 
@@ -446,7 +715,7 @@ def train(
 def _train_attempt(user_ids, item_ids, cfg: TwoTowerConfig, weights, *,
                    checkpoint_dir, save_every: int, data_source: str, guard,
                    fuse_steps, warm_state: Optional[TwoTowerState],
-                   dev: torch.device) -> TwoTowerState:
+                   dev: torch.device, mesh=None) -> TwoTowerState:
     from predictionio_tpu_torch.data.fusion import (
         FusionAutotuner,
         FusionPlan,
@@ -467,7 +736,7 @@ def _train_attempt(user_ids, item_ids, cfg: TwoTowerConfig, weights, *,
     if weights is None:
         weights = np.ones(n, dtype=np.float32)
     state = warm_state if warm_state is not None \
-        else init_state(cfg, device=dev)
+        else init_state(cfg, mesh, device=dev)
     total_steps = cfg.epochs * ((n + cfg.batch_size - 1) // cfg.batch_size)
     # Warm continuations fingerprint on the carried step too: a crash-
     # resume checkpoint from a DIFFERENT base generation must not be
@@ -537,12 +806,24 @@ def _train_attempt(user_ids, item_ids, cfg: TwoTowerConfig, weights, *,
     plan = FusionPlan(k0)
     tuner = FusionAutotuner("two_tower", plan) if auto else None
 
+    staging = {"device": dev}
+    if mesh is not None:
+        # A batch shards over ``data``; a fused superbatch's batch axis is
+        # dim 1, so its staging shards dim 1 and replicates the slots.
+        batch_sh = NamedSharding(mesh, P(AXIS_DATA))
+        fused_sh = NamedSharding(mesh, P(None, AXIS_DATA))
+        staging = {
+            "put_fn": lambda arrays: tuple(
+                put_sharded(a, mesh, batch_sh) for a in arrays),
+            "fused_put_fn": lambda arrays: tuple(
+                put_sharded(a, mesh, fused_sh) for a in arrays)}
+
     probe = PipelineProbe("two_tower")
     global_step = start_step
     pending = None  # (losses, slot steps) of the in-flight dispatch
     in_flight = 0  # raw steps covered by the in-flight dispatch
     try:
-        with DevicePrefetcher(source, prep, device=dev,
+        with DevicePrefetcher(source, prep, **staging,
                               skip_steps=start_step, fuse_plan=plan,
                               model="two_tower") as pf:
             for batch in probe.iter_prefetched(pf):
@@ -607,10 +888,20 @@ def _ids(ids, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.asarray(ids, np.int64)).to(dev)
 
 
+def _whole(params: Dict) -> Dict:
+    """``params`` with a mesh state's leaves assembled whole on their
+    first block's device (the meshless tree as is)."""
+    if not _on_mesh(params):
+        return params
+    with torch.no_grad():
+        return _map(lambda x: x.full(), params)
+
+
 def eval_loss(params: Dict, user_ids, item_ids, cfg: TwoTowerConfig
               ) -> float:
     """In-batch sampled-softmax loss of ``params`` on one interaction
     sample — the warm-start regression gate's comparable scalar."""
+    params = _whole(params)
     dev = params["user_embed"].device
     u = _ids(np.asarray(user_ids, np.int32), dev)
     i = _ids(np.asarray(item_ids, np.int32), dev)
@@ -620,12 +911,14 @@ def eval_loss(params: Dict, user_ids, item_ids, cfg: TwoTowerConfig
 
 
 def encode_users(params: Dict, user_ids) -> torch.Tensor:
+    params = _whole(params)
     with torch.no_grad():
         return _forward_users(params, _ids(user_ids,
                                            params["user_embed"].device))
 
 
 def encode_items(params: Dict, item_ids) -> torch.Tensor:
+    params = _whole(params)
     with torch.no_grad():
         return _forward_items(params, _ids(item_ids,
                                            params["item_embed"].device))
@@ -645,6 +938,7 @@ def retrieve(params: Dict, user_ids, n_items: int, k: int,
     from predictionio_tpu_torch.ops.fused_topk import fused_topk
     from predictionio_tpu_torch.ops.topk import top_k_scores
 
+    params = _whole(params)
     q = encode_users(params, user_ids).contiguous()
     all_items = encode_items(
         params, torch.arange(n_items, device=params["item_embed"].device)

@@ -74,8 +74,9 @@ def _sync_target(outputs: Any) -> Any:
     The model states are plain dataclasses, so passed raw they are
     opaque leaves and the sync would find no tensor in them, zeroing
     out the device_wait attribution.  Walking dataclass fields (and
-    containers, dicts included) down to the real tensors makes the sync
-    wait on what the dispatch actually produced."""
+    containers, dicts included, and a sharded array's blocks) down to
+    the real tensors makes the sync wait on what the dispatch actually
+    produced."""
     if dataclasses.is_dataclass(outputs) and not isinstance(outputs, type):
         return [_sync_target(getattr(outputs, f.name))
                 for f in dataclasses.fields(outputs)]
@@ -83,6 +84,8 @@ def _sync_target(outputs: Any) -> Any:
         return [_sync_target(x) for x in outputs.values()]
     if isinstance(outputs, (list, tuple)):
         return [_sync_target(x) for x in outputs]
+    if hasattr(outputs, "shards") and hasattr(outputs, "sharding"):
+        return [t for t in outputs.shards if t is not None]
     return outputs
 
 

@@ -3,7 +3,9 @@
 Port of ``predictionio_tpu/parallel/``: a single-controller mesh of
 ``torch.device`` s (``mesh``), ``shard_map`` and the fixed-order shard
 collectives (``compat``), the ``torch.distributed`` gang
-(``distributed``) and the collective micro-benchmark (``collectives``).
+(``distributed``), the collective micro-benchmark (``collectives``), ring
+and Ulysses attention over the ``sequence`` axis (``ring``) and
+block-wise training on sharded parameters (``blocks``).
 """
 
 from predictionio_tpu_torch.parallel.mesh import (
@@ -17,6 +19,11 @@ from predictionio_tpu_torch.parallel.mesh import (
     replicated,
     sharding,
 )
+from predictionio_tpu_torch.parallel.ring import (
+    local_attention,
+    ring_attention,
+    ulysses_attention,
+)
 
 __all__ = [
     "AXIS_DATA",
@@ -28,4 +35,7 @@ __all__ = [
     "make_mesh",
     "replicated",
     "sharding",
+    "local_attention",
+    "ring_attention",
+    "ulysses_attention",
 ]

@@ -10,16 +10,28 @@ its first argument, ``axis_index(name)``: its position on a mesh axis
 (what ``lax.axis_index`` gives).
 
 A collective inside a per-shard function becomes a call on the list of
-per-shard values (``out_specs=None`` hands that list back): :func:`psum`
-and :func:`all_gather` reduce and concatenate in shard order, so a sum
-over shards is the same bits on every run.  Across processes they first
-gather every process's shards through ``torch.distributed`` (a fixed
-rank order), so every process reduces the same list.
+per-shard values (``out_specs=None`` hands that list back), made
+between two ``shard_map`` stages: :func:`psum` and :func:`all_gather`
+reduce and concatenate in shard order, so a sum over shards is the same
+bits on every run; :func:`psum_scatter`, :func:`ppermute` and
+:func:`all_to_all` are ``lax.psum_scatter`` / ``lax.ppermute`` /
+``lax.all_to_all`` with ``tiled=True``, their sums in shard order too.
+Across processes they first gather every process's shards through
+``torch.distributed`` (a fixed rank order), so every process reduces
+the same list.
+
+In one process each collective is plain tensor arithmetic (copies
+between the shards' devices, slices, sums), so ``torch.autograd``
+differentiates through it: a model's loss over shards has gradients on
+every shard's block.  Across processes a gathered part carries no
+gradient back to the process that sent it, so a collective on parts
+that require grad there raises (ROADMAP Queue 1 item 10c) instead of
+returning a silently partial gradient.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -31,17 +43,20 @@ from predictionio_tpu_torch.parallel.mesh import (
     block_slices,
 )
 
-__all__ = ["shard_map", "psum", "all_gather", "all_to_all", "axis_lane",
-           "lane_outputs"]
+__all__ = ["shard_map", "psum", "all_gather", "all_to_all", "psum_scatter",
+           "ppermute", "axis_lane", "lane_outputs"]
 
 
-def axis_lane(mesh: Mesh, axis: str) -> List[int]:
-    """Flat positions along ``axis`` with every other axis at index 0,
-    in axis order: one representative position per shard of ``axis``."""
+def axis_lane(mesh: Mesh, axis: str,
+              at: Optional[Dict[str, int]] = None) -> List[int]:
+    """Flat positions along ``axis`` with every other axis at index 0
+    (or at its index in ``at``), in axis order: one representative
+    position per shard of ``axis``."""
+    at = at or {}
     out = []
     for flat in range(mesh.size):
         pos = mesh.position(flat)
-        if all(i == 0 for a, i in pos.items() if a != axis):
+        if all(i == at.get(a, 0) for a, i in pos.items() if a != axis):
             out.append(flat)
     return out
 
@@ -157,8 +172,23 @@ def _every_process(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 def _gathered(parts: Sequence[torch.Tensor], mesh: Optional[Mesh]
               ) -> List[torch.Tensor]:
     if mesh is not None and mesh.multi_process:
+        if torch.is_grad_enabled() and any(p.requires_grad for p in parts):
+            raise NotImplementedError(
+                "autograd through a collective on a mesh that spans "
+                "processes is not ported yet (ROADMAP Queue 1 item 10c): "
+                "a part gathered from another process carries no gradient "
+                "back to it")
         return _every_process(parts)
     return list(parts)
+
+
+def _first_local(mesh: Optional[Mesh], n_local: int) -> int:
+    """Index, in the every-process list, of this process's first part."""
+    if mesh is not None and mesh.multi_process:
+        from predictionio_tpu_torch.parallel.distributed import process_index
+
+        return process_index() * n_local
+    return 0
 
 
 def psum(parts: Sequence[torch.Tensor], mesh: Optional[Mesh] = None, *,
@@ -185,20 +215,72 @@ def all_gather(parts: Sequence[torch.Tensor], mesh: Optional[Mesh] = None,
     return torch.cat([p.to(dev) for p in parts], dim=dim)
 
 
-def all_to_all(parts: Sequence[torch.Tensor], mesh: Optional[Mesh] = None
+def all_to_all(parts: Sequence[torch.Tensor], mesh: Optional[Mesh] = None,
+               *, split_dim: int = 0, concat_dim: int = 0
                ) -> List[torch.Tensor]:
-    """Shard ``i``'s part splits into n pieces along dim 0; shard ``j``
-    gets piece ``j`` of every shard, concatenated in shard order, on its
-    own part's device.  Returns the parts of this process's shards."""
+    """``lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True)``:
+    shard ``i``'s part splits into n pieces along ``split_dim``; shard
+    ``j`` gets piece ``j`` of every shard, concatenated in shard order
+    along ``concat_dim``, on its own part's device.  Returns the parts of
+    this process's shards."""
     local = list(parts)
     every = _gathered(local, mesh)
     n = len(every)
-    pieces = [p.chunk(n, dim=0) for p in every]
-    first = 0
-    if mesh is not None and mesh.multi_process:
-        from predictionio_tpu_torch.parallel.distributed import process_index
-
-        first = process_index() * len(local)
+    if every[0].shape[split_dim] % n:
+        raise ValueError(f"dim {split_dim} of size "
+                         f"{every[0].shape[split_dim]} does not split over "
+                         f"{n} shards")
+    pieces = [p.chunk(n, dim=split_dim) for p in every]
+    first = _first_local(mesh, len(local))
     return [torch.cat([pieces[i][first + j].to(local[j].device)
-                       for i in range(n)], dim=0)
+                       for i in range(n)], dim=concat_dim)
             for j in range(len(local))]
+
+
+def psum_scatter(parts: Sequence[torch.Tensor], mesh: Optional[Mesh] = None,
+                 *, dim: int = 0) -> List[torch.Tensor]:
+    """``lax.psum_scatter(x, axis, scatter_dimension=dim, tiled=True)``:
+    every shard's part splits into n pieces along ``dim``; shard ``j``
+    gets the sum of piece ``j`` of every shard, added in shard order on
+    its own part's device.  Returns the parts of this process's
+    shards."""
+    local = list(parts)
+    every = _gathered(local, mesh)
+    n = len(every)
+    if every[0].shape[dim] % n:
+        raise ValueError(f"dim {dim} of size {every[0].shape[dim]} does not "
+                         f"split over {n} shards")
+    pieces = [p.chunk(n, dim=dim) for p in every]
+    first = _first_local(mesh, len(local))
+    out = []
+    for j in range(len(local)):
+        dev = local[j].device
+        acc = pieces[0][first + j].to(dev, copy=True)
+        for i in range(1, n):
+            acc = acc + pieces[i][first + j].to(dev)
+        out.append(acc)
+    return out
+
+
+def ppermute(parts: Sequence[torch.Tensor], mesh: Optional[Mesh] = None,
+             *, perm: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
+    """``lax.ppermute(x, axis, perm)``: shard ``dst`` gets shard
+    ``src``'s part for each ``(src, dst)`` of ``perm``, on its own
+    part's device; a shard that no pair names gets zeros.  Returns the
+    parts of this process's shards."""
+    local = list(parts)
+    every = _gathered(local, mesh)
+    n = len(every)
+    srcs = {}
+    for src, dst in perm:
+        if not (0 <= src < n and 0 <= dst < n) or dst in srcs:
+            raise ValueError(f"perm {list(perm)!r} is not a permutation "
+                             f"of {n} shards")
+        srcs[dst] = src
+    first = _first_local(mesh, len(local))
+    out = []
+    for j in range(len(local)):
+        src = srcs.get(first + j)
+        out.append(torch.zeros_like(local[j]) if src is None
+                   else every[src].to(local[j].device))
+    return out

@@ -118,12 +118,19 @@ class Mesh:
 
 
 class NamedSharding:
-    """``mesh`` + :class:`PartitionSpec`."""
+    """``mesh`` + :class:`PartitionSpec`.  Every axis the spec names must
+    be one of the mesh's (JAX's ``NamedSharding`` check, its message)."""
 
     def __init__(self, mesh: Mesh, spec: PartitionSpec):
         self.mesh = mesh
         self.spec = spec if isinstance(spec, PartitionSpec) \
             else PartitionSpec(*spec)
+        for entry in self.spec:
+            for a in _axes(entry):
+                if a not in mesh.axis_names:
+                    raise ValueError(
+                        f"Resource axis: {a} of {self.spec!r} is not found "
+                        f"in mesh: {mesh.axis_names}.")
 
     @property
     def is_fully_replicated(self) -> bool:
@@ -206,6 +213,25 @@ class ShardedTensor:
         for p, blk in enumerate(blocks):
             out[block_slices(self.shape, self.sharding, p)] = \
                 blk.detach().cpu().numpy()
+        return out
+
+    def full(self, device=None) -> torch.Tensor:
+        """The global array as one tensor on ``device`` (default: the
+        first block's), assembled from the blocks in one process;
+        differentiable with respect to them."""
+        if self.mesh.multi_process:
+            raise ValueError("full() assembles one process's blocks; use "
+                             "to_host() on a mesh that spans processes")
+        first = self.shards[0]
+        dev = first.device if device is None else torch.device(device)
+        out = first.new_zeros(self.shape, device=dev)
+        placed = set()
+        for p, blk in enumerate(self.shards):
+            sl = block_slices(self.shape, self.sharding, p)
+            key = tuple((s.start, s.stop) for s in sl)
+            if key not in placed:
+                placed.add(key)
+                out[sl] = blk.to(dev)
         return out
 
     def __repr__(self) -> str:

@@ -160,7 +160,12 @@ def install_preemption_handler() -> bool:
 # -- finiteness --------------------------------------------------------------
 
 def _leaf_finite(x: Any) -> bool:
-    """True when ``x`` is not a non-finite float tensor/array/scalar."""
+    """True when ``x`` is not a non-finite float tensor/array/scalar (a
+    sharded array: none of its blocks)."""
+    from predictionio_tpu_torch.parallel.mesh import ShardedTensor
+
+    if isinstance(x, ShardedTensor):
+        return all(_leaf_finite(t) for t in x.shards if t is not None)
     if isinstance(x, torch.Tensor):
         if not (x.is_floating_point() or x.is_complex()):
             return True

@@ -13,7 +13,9 @@ label | attrs.  The contract is the reference's:
 
 Both algorithms train and predict with tensors on ``ctx.device`` (the
 card unless the caller asks for the CPU): :mod:`models.naive_bayes` and
-:mod:`models.linear`.  The pickled wrappers hold CPU copies; a server's
+:mod:`models.linear`; with ``ctx.mesh`` (``pio train --mesh data=N``)
+both shard the rows over ``data`` and join the shards' sums in shard
+order.  The pickled wrappers hold CPU copies; a server's
 ``post_load`` moves them to its device.  A model trained elsewhere is
 carried in with :func:`model_from_numpy`.
 """

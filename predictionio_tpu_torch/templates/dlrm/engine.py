@@ -16,8 +16,10 @@ Training runs :mod:`predictionio_tpu_torch.models.dlrm` on
 fusion); ``DLRMAlgorithm.warm_start`` is the refresh loop's delta warm
 start, continuing the carried train state on the delta window.  The
 model's state lives on the serving device and travels as host numpy in
-its pickle.  Not ported: the expert-sharded lookup over a mesh (ROADMAP
-Queue 1 item 10b).
+its pickle.  Training takes ``ctx.mesh`` (``pio train --mesh
+expert=N``: the table row-sharded over ``expert``, the lookup
+:func:`~predictionio_tpu_torch.models.dlrm.sharded_embedding_lookup`);
+the served state is gathered onto the server's device.
 """
 
 from __future__ import annotations

@@ -21,8 +21,11 @@ entities and continues training on the delta window.  A generation
 trained by the reference is carried in with :func:`model_from_numpy`.
 Every generation carries its quality scorecard and, when it built IVF
 or PQ, its recall scorecard, both pinned to the item corpus's
-fingerprint.  Not ported yet: the serving mesh's sharding in
-``post_load``.
+fingerprint.  Training takes ``ctx.mesh`` (``pio train --mesh
+data=N,model=M``: batches over ``data``, tables over ``model``); with a
+serving mesh (``pio deploy --mesh``) ``post_load`` row-shards a corpus
+above ``PIO_SERVE_SHARD_ABOVE`` items over ``data``, so predict routes
+through the ``sharded`` rung (the fused top-k kernel on every shard).
 """
 
 from __future__ import annotations
@@ -179,10 +182,14 @@ class TwoTowerModelWrapper:
         self._device = None
 
     def post_load(self, ctx: RuntimeContext) -> None:
-        """Serving-time hook: the device the server runs on.  (The
-        reference also row-shards a large corpus over a serving mesh;
-        the mesh is not ported.)"""
+        """Serving-time hook: the device the server runs on; with a
+        serving mesh and a corpus above ``PIO_SERVE_SHARD_ABOVE`` items,
+        the item matrix is row-sharded over the ``data`` axis at load
+        time, so predict routes through the mesh-sharded exact rung."""
         self._device = ctx.device
+        mesh = getattr(ctx, "mesh", None)
+        if mesh is not None:
+            self.retriever().maybe_shard(mesh)
 
     def retriever(self) -> Retriever:
         """THE serving route to the item corpus — one per loaded
@@ -311,17 +318,15 @@ class TwoTowerAlgorithm(Algorithm):
     def _wrap(self, ctx: RuntimeContext, state: tt_lib.TwoTowerState,
               cfg: tt_lib.TwoTowerConfig, user_index: BiMap,
               item_index: BiMap, n_examples: int) -> TwoTowerModelWrapper:
-        """Encode every user and item on the state's device, keep them as
-        numpy, build the train-time IVF index and PQ codes from the
-        normalised item vectors (policy-gated: ``PIO_IVF`` /
-        ``PIO_PQ``), and the quality and recall scorecards."""
-        import torch
-
-        dev = state.params["user_embed"].device
+        """Encode every user and item on the state's device (a mesh
+        state's, gathered whole), keep them as numpy, build the
+        train-time IVF index and PQ codes from the normalised item
+        vectors (policy-gated: ``PIO_IVF`` / ``PIO_PQ``), and the quality
+        and recall scorecards."""
         user_vecs = tt_lib.encode_users(
-            state.params, torch.arange(cfg.n_users, device=dev)).cpu().numpy()
+            state.params, np.arange(cfg.n_users)).cpu().numpy()
         item_vecs = tt_lib.encode_items(
-            state.params, torch.arange(cfg.n_items, device=dev)).cpu().numpy()
+            state.params, np.arange(cfg.n_items)).cpu().numpy()
         ivf = build_train_index(item_vecs, name="twotower", seed=cfg.seed)
         pq = build_train_pq(item_vecs, name="twotower", ivf=ivf,
                             seed=cfg.seed)

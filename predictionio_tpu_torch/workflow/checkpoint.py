@@ -20,8 +20,13 @@ temporary name in the directory, then moves it onto ``<step>.pt`` with
 synchronous, so :meth:`TrainCheckpointer.flush` has nothing to wait
 for.  The on-disk format is the port's own: neither package reads the
 other's checkpoints.  A state is any nesting of dicts, lists, tuples
-(named ones included), tensors and plain values; :meth:`restore_step`
-maps the restored tensors onto the device of ``state_like``.
+(named ones included), tensors, :class:`~predictionio_tpu_torch.
+parallel.mesh.ShardedTensor` s and plain values; :meth:`restore_step`
+maps the restored tensors onto the device of ``state_like``.  A sharded
+array is saved as its spec, its global shape and its distinct blocks
+(positions that share a tensor share one saved block); restore places
+each block back on its position's device of ``state_like``'s mesh,
+shared as it was, after checking that the spec and shape agree.
 """
 
 from __future__ import annotations
@@ -42,8 +47,81 @@ __all__ = ["TrainCheckpointer"]
 _STEP_FILE = re.compile(r"^(\d+)\.pt$")
 
 
+_SHARDED = "__pio_sharded__"
+
+
+def _sharded_to_host(x) -> dict:
+    """A :class:`ShardedTensor` as a plain record: its spec, its global
+    shape and its distinct blocks on the CPU, with the block index of
+    each of this process's positions (-1 for another process's)."""
+    index, blocks, ids = [], [], {}
+    for t in x.shards:
+        if t is None:
+            index.append(-1)
+            continue
+        if id(t) not in ids:
+            ids[id(t)] = len(blocks)
+            blocks.append(t.detach().to("cpu", copy=True))
+        index.append(ids[id(t)])
+    return {_SHARDED: True, "spec": tuple(x.spec), "shape": tuple(x.shape),
+            "index": index, "blocks": blocks}
+
+
+def _sharded_from_host(record: dict, like):
+    """Place a :func:`_sharded_to_host` record back on ``like``'s mesh:
+    each position's block on that position's device."""
+    from predictionio_tpu_torch.parallel.mesh import ShardedTensor
+
+    if tuple(record["spec"]) != tuple(like.spec) \
+            or tuple(record["shape"]) != tuple(like.shape):
+        raise ValueError(
+            f"checkpointed array laid out as {record['spec']!r} "
+            f"{record['shape']}, the run's as {tuple(like.spec)!r} "
+            f"{tuple(like.shape)}")
+    placed: dict = {}
+    shards = []
+    for p, (i, t) in enumerate(zip(record["index"], like.shards)):
+        if t is None:
+            shards.append(None)
+            continue
+        key = (i, str(t.device))
+        if key not in placed:
+            placed[key] = record["blocks"][i].to(t.device)
+        shards.append(placed[key])
+    return ShardedTensor(like.sharding, like.shape, shards)
+
+
+def _restore_like(state: Any, like: Any) -> Any:
+    """``state`` (as loaded) with each sharded record placed as the
+    matching leaf of ``like`` lies."""
+    if isinstance(state, dict) and state.get(_SHARDED):
+        return _sharded_from_host(state, like)
+    if isinstance(state, dict):
+        return {k: _restore_like(v, like[k] if isinstance(like, dict)
+                                 else None) for k, v in state.items()}
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return type(state)(*(_restore_like(v, w)
+                             for v, w in zip(state, like)))
+    if isinstance(state, (list, tuple)):
+        return type(state)(_restore_like(v, w) for v, w in zip(state, like))
+    return state
+
+
+def _has_sharded(state: Any) -> bool:
+    if isinstance(state, dict):
+        return state.get(_SHARDED, False) or any(
+            _has_sharded(v) for v in state.values())
+    if isinstance(state, (list, tuple)):
+        return any(_has_sharded(v) for v in state)
+    return False
+
+
 def _to_host(state: Any) -> Any:
     """``state`` with every tensor copied to the CPU (same nesting)."""
+    from predictionio_tpu_torch.parallel.mesh import ShardedTensor
+
+    if isinstance(state, ShardedTensor):
+        return _sharded_to_host(state)
     if isinstance(state, torch.Tensor):
         return state.detach().to("cpu", copy=True)
     if isinstance(state, dict):
@@ -152,6 +230,9 @@ class TrainCheckpointer:
             self._step_path(latest),
             map_location=_device_of(state_like) or "cpu",
             weights_only=False)
+        if _has_sharded(self.restored_state):
+            self.restored_state = _restore_like(self.restored_state,
+                                                state_like)
         logger.info("Resumed training from checkpoint step %d (%s)",
                     latest, self.directory)
         if total_steps is not None and latest >= total_steps:

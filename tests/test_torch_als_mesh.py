@@ -194,13 +194,63 @@ def test_gather_window_must_be_a_bool_or_auto():
                                 mesh=mesh)
 
 
-def test_mesh_train_refuses_sweep_checkpoints(tmp_path):
+@pytest.mark.parametrize("sharding", ["replicated", "sharded"])
+def test_a_mesh_trains_resume_equals_its_uninterrupted_train(
+        tmp_path, monkeypatch, sharding):
+    """Sweep checkpoints of a mesh train: each factor block saved with its
+    spec and restored onto its position.  Preempted after its second
+    chunk, the train resumes to the uninterrupted mesh train's factors
+    bit for bit, and the resumed blocks keep the mesh layout; a NaN
+    chunk is rolled back and replayed to the same factors."""
+    from predictionio_tpu_torch.resilience import supervision as sup
+
     users, items, ratings = _ratings()
-    mesh = make_mesh({"data": 2}, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        pals.train_als(users, items, ratings, 30, 20,
-                       pals.ALSConfig(**BASE), mesh=mesh,
-                       checkpoint_dir=tmp_path, save_every=1)
+    mesh = make_mesh({"data": 4}, device="cpu")
+    cfg = pals.ALSConfig(**dict(BASE, iterations=7),
+                         factor_sharding=sharding, gather_window=False)
+    inputs = pals.prepare_als_inputs(users, items, ratings, 30, 20, cfg,
+                                     mesh=mesh)
+    want = pals.train_als_prepared(inputs, cfg)
+    real = pals._mesh_train_loop
+    calls = [0]
+
+    def preempting(*a, **k):
+        real(*a, **k)
+        calls[0] += 1
+        if calls[0] == 2:
+            sup.request_preemption()
+
+    monkeypatch.setattr(pals, "_mesh_train_loop", preempting)
+    sup.clear_preemption()
+    try:
+        with pytest.raises(sup.TrainPreempted) as e:
+            pals.train_als_prepared(inputs, cfg, checkpoint_dir=tmp_path,
+                                    save_every=2)
+    finally:
+        sup.clear_preemption()
+    assert (e.value.step, e.value.checkpointed) == (4, True)
+    saved = torch.load(tmp_path / "4.pt", weights_only=False)
+    assert tuple(saved[0]["spec"]) == tuple(inputs.uf0.spec)
+    monkeypatch.setattr(pals, "_mesh_train_loop", real)
+    got = pals.train_als_prepared(inputs, cfg, checkpoint_dir=tmp_path,
+                                  save_every=2)
+    assert np.array_equal(got.user_factors, want.user_factors)
+    assert np.array_equal(got.item_factors, want.item_factors)
+    assert not list(tmp_path.glob("*.pt"))
+    calls[0] = 0
+
+    def poisoning(uf, itf, *a, **k):
+        real(uf, itf, *a, **k)
+        calls[0] += 1
+        if calls[0] == 2:
+            uf.shards[0][0, 0] = float("nan")
+
+    monkeypatch.setattr(pals, "_mesh_train_loop", poisoning)
+    got = pals.train_als_prepared(inputs, cfg,
+                                  checkpoint_dir=tmp_path / "nan",
+                                  save_every=2)
+    assert calls[0] == 5                     # 4 chunks and the replayed one
+    assert np.array_equal(got.user_factors, want.user_factors)
 
 
 # -- F14: the host route's staging through the prefetcher --------------------

@@ -130,10 +130,16 @@ def test_logistic_regression_matches_the_reference(steps, reg):
 
 
 def test_logistic_regression_refuses_a_mesh():
+    """A mesh that spans processes (ROADMAP Queue 1 item 10c); one
+    process's mesh trains (tests/test_torch_mesh_cli.py)."""
+    from predictionio_tpu_torch.parallel.mesh import Mesh
+
+    two = Mesh(np.array([CPU, CPU], dtype=object), ("data",),
+               np.array([0, 1]))
     x, y = _xy(n=10)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 10c"):
         lr.train(x, y, lr.LogisticRegressionConfig(n_classes=4),
-                 mesh=object(), device="cpu")
+                 mesh=two, device="cpu")
 
 
 MARKOV_CASES = {

@@ -8,13 +8,17 @@ over the same mesh row-shards the corpus (``PIO_SERVE_SHARD_ABOVE=0``)
 and its plan names the ``sharded`` rung; its answers equal the meshless
 train's and the reference CLI's mesh train on the same events (ids
 equal except within ties, scores within the training tolerance of
-``tests/test_torch_cli.py``).  The engines with no mesh path yet refuse
-a mesh, naming ROADMAP Queue 1 item 10b.
+``tests/test_torch_cli.py``).  The engines that refused a mesh before
+ROADMAP Queue 1 item 10b train on one like the reference (model level,
+against the reference's mesh calls), and the two-tower, DLRM and
+classification templates train and serve through ``pio train --mesh``
+and a deploy over the mesh as their meshless trains do.
 """
 
 import json
 import re
 import urllib.request
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -218,43 +222,233 @@ def test_batchpredict_and_eval_take_the_mesh(clean_storage, capsys,
     assert "need 16 devices but 8 are available" in capsys.readouterr().err
 
 
-# -- the engines with no mesh path yet -------------------------------------------
+# -- every engine that takes a mesh trains on one like the reference --------------
 
-def _cpu_mesh():
-    from predictionio_tpu_torch.parallel.mesh import make_mesh
+TT_CFG = dict(n_users=32, n_items=16, embed_dim=8, hidden_dims=(16,),
+              out_dim=8, batch_size=64, epochs=2, seed=4)
+DLRM_CFG = dict(vocab_sizes=(16, 8), n_dense=3, embed_dim=4,
+                bottom_mlp=(8, 4), top_mlp=(8,), epochs=1, batch_size=64,
+                seed=3)
 
-    return make_mesh({"data": 2}, device="cpu")
+
+def _xy(n=64, d=3, c=4, seed=0):
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, c, n)
+    x = rng.poisson(2.0, (n, d)).astype(np.float32) + y[:, None]
+    return x, y
 
 
-def _refusals():
+def _tt_data(seed=3):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 32, 192), rng.integers(0, 16, 192)
+
+
+def _dlrm_data(n=256, seed=2):
+    rng = np.random.default_rng(seed)
+    dense = rng.standard_normal((n, 3)).astype(np.float32)
+    cat = np.stack([rng.integers(0, 16, n), rng.integers(0, 8, n)], axis=1)
+    labels = (rng.random(n) < 0.3).astype(np.float32)
+    return dense, cat, labels
+
+
+def _leaves_np(tree):
+    from predictionio_tpu_torch.parallel.mesh import ShardedTensor
+
+    import jax
+
+    return [x.to_host() if isinstance(x, ShardedTensor) else np.asarray(x)
+            for x in jax.tree.leaves(tree, is_leaf=lambda t: isinstance(
+                t, ShardedTensor))]
+
+
+def _mesh_cases():
+    """Each former refusal, now a (port call, reference call, check) on
+    the mesh the reference's model needs."""
+    from predictionio_tpu.models import dlrm as ref_dlrm
+    from predictionio_tpu.models import linear as ref_linear
+    from predictionio_tpu.models import naive_bayes as ref_nb
+    from predictionio_tpu.models import two_tower as ref_tt
     from predictionio_tpu_torch.models import dlrm, linear, naive_bayes
     from predictionio_tpu_torch.models import two_tower as tt
 
-    x = np.zeros((4, 3), np.float32)
-    y = np.array([0, 1, 0, 1])
-    ids = np.array([0, 1, 2, 3])
+    x, y = _xy()
+    users, items = _tt_data()
+    dense, cat, labels = _dlrm_data()
+
+    def close(atol):
+        def check(got, want):
+            for g, w in zip(got, want):
+                np.testing.assert_allclose(g, w, rtol=0, atol=atol)
+        return check
+
     return {
-        "two_tower.train": lambda m: tt.train(
-            ids, ids, tt.TwoTowerConfig(n_users=4, n_items=4), mesh=m,
-            device="cpu"),
-        "two_tower.init_state": lambda m: tt.init_state(
-            tt.TwoTowerConfig(n_users=4, n_items=4), m, device="cpu"),
-        "dlrm.train": lambda m: dlrm.train(
-            x, np.zeros((4, 2), np.int64), y,
-            dlrm.DLRMConfig(vocab_sizes=(4, 4), n_dense=3, embed_dim=32), m,
-            device="cpu"),
-        "linear.train": lambda m: linear.train(
-            x, y, linear.LogisticRegressionConfig(n_classes=2), mesh=m,
-            device="cpu"),
-        "naive_bayes.train_gaussian": lambda m: naive_bayes.train_gaussian(
-            x, y, 2, mesh=m, device="cpu"),
-        "naive_bayes.train_multinomial":
-            lambda m: naive_bayes.train_multinomial(x, y, 2, mesh=m,
-                                                    device="cpu"),
+        # the port's meshless bounds against the reference
+        # (tests/test_torch_two_tower.py, test_torch_dlrm.py,
+        # test_torch_classification.py)
+        "two_tower.train": ({"data": 4, "model": 2}, lambda m: _leaves_np(
+            tt.train(users, items, tt.TwoTowerConfig(**TT_CFG), mesh=m,
+                     data_source="numpy").params), lambda m: _leaves_np(
+            ref_tt.train(users, items, ref_tt.TwoTowerConfig(**TT_CFG),
+                         mesh=m, data_source="numpy").params), close(1e-3)),
+        "two_tower.init_state": ({"data": 2, "model": 4}, lambda m:
+            _leaves_np(tt.init_state(tt.TwoTowerConfig(**TT_CFG), m).params),
+            lambda m: _leaves_np(ref_tt.init_state(
+                ref_tt.TwoTowerConfig(**TT_CFG), m).params), close(1e-6)),
+        "dlrm.train": ({"expert": 8}, lambda m: dlrm.predict_proba(
+            dlrm.train(dense, cat, labels, dlrm.DLRMConfig(**DLRM_CFG), m,
+                       data_source="numpy"), dense, cat,
+            dlrm.DLRMConfig(**DLRM_CFG), mesh=m).numpy()[None],
+            lambda m: np.asarray(ref_dlrm.predict_proba(
+                ref_dlrm.train(dense, cat, labels,
+                               ref_dlrm.DLRMConfig(**DLRM_CFG), m,
+                               data_source="numpy"), dense, cat,
+                ref_dlrm.DLRMConfig(**DLRM_CFG), mesh=m))[None],
+            close(2.0 ** -6)),
+        "linear.train": ({"data": 8}, lambda m: [
+            t.numpy() for t in vars(linear.train(
+                x, y, linear.LogisticRegressionConfig(n_classes=4),
+                mesh=m, device="cpu")).values()],
+            lambda m: [np.asarray(t) for t in vars(ref_linear.train(
+                x, y, ref_linear.LogisticRegressionConfig(n_classes=4),
+                mesh=m)).values()], close(1e-4)),
+        "naive_bayes.train_gaussian": ({"data": 8}, lambda m: [
+            naive_bayes.train_gaussian(x, y, 4, mesh=m).means.numpy(),
+            naive_bayes.train_gaussian(x, y, 4, mesh=m).variances.numpy()],
+            lambda m: [np.asarray(ref_nb.train_gaussian(x, y, 4, mesh=m)
+                                  .means),
+                       np.asarray(ref_nb.train_gaussian(x, y, 4, mesh=m)
+                                  .variances)], close(1e-5)),
+        "naive_bayes.train_multinomial": ({"data": 8}, lambda m: [
+            naive_bayes.train_multinomial(x, y, 4, mesh=m)
+            .feature_log_prob.numpy()],
+            lambda m: [np.asarray(ref_nb.train_multinomial(x, y, 4, mesh=m)
+                                  .feature_log_prob)], close(1e-5)),
     }
 
 
-@pytest.mark.parametrize("name", sorted(_refusals()))
-def test_engines_without_a_mesh_path_refuse_a_mesh(name):
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        _refusals()[name](_cpu_mesh())
+@pytest.mark.parametrize("name", sorted(_mesh_cases()))
+def test_trains_on_a_mesh_like_the_reference(name, monkeypatch):
+    """The engines that refused a mesh before item 10b: each on the mesh
+    its reference model takes, against the reference's call on its own
+    8-device mesh, within the port's meshless bound; two port runs are
+    equal bit for bit."""
+    from predictionio_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from predictionio_tpu_torch.parallel.mesh import make_mesh
+
+    for k in ("PIO_FUSE_STEPS", "PIO_BATCH_AUTOSCALE", "PIO_PREFETCH_DEPTH",
+              "PIO_STEP_TIMEOUT_S"):
+        monkeypatch.delenv(k, raising=False)
+    sizes, port_call, ref_call, check = _mesh_cases()[name]
+    mesh = make_mesh(sizes, device="cpu")
+    got = port_call(mesh)
+    check(got, ref_call(jax_make_mesh(sizes)))
+    for a, b in zip(got, port_call(mesh)):
+        assert np.array_equal(a, b)
+
+
+def _engine_events(kind, path):
+    """A small JSONL of the engine's events: every user and item seen,
+    counts that divide the mesh."""
+    rng = np.random.default_rng(11)
+    lines = []
+    if kind == "twotower":
+        for k in range(480):
+            u, i = k % 24 if k < 24 else rng.integers(24), \
+                k % 16 if k < 16 else rng.integers(16)
+            lines.append({"event": "rate", "entityType": "user",
+                          "entityId": f"u{u}", "targetEntityType": "item",
+                          "targetEntityId": f"i{i}",
+                          "properties": {"rating": 4.0}})
+    elif kind == "dlrm":
+        for k in range(512):
+            dense = [round(float(v), 3) for v in rng.standard_normal(4)]
+            lines.append({"event": "impression", "entityType": "user",
+                          "entityId": f"u{rng.integers(20)}",
+                          "targetEntityType": "item",
+                          "targetEntityId": f"i{rng.integers(30)}",
+                          "properties": {"clicked": bool(dense[0] > 0),
+                                         "dense": dense}})
+    else:
+        for u in range(64):
+            plan = float(u % 4)
+            lines.append({"event": "$set", "entityType": "user",
+                          "entityId": f"u{u}", "properties": {
+                              "attr0": float(rng.poisson(2) + plan),
+                              "attr1": float(rng.poisson(2)),
+                              "attr2": float(rng.poisson(2) + 2 * plan),
+                              "plan": plan}})
+    with open(path, "w") as f:
+        for k, ev in enumerate(lines):
+            ev["eventTime"] = f"2026-01-01T00:{k // 60 % 60:02d}:" \
+                              f"{k % 60:02d}Z"
+            f.write(json.dumps(ev) + "\n")
+    return path
+
+
+ENGINES = {
+    # engine: (mesh spec, algorithm params, queries, comparison)
+    "twotower": ("data=4,model=2",
+                 {"embedDim": 8, "hiddenDims": [16], "outDim": 8,
+                  "epochs": 2, "batchSize": 32, "seed": 3},
+                 [{"user": f"u{u}", "num": 4} for u in range(6)]),
+    "dlrm": ("expert=8",
+             {"embedDim": 8, "bottomMlp": [16, 8], "topMlp": [16],
+              "epochs": 2, "batchSize": 64, "seed": 3},
+             [{"user": f"u{u}", "items": ["i1", "i2", "i3"],
+               "dense": [0.5, -1.0, 0.0, 1.0]} for u in range(6)]),
+    "classification": ("data=8", None,
+                       [{"attr0": float(a), "attr1": 2.0,
+                         "attr2": float(2 * a)} for a in range(4)]),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(ENGINES))
+def test_the_templates_train_and_serve_on_a_mesh(kind, clean_storage,
+                                                 tmp_path, capsys):
+    """``pio train --mesh`` and a deploy over the same mesh for the
+    two-tower, DLRM and classification engines, against the same
+    engine's meshless train and deploy: two-tower scores and DLRM
+    probabilities within 2^-6 (the templates' train bounds against the
+    reference), classification labels equal."""
+    from predictionio_tpu_torch.controller import EngineVariant
+    from predictionio_tpu_torch.controller import load_engine_factory
+    from predictionio_tpu_torch.data.storage import get_storage
+    from predictionio_tpu_torch.server.engine_server import EngineServer
+
+    spec_mesh, algo, queries = ENGINES[kind]
+    shipped = json.loads((Path(__file__).resolve().parents[1] /
+                          "predictionio_tpu_torch" / "templates" / kind /
+                          "engine.json").read_text())
+    app = shipped["datasource"]["params"]["appName"]
+    if kind == "dlrm":
+        shipped["datasource"]["params"].update(userVocab=8, itemVocab=8)
+    if algo is not None:
+        shipped["algorithms"][0]["params"].update(algo)
+    ej = tmp_path / "engine.json"
+    ej.write_text(json.dumps(shipped))
+    assert main(["app", "new", app]) == 0
+    src = _engine_events(kind, tmp_path / "ev.jsonl")
+    assert main(["import", "--appid", "1", "--input", str(src)]) == 0
+    capsys.readouterr()
+    out, meshed = _train(ej, capsys, "--mesh", spec_mesh)
+    assert "Mesh: " in out
+    _, plain = _train(ej, capsys)
+    variant = EngineVariant.from_file(ej)
+    answers = {}
+    for iid, spec in ((meshed, spec_mesh), (plain, None)):
+        srv = EngineServer(load_engine_factory(variant.engine_factory)(),
+                           variant, get_storage(), device="cpu",
+                           mesh_spec=spec, instance_id=iid)
+        try:
+            answers[spec] = srv.query_batch(queries)
+        finally:
+            srv.stop()
+    for got, want in zip(answers[spec_mesh], answers[None]):
+        if kind == "classification":
+            assert got == want
+            continue
+        key = "score"
+        gs = [h[key] for h in got["itemScores"]]
+        ws = [h[key] for h in want["itemScores"]]
+        np.testing.assert_allclose(sorted(gs), sorted(ws), rtol=0,
+                                   atol=2.0 ** -6)

@@ -408,10 +408,22 @@ def test_retrieve_matches_the_reference(chunk):
                 assert abs(ws[row, j] - gs[row, j].item()) <= 2 * ENCODE_ATOL
 
 
+def _two_processes(axis):
+    """A mesh whose second position another process drives."""
+    from predictionio_tpu_torch.parallel.mesh import Mesh
+
+    cpu = torch.device("cpu")
+    return Mesh(np.array([cpu, cpu], dtype=object), (axis,),
+                np.array([0, 1]))
+
+
 def test_mesh_is_not_ported():
+    """Across processes: training on a mesh that spans processes is not
+    ported (ROADMAP Queue 1 item 10c); one process's mesh trains
+    (tests/test_torch_mesh_models.py)."""
     _, pc = _cfgs()
     with pytest.raises(NotImplementedError, match="mesh"):
-        port.train(*_data(), pc, mesh=object(), device="cpu")
+        port.train(*_data(), pc, mesh=_two_processes("data"), device="cpu")
     with pytest.raises(ValueError, match="data_source"):
         port.train(*_data(), pc, data_source="parquet", device="cpu")
     if not torch.cuda.is_available():
