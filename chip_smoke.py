@@ -7834,9 +7834,12 @@ def mesh_train_phase(dev, seed: int, six: dict, mods, card: str) -> dict:
             torch.from_numpy(getattr(model, what)), want, TRAIN_RTOL,
             scaled(TRAIN_ATOL, want),
             f"phase 23b: mesh {what} vs phase 6's meshless"))
-    # 24e trains these inputs again under checkpoints
+    # 24e trains these inputs again under checkpoints; phase 25's gang
+    # trains them again and holds its factors against these digests
     out = {"launches": launches, "prep_s": prep_s, "train_s": train_s,
-           "err": err, "inputs": inputs, "cfg": cfg, "model": model}
+           "err": err, "inputs": inputs, "cfg": cfg, "model": model,
+           "digests": tree_digests((model.user_factors,
+                                    model.item_factors))}
     log(f"phase 23b mesh train: ML-25M {ML25M_USERS}x{ML25M_ITEMS}, "
         f"{ML25M_RATINGS} ratings, rank {RANK}, {TRAIN_ITERS} iterations "
         f"on data={MESH_SHARDS} of one card, factors row-sharded, "
@@ -8161,7 +8164,8 @@ def mesh_two_tower_runs(dev, seed: int, card: str) -> dict:
         moved += int(((got - plain.params[name]).abs() > 1e-3).sum())
         total += got.numel()
     out.update(tables_err=err, loss_err=loss_err, apart=moved / total,
-               ex_per_s=rows / wall, plain_ex_per_s=rows / plain_wall)
+               ex_per_s=rows / wall, plain_ex_per_s=rows / plain_wall,
+               digests=tree_digests(tt.state_to_host(first)))
     log(f"phase 24a two-tower mesh: {TT_USERS}x{TT_ITEMS}, embed "
         f"{TT_EMBED}, hidden {list(TT_HIDDEN)}, out {TT_OUT}, batch "
         f"{TT_BATCH} on data=2 x model=2 of one card: one step's loss "
@@ -8232,7 +8236,8 @@ def mesh_dlrm_runs(dev, seed: int, card: str) -> dict:
             a.full(), b, 0.0, MESH2_DLRM_ATOL,
             f"phase 24b: parameters after {MESH2_STEPS} steps vs meshless"))
     out = {"params_err": err, "ex_per_s": rows / wall,
-           "plain_ex_per_s": rows / plain_wall}
+           "plain_ex_per_s": rows / plain_wall,
+           "digests": tree_digests(dl.state_to_host(first))}
     log(f"phase 24b dlrm mesh: {DLRM_FIELDS} fields x {DLRM_VOCAB} rows, "
         f"{DLRM_DENSE} dense, embed {DLRM_EMBED}, bottom "
         f"{list(DLRM_BOTTOM)}, top {list(DLRM_TOP)}, batch {DLRM_BATCH} "
@@ -8266,7 +8271,7 @@ def mesh_attention_runs(dev, seed: int, card: str) -> dict:
     qkv = [torch.randn(1, MESH2_SEQ, MESH2_HEADS, MESH2_HEAD_DIM,
                        generator=g, device=dev) for _ in range(3)]
     kinds = {"ring": ring_attention, "ulysses": ulysses_attention}
-    out = {"rows": [], "err": 0.0, "grad_err": 0.0}
+    out = {"rows": [], "err": 0.0, "grad_err": 0.0, "digests": {}}
     for causal in (False, True):
         row = {"causal": causal, "card": card}
         full = local_attention(*qkv, causal=causal)
@@ -8283,7 +8288,10 @@ def mesh_attention_runs(dev, seed: int, card: str) -> dict:
             row[f"{name}_ms"] = time_single(
                 lambda: fn(*qkv, mesh, causal=causal), MESH2_REPS)
             leaves = [x.detach().requires_grad_(True) for x in qkv]
-            (fn(*leaves, mesh, causal=causal).full() ** 2).sum().backward()
+            got = fn(*leaves, mesh, causal=causal).full()
+            (got ** 2).sum().backward()
+            out["digests"][f"{name}-{causal}"] = attention_digests(
+                got, [x.grad for x in leaves], MESH_SHARDS)
             for x, w in zip(leaves, want):
                 out["grad_err"] = max(out["grad_err"], assert_close(
                     x.grad, w, MESH2_GRAD_RTOL, MESH2_GRAD_ATOL,
@@ -8541,6 +8549,337 @@ def mesh2_phase(dev, seed: int, m23: dict, loop: dict, mods,
         log(f"phase 24 over its budget: {phase_s:.1f} s > "
             f"{MESH2_LIMIT_S:.0f} s")
     return {"launches": launches, "phase_s": phase_s, "parts": parts}
+
+
+def tree_digests(tree) -> list:
+    """sha256 of every array of ``tree`` (dicts in their order, tuples
+    and lists in theirs), as hex: two trees' digests are equal exactly
+    where every array is equal bit for bit (phase 25 holds a gang's
+    results against one process's without moving them)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    out = []
+
+    def walk(x):
+        if isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        elif isinstance(x, (np.ndarray, np.generic, torch.Tensor)):
+            a = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+                else np.asarray(x)
+            out.append(hashlib.sha256(
+                np.ascontiguousarray(a).tobytes()).hexdigest())
+
+    walk(tree)
+    return out
+
+
+def attention_digests(out, grads, n: int, positions=None) -> dict:
+    """{position: digests of its sequence slice of ``out`` and of each
+    gradient}; ``out``: the whole output, or a ShardedTensor whose
+    local blocks are the slices."""
+    sl = grads[0].shape[1] // n
+    got = {}
+    for p in (range(n) if positions is None else positions):
+        blk = out[:, p * sl:(p + 1) * sl] if positions is None \
+            else out.shards[p]
+        got[str(p)] = tree_digests(
+            [blk, *(g[:, p * sl:(p + 1) * sl] for g in grads)])
+    return got
+
+
+# Phase 25: the mesh across processes, rehearsed on the one card.  A gang
+# of two processes joins over gloo (NCCL refuses two ranks on one card),
+# each driving 2 of the 4 positions of the phase 23b / 24 meshes, named
+# through PIO_MESH_DEVICES = cuda:0 four times.  25a: 23b's ML-25M train
+# on data=4 (K1 and K2 in each process, on its shards); 25b: 24a's
+# two-tower and 24b's DLRM trains; 25c: 24c's ring and Ulysses attention
+# with gradients; 25d: 25a under sweep checkpoints, preempted after its
+# second chunk by one process's flag and resumed.  Each result must be
+# 23b's / 24a-c's bit for bit.  gloo carries a CUDA tensor through the
+# host, so every exchange's copy is in these times.
+GANG_LIMIT_S = 110.0           # a gang process's own limit
+GANG_PHASE_LIMIT_S = 120.0
+
+
+def gang_worker() -> None:
+    """One gang process of phase 25 (``PIO_GANG_SPEC``: the seed, its
+    output file and the checkpoint directory); writes its results."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.config import memory_config
+    from predictionio_tpu_torch.controller import RuntimeContext
+    from predictionio_tpu_torch.data.storage import Storage
+    from predictionio_tpu_torch.device import set_float32_precision
+    from predictionio_tpu_torch.models import als
+    from predictionio_tpu_torch.models import dlrm as dl
+    from predictionio_tpu_torch.models import two_tower as tt
+    from predictionio_tpu_torch.ops import fused_gram as fg
+    from predictionio_tpu_torch.ops import ridge_solve as rs
+    from predictionio_tpu_torch.parallel.distributed import (
+        initialize_distributed,
+        process_index,
+    )
+    from predictionio_tpu_torch.parallel.ring import (
+        ring_attention,
+        ulysses_attention,
+    )
+    from predictionio_tpu_torch.resilience import supervision as sup
+    from predictionio_tpu_torch.tools.exp_gram_calls import ml25m_ratings
+
+    spec = json.loads(os.environ["PIO_GANG_SPEC"])
+    seed = spec["seed"]
+    t_start = time.perf_counter()
+    set_float32_precision()       # the kernels load as the parent built them
+    if not initialize_distributed(backend="gloo"):
+        die("phase 25: the gang process found no PIO_COORDINATOR_ADDRESS")
+    me = process_index()
+    dev = torch.device(spec["device"])
+    store = Storage(memory_config(spec["home"]))
+
+    def gang_mesh(sizes: str):
+        """The mesh ``pio train --mesh`` builds: PIO_MESH_DEVICES, split
+        over the gang."""
+        mesh = RuntimeContext.create(storage=store, device=dev,
+                                     mesh_spec=sizes).mesh
+        if not mesh.multi_process or len(mesh.local_positions()) != 2:
+            die(f"phase 25: {sizes} is not a mesh of 2 positions a process")
+        return mesh
+
+    def synced() -> float:
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    res = {"rank": me, "start_s": t_start - spec["spawned"]}
+    # 25a: 23b's train
+    users, items, ratings = ml25m_ratings(seed)
+    cfg = als.ALSConfig(rank=RANK, iterations=TRAIN_ITERS, reg=0.01,
+                        solver="auto", seed=seed, factor_sharding="sharded",
+                        gather_window=True)
+    mesh = gang_mesh(f"data={MESH_SHARDS}")
+    t0 = synced()
+    inputs = als.prepare_als_inputs(users, items, ratings, ML25M_USERS,
+                                    ML25M_ITEMS, cfg, mesh=mesh)
+    res["prep_s"] = synced() - t0
+    del users, items, ratings
+    fg.LAUNCHES = 0                          # main path starts here
+    rs.LU_LAUNCHES = 0
+    t0 = synced()
+    model = als.train_als_prepared(inputs, cfg)
+    res["train_s"] = synced() - t0
+    res["launches"] = {"fused_gram": fg.LAUNCHES,
+                       "ridge_solve_lu": rs.LU_LAUNCHES}   # main path ends
+    res["als"] = tree_digests((model.user_factors, model.item_factors))
+    del model
+    # 25d: preempted after the second chunk by the last process's flag
+    real = als._mesh_train_loop
+    calls = [0]
+
+    def preempting(*a, **k):
+        real(*a, **k)
+        calls[0] += 1
+        if calls[0] == 2 and me == 1:
+            sup.request_preemption()          # one process's SIGTERM
+
+    fg.LAUNCHES = 0
+    rs.LU_LAUNCHES = 0
+    t0 = synced()
+    als._mesh_train_loop = preempting
+    try:
+        als.train_als_prepared(inputs, cfg, checkpoint_dir=spec["ckpt"],
+                               save_every=SUPERVISE_EVERY)
+        res["preempted_at"] = None
+    except sup.TrainPreempted as e:
+        res["preempted_at"] = [e.step, e.checkpointed]
+    finally:
+        als._mesh_train_loop = real
+        sup.clear_preemption()
+    res["files"] = sorted(os.listdir(spec["ckpt"]))
+    resumed = als.train_als_prepared(inputs, cfg,
+                                     checkpoint_dir=spec["ckpt"],
+                                     save_every=SUPERVISE_EVERY)
+    res["preempt_resume_s"] = synced() - t0
+    res["resumed"] = tree_digests((resumed.user_factors,
+                                   resumed.item_factors))
+    res["launches_d"] = {"fused_gram": fg.LAUNCHES,
+                         "ridge_solve_lu": rs.LU_LAUNCHES}
+    del inputs, resumed
+    torch.cuda.empty_cache()
+    # 25b: 24a's two-tower train and 24b's DLRM train
+    mesh = gang_mesh("data=2,model=2")
+    tcfg = tt.TwoTowerConfig(
+        n_users=TT_USERS, n_items=TT_ITEMS, embed_dim=TT_EMBED,
+        hidden_dims=TT_HIDDEN, out_dim=TT_OUT, batch_size=TT_BATCH,
+        epochs=1, seed=seed)
+    rng = np.random.default_rng(seed + 241)
+    rows = MESH2_STEPS * TT_BATCH
+    tu = rng.integers(0, TT_USERS, rows)
+    ti = rng.integers(0, TT_ITEMS, rows)
+    init = tt.init_state(tcfg, mesh)
+    t0 = synced()
+    state = tt.train(tu, ti, tcfg, data_source="numpy", mesh=mesh,
+                     warm_state=init)
+    res["tt_ex_per_s"] = rows / (synced() - t0)
+    res["tt"] = tree_digests(tt.state_to_host(state))
+    del init, state
+    mesh = gang_mesh(f"expert={MESH_SHARDS}")
+    dcfg = dl.DLRMConfig(vocab_sizes=(DLRM_VOCAB,) * DLRM_FIELDS,
+                         n_dense=DLRM_DENSE, embed_dim=DLRM_EMBED,
+                         bottom_mlp=DLRM_BOTTOM, top_mlp=DLRM_TOP,
+                         batch_size=DLRM_BATCH, epochs=1, seed=seed)
+    rng = np.random.default_rng(seed + 242)
+    rows = MESH2_STEPS * DLRM_BATCH
+    dense = rng.standard_normal((rows, DLRM_DENSE)).astype(np.float32)
+    cat = rng.integers(0, DLRM_VOCAB, (rows, DLRM_FIELDS))
+    labels = (rng.random(rows) < DLRM_CTR).astype(np.float32)
+    init = dl.init_state(dcfg, mesh)
+    t0 = synced()
+    state = dl.train(dense, cat, labels, dcfg, data_source="numpy",
+                     mesh=mesh, warm_state=init)
+    res["dlrm_ex_per_s"] = rows / (synced() - t0)
+    res["dlrm"] = tree_digests(dl.state_to_host(state))
+    del init, state
+    torch.cuda.empty_cache()
+    # 25c: 24c's attention, outputs and gradients by sequence slice
+    mesh = gang_mesh(f"sequence={MESH_SHARDS}")
+    g = torch.Generator(device=dev).manual_seed(seed + 243)
+    qkv = [torch.randn(1, MESH2_SEQ, MESH2_HEADS, MESH2_HEAD_DIM,
+                       generator=g, device=dev) for _ in range(3)]
+    local = mesh.local_positions()
+    res["attention"] = {}
+    res["attention_ms"] = {}
+    for causal in (False, True):
+        for name, fn in (("ring", ring_attention),
+                         ("ulysses", ulysses_attention)):
+            leaves = [x.detach().requires_grad_(True) for x in qkv]
+            t0 = synced()
+            got = fn(*leaves, mesh, causal=causal)
+            res["attention_ms"][f"{name}-{causal}"] = \
+                (synced() - t0) * 1e3
+            sum((got.shards[p] ** 2).sum() for p in local).backward()
+            res["attention"][f"{name}-{causal}"] = attention_digests(
+                got, [x.grad for x in leaves], MESH_SHARDS, local)
+            del got, leaves
+    res["wall_s"] = time.perf_counter() - t_start
+    with open(spec["out"], "w") as f:
+        json.dump(res, f)
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def gang_phase(dev, seed: int, m23: dict, m24: dict, card: str) -> dict:
+    """Phase 25: two gang processes on the card (``gang_worker``), each
+    under GANG_LIMIT_S; their results against 23b's and 24a-c's."""
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="pio_chip_gang_")
+    port = free_port()
+    procs, outs = [], []
+    try:
+        for rank in range(2):
+            out = os.path.join(work, f"rank{rank}.json")
+            outs.append(out)
+            spec = {"seed": seed, "out": out, "spawned": time.perf_counter(),
+                    "ckpt": os.path.join(work, "ckpt"),
+                    "home": os.path.join(work, "home"), "device": str(dev)}
+            env = dict(os.environ,
+                       PIO_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                       PIO_NUM_PROCESSES="2", PIO_PROCESS_ID=str(rank),
+                       PIO_MESH_DEVICES=",".join(
+                           [str(dev)] * MESH_SHARDS),
+                       PIO_GANG_SPEC=json.dumps(spec))
+            for k in ("PIO_FUSE_STEPS", "PIO_BATCH_AUTOSCALE",
+                      "PIO_PREFETCH_DEPTH", "PIO_MESH"):
+                env.pop(k, None)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c",
+                 "import chip_smoke; chip_smoke.gang_worker()"],
+                cwd=Path(__file__).resolve().parent, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        deadline = time.perf_counter() + GANG_LIMIT_S
+        for rank, p in enumerate(procs):
+            try:
+                _, err = p.communicate(
+                    timeout=max(deadline - time.perf_counter(), 1.0))
+            except subprocess.TimeoutExpired:
+                die(f"phase 25: gang process {rank} did not finish in "
+                    f"{GANG_LIMIT_S:.0f} s")
+            if p.returncode != 0:
+                die(f"phase 25: gang process {rank} exited {p.returncode}: "
+                    f"{err[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+    res = []
+    for out in outs:
+        with open(out) as f:
+            res.append(json.load(f))
+    shutil.rmtree(work, ignore_errors=True)
+    want_files = sorted(f"{s}.p{r}of2.pt" for r in (0, 1)
+                        for s in (SUPERVISE_EVERY, 2 * SUPERVISE_EVERY)) \
+        + [f"fingerprint.p{r}of2.txt" for r in (0, 1)]
+    for r in res:
+        who = f"phase 25 process {r['rank']}"
+        for name, n in r["launches"].items():
+            if n == 0:
+                die(f"{who}: {name} never launched in 25a's train")
+        if r["als"] != m23["digests"]:
+            die(f"{who}: 25a's factors are not 23b's bit for bit")
+        if r["preempted_at"] != [2 * SUPERVISE_EVERY, True]:
+            die(f"{who}: 25d preempted at {r['preempted_at']}")
+        if r["files"] != sorted(want_files):
+            die(f"{who}: 25d's checkpoint files {r['files']}")
+        if r["resumed"] != m23["digests"]:
+            die(f"{who}: 25d's resumed factors are not 23b's bit for bit")
+        if r["tt"] != m24["a"]["digests"]:
+            die(f"{who}: 25b's two-tower state is not 24a's bit for bit")
+        if r["dlrm"] != m24["b"]["digests"]:
+            die(f"{who}: 25b's DLRM state is not 24b's bit for bit")
+        for key, by_pos in r["attention"].items():
+            for p, digests in by_pos.items():
+                if digests != m24["c"]["digests"][key][p]:
+                    die(f"{who}: 25c {key} at position {p} is not 24c's "
+                        "bit for bit")
+    phase_s = time.perf_counter() - t0
+    launches = {name: sum(r["launches"][name] + r["launches_d"][name]
+                          for r in res)
+                for name in ("fused_gram", "ridge_solve_lu")}
+    out = {"launches": launches, "phase_s": phase_s, "processes": res}
+    for r in res:
+        log(f"phase 25 process {r['rank']} of 2 (gloo, 2 of {MESH_SHARDS} "
+            f"positions of one card): up {r['start_s']:.2f} s after spawn; "
+            f"25a prep {r['prep_s']:.2f} s (23b: "
+            f"{m23['prep_s']:.2f} s), train {r['train_s']:.3f} s = "
+            f"{r['train_s'] * 1e3 / TRAIN_ITERS:.2f} ms/iter (23b: "
+            f"{m23['train_s'] * 1e3 / TRAIN_ITERS:.2f}), launches "
+            f"{json.dumps(r['launches'])}, factors 23b's bit for bit; 25d "
+            f"preempted at sweep {r['preempted_at'][0]} by process 1's "
+            f"flag, resumed to 23b's factors, {r['preempt_resume_s']:.2f} s, "
+            f"launches {json.dumps(r['launches_d'])}; 25b two-tower "
+            f"{r['tt_ex_per_s']:.0f} ex/s (24a {m24['a']['ex_per_s']:.0f}), "
+            f"DLRM {r['dlrm_ex_per_s']:.0f} ex/s (24b "
+            f"{m24['b']['ex_per_s']:.0f}), both states 24a/24b's bit for "
+            f"bit; 25c forward ms {json.dumps(r['attention_ms'])}, "
+            f"outputs and gradients 24c's bit for bit; wall "
+            f"{r['wall_s']:.1f} s; card {card}")
+    log(f"phase 25 in {phase_s:.1f} s (budget {GANG_PHASE_LIMIT_S:.0f} s); "
+        f"launches {json.dumps(launches)} (both processes); NCCL across two "
+        f"cards not run (one card); card {card}")
+    if phase_s > GANG_PHASE_LIMIT_S:
+        log(f"phase 25 over its budget: {phase_s:.1f} s > "
+            f"{GANG_PHASE_LIMIT_S:.0f} s")
+    return out
 
 
 def post_json(url: str, obj):
@@ -8906,6 +9245,10 @@ def main() -> int:
         # two-tower serving mesh, mesh ALS checkpoints, dryrun_multichip
         mesh2 = mesh2_phase(dev, args.seed, mesh["train"], loop,
                             dict(mods, als=als, tt_engine=tt_engine), card)
+        torch.cuda.empty_cache()
+        # -- phase 25: the mesh across a gang of two processes -------------
+        gang = gang_phase(dev, args.seed, mesh["train"], mesh2["parts"],
+                          card)
         del mesh["train"]
     finally:
         shutil.rmtree(loop["work"], ignore_errors=True)
@@ -8962,7 +9305,8 @@ def main() -> int:
             + fleet["launches"].get(name, 0)
             + remote["launches"].get(name, 0)
             + mesh["launches"].get(name, 0)
-            + mesh2["launches"].get(name, 0),
+            + mesh2["launches"].get(name, 0)
+            + gang["launches"].get(name, 0),
             "max_abs_err": train_kernel_err[name],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -9049,7 +9393,9 @@ def main() -> int:
         f"{mesh['launches']['ridge_solve_lu']}), phase 24's checkpointed "
         f"mesh trains and dryrun_multichip "
         f"({mesh2['launches']['fused_gram']}, "
-        f"{mesh2['launches']['ridge_solve_lu']}) and the solver='gj' run "
+        f"{mesh2['launches']['ridge_solve_lu']}), phase 25's gang trains "
+        f"(25a and 25d, both processes: {gang['launches']['fused_gram']}, "
+        f"{gang['launches']['ridge_solve_lu']}) and the solver='gj' run "
         f"(ridge_solve_gj); timings of the training kernels are over one "
         f"iteration's calls at the ML-25M shape")
     print(json.dumps({"kernels": kernels}))

@@ -98,9 +98,11 @@ class RuntimeContext:
         device; a multi-process gang joins first through
         ``initialize_distributed`` (env ``PIO_COORDINATOR_ADDRESS``;
         NCCL on the card, gloo on the CPU).  Env ``PIO_MESH_DEVICES``
-        (comma-separated device names, one process) lays the mesh over
-        exactly those devices in that order instead; a name may repeat,
-        so ``cuda:0,cuda:0,cuda:0,cuda:0`` gives four shards of one card.
+        (comma-separated device names) lays the mesh over exactly those
+        devices in that order instead; a name may repeat, so
+        ``cuda:0,cuda:0,cuda:0,cuda:0`` gives four shards of one card.
+        In a gang the list is the whole gang's, the same in every
+        process, each process driving its equal run of it in rank order.
         Each must be of ``device``'s kind.  Engines only consume
         ``ctx.mesh``."""
         from predictionio_tpu_torch.data.storage import get_storage
@@ -132,18 +134,11 @@ class RuntimeContext:
 
 def _mesh_devices(dev):
     """``PIO_MESH_DEVICES`` as a device list (None when unset), each of
-    ``dev``'s kind: a mesh position on another kind of device raises,
-    and so does the list in a gang of several processes."""
-    from predictionio_tpu_torch.parallel.distributed import process_count
-
+    ``dev``'s kind: a mesh position on another kind of device raises."""
     names = [n.strip() for n in os.environ.get("PIO_MESH_DEVICES", "")
              .split(",") if n.strip()]
     if not names:
         return None
-    if process_count() > 1:
-        raise ValueError("PIO_MESH_DEVICES lays out a mesh of one process; "
-                         "a gang of several builds its mesh from each "
-                         "process's devices")
     devices = [torch.device(n) for n in names]
     other = [str(d) for d in devices if d.type != dev.type]
     if other:

@@ -36,15 +36,20 @@ on its own rows, on its own device; ``factor_sharding`` keeps the
 factors replicated or row-sharded, and ``gather_window`` fetches only
 the rows a block touches from row-sharded factors.  Every sum over
 shards runs in shard order, so a mesh train is as reproducible as a
-meshless one.  Without a mesh the two knobs are ignored, as the
-reference ignores them.
+meshless one.  On a mesh that spans processes (a gang, ``parallel.
+distributed``) each process buckets every block on the host, as one
+process does, keeps the shards of its own positions, runs K1 and K2 on
+them and exchanges what the shards of the others need (the factor
+gathers, the sums over shards, the solved rows), so the gang's factors
+are one process's bit for bit.  Without a mesh the two knobs are
+ignored, as the reference ignores them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -63,16 +68,20 @@ from predictionio_tpu_torch.ops.ragged import (
 )
 from predictionio_tpu_torch.ops.topk import chunked_top_k, top_k_scores
 from predictionio_tpu_torch.parallel.compat import (
+    all_gather,
     axis_lane,
+    check_gang,
     lane_outputs,
     psum,
     shard_map,
 )
+from predictionio_tpu_torch.parallel.distributed import gang_any
 from predictionio_tpu_torch.parallel.mesh import (
     AXIS_DATA,
     NamedSharding,
     PartitionSpec,
     ShardedTensor,
+    block_slices,
     put_sharded,
 )
 from predictionio_tpu_torch.resilience.supervision import (
@@ -381,12 +390,19 @@ class _MeshChunk:
     block's shards each hold the entity block ``s`` of its ``n_seg``
     entities (``keep`` / ``targets``) and every entity slot for its
     rows' ``seg_ids``.  ``win`` (windowed blocks): the sorted factor rows
-    the block touches, replicated on every shard's device; the indices
-    are then window-local."""
+    the block touches, replicated on this process's first shard's
+    device; the indices are then window-local.  A shard another process
+    drives keeps only its ``keep`` / ``targets`` (``indices`` None),
+    where its solved rows land once they arrive."""
 
     kind: str
     shards: List[_Chunk]
-    win: Optional[List[torch.Tensor]] = None
+    win: Optional[torch.Tensor] = None
+
+    def local(self) -> List[Tuple[int, _Chunk]]:
+        """(shard, block) of the shards this process solves."""
+        return [(s, ch) for s, ch in enumerate(self.shards)
+                if ch.indices is not None]
 
 
 def _chunk_window(idx: np.ndarray, msk: np.ndarray, n_src: int,
@@ -427,8 +443,17 @@ def _mesh_upload(kind: str, host_arrs: Tuple, win, mesh) -> _MeshChunk:
         arrs = [put_sharded(np.ascontiguousarray(a, dtype=t), mesh, row)
                 for a, t in zip(host_arrs, (np.int32, np.float32, np.bool_,
                                             np.int64))]
+    home = next(t for t in arrs[0].shards if t is not None).device
     shards = []
     for p in lane:
+        if arrs[0].shards[p] is None:
+            # Another process's shard: where its solved rows land.
+            ids = host_arrs[-1]
+            sl = block_slices(ids.shape, NamedSharding(mesh, row), p)
+            keep, targets = _valid_rows(np.asarray(ids)[sl], home)
+            shards.append(_Chunk(kind=kind, indices=None, values=None,
+                                 mask=None, keep=keep, targets=targets))
+            continue
         blocks = [a.block(p) for a in arrs]
         if kind == "merged":
             idx_s, vals_s, msk_s, seg_s, ent_s = blocks
@@ -442,9 +467,7 @@ def _mesh_upload(kind: str, host_arrs: Tuple, win, mesh) -> _MeshChunk:
             shards.append(_make_chunk("plain", *blocks))
     wins = None
     if win is not None:
-        w = put_sharded(np.ascontiguousarray(win, dtype=np.int64), mesh,
-                        PartitionSpec())
-        wins = [w.block(p) for p in lane]
+        wins = torch.from_numpy(np.ascontiguousarray(win, np.int64)).to(home)
     return _MeshChunk(kind=kind, shards=shards, win=wins)
 
 
@@ -665,10 +688,7 @@ def _prepare_als_inputs_mesh(user_ids, item_ids, ratings, n_users: int,
     if AXIS_DATA not in mesh.shape:
         raise ValueError(f"ALS shards its solves over the {AXIS_DATA!r} "
                          f"axis; the mesh has {tuple(mesh.shape)}")
-    if mesh.multi_process:
-        raise NotImplementedError(
-            "ALS on a mesh that spans processes is not ported yet "
-            "(ROADMAP Queue 1 item 10c); use one process per mesh")
+    check_gang(mesh, AXIS_DATA)
     if config.device_prep is True:
         raise NotImplementedError(
             "device bucketing (device_prep=True) has no mesh route; use "
@@ -886,6 +906,16 @@ def train_als_prepared(inputs: ALSInputs, config: ALSConfig, *,
                     implicit=config.implicit)
 
 
+def _agreed(mesh, flag: bool, *, every: bool) -> bool:
+    """``flag`` as a gang decides it: true where it holds on every
+    process (``every``: the chunk is finite) or on any (a SIGTERM);
+    alone, ``flag``.  A gang rolls back, diverges or preempts at one
+    sweep, together."""
+    if mesh is None or not mesh.multi_process:
+        return flag
+    return not gang_any(not flag) if every else gang_any(flag)
+
+
 def _supervised_loop(inputs: ALSInputs, config: ALSConfig, sweeps,
                      checkpoint_dir, save_every: int, *,
                      clone=torch.clone) -> Tuple[Any, Any]:
@@ -922,7 +952,8 @@ def _supervised_loop(inputs: ALSInputs, config: ALSConfig, sweeps,
             n = min(save_every, total - done)
             watchdog.arm(done + n)
             uf, itf = sweeps(uf, itf, n)
-            finite = all_finite((uf, itf))  # waits for the chunk
+            finite = _agreed(inputs.mesh, all_finite((uf, itf)),
+                             every=True)           # waits for the chunk
             watchdog.disarm()
             if not finite:
                 # Roll back IN PLACE to the latest durable sweep and
@@ -936,7 +967,7 @@ def _supervised_loop(inputs: ALSInputs, config: ALSConfig, sweeps,
                 continue
             done += n
             saved = ckpt.maybe_save(done, (uf, itf))
-            if preemption_requested():
+            if _agreed(inputs.mesh, preemption_requested(), every=False):
                 if not saved:
                     ckpt.save(done, (uf, itf))
                 ckpt.flush()
@@ -1015,9 +1046,11 @@ def _train_loop(uf: torch.Tensor, itf: torch.Tensor,
 # -- the mesh sweep --------------------------------------------------------------
 
 def _lane_blocks(x: ShardedTensor) -> List[torch.Tensor]:
-    """``x``'s block on each shard of the ``data`` axis, in shard order
-    (the whole matrix on each, when ``x`` is replicated)."""
-    return [x.block(p) for p in axis_lane(x.mesh, AXIS_DATA)]
+    """``x``'s block on each shard of the ``data`` axis this process
+    drives, in shard order (the whole matrix on each, when ``x`` is
+    replicated)."""
+    return [x.shards[p] for p in axis_lane(x.mesh, AXIS_DATA)
+            if x.shards[p] is not None]
 
 
 def _distinct(tensors) -> List[torch.Tensor]:
@@ -1034,16 +1067,18 @@ def _distinct(tensors) -> List[torch.Tensor]:
 def _mesh_full(src: ShardedTensor, dev: torch.device, dtype: torch.dtype,
                memo: dict) -> torch.Tensor:
     """The whole (padded) matrix on ``dev`` in ``dtype``: the replica
-    there, or the row blocks gathered in shard order (once a side, per
-    device)."""
+    there, or the row blocks gathered in shard order (across processes
+    in a gang; once a side, then copied per device)."""
     key = str(dev)
     if key not in memo:
+        blocks = _lane_blocks(src)
         if _factor_constraint(src) is None:
-            rep = next((b for b in _lane_blocks(src) if b.device == dev),
-                       None)
-            full = rep if rep is not None else _lane_blocks(src)[0].to(dev)
+            rep = next((b for b in blocks if b.device == dev), None)
+            full = rep if rep is not None else blocks[0].to(dev)
         else:
-            full = torch.cat([b.to(dev) for b in _lane_blocks(src)])
+            if "whole" not in memo:
+                memo["whole"] = all_gather(blocks, src.mesh)
+            full = memo["whole"].to(dev)
         memo[key] = full.to(dtype)
     return memo[key]
 
@@ -1060,28 +1095,46 @@ def _mesh_gram(src: ShardedTensor) -> torch.Tensor:
 def _mesh_scatter(dst: ShardedTensor, ch: _Chunk,
                   rows: torch.Tensor) -> None:
     """Write a shard's solved rows (row ``ch.keep[n]`` of ``rows`` onto
-    global row ``ch.targets[n]``) into every replica of ``dst``, or into
-    the row block that owns each target.  The routes to the blocks are
-    the same every sweep: worked out once, then kept on ``ch``."""
-    rows = rows.index_select(0, ch.keep)
+    global row ``ch.targets[n]``) into every replica of ``dst`` this
+    process holds, or into the row block that owns each target (where
+    this process holds it).  The routes to the blocks are the same every
+    sweep: worked out once, then kept on ``ch``."""
+    rows = rows.index_select(0, ch.keep.to(rows.device))
     if _factor_constraint(dst) is None:
         for rep in _distinct(_lane_blocks(dst)):
             rep.index_copy_(0, ch.targets.to(rep.device),
                             rows.to(rep.device))
         return
-    blocks = _lane_blocks(dst)
+    lane = axis_lane(dst.mesh, AXIS_DATA)
     if ch.routes is None:
-        per = dst.shape[0] // len(blocks)
+        per = dst.shape[0] // len(lane)
         ch.routes = []
-        for s, blk in enumerate(blocks):
+        for s, p in enumerate(lane):
+            blk = dst.shards[p]
+            if blk is None:
+                continue
             own = (ch.targets >= s * per) & (ch.targets < (s + 1) * per)
             sel = torch.nonzero(own).squeeze(1)
             if sel.numel():
-                ch.routes.append((s, sel, (ch.targets[sel] - s * per)
+                ch.routes.append((p, sel.to(rows.device),
+                                  (ch.targets[sel] - s * per)
                                   .to(blk.device)))
-    for s, sel, local in ch.routes:
-        blk = blocks[s]
+    for p, sel, local in ch.routes:
+        blk = dst.shards[p]
         blk.index_copy_(0, local, rows.index_select(0, sel).to(blk.device))
+
+
+def _land(dst: ShardedTensor, mc: _MeshChunk,
+          solved: Dict[int, torch.Tensor]) -> None:
+    """Write every shard's solved rows of block ``mc`` into ``dst``:
+    ``solved`` holds this process's shards'; in a gang the others'
+    arrive first (every shard's rows, in shard order)."""
+    if dst.mesh.multi_process:
+        every = all_gather([solved[s] for s, _ in mc.local()], dst.mesh,
+                           stack=True)
+        solved = dict(enumerate(every))
+    for s, ch in enumerate(mc.shards):
+        _mesh_scatter(dst, ch, solved[s])
 
 
 def _mesh_side(chunks: List[_MeshChunk], dst: ShardedTensor,
@@ -1097,22 +1150,26 @@ def _mesh_side(chunks: List[_MeshChunk], dst: ShardedTensor,
     full: dict = {}
     for mc in chunks:
         wins: dict = {}
+        if mc.win is not None:
+            # One gather a block: every shard's window is the same rows.
+            rows = _window_gather(src, mc.win, device=mc.win.device)
+            wins[str(mc.win.device)] = rows.to(gdt)
         pieces = []
-        for s, ch in enumerate(mc.shards):
+        solved_at: Dict[int, torch.Tensor] = {}
+        for s, ch in mc.local():
             dev = ch.indices.device
             if mc.win is not None:
                 key = str(dev)
                 if key not in wins:
-                    wins[key] = _window_gather(src, mc.win[s],
-                                               device=dev).to(gdt)
+                    wins[key] = rows.to(dev).to(gdt)
                 bsrc = wins[key]
             else:
                 bsrc = _mesh_full(src, dev, gdt, full)
             y = None if yty is None else yty.to(dev)
             if mc.kind == "plain":
-                solved = _solve_bucket(ch.indices, ch.values, ch.mask, bsrc,
-                                       y, reg, alpha, implicit, solver)
-                _mesh_scatter(dst, ch, solved)
+                solved_at[s] = _solve_bucket(ch.indices, ch.values, ch.mask,
+                                             bsrc, y, reg, alpha, implicit,
+                                             solver)
                 continue
             a, b, deg = _gram_pieces(ch.indices, ch.values, ch.mask, bsrc,
                                      alpha, implicit)
@@ -1123,19 +1180,19 @@ def _mesh_side(chunks: List[_MeshChunk], dst: ShardedTensor,
                                                           a)[:n],
                     b.new_zeros((n + 1, k)).index_add_(0, ch.seg_ids, b)[:n],
                     deg.new_zeros(n + 1).index_add_(0, ch.seg_ids, deg)[:n]))
-        if mc.kind == "plain":
-            continue
-        big_a, big_b, degree = (psum([pc[j] for pc in pieces], src.mesh)
-                                for j in range(3))
-        if implicit:
-            big_a += yty.to(big_a.device)
-        per = big_a.shape[0] // len(mc.shards)
-        for s, ch in enumerate(mc.shards):
-            dev = ch.indices.device
-            sl = slice(s * per, (s + 1) * per)
-            solved = _ridge(big_a[sl].to(dev), big_b[sl].to(dev),
-                            reg * degree[sl].to(dev).clamp_min(1.0), solver)
-            _mesh_scatter(dst, ch, solved)
+        if mc.kind == "merged":
+            big_a, big_b, degree = (psum([pc[j] for pc in pieces],
+                                         src.mesh) for j in range(3))
+            if implicit:
+                big_a += yty.to(big_a.device)
+            per = big_a.shape[0] // len(mc.shards)
+            for s, ch in mc.local():
+                dev = ch.indices.device
+                sl = slice(s * per, (s + 1) * per)
+                solved_at[s] = _ridge(big_a[sl].to(dev), big_b[sl].to(dev),
+                                      reg * degree[sl].to(dev)
+                                      .clamp_min(1.0), solver)
+        _land(dst, mc, solved_at)
 
 
 def _mesh_train_loop(uf: ShardedTensor, itf: ShardedTensor,
@@ -1183,7 +1240,7 @@ def _train_prepared_mesh(inputs: ALSInputs, config: ALSConfig,
         watchdog.arm(total)
         try:
             sweeps(uf, itf, total)
-            if not all_finite((uf, itf)):
+            if not _agreed(inputs.mesh, all_finite((uf, itf)), every=True):
                 raise TrainDiverged("als", total, "non-finite factors", 0)
         finally:
             watchdog.stop()

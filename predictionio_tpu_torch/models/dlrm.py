@@ -57,8 +57,12 @@ every shard) and the interaction on its rows and sums its weighted
 losses; the sums add in shard order.  ``torch.autograd``
 differentiates through the stages, a block's gradient is the sum of its
 positions' in position order (:mod:`~predictionio_tpu_torch.parallel.
-blocks`), and Adagrad updates each block where it lives.  A mesh that
-spans processes is refused (ROADMAP Queue 1 item 10c).
+blocks`), and Adagrad updates each block where it lives.  On a mesh that
+spans processes (``expert`` split over the gang) each process runs the
+stages of its own shards and the collectives carry the index batch, the
+looked-up rows, the replicated weights' cotangents and the loss sums
+between processes in the same order, so a gang's step has one
+process's bits.
 """
 
 from __future__ import annotations
@@ -86,8 +90,10 @@ from predictionio_tpu_torch.parallel.blocks import (
 from predictionio_tpu_torch.parallel.compat import (
     all_gather,
     axis_lane,
+    check_gang,
     psum,
     psum_scatter,
+    replicate,
     shard_map,
 )
 from predictionio_tpu_torch.parallel.mesh import (
@@ -105,9 +111,6 @@ __all__ = ["DLRMConfig", "DLRMState", "RssState", "EmptyState",
            "state_from_host", "predict_proba"]
 
 _INITIAL_ACCUMULATOR, _EPS = 0.1, 1e-7
-_ACROSS_PROCESSES = (
-    "DLRM training on a mesh that spans processes is not ported yet "
-    "(ROADMAP Queue 1 item 10c); use one process per mesh")
 
 
 @dataclasses.dataclass
@@ -423,24 +426,33 @@ def _step_math(state: DLRMState, dense, cat, labels, weights,
 
 # -- the expert-sharded lookup and the mesh step -------------------------------
 
+def _lane(mesh) -> List[int]:
+    """The ``expert`` lane's positions this process drives, in order."""
+    mine = set(mesh.local_positions())
+    return [p for p in axis_lane(mesh, AXIS_EXPERT) if p in mine]
+
+
 def _lane_of(x: ShardedTensor) -> List[torch.Tensor]:
-    """``x``'s block on each shard of ``expert``, in shard order."""
-    return [x.block(p) for p in axis_lane(x.mesh, AXIS_EXPERT)]
+    """``x``'s block on each shard of ``expert`` this process drives, in
+    shard order."""
+    return [x.block(p) for p in _lane(x.mesh)]
 
 
 def _expert_lookup(table: ShardedTensor, indices: ShardedTensor
                    ) -> List[torch.Tensor]:
-    """:func:`sharded_embedding_lookup`'s three stages; returns each
-    ``expert`` shard's rows ``[B/S, F, E]`` in shard order."""
+    """:func:`sharded_embedding_lookup`'s three stages; returns each of
+    this process's ``expert`` shards' rows ``[B/S, F, E]`` in shard
+    order."""
     mesh = table.mesh
+    check_gang(mesh, AXIS_EXPERT)
     n_shards = mesh.shape[AXIS_EXPERT]
     v = table.shape[0]
     assert v % n_shards == 0, f"pad vocab ({v}) to a multiple of {n_shards}"
     rows_per = v // n_shards
     # Stage 1: every shard gets the whole (tiny, int32) index batch.
     idx_lane = _lane_of(indices)
-    idx_all = {str(b.device): all_gather(idx_lane, device=b.device)
-               for b in idx_lane}
+    whole = all_gather(idx_lane, mesh)
+    idx_all = {str(b.device): whole.to(b.device) for b in idx_lane}
 
     # Stage 2: each position's masked partial embeddings of the indices
     # its table block owns (rows it does not own are exact zeros).
@@ -456,17 +468,18 @@ def _expert_lookup(table: ShardedTensor, indices: ShardedTensor
                       out_specs=None)(table)
     part_of = dict(zip(mesh.local_positions(), parts))
     # Stage 3: each batch shard gets its rows, summed in shard order.
-    return psum_scatter([part_of[p] for p in axis_lane(mesh, AXIS_EXPERT)],
-                        dim=0)
+    return psum_scatter([part_of[p] for p in _lane(mesh)], mesh, dim=0)
 
 
 def _expert_layout(blocks: List[torch.Tensor], mesh, shape) -> ShardedTensor:
-    """Per-``expert``-shard outputs as a ``P(expert)`` array (the other
-    axes' positions share their lane's block)."""
+    """This process's per-``expert``-shard outputs as a ``P(expert)``
+    array (the other axes' positions share their lane's block)."""
     spec = P(AXIS_EXPERT, *([None] * (len(shape) - 1)))
     shards = [None] * mesh.size
+    at = {mesh.position(p)[AXIS_EXPERT]: b
+          for p, b in zip(_lane(mesh), blocks)}
     for p in mesh.local_positions():
-        shards[p] = blocks[mesh.position(p)[AXIS_EXPERT]]
+        shards[p] = at[mesh.position(p)[AXIS_EXPERT]]
     return ShardedTensor(NamedSharding(mesh, spec), shape, shards)
 
 
@@ -494,20 +507,25 @@ def _mesh_logits(params: Dict, dense: ShardedTensor,
     the sharded lookup, then the shard's MLPs and interaction."""
     mesh = cat.mesh
     emb = _expert_lookup(params["embed"], cat)
-    lane = axis_lane(mesh, AXIS_EXPERT)
-    # The replicated MLPs' weights rounded to bfloat16 once, on the first
-    # shard, for every shard to multiply by: their gradients then add in
-    # float32 before the rounding's backward rounds them, as the meshless
+    lane = _lane(mesh)
+    # The replicated MLPs' weights rounded to bfloat16 once, on this
+    # process's first shard, and handed to every shard by ``replicate``:
+    # their gradients then add in float32, in shard order across the
+    # gang, before the rounding's backward rounds them, as the meshless
     # step's one product over the whole batch does.
+    names = ("bottom", "top")
     mlps = {name: _bf16_weights([{k: v.block(lane[0])
                                   for k, v in layer.items()}
                                  for layer in params[name]])
-            for name in ("bottom", "top")}
+            for name in names}
+    flat = [layer[k] for name in names for layer in mlps[name]
+            for k in ("w", "b")]
+    copies = replicate(flat, [e.device for e in emb], mesh)
     out = []
-    for e, d in zip(emb, _lane_of(dense)):
-        here = {name: [{k: v.to(e.device) for k, v in layer.items()}
-                       for layer in layers]
-                for name, layers in mlps.items()}
+    for e, d, mine in zip(emb, _lane_of(dense), copies):
+        it = iter(mine)
+        here = {name: [{"w": next(it), "b": next(it)} for _ in mlps[name]]
+                for name in names}
         z = _interact(e, _mlp_rounded(here["bottom"], d))
         out.append(_mlp_rounded(here["top"], z, final_relu=False)[:, 0])
     return out
@@ -522,8 +540,6 @@ def _mesh_step_math(state: DLRMState, dense: ShardedTensor,
     summed a block; Adagrad on each block where it lives."""
     sharded = _leaves(state.params)
     mesh = sharded[0].mesh
-    if mesh.multi_process:
-        raise NotImplementedError(_ACROSS_PROCESSES)
     leaves = [position_leaves(x) for x in sharded]
     logits = _mesh_logits(_unflatten(state.params, leaves), dense, cat)
     nums, dens = [], []
@@ -531,9 +547,8 @@ def _mesh_step_math(state: DLRMState, dense: ShardedTensor,
         losses = -y * F.logsigmoid(x) - (1.0 - y) * F.logsigmoid(-x)
         nums.append((losses * w).sum())
         dens.append(w.sum())
-    dev0 = logits[0].device
-    loss = psum(nums, device=dev0) / torch.clamp(psum(dens, device=dev0),
-                                                 min=1.0)
+    num = psum(nums, mesh, each=True)[0]
+    loss = num / torch.clamp(psum(dens, mesh, device=num.device), min=1.0)
     grads = grads_by_block(loss, sharded, leaves)
     with torch.no_grad():
         upd, sos = _adagrad_flat(
@@ -636,9 +651,8 @@ def train(
         raise ValueError(f"data_source {data_source!r}: use auto, feeder "
                          "or numpy")
     if mesh is not None:
-        if mesh.multi_process:
-            raise NotImplementedError(_ACROSS_PROCESSES)
-        device = mesh.devices.flat[0]
+        check_gang(mesh, AXIS_EXPERT)
+        device = mesh.devices.flat[mesh.local_positions()[0]]
     elif device is None and warm_state is not None:
         device = warm_state.params["embed"].device
     dev = resolve_device(device)
@@ -870,7 +884,7 @@ def predict_proba(state: DLRMState, dense: np.ndarray, cat: np.ndarray,
                 put_sharded(np.ascontiguousarray(dense, np.float32), mesh,
                             bsh),
                 put_sharded(cat_global, mesh, bsh))
-            return torch.sigmoid(all_gather(logits))
+            return torch.sigmoid(all_gather(logits, mesh))
     if _on_mesh(state.params):
         state = state_to(state, distinct_blocks(state.params["embed"])[0]
                          .device)

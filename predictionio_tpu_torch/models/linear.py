@@ -15,8 +15,11 @@ loss sum on its own device, the sums add in shard order (the
 reference's ``psum``), each replica's gradient is the sum of its
 positions' in position order (:mod:`~predictionio_tpu_torch.parallel.
 blocks`), and every replica takes the same Adam step.  The model is
-returned on the first shard's device.  A mesh that spans processes is
-refused (ROADMAP Queue 1 item 10c).
+returned on the first shard's device.  On a mesh that spans processes
+(``data`` split over the gang) each process computes its shards' sums
+and its replica of the loss; the sums and the replicas' gradients cross
+processes in shard order, so every process returns one process's
+model, bit for bit.
 """
 
 from __future__ import annotations
@@ -33,7 +36,11 @@ from predictionio_tpu_torch.parallel.blocks import (
     grads_by_block,
     position_leaves,
 )
-from predictionio_tpu_torch.parallel.compat import axis_lane, psum
+from predictionio_tpu_torch.parallel.compat import (
+    axis_lane,
+    check_gang,
+    psum,
+)
 from predictionio_tpu_torch.parallel.mesh import (
     AXIS_DATA,
     PartitionSpec,
@@ -93,12 +100,9 @@ def train(x: np.ndarray, y: np.ndarray, cfg: LogisticRegressionConfig,
           device=None) -> LogisticRegressionModel:
     """``cfg.steps`` full-batch Adam steps at ``cfg.learning_rate`` on
     standardized features (constant features keep scale 1)."""
-    if mesh is not None and mesh.multi_process:
-        raise NotImplementedError(
-            "logistic regression on a mesh that spans processes is not "
-            "ported yet (ROADMAP Queue 1 item 10c); use one process per "
-            "mesh")
-    dev = resolve_device(device) if mesh is None else mesh.devices.flat[0]
+    if mesh is not None:
+        check_gang(mesh, AXIS_DATA)
+    dev = resolve_device(device) if mesh is None else None
     x = np.asarray(x, np.float32)
     n, d = x.shape
     if cfg.standardize:
@@ -144,7 +148,7 @@ def train(x: np.ndarray, y: np.ndarray, cfg: LogisticRegressionConfig,
 def _fit_mesh(xs: np.ndarray, y: np.ndarray, w_sample: np.ndarray,
               cfg: LogisticRegressionConfig, mesh):
     """:func:`train`'s steps over ``data``-sharded rows; returns the
-    weights and bias on the first shard's device."""
+    weights and bias on this process's first shard's device."""
     rows = PartitionSpec(AXIS_DATA)
     x_s = put_sharded(np.asarray(xs, np.float32), mesh, rows)
     y_s = put_sharded(torch.nn.functional.one_hot(
@@ -156,7 +160,8 @@ def _fit_mesh(xs: np.ndarray, y: np.ndarray, w_sample: np.ndarray,
     blocks = flat_blocks(params)
     mu = [torch.zeros_like(b) for b in blocks]
     nu = [torch.zeros_like(b) for b in blocks]
-    lane = axis_lane(mesh, AXIS_DATA)
+    mine = set(mesh.local_positions())
+    lane = [p for p in axis_lane(mesh, AXIS_DATA) if p in mine]
     reg = float(cfg.reg)
     for t in range(1, int(cfg.steps) + 1):
         lw, lb = (position_leaves(p) for p in params)
@@ -167,8 +172,8 @@ def _fit_mesh(xs: np.ndarray, y: np.ndarray, w_sample: np.ndarray,
             ll = -(y_s.block(p) * logp).sum(dim=-1)
             nums.append((ll * ws_s.block(p)).sum())
             dens.append(ws_s.block(p).sum())
-        dev = lw.block(lane[0]).device
-        loss = psum(nums, device=dev) / psum(dens, device=dev).clamp(
+        num = psum(nums, mesh, each=True)[0]
+        loss = num / psum(dens, mesh, device=num.device).clamp(
             min=1.0) + reg * (lw.block(lane[0]) ** 2).sum()
         grads = flat_blocks(grads_by_block(loss, params, (lw, lb)))
         with torch.no_grad():

@@ -21,7 +21,11 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.device import device as resolve_device
-from predictionio_tpu_torch.parallel.compat import axis_lane, psum
+from predictionio_tpu_torch.parallel.compat import (
+    axis_lane,
+    check_gang,
+    psum,
+)
 from predictionio_tpu_torch.parallel.mesh import (
     AXIS_DATA,
     PartitionSpec,
@@ -72,8 +76,9 @@ def _sums(x, y, n_classes: int, mesh, device, squares: bool):
         return stats(x.to(dev), onehot.to(dev))
     spec = PartitionSpec(AXIS_DATA)
     xs, ys = put_sharded(x, mesh, spec), put_sharded(onehot, mesh, spec)
+    check_gang(mesh, AXIS_DATA)
     parts = [stats(xs.block(p), ys.block(p))
-             for p in axis_lane(mesh, AXIS_DATA)]
+             for p in axis_lane(mesh, AXIS_DATA) if xs.shards[p] is not None]
     dev = parts[0][0].device
     return [psum([pt[j] for pt in parts], mesh, device=dev)
             for j in range(len(parts[0]))]

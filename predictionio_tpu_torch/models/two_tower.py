@@ -62,8 +62,11 @@ and sums its weighted losses; the shards' sums add in shard order.  ``torch.auto
 stages, each block's gradient is the sum of its positions' in position
 order (:mod:`~predictionio_tpu_torch.parallel.blocks`), and Adam updates
 each block where it lives.  The only float differences from the meshless
-step are the orders of those sums.  A mesh that spans processes is
-refused (ROADMAP Queue 1 item 10c).
+step are the orders of those sums.  On a mesh that spans processes (its
+``data`` axis split over the gang) each process runs the stages of its
+own positions; the collectives carry the item vectors, the replicated
+weights' cotangents and the loss sums between processes in the same
+order, so a gang's step has one process's bits.
 """
 
 from __future__ import annotations
@@ -89,7 +92,9 @@ from predictionio_tpu_torch.parallel.blocks import (
 from predictionio_tpu_torch.parallel.compat import (
     all_gather,
     axis_lane,
+    check_gang,
     psum,
+    replicate,
     shard_map,
 )
 from predictionio_tpu_torch.parallel.mesh import (
@@ -100,10 +105,6 @@ from predictionio_tpu_torch.parallel.mesh import (
     ShardedTensor,
     put_sharded,
 )
-
-_ACROSS_PROCESSES = (
-    "two-tower training on a mesh that spans processes is not ported yet "
-    "(ROADMAP Queue 1 item 10c); use one process per mesh")
 
 __all__ = ["TwoTowerConfig", "TwoTowerState", "AdamState", "EmptyState",
            "init_params", "init_state", "param_shardings", "train_step",
@@ -504,31 +505,41 @@ def _owned_rows(axis_index, block: torch.Tensor,
     return torch.where(mine[:, None], got, torch.zeros_like(got))
 
 
+def _local_lane(mesh) -> List[int]:
+    """The ``data`` lane's positions this process drives, in order."""
+    mine = set(mesh.local_positions())
+    return [p for p in axis_lane(mesh, AXIS_DATA) if p in mine]
+
+
 def _mesh_towers(params: Dict, ids: ShardedTensor, table: str,
                  tower: str) -> List[torch.Tensor]:
-    """Each ``data`` shard's tower outputs, on its lane position's device:
-    the masked gathers of every position, their ``model`` blocks added
-    in order, then the MLP on the shard's rows.  The replicated MLP's
-    weights are rounded to bfloat16 once, on the first lane position, and
-    every shard multiplies by that copy: the weight gradients of the
-    shards then add in float32 before the rounding's backward rounds
-    them, as the meshless step's one product over the whole batch does
-    (a rounding a shard would give partial sums of bfloat16 gradients)."""
+    """Each of this process's ``data`` shards' tower outputs, on its lane
+    position's device: the masked gathers of every position, their
+    ``model`` blocks added in order, then the MLP on the shard's rows.
+    The replicated MLP's weights are rounded to bfloat16 once and handed
+    to every shard by :func:`~predictionio_tpu_torch.parallel.compat.
+    replicate`: the weight gradients of the shards then add in float32,
+    in shard order (across processes too), before the rounding's
+    backward rounds them, as the meshless step's one product over the
+    whole batch does (a rounding a shard would give partial sums of
+    bfloat16 gradients)."""
     mesh = ids.mesh
     parts = shard_map(_owned_rows, mesh=mesh,
                       in_specs=(P(AXIS_MODEL, None), P(AXIS_DATA)),
                       out_specs=None)(params[table], ids)
     part_of = dict(zip(mesh.local_positions(), parts))
-    lane = axis_lane(mesh, AXIS_DATA)
+    lane = _local_lane(mesh)
     mlp = _bf16_weights(_at(params[tower], lane[0]))
+    flat = [t for layer in mlp["layers"] for t in (layer["w"], layer["b"])]
+    devs = [params[table].block(lead).device for lead in lane]
+    copies = replicate(flat, devs, mesh)
     out = []
-    for lead in lane:
+    for lead, dev, mine in zip(lane, devs, copies):
         d = mesh.position(lead)[AXIS_DATA]
         row = axis_lane(mesh, AXIS_MODEL, at={AXIS_DATA: d})
-        dev = params[table].block(lead).device
         e = psum([part_of[p] for p in row], device=dev)
-        here = {"layers": [{k: v.to(dev) for k, v in layer.items()}
-                           for layer in mlp["layers"]]}
+        here = {"layers": [{"w": mine[2 * i], "b": mine[2 * i + 1]}
+                           for i in range(len(mlp["layers"]))]}
         out.append(_normalized(_mlp_rounded(here, e)))
     return out
 
@@ -538,22 +549,24 @@ def _mesh_loss(params: Dict, user_ids: ShardedTensor,
                temperature: float) -> torch.Tensor:
     """:func:`_loss` over a ``data``-sharded batch: each shard's rows
     against the all-gathered item vectors, the shards' weighted sums
-    added in shard order."""
+    added in shard order (this process's replica of the loss)."""
     mesh = user_ids.mesh
-    lane = axis_lane(mesh, AXIS_DATA)
+    lane = _local_lane(mesh)
     u = _mesh_towers(params, user_ids, "user_embed", "user_mlp")
     v = _mesh_towers(params, item_ids, "item_embed", "item_mlp")
     items = [item_ids.block(p) for p in lane]
     wts = [weights.block(p) for p in lane]
+    v_alls = all_gather(v, mesh, each=True)                   # [B, D] each
+    i_all0 = all_gather(items, mesh)
+    w_all0 = all_gather(wts, mesh)
     nums, dens = [], []
-    for d, ud in enumerate(u):
+    for j, (lead, ud, v_all) in enumerate(zip(lane, u, v_alls)):
         dev, rows = ud.device, ud.shape[0]
-        v_all = all_gather(v, device=dev)                     # [B, D]
-        i_all = all_gather(items, device=dev)
-        w_all = all_gather(wts, device=dev)
+        d = mesh.position(lead)[AXIS_DATA]
+        i_all, w_all = i_all0.to(dev), w_all0.to(dev)
         logits = (ud @ v_all.T) / temperature                 # [B/n, B]
         diag = d * rows + torch.arange(rows, device=dev)
-        same = items[d][:, None] == i_all[None, :]
+        same = items[j][:, None] == i_all[None, :]
         pad_col = (w_all <= 0.0)[None, :]
         eye = torch.arange(v_all.shape[0], device=dev)[None, :] \
             == diag[:, None]
@@ -562,11 +575,10 @@ def _mesh_loss(params: Dict, user_ids: ShardedTensor,
         log_norm = torch.log(torch.exp(logits - top).sum(dim=-1)) \
             + top[:, 0]
         losses = log_norm - logits.gather(1, diag[:, None])[:, 0]
-        nums.append((losses * wts[d]).sum())
-        dens.append(wts[d].sum())
-    dev0 = u[0].device
-    return psum(nums, device=dev0) / torch.clamp(psum(dens, device=dev0),
-                                                 min=1.0)
+        nums.append((losses * wts[j]).sum())
+        dens.append(wts[j].sum())
+    num = psum(nums, mesh, each=True)[0]
+    return num / torch.clamp(psum(dens, mesh, device=num.device), min=1.0)
 
 
 def _mesh_step_math(state: TwoTowerState, user_ids: ShardedTensor,
@@ -578,8 +590,7 @@ def _mesh_step_math(state: TwoTowerState, user_ids: ShardedTensor,
     lives."""
     sharded = _leaves(state.params)
     mesh = sharded[0].mesh
-    if mesh.multi_process:
-        raise NotImplementedError(_ACROSS_PROCESSES)
+    check_gang(mesh, AXIS_DATA)
     leaves = [position_leaves(x) for x in sharded]
     loss = _mesh_loss(_unflatten(state.params, leaves), user_ids, item_ids,
                       weights, cfg.temperature)
@@ -682,9 +693,8 @@ def train(
         raise ValueError(f"data_source {data_source!r}: use auto, feeder "
                          "or numpy")
     if mesh is not None:
-        if mesh.multi_process:
-            raise NotImplementedError(_ACROSS_PROCESSES)
-        device = mesh.devices.flat[0]
+        check_gang(mesh, AXIS_DATA)
+        device = mesh.devices.flat[mesh.local_positions()[0]]
         if warm_state is not None and not _on_mesh(warm_state.params):
             warm_state = _to_mesh(warm_state, mesh)
     elif device is None and warm_state is not None:

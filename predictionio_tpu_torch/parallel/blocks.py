@@ -20,8 +20,14 @@ mesh a step is written out:
    updated where it lives, and :func:`rebuild_all` lays the new blocks
    out as the old ones were.
 
-Within one process only: across processes a collective refuses parts
-that require grad (ROADMAP Queue 1 item 10c).
+In a gang (a mesh that spans processes) a process makes leaves for its
+own positions only; the collectives carry the cotangents between
+processes, a block another process also holds gets its gradient from
+every holder's in position order (the holders' gradients gathered
+first), and each process updates the blocks it holds.  Every process
+computes its replica of the loss; the one of the mesh's first process
+seeds the backward (1), the others seed it with 0, so the gradient is
+counted once, with one process's bits.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from predictionio_tpu_torch.parallel.compat import _every_process
 from predictionio_tpu_torch.parallel.mesh import (
     NamedSharding,
     PartitionSpec,
@@ -39,7 +46,7 @@ from predictionio_tpu_torch.parallel.mesh import (
 
 __all__ = ["distinct_blocks", "rebuild", "map_blocks", "flat_blocks",
            "rebuild_all", "position_leaves", "block_grads",
-           "grads_by_block", "leading_slot"]
+           "grads_by_block", "loss_seed", "leading_slot"]
 
 
 def _distinct(x: ShardedTensor) -> List[Tuple[int, torch.Tensor]]:
@@ -104,14 +111,54 @@ def _block_key(x: ShardedTensor, p: int) -> Tuple:
                  for s in block_slices(x.shape, x.sharding, p))
 
 
+def _shared_across(x: ShardedTensor) -> bool:
+    """Whether a block of ``x`` is held by positions of two processes."""
+    mesh = x.mesh
+    if not mesh.multi_process:
+        return False
+    owners: Dict[Tuple, set] = {}
+    for p in range(mesh.size):
+        owners.setdefault(_block_key(x, p), set()).add(
+            int(mesh.process_ids.flat[p]))
+    return any(len(o) > 1 for o in owners.values())
+
+
+def _every_grad(x: ShardedTensor, grads: Dict[int, Optional[torch.Tensor]]
+                ) -> Dict[int, Optional[torch.Tensor]]:
+    """Every position's gradient, across the gang: each process sends its
+    positions' (zeros and a 0 flag where None), in rank order."""
+    positions = x.mesh.local_positions()
+    like = x.shards[positions[0]]
+    sent = [grads.get(p) if grads.get(p) is not None
+            else torch.zeros_like(like) for p in positions]
+    flags = torch.tensor([float(grads.get(p) is not None)
+                          for p in positions], device=like.device)
+    got = _every_process([*sent, flags])
+    k = len(positions)
+    out: Dict[int, Optional[torch.Tensor]] = {}
+    for r in range(len(got) // (k + 1)):
+        proc = got[r * (k + 1):(r + 1) * (k + 1)]
+        for i in range(k):
+            out[r * k + i] = proc[i] if bool(proc[k][i]) else None
+    return out
+
+
 def block_grads(x: ShardedTensor, grads: Dict[int, Optional[torch.Tensor]]
                 ) -> ShardedTensor:
     """The gradient of each block of ``x``, laid out as ``x``: the sum of
     ``grads[p]`` (position ``p``'s leaf gradient, None where the position
     did not take part) over the positions that hold the same block,
-    added in position order on each device that holds it."""
+    added in position order on each device that holds it.  Where a
+    block's holders span processes, every position's gradient is
+    gathered first (the gang's processes hold equal runs of positions,
+    in order)."""
+    if _shared_across(x):
+        grads = _every_grad(x, grads)
+        holders = range(x.mesh.size)
+    else:
+        holders = x.mesh.local_positions()
     by_key: Dict[Tuple, List[torch.Tensor]] = {}
-    for p in x.mesh.local_positions():
+    for p in holders:
         g = grads.get(p)
         if g is not None:
             by_key.setdefault(_block_key(x, p), []).append(g)
@@ -128,14 +175,28 @@ def block_grads(x: ShardedTensor, grads: Dict[int, Optional[torch.Tensor]]
     return rebuild(x, out)
 
 
+def loss_seed(loss: torch.Tensor, mesh) -> torch.Tensor:
+    """The backward's seed of this process's replica of ``loss``: 1 on
+    the process of the mesh's first position, 0 on the others (each
+    replica's backward still runs, to pass the cotangents the
+    collectives carry between processes)."""
+    from predictionio_tpu_torch.parallel.distributed import process_index
+
+    first = int(mesh.process_ids.flat[0]) == process_index()
+    return torch.ones_like(loss) if first else torch.zeros_like(loss)
+
+
 def grads_by_block(loss: torch.Tensor, xs: Sequence[ShardedTensor],
                    leaves: Sequence[ShardedTensor]) -> List[ShardedTensor]:
     """The gradient of ``loss`` for each array of ``xs``, laid out as it
     is: ``torch.autograd.grad`` on every position's leaf (``leaves``,
     from :func:`position_leaves` of ``xs``), then :func:`block_grads`."""
-    positions = xs[0].mesh.local_positions()
+    mesh = xs[0].mesh
+    positions = mesh.local_positions()
     flat = [lv.shards[p] for lv in leaves for p in positions]
-    got = torch.autograd.grad(loss, flat, allow_unused=True)
+    seed = loss_seed(loss, mesh)
+    got = torch.autograd.grad(loss, flat, grad_outputs=seed,
+                              allow_unused=True)
     n = len(positions)
     with torch.no_grad():
         return [block_grads(x, dict(zip(positions, got[i * n:(i + 1) * n])))

@@ -29,7 +29,7 @@ import torch
 logger = logging.getLogger(__name__)
 
 __all__ = ["initialize_distributed", "is_multi_host", "process_index",
-           "process_count"]
+           "process_count", "gang_any", "barrier"]
 
 _initialized = False
 
@@ -94,3 +94,32 @@ def process_index() -> int:
 def process_count() -> int:
     dist = _dist()
     return dist.get_world_size() if dist is not None else 1
+
+
+def _flag_device() -> torch.device:
+    """Where a gang's small control tensors live: the host on gloo, the
+    process's card on NCCL (which carries CUDA tensors only)."""
+    dist = _dist()
+    if dist is not None and dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def gang_any(flag: bool) -> bool:
+    """True on every process when ``flag`` is true on any process of the
+    gang (a process alone: ``flag``): how a gang takes one decision —
+    to preempt, to roll back — at the same step."""
+    dist = _dist()
+    if dist is None or dist.get_world_size() == 1:
+        return bool(flag)
+    t = torch.tensor([1 if flag else 0], dtype=torch.int32,
+                     device=_flag_device())
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
+def barrier() -> None:
+    """Wait for every process of the gang (a no-op alone)."""
+    dist = _dist()
+    if dist is not None and dist.get_world_size() > 1:
+        dist.barrier()

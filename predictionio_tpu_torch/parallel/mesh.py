@@ -216,14 +216,15 @@ class ShardedTensor:
         return out
 
     def full(self, device=None) -> torch.Tensor:
-        """The global array as one tensor on ``device`` (default: the
-        first block's), assembled from the blocks in one process;
-        differentiable with respect to them."""
-        if self.mesh.multi_process:
-            raise ValueError("full() assembles one process's blocks; use "
-                             "to_host() on a mesh that spans processes")
-        first = self.shards[0]
+        """The global array as one tensor on ``device`` (default: this
+        process's first block's), assembled from the blocks in one
+        process, differentiable with respect to them; on a mesh that
+        spans processes, gathered from every process (every process
+        calls it), without gradients."""
+        first = next(t for t in self.shards if t is not None)
         dev = first.device if device is None else torch.device(device)
+        if self.mesh.multi_process:
+            return torch.from_numpy(self.to_host()).to(dev)
         out = first.new_zeros(self.shape, device=dev)
         placed = set()
         for p, blk in enumerate(self.shards):
@@ -282,15 +283,28 @@ def make_mesh(
 
     ``axis_sizes`` maps axis name → size; at most one axis may be ``-1``
     (absorbs remaining devices).  Default: all devices on the ``data``
-    axis.  ``devices`` pins the device list (one process; a device may
-    repeat); otherwise the devices of ``device`` (the card by default,
-    ``"cpu"`` for the CPU positions) across every process.
+    axis.  ``devices`` pins the device list (a device may repeat); in a
+    gang the list is the whole gang's, in mesh order, every process
+    passing the same list, and process ``r`` of ``n`` drives the
+    ``r``-th of ``n`` equal runs of it (two processes sharing one card:
+    ``[cuda:0] * 4``).  Otherwise the devices of ``device`` (the card by
+    default, ``"cpu"`` for the CPU positions) across every process.
     """
     if devices is not None:
-        from predictionio_tpu_torch.parallel.distributed import process_index
+        from predictionio_tpu_torch.parallel.distributed import (
+            process_count,
+            process_index,
+        )
 
         devs = [torch.device(d) for d in devices]
         procs = [process_index()] * len(devs)
+        if process_count() > 1:
+            n = process_count()
+            if len(devs) % n:
+                raise ValueError(f"{len(devs)} mesh devices do not split "
+                                 f"evenly over a gang of {n} processes")
+            per = len(devs) // n
+            procs = [i // per for i in range(len(devs))]
     else:
         devs, procs = _global_devices(device)
     n = len(devs)

@@ -19,7 +19,11 @@ standard attention strategies over it:
 The arithmetic is the reference's einsums in float32 (the reference
 reaches no Pallas kernel here).  On the single-controller mesh the
 ring's loop runs over the lane's shards between ``shard_map`` stages,
-and ``torch.autograd`` differentiates through it.  Inputs are
+and ``torch.autograd`` differentiates through it.  On a mesh that spans
+processes (``sequence`` split over the gang) each process runs its own
+shards' steps; ``ppermute`` and ``all_to_all`` carry the blocks and
+their cotangents between processes, so the outputs and gradients are
+one process's bits.  Inputs are
 ``[B, S, H, D]`` tensors (or :class:`~predictionio_tpu_torch.parallel.
 mesh.ShardedTensor` s laid out ``P(None, axis)``); the output is a
 ``ShardedTensor`` laid out ``P(None, axis)`` (``.full()`` assembles it).
@@ -33,6 +37,7 @@ import torch
 
 from predictionio_tpu_torch.parallel.compat import (
     all_to_all,
+    check_gang,
     lane_outputs,
     ppermute,
     shard_map,
@@ -68,7 +73,8 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _lane_blocks(x, mesh: Mesh, axis: str) -> List[torch.Tensor]:
-    """``x``'s sequence blocks, one a shard of ``axis``, in shard order."""
+    """``x``'s sequence blocks, one a shard of ``axis`` this process
+    drives, in shard order."""
     outs = shard_map(lambda _ax, blk: blk, mesh=mesh,
                      in_specs=P(None, axis), out_specs=None)(x)
     return lane_outputs(outs, mesh, axis)
@@ -76,19 +82,23 @@ def _lane_blocks(x, mesh: Mesh, axis: str) -> List[torch.Tensor]:
 
 def _assemble(blocks: List[torch.Tensor], mesh: Mesh, axis: str,
               shape) -> ShardedTensor:
-    """The per-shard outputs as a ``P(None, axis)`` array (the other axes
+    """This process's per-shard outputs (``blocks[j]`` of shard
+    ``first + j``) as a ``P(None, axis)`` array (the other axes
     replicate: their positions share the lane's block)."""
+    first = _first_shard(mesh, axis)
     shards = [None] * mesh.size
     for p in mesh.local_positions():
-        shards[p] = blocks[mesh.position(p)[axis]]
+        shards[p] = blocks[mesh.position(p)[axis] - first]
     return ShardedTensor(NamedSharding(mesh, P(None, axis)), shape, shards)
 
 
-def _seq_check(q, mesh: Mesh, n: int) -> int:
-    if mesh.multi_process:
-        raise NotImplementedError(
-            "sequence-parallel attention on a mesh that spans processes is "
-            "not ported yet (ROADMAP Queue 1 item 10c)")
+def _first_shard(mesh: Mesh, axis: str) -> int:
+    """The index along ``axis`` of this process's first shard."""
+    return min(mesh.position(p)[axis] for p in mesh.local_positions())
+
+
+def _seq_check(q, mesh: Mesh, n: int, axis: str) -> int:
+    check_gang(mesh, axis)
     seq = q.shape[1]
     assert seq % n == 0, f"pad sequence ({seq}) to a multiple of {n}"
     return seq
@@ -99,13 +109,14 @@ def ring_attention(q, k, v, mesh: Mesh, *, causal: bool = False,
     """Exact attention over sequence-sharded Q/K/V with ring K/V
     rotation."""
     n = mesh.shape[axis]
-    _seq_check(q, mesh, n)
+    _seq_check(q, mesh, n, axis)
     qs, ks, vs = (_lane_blocks(x, mesh, axis) for x in (q, k, v))
+    first = _first_shard(mesh, axis)
     b, sl, h, d = qs[0].shape
     scale = d ** -0.5
     perm = [(i, (i + 1) % n) for i in range(n)]
     state = []
-    for me, qb in enumerate(qs):
+    for me, qb in enumerate(qs, start=first):
         dev = qb.device
         state.append([
             torch.full((b, h, sl), _NEG, dtype=torch.float32, device=dev),
@@ -113,11 +124,12 @@ def ring_attention(q, k, v, mesh: Mesh, *, causal: bool = False,
             torch.zeros((b, h, sl, d), dtype=torch.float32, device=dev),
             me * sl + torch.arange(sl, device=dev)])
     for t in range(n):
-        for me, qb in enumerate(qs):
-            m, l, acc, q_pos = state[me]
+        for j, qb in enumerate(qs):
+            me = first + j
+            m, l, acc, q_pos = state[j]
             src = (me - t) % n                 # owner of the visiting block
             s = torch.einsum("bqhd,bkhd->bhqk", qb.float(),
-                             ks[me].float()) * scale
+                             ks[j].float()) * scale
             if causal:
                 k_pos = src * sl + torch.arange(sl, device=qb.device)
                 mask = q_pos[:, None] >= k_pos[None, :]
@@ -128,11 +140,12 @@ def ring_attention(q, k, v, mesh: Mesh, *, causal: bool = False,
             corr = torch.exp(m - m_new)
             l_new = l * corr + p.sum(dim=-1)
             acc_new = acc * corr[..., None] + torch.einsum(
-                "bhqk,bkhd->bhqd", p, vs[me].float())
-            state[me] = [m_new, l_new, acc_new, q_pos]
-        # Rotate K/V to the next shard on the ring.
-        ks = ppermute(ks, perm=perm)
-        vs = ppermute(vs, perm=perm)
+                "bhqk,bkhd->bhqd", p, vs[j].float())
+            state[j] = [m_new, l_new, acc_new, q_pos]
+        if t < n - 1:
+            # Rotate K/V to the next shard on the ring.
+            ks = ppermute(ks, mesh, perm=perm)
+            vs = ppermute(vs, mesh, perm=perm)
     outs = []
     for (m, l, acc, _), qb in zip(state, qs):
         out = acc / torch.clamp(l, min=1e-30)[..., None]      # [B,H,S/n,D]
@@ -145,12 +158,12 @@ def ulysses_attention(q, k, v, mesh: Mesh, *, causal: bool = False,
     """DeepSpeed-Ulysses-style SP: all_to_all seq→head reshard, local
     attention over the FULL sequence for H/n heads, all_to_all back."""
     n = mesh.shape[axis]
-    _seq_check(q, mesh, n)
+    _seq_check(q, mesh, n, axis)
     heads = q.shape[2]
     assert heads % n == 0, f"heads ({heads}) must divide over {n} devices"
-    qf, kf, vf = (all_to_all(_lane_blocks(x, mesh, axis), split_dim=2,
+    qf, kf, vf = (all_to_all(_lane_blocks(x, mesh, axis), mesh, split_dim=2,
                              concat_dim=1) for x in (q, k, v))
     outs = [local_attention(a, b_, c, causal=causal)
             for a, b_, c in zip(qf, kf, vf)]
-    back = all_to_all(outs, split_dim=1, concat_dim=2)
+    back = all_to_all(outs, mesh, split_dim=1, concat_dim=2)
     return _assemble(back, mesh, axis, tuple(q.shape))

@@ -27,6 +27,15 @@ array is saved as its spec, its global shape and its distinct blocks
 (positions that share a tensor share one saved block); restore places
 each block back on its position's device of ``state_like``'s mesh,
 shared as it was, after checking that the spec and shape agree.
+
+In a gang (``parallel.distributed``, more than one process) every
+process writes and reads files of its own, so no two processes write one
+path: process ``r`` of ``n`` saves ``<step>.p<r>of<n>.pt`` (its own
+positions' blocks, -1 for another process's) and keeps
+``fingerprint.p<r>of<n>.txt``.  A save returns once every process has
+written that step (a barrier), and a resume takes the newest step every
+process has on disk, so a preempted gang restarts from one sweep.  A
+gang of another size starts fresh.
 """
 
 from __future__ import annotations
@@ -44,7 +53,14 @@ logger = logging.getLogger(__name__)
 
 __all__ = ["TrainCheckpointer"]
 
-_STEP_FILE = re.compile(r"^(\d+)\.pt$")
+def _gang() -> tuple:
+    """(rank, size) of this process's gang ((0, 1) alone)."""
+    from predictionio_tpu_torch.parallel.distributed import (
+        process_count,
+        process_index,
+    )
+
+    return process_index(), process_count()
 
 
 _SHARDED = "__pio_sharded__"
@@ -163,23 +179,41 @@ class TrainCheckpointer:
         self.keep = keep
         self.fingerprint = fingerprint
         self.restored_state: Optional[Any] = None
+        rank, size = _gang()
+        self._gang = size > 1
+        self._tag = f".p{rank}of{size}" if self._gang else ""
+        self._step_file = re.compile(rf"^(\d+){re.escape(self._tag)}\.pt$")
+        self._tmp_file = re.compile(
+            rf"^\d+{re.escape(self._tag)}\.pt\.\d+\.pt\.tmp$")
         if self.enabled:
             self._check_fingerprint()
 
     @property
     def _fingerprint_path(self) -> Path:
-        return self.directory / "fingerprint.txt"
+        return self.directory / f"fingerprint{self._tag}.txt"
 
     def _steps(self) -> List[int]:
-        """Complete step files on disk, ascending."""
+        """Complete step files of this process on disk, ascending."""
         if not self.directory.is_dir():
             return []
         return sorted(int(m.group(1)) for m in
-                      (_STEP_FILE.match(c.name)
+                      (self._step_file.match(c.name)
                        for c in self.directory.iterdir()) if m)
 
+    def _agreed_steps(self) -> List[int]:
+        """The steps every process of the gang has on disk, ascending."""
+        steps = self._steps()
+        if not self._gang:
+            return steps
+        import torch.distributed as dist
+
+        every: List = [None] * dist.get_world_size()
+        dist.all_gather_object(every, steps)
+        common = set(every[0]).intersection(*every[1:])
+        return sorted(common)
+
     def _step_path(self, step: int) -> Path:
-        return self.directory / f"{int(step)}.pt"
+        return self.directory / f"{int(step)}{self._tag}.pt"
 
     def _check_fingerprint(self) -> None:
         """Refuse checkpoints written for a different config/data: a
@@ -199,8 +233,8 @@ class TrainCheckpointer:
                     "checkpoints and training from scratch.",
                     self.directory, stored, self.fingerprint)
                 for child in self.directory.iterdir():
-                    if _STEP_FILE.match(child.name) or \
-                            child.name.endswith(".pt.tmp"):
+                    if self._step_file.match(child.name) or \
+                            self._tmp_file.match(child.name):
                         if child.is_dir():
                             shutil.rmtree(child, ignore_errors=True)
                         else:
@@ -222,7 +256,7 @@ class TrainCheckpointer:
         run at all — is flagged loudly."""
         if not self.enabled:
             return 0
-        steps = self._steps()
+        steps = self._agreed_steps()
         if not steps:
             return 0
         latest = steps[-1]
@@ -264,6 +298,10 @@ class TrainCheckpointer:
         tmp = path.with_name(f"{path.name}.{os.getpid()}.pt.tmp")
         torch.save(_to_host(state), tmp)
         os.replace(tmp, path)
+        if self._gang:
+            from predictionio_tpu_torch.parallel.distributed import barrier
+
+            barrier()
         for old in self._steps()[:-max(int(self.keep), 1)]:
             self._step_path(old).unlink(missing_ok=True)
 

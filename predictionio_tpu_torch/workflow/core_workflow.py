@@ -106,11 +106,13 @@ def _class_path(obj: Any) -> str:
 def _start_instance(engine: Engine, variant: EngineVariant,
                     storage: Storage, env: Optional[dict] = None,
                     engine_id: Optional[str] = None,
-                    engine_version: str = __version__
+                    engine_version: str = __version__,
+                    insert: bool = True
                     ) -> Tuple[EngineInstance, EngineParams]:
     """Bind the variant's params (strictly, as a train does) and insert a
     TRAINING row that snapshots them, so the server later rebinds
-    exactly what the generation was made with."""
+    exactly what the generation was made with (``insert`` False: the
+    row another process of a gang inserts; the id stays None)."""
     engine_params = engine.bind_engine_params(variant.raw)
     ep_json = engine_params.to_json_dict()
     instance = EngineInstance(
@@ -131,14 +133,36 @@ def _start_instance(engine: Engine, variant: EngineVariant,
     # The id is the insert's answer: a remote store (``pioserver``)
     # cannot fill in the caller's object, and every later update of the
     # row goes by ``instance.id``.
-    instance.id = storage.get_engine_instances().insert(instance)
+    if insert:
+        instance.id = storage.get_engine_instances().insert(instance)
     return instance, engine_params
 
 
 def _finish(storage: Storage, instance: EngineInstance, status: str) -> None:
     instance.status = status
     instance.end_time = _now()
-    storage.get_engine_instances().update(instance)
+    if _gang_role()[1]:
+        storage.get_engine_instances().update(instance)
+
+
+def _gang_role() -> Tuple[bool, bool]:
+    """(in a gang of several processes, this process writes): in a gang
+    only process 0 writes the engine instance and the models."""
+    from predictionio_tpu_torch.parallel.distributed import (
+        process_count,
+        process_index,
+    )
+
+    return process_count() > 1, process_index() == 0
+
+
+def _from_writer(value):
+    """``value`` as process 0 of the gang has it, on every process."""
+    import torch.distributed as dist
+
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 def run_train(engine: Engine, variant: EngineVariant,
@@ -165,11 +189,18 @@ def run_train(engine: Engine, variant: EngineVariant,
     back to a full retrain over the complete window inside the SAME
     engine instance (``refreshMode`` ``full_fallback``).  A
     :class:`TrainPreempted` lands the instance as PREEMPTED.
+
+    In a gang (``parallel.distributed``, more than one process) every
+    process trains, and only process 0 writes: it inserts the engine
+    instance, persists the models and sets the final status; the others
+    take its instance id and its watermark (so every process reads the
+    same events) and write nothing.
     """
     from predictionio_tpu_torch.data.store import WindowedEventStore
 
     ctx = ctx or RuntimeContext.create()
     storage: Storage = ctx.storage
+    gang, writer = _gang_role()
     # The watermark is pinned before ANY event is read.
     watermark = _now()
     env = {DATA_WATERMARK_KEY: watermark.isoformat(),
@@ -177,8 +208,13 @@ def run_train(engine: Engine, variant: EngineVariant,
     if warm_from is not None and getattr(warm_from, "instance", None):
         env[WARM_FROM_KEY] = warm_from.instance.id
     instance, engine_params = _start_instance(
-        engine, variant, storage, env=env,
-        engine_id=engine_id, engine_version=engine_version)
+        engine, variant, storage, env=env, engine_id=engine_id,
+        engine_version=engine_version, insert=writer)
+    if gang:
+        instance.id, stamp = _from_writer(
+            (instance.id, env[DATA_WATERMARK_KEY]))
+        watermark = _dt.datetime.fromisoformat(stamp)
+        instance.env[DATA_WATERMARK_KEY] = stamp
     logger.info("EngineInstance %s TRAINING (factory=%s)", instance.id,
                 variant.engine_factory)
     # Per-run device-memory peak: a fresh peak window at the start, the
@@ -224,7 +260,8 @@ def run_train(engine: Engine, variant: EngineVariant,
                 models = _maybe_profiled(
                     ctx, lambda: engine.train(fctx, engine_params))
             with phase("train.persist"):
-                _persist_models(models, instance.id, ctx)
+                if writer:
+                    _persist_models(models, instance.id, ctx)
             sampler.sample_once()
     except TrainPreempted as e:
         # SIGTERM preemption: the distinct status tells a supervisor

@@ -199,13 +199,14 @@ def test_all_finite_on_tensors_arrays_and_trees():
 def test_one_device_only_and_card_by_default(monkeypatch):
     users, items, ratings = _ratings()
     cfg = port_als.ALSConfig(rank=4, iterations=1)
-    # A mesh trains (tests/test_torch_als_mesh.py) within one process; a
-    # mesh whose shards span two processes is refused.
+    # A mesh trains (tests/test_torch_als_mesh.py) within one process and
+    # across a gang (tests/test_torch_gang_als.py); a mesh whose shards
+    # span two processes in another layout is refused.
     from predictionio_tpu_torch.parallel.mesh import Mesh
 
     two_processes = Mesh(np.array([CPU, CPU], dtype=object), ("data",),
-                         np.array([0, 1]))
-    with pytest.raises(NotImplementedError, match="mesh"):
+                         np.array([1, 0]))
+    with pytest.raises(ValueError, match="mesh"):
         port_als.train_als(users, items, ratings, N_USERS, N_ITEMS, cfg,
                            mesh=two_processes, device=CPU)
     # bucketing on the training device is ported: on the CPU it trains

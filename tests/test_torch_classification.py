@@ -130,14 +130,16 @@ def test_logistic_regression_matches_the_reference(steps, reg):
 
 
 def test_logistic_regression_refuses_a_mesh():
-    """A mesh that spans processes (ROADMAP Queue 1 item 10c); one
-    process's mesh trains (tests/test_torch_mesh_cli.py)."""
+    """A mesh that spans processes in another layout than the gang's
+    (the processes splitting ``data`` in order) is refused; one
+    process's mesh trains (tests/test_torch_mesh_cli.py), and so does a
+    gang's (tests/test_torch_gang_models.py)."""
     from predictionio_tpu_torch.parallel.mesh import Mesh
 
     two = Mesh(np.array([CPU, CPU], dtype=object), ("data",),
-               np.array([0, 1]))
+               np.array([1, 0]))
     x, y = _xy(n=10)
-    with pytest.raises(NotImplementedError, match="item 10c"):
+    with pytest.raises(ValueError, match="first axis"):
         lr.train(x, y, lr.LogisticRegressionConfig(n_classes=4),
                  mesh=two, device="cpu")
 

@@ -5,9 +5,9 @@ of ``tests/conftest.py`` and on 8 CPU positions of the port.  The same
 seeded numpy blocks go into both; the results are equal exactly (a
 rotation, a split and a concatenation move bits; ``psum_scatter`` adds
 8 float32 blocks, in shard order in the port, within 1e-6 of XLA's
-order).  Each collective is differentiable in one process, and across
-processes a collective on parts that require grad is refused (ROADMAP
-Queue 1 item 10c).
+order).  Each collective is differentiable in one process; across
+processes (``tests/test_torch_gang_collectives.py``) it needs the gang
+to split the mesh's first axis, and refuses another layout.
 """
 
 import jax
@@ -126,15 +126,19 @@ def test_collectives_are_differentiable_in_one_process():
 
 
 def test_a_collective_across_processes_refuses_gradients():
+    """Across processes a collective with gradients runs on a gang that
+    splits the mesh's first axis in order
+    (``tests/test_torch_gang_collectives.py``); on another layout (here
+    the processes in reverse order) it refuses before any exchange."""
     cpu = torch.device("cpu")
     two = Mesh(np.array([cpu, cpu], dtype=object), ("data",),
-               np.array([0, 1]))
+               np.array([1, 0]))
     part = torch.ones(2, 2, requires_grad=True)
     for fn in (lambda: psum([part], two),
                lambda: psum_scatter([part], two),
                lambda: ppermute([part], two, perm=[(0, 1), (1, 0)]),
                lambda: all_to_all([part], two)):
-        with pytest.raises(NotImplementedError, match="item 10c"):
+        with pytest.raises(ValueError, match="first axis"):
             fn()
 
 

@@ -422,23 +422,24 @@ def test_warm_continuation_matches_the_reference():
 
 
 def test_mesh_is_not_ported():
-    """Across processes: training on a mesh that spans processes is not
-    ported (ROADMAP Queue 1 item 10c), by ``train`` nor by a step on a
-    state laid out on it; one process's mesh trains
-    (tests/test_torch_mesh_models.py)."""
+    """Across processes: a mesh that spans processes in another layout
+    than the gang's (``expert`` split over them in order) is refused, by
+    ``train`` and by a step on a state laid out on it; one process's
+    mesh trains (tests/test_torch_mesh_models.py), and so does a gang's
+    (tests/test_torch_gang_models.py)."""
     from predictionio_tpu_torch.parallel.mesh import Mesh, put_sharded
 
     cpu = torch.device("cpu")
     two = Mesh(np.array([cpu, cpu], dtype=object), ("expert",),
-               np.array([0, 1]))
+               np.array([1, 0]))
     _, pc = _cfgs()
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="first axis"):
         port.train(*_data(), pc, mesh=two, device="cpu")
     dense, cat, labels = _data(n=32)
     batch = [put_sharded(a, two, ("expert",)) for a in (
         dense, (cat + pc.offsets[None, :]).astype(np.int32), labels,
         np.ones(32, np.float32))]
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="mesh"):
         port.train_step(port.init_state(pc, two), *batch, pc)
     with pytest.raises(ValueError, match="data_source"):
         port.train(*_data(), pc, data_source="parquet", device="cpu")

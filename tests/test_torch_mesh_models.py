@@ -24,8 +24,8 @@ setting).  Both take the same seeded numpy inputs.  Tolerances:
   carried in, served by the port over ``data=8`` through the
   ``sharded`` rung, answers as the reference's server over its mesh:
   ids equal except within a tie, scores within 1e-5;
-- training on a mesh that spans processes is refused (ROADMAP Queue 1
-  item 10c).
+- training on a mesh that spans processes in another layout than the
+  gang's is refused (a gang's trains: ``tests/test_torch_gang_models.py``).
 """
 
 import jax
@@ -413,7 +413,7 @@ def test_two_tower_serving_mesh_answers_as_the_reference(tmp_path,
 def test_training_on_a_mesh_across_processes_is_refused(kind):
     axis = "data" if kind == "two_tower" else "expert"
     two = Mesh(np.array([CPU, CPU], dtype=object), (axis,),
-               np.array([0, 1]))
+               np.array([1, 0]))
     if kind == "two_tower":
         users, items = _clique()
         call = lambda: tt.train(users, items,  # noqa: E731
@@ -422,7 +422,7 @@ def test_training_on_a_mesh_across_processes_is_refused(kind):
         dense, cat, labels = _ctr()
         call = lambda: dlrm.train(dense, cat, labels,  # noqa: E731
                                   dlrm.DLRMConfig(**DLRM_CFG), two)
-    with pytest.raises(NotImplementedError, match="item 10c"):
+    with pytest.raises(ValueError, match="first axis"):
         call()
 
 

@@ -25,6 +25,7 @@ events against the JAX package's, on the CPU.
 
 import importlib
 import json
+import time
 from types import SimpleNamespace
 
 import numpy as np
@@ -65,39 +66,74 @@ def _mod(root, name):
     return importlib.import_module(f"{root}.{name}")
 
 
-@pytest.fixture()
-def rings():
-    """A fresh trace ring in each package for the test; the previous
-    ones are restored after."""
+def _fresh_rings(delay_s: float = 0.0):
+    """A fresh trace ring in each package (reference first), each
+    recording ``delay_s`` late; the previous rings are restored after."""
     made = []
     for root in ROOTS:
         trace = _mod(root, "obs.trace")
-        rec = trace.TraceRecorder(64)
+
+        class Late(trace.TraceRecorder):
+            def record(self, *a, **k):
+                time.sleep(delay_s)
+                super().record(*a, **k)
+
+        rec = Late(64) if delay_s else trace.TraceRecorder(64)
         made.append((trace, trace.set_recorder(rec)))
     yield [trace.get_recorder() for trace, _ in made]
     for trace, prev in made:
         trace.set_recorder(prev)
 
 
+@pytest.fixture()
+def rings():
+    yield from _fresh_rings()
+
+
+@pytest.fixture()
+def late_rings():
+    """Rings that record each trace 0.3 s after its handler answered:
+    what a loaded host does to the race between a request's record and
+    the client's next ``/traces.json``."""
+    yield from _fresh_rings(0.3)
+
+
+def _recorded(ring, request_id: str, deadline_s: float = 10.0) -> None:
+    """Wait until ``ring`` holds the trace of ``request_id``: a handler
+    records its trace after it has written the answer, so the client's
+    next request can reach the ring first."""
+    deadline = time.monotonic() + deadline_s
+    while not ring.recent(1, request_id=request_id):
+        assert time.monotonic() < deadline, \
+            f"trace {request_id!r} not recorded in {deadline_s} s"
+        time.sleep(0.005)
+
+
 # -- the engine server --------------------------------------------------------
 
-def _session(srv, prefix):
-    """The scripted session; returns the /traces.json views."""
+def _session(srv, prefix, ring):
+    """The scripted session; returns the /traces.json views.  Each
+    request's trace is in ``ring`` before the next request goes out."""
     for n, user in enumerate(("u1", "u2", "u3")):
         st, hdr, _ = call(srv, "POST", "/queries.json",
                           {"user": user, "num": 3},
                           headers={"X-Request-ID": f"{prefix}-q{n}"})
         assert st == 200 and hdr["X-Request-ID"] == f"{prefix}-q{n}"
+        _recorded(ring, f"{prefix}-q{n}")
     assert call(srv, "POST", "/reload",
                 headers={"X-Request-ID": f"{prefix}-reload"})[0] == 200
+    _recorded(ring, f"{prefix}-reload")
     assert call(srv, "POST", "/admin/rollback",
                 headers={"X-Request-ID": f"{prefix}-rb"})[0] == 200
+    _recorded(ring, f"{prefix}-rb")
     views = {}
     for name, qs in (("one", f"?request_id={prefix}-q1"),
                      ("limit", "?limit=2"), ("slow", "?min_ms=1e9"),
                      ("all", "?limit=200")):
-        st, _, body = call(srv, "GET", "/traces.json" + qs)
+        st, _, body = call(srv, "GET", "/traces.json" + qs,
+                           headers={"X-Request-ID": f"{prefix}-v-{name}"})
         assert st == 200
+        _recorded(ring, f"{prefix}-v-{name}")
         views[name] = body["traces"]
     return views
 
@@ -107,8 +143,8 @@ def test_engine_server_span_trees_equal_the_reference(serve, rings,
                                                       enabled):
     ref, port = serve(enabled=enabled)
     got = {}
-    for name, srv in (("ref", ref), ("port", port)):
-        views = _session(srv, "r")
+    for (name, srv), ring in zip((("ref", ref), ("port", port)), rings):
+        views = _session(srv, "r", ring)
         assert [t["traceId"] for t in views["one"]] == ["r-q1"]
         assert views["slow"] == []
         assert len(views["limit"]) == 2
@@ -177,12 +213,14 @@ def test_timeline_json_answers_as_the_reference(serve, qs):
     assert got[1] == got[0] and got[0][0] == 200
 
 
-def test_event_servers_serve_traces_behind_the_access_key(rings, both):
+def _event_server_traces(rings, both):
+    """One ingest through each event server, then its trace over
+    ``/traces.json`` behind the access key, once the ring holds it."""
     from tests.test_torch_event_server import KEY_ALL
     from tests.test_torch_event_server import call as es_call
 
     got = []
-    for st in both:
+    for st, ring in zip(both, rings):
         port = st.srv.port
         assert es_call(port, "GET", "/traces.json")[0] == 401
         code, _, _ = es_call(
@@ -191,11 +229,38 @@ def test_event_servers_serve_traces_behind_the_access_key(rings, both):
              "targetEntityType": "item", "targetEntityId": "i1"},
             headers={"X-Request-ID": "ing-1"})
         assert code == 201
+        _recorded(ring, "ing-1")
         code, _, body = es_call(
             port, "GET", f"/traces.json?accessKey={KEY_ALL}&request_id=ing-1")
         assert code == 200
         got.append([mask(t) for t in body["traces"]])
     assert got[1] == got[0] and got[0][0]["attrs"]["server"] == "event"
+
+
+def test_event_servers_serve_traces_behind_the_access_key(rings, both):
+    _event_server_traces(rings, both)
+
+
+def test_event_server_traces_wait_for_a_late_record(late_rings, both):
+    """The same, with every trace recorded 0.3 s after its answer went
+    out: the reading waits for the ingest's trace instead of racing it
+    (without the wait the ``request_id`` view comes back empty)."""
+    _event_server_traces(late_rings, both)
+
+
+def test_engine_server_session_waits_for_late_records(serve, late_rings):
+    """The scripted engine session with every trace recorded 0.3 s late
+    gives the views an on-time ring gives: one ``request_id`` match, two
+    under ``?limit=2`` and every request of the session under
+    ``?limit=200``."""
+    ref, port = serve(enabled=False)
+    for srv, ring in zip((ref, port), late_rings):
+        views = _session(srv, "late", ring)
+        assert [t["traceId"] for t in views["one"]] == ["late-q1"]
+        assert len(views["limit"]) == 2 and views["slow"] == []
+        ids = {t["traceId"] for t in views["all"]}
+        assert {"late-q0", "late-q1", "late-q2", "late-reload", "late-rb",
+                "late-v-one", "late-v-limit", "late-v-slow"} <= ids
 
 
 # -- trace-ring events --------------------------------------------------------

@@ -409,20 +409,22 @@ def test_retrieve_matches_the_reference(chunk):
 
 
 def _two_processes(axis):
-    """A mesh whose second position another process drives."""
+    """A mesh whose first position another process drives: processes out
+    of rank order, a layout a gang does not take."""
     from predictionio_tpu_torch.parallel.mesh import Mesh
 
     cpu = torch.device("cpu")
     return Mesh(np.array([cpu, cpu], dtype=object), (axis,),
-                np.array([0, 1]))
+                np.array([1, 0]))
 
 
 def test_mesh_is_not_ported():
-    """Across processes: training on a mesh that spans processes is not
-    ported (ROADMAP Queue 1 item 10c); one process's mesh trains
-    (tests/test_torch_mesh_models.py)."""
+    """Across processes: a mesh that spans processes in another layout
+    than the gang's (``data`` split over them in rank order) is refused;
+    one process's mesh trains (tests/test_torch_mesh_models.py), and so
+    does a gang's (tests/test_torch_gang_models.py)."""
     _, pc = _cfgs()
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="first axis"):
         port.train(*_data(), pc, mesh=_two_processes("data"), device="cpu")
     with pytest.raises(ValueError, match="data_source"):
         port.train(*_data(), pc, data_source="parquet", device="cpu")
