@@ -94,7 +94,7 @@ cannot be imported, or when any phase fails.  Phases, in order:
    (0.05) of the baseline on both windows, at least 50 captures scored,
    drift not tripped and gate.rollback false.
 12. cli loop — the engine.json loop across processes at the MovieLens-1M
-   catalog (6,040 users x 3,706 Zipf items; 400,000 seeded rate events,
+   catalog (6,040 users x 3,706 Zipf items; 300,000 seeded rate events,
    cut from ML-1M's 1,000,209 for the time limit, which took the phase
    from 142.3 s to PERF.md §4's; half stars, and buys by 5 % of the
    users) on the default sqlite +
@@ -232,7 +232,7 @@ cannot be imported, or when any phase fails.  Phases, in order:
    K=1 and K=8 (one init outside the walls): examples/s, the probe's
    shares, peak device memory; each K=8 state equal to its K=1 state bit
    for bit; a NaN batch must raise TrainDiverged.  18b: phase 12's
-   400,000 (user, item) rate pairs written in-process as impressions
+   300,000 (user, item) rate pairs written in-process as impressions
    of a planted click model (hidden user and item factors and 4 dense
    features, about 25 % clicks) into a new app of phase 12's store; `pio
    train` in-process with the port's shipped dlrm engine.json; a
@@ -309,7 +309,7 @@ cannot be imported, or when any phase fails.  Phases, in order:
    message); --resume finishes it; a second SIGTERM'd one --unwind'd,
    its instances back on the previous generation.  21d (beside 21a-c):
    `pio train --follow --promote-url U5,U6` on phase 12's store: an
-   8,000-event delta (2 % of the store) trains warm (host solves) and
+   6,000-event delta (2 % of the store) trains warm (host solves) and
    rolls across both,
    which then serve the warm factors' plain top-10; a delta over
    PIO_REFRESH_MAX_DELTA_FRACTION falls back to a full retrain (K1, K2)
@@ -387,15 +387,42 @@ cannot be imported, or when any phase fails.  Phases, in order:
    23b's uninterrupted factors; K1 and K2 launched.  24f: the port's
    dryrun_multichip(4) on the card, its ALS part's K1 and K2 counted.
    Budget 60 s.
-25. report — one JSON line of per-kernel numbers, the card's name and
+25. gang — the mesh across a gang of two processes on the one card
+   (gloo): 23b's train (5 of its 10 iterations, cut for the time limit;
+   23b trains the 5 too), 24a-c's deep models and attention, and a
+   preemption, each bit for bit the one-process run's.
+26. segments — the columnar segment tee under a warm refresh, on a copy
+   of phase 12's store taken right after generation 1's train (the
+   segment manifest made just before it).  26a: `pio eventserver`
+   (PIO_SEGMENT_ROLL_S 2, PIO_SEGMENT_GRACE_S 0.5) takes 20,000 rate
+   events of phase 16's delta shape from 8 SDK threads in batches of
+   50, stamped at their post; /ready shows sealed segments, SIGTERM
+   drains it with exit 0, the manifests hold exactly the 20,000 rows
+   with coverage past the newest, and `pio status` lists the directory.
+   26b: the windowed delta read through segments equals the read with
+   PIO_SEGMENTS=off column for column (both timed).  26c: a warm
+   RefreshDaemon cycle with segments off, then one on segments promoted
+   to a `pio deploy` of generation 1: equal factors, untouched rows
+   generation 1's bit for bit, 64 answers the plain top-k of the warm
+   factors with K3 launched during them (the deploy's count read just
+   before and just after, on SIGUSR1).  26d: 2,000 events then SIGKILL;
+   the next server discards the open window at start and withdraws
+   every claim below it, and stops with no write; a later server takes
+   1,000 events and seals them, which read from the segments while the
+   crashed window stays unclaimed (both servers in the smoke's process,
+   two subprocess starts less); a flipped byte in the newest sealed
+   file reads as damage; every windowed read equals the primary
+   store's.  Budget 45 s.
+27. report — one JSON line of per-kernel numbers, the card's name and
    power limit, and the final status line.
-After phases 7, 11-14, 16, 17, 19b-e and 20 a line gives the seconds the
+After phases 7, 11-14, 16, 17, 19b-e, 20 and 26 a line gives the seconds the
 quality and recall scorecards took in that phase's in-process trains.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib
 import json
 import math
@@ -2086,10 +2113,10 @@ def pq_dase_phase(dase, mods, card: str) -> dict:
 # Phase 12: the engine.json loop across processes, at the MovieLens-1M
 # shape (cut from ML-25M in depth only: a 25 M-event import through JSON
 # and sqlite would not fit the run's limit).
-# The MovieLens-1M catalog (6,040 users x 3,706 items) at 400,000 of its
+# The MovieLens-1M catalog (6,040 users x 3,706 items) at 300,000 of its
 # 1,000,209 ratings: cut in depth for the time limit (PERF.md §4); the
 # widths stay, and phase 21d's deltas keep their share of the store.
-ML1M_EVENTS, ML1M_USERS, ML1M_ITEMS = 400_000, 6_040, 3_706
+ML1M_EVENTS, ML1M_USERS, ML1M_ITEMS = 300_000, 6_040, 3_706
 ML1M_BUYER_SHARE, ML1M_BUYS_EACH = 0.05, 5
 CLI_APP, CLI_QUERIES = "chipcli", 64
 CLI_FACTORY = "predictionio_tpu_torch.templates.recommendation:engine"
@@ -2217,7 +2244,10 @@ def timed_scorecards() -> dict:
 def counted_pio(argv) -> int:
     """``pio <argv>`` in this process, then one line ``launches {...}``
     with the kernel launches it made: how a verb run as a subprocess
-    reports its counts (``deployed``)."""
+    reports its counts (``deployed``).  SIGUSR1 prints the same line at
+    once, with the counts so far (``deployed.launches_now``)."""
+    import signal
+
     from predictionio_tpu_torch.cli.main import main as pio
     from predictionio_tpu_torch.ops import fused_gram as fg
     from predictionio_tpu_torch.ops import fused_topk as ft
@@ -2225,10 +2255,14 @@ def counted_pio(argv) -> int:
 
     from predictionio_tpu_torch.obs import get_registry
 
+    def counts() -> str:
+        return "launches " + json.dumps({
+            "fused_gram": fg.LAUNCHES, "ridge_solve_lu": rs.LU_LAUNCHES,
+            "fused_topk": ft.LAUNCHES})
+
+    signal.signal(signal.SIGUSR1, lambda *_: print(counts(), flush=True))
     rc = pio(list(argv))
-    print("launches " + json.dumps({
-        "fused_gram": fg.LAUNCHES, "ridge_solve_lu": rs.LU_LAUNCHES,
-        "fused_topk": ft.LAUNCHES}), flush=True)
+    print(counts(), flush=True)
     stale = get_registry().get("pio_refresh_staleness_s")
     if stale is not None:
         print(f"pio_refresh_staleness_s {stale.value()!r}", flush=True)
@@ -2282,6 +2316,25 @@ class deployed:
     def get(self, path: str) -> str:
         with urllib.request.urlopen(self.base + path, timeout=120) as r:
             return r.read().decode()
+
+    def launches_now(self) -> dict:
+        """The kernel launches the running deploy has made so far: it
+        prints them on SIGUSR1 (:func:`counted_pio`)."""
+        import select
+        import signal
+
+        self.proc.send_signal(signal.SIGUSR1)
+        deadline = time.monotonic() + 30
+        while True:
+            left = deadline - time.monotonic()
+            ready = left > 0 and select.select([self.proc.stdout], [], [],
+                                               left)[0]
+            if not ready:
+                die(f"{self.phase}: pio deploy printed no launches on "
+                    "SIGUSR1")
+            line = self.proc.stdout.readline()
+            if line.startswith("launches "):
+                return json.loads(line[len("launches "):])
 
     def stop(self) -> None:
         post_json(self.base + "/stop", {})
@@ -2378,6 +2431,13 @@ def cli_loop_phase(dev, seed: int, mods: dict, card: str) -> dict:
             rank=RANK, numIterations=TRAIN_ITERS, seed=seed)
         engine_json = os.path.join(work, "engine.json")
         Path(engine_json).write_text(json.dumps(spec))
+        # phase 26's segment tee is on from here: its manifest predates
+        # generation 1's watermark (a store of its own, copied below)
+        from predictionio_tpu_torch.data.columnar import SegmentStore
+
+        out["seg_root"] = os.path.join(work, "seg_root")
+        SegmentStore(out["seg_root"]).open_dir(
+            get_storage().get_apps().get_by_name(CLI_APP).id)
         read_before = read_ms()
         fg.LAUNCHES = 0                      # main path starts here
         rs.LU_LAUNCHES = 0
@@ -2394,6 +2454,8 @@ def cli_loop_phase(dev, seed: int, mods: dict, card: str) -> dict:
         shutil.copytree(os.path.join(work, "home"), out["mesh_home"])
         out["mesh_engine_json"] = os.path.join(work, "mesh_engine.json")
         shutil.copyfile(engine_json, out["mesh_engine_json"])
+        out["seg_home"] = os.path.join(work, "seg_home")   # phase 26's
+        shutil.copytree(os.path.join(work, "home"), out["seg_home"])
         storage = get_storage()
         eng = mods["engine"]()
         variant = mods["EngineVariant"].from_file(engine_json)
@@ -3303,8 +3365,8 @@ ES_APP = "chipes"
 ES_THREADS = 8            # client threads, each a contiguous share
 ES_BATCH = 50             # the reference's cap of /batch/events.json
 ES_REPLAYED = 3           # batches posted again under their tokens
-ES_EVENTS = 100_000       # phase 12's first events (all of ~25 % of its
-                          # users): cut from 300,000 for the time limit
+ES_EVENTS = 100_000       # phase 12's first events (all of about a third
+                          # of its users): cut from 300,000 for the time limit
 
 
 def es_batch(users, items, stars, times, lo: int, hi: int):
@@ -4200,6 +4262,7 @@ def refresh_phase(dev, seed: int, loop: dict, mods: dict, card: str) -> dict:
     from predictionio_tpu_torch.refresh import RefreshConfig
     from predictionio_tpu_torch.refresh.daemon import HttpPromoter, \
         RefreshDaemon
+    from predictionio_tpu_torch.server.event_server import EventServer
     from predictionio_tpu_torch.version import __version__
     from predictionio_tpu_torch.workflow.core_workflow import (
         data_watermark, load_models)
@@ -6399,8 +6462,8 @@ FLEET_G2_NOISE = 0.05          # G2 = G1 + this x N(0, 1/rank): a neighbour
 #                                generation, as a retrain is (the shadow
 #                                canary's overlap stays high)
 FLEET_DRIFT_SCALE = 4.0        # 21b's G3: G2's user vectors x4 (20d's fault)
-FLEET_DELTA = 8_000            # 21d: 2 % of phase 12's store, as phase 16's
-FLEET_DELTA2 = 12_000          # ... then over the fraction gate: fallback
+FLEET_DELTA = 6_000            # 21d: 2 % of phase 12's store, as phase 16's
+FLEET_DELTA2 = 9_000           # ... then over the fraction gate: fallback
 FLEET_MAX_DELTA_FRACTION = "0.025"
 FLEET_PROFILE_MS = 2000
 FLEET_WARM_S = 6.0             # 21a: traffic before the rollout starts
@@ -7827,6 +7890,11 @@ def mesh_train_phase(dev, seed: int, six: dict, mods, card: str) -> dict:
         if not np.array_equal(getattr(model, what), getattr(again, what)):
             die(f"phase 23b: two mesh trains' {what} differ")
     del again
+    # phase 25's gang trains GANG_ITERS iterations of these inputs
+    short = als.train_als_prepared(
+        inputs, dataclasses.replace(cfg, iterations=GANG_ITERS))
+    gang_digests = tree_digests((short.user_factors, short.item_factors))
+    del short
     err = 0.0
     for what in ("user_factors", "item_factors"):
         want = torch.from_numpy(getattr(six["model"], what))
@@ -7835,11 +7903,10 @@ def mesh_train_phase(dev, seed: int, six: dict, mods, card: str) -> dict:
             scaled(TRAIN_ATOL, want),
             f"phase 23b: mesh {what} vs phase 6's meshless"))
     # 24e trains these inputs again under checkpoints; phase 25's gang
-    # trains them again and holds its factors against these digests
+    # trains them again and holds its factors against gang_digests
     out = {"launches": launches, "prep_s": prep_s, "train_s": train_s,
            "err": err, "inputs": inputs, "cfg": cfg, "model": model,
-           "digests": tree_digests((model.user_factors,
-                                    model.item_factors))}
+           "gang_digests": gang_digests}
     log(f"phase 23b mesh train: ML-25M {ML25M_USERS}x{ML25M_ITEMS}, "
         f"{ML25M_RATINGS} ratings, rank {RANK}, {TRAIN_ITERS} iterations "
         f"on data={MESH_SHARDS} of one card, factors row-sharded, "
@@ -8604,6 +8671,8 @@ def attention_digests(out, grads, n: int, positions=None) -> dict:
 # second chunk by one process's flag and resumed.  Each result must be
 # 23b's / 24a-c's bit for bit.  gloo carries a CUDA tensor through the
 # host, so every exchange's copy is in these times.
+GANG_ITERS = 5                 # 25a, 25d: iterations (23b's 10, cut for
+                               # the time limit; 23b trains these too)
 GANG_LIMIT_S = 110.0           # a gang process's own limit
 GANG_PHASE_LIMIT_S = 120.0
 
@@ -8661,7 +8730,7 @@ def gang_worker() -> None:
     res = {"rank": me, "start_s": t_start - spec["spawned"]}
     # 25a: 23b's train
     users, items, ratings = ml25m_ratings(seed)
-    cfg = als.ALSConfig(rank=RANK, iterations=TRAIN_ITERS, reg=0.01,
+    cfg = als.ALSConfig(rank=RANK, iterations=GANG_ITERS, reg=0.01,
                         solver="auto", seed=seed, factor_sharding="sharded",
                         gather_window=True)
     mesh = gang_mesh(f"data={MESH_SHARDS}")
@@ -8834,13 +8903,13 @@ def gang_phase(dev, seed: int, m23: dict, m24: dict, card: str) -> dict:
         for name, n in r["launches"].items():
             if n == 0:
                 die(f"{who}: {name} never launched in 25a's train")
-        if r["als"] != m23["digests"]:
+        if r["als"] != m23["gang_digests"]:
             die(f"{who}: 25a's factors are not 23b's bit for bit")
         if r["preempted_at"] != [2 * SUPERVISE_EVERY, True]:
             die(f"{who}: 25d preempted at {r['preempted_at']}")
         if r["files"] != sorted(want_files):
             die(f"{who}: 25d's checkpoint files {r['files']}")
-        if r["resumed"] != m23["digests"]:
+        if r["resumed"] != m23["gang_digests"]:
             die(f"{who}: 25d's resumed factors are not 23b's bit for bit")
         if r["tt"] != m24["a"]["digests"]:
             die(f"{who}: 25b's two-tower state is not 24a's bit for bit")
@@ -8861,7 +8930,7 @@ def gang_phase(dev, seed: int, m23: dict, m24: dict, card: str) -> dict:
             f"positions of one card): up {r['start_s']:.2f} s after spawn; "
             f"25a prep {r['prep_s']:.2f} s (23b: "
             f"{m23['prep_s']:.2f} s), train {r['train_s']:.3f} s = "
-            f"{r['train_s'] * 1e3 / TRAIN_ITERS:.2f} ms/iter (23b: "
+            f"{r['train_s'] * 1e3 / GANG_ITERS:.2f} ms/iter (23b: "
             f"{m23['train_s'] * 1e3 / TRAIN_ITERS:.2f}), launches "
             f"{json.dumps(r['launches'])}, factors 23b's bit for bit; 25d "
             f"preempted at sweep {r['preempted_at'][0]} by process 1's "
@@ -8879,6 +8948,472 @@ def gang_phase(dev, seed: int, m23: dict, m24: dict, card: str) -> dict:
     if phase_s > GANG_PHASE_LIMIT_S:
         log(f"phase 25 over its budget: {phase_s:.1f} s > "
             f"{GANG_PHASE_LIMIT_S:.0f} s")
+    return out
+
+
+# Phase 26: the columnar segment tee under a warm refresh, on a copy of
+# phase 12's store as it stood right after generation 1's train (its
+# segment manifest made just before that train: the event server's tee
+# was on from then).  The delta is phase 16's shape, posted through the
+# port's `pio eventserver`, whose tee seals it into segments.
+SEG_DELTA = 20_000            # rate events stamped after the watermark
+SEG_CRASH = 2_000             # 26d: posted, then the server is killed
+SEG_LATER = 1_000             # 26d: posted to a later server, then sealed
+SEG_ROLL_S, SEG_GRACE_S = "2", "0.5"
+SEG_LIMIT_S = 45.0
+
+
+def seg_stamp(t: int, last):
+    """The first event time of thread ``t``'s next batch: the host clock
+    now, rounded down to 400 µs, plus 50 t (distinct across
+    ``ES_THREADS`` threads of ``ES_BATCH`` events), later than the
+    thread's ``last`` one."""
+    base = time.time_ns() // 1000 // 400 * 400
+    if last is not None and base <= last - 50 * t:
+        base = last - 50 * t + 400
+    return base + 50 * t
+
+
+def seg_post(base: str, key: str, rows, lo: int, hi: int, token: str,
+             threads: int, pause=None):
+    """Rows [lo, hi) as rate events through the port's SDK, ``threads``
+    threads each posting a contiguous share in batches of ``ES_BATCH``
+    under tokens of their own, each batch stamped at its post
+    (``seg_stamp``); ``pause`` is called once, by thread 0, half way.
+    Every item must answer 201.  Returns (wall s, the newest stamp µs)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from predictionio_tpu_torch.sdk import EventClient
+
+    bounds = [lo + (hi - lo) * t // threads for t in range(threads + 1)]
+
+    def share(t: int):
+        client = EventClient(key, base, timeout=120)
+        starts = list(range(bounds[t], bounds[t + 1], ES_BATCH))
+        newest, stamp = 0, None
+        for j, b0 in enumerate(starts):
+            if pause is not None and t == 0 and j == len(starts) // 2:
+                pause()
+            stamp = seg_stamp(t, stamp)        # at the post, not before
+            b1 = min(b0 + ES_BATCH, bounds[t + 1])
+            batch = []
+            for k, (u, i, r) in enumerate(rows[b0:b1]):
+                us = stamp + k
+                newest = max(newest, us)
+                batch.append({
+                    "event": "rate", "entityType": "user", "entityId": u,
+                    "targetEntityType": "item", "targetEntityId": i,
+                    "properties": {"rating": r},
+                    "eventTime": dt_iso(us)})
+            res = client.create_events(batch, batch_token=f"{token}{t}b{j}")
+            if [x.status for x in res] != [201] * len(batch):
+                die(f"phase 26: batch {token}{t}b{j} answered "
+                    f"{[(x.status, str(x)) for x in res][:3]}...")
+        return newest
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(threads) as pool:
+        newest = max(pool.map(share, range(threads)))
+    return time.perf_counter() - t0, newest
+
+
+def dt_iso(us: int) -> str:
+    """Epoch microseconds as the ISO 8601 text of the event API."""
+    import datetime as dt
+
+    return (dt.datetime.fromtimestamp(us // 10**6, dt.timezone.utc)
+            + dt.timedelta(microseconds=us % 10**6)).isoformat()
+
+
+def columns_equal(got, want, what: str) -> None:
+    """Two find_columnar answers, column for column (bags parsed)."""
+    import numpy as np
+
+    if list(got) != list(want):
+        die(f"{what}: columns {list(got)} against {list(want)}")
+    for c in want:
+        g, w = got[c], want[c]
+        if c == "properties":
+            g = [json.loads(x) for x in g]
+            w = [json.loads(x) for x in w]
+        elif g.dtype != w.dtype:
+            die(f"{what}: {c} is {g.dtype}, not {w.dtype}")
+        if len(g) != len(w) or not (np.array_equal(g, w) if c != "properties"
+                                    else g == w):
+            die(f"{what}: column {c} differs ({len(g)} rows against "
+                f"{len(w)})")
+
+
+def metric_text(base: str, name: str) -> float:
+    with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+        text = r.read().decode()
+    return sum(float(ln.split()[-1]) for ln in text.splitlines()
+               if ln.startswith(name + " ") or ln.startswith(name + "{"))
+
+
+def segment_phase(dev, seed: int, loop: dict, mods: dict, card: str) -> dict:
+    """Phase 26: 26a `pio eventserver` tees SEG_DELTA posted events into
+    sealed segments; 26b the windowed delta read through them against
+    the same read with segments off; 26c one warm RefreshDaemon cycle on
+    them, promoted to a `pio deploy` of generation 1 and held against a
+    warm cycle with segments off; 26d a killed server's window discarded
+    at restart with its claim withdrawn through two more servers, and a
+    damaged sealed file, each read as the primary store's.  Returns the
+    phase's times and its K3 launches."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.data.columnar import SegmentStore
+    from predictionio_tpu_torch.data.storage import get_storage, \
+        reset_storage
+    from predictionio_tpu_torch.data.store import WindowedEventStore
+    from predictionio_tpu_torch.obs import get_registry
+    from predictionio_tpu_torch.refresh import RefreshConfig
+    from predictionio_tpu_torch.refresh.daemon import HttpPromoter, \
+        RefreshDaemon
+    from predictionio_tpu_torch.server.event_server import EventServer
+    from predictionio_tpu_torch.version import __version__
+    from predictionio_tpu_torch.workflow.core_workflow import (
+        data_watermark, load_models)
+
+    ft = mods["ft"]
+    phase_t0 = time.perf_counter()
+    work, engine_json = loop["work"], loop["engine_json"]
+    seg_root = loop["seg_root"]
+    env = cli_env(loop["seg_home"])
+    env.values.update(
+        PIO_SEGMENT_DIR=seg_root, PIO_SEGMENTS=None,
+        PIO_SEGMENT_ROLL_S=SEG_ROLL_S, PIO_SEGMENT_GRACE_S=SEG_GRACE_S,
+        PIO_SEGMENT_ROLL_BYTES=None, PIO_SEGMENT_COMPACT_BYTES=None,
+        PIO_SEGMENT_COMPACT_TRIGGER=None, PIO_DISK_MIN_FREE_BYTES=None,
+        **{k: None for k in (
+            "PIO_REFRESH_INTERVAL_S", "PIO_REFRESH_MAX_DELTA_FRACTION",
+            "PIO_REFRESH_EVAL_TOLERANCE", "PIO_REFRESH_PROMOTE_URL",
+            "PIO_REFRESH_CANARY_WINDOW_S", "PIO_CANARY_QUERIES",
+            "PIO_RESULT_CACHE")})
+    rng = np.random.default_rng(seed + 26)
+    out, procs, deploy = {}, [], None
+    env.__enter__()
+    reset_storage()
+    try:
+        storage = get_storage()
+        eng = mods["engine"]()
+        variant = mods["EngineVariant"].from_file(engine_json)
+        instances = storage.get_engine_instances()
+        inst1 = instances.get_latest_completed(
+            variant.engine_factory, __version__, variant.variant_id)
+        wm1 = data_watermark(inst1)
+        wm1_us = int(wm1.timestamp() * 1e6)
+        app_id = storage.get_apps().get_by_name(CLI_APP).id
+        key = storage.get_access_keys().get_by_app_id(app_id)[0].key
+        events = storage.get_events()
+        if len(events.find_columnar(app_id, start_time=wm1,
+                                    columns=["event_time_us"])[
+                "event_time_us"]):
+            die("phase 26: the copy of phase 12's store holds events past "
+                "generation 1's watermark")
+        [manifest] = SegmentStore(seg_root).status()
+        if manifest["floorUs"] > wm1_us or manifest["segments"]:
+            die(f"phase 26: the segment manifest {manifest} does not "
+                "predate generation 1's watermark")
+        ctx = mods["RuntimeContext"](storage=storage, device=dev)
+        [w1] = load_models(eng, inst1, ctx)
+        uf1, itf1 = (x.copy() for x in w1.host_factors())
+        names = list(w1.user_index.keys())
+        item_names = list(w1.item_index.keys())
+        rows = refresh_delta(rng, names, item_names, SEG_DELTA,
+                             REFRESH_NEW_USERS, REFRESH_NEW_ITEMS,
+                             REFRESH_TOUCHED_USERS, "s")
+        # generation 1's deploy starts while the events are posted
+        deploy = deployed(engine_json, os.path.join(work, "seg_deploy.log"),
+                          phase="phase 26", wait=False)
+
+        # -- 26a: ingest through the tee ----------------------------------
+        es = eventserver_proc(os.path.join(work, "seg_es.log"),
+                              phase="phase 26")
+        procs.append(es)
+        ready_seen = []
+
+        def roll():
+            """Half way: wait out one roll, so the next post seals the
+            first window, then read /ready."""
+            time.sleep(float(SEG_ROLL_S) + 0.1)
+
+        out["ingest_s"], newest = seg_post(
+            es.base, key, rows, 0, SEG_DELTA, "p26s", ES_THREADS, pause=roll)
+        ready_seen.append(es.get("/ready"))
+        out["late"] = metric_text(es.base, "pio_segment_late_events_total")
+        if out["late"]:
+            die(f"phase 26: {out['late']:.0f} events reached the tee more "
+                f"than PIO_SEGMENT_GRACE_S={SEG_GRACE_S} after their stamp "
+                "(the coverage floor moved past the watermark)")
+        time.sleep(float(SEG_GRACE_S) + 0.2)   # the last events pass grace
+        t0 = time.perf_counter()
+        es.drain()                             # SIGTERM: stop() seals
+        out["drain_s"] = time.perf_counter() - t0
+        procs.remove(es)
+        ready = ready_seen[-1]
+        if ready.get("segmentCount", 0) < 1 or ready["diskDegraded"] \
+                or ready["status"] != "ready":
+            die(f"phase 26: /ready during ingest read {ready}")
+        [status] = SegmentStore(seg_root).status()
+        if status["rows"] != SEG_DELTA or status["coveredUntilUs"] <= newest:
+            die(f"phase 26: after the drain the segments hold {status}; "
+                f"expected {SEG_DELTA} rows covered past {newest}")
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            if mods["pio"](["status"]) != 0:
+                die("phase 26: pio status failed")
+        seg_lines = [ln for ln in said.getvalue().splitlines()
+                     if ln.startswith(("segments:", f"  {status['dir']}:"))]
+        if len(seg_lines) != 2 or f"rows={SEG_DELTA}" not in seg_lines[1]:
+            die(f"phase 26: pio status printed {seg_lines}")
+        out["segments"] = status["segments"]
+        out["seg_bytes"] = status["bytes"]
+        out["ready"] = ready
+
+        out["part_s"] = {"a": time.perf_counter() - phase_t0}
+        # -- 26b: the windowed delta read ---------------------------------
+        windowed = WindowedEventStore(storage, wm1, None)
+        t0 = time.perf_counter()
+        sliced = windowed._segment_slice(CLI_APP, None, windowed._clamped({}))
+        out["slice_s"] = time.perf_counter() - t0
+        if sliced is None or len(sliced[0]["event_id"]) != SEG_DELTA:
+            die(f"phase 26: the segment slice answered "
+                f"{None if sliced is None else len(sliced[0]['event_id'])} "
+                f"rows, not {SEG_DELTA}")
+        t0 = time.perf_counter()
+        via = WindowedEventStore(storage, wm1, None).find_columnar(CLI_APP)
+        out["seg_read_s"] = time.perf_counter() - t0
+        with env_vars(PIO_SEGMENTS="off"):
+            t0 = time.perf_counter()
+            primary = WindowedEventStore(storage, wm1, None).find_columnar(
+                CLI_APP)
+            out["primary_read_s"] = time.perf_counter() - t0
+        columns_equal(via, primary, "phase 26b: the read through segments")
+        out["part_s"]["b"] = time.perf_counter() - phase_t0 - sum(
+            out["part_s"].values())
+
+        # -- 26c: the warm refresh on segments ----------------------------
+        dctx = mods["RuntimeContext"].create(storage=storage, device=dev)
+        cfg = RefreshConfig.from_env(canary_window_s=0.0)
+        with env_vars(PIO_SEGMENTS="off"):
+            off = RefreshDaemon(eng, variant, dctx, config=cfg).run_once()
+        train_s = get_registry().get("pio_refresh_train_s")   # unrounded
+        out["off_train_s"] = train_s.value(mode="warm")
+        if off["result"] != "warm":
+            die(f"phase 26: the warm cycle with segments off ended {off}")
+        [w_off] = load_models(eng, instances.get(off["instance"]), ctx)
+        uf_off, itf_off = (x.copy() for x in w_off.host_factors())
+        retired = instances.get(off["instance"])
+        retired.status = "FAILED"      # the next cycle warms from gen 1
+        instances.update(retired)
+        slices = []
+        real = WindowedEventStore._segment_slice
+
+        def spy(self, *a, **kw):
+            got = real(self, *a, **kw)
+            slices.append(None if got is None else len(got[0]["event_id"]))
+            return got
+
+        deploy.ready()
+        if deploy.instance != inst1.id:
+            die(f"phase 26: deploy serves {deploy.instance}, not "
+                f"generation 1 {inst1.id}")
+        WindowedEventStore._segment_slice = spy
+        try:
+            cycle = RefreshDaemon(
+                eng, variant, dctx, config=cfg,
+                promoter=HttpPromoter(deploy.base,
+                                      canary_window_s=0.0)).run_once()
+        finally:
+            WindowedEventStore._segment_slice = real
+        if (cycle["result"], cycle["promotion"]) != ("warm", "promoted"):
+            die(f"phase 26: the warm cycle on segments ended {cycle}")
+        if not slices or None in slices or SEG_DELTA not in slices:
+            die(f"phase 26: the warm cycle's reads took {slices} rows from "
+                "segments")
+        out["train_s"] = train_s.value(mode="warm")
+        inst2 = instances.get(cycle["instance"])
+        [w2] = load_models(eng, inst2, ctx)
+        uf2, itf2 = w2.host_factors()
+        if not (np.array_equal(uf2, uf_off) and np.array_equal(itf2, itf_off)
+                and list(w2.user_index.keys()) ==
+                list(w_off.user_index.keys())
+                and list(w2.item_index.keys()) ==
+                list(w_off.item_index.keys())):
+            die("phase 26: the warm factors on segments differ from the "
+                "warm factors with segments off")
+        touched_u = {u for u, _, _ in rows}
+        touched_i = {i for _, i, _ in rows}
+        kept_u = [r for u, r in w1.user_index.items() if u not in touched_u]
+        kept_i = [r for t, r in w1.item_index.items() if t not in touched_i]
+        if not (np.array_equal(uf2[kept_u], uf1[kept_u])
+                and np.array_equal(itf2[kept_i], itf1[kept_i])):
+            die("phase 26: a row no delta event touched moved")
+        asked = [names[j] for j in rng.choice(len(names), 32, replace=False)]
+        asked += [f"su{j}" for j in rng.choice(REFRESH_NEW_USERS, 32,
+                                               replace=False)]
+        k3_before = deploy.launches_now()["fused_topk"]
+        answers = [post_json(f"{deploy.base}/queries.json",
+                             {"user": u, "num": 10})[0] for u in asked]
+        k3_answers = deploy.launches_now()["fused_topk"] - k3_before
+        q = torch.from_numpy(np.ascontiguousarray(
+            uf2[[w2.user_index[u] for u in asked]])).to(dev)
+        items_d = torch.from_numpy(np.ascontiguousarray(itf2)).to(dev)
+        ps, pi = ft.fused_topk_reference(q, items_d, 11)
+        ps, pi = ps.cpu().numpy(), pi.cpu().numpy()
+        for n, (user, ans) in enumerate(zip(asked, answers)):
+            hits = ans["itemScores"]
+            why = None if len(hits) == 10 else f"{len(hits)} items"
+            why = why or mods["topk_mismatch"](
+                [[h["score"] for h in hits]],
+                [[w2.item_index[h["item"]] for h in hits]],
+                ps[n:n + 1, :10], pi[n:n + 1, :10], ps[n:n + 1, 10],
+                rtol=RTOL, atol=ATOL)
+            if why is not None:
+                die(f"phase 26: the warm answer for {user}: {why}")
+        deploy.stop()
+        launches = {"fused_topk": deploy.launches["fused_topk"]}
+        deploy = None
+        out["k3_answers"] = k3_answers
+        if k3_answers < len(asked):
+            die(f"phase 26: the deploy launched K3 {k3_answers} times for "
+                f"its {len(asked)} answers")
+
+        out["part_s"]["c"] = time.perf_counter() - phase_t0 - sum(
+            out["part_s"].values())
+        # -- 26d: a killed server, then a damaged sealed file -------------
+        def windowed_equal(what):
+            via = WindowedEventStore(storage, wm1, None).find_columnar(
+                CLI_APP)
+            with env_vars(PIO_SEGMENTS="off"):
+                want = WindowedEventStore(storage, wm1, None).find_columnar(
+                    CLI_APP)
+            columns_equal(via, want, what)
+            return len(want["event_id"])
+
+        sealed_until = status["coveredUntilUs"]
+        crash_rows = refresh_delta(rng, names, item_names, SEG_CRASH, 0, 0,
+                                   200, "k")
+        with env_vars(PIO_SEGMENT_ROLL_S="600"):
+            es = eventserver_proc(os.path.join(work, "seg_es2.log"),
+                                  phase="phase 26")
+        procs.append(es)
+        seg_post(es.base, key, crash_rows, 0, SEG_CRASH, "p26k", ES_THREADS)
+        es.kill()                              # SIGKILL before any seal
+        procs.remove(es)
+        left = list(Path(seg_root).rglob("active-*.tmp"))
+        if len(left) != 1:
+            die(f"phase 26: the killed server left {left}")
+        # the restart, in this process (the port's EventServer, as `pio
+        # eventserver` makes it: one subprocess start less), and a clean
+        # stop with no write
+        def discards() -> float:
+            c = get_registry().get("pio_segment_active_discarded_total")
+            return 0.0 if c is None else c.value()
+
+        before = discards()
+        restarted = EventServer(storage=storage, host="127.0.0.1", port=0)
+        discarded = discards() - before
+        [after] = SegmentStore(seg_root).status()
+        restarted.stop()
+        # the discard withdraws every claim below the restart, durably:
+        # an empty interval at or past the last seal
+        if discarded != 1 or list(Path(seg_root).rglob("active-*.tmp")) \
+                or after["floorUs"] != after["coveredUntilUs"] \
+                or after["coveredUntilUs"] < sealed_until:
+            die(f"phase 26: after the restart {discarded} windows "
+                f"discarded, coverage {after}, the last seal "
+                f"{sealed_until}")
+        n_crash = windowed_equal("phase 26d: the read after the kill")
+        if n_crash != SEG_DELTA + SEG_CRASH:
+            die(f"phase 26: the primary read after the kill has {n_crash} "
+                "rows")
+        # a later server (in this process too) writes and seals: no claim
+        # reaches the crashed window, and its own window reads from the
+        # segments
+        later = EventServer(storage=storage, host="127.0.0.1", port=0)
+        later.start()
+        try:
+            later_rows = refresh_delta(rng, names, item_names, SEG_LATER, 0,
+                                       0, 100, "l")
+            seg_post(f"http://127.0.0.1:{later.port}", key, later_rows, 0,
+                     SEG_LATER, "p26l", ES_THREADS)
+            time.sleep(float(SEG_GRACE_S) + 0.2)   # past grace
+        finally:
+            later.stop()                           # seals the window
+        [last] = SegmentStore(seg_root).status()
+        if last["floorUs"] != after["floorUs"] \
+                or last["rows"] != status["rows"] + SEG_LATER:
+            die(f"phase 26: after the later server {last}; before it "
+                f"{after}, {status['rows']} rows")
+        if SegmentStore(seg_root).read_window(app_id, None, wm1_us,
+                                              1 << 62) is not None:
+            die("phase 26: read_window claimed the crashed window")
+        got = SegmentStore(seg_root).read_window(app_id, None,
+                                                 last["floorUs"], 1 << 62)
+        if got is None or len(got[0]["event_id"]) != SEG_LATER:
+            die(f"phase 26: the later window read "
+                f"{None if got is None else len(got[0]['event_id'])} rows "
+                f"from the segments, not {SEG_LATER}")
+        n_later = windowed_equal("phase 26d: the read after the later "
+                                 "server")
+        if n_later != SEG_DELTA + SEG_CRASH + SEG_LATER:
+            die(f"phase 26: the primary read after the later server has "
+                f"{n_later} rows")
+        seg = sorted(Path(seg_root).rglob("*.seg"))[-1]
+        raw = bytearray(seg.read_bytes())
+        raw[len(raw) // 2] ^= 0x01
+        seg.write_bytes(bytes(raw))
+        if SegmentStore(seg_root).read_window(
+                app_id, None, last["floorUs"], 1 << 62) is not None:
+            die(f"phase 26: read_window read the damaged {seg.name}")
+        windowed_equal("phase 26d: the read with a damaged segment")
+        out["part_s"]["d"] = time.perf_counter() - phase_t0 - sum(
+            out["part_s"].values())
+    finally:
+        for p in procs:
+            p.kill()
+        if deploy is not None:
+            deploy.kill()
+        reset_storage()
+        env.__exit__()
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - phase_t0
+    log(f"phase 26 segments: {SEG_DELTA} events ({REFRESH_NEW_USERS} new "
+        f"users, {REFRESH_NEW_ITEMS} new items) posted by the SDK from "
+        f"{ES_THREADS} threads in {out['ingest_s']:.2f} s (a "
+        f"{float(SEG_ROLL_S) + 0.1:.1f} s pause half way) = "
+        f"{SEG_DELTA / out['ingest_s']:.0f} events/s; /ready "
+        f"{json.dumps(out['ready'])}; drained (SIGTERM) in "
+        f"{out['drain_s']:.2f} s into {out['segments']} sealed segments, "
+        f"{out['seg_bytes']} bytes, {SEG_DELTA} rows, coverage past the "
+        f"newest event; `pio status` lists the directory; card {card}")
+    log(f"phase 26 read: the segment slice {out['slice_s'] * 1e3:.1f} ms; "
+        f"the windowed read through segments {out['seg_read_s'] * 1e3:.1f} "
+        f"ms against {out['primary_read_s'] * 1e3:.1f} ms with segments "
+        f"off, equal column for column; warm cycle on segments "
+        f"{out['train_s']:.3f} s (segments off {out['off_train_s']:.3f} s), "
+        f"promoted, factors equal to the segments-off cycle's, untouched "
+        f"rows generation 1's bit for bit, 64 answers the plain top-k of "
+        f"the warm factors (K3 {launches['fused_topk']} launches in the "
+        f"deploy: {out['k3_answers']} during the answers, "
+        f"{launches['fused_topk']} in its life); 26d: {SEG_CRASH} events "
+        f"then SIGKILL, the restart discarded 1 window and withdrew every "
+        f"claim below it, a clean stop, then a later server's "
+        f"{SEG_LATER} events sealed and read from the segments while the "
+        f"crashed window stayed unclaimed, a flipped byte read as damage, "
+        f"every windowed read the primary's; phase 26 in "
+        f"{out['phase_s']:.1f} s (budget {SEG_LIMIT_S:.0f} s; by part "
+        f"{json.dumps({k: round(v, 2) for k, v in out['part_s'].items()})})"
+        f"; card {card}")
+    if out["phase_s"] > SEG_LIMIT_S:
+        log(f"phase 26 over its budget: {out['phase_s']:.1f} s > "
+            f"{SEG_LIMIT_S:.0f} s")
     return out
 
 
@@ -9250,6 +9785,10 @@ def main() -> int:
         gang = gang_phase(dev, args.seed, mesh["train"], mesh2["parts"],
                           card)
         del mesh["train"]
+        torch.cuda.empty_cache()
+        # -- phase 26: the segment tee under a warm refresh ---------------
+        seg = segment_phase(dev, args.seed, loop, mods, card)
+        mark("26")
     finally:
         shutil.rmtree(loop["work"], ignore_errors=True)
         shutil.rmtree(sched["work"], ignore_errors=True)
@@ -9270,7 +9809,8 @@ def main() -> int:
         + refresh["launches"]["fused_topk"] + tt["launches"]["fused_topk"]
         + ckpt["launches"]["fused_topk"] + obs["launches"]["fused_topk"]
         + fleet["launches"]["fused_topk"] + remote["launches"]["fused_topk"]
-        + mesh["launches"]["fused_topk"] + mesh2["launches"]["fused_topk"],
+        + mesh["launches"]["fused_topk"] + mesh2["launches"]["fused_topk"]
+        + seg["launches"]["fused_topk"],
         "max_abs_err": max(max_err, err, err4),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -9369,7 +9909,9 @@ def main() -> int:
         f"{mesh['launches']['fused_topk']} in phase 23 (23a's sharded calls "
         f"and 23c's mesh deploy process), "
         f"{mesh2['launches']['fused_topk']} in phase 24d's two-tower "
-        f"`pio deploy --mesh data={MESH_SHARDS}` process, {dase_topk} "
+        f"`pio deploy --mesh data={MESH_SHARDS}` process, "
+        f"{seg['launches']['fused_topk']} in phase 26's deploy of the "
+        f"warm generation read from segments, {dase_topk} "
         f"on the DASE path; training "
         f"kernels per the train run (fused_gram, ridge_solve_lu) + the CLI "
         f"path's train and eval ({loop['launches']['fused_gram']}, "

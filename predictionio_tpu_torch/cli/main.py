@@ -189,6 +189,7 @@ def cmd_status(args) -> int:
     for repo, t in repo_types.items():
         src = cfg.source_for(repo)
         print(f"  {repo}: type={t} path={src.path or '-'}")
+    _print_segment_status()
     if torch.cuda.is_available():
         free, total = torch.cuda.mem_get_info(0)
         print(f"devices: {torch.cuda.device_count()} x cuda "
@@ -210,6 +211,38 @@ def cmd_status(args) -> int:
         _print_metrics_snapshot(metrics_url)
     print("(sanity check OK)")
     return 0
+
+
+def _print_segment_status() -> None:
+    """`pio status`'s segment and ingest lines: the columnar segment
+    store, read straight from its manifests (no server need run), and
+    the write path's admission knobs."""
+    from predictionio_tpu_torch.data.columnar import resolve_segment_root
+
+    seg_root = resolve_segment_root()
+    if seg_root is None:
+        print("segments: off (PIO_SEGMENTS=off)")
+    else:
+        entries = []
+        for mpath in sorted(seg_root.glob("app_*/*/manifest.json")):
+            try:
+                man = json.loads(mpath.read_text())
+            except (OSError, ValueError):
+                continue
+            segs = man.get("segments", [])
+            entries.append((str(mpath.parent.relative_to(seg_root)),
+                            len(segs), sum(e["rows"] for e in segs),
+                            sum(e["bytes"] for e in segs)))
+        print(f"segments: root={seg_root} dirs={len(entries)} "
+              f"sealed={sum(e[1] for e in entries)} "
+              f"rows={sum(e[2] for e in entries)}")
+        for d, s, r, b in entries:
+            print(f"  {d}: segments={s} rows={r} bytes={b}")
+    budget = os.environ.get("PIO_INGEST_QUEUE_BUDGET") or "unbounded"
+    min_free = os.environ.get("PIO_DISK_MIN_FREE_BYTES") or "0"
+    print(f"ingest: admission budget={budget} "
+          f"max batch={os.environ.get('PIO_MAX_BATCH_SIZE', '50')} "
+          f"disk min free bytes={min_free}")
 
 
 def _print_fleet_status(fleet_arg: Optional[str]) -> None:

@@ -45,9 +45,11 @@ __all__ = [
     "StorageUnavailable",
     "batch_event_id",
     "EVENT_COLUMNS",
+    "SEGMENT_FIELDS",
     "epoch_us",
     "from_epoch_us",
     "events_to_columns",
+    "events_to_segment_columns",
     "normalize_event_columns",
     "columns_to_events",
 ]
@@ -336,6 +338,16 @@ EVENT_COLUMNS = ("event_id", "event", "entity_type", "entity_id",
                  "target_entity_type", "target_entity_id", "properties",
                  "event_time_us", "pr_id", "creation_time_us")
 
+# The reference's segment schema (``EVENT_ARROW_SCHEMA``) as Arrow field
+# types by name, for :mod:`predictionio_tpu_torch.data.ipc`: every field
+# nullable, each bag as JSON text in ``properties_json``.
+SEGMENT_FIELDS = (("event_id", "utf8"), ("event", "utf8"),
+                  ("entity_type", "utf8"), ("entity_id", "utf8"),
+                  ("target_entity_type", "utf8"),
+                  ("target_entity_id", "utf8"), ("properties_json", "utf8"),
+                  ("event_time_us", "int64"), ("pr_id", "utf8"),
+                  ("creation_time_us", "int64"))
+
 
 class Events(abc.ABC):
     """Unified event store trait (reference: LEvents + PEvents).
@@ -343,6 +355,10 @@ class Events(abc.ABC):
     All methods take ``app_id`` and optional ``channel_id`` (None = the
     default channel).
     """
+
+    # How find_columnar answers a property bag: "map" (a DataMap, as the
+    # default implementation below does) or "json" (the bag's text).
+    columnar_properties = "map"
 
     @abc.abstractmethod
     def init(self, app_id: int, channel_id: Optional[int] = None) -> bool:
@@ -560,6 +576,31 @@ def events_to_columns(events: Sequence[Event],
                 col[i] = get(e)
             out[name] = col
     return out
+
+
+def events_to_segment_columns(events: Sequence[Event],
+                              event_ids: Optional[Sequence[str]] = None
+                              ) -> Dict[str, List[Any]]:
+    """Events → one list per field of :data:`SEGMENT_FIELDS`, each bag
+    serialized as the reference's ``events_to_arrow`` does:
+    ``json.dumps(properties.to_dict())``.  (``json.dumps(dict(bag))`` of
+    :func:`normalize_event_columns` is the same text for a ``DataMap``:
+    both give the bag's own dict, nested values and all.)
+    ``event_ids``, when given, replace the events' own ids."""
+    return {
+        "event_id": (list(event_ids) if event_ids is not None
+                     else [e.event_id for e in events]),
+        "event": [e.event for e in events],
+        "entity_type": [e.entity_type for e in events],
+        "entity_id": [e.entity_id for e in events],
+        "target_entity_type": [e.target_entity_type for e in events],
+        "target_entity_id": [e.target_entity_id for e in events],
+        "properties_json": [json.dumps(e.properties.to_dict())
+                            for e in events],
+        "event_time_us": [epoch_us(e.event_time) for e in events],
+        "pr_id": [e.pr_id for e in events],
+        "creation_time_us": [epoch_us(e.creation_time) for e in events],
+    }
 
 
 def normalize_event_columns(columns: Mapping[str, Sequence]

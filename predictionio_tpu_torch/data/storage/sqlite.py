@@ -553,6 +553,8 @@ class SQLiteModels(_Repo, base.Models):
 
 
 class SQLiteEvents(_Repo, base.Events):
+    columnar_properties = "json"
+
     def init(self, app_id: int, channel_id: Optional[int] = None) -> bool:
         with self._lock, self._conn:
             self._conn.execute(

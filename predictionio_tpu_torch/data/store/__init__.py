@@ -4,19 +4,23 @@ Port of ``EventStore`` and ``WindowedEventStore`` from
 ``predictionio_tpu/data/store/__init__.py`` (reference:
 data/.../data/store/ — ``PEventStore`` for training reads, ``LEventStore``
 for serving reads).  The training read, :meth:`EventStore.find_columnar`,
-answers a dict of numpy columns instead of an Arrow table.
+answers a dict of numpy columns instead of an Arrow table.  A windowed
+read serves the prefix that sealed segments cover from them
+(:class:`~predictionio_tpu_torch.data.columnar.SegmentStore`) and reads
+only the rest from the primary store.
 """
 
 from __future__ import annotations
 
 import datetime as _dt
+import json
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from predictionio_tpu_torch.data.event import Event, PropertyMap
+from predictionio_tpu_torch.data.event import DataMap, Event, PropertyMap
 from predictionio_tpu_torch.data.storage import Storage, StorageError
-from predictionio_tpu_torch.data.storage.base import epoch_us
+from predictionio_tpu_torch.data.storage.base import EVENT_COLUMNS, epoch_us
 
 __all__ = ["EventStore", "WindowedEventStore"]
 
@@ -173,7 +177,14 @@ class WindowedEventStore(EventStore):
     next generation.  A read that passes no bound of its own inherits
     the window; an explicit bound outside the window is clamped to it.
     Property aggregation takes only the until bound.
+
+    A columnar read with a start bound (a warm refresh's delta) serves
+    the prefix the sealed segments cover from them and reads only the
+    uncovered tail from the primary store, so its cost follows the
+    window, not the store.
     """
+
+    _SEGMENTS_UNSET = object()
 
     def __init__(self, storage: Storage,
                  start_time: Optional[_dt.datetime],
@@ -181,6 +192,8 @@ class WindowedEventStore(EventStore):
         super().__init__(storage)
         self.window_start = start_time
         self.window_until = until_time
+        # the segment store, resolved on the first windowed read
+        self._segments = self._SEGMENTS_UNSET
 
     def _clamped(self, kwargs: dict, *, inject_start: bool = True) -> dict:
         st = kwargs.get("start_time")
@@ -197,9 +210,86 @@ class WindowedEventStore(EventStore):
             ut = self.window_until
         return {**kwargs, "start_time": st, "until_time": ut}
 
+    def _segment_slice(self, app_name, channel_name, kw):
+        """The covered prefix from sealed segments: ``(columns,
+        covered_until_us)``, or None when the segments cannot prove
+        coverage from the window start (then the whole read falls back
+        to the primary store: the reader never guesses)."""
+        from predictionio_tpu_torch.data.columnar import SegmentStore
+
+        if kw.get("start_time") is None:
+            return None  # a full-history read, not a delta
+        if self._segments is self._SEGMENTS_UNSET:
+            try:
+                self._segments = SegmentStore.open_default()
+            except Exception:
+                self._segments = None
+        if self._segments is None:
+            return None
+        try:
+            app_id, channel_id = self._resolve(app_name, channel_name)
+            start_us = epoch_us(kw["start_time"])
+            until_us = (epoch_us(kw["until_time"])
+                        if kw.get("until_time") is not None else 1 << 62)
+            return self._segments.read_window(
+                app_id, channel_id, start_us, until_us,
+                entity_type=kw.get("entity_type"),
+                entity_id=kw.get("entity_id"),
+                event_names=kw.get("event_names"),
+                target_entity_type=kw.get("target_entity_type"),
+                target_entity_id=kw.get("target_entity_id"))
+        except Exception:
+            # any surprise (a damaged manifest, a resolve failure)
+            # degrades to the primary-store read, never to a broken scan
+            return None
+
     def find_columnar(self, app_name, channel_name=None, **kwargs):
-        return super().find_columnar(app_name, channel_name,
-                                     **self._clamped(kwargs))
+        kw = self._clamped(kwargs)
+        sliced = self._segment_slice(app_name, channel_name, kw)
+        if sliced is None:
+            return super().find_columnar(app_name, channel_name, **kw)
+        seg, covered_us = sliced
+        # the tail [covered, until): the uncovered recent sliver
+        tail_kw = dict(kw)
+        tail_kw["start_time"] = _dt.datetime.fromtimestamp(
+            covered_us // 10**6, _dt.timezone.utc
+        ) + _dt.timedelta(microseconds=covered_us % 10**6)
+        tail = super().find_columnar(app_name, channel_name, **tail_kw)
+        # By event time, stably (Arrow's sort_by in the reference), even
+        # for ordered=False: the primary store's unordered delta read
+        # walks its time index, so the slice then answers in its order.
+        order = np.argsort(np.asarray(seg["event_time_us"], dtype=np.int64),
+                           kind="stable")
+        seg = {c: v[order] for c, v in seg.items()}
+        names = tuple(kw.get("columns") or EVENT_COLUMNS)
+        seg = self._unified(seg, names)
+        if seg is None:
+            # a slice with a null time or bag cannot take the backend's
+            # form: correctness wins, one full primary read
+            return super().find_columnar(app_name, channel_name, **kw)
+        return {c: np.concatenate([seg[c], tail[c]]) for c in names}
+
+    def _unified(self, seg, names):
+        """``seg``'s columns ``names`` in the form the backend declares
+        for its own read (``Events.columnar_properties``): int64 times,
+        each bag as its JSON text or as a DataMap.  None when a time or
+        a bag is null."""
+        out = {}
+        for c in names:
+            col = seg[c]
+            if c in ("event_time_us", "creation_time_us"):
+                if col.dtype == object:
+                    return None
+            elif c == "properties":
+                if any(p is None for p in col):
+                    return None
+                if self._storage.get_events().columnar_properties == "map":
+                    maps = np.empty(len(col), dtype=object)
+                    for i, text in enumerate(col):
+                        maps[i] = DataMap(json.loads(text))
+                    col = maps
+            out[c] = col
+        return out
 
     def find(self, app_name, channel_name=None, **kwargs):
         return super().find(app_name, channel_name, **self._clamped(kwargs))

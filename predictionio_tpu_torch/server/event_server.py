@@ -8,9 +8,17 @@ native frontend (``native_fallback_batch``: ``pio eventserver
 what it ingested do.  A landed feedback event that echoes a served
 recommendation's id (``properties.pioServeId``) joins back to the served
 items in the quality layer (:func:`~predictionio_tpu_torch.obs.quality.
-note_feedback_events`; process-local, as in the reference).  Not ported
-yet: the columnar segment tee (``/ready`` reports ``diskDegraded:
-false`` and no segment fields).
+note_feedback_events`; process-local, as in the reference).  Every
+landed write is teed into the columnar segment store
+(:class:`~predictionio_tpu_torch.data.columnar.SegmentStore`) with the
+ids the store gave it, so a warm refresh reads its delta from sealed
+segments; ``/ready`` reports the tee's disk state and segment counts.
+Departure: one server a segment root tees, under the root's writer lock
+(the reference lets every server on a root write, and its lazy open may
+unlink another's active window).  Another server on the root bypasses
+the tee, marks what it lands so readers fall back to the primary store,
+counts ``pio_segment_tee_errors_total{kind="writer_locked"}`` and
+reports ``"segmentTee": "bypassed"`` in ``/ready``.
 
 Reference: data/.../data/api/EventServer.scala + EventServiceActor routes
 (SURVEY.md §3.3).  API parity (Appendix A):
@@ -48,6 +56,10 @@ import uuid
 from typing import Any, Dict, List, Optional, Tuple
 from urllib.parse import parse_qs, parse_qsl, urlparse
 
+from predictionio_tpu_torch.data.columnar import (
+    SegmentDiskPressure,
+    SegmentStore,
+)
 from predictionio_tpu_torch.data.event import EventValidationError
 from predictionio_tpu_torch.data.json_support import (
     event_from_json,
@@ -222,6 +234,35 @@ class EventServer:
         # in memory — one MAX query per app per process, not per event).
         self._latest_ts: Dict[int, int] = {}
         self._latest_lock = threading.Lock()
+        # Columnar segment tee: landed writes are appended to per-(app,
+        # channel) segment files so warm-refresh delta reads become
+        # window-sized columnar slices.  Segments are derived data: a tee
+        # failure degrades (counted, /ready-visible), never fails the
+        # ingest that already committed to the primary store.  One server
+        # a root tees: it holds the root's writer lock, and discards a
+        # crashed writer's open windows now, at start.  Another server
+        # on the root bypasses the tee and marks what it lands, so
+        # readers fall back to the primary store there.
+        self._segment_degraded = False
+        self._segment_bypass = False
+        self._segment_errors = self.stats.registry.counter(
+            "pio_segment_tee_errors_total",
+            "Segment tee failures (ingest unaffected).", ("kind",))
+        try:
+            self.segments = SegmentStore.open_default()
+            if self.segments is not None:
+                if self.segments.acquire_writer():
+                    self.segments.recover()
+                else:
+                    logger.warning(
+                        "segment root %s has another writer — this server "
+                        "bypasses the tee", self.segments.root)
+                    self.segments.enter_bypass()
+                    self._segment_bypass = True
+                    self._segment_errors.inc(kind="writer_locked")
+        except Exception:
+            logger.exception("segment store unavailable — tee disabled")
+            self.segments = None
         # Write-path admission: one shared budget over events
         # queued anywhere on the write plane (local journal + shared
         # backplane + in-flight requests).  When the backlog exceeds it,
@@ -346,15 +387,47 @@ class EventServer:
         tokens = record.get("tokens")
         with idempotency_key(record["token"]):
             if tokens is not None:
-                self._breaker.call(events.create_batch, evs,
-                                   record["appId"], record.get("channelId"),
-                                   tokens=tokens)
+                ids = self._breaker.call(
+                    events.create_batch, evs, record["appId"],
+                    record.get("channelId"), tokens=tokens)
             else:
-                self._breaker.call(events.insert_batch, evs,
-                                   record["appId"], record.get("channelId"))
+                ids = self._breaker.call(
+                    events.insert_batch, evs, record["appId"],
+                    record.get("channelId"))
         # Replayed events are now servable — advance the watermark they
         # could not advance while journaled.
         self._note_ingest(record["appId"], evs)
+        self._segment_tee(record["appId"], record.get("channelId"), evs,
+                          ids)
+
+    # -- segment tee ----------------------------------------------------------
+
+    def _segment_tee(self, app_id: int, channel_id, evs, ids) -> None:
+        """Append landed events, each under the id the store gave it, to
+        the columnar segment store.  Disk pressure flips the degraded
+        flag (and stops segment writes; the primary path keeps
+        ingesting); any other failure is counted and swallowed: a
+        derived file must never fail an ingest that already committed."""
+        if self.segments is None or not evs:
+            return
+        try:
+            if self._segment_bypass:
+                self.segments.mark_bypassed(app_id, channel_id)
+                return
+            self.segments.append_events(app_id, channel_id, evs,
+                                        event_ids=ids)
+            if self._segment_degraded:
+                logger.info("segment tee recovered (disk pressure cleared)")
+            self._segment_degraded = False
+        except SegmentDiskPressure as e:
+            if not self._segment_degraded:
+                logger.warning("segment tee degraded: %s — ingest "
+                               "continues without segment coverage", e)
+            self._segment_degraded = True
+            self._segment_errors.inc(kind="disk_pressure")
+        except Exception:
+            logger.exception("segment tee failed (ingest unaffected)")
+            self._segment_errors.inc(kind="error")
 
     # -- write-plane admission ----------------------------------------------
 
@@ -527,6 +600,7 @@ class EventServer:
                 event_id = self._breaker.call(
                     events.insert, ev, key_row.app_id, channel_id)
             self._note_ingest(key_row.app_id, [ev])
+            self._segment_tee(key_row.app_id, channel_id, [ev], [event_id])
             return 201, {"eventId": event_id}
         except _UNAVAILABLE:
             spilled = self._spill_events([event_to_json(ev)],
@@ -546,10 +620,11 @@ class EventServer:
             # Readiness (vs the "/" liveness ping): storage reachable —
             # breaker closed.  503 tells the load balancer to rotate this
             # instance out while it probes recovery.
-            # The port has no segment tee yet, so its disk never degrades
-            # (the reference's "degraded" status and segment fields).
             st = self._breaker.state
-            status_word = "unavailable" if st != "closed" else "ready"
+            disk_degraded = self._segment_degraded or (
+                self.segments is not None and self.segments.disk_pressure())
+            status_word = ("unavailable" if st != "closed"
+                           else "degraded" if disk_degraded else "ready")
             body_ = {"status": status_word,
                      "breaker": st,
                      "spillBackend": self.spill_backend,
@@ -557,12 +632,21 @@ class EventServer:
                      else 0,
                      "ingestInflight": self._inflight,
                      "ingestBudget": self.ingest_budget,
-                     "diskDegraded": False}
+                     "diskDegraded": disk_degraded}
             if self.shared_spill is not None:
                 # cached: a readiness probe must never block on a
                 # storage RPC while storage is the thing that is down
                 body_["sharedSpillDepth"] = \
                     self.shared_spill.cached_depth()
+            if self.segments is not None:
+                segs = self.segments.status()
+                body_["segmentDirs"] = len(segs)
+                body_["segmentCount"] = sum(s["segments"] for s in segs)
+                if self._segment_bypass:
+                    body_["segmentTee"] = "bypassed"
+            # Disk-degraded is still ready (200): the primary store and
+            # the spill journal keep accepting; only segment coverage
+            # stopped growing.
             return (200 if st == "closed" else 503), body_
         if path == "/stats.json" and method == "GET":
             return 200, self.stats.snapshot()
@@ -901,6 +985,8 @@ class EventServer:
                         outs[i] = (201, {"eventId": eid}, ev.event)
                     self._note_ingest(key_row.app_id,
                                       [ev for _, ev in valid])
+                    self._segment_tee(key_row.app_id, channel_id,
+                                      [ev for _, ev in valid], ids)
                 except _UNAVAILABLE as e:
                     # Mid-batch storage outage: EVERY valid item gets an
                     # explicit answer — spilled (202 + the batch's token)
@@ -955,6 +1041,15 @@ class EventServer:
             self._replay.stop()
         elif self.spill is not None:
             self.spill.close()
+        if self.segments is not None:
+            try:
+                # seal open windows so a clean shutdown leaves the whole
+                # ingest history claimable by the next refresh read
+                if not self._segment_bypass:
+                    self.segments.seal_all()
+            except Exception:
+                logger.exception("segment seal on shutdown failed")
+            self.segments.release()
         self.plugins.stop()
 
     def drain(self) -> None:

@@ -270,9 +270,8 @@ def _metric_names(base):
 
 
 # The reference's compile tracker (the port has none: eager PyTorch
-# compiles nothing) and its segment tee (not ported yet).
-REFERENCE_ONLY = {"pio_xla_compile_ms", "pio_xla_compile_total",
-                  "pio_segment_tee_errors_total"}
+# compiles nothing).
+REFERENCE_ONLY = {"pio_xla_compile_ms", "pio_xla_compile_total"}
 INTROSPECTION = {"pio_device_mem_bytes", "pio_device_mem_peak_bytes",
                  "pio_hbm_headroom_warn_total"}
 
@@ -291,7 +290,7 @@ def test_servers_name_the_same_series_before_the_first_request(
     from test_torch_rollout import _port_stack, _ref_stack
 
     monkeypatch.setenv("PIO_HOME", str(tmp_path / "home"))
-    monkeypatch.setenv("PIO_SEGMENTS", "off")
+    monkeypatch.delenv("PIO_SEGMENTS", raising=False)
     for k in list(os.environ):
         if k.startswith("PIO_STORAGE_"):
             monkeypatch.delenv(k, raising=False)
@@ -337,3 +336,61 @@ def test_entry_on_the_cpu_computes_the_reference_forward():
                                atol=1e-5)
     np.testing.assert_array_equal(ids.numpy(), ref_ids)
     assert args[1].device.type == "cpu"
+
+
+def _segment_lines(out: str) -> list:
+    """`pio status`'s lines from ``segments:`` through ``ingest:``."""
+    lines = out.splitlines()
+    start = next(i for i, ln in enumerate(lines)
+                 if ln.startswith("segments:"))
+    end = next(i for i, ln in enumerate(lines) if ln.startswith("ingest:"))
+    return lines[start:end + 1]
+
+
+@pytest.mark.parametrize("segments", ["on", "off"])
+def test_status_prints_the_segment_lines_of_the_reference(
+        tmp_path, monkeypatch, capsys, segments):
+    """One segment root (a directory each package's store wrote, and a
+    damaged manifest both skip) and the admission knobs: both CLIs print
+    the same ``segments:`` and ``ingest:`` lines."""
+    import datetime as dt
+
+    from predictionio_tpu.data import Event as RefEvent
+    from predictionio_tpu.data.columnar import SegmentStore as RefStore
+    from predictionio_tpu_torch.data.columnar import SegmentStore
+    from predictionio_tpu_torch.data.event import Event
+
+    for k in list(os.environ):
+        if k.startswith(("PIO_STORAGE_", "PIO_SEGMENT", "PIO_INGEST",
+                         "PIO_MAX_BATCH", "PIO_DISK", "PIO_FLEET")):
+            monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("PIO_HOME", str(tmp_path / "home"))
+    root = tmp_path / "segs"
+    monkeypatch.setenv("PIO_SEGMENT_DIR", str(root))
+    monkeypatch.setenv("PIO_INGEST_QUEUE_BUDGET", "5000")
+    monkeypatch.setenv("PIO_DISK_MIN_FREE_BYTES", "1024")
+    t = dt.datetime.now(dt.timezone.utc)
+    for store, ev, app in ((RefStore, RefEvent, 1), (SegmentStore, Event, 2)):
+        st = store(root, grace_s=0.0)
+        st.append_events(app, None, [ev(
+            event="view", entity_type="user", entity_id=f"u{k}",
+            event_time=t + dt.timedelta(seconds=k)) for k in range(3)])
+        st.seal_all()
+    (root / "app_3" / "ch_1").mkdir(parents=True)
+    (root / "app_3" / "ch_1" / "manifest.json").write_text("{broken")
+    if segments == "off":
+        monkeypatch.setenv("PIO_SEGMENTS", "off")
+    out = {}
+    for pkg in PKG:
+        assert _cli_main(pkg)(["status"]) == 0
+        out[pkg] = _segment_lines(capsys.readouterr().out)
+    assert out["port"] == out["reference"]
+    if segments == "on":
+        assert out["port"][0] == (f"segments: root={root} dirs=2 sealed=2 "
+                                  "rows=6")
+        assert out["port"][1].startswith("  app_1/default: segments=1 "
+                                         "rows=3 bytes=")
+    else:
+        assert out["port"][0] == "segments: off (PIO_SEGMENTS=off)"
+    assert out["port"][-1] == ("ingest: admission budget=5000 max batch=50 "
+                               "disk min free bytes=1024")

@@ -14,8 +14,8 @@ Also here: ``pio eventserver`` as a subprocess (bound port printed,
 drained with exit 0 on SIGTERM) and the plugin seam of both servers,
 the port's engine server included.  The script does not send
 ``/traces.json`` (its span trees are compared in
-``tests/test_torch_traces.py``) or read ``/ready``'s segment fields (a
-departure: the port has no segment tee yet).
+``tests/test_torch_traces.py``).  Each server tees into a segment root
+of its own, and ``/ready`` is compared whole, segment fields included.
 """
 
 import http.client
@@ -58,7 +58,7 @@ PORT = SimpleNamespace(name="port", config=port_config, storage=port_storage,
 KEY_ALL, KEY_VIEW = "K-all", "K-view"
 # The event server's own series, as both packages name them.
 SERIES_PREFIXES = ("pio_event", "pio_breaker", "pio_spill", "pio_deadline",
-                   "pio_ingest", "pio_plugin")
+                   "pio_ingest", "pio_plugin", "pio_segment")
 
 
 def open_store(pkg, home):
@@ -81,7 +81,7 @@ def open_store(pkg, home):
 @pytest.fixture()
 def both(tmp_path, monkeypatch):
     """The reference's and the port's event servers, each over its own
-    sqlite home, with fresh metrics registries."""
+    sqlite home and segment root, with fresh metrics registries."""
     monkeypatch.setenv("PIO_HOME", str(tmp_path / "env_home"))
     for k in list(os.environ):
         if k.startswith(("PIO_STORAGE_", "PIO_SPILL", "PIO_FAULTS",
@@ -89,12 +89,12 @@ def both(tmp_path, monkeypatch):
                          "PIO_RETRY_AFTER", "PIO_EVENTSERVER_PLUGINS",
                          "PIO_ENGINESERVER_PLUGINS", "PIO_AUTH")):
             monkeypatch.delenv(k, raising=False)
-    # The reference's segment tee is derived data the port does not have.
-    monkeypatch.setenv("PIO_SEGMENTS", "off")
+    monkeypatch.delenv("PIO_SEGMENTS", raising=False)
     stacks = []
     for pkg in (REF, PORT):
         pkg.reset_metrics()
         home = tmp_path / pkg.name
+        monkeypatch.setenv("PIO_SEGMENT_DIR", str(home / "segments"))
         storage, app_id, ch = open_store(pkg, home)
         srv = pkg.es.EventServer(storage=storage, host="127.0.0.1", port=0)
         srv.start()
@@ -374,13 +374,23 @@ def test_request_id_is_echoed_or_generated(both):
         assert all(re.fullmatch(r"[0-9a-f]{32}", i) for i in ids[1:])
 
 
-def test_ready_matches_the_reference_without_segment_fields(both):
+def test_ready_matches_the_reference(both):
     bodies = [call(st.srv.port, "GET", "/ready")[2] for st in both]
-    for b in bodies:
-        b.pop("segmentDirs", None)
-        b.pop("segmentCount", None)
     assert bodies[1] == bodies[0]
     assert bodies[1]["status"] == "ready" and not bodies[1]["diskDegraded"]
+    assert (bodies[1]["segmentDirs"], bodies[1]["segmentCount"]) == (0, 0)
+    # a batch teed and sealed, in the default channel and in ``side``
+    batch = [{"event": "view", "entityType": "user", "entityId": f"r{i}",
+              "eventTime": "2026-03-04T00:00:00Z"} for i in range(3)]
+    for st in both:
+        for channel in ({}, {"channel": "side"}):
+            status, _, _ = call(st.srv.port, "POST", q(
+                "/batch/events.json", accessKey=KEY_ALL, **channel), batch)
+            assert status == 200
+        st.srv.segments.seal_all()
+    bodies = [call(st.srv.port, "GET", "/ready")[2] for st in both]
+    assert bodies[1] == bodies[0]
+    assert (bodies[1]["segmentDirs"], bodies[1]["segmentCount"]) == (2, 2)
 
 
 # -- plugins -----------------------------------------------------------------
@@ -409,7 +419,7 @@ def test_plugins_count_and_inject_headers(tmp_path, monkeypatch, pkg):
     package, with a failing plugin loaded beside the counting one."""
     import tests.plugin_fixture as pf
 
-    monkeypatch.setenv("PIO_SEGMENTS", "off")
+    monkeypatch.setenv("PIO_SEGMENT_DIR", str(tmp_path / "segments"))
     monkeypatch.setenv(
         "PIO_EVENTSERVER_PLUGINS",
         f"tests.plugin_fixture:make_plugin,{__name__}:make_failing_plugin,"
@@ -603,7 +613,7 @@ def test_concurrent_batches_land_once_and_balance_the_counters(tmp_path,
     import sys
     import threading
 
-    monkeypatch.setenv("PIO_SEGMENTS", "off")
+    monkeypatch.setenv("PIO_SEGMENT_DIR", str(tmp_path / "segments"))
     monkeypatch.setenv("PIO_INGEST_QUEUE_BUDGET", "100000")
     PORT.reset_metrics()
     storage, app_id, _ = open_store(PORT, tmp_path / "home")
@@ -650,5 +660,13 @@ def test_concurrent_batches_land_once_and_balance_the_counters(tmp_path,
         assert reg.get("pio_events_latest_ts").value(app=str(app_id)) == \
             pytest.approx(port_json.parse_iso8601(
                 "2026-05-01T00:15:05Z").timestamp())
+        # every landed request teed once (a replay again): the stored ids
+        from predictionio_tpu_torch.data import columnar
+        payloads = [p for seg in sorted((tmp_path / "segments").rglob(
+            "*.seg")) for p in columnar.recover_segment_tail(
+                seg, truncate=False)["payloads"]]
+        teed = columnar._payloads_to_columns(payloads)["event_id"]
+        assert len(teed) == 16 * 9 * 10
+        assert set(teed) == {r.event_id for r in rows}
     finally:
         storage.close()

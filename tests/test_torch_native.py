@@ -68,7 +68,7 @@ def pkg(request, monkeypatch):
         if k.startswith(("PIO_STORAGE_", "PIO_EVENTSERVER_PLUGINS",
                          "PIO_SPILL", "PIO_FAULTS")):
             monkeypatch.delenv(k, raising=False)
-    monkeypatch.setenv("PIO_SEGMENTS", "off")
+    monkeypatch.delenv("PIO_SEGMENTS", raising=False)
     request.param.reset()
     return request.param
 
@@ -219,7 +219,11 @@ def _event_server(pkg, tmp_path, **kw):
     storage.get_events().init(app_id)
     key = storage.get_access_keys().insert(
         pkg.storage.AccessKey.generate(app_id))
-    return pkg.es.EventServer(storage, **kw), storage, app_id, key
+    from test_torch_segments import own_segment_root
+
+    with own_segment_root(tmp_path / pkg.name / "segments"):
+        srv = pkg.es.EventServer(storage, **kw)
+    return srv, storage, app_id, key
 
 
 def test_plugin_header_through_native_frontend(pkg, tmp_path, monkeypatch):

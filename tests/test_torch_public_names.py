@@ -79,7 +79,6 @@ def test_event_store_insert_columnar_as_the_reference(pio_home,
         reset_storage
     from predictionio_tpu_torch.data.store import EventStore
 
-    monkeypatch.setenv("PIO_SEGMENTS", "off")
     reset_storage()
     try:
         ref = ref_storage()

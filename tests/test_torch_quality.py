@@ -573,10 +573,13 @@ def _feedback_session(srv, es, planted):
 
 
 def test_quality_json_and_feedback_join_equal_the_reference(trained,
-                                                            monkeypatch):
+                                                            monkeypatch,
+                                                            tmp_path):
+    from test_torch_segments import own_segment_root
+
     monkeypatch.setenv("PIO_QUALITY_SAMPLE", "1")
     monkeypatch.setenv("PIO_QUALITY_MIN_SAMPLES", "5")
-    monkeypatch.setenv("PIO_SEGMENTS", "off")
+    monkeypatch.delenv("PIO_SEGMENTS", raising=False)
     planted = 7
     out = {}
     stacks = (
@@ -592,7 +595,8 @@ def test_quality_json_and_feedback_join_equal_the_reference(trained,
                              port=0)))
     for name, pkg, make_srv, make_es in stacks:
         pkg.obs.reset_observability()
-        srv, es = make_srv(), make_es()
+        with own_segment_root(tmp_path / name / "segments"):
+            srv, es = make_srv(), make_es()
         srv.start()
         es.start()
         try:

@@ -60,7 +60,7 @@ KEY = "K-drill"
 @pytest.fixture(autouse=True)
 def _isolated(tmp_path, monkeypatch):
     monkeypatch.setenv("PIO_HOME", str(tmp_path / "env_home"))
-    monkeypatch.setenv("PIO_SEGMENTS", "off")
+    monkeypatch.delenv("PIO_SEGMENTS", raising=False)
     for k in list(os.environ):
         if k.startswith(("PIO_STORAGE_", "PIO_SPILL", "PIO_FAULTS",
                          "PIO_MAX_BATCH", "PIO_INGEST", "PIO_BREAKER",
@@ -111,10 +111,13 @@ def stack(pkg, home, clock=None, **server_kw):
         "eventdata", failure_threshold=2, recovery_time_s=30.0,
         failure_types=(pkg.storage.StorageUnavailable, ConnectionError),
         clock=clock or FakeClock())
-    srv = pkg.es.EventServer(
-        storage=storage, host="127.0.0.1", port=0, breaker=breaker,
-        replay_interval_s=3600, replay_wait=lambda ev, t: ev.wait(),
-        drain_wait=lambda ev, t: ev.wait(), **server_kw)
+    from test_torch_segments import own_segment_root
+
+    with own_segment_root(os.path.join(home, "segments")):
+        srv = pkg.es.EventServer(
+            storage=storage, host="127.0.0.1", port=0, breaker=breaker,
+            replay_interval_s=3600, replay_wait=lambda ev, t: ev.wait(),
+            drain_wait=lambda ev, t: ev.wait(), **server_kw)
     return SimpleNamespace(srv=srv, storage=storage, app_id=app_id,
                            breaker=breaker)
 

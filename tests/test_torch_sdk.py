@@ -47,7 +47,7 @@ CLIENTS = {"ref": ref_sdk, "port": port_sdk}
 @pytest.fixture()
 def servers(tmp_path, monkeypatch):
     monkeypatch.setenv("PIO_HOME", str(tmp_path / "env_home"))
-    monkeypatch.setenv("PIO_SEGMENTS", "off")
+    monkeypatch.delenv("PIO_SEGMENTS", raising=False)
     monkeypatch.setenv("PIO_RETRY_AFTER_S", "0")
     for k in list(os.environ):
         if k.startswith(("PIO_STORAGE_", "PIO_FAULTS", "PIO_SPILL",
@@ -161,9 +161,12 @@ def _free_port():
 
 
 def test_clients_crossed_with_servers_give_the_same_results(servers):
+    from test_torch_segments import own_segment_root
+
     for st in servers.values():
-        st.srv = st.pkg.es.EventServer(storage=st.storage, host="127.0.0.1",
-                                       port=0)
+        with own_segment_root(st.home / "segments"):
+            st.srv = st.pkg.es.EventServer(storage=st.storage,
+                                           host="127.0.0.1", port=0)
         st.srv.start()
     runs = {}
     for sname, st in servers.items():

@@ -121,7 +121,9 @@ def test_registered_connector_over_both_event_servers(tmp_path,
     import predictionio_tpu_torch.data.storage as port_storage
     import predictionio_tpu_torch.server.event_server as port_es
 
-    monkeypatch.setenv("PIO_SEGMENTS", "off")
+    from test_torch_segments import own_segment_root
+
+    monkeypatch.delenv("PIO_SEGMENTS", raising=False)
     monkeypatch.setenv("PIO_HOME", str(tmp_path / "env_home"))
     order = {"order": {"customer": "c1", "at": "2026-03-05T10:00:00Z",
                        "lines": [{"sku": "s1", "qty": 2}, {"qty": 1},
@@ -138,7 +140,8 @@ def test_registered_connector_over_both_event_servers(tmp_path,
         storage.get_events().init(app_id)
         storage.get_access_keys().insert(storage_mod.AccessKey(
             key="K", app_id=app_id))
-        srv = es.EventServer(storage=storage, host="127.0.0.1", port=0)
+        with own_segment_root(tmp_path / name / "segments"):
+            srv = es.EventServer(storage=storage, host="127.0.0.1", port=0)
         srv.start()
         got = []
         try:
