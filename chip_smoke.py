@@ -94,7 +94,7 @@ cannot be imported, or when any phase fails.  Phases, in order:
    (0.05) of the baseline on both windows, at least 50 captures scored,
    drift not tripped and gate.rollback false.
 12. cli loop — the engine.json loop across processes at the MovieLens-1M
-   catalog (6,040 users x 3,706 Zipf items; 300,000 seeded rate events,
+   catalog (6,040 users x 3,706 Zipf items; 200,000 seeded rate events,
    cut from ML-1M's 1,000,209 for the time limit, which took the phase
    from 142.3 s to PERF.md §4's; half stars, and buys by 5 % of the
    users) on the default sqlite +
@@ -144,7 +144,7 @@ cannot be imported, or when any phase fails.  Phases, in order:
    evalK 3), its accuracy equal to a plain float64 recount.  Each part
    logs its writes, train wall and read, launches and client p50.
 14. eventserver — the event server on phase 12's first 100,000 events
-   (cut from 300,000 for the time limit) and storage:
+   (cut from phase 12's 200,000 for the time limit) and storage:
    `pio app new` and `pio eventserver --port 0` as subprocesses (/ready
    must answer ready); every one of them posted by the port's
    sdk.EventClient as POST /batch/events.json at the reference's cap of
@@ -187,7 +187,7 @@ cannot be imported, or when any phase fails.  Phases, in order:
 16. refresh — phase 12's sqlite + localfs store (kept alive for this
    phase) and its generation 1: `pio deploy` as a subprocess answers 64
    /queries.json (the baseline); 20,000 rate events stamped after the
-   watermark (5 % of the corpus; 200 new users, 100 new items); one
+   watermark (10 % of the corpus; 200 new users, 100 new items); one
    RefreshDaemon cycle with an HttpPromoter on that server must train
    warm and promote through POST /reload (generation 2; every row no
    delta event touched bitwise generation 1's; the 64 answers and 64 of
@@ -232,7 +232,7 @@ cannot be imported, or when any phase fails.  Phases, in order:
    K=1 and K=8 (one init outside the walls): examples/s, the probe's
    shares, peak device memory; each K=8 state equal to its K=1 state bit
    for bit; a NaN batch must raise TrainDiverged.  18b: phase 12's
-   300,000 (user, item) rate pairs written in-process as impressions
+   200,000 (user, item) rate pairs written in-process as impressions
    of a planted click model (hidden user and item factors and 4 dense
    features, about 25 % clicks) into a new app of phase 12's store; `pio
    train` in-process with the port's shipped dlrm engine.json; a
@@ -309,7 +309,7 @@ cannot be imported, or when any phase fails.  Phases, in order:
    message); --resume finishes it; a second SIGTERM'd one --unwind'd,
    its instances back on the previous generation.  21d (beside 21a-c):
    `pio train --follow --promote-url U5,U6` on phase 12's store: an
-   6,000-event delta (2 % of the store) trains warm (host solves) and
+   4,000-event delta (2 % of the store) trains warm (host solves) and
    rolls across both,
    which then serve the warm factors' plain top-10; a delta over
    PIO_REFRESH_MAX_DELTA_FRACTION falls back to a full retrain (K1, K2)
@@ -413,10 +413,29 @@ cannot be imported, or when any phase fails.  Phases, in order:
    two subprocess starts less); a flipped byte in the newest sealed
    file reads as damage; every windowed read equals the primary
    store's.  Budget 45 s.
-27. report — one JSON line of per-kernel numbers, the card's name and
+27. parquetlog — the reference's Parquet event store, read and written
+   by the port's own codec (no pyarrow on the card's machine).  27a:
+   phase 12's first 100,000 events (cut from 201,510 for the time
+   limit, as phase 14's) on a fresh PIO_HOME with EVENTDATA on PARQUET
+   (METADATA sqlite, MODELDATA localfs): `pio app new`, then `pio
+   import` as a subprocess (events/s, part files, bytes on disk); `pio
+   export` equal to the generated events as a multiset; `pio train`
+   in-process (rank 64, 10 iterations; wall and train.datasource), K1
+   and K2 launched, its factors by entity id within phase 12's
+   tolerance of a MEMORY-store run_train fed the events in the parquet
+   scan's own order; `pio deploy` as a subprocess on the card answering
+   64 /queries.json, each the plain top-k of the persisted factors, K3
+   launched during them (read before and after on SIGUSR1).  27b:
+   bench.py:store_bench's bulk path on the card's host: phase 6's first
+   1,000,000 ratings (cut from 25,000,000 for the time limit) through
+   insert_columnar, then the recommendation template's unordered
+   projected find_columnar to the COO (write and scan events/s, bytes),
+   which must equal the generated ratings as a multiset.  Budget 60 s.
+28. report — one JSON line of per-kernel numbers, the card's name and
    power limit, and the final status line.
-After phases 7, 11-14, 16, 17, 19b-e, 20 and 26 a line gives the seconds the
-quality and recall scorecards took in that phase's in-process trains.
+After phases 7, 11-14, 16, 17, 19b-e, 20, 26 and 27 a line gives the
+seconds the quality and recall scorecards took in that phase's
+in-process trains.
 """
 
 from __future__ import annotations
@@ -2113,10 +2132,10 @@ def pq_dase_phase(dase, mods, card: str) -> dict:
 # Phase 12: the engine.json loop across processes, at the MovieLens-1M
 # shape (cut from ML-25M in depth only: a 25 M-event import through JSON
 # and sqlite would not fit the run's limit).
-# The MovieLens-1M catalog (6,040 users x 3,706 items) at 300,000 of its
+# The MovieLens-1M catalog (6,040 users x 3,706 items) at 200,000 of its
 # 1,000,209 ratings: cut in depth for the time limit (PERF.md §4); the
 # widths stay, and phase 21d's deltas keep their share of the store.
-ML1M_EVENTS, ML1M_USERS, ML1M_ITEMS = 300_000, 6_040, 3_706
+ML1M_EVENTS, ML1M_USERS, ML1M_ITEMS = 200_000, 6_040, 3_706
 ML1M_BUYER_SHARE, ML1M_BUYS_EACH = 0.05, 5
 CLI_APP, CLI_QUERIES = "chipcli", 64
 CLI_FACTORY = "predictionio_tpu_torch.templates.recommendation:engine"
@@ -2368,6 +2387,30 @@ def answers_agree(got, want, what: str, topk_mismatch) -> None:
         die(f"{what}: {why or 'lengths differ'}")
 
 
+def factors_by_id_close(got, want, what: str) -> float:
+    """Die unless two trained ALS wrappers saw the same users and items
+    and their factors agree by entity id within the training tolerance
+    (``what`` names the side with ``{}``); returns the largest error."""
+    import numpy as np
+    import torch
+
+    gu, gi = got.host_factors()
+    wu, wi = want.host_factors()
+    err = 0.0
+    for side, g, gidx, w, widx in (
+            ("users", gu, got.user_index, wu, want.user_index),
+            ("items", gi, got.item_index, wi, want.item_index)):
+        if sorted(gidx.keys()) != sorted(widx.keys()):
+            die(f"{what.format(side)}: the trains saw other {side}")
+        rows = [widx[key] for key in gidx.keys()]
+        g = torch.from_numpy(np.ascontiguousarray(g))
+        w = torch.from_numpy(np.ascontiguousarray(w[rows]))
+        err = max(err, assert_close(g, w, TRAIN_RTOL,
+                                    scaled(TRAIN_ATOL, w),
+                                    what.format(side)))
+    return err
+
+
 def cli_loop_phase(dev, seed: int, mods: dict, card: str) -> dict:
     """Phase 12: app new and import (subprocesses) → train (in-process,
     through the CLI's main) → deploy (two subprocesses) → 64
@@ -2488,24 +2531,11 @@ def cli_loop_phase(dev, seed: int, mods: dict, card: str) -> dict:
         [mw] = load_models(eng, mem.get_engine_instances().get(mid),
                            mods["RuntimeContext"](storage=mem, device=dev))
         del mem
-        mu, mi = mw.host_factors()
-        same_order = (list(mw.user_index.keys()) ==
-                      list(wrapper.user_index.keys()))
-        err = 0.0
-        for what, got, gidx, want, widx in (
-                ("users", uf, wrapper.user_index, mu, mw.user_index),
-                ("items", itf, wrapper.item_index, mi, mw.item_index)):
-            if sorted(gidx.keys()) != sorted(widx.keys()):
-                die(f"phase 12: the sqlite and memory trains saw other "
-                    f"{what}")
-            rows = [widx[key] for key in gidx.keys()]
-            g = torch.from_numpy(np.ascontiguousarray(got))
-            w = torch.from_numpy(np.ascontiguousarray(want[rows]))
-            err = max(err, assert_close(
-                g, w, TRAIN_RTOL, scaled(TRAIN_ATOL, w),
-                f"phase 12: {what} factors, sqlite train vs memory train"))
-        out["factor_err"] = err
-        out["same_order"] = same_order
+        out["same_order"] = (list(mw.user_index.keys()) ==
+                             list(wrapper.user_index.keys()))
+        out["factor_err"] = factors_by_id_close(
+            wrapper, mw, "phase 12: {} factors, sqlite train vs memory "
+            "train")
 
         # -- 3: deploy (a second process on the same files) ---------------
         a = deployed(engine_json, os.path.join(work, "deploy_a.log"))
@@ -3365,8 +3395,8 @@ ES_APP = "chipes"
 ES_THREADS = 8            # client threads, each a contiguous share
 ES_BATCH = 50             # the reference's cap of /batch/events.json
 ES_REPLAYED = 3           # batches posted again under their tokens
-ES_EVENTS = 100_000       # phase 12's first events (all of about a third
-                          # of its users): cut from 300,000 for the time limit
+ES_EVENTS = 100_000       # phase 12's first events (all of about half of
+                          # its users): cut from 200,000 for the time limit
 
 
 def es_batch(users, items, stars, times, lo: int, hi: int):
@@ -4193,7 +4223,7 @@ def scheduler_phase(dev, seed: int, users_np, items_np, mods: dict,
 # Phase 16: staged reload, rollback and the ALS warm-start refresh, on
 # phase 12's sqlite + localfs store (its generation 1, rank 64, at the
 # MovieLens-1M shape: no import is repeated).
-REFRESH_DELTA = 20_000        # rate events stamped after the watermark: 5 %
+REFRESH_DELTA = 20_000        # rate events stamped after the watermark: 10 %
 REFRESH_NEW_USERS, REFRESH_NEW_ITEMS = 200, 100
 REFRESH_TOUCHED_USERS = 1_500  # existing users the delta touches
 REFRESH_QUERIES = 64
@@ -6462,8 +6492,8 @@ FLEET_G2_NOISE = 0.05          # G2 = G1 + this x N(0, 1/rank): a neighbour
 #                                generation, as a retrain is (the shadow
 #                                canary's overlap stays high)
 FLEET_DRIFT_SCALE = 4.0        # 21b's G3: G2's user vectors x4 (20d's fault)
-FLEET_DELTA = 6_000            # 21d: 2 % of phase 12's store, as phase 16's
-FLEET_DELTA2 = 9_000           # ... then over the fraction gate: fallback
+FLEET_DELTA = 4_000            # 21d: 2 % of phase 12's store
+FLEET_DELTA2 = 6_500           # ... then over the fraction gate: fallback
 FLEET_MAX_DELTA_FRACTION = "0.025"
 FLEET_PROFILE_MS = 2000
 FLEET_WARM_S = 6.0             # 21a: traffic before the rollout starts
@@ -9417,6 +9447,290 @@ def segment_phase(dev, seed: int, loop: dict, mods: dict, card: str) -> dict:
     return out
 
 
+# Phase 27: the parquetlog event store (the reference's headline store,
+# read and written by the port's own Parquet codec: the card's machine
+# has no pyarrow).  27a runs phase 12's CLI loop over it; 27b the bulk
+# path of bench.py:store_bench.  Both are cut for the phase's budget
+# (PERF.md §4).
+PQ_APP, PQ_BULK_APP = "chippq", "chipbulk"
+PQ_EVENTS = 100_000             # 27a: phase 12's first (phase 14's cut)
+PQ_BULK_EVENTS = 1_000_000      # 27b: bench.py's 25,000,000, cut for time
+PQ_LIMIT_S = 60.0
+
+
+def dir_bytes(path: str) -> int:
+    return sum(p.stat().st_size for p in Path(path).rglob("*")
+               if p.is_file())
+
+
+def parquet_phase(dev, seed: int, bulk, mods: dict, card: str) -> dict:
+    """Phase 27: 27a app new, then import (a subprocess) → export, train
+    (in-process, through the CLI's main) → deploy (a subprocess) → 64
+    /queries.json with EVENTDATA on PARQUET; 27b ``insert_columnar`` of
+    ``bulk`` (users, items, ratings: the first PQ_BULK_EVENTS of phase
+    6's ML-25M generator), then the recommendation template's own read
+    back to the COO.  Returns the launches of K1, K2 and K3 and the
+    phase's numbers."""
+    import datetime as dt
+    import logging
+
+    import numpy as np
+    import torch
+
+    fg, rs, pio = mods["fg"], mods["rs"], mods["pio"]
+    from predictionio_tpu_torch.data.storage import get_storage, \
+        reset_storage
+    from predictionio_tpu_torch.data.storage.parquet_events import (
+        ParquetEvents)
+    from predictionio_tpu_torch.data.json_support import parse_iso8601
+    from predictionio_tpu_torch.templates.recommendation.engine import (
+        DataSourceParams, RecommendationDataSource)
+    from predictionio_tpu_torch.workflow.core_workflow import load_models
+
+    logging.basicConfig(level=logging.WARNING)
+    work = tempfile.mkdtemp(prefix="pio_chip_pq_")
+    home = os.path.join(work, "home")
+    env = cli_env(home)
+    env.values["PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE"] = "PARQUET"
+    registry = mods["get_registry"]()
+
+    def read_ms() -> float:
+        h = registry.get("pio_train_phase_ms")
+        return 0.0 if h is None else h.sum(phase="train.datasource")
+
+    out = {"part_s": {}}
+    deploy = None
+    phase_t0 = time.perf_counter()
+    env.__enter__()
+    reset_storage()
+    try:
+        # -- 27a: the CLI loop over the store ------------------------------
+        users, items, stars, times = (
+            a[:PQ_EVENTS] for a in ml1m_events(seed))
+        n_events = len(users)
+        events_path = os.path.join(work, "events.jsonl")
+        write_jsonl(events_path, users, items, stars, times)
+        if pio(["app", "new", PQ_APP]) != 0:
+            die("phase 27: pio app new failed")
+        out["setup_s"] = time.perf_counter() - phase_t0
+        t0 = time.perf_counter()
+        said = run_cli("import", "--appid", "1", "--input", events_path,
+                       phase="phase 27")
+        out["import_s"] = time.perf_counter() - t0
+        if f"Imported {n_events} events" not in said:
+            die(f"phase 27: import said {said!r}")
+        events = get_storage().get_events()
+        if not isinstance(events, ParquetEvents):
+            die(f"phase 27: EVENTDATA is {type(events).__name__}")
+        out["store_bytes"] = dir_bytes(events._dir(1, None))
+        out["parts"] = len(list(events._dir(1, None).glob("part-*")))
+        export_path = os.path.join(work, "export.jsonl")
+        t0 = time.perf_counter()
+        if pio(["export", "--appid", "1", "--output", export_path]) != 0:
+            die("phase 27: pio export failed")
+        out["export_s"] = time.perf_counter() - t0
+        es_export_matches(export_path, (users, items, stars, times),
+                          n_events, phase="phase 27")
+
+        spec = json.loads((Path(__file__).resolve().parent / "examples" /
+                           "recommendation" / "engine.json").read_text())
+        spec["engineFactory"] = CLI_FACTORY
+        spec["datasource"]["params"]["appName"] = PQ_APP
+        spec["algorithms"][0]["params"].update(
+            rank=RANK, numIterations=TRAIN_ITERS, seed=seed)
+        engine_json = os.path.join(work, "engine.json")
+        Path(engine_json).write_text(json.dumps(spec))
+        read_before = read_ms()
+        fg.LAUNCHES = 0                      # main path starts here
+        rs.LU_LAUNCHES = 0
+        t0 = time.perf_counter()
+        if pio(["train", "--engine-json", engine_json]) != 0:
+            die("phase 27: pio train failed")
+        out["train_s"] = time.perf_counter() - t0
+        launches = {"fused_gram": fg.LAUNCHES,
+                    "ridge_solve_lu": rs.LU_LAUNCHES}
+        out["read_ms"] = read_ms() - read_before
+        for name, n in launches.items():
+            if n == 0:
+                die(f"phase 27: pio train never launched {name}")
+        storage = get_storage()
+        eng = mods["engine"]()
+        variant = mods["EngineVariant"].from_file(engine_json)
+        [inst] = storage.get_engine_instances().get_all()
+        if inst.status != "COMPLETED":
+            die(f"phase 27: instance {inst.id} is {inst.status}")
+        ctx = mods["RuntimeContext"](storage=storage, device=dev)
+        [wrapper] = load_models(eng, inst, ctx)
+        # the same events in the parquet scan's own order (file names,
+        # then rows), restamped one second apart in that order so that
+        # the MEMORY store's event-time scan reads them so too
+        t0 = time.perf_counter()
+        scan = events.find_columnar(1, ordered=False)
+        mem = mods["memory_storage"](os.path.join(work, "mem"))
+        app_id = mem.get_apps().insert(mods["App"](id=None, name=PQ_APP))
+        mem.get_events().init(app_id)
+        Event, DataMap = mods["Event"], mods["DataMap"]
+        t_first = parse_iso8601(times[0] + "Z")
+        mem.get_events().insert_batch([
+            Event(event=e, entity_type=et, entity_id=u,
+                  target_entity_type=tt, target_entity_id=i,
+                  properties=DataMap(json.loads(p)),
+                  event_time=t_first + dt.timedelta(seconds=k))
+            for k, (e, et, u, tt, i, p) in enumerate(zip(
+                scan["event"], scan["entity_type"], scan["entity_id"],
+                scan["target_entity_type"], scan["target_entity_id"],
+                scan["properties"]))], app_id)
+        mid = mods["run_train"](eng, variant, mods["RuntimeContext"].create(
+            storage=mem, device=dev))
+        [mw] = load_models(eng, mem.get_engine_instances().get(mid),
+                           mods["RuntimeContext"](storage=mem, device=dev))
+        del mem
+        if list(mw.user_index.keys()) != list(wrapper.user_index.keys()):
+            die("phase 27: the memory train numbered users otherwise than "
+                "the parquet scan's order")
+        out["factor_err"] = factors_by_id_close(
+            wrapper, mw, "phase 27: {} factors, parquetlog train vs memory "
+            "train")
+        out["memory_s"] = time.perf_counter() - t0
+
+        deploy_t0 = time.perf_counter()
+        deploy = deployed(engine_json, os.path.join(work, "deploy.log"),
+                          phase="phase 27")
+        status = json.loads(deploy.get("/"))
+        if not status["device"].startswith(dev.type) or \
+                status["engineInstanceId"] != inst.id:
+            die(f"phase 27: deploy reports {status}")
+        uf, itf = wrapper.host_factors()
+        names = list(wrapper.user_index.keys())
+        rng = np.random.default_rng(seed + 27)
+        asked = [names[j] for j in rng.choice(len(names), CLI_QUERIES,
+                                              replace=False)]
+        k3_before = deploy.launches_now()["fused_topk"]
+        lats, answers = [], []
+        for user in asked:
+            t0 = time.perf_counter()
+            answers.append(post_json(f"{deploy.base}/queries.json",
+                                     {"user": user, "num": 10})[0])
+            lats.append(time.perf_counter() - t0)
+        k3_answers = deploy.launches_now()["fused_topk"] - k3_before
+        items_d = torch.from_numpy(np.ascontiguousarray(itf)).to(dev)
+        qerr = 0.0
+        for user, ans in zip(asked, answers):
+            hits = ans["itemScores"]
+            if len(hits) != 10:
+                die(f"phase 27: the answer for {user} has {len(hits)} items")
+            qerr = max(qerr, check_against_plain(
+                [[h["score"] for h in hits]],
+                [[wrapper.item_index[h["item"]] for h in hits]],
+                torch.from_numpy(uf[[wrapper.user_index[user]]]).to(dev),
+                items_d, 10, None, f"phase 27 /queries.json {user}",
+                mods["ft"], mods["topk_mismatch"]))
+        deploy.stop()
+        out["deploy_s"] = time.perf_counter() - deploy_t0
+        launches["fused_topk"] = deploy.launches["fused_topk"]
+        deploy = None
+        if k3_answers < len(asked):
+            die(f"phase 27: the deploy launched K3 {k3_answers} times for "
+                f"its {len(asked)} answers")
+        out.update(k3_answers=k3_answers, query_err=qerr,
+                   p50_ms=sorted(lats)[len(lats) // 2] * 1e3,
+                   device=status["device"], n_events=n_events)
+        out["part_s"]["a"] = time.perf_counter() - phase_t0
+
+        # -- 27b: the bulk path of bench.py:store_bench ---------------------
+        t0 = time.perf_counter()
+        b_users, b_items, b_ratings = bulk
+        n = len(b_users)
+        user_names = np.array([f"u{j}" for j in range(int(b_users.max())
+                                                      + 1)], dtype=object)
+        item_names = np.array([f"i{j}" for j in range(int(b_items.max())
+                                                      + 1)], dtype=object)
+        bags = np.array(['{"rating": %.1f}' % (k * 0.5)
+                         for k in range(11)], dtype=object)
+        cols = {
+            "event": np.full(n, "rate", dtype=object),
+            "entity_type": np.full(n, "user", dtype=object),
+            "entity_id": user_names[b_users],
+            "target_entity_type": np.full(n, "item", dtype=object),
+            "target_entity_id": item_names[b_items],
+            "properties": bags[(b_ratings * 2).astype(np.int64)],
+            "event_time_us": np.arange(n, dtype=np.int64)
+            + 1_750_000_000_000_000,
+        }
+        out["bulk_build_s"] = time.perf_counter() - t0
+        bulk_id = storage.get_apps().insert(mods["App"](id=None,
+                                                        name=PQ_BULK_APP))
+        events.init(bulk_id)
+        t0 = time.perf_counter()
+        if events.insert_columnar(cols, bulk_id) != n:
+            die("phase 27: insert_columnar stored another count")
+        out["bulk_write_s"] = time.perf_counter() - t0
+        del cols
+        out["bulk_bytes"] = dir_bytes(events._dir(bulk_id, None))
+        ds = RecommendationDataSource(DataSourceParams(appName=PQ_BULK_APP))
+        t0 = time.perf_counter()
+        data = ds.read_training(mods["RuntimeContext"].create(
+            storage=storage, device=dev))
+        out["bulk_scan_s"] = time.perf_counter() - t0
+        if len(data.ratings) != n:
+            die(f"phase 27: the scan gave {len(data.ratings)} ratings of {n}")
+        uk = np.empty(len(data.user_index), np.int64)
+        for key, code in data.user_index.items():
+            uk[code] = int(key[1:])
+        ik = np.empty(len(data.item_index), np.int64)
+        for key, code in data.item_index.items():
+            ik[code] = int(key[1:])
+        got = (uk[data.user_ids], ik[data.item_ids], data.ratings)
+        want = (b_users, b_items, b_ratings)
+        go, wo = np.lexsort(got[::-1]), np.lexsort(want[::-1])
+        if not all(np.array_equal(g[go], w[wo]) for g, w in zip(got, want)):
+            die("phase 27: the scanned COO is not the generated ratings")
+        out["bulk_events"] = n
+        out["part_s"]["b"] = time.perf_counter() - phase_t0 - \
+            out["part_s"]["a"]
+    finally:
+        if deploy is not None:
+            deploy.kill()
+        reset_storage()
+        env.__exit__()
+        shutil.rmtree(work, ignore_errors=True)
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - phase_t0
+    full = ML1M_EVENTS + int(ML1M_USERS * ML1M_BUYER_SHARE) * ML1M_BUYS_EACH
+    log(f"phase 27a parquetlog CLI loop: phase 12's first {n_events} "
+        f"events (cut from {full}), written and app new in "
+        f"{out['setup_s']:.2f} s; pio import "
+        f"(subprocess) {out['import_s']:.2f} s = "
+        f"{n_events / out['import_s']:.0f} events/s into {out['parts']} "
+        f"part files, {out['store_bytes']} bytes; pio export "
+        f"{out['export_s']:.2f} s, equal to the generated events; pio train "
+        f"rank {RANK}, {TRAIN_ITERS} iterations (in-process) "
+        f"{out['train_s']:.2f} s, read {out['read_ms']:.0f} ms; factors "
+        f"equal the memory store's train on the scan's order by entity id "
+        f"(max |err| {out['factor_err']:.3g}; that train and the check "
+        f"{out['memory_s']:.2f} s); deploy on {out['device']} "
+        f"({out['deploy_s']:.2f} s from start to stop): {CLI_QUERIES} "
+        f"/queries.json p50 "
+        f"{out['p50_ms']:.2f} ms, each the plain top-k (max |err| "
+        f"{out['query_err']:.3g}), K3 {out['k3_answers']} launches during "
+        f"them; launches {json.dumps(launches)}; card {card}")
+    log(f"phase 27b parquetlog bulk: phase 6's first {out['bulk_events']} "
+        f"ratings (cut from 25,000,000) built in {out['bulk_build_s']:.2f} "
+        f"s; insert_columnar {out['bulk_write_s']:.2f} s = "
+        f"{out['bulk_events'] / out['bulk_write_s']:.0f} events/s, "
+        f"{out['bulk_bytes']} bytes; the template's read to the COO "
+        f"{out['bulk_scan_s']:.2f} s = "
+        f"{out['bulk_events'] / out['bulk_scan_s']:.0f} events/s, equal to "
+        f"the generated ratings as a multiset; phase 27 in "
+        f"{out['phase_s']:.1f} s (budget {PQ_LIMIT_S:.0f} s; by part "
+        f"{json.dumps({k: round(v, 2) for k, v in out['part_s'].items()})})"
+        f"; card {card}")
+    if out["phase_s"] > PQ_LIMIT_S:
+        log(f"phase 27 over its budget: {out['phase_s']:.1f} s > "
+            f"{PQ_LIMIT_S:.0f} s")
+    return out
+
+
 def post_json(url: str, obj):
     """POST one query; returns (answer, the server's own wall ms)."""
     req = urllib.request.Request(
@@ -9659,6 +9973,8 @@ def main() -> int:
     # phase 23b trains phase 6's ratings again on a mesh
     six = {"ratings": train.pop("ratings"), "model": train["model"],
            "host_prep_s": train["prep"]["host_s"]}
+    # phase 27b bulk-loads the first of them into the parquetlog store
+    bulk = tuple(a[:PQ_BULK_EVENTS].copy() for a in six["ratings"])
     for key in ("inputs", "cfg", "model"):
         del train[key]
     torch.cuda.empty_cache()
@@ -9794,6 +10110,12 @@ def main() -> int:
         shutil.rmtree(sched["work"], ignore_errors=True)
     torch.cuda.empty_cache()
 
+    # -- phase 27: the parquetlog event store (CLI loop, bulk path) -------
+    pqlog = parquet_phase(dev, args.seed, bulk, mods, card)
+    del bulk
+    mark("27")
+    torch.cuda.empty_cache()
+
     # -- report ----------------------------------------------------------
     main_shape = timings[(ML25M_ITEMS, 1, 10)]
     b64 = timings[(ML25M_ITEMS, 64, 10)]   # a full batch of query_batch
@@ -9810,7 +10132,7 @@ def main() -> int:
         + ckpt["launches"]["fused_topk"] + obs["launches"]["fused_topk"]
         + fleet["launches"]["fused_topk"] + remote["launches"]["fused_topk"]
         + mesh["launches"]["fused_topk"] + mesh2["launches"]["fused_topk"]
-        + seg["launches"]["fused_topk"],
+        + seg["launches"]["fused_topk"] + pqlog["launches"]["fused_topk"],
         "max_abs_err": max(max_err, err, err4),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -9846,7 +10168,8 @@ def main() -> int:
             + remote["launches"].get(name, 0)
             + mesh["launches"].get(name, 0)
             + mesh2["launches"].get(name, 0)
-            + gang["launches"].get(name, 0),
+            + gang["launches"].get(name, 0)
+            + pqlog["launches"].get(name, 0),
             "max_abs_err": train_kernel_err[name],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -9911,7 +10234,9 @@ def main() -> int:
         f"{mesh2['launches']['fused_topk']} in phase 24d's two-tower "
         f"`pio deploy --mesh data={MESH_SHARDS}` process, "
         f"{seg['launches']['fused_topk']} in phase 26's deploy of the "
-        f"warm generation read from segments, {dase_topk} "
+        f"warm generation read from segments, "
+        f"{pqlog['launches']['fused_topk']} in phase 27's deploy over the "
+        f"parquetlog store, {dase_topk} "
         f"on the DASE path; training "
         f"kernels per the train run (fused_gram, ridge_solve_lu) + the CLI "
         f"path's train and eval ({loop['launches']['fused_gram']}, "
@@ -9937,7 +10262,9 @@ def main() -> int:
         f"({mesh2['launches']['fused_gram']}, "
         f"{mesh2['launches']['ridge_solve_lu']}), phase 25's gang trains "
         f"(25a and 25d, both processes: {gang['launches']['fused_gram']}, "
-        f"{gang['launches']['ridge_solve_lu']}) and the solver='gj' run "
+        f"{gang['launches']['ridge_solve_lu']}), phase 27's train over "
+        f"the parquetlog store ({pqlog['launches']['fused_gram']}, "
+        f"{pqlog['launches']['ridge_solve_lu']}) and the solver='gj' run "
         f"(ridge_solve_gj); timings of the training kernels are over one "
         f"iteration's calls at the ML-25M shape")
     print(json.dumps({"kernels": kernels}))

@@ -55,17 +55,14 @@ def encode_ids(col: Sequence) -> Tuple[np.ndarray, BiMap]:
     """Id strings → (dense int64 codes, BiMap), the BiMap built from the
     ids present in first-appearance order (``BiMap.string_int``
     semantics).  Raises ``ValueError`` on a null id."""
-    seen: Dict[str, int] = {}
-    codes = np.empty(len(col), dtype=np.int64)
-    for i, key in enumerate(col):
-        if key is None:
-            raise ValueError("encode_ids: id column contains a null — "
-                             "entity ids must be non-null (filter or fill "
-                             "before encoding)")
-        code = seen.get(key)
-        if code is None:
-            code = seen[key] = len(seen)
-        codes[i] = code
+    keys = col.tolist() if isinstance(col, np.ndarray) else list(col)
+    # dict.fromkeys keeps first appearances in order, in one C loop
+    seen = {key: code for code, key in enumerate(dict.fromkeys(keys))}
+    if None in seen:
+        raise ValueError("encode_ids: id column contains a null — "
+                         "entity ids must be non-null (filter or fill "
+                         "before encoding)")
+    codes = np.array([seen[key] for key in keys], dtype=np.int64)
     return codes, BiMap(seen)
 
 
@@ -105,10 +102,11 @@ def numeric_property(table_or_col: Union[_Columns, Sequence], key: str,
                           count=len(col))
     text = np.flatnonzero(is_text)
     if len(text):
-        uniq, inv = np.unique(col[text].astype(str), return_inverse=True)
+        bags = col[text].tolist()
+        uniq = {u: k for k, u in enumerate(dict.fromkeys(bags))}
         vals = np.fromiter((_number(json.loads(u), key, default)
                             for u in uniq), np.float64, count=len(uniq))
-        out[text] = vals[inv]
+        out[text] = vals[np.array([uniq[u] for u in bags], dtype=np.int64)]
     rest = np.flatnonzero(~is_text)
     out[rest] = np.fromiter((_number(col[i], key, default) for i in rest),
                             np.float64, count=len(rest))

@@ -5,11 +5,13 @@ data/.../data/storage/Storage.scala): it reads the config
 (:func:`~predictionio_tpu_torch.config.load_config`), builds one backend
 client a (source, namespace) and hands out typed repositories for the
 three logical stores (METADATA / EVENTDATA / MODELDATA).  Registered
-source types: ``sqlite``, ``localfs``, ``memory`` and ``pioserver``
-(every repository forwarded to a ``pio storageserver`` process,
-:mod:`predictionio_tpu_torch.data.storage.remote`).  The reference's
-``parquetlog`` (it needs ``pyarrow``) is not ported; asking for it
-raises :class:`StorageError`.
+source types: ``sqlite``, ``localfs``, ``memory``, ``parquetlog``
+(events only, in the reference's Parquet part files,
+:mod:`predictionio_tpu_torch.data.storage.parquet_events`) and
+``pioserver`` (every repository forwarded to a ``pio storageserver``
+process, :mod:`predictionio_tpu_torch.data.storage.remote`).  A source
+without a kind of repository raises :class:`StorageError` for it (the
+spill queue and the KV on ``parquetlog``: their callers degrade).
 The events, spill-queue and KV getters pass through the ``PIO_FAULTS``
 seam (:mod:`predictionio_tpu_torch.resilience.faults`), a no-op unless a
 plan is active.
@@ -140,6 +142,21 @@ class _SQLiteBackend(_Backend):
     def close(self): self._client.close()
 
 
+class _ParquetBackend(_Backend):
+    def __init__(self, source, namespace):
+        super().__init__(source, namespace)
+        from predictionio_tpu_torch.data.storage.parquet_events import (
+            ParquetEvents)
+
+        path = source.path
+        if not path:
+            raise StorageError(
+                f"parquetlog source {source.name} needs a PATH property.")
+        self._events = ParquetEvents(path)
+
+    def events(self): return self._events
+
+
 class _LocalFSBackend(_Backend):
     def __init__(self, source, namespace):
         super().__init__(source, namespace)
@@ -216,6 +233,7 @@ class _PioServerBackend(_Backend):
 
 _BACKEND_TYPES: Dict[str, Callable[[StorageSourceConfig, str], _Backend]] = {
     "sqlite": _SQLiteBackend,
+    "parquetlog": _ParquetBackend,
     "localfs": _LocalFSBackend,
     "memory": _MemoryBackend,
     "pioserver": _PioServerBackend,

@@ -617,7 +617,7 @@ def normalize_event_columns(columns: Mapping[str, Sequence]
     for req in ("event", "entity_type", "entity_id"):
         if req not in names:
             raise StorageError(f"insert_columnar: missing column {req!r}")
-        nulls = sum(v is None for v in columns[req])
+        nulls = list(columns[req]).count(None)
         if nulls:
             raise StorageError(
                 f"insert_columnar: column {req!r} has {nulls} null "
@@ -637,8 +637,16 @@ def normalize_event_columns(columns: Mapping[str, Sequence]
     def col(name):
         return list(columns[name]) if name in names else [None] * n
 
-    def as_int(v, default):
-        return default if v is None else int(v)
+    def as_ints(name, defaults):
+        """The column as ints, a null or a missing column by row from
+        ``defaults``."""
+        if name not in names:
+            return list(defaults)
+        values = columns[name]
+        if isinstance(values, np.ndarray) and values.dtype.kind in "iu":
+            return values.astype(np.int64).tolist()     # holds no null
+        return [d if v is None else int(v) for v, d in zip(values,
+                                                             defaults)]
 
     out: Dict[str, List[Any]] = {
         name: col(name) for name in ("event", "entity_type", "entity_id",
@@ -647,10 +655,8 @@ def normalize_event_columns(columns: Mapping[str, Sequence]
     out["properties"] = [
         "{}" if p is None else p if isinstance(p, str)
         else json.dumps(dict(p)) for p in col("properties")]
-    out["creation_time_us"] = [as_int(v, now_us)
-                               for v in col("creation_time_us")]
-    out["event_time_us"] = [as_int(v, ct) for v, ct in zip(
-        col("event_time_us"), out["creation_time_us"])]
+    out["creation_time_us"] = as_ints("creation_time_us", [now_us] * n)
+    out["event_time_us"] = as_ints("event_time_us", out["creation_time_us"])
     return out
 
 

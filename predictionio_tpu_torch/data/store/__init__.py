@@ -22,7 +22,8 @@ from predictionio_tpu_torch.data.event import DataMap, Event, PropertyMap
 from predictionio_tpu_torch.data.storage import Storage, StorageError
 from predictionio_tpu_torch.data.storage.base import EVENT_COLUMNS, epoch_us
 
-__all__ = ["EventStore", "WindowedEventStore"]
+__all__ = ["EventStore", "PEventStore", "LEventStore",
+           "WindowedEventStore"]
 
 
 class EventStore:
@@ -303,3 +304,8 @@ class WindowedEventStore(EventStore):
         return super().aggregate_properties(
             app_name, entity_type, channel_name,
             **self._clamped(kwargs, inject_start=False))
+
+
+# The reference's vocabulary: both stores are views of the one class.
+PEventStore = EventStore
+LEventStore = EventStore

@@ -44,7 +44,7 @@ from http.server import (
     BaseHTTPRequestHandler,
     ThreadingHTTPServer as _ThreadingHTTPServer,
 )
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 from urllib.parse import parse_qs, urlparse
 
 from predictionio_tpu_torch.config import env_bool
@@ -66,6 +66,7 @@ logger = logging.getLogger(__name__)
 __all__ = [
     "ThreadingHTTPServer",
     "BaseHandler",
+    "HandlerResult",
     "REQUEST_ID_HEADER",
     "DEADLINE_HEADER",
     "PROMETHEUS_CTYPE",
@@ -171,6 +172,15 @@ def traces_payload(params: Dict[str, List[str]]) -> Dict[str, Any]:
         limit, request_id=request_id, min_ms=min_ms)}
 
 
+# A handler hook's result: (status, payload) with the content type
+# inferred by payload_bytes, (status, payload, ctype) when the frontend
+# picks its own (the dashboard's HTML pages), or
+# (status, payload, ctype, headers) when it also sets response headers
+# (the profiler artifact's Content-Disposition).
+HandlerResult = Union[Tuple[int, Any], Tuple[int, Any, str],
+                      Tuple[int, Any, str, Dict[str, str]]]
+
+
 class BaseHandler(BaseHTTPRequestHandler):
     """Shared request-handler skeleton; subclasses implement
     :meth:`pio_handle` and route their do_* methods through
@@ -201,7 +211,7 @@ class BaseHandler(BaseHTTPRequestHandler):
 
     def pio_handle(self, method: str, path: str,
                    params: Dict[str, List[str]], body: bytes
-                   ) -> Tuple:
+                   ) -> HandlerResult:
         """Handle one request inside the trace and deadline scope;
         returns (status, payload), (status, body, content_type) or
         (status, body, content_type, headers)."""

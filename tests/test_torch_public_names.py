@@ -2,8 +2,10 @@
 each held against the reference's: ``controller.model_to_bytes`` /
 ``model_from_bytes``, ``EventStore.insert_columnar``,
 ``native.native_available``, ``resilience.faults.active``,
-``ServingScheduler.models`` and ``ALSModel.tree_flatten``
-(``Retriever.vecs``: ``tests/test_torch_sharded_retrieval.py``)."""
+``ServingScheduler.models``, ``ALSModel.tree_flatten``, the
+``PEventStore`` / ``LEventStore`` aliases and ``server.http.
+HandlerResult`` (``Retriever.vecs``:
+``tests/test_torch_sharded_retrieval.py``)."""
 
 import numpy as np
 import pytest
@@ -149,3 +151,36 @@ def test_scheduler_models_as_the_reference(names):
     finally:
         port.close()
         ref.close()
+
+
+@pytest.mark.parametrize("alias", ["PEventStore", "LEventStore"])
+def test_event_store_aliases_as_the_reference(alias):
+    import predictionio_tpu.data.store as ref
+    import predictionio_tpu_torch.data.store as port
+
+    assert getattr(ref, alias) is ref.EventStore
+    assert getattr(port, alias) is port.EventStore
+    assert alias in ref.__all__ and alias in port.__all__
+
+
+def test_handler_result_as_the_reference():
+    """The same Union of tuples once each of the reference's types is
+    mapped to the port's by name (both are typing's, so they are the
+    same objects)."""
+    import typing
+
+    from predictionio_tpu.server import http as ref
+    from predictionio_tpu_torch.server import http as port
+
+    def spelled(tp):
+        args = typing.get_args(tp)
+        if not args:
+            return getattr(tp, "__name__", None) or repr(tp)
+        return (repr(typing.get_origin(tp)),
+                tuple(spelled(a) for a in args))
+
+    assert typing.get_origin(port.HandlerResult) is typing.Union
+    assert spelled(port.HandlerResult) == spelled(ref.HandlerResult)
+    assert typing.get_args(port.HandlerResult) == \
+        typing.get_args(ref.HandlerResult)
+    assert "HandlerResult" in port.__all__

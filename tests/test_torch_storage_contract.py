@@ -1,12 +1,14 @@
-"""The port's storage contract — one spec, its ``memory``, ``sqlite`` and
-``pioserver`` backends — and the ``PIO_STORAGE_*`` registry.
+"""The port's storage contract — one spec, its ``memory``, ``sqlite``,
+``pioserver`` and ``parquetlog`` backends — and the ``PIO_STORAGE_*``
+registry.
 
 Cases of the reference's ``tests/test_storage_contract.py``, each one
-parametrised test over the three backends (``pioserver``: the remote
+parametrised test over the four backends (``pioserver``: the remote
 client's adapters against a :class:`StorageServer` hosting sqlite, so
-every case also runs over the wire), with the port's columnar
-contract (numpy columns; a property bag as a DataMap on memory, as its
-JSON text on sqlite).  Last, the ``pio.db`` file itself: written by the
+every case also runs over the wire; ``parquetlog``: events in Parquet
+part files beside sqlite's metadata, the default config's pairing),
+with the port's columnar contract (numpy columns; a property bag as a
+DataMap on memory, as its JSON text on the others).  Last, the ``pio.db`` file itself: written by the
 reference's ``SQLiteClient`` and read by the port's, and the other way
 round.
 """
@@ -40,7 +42,7 @@ from predictionio_tpu_torch.data.storage.base import (
 
 UTC = dt.timezone.utc
 APP = 7
-BACKENDS = ["memory", "sqlite", "pioserver"]
+BACKENDS = ["memory", "sqlite", "pioserver", "parquetlog"]
 
 
 def ts(s):
@@ -114,6 +116,11 @@ class _Repos:
 
             self.client = SQLiteClient(str(tmp_path / "pio.db"))
             self.events = self.client.events()
+            if kind == "parquetlog":
+                from predictionio_tpu_torch.data.storage.parquet_events \
+                    import ParquetEvents
+
+                self.events = ParquetEvents(str(tmp_path / "events"))
             self.apps = self.client.apps()
             self.keys = self.client.access_keys()
             self.channels = self.client.channels()
@@ -555,24 +562,34 @@ def test_memory_config_is_one_process(tmp_path):
 @pytest.mark.parametrize("source_type", ["parquetlog", "pioserver",
                                          "nosuch"])
 def test_storage_registry_unknown_type(clean_env, monkeypatch, source_type):
-    """An unregistered type names the registered ones; a ``pioserver``
-    source without ``PORTS`` raises the reference's message."""
+    """The default ``PARQUET`` source gives the port's ``ParquetEvents``
+    and a ``parquetlog`` source without ``PATH`` raises the reference's
+    message, as a ``pioserver`` one without ``PORTS`` does; an
+    unregistered type names the registered ones."""
     if source_type == "parquetlog":
+        from predictionio_tpu_torch.data.storage.parquet_events import (
+            ParquetEvents)
+
         # the default config names it, as the reference's does
         monkeypatch.setenv("PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE",
                            "PARQUET")
-        getter = "get_events"
+        events = Storage().get_events()
+        assert isinstance(events, ParquetEvents)
+        assert events.root == clean_env / "storage" / "events"
+        monkeypatch.setenv("PIO_STORAGE_SOURCES_PARQUET_PATH", "")
+        reset_storage()
+        s, getter = Storage(), "get_events"
+        message = "parquetlog source PARQUET needs a PATH property."
     else:
         monkeypatch.setenv("PIO_STORAGE_SOURCES_BOGUS_TYPE", source_type)
         monkeypatch.setenv("PIO_STORAGE_REPOSITORIES_METADATA_SOURCE",
                            "BOGUS")
-        getter = "get_apps"
-    s = Storage()
-    message = (
-        "pioserver source BOGUS needs a PORTS property." if source_type ==
-        "pioserver" else
-        f"Unknown storage source type '{source_type}' "
-        "(registered: ['localfs', 'memory', 'pioserver', 'sqlite'])")
+        s, getter = Storage(), "get_apps"
+        message = (
+            "pioserver source BOGUS needs a PORTS property." if source_type
+            == "pioserver" else
+            f"Unknown storage source type '{source_type}' (registered: "
+            "['localfs', 'memory', 'parquetlog', 'pioserver', 'sqlite'])")
     with pytest.raises(StorageError) as err:
         getattr(s, getter)()
     assert str(err.value) == message
