@@ -431,7 +431,21 @@ cannot be imported, or when any phase fails.  Phases, in order:
    insert_columnar, then the recommendation template's unordered
    projected find_columnar to the COO (write and scan events/s, bytes),
    which must equal the generated ratings as a multiset.  Budget 60 s.
-28. report — one JSON line of per-kernel numbers, the card's name and
+28. gap attribution and high-rank ALS.  28a: phases 17a's and 18a's
+   rates (the device rate by the slope of fused windows of 2 and 52
+   steps over staged batches, the native feeder's own pass, the feeder
+   K=8 train's rate) and that train's step timeline, as the reference
+   bench's `tpu_era` round (`tools.attribute_gap.gap_block`), run
+   through the ported tool; its attribution must be `attribute()`'s and
+   name a dominant component per model.  28b: ALS at rank 320 on a
+   seeded 20,000 x 5,000 COO of 500,000 ratings, 3 iterations, on the
+   reference's library gram route (no K1, K2 or K4 launch) with the
+   Cholesky solve; a tenth of it (2,000 x 500, 50,000 ratings) on the
+   card and the CPU, 64 users' top-10 scores within rtol 1e-3, atol
+   1e-4; rank 256 launches K1; rank 64 with use_pallas=False launches
+   no K1 and trains K1's factors; the library gram beside K1 on one
+   bucket.  Budget 40 s.
+29. report — one JSON line of per-kernel numbers, the card's name and
    power limit, and the final status line.
 After phases 7, 11-14, 16, 17, 19b-e, 20, 26 and 27 a line gives the
 seconds the quality and recall scorecards took in that phase's
@@ -4692,6 +4706,21 @@ TT_CHUNK = 8_192                            # retrieve(chunk=) on the card
 TT_LIMIT_S = 150.0
 
 
+def gap_rates(device_rate, batch: int, **cache_columns) -> dict:
+    """Phase 28a's two other rates, measured where phase 17a's or 18a's
+    rows and initial state live: ``device_rate()`` (the slope method
+    over device-resident batches) and one pass of the native feeder over
+    the same rows without training (``cache_columns`` as the train's
+    cache holds them); and the seconds the two took."""
+    from predictionio_tpu_torch.tools import attribute_gap as ag
+
+    t0 = time.perf_counter()
+    out = {"device": device_rate(),
+           "feeder": ag.feeder_rate(batch, **cache_columns)}
+    out["rates_s"] = time.perf_counter() - t0
+    return out
+
+
 def tt_state_leaves(tt, state):
     """Every tensor of a two-tower state (params, both moments) in one
     fixed order."""
@@ -4711,6 +4740,7 @@ def two_tower_train_runs(dev, seed: int, card: str) -> dict:
     from predictionio_tpu_torch.models import two_tower as tt
     from predictionio_tpu_torch.obs.runtime import get_timeline
     from predictionio_tpu_torch.resilience.supervision import TrainDiverged
+    from predictionio_tpu_torch.tools import attribute_gap as ag
 
     rng = np.random.default_rng(seed + 17)
     users = rng.integers(0, TT_USERS, TT_ROWS)
@@ -4759,6 +4789,10 @@ def two_tower_train_runs(dev, seed: int, card: str) -> dict:
             ms = summ["phase_ms"]
             loop_ms = sum(ms[p] for p in ("host_wait", "h2d", "dispatch",
                                           "device_wait"))
+            if (source, k) == ("feeder", TT_FUSED):
+                # phase 28a's pipeline rate and timeline
+                out["gap"] = {"pipeline": TT_ROWS * TT_EPOCHS / wall,
+                              "timeline": summ}
             out["runs"][f"{source}_k{k}"] = {
                 "wall_s": wall,
                 "examples_per_s": TT_ROWS * TT_EPOCHS / wall,
@@ -4783,6 +4817,11 @@ def two_tower_train_runs(dev, seed: int, card: str) -> dict:
         if not all(bool(torch.isfinite(x).all()) for x in la):
             die(f"phase 17a {source}: non-finite trained state")
     del finals, a, b, la, lb
+    out["gap"].update(gap_rates(
+        lambda: ag.two_tower_device_rate(init, cfg, users, items, dev),
+        TT_BATCH, user_ids=users.astype(np.uint32),
+        item_ids=items.astype(np.uint32),
+        values=np.ones(TT_ROWS, np.float32)))
     # The finite-loss guard: one NaN weight poisons one batch's loss.
     w = np.ones(TT_NAN_ROWS, np.float32)
     w[TT_NAN_ROWS // 2] = np.nan
@@ -5074,6 +5113,7 @@ def dlrm_train_runs(dev, seed: int, card: str) -> dict:
     from predictionio_tpu_torch.models import dlrm as dl
     from predictionio_tpu_torch.obs.runtime import get_timeline
     from predictionio_tpu_torch.resilience.supervision import TrainDiverged
+    from predictionio_tpu_torch.tools import attribute_gap as ag
 
     rng = np.random.default_rng(seed + 18)
     dense = rng.standard_normal((DLRM_ROWS, DLRM_DENSE), np.float32)
@@ -5120,6 +5160,10 @@ def dlrm_train_runs(dev, seed: int, card: str) -> dict:
                     f"{steps}")
             summ = timeline.summary("dlrm")
             ms = summ["phase_ms"]
+            if (source, k) == ("feeder", DLRM_FUSED):
+                # phase 28a's pipeline rate and timeline
+                out["gap"] = {"pipeline": DLRM_ROWS * DLRM_EPOCHS / wall,
+                              "timeline": summ}
             out["runs"][f"{source}_k{k}"] = {
                 "wall_s": wall,
                 "examples_per_s": DLRM_ROWS * DLRM_EPOCHS / wall,
@@ -5142,6 +5186,11 @@ def dlrm_train_runs(dev, seed: int, card: str) -> dict:
         if not all(bool(torch.isfinite(x).all()) for x in la):
             die(f"phase 18a {source}: non-finite trained state")
     del finals, a, b, la, lb
+    out["gap"].update(gap_rates(
+        lambda: ag.dlrm_device_rate(init, cfg, dense, cat, labels, dev),
+        DLRM_BATCH,
+        cats=(cat + cfg.offsets[None, :]).astype(np.uint32),
+        values=labels, extras=dense))
     # The finite-loss guard: one NaN dense feature poisons one batch.
     d = dense[:DLRM_NAN_ROWS].copy()
     d[DLRM_NAN_ROWS // 2, 0] = np.nan
@@ -9731,6 +9780,266 @@ def parquet_phase(dev, seed: int, bulk, mods: dict, card: str) -> dict:
     return out
 
 
+# Phase 28: (a) the pipeline-gap attribution of the deep models from
+# phases 17a and 18a; (b) ALS above K1's ranks, the reference's library
+# gram route.
+PHASE28_LIMIT_S = 40.0
+HR_USERS, HR_ITEMS, HR_RATINGS = 20_000, 5_000, 500_000   # 28b's COO
+HR_RANK, HR_K1_RANK, HR_LOW_RANK = 320, 256, 64
+HR_ITERS = 3
+# 28b's CPU-held train: the same generator cut to a tenth of the users,
+# items and ratings (the same 25 ratings a user and 100 an item).  At
+# the full size the CPU's Cholesky solves of 75,000 systems of 320 take
+# minutes (PERF.md section 4).
+HR_CPU_USERS, HR_CPU_ITEMS, HR_CPU_RATINGS = 2_000, 500, 50_000
+HR_QUERY_USERS, HR_TOP = 64, 10
+HR_RTOL, HR_ATOL = 1e-3, 1e-4    # the scores of 64 users' top-10
+
+
+def gap_phase(tt_gap: dict, dl_gap: dict, card: str) -> dict:
+    """Phase 28a: phase 17a's and 18a's rates and feeder K=8 timelines
+    as the round block of the reference's bench (``gap_block``), fed to
+    the ported tool (its ``main``, text and ``--json``); the tool's
+    attribution must be ``attribute()``'s on the same dict."""
+    import contextlib
+    import io
+
+    from predictionio_tpu_torch.tools import attribute_gap as ag
+
+    t0 = time.perf_counter()
+    measured = {"two_tower": tt_gap, "dlrm": dl_gap}
+    for model, g in measured.items():
+        for key in ("device", "feeder", "pipeline"):
+            v = g.get(key)
+            if not (isinstance(v, (int, float)) and v > 0):
+                die(f"phase 28a {model}: the {key} rate is {v!r}")
+    block = ag.gap_block({m: {k: g[k] for k in ("device", "feeder",
+                                                  "pipeline", "timeline")}
+                          for m, g in measured.items()})
+    want = json.loads(json.dumps(ag.attribute(block)))
+    with tempfile.TemporaryDirectory(prefix="pio_gap_") as d:
+        path = os.path.join(d, "round.json")
+        with open(path, "w") as f:
+            json.dump(block, f)
+        runs = {}
+        for fmt in ((), ("--json",)):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                code = ag.main([path, *fmt])
+            if code != 0:
+                die(f"phase 28a: the tool exited {code}: {buf.getvalue()}")
+            runs[fmt] = buf.getvalue()
+    if json.loads(runs[("--json",)]) != want:
+        die("phase 28a: the tool's attribution is not attribute()'s on "
+            "the same round")
+    era = block["tpu_era"]
+    for model in ag.MODELS:
+        a = want[model]
+        if not a or not a.get("dominant"):
+            die(f"phase 28a {model}: no dominant component")
+        res = a.get("residual") or {}
+        rate = {k: era[f"{model}_{k}"] for k in (
+            "examples_per_sec_per_chip", "feeder_examples_per_sec",
+            "pipeline_examples_per_sec", "pipeline_gap_pct")}
+        log(f"phase 28a {model}: device "
+            f"{rate['examples_per_sec_per_chip']} ex/s (slope of fused "
+            f"windows of {ag.SLOPE_STEPS} steps over staged batches), "
+            f"feeder {rate['feeder_examples_per_sec']} ex/s, pipeline "
+            f"{rate['pipeline_examples_per_sec']} ex/s (feeder, mean "
+            f"K={a['fuse_steps']:.2f}), gap "
+            f"{rate['pipeline_gap_pct']}%; dominant {a['dominant']} "
+            f"{a['dominant_share'] * 100:.1f}% of the step wall (shares "
+            f"{json.dumps(a['phase_share'])}); residual dominant "
+            f"{res.get('dominant')} {json.dumps(res.get('share'))}; attack: "
+            f"{a['attack']}; rates measured in "
+            f"{measured[model]['rates_s']:.2f} s; card {card}")
+    for line in runs[()].splitlines():
+        log(f"phase 28a tool: {line}")
+    return {"block": block, "attribution": want,
+            "phase_s": time.perf_counter() - t0}
+
+
+def hr_coo(seed: int, n_users: int, n_items: int, n: int):
+    """28b's seeded COO: uniform (user, item) pairs, half-star ratings."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 28)
+    return (rng.integers(0, n_users, n), rng.integers(0, n_items, n),
+            (rng.integers(1, 11, n) * 0.5).astype(np.float32))
+
+
+def hr_train(als, coo, dims, dev, **cfg):
+    """(model, seconds) of one ``train_als`` on ``dev``, from prep to
+    the factors on the host."""
+    import torch
+
+    t0 = time.perf_counter()
+    model = als.train_als(*coo, *dims, als.ALSConfig(**cfg), device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def hr_scores_agree(got, want, users, what: str, topk_mismatch) -> float:
+    """Hold ``got``'s top-HR_TOP scores of ``users`` against ``want``'s
+    (ids equal except within a tie at the k-th score); returns the
+    largest score error."""
+    import numpy as np
+
+    out = []
+    for m in (got, want):
+        s = m.user_factors[users] @ m.item_factors.T
+        i = np.argsort(-s, axis=1, kind="stable")[:, :HR_TOP + 1]
+        out.append((np.take_along_axis(s, i, 1), i))
+    (gs, gi), (ws, wi) = out
+    why = topk_mismatch(gs[:, :HR_TOP], gi[:, :HR_TOP], ws[:, :HR_TOP],
+                        wi[:, :HR_TOP], ws[:, HR_TOP], rtol=HR_RTOL,
+                        atol=HR_ATOL)
+    if why is not None:
+        die(f"{what}: {why}")
+    return float(np.abs(gs[:, :HR_TOP] - ws[:, :HR_TOP]).max())
+
+
+def high_rank_phase(dev, seed: int, mods: dict, card: str) -> dict:
+    """Phase 28b: ALS at rank 320 on the card takes the reference's
+    library gram (``fused_gram_vector_xla``'s counterpart) and the
+    Cholesky solve: no K1 or K2 launch, its top-10 scores the CPU's;
+    rank 256 launches K1 (the reference's ``fits_vmem`` boundary); rank
+    64 with ``use_pallas=False`` launches no K1 and trains K1's factors.
+    Times the library gram beside K1 on one bucket."""
+    import numpy as np
+    import torch
+
+    als, fg, rs = mods["als"], mods["fg"], mods["rs"]
+    topk_mismatch = mods["topk_mismatch"]
+    t0 = time.perf_counter()
+    base = dict(iterations=HR_ITERS, reg=0.05, seed=seed)
+    coo = hr_coo(seed, HR_USERS, HR_ITEMS, HR_RATINGS)
+    dims = (HR_USERS, HR_ITEMS)
+    statics = als._resolve_loop_statics(als.ALSConfig(rank=HR_RANK), dev)
+    if (statics["gram_route"], statics["solver"]) != ("library", "cholesky"):
+        die(f"phase 28b: rank {HR_RANK} routes {statics} on the card")
+
+    def launches():
+        return (fg.LAUNCHES, rs.LU_LAUNCHES, rs.GJ_LAUNCHES)
+
+    before = launches()                 # the rank-320 path starts here
+    model, train_s = hr_train(als, coo, dims, dev, rank=HR_RANK, **base)
+    k1, k2, k4 = (a - b for a, b in zip(launches(), before))
+    if (k1, k2, k4) != (0, 0, 0):
+        die(f"phase 28b: the rank-{HR_RANK} train launched K1 {k1}, K2 "
+            f"{k2}, K4 {k4} times; the library route launches none")
+    for f in (model.user_factors, model.item_factors):
+        if not np.isfinite(f).all():
+            die(f"phase 28b: non-finite rank-{HR_RANK} factors")
+    # ms a sweep: a one-iteration train's wall is the fixed part
+    one, one_s = hr_train(als, coo, dims, dev, rank=HR_RANK,
+                          **dict(base, iterations=1))
+    ms_iter = (train_s - one_s) / (HR_ITERS - 1) * 1e3
+    del one
+    # the same train, cut to a tenth, on the card and on the CPU
+    small = hr_coo(seed, HR_CPU_USERS, HR_CPU_ITEMS, HR_CPU_RATINGS)
+    sdims = (HR_CPU_USERS, HR_CPU_ITEMS)
+    card_small, _ = hr_train(als, small, sdims, dev, rank=HR_RANK, **base)
+    cpu_small, cpu_s = hr_train(als, small, sdims, torch.device("cpu"),
+                                rank=HR_RANK, **base)
+    rng = np.random.default_rng(seed + 280)
+    asked = rng.choice(HR_CPU_USERS, HR_QUERY_USERS, replace=False)
+    err = hr_scores_agree(card_small, cpu_small, asked,
+                          f"phase 28b rank {HR_RANK} card vs CPU",
+                          topk_mismatch)
+    factor_err = max(float(np.abs(card_small.user_factors
+                                  - cpu_small.user_factors).max()),
+                     float(np.abs(card_small.item_factors
+                                  - cpu_small.item_factors).max()))
+    del card_small, cpu_small
+    # rank 256: K1 takes it
+    before = launches()
+    _, k1_s = hr_train(als, coo, dims, dev, rank=HR_K1_RANK, **base)
+    k1_256 = fg.LAUNCHES - before[0]
+    if k1_256 == 0:
+        die(f"phase 28b: the rank-{HR_K1_RANK} train launched no K1")
+    # rank 64: use_pallas=False against the kernel train
+    before = launches()
+    kern, _ = hr_train(als, coo, dims, dev, rank=HR_LOW_RANK, **base)
+    k1_64, k2_64 = fg.LAUNCHES - before[0], rs.LU_LAUNCHES - before[1]
+    before = launches()
+    lib64, _ = hr_train(als, coo, dims, dev, rank=HR_LOW_RANK,
+                        use_pallas=False, **base)
+    k1_lib, k2_lib = fg.LAUNCHES - before[0], rs.LU_LAUNCHES - before[1]
+    if k1_64 == 0 or k1_lib != 0 or k2_lib == 0:
+        die(f"phase 28b rank {HR_LOW_RANK}: K1 launched {k1_64} times by "
+            f"default and {k1_lib} with use_pallas=False (K2 {k2_lib})")
+    err64 = max(assert_close(
+        torch.from_numpy(getattr(lib64, f)),
+        torch.from_numpy(getattr(kern, f)), TRAIN_RTOL, TRAIN_ATOL,
+        f"phase 28b rank {HR_LOW_RANK} {f}: use_pallas=False vs K1")
+        for f in ("user_factors", "item_factors"))
+    del kern, lib64
+    # one bucket's gram: K1 against the library route at rank 64 (K1's
+    # tolerance), then both timed at rank 256
+    inputs = als.prepare_als_inputs(*coo, *dims,
+                                    als.ALSConfig(rank=HR_K1_RANK, **base),
+                                    device=dev)
+    ch = max((c for c in inputs.user_buckets if c.kind == "plain"),
+             key=lambda c: c.indices.numel())
+    w, c = ch.mask.float(), ch.values * ch.mask.float()
+    r, l = ch.indices.shape
+    gram_err = 0.0
+    for k in (HR_LOW_RANK, HR_K1_RANK):
+        f = inputs.itf0[:, :k].contiguous()
+        a, b = fg.fused_gram_vector(f, ch.indices, w, c)
+        la, lb = fg.fused_gram_vector_library(f, ch.indices, w, c)
+        rows = f.index_select(0, ch.indices.reshape(-1).long()).reshape(
+            r, l, k)
+        abs_a = torch.einsum("blk,bl,blm->bkm", rows.abs(), w, rows.abs())
+        abs_b = torch.einsum("blk,bl->bk", rows.abs(), c.abs())
+        gram_err = max(
+            gram_err,
+            assert_close(a, la, GRAM_RTOL, gram_atol(l, abs_a),
+                         f"phase 28b gram A at rank {k}: K1 vs library"),
+            assert_close(b, lb, GRAM_RTOL, gram_atol(l, abs_b),
+                         f"phase 28b gram b at rank {k}: K1 vs library"))
+        del a, b, la, lb, rows, abs_a, abs_b
+    f256 = inputs.itf0.contiguous()
+    k1_ms = time_single(lambda: fg.fused_gram_vector_cuda(
+        f256, ch.indices, w, c), 5)
+    lib_ms = time_single(lambda: fg.fused_gram_vector_library(
+        f256, ch.indices, w, c), 5)
+    f320 = torch.randn((HR_ITEMS, HR_RANK), device=dev)
+    lib320_ms = time_single(lambda: fg.fused_gram_vector_library(
+        f320, ch.indices, w, c), 5)
+    del inputs, f256, f320
+    torch.cuda.empty_cache()
+    out = {"ms_per_iter": ms_iter, "train_s": train_s, "cpu_s": cpu_s,
+           "score_err": err, "factor_err": factor_err, "k1_256": k1_256,
+           "k1_64": k1_64, "err64": err64, "gram_err": gram_err,
+           "bucket": (r, l), "k1_ms": k1_ms, "lib_ms": lib_ms,
+           "lib320_ms": lib320_ms, "k1_256_s": k1_s,
+           "launches": {"fused_gram": k1_256 + k1_64,
+                        "ridge_solve_lu": k2_64 + k2_lib},
+           "phase_s": time.perf_counter() - t0}
+    log(f"phase 28b ALS rank {HR_RANK}: {HR_USERS}x{HR_ITEMS}, "
+        f"{HR_RATINGS} ratings, {HR_ITERS} iterations explicit on the "
+        f"card in {train_s:.2f} s = {ms_iter:.1f} ms/iter (slope of 3 "
+        f"against 1 iteration), gram route library and Cholesky solve, "
+        f"K1/K2/K4 launches 0/0/0; the same train cut to "
+        f"{HR_CPU_USERS}x{HR_CPU_ITEMS} ({HR_CPU_RATINGS} ratings) on the "
+        f"card and the CPU ({cpu_s:.2f} s): {HR_QUERY_USERS} users' top-"
+        f"{HR_TOP} scores within rtol {HR_RTOL} atol {HR_ATOL} (max |err| "
+        f"{err:.3g}, factors max |diff| {factor_err:.3g}); rank "
+        f"{HR_K1_RANK} launched K1 {k1_256} times ({k1_s:.2f} s); rank "
+        f"{HR_LOW_RANK} K1 {k1_64} times by default and 0 with "
+        f"use_pallas=False (factors within rtol {TRAIN_RTOL} atol "
+        f"{TRAIN_ATOL}: max |err| {err64:.3g}; one bucket's A and b within "
+        f"K1's tolerance at ranks {HR_LOW_RANK} and {HR_K1_RANK}: max |err| "
+        f"{gram_err:.3g}); bucket [{r}, {l}] at rank {HR_K1_RANK}: K1 "
+        f"{k1_ms:.3f} ms, library {lib_ms:.3f} ms (rank {HR_RANK} "
+        f"{lib320_ms:.3f} ms); phase 28b in {out['phase_s']:.1f} s; card "
+        f"{card}")
+    return out
+
+
 def post_json(url: str, obj):
     """POST one query; returns (answer, the server's own wall ms)."""
     req = urllib.request.Request(
@@ -10074,7 +10383,7 @@ def main() -> int:
         tt = two_tower_phase(dev, args.seed, loop, mods, card)
         mark("17")
         torch.cuda.empty_cache()
-        dlrm_phase(dev, args.seed, loop, mods, card)
+        dl = dlrm_phase(dev, args.seed, loop, mods, card)
         torch.cuda.empty_cache()
         # -- phase 20: the waterfall, /ready, the quality canary gate -----
         obs = obs_phase(dev, args.seed, loop, mods, card)
@@ -10114,6 +10423,18 @@ def main() -> int:
     pqlog = parquet_phase(dev, args.seed, bulk, mods, card)
     del bulk
     mark("27")
+    torch.cuda.empty_cache()
+
+    # -- phase 28: the deep models' gap attribution; ALS above K1's ranks
+    gap = gap_phase(tt["train"]["gap"], dl["train"]["gap"], card)
+    high = high_rank_phase(dev, args.seed, dict(mods, als=als), card)
+    phase28_s = gap["phase_s"] + high["phase_s"]
+    log(f"phase 28: {phase28_s:.1f} s (28a {gap['phase_s']:.1f} s, its "
+        f"rates measured in phases 17a and 18a in "
+        f"{tt['train']['gap']['rates_s'] + dl['train']['gap']['rates_s']:.1f}"
+        f" s; 28b {high['phase_s']:.1f} s); card {card}")
+    if phase28_s > PHASE28_LIMIT_S:
+        log(f"phase 28: over its {PHASE28_LIMIT_S:.0f} s budget")
     torch.cuda.empty_cache()
 
     # -- report ----------------------------------------------------------
@@ -10169,7 +10490,8 @@ def main() -> int:
             + mesh["launches"].get(name, 0)
             + mesh2["launches"].get(name, 0)
             + gang["launches"].get(name, 0)
-            + pqlog["launches"].get(name, 0),
+            + pqlog["launches"].get(name, 0)
+            + high["launches"].get(name, 0),
             "max_abs_err": train_kernel_err[name],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -10264,7 +10586,10 @@ def main() -> int:
         f"(25a and 25d, both processes: {gang['launches']['fused_gram']}, "
         f"{gang['launches']['ridge_solve_lu']}), phase 27's train over "
         f"the parquetlog store ({pqlog['launches']['fused_gram']}, "
-        f"{pqlog['launches']['ridge_solve_lu']}) and the solver='gj' run "
+        f"{pqlog['launches']['ridge_solve_lu']}), phase 28b's rank-"
+        f"{HR_K1_RANK} and rank-{HR_LOW_RANK} trains "
+        f"({high['launches']['fused_gram']}, "
+        f"{high['launches']['ridge_solve_lu']}) and the solver='gj' run "
         f"(ridge_solve_gj); timings of the training kernels are over one "
         f"iteration's calls at the ML-25M shape")
     print(json.dumps({"kernels": kernels}))

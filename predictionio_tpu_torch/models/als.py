@@ -12,7 +12,9 @@ template calls them).  One training run:
   blocks as int32;
 - per side and bucket, the per-row normal equations
   ``A_u = Σ_i w_ui · y_i y_iᵀ``, ``b_u = Σ_i c_ui · y_i`` (kernel K1,
-  which gathers the other side's factor rows itself), then one batched
+  which gathers the other side's factor rows itself; above its rank 256,
+  or with ``use_pallas=False``, the reference's library route: the
+  gather and two ``torch.bmm`` calls), then one batched
   SPD solve per bucket (kernel K2 by default on the card, K4 under
   ``solver="gj"``, Cholesky through ``torch.linalg`` on the CPU);
 - solved rows written back in place into the side's factor matrix;
@@ -124,10 +126,11 @@ class ALSConfig:
     # "auto" = K2 ("lu") on the card when it takes the rank, Cholesky
     # elsewhere; "cholesky" / "gj" (K4) / "lu" force a path.
     solver: str = "auto"
-    # The gram build: kernel K1 on the card, its plain version on the
-    # CPU.  None and True both mean that; False (the plain gram on the
-    # card) is refused there, since the port's plain versions run on CPU
-    # tensors only.
+    # The gram build, chosen as the reference's _bucket_pallas does:
+    # kernel K1 (its plain version on the CPU) where this is not False
+    # and K1 takes the rank (<= 256), else the library route (the
+    # reference's fused_gram_vector_xla: gather, then two float32
+    # contractions).  None and True both mean K1 where it fits.
     use_pallas: Optional[bool] = None
     # Device-memory guard: a bucket whose [rows, L, K] gathered block
     # would exceed this many floats is solved in row chunks.
@@ -211,11 +214,13 @@ def _resolve_gram_dtype(gram_dtype: str) -> str:
 
 def _gram_pieces(indices: torch.Tensor, values: torch.Tensor,
                  mask: torch.Tensor, factors: torch.Tensor, alpha: float,
-                 implicit: bool
+                 implicit: bool, gram_route: str
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-row normal-equation pieces: A [R,K,K], b [R,K], degree [R].
-    ``factors`` are the other side's, already in the gram dtype; K1 on
-    the card, its plain version on the CPU."""
+    ``factors`` are the other side's, already in the gram dtype;
+    ``gram_route`` names the route (:func:`_resolve_loop_statics`): "k1"
+    is K1 on the card and its plain version on the CPU, "library" the
+    gather and two ``torch.bmm`` calls."""
     m = mask.float()
     if implicit:
         # Hu-Koren-Volinsky per MLlib: c = 1 + α·|r|, p = 1(r>0).
@@ -225,7 +230,11 @@ def _gram_pieces(indices: torch.Tensor, values: torch.Tensor,
     else:
         w = m
         cvec = values * m
-    a, b = fg.fused_gram_vector(factors, indices, w, cvec)
+    # Looked up at the call, so a caller that swaps a route on the
+    # module (a counting wrapper, the plain versions) reaches the sweep.
+    route = fg.fused_gram_vector if gram_route == "k1" \
+        else fg.fused_gram_vector_library
+    a, b = route(factors, indices, w, cvec)
     return a, b, m.sum(dim=1)
 
 
@@ -241,10 +250,11 @@ def _ridge(a: torch.Tensor, b: torch.Tensor, reg_vec: torch.Tensor,
 
 
 def _solve_bucket(indices, values, mask, factors, yty, reg: float,
-                  alpha: float, implicit: bool, solver: str) -> torch.Tensor:
+                  alpha: float, implicit: bool, solver: str, gram_route: str
+                  ) -> torch.Tensor:
     """One padded block of normal equations + batched solves → [R, K]."""
     a, b, degree = _gram_pieces(indices, values, mask, factors, alpha,
-                                implicit)
+                                implicit, gram_route)
     if implicit:
         a += yty
     return _ridge(a, b, reg * degree.clamp_min(1.0), solver)  # ALS-WR: λ·n_u
@@ -293,7 +303,7 @@ class _Chunk:
 
 def _merged_solve(ch: _Chunk, dst: torch.Tensor, src: torch.Tensor,
                   yty: Optional[torch.Tensor], reg: float, alpha: float,
-                  implicit: bool, solver: str) -> None:
+                  implicit: bool, solver: str, gram_route: str) -> None:
     """Split-bucket step: partial rows → segment-summed normal equations
     → one solve per entity.  The sums are ``index_add_`` under
     :func:`~predictionio_tpu_torch.ops.embedding.deterministic`: on the
@@ -301,7 +311,7 @@ def _merged_solve(ch: _Chunk, dst: torch.Tensor, src: torch.Tensor,
     partial rows in row order, so a sweep's bits are the same from run
     to run and a resumed train equals an uninterrupted one."""
     a, b, deg = _gram_pieces(ch.indices, ch.values, ch.mask, src, alpha,
-                             implicit)
+                             implicit, gram_route)
     n, k = ch.n_seg, a.shape[-1]
     seg = ch.seg_ids
     with deterministic():
@@ -980,24 +990,23 @@ def _supervised_loop(inputs: ALSInputs, config: ALSConfig, sweeps,
 
 
 def _resolve_loop_statics(config: ALSConfig, device: torch.device) -> dict:
-    """Route choices, made once before the loop: which solver runs and
-    the gram dtype.  The gram build has one route, K1's dispatcher (the
-    kernel on the card, its plain version on the CPU), so on the card a
-    rank K1 does not take, or ``use_pallas=False``, is refused here.
-    ``solver="auto"`` takes K2 on the card where it takes the rank and
-    the Cholesky solve elsewhere, as the reference does above
-    ``gj_fits_vmem``; a kernel solver asked for by name on the card must
-    take the rank."""
+    """Route choices, made once before the loop: the gram route, the
+    solver and the gram dtype.
+
+    The gram route is the reference's ``_bucket_pallas`` choice, from
+    the rank and ``use_pallas`` alone: "k1" (K1's dispatcher: the kernel
+    on the card, which launches or raises, and its plain version on the
+    CPU) where ``use_pallas`` is not False and K1 takes the rank (the
+    reference's ``fits_vmem``, ``k <= 256``), else "library" (the
+    reference's ``fused_gram_vector_xla``: no kernel runs there in
+    either package).  ``solver="auto"`` takes K2 on the card where it
+    takes the rank and the Cholesky solve elsewhere, as the reference
+    does above ``gj_fits_vmem``; a kernel solver asked for by name on the
+    card must take the rank."""
     k = config.rank
     on_card = device.type == "cuda"
-    if on_card and config.use_pallas is False:
-        raise ValueError("use_pallas=False asks for the plain gram on the "
-                         "card; the port runs plain versions on CPU "
-                         "tensors only (train with device='cpu')")
-    if on_card and not fg.supports(k):
-        raise NotImplementedError(
-            f"the fused gram kernel takes ranks 1..{fg.MAX_RANK} "
-            f"(got rank {k}); larger ranks are not ported to the card")
+    gram_route = ("k1" if config.use_pallas is not False
+                  and fg.supports(k) else "library")
     solver = config.solver
     if solver == "auto":
         solver = "lu" if on_card and rs.supports(k) else "cholesky"
@@ -1008,13 +1017,14 @@ def _resolve_loop_statics(config: ALSConfig, device: torch.device) -> dict:
         raise NotImplementedError(
             f"solver {solver!r}: the ridge-solve kernels take ranks "
             f"1..{rs.MAX_RANK} (got rank {k}); use solver='cholesky'")
-    return dict(gram_dtype=_resolve_gram_dtype(config.gram_dtype),
+    return dict(gram_route=gram_route,
+                gram_dtype=_resolve_gram_dtype(config.gram_dtype),
                 solver=solver, implicit=config.implicit)
 
 
 def _side(chunks: List[_Chunk], dst: torch.Tensor, src: torch.Tensor,
-          reg: float, alpha: float, *, gram_dtype: str, solver: str,
-          implicit: bool) -> torch.Tensor:
+          reg: float, alpha: float, *, gram_route: str, gram_dtype: str,
+          solver: str, implicit: bool) -> torch.Tensor:
     """Solve every bucket of one side against the other side's factors
     ``src``, writing into ``dst`` in place."""
     # Hoisted per side: YᵀY and the gram-dtype copy of src are the same
@@ -1023,10 +1033,12 @@ def _side(chunks: List[_Chunk], dst: torch.Tensor, src: torch.Tensor,
     src_g = src.to(_GRAM_DTYPES[gram_dtype])
     for ch in chunks:
         if ch.kind == "merged":
-            _merged_solve(ch, dst, src_g, yty, reg, alpha, implicit, solver)
+            _merged_solve(ch, dst, src_g, yty, reg, alpha, implicit, solver,
+                          gram_route)
         else:
             solved = _solve_bucket(ch.indices, ch.values, ch.mask, src_g,
-                                   yty, reg, alpha, implicit, solver)
+                                   yty, reg, alpha, implicit, solver,
+                                   gram_route)
             _scatter_rows(dst, ch.keep, ch.targets, solved)
     return dst
 
@@ -1139,7 +1151,8 @@ def _land(dst: ShardedTensor, mc: _MeshChunk,
 
 def _mesh_side(chunks: List[_MeshChunk], dst: ShardedTensor,
                src: ShardedTensor, reg: float, alpha: float, *,
-               gram_dtype: str, solver: str, implicit: bool) -> None:
+               gram_route: str, gram_dtype: str, solver: str,
+               implicit: bool) -> None:
     """One side's sweep on a mesh: every block's shards solve their own
     rows against ``src`` on their own devices (K1, K2 on the card) and
     write into ``dst`` in place.  A merged (split) block's per-shard
@@ -1169,10 +1182,10 @@ def _mesh_side(chunks: List[_MeshChunk], dst: ShardedTensor,
             if mc.kind == "plain":
                 solved_at[s] = _solve_bucket(ch.indices, ch.values, ch.mask,
                                              bsrc, y, reg, alpha, implicit,
-                                             solver)
+                                             solver, gram_route)
                 continue
             a, b, deg = _gram_pieces(ch.indices, ch.values, ch.mask, bsrc,
-                                     alpha, implicit)
+                                     alpha, implicit, gram_route)
             n, k = ch.n_seg, a.shape[-1]
             with deterministic():
                 pieces.append((

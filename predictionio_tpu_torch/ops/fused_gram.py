@@ -18,6 +18,14 @@ and the indices and gather themselves.  Three functions:
 - :func:`fused_gram_vector` — the dispatcher: CPU tensors take the
   reference, CUDA tensors take the kernel or raise.  There is no fallback.
 
+A fourth, :func:`fused_gram_vector_library`, is not K1: it is the
+reference's other route, ``fused_gram_vector_xla``, which the reference
+trains through where it runs no kernel (a rank above ``fits_vmem``'s 256,
+or ``use_pallas=False``): the gather, then the two float32 contractions
+as library calls, on whatever device the tensors lie.  ALS chooses it by
+rank and ``use_pallas`` alone (``models.als._resolve_loop_statics``),
+never because K1 failed to build or launch.
+
 ``LAUNCHES`` counts kernel launches (one per :func:`fused_gram_vector_cuda`
 call that launches), so a run can show its training sweep went through
 the kernel.
@@ -44,7 +52,8 @@ import torch
 from predictionio_tpu_torch.ops import _build
 
 __all__ = ["fused_gram_vector", "fused_gram_vector_cuda",
-           "fused_gram_vector_reference", "gather_gram", "gather_gram_cuda",
+           "fused_gram_vector_library", "fused_gram_vector_reference",
+           "gather_gram", "gather_gram_cuda",
            "gather_gram_reference", "supports", "MAX_RANK", "LAUNCHES",
            "GATHER_GRAM_LAUNCHES"]
 
@@ -70,6 +79,22 @@ def fused_gram_vector_reference(factors: torch.Tensor, indices: torch.Tensor,
     f = factors.index_select(0, indices.reshape(-1)).reshape(r, l, -1).float()
     a = torch.einsum("blk,bl,blm->bkm", f, w.float(), f)
     b = torch.einsum("blk,bl->bk", f, c.float())
+    return a, b
+
+
+def fused_gram_vector_library(factors: torch.Tensor, indices: torch.Tensor,
+                              w: torch.Tensor, c: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``fused_gram_vector_xla`` route: gather
+    ``factors[indices]`` → [R, L, K] float32, then ``A = (f·w)ᵀ f`` and
+    ``b = fᵀ c`` as two float32 ``torch.bmm`` calls, on the tensors' own
+    device.  Any rank; launches no kernel of the port and counts
+    nothing."""
+    r, l = indices.shape
+    f = factors.index_select(0, indices.reshape(-1)).reshape(r, l, -1).float()
+    ft = f.transpose(1, 2)
+    a = torch.bmm(ft * w.float().unsqueeze(1), f)
+    b = torch.bmm(ft, c.float().unsqueeze(2)).squeeze(2)
     return a, b
 
 

@@ -117,29 +117,36 @@ def test_route_choices():
     cuda = torch.device("cuda")   # a device object; nothing launches
     statics = port_als._resolve_loop_statics
     assert statics(port_als.ALSConfig(rank=64), CPU) == dict(
-        gram_dtype="float32", solver="cholesky", implicit=False)
+        gram_route="k1", gram_dtype="float32", solver="cholesky", implicit=False)
     assert statics(port_als.ALSConfig(rank=64), cuda) == dict(
-        gram_dtype="float32", solver="lu", implicit=False)
+        gram_route="k1", gram_dtype="float32", solver="lu", implicit=False)
     # K1 takes rank 256 (A in 2 x 2 tiles); the solve kernels stop at
     # 128, so "auto" takes the Cholesky solve there, as the reference
     # does above gj_fits_vmem
-    assert statics(port_als.ALSConfig(rank=256), cuda)["solver"] == "cholesky"
+    assert statics(port_als.ALSConfig(rank=256), cuda) == dict(
+        gram_route="k1", gram_dtype="float32", solver="cholesky", implicit=False)
     forced = statics(port_als.ALSConfig(rank=10, solver="gj",
                                         use_pallas=True,
                                         gram_dtype="bfloat16"), cuda)
-    assert forced == dict(gram_dtype="bfloat16", solver="gj", implicit=False)
-    # the CPU takes the plain versions whatever the rank or the flag
+    assert forced == dict(gram_route="k1", gram_dtype="bfloat16", solver="gj",
+                          implicit=False)
+    # above K1's ranks, or with use_pallas=False, the library route on
+    # either device, as the reference's _bucket_pallas chooses
     assert statics(port_als.ALSConfig(rank=300, use_pallas=False),
-                   CPU)["solver"] == "cholesky"
-    # on the card: no quiet plain route
+                   CPU) == dict(gram_route="library", gram_dtype="float32",
+                                solver="cholesky", implicit=False)
     for cfg in (port_als.ALSConfig(rank=257),
                 port_als.ALSConfig(rank=300, use_pallas=True)):
-        with pytest.raises(NotImplementedError, match="fused gram"):
-            statics(cfg, cuda)
+        assert statics(cfg, cuda) == dict(
+            gram_route="library", gram_dtype="float32", solver="cholesky",
+            implicit=False)
+    assert statics(port_als.ALSConfig(rank=64, use_pallas=False),
+                   cuda) == dict(gram_route="library", gram_dtype="float32",
+                                 solver="lu", implicit=False)
     with pytest.raises(NotImplementedError, match="ridge-solve"):
         statics(port_als.ALSConfig(rank=200, solver="lu"), cuda)
-    with pytest.raises(ValueError, match="use_pallas=False"):
-        statics(port_als.ALSConfig(rank=64, use_pallas=False), cuda)
+    with pytest.raises(NotImplementedError, match="ridge-solve"):
+        statics(port_als.ALSConfig(rank=300, solver="gj"), cuda)
     with pytest.raises(ValueError, match="solver"):
         statics(port_als.ALSConfig(solver="qr"), CPU)
     with pytest.raises(ValueError, match="gram_dtype"):

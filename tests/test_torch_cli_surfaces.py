@@ -52,28 +52,34 @@ def _cli_main(pkg):
 
 class _Proc:
     """``python -m <package>.cli <argv>`` in a subprocess, until its
-    first stdout line matches ``pattern``."""
+    first stdout line matches ``pattern``.  Its stderr goes to the file
+    ``log``, never to a pipe nobody reads, so the process cannot block
+    on it, and :meth:`tail` shows it when a step fails."""
 
-    def __init__(self, pkg, argv, pattern, env):
+    def __init__(self, pkg, argv, pattern, env, log):
+        self.log = Path(log)
+        self._err = open(self.log, "w")
         self.proc = subprocess.Popen(
             [sys.executable, "-m", f"{PKG[pkg]}.cli", *argv], cwd=ROOT,
             env={**env, "PYTHONPATH": str(ROOT), "PYTHONUNBUFFERED": "1"},
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            stdout=subprocess.PIPE, stderr=self._err, text=True)
         ready, _, _ = select.select([self.proc.stdout], [], [], TIMEOUT_S)
         line = self.proc.stdout.readline() if ready else ""
         self.match = re.search(pattern, line)
         if not self.match:
-            if self.proc.poll() is None:
-                self.proc.kill()
-            err = self.proc.communicate(timeout=30)[1]
-            raise AssertionError((line, err[-4000:]))
+            self.close()
+            raise AssertionError((line, self.tail()))
+
+    def tail(self) -> str:
+        return f"--- {self.log.name} ---\n" + self.log.read_text(
+            errors="replace")[-4000:]
 
     def close(self):
         if self.proc.poll() is None:
             self.proc.kill()
             self.proc.wait(timeout=30)
         self.proc.stdout.close()
-        self.proc.stderr.close()
+        self._err.close()
 
 
 def _post(base, path, obj):
@@ -111,10 +117,22 @@ def _remote_loop(pkg, tmp_path, monkeypatch, capsys):
     (work / "server_home").mkdir(parents=True)
     (work / "client_home").mkdir()
     _clean_env(monkeypatch, work / "server_home")
+    step = ["storageserver"]     # the step under way, named if it fails
+    procs = []
+    try:
+        return _remote_steps(pkg, work, monkeypatch, capsys, step, procs)
+    except Exception as e:
+        raise AssertionError(
+            "\n".join([f"{pkg} loop, step {step[0]}: {e!r}"]
+                      + [p.tail() for p in procs])) from e
+
+
+def _remote_steps(pkg, work, monkeypatch, capsys, step, procs):
     server = _Proc(pkg, ["storageserver", "--ip", "127.0.0.1", "--port",
                          "0", "--secret", SECRET],
                    r"Storage server listening on 127\.0\.0\.1:(\d+) ",
-                   dict(os.environ))
+                   dict(os.environ), work / "storageserver.log")
+    procs.append(server)
     try:
         assert server.proc.stdout.readline().startswith(
             "Clients: PIO_STORAGE_SOURCES_REMOTE_TYPE=pioserver "
@@ -135,25 +153,33 @@ def _remote_loop(pkg, tmp_path, monkeypatch, capsys):
                      ["import", "--appid", "1", "--input",
                       str(_write_events(work / "ev.jsonl"))],
                      ["train", "--engine-json", str(ej), *device]):
+            step[0] = argv[0]
             assert main(argv) == 0, argv
+        step[0] = "the instance row"
         _complete_the_row(pkg)
+        step[0] = "status"
         capsys.readouterr()
         assert main(["status"]) == 0
         status = capsys.readouterr().out
+        step[0] = "deploy"
         deploy = _Proc(pkg, ["deploy", "--engine-json", str(ej), "--ip",
                              "127.0.0.1", "--port", "0", *device],
                        r"Engine Server listening on 127\.0\.0\.1:(\d+) ",
-                       dict(os.environ))
+                       dict(os.environ), work / "deploy.log")
+        procs.append(deploy)
         try:
             base = f"http://127.0.0.1:{deploy.match.group(1)}"
+            step[0] = "queries"
             answers = {u: _post(base, "/queries.json", {"user": u, "num": 6})
                        for u in [f"u{n}" for n in range(20)] + ["ghost"]}
+            step[0] = "stop"
             assert _post(base, "/stop", {}) == {"status": "stopping"}
             assert deploy.proc.wait(timeout=TIMEOUT_S) == 0
         finally:
             deploy.close()
     finally:
         server.close()
+    step[0] = "the client's home"
     assert not (work / "client_home" / "storage").exists()
     return answers, status
 

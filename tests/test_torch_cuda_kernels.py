@@ -8,6 +8,8 @@ package, so it also runs on a machine that has only PyTorch:
         tests/test_torch_cuda_kernels.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -427,10 +429,21 @@ def test_training_on_the_card_launches_k1_k2_and_matches_plain(cuda_dev):
     got = port_als.train_als(users, items, ratings, n_users, n_items, cfg,
                              device=cuda_dev)
     assert fg.LAUNCHES > before[0] and rs.LU_LAUNCHES > before[1]
-    with pytest.raises(ValueError, match="use_pallas=False"):
-        port_als.train_als(users, items, ratings, n_users, n_items,
-                           port_als.ALSConfig(rank=16, use_pallas=False),
-                           device=cuda_dev)
+    # use_pallas=False takes the library gram, as the reference's
+    # _bucket_pallas does: no K1 launch, the same factors within the
+    # smoke's kernel-vs-plain training tolerance (chip_smoke.py
+    # TRAIN_RTOL / TRAIN_ATOL: K1 and torch.bmm sum in another order, and
+    # reg 0.01 carries the difference through two iterations; 1.9e-4 was
+    # the largest gap measured on an H100)
+    before = fg.LAUNCHES
+    library = port_als.train_als(
+        users, items, ratings, n_users, n_items,
+        dataclasses.replace(cfg, use_pallas=False), device=cuda_dev)
+    assert fg.LAUNCHES == before
+    np.testing.assert_allclose(library.user_factors, got.user_factors,
+                               rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(library.item_factors, got.item_factors,
+                               rtol=1e-3, atol=1e-3)
     # the plain versions run on the CPU (and Cholesky solves there)
     plain = port_als.train_als(users, items, ratings, n_users, n_items, cfg,
                                device="cpu")
@@ -438,6 +451,31 @@ def test_training_on_the_card_launches_k1_k2_and_matches_plain(cuda_dev):
                                rtol=1e-3, atol=1e-4)
     np.testing.assert_allclose(got.item_factors, plain.item_factors,
                                rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_a_k1_that_fails_to_load_raises_and_takes_no_library_route(
+        cuda_dev, monkeypatch):
+    """The library gram is chosen by rank and ``use_pallas`` alone: at a
+    rank K1 takes, a K1 library that does not load ends the train."""
+    calls = []
+    real = fg.fused_gram_vector_library
+    monkeypatch.setattr(fg, "fused_gram_vector_library",
+                        lambda *a: calls.append(1) or real(*a))
+
+    def broken():
+        raise RuntimeError("fused_gram: the library did not build")
+
+    monkeypatch.setattr(fg, "_lib", broken)
+    rng = np.random.default_rng(3)
+    users, items = rng.integers(0, 200, 4000), rng.integers(0, 100, 4000)
+    ratings = (rng.integers(1, 11, 4000) * 0.5).astype(np.float32)
+    for rank in (16, 256):
+        with pytest.raises(RuntimeError, match="did not build"):
+            port_als.train_als(users, items, ratings, 200, 100,
+                               port_als.ALSConfig(rank=rank, iterations=1),
+                               device=cuda_dev)
+    assert calls == []
 
 
 def _pq_inputs(b, s, n, seed, dev):
