@@ -23,10 +23,12 @@ cannot be imported, or when any phase fails.  Phases, in order:
    Cholesky with the system in registers to rank 64, the shared-memory
    LU above) and Gauss-Jordan solve (K4: in registers to rank 64, one
    thread a system to rank 12, in shared memory above), against their
-   plain versions and a float64 solve over a grid of shapes (K2 with
-   exactly symmetric A; K4 at every design edge, the design the library
-   reports checked, and on non-symmetric, diagonally dominant A), then
-   timed as in phase 2 at representative shapes, K2 beside the
+   plain versions and a float64 solve over a grid of shapes (K1 to rank
+   256 in float32 and bfloat16, A exactly symmetric and equal to T1's at
+   every rank; K2 with exactly symmetric A; K4 at every design edge, the
+   design the library reports checked, and on non-symmetric, diagonally
+   dominant A), then timed as in phase 2 at representative shapes (K1
+   also at ranks 136, 192 and 256 beside torch.bmm), K2 beside the
    shared-memory LU kernel it replaced.
 4. serve   — the ALS recommendation template at the MovieLens-25M shape
    (162,541 users x 59,047 items, rank 64, seeded random factors) carried
@@ -442,9 +444,10 @@ cannot be imported, or when any phase fails.  Phases, in order:
    reference's library gram route (no K1, K2 or K4 launch) with the
    Cholesky solve; a tenth of it (2,000 x 500, 50,000 ratings) on the
    card and the CPU, 64 users' top-10 scores within rtol 1e-3, atol
-   1e-4; rank 256 launches K1; rank 64 with use_pallas=False launches
-   no K1 and trains K1's factors; the library gram beside K1 on one
-   bucket.  Budget 40 s.
+   1e-4; rank 256 launches K1, its ms/iter, and its factors within rtol
+   1e-3, atol 1e-3 of the same train with use_pallas=False; rank 64
+   with use_pallas=False launches no K1 and trains K1's factors; the
+   library gram beside K1 on one bucket.  Budget 40 s.
 29. report — one JSON line of per-kernel numbers, the card's name and
    power limit, and the final status line.
 After phases 7, 11-14, 16, 17, 19b-e, 20, 26 and 27 a line gives the
@@ -498,12 +501,22 @@ GRAM_RANKS = (10, 17, 63, 64, 65, 100, 127, 128)
 # R large enough that a block holds several rows, its last block partial
 GRAM_MULTI_ROW = ((10_001, 9, 3), (11_111, 17, 10), (4501, 20, 33),
                   (2001, 33, 64), (601, 50, 100), (3001, 40, 128))
+# K1 above rank 128 (band_gram_kernel: one solve row at a time a block,
+# persistent blocks, A written in bands): the first rank of each padded
+# width (160, 192, 224, 256), ranks whose rows are no multiple of 16
+# bytes, the last width's strip layout (249..256), one band (K <= 192)
+# and two; R below the blocks the card holds and above it with a partial
+# last round; L around the 16- and 32-slot steps.
+GRAM_WIDE_RANKS = (129, 136, 160, 192, 200, 224, 255, 256)
+GRAM_WIDE_ROWS, GRAM_WIDE_LENS = (1, 3, 13, 301), (1, 17, 33, 64, 1000, 4096)
+GRAM_WIDE = [(r, l, k) for k in GRAM_WIDE_RANKS for r in GRAM_WIDE_ROWS
+             for l in GRAM_WIDE_LENS]
+# Every rank K1 takes, at one small shape: A symmetric, K1's A equal to
+# T1's, both within tolerance of the plain version
+GRAM_SWEEP = (5, 37)   # (R, L)
 # Phase 9: T1 (K1's kernels without b) over the same edges
 T1_GRID = [(r, l, k) for r in (1, 3, 13) for l in (1, 17, 33, 4096)
-           for k in GRAM_RANKS] + list(GRAM_MULTI_ROW)
-# K1 above rank 128, where it cuts A into 2 x 2 tiles: (R, L, K)
-GRAM_TILED = ((8, 4096, 256), (512, 1000, 256), (4096, 64, 200),
-              (8, 1000, 129))
+           for k in GRAM_RANKS + GRAM_WIDE_RANKS] + list(GRAM_MULTI_ROW)
 # K4: each design's compiled sizes (one thread a system: KP 4, 8, 12; one
 # warp: 32, 64) and the edges between them, rank 10 (every shipped
 # engine.json), the shared-memory kernel above 64; B around a 32-system
@@ -518,7 +531,8 @@ LU_RANKS = (1, 2, 10, 16, 17, 32, 33, 63, 64, 65, 100, 128)
 EXACT_CHUNK = 16_384        # systems a float64 reference solve takes
 # (R, L, K); rank 10 is what every shipped engine.json trains at
 GRAM_TIMED = ((4096, 64, 64), (4096, 1000, 64), (4096, 64, 256),
-              (4096, 64, 10), (4096, 1000, 10))
+              (4096, 64, 10), (4096, 1000, 10), (4096, 64, 136),
+              (4096, 64, 192), (512, 1000, 256), (8, 4096, 256))
 SOLVE_TIMED = ((131_072, 64), (131_072, 10))   # K2 and K4 (B, K)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
@@ -721,9 +735,10 @@ def gram_atol(l: int, abs_sum):
 def training_kernels_phase(dev, fg, rs, card: str):
     """Phase 3: K1, K2 and K4 against their plain versions over a grid
     of shapes, then timed at representative shapes.  Returns the
-    largest error of each kernel."""
+    largest error of each kernel and K1's timed rows by (R, L, K)."""
     import torch
 
+    t0 = time.perf_counter()
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     n_fac = 50_000
@@ -747,20 +762,25 @@ def training_kernels_phase(dev, fg, rs, card: str):
         return idx, w, c
 
     n_gram = 0
-    shapes = [(r, l, k) for k in GRAM_RANKS for r in GRAM_ROWS
-              for l in GRAM_LENS] + list(GRAM_MULTI_ROW) + list(GRAM_TILED)
+    shapes = ([(r, l, k) for k in GRAM_RANKS for r in GRAM_ROWS
+               for l in GRAM_LENS] + list(GRAM_MULTI_ROW) + GRAM_WIDE
+              + [GRAM_SWEEP + (k,) for k in range(1, fg.MAX_RANK + 1)])
     for r, l, k in shapes:
         fac32 = base[:, :k].contiguous()
         idx, w, c = gram_block(r, l, dead=True)
         dead = w.abs().sum(1) == 0
         for fac in (fac32, fac32.bfloat16()):
             a, b = fg.fused_gram_vector_cuda(fac, idx, w, c)
+            a1 = fg.gather_gram_cuda(fac, idx, w)
             torch.cuda.synchronize()
             what = f"fused_gram R={r} L={l} K={k} {fac.dtype}"
             if bool(a[dead].any()) or bool(b[dead].any()):
                 die(f"{what}: a row of padding gave a nonzero A or b")
-            if k <= 128 and not torch.equal(a, a.mT):
+            if not torch.equal(a, a.mT):
                 die(f"{what}: A is not exactly symmetric")
+            if not torch.equal(a, a1):
+                die(f"{what}: T1's A differs from K1's")
+            del a1
             ra, rb = fg.fused_gram_vector_reference(fac, idx, w, c)
             abs_a, abs_b = fg.fused_gram_vector_reference(
                 fac.abs(), idx, w.abs(), c.abs())
@@ -835,9 +855,12 @@ def training_kernels_phase(dev, fg, rs, card: str):
             del a, rhs, reg, x, want, exact
     log(f"phase 3 kernel: fused_gram matches its plain version in "
         f"{n_gram} cases (R in {GRAM_ROWS}, L in {GRAM_LENS}, K in "
-        f"{GRAM_RANKS}, and (R, L, K) in {GRAM_MULTI_ROW + GRAM_TILED}; "
-        f"float32 and bfloat16 factors, ragged rows, every fifth row all "
-        f"padding and exactly 0, A exactly symmetric to K 128), max "
+        f"{GRAM_RANKS}; (R, L, K) in {GRAM_MULTI_ROW}; R in "
+        f"{GRAM_WIDE_ROWS}, L in {GRAM_WIDE_LENS}, K in {GRAM_WIDE_RANKS}; "
+        f"(R, L) {GRAM_SWEEP} at every K from 1 to {fg.MAX_RANK}; float32 "
+        f"and bfloat16 factors, ragged rows, every fifth row all padding "
+        f"and exactly 0, A exactly symmetric and T1's A equal to K1's at "
+        f"every rank), max "
         f"|err| {err['fused_gram']:.3g} (rtol {GRAM_RTOL} + "
         f"{GRAM_SIGMAS}·√L·2^-24·Σ|terms|); ridge_solve lu (K2) matches "
         f"its plain version and a float64 solve in {n_lu} cases (B in "
@@ -850,6 +873,7 @@ def training_kernels_phase(dev, fg, rs, card: str):
         f"{err['ridge_solve_gj_f64']:.3g} (rtol {SOLVE_RTOL} + "
         f"{SOLVE_ATOL}·max|x|)")
 
+    timed = {}
     for r, l, k in GRAM_TIMED:
         fac = base[:, :k].contiguous()
         idx, w, c = gram_block(r, l)
@@ -864,6 +888,7 @@ def training_kernels_phase(dev, fg, rs, card: str):
         bnd = Bound().add(*gram_cost(r, l, k, n_fac))
         row.update(bound_ms=bnd.ms, bound_by=bnd.by,
                    share_of_bound=bnd.ms / row["kernel_ms"])
+        timed[(r, l, k)] = row
         log("phase 3 timing: " + json.dumps(
             {"kernel": "fused_gram", "R": r, "L": l, "K": k, "N": n_fac,
              "library": "torch.bmm(fw^T, f) on the pre-gathered block",
@@ -894,7 +919,8 @@ def training_kernels_phase(dev, fg, rs, card: str):
                  "library": "torch.linalg.cholesky + torch.cholesky_solve "
                             "on A + diag(reg)", "card": card, **row}))
         del a, rhs, reg
-    return err
+    log(f"phase 3 in {time.perf_counter() - t0:.1f} s; card {card}")
+    return err, timed
 
 
 class swapped_routes:
@@ -1742,7 +1768,7 @@ def gather_kernels_phase(dev, seed: int, mods, card: str):
     del a, want, abs_a
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 9)
-    base = torch.randn((3000, max(GRAM_RANKS)), generator=gen, device=dev)
+    base = torch.randn((3000, fg.MAX_RANK), generator=gen, device=dev)
     for r_, l_, k_ in T1_GRID:
         ix = torch.randint(0, 3000, (r_, l_), generator=gen, device=dev,
                            dtype=torch.int32)
@@ -1769,7 +1795,8 @@ def gather_kernels_phase(dev, seed: int, mods, card: str):
     log(f"phase 9 kernel: gather_gram (T1) and gather_sum (T2) match their "
         f"plain versions at I {i_rows}, K {k}, R {r}, L {l} (Zipf(1.25) "
         f"indices, seed {seed}), and T1 also at {len(T1_GRID)} shapes (R "
-        f"in (1, 3, 13), L in (1, 17, 33, 4096), K in {GRAM_RANKS}, and "
+        f"in (1, 3, 13), L in (1, 17, 33, 4096), K in "
+        f"{GRAM_RANKS + GRAM_WIDE_RANKS}, and "
         f"(R, L, K) in {GRAM_MULTI_ROW}) with float32 and bfloat16 "
         f"factors, A exactly symmetric; max "
         f"|err| T1 {err_t1:.3g} (rtol "
@@ -9904,7 +9931,8 @@ def high_rank_phase(dev, seed: int, mods: dict, card: str) -> dict:
     """Phase 28b: ALS at rank 320 on the card takes the reference's
     library gram (``fused_gram_vector_xla``'s counterpart) and the
     Cholesky solve: no K1 or K2 launch, its top-10 scores the CPU's;
-    rank 256 launches K1 (the reference's ``fits_vmem`` boundary); rank
+    rank 256 launches K1 (the reference's ``fits_vmem`` boundary) and
+    trains the factors of the same train with ``use_pallas=False``; rank
     64 with ``use_pallas=False`` launches no K1 and trains K1's factors.
     Times the library gram beside K1 on one bucket."""
     import numpy as np
@@ -9953,12 +9981,31 @@ def high_rank_phase(dev, seed: int, mods: dict, card: str) -> dict:
                      float(np.abs(card_small.item_factors
                                   - cpu_small.item_factors).max()))
     del card_small, cpu_small
-    # rank 256: K1 takes it
+    # rank 256: K1 takes it (its band kernel); the same train with
+    # use_pallas=False (the library gram, the same Cholesky solve) holds
+    # its factors, and a one-iteration train gives its ms a sweep
     before = launches()
-    _, k1_s = hr_train(als, coo, dims, dev, rank=HR_K1_RANK, **base)
+    kern256, k1_s = hr_train(als, coo, dims, dev, rank=HR_K1_RANK, **base)
     k1_256 = fg.LAUNCHES - before[0]
     if k1_256 == 0:
         die(f"phase 28b: the rank-{HR_K1_RANK} train launched no K1")
+    for f in (kern256.user_factors, kern256.item_factors):
+        if not np.isfinite(f).all():
+            die(f"phase 28b: non-finite rank-{HR_K1_RANK} factors")
+    _, one256_s = hr_train(als, coo, dims, dev, rank=HR_K1_RANK,
+                           **dict(base, iterations=1))
+    ms_iter256 = (k1_s - one256_s) / (HR_ITERS - 1) * 1e3
+    before = launches()
+    lib256, lib256_s = hr_train(als, coo, dims, dev, rank=HR_K1_RANK,
+                                use_pallas=False, **base)
+    if fg.LAUNCHES != before[0]:
+        die(f"phase 28b rank {HR_K1_RANK}: use_pallas=False launched K1")
+    err256 = max(assert_close(
+        torch.from_numpy(getattr(lib256, f)),
+        torch.from_numpy(getattr(kern256, f)), TRAIN_RTOL, TRAIN_ATOL,
+        f"phase 28b rank {HR_K1_RANK} {f}: use_pallas=False vs K1")
+        for f in ("user_factors", "item_factors"))
+    del kern256, lib256
     # rank 64: use_pallas=False against the kernel train
     before = launches()
     kern, _ = hr_train(als, coo, dims, dev, rank=HR_LOW_RANK, **base)
@@ -10016,6 +10063,8 @@ def high_rank_phase(dev, seed: int, mods: dict, card: str) -> dict:
            "k1_64": k1_64, "err64": err64, "gram_err": gram_err,
            "bucket": (r, l), "k1_ms": k1_ms, "lib_ms": lib_ms,
            "lib320_ms": lib320_ms, "k1_256_s": k1_s,
+           "ms_per_iter_256": ms_iter256, "lib256_s": lib256_s,
+           "err256": err256,
            "launches": {"fused_gram": k1_256 + k1_64,
                         "ridge_solve_lu": k2_64 + k2_lib},
            "phase_s": time.perf_counter() - t0}
@@ -10028,7 +10077,10 @@ def high_rank_phase(dev, seed: int, mods: dict, card: str) -> dict:
         f"card and the CPU ({cpu_s:.2f} s): {HR_QUERY_USERS} users' top-"
         f"{HR_TOP} scores within rtol {HR_RTOL} atol {HR_ATOL} (max |err| "
         f"{err:.3g}, factors max |diff| {factor_err:.3g}); rank "
-        f"{HR_K1_RANK} launched K1 {k1_256} times ({k1_s:.2f} s); rank "
+        f"{HR_K1_RANK} launched K1 {k1_256} times ({k1_s:.2f} s = "
+        f"{ms_iter256:.1f} ms/iter, slope of 3 against 1 iteration; "
+        f"use_pallas=False {lib256_s:.2f} s, factors within rtol "
+        f"{TRAIN_RTOL} atol {TRAIN_ATOL}: max |err| {err256:.3g}); rank "
         f"{HR_LOW_RANK} K1 {k1_64} times by default and 0 with "
         f"use_pallas=False (factors within rtol {TRAIN_RTOL} atol "
         f"{TRAIN_ATOL}: max |err| {err64:.3g}; one bucket's A and b within "
@@ -10151,7 +10203,7 @@ def main() -> int:
         {ML25M_ITEMS: items_d, BIG_ITEMS: big_d}, card)
 
     # -- phase 3: training kernels vs their plain versions ----------------
-    train_kernel_err = training_kernels_phase(dev, fg, rs, card)
+    train_kernel_err, gram_timed = training_kernels_phase(dev, fg, rs, card)
     torch.cuda.empty_cache()
 
     # -- phase 4: serve at the MovieLens-25M shape ------------------------
@@ -10499,6 +10551,13 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
         })
+    # K1 above rank 128: phase 3's (4096, 64, 256) and 28b's bucket
+    wide = gram_timed[(4096, 64, 256)]
+    next(k for k in kernels if k["name"] == "fused_gram").update(
+        ms_k256=wide["kernel_ms"], plain_ms_k256=wide["plain_ms"],
+        library_ms_k256=wide["library_ms"], bound_ms_k256=wide["bound_ms"],
+        bound_by_k256=wide["bound_by"], ms_k256_bucket=high["k1_ms"],
+        library_ms_k256_bucket=high["lib_ms"])
     pq_main = pq_rows[1]     # B = 1: the shape of one pq_flat request
     kernels.append({
         "name": "pq_scan",

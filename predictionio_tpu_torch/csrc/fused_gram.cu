@@ -65,20 +65,50 @@
 //   and writes them with coalesced 16-byte stores: every block ends at
 //   once, and scattered 32-byte runs written in halves stall the card.
 
-// Above rank 128 (to kMaxK = 256) gram_kernel keeps the first design:
-// 256 threads per block form a 16 x 16 grid over a 128 x 128 tile of A,
-// each thread keeping an 8 x 8 register tile of it.  A is cut into T x T
-// tiles (T = ceil(K / 128)): the grid is R x T*T blocks, and block
-// (r, ti*T + tj) builds tile (ti, tj) of A[r] from columns ti*128.. (w*f)
-// and tj*128.. (f) of the gathered rows; the blocks with ti = 0 also
-// build b[r]'s tj-th slice.  The row's slots are walked in tiles of
-// kTile: the tile's indices and weights are staged in shared memory,
-// then its factor rows' two column slices are gathered (converted to
-// float32 on load) into two shared arrays, f and w*f.  Each thread then
-// does 64 FMAs per slot from 16 shared-memory reads (float4).  Threads
-// t < 128 also accumulate b.  It computes the whole of its tiles and
-// does not overlap the gather with the FMAs.
-//
+// Above rank 128 (to kMaxK = 256; band_gram_kernel) the bound shifts.
+// A solve row writes K*K*4 bytes of A (256 KB at rank 256) against about
+// L*K*(K+1) flops, about L/4 flop a byte: below L ~ 80 the A write over
+// HBM bounds the call, above it the float32 FMA rate.  The design keeps
+// both streams busy and spends nothing twice:
+// - Symmetric 8 x 8 register tiles, one thread each on or above the
+//   diagonal: nt(nt+1)/2 threads, nt = ceil(K / 8) (153 at rank 136,
+//   496 at rank 248), so one solve row at a time a block, and K pads
+//   only to a multiple of 8 (K(K+1)/2 + 4K FMAs a slot, not the full A).
+//   Thread k < K builds b[k] from the staged slots, one register.  At
+//   nt = 32 (ranks 249..256) the 528 tiles would take 17 warps, which
+//   leave a thread 96 registers and spill the tile; there the tiles
+//   cover the first 31 tile rows, and the last tile's 8 indices G pair
+//   with the other 248 as 512 strips of 1 x 4 entries, one a thread
+//   beside its tile (the 16 threads past the 496 tiles take G's own
+//   diagonal tile): 512 threads, 16 warps, 128 registers, no spill.
+// - A tile's eight indices are two runs of four, 4t..4t+3 and
+//   h+4t..h+4t+3 with h = 4*nt, so that a warp's threads, which share
+//   their tile row and walk consecutive tile columns, read f_j as
+//   neighbouring 16-byte pieces (a quarter warp's reads in one pass of
+//   the banks; runs of eight 32 bytes apart take two), and f_i as a
+//   broadcast.
+// - The pipeline of the kernel below 128: each slot gathered once by
+//   cp.async.ca into a ring of three stages, raw, converted as it is
+//   loaded into registers; indices and weights four steps ahead.  A
+//   stage holds 32 slots (16 at KP 160, where the blocks that share an
+//   SM need the room for A): half the barriers.  Within a stage the
+//   next slot's f_i and first f_j load while this slot's FMAs run
+//   (not with the strips, whose registers leave no room).
+// - Persistent blocks, as many as the SMs hold, each taking rows
+//   blockIdx.x, + gridDim.x, ...; their slot tiles are numbered on
+//   across the rows, so a row's first gathers go out during the last
+//   steps of the row before and land during its epilogue.
+// - The epilogue stages A in shared memory beside the ring: each thread
+//   puts its tile and, off the diagonal, the tile's transpose there, so
+//   A is exactly symmetric at every rank, as 16-byte chunks swizzled by
+//   row so that the transposed stores, eight rows four apart, hit
+//   distinct banks; the block then writes the rows with coalesced
+//   16-byte stores.  A row of A that does not fit (rank 256: 256 KB)
+//   goes in bands; the last band (all of A where it fits) stays staged
+//   and goes out during the next row's first steps, so that the A
+//   write, the bound at short rows, overlaps the FMAs: at once, every
+//   SM would write at the same moment.
+
 // The same source also holds kernel T1, the port of
 // pallas_vmem_gather_gram in tools/exp_gram.py: A[r] = sum_l w[r,l] *
 // f_l f_l^T with Y resident, i.e. exactly this kernel's A without b.  It
@@ -99,10 +129,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // tiled kernel: a 16 x 16 grid of threads
-constexpr int kTile = 32;      // tiled kernel: slots staged per step
-constexpr int kTileK = 128;    // tiled kernel: 16 * TM with TM = 8
-constexpr int kMaxK = 256;     // T = 2 tiles a side
+constexpr int kMaxK = 256;     // band_gram_kernel up to this rank
 
 constexpr int kSymMaxK = 128;       // sym_gram_kernel up to this rank
 constexpr int kSymThreads = 256;    // most threads a block
@@ -456,86 +483,407 @@ __global__ void __launch_bounds__(kSymThreads, 2)
   }
 }
 
-template <typename T, int TM, bool WITH_B>
-__global__ void __launch_bounds__(kThreads)
-    gram_kernel(const T* __restrict__ factors, const int* __restrict__ idx,
-                const float* __restrict__ w, const float* __restrict__ c,
-                int L, int K, float* __restrict__ A,
-                float* __restrict__ bvec) {
-  constexpr int KP = 16 * TM;  // padded width of a staged row
-  __shared__ __align__(16) float fs[kTile][KP];   // gathered rows
-  __shared__ __align__(16) float fws[kTile][KP];  // rows scaled by w
-  __shared__ int is[kTile];
-  __shared__ float ws[kTile];
-  __shared__ float cs[kTile];
+// Above rank 128: one solve row at a time a block of at most 512 threads
+// (16 warps, 128 registers each).  Slots a pipeline step: 32, half the
+// barriers of 16, except at KP 160, where 32 slots' stages would leave
+// the blocks that share an SM too little room for A.
+constexpr int kBandMaxThreads = 512;
+__host__ __device__ constexpr int band_slots(int kp) {
+  return kp <= 160 ? 16 : 32;
+}
+// A row's last band of A goes out over the next row's first steps, at
+// most this many: each share costs its own address arithmetic.
+constexpr int kDripSteps = 4;
+// At nt = 32 tiles a side (ranks 249..256) the 528 tiles on or above the
+// diagonal would take 17 warps, and 17 warps leave a thread 96 registers.
+// There the tiles cover the first 31 tile rows and columns only; the last
+// tile's 8 indices, G, pair with every index as strips of 1 x 4 entries
+// (8 x 64 strips), one a thread beside its tile: 512 threads.
+constexpr int kStripTiles = 32;
 
-  const size_t row = static_cast<size_t>(blockIdx.x) * L;
-  const int n_tiles = (K + KP - 1) / KP;           // T: 1 unless K > 128
-  const int ci = (blockIdx.y / n_tiles) * KP;      // A's rows (w*f columns)
-  const int cj = (blockIdx.y % n_tiles) * KP;      // A's columns (f columns)
-  const bool diag = ci == cj;                      // one gather serves both
-  const bool with_b = WITH_B && ci == 0;           // b's slice cj..cj+KP
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  float acc[TM][TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TM; ++j) acc[i][j] = 0.f;
-  float bacc = 0.f;
+// Dynamic shared memory of band_gram_kernel, the same on host and
+// device: kFStages stages of gathered rows (band_slots(KP) slots of KP
+// elements), then kMStages stages of indices, w (and c) (the ring), then
+// a band of A's rows, a_stride floats a row.
+struct BandLayout {
+  int nt;           // tiles of 8 indices a side: ceil(K / 8)
+  int h;            // index where a tile's second run of four starts
+  int tiles;        // tile rows the threads' 8 x 8 tiles cover
+  int threads;      // a block
+  int stage_bytes;  // one stage of gathered rows
+  int meta_stage;   // one stage of indices and weights
+  int ring;         // the pipeline's shared memory
+  int a_stride;     // floats a staged row of A: a multiple of 32
 
-  for (int l0 = 0; l0 < L; l0 += kTile) {
-    const int n = min(kTile, L - l0);
-    if (threadIdx.x < kTile) {
-      const int s = threadIdx.x;
-      const bool live = s < n;
-      is[s] = live ? idx[row + l0 + s] : 0;
-      ws[s] = live ? w[row + l0 + s] : 0.f;
-      if constexpr (WITH_B) cs[s] = live ? c[row + l0 + s] : 0.f;
+  __host__ __device__ BandLayout(int k, int kp, int elem, bool with_b,
+                                 bool strip) {
+    nt = (k + 7) / 8;
+    h = 4 * nt;
+    tiles = strip ? nt - 1 : nt;
+    threads = strip ? 8 * 2 * nt : tiles * (tiles + 1) / 2;
+    stage_bytes = band_slots(kp) * kp * elem;
+    meta_stage = band_slots(kp) * (with_b ? 3 : 2) * 4;
+    ring = kFStages * stage_bytes + kMStages * meta_stage;
+    a_stride = (k + 31) / 32 * 32;
+  }
+};
+
+// N (2 or 4) consecutive elements of a staged row into float32
+// registers: one 8- or 16-byte load of float32, one 4- or 8-byte load of
+// bfloat16.
+template <int N, typename T>
+__device__ __forceinline__ void load_n(float (&d)[N], const T* s) {
+  if constexpr (N == 4) {
+    load_row<4>(d, s);
+  } else if constexpr (sizeof(T) == 4) {
+    const float2 v = *reinterpret_cast<const float2*>(s);
+    d[0] = v.x;
+    d[1] = v.y;
+  } else {
+    unpack2(d, *reinterpret_cast<const uint32_t*>(s));
+  }
+}
+
+// Where 16-byte chunk q of row r of a staged band lives: the chunk
+// index XOR bits 2..4 of the row, so that rows four apart (a warp's
+// transposed stores) fall in distinct banks, and a row's chunks stay
+// within its a_stride floats.
+__device__ __forceinline__ float* band_at(float* band, int r, int q,
+                                          int stride) {
+  return band + r * stride + 4 * (q ^ ((r >> 2) & 7));
+}
+
+__device__ __forceinline__ void store4(float* dst, float a, float b, float c,
+                                       float d) {
+  *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);
+}
+
+// 0, which the compiler cannot see through: what derives from it is
+// computed again where it is used, not held in a register (or a
+// predicate) from the start of the kernel.
+__device__ __forceinline__ int opaque_zero() {
+  int z;
+  asm volatile("mov.u32 %0, 0;" : "=r"(z));
+  return z;
+}
+
+// threadIdx.x, read anew where it is used: the compiler cannot keep
+// what derives from it (the copy loops' walk) in registers across the
+// slot loop, which needs most of a thread's registers.
+__device__ __forceinline__ int thread_x() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+  return t;
+}
+
+template <typename T, int KP, bool WITH_B, bool STRIP>
+__global__ void __launch_bounds__(kBandMaxThreads, 1)
+    band_gram_kernel(const T* __restrict__ factors,
+                     const int* __restrict__ idx, const float* __restrict__ w,
+                     const float* __restrict__ c, int R, int L, int K,
+                     int band, int copy_bytes, float* __restrict__ A,
+                     float* __restrict__ bvec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kSlots = band_slots(KP);
+  // f_j loaded kJ at a time: 2 with STRIP, whose strip takes the
+  // registers that a second pair would
+  constexpr int kJ = STRIP ? 2 : 4;
+  const BandLayout lay(K, KP, sizeof(T), WITH_B, STRIP);
+  unsigned char* const fring = smem;
+  unsigned char* const mring = smem + kFStages * lay.stage_bytes;
+  float* const staged = reinterpret_cast<float*>(smem + lay.ring);
+
+  // This thread's tile (ti, tj), ti <= tj < lay.tiles: the first threads
+  // take the tiles above the diagonal, tile row by tile row, then the
+  // diagonal ones.  Tile t covers indices 4t..4t+3 and h+4t..h+4t+3 of
+  // A's rows and columns (of the staged rows).  With STRIP the last 16
+  // threads all take the diagonal tile of G, t = 31: its entries are
+  // the same FMA chains, bit for bit, in each of them.
+  int ti = 0, tj;
+  {
+    const int n = lay.tiles;
+    const int off = n * (n - 1) / 2;
+    const int u0 = threadIdx.x;
+    if (u0 < off) {
+      int u = u0;
+      while (u >= n - 1 - ti) {
+        u -= n - 1 - ti;
+        ++ti;
+      }
+      tj = ti + 1 + u;
+    } else {
+      ti = tj = min(u0 - off, n);
     }
-    __syncthreads();
-    for (int e = threadIdx.x; e < kTile * KP; e += kThreads) {
-      const int s = e / KP;
-      const int k = e - s * KP;
-      const T* frow = factors + static_cast<size_t>(is[s]) * K;
-      const bool live = s < n;
-      const float fj = live && cj + k < K ? to_f32(frow[cj + k]) : 0.f;
-      const float fi =
-          diag ? fj : (live && ci + k < K ? to_f32(frow[ci + k]) : 0.f);
-      fs[s][k] = fj;
-      fws[s][k] = fi * ws[s];
+  }
+  const int ci0 = 4 * ti, ci1 = lay.h + 4 * ti;  // f_i's two runs
+  const int cj0 = 4 * tj, cj1 = lay.h + 4 * tj;  // f_j's
+  // With STRIP, this thread's strip: entries (g, 4q..4q+3) of A, g the
+  // index of G at position threadIdx.x / 64 (4t+p or h+4t+p-4, t = 31);
+  // its entries within G are the diagonal tile's.
+  const int sg = STRIP ? 4 * lay.tiles + (threadIdx.x >> 6 & 3) +
+                             (threadIdx.x >> 8) * lay.h
+                       : 0;
+  const int sq = STRIP ? 4 * (threadIdx.x & 63) : 0;
+  const int n_tiles = (L + kSlots - 1) / kSlots;
+  const int sk = lay.a_stride;
+
+  // Elements e0..e1 of the staged band (16-byte chunks when K allows,
+  // else floats; row-major) to their place in A, rows from dst:
+  // coalesced.  Whether K allows is worked out anew at each call.
+  auto copy_out = [&](float* dst, int e0, int e1) {
+    const int kk = K + opaque_zero();
+    const bool vec = kk % 4 == 0;
+    const int q = vec ? kk / 4 : kk;  // elements a row
+    const int first = e0 + thread_x();
+    int r = first / q, e = first - r * q;
+    const int d_r = blockDim.x / q, d_e = blockDim.x % q;
+    // one element a thread at a time: the copy runs inside the slot
+    // loop's steps too, where the accumulators hold the registers
+#pragma unroll 1
+    for (int f = first; f < e1; f += blockDim.x) {
+      if (vec)
+        *reinterpret_cast<float4*>(dst + r * K + 4 * e) =
+            *reinterpret_cast<const float4*>(band_at(staged, r, e, sk));
+      else
+        dst[r * K + e] = band_at(staged, r, e >> 2, sk)[e & 3];
+      r += d_r;
+      e += d_e;
+      if (e >= q) {
+        e -= q;
+        ++r;
+      }
     }
-    __syncthreads();
+  };
+
+  // The last band of a row's A (its rows from (K - 1) / band * band on)
+  // stays staged while the block computes its next row, and goes out a
+  // share at each of that row's pipeline steps: share j of n of row p's,
+  // worked out at each call rather than held through the slot loop.
+  auto write_last = [&](int p, int j, int n) {
+    const int k = K + opaque_zero();
+    const int r0 = (k - 1) / band * band;
+    const int elems = (k - r0) * (k % 4 == 0 ? k / 4 : k);
+    copy_out(A + (static_cast<size_t>(p) * k + r0) * k, j * elems / n,
+             (j + 1) * elems / n);
+  };
+
+  // The block's rows are blockIdx.x, + gridDim.x, ...; their slot
+  // tiles, n_tiles a row, are numbered on across them, so that the
+  // gathers of a row's first tiles go out during the last steps of the
+  // row before and are in flight through its epilogue.
+  const int total =
+      ((R - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1) * n_tiles;
+  // Indices, w and c of the block's slot tile t into meta stage
+  // t % kMStages: one slot a thread.
+  auto issue_meta = [&](int t) {
+    const int s = thread_x();
+    if (s >= kSlots) return;
+    int* mi =
+        reinterpret_cast<int*>(mring + (t % kMStages) * lay.meta_stage);
+    const int rl = t / n_tiles;  // the block's row and its slot tile
+    const int l = (t - rl * n_tiles) * kSlots + s;
+    const bool live = l < L;
+    const size_t at =
+        live ? static_cast<size_t>(blockIdx.x + rl * gridDim.x) * L + l
+             : 0;
+    const int nb = live ? 4 : 0;
+    copy_async(mi + s, idx + at, 4, nb);
+    copy_async(mi + kSlots + s, w + at, 4, nb);
+    if constexpr (WITH_B)
+      copy_async(mi + 2 * kSlots + s, c + at, 4, nb);
+  };
+  // The factor rows of the block's slot tile t into row stage
+  // t % kFStages: the
+  // block walks (slot, part) in steps of its size, each thread from
+  // its own start, as quotient and remainder (one division a step).
+  auto issue_rows = [&](int t) {
+    const int* mi = reinterpret_cast<const int*>(
+        mring + (t % kMStages) * lay.meta_stage);
+    unsigned char* dst0 = fring + (t % kFStages) * lay.stage_bytes;
+    const unsigned char* src0 =
+        reinterpret_cast<const unsigned char*>(factors);
+    const int src_row = K * static_cast<int>(sizeof(T));  // bytes
+    const int copies = src_row / copy_bytes;  // copies a gathered row
+    const int tid = thread_x();
+    const int d_s = blockDim.x / copies, d_pt = blockDim.x % copies;
+    for (int s = tid / copies, pt = tid % copies; s < kSlots;) {
+      const int part = pt * copy_bytes;
+      copy_async(dst0 + s * (KP * sizeof(T)) + part,
+                 src0 + static_cast<size_t>(mi[s]) * src_row + part,
+                 copy_bytes, copy_bytes);
+      s += d_s;
+      pt += d_pt;
+      if (pt >= copies) {
+        pt -= copies;
+        ++s;
+      }
+    }
+  };
+
+  // Step t of sym_gram_kernel's pipeline: it issues the rows of tile
+  // t + kFDist and the indices of tile t + kMDist, then tile t is
+  // computed.
+  auto step = [&](int t) {
+    copy_wait<kFDist - 1>();
+    __syncthreads();  // every copy visible; step t - 1's reads are done
+    if (t + kFDist >= 0 && t + kFDist < total) issue_rows(t + kFDist);
+    if (t + kMDist < total) issue_meta(t + kMDist);
+    copy_commit();
+  };
+  for (int t = -kMDist; t < 0; ++t) step(t);  // the first row's
+
+  int t0 = 0;  // the row's first slot tile
+#pragma unroll 1
+  for (int row = blockIdx.x; row < R; row += gridDim.x, t0 += n_tiles) {
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    float sacc[4] = {0.f, 0.f, 0.f, 0.f};  // the strip
+    float bsum = 0.f;  // b[threadIdx.x], for the first K threads
+
+    // The row's steps; the first kDripSteps of them also write out a
+    // share each of the row before's last band.
+    for (int t = t0; t < t0 + n_tiles; ++t) {
+      step(t);
+      if (row != static_cast<int>(blockIdx.x) && t - t0 < kDripSteps)
+        write_last(row - gridDim.x, t - t0, min(n_tiles, kDripSteps));
+      const T* fs = reinterpret_cast<const T*>(fring + (t % kFStages) *
+                                                           lay.stage_bytes);
+      const float* ms = reinterpret_cast<const float*>(
+          mring + (t % kMStages) * lay.meta_stage);
+      const float* ws = ms + kSlots;
+      const float* cs = ms + 2 * kSlots;
+      // The tile: f_i scaled by w, then f_j kJ at a time; the strip:
+      // f_g scaled by w times four f.  Without the strip, the next
+      // slot's f_i and first f_j load while this slot's FMAs run (the
+      // strip's registers leave no room for them).
+      float fi[2][4], fjn[kJ];
+      if constexpr (!STRIP) {
+        load_row<4>(fi[0], fs + ci0);
+        load_row<4>(fi[1], fs + ci1);
+        load_n<kJ>(fjn, fs + cj0);
+      }
+#pragma unroll 2
+      for (int s = 0; s < kSlots; ++s) {
+        const T* fr = fs + s * KP;
+        if constexpr (STRIP) {
+          load_row<4>(fi[0], fr + ci0);
+          load_row<4>(fi[1], fr + ci1);
+          load_n<kJ>(fjn, fr + cj0);
+        }
+        const float wv = ws[s];
+        float fw[8], fj[kJ];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) fw[i] = fi[i / 4][i % 4] * wv;
+#pragma unroll
+        for (int j = 0; j < kJ; ++j) fj[j] = fjn[j];
+        if constexpr (!STRIP) {
+          if (s + 1 < kSlots) {
+            load_row<4>(fi[0], fr + KP + ci0);
+            load_row<4>(fi[1], fr + KP + ci1);
+            load_n<kJ>(fjn, fr + KP + cj0);
+          }
+        }
+#pragma unroll
+        for (int part = 0; part < 8 / kJ; ++part) {
+          const int j0 = part * kJ;  // acc's first column of this part
+          if (part > 0)
+            load_n<kJ>(fj, fr + (j0 < 4 ? cj0 + j0 : cj1 + j0 - 4));
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < kJ; ++j)
+              acc[i][j0 + j] = fmaf(fw[i], fj[j], acc[i][j0 + j]);
+        }
+        if constexpr (STRIP) {
+          const float fg = to_f32(fr[sg]) * wv;
+#pragma unroll
+          for (int j0 = 0; j0 < 4; j0 += kJ) {
+            load_n<kJ>(fj, fr + sq + j0);
+#pragma unroll
+            for (int j = 0; j < kJ; ++j)
+              sacc[j0 + j] = fmaf(fg, fj[j], sacc[j0 + j]);
+          }
+        }
+      }
+      // b: thread k adds c * f_k over the stage's slots
+      if constexpr (WITH_B) {
+        const int k = thread_x();
+        if (k < K) {
 #pragma unroll 4
-    for (int s = 0; s < kTile; ++s) {
-      float a[TM], bb[TM];
-      load_row<TM>(a, &fws[s][ty * TM]);
-      load_row<TM>(bb, &fs[s][tx * TM]);
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TM; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
+          for (int s = 0; s < kSlots; ++s)
+            bsum = fmaf(cs[s], to_f32(fs[s * KP + k]), bsum);
+        }
+      }
     }
-    if (with_b && threadIdx.x < KP) {
-#pragma unroll 8
-      for (int s = 0; s < kTile; ++s)
-        bacc = fmaf(cs[s], fs[s][threadIdx.x], bacc);
-    }
-    __syncthreads();
-  }
+    __syncthreads();  // the pending band is out and the stages are read
 
-  float* a_out = A + static_cast<size_t>(blockIdx.x) * K * K;
+    if (WITH_B && static_cast<int>(threadIdx.x) < K)
+      bvec[static_cast<size_t>(row) * K + threadIdx.x] = bsum;
+    // a diagonal tile: its upper entries mirrored below, in place
+    const bool diag = ci0 == cj0;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gi = ci + ty * TM + i;
+    for (int i = 1; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < TM; ++j) {
-      const int gj = cj + tx * TM + j;
-      if (gi < K && gj < K) a_out[static_cast<size_t>(gi) * K + gj] = acc[i][j];
+      for (int j = 0; j < i; ++j) acc[i][j] = diag ? acc[j][i] : acc[i][j];
+    // Band by band: each thread stores the runs of four rows of its tile
+    // (and, off the diagonal, of its transpose) that fall in the band,
+    // whole 16-byte chunks, padding included (rows and columns past K
+    // land in the band's own slack and are not written out); then the
+    // block writes the band's rows, contiguous in A, with coalesced
+    // stores, except the last band, which stays pending.  A strip stores
+    // its row's chunk and its four transposed entries.
+    float* const a_out = A + static_cast<size_t>(row) * K * K;
+#pragma unroll 1
+    for (int r0 = 0; r0 < K; r0 += band) {
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int ri = (p ? ci1 : ci0) - r0;  // ti's run p, band-local
+        if (ri >= 0 && ri < band) {
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            const int i = 4 * p + a;
+            store4(band_at(staged, ri + a, cj0 / 4, sk), acc[i][0], acc[i][1],
+                   acc[i][2], acc[i][3]);
+            store4(band_at(staged, ri + a, cj1 / 4, sk), acc[i][4], acc[i][5],
+                   acc[i][6], acc[i][7]);
+          }
+        }
+        const int rj = (p ? cj1 : cj0) - r0;  // tj's run p: the transpose
+        if (!diag && rj >= 0 && rj < band) {
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            const int j = 4 * p + b;
+            store4(band_at(staged, rj + b, ci0 / 4, sk), acc[0][j],
+                   acc[1][j], acc[2][j], acc[3][j]);
+            store4(band_at(staged, rj + b, ci1 / 4, sk), acc[4][j],
+                   acc[5][j], acc[6][j], acc[7][j]);
+          }
+        }
+      }
+      if constexpr (STRIP) {
+        // the strip's four entries and their mirror images, outside G
+        if (sq / 4 != lay.tiles && sq / 4 != lay.h / 4 + lay.tiles) {
+          if (sg - r0 >= 0 && sg - r0 < band)
+            store4(band_at(staged, sg - r0, sq / 4, sk), sacc[0], sacc[1],
+                   sacc[2], sacc[3]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (sq + j - r0 >= 0 && sq + j - r0 < band)
+              band_at(staged, sq + j - r0, sg / 4, sk)[sg & 3] = sacc[j];
+        }
+      }
+      __syncthreads();
+      if (r0 + band >= K) break;  // the last band: the next row writes it
+      copy_out(a_out + static_cast<size_t>(r0) * K, 0,
+               band * (K % 4 == 0 ? K / 4 : K));
+      __syncthreads();
     }
   }
-  if (with_b && threadIdx.x < KP && cj + threadIdx.x < K)
-    bvec[static_cast<size_t>(blockIdx.x) * K + cj + threadIdx.x] = bacc;
+  // The block's last row's last band
+  write_last(blockIdx.x + (R - 1 - blockIdx.x) / gridDim.x * gridDim.x, 0, 1);
 }
 
 // The widest copy (16, 8, 4 or 2 bytes) that every gathered row's start
@@ -570,17 +918,75 @@ cudaError_t launch_sym(const T* f, const int* idx, const float* w,
   return cudaGetLastError();
 }
 
+template <typename T, int KP, bool WITH_B, bool STRIP>
+cudaError_t launch_band(const T* f, const int* idx, const float* w,
+                        const float* c, int R, int L, int K, float* A,
+                        float* b, cudaStream_t st) {
+  // The blocks an SM holds by registers and the pipeline's shared
+  // memory set each block's share of the SM's shared memory.
+  const BandLayout lay(K, KP, sizeof(T), WITH_B, STRIP);
+  auto kernel = band_gram_kernel<T, KP, WITH_B, STRIP>;
+  int dev = 0, smem_sm = 0, smem_block = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &smem_block, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_block);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        lay.threads, lay.ring);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  // Each block's share of the SM's shared memory beyond the pipeline's
+  // ring holds the bands of A: as many rows as fit (a multiple of 8, in
+  // bands of equal size), the whole of A where it fits.
+  int budget = smem_sm / per_sm - 1024;  // 1 KB an SM keeps for each block
+  if (budget > smem_block) budget = smem_block;
+  const int row_bytes = lay.a_stride * 4;
+  const int k8 = 8 * lay.nt;
+  int fit = (budget - lay.ring) / row_bytes / 8 * 8;
+  if (fit < 8) fit = 8;
+  const int n_bands = (k8 + fit - 1) / fit;
+  const int band = (k8 / 8 + n_bands - 1) / n_bands * 8;
+  const int smem = lay.ring + band * row_bytes;
+  // Persistent blocks: as many as the SMs hold at this shared memory
+  int n_sm = 0;
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        lay.threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int grid = R < per_sm * n_sm ? R : per_sm * n_sm;
+  kernel<<<grid, lay.threads, smem, st>>>(f, idx, w, c, R, L, K, band,
+                                          copy_bytes(f, K * sizeof(T)), A, b);
+  return cudaGetLastError();
+}
+
 template <typename T, bool WITH_B>
 cudaError_t launch(const void* factors, const int* idx, const float* w,
                    const float* c, int R, int L, int K, float* A, float* b,
                    cudaStream_t st) {
   const T* f = static_cast<const T*>(factors);
   if (K > kSymMaxK) {
-    const int n_tiles = (K + kTileK - 1) / kTileK;  // A tiles a side (TM = 8)
-    const dim3 grid(R, n_tiles * n_tiles);
-    gram_kernel<T, 8, WITH_B><<<grid, kThreads, 0, st>>>(f, idx, w, c, L, K,
-                                                         A, b);
-    return cudaGetLastError();
+    if (K <= 160)
+      return launch_band<T, 160, WITH_B, false>(f, idx, w, c, R, L, K, A, b,
+                                                st);
+    if (K <= 192)
+      return launch_band<T, 192, WITH_B, false>(f, idx, w, c, R, L, K, A, b,
+                                                st);
+    if (K <= 224)
+      return launch_band<T, 224, WITH_B, false>(f, idx, w, c, R, L, K, A, b,
+                                                st);
+    if ((K + 7) / 8 < kStripTiles)
+      return launch_band<T, 256, WITH_B, false>(f, idx, w, c, R, L, K, A, b,
+                                                st);
+    return launch_band<T, 256, WITH_B, true>(f, idx, w, c, R, L, K, A, b, st);
   }
   int dev = 0, n_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);

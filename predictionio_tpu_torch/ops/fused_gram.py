@@ -61,7 +61,7 @@ LAUNCHES = 0               # K1
 GATHER_GRAM_LAUNCHES = 0   # T1
 _LAUNCHES_LOCK = threading.Lock()
 
-MAX_RANK = 256   # csrc/fused_gram.cu kMaxK: A in up to 2 x 2 tiles of 128
+MAX_RANK = 256   # csrc/fused_gram.cu kMaxK (band_gram_kernel above 128)
 
 
 def supports(k: int) -> bool:

@@ -2,7 +2,7 @@
 and the shared-memory read costs K1's tile layout rests on, on the card.
 
     python -m predictionio_tpu_torch.tools.exp_gram_calls \
-        [calls] [solve] [designs] [gj] [smem]
+        [calls] [solve] [designs] [gj] [smem] [wide]
 
 ``calls`` makes 25,000,000 ratings shaped like MovieLens-25M (the
 repository's benchmark generator: uniform users, Zipf(1.25) items,
@@ -48,6 +48,16 @@ calls of one ML-25M iteration at rank 64 and at rank 10
 (``ridge_solve.solve_cost``, all of A).  Each variant's answers are held
 against the package's build.
 
+``wide`` times K1 above rank 128 (``band_gram_kernel``) at the shapes
+of ``WIDE_SHAPES`` against ``torch.bmm(fwᵀ, f)`` on the pre-gathered
+block and the bound (``gram_bound_ms``), beside the variants of
+``WIDE_VARIANTS``: edited copies of ``csrc/fused_gram.cu`` (the slot
+loop not unrolled; 16 slots a step at every KP; and two diagnostics,
+wrong by design and not checked: the epilogue without its A stores, and
+no epilogue), built with ``edited_libraries``.  Each other variant's A
+and b must equal the package's build bit for bit (none changes an
+entry's sum order).
+
 ``smem`` builds a small CUDA kernel with nvcc that streams 16-byte
 shared-memory reads (``LDS.128``, 64 warps an SM) in eight address
 patterns and prints each pattern's cost in SM cycles per warp-wide read,
@@ -75,7 +85,7 @@ from predictionio_tpu_torch.tools import (edited_libraries, require_cuda,
 
 USERS, ITEMS, RATINGS = 162_541, 59_047, 25_000_000
 RANK = 64
-SECTIONS = ("calls", "solve", "designs", "gj", "smem")
+SECTIONS = ("calls", "solve", "designs", "gj", "smem", "wide")
 DESIGN_RANKS = (2, 4, 8, 10, 12, 16)
 GJ_RANKS = (2, 4, 8, 10, 12, 13, 16, 17, 24, 32, 33, 40, 48, 56, 64)
 # K4's variants: edits (old text -> new) of a copy of csrc/ridge_solve.cu
@@ -89,6 +99,24 @@ GJ_VARIANTS = {
                      "for (int c = c0; c < KP; c += 4) { if (c >= K) break;"},
     "shared": {"kGJThreadMaxK = 12;": "kGJThreadMaxK = 0;",
                "kGJRegMaxK = 64;": "kGJRegMaxK = 0;"},
+}
+# K1 above rank 128: (R, L, K, N factor rows); chip_smoke.py's timed
+# shapes and phase 28b's largest rank-256 bucket
+WIDE_SHAPES = ((4096, 64, 256, 50_000), (9136, 32, 256, 5000),
+               (4096, 64, 136, 50_000), (4096, 64, 192, 50_000),
+               (512, 1000, 256, 50_000), (8, 4096, 256, 50_000),
+               (4096, 64, 248, 50_000), (512, 1000, 248, 50_000))
+_SLOT_LOOP = "#pragma unroll 2\n      for (int s = 0; s < kSlots; ++s) {"
+WIDE_VARIANTS = {
+    "unroll1": {_SLOT_LOOP: _SLOT_LOOP.replace("unroll 2", "unroll 1")},
+    "slots16": {"return kp <= 160 ? 16 : 32;": "return 16;"},
+    # diagnostics, wrong by design: A staged but not written out; no
+    # epilogue at all
+    "diag_nostore": {"for (int f = first; f < e1; f += blockDim.x) {":
+                     "for (int f = first; f < 0; f += blockDim.x) {"},
+    "diag_noepi": {"    if (WITH_B && static_cast<int>(threadIdx.x) < K)\n":
+                   "    if (acc[0][0] != 12345.f) continue;\n"
+                   "    if (WITH_B && static_cast<int>(threadIdx.x) < K)\n"},
 }
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
@@ -411,6 +439,68 @@ def time_smem(dev: torch.device) -> None:
               f"cycles a warp-wide read ({ms:.3f} ms at {mhz:.0f} MHz)")
 
 
+def gram_bound_ms(r: int, l: int, k: int, n: int, elem: int = 4) -> float:
+    """Least time for K1 on one [R, L] block against an [N, K] factor
+    matrix: bytes (index, weight and value reads, one read of the
+    factors, the A and b writes) over the memory rate or flops (K·(K+1)
+    + 3K a slot) over the float32 peak, whichever is larger; the count
+    of ``chip_smoke.gram_cost``."""
+    n_bytes = r * l * 12 + n * k * elem + r * k * (k + 1) * 4
+    flops = float(r * l * (k * (k + 1) + 3 * k))
+    return max(n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+
+
+def variant_gram(lib, factors, idx, w, c):
+    """K1 through one variant's library on PyTorch's stream."""
+    (r, l), k = idx.shape, factors.shape[1]
+    a = torch.empty((r, k, k), dtype=torch.float32, device=factors.device)
+    b = torch.empty((r, k), dtype=torch.float32, device=factors.device)
+    rc = lib.pio_fused_gram(factors.data_ptr(),
+                            int(factors.dtype == torch.bfloat16),
+                            idx.data_ptr(), w.data_ptr(), c.data_ptr(), r, l,
+                            k, a.data_ptr(), b.data_ptr(),
+                            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"K1 variant launch failed (code {rc}, R={r}, "
+                           f"L={l}, K={k})")
+    return a, b
+
+
+def time_wide(dev: torch.device) -> None:
+    libs = edited_libraries("fused_gram", WIDE_VARIANTS, report="band_")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for lib in libs.values():
+        lib.pio_fused_gram.argtypes = [p, i, p, p, p, i, i, i, p, p, p]
+        lib.pio_fused_gram.restype = ctypes.c_int
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for r, l, k, n in WIDE_SHAPES:
+        fac = torch.randn((n, k), generator=gen, device=dev)
+        idx = torch.randint(0, n, (r, l), generator=gen, device=dev,
+                            dtype=torch.int32)
+        w = torch.rand((r, l), generator=gen, device=dev)
+        c = torch.randn((r, l), generator=gen, device=dev)
+        want = fg.fused_gram_vector_cuda(fac, idx, w, c)
+        row = {"package": single_ms(
+            lambda: fg.fused_gram_vector_cuda(fac, idx, w, c))}
+        for name, lib in libs.items():
+            got = variant_gram(lib, fac, idx, w, c)
+            if not name.startswith("diag_") and not all(
+                    torch.equal(g, x) for g, x in zip(got, want)):
+                raise RuntimeError(f"K1 variant {name} differs from the "
+                                   f"package's build at R={r} L={l} K={k}")
+            row[name] = single_ms(lambda: variant_gram(lib, fac, idx, w, c))
+        del want
+        f = fac.index_select(0, idx.reshape(-1)).reshape(r, l, k)
+        fw = f * w[..., None]
+        row["bmm"] = single_ms(lambda: torch.bmm(fw.mT, f))
+        del f, fw
+        row["bound"] = gram_bound_ms(r, l, k, n)
+        print(f"wide R {r} L {l} K {k} N {n}  " + "  ".join(
+            f"{col} {ms:.4f} ms" for col, ms in row.items()), flush=True)
+        del fac, idx, w, c
+        torch.cuda.empty_cache()
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     which = (sys.argv[1:] if argv is None else list(argv)) or list(SECTIONS)
     dev = require_cuda()
@@ -424,6 +514,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         time_gj(dev)
     if "smem" in which:
         time_smem(dev)
+    if "wide" in which:
+        time_wide(dev)
 
 
 if __name__ == "__main__":

@@ -110,7 +110,11 @@ def _gram_inputs(seed, r, l, k, n=50):
 
 
 @pytest.mark.parametrize("r,l,k", [(5, 16, 8), (3, 37, 10), (9, 1030, 64),
-                                   (1, 8, 3), (2, 40, 200)])
+                                   (1, 8, 3), (2, 40, 200),
+                                   # ranks the band kernel takes on the
+                                   # card (129..256), a padded tail each
+                                   (3, 33, 129), (2, 17, 136), (2, 40, 192),
+                                   (2, 17, 256)])
 def test_gram_plain_matches_pallas_interpret(r, l, k):
     factors, idx, w, c = _gram_inputs(r * l + k, r, l, k)
     want_a, want_b = fused_gram_vector_pallas(

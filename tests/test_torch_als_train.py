@@ -120,7 +120,7 @@ def test_route_choices():
         gram_route="k1", gram_dtype="float32", solver="cholesky", implicit=False)
     assert statics(port_als.ALSConfig(rank=64), cuda) == dict(
         gram_route="k1", gram_dtype="float32", solver="lu", implicit=False)
-    # K1 takes rank 256 (A in 2 x 2 tiles); the solve kernels stop at
+    # K1 takes rank 256 (band_gram_kernel); the solve kernels stop at
     # 128, so "auto" takes the Cholesky solve there, as the reference
     # does above gj_fits_vmem
     assert statics(port_als.ALSConfig(rank=256), cuda) == dict(

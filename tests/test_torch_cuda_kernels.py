@@ -179,7 +179,7 @@ def _gram_inputs(r, l, k, n, seed, dtype):
         torch.from_numpy(c)
 
 
-# K1's edges up to rank 128 (one symmetric-tile kernel): R below, at and
+# K1's edges up to rank 128 (the symmetric-tile kernel): R below, at and
 # past a block's rows, L around the 16-slot pipeline step, odd ranks
 # (rows of no 16-byte width) and both register-tile widths; then R large
 # enough that a block holds several rows and the last block is partial.
@@ -188,6 +188,14 @@ GRAM_EDGES = [(r, l, k) for r in (1, 3, 13) for l in (1, 17, 33, 4096)
 GRAM_MULTI_ROW = [(10_001, 9, 3), (11_111, 17, 10), (5003, 8, 17),
                   (4501, 20, 33), (2001, 33, 64), (601, 50, 100),
                   (3001, 40, 128)]
+# Above rank 128 (one solve row a block, A written in bands): the first
+# rank of each padded width (160, 192, 224, 256), ranks of no 16-byte row,
+# one band (136) and two (200, 255, 256), then more rows than the card
+# holds blocks at once.
+GRAM_WIDE_RANKS = (129, 136, 200, 255, 256)
+GRAM_WIDE = [(r, l, k) for r in (1, 3, 13) for l in (1, 17, 33, 4096)
+             for k in GRAM_WIDE_RANKS] + [(1001, 40, 136), (601, 17, 256),
+                                          (300, 65, 193), (300, 20, 225)]
 
 
 @pytest.mark.cuda
@@ -196,7 +204,8 @@ GRAM_MULTI_ROW = [(10_001, 9, 3), (11_111, 17, 10), (5003, 8, 17),
                                    (37, 1000, 64), (8, 4096, 128),
                                    (300, 200, 17), (5, 33, 100),
                                    (16, 1000, 129), (7, 300, 200),
-                                   (3, 64, 256)] + GRAM_EDGES + GRAM_MULTI_ROW)
+                                   (3, 64, 256)] + GRAM_EDGES + GRAM_MULTI_ROW
+                         + GRAM_WIDE)
 def test_fused_gram_matches_reference(cuda_dev, r, l, k, dtype):
     args = [t.to(cuda_dev) for t in _gram_inputs(r, l, k, 3000, r + l + k,
                                                  dtype)]
@@ -218,7 +227,9 @@ def test_fused_gram_matches_reference(cuda_dev, r, l, k, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("r,l,k", [(5, 17, 10), (2001, 33, 64),
-                                   (13, 64, 128), (9, 40, 200)])
+                                   (13, 64, 128), (13, 64, 129),
+                                   (9, 40, 136), (9, 40, 200), (7, 33, 255),
+                                   (301, 17, 256)])
 def test_fused_gram_padding_rows_are_exact_zero(cuda_dev, r, l, k, dtype):
     """Rows whose every slot is padding (index 0, w = c = 0) give A = 0
     and b = 0 exactly, beside rows that are not."""
@@ -234,10 +245,12 @@ def test_fused_gram_padding_rows_are_exact_zero(cuda_dev, r, l, k, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k", [3, 10, 17, 32, 33, 63, 64, 65, 100, 127, 128])
+@pytest.mark.parametrize("k", [3, 10, 17, 32, 33, 63, 64, 65, 100, 127, 128,
+                               129, 136, 200, 255, 256])
 def test_gram_a_is_exactly_symmetric(cuda_dev, k, dtype):
-    """Up to rank 128 K1 and T1 compute the tiles on or above A's
-    diagonal and write each with its transpose: A equals Aᵀ bitwise."""
+    """At every rank K1 and T1 compute the tiles on or above A's
+    diagonal and write each with its transpose: A equals Aᵀ bitwise, and
+    K1's A equals T1's bitwise."""
     fac, idx, w, c = [t.to(cuda_dev) for t in _gram_inputs(700, 37, k, 3000,
                                                            k, dtype)]
     a, _ = fg.fused_gram_vector(fac, idx, w, c)
